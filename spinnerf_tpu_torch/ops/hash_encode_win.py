@@ -1,0 +1,364 @@
+"""Hash-grid encode with the windowed index function: CUDA kernels for the
+H100 and their plain PyTorch version.
+
+Port of `spinnerf_tpu/ops/hash_encode_win.py`. The index function is
+ported exactly (`corner_indices_weights_win`):
+
+- DENSE levels (a calibrated per-level box (o, e) whose corner codes fit
+  `box_dense_ok`) use shifted morton: idx = morton27(clip(cell - o, 0, e)
+  + corner), injective and global;
+- FINE levels use the Z-CDF page hash: seg = #(page_bounds <= zkey27(point))
+  - 1 and idx = seg * PAGE_ENTRIES + (xor_prime_hash(cell) & (PAGE_ENTRIES-1)).
+
+What the JAX module adds only for the TPU is not ported: the Z-sort (results
+do not depend on point order), the two-page window with its clamp aliasing
+and page packing, and the compare-reduce page lookup (here
+`torch.searchsorted`). The kernels (`csrc/hash_encode_win.cu`) gather
+directly, so they compute `hash_encode_exact(table,
+*corner_indices_weights_win(...))` at any point count.
+
+Layout: points are rows, `x` is [N, 3] in [0, 1] (the JAX functions take
+the coords-major [3, N] transpose).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from spinnerf_tpu_torch.ops import cuda_build
+
+_PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+
+PAGE_ENTRIES = 1024
+WINDOW_ENTRIES = 2 * PAGE_ENTRIES
+# Max entry count of a calibrated dense box (the JAX package's window-span
+# bound; kept because it is part of the index semantics).
+DENSE_BOX_CAP = 32 * PAGE_ENTRIES
+_MAX_LEVELS = 32        # HE_MAX_LEVELS in the CUDA source
+
+# Kernel launches by the wrapper, counted where it launches and nowhere else.
+launches = {"fwd": 0, "bwd": 0}
+
+
+# -----------------------------------------------------------------------------
+# Morton codes — uint32 arithmetic held in int64 tensors
+# -----------------------------------------------------------------------------
+
+def _spread9(v):
+    """Spread the low 9 bits of v so they occupy every 3rd bit (27 bits)."""
+    v = v & 0x1FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton27(cx, cy, cz):
+    """27-bit Morton interleave of the low 9 bits of each axis."""
+    return _spread9(cx) | (_spread9(cy) << 1) | (_spread9(cz) << 2)
+
+
+def zkey27(x):
+    """[N] int64 Z-order key of each point on the fixed 512^3 partition grid
+    (morton27 of floor(x*512)). x: [N, 3] in [0, 1]."""
+    rc = torch.clamp((x * 512.0).to(torch.int64), 0, 511)
+    return morton27(rc[:, 0], rc[:, 1], rc[:, 2])
+
+
+# -----------------------------------------------------------------------------
+# index semantics: Z-CDF page bounds and shifted-morton dense boxes
+# -----------------------------------------------------------------------------
+
+def n_segments(t: int):
+    return t // PAGE_ENTRIES
+
+
+def uniform_bounds(t: int):
+    """Equal Z-volume split of the 2^27 key space over t//PAGE_ENTRIES
+    segments — the uncalibrated default."""
+    n = n_segments(t)
+    step = (1 << 27) // n
+    return tuple(k * step for k in range(n))
+
+
+def normalize_bounds(t: int, page_bounds):
+    """Validated Z-CDF segment boundaries: a sorted tuple of t//PAGE_ENTRIES
+    int keys in [0, 2^27), first 0. None -> `uniform_bounds`."""
+    if page_bounds is None:
+        return uniform_bounds(t)
+    b = tuple(int(v) for v in page_bounds)
+    if len(b) != n_segments(t):
+        raise ValueError(f"page_bounds must have {n_segments(t)} entries, "
+                         f"got {len(b)}")
+    if b[0] != 0:
+        raise ValueError("page_bounds[0] must be 0")
+    if any(lo > hi for lo, hi in zip(b, b[1:])) or b[-1] >= (1 << 27):
+        raise ValueError("page_bounds must be sorted and < 2^27")
+    return b
+
+
+def bounds_tensor(t: int, page_bounds, device=None):
+    """`normalize_bounds` as an int64 tensor (what `page_lookup` searches)."""
+    return torch.tensor(normalize_bounds(t, page_bounds), dtype=torch.int64,
+                        device=device)
+
+
+def page_lookup(z27, t: int, page_bounds=None):
+    """(base [N] int64, capmask [N] int64) for per-point Z-keys: base =
+    PAGE_ENTRIES * (#bounds <= key - 1). `page_bounds` is a tuple (or None
+    for uniform bounds) or a tensor from `bounds_tensor`. searchsorted with
+    right=True counts repeated bounds as the JAX compare-reduce does."""
+    if not torch.is_tensor(page_bounds):
+        page_bounds = bounds_tensor(t, page_bounds, z27.device)
+    page = torch.searchsorted(page_bounds, z27.to(torch.int64), right=True) - 1
+    base = page * PAGE_ENTRIES
+    return base, torch.full_like(base, PAGE_ENTRIES - 1)
+
+
+def box_morton_span(e) -> int:
+    """Upper bound (exclusive) of shifted-morton corner codes for a box with
+    per-axis cell extents e: corners reach e_a + 1."""
+    bits = max(int(np.ceil(np.log2(int(a) + 2))) for a in e)
+    return 1 << (3 * bits)
+
+
+def box_dense_ok(e, t: int, cap: int = DENSE_BOX_CAP) -> bool:
+    """A box qualifies for the injective shifted-morton regime when its corner
+    codes fit the level's table row, fit `cap`, and fit morton27's 9-bit
+    coordinates."""
+    return (box_morton_span(e) <= min(t, cap)
+            and max(int(a) for a in e) + 1 <= 511)
+
+
+def default_dense_box(resolutions, t: int):
+    """Uncalibrated dense boxes: the whole grid where its corner codes fit one
+    2048-entry window (res <= 7); None (page hash) elsewhere."""
+    out = []
+    for r in resolutions:
+        e = (r - 1, r - 1, r - 1)
+        out.append(((0, 0, 0) + e)
+                   if box_dense_ok(e, t, cap=WINDOW_ENTRIES) else None)
+    return tuple(out)
+
+
+def normalize_dense_box(resolutions, t: int, dense_box):
+    """Validated per-level dense boxes: one entry per level, None (page-hash
+    regime) or 6 ints (ox, oy, oz, ex, ey, ez). None for the whole argument
+    selects `default_dense_box`."""
+    if dense_box is None:
+        return default_dense_box(resolutions, t)
+    if len(dense_box) != len(resolutions):
+        raise ValueError(f"dense_box must have {len(resolutions)} entries, "
+                         f"got {len(dense_box)}")
+    out = []
+    for r, box in zip(resolutions, dense_box):
+        if box is None:
+            out.append(None)
+            continue
+        o, e = [int(v) for v in box[:3]], [int(v) for v in box[3:]]
+        if len(box) != 6 or min(o) < 0 or min(e) < 0:
+            raise ValueError(f"dense_box entry must be 6 ints >= 0: {box}")
+        if any(oa + ea > r - 1 for oa, ea in zip(o, e)):
+            raise ValueError(f"dense_box {box} exceeds the res-{r} grid")
+        if not box_dense_ok(e, t):
+            raise ValueError(f"dense_box {box} does not qualify for the "
+                             f"dense regime at table size {t}")
+        out.append(tuple(o) + tuple(e))
+    return tuple(out)
+
+
+def level_scalars(resolutions, t: int, dense_box):
+    """[L][8] ints per level: (resolution, dense flag, box origin ox/oy/oz,
+    box extents ex/ey/ez) of the normalized dense boxes — the kernels'
+    per-level row (`_res_scalars` in the JAX module)."""
+    rows = []
+    for r, box in zip(resolutions, normalize_dense_box(resolutions, t,
+                                                       dense_box)):
+        b = box if box is not None else (0, 0, 0, 0, 0, 0)
+        rows.append([int(r), int(box is not None), *[int(v) for v in b]])
+    return rows
+
+
+# -----------------------------------------------------------------------------
+# the plain version
+# -----------------------------------------------------------------------------
+
+def corner_indices_weights_win(x, resolutions, t: int, page_bounds=None,
+                               dense_box=None):
+    """(idx [L, 8, N] int64, w [L, 8, N] f32) of the 8 cell corners of each
+    point [N, 3] in [0, 1] at every level, with the two-regime index of the
+    module docstring. Corner ci takes the +1 cell on x, y, z where bits 2, 1,
+    0 of ci are set. f32 operations round in the JAX function's order, and
+    uint32 products wrap (int64 arithmetic masked to 32 bits)."""
+    if t & (t - 1):
+        raise ValueError("table size must be a power of two")
+    dense_box = normalize_dense_box(resolutions, t, dense_box)
+    base, capm = page_lookup(zkey27(x), t, page_bounds)
+    idx_l, w_l = [], []
+    for r, box in zip(resolutions, dense_box):
+        xs = x * float(r)                                   # [N, 3] f32
+        # clamp to the grid's last cell: a boundary point x == 1.0 lands in
+        # cell r-1 with frac 1
+        x0f = torch.clamp(torch.floor(xs), max=float(r) - 1.0)
+        frac = xs - x0f
+        x0 = x0f.to(torch.int64)
+        fr = [(1.0 - frac[:, a], frac[:, a]) for a in range(3)]
+        if box is not None:
+            cs = [torch.clamp(x0f[:, a] - float(box[a]), 0.0, float(box[3 + a]))
+                  .to(torch.int64) for a in range(3)]
+            sp = [[_spread9(cs[a] + d) << a for a in range(3)] for d in (0, 1)]
+        idx_c, w_c = [], []
+        for ci in range(8):
+            i, j, k = (ci >> 2) & 1, (ci >> 1) & 1, ci & 1
+            if box is not None:
+                idx_c.append(sp[i][0] | sp[j][1] | sp[k][2])
+            else:
+                cx = x0[:, 0] + i
+                cy = x0[:, 1] + j
+                cz = x0[:, 2] + k
+                h = cx ^ ((cy * _PRIMES[1]) & _U32) ^ ((cz * _PRIMES[2]) & _U32)
+                idx_c.append(base + (h & capm))
+            w_c.append(fr[0][i] * fr[1][j] * fr[2][k])
+        idx_l.append(torch.stack(idx_c))
+        w_l.append(torch.stack(w_c))
+    return torch.stack(idx_l), torch.stack(w_l)
+
+
+def hash_encode_exact(table, idx, weights):
+    """Plain gather + trilinear blend: table [L, T, F], idx/weights
+    [L, 8, N] -> [N, L*F], level-major columns. Differentiable wrt table
+    through autograd (an index_put accumulate)."""
+    l, t, f = table.shape
+    n = idx.shape[2]
+    lvl = torch.arange(l, device=table.device)[:, None, None]
+    feats = table[lvl, idx]                                 # [L, 8, N, F]
+    out = torch.sum(feats * weights[..., None].to(feats.dtype), dim=1)
+    return out.permute(1, 0, 2).reshape(n, l * f)
+
+
+def hash_encode_plain(table, x, resolutions, page_bounds=None,
+                      dense_box=None):
+    """The kernels' plain PyTorch version on any device: [N, L*F]."""
+    idx, w = corner_indices_weights_win(x, resolutions, table.shape[1],
+                                        page_bounds, dense_box)
+    return hash_encode_exact(table, idx, w)
+
+
+# -----------------------------------------------------------------------------
+# the CUDA kernels
+# -----------------------------------------------------------------------------
+
+def _lib():
+    lib = cuda_build.load("hash_encode_win")
+    if not getattr(lib, "_he_typed", False):
+        args = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_longlong, ctypes.c_void_p]
+        for fn in (lib.he_win_fwd, lib.he_win_bwd):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.he_error_string.argtypes = [ctypes.c_int]
+        lib.he_error_string.restype = ctypes.c_char_p
+        lib._he_typed = True
+    return lib
+
+
+def _launch(fn_name: str, src, x, base, rows, dst, levels: int, t: int):
+    """Validate the point inputs, then launch `fn_name` on the current
+    stream and raise on a launch error."""
+    n = x.shape[0]
+    if not (x.is_cuda and base.is_cuda and src.device == x.device == base.device):
+        raise ValueError("kernel inputs must be CUDA tensors on one device")
+    if x.dtype != torch.float32 or x.shape != (n, 3) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous float32 [N, 3], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if base.dtype != torch.int32 or base.shape != (n,) or not base.is_contiguous():
+        raise ValueError("base must be a contiguous int32 [N] (point_base)")
+    if len(rows) != levels or not 0 < levels <= _MAX_LEVELS:
+        raise ValueError(f"{len(rows)} level rows for {levels} levels "
+                         f"(at most {_MAX_LEVELS})")
+    if t & (t - 1) or t < PAGE_ENTRIES:
+        raise ValueError(f"table size {t} must be a power of two >= "
+                         f"{PAGE_ENTRIES}")
+    lib = _lib()
+    rows_c = (ctypes.c_int * (levels * 8))(*[v for r in rows for v in r])
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = getattr(lib, fn_name)(
+        src.data_ptr(), x.data_ptr(), base.data_ptr(),
+        ctypes.cast(rows_c, ctypes.c_void_p), dst.data_ptr(), n, levels, t,
+        stream)
+    if err:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.he_error_string(err).decode()}")
+
+
+def point_base(x, t: int, page_bounds):
+    """[N] int32 segment base per point (`_point_bc` in the JAX module)."""
+    base, _ = page_lookup(zkey27(x), t, page_bounds)
+    return base.to(torch.int32).contiguous()
+
+
+def hash_encode_win_fwd_kernel(table, x, base, rows):
+    """One launch of the forward kernel: [N, L*2] f32 (no autograd). base
+    from `point_base`, rows from `level_scalars`."""
+    if (table.dtype != torch.float32 or table.ndim != 3
+            or table.shape[2] != 2 or not table.is_contiguous()):
+        raise ValueError(f"table must be a contiguous float32 [L, T, 2], got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    l, t, _ = table.shape
+    out = torch.empty((x.shape[0], 2 * l), dtype=torch.float32,
+                      device=table.device)
+    _launch("he_win_fwd", table, x, base, rows, out, l, t)
+    launches["fwd"] += 1
+    return out
+
+
+def hash_encode_win_bwd_kernel(g, x, base, rows, table_shape):
+    """One launch of the backward (its direct kernel, and the shared-memory
+    kernel for coarse dense levels): the [L, T, 2] f32 table gradient of the
+    encode for cotangent g [N, L*2]."""
+    l, t, _ = table_shape
+    if g.shape != (x.shape[0], 2 * l):
+        raise ValueError(f"cotangent must be [{x.shape[0]}, {2 * l}], got "
+                         f"{tuple(g.shape)}")
+    g = g.to(torch.float32).contiguous()
+    dtable = torch.zeros(table_shape, dtype=torch.float32, device=g.device)
+    _launch("he_win_bwd", g, x, base, rows, dtable, l, t)
+    launches["bwd"] += 1
+    return dtable
+
+
+class _HashEncodeWin(torch.autograd.Function):
+    """Kernel forward and backward; the gradient flows to the table only
+    (sample positions are not trainable), as in the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, table, x, base, rows):
+        ctx.save_for_backward(x, base)
+        ctx.rows = rows
+        ctx.table_shape = tuple(table.shape)
+        return hash_encode_win_fwd_kernel(table, x, base, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, base = ctx.saved_tensors
+        dtable = hash_encode_win_bwd_kernel(g, x, base, ctx.rows,
+                                            ctx.table_shape)
+        return dtable, None, None, None
+
+
+def hash_encode_win_fused(table, x, resolutions, page_bounds=None,
+                          dense_box=None):
+    """Hash-grid encode of points x [N, 3] in [0, 1] with table [L, T, 2]:
+    [N, L*2] f32, level-major columns, differentiable wrt the table.
+
+    CUDA tensors launch the kernels (or raise); CPU tensors take the plain
+    version. `page_bounds` may be a tuple, None, or a `bounds_tensor`."""
+    if not table.is_cuda:
+        return hash_encode_plain(table, x, resolutions, page_bounds, dense_box)
+    rows = level_scalars(resolutions, table.shape[1], dense_box)
+    base = point_base(x, table.shape[1], page_bounds)
+    return _HashEncodeWin.apply(table, x, base, rows)

@@ -1,0 +1,284 @@
+"""Training orchestration: config -> scene -> ray bank -> fused step -> loop
+(port of `spinnerf_tpu/train/loop.py`, hash-grid field).
+
+Hooks ported: console metrics (`i_print`), checkpoints (`i_weights`) and the
+`page_bounds.json` sidecar that pins the hash index semantics to the
+experiment. The JAX trainer's other options and hooks raise
+NotImplementedError naming their ROADMAP.md entry instead of being skipped.
+"""
+from __future__ import annotations
+
+import json
+import time
+
+import numpy as np
+import torch
+
+from spinnerf_tpu_torch import resolve_device
+from spinnerf_tpu_torch.config import Config
+from spinnerf_tpu_torch.core.rendering import RenderConfig
+from spinnerf_tpu_torch.data import llff, raybank
+from spinnerf_tpu_torch.models.hashgrid import (HashGridField,
+                                                calibrate_dense_box,
+                                                calibrate_page_bounds,
+                                                level_resolutions)
+from spinnerf_tpu_torch.train import checkpoints, schedule
+from spinnerf_tpu_torch.train.step import (TrainConfig, _active_groups,
+                                           init_params, make_train_step)
+
+_QUEUE_A = "ROADMAP.md queue A"
+
+
+def _unported(what: str, entry: str):
+    return NotImplementedError(f"{what} is not ported yet; see {entry}")
+
+
+def build_model(cfg: Config, semantic: bool = False, device=None,
+                page_bounds=None, dense_box=None) -> HashGridField:
+    """The hash-grid field of a Config (the reference's default NeRF_TCNN)."""
+    if cfg.no_tcnn:
+        raise _unported("the MLP field (--no_tcnn, fused_mlp_pe)",
+                        "ROADMAP.md queue B, kernels #9/#10")
+    return HashGridField(semantic=semantic,
+                         log2_table_size=cfg.log2_hashmap_size,
+                         impl=cfg.hash_impl,
+                         compute_dtype=getattr(torch, cfg.compute_dtype),
+                         page_bounds=page_bounds, dense_box=dense_box,
+                         device=device)
+
+
+def _scene_hash_calibration(bank, model):
+    """(Z-CDF segment boundaries, per-level shifted-morton dense boxes) from
+    a deterministic stratified pixel/depth grid over the training poses —
+    the same numpy computation as the JAX trainer, so both pin the same
+    sidecar for a scene."""
+    h, w, focal = bank.hwf
+    poses = bank.poses.cpu().numpy()
+    ys = np.linspace(0.5, h - 0.5, 24)
+    xs = np.linspace(0.5, w - 0.5, 24)
+    xx, yy = np.meshgrid(xs, ys)
+    dirs = np.stack([(xx - w * 0.5) / focal, -(yy - h * 0.5) / focal,
+                     -np.ones_like(xx)], -1)                # [24, 24, 3]
+    ts = (np.linspace(bank.near, bank.far, 12, endpoint=False)
+          + (bank.far - bank.near) / 24.0)
+    pts = []
+    for p in poses:
+        rd = dirs @ p[:3, :3].T
+        pts.append((p[:3, 3] + ts[:, None, None, None] * rd[None])
+                   .reshape(-1, 3))
+    x01 = np.clip((np.concatenate(pts) + model.bound) / (2.0 * model.bound),
+                  0.0, 1.0)
+    resolutions = level_resolutions(model.n_levels, model.base_res,
+                                    model.finest_res_per_unit * model.bound)
+    return (calibrate_page_bounds(x01, model.log2_table_size),
+            calibrate_dense_box(x01, resolutions, model.log2_table_size))
+
+
+def render_config(cfg: Config, *, train: bool) -> RenderConfig:
+    return RenderConfig(
+        n_samples=cfg.N_samples,
+        n_importance=cfg.N_importance,
+        perturb=bool(cfg.perturb) and train,
+        lindisp=cfg.lindisp,
+        raw_noise_std=cfg.raw_noise_std if train else 0.0,
+        white_bkgd=cfg.white_bkgd,
+        semantic=cfg.mvseg,
+        only_object=cfg.object_removal and not train,
+    )
+
+
+def train_config(cfg: Config) -> TrainConfig:
+    return TrainConfig(
+        render=render_config(cfg, train=True),
+        n_rand=cfg.N_rand,
+        prepare=cfg.prepare,
+        masked_nerf=cfg.masked_NeRF,
+        object_removal=cfg.object_removal,
+        no_geometry=cfg.no_geometry,
+        use_coarse_loss=not cfg.no_coarse,
+        single_image=cfg.no_batching,
+        epoch_sampling=cfg.epoch_sampling,
+        depth_supervision=cfg.colmap_depth and cfg.depth_loss,
+        depth_with_rgb=cfg.depth_with_rgb,
+        depth_lambda=cfg.depth_lambda,
+        weighted_loss=cfg.weighted_loss,
+        relative_loss=cfg.relative_loss,
+        normalize_depth=cfg.normalize_depth,
+        sigma_loss=cfg.sigma_loss,
+        sigma_lambda=cfg.sigma_lambda,
+        semantic=cfg.mvseg,
+        clf_weight=cfg.clf_weight,
+        distortion_weight=cfg.distortion_weight,
+    )
+
+
+def _check_ported(cfg: Config, scene):
+    if scene is None:
+        raise _unported("loading a scene from disk (data/dispatch.py, "
+                        "llff.load_scene)", _QUEUE_A)
+    if cfg.colmap_depth:
+        raise _unported("COLMAP sparse depth (--colmap_depth; data/colmap.py, "
+                        "colmap_fast.py)", _QUEUE_A)
+    if cfg.lpips:
+        raise _unported("the patch-LPIPS loss (--lpips; models/lpips.py, "
+                        "train/lpips_patch.py)", _QUEUE_A)
+    if cfg.alpha_model_path:
+        raise _unported("the frozen-density mode (--alpha_model_path)",
+                        _QUEUE_A)
+    if cfg.ft_path:
+        raise _unported("--ft_path weight loading", _QUEUE_A)
+    if cfg.mesh_shape > 1:
+        raise _unported("data parallelism over several cards (--mesh_shape)",
+                        _QUEUE_A)
+
+
+class Trainer:
+    """End-to-end DS-NeRF-style trainer on one scene, on one device."""
+
+    def _persist_page_bounds(self, bounds, dense_box):
+        """Pin the hash index semantics (Z-CDF page bounds and dense boxes)
+        to the experiment: `page_bounds.json` is written on the first run
+        and read back, overriding the flag-derived value, on every resume.
+        A sidecar without "dense_box" pins dense_box=None."""
+        legacy = self.exp_dir / "region_caps.json"
+        if legacy.exists() and json.loads(legacy.read_text()).get(
+                "region_caps") is not None:
+            raise RuntimeError(
+                f"{legacy} pins the retired per-region-capacity index "
+                f"scheme; this build indexes by Z-CDF page bounds. Retrain "
+                f"the experiment (or delete the sidecar if the checkpoints "
+                f"are disposable).")
+        path = self.exp_dir / "page_bounds.json"
+        if path.exists():
+            data = json.loads(path.read_text())
+            saved = data["page_bounds"]
+            saved = None if saved is None else tuple(int(c) for c in saved)
+            saved_box = data.get("dense_box")
+            saved_box = (None if saved_box is None else tuple(
+                None if b is None else tuple(int(v) for v in b)
+                for b in saved_box))
+            if saved != bounds or saved_box != dense_box:
+                self.log(
+                    f"page_bounds: using the experiment's pinned value from "
+                    f"{path.name} ({'calibrated' if saved else 'uniform'}); "
+                    f"the flag-derived value differs and is ignored")
+            return saved, saved_box
+        path.write_text(json.dumps(
+            {"page_bounds": None if bounds is None else list(bounds),
+             "dense_box": None if dense_box is None else
+             [None if b is None else list(b) for b in dense_box]}))
+        return bounds, dense_box
+
+    def __init__(self, cfg: Config, *, scene: llff.Scene | None = None,
+                 device=None, log=print):
+        _check_ported(cfg, scene)
+        self.cfg = cfg
+        self.log = log
+        self.device = resolve_device(device)
+        self.exp_dir = cfg.exp_dir()
+        self.exp_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save()
+
+        self.scene = scene
+        self.i_train, self.i_test = llff.train_test_split(
+            len(scene.images), n_gt=cfg.N_gt, train_gt=cfg.train_gt,
+            llffhold=0 if cfg.llffhold >= 1000000 else cfg.llffhold,
+            n_train=cfg.N_train,
+            train_scene=cfg.train_scene, test_scene=cfg.test_scene)
+        use_ndc = (cfg.ndc if cfg.dataset_type in ("llff", "nerd")
+                   and not cfg.no_ndc else False)
+        self.bank = raybank.build_raybank(
+            scene, self.i_train, prepare=cfg.prepare, train_gt=cfg.train_gt,
+            semantic=cfg.mvseg, ndc=use_ndc, device=self.device)
+
+        # the calibration is part of the table's index semantics: the
+        # experiment dir pins it (`_persist_page_bounds`)
+        probe = build_model(cfg, semantic=cfg.mvseg, device="meta")
+        bounds, dense_box = (_scene_hash_calibration(self.bank, probe)
+                             if cfg.hash_region_calib else (None, None))
+        bounds, dense_box = self._persist_page_bounds(bounds, dense_box)
+
+        def make_model():
+            return build_model(cfg, semantic=cfg.mvseg, device=self.device,
+                               page_bounds=bounds, dense_box=dense_box)
+
+        self.tcfg = train_config(cfg)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.fields = init_params(make_model, gen,
+                                  n_importance=cfg.N_importance)
+        self.model = self.fields["coarse"]
+        self.optimizer = schedule.make_optimizer(
+            self.fields.named_parameters(), cfg.lrate, cfg.lrate_decay,
+            cfg.grad_clip, table_wd=cfg.table_wd)
+        self.step_fn = make_train_step(self.fields, self.tcfg, self.bank,
+                                       self.optimizer)
+        # draws the stratified jitter and importance uniforms on the device
+        self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self.step = 0
+
+        self.ckpt = checkpoints.CheckpointManager(
+            self.exp_dir, save_interval=cfg.i_weights)
+        if not cfg.no_reload:
+            step, restored = self.ckpt.restore(map_location=self.device)
+            if step is not None:
+                self.fields.load_state_dict(restored["params"])
+                self.optimizer.load_state_dict(restored["opt_state"])
+                self.step = step
+                self.log(f"resumed from checkpoint at step {step}")
+
+    def field_fns(self):
+        """(coarse, fine) field callables (pts, viewdirs) -> raw."""
+        coarse = self.fields["coarse"]
+        return coarse, self.fields["fine"] if "fine" in self.fields else coarse
+
+    def _batches_per_step(self) -> int:
+        """Ray batches the fused step renders — the rays/s denominator."""
+        return len(_active_groups(self.tcfg, self.bank))
+
+    def _check_hooks(self, start: int, n_iters: int):
+        """Raise before training if an unported hook would fire in range."""
+        cfg = self.cfg
+        steps = range(start, n_iters + 1)
+
+        def fires(every):
+            return bool(every) and any(i % every == 0 for i in steps)
+
+        if fires(cfg.i_video):
+            raise _unported("the spiral video hook (i_video; eval/render.py)",
+                            _QUEUE_A)
+        if fires(cfg.i_testset) and len(self.i_test):
+            raise _unported("the testset hook (i_testset; eval/render.py)",
+                            _QUEUE_A)
+        if cfg.prepare and cfg.i_feat and len(steps):
+            raise _unported("the prepare disparity dump (i_feat with "
+                            "--prepare; eval/render.py)", _QUEUE_A)
+        if not cfg.prepare and cfg.i_feat > 10 and fires(cfg.i_feat):
+            raise _unported("the sanity-panel hook (i_feat)", _QUEUE_A)
+        if cfg.mvseg and fires(cfg.i_img):
+            raise _unported("the MVSeg panel hook (i_img)", _QUEUE_A)
+
+    def fit(self, n_iters: int | None = None, *, hooks: bool = True):
+        """Train to step `n_iters` (default N_iters). Returns the metrics of
+        the last step."""
+        cfg = self.cfg
+        n_iters = cfg.N_iters if n_iters is None else n_iters
+        if hooks:
+            self._check_hooks(self.step + 1, n_iters)
+        t0 = time.time()
+        rays_done = 0
+        metrics = {}
+        for i in range(self.step + 1, n_iters + 1):
+            metrics = self.step_fn(i, self.generator)
+            self.step = i
+            rays_done += self.tcfg.n_rand * self._batches_per_step()
+            if not hooks:
+                continue
+            if cfg.i_print and i % cfg.i_print == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = time.time() - t0
+                self.log(f"[{i}/{n_iters}] loss {m['loss']:.4f} "
+                         f"psnr {m['psnr']:.2f} "
+                         f"({rays_done / max(dt, 1e-9):.0f} rays/s)")
+            self.ckpt.maybe_save(i, self.fields.state_dict(),
+                                 self.optimizer.state_dict())
+        return metrics
