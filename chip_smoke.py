@@ -7,20 +7,28 @@
 
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
-  2. build the CUDA kernels from csrc/ with nvcc (timed);
+  2. build the CUDA kernels from csrc/ with nvcc, one process per source,
+     started together (timed);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
      table, 262,144 points from the trainer's calibrated ray distribution;
      time kernel and plain version with CUDA events;
-  4. the main path: `Trainer` at the default prepare configuration
-     (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16 MLPs, 1024 rays
-     x 64+64 samples) on an in-memory synthetic scene of 12 views at
-     252 x 336, for 200 steps, with the kernel launch counts set to 0 just
-     before and read just after;
-  5. render a held-out view with `render_rays_chunked` and check it.
-It prints a `kernels` JSON line, then the nvidia-smi line, then as its last
-line {"ok": true, "device": {...}}. It exits non-zero, and prints no result,
-when no card is present or the port is not importable beside it.
+  4. the hash arm of the main path: `Trainer` at the default prepare
+     configuration (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16
+     MLPs, 1024 rays x 64+64 samples) on an in-memory synthetic scene of 12
+     views at 252 x 336, for 200 steps, with the kernel launch counts set to
+     0 just before and read just after;
+  5. render a held-out view with `render_rays_chunked` and check it;
+  6. hold the fused encode+MLP kernels (forward and backward) against their
+     plain version evaluated in float64 at the fine pass's shape (262,144
+     points, 8 x 256, skip 4) and, with the semantic head, at 131,072
+     points; time kernel, plain version and a chain of bf16 torch.matmul
+     calls (the yardstick) with CUDA events;
+  7. the MLP arm of the main path: `Trainer` at
+     `Config(prepare=True, no_tcnn=True, lrate=5e-4, lrate_decay=250)`
+     (8 x 256 fields, 64+64 samples, 2 groups x 1024 rays) on the same
+     scene for 200 steps, launch counts set to 0 just before, read after;
+  8. render the held-out view with the MLP fields.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ STEPS = 200
 N_POINTS = 2048 * 128          # the fine pass of one step: 2 groups x 1024 rays
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
+N_POINTS_SEM = 1024 * 128      # the semantic-head check
 
 
 def log(msg):
@@ -204,6 +214,266 @@ def compare_kernels(trainer):
     return records
 
 
+def bank_points(trainer, n_rays, seed):
+    """(pts [n_rays, 128, 3], viewdirs [n_rays, 3]) as the fine pass draws
+    them: bank rays of the 'clf' group x 128 stratified depths."""
+    import torch
+
+    from spinnerf_tpu_torch.core import sampling
+    from spinnerf_tpu_torch.data import raybank
+    gen = torch.Generator(trainer.device).manual_seed(seed)
+    batch, _ = raybank.sample_group(trainer.bank, "clf", n_rays, step=1)
+    z = sampling.stratified_z_vals(batch["near"], batch["far"], 128,
+                                   generator=gen)
+    return (sampling.ray_points(batch["origins"], batch["directions"], z),
+            batch["viewdirs"])
+
+
+def mlp_flops(dims):
+    """(forward, backward) multiply-add FLOPs per point that the fused MLP's
+    function needs: the encodings counted at their unpadded widths (the
+    products on the zero padding lanes are the kernel's, not the
+    function's). The forward's products; the backward's recompute (all but
+    the heads), weight gradients (every product) and the gradients of the
+    activations it needs (the trunk's hidden part, the feature, the view
+    layer's feature part, the heads)."""
+    w, vw = dims.width, dims.view_width
+    enc_x = 3 * (1 + 2 * dims.multires)
+    enc_d = 3 * (1 + 2 * dims.multires_views)
+    heads = [(w, 1)] * (1 + dims.out_extra) + [(vw, 3)]
+    body = [(enc_x if i == 0 else
+             enc_x + w if i == dims.skip + 1 else w, w)
+            for i in range(dims.depth)]
+    body += [(w, w), (w + enc_d, vw)]
+    dx = [(w, w)] * (dims.depth - 1) + [(w, w), (w, vw)] + heads
+    fwd = 2 * sum(k * n for k, n in body + heads)
+    bwd = (2 * sum(k * n for k, n in body) + fwd
+           + 2 * sum(k * n for k, n in dx))
+    return fwd, bwd
+
+
+def library_chain(weights, dims):
+    """The yardstick: the same MLP as a chain of bf16 torch.matmul calls
+    (cuBLAS) with the encoding in PyTorch and f32 biases. Returns (fwd(xd),
+    the bf16 leaves it differentiates). Timed only; the port never calls
+    it."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    leaves = {n: (w.to(torch.bfloat16) if n.endswith("_w")
+                  or n.startswith("tw") else w.clone()).requires_grad_()
+              for n, w in weights.items()}
+
+    def dense(a, w, b):
+        return torch.matmul(a, leaves[w]).float() + leaves[b]
+
+    def fwd(xd):
+        x = fm.encode(xd, dims.multires, 0, dims.in_dim).bfloat16()
+        d = fm.encode(xd, dims.multires_views, 3, dims.dir_dim).bfloat16()
+        h = x
+        for i in range(dims.depth):
+            h = torch.relu(dense(h, f"tw{i}", f"tb{i}")).bfloat16()
+            if i == dims.skip:
+                h = torch.cat([x, h], dim=-1)
+        heads = [dense(h, "sigma_w", "sigma_b")]
+        if dims.out_extra:
+            heads.append(dense(h, "sem_w", "sem_b"))
+        feat = dense(h, "feat_w", "feat_b").bfloat16()
+        v = torch.relu(dense(torch.cat([feat, d], -1), "view_w",
+                             "view_b")).bfloat16()
+        return torch.cat([dense(v, "rgb_w", "rgb_b")] + heads, dim=-1)
+
+    return fwd, leaves
+
+
+def out_of_bound(errs):
+    """Names whose kernel error (relative to max |value| of the float64
+    evaluation) exceeds twice the plain f32 version's own, or 1e-2.
+    errs: name -> (kernel error, plain error, ...)."""
+    return [n for n, (k, q, *_) in errs.items()
+            if not (k <= 2 * q and k <= 1e-2)]
+
+
+def compare_mlp_kernels(trainer):
+    """Phase 6: the fused MLP kernels against their plain version evaluated
+    in float64 (same bf16 roundings). Returns the per-kernel records
+    (without launch counts)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    dev = trainer.device
+    ms = {}
+    for semantic, n_rays in ((False, N_POINTS // 128),
+                             (True, N_POINTS_SEM // 128)):
+        field = fm.FusedMLPField(semantic=semantic, device=dev)
+        field.reset_parameters(torch.Generator().manual_seed(4))
+        dims = field.dims
+        gen = torch.Generator().manual_seed(5)
+        w = {n: p.detach().clone() for n, p in field.weights.items()}
+        for n in w:     # non-zero biases, so that every bias path counts
+            if n.endswith("_b") or n.startswith("tb"):
+                w[n] = (torch.randn(w[n].shape, generator=gen) * 0.1).to(dev)
+        pts, vd = bank_points(trainer, n_rays, seed=1)
+        p = pts.shape[0] * pts.shape[1]
+        xd = torch.cat([pts.reshape(-1, 3),
+                        vd[:, None].expand(pts.shape).reshape(-1, 3),
+                        torch.zeros((p, 2), device=dev)], -1).contiguous()
+        g = torch.randn((p, 4 + dims.out_extra), generator=gen).to(dev)
+
+        out_k = fm.fused_mlp_pe_fwd_kernel(w, xd, dims)
+        d_k = fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)
+        out_p = fm.fused_mlp_pe_plain(w, xd, dims)
+        d_p = fm.fused_mlp_pe_bwd_plain(w, xd, g, dims)
+        out_64 = fm.fused_mlp_pe_plain(w, xd, dims, torch.float64)
+        d_64 = fm.fused_mlp_pe_bwd_plain(w, xd, g, dims, torch.float64)
+        torch.cuda.synchronize()
+
+        # bound: the kernel's error relative to max |value| at most twice
+        # the plain f32 version's own error against the float64 evaluation,
+        # and at most 1e-2
+        def rel(a, b):
+            return float((a.double() - b).abs().max() / b.abs().max())
+
+        errs = {"out": (rel(out_k, out_64), rel(out_p, out_64),
+                        float((out_k.double() - out_64).abs().max()))}
+        errs.update({n: (rel(d_k[n], d_64[n]), rel(d_p[n], d_64[n]),
+                         float((d_k[n].double() - d_64[n]).abs().max()))
+                     for n in d_64})
+        log(f"[mlp kernels] P={p} out_extra={dims.out_extra}: relative "
+            f"error vs the plain version in float64, kernel / plain f32:")
+        log("  " + ", ".join(f"{n} {k:.3e}/{q:.3e}"
+                             for n, (k, q, _) in errs.items()))
+        bad = out_of_bound(errs)
+        finite = torch.isfinite(out_k).all() and all(
+            torch.isfinite(v).all() for v in d_k.values())
+        if bad or not finite:
+            raise AssertionError(f"fused MLP kernels disagree with the plain "
+                                 f"version (bound: 2 x plain f32 and 1e-2): "
+                                 f"{bad}, finite {bool(finite)}")
+
+        # the autograd wrapper on CUDA tensors goes through the kernels
+        leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
+        out_a = fm.fused_mlp_pe(leaves, xd, dims)
+        out_a.backward(g)
+        if not torch.equal(out_a.detach(), out_k):
+            raise AssertionError("autograd wrapper forward differs from kernel")
+        if out_of_bound({n: (rel(leaves[n].grad, d_64[n]), errs[n][1])
+                         for n in d_64}):
+            raise AssertionError("autograd wrapper backward out of bound")
+        del d_p, out_64, d_64, leaves, out_a
+        if semantic:
+            continue
+
+        lib_fwd, lib_leaves = library_chain(w, dims)
+        with torch.no_grad():
+            ms["lib_fwd"] = cuda_ms(lambda: lib_fwd(xd))
+        out_l = lib_fwd(xd)
+        ms["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            out_l, list(lib_leaves.values()), g, retain_graph=True))
+        del out_l
+        ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_fwd_kernel(w, xd, dims))
+        ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g,
+                                                               dims))
+        ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_plain(w, xd, dims))
+        ms["plain_bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g,
+                                                                   dims))
+        fwd_flops, bwd_flops = (f * p for f in mlp_flops(dims))
+        n_w = sum(v.numel() for v in w.values())
+        nbytes = {"fwd": p * 32 + n_w * 4 + out_k.numel() * 4,
+                  "bwd": p * 32 + g.numel() * 4 + 2 * n_w * 4}
+        flops = {"fwd": fwd_flops, "bwd": bwd_flops}
+        main_errs = errs
+    records = []
+    for k, src_line in (("fwd", 411), ("bwd", 424)):
+        bytes_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops[k] / BF16_OPS_PER_S * 1e3
+        err = (main_errs["out"][2] if k == "fwd" else
+               max(e[2] for n, e in main_errs.items() if n != "out"))
+        records.append({
+            "name": f"fused_mlp_pe_{k}", "route": "cuda",
+            "source": "spinnerf_tpu_torch/csrc/fused_mlp_pe.cu",
+            "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{src_line}",
+            "max_abs_err": err, "ms": ms[k], "plain_ms": ms[f"plain_{k}"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": ms[f"lib_{k}"]})
+    log(f"[mlp kernels] P={N_POINTS}: fwd {ms['fwd']:.4f} ms (plain "
+        f"{ms['plain_fwd']:.4f}, bf16 matmul chain {ms['lib_fwd']:.4f}, "
+        f"bound {records[0]['bound_ms']:.4f}: {flops['fwd']:.4e} FLOP); "
+        f"bwd {ms['bwd']:.4f} ms (plain {ms['plain_bwd']:.4f}, chain's "
+        f"autograd backward {ms['lib_bwd']:.4f}, bound "
+        f"{records[1]['bound_ms']:.4f}: {flops['bwd']:.4e} FLOP)")
+    return records
+
+
+def train_arm(trainer, launches, tag):
+    """Phases 4 and 7: train to STEPS with `launches` set to 0 just before
+    and read just after; check loss, PSNR and >= 2 launches of each kernel
+    per step. Returns (step_ms, launch counts)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.update(fwd=0, bwd=0)
+    m1 = trainer.fit(1)
+    psnr_1 = float(m1["psnr"])
+    trainer.fit(10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_end = trainer.fit(STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(launches)
+    step_ms = dt * 1e3 / (STEPS - 10)
+    rays = trainer.cfg.N_rand * trainer._batches_per_step()
+    loss_end, psnr_end = float(m_end["loss"]), float(m_end["psnr"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train {tag}] {STEPS} steps: psnr step 1 {psnr_1:.3f} -> step "
+        f"{STEPS} {psnr_end:.3f}, loss {loss_end:.5f}; {step_ms:.3f} ms/step "
+        f"(steps 11-{STEPS}), {rays / step_ms * 1e3:.0f} rays/s; "
+        f"peak memory {peak_gib:.2f} GiB; launches {counts}")
+    if not math.isfinite(loss_end):
+        raise AssertionError("loss is not finite")
+    if not psnr_end > psnr_1:
+        raise AssertionError("PSNR did not rise")
+    for k in ("fwd", "bwd"):
+        if counts[k] < 2 * STEPS:
+            raise AssertionError(f"{k} kernel launched {counts[k]} times in "
+                                 f"{STEPS} steps (want >= 2 per step)")
+    return step_ms, counts
+
+
+def render_held_out(trainer, pose, gt_rgb, tag):
+    """Phases 5 and 8: render the held-out view and check it."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.core.losses import mse, mse_to_psnr
+    from spinnerf_tpu_torch.core.rendering import render_rays_chunked
+    from spinnerf_tpu_torch.data import raybank
+    from spinnerf_tpu_torch.train.loop import render_config
+    cfg = trainer.cfg
+    coarse, fine = trainer.field_fns()
+    with torch.no_grad():
+        batch, (h, w) = raybank.frame_ray_batch(
+            trainer.bank.hwf, torch.as_tensor(pose, device=trainer.device),
+            trainer.bank.near, trainer.bank.far)
+        t0 = time.perf_counter()
+        res = render_rays_chunked(batch, coarse,
+                                  render_config(cfg, train=False), cfg.chunk,
+                                  fine_field_fn=fine)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    rgb = res.fine.rgb.reshape(h, w, 3)
+    if rgb.shape != (H, W, 3) or not torch.isfinite(rgb).all():
+        raise AssertionError("held-out render is not finite or has a wrong shape")
+    gt = torch.as_tensor(gt_rgb, device=trainer.device)
+    held_psnr = float(mse_to_psnr(mse(rgb, gt)))
+    log(f"[render {tag}] held-out {H}x{W} view: PSNR {held_psnr:.3f} dB in "
+        f"{render_s:.3f} s (chunk {cfg.chunk} rays)")
+    if not np.isfinite(held_psnr):
+        raise AssertionError("held-out PSNR is not finite")
+
+
 def profile_steps(trainer, step_ms, n_steps=5):
     """torch.profiler over a few steps: device time by kernel, and the
     device's busy share of the unprofiled step time `step_ms`."""
@@ -239,15 +509,12 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    import numpy as np
 
     from spinnerf_tpu_torch.config import Config
-    from spinnerf_tpu_torch.core.losses import mse, mse_to_psnr
-    from spinnerf_tpu_torch.core.rendering import render_rays_chunked
-    from spinnerf_tpu_torch.data import raybank
     from spinnerf_tpu_torch.ops import cuda_build
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
-    from spinnerf_tpu_torch.train.loop import Trainer, render_config
+    from spinnerf_tpu_torch.train.loop import Trainer
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -258,19 +525,20 @@ def main(argv):
 
     # 2. build
     t0 = time.perf_counter()
-    build_logs = cuda_build.build(["hash_encode_win"])
+    build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
 
-    # the trainer at the default prepare configuration
     scene, held_pose, held_rgb = synthetic_scene()
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(exp_root, ignore_errors=True)
-    cfg = Config(prepare=True, expname="default_prepare",
-                 basedir=str(exp_root), no_ndc=True, no_reload=True,
-                 N_iters=STEPS, i_print=50, i_weights=0, i_video=0,
-                 i_testset=0, i_feat=0)
+    common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
+                  no_reload=True, N_iters=STEPS, i_print=50, i_weights=0,
+                  i_video=0, i_testset=0, i_feat=0)
+
+    # the trainer at the default prepare configuration
+    cfg = Config(expname="default_prepare", **common)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, scene=scene, log=log)
     log(f"[setup] trainer on {trainer.device} in "
@@ -280,66 +548,38 @@ def main(argv):
         f"{sum(b is not None for b in trainer.model.encoder._boxes)}, "
         f"groups x rays {trainer._batches_per_step()} x {cfg.N_rand}")
 
-    # 3. kernels against the plain version
+    # 3. hash kernels against the plain version
     records = compare_kernels(trainer)
 
-    # 4. the main path
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    hw.launches.update(fwd=0, bwd=0)
-    m1 = trainer.fit(1)
-    psnr_1 = float(m1["psnr"])
-    trainer.fit(10)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m_end = trainer.fit(STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(hw.launches)
-    step_ms = dt * 1e3 / (STEPS - 10)
-    rays = cfg.N_rand * trainer._batches_per_step()
-    loss_end, psnr_end = float(m_end["loss"]), float(m_end["psnr"])
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[train] {STEPS} steps: psnr step 1 {psnr_1:.3f} -> step {STEPS} "
-        f"{psnr_end:.3f}, loss {loss_end:.5f}; {step_ms:.3f} ms/step "
-        f"(steps 11-{STEPS}), {rays / step_ms * 1e3:.0f} rays/s; "
-        f"peak memory {peak_gib:.2f} GiB; launches {counts}")
-    if not math.isfinite(loss_end):
-        raise AssertionError("loss is not finite")
-    if not psnr_end > psnr_1:
-        raise AssertionError("PSNR did not rise")
-    for k in ("fwd", "bwd"):
-        if counts[k] < 2 * STEPS:
-            raise AssertionError(f"{k} kernel launched {counts[k]} times in "
-                                 f"{STEPS} steps (want >= 2 per step)")
-
-    # 5. a held-out view
-    coarse, fine = trainer.field_fns()
-    with torch.no_grad():
-        batch, (h, w) = raybank.frame_ray_batch(
-            trainer.bank.hwf, torch.as_tensor(held_pose, device=trainer.device),
-            trainer.bank.near, trainer.bank.far)
-        t0 = time.perf_counter()
-        res = render_rays_chunked(batch, coarse, render_config(cfg, train=False),
-                                  cfg.chunk, fine_field_fn=fine)
-        torch.cuda.synchronize()
-        render_s = time.perf_counter() - t0
-    rgb = res.fine.rgb.reshape(h, w, 3)
-    if rgb.shape != (H, W, 3) or not torch.isfinite(rgb).all():
-        raise AssertionError("held-out render is not finite or has a wrong shape")
-    gt = torch.as_tensor(held_rgb, device=trainer.device)
-    held_psnr = float(mse_to_psnr(mse(rgb, gt)))
-    log(f"[render] held-out {H}x{W} view: PSNR {held_psnr:.3f} dB in "
-        f"{render_s:.3f} s (chunk {cfg.chunk} rays)")
-    if not np.isfinite(held_psnr):
-        raise AssertionError("held-out PSNR is not finite")
-
+    # 4.-5. the hash arm of the main path, and a held-out view
+    step_ms, hash_counts = train_arm(trainer, hw.launches, "hash")
+    render_held_out(trainer, held_pose, held_rgb, "hash")
     if "--profile" in argv:
         profile_steps(trainer, step_ms)
 
+    # 6. MLP kernels against the plain version
+    mlp_records = compare_mlp_kernels(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 7.-8. the MLP arm: the reference's --no_tcnn operating point
+    # (tools/full_run.py:138-144)
+    mlp_cfg = Config(expname="mlp_prepare", no_tcnn=True, lrate=5e-4,
+                     lrate_decay=250, **common)
+    mlp_trainer = Trainer(mlp_cfg, scene=scene, log=log)
+    log(f"[setup] MLP trainer: coarse and fine "
+        f"{type(mlp_trainer.fields['coarse']).__name__} "
+        f"{mlp_trainer.fields['coarse'].dims}")
+    mlp_step_ms, mlp_counts = train_arm(mlp_trainer, fm.launches, "mlp")
+    render_held_out(mlp_trainer, held_pose, held_rgb, "mlp")
+    if "--profile" in argv:
+        profile_steps(mlp_trainer, mlp_step_ms)
+
     for r in records:
-        r["launches"] = counts[r["name"].rsplit("_", 1)[1]]
-    log(json.dumps({"kernels": records}))
+        r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]
+    for r in mlp_records:
+        r["launches"] = mlp_counts[r["name"].rsplit("_", 1)[1]]
+    log(json.dumps({"kernels": records + mlp_records}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
-# -fmad=false: the kernels' corner geometry must round as the f32 host
-# index function does (see the note in csrc/hash_encode_win.cu).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+_BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC")
+# Per source. -fmad=false: the hash kernels' corner geometry must round as
+# the f32 host index function does (see the note in
+# csrc/hash_encode_win.cu); the MLP kernels need no such rule.
+NVCC_FLAGS = {
+    "hash_encode_win": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
+    "fused_mlp_pe": _BASE_FLAGS + ("-Xptxas", "-v"),
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -36,7 +40,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(NVCC_FLAGS[name]).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -51,7 +56,8 @@ def build(names) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS[name], "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -1,0 +1,559 @@
+"""Fused positional encoding + NeRF MLP: CUDA kernels for the H100 and their
+plain PyTorch version (port of `spinnerf_tpu/ops/fused_mlp.py`, the v2
+PE-in-kernel path `fused_mlp_pe`).
+
+The network (NeRFField parity at `use_viewdirs=True`):
+  trunk: h_0 = relu(x W_0 + b_0); h_i = relu(h_{i-1} W_i + b_i), with the
+         skip concat [x, h_skip] feeding layer skip+1;
+  sigma = h_last W_s + b_s  (and the semantic logit when out_extra)
+  feat  = h_last W_f + b_f;  v = relu([feat, d] W_v + b_v);  rgb = v W_r + b_r
+  raw   = [rgb, sigma, (logit)]
+with x, d the positional encodings of the point and its view direction,
+zero-padded to 128 lanes (the weights' padding rows are zero).
+
+Inputs are xd [P, 8] = (x, y, z, dx, dy, dz, 0, 0); the backward returns
+weight gradients only (sample positions are not trained). Weights are a
+dict of f32 tensors in the JAX layout: kernels [in, out], biases [1, out],
+named by `_weight_order`.
+
+`fused_mlp_pe` launches the kernels of `csrc/fused_mlp_pe.cu` for CUDA
+tensors (or raises) and runs `fused_mlp_pe_plain` /
+`fused_mlp_pe_bwd_plain` for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from spinnerf_tpu_torch import resolve_device
+from spinnerf_tpu_torch.ops import cuda_build
+
+# Kernel launches by the wrapper, counted where it launches and nowhere else.
+launches = {"fwd": 0, "bwd": 0}
+
+_HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
+_MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
+_BM = 64                                   # FM_BM: points per kernel block
+
+
+class MLPDims(NamedTuple):
+    in_dim: int          # encoded position width (padded)
+    dir_dim: int         # encoded direction width (padded)
+    width: int = 256
+    depth: int = 8
+    skip: int = 4        # skip concat after this trunk layer
+    view_width: int = 128
+    out_extra: int = 0   # extra heads (semantic logit) off the trunk
+    compute_dtype: str = "bfloat16"   # matmul input dtype (f32 accumulate)
+    multires: int = 10          # frequency octaves of the in-kernel encoding
+    multires_views: int = 4
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+def _weight_order(dims: MLPDims):
+    names = []
+    for i in range(dims.depth):
+        names += [f"tw{i}", f"tb{i}"]
+    names += ["sigma_w", "sigma_b"]
+    if dims.out_extra:
+        names += ["sem_w", "sem_b"]
+    names += ["feat_w", "feat_b", "view_w", "view_b", "rgb_w", "rgb_b"]
+    return names
+
+
+def weight_shapes(dims: MLPDims) -> dict:
+    """name -> shape of every weight, in `_weight_order`."""
+    w = dims.width
+    out = {}
+    for i in range(dims.depth):
+        k = (dims.in_dim if i == 0 else
+             dims.in_dim + w if i == dims.skip + 1 else w)
+        out[f"tw{i}"], out[f"tb{i}"] = (k, w), (1, w)
+    out["sigma_w"], out["sigma_b"] = (w, 1), (1, 1)
+    if dims.out_extra:
+        out["sem_w"], out["sem_b"] = (w, 1), (1, 1)
+    out["feat_w"], out["feat_b"] = (w, w), (1, w)
+    out["view_w"] = (w + dims.dir_dim, dims.view_width)
+    out["view_b"] = (1, dims.view_width)
+    out["rgb_w"], out["rgb_b"] = (dims.view_width, 3), (1, 3)
+    return {n: out[n] for n in _weight_order(dims)}
+
+
+def dims_for_field(multires: int = 10, multires_views: int = 4,
+                   width: int = 256, depth: int = 8, skip: int = 4,
+                   semantic: bool = False) -> MLPDims:
+    in_dim = _round_up(3 * (1 + 2 * multires), 128)
+    dir_dim = _round_up(3 * (1 + 2 * multires_views), 128)
+    return MLPDims(in_dim=in_dim, dir_dim=dir_dim, width=width, depth=depth,
+                   skip=skip, view_width=width // 2,
+                   out_extra=1 if semantic else 0,
+                   multires=multires, multires_views=multires_views)
+
+
+def params_to_fused(flax_params, dims: MLPDims, *, raw_in_dim: int,
+                    raw_dir_dim: int) -> dict:
+    """A NeRFField's flax tree ({"params": {...}} or the inner dict, leaves
+    as numpy arrays) -> the kernels' padded weight dict of f32 tensors.
+    Zero rows are inserted where the encodings were lane-padded, so padded
+    input columns contribute nothing."""
+    p = flax_params.get("params", flax_params)
+
+    def dense(name):
+        return (np.asarray(p[name]["kernel"], np.float32),
+                np.asarray(p[name]["bias"], np.float32))
+
+    def pad_rows(k, n):
+        return np.pad(k, ((0, n - k.shape[0]), (0, 0)))
+
+    out = {}
+    for i in range(dims.depth):
+        k, b = dense(f"trunk_{i}")
+        if i == 0:
+            k = pad_rows(k, dims.in_dim)
+        if i == dims.skip + 1:
+            # input was cat([pe(raw_in), h]); pad the pe rows out to in_dim
+            k = np.concatenate([pad_rows(k[:raw_in_dim], dims.in_dim),
+                                k[raw_in_dim:]])
+        out[f"tw{i}"], out[f"tb{i}"] = k, b
+    out["sigma_w"], out["sigma_b"] = dense("sigma_head")
+    if dims.out_extra:
+        out["sem_w"], out["sem_b"] = dense("semantic_head")
+    out["feat_w"], out["feat_b"] = dense("feature")
+    k, b = dense("view_0")
+    # input was cat([feat(width), viewdir_pe(raw_dir)]); pad the pe rows
+    out["view_w"] = np.concatenate(
+        [k[:dims.width], pad_rows(k[dims.width:], dims.dir_dim)])
+    out["view_b"] = b
+    out["rgb_w"], out["rgb_b"] = dense("rgb_head")
+    return {n: torch.from_numpy(np.array(
+        out[n] if n.endswith("_w") or n.startswith("tw") else out[n][None]))
+        for n in _weight_order(dims)}
+
+
+# -----------------------------------------------------------------------------
+# the plain version
+# -----------------------------------------------------------------------------
+
+def encode(xd, n_freqs: int, col0: int, out_dim: int):
+    """The kernels' positional encoding of xd[:, col0:col0+3] in f32:
+    [x, sin(x 2^0), sin(x 2^0 + pi/2), sin(x 2^1), ...], zero-padded to
+    out_dim. The cos lanes are sin(x 2^f + pi/2) with the phase added in
+    f32, as the TPU kernel computes them (`_pe_constants`), which is not
+    torch.cos."""
+    x = xd[:, col0:col0 + 3].float()
+    cols = [x]
+    for f in range(n_freqs):
+        xb = x * float(2.0 ** f)
+        cols += [torch.sin(xb), torch.sin(xb + _HALF_PI)]
+    enc = torch.cat(cols, dim=-1)
+    return nn.functional.pad(enc, (0, out_dim - enc.shape[-1]))
+
+
+def _rounding(dims: MLPDims, acc_dtype):
+    """Cast to the compute type and back to the accumulation type: the
+    rounding of a kernel operand, evaluated in `acc_dtype`."""
+    if dims.compute_dtype == "float32":
+        return lambda a: a.to(acc_dtype)
+    if dims.compute_dtype != "bfloat16":
+        raise ValueError(f"unsupported compute_dtype {dims.compute_dtype!r}")
+    return lambda a: a.to(torch.bfloat16).to(acc_dtype)
+
+
+def _forward_acts(weights, xd, dims: MLPDims, acc_dtype):
+    """The forward through the view layer: (x, d, inputs of each trunk
+    layer, trunk pre-activations, h_last, hv, view pre-activation, v)."""
+    r = _rounding(dims, acc_dtype)
+
+    def dense(a, w, b):
+        return a @ r(weights[w]) + weights[b].to(acc_dtype)
+
+    x = r(encode(xd, dims.multires, 0, dims.in_dim))
+    d = r(encode(xd, dims.multires_views, 3, dims.dir_dim))
+    acts_in, zs = [], []
+    h = x
+    for i in range(dims.depth):
+        acts_in.append(h)
+        z = dense(h, f"tw{i}", f"tb{i}")
+        zs.append(z)
+        h = r(torch.relu(z))
+        if i == dims.skip:
+            h = torch.cat([x, h], dim=-1)
+    feat = r(dense(h, "feat_w", "feat_b"))
+    hv = torch.cat([feat, d], dim=-1)
+    vz = dense(hv, "view_w", "view_b")
+    return acts_in, zs, h, hv, vz, r(torch.relu(vz))
+
+
+def fused_mlp_pe_plain(weights, xd, dims: MLPDims, acc_dtype=torch.float32):
+    """What the forward kernel computes (`_fwd_pe_kernel`/`_forward_block`):
+    operands rounded to the compute type, products accumulated in
+    `acc_dtype` (float32; float64 for a reference that keeps the same
+    roundings), biases added before the ReLU and the cast. [P, 4+e] f32."""
+    r = _rounding(dims, acc_dtype)
+    _, _, h, _, _, v = _forward_acts(weights, xd, dims, acc_dtype)
+
+    def head(a, name):
+        return a @ r(weights[f"{name}_w"]) + weights[f"{name}_b"].to(acc_dtype)
+
+    out = [head(v, "rgb"), head(h, "sigma")]
+    if dims.out_extra:
+        out.append(head(h, "sem"))
+    return torch.cat(out, dim=-1).float()
+
+
+def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
+                           acc_dtype=torch.float32) -> dict:
+    """What the backward kernel computes (`_bwd_pe_kernel`): the forward
+    recomputed with its roundings, then weight gradients only, for the
+    cotangent g [P, 4+e], in `_weight_order` (shapes of the weights).
+
+    Bias gradients are sums in `acc_dtype` over all P points; the JAX kernel
+    rounds each block's sum of a bf16 gradient to bf16 (`fused_mlp.py:515`)
+    before adding it, which this version does not copy."""
+    r = _rounding(dims, acc_dtype)
+    acts_in, zs, h_last, hv, vz, v = _forward_acts(weights, xd, dims,
+                                                   acc_dtype)
+    g = g.to(acc_dtype)
+    w = dims.width
+    g_rgb, g_sigma = g[:, :3], g[:, 3:4]
+
+    def mm_tn(a, b):
+        return a.t() @ r(b)
+
+    def mm_nt(gout, wt):
+        return r(gout) @ r(wt).t()
+
+    def colsum(a):
+        return a.sum(dim=0, keepdim=True)
+
+    d = {"rgb_w": mm_tn(v, g_rgb), "rgb_b": colsum(g_rgb)}
+    g_v = r(mm_nt(g_rgb, weights["rgb_w"]) * (vz > 0))
+    d["view_w"], d["view_b"] = mm_tn(hv, g_v), colsum(g_v)
+    g_feat = r(mm_nt(g_v, weights["view_w"][:w]))
+    d["feat_w"], d["feat_b"] = mm_tn(h_last, g_feat), colsum(g_feat)
+    g_h = mm_nt(g_feat, weights["feat_w"])
+    d["sigma_w"], d["sigma_b"] = mm_tn(h_last, g_sigma), colsum(g_sigma)
+    g_h = g_h + mm_nt(g_sigma, weights["sigma_w"])
+    if dims.out_extra:
+        g_sem = g[:, 4:5]
+        d["sem_w"], d["sem_b"] = mm_tn(h_last, g_sem), colsum(g_sem)
+        g_h = g_h + mm_nt(g_sem, weights["sem_w"])
+    for i in range(dims.depth - 1, -1, -1):
+        if i == dims.skip:
+            g_h = g_h[:, dims.in_dim:]      # the encoding's gradient is dead
+        g_z = r(g_h * (zs[i] > 0))
+        d[f"tw{i}"], d[f"tb{i}"] = mm_tn(acts_in[i], g_z), colsum(g_z)
+        if i > 0:
+            g_h = mm_nt(g_z, weights[f"tw{i}"])
+    return {n: d[n] for n in _weight_order(dims)}
+
+
+# -----------------------------------------------------------------------------
+# the CUDA kernels
+# -----------------------------------------------------------------------------
+
+_VP = ctypes.c_void_p
+
+
+class _FmParams(ctypes.Structure):
+    """`FmParams` of the CUDA source, field for field."""
+    _fields_ = [("wt", _VP * _MAX_DEPTH), ("w", _VP * _MAX_DEPTH),
+                ("tb", _VP * _MAX_DEPTH),
+                ("feat_wt", _VP), ("feat_w", _VP), ("feat_b", _VP),
+                ("view_wt", _VP), ("view_w", _VP), ("view_b", _VP),
+                ("rgb_w", _VP), ("rgb_b", _VP), ("sigma_w", _VP),
+                ("sigma_b", _VP), ("sem_w", _VP), ("sem_b", _VP),
+                ("depth", ctypes.c_int), ("skip", ctypes.c_int),
+                ("out_extra", ctypes.c_int), ("multires", ctypes.c_int),
+                ("multires_views", ctypes.c_int)]
+
+
+class _FmGrads(ctypes.Structure):
+    """`FmGrads` of the CUDA source, field for field."""
+    _fields_ = [("tw", _VP * _MAX_DEPTH), ("tb", _VP * _MAX_DEPTH)] + [
+        (n, _VP) for n in ("feat_w", "feat_b", "view_w", "view_b", "rgb_w",
+                           "sigma_w", "sem_w", "head_b")]
+
+
+def _lib():
+    lib = cuda_build.load("fused_mlp_pe")
+    if not getattr(lib, "_fm_typed", False):
+        lib.fm_fwd.argtypes = [ctypes.POINTER(_FmParams), _VP, _VP,
+                               ctypes.c_int, _VP]
+        lib.fm_bwd.argtypes = [ctypes.POINTER(_FmParams),
+                               ctypes.POINTER(_FmGrads), _VP, _VP, _VP, _VP,
+                               ctypes.c_int, _VP]
+        lib.fm_scratch_cols.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_int)]
+        for fn in (lib.fm_fwd, lib.fm_bwd, lib.fm_scratch_cols):
+            fn.restype = ctypes.c_int
+        lib.fm_error_string.argtypes = [ctypes.c_int]
+        lib.fm_error_string.restype = ctypes.c_char_p
+        lib._fm_typed = True
+    return lib
+
+
+def _check_kernel_args(weights, xd, dims: MLPDims):
+    if dims.compute_dtype == "float32":
+        raise NotImplementedError("compute_dtype='float32' has no kernel on "
+                                  "the card yet; see ROADMAP.md queue B "
+                                  "#9/#10")
+    # the one geometry chip_smoke.py's phase 6 holds against the plain
+    # version: the reference's 8 x 256 with skip 4 and 10 / 4 octaves
+    if (dims.depth, dims.skip, dims.width, dims.view_width, dims.in_dim,
+            dims.dir_dim, dims.multires, dims.multires_views) != (
+            8, 4, 256, 128, 128, 128, 10, 4):
+        raise NotImplementedError(
+            f"the fused MLP kernels are verified at depth 8, skip 4, width "
+            f"256, view width 128 and 10 / 4 octaves only, got {dims}; see "
+            f"ROADMAP.md queue A #3")
+    p = xd.shape[0]
+    if (not xd.is_cuda or xd.dtype != torch.float32 or xd.shape != (p, 8)
+            or not xd.is_contiguous() or p % _BM):
+        raise ValueError(f"xd must be a contiguous float32 CUDA [P, 8] with P "
+                         f"a multiple of {_BM}, got {xd.dtype} "
+                         f"{tuple(xd.shape)} on {xd.device}")
+    shapes = weight_shapes(dims)
+    for n, shape in shapes.items():
+        w = weights[n]
+        if (w.device != xd.device or w.dtype != torch.float32
+                or tuple(w.shape) != shape or not w.is_contiguous()):
+            raise ValueError(f"weight {n} must be a contiguous float32 "
+                             f"{shape} on {xd.device}, got {w.dtype} "
+                             f"{tuple(w.shape)} on {w.device}")
+
+
+def pack_weights(weights, dims: MLPDims, backward: bool):
+    """The bf16 copies the kernels read, in one buffer: the trunk, feature
+    and view matrices transposed ([out, in], K contiguous) for the forward
+    products, as they are ([in, out]) for the backward's, and the heads as
+    they are. Returns (buffer, {(name, transposed): element offset}); every
+    offset is a multiple of 8 (16 bytes, for cp.async)."""
+    mats = [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w"]
+    heads = ["rgb_w", "sigma_w"] + (["sem_w"] if dims.out_extra else [])
+    parts = ([(n, True) for n in mats]
+             + ([(n, False) for n in mats] if backward else [])
+             + [(n, False) for n in heads])
+    offsets, total = {}, 0
+    for n, tr in parts:
+        offsets[(n, tr)] = total
+        total += _round_up(weights[n].numel(), 8)
+    buf = torch.empty(total, dtype=torch.bfloat16,
+                      device=weights["rgb_w"].device)
+    for (n, tr), off in offsets.items():
+        src = weights[n].t() if tr else weights[n]
+        buf[off:off + src.numel()].view(src.shape).copy_(src)
+    return buf, offsets
+
+
+def _params(weights, dims: MLPDims, backward: bool):
+    buf, offs = pack_weights(weights, dims, backward)
+
+    def at(name, tr=False):
+        return buf.data_ptr() + 2 * offs[(name, tr)]
+
+    prm = _FmParams()
+    for i in range(dims.depth):
+        prm.wt[i] = at(f"tw{i}", True)
+        prm.w[i] = at(f"tw{i}") if backward else None
+        prm.tb[i] = weights[f"tb{i}"].data_ptr()
+    prm.feat_wt, prm.view_wt = at("feat_w", True), at("view_w", True)
+    if backward:
+        prm.feat_w, prm.view_w = at("feat_w"), at("view_w")
+    prm.rgb_w, prm.sigma_w = at("rgb_w"), at("sigma_w")
+    for n in ("feat_b", "view_b", "rgb_b", "sigma_b"):
+        setattr(prm, n, weights[n].data_ptr())
+    if dims.out_extra:
+        prm.sem_w, prm.sem_b = at("sem_w"), weights["sem_b"].data_ptr()
+    prm.depth, prm.skip, prm.out_extra = dims.depth, dims.skip, dims.out_extra
+    prm.multires, prm.multires_views = dims.multires, dims.multires_views
+    return prm, buf
+
+
+def _raise_on(lib, fn_name: str, err: int):
+    if err:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.fm_error_string(err).decode()}")
+
+
+def fused_mlp_pe_fwd_kernel(weights, xd, dims: MLPDims):
+    """One launch of the forward kernel: raw [P, 4+e] f32 (no autograd)."""
+    _check_kernel_args(weights, xd, dims)
+    lib = _lib()
+    # the bf16 weight copies stay referenced until the launch is queued; the
+    # caching allocator then reuses them in stream order
+    prm, _bf16 = _params(weights, dims, backward=False)
+    out = torch.empty((xd.shape[0], 4 + dims.out_extra), dtype=torch.float32,
+                      device=xd.device)
+    stream = torch.cuda.current_stream(xd.device).cuda_stream
+    _raise_on(lib, "fm_fwd", lib.fm_fwd(ctypes.byref(prm), xd.data_ptr(),
+                                        out.data_ptr(), xd.shape[0], stream))
+    launches["fwd"] += 1
+    return out
+
+
+def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
+    """One launch of the backward (the recompute-and-backprop kernel, then
+    the split-K weight-gradient kernel): f32 weight gradients for the
+    cotangent g [P, 4+e], in `_weight_order`."""
+    _check_kernel_args(weights, xd, dims)
+    p = xd.shape[0]
+    if g.shape != (p, 4 + dims.out_extra):
+        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
+                         f"got {tuple(g.shape)}")
+    g = g.to(torch.float32).contiguous()
+    lib = _lib()
+    prm, _bf16 = _params(weights, dims, backward=True)
+    fa, fg = ctypes.c_int(), ctypes.c_int()
+    _raise_on(lib, "fm_scratch_cols", lib.fm_scratch_cols(
+        dims.depth, dims.skip, ctypes.byref(fa), ctypes.byref(fg)))
+    act = torch.empty((p // 2, fa.value), dtype=torch.int32, device=xd.device)
+    grad = torch.empty((p // 2, fg.value), dtype=torch.int32, device=xd.device)
+    # one zeroed buffer; each gradient starts on 16 bytes (float2 atomics)
+    shapes = weight_shapes(dims)
+    flat = torch.zeros(sum(_round_up(math.prod(s), 4)
+                           for s in shapes.values()),
+                       dtype=torch.float32, device=xd.device)
+    grads, off = {}, 0
+    for n, s in shapes.items():
+        grads[n] = flat[off:off + math.prod(s)].view(s)
+        off += _round_up(math.prod(s), 4)
+    grd = _FmGrads()
+    for i in range(dims.depth):
+        grd.tw[i] = grads[f"tw{i}"].data_ptr()
+        grd.tb[i] = grads[f"tb{i}"].data_ptr()
+    for n in ("feat_w", "feat_b", "view_w", "view_b", "rgb_w", "sigma_w") + (
+            ("sem_w",) if dims.out_extra else ()):
+        setattr(grd, n, grads[n].data_ptr())
+    # the heads' bias gradients, summed in f64 by the kernel
+    head_b = torch.zeros(8, dtype=torch.float64, device=xd.device)
+    grd.head_b = head_b.data_ptr()
+    stream = torch.cuda.current_stream(xd.device).cuda_stream
+    _raise_on(lib, "fm_bwd", lib.fm_bwd(
+        ctypes.byref(prm), ctypes.byref(grd), xd.data_ptr(), g.data_ptr(),
+        act.data_ptr(), grad.data_ptr(), p, stream))
+    launches["bwd"] += 1
+    grads["rgb_b"].copy_(head_b[None, :3])
+    grads["sigma_b"].copy_(head_b[None, 3:4])
+    if dims.out_extra:
+        grads["sem_b"].copy_(head_b[None, 4:5])
+    return grads
+
+
+class _FusedMLPPE(torch.autograd.Function):
+    """Kernel forward and backward on CUDA tensors, the plain version on CPU
+    tensors; the gradient flows to the weights only, as in the JAX custom
+    VJP."""
+
+    @staticmethod
+    def forward(ctx, dims, xd, *ws):
+        weights = dict(zip(_weight_order(dims), ws))
+        ctx.dims = dims
+        ctx.save_for_backward(xd, *ws)
+        if xd.is_cuda:
+            return fused_mlp_pe_fwd_kernel(weights, xd, dims)
+        return fused_mlp_pe_plain(weights, xd, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        xd, *ws = ctx.saved_tensors
+        dims = ctx.dims
+        weights = dict(zip(_weight_order(dims), ws))
+        if xd.is_cuda:
+            d = fused_mlp_pe_bwd_kernel(weights, xd, g, dims)
+        else:
+            d = fused_mlp_pe_bwd_plain(weights, xd, g, dims)
+        return (None, None, *(d[n] for n in _weight_order(dims)))
+
+
+def fused_mlp_pe(weights, xd, dims: MLPDims):
+    """Fused encode + MLP: xd [P, 8] f32 (x, y, z, dx, dy, dz, 0, 0) ->
+    raw [P, 4 + out_extra] f32, differentiable in `weights` only. On CUDA
+    tensors P must be a multiple of 64."""
+    return _FusedMLPPE.apply(dims, xd,
+                             *(weights[n] for n in _weight_order(dims)))
+
+
+def make_fused_pe_field_fn(dims: MLPDims, *, block: int = 512):
+    """`(weights, pts [B, S, 3], viewdirs [B, 3]) -> raw [B, S, C]` over
+    `fused_mlp_pe`; the point count is padded to a multiple of `block`."""
+
+    def field_fn(weights, pts, viewdirs):
+        b, s = pts.shape[0], pts.shape[1]
+        p = b * s
+        vd = viewdirs[:, None, :].expand(b, s, 3)
+        xd = torch.cat([pts.reshape(-1, 3), vd.reshape(-1, 3),
+                        pts.new_zeros((p, 2))], dim=-1).float()
+        xd = nn.functional.pad(xd, (0, 0, 0, _round_up(p, block) - p))
+        raw = fused_mlp_pe(weights, xd.contiguous(), dims)
+        return raw[:p].reshape(b, s, -1)
+
+    return field_fn
+
+
+class FusedMLPField(nn.Module):
+    """The `--no_tcnn` NeRF field on the fused encode+MLP kernels.
+
+    Parameters are one `nn.ParameterDict`, `weights`, keyed by the JAX
+    names in the JAX layout (kernels [in, out] with the encodings' padding
+    rows, biases [1, out]); `reset_parameters` draws them as an identically
+    seeded `NeRFField` would and pads them, as the JAX field does."""
+
+    def __init__(self, *, depth: int = 8, width: int = 256,
+                 multires: int = 10, multires_views: int = 4,
+                 semantic: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        if depth == 5:
+            # skip (4) would concat after the LAST trunk layer, feeding the
+            # heads a [in_dim+width] vector — a geometry neither the weight
+            # converter nor the backward kernel supports; use NeRFField
+            raise ValueError(
+                "FusedMLPField does not support depth == skip+1 == 5 "
+                "(skip-concat would feed the heads); use NeRFField")
+        device = resolve_device(device)
+        self.semantic = semantic
+        self.dims = dims_for_field(
+            multires=multires, multires_views=multires_views, width=width,
+            depth=depth, semantic=semantic)._replace(
+                compute_dtype=str(compute_dtype).removeprefix("torch."))
+        self.weights = nn.ParameterDict({
+            n: nn.Parameter(torch.empty(s, dtype=torch.float32,
+                                        device=device))
+            for n, s in weight_shapes(self.dims).items()})
+        self._field = make_fused_pe_field_fn(self.dims)
+
+    def reset_parameters(self, generator=None):
+        """lecun-normal kernels (fan_in = the unpadded input width) and zero
+        biases, the flax Dense defaults, from a CPU `generator`."""
+        from spinnerf_tpu_torch.convert import nerf_field_tree
+        from spinnerf_tpu_torch.models.fields import NeRFField
+        d = self.dims
+        ref = NeRFField(depth=d.depth, width=d.width, multires=d.multires,
+                        multires_views=d.multires_views,
+                        semantic=self.semantic, device="cpu")
+        ref.reset_parameters(generator)
+        fused = params_to_fused(
+            nerf_field_tree(ref), d, raw_in_dim=3 * (1 + 2 * d.multires),
+            raw_dir_dim=3 * (1 + 2 * d.multires_views))
+        with torch.no_grad():
+            for n, p in self.weights.items():
+                p.copy_(fused[n])
+
+    def forward(self, pts, viewdirs=None, frozen_sigma=None):
+        if frozen_sigma is not None:
+            raise ValueError(
+                "FusedMLPField does not support the frozen-sigma "
+                "(NeRF_RGB / --alpha_model_path) mode; use NeRFField")
+        if viewdirs is None:
+            raise ValueError("FusedMLPField requires viewdirs")
+        return self._field(dict(self.weights), pts, viewdirs)

@@ -1,5 +1,6 @@
 """Training orchestration: config -> scene -> ray bank -> fused step -> loop
-(port of `spinnerf_tpu/train/loop.py`, hash-grid field).
+(port of `spinnerf_tpu/train/loop.py`: the hash-grid field and, with
+`no_tcnn`, the MLP field).
 
 Hooks ported: console metrics (`i_print`), checkpoints (`i_weights`) and the
 `page_bounds.json` sidecar that pins the hash index semantics to the
@@ -8,6 +9,7 @@ NotImplementedError naming their ROADMAP.md entry instead of being skipped.
 """
 from __future__ import annotations
 
+import functools
 import json
 import time
 
@@ -18,10 +20,12 @@ from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.core.rendering import RenderConfig
 from spinnerf_tpu_torch.data import llff, raybank
+from spinnerf_tpu_torch.models.fields import NeRFField
 from spinnerf_tpu_torch.models.hashgrid import (HashGridField,
                                                 calibrate_dense_box,
                                                 calibrate_page_bounds,
                                                 level_resolutions)
+from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
 from spinnerf_tpu_torch.train import checkpoints, schedule
 from spinnerf_tpu_torch.train.step import (TrainConfig, _active_groups,
                                            init_params, make_train_step)
@@ -34,15 +38,33 @@ def _unported(what: str, entry: str):
 
 
 def build_model(cfg: Config, semantic: bool = False, device=None,
-                page_bounds=None, dense_box=None) -> HashGridField:
-    """The hash-grid field of a Config (the reference's default NeRF_TCNN)."""
+                page_bounds=None, dense_box=None, fine: bool = False):
+    """The (coarse or fine) field of a Config: the hash grid by default (the
+    reference's NeRF_TCNN); with `no_tcnn` the MLP, as `FusedMLPField` where
+    its kernels apply and `NeRFField` otherwise. fine=True takes
+    `netdepth_fine`/`netwidth_fine`; `i_embed -1` keeps the raw xyz/dir
+    inputs (0 octaves)."""
+    dt = getattr(torch, cfg.compute_dtype)
     if cfg.no_tcnn:
-        raise _unported("the MLP field (--no_tcnn, fused_mlp_pe)",
-                        "ROADMAP.md queue B, kernels #9/#10")
+        depth = cfg.netdepth_fine if fine else cfg.netdepth
+        width = cfg.netwidth_fine if fine else cfg.netwidth
+        multires = 0 if cfg.i_embed == -1 else cfg.multires
+        multires_views = 0 if cfg.i_embed == -1 else cfg.multires_views
+        # the fused field needs view directions, the encoding and no
+        # frozen-sigma (NeRF_RGB) mode
+        if (cfg.fused_mlp and cfg.use_viewdirs and not cfg.alpha_model_path
+                and cfg.i_embed != -1 and depth != 5):
+            return FusedMLPField(depth=depth, width=width, multires=multires,
+                                 multires_views=multires_views,
+                                 semantic=semantic, compute_dtype=dt,
+                                 device=device)
+        return NeRFField(depth=depth, width=width, multires=multires,
+                         multires_views=multires_views,
+                         use_viewdirs=cfg.use_viewdirs, semantic=semantic,
+                         compute_dtype=dt, device=device)
     return HashGridField(semantic=semantic,
                          log2_table_size=cfg.log2_hashmap_size,
-                         impl=cfg.hash_impl,
-                         compute_dtype=getattr(torch, cfg.compute_dtype),
+                         impl=cfg.hash_impl, compute_dtype=dt,
                          page_bounds=page_bounds, dense_box=dense_box,
                          device=device)
 
@@ -191,21 +213,26 @@ class Trainer:
             scene, self.i_train, prepare=cfg.prepare, train_gt=cfg.train_gt,
             semantic=cfg.mvseg, ndc=use_ndc, device=self.device)
 
-        # the calibration is part of the table's index semantics: the
-        # experiment dir pins it (`_persist_page_bounds`)
+        bounds = dense_box = None
         probe = build_model(cfg, semantic=cfg.mvseg, device="meta")
-        bounds, dense_box = (_scene_hash_calibration(self.bank, probe)
-                             if cfg.hash_region_calib else (None, None))
-        bounds, dense_box = self._persist_page_bounds(bounds, dense_box)
+        if isinstance(probe, HashGridField):
+            # the calibration is part of the table's index semantics: the
+            # experiment dir pins it (`_persist_page_bounds`)
+            if cfg.hash_region_calib:
+                bounds, dense_box = _scene_hash_calibration(self.bank, probe)
+            bounds, dense_box = self._persist_page_bounds(bounds, dense_box)
 
-        def make_model():
+        def make_model(fine=False):
             return build_model(cfg, semantic=cfg.mvseg, device=self.device,
-                               page_bounds=bounds, dense_box=dense_box)
+                               page_bounds=bounds, dense_box=dense_box,
+                               fine=fine)
 
         self.tcfg = train_config(cfg)
         gen = torch.Generator().manual_seed(cfg.seed)
-        self.fields = init_params(make_model, gen,
-                                  n_importance=cfg.N_importance)
+        # the fine network may be sized separately (`run_nerf.py:417`)
+        self.fields = init_params(
+            make_model, gen, n_importance=cfg.N_importance,
+            make_fine_model=functools.partial(make_model, fine=True))
         self.model = self.fields["coarse"]
         self.optimizer = schedule.make_optimizer(
             self.fields.named_parameters(), cfg.lrate, cfg.lrate_decay,

@@ -220,15 +220,17 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
     return step
 
 
-def init_params(make_model, generator=None, *,
-                n_importance: int = 64) -> nn.ModuleDict:
+def init_params(make_model, generator=None, *, n_importance: int = 64,
+                make_fine_model=None) -> nn.ModuleDict:
     """Build and initialize the {"coarse"[, "fine"]} fields: `make_model()`
     builds a field, whose `reset_parameters(generator)` draws its weights
-    from the CPU `generator`."""
+    from the CPU `generator`. `make_fine_model` builds a separately sized
+    fine field (`--netdepth_fine/--netwidth_fine`); defaults to
+    `make_model`."""
     fields = nn.ModuleDict({"coarse": make_model()})
     fields["coarse"].reset_parameters(generator)
     if n_importance > 0:
-        fine = make_model()
+        fine = (make_fine_model or make_model)()
         fine.reset_parameters(generator)
         fields["fine"] = fine
     return fields

@@ -1,9 +1,10 @@
 """One and two steps of the port's `make_train_step` against the JAX
 package's, from the same scene arrays, sparse-depth list and converted
 parameters, with perturb off (both steps are then deterministic), f32, and
-no mesh on the JAX side. Loss terms within 1e-5 relative, gradients within
-1e-4 relative (max-normalized per parameter), parameters after Adam within
-1e-6 absolute."""
+no mesh on the JAX side; over the hash-grid field and over the fused MLP
+field (the JAX side runs its Pallas kernels in interpret mode). Loss terms
+within 1e-5 relative, gradients within 1e-4 relative (max-normalized per
+parameter), parameters after Adam within 1e-6 absolute."""
 import dataclasses
 
 import jax
@@ -17,6 +18,7 @@ from spinnerf_tpu.core.rendering import RenderConfig as JRenderConfig
 from spinnerf_tpu.data import colmap, llff, synthetic
 from spinnerf_tpu.data import raybank as jraybank
 from spinnerf_tpu.models.hashgrid import HashGridField as JField
+from spinnerf_tpu.ops.fused_mlp import FusedMLPField as JMLPField
 from spinnerf_tpu.train import loop as jloop
 from spinnerf_tpu.train import schedule as jschedule
 from spinnerf_tpu.train import step as jstep
@@ -25,6 +27,7 @@ from spinnerf_tpu_torch.core.rendering import RenderConfig as TRenderConfig
 from spinnerf_tpu_torch.data import llff as tllff
 from spinnerf_tpu_torch.data import raybank as traybank
 from spinnerf_tpu_torch.models.hashgrid import HashGridField as TField
+from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField as TMLPField
 from spinnerf_tpu_torch.train import loop as tloop
 from spinnerf_tpu_torch.train import schedule as tschedule
 from spinnerf_tpu_torch.train import step as tstep
@@ -33,6 +36,13 @@ torch.set_num_threads(1)
 
 SMALL = dict(bound=4.0, n_levels=6, log2_table_size=13, base_res=4,
              finest_res_per_unit=64.0, hidden_dim=16, hidden_dim_color=16)
+# 2 octaves, not 10: the two pipelines compute the sample points in
+# different f32 orders (rays, ray_points, sample_pdf: ~1e-7 relative), and
+# the encoding's top octave multiplies that difference by 2^(multires-1).
+# At 10 octaves (x512) the loss terms differ by up to 1e-2 relative, at 4
+# (x8) by 3e-5. `tests/test_torch_fused_mlp.py` holds the 10-octave
+# encoding on identical points.
+SMALL_MLP = dict(depth=6, width=32, multires=2, multires_views=2)
 # lrate_decay 0.001 -> transition over 1 step: lr(1) = lr(0) / 10, so an
 # off-by-one in the schedule's step index shows as a 10x update (9e-5 here).
 # Adam's first update is lr * g / (|g| + eps): for table entries whose
@@ -65,12 +75,17 @@ CASES = {
     "prepare": dict(prepare=True),
     "masked_depth_sigma": dict(depth_supervision=True, weighted_loss=True,
                                sigma_loss=True),
+    "mlp_prepare": dict(prepare=True, field="mlp"),
+    "mlp_masked_depth_sigma": dict(depth_supervision=True,
+                                   weighted_loss=True, sigma_loss=True,
+                                   field="mlp"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_train_steps_match_jax(scene, case):
-    kw = CASES[case]
+    kw = dict(CASES[case])
+    mlp = kw.pop("field", None) == "mlp"
     jsc, dl = scene
     prepare = kw.get("prepare", False)
     jbank = jraybank.build_raybank(jsc, np.arange(5), depth_list=dl,
@@ -80,12 +95,23 @@ def test_train_steps_match_jax(scene, case):
     tbank = traybank.build_raybank(tsc, np.arange(5), depth_list=dl,
                                    prepare=prepare, device="cpu")
 
-    # the hash calibration the trainers pin: identical from both banks
-    jmodel = JField(**SMALL, impl="win_xla", compute_dtype=jnp.float32)
-    bounds, boxes = jloop._scene_hash_calibration(jbank, jmodel)
-    probe = TField(**SMALL, compute_dtype=torch.float32, device="meta")
-    assert tloop._scene_hash_calibration(tbank, probe) == (bounds, boxes)
-    jmodel = jmodel.clone(page_bounds=bounds, dense_box=boxes)
+    if mlp:
+        jmodel = JMLPField(**SMALL_MLP, compute_dtype=jnp.float32, block=512)
+
+        def make_field():
+            return TMLPField(**SMALL_MLP, compute_dtype=torch.float32,
+                             device="cpu")
+    else:
+        # the hash calibration the trainers pin: identical from both banks
+        jmodel = JField(**SMALL, impl="win_xla", compute_dtype=jnp.float32)
+        bounds, boxes = jloop._scene_hash_calibration(jbank, jmodel)
+        probe = TField(**SMALL, compute_dtype=torch.float32, device="meta")
+        assert tloop._scene_hash_calibration(tbank, probe) == (bounds, boxes)
+        jmodel = jmodel.clone(page_bounds=bounds, dense_box=boxes)
+
+        def make_field():
+            return TField(**SMALL, compute_dtype=torch.float32,
+                          page_bounds=bounds, dense_box=boxes, device="cpu")
 
     rcfg = dict(n_samples=12, n_importance=6, perturb=False)
     jcfg = jstep.TrainConfig(render=JRenderConfig(**rcfg), n_rand=64, **kw)
@@ -95,21 +121,21 @@ def test_train_steps_match_jax(scene, case):
     assert ("inp" in groups) == (not prepare)
 
     params = jstep.init_params(jmodel, jax.random.PRNGKey(1), n_importance=6)
-    # a trained-looking table so the encode carries signal
     rng = np.random.RandomState(2)
     for k in params:
-        tab = params[k]["params"]["encoder"]["table"]
-        params[k]["params"]["encoder"]["table"] = jnp.asarray(
-            rng.randn(*tab.shape).astype(np.float32) * 0.3)
+        if not mlp:
+            # a trained-looking table so the encode carries signal
+            tab = params[k]["params"]["encoder"]["table"]
+            params[k]["params"]["encoder"]["table"] = jnp.asarray(
+                rng.randn(*tab.shape).astype(np.float32) * 0.3)
 
     tx = optax.chain(_grad_capture(),
                      jschedule.make_optimizer(LRATE, DECAY))
     jfn = jstep.make_train_step(jmodel, jcfg, jbank, tx)
     opt_state = tx.init(params)
 
-    fields = torch.nn.ModuleDict({
-        k: TField(**SMALL, compute_dtype=torch.float32, page_bounds=bounds,
-                  dense_box=boxes, device="cpu") for k in ("coarse", "fine")})
+    fields = torch.nn.ModuleDict({k: make_field()
+                                  for k in ("coarse", "fine")})
     opt = tschedule.make_optimizer(fields.named_parameters(), LRATE, DECAY)
     tfn = tstep.make_train_step(fields, tcfg, tbank, opt)
 
