@@ -28,10 +28,28 @@ Phases, each fatal on failure (no phase's error is caught):
      `Config(prepare=True, no_tcnn=True, lrate=5e-4, lrate_decay=250)`
      (8 x 256 fields, 64+64 samples, 2 groups x 1024 rays) on the same
      scene for 200 steps, launch counts set to 0 just before, read after;
-  8. render the held-out view with the MLP fields.
+  8. render the held-out view with the MLP fields;
+  9. hold the index-gather kernels (`csrc/hash_encode_idx.cu`, forward and
+     backward) against their plain version at three shapes, on the 262,144
+     points of phase 3: (a) the instant-NGP (dense / XOR-prime) index at
+     16 x 2^19 x 2, (b) the same at 2^12, where `auto` takes it and the
+     backward stages whole levels in shared memory, (c) the windowed index
+     at 2^19 through `hash_encode_win`; time kernel, plain version, the
+     backward's other designs (global atomics alone; the shared map where
+     the default stages whole levels) and the yardsticks: `embedding_bag`
+     with per-sample weights for the forward, its autograd backward and
+     `index_add_` of the precomputed w * g for the backward;
+ 10. the XOR-prime hash arm of the main path: `Trainer` at
+     `Config(prepare=True, hash_impl="mxu", llffhold=8, i_feat=200,
+     i_testset=200)` (16 x 2^19 x 2, bf16 MLPs, 1024 rays x 64+64 samples)
+     on the scene with its ball masks: steps 1-199 without hooks (launch
+     counts set to 0 just before), then step 200 through the Trainer's own
+     testset hook and prepare dump (timed), the dump's PNGs checked, and the
+     held-out view rendered.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -66,18 +84,19 @@ def synthetic_scene():
         pos = np.array([3.5 * np.cos(th), 3.5 * np.sin(th),
                         2.0 + 0.3 * np.sin(3 * th)])
         c2w = synthetic.look_at_pose(pos, target=(0, 0, 0.3))
-        rgb, z, _ = synthetic.render_view(c2w, H, W, focal)
+        rgb, z, hit = synthetic.render_view(c2w, H, W, focal)
         z = z[np.isfinite(z)]
         return (c2w.astype(np.float32), rgb,
-                [np.percentile(z, 1), np.percentile(z, 99.5)])
+                [np.percentile(z, 1), np.percentile(z, 99.5)], hit)
 
     views = [view(2 * np.pi * v / N_VIEWS) for v in range(N_VIEWS)]
     poses = np.stack([v[0] for v in views])
     scene = llff.Scene(images=np.stack([v[1] for v in views]), poses=poses,
                        bounds=np.asarray([v[2] for v in views], np.float32),
                        render_poses=poses, hwf=(H, W, focal), i_holdout=0)
+    masks = np.stack([v[3] for v in views]).astype(np.float32)
     held_out = view(2 * np.pi * 2.5 / N_VIEWS)
-    return scene, held_out[0], held_out[1]
+    return scene, masks, held_out[0], held_out[1]
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -94,21 +113,14 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def compare_kernels(trainer):
-    """Phase 3: kernels vs plain version at the main path's shapes. Returns
-    the per-kernel records (without launch counts)."""
+def fine_pass_points(trainer):
+    """[N_POINTS, 3] points in [0, 1] as the fine pass draws them: 2048 bank
+    rays x 128 stratified depths, normalized by the field's bound."""
     import torch
 
     from spinnerf_tpu_torch.core import sampling
     from spinnerf_tpu_torch.data import raybank
-    from spinnerf_tpu_torch.ops import hash_encode_win as hw
-
-    dev = trainer.device
-    enc = trainer.model.encoder
-    res, bounds, boxes = enc.resolutions, enc.bounds, enc._boxes
-    l, t, _ = enc.table.shape
-    # points as the fine pass draws them: 2048 bank rays x 128 depths
-    gen = torch.Generator(dev).manual_seed(1)
+    gen = torch.Generator(trainer.device).manual_seed(1)
     batch, _ = raybank.sample_group(trainer.bank, "clf", 2048, step=1)
     z = sampling.stratified_z_vals(batch["near"], batch["far"], 128,
                                    generator=gen)
@@ -117,6 +129,21 @@ def compare_kernels(trainer):
                     / (2 * trainer.model.bound), 0, 1).contiguous()
     if x.shape != (N_POINTS, 3):
         raise AssertionError(f"points {tuple(x.shape)}, want ({N_POINTS}, 3)")
+    return x
+
+
+def compare_kernels(trainer, x):
+    """Phase 3: kernels vs plain version at the main path's shapes, on the
+    points x of `fine_pass_points`. Returns the per-kernel records (without
+    launch counts)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+
+    dev = trainer.device
+    enc = trainer.model.encoder
+    res, bounds, boxes = enc.resolutions, enc.bounds, enc._boxes
+    l, t, _ = enc.table.shape
     table = torch.randn((l, t, 2), generator=torch.Generator().manual_seed(2)
                         ).to(dev)
     g = torch.randn((N_POINTS, 2 * l), generator=torch.Generator()
@@ -474,6 +501,332 @@ def render_held_out(trainer, pose, gt_rgb, tag):
         raise AssertionError("held-out PSNR is not finite")
 
 
+def compare_idx_shape(tag, table, idx, w, plain, entry, g):
+    """Phase 9, one shape: the index-gather kernels against `plain` (table,
+    idx, w) -> [N, L*2]-compatible output; `entry` is the autograd entry
+    point that must reach the kernels. Returns (forward error, backward
+    error, times in ms, bound terms)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    l, t, _ = table.shape
+    n = idx.shape[2]
+    idx32 = idx.to(torch.int32).contiguous()
+    g3 = g.reshape(n, l, 2)
+
+    out_k = he.hash_encode_idx_fwd_kernel(table, idx32, w)
+    out_p = plain(table, idx, w).reshape(n, l, 2)
+    torch.cuda.synchronize()
+    fwd_err = float((out_k - out_p).abs().max())
+    fwd_rel = fwd_err / float(out_p.abs().max())
+
+    # backward against the plain version evaluated in float64
+    tab64 = table.double().requires_grad_()
+    out64 = plain(tab64, idx, w)
+    (dtab_64,) = torch.autograd.grad(out64, tab64,
+                                     g3.double().reshape(out64.shape))
+    scale = float(dtab_64.abs().max())
+
+    def bwd_rel(d):
+        return float((d.double() - dtab_64).abs().max()) / scale
+
+    dtab_k = he.hash_encode_idx_bwd_kernel(g3, idx32, w, table.shape)
+    tab = table.clone().requires_grad_()
+    out_g = plain(tab, idx, w)
+    g_p = g3.reshape(out_g.shape)
+    (dtab_p,) = torch.autograd.grad(out_g, tab, g_p, retain_graph=True)
+    torch.cuda.synchronize()
+    bwd_err = float((dtab_k.double() - dtab_64).abs().max())
+    log(f"[idx kernels {tag}] L={l} T={t} N={n}: fwd max|kernel - plain| = "
+        f"{fwd_err:.3e} (relative {fwd_rel:.3e}, bound 1e-6); bwd max|kernel "
+        f"- plain f64| = {bwd_err:.3e} (relative {bwd_rel(dtab_k):.3e}, bound "
+        f"1e-5); plain f32 relative {bwd_rel(dtab_p):.3e}; max|dtable| "
+        f"{scale:.3e}")
+    if not (torch.isfinite(out_k).all() and fwd_rel <= 1e-6):
+        raise AssertionError(f"{tag}: forward kernel disagrees with plain")
+    if not (torch.isfinite(dtab_k).all() and bwd_rel(dtab_k) <= 1e-5):
+        raise AssertionError(f"{tag}: backward kernel disagrees with plain")
+
+    # the autograd entry point on CUDA tensors goes through the kernels
+    launched = dict(he.launches)
+    tab2 = table.clone().requires_grad_()
+    out_a = entry(tab2, idx, w)
+    out_a.backward(g3.reshape(out_a.shape))
+    if (he.launches["fwd"] != launched["fwd"] + 1
+            or he.launches["bwd"] != launched["bwd"] + 1):
+        raise AssertionError(f"{tag}: the entry point missed the kernels")
+    if not torch.equal(out_a.detach().reshape(n, l, 2), out_k):
+        raise AssertionError(f"{tag}: autograd forward differs from kernel")
+    if bwd_rel(tab2.grad) > 1e-5:
+        raise AssertionError(f"{tag}: autograd backward out of bound")
+    del tab64, out64, tab2, out_a
+
+    ms = {"fwd": cuda_ms(lambda: he.hash_encode_idx_fwd_kernel(table, idx32,
+                                                               w)),
+          "bwd": cuda_ms(lambda: he.hash_encode_idx_bwd_kernel(
+              g3, idx32, w, table.shape)),
+          "plain_fwd": cuda_ms(lambda: plain(table, idx, w)),
+          "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
+              out_g, tab, g_p, retain_graph=True))}
+    # the backward's other designs, timed beside the default: global atomics
+    # alone, and (where the default stages whole levels) the shared map
+    variants = ["atomic"] + (["map"] if t <= 8192 else [])
+    for v in variants:
+        d = he.hash_encode_idx_bwd_kernel(g3, idx32, w, table.shape, v)
+        torch.cuda.synchronize()
+        ms[f"bwd_{v}_rel"] = bwd_rel(d)
+        ms[f"bwd_{v}"] = cuda_ms(lambda: he.hash_encode_idx_bwd_kernel(
+            g3, idx32, w, table.shape, v))
+    log(f"[idx kernels {tag}] bwd designs: " + ", ".join(
+        f"{v} {ms[f'bwd_{v}']:.4f} ms (relative {ms[f'bwd_{v}_rel']:.3e})"
+        for v in variants) + f"; default {ms['bwd']:.4f} ms")
+    del out_g, tab, dtab_p
+
+    # the yardsticks, one PyTorch call each, on flat indices into the
+    # [L*T, 2] table laid out before the timed region: the forward as
+    # embedding_bag (one bag of 8 weighted corners per (point, level), in
+    # out's [N, L] order) and its autograd backward; the scatter alone as
+    # one index_add_ of the precomputed w * g
+    lvl = torch.arange(l, device=idx.device)[:, None, None] * t
+    flat_idx = idx.long() + lvl                               # [L, 8, N]
+    bag_idx = flat_idx.permute(2, 0, 1).reshape(n * l, 8).contiguous()
+    bag_w = w.permute(2, 0, 1).reshape(n * l, 8).contiguous()
+    flat_tab = table.reshape(l * t, 2)
+
+    def bag(tb):
+        return torch.nn.functional.embedding_bag(
+            bag_idx, tb, per_sample_weights=bag_w, mode="sum")
+
+    lib_rel = float((bag(flat_tab).reshape(n, l, 2) - out_p).abs().max()
+                    ) / float(out_p.abs().max())
+    ms["lib_fwd"] = cuda_ms(lambda: bag(flat_tab))
+    tab_b = flat_tab.clone().requires_grad_()
+    out_b = bag(tab_b)
+    g_b = g3.reshape(n * l, 2)
+    (dtab_b,) = torch.autograd.grad(out_b, tab_b, g_b, retain_graph=True)
+    lib_bwd_rel = bwd_rel(dtab_b.reshape(table.shape))
+    ms["lib_bag_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        out_b, tab_b, g_b, retain_graph=True))
+    del bag_idx, bag_w, tab_b, out_b, dtab_b
+    flat_idx = flat_idx.reshape(-1)
+    vals = (w[..., None] * g3.permute(1, 0, 2)[:, None]).reshape(-1, 2)
+    flat = torch.zeros((l * t, 2), device=table.device)
+    ms["lib_bwd"] = cuda_ms(lambda: flat.index_add_(0, flat_idx, vals))
+    touched = int(torch.unique(flat_idx).numel())
+    del flat_idx, vals, flat
+    log(f"[idx kernels {tag}] touched table entries {touched}; fwd "
+        f"{ms['fwd']:.4f} ms (plain {ms['plain_fwd']:.4f}, embedding_bag "
+        f"{ms['lib_fwd']:.4f}, its relative error {lib_rel:.3e}), bwd "
+        f"{ms['bwd']:.4f} ms (plain {ms['plain_bwd']:.4f}, index_add_ "
+        f"{ms['lib_bwd']:.4f}, embedding_bag backward {ms['lib_bag_bwd']:.4f}"
+        f", its relative error {lib_bwd_rel:.3e})")
+    # a check that the yardstick computes this function, not a gate on its
+    # rounding: its scatter order is its own
+    if lib_rel > 1e-5 or lib_bwd_rel > 1e-4:
+        raise AssertionError(f"{tag}: embedding_bag is not the same function")
+    # least time: each input read once, each output written once; the
+    # forward reads the table entries these corners touch. 32 flops a
+    # (point, level): 8 corners x 2 features x (product + sum)
+    corner_bytes = idx32.numel() * 4 + w.numel() * 4
+    bound = {"fwd": (corner_bytes + n * l * 8 + touched * 8, n * l * 32),
+             "bwd": (corner_bytes + n * l * 8 + l * t * 8, n * l * 32)}
+    return fwd_err, bwd_err, ms, bound
+
+
+def compare_idx_kernels(x, geom):
+    """Phase 9: the index-gather kernels at (a) 16 x 2^19 x 2 with the
+    instant-NGP index, (b) the same at 2^12, (c) the windowed index at 2^19.
+    `geom` carries the default field's resolutions and calibration. Returns
+    the records of shape (a), the main path's (without launch counts)."""
+    import torch
+
+    from spinnerf_tpu_torch.models.hashgrid import HashGridEncoding
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    dev = x.device
+    l = len(geom["res"])
+    g = torch.randn((N_POINTS, 2 * l), generator=torch.Generator()
+                    .manual_seed(7)).to(dev)
+    results = {}
+    for tag, log2t in (("a: XOR 2^19", 19), ("b: XOR 2^12", 12)):
+        enc = HashGridEncoding(n_levels=l, log2_table_size=log2t,
+                               base_res=geom["base_res"],
+                               finest_res=geom["finest_res"], impl="mxu",
+                               device=dev)
+        idx, w = enc.corner_indices_weights(x)
+        # the card's int32 index arithmetic against the CPU's, bit for bit
+        idx_c, w_c = enc.corner_indices_weights(x[:8192].cpu())
+        if not (torch.equal(idx[..., :8192].cpu(), idx_c)
+                and torch.equal(w[..., :8192].cpu(), w_c)):
+            raise AssertionError(f"{tag}: corner indices differ from the CPU")
+        del enc
+        table = torch.randn((l, 1 << log2t, 2), generator=torch.Generator()
+                            .manual_seed(8)).to(dev)
+        results[tag] = compare_idx_shape(tag, table, idx, w,
+                                         he.hash_encode_xla,
+                                         he.hash_encode_mxu, g)
+        del idx, w, table
+    t = 1 << 19
+    idx, w = hw.corner_indices_weights_win(x, geom["res"], t,
+                                           geom["bounds"], geom["boxes"])
+    table = torch.randn((l, t, 2), generator=torch.Generator()
+                        .manual_seed(9)).to(dev)
+    compare_idx_shape("c: windowed 2^19", table, idx, w,
+                      hw.hash_encode_exact, hw.hash_encode_win, g)
+    del idx, w, table
+    torch.cuda.empty_cache()
+
+    fwd_err, bwd_err, ms, bound = results["a: XOR 2^19"]
+    records = []
+    for k, lines, err in (("fwd", (78, 316), fwd_err),
+                          ("bwd", (113, 359), bwd_err)):
+        nbytes, ops = bound[k]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        records.append({
+            "name": f"hash_encode_idx_{k}", "route": "cuda",
+            "source": "spinnerf_tpu_torch/csrc/hash_encode_idx.cu",
+            "replaces": (f"spinnerf_tpu/ops/hash_encode.py:{lines[0]}, "
+                         f"spinnerf_tpu/ops/hash_encode_win.py:{lines[1]}"),
+            "max_abs_err": err, "ms": ms[k], "plain_ms": ms[f"plain_{k}"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": ms[f"lib_{k}"]})
+    # the backward's second yardstick: embedding_bag's autograd backward
+    records[1]["embedding_bag_bwd_ms"] = ms["lib_bag_bwd"]
+    log(f"[idx kernels] shape a bound: fwd {records[0]['bound_ms']:.4f} ms "
+        f"({bound['fwd'][0]:.4e} bytes), bwd {records[1]['bound_ms']:.4f} ms "
+        f"({bound['bwd'][0]:.4e} bytes); library: embedding_bag (fwd), "
+        f"index_add_ (bwd)")
+    return records
+
+
+def read_png_gray(path):
+    """(width, height, pixels [H, W] uint8) of an 8-bit grayscale PNG as
+    `eval.render.write_png` writes it (one IDAT, filter 0)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    width, height, depth, color = struct.unpack(">IIBB", data[16:26])
+    if (depth, color) != (8, 0):
+        raise AssertionError(f"{path}: not 8-bit grayscale")
+    pos, idat = 8, b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, width + 1)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return width, height, rows[:, 1:]
+
+
+def xor_arm(scene, held_pose, held_rgb, common, argv):
+    """Phase 10: the XOR-prime hash arm with its hooks. Returns the launch
+    counts of the index-gather kernels over the run."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    from spinnerf_tpu_torch.train.loop import Trainer
+    stamps = []
+
+    def stamped_log(msg):
+        stamps.append((time.perf_counter(), msg))
+        log(msg)
+
+    cfg = Config(expname="xor_prepare", hash_impl="mxu", llffhold=8,
+                 **dict(common, i_feat=STEPS, i_testset=STEPS))
+    tr = Trainer(cfg, scene=scene, log=stamped_log)
+    enc = tr.model.encoder
+    log(f"[setup xor] encoder impl {enc.impl}, table "
+        f"{tuple(enc.table.shape)}, test views {tr.i_test.tolist()}")
+    if enc.impl != "mxu" or tuple(enc.table.shape) != (16, 1 << 19, 2):
+        raise AssertionError("the XOR arm is not the 16 x 2^19 x 2 mxu field")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    he.launches.update(fwd=0, bwd=0)
+    psnr_1 = float(tr.fit(1, hooks=False)["psnr"])
+    tr.fit(10, hooks=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(STEPS - 1, hooks=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 11)
+    timed_counts = dict(he.launches)
+    peak_train = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    # step STEPS through the Trainer's hooks: the testset dump (i_testset)
+    # and the LaMa staging (i_feat; forced at the last step)
+    t0 = time.perf_counter()
+    m_end = tr.fit(STEPS)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = dict(he.launches)
+    t_test = next(t for t, m in stamps if "testset PSNR" in m)
+    t_dump = next(t for t, m in stamps if "LaMa guidance" in m)
+    psnr_end, loss_end = float(m_end["psnr"]), float(m_end["loss"])
+    rays = cfg.N_rand * tr._batches_per_step()
+    peak_hooks = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[train xor] {STEPS} steps: psnr step 1 {psnr_1:.3f} -> step "
+        f"{STEPS} {psnr_end:.3f}, loss {loss_end:.5f}; {step_ms:.3f} ms/step "
+        f"(steps 11-{STEPS - 1}), {rays / step_ms * 1e3:.0f} rays/s; step "
+        f"{STEPS} + testset {t_test - t0:.3f} s, prepare dump "
+        f"{t_dump - t_test:.3f} s (total {t_end - t0:.3f} s); peak memory "
+        f"{peak_train:.2f} GiB training, {peak_hooks:.2f} GiB in step "
+        f"{STEPS} and its hooks; launches steps 1-{STEPS - 1} "
+        f"{timed_counts}, with step {STEPS} and its hooks {counts}")
+    if not math.isfinite(loss_end):
+        raise AssertionError("loss is not finite")
+    if not psnr_end > psnr_1:
+        raise AssertionError("PSNR did not rise")
+    for k in ("fwd", "bwd"):
+        if timed_counts[k] < 2 * (STEPS - 1):
+            raise AssertionError(f"idx {k} kernel launched {timed_counts[k]} "
+                                 f"times in {STEPS - 1} steps")
+
+    # the dump: one PNG per view and per mask, 336 x 252 8-bit grayscale
+    out = tr.exp_dir / "lama_input"
+    names = [f"img{i:03}.png" for i in range(N_VIEWS)]
+    for d in (out, out / "label"):
+        if sorted(p.name for p in d.glob("*.png")) != names:
+            raise AssertionError(f"{d} does not hold one PNG per view")
+        for name in names:
+            wdt, hgt, _ = read_png_gray(d / name)
+            if (wdt, hgt) != (W, H):
+                raise AssertionError(f"{d / name}: IHDR {wdt} x {hgt}")
+    _, disps = tr.render_poses_list(scene.poses[:1])
+    d0 = disps[0]
+    _, _, png0 = read_png_gray(out / "img000.png")
+    if not (np.isfinite(d0).all() and d0.std() > 0 and png0.std() > 0):
+        raise AssertionError("dumped disparity not finite or constant")
+    # the same render again: one 8-bit level of slack for a last-bit change
+    want0 = np.clip(d0 * 255, 0, 255).astype(np.uint8).astype(np.int64)
+    if np.abs(png0.astype(np.int64) - want0).max() > 1:
+        raise AssertionError("img000.png is not the view's disparity")
+    _, _, lbl0 = read_png_gray(out / "label" / "img000.png")
+    if not np.array_equal(lbl0, (scene.masks[0] * 255).astype(np.uint8)):
+        raise AssertionError("label/img000.png is not the view's mask")
+    ps = json.loads((tr.exp_dir / f"testset_{STEPS:06d}" / "psnr.json")
+                    .read_text())
+    log(f"[hooks xor] lama_input/ and label/: {N_VIEWS} PNGs each, {W} x {H};"
+        f" disparity range {d0.min():.4f}-{d0.max():.4f}; testset PSNR "
+        f"{ps['per_view']} (mean {ps['mean']:.3f})")
+    if not math.isfinite(ps["mean"]):
+        raise AssertionError("testset PSNR is not finite")
+    render_held_out(tr, held_pose, held_rgb, "xor")
+    if "--profile" in argv:
+        profile_steps(tr, step_ms)
+    return counts
+
+
 def profile_steps(trainer, step_ms, n_steps=5):
     """torch.profiler over a few steps: device time by kernel, and the
     device's busy share of the unprofiled step time `step_ms`."""
@@ -525,12 +878,13 @@ def main(argv):
 
     # 2. build
     t0 = time.perf_counter()
-    build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe"])
+    build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe",
+                                   "hash_encode_idx"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
 
-    scene, held_pose, held_rgb = synthetic_scene()
+    scene, masks, held_pose, held_rgb = synthetic_scene()
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(exp_root, ignore_errors=True)
     common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
@@ -549,7 +903,13 @@ def main(argv):
         f"groups x rays {trainer._batches_per_step()} x {cfg.N_rand}")
 
     # 3. hash kernels against the plain version
-    records = compare_kernels(trainer)
+    x = fine_pass_points(trainer)
+    records = compare_kernels(trainer, x)
+    enc = trainer.model.encoder
+    geom = dict(res=enc.resolutions, bounds=enc.bounds, boxes=enc._boxes,
+                base_res=trainer.model.base_res,
+                finest_res=trainer.model.finest_res_per_unit
+                * trainer.model.bound)
 
     # 4.-5. the hash arm of the main path, and a held-out view
     step_ms, hash_counts = train_arm(trainer, hw.launches, "hash")
@@ -575,11 +935,23 @@ def main(argv):
     if "--profile" in argv:
         profile_steps(mlp_trainer, mlp_step_ms)
 
+    del mlp_trainer
+    torch.cuda.empty_cache()
+
+    # 9. the index-gather kernels against the plain version
+    idx_records = compare_idx_kernels(x, geom)
+
+    # 10. the XOR-prime hash arm, with the testset hook and the prepare dump
+    idx_counts = xor_arm(dataclasses.replace(scene, masks=masks), held_pose,
+                         held_rgb, common, argv)
+
     for r in records:
         r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]
     for r in mlp_records:
         r["launches"] = mlp_counts[r["name"].rsplit("_", 1)[1]]
-    log(json.dumps({"kernels": records + mlp_records}))
+    for r in idx_records:
+        r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1]]
+    log(json.dumps({"kernels": records + mlp_records + idx_records}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

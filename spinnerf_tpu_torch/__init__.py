@@ -2,9 +2,9 @@
 
 Mirrors `spinnerf_tpu/`'s module layout; imports `torch` and numpy, never
 `jax` or the JAX package. Entry points run on `cuda` unless the caller
-passes `device="cpu"`; the hash-grid encode runs hand-written CUDA kernels
-(`csrc/hash_encode_win.cu`) on CUDA tensors and its plain PyTorch version on
-CPU tensors.
+passes `device="cpu"`; the hash-grid encodes and the fused MLP run
+hand-written CUDA kernels (`csrc/*.cu`) on CUDA tensors and their plain
+PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 

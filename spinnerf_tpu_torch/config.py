@@ -36,8 +36,10 @@ class Config:
     use_viewdirs: bool = True
     no_tcnn: bool = False             # False => hash-grid field (default)
     log2_hashmap_size: int = 19       # per-level hash-table entries (2^k)
-    hash_impl: str = "auto"           # auto|win|win_xla (the windowed index;
-    #                                   mxu|xla are not ported yet)
+    hash_impl: str = "auto"           # auto|win|win_xla (the windowed
+    #                                   index) | mxu|xla (the instant-NGP
+    #                                   dense/XOR-prime index); auto = mxu
+    #                                   below 2^13 entries, else win
     fused_mlp: bool = True            # MLP field through its fused kernel
     #                                   (the MLP field is not ported yet)
     alpha_model_path: str | None = None

@@ -7,9 +7,17 @@ sigma net with trunc_exp density and 15 geometry features, SH degree-4 view
 encoding and a 3x64 color net. Raw channel order [rgb logits, sigma,
 (semantic logit)].
 
-The encode uses the windowed index function of `ops/hash_encode_win.py`
-through an exact gather: the CUDA kernels on the card, the plain version on
-the CPU. The JAX impls "win" and "win_xla" both mean that here.
+Two index functions, as in the JAX package (`impl`):
+- "win" / "win_xla": the windowed index of `ops/hash_encode_win.py` with an
+  exact gather, the fused CUDA kernels on the card (both impls mean that
+  here);
+- "mxu" / "xla": the reference's instant-NGP index (dense where the level's
+  grid fits the table, else the XOR-prime hash, `corner_indices_weights`)
+  through `ops/hash_encode.py::hash_encode_mxu`, the index-gather CUDA
+  kernels on the card (both impls mean that here). Both compute the f32
+  blend and cast it to `compute_dtype`.
+"auto" is "win" for tables of 2^13 entries and more, else "mxu" (the JAX
+package's choice on a TPU). On the CPU every impl takes its plain version.
 """
 from __future__ import annotations
 
@@ -22,14 +30,13 @@ from torch import nn
 from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.models.activations import trunc_exp
 from spinnerf_tpu_torch.models.embedding import sh_encoding
+from spinnerf_tpu_torch.ops import hash_encode as he
 from spinnerf_tpu_torch.ops import hash_encode_win as hw
 
-# Encodes of the JAX package that the port has not taken over yet.
-_UNPORTED_IMPLS = {
-    "mxu": "ROADMAP.md queue B, kernels #5/#6 (hash_encode_mxu)",
-    "xla": "ROADMAP.md queue B, kernels #5/#6 (the XOR-prime small-table "
-           "index of hash_encode_mxu)",
-}
+_PRIMES = (1, 2654435761, 805459861)
+_P1_INT32 = _PRIMES[1] - (1 << 32)    # the bit pattern of p1 as an int32
+_WIN_IMPLS = ("win", "win_xla")
+_IDX_IMPLS = ("mxu", "xla")
 
 
 def calibrate_page_bounds(x01, log2_table_size: int):
@@ -105,8 +112,10 @@ def _lecun_normal_(weight, generator):
 
 class HashGridEncoding(nn.Module):
     """Multiresolution hash encoding of positions [N, 3] in [0, 1] ->
-    [N, L*F] in `compute_dtype`, with the windowed index function
-    (`page_bounds`, `dense_box`: its calibration, pinned per experiment)."""
+    [N, L*F] in `compute_dtype`, with the index function `impl` selects (see
+    the module docstring). `page_bounds` and `dense_box` calibrate the
+    windowed index and are pinned per experiment; the instant-NGP index
+    ignores them."""
 
     def __init__(self, n_levels: int = 16, features: int = 2,
                  log2_table_size: int = 19, base_res: int = 16,
@@ -115,16 +124,20 @@ class HashGridEncoding(nn.Module):
                  impl: str = "auto", page_bounds: tuple | None = None,
                  dense_box: tuple | None = None, device=None):
         super().__init__()
-        if impl == "auto" and log2_table_size < 13:
-            impl = "mxu"    # the JAX package's choice for tables <= 2^12
-        if impl in _UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"hash_impl={impl!r} is not ported; see "
-                f"{_UNPORTED_IMPLS[impl]}")
-        if impl not in ("auto", "win", "win_xla"):
+        if impl == "auto":
+            impl = he.recommended_impl(log2_table_size, on_tpu=True)
+        if impl not in _WIN_IMPLS + _IDX_IMPLS:
             raise ValueError(f"unknown hash_impl {impl!r}")
+        device = resolve_device(device)
         if features != 2:
-            raise ValueError("the windowed hash encode supports features=2")
+            if impl in _WIN_IMPLS:
+                raise ValueError("the windowed hash encode supports "
+                                 "features=2")
+            if device.type == "cuda":
+                raise NotImplementedError(
+                    "the index-gather kernels take features=2; other feature "
+                    "counts run only on the CPU (ROADMAP.md queue A)")
+        self.impl = impl
         self.n_levels = n_levels
         self.features = features
         self.log2_table_size = log2_table_size
@@ -134,12 +147,13 @@ class HashGridEncoding(nn.Module):
                                                    finest_res))
         self.page_bounds = page_bounds
         self.dense_box = dense_box
-        self._boxes = hw.normalize_dense_box(self.resolutions, t, dense_box)
         self.table = nn.Parameter(torch.empty(
-            (n_levels, t, features), dtype=torch.float32,
-            device=resolve_device(device)))
-        self.register_buffer("bounds", hw.bounds_tensor(
-            t, page_bounds, self.table.device), persistent=False)
+            (n_levels, t, features), dtype=torch.float32, device=device))
+        if impl in _WIN_IMPLS:
+            self._boxes = hw.normalize_dense_box(self.resolutions, t,
+                                                 dense_box)
+            self.register_buffer("bounds", hw.bounds_tensor(
+                t, page_bounds, self.table.device), persistent=False)
 
     def reset_parameters(self, generator=None):
         w = torch.empty(self.table.shape, dtype=torch.float32)
@@ -147,11 +161,62 @@ class HashGridEncoding(nn.Module):
         with torch.no_grad():
             self.table.copy_(w)
 
+    def corner_indices_weights(self, x):
+        """x [N, 3] in [0, 1] -> (idx [L, 8, N] int32, w [L, 8, N] f32) of
+        the instant-NGP index: the linear index (cx*(r+1) + cy)*(r+1) + cz
+        where the level's (r+1)^3 grid fits the table, else the XOR-prime
+        hash cx ^ cy*p1 ^ cz*p2 in uint32 arithmetic, then % T. Corner ci
+        takes the +1 cell on x, y, z where bits 2, 1, 0 of ci are set. As in
+        the JAX function there is no clamp at the grid's last cell: a point
+        at x == 1.0 reaches corner r+1 (with weight 0), and % T wraps it. f32
+        operations round in the JAX function's order: xs = r*x,
+        frac = xs - floor(xs), w = (wx*wy)*wz.
+
+        The integers are int32: products wrap modulo 2^32 and XOR and the
+        mask act on the bits, so the low 32 bits are the uint32 results (the
+        linear index of a dense level never wraps: (r+2)^3 < 2^31)."""
+        t = 1 << self.log2_table_size
+        res = self.resolutions
+        n = x.shape[0]
+        scales = torch.tensor(res, dtype=x.dtype, device=x.device)
+        xs = scales[:, None, None] * x.T[None]               # [L, 3, N]
+        x0f = torch.floor(xs)
+        frac = xs - x0f
+        x0 = x0f.to(torch.int32)
+        # per axis: [L, 2, N] for the offsets 0 and 1
+        cx, cy, cz = (torch.stack([x0[:, a], x0[:, a] + 1], dim=1)
+                      for a in range(3))
+        # resolutions grow with the level, so the dense levels lead
+        nd = sum((r + 1) ** 3 <= t for r in res)
+        parts = []
+        if nd:
+            r1 = torch.tensor([r + 1 for r in res[:nd]], dtype=torch.int32,
+                              device=x.device)[:, None, None]
+            parts.append((cx[:nd] * (r1 * r1))[:, :, None, None]
+                         + (cy[:nd] * r1)[:, None, :, None]
+                         + cz[:nd][:, None, None, :])
+        if nd < len(res):
+            parts.append(cx[nd:][:, :, None, None]
+                         ^ (cy[nd:] * _P1_INT32)[:, None, :, None]
+                         ^ (cz[nd:] * _PRIMES[2])[:, None, None, :])
+        # corners in the order ci = 4i + 2j + k: [L, 2, 2, 2, N] -> [L, 8, N]
+        idx = torch.cat(parts) if len(parts) > 1 else parts[0]
+        idx = idx.bitwise_and_(t - 1).reshape(-1, 8, n)     # % T, T = 2^k
+        wx, wy, wz = (torch.stack([1.0 - frac[:, a], frac[:, a]], dim=1)
+                      for a in range(3))
+        w = ((wx[:, :, None, None] * wy[:, None, :, None])
+             * wz[:, None, None, :]).reshape(-1, 8, n)
+        return idx, w
+
     def forward(self, x):
         shape = x.shape[:-1]
         x = torch.clamp(x.reshape(-1, 3), 0.0, 1.0).contiguous()
-        out = hw.hash_encode_win_fused(self.table, x, self.resolutions,
-                                       self.bounds, self._boxes)
+        if self.impl in _WIN_IMPLS:
+            out = hw.hash_encode_win_fused(self.table, x, self.resolutions,
+                                           self.bounds, self._boxes)
+        else:
+            idx, w = self.corner_indices_weights(x)
+            out = he.hash_encode_mxu(self.table, idx, w)
         return out.to(self.compute_dtype).reshape(
             *shape, self.n_levels * self.features)
 

@@ -21,10 +21,12 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC")
 # Per source. -fmad=false: the hash kernels' corner geometry must round as
 # the f32 host index function does (see the note in
-# csrc/hash_encode_win.cu); the MLP kernels need no such rule.
+# csrc/hash_encode_win.cu); the MLP kernels need no such rule, and the
+# index-gather kernels round with explicit intrinsics.
 NVCC_FLAGS = {
     "hash_encode_win": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "fused_mlp_pe": _BASE_FLAGS + ("-Xptxas", "-v"),
+    "hash_encode_idx": _BASE_FLAGS + ("-Xptxas", "-v"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from spinnerf_tpu_torch.ops import cuda_build
+from spinnerf_tpu_torch.ops import hash_encode as he
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
@@ -230,14 +231,9 @@ def corner_indices_weights_win(x, resolutions, t: int, page_bounds=None,
 
 def hash_encode_exact(table, idx, weights):
     """Plain gather + trilinear blend: table [L, T, F], idx/weights
-    [L, 8, N] -> [N, L*F], level-major columns. Differentiable wrt table
-    through autograd (an index_put accumulate)."""
-    l, t, f = table.shape
-    n = idx.shape[2]
-    lvl = torch.arange(l, device=table.device)[:, None, None]
-    feats = table[lvl, idx]                                 # [L, 8, N, F]
-    out = torch.sum(feats * weights[..., None].to(feats.dtype), dim=1)
-    return out.permute(1, 0, 2).reshape(n, l * f)
+    [L, 8, N] -> [N, L*F], level-major columns (`hash_encode_xla`'s
+    [N, L, F] flattened). Differentiable wrt table through autograd."""
+    return he.hash_encode_xla(table, idx, weights).reshape(idx.shape[2], -1)
 
 
 def hash_encode_plain(table, x, resolutions, page_bounds=None,
@@ -348,6 +344,19 @@ class _HashEncodeWin(torch.autograd.Function):
         dtable = hash_encode_win_bwd_kernel(g, x, base, ctx.rows,
                                             ctx.table_shape)
         return dtable, None, None, None
+
+
+def hash_encode_win(table, idx, weights):
+    """Encode from precomputed corner indices and weights [L, 8, N] (from
+    `corner_indices_weights_win`) with table [L, T, 2] f32: [N, L*2] f32,
+    level-major columns, differentiable wrt the table — the counterpart of
+    the JAX `hash_encode_win` without its `pages` argument.
+
+    CUDA tensors launch the index-gather kernels of
+    `csrc/hash_encode_idx.cu` (or raise; their launches count in
+    `ops/hash_encode.py::launches`); CPU tensors take the plain version
+    `hash_encode_exact`."""
+    return he.hash_encode_mxu(table, idx, weights).reshape(idx.shape[2], -1)
 
 
 def hash_encode_win_fused(table, x, resolutions, page_bounds=None,

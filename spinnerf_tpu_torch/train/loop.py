@@ -2,16 +2,20 @@
 (port of `spinnerf_tpu/train/loop.py`: the hash-grid field and, with
 `no_tcnn`, the MLP field).
 
-Hooks ported: console metrics (`i_print`), checkpoints (`i_weights`) and the
-`page_bounds.json` sidecar that pins the hash index semantics to the
-experiment. The JAX trainer's other options and hooks raise
-NotImplementedError naming their ROADMAP.md entry instead of being skipped.
+Hooks ported, at the JAX cadences: console metrics (`i_print`), checkpoints
+(`i_weights`), the spiral videos (`i_video`), the testset dump with its PSNR
+(`i_testset`), the prepare-mode disparity dump for LaMa (`i_feat`, forced at
+the last step of every `fit`), and the `page_bounds.json` sidecar that pins
+the hash index semantics to the experiment. The JAX trainer's other options
+and hooks raise NotImplementedError naming their ROADMAP.md entry instead of
+being skipped.
 """
 from __future__ import annotations
 
 import functools
 import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,6 +24,8 @@ from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.core.rendering import RenderConfig
 from spinnerf_tpu_torch.data import llff, raybank
+from spinnerf_tpu_torch.eval import metrics as eval_metrics
+from spinnerf_tpu_torch.eval import render as eval_render
 from spinnerf_tpu_torch.models.fields import NeRFField
 from spinnerf_tpu_torch.models.hashgrid import (HashGridField,
                                                 calibrate_dense_box,
@@ -262,6 +268,80 @@ class Trainer:
         """Ray batches the fused step renders — the rays/s denominator."""
         return len(_active_groups(self.tcfg, self.bank))
 
+    # --- rendering helpers ---------------------------------------------------
+
+    def render_poses_list(self, poses, *, render_factor=None, save_dir=None,
+                          gt_images=None, save_alpha=False):
+        """Render poses with the current fields (`eval_render.render_path`,
+        fetching only `maps_for_save`'s maps). Returns (rgbs, disps) numpy."""
+        cfg = self.cfg
+        rf = cfg.render_factor if render_factor is None else render_factor
+        rcfg = render_config(cfg, train=False)
+        renderer = eval_render.make_param_frame_renderer(
+            self.scene.hwf, self.fields, rcfg, near=self.bank.near,
+            far=self.bank.far, ndc=self.bank.ndc, chunk=cfg.chunk,
+            render_factor=rf, maps=eval_render.maps_for_save(save_dir,
+                                                             save_alpha),
+            device=self.device)
+        return eval_render.render_path(
+            poses, self.scene.hwf, None, rcfg, near=self.bank.near,
+            far=self.bank.far, ndc=self.bank.ndc, chunk=cfg.chunk,
+            render_factor=rf, save_dir=save_dir, gt_images=gt_images,
+            save_alpha=save_alpha, frame_fn=renderer, device=self.device)
+
+    # --- cadence hooks -------------------------------------------------------
+
+    def _video_hook(self, step):
+        rgbs, disps = self.render_poses_list(self.scene.render_poses)
+        vdir = self.exp_dir / f"video_{step:06d}"
+        vdir.mkdir(exist_ok=True)
+        eval_render.write_video(vdir / "rgb.mp4", rgbs)
+        eval_render.write_video(
+            vdir / "disp.mp4", eval_render.normalize_disps_for_video(disps))
+        self.log(f"[{step}] wrote spiral videos to {vdir}")
+
+    def _testset_hook(self, step):
+        if len(self.i_test) == 0:
+            return
+        tdir = self.exp_dir / f"testset_{step:06d}"
+        rgbs, _ = self.render_poses_list(
+            self.scene.poses[self.i_test], save_dir=tdir,
+            gt_images=self.scene.images[self.i_test])
+        if self.cfg.render_factor:
+            # downsampled renders are not compared with full-size images
+            # (the reference computes test PSNR only at render_factor 0,
+            # `run_nerf.py:1692-1696`)
+            self.log(f"[{step}] testset rendered at 1/"
+                     f"{self.cfg.render_factor} (no PSNR)")
+            return
+        ps = [float(eval_metrics.psnr(torch.from_numpy(r),
+                                      torch.from_numpy(self.scene.images[t])))
+              for r, t in zip(rgbs, self.i_test)]
+        self.log(f"[{step}] testset PSNR mean {np.mean(ps):.2f}")
+        (tdir / "psnr.json").write_text(json.dumps(
+            {"per_view": ps, "mean": float(np.mean(ps))}))
+
+    def _prepare_hook(self, step, out_dir=None):
+        """Render every pose's disparity, and its downsampled mask where the
+        scene has masks, into the LaMa staging layout
+        (`run_nerf.py:1599-1609`): <out>/img{i:03}.png and
+        <out>/label/img{i:03}.png, 8-bit grayscale."""
+        out = Path(out_dir) if out_dir else self.exp_dir / "lama_input"
+        (out / "label").mkdir(parents=True, exist_ok=True)
+        _, disps = self.render_poses_list(self.scene.poses)
+        rf = max(self.cfg.render_factor, 1)
+        for i, d in enumerate(disps):
+            eval_render.write_png(
+                out / f"img{i:0>3}.png",
+                np.clip(np.nan_to_num(d) * 255, 0, 255).astype(np.uint8))
+            if self.scene.masks is not None:
+                m = np.abs(self.scene.masks[i])[::rf, ::rf]
+                eval_render.write_png(
+                    out / "label" / f"img{i:0>3}.png",
+                    (np.clip(m, 0, 1) * 255).astype(np.uint8))
+        self.log(f"[{step}] wrote LaMa guidance inputs to {out}")
+        return out
+
     def _check_hooks(self, start: int, n_iters: int):
         """Raise before training if an unported hook would fire in range."""
         cfg = self.cfg
@@ -270,23 +350,15 @@ class Trainer:
         def fires(every):
             return bool(every) and any(i % every == 0 for i in steps)
 
-        if fires(cfg.i_video):
-            raise _unported("the spiral video hook (i_video; eval/render.py)",
-                            _QUEUE_A)
-        if fires(cfg.i_testset) and len(self.i_test):
-            raise _unported("the testset hook (i_testset; eval/render.py)",
-                            _QUEUE_A)
-        if cfg.prepare and cfg.i_feat and len(steps):
-            raise _unported("the prepare disparity dump (i_feat with "
-                            "--prepare; eval/render.py)", _QUEUE_A)
         if not cfg.prepare and cfg.i_feat > 10 and fires(cfg.i_feat):
-            raise _unported("the sanity-panel hook (i_feat)", _QUEUE_A)
+            raise _unported("the sanity-panel hook (i_feat without --prepare; "
+                            "utils/visualization.py)", _QUEUE_A)
         if cfg.mvseg and fires(cfg.i_img):
             raise _unported("the MVSeg panel hook (i_img)", _QUEUE_A)
 
     def fit(self, n_iters: int | None = None, *, hooks: bool = True):
-        """Train to step `n_iters` (default N_iters). Returns the metrics of
-        the last step."""
+        """Train to step `n_iters` (default N_iters), running the cadence
+        hooks unless `hooks=False`. Returns the metrics of the last step."""
         cfg = self.cfg
         n_iters = cfg.N_iters if n_iters is None else n_iters
         if hooks:
@@ -308,4 +380,15 @@ class Trainer:
                          f"({rays_done / max(dt, 1e-9):.0f} rays/s)")
             self.ckpt.maybe_save(i, self.fields.state_dict(),
                                  self.optimizer.state_dict())
+            if cfg.i_video and i % cfg.i_video == 0:
+                self._video_hook(i)
+            if cfg.i_testset and i % cfg.i_testset == 0:
+                self._testset_hook(i)
+            # prepare mode dumps the LaMa staging every i_feat, as the
+            # reference does (`run_nerf.py:1563,1599`; each dump overwrites
+            # the last), and at the last step of the call, so that a
+            # schedule whose end is not a multiple of i_feat still stages it
+            if cfg.prepare and cfg.i_feat and (i % cfg.i_feat == 0
+                                               or i == n_iters):
+                self._prepare_hook(i)
         return metrics

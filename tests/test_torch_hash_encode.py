@@ -145,7 +145,18 @@ def test_plain_encode_and_table_grad(case):
 
 
 def test_unported_impl_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thg.HashGridEncoding(log2_table_size=12, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thg.HashGridEncoding(log2_table_size=13, impl="xla", device="cpu")
+    """Every JAX impl is ported for features=2. The instant-NGP index with
+    another feature count has no kernel: it raises for the card (before any
+    allocation) and takes the plain version on the CPU; the windowed index
+    takes features=2 only, as in JAX; an unknown impl is refused."""
+    for impl in ("mxu", "xla"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            thg.HashGridEncoding(log2_table_size=12, features=4, impl=impl,
+                                 device="cuda")
+        enc = thg.HashGridEncoding(log2_table_size=12, features=4, impl=impl,
+                                   device="cpu")
+        assert enc.table.shape == (16, 1 << 12, 4)
+    with pytest.raises(ValueError, match="features=2"):
+        thg.HashGridEncoding(log2_table_size=13, features=4, device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        thg.HashGridEncoding(log2_table_size=13, impl="tcnn", device="cpu")
