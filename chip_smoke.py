@@ -45,7 +45,28 @@ Phases, each fatal on failure (no phase's error is caught):
      on the scene with its ball masks: steps 1-199 without hooks (launch
      counts set to 0 just before), then step 200 through the Trainer's own
      testset hook and prepare dump (timed), the dump's PNGs checked, and the
-     held-out view rendered.
+     held-out view rendered;
+ 11. hold the v1 fused MLP kernels (`fused_mlp`: encodings computed outside,
+     input gradients returned) against their plain version evaluated in
+     float64 at the fine pass's shape (262,144 points of the MLP arm's rays)
+     and, with the semantic head, at 131,072 points: output, every weight
+     gradient, dx and dd, padded lanes exactly 0; then `make_fused_field_fn`
+     on CUDA tensors with the points' gradient, counting its launches; time
+     kernel, plain version and the bf16 matmul chain with its autograd
+     backward;
+ 12. hold the calibration kernel (`csrc/kbench_cal.cu`) against its plain
+     version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it through
+     the port's `tools.kbench.calibrate` (TFLOP/s) beside `torch.bmm` and
+     the plain version;
+ 13. the disk arm: `data.synthetic.make_scene` writes 12 views at 504 x 672
+     with masks and a COLMAP model of 3000 points; one image decoded and
+     checked against its in-memory render; `Trainer` built with no scene at
+     the reference's DS-NeRF prepare configuration (factor 2, COLMAP sparse
+     depth with the depth loss, lindisp, white background, density noise,
+     hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory and
+     trains 200 steps (hash kernel counts set to 0 just before, read after):
+     the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
+     decoded with the port's reader.
 """
 from __future__ import annotations
 
@@ -256,14 +277,16 @@ def bank_points(trainer, n_rays, seed):
             batch["viewdirs"])
 
 
-def mlp_flops(dims):
+def mlp_flops(dims, input_grads=False):
     """(forward, backward) multiply-add FLOPs per point that the fused MLP's
     function needs: the encodings counted at their unpadded widths (the
     products on the zero padding lanes are the kernel's, not the
     function's). The forward's products; the backward's recompute (all but
     the heads), weight gradients (every product) and the gradients of the
     activations it needs (the trunk's hidden part, the feature, the view
-    layer's feature part, the heads)."""
+    layer's feature part, the heads), and with `input_grads` (the v1
+    kernels) the encodings' gradients: layer 0's input, the skip layer's
+    encoding slice and the view layer's direction slice."""
     w, vw = dims.width, dims.view_width
     enc_x = 3 * (1 + 2 * dims.multires)
     enc_d = 3 * (1 + 2 * dims.multires_views)
@@ -273,17 +296,19 @@ def mlp_flops(dims):
             for i in range(dims.depth)]
     body += [(w, w), (w + enc_d, vw)]
     dx = [(w, w)] * (dims.depth - 1) + [(w, w), (w, vw)] + heads
+    if input_grads:
+        dx += [(enc_x, w), (enc_x, w), (enc_d, vw)]
     fwd = 2 * sum(k * n for k, n in body + heads)
     bwd = (2 * sum(k * n for k, n in body) + fwd
            + 2 * sum(k * n for k, n in dx))
     return fwd, bwd
 
 
-def library_chain(weights, dims):
+def library_chain(weights, dims, *, pre):
     """The yardstick: the same MLP as a chain of bf16 torch.matmul calls
-    (cuBLAS) with the encoding in PyTorch and f32 biases. Returns (fwd(xd),
-    the bf16 leaves it differentiates). Timed only; the port never calls
-    it."""
+    (cuBLAS) with f32 biases. Returns (fwd(inputs), the bf16 leaves it
+    differentiates): inputs are (xd,), encoded in PyTorch, or with `pre`
+    the v1 encodings (x_enc, d_enc). Timed only; the port never calls it."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -294,9 +319,13 @@ def library_chain(weights, dims):
     def dense(a, w, b):
         return torch.matmul(a, leaves[w]).float() + leaves[b]
 
-    def fwd(xd):
-        x = fm.encode(xd, dims.multires, 0, dims.in_dim).bfloat16()
-        d = fm.encode(xd, dims.multires_views, 3, dims.dir_dim).bfloat16()
+    def fwd(inputs):
+        if pre:
+            x, d = (a.bfloat16() for a in inputs)
+        else:
+            x = fm.encode(inputs[0], dims.multires, 0, dims.in_dim).bfloat16()
+            d = fm.encode(inputs[0], dims.multires_views, 3,
+                          dims.dir_dim).bfloat16()
         h = x
         for i in range(dims.depth):
             h = torch.relu(dense(h, f"tw{i}", f"tb{i}")).bfloat16()
@@ -319,6 +348,72 @@ def out_of_bound(errs):
     errs: name -> (kernel error, plain error, ...)."""
     return [n for n, (k, q, *_) in errs.items()
             if not (k <= 2 * q and k <= 1e-2)]
+
+
+def relu_flips(weights, x, d, dims):
+    """[P] bool: the points where a trunk or view ReLU mask of the v1 plain
+    version in f32 differs from its float64 evaluation's. There the
+    gradient of a point moves by a whole term between two evaluations."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    _, z32, _, _, v32, _ = fm._forward_acts(weights, x, d, dims,
+                                            torch.float32)
+    _, z64, _, _, v64, _ = fm._forward_acts(weights, x, d, dims,
+                                            torch.float64)
+    flip = (v32 > 0).ne(v64 > 0).any(1)
+    for a, b in zip(z32, z64):
+        flip |= (a > 0).ne(b > 0).any(1)
+    return flip
+
+
+def point_errs(k_, p_, ref, flip):
+    """The errors of a per-point gradient [P, n] of the kernel (k_) and the
+    plain f32 version (p_) against the float64 evaluation `ref`, relative
+    to max |ref|: largest entry and normwise, ||a - ref|| / ||ref||; the
+    plain version's largest entry on the points whose ReLU masks agree with
+    float64 (`agree`) and on the `flip` points; the number of points where
+    the kernel's largest entry is above min(2 x agree, 1e-2) (`over`), and
+    how many of those are `flip` points."""
+    den = ref.abs().max()
+    e_k = (k_.double() - ref).abs().amax(1) / den
+    e_p = (p_.double() - ref).abs().amax(1) / den
+    agree = float(e_p[~flip].max())
+    over = e_k > min(2 * agree, 1e-2)
+    return {"max": (float(e_k.max()), float(e_p.max())),
+            "norm": tuple(float((a.double() - ref).norm() / ref.norm())
+                          for a in (k_, p_)),
+            "agree": agree,
+            "flipped": float(e_p[flip].max()) if flip.any() else 0.0,
+            "n_flip": int(flip.sum()), "over": int(over.sum()),
+            "over_flip": int((over & flip).sum())}
+
+
+def point_out_of_bound(errs):
+    """Names of per-point gradients out of bound. On all points: the
+    kernel's largest-entry error at most twice the plain f32 version's, and
+    its normwise error at most twice the plain version's and 1e-2. Point by
+    point: the points where the kernel's largest entry breaks the 2x and
+    1e-2 rule against the plain version's error on the points whose masks
+    agree number at most twice the plain version's flipped points (the
+    kernel flips masks of its own, which no evaluation can read back).
+    errs: name -> `point_errs`."""
+    return [n for n, e in errs.items()
+            if not (e["max"][0] <= 2 * e["max"][1]
+                    and e["norm"][0] <= 2 * e["norm"][1]
+                    and e["norm"][0] <= 1e-2
+                    and e["over"] <= 2 * e["n_flip"])]
+
+
+def log_point_errs(errs):
+    for n, e in errs.items():
+        log(f"  {n}: largest entry kernel / plain f32 {e['max'][0]:.3e} / "
+            f"{e['max'][1]:.3e}, normwise {e['norm'][0]:.3e} / "
+            f"{e['norm'][1]:.3e}; ReLU masks f32 vs float64 differ at "
+            f"{e['n_flip']} points, plain f32's largest entry there "
+            f"{e['flipped']:.3e} and {e['agree']:.3e} on the others; the "
+            f"kernel above min(2 x {e['agree']:.3e}, 1e-2) at {e['over']} "
+            f"points ({e['over_flip']} of them flipped in plain f32)")
 
 
 def compare_mlp_kernels(trainer):
@@ -391,10 +486,10 @@ def compare_mlp_kernels(trainer):
         if semantic:
             continue
 
-        lib_fwd, lib_leaves = library_chain(w, dims)
+        lib_fwd, lib_leaves = library_chain(w, dims, pre=False)
         with torch.no_grad():
-            ms["lib_fwd"] = cuda_ms(lambda: lib_fwd(xd))
-        out_l = lib_fwd(xd)
+            ms["lib_fwd"] = cuda_ms(lambda: lib_fwd((xd,)))
+        out_l = lib_fwd((xd,))
         ms["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             out_l, list(lib_leaves.values()), g, retain_graph=True))
         del out_l
@@ -701,32 +796,6 @@ def compare_idx_kernels(x, geom):
     return records
 
 
-def read_png_gray(path):
-    """(width, height, pixels [H, W] uint8) of an 8-bit grayscale PNG as
-    `eval.render.write_png` writes it (one IDAT, filter 0)."""
-    import struct
-    import zlib
-
-    import numpy as np
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
-        raise AssertionError(f"{path}: not a PNG")
-    width, height, depth, color = struct.unpack(">IIBB", data[16:26])
-    if (depth, color) != (8, 0):
-        raise AssertionError(f"{path}: not 8-bit grayscale")
-    pos, idat = 8, b""
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        if data[pos + 4:pos + 8] == b"IDAT":
-            idat += data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-        height, width + 1)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: a row filter other than 0")
-    return width, height, rows[:, 1:]
-
-
 def xor_arm(scene, held_pose, held_rgb, common, argv):
     """Phase 10: the XOR-prime hash arm with its hooks. Returns the launch
     counts of the index-gather kernels over the run."""
@@ -734,6 +803,7 @@ def xor_arm(scene, held_pose, held_rgb, common, argv):
     import torch
 
     from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.eval.render import read_png
     from spinnerf_tpu_torch.ops import hash_encode as he
     from spinnerf_tpu_torch.train.loop import Trainer
     stamps = []
@@ -799,19 +869,19 @@ def xor_arm(scene, held_pose, held_rgb, common, argv):
         if sorted(p.name for p in d.glob("*.png")) != names:
             raise AssertionError(f"{d} does not hold one PNG per view")
         for name in names:
-            wdt, hgt, _ = read_png_gray(d / name)
-            if (wdt, hgt) != (W, H):
-                raise AssertionError(f"{d / name}: IHDR {wdt} x {hgt}")
+            shape = read_png(d / name).shape
+            if shape != (H, W):
+                raise AssertionError(f"{d / name}: {shape}, want ({H}, {W})")
     _, disps = tr.render_poses_list(scene.poses[:1])
     d0 = disps[0]
-    _, _, png0 = read_png_gray(out / "img000.png")
+    png0 = read_png(out / "img000.png")
     if not (np.isfinite(d0).all() and d0.std() > 0 and png0.std() > 0):
         raise AssertionError("dumped disparity not finite or constant")
     # the same render again: one 8-bit level of slack for a last-bit change
     want0 = np.clip(d0 * 255, 0, 255).astype(np.uint8).astype(np.int64)
     if np.abs(png0.astype(np.int64) - want0).max() > 1:
         raise AssertionError("img000.png is not the view's disparity")
-    _, _, lbl0 = read_png_gray(out / "label" / "img000.png")
+    lbl0 = read_png(out / "label" / "img000.png")
     if not np.array_equal(lbl0, (scene.masks[0] * 255).astype(np.uint8)):
         raise AssertionError("label/img000.png is not the view's mask")
     ps = json.loads((tr.exp_dir / f"testset_{STEPS:06d}" / "psnr.json")
@@ -822,6 +892,377 @@ def xor_arm(scene, held_pose, held_rgb, common, argv):
     if not math.isfinite(ps["mean"]):
         raise AssertionError("testset PSNR is not finite")
     render_held_out(tr, held_pose, held_rgb, "xor")
+    if "--profile" in argv:
+        profile_steps(tr, step_ms)
+    return counts
+
+
+def compare_mlp_v1_kernels(points):
+    """Phase 11: the v1 fused MLP kernels (#7/#8: encodings computed outside,
+    input gradients returned) against their plain version evaluated in
+    float64, at the fine pass's shape and, with the semantic head, at
+    131,072 points; then `make_fused_field_fn` on CUDA tensors with the
+    points' gradient. points: semantic -> (pts [R, 128, 3], viewdirs [R, 3]).
+    Returns the per-kernel records with the launch counts of the entry
+    point's call at the fine pass's shape."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    dev = points[False][0].device
+    ms = {}
+    for semantic in (False, True):
+        field = fm.FusedMLPField(semantic=semantic, device=dev)
+        field.reset_parameters(torch.Generator().manual_seed(4))
+        dims = field.dims
+        gen = torch.Generator().manual_seed(6)
+        w = {n: p.detach().clone() for n, p in field.weights.items()}
+        for n in w:     # non-zero biases, so that every bias path counts
+            if n.endswith("_b") or n.startswith("tb"):
+                w[n] = (torch.randn(w[n].shape, generator=gen) * 0.1).to(dev)
+        pts, vd = points[semantic]
+        b, s = pts.shape[0], pts.shape[1]
+        x, d = fm.field_encodings(pts, vd, dims)
+        p = x.shape[0]
+        g = torch.randn((p, 4 + dims.out_extra), generator=gen).to(dev)
+
+        out_k = fm.fused_mlp_fwd_kernel(w, x, d, dims)
+        d_k, dx_k, dd_k = fm.fused_mlp_bwd_kernel(w, x, d, g, dims)
+        out_p = fm.fused_mlp_fwd_plain(w, x, d, dims)
+        d_p, dx_p, dd_p = fm.fused_mlp_bwd_plain(w, x, d, g, dims)
+        out_64 = fm.fused_mlp_fwd_plain(w, x, d, dims, torch.float64)
+        d_64, dx_64, dd_64 = fm.fused_mlp_bwd_plain(w, x, d, g, dims,
+                                                    torch.float64)
+        torch.cuda.synchronize()
+
+        def rel(a, ref):
+            return float((a.double() - ref).abs().max() / ref.abs().max())
+
+        def err(name, k_, p_, ref):
+            return name, (rel(k_, ref), rel(p_, ref),
+                          float((k_.double() - ref).abs().max()))
+
+        errs = dict([err("out", out_k, out_p, out_64)]
+                    + [err(n, d_k[n], d_p[n], d_64[n]) for n in d_64])
+        # the per-point input gradients: a ReLU unit whose pre-activation
+        # lies within rounding of 0 flips its mask between two evaluations
+        # and moves that point's gradient by a whole term, so their largest
+        # entry error is large for the plain f32 version too; the points
+        # where the plain version flips are counted
+        flip = relu_flips(w, x, d, dims)
+        pt_errs = {n: point_errs(k_, p_, ref, flip)
+                   for n, k_, p_, ref in (("dx", dx_k, dx_p, dx_64),
+                                          ("dd", dd_k, dd_p, dd_64))}
+        log(f"[mlp v1 kernels] P={p} out_extra={dims.out_extra}: relative "
+            f"error vs the plain version in float64, kernel / plain f32:")
+        log("  " + ", ".join(f"{n} {k:.3e}/{q:.3e}"
+                             for n, (k, q, _) in errs.items()))
+        log_point_errs(pt_errs)
+        bad = out_of_bound(errs) + point_out_of_bound(pt_errs)
+        finite = all(torch.isfinite(v).all() for v in
+                     [out_k, dx_k, dd_k, *d_k.values()])
+        if bad or not finite:
+            raise AssertionError(f"v1 fused MLP kernels disagree with the "
+                                 f"plain version (bound: 2 x plain f32 and "
+                                 f"1e-2): {bad}, finite {bool(finite)}")
+        errs.update({n: e["max"] + (float((k_.double() - ref).abs().max()),)
+                     for (n, e), k_, ref in zip(pt_errs.items(),
+                                                (dx_k, dd_k),
+                                                (dx_64, dd_64))})
+        pad = {"dx[:, 63:]": dx_k[:, 63:], "dd[:, 27:]": dd_k[:, 27:],
+               "dtw0[63:]": d_k["tw0"][63:]}
+        if any(float(v.abs().max()) != 0.0 for v in pad.values()):
+            raise AssertionError(f"padded lanes not exactly 0: "
+                                 f"{ {n: float(v.abs().max()) for n, v in pad.items()} }")
+
+        # the entry point on CUDA tensors, with the points' gradient: it
+        # must go through #7 and #8; its point gradients are held against
+        # the encodings' backward of the float64 plain dx (and of the f32
+        # plain dx beside it)
+        fm.launches_v1.update(fwd=0, bwd=0)
+        pts_a = pts.clone().requires_grad_()
+        leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
+        out_a = fm.make_fused_field_fn(dims)(leaves, pts_a, vd)
+        out_a.backward(g[:b * s].reshape(b, s, -1))
+        torch.cuda.synchronize()
+        counts = dict(fm.launches_v1)
+        if counts != {"fwd": 1, "bwd": 1}:
+            raise AssertionError(f"make_fused_field_fn launched {counts}, "
+                                 f"want #7 and #8 once each")
+        if not torch.equal(out_a.detach().reshape(b * s, -1),
+                           out_k[:b * s]):
+            raise AssertionError("entry point forward differs from kernel")
+        pts_r = pts.clone().requires_grad_()
+        x_r, _ = fm.field_encodings(pts_r, vd, dims)
+        (dpts_64,) = torch.autograd.grad(x_r, pts_r, dx_64.float(),
+                                         retain_graph=True)
+        (dpts_p,) = torch.autograd.grad(x_r, pts_r, dx_p)
+        pts_errs = {"dpts": point_errs(pts_a.grad.reshape(-1, 3),
+                                       dpts_p.reshape(-1, 3),
+                                       dpts_64.double().reshape(-1, 3),
+                                       flip[:b * s])}
+        log(f"[mlp v1 kernels] make_fused_field_fn: launches {counts}; "
+            f"the points' gradients:")
+        log_point_errs(pts_errs)
+        if point_out_of_bound(pts_errs):
+            raise AssertionError("point gradients out of bound")
+        del d_p, out_64, d_64, dx_64, dd_64, leaves, out_a, pts_a, pts_r
+        if semantic:
+            continue
+        main_counts, main_errs = counts, errs
+
+        lib_fwd, lib_leaves = library_chain(w, dims, pre=True)
+        with torch.no_grad():
+            ms["lib_fwd"] = cuda_ms(lambda: lib_fwd((x, d)))
+        x_l, d_l = x.clone().requires_grad_(), d.clone().requires_grad_()
+        out_l = lib_fwd((x_l, d_l))
+        wrt = list(lib_leaves.values()) + [x_l, d_l]
+        ms["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            out_l, wrt, g, retain_graph=True))
+        del out_l, x_l, d_l
+        ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims))
+        ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims))
+        ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_plain(w, x, d,
+                                                                 dims))
+        ms["plain_bwd"] = cuda_ms(lambda: fm.fused_mlp_bwd_plain(w, x, d, g,
+                                                                 dims))
+        fwd_flops, bwd_flops = (f * p for f in mlp_flops(dims, True))
+        n_w = sum(v.numel() for v in w.values())
+        enc_bytes = (x.numel() + d.numel()) * 4     # the padded 128 lanes
+        nbytes = {"fwd": enc_bytes + n_w * 4 + out_k.numel() * 4,
+                  "bwd": 2 * enc_bytes + g.numel() * 4 + 2 * n_w * 4}
+        flops = {"fwd": fwd_flops, "bwd": bwd_flops}
+    records = []
+    for k, src_line in (("fwd", 106), ("bwd", 115)):
+        bytes_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops[k] / BF16_OPS_PER_S * 1e3
+        err = (main_errs["out"][2] if k == "fwd" else
+               max(e[2] for n, e in main_errs.items() if n != "out"))
+        records.append({
+            "name": f"fused_mlp_{k}", "route": "cuda",
+            "source": "spinnerf_tpu_torch/csrc/fused_mlp_pe.cu",
+            "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{src_line}",
+            "launches": main_counts[k], "max_abs_err": err, "ms": ms[k],
+            "plain_ms": ms[f"plain_{k}"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": ms[f"lib_{k}"]})
+    log(f"[mlp v1 kernels] P={N_POINTS}: fwd {ms['fwd']:.4f} ms (plain "
+        f"{ms['plain_fwd']:.4f}, bf16 matmul chain {ms['lib_fwd']:.4f}, "
+        f"bound {records[0]['bound_ms']:.4f}: {flops['fwd']:.4e} FLOP, "
+        f"{nbytes['fwd']:.4e} bytes); bwd {ms['bwd']:.4f} ms (plain "
+        f"{ms['plain_bwd']:.4f}, chain's autograd backward "
+        f"{ms['lib_bwd']:.4f}, bound {records[1]['bound_ms']:.4f}: "
+        f"{flops['bwd']:.4e} FLOP, {nbytes['bwd']:.4e} bytes)")
+    return records
+
+
+CAL_BLOCKS = 4096
+CAL_CASES = ((64, 8), (128, 8), (64, 64), (128, 64))   # (k, reps)
+
+
+def compare_calibration(device):
+    """Phase 12: the calibration kernel (#11) against its plain version on
+    random bf16 inputs at k = 64 and 128, reps 8 and 64, 4096 blocks (within
+    1e-5 relative); then the port's `calibrate` entry point at each case,
+    with the launch count set to 0 just before and read just after; then
+    the plain version and the library yardstick (reps torch.bmm calls in
+    bf16) timed. Returns the kernel's record (k 128, reps 8, the JAX
+    defaults) with every case's numbers under "cases"."""
+    import torch
+
+    from spinnerf_tpu_torch.tools import kbench
+    gen = torch.Generator(device).manual_seed(10)
+    a = torch.randn((CAL_BLOCKS, 128, 128), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    b = torch.randn((CAL_BLOCKS, 128, 512), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    errs = {}
+    for k, reps in CAL_CASES:
+        out_k = kbench.cal_kernel(a, b, k, reps)
+        out_p = kbench.cal_plain(a, b, k, reps)
+        torch.cuda.synchronize()
+        errs[k, reps] = (float((out_k.double() - out_p).abs().max()),
+                         float((out_k.double() - out_p).abs().max()
+                               / out_p.abs().max()))
+        del out_k, out_p
+        if not errs[k, reps][1] <= 1e-5:
+            raise AssertionError(f"calibration kernel disagrees with its "
+                                 f"plain version at k={k} reps={reps}: "
+                                 f"{errs[k, reps][1]:.3e} > 1e-5")
+    kbench.launches["cal"] = 0
+    timed = {c: kbench.calibrate(*c, blocks=CAL_BLOCKS, device=device,
+                                 log=lambda m: log(f"[calibration] {m}"))
+             for c in CAL_CASES}
+    torch.cuda.synchronize()
+    launches = kbench.launches["cal"]
+    cases = []
+    for k, reps in CAL_CASES:
+        a_k, b_k = a[:, :, :k], b[:, :k, :]
+        plain_ms = cuda_ms(lambda: kbench.cal_plain(a, b, k, reps), iters=5,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: [torch.bmm(a_k, b_k) for _ in range(reps)])
+        flops = kbench.cal_flops(k, reps, CAL_BLOCKS)
+        nbytes = CAL_BLOCKS * (128 * k * 2 + k * 512 * 2 + 128 * 512 * 4)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+        ms, tflops = timed[k, reps]
+        cases.append({"k": k, "reps": reps, "ms": ms, "tflops": tflops,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_tflops": flops / (lib_ms * 1e-3) / 1e12,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                      "max_abs_err": errs[k, reps][0],
+                      "rel_err": errs[k, reps][1]})
+        log(f"[calibration] k={k} reps={reps}: kernel {ms:.4f} ms = "
+            f"{tflops:.1f} TFLOP/s (nominal {BF16_OPS_PER_S / 1e12:.0f}); "
+            f"torch.bmm bf16 x {reps} {lib_ms:.4f} ms = "
+            f"{cases[-1]['library_tflops']:.1f} TFLOP/s; plain f32 "
+            f"{plain_ms:.4f} ms; bound {cases[-1]['bound_ms']:.4f} ms "
+            f"({cases[-1]['bound_by']}: {nbytes:.4e} bytes, {flops:.4e} "
+            f"FLOP); relative error {errs[k, reps][1]:.3e}")
+    if launches < len(CAL_CASES):
+        raise AssertionError(f"calibrate launched the kernel {launches} "
+                             f"times")
+    main = next(c for c in cases if (c["k"], c["reps"]) == (128, 8))
+    return {"name": "kbench_cal", "route": "cuda",
+            "source": "spinnerf_tpu_torch/csrc/kbench_cal.cu",
+            "replaces": "tools/kbench.py:63", "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "cases": cases}
+
+
+DISK_H, DISK_W, DISK_FACTOR = 504, 672, 2   # written; loaded at 252 x 336
+
+
+def disk_arm(exp_root, argv):
+    """Phase 13: a scene written to disk by the port's `make_scene`, loaded
+    by `Trainer` (no scene handed in) at the reference's DS-NeRF prepare
+    configuration with COLMAP sparse depth; 200 steps, then the prepare
+    dump. Returns the launch counts of the hash kernels over the 200
+    steps."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.data import synthetic
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer
+
+    # 1. the scene directory
+    scene_dir = exp_root / "disk_scene"
+    shutil.rmtree(scene_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.make_scene(scene_dir, n_views=N_VIEWS, h=DISK_H, w=DISK_W,
+                         factor=DISK_FACTOR, n_points=3000)
+    write_s = time.perf_counter() - t0
+
+    # 2. one written image against its in-memory render (the file holds
+    # the render truncated to 8 bits)
+    th = 2 * np.pi * 5 / N_VIEWS
+    pos = np.array([3.5 * np.cos(th), 3.5 * np.sin(th),
+                    2.0 + 0.3 * np.sin(3 * th)])
+    focal = 1.2 * DISK_W / DISK_FACTOR
+    rgb, _, _ = synthetic.render_view(
+        synthetic.look_at_pose(pos, target=(0, 0, 0.3)),
+        DISK_H // DISK_FACTOR, DISK_W // DISK_FACTOR, focal)
+    png = read_png(scene_dir / f"images_{DISK_FACTOR}" / "view005.png")
+    png_err = float(np.abs(png / 255.0 - rgb).max())
+    if png.shape != (H, W, 3) or not png_err < 1 / 255:
+        raise AssertionError(f"view005.png: shape {png.shape}, largest "
+                             f"difference from its render {png_err}")
+
+    # 3. the DS-NeRF prepare configuration (`tools/full_run.py:128-147`,
+    # the hash grid's lr 0.03 / decay 10), loaded from the directory
+    cfg = Config(expname="disk_prepare", basedir=str(exp_root),
+                 datadir=str(scene_dir), dataset_type="llff",
+                 factor=DISK_FACTOR, prepare=True, N_rand=1024, N_samples=64,
+                 N_importance=64, use_viewdirs=True, raw_noise_std=1.0,
+                 colmap_depth=True, depth_loss=True, depth_lambda=0.1,
+                 no_ndc=True, lindisp=True, render_factor=1, feat_weight=0.1,
+                 lrate=0.03, lrate_decay=10, white_bkgd=True, no_reload=True,
+                 N_iters=STEPS, i_print=50, i_weights=0, i_video=0,
+                 i_testset=0, i_feat=0)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, log=log)
+    setup_s = time.perf_counter() - t0
+    n_depth = tr.bank.depth_group.count if tr.bank.depth_group else 0
+    rays = cfg.N_rand * tr._batches_per_step()
+    log(f"[setup disk] scene written in {write_s:.3f} s ({N_VIEWS} views at "
+        f"{DISK_W} x {DISK_H}, factor {DISK_FACTOR}); view005.png vs its "
+        f"render: largest difference {png_err:.5f}; Trainer in "
+        f"{setup_s:.3f} s, of which scene load {tr.load_s['scene']:.3f} s and "
+        f"sparse-depth read {tr.load_s['sparse_depth']:.4f} s; images "
+        f"{tr.scene.images.shape}, depth rays {n_depth}, rays per step "
+        f"{rays}, encoder {tr.model.encoder.impl} "
+        f"{tuple(tr.model.encoder.table.shape)}")
+    if not n_depth > 0:
+        raise AssertionError("the depth group holds no rays")
+    if tr.scene.images.shape != (N_VIEWS, H, W, 3):
+        raise AssertionError(f"loaded images {tr.scene.images.shape}")
+
+    # 4.-5. 200 steps: steps 1-10 and 191-200 one call each, for their
+    # losses
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hw.launches.update(fwd=0, bwd=0)
+    first = [tr.fit(i, hooks=False) for i in range(1, 11)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(STEPS - 10, hooks=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (STEPS - 20)
+    last = [tr.fit(i, hooks=False) for i in range(STEPS - 9, STEPS + 1)]
+    torch.cuda.synchronize()
+    counts = dict(hw.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def mean(ms, k):
+        return float(np.mean([float(m[k]) for m in ms]))
+
+    d_first, d_last = mean(first, "depth_loss"), mean(last, "depth_loss")
+    p_first, p_last = mean(first, "psnr"), mean(last, "psnr")
+    log(f"[train disk] {STEPS} steps: depth loss mean of steps 1-10 "
+        f"{d_first:.5f} -> steps {STEPS - 9}-{STEPS} {d_last:.5f}; PSNR "
+        f"{p_first:.3f} -> {p_last:.3f} (same windows), step {STEPS} "
+        f"{float(last[-1]['psnr']):.3f}; loss {float(last[-1]['loss']):.5f}; "
+        f"{step_ms:.3f} ms/step (steps 11-{STEPS - 10}), "
+        f"{rays / step_ms * 1e3:.0f} rays/s; peak memory {peak:.2f} GiB; "
+        f"launches {counts}")
+    if not all(math.isfinite(float(m["depth_loss"])) for m in first + last):
+        raise AssertionError("the depth loss is not finite")
+    if not d_last < d_first:
+        raise AssertionError("the depth loss did not fall")
+    if not p_last > p_first:
+        raise AssertionError("PSNR did not rise")
+    for k in ("fwd", "bwd"):
+        if counts[k] < 2 * STEPS:
+            raise AssertionError(f"hash {k} kernel launched {counts[k]} "
+                                 f"times in {STEPS} steps")
+
+    # 6. the prepare dump, read back with the port's reader
+    t0 = time.perf_counter()
+    out = tr._prepare_hook(STEPS)
+    torch.cuda.synchronize()
+    dump_s = time.perf_counter() - t0
+    names = [f"img{i:03}.png" for i in range(N_VIEWS)]
+    for d in (out, out / "label"):
+        if sorted(p.name for p in d.glob("*.png")) != names:
+            raise AssertionError(f"{d} does not hold one PNG per view")
+    disp0 = read_png(out / "img000.png")
+    lbl0 = read_png(out / "label" / "img000.png")
+    want_lbl = (np.clip(np.abs(tr.scene.masks[0]), 0, 1) * 255).astype(
+        np.uint8)
+    if disp0.shape != (H, W) or not disp0.std() > 0:
+        raise AssertionError(f"img000.png: {disp0.shape}, constant or wrong")
+    if not np.array_equal(lbl0, want_lbl):
+        raise AssertionError("label/img000.png is not the view's mask")
+    log(f"[hooks disk] prepare dump of {N_VIEWS} views in {dump_s:.3f} s; "
+        f"img000.png {disp0.shape}, values {int(disp0.min())}-"
+        f"{int(disp0.max())}")
     if "--profile" in argv:
         profile_steps(tr, step_ms)
     return counts
@@ -879,7 +1320,7 @@ def main(argv):
     # 2. build
     t0 = time.perf_counter()
     build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe",
-                                   "hash_encode_idx"])
+                                   "hash_encode_idx", "kbench_cal"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
@@ -934,6 +1375,9 @@ def main(argv):
     render_held_out(mlp_trainer, held_pose, held_rgb, "mlp")
     if "--profile" in argv:
         profile_steps(mlp_trainer, mlp_step_ms)
+    # phase 11's inputs: the fine pass's points of the MLP arm's rays
+    v1_points = {False: bank_points(mlp_trainer, N_POINTS // 128, 7),
+                 True: bank_points(mlp_trainer, N_POINTS_SEM // 128, 8)}
 
     del mlp_trainer
     torch.cuda.empty_cache()
@@ -945,13 +1389,28 @@ def main(argv):
     idx_counts = xor_arm(dataclasses.replace(scene, masks=masks), held_pose,
                          held_rgb, common, argv)
 
+    # 11. the v1 fused MLP kernels, and make_fused_field_fn
+    v1_records = compare_mlp_v1_kernels(v1_points)
+    del v1_points
+    torch.cuda.empty_cache()
+
+    # 12. the calibration kernel
+    cal_record = compare_calibration(torch.device("cuda"))
+    torch.cuda.empty_cache()
+
+    # 13. the disk arm: the DS-NeRF prepare configuration on a scene
+    # directory with COLMAP sparse depth
+    disk_counts = disk_arm(exp_root, argv)
+
     for r in records:
         r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]
     for r in mlp_records:
         r["launches"] = mlp_counts[r["name"].rsplit("_", 1)[1]]
     for r in idx_records:
         r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1]]
-    log(json.dumps({"kernels": records + mlp_records + idx_records}))
+    log(f"[launches] the disk arm's hash kernels: {disk_counts}")
+    log(json.dumps({"kernels": records + mlp_records + idx_records
+                    + v1_records + [cal_record]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

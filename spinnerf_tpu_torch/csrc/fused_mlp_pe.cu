@@ -40,6 +40,24 @@
 //   (P / 2) x (fa + fg) words, 2.7 GB at P = 262,144.
 // - sinf is the full-range libm sine: arguments reach 2^9 * |x|. Never build
 //   with --use_fast_math.
+//
+// The same kernels, instantiated with PRE = true, also replace the v1 Pallas
+// pair of spinnerf_tpu/ops/fused_mlp.py, which reads encodings computed
+// outside the kernel and returns the input gradients as well:
+//   forward  _fwd_kernel (:106; pallas_call :248)
+//   backward _bwd_kernel (:115; pallas_call :294)
+// (fused_mlp_fwd_plain / fused_mlp_bwd_plain in ops/fused_mlp.py). With PRE
+// the block's encodings are read from x_enc / d_enc [P][128] f32 and rounded
+// to bf16, and the backward adds what the v1 kernel returns besides the
+// weight gradients: dx [P][128] = g_z0 W0^T + (g_z(skip+1) W(skip+1)^T)[:,
+// :128] and dd [P][128] = (g_v view_w^T)[:, 256:], both f32. Each is written
+// to device memory as soon as its product is done (the skip slice first, the
+// layer-0 product added to it by the same thread), so no f32 tile stays
+// resident beside the block's activations. The v1 kernel sums its bias
+// gradients over f32 gradients (the v2 kernel over bf16-rounded ones), so
+// with PRE the gradient epilogues add their f32 column sums per warp, in
+// f64 atomics, and fm_dw_kernel skips its bias pass. The padded input lanes
+// of dx and dd are products with the weights' zero rows: exactly 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,12 +110,16 @@ struct FmParams {
 // f32 weight gradients in the weights' own [in, out] layout (_FmGrads).
 // The heads' bias gradients (rgb 0-2, sigma, semantic) are sums of the f32
 // cotangent over all points, summed in f64 (head_b) so that their rounding
-// stays below the f32 sum's.
+// stays below the f32 sum's. The PRE path also takes bias64 (f64 bias sums:
+// trunk layer i at i * 256, the feature layer at depth * 256, the view
+// layer at (depth + 1) * 256), dx and dd; the v2 path passes them null.
 struct FmGrads {
   float* tw[FM_MAX_DEPTH];
   float* tb[FM_MAX_DEPTH];
   float *feat_w, *feat_b, *view_w, *view_b, *rgb_w, *sigma_w, *sem_w;
   double* head_b;
+  double* bias64;
+  float *dx, *dd;
 };
 
 // Column offsets (in point pairs' words) of each activation and gradient in
@@ -322,13 +344,26 @@ __device__ __forceinline__ void epi_bias_act(float (&acc)[2][NT][4],
   }
 }
 
+// The sum of s over the 8 lanes of a warp that share lane % 4: one column's
+// sum over the warp's rows in the accumulator layout.
+__device__ __forceinline__ float warp_col_sum(float s) {
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 4);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 8);
+  s += __shfl_xor_sync(0xFFFFFFFFu, s, 16);
+  return s;
+}
+
 // Gradient epilogue: out = bf16((acc [+ g_sigma * sigma_w (+ g_sem * sem_w)])
-// * relu_mask). gs (the cotangent block) adds the heads' terms when given.
+// * relu_mask). gs (the cotangent block) adds the heads' terms when given;
+// bsum, when given, receives the column sums of the f32 values before the
+// rounding (the bias gradient of the PRE path), one f64 atomic per column
+// and warp.
 template <int NT>
 __device__ __forceinline__ void epi_grad(float (&acc)[2][NT][4],
                                          const uint32_t* mask, bf16* out,
                                          int ldo, const float* gs,
-                                         const FmParams& p) {
+                                         const FmParams& p,
+                                         double* bsum = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
@@ -337,6 +372,9 @@ __device__ __forceinline__ void epi_grad(float (&acc)[2][NT][4],
 #pragma unroll
   for (int w = 0; w < NW; ++w)
     bits[w] = mask ? mask[w * FM_THREADS + threadIdx.x] : 0xFFFFFFFFu;
+  float cs[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) cs[nt][0] = cs[nt][1] = 0.0f;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -360,11 +398,49 @@ __device__ __forceinline__ void epi_grad(float (&acc)[2][NT][4],
         for (int j = 0; j < 2; ++j) {
           const int idx = (mt * NT + nt) * 4 + 2 * h + j;
           if (!((bits[idx >> 5] >> (idx & 31)) & 1u)) v[j] = 0.0f;
+          cs[nt][j] += v[j];
         }
         *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) =
             __floats2bfloat162_rn(v[0], v[1]);
       }
     }
+  if (bsum) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float s = warp_col_sum(cs[nt][j]);
+        if (g == 0) atomicAdd(bsum + wn * NT * 8 + nt * 8 + 2 * t + j,
+                              (double)s);
+      }
+  }
+}
+
+// Write (or, with add, add to) an f32 [64][NT*32] accumulator tile at the
+// block's rows of dst [P][ld]: the PRE path's dx and dd.
+template <int NT>
+__device__ __forceinline__ void store_f32_tile(const float (&acc)[2][NT][4],
+                                               float* dst, int ld, bool add) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 32 + mt * 16 + g + 8 * h;
+        const int col = wn * NT * 8 + nt * 8 + 2 * t;
+        float2* o = reinterpret_cast<float2*>(dst + (size_t)row * ld + col);
+        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        if (add) {
+          const float2 a = *o;
+          v.x = a.x + v.x;
+          v.y = a.y + v.y;
+        }
+        *o = v;
+      }
 }
 
 // One lane of the positional encoding of x3 (3 floats) with nf octaves:
@@ -389,6 +465,26 @@ __device__ __forceinline__ void encode_block(const float* __restrict__ xd,
   }
 }
 
+// The PRE path's encodings: rows p0.. of x_enc and d_enc ([P][128] f32,
+// 16-byte aligned) rounded to bf16, four lanes a thread.
+__device__ __forceinline__ void load_block(const float* __restrict__ x_enc,
+                                           const float* __restrict__ d_enc,
+                                           int p0, bf16* xe, bf16* de) {
+  constexpr int Q = FM_E / 4;
+  for (int i = threadIdx.x; i < FM_BM * Q; i += FM_THREADS) {
+    const int r = i / Q, c = (i - r * Q) * 4;
+    const size_t off = (size_t)(p0 + r) * FM_E + c;
+    const float4 a = *reinterpret_cast<const float4*>(x_enc + off);
+    const float4 b = *reinterpret_cast<const float4*>(d_enc + off);
+    __nv_bfloat162* xo = reinterpret_cast<__nv_bfloat162*>(xe + r * LDE + c);
+    __nv_bfloat162* dout = reinterpret_cast<__nv_bfloat162*>(de + r * LDE + c);
+    xo[0] = __floats2bfloat162_rn(a.x, a.y);
+    xo[1] = __floats2bfloat162_rn(a.z, a.w);
+    dout[0] = __floats2bfloat162_rn(b.x, b.y);
+    dout[1] = __floats2bfloat162_rn(b.z, b.w);
+  }
+}
+
 // Write f columns of a shared [64][lds] bf16 block to the scratch rows of
 // this block's 32 point pairs: word (q, off + c) = (s[2q][c], s[2q+1][c]).
 __device__ __forceinline__ void export_block(const bf16* s, int lds, int f,
@@ -408,10 +504,13 @@ __device__ __forceinline__ void export_block(const bf16* s, int lds, int f,
 // The forward through the view layer for the block at p0. Leaves the last
 // trunk output in hb[(depth-1)&1], the feature in hb[depth&1], the view
 // output in xe (the encoding is dead by then) and the dir encoding in de.
-// BWD also keeps the ReLU masks and exports every activation.
-template <bool BWD>
+// BWD also keeps the ReLU masks and exports every activation. The inputs
+// are xd [P][8] (in_x; in_d unused), or with PRE the encodings x_enc and
+// d_enc [P][128].
+template <bool BWD, bool PRE>
 __device__ __forceinline__ void forward_pass(const FmParams& p,
-                                             const float* __restrict__ xd,
+                                             const float* __restrict__ in_x,
+                                             const float* __restrict__ in_d,
                                              int p0, uint8_t* smem,
                                              uint32_t* mask, uint32_t* act,
                                              const FmLayout& lay) {
@@ -423,7 +522,10 @@ __device__ __forceinline__ void forward_pass(const FmParams& p,
   const int D = p.depth;
   const bool sk = p.skip + 1 < D;
 
-  encode_block(xd, p0, p, xe, de);
+  if (PRE)
+    load_block(in_x, in_d, p0, xe, de);
+  else
+    encode_block(in_x, p0, p, xe, de);
   __syncthreads();
   if (BWD) {
     export_block(xe, LDE, FM_E, act, lay.fa, lay.xe);
@@ -468,13 +570,14 @@ __device__ __forceinline__ void forward_pass(const FmParams& p,
 // kernels
 // ---------------------------------------------------------------------------
 
+template <bool PRE>
 __global__ void __launch_bounds__(FM_THREADS, 1)
-fm_fwd_kernel(const FmParams p, const float* __restrict__ xd,
-              float* __restrict__ out) {
+fm_fwd_kernel(const FmParams p, const float* __restrict__ in_x,
+              const float* __restrict__ in_d, float* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int p0 = blockIdx.x * FM_BM;
   const FmLayout none = {};
-  forward_pass<false>(p, xd, p0, smem, nullptr, nullptr, none);
+  forward_pass<false, PRE>(p, in_x, in_d, p0, smem, nullptr, nullptr, none);
 
   // heads on the CUDA cores: 4 lanes a point, pairs of k interleaved
   const bf16* hl = reinterpret_cast<const bf16*>(
@@ -527,11 +630,14 @@ fm_fwd_kernel(const FmParams p, const float* __restrict__ xd,
 
 // Recompute the forward of a block, back-propagate through it, add the
 // heads' weight gradients (atomics, once a block) and export A and G of the
-// layers that fm_dw_kernel reduces.
+// layers that fm_dw_kernel reduces. PRE: see the note at the top (dx, dd
+// and the f32 bias sums).
+template <bool PRE>
 __global__ void __launch_bounds__(FM_THREADS, 1)
 fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
-              const float* __restrict__ xd, const float* __restrict__ g,
-              uint32_t* __restrict__ act, uint32_t* __restrict__ grad) {
+              const float* __restrict__ in_x, const float* __restrict__ in_d,
+              const float* __restrict__ g, uint32_t* __restrict__ act,
+              uint32_t* __restrict__ grad) {
   extern __shared__ __align__(16) uint8_t smem[];
   bf16* xe = reinterpret_cast<bf16*>(smem + SM_XE);   // view output after fwd
   bf16* de = reinterpret_cast<bf16*>(smem + SM_DE);
@@ -548,7 +654,7 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
   uint32_t* act_blk = act + (size_t)blockIdx.x * (FM_BM / 2) * lay.fa;
   uint32_t* grad_blk = grad + (size_t)blockIdx.x * (FM_BM / 2) * lay.fg;
 
-  forward_pass<true>(p, xd, p0, smem, mask, act_blk, lay);
+  forward_pass<true, PRE>(p, in_x, in_d, p0, smem, mask, act_blk, lay);
   const bf16* hl = hb[(D - 1) & 1];
   bf16* feat = hb[D & 1];
   const bf16* v = xe;
@@ -587,11 +693,14 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
   // g_v = bf16((g_rgb rgb_w^T) * (view > 0)) in the view layer's
   // accumulator layout, so that each thread reads its own mask bits; it
   // replaces the dir encoding in de
+  // (PRE: the f32 g_v's column sums are the view layer's bias gradient)
+  double* bias64 = PRE ? gr.bias64 : nullptr;
   {
     const int warp = tid >> 5, lane = tid & 31;
     const int gq = lane >> 2, t = lane & 3;
     const int wm = warp >> 2, wn = warp & 3;
     const uint32_t bits = mask[D * 2 * FM_THREADS + tid];
+    float cs[4][2] = {};
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -611,10 +720,22 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
             s = fmaf(g2, ldbf(wr + 2), s);
             const int idx = (mt * 4 + nt) * 4 + 2 * h + j;
             o[j] = (bits >> idx) & 1u ? s : 0.0f;
+            cs[nt][j] += o[j];
           }
           *reinterpret_cast<__nv_bfloat162*>(de + row * LDE + col) =
               __floats2bfloat162_rn(o[0], o[1]);
         }
+    if (PRE) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float s = warp_col_sum(cs[nt][j]);
+          if (gq == 0)
+            atomicAdd(bias64 + (D + 1) * FM_W + wn * 32 + nt * 8 + 2 * t + j,
+                      (double)s);
+        }
+    }
   }
   __syncthreads();
   export_block(de, LDE, FM_V, grad_blk, lay.fg, lay.gv);
@@ -623,7 +744,14 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
   {
     float acc[2][8][4];
     block_mma<8>(acc, de, LDE, FM_V, de, LDE, p.view_w, FM_V, FM_V, bst);
-    epi_grad<8>(acc, nullptr, feat, LDH, nullptr, p);
+    epi_grad<8>(acc, nullptr, feat, LDH, nullptr, p,
+                PRE ? bias64 + D * FM_W : nullptr);
+  }
+  if (PRE) {  // dd = (g_v view_w^T)[:, 256:], the direction slice
+    float acc[2][4][4];
+    block_mma<4>(acc, de, LDE, FM_V, de, LDE, p.view_w + FM_W * FM_V, FM_V,
+                 FM_V, bst);
+    store_f32_tile<4>(acc, gr.dd + (size_t)p0 * FM_E, FM_E, false);
   }
   __syncthreads();
   export_block(feat, LDH, FM_W, grad_blk, lay.fg, lay.gfeat);
@@ -633,21 +761,36 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
     float acc[2][8][4];
     block_mma<8>(acc, feat, LDH, FM_W, feat, LDH, p.feat_w, FM_W, FM_W, bst);
     epi_grad<8>(acc, mask + (D - 1) * 2 * FM_THREADS, hb[(D - 1) & 1], LDH,
-                gs, p);
+                gs, p, PRE ? bias64 + (D - 1) * FM_W : nullptr);
   }
   __syncthreads();
   export_block(hb[(D - 1) & 1], LDH, FM_W, grad_blk, lay.fg, lay.gz[D - 1]);
 
-  // the trunk: g_z(i-1) = bf16((g_z(i) tw_i^T)[h part] * mask(i-1))
+  // the trunk: g_z(i-1) = bf16((g_z(i) tw_i^T)[h part] * mask(i-1)); PRE
+  // also writes the skip layer's encoding slice into dx
+  bool dx_written = false;
   for (int i = D - 1; i >= 1; --i) {
     const bf16* gin = hb[i & 1];
     bf16* gout = hb[(i - 1) & 1];
-    const bf16* w = (sk && i == p.skip + 1) ? p.w[i] + FM_E * FM_W : p.w[i];
+    const bool cat = sk && i == p.skip + 1;
+    if (PRE && cat) {
+      float acc[2][4][4];
+      block_mma<4>(acc, gin, LDH, FM_W, gin, LDH, p.w[i], FM_W, FM_W, bst);
+      store_f32_tile<4>(acc, gr.dx + (size_t)p0 * FM_E, FM_E, false);
+      dx_written = true;
+    }
+    const bf16* w = cat ? p.w[i] + FM_E * FM_W : p.w[i];
     float acc[2][8][4];
     block_mma<8>(acc, gin, LDH, FM_W, gin, LDH, w, FM_W, FM_W, bst);
-    epi_grad<8>(acc, mask + (i - 1) * 2 * FM_THREADS, gout, LDH, nullptr, p);
+    epi_grad<8>(acc, mask + (i - 1) * 2 * FM_THREADS, gout, LDH, nullptr, p,
+                PRE ? bias64 + (i - 1) * FM_W : nullptr);
     __syncthreads();
     export_block(gout, LDH, FM_W, grad_blk, lay.fg, lay.gz[i - 1]);
+  }
+  if (PRE) {  // dx += g_z0 W0^T (each thread adds to the entries it wrote)
+    float acc[2][4][4];
+    block_mma<4>(acc, hb[0], LDH, FM_W, hb[0], LDH, p.w[0], FM_W, FM_W, bst);
+    store_f32_tile<4>(acc, gr.dx + (size_t)p0 * FM_E, FM_E, dx_written);
   }
 }
 
@@ -689,7 +832,7 @@ fm_dw_kernel(const uint32_t* __restrict__ act, int fa,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wi = warp >> 2, wj = warp & 3;   // warp tile 64 x 32
-  const bool do_bias = i0 == 0;
+  const bool do_bias = i0 == 0 && L.db != nullptr;   // null on the PRE path
   const uint32_t* abase = act + L.a_off + i0;
   const uint32_t* gbase = grad + L.g_off + j0;
 
@@ -782,12 +925,14 @@ fm_dw_kernel(const uint32_t* __restrict__ act, int fa,
 // arguments the kernels do not take).
 // ---------------------------------------------------------------------------
 
-static int fm_check(const FmParams* p, int n_points) {
+static int fm_check(const FmParams* p, int n_points, bool pre) {
   if (!p || p->depth < 1 || p->depth > FM_MAX_DEPTH || p->skip < 0 ||
       p->skip + 1 == p->depth || (p->out_extra != 0 && p->out_extra != 1) ||
-      p->multires < 0 || 3 * (1 + 2 * p->multires) > FM_E ||
-      p->multires_views < 0 || 3 * (1 + 2 * p->multires_views) > FM_E ||
       n_points < 0 || n_points % FM_BM)
+    return (int)cudaErrorInvalidValue;
+  if (!pre && (p->multires < 0 || 3 * (1 + 2 * p->multires) > FM_E ||
+               p->multires_views < 0 ||
+               3 * (1 + 2 * p->multires_views) > FM_E))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -801,35 +946,56 @@ extern "C" int fm_scratch_cols(int depth, int skip, int* fa, int* fg) {
   return 0;
 }
 
-extern "C" int fm_fwd(const FmParams* p, const void* xd, void* out,
-                      int n_points, void* stream) {
-  int err = fm_check(p, n_points);
+template <bool PRE>
+static int fm_fwd_launch(const FmParams* p, const void* in_x,
+                         const void* in_d, void* out, int n_points,
+                         void* stream) {
+  int err = fm_check(p, n_points, PRE);
   if (err || n_points == 0) return err;
-  err = (int)cudaFuncSetAttribute(
-      fm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SM_FWD_END);
+  err = (int)cudaFuncSetAttribute(fm_fwd_kernel<PRE>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SM_FWD_END);
   if (err) return err;
-  fm_fwd_kernel<<<n_points / FM_BM, FM_THREADS, SM_FWD_END,
-                  (cudaStream_t)stream>>>(*p, (const float*)xd, (float*)out);
+  fm_fwd_kernel<PRE><<<n_points / FM_BM, FM_THREADS, SM_FWD_END,
+                       (cudaStream_t)stream>>>(
+      *p, (const float*)in_x, (const float*)in_d, (float*)out);
   return (int)cudaGetLastError();
 }
 
+extern "C" int fm_fwd(const FmParams* p, const void* xd, void* out,
+                      int n_points, void* stream) {
+  return fm_fwd_launch<false>(p, xd, nullptr, out, n_points, stream);
+}
+
+// The pre-encoded forward (kernel #7): x_enc, d_enc [n_points][128] f32.
+extern "C" int fm_fwd_pre(const FmParams* p, const void* x_enc,
+                          const void* d_enc, void* out, int n_points,
+                          void* stream) {
+  return fm_fwd_launch<true>(p, x_enc, d_enc, out, n_points, stream);
+}
+
 // act: (n_points / 2) x fa words, grad: (n_points / 2) x fg words of
-// scratch (fm_scratch_cols); every gradient in `gr` zeroed by the caller.
-extern "C" int fm_bwd(const FmParams* p, const FmGrads* gr, const void* xd,
-                      const void* g, void* act, void* grad, int n_points,
-                      void* stream) {
-  int err = fm_check(p, n_points);
+// scratch (fm_scratch_cols); every gradient in `gr` zeroed by the caller
+// (with PRE: bias64 too; dx and dd are written whole).
+template <bool PRE>
+static int fm_bwd_launch(const FmParams* p, const FmGrads* gr,
+                         const void* in_x, const void* in_d, const void* g,
+                         void* act, void* grad, int n_points, void* stream) {
+  int err = fm_check(p, n_points, PRE);
   if (err || n_points == 0) return err;
+  if (PRE && (!gr->bias64 || !gr->dx || !gr->dd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   FmLayout lay;
   fm_layout(p->depth, p->skip, &lay);
   const int smem = SM_BWD_END(p->depth);
-  err = (int)cudaFuncSetAttribute(
-      fm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = (int)cudaFuncSetAttribute(fm_bwd_kernel<PRE>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
   if (err) return err;
-  fm_bwd_kernel<<<n_points / FM_BM, FM_THREADS, smem, s>>>(
-      *p, *gr, lay, (const float*)xd, (const float*)g, (uint32_t*)act,
-      (uint32_t*)grad);
+  fm_bwd_kernel<PRE><<<n_points / FM_BM, FM_THREADS, smem, s>>>(
+      *p, *gr, lay, (const float*)in_x, (const float*)in_d, (const float*)g,
+      (uint32_t*)act, (uint32_t*)grad);
   err = (int)cudaGetLastError();
   if (err) return err;
 
@@ -862,6 +1028,7 @@ extern "C" int fm_bwd(const FmParams* p, const FmGrads* gr, const void* xd,
       L.dw = gr->view_w;
       L.db = gr->view_b;
     }
+    if (PRE) L.db = nullptr;   // summed in f32 by fm_bwd_kernel
     L.tile0 = tiles;
     L.tiles_j = L.n / DW_BJ;
     tiles += (L.k / DW_BI) * L.tiles_j;
@@ -876,6 +1043,21 @@ extern "C" int fm_bwd(const FmParams* p, const FmGrads* gr, const void* xd,
       (const uint32_t*)act, lay.fa, (const uint32_t*)grad, lay.fg, plan,
       n_chunks, per);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fm_bwd(const FmParams* p, const FmGrads* gr, const void* xd,
+                      const void* g, void* act, void* grad, int n_points,
+                      void* stream) {
+  return fm_bwd_launch<false>(p, gr, xd, nullptr, g, act, grad, n_points,
+                              stream);
+}
+
+// The pre-encoded backward (kernel #8): also writes gr->dx, gr->dd.
+extern "C" int fm_bwd_pre(const FmParams* p, const FmGrads* gr,
+                          const void* x_enc, const void* d_enc, const void* g,
+                          void* act, void* grad, int n_points, void* stream) {
+  return fm_bwd_launch<true>(p, gr, x_enc, d_enc, g, act, grad, n_points,
+                             stream);
 }
 
 extern "C" const char* fm_error_string(int err) {

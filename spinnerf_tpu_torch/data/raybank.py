@@ -215,25 +215,61 @@ def _draw(count, batch_size, step, generator, device):
     return epoch_indices(step, batch_size, count, device=device)
 
 
-def sample_group(bank: RayBank, name: str, batch_size: int, step=None,
-                 generator=None):
-    """A ray batch from a pixel group: epoch strides when `step` is given,
-    else uniform with replacement from `generator`. Returns (ray_batch,
-    targets) with targets 'rgb' [B,3], 'label' [B] and, when the bank has
-    inpainted depths, 'inp_depth' [B]."""
-    g = bank.groups[name]
-    i = _draw(g.count, batch_size, step, generator, bank.device)
-    vrc = g.idx[i]
-    view, row, col = vrc[:, 0], vrc[:, 1], vrc[:, 2]
+def pixel_batch(bank: RayBank, view, row, col, inp_depth: bool = True):
+    """The ray batch and targets of bank pixels (view, row, col), each [B]
+    int64: targets 'rgb' [B,3], 'label' [B] and, with `inp_depth` when the
+    bank has inpainted depths, 'inp_depth' [B]."""
     rays_o, rays_d = rays_for_pixels(bank.poses, bank.hwf, view,
                                      col.to(torch.float32),
                                      row.to(torch.float32))
     batch = _finish_ray_batch(bank, rays_o, rays_d)
     targets = {"rgb": bank.images[view, row, col],
                "label": bank.labels[view, row, col]}
-    if bank.inp_depths is not None:
+    if inp_depth and bank.inp_depths is not None:
         targets["inp_depth"] = bank.inp_depths[view, row, col]
     return batch, targets
+
+
+def sample_group(bank: RayBank, name: str, batch_size: int, step=None,
+                 generator=None):
+    """A ray batch from a pixel group: epoch strides when `step` is given,
+    else uniform with replacement from `generator`. Returns (ray_batch,
+    targets) as `pixel_batch` gives them."""
+    g = bank.groups[name]
+    i = _draw(g.count, batch_size, step, generator, bank.device)
+    vrc = g.idx[i]
+    return pixel_batch(bank, vrc[:, 0], vrc[:, 1], vrc[:, 2])
+
+
+def single_image_bounds(hwf, step_idx: int, precrop_iters: int = 0,
+                        precrop_frac: float = 0.5):
+    """(row lo, row hi, col lo, col hi), half-open, of the pixels the
+    `--no_batching` sampler draws at `step_idx`: the centered crop while
+    step_idx < precrop_iters, else the whole image."""
+    h, w = int(hwf[0]), int(hwf[1])
+    if precrop_iters > 0 and step_idx < precrop_iters:
+        dh, dw = int(h // 2 * precrop_frac), int(w // 2 * precrop_frac)
+        return h // 2 - dh, h // 2 + dh, w // 2 - dw, w // 2 + dw
+    return 0, h, 0, w
+
+
+def sample_single_image(bank: RayBank, batch_size: int, step_idx: int, *,
+                        precrop_iters: int = 0, precrop_frac: float = 0.5,
+                        generator=None):
+    """The reference's `--no_batching` sampler (`run_nerf.py:1415-1452`):
+    `batch_size` pixels, uniform with replacement from `generator`, of one
+    training view drawn uniformly, within `single_image_bounds`. Returns
+    (ray_batch, targets 'rgb' and 'label')."""
+    r0, r1, c0, c1 = single_image_bounds(bank.hwf, step_idx, precrop_iters,
+                                         precrop_frac)
+    dev = bank.device
+    view = torch.randint(0, bank.poses.shape[0], (1,), generator=generator,
+                         device=dev).expand(batch_size)
+    row = torch.randint(r0, r1, (batch_size,), generator=generator,
+                        device=dev)
+    col = torch.randint(c0, c1, (batch_size,), generator=generator,
+                        device=dev)
+    return pixel_batch(bank, view, row, col, inp_depth=False)
 
 
 def sample_depth_group(bank: RayBank, batch_size: int, step=None,

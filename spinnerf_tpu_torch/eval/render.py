@@ -5,9 +5,10 @@ A frame's pixels are one ray batch rendered in chunks by
 `core.rendering.render_rays_chunked` under `torch.no_grad()`. The per-frame
 artifact tree (rgb/depth/disp/weight/z/alpha/pose/intrinsics) reproduces the
 disk contract of the reference and the JAX package. The machine with the
-card has neither cv2 nor imageio, so PNGs are written by `write_png`
-(stdlib zlib/struct); `write_video` keeps the JAX package's file-format
-chain (imageio, then cv2, then per-frame PNGs), importing both lazily.
+card has neither cv2 nor imageio, so PNGs are written by `write_png` and
+read by `read_png` (stdlib zlib/struct and numpy); `write_video` keeps the
+JAX package's file-format chain (imageio, then cv2, then per-frame PNGs),
+importing both lazily.
 """
 from __future__ import annotations
 
@@ -185,22 +186,124 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PNG color type -> channels; and channels -> the color type written
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_COLOR = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
 def write_png(path, img):
-    """Write an 8-bit PNG: img uint8 [H, W] (grayscale) or [H, W, 3] (RGB),
-    every row with filter 0 (none), one zlib stream."""
+    """Write a PNG: img uint8 or uint16 [H, W] (grayscale) or [H, W, C] with
+    C = 1 (grayscale), 2 (grayscale + alpha), 3 (RGB) or 4 (RGBA); every row
+    with filter 0 (none), one zlib stream."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or not (
-            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], got "
-                         f"{img.dtype} {img.shape}")
+    if img.dtype not in (np.uint8, np.uint16) or not (
+            img.ndim == 2 or (img.ndim == 3 and 1 <= img.shape[2] <= 4)):
+        raise ValueError(f"write_png takes uint8 or uint16 [H, W] or "
+                         f"[H, W, 1-4], got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
-                          axis=1)
-    color = 0 if img.ndim == 2 else 2
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    data = img.astype(">u2") if img.dtype == np.uint16 else img
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           data.reshape(h, -1).view(np.uint8)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * img.itemsize,
+                       _PNG_COLOR[channels], 0, 0, 0)
+    Path(path).write_bytes(_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
                            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
                            + _png_chunk(b"IEND", b""))
+
+
+def _png_unfilter(data: np.ndarray, filters: np.ndarray, bpp: int):
+    """Undo the PNG row filters: data [H, row bytes] uint8 as stored after
+    each row's filter byte, filters [H]. Rows with filter 0 (none), 1 (sub)
+    and 2 (up) are undone a row at a time; average (3) and Paeth (4) depend
+    on the reconstructed byte to the left, so those rows are undone along
+    anti-diagonals of pixels (all pixels with the same row + column depend
+    only on earlier diagonals), for every row at once."""
+    h, n = data.shape
+    px = data.reshape(h, n // bpp, bpp).astype(np.int16)
+    if filters.max(initial=0) <= 2:
+        out = np.zeros((h + 1, n // bpp, bpp), np.int16)
+        for r in range(h):
+            row = px[r]
+            if filters[r] == 1:
+                row = np.cumsum(row, axis=0)
+            elif filters[r] == 2:
+                row = row + out[r]
+            out[r + 1] = row & 255
+        return out[1:].reshape(h, n).astype(np.uint8)
+    w = n // bpp
+    # out[r + 1, c + 1] is pixel (r, c); row 0 and column 0 are the zeros
+    # the filters read outside the image
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)
+    kind = filters.astype(np.int64)
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        c = d - r
+        x = px[r, c]
+        a, b, ul = out[r + 1, c], out[r, c + 1], out[r, c]
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, ul))
+        pred = np.choose(kind[r][:, None], [np.zeros_like(a), a, b,
+                                            (a + b) >> 1, paeth])
+        out[r + 1, c + 1] = (x + pred) & 255
+    return out[1:, 1:].reshape(h, n).astype(np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """Decode a PNG as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` does, with
+    the channels in RGB(A) order instead of BGR(A): [H, W] for grayscale,
+    [H, W, 3] for RGB and palette images, [H, W, 4] for RGBA and grayscale +
+    alpha (the gray value repeated); uint16 for 16-bit images, else uint8
+    (grayscale below 8 bits scaled to 0..255). Transparency chunks (tRNS)
+    are ignored, where cv2 adds an alpha channel. All five row filters;
+    interlaced files raise."""
+    data = Path(path).read_bytes()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, plte, hdr = 8, [], None, None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    w, h, depth, color, _, _, interlace = hdr
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNGs are not supported")
+    if color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{path}: unsupported PNG color type {color} / "
+                         f"bit depth {depth}")
+    channels = _PNG_CHANNELS[color]
+    row_bytes = (w * channels * depth + 7) // 8
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw[:h * (row_bytes + 1)].reshape(h, row_bytes + 1)
+    rows = _png_unfilter(raw[:, 1:], raw[:, 0],
+                         max(1, channels * depth // 8))
+    if depth == 16:
+        img = rows.view(">u2").astype(np.uint16).reshape(h, w, channels)
+    elif depth == 8:
+        img = rows.reshape(h, w, channels)
+    else:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        vals = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1)
+        img = vals[:, :w].astype(np.uint8)[..., None]
+        if color == 0:
+            img = img * np.uint8(255 // ((1 << depth) - 1))
+    if color == 3:
+        return plte[img[..., 0]]
+    if color == 4:
+        return np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
+                              axis=-1)
+    return img[..., 0] if channels == 1 else img
 
 
 def write_video(path, frames, fps: int = 30):

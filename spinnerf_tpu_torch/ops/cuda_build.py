@@ -27,6 +27,7 @@ NVCC_FLAGS = {
     "hash_encode_win": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "fused_mlp_pe": _BASE_FLAGS + ("-Xptxas", "-v"),
     "hash_encode_idx": _BASE_FLAGS + ("-Xptxas", "-v"),
+    "kbench_cal": _BASE_FLAGS + ("-Xptxas", "-v"),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

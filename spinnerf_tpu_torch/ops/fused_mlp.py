@@ -1,6 +1,6 @@
-"""Fused positional encoding + NeRF MLP: CUDA kernels for the H100 and their
-plain PyTorch version (port of `spinnerf_tpu/ops/fused_mlp.py`, the v2
-PE-in-kernel path `fused_mlp_pe`).
+"""Fused NeRF MLP: CUDA kernels for the H100 and their plain PyTorch
+version (port of `spinnerf_tpu/ops/fused_mlp.py`: the v2 PE-in-kernel path
+`fused_mlp_pe`, and the v1 path `fused_mlp` on encodings computed outside).
 
 The network (NeRFField parity at `use_viewdirs=True`):
   trunk: h_0 = relu(x W_0 + b_0); h_i = relu(h_{i-1} W_i + b_i), with the
@@ -11,14 +11,18 @@ The network (NeRFField parity at `use_viewdirs=True`):
 with x, d the positional encodings of the point and its view direction,
 zero-padded to 128 lanes (the weights' padding rows are zero).
 
-Inputs are xd [P, 8] = (x, y, z, dx, dy, dz, 0, 0); the backward returns
-weight gradients only (sample positions are not trained). Weights are a
-dict of f32 tensors in the JAX layout: kernels [in, out], biases [1, out],
-named by `_weight_order`.
+v2 (`fused_mlp_pe`): inputs are xd [P, 8] = (x, y, z, dx, dy, dz, 0, 0),
+encoded in the kernel; the backward returns weight gradients only (sample
+positions are not trained). v1 (`fused_mlp`, behind `make_fused_field_fn`):
+inputs are the encodings x_enc, d_enc [P, 128]; the backward also returns
+their gradients dx, dd, so autograd reaches the points. Weights are a dict
+of f32 tensors in the JAX layout: kernels [in, out], biases [1, out], named
+by `_weight_order`.
 
-`fused_mlp_pe` launches the kernels of `csrc/fused_mlp_pe.cu` for CUDA
-tensors (or raises) and runs `fused_mlp_pe_plain` /
-`fused_mlp_pe_bwd_plain` for CPU tensors.
+Both launch the kernels of `csrc/fused_mlp_pe.cu` for CUDA tensors (or
+raise) and run their plain versions (`fused_mlp_pe_plain` /
+`fused_mlp_pe_bwd_plain`, `fused_mlp_fwd_plain` / `fused_mlp_bwd_plain`) for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -31,10 +35,13 @@ import torch
 from torch import nn
 
 from spinnerf_tpu_torch import resolve_device
+from spinnerf_tpu_torch.models.embedding import positional_encoding
 from spinnerf_tpu_torch.ops import cuda_build
 
-# Kernel launches by the wrapper, counted where it launches and nowhere else.
+# Kernel launches by the wrappers, counted where they launch and nowhere
+# else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8).
 launches = {"fwd": 0, "bwd": 0}
+launches_v1 = {"fwd": 0, "bwd": 0}
 
 _HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
 _MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
@@ -167,16 +174,16 @@ def _rounding(dims: MLPDims, acc_dtype):
     return lambda a: a.to(torch.bfloat16).to(acc_dtype)
 
 
-def _forward_acts(weights, xd, dims: MLPDims, acc_dtype):
-    """The forward through the view layer: (x, d, inputs of each trunk
-    layer, trunk pre-activations, h_last, hv, view pre-activation, v)."""
+def _forward_acts(weights, x, d, dims: MLPDims, acc_dtype):
+    """The forward through the view layer from the encodings x, d (f32,
+    rounded here): (inputs of each trunk layer, trunk pre-activations,
+    h_last, hv, view pre-activation, v)."""
     r = _rounding(dims, acc_dtype)
 
     def dense(a, w, b):
         return a @ r(weights[w]) + weights[b].to(acc_dtype)
 
-    x = r(encode(xd, dims.multires, 0, dims.in_dim))
-    d = r(encode(xd, dims.multires_views, 3, dims.dir_dim))
+    x, d = r(x), r(d)
     acts_in, zs = [], []
     h = x
     for i in range(dims.depth):
@@ -192,13 +199,13 @@ def _forward_acts(weights, xd, dims: MLPDims, acc_dtype):
     return acts_in, zs, h, hv, vz, r(torch.relu(vz))
 
 
-def fused_mlp_pe_plain(weights, xd, dims: MLPDims, acc_dtype=torch.float32):
-    """What the forward kernel computes (`_fwd_pe_kernel`/`_forward_block`):
-    operands rounded to the compute type, products accumulated in
-    `acc_dtype` (float32; float64 for a reference that keeps the same
-    roundings), biases added before the ReLU and the cast. [P, 4+e] f32."""
+def _encodings(xd, dims: MLPDims):
+    return (encode(xd, dims.multires, 0, dims.in_dim),
+            encode(xd, dims.multires_views, 3, dims.dir_dim))
+
+
+def _heads(weights, h, v, dims: MLPDims, acc_dtype):
     r = _rounding(dims, acc_dtype)
-    _, _, h, _, _, v = _forward_acts(weights, xd, dims, acc_dtype)
 
     def head(a, name):
         return a @ r(weights[f"{name}_w"]) + weights[f"{name}_b"].to(acc_dtype)
@@ -207,6 +214,25 @@ def fused_mlp_pe_plain(weights, xd, dims: MLPDims, acc_dtype=torch.float32):
     if dims.out_extra:
         out.append(head(h, "sem"))
     return torch.cat(out, dim=-1).float()
+
+
+def fused_mlp_pe_plain(weights, xd, dims: MLPDims, acc_dtype=torch.float32):
+    """What the forward kernel computes (`_fwd_pe_kernel`/`_forward_block`):
+    operands rounded to the compute type, products accumulated in
+    `acc_dtype` (float32; float64 for a reference that keeps the same
+    roundings), biases added before the ReLU and the cast. [P, 4+e] f32."""
+    _, _, h, _, _, v = _forward_acts(weights, *_encodings(xd, dims), dims,
+                                     acc_dtype)
+    return _heads(weights, h, v, dims, acc_dtype)
+
+
+def fused_mlp_fwd_plain(weights, x_enc, d_enc, dims: MLPDims,
+                        acc_dtype=torch.float32):
+    """What the v1 forward kernel computes (`_fwd_kernel`): the forward of
+    `fused_mlp_pe_plain` on the given encodings x_enc [P, in_dim] and d_enc
+    [P, dir_dim] (f32, rounded to the compute type). [P, 4+e] f32."""
+    _, _, h, _, _, v = _forward_acts(weights, x_enc, d_enc, dims, acc_dtype)
+    return _heads(weights, h, v, dims, acc_dtype)
 
 
 def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
@@ -219,8 +245,8 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
     rounds each block's sum of a bf16 gradient to bf16 (`fused_mlp.py:515`)
     before adding it, which this version does not copy."""
     r = _rounding(dims, acc_dtype)
-    acts_in, zs, h_last, hv, vz, v = _forward_acts(weights, xd, dims,
-                                                   acc_dtype)
+    acts_in, zs, h_last, hv, vz, v = _forward_acts(
+        weights, *_encodings(xd, dims), dims, acc_dtype)
     g = g.to(acc_dtype)
     w = dims.width
     g_rgb, g_sigma = g[:, :3], g[:, 3:4]
@@ -256,6 +282,62 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
     return {n: d[n] for n in _weight_order(dims)}
 
 
+def fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims: MLPDims,
+                        acc_dtype=torch.float32):
+    """What the v1 backward kernel computes (`_bwd_kernel`): the forward
+    recomputed on the encodings, then every weight gradient and the input
+    gradients dx [P, in_dim] (layer 0's input gradient plus the skip layer's
+    encoding slice) and dd [P, dir_dim] (the view layer's direction slice),
+    for the cotangent g [P, 4+e]. Returns (weight gradients in
+    `_weight_order`, dx, dd).
+
+    The rounding points are v1's, not v2's (`fused_mlp_pe_bwd_plain`): v1
+    keeps the gradients g_v, g_feat and g_z in f32 and rounds them only as
+    operands of a product, so its bias gradients are sums of the f32
+    gradients (JAX `fused_mlp.py:172,177,184,208`), where v2 sums the
+    bf16-rounded ones."""
+    r = _rounding(dims, acc_dtype)
+    acts_in, zs, h_last, hv, vz, v = _forward_acts(weights, x_enc, d_enc,
+                                                   dims, acc_dtype)
+    g = g.to(acc_dtype)
+    w = dims.width
+    g_rgb, g_sigma = g[:, :3], g[:, 3:4]
+
+    def mm_tn(a, b):
+        return a.t() @ r(b)
+
+    def mm_nt(gout, wt):
+        return r(gout) @ r(wt).t()
+
+    def colsum(a):
+        return a.sum(dim=0, keepdim=True)
+
+    d = {"rgb_w": mm_tn(v, g_rgb), "rgb_b": colsum(g_rgb)}
+    g_v = mm_nt(g_rgb, weights["rgb_w"]) * (vz > 0)
+    d["view_w"], d["view_b"] = mm_tn(hv, g_v), colsum(g_v)
+    g_hv = mm_nt(g_v, weights["view_w"])
+    g_feat, dd = g_hv[:, :w], g_hv[:, w:]
+    d["feat_w"], d["feat_b"] = mm_tn(h_last, g_feat), colsum(g_feat)
+    g_h = mm_nt(g_feat, weights["feat_w"])
+    d["sigma_w"], d["sigma_b"] = mm_tn(h_last, g_sigma), colsum(g_sigma)
+    g_h = g_h + mm_nt(g_sigma, weights["sigma_w"])
+    if dims.out_extra:
+        g_sem = g[:, 4:5]
+        d["sem_w"], d["sem_b"] = mm_tn(h_last, g_sem), colsum(g_sem)
+        g_h = g_h + mm_nt(g_sem, weights["sem_w"])
+    dx = torch.zeros_like(x_enc, dtype=acc_dtype)
+    for i in range(dims.depth - 1, -1, -1):
+        if i == dims.skip:
+            # the skip layer's input was [x, h_skip]
+            dx = dx + g_h[:, :dims.in_dim]
+            g_h = g_h[:, dims.in_dim:]
+        g_z = g_h * (zs[i] > 0)
+        d[f"tw{i}"], d[f"tb{i}"] = mm_tn(acts_in[i], g_z), colsum(g_z)
+        g_h = mm_nt(g_z, weights[f"tw{i}"])
+    dx = dx + g_h
+    return {n: d[n] for n in _weight_order(dims)}, dx, dd
+
+
 # -----------------------------------------------------------------------------
 # the CUDA kernels
 # -----------------------------------------------------------------------------
@@ -280,21 +362,25 @@ class _FmGrads(ctypes.Structure):
     """`FmGrads` of the CUDA source, field for field."""
     _fields_ = [("tw", _VP * _MAX_DEPTH), ("tb", _VP * _MAX_DEPTH)] + [
         (n, _VP) for n in ("feat_w", "feat_b", "view_w", "view_b", "rgb_w",
-                           "sigma_w", "sem_w", "head_b")]
+                           "sigma_w", "sem_w", "head_b", "bias64", "dx",
+                           "dd")]
 
 
 def _lib():
     lib = cuda_build.load("fused_mlp_pe")
     if not getattr(lib, "_fm_typed", False):
-        lib.fm_fwd.argtypes = [ctypes.POINTER(_FmParams), _VP, _VP,
-                               ctypes.c_int, _VP]
-        lib.fm_bwd.argtypes = [ctypes.POINTER(_FmParams),
-                               ctypes.POINTER(_FmGrads), _VP, _VP, _VP, _VP,
-                               ctypes.c_int, _VP]
+        prm, grd = ctypes.POINTER(_FmParams), ctypes.POINTER(_FmGrads)
+        lib.fm_fwd.argtypes = [prm, _VP, _VP, ctypes.c_int, _VP]
+        lib.fm_fwd_pre.argtypes = [prm, _VP, _VP, _VP, ctypes.c_int, _VP]
+        lib.fm_bwd.argtypes = [prm, grd, _VP, _VP, _VP, _VP, ctypes.c_int,
+                               _VP]
+        lib.fm_bwd_pre.argtypes = [prm, grd, _VP, _VP, _VP, _VP, _VP,
+                                   ctypes.c_int, _VP]
         lib.fm_scratch_cols.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.fm_fwd, lib.fm_bwd, lib.fm_scratch_cols):
+        for fn in (lib.fm_fwd, lib.fm_fwd_pre, lib.fm_bwd, lib.fm_bwd_pre,
+                   lib.fm_scratch_cols):
             fn.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -302,33 +388,43 @@ def _lib():
     return lib
 
 
-def _check_kernel_args(weights, xd, dims: MLPDims):
+def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
+    """Raise unless the kernels take `dims` and the inputs: xd [P, 8] (v2)
+    or, with `pre`, the encodings (x_enc [P, 128], d_enc [P, 128]) (v1),
+    each a contiguous float32 CUDA tensor with P a multiple of 64."""
     if dims.compute_dtype == "float32":
         raise NotImplementedError("compute_dtype='float32' has no kernel on "
                                   "the card yet; see ROADMAP.md queue B "
                                   "#9/#10")
-    # the one geometry chip_smoke.py's phase 6 holds against the plain
-    # version: the reference's 8 x 256 with skip 4 and 10 / 4 octaves
-    if (dims.depth, dims.skip, dims.width, dims.view_width, dims.in_dim,
-            dims.dir_dim, dims.multires, dims.multires_views) != (
-            8, 4, 256, 128, 128, 128, 10, 4):
+    # the one geometry chip_smoke.py's phases 6 and 11 hold against the plain
+    # version: the reference's 8 x 256 with skip 4 and (v2, whose kernels
+    # encode) 10 / 4 octaves
+    geom = (dims.depth, dims.skip, dims.width, dims.view_width, dims.in_dim,
+            dims.dir_dim) + (() if pre else (dims.multires,
+                                            dims.multires_views))
+    if geom != (8, 4, 256, 128, 128, 128, 10, 4)[:len(geom)]:
         raise NotImplementedError(
             f"the fused MLP kernels are verified at depth 8, skip 4, width "
-            f"256, view width 128 and 10 / 4 octaves only, got {dims}; see "
-            f"ROADMAP.md queue A #3")
-    p = xd.shape[0]
-    if (not xd.is_cuda or xd.dtype != torch.float32 or xd.shape != (p, 8)
-            or not xd.is_contiguous() or p % _BM):
-        raise ValueError(f"xd must be a contiguous float32 CUDA [P, 8] with P "
-                         f"a multiple of {_BM}, got {xd.dtype} "
-                         f"{tuple(xd.shape)} on {xd.device}")
-    shapes = weight_shapes(dims)
-    for n, shape in shapes.items():
+            f"256, view width 128{'' if pre else ' and 10 / 4 octaves'} "
+            f"only, got {dims}; see ROADMAP.md queue A #3")
+    p = inputs[0].shape[0]
+    width = (dims.in_dim, dims.dir_dim) if pre else (8,)
+    for a, k in zip(inputs, width):
+        # the v1 kernels read the encodings as float4
+        if (not a.is_cuda or a.dtype != torch.float32 or a.shape != (p, k)
+                or not a.is_contiguous() or p % _BM
+                or a.data_ptr() % 16):
+            raise ValueError(f"inputs must be contiguous, 16-byte aligned "
+                             f"float32 CUDA [P, {k}] with P a multiple of "
+                             f"{_BM}, got {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}")
+    dev = inputs[0].device
+    for n, shape in weight_shapes(dims).items():
         w = weights[n]
-        if (w.device != xd.device or w.dtype != torch.float32
+        if (w.device != dev or w.dtype != torch.float32
                 or tuple(w.shape) != shape or not w.is_contiguous()):
             raise ValueError(f"weight {n} must be a contiguous float32 "
-                             f"{shape} on {xd.device}, got {w.dtype} "
+                             f"{shape} on {dev}, got {w.dtype} "
                              f"{tuple(w.shape)} on {w.device}")
 
 
@@ -385,28 +481,34 @@ def _raise_on(lib, fn_name: str, err: int):
                            f"{lib.fm_error_string(err).decode()}")
 
 
-def fused_mlp_pe_fwd_kernel(weights, xd, dims: MLPDims):
-    """One launch of the forward kernel: raw [P, 4+e] f32 (no autograd)."""
-    _check_kernel_args(weights, xd, dims)
+def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool):
+    """One launch of the forward kernel on (xd,) (v2, `fm_fwd`) or, with
+    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_fwd_pre`): raw [P, 4+e]
+    f32 (no autograd)."""
+    _check_kernel_args(weights, inputs, dims, pre)
     lib = _lib()
     # the bf16 weight copies stay referenced until the launch is queued; the
     # caching allocator then reuses them in stream order
     prm, _bf16 = _params(weights, dims, backward=False)
-    out = torch.empty((xd.shape[0], 4 + dims.out_extra), dtype=torch.float32,
-                      device=xd.device)
-    stream = torch.cuda.current_stream(xd.device).cuda_stream
-    _raise_on(lib, "fm_fwd", lib.fm_fwd(ctypes.byref(prm), xd.data_ptr(),
-                                        out.data_ptr(), xd.shape[0], stream))
-    launches["fwd"] += 1
+    p, dev = inputs[0].shape[0], inputs[0].device
+    out = torch.empty((p, 4 + dims.out_extra), dtype=torch.float32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "fm_fwd_pre" if pre else "fm_fwd"
+    _raise_on(lib, name, getattr(lib, name)(
+        ctypes.byref(prm), *(a.data_ptr() for a in inputs), out.data_ptr(),
+        p, stream))
     return out
 
 
-def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
+def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
     """One launch of the backward (the recompute-and-backprop kernel, then
-    the split-K weight-gradient kernel): f32 weight gradients for the
-    cotangent g [P, 4+e], in `_weight_order`."""
-    _check_kernel_args(weights, xd, dims)
-    p = xd.shape[0]
+    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`) or, with
+    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`): (f32 weight
+    gradients for the cotangent g [P, 4+e] in `_weight_order`, dx, dd), the
+    input gradients [P, 128] f32 with `pre` and None without."""
+    _check_kernel_args(weights, inputs, dims, pre)
+    p, dev = inputs[0].shape[0], inputs[0].device
     if g.shape != (p, 4 + dims.out_extra):
         raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
                          f"got {tuple(g.shape)}")
@@ -416,13 +518,13 @@ def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
     fa, fg = ctypes.c_int(), ctypes.c_int()
     _raise_on(lib, "fm_scratch_cols", lib.fm_scratch_cols(
         dims.depth, dims.skip, ctypes.byref(fa), ctypes.byref(fg)))
-    act = torch.empty((p // 2, fa.value), dtype=torch.int32, device=xd.device)
-    grad = torch.empty((p // 2, fg.value), dtype=torch.int32, device=xd.device)
+    act = torch.empty((p // 2, fa.value), dtype=torch.int32, device=dev)
+    grad = torch.empty((p // 2, fg.value), dtype=torch.int32, device=dev)
     # one zeroed buffer; each gradient starts on 16 bytes (float2 atomics)
     shapes = weight_shapes(dims)
     flat = torch.zeros(sum(_round_up(math.prod(s), 4)
                            for s in shapes.values()),
-                       dtype=torch.float32, device=xd.device)
+                       dtype=torch.float32, device=dev)
     grads, off = {}, 0
     for n, s in shapes.items():
         grads[n] = flat[off:off + math.prod(s)].view(s)
@@ -435,18 +537,68 @@ def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
             ("sem_w",) if dims.out_extra else ()):
         setattr(grd, n, grads[n].data_ptr())
     # the heads' bias gradients, summed in f64 by the kernel
-    head_b = torch.zeros(8, dtype=torch.float64, device=xd.device)
+    head_b = torch.zeros(8, dtype=torch.float64, device=dev)
     grd.head_b = head_b.data_ptr()
-    stream = torch.cuda.current_stream(xd.device).cuda_stream
-    _raise_on(lib, "fm_bwd", lib.fm_bwd(
-        ctypes.byref(prm), ctypes.byref(grd), xd.data_ptr(), g.data_ptr(),
-        act.data_ptr(), grad.data_ptr(), p, stream))
-    launches["bwd"] += 1
+    dx = dd = None
+    if pre:
+        # the trunk's, feature and view biases' f64 sums (FmGrads.bias64),
+        # and the input gradients, which the kernel writes whole
+        bias64 = torch.zeros(((dims.depth + 2) * dims.width,),
+                             dtype=torch.float64, device=dev)
+        dx = torch.empty((p, dims.in_dim), dtype=torch.float32, device=dev)
+        dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
+        grd.bias64, grd.dx, grd.dd = (bias64.data_ptr(), dx.data_ptr(),
+                                      dd.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "fm_bwd_pre" if pre else "fm_bwd"
+    _raise_on(lib, name, getattr(lib, name)(
+        ctypes.byref(prm), ctypes.byref(grd),
+        *(a.data_ptr() for a in inputs), g.data_ptr(), act.data_ptr(),
+        grad.data_ptr(), p, stream))
     grads["rgb_b"].copy_(head_b[None, :3])
     grads["sigma_b"].copy_(head_b[None, 3:4])
     if dims.out_extra:
         grads["sem_b"].copy_(head_b[None, 4:5])
+    if not pre:
+        return grads, dx, dd
+    w = dims.width
+    for i in range(dims.depth):
+        grads[f"tb{i}"].copy_(bias64[None, i * w:(i + 1) * w])
+    grads["feat_b"].copy_(bias64[None, dims.depth * w:(dims.depth + 1) * w])
+    grads["view_b"].copy_(bias64[None, (dims.depth + 1) * w:
+                                 (dims.depth + 1) * w + dims.view_width])
+    return grads, dx, dd
+
+
+def fused_mlp_pe_fwd_kernel(weights, xd, dims: MLPDims):
+    """One launch of the v2 forward kernel (#9): raw [P, 4+e] f32."""
+    out = _fwd_launch(weights, (xd,), dims, pre=False)
+    launches["fwd"] += 1
+    return out
+
+
+def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
+    """One launch of the v2 backward (#10): f32 weight gradients for the
+    cotangent g [P, 4+e], in `_weight_order`."""
+    grads, _, _ = _bwd_launch(weights, (xd,), g, dims, pre=False)
+    launches["bwd"] += 1
     return grads
+
+
+def fused_mlp_fwd_kernel(weights, x_enc, d_enc, dims: MLPDims):
+    """One launch of the v1 forward kernel (#7) on the encodings x_enc,
+    d_enc [P, 128] f32: raw [P, 4+e] f32."""
+    out = _fwd_launch(weights, (x_enc, d_enc), dims, pre=True)
+    launches_v1["fwd"] += 1
+    return out
+
+
+def fused_mlp_bwd_kernel(weights, x_enc, d_enc, g, dims: MLPDims):
+    """One launch of the v1 backward (#8): (f32 weight gradients in
+    `_weight_order`, dx [P, 128], dd [P, 128]) for the cotangent g."""
+    out = _bwd_launch(weights, (x_enc, d_enc), g, dims, pre=True)
+    launches_v1["bwd"] += 1
+    return out
 
 
 class _FusedMLPPE(torch.autograd.Function):
@@ -498,6 +650,79 @@ def make_fused_pe_field_fn(dims: MLPDims, *, block: int = 512):
         return raw[:p].reshape(b, s, -1)
 
     return field_fn
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The v1 kernels (#7/#8) on CUDA tensors, their plain version on CPU
+    tensors; the gradient flows to the weights and to both encodings, as in
+    the JAX custom VJP."""
+
+    @staticmethod
+    def forward(ctx, dims, x_enc, d_enc, *ws):
+        weights = dict(zip(_weight_order(dims), ws))
+        ctx.dims = dims
+        ctx.save_for_backward(x_enc, d_enc, *ws)
+        if x_enc.is_cuda:
+            return fused_mlp_fwd_kernel(weights, x_enc, d_enc, dims)
+        return fused_mlp_fwd_plain(weights, x_enc, d_enc, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_enc, d_enc, *ws = ctx.saved_tensors
+        dims = ctx.dims
+        weights = dict(zip(_weight_order(dims), ws))
+        if x_enc.is_cuda:
+            d, dx, dd = fused_mlp_bwd_kernel(weights, x_enc, d_enc, g, dims)
+        else:
+            d, dx, dd = fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims)
+        return (None, dx, dd, *(d[n] for n in _weight_order(dims)))
+
+
+def fused_mlp(dims: MLPDims, block: int, weights: dict, x_enc, d_enc):
+    """Fused NeRF-MLP forward on encodings computed outside (v1; the JAX
+    signature): x_enc [P, in_dim], d_enc [P, dir_dim] f32 with P a multiple
+    of `block` -> raw [P, 4 + out_extra] f32, differentiable in the weights
+    and both encodings. On CUDA tensors `block` must be a multiple of 64."""
+    p = x_enc.shape[0]
+    if p % block or (x_enc.is_cuda and block % _BM):
+        raise ValueError(f"{p} points are not a multiple of the block "
+                         f"{block} (a multiple of {_BM} on the card)")
+    return _FusedMLP.apply(dims, x_enc, d_enc,
+                           *(weights[n] for n in _weight_order(dims)))
+
+
+def make_fused_field_fn(dims: MLPDims, *, multires: int = 10,
+                        multires_views: int = 4, block: int = 512):
+    """`(weights, pts [B, S, 3], viewdirs [B, 3]) -> raw [B, S, C]` over
+    `fused_mlp`: the positional encodings are computed here in PyTorch,
+    zero-padded to the kernels' lanes and to a multiple of `block` points,
+    and the output is sliced back. Autograd carries the input gradients
+    through the encodings to `pts` and `viewdirs`."""
+
+    def field_fn(weights, pts, viewdirs):
+        b, s = pts.shape[0], pts.shape[1]
+        x, d = field_encodings(pts, viewdirs, dims, multires=multires,
+                               multires_views=multires_views, block=block)
+        raw = fused_mlp(dims, block, weights, x, d)
+        return raw[:b * s].reshape(b, s, -1)
+
+    return field_fn
+
+
+def field_encodings(pts, viewdirs, dims: MLPDims, *, multires: int = 10,
+                    multires_views: int = 4, block: int = 512):
+    """The inputs `make_fused_field_fn` hands `fused_mlp`: the positional
+    encodings of pts [B, S, 3] and of viewdirs [B, 3] broadcast over the S
+    samples, zero-padded to in_dim / dir_dim lanes and to a multiple of
+    `block` rows. Returns contiguous (x_enc, d_enc), differentiable."""
+    b, s = pts.shape[0], pts.shape[1]
+    x = positional_encoding(pts.reshape(-1, 3), multires)
+    vd = viewdirs[:, None, :].expand(b, s, 3).reshape(-1, 3)
+    d = positional_encoding(vd, multires_views)
+    pad = _round_up(b * s, block) - b * s
+    x = nn.functional.pad(x, (0, dims.in_dim - x.shape[-1], 0, pad))
+    d = nn.functional.pad(d, (0, dims.dir_dim - d.shape[-1], 0, pad))
+    return x.contiguous(), d.contiguous()
 
 
 class FusedMLPField(nn.Module):

@@ -1,6 +1,7 @@
 """Checkpoints: `torch.save` of {step, params, opt_state} every
 `save_interval` steps under <exp_dir>/checkpoints, the newest restored on
-resume (port of `spinnerf_tpu/train/checkpoints.py`, which uses orbax).
+resume, and `--ft_path` loading (port of `spinnerf_tpu/train/checkpoints.py`,
+which uses orbax; the port reads its own files, not orbax's).
 """
 from __future__ import annotations
 
@@ -57,3 +58,29 @@ class CheckpointManager:
                           weights_only=True)
         return data["step"], {"params": data["params"],
                               "opt_state": data["opt_state"]}
+
+
+def restore_from_path(path, *, map_location=None):
+    """Resolve `--ft_path` (`run_nerf.py:1151-1157`: explicit weights
+    override the experiment's own checkpoints): an experiment directory, its
+    `checkpoints/` directory (the newest checkpoint of either) or one
+    checkpoint file. Returns (step, {"params", "opt_state"}); a file without
+    "opt_state" (parameters only) gives None there, and one without "step"
+    the step in its name, else 0."""
+    p = Path(path)
+    if not p.exists():
+        raise FileNotFoundError(f"--ft_path {p} does not exist")
+    if p.is_dir():
+        exp = p.parent if p.name == "checkpoints" else p
+        step = restored = None
+        if (exp / "checkpoints").is_dir():
+            step, restored = CheckpointManager(exp).restore(
+                map_location=map_location)
+        if step is None:
+            raise FileNotFoundError(f"--ft_path {p}: no checkpoint found")
+        return step, restored
+    data = torch.load(p, map_location=map_location, weights_only=True)
+    m = re.search(r"(\d+)", p.stem)
+    step = data.get("step", int(m.group(1)) if m else 0)
+    return step, {"params": data["params"],
+                  "opt_state": data.get("opt_state")}

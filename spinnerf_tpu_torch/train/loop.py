@@ -2,13 +2,16 @@
 (port of `spinnerf_tpu/train/loop.py`: the hash-grid field and, with
 `no_tcnn`, the MLP field).
 
-Hooks ported, at the JAX cadences: console metrics (`i_print`), checkpoints
-(`i_weights`), the spiral videos (`i_video`), the testset dump with its PSNR
-(`i_testset`), the prepare-mode disparity dump for LaMa (`i_feat`, forced at
-the last step of every `fit`), and the `page_bounds.json` sidecar that pins
-the hash index semantics to the experiment. The JAX trainer's other options
-and hooks raise NotImplementedError naming their ROADMAP.md entry instead of
-being skipped.
+The scene is handed in or loaded from `datadir` (`data/dispatch.py`), with
+COLMAP sparse depth under `--colmap_depth`; `--ft_path` loads weights.
+Hooks ported, at the JAX cadences: console metrics and the live control file
+(`i_print`), checkpoints (`i_weights`), the spiral videos (`i_video`), the
+testset dump with its PSNR (`i_testset`), the prepare-mode disparity dump for
+LaMa (`i_feat`, forced at the last step of every `fit`), and the
+`page_bounds.json` sidecar that pins the hash index semantics to the
+experiment. The JAX trainer's other options and hooks raise
+NotImplementedError naming their ROADMAP.md entry instead of being
+skipped.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.core.rendering import RenderConfig
-from spinnerf_tpu_torch.data import llff, raybank
+from spinnerf_tpu_torch.data import colmap, dispatch, llff, raybank
 from spinnerf_tpu_torch.eval import metrics as eval_metrics
 from spinnerf_tpu_torch.eval import render as eval_render
 from spinnerf_tpu_torch.models.fields import NeRFField
@@ -35,6 +38,7 @@ from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
 from spinnerf_tpu_torch.train import checkpoints, schedule
 from spinnerf_tpu_torch.train.step import (TrainConfig, _active_groups,
                                            init_params, make_train_step)
+from spinnerf_tpu_torch.utils.live_control import LiveControl
 
 _QUEUE_A = "ROADMAP.md queue A"
 
@@ -125,6 +129,8 @@ def train_config(cfg: Config) -> TrainConfig:
         no_geometry=cfg.no_geometry,
         use_coarse_loss=not cfg.no_coarse,
         single_image=cfg.no_batching,
+        precrop_iters=cfg.precrop_iters,
+        precrop_frac=cfg.precrop_frac,
         epoch_sampling=cfg.epoch_sampling,
         depth_supervision=cfg.colmap_depth and cfg.depth_loss,
         depth_with_rgb=cfg.depth_with_rgb,
@@ -140,21 +146,13 @@ def train_config(cfg: Config) -> TrainConfig:
     )
 
 
-def _check_ported(cfg: Config, scene):
-    if scene is None:
-        raise _unported("loading a scene from disk (data/dispatch.py, "
-                        "llff.load_scene)", _QUEUE_A)
-    if cfg.colmap_depth:
-        raise _unported("COLMAP sparse depth (--colmap_depth; data/colmap.py, "
-                        "colmap_fast.py)", _QUEUE_A)
+def _check_ported(cfg: Config):
     if cfg.lpips:
         raise _unported("the patch-LPIPS loss (--lpips; models/lpips.py, "
                         "train/lpips_patch.py)", _QUEUE_A)
     if cfg.alpha_model_path:
         raise _unported("the frozen-density mode (--alpha_model_path)",
                         _QUEUE_A)
-    if cfg.ft_path:
-        raise _unported("--ft_path weight loading", _QUEUE_A)
     if cfg.mesh_shape > 1:
         raise _unported("data parallelism over several cards (--mesh_shape)",
                         _QUEUE_A)
@@ -199,7 +197,7 @@ class Trainer:
 
     def __init__(self, cfg: Config, *, scene: llff.Scene | None = None,
                  device=None, log=print):
-        _check_ported(cfg, scene)
+        _check_ported(cfg)
         self.cfg = cfg
         self.log = log
         self.device = resolve_device(device)
@@ -207,17 +205,34 @@ class Trainer:
         self.exp_dir.mkdir(parents=True, exist_ok=True)
         cfg.save()
 
-        self.scene = scene
-        self.i_train, self.i_test = llff.train_test_split(
-            len(scene.images), n_gt=cfg.N_gt, train_gt=cfg.train_gt,
-            llffhold=0 if cfg.llffhold >= 1000000 else cfg.llffhold,
-            n_train=cfg.N_train,
-            train_scene=cfg.train_scene, test_scene=cfg.test_scene)
+        # the data (dataset_type dispatch, `run_nerf.py:985-1112`), with the
+        # host seconds of the scene and sparse-depth reads in `load_s`
+        self.load_s = {}
+        t0 = time.perf_counter()
+        if scene is not None:
+            self.scene = scene
+            self.i_train, self.i_test = llff.train_test_split(
+                len(scene.images), n_gt=cfg.N_gt, train_gt=cfg.train_gt,
+                llffhold=0 if cfg.llffhold >= 1000000 else cfg.llffhold,
+                n_train=cfg.N_train,
+                train_scene=cfg.train_scene, test_scene=cfg.test_scene)
+        else:
+            self.scene, self.i_train, self.i_test = \
+                dispatch.load_scene_for_config(cfg)
+            self.load_s["scene"] = time.perf_counter() - t0
+        depth_list = None
+        if cfg.colmap_depth:
+            t0 = time.perf_counter()
+            depth_list = colmap.sparse_depth_for_views(
+                Path(cfg.datadir) / "sparse" / "0", factor=cfg.factor,
+                bd_scale=self.scene.scale)
+            self.load_s["sparse_depth"] = time.perf_counter() - t0
         use_ndc = (cfg.ndc if cfg.dataset_type in ("llff", "nerd")
                    and not cfg.no_ndc else False)
         self.bank = raybank.build_raybank(
-            scene, self.i_train, prepare=cfg.prepare, train_gt=cfg.train_gt,
-            semantic=cfg.mvseg, ndc=use_ndc, device=self.device)
+            self.scene, self.i_train, depth_list=depth_list,
+            prepare=cfg.prepare, train_gt=cfg.train_gt, semantic=cfg.mvseg,
+            ndc=use_ndc, device=self.device)
 
         bounds = dense_box = None
         probe = build_model(cfg, semantic=cfg.mvseg, device="meta")
@@ -251,13 +266,21 @@ class Trainer:
 
         self.ckpt = checkpoints.CheckpointManager(
             self.exp_dir, save_interval=cfg.i_weights)
-        if not cfg.no_reload:
+        step = None
+        if cfg.ft_path:
+            # explicit weights override the experiment's own checkpoints
+            # (`run_nerf.py:1151-1157`)
+            step, restored = checkpoints.restore_from_path(
+                cfg.ft_path, map_location=self.device)
+        elif not cfg.no_reload:
             step, restored = self.ckpt.restore(map_location=self.device)
-            if step is not None:
-                self.fields.load_state_dict(restored["params"])
+        if step is not None:
+            self.fields.load_state_dict(restored["params"])
+            # a parameters-only file keeps the fresh optimizer state
+            if restored["opt_state"] is not None:
                 self.optimizer.load_state_dict(restored["opt_state"])
-                self.step = step
-                self.log(f"resumed from checkpoint at step {step}")
+            self.step = step
+            self.log(f"resumed from checkpoint at step {step}")
 
     def field_fns(self):
         """(coarse, fine) field callables (pts, viewdirs) -> raw."""
@@ -265,8 +288,15 @@ class Trainer:
         return coarse, self.fields["fine"] if "fine" in self.fields else coarse
 
     def _batches_per_step(self) -> int:
-        """Ray batches the fused step renders — the rays/s denominator."""
-        return len(_active_groups(self.tcfg, self.bank))
+        """Ray batches the fused step renders (the active groups and the
+        sparse-depth batch when it is a batch of its own): the rays/s
+        denominator."""
+        n = len(_active_groups(self.tcfg, self.bank))
+        if (self.tcfg.depth_supervision and not self.tcfg.depth_with_rgb
+                and self.bank.depth_group is not None
+                and self.bank.depth_group.count > 0):
+            n += 1
+        return n
 
     # --- rendering helpers ---------------------------------------------------
 
@@ -366,6 +396,7 @@ class Trainer:
         t0 = time.time()
         rays_done = 0
         metrics = {}
+        control = LiveControl(cfg, log=self.log) if hooks else None
         for i in range(self.step + 1, n_iters + 1):
             metrics = self.step_fn(i, self.generator)
             self.step = i
@@ -373,6 +404,7 @@ class Trainer:
             if not hooks:
                 continue
             if cfg.i_print and i % cfg.i_print == 0:
+                control.poll()
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t0
                 self.log(f"[{i}/{n_iters}] loss {m['loss']:.4f} "

@@ -36,6 +36,8 @@ class TrainConfig(NamedTuple):
     no_geometry: bool = False
     use_coarse_loss: bool = True        # reference: not --no_coarse
     single_image: bool = False          # reference --no_batching sampler
+    precrop_iters: int = 0
+    precrop_frac: float = 0.5
     epoch_sampling: bool = True         # without-replacement epoch strides
     depth_supervision: bool = False     # --colmap_depth --depth_loss
     depth_with_rgb: bool = False        # supervise the photometric batch's
@@ -86,12 +88,10 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
     Returns step(step_idx, generator=None) -> metrics, a dict of 0-d
     tensors; it updates the fields in place. `generator` draws the
     stratified jitter and importance-sampling uniforms (with perturb), the
-    density noise and, without epoch sampling, the batch indices.
+    density noise and, without epoch sampling or with `single_image`, the
+    batch indices.
     `step.loss_fn(step_idx, generator)` gives (loss, metrics) without the
     update."""
-    if cfg.single_image:
-        raise NotImplementedError("the --no_batching sampler is not ported; "
-                                  "see ROADMAP.md queue A")
     groups = _active_groups(cfg, bank)
     use_depth = (cfg.depth_supervision and bank.depth_group is not None
                  and bank.depth_group.count > 0)
@@ -104,8 +104,13 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
         batches, targets = [], []
         step = step_idx if cfg.epoch_sampling else None
         for name in groups:
-            ba, tg = raybank.sample_group(bank, name, b, step=step,
-                                          generator=generator)
+            if cfg.single_image and name in ("clf", "rgb"):
+                ba, tg = raybank.sample_single_image(
+                    bank, b, step_idx, precrop_iters=cfg.precrop_iters,
+                    precrop_frac=cfg.precrop_frac, generator=generator)
+            else:
+                ba, tg = raybank.sample_group(bank, name, b, step=step,
+                                              generator=generator)
             batches.append(ba)
             targets.append(tg)
         if use_depth:

@@ -1,6 +1,9 @@
 """The port's Trainer on the CPU at a small size: it trains, pins the same
-hash-index sidecar as the JAX Trainer, checkpoints round-trip, unported
-options raise, and the package imports neither JAX nor the JAX package."""
+hash-index sidecar as the JAX Trainer, loads a scene directory with COLMAP
+sparse depth and takes the JAX Trainer's first step there, samples the
+--no_batching batches, checkpoints and --ft_path round-trip, the live control
+file applies, unported options raise, and the package imports neither JAX
+nor the JAX package."""
 import dataclasses
 import json
 import subprocess
@@ -10,15 +13,22 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from spinnerf_tpu.config import Config as JConfig
 from spinnerf_tpu.data import llff, synthetic
+from spinnerf_tpu.data import raybank as jraybank
 from spinnerf_tpu.train.loop import Trainer as JTrainer
 from spinnerf_tpu_torch.config import Config
+from spinnerf_tpu_torch.convert import fields_state_dicts
 from spinnerf_tpu_torch.data import llff as tllff
+from spinnerf_tpu_torch.data import raybank as traybank
 from spinnerf_tpu_torch.models.fields import NeRFField
 from spinnerf_tpu_torch.models.hashgrid import HashGridField
 from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
 from spinnerf_tpu_torch.train.loop import Trainer
+from spinnerf_tpu_torch.utils.live_control import LiveControl
 
 torch.set_num_threads(1)
 
@@ -138,12 +148,13 @@ def test_idx_trainer_fits_and_psnr_rises(scene_pair, tmp_path, impl):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(ft_path="x"), dict(colmap_depth=True), dict(lpips=True),
+    dict(dataset_type="blender"), dict(dataset_type="dtu"), dict(lpips=True),
     dict(alpha_model_path="x"), dict(mesh_shape=2)])
 def test_unported_options_raise(scene_pair, tmp_path, flag):
-    d, _, tsc = scene_pair
+    """Through the disk loader (no scene handed in)."""
+    d, _, _ = scene_pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tiny(Config, tmp_path, d, **flag), scene=tsc, device="cpu",
+        Trainer(tiny(Config, tmp_path, d, **flag), device="cpu",
                 log=lambda *a: None)
 
 
@@ -259,3 +270,143 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 20
+
+
+@pytest.fixture(scope="module")
+def disk_scene(tmp_path_factory):
+    """A JAX-written scene directory at factor 2 (24 x 32 images) with its
+    COLMAP model."""
+    return synthetic.make_scene(tmp_path_factory.mktemp("disk"), n_views=5,
+                                h=48, w=64, factor=2, n_points=400)
+
+
+def _ds_nerf(cls, tmp_path, datadir, **kw):
+    """The reference's DS-NeRF prepare configuration (`tools/full_run.py:
+    128-147`) at a small MLP, with perturb and density noise off so that a
+    step is deterministic. The MLP runs at 2 octaves: at 10 the top octave
+    scales the f32 differences of the two pipelines' sample points by 512
+    (`tests/test_torch_train_step.py`)."""
+    return tiny(cls, tmp_path, datadir, factor=2, colmap_depth=True,
+                depth_loss=True, depth_lambda=0.1, lindisp=True,
+                white_bkgd=True, perturb=0.0, raw_noise_std=0.0,
+                no_tcnn=True, fused_mlp=False, netdepth=4, netwidth=32,
+                netdepth_fine=4, netwidth_fine=32, multires=2,
+                multires_views=2, N_samples=16, N_importance=8, **kw)
+
+
+def test_disk_trainer_with_colmap_depth_matches_jax(disk_scene, tmp_path):
+    """No scene handed in: both Trainers load the directory and its sparse
+    depth; from the same weights the first step's loss terms, the depth
+    term included, agree within 1e-5 relative (the bound of
+    `tests/test_torch_train_step.py`; measured <= 7.3e-7, the depth
+    term)."""
+    tr = Trainer(_ds_nerf(Config, tmp_path / "t", disk_scene), device="cpu",
+                 log=lambda *a: None)
+    jt = JTrainer(_ds_nerf(JConfig, tmp_path / "j", disk_scene),
+                  log=lambda *a: None)
+    assert set(tr.load_s) == {"scene", "sparse_depth"}
+    assert tr.scene.images.shape == (5, 24, 32, 3)
+    assert tr.bank.depth_group.count == jt.bank.depth_group.count > 100
+    np.testing.assert_array_equal(tr.bank.depth_group.depth.numpy(),
+                                  np.asarray(jt.bank.depth_group.depth))
+    assert tr._batches_per_step() == jt._batches_per_step() == 3
+    with torch.no_grad():
+        for k, sd in fields_state_dicts(
+                jax.tree.map(np.asarray, jt.state.params)).items():
+            tr.fields[k].load_state_dict(sd)
+    _, _, jm = jt.step_fn(jt.state.params, jt.state.opt_state,
+                          jax.random.PRNGKey(0), 1)
+    _, tm = tr.step_fn.loss_fn(1, tr.generator)
+    assert set(tm) == set(jm) and "depth_loss" in tm
+    for name in jm:
+        want = float(jm[name])
+        assert abs(float(tm[name].detach()) - want) <= 1e-5 * abs(want), \
+            name
+
+
+def test_no_batching_batches_match_jax(disk_scene, tmp_path):
+    """--no_batching: the port's batch for the view, rows and columns that
+    JAX `sample_single_image` draws from its key equals JAX's batch; the
+    crop bounds hold while step < precrop_iters; the trainer steps."""
+    tr = Trainer(_ds_nerf(Config, tmp_path, disk_scene, no_batching=True,
+                          precrop_iters=3, precrop_frac=0.5), device="cpu",
+                 log=lambda *a: None)
+    jsc = llff.load_scene(disk_scene, factor=2, prepare=True)
+    jbank = jraybank.build_raybank(jsc, np.arange(5), prepare=True)
+    h, w = tr.bank.hwf[:2]
+    for step, key in ((1, 3), (7, 4)):
+        k = jax.random.PRNGKey(key)
+        jb, jtg = jraybank.sample_single_image(k, jbank, 64, step,
+                                               precrop_iters=3)
+        # the draws inside the JAX sampler, replayed from its key
+        k_view, k_row, k_col = jax.random.split(k, 3)
+        r0, r1, c0, c1 = traybank.single_image_bounds(tr.bank.hwf, step, 3)
+        view = int(jax.random.randint(k_view, (), 0, 5))
+        row = np.array(jax.random.randint(k_row, (64,), r0, r1))
+        col = np.array(jax.random.randint(k_col, (64,), c0, c1))
+        assert (r0, r1, c0, c1) == ((6, 18, 8, 24) if step < 3
+                                    else (0, h, 0, w))
+        tb, ttg = traybank.pixel_batch(
+            tr.bank, torch.full((64,), view), torch.from_numpy(row).long(),
+            torch.from_numpy(col).long(), inp_depth=False)
+        assert set(tb) == set(jb) and set(ttg) == set(jtg)
+        for name in jb:
+            np.testing.assert_allclose(tb[name].numpy(), np.asarray(jb[name]),
+                                       rtol=0, atol=1e-6, err_msg=name)
+        for name in jtg:
+            np.testing.assert_array_equal(ttg[name].numpy(),
+                                          np.asarray(jtg[name]))
+    gen = torch.Generator().manual_seed(0)
+    batch, tg = traybank.sample_single_image(tr.bank, 256, 1,
+                                             precrop_iters=3, generator=gen)
+    assert tg["rgb"].shape == (256, 3)
+    m = float(tr.fit(2)["loss"])
+    assert np.isfinite(m)
+
+
+def test_ft_path_round_trip(scene_pair, tmp_path):
+    """--ft_path takes an experiment directory, its checkpoints/ directory
+    or one file (a parameters-only file keeps the fresh optimizer); it wins
+    over the experiment's own checkpoints."""
+    d, _, tsc = scene_pair
+    src = Trainer(tiny(Config, tmp_path / "src", d, i_weights=3), scene=tsc,
+                  device="cpu", log=lambda *a: None)
+    src.fit(3)
+    ckpt = src.ckpt.path(3)
+    params_only = tmp_path / "params_3.pt"
+    torch.save({"params": src.fields.state_dict()}, params_only)
+    for path, count in ((src.exp_dir, 3), (src.exp_dir / "checkpoints", 3),
+                        (ckpt, 3), (params_only, 0)):
+        tr = Trainer(tiny(Config, tmp_path / "dst", d, ft_path=str(path),
+                          no_reload=False), scene=tsc, device="cpu",
+                     log=lambda *a: None)
+        assert tr.step == 3 and tr.optimizer.count == count, path
+        for (n, p), (_, q) in zip(src.fields.named_parameters(),
+                                  tr.fields.named_parameters()):
+            assert torch.equal(p, q), n
+    with pytest.raises(FileNotFoundError):
+        Trainer(tiny(Config, tmp_path / "x", d, ft_path=str(tmp_path / "no")),
+                scene=tsc, device="cpu", log=lambda *a: None)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        Trainer(tiny(Config, tmp_path / "y", d, ft_path=str(tmp_path / "y")),
+                scene=tsc, device="cpu", log=lambda *a: None)
+
+
+def test_live_control_applies_control_file(scene_pair, tmp_path):
+    """fit polls <exp_dir>/control.json at i_print: mutable keys apply
+    (converted to the option's type), others are logged and skipped."""
+    d, _, tsc = scene_pair
+    logs = []
+    tr = Trainer(tiny(Config, tmp_path, d, i_print=2), scene=tsc,
+                 device="cpu", log=logs.append)
+    (tr.exp_dir / "control.json").write_text(json.dumps(
+        {"render_factor": 4, "i_print": "3", "N_rand": 8, "i_video": "x"}))
+    tr.fit(2)
+    assert tr.cfg.render_factor == 4 and tr.cfg.i_print == 3
+    assert tr.cfg.N_rand == 64 and tr.cfg.i_video == 0
+    assert any("key not mutable: N_rand" in m for m in logs)
+    assert any("bad value for i_video" in m for m in logs)
+    # a poller reads the file again only when it changes
+    ctl = LiveControl(tr.cfg, log=logs.append)
+    assert ctl.poll() == {"render_factor": 4, "i_print": 3}
+    assert ctl.poll() == {}
