@@ -23,7 +23,9 @@ Phases, each fatal on failure (no phase's error is caught):
      plain version evaluated in float64 at the fine pass's shape (262,144
      points, 8 x 256, skip 4) and, with the semantic head, at 131,072
      points; time kernel, plain version and a chain of bf16 torch.matmul
-     calls (the yardstick) with CUDA events;
+     calls (the yardstick) with CUDA events, and the backward's two kernels
+     apart (fm_bwd_kernel's executed TFLOP/s, fm_dw_kernel's GB/s against
+     reading its scratch once);
   7. the MLP arm of the main path: `Trainer` at
      `Config(prepare=True, no_tcnn=True, lrate=5e-4, lrate_decay=250)`
      (8 x 256 fields, 64+64 samples, 2 groups x 1024 rays) on the same
@@ -53,7 +55,7 @@ Phases, each fatal on failure (no phase's error is caught):
      gradient, dx and dd, padded lanes exactly 0; then `make_fused_field_fn`
      on CUDA tensors with the points' gradient, counting its launches; time
      kernel, plain version and the bf16 matmul chain with its autograd
-     backward;
+     backward, and the backward's two kernels apart;
  12. hold the calibration kernel (`csrc/kbench_cal.cu`) against its plain
      version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it through
      the port's `tools.kbench.calibrate` (TFLOP/s) beside `torch.bmm` and
@@ -416,6 +418,27 @@ def log_point_errs(errs):
             f"points ({e['over_flip']} of them flipped in plain f32)")
 
 
+def time_bwd_passes(w, inputs, g, dims, *, pre, tag):
+    """The fused MLP backward's two kernels timed apart with CUDA events:
+    fm_bwd_kernel's executed rate (its products at the widths it multiplies,
+    `ring_matrices`; the heads on the CUDA cores not counted) and
+    fm_dw_kernel's rate reading the scratch, against reading it once at the
+    HBM rate. Returns (ms of pass 1, ms of pass 2)."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    p = inputs[0].shape[0]
+    run1, run2, scratch = fm.bwd_pass_fns(w, inputs, g, dims, pre=pre)
+    ms1 = cuda_ms(run1)
+    ms2 = cuda_ms(run2)
+    flop = p * sum(2 * m.shape[0] * m.shape[1]
+                   for m in fm.ring_matrices(w, dims, pre))
+    floor = scratch / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] P={p} backward passes: fm_bwd_kernel {ms1:.4f} ms, "
+        f"{flop / ms1 / 1e9:.1f} TFLOP/s executed ({flop:.4e} FLOP); "
+        f"fm_dw_kernel {ms2:.4f} ms, {scratch / ms2 / 1e6:.1f} GB/s over "
+        f"the {scratch:.4e}-byte scratch (read once: {floor:.4f} ms)")
+    return ms1, ms2
+
+
 def compare_mlp_kernels(trainer):
     """Phase 6: the fused MLP kernels against their plain version evaluated
     in float64 (same bf16 roundings). Returns the per-kernel records
@@ -496,6 +519,7 @@ def compare_mlp_kernels(trainer):
         ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_fwd_kernel(w, xd, dims))
         ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g,
                                                                dims))
+        time_bwd_passes(w, (xd,), g, dims, pre=False, tag="mlp kernels")
         ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_plain(w, xd, dims))
         ms["plain_bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g,
                                                                    dims))
@@ -1021,6 +1045,7 @@ def compare_mlp_v1_kernels(points):
         del out_l, x_l, d_l
         ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims))
         ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims))
+        time_bwd_passes(w, (x, d), g, dims, pre=True, tag="mlp v1 kernels")
         ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_plain(w, x, d,
                                                                  dims))
         ms["plain_bwd"] = cuda_ms(lambda: fm.fused_mlp_bwd_plain(w, x, d, g,

@@ -347,15 +347,15 @@ _VP = ctypes.c_void_p
 
 class _FmParams(ctypes.Structure):
     """`FmParams` of the CUDA source, field for field."""
-    _fields_ = [("wt", _VP * _MAX_DEPTH), ("w", _VP * _MAX_DEPTH),
-                ("tb", _VP * _MAX_DEPTH),
-                ("feat_wt", _VP), ("feat_w", _VP), ("feat_b", _VP),
-                ("view_wt", _VP), ("view_w", _VP), ("view_b", _VP),
+    _fields_ = [("wt", _VP * _MAX_DEPTH), ("tb", _VP * _MAX_DEPTH),
+                ("feat_wt", _VP), ("feat_b", _VP),
+                ("view_wt", _VP), ("view_b", _VP),
                 ("rgb_w", _VP), ("rgb_b", _VP), ("sigma_w", _VP),
                 ("sigma_b", _VP), ("sem_w", _VP), ("sem_b", _VP),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
                 ("out_extra", ctypes.c_int), ("multires", ctypes.c_int),
-                ("multires_views", ctypes.c_int)]
+                ("multires_views", ctypes.c_int),
+                ("ring", _VP), ("ring_bytes", ctypes.c_longlong)]
 
 
 class _FmGrads(ctypes.Structure):
@@ -376,11 +376,14 @@ def _lib():
                                _VP]
         lib.fm_bwd_pre.argtypes = [prm, grd, _VP, _VP, _VP, _VP, _VP,
                                    ctypes.c_int, _VP]
+        lib.fm_bwd_pass.argtypes = [prm, grd, _VP, _VP, _VP, _VP, _VP,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    _VP]
         lib.fm_scratch_cols.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int)]
         for fn in (lib.fm_fwd, lib.fm_fwd_pre, lib.fm_bwd, lib.fm_bwd_pre,
-                   lib.fm_scratch_cols):
+                   lib.fm_bwd_pass, lib.fm_scratch_cols):
             fn.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -394,8 +397,7 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
     each a contiguous float32 CUDA tensor with P a multiple of 64."""
     if dims.compute_dtype == "float32":
         raise NotImplementedError("compute_dtype='float32' has no kernel on "
-                                  "the card yet; see ROADMAP.md queue B "
-                                  "#9/#10")
+                                  "the card yet; see ROADMAP.md queue A #3")
     # the one geometry chip_smoke.py's phases 6 and 11 hold against the plain
     # version: the reference's 8 x 256 with skip 4 and (v2, whose kernels
     # encode) 10 / 4 octaves
@@ -422,23 +424,24 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
     for n, shape in weight_shapes(dims).items():
         w = weights[n]
         if (w.device != dev or w.dtype != torch.float32
-                or tuple(w.shape) != shape or not w.is_contiguous()):
-            raise ValueError(f"weight {n} must be a contiguous float32 "
-                             f"{shape} on {dev}, got {w.dtype} "
-                             f"{tuple(w.shape)} on {w.device}")
+                or tuple(w.shape) != shape or not w.is_contiguous()
+                or w.data_ptr() % 16):
+            raise ValueError(f"weight {n} must be a contiguous, 16-byte "
+                             f"aligned float32 {shape} on {dev}, got "
+                             f"{w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def pack_weights(weights, dims: MLPDims, backward: bool):
-    """The bf16 copies the kernels read, in one buffer: the trunk, feature
-    and view matrices transposed ([out, in], K contiguous) for the forward
-    products, as they are ([in, out]) for the backward's, and the heads as
-    they are. Returns (buffer, {(name, transposed): element offset}); every
-    offset is a multiple of 8 (16 bytes, for cp.async)."""
-    mats = [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w"]
+def pack_weights(weights, dims: MLPDims, mats: bool = True):
+    """The bf16 copies the forward kernel reads, in one buffer: the trunk,
+    feature and view matrices transposed ([out, in], K contiguous) and the
+    heads as they are (only the heads without `mats`: the backward takes
+    its matrices from `pack_ring`). Returns (buffer, {(name, transposed):
+    element offset}); every offset is a multiple of 8 (16 bytes, for
+    cp.async)."""
+    names = [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w"]
     heads = ["rgb_w", "sigma_w"] + (["sem_w"] if dims.out_extra else [])
-    parts = ([(n, True) for n in mats]
-             + ([(n, False) for n in mats] if backward else [])
-             + [(n, False) for n in heads])
+    parts = ([(n, True) for n in names] if mats else []) + [
+        (n, False) for n in heads]
     offsets, total = {}, 0
     for n, tr in parts:
         offsets[(n, tr)] = total
@@ -451,20 +454,92 @@ def pack_weights(weights, dims: MLPDims, backward: bool):
     return buf, offsets
 
 
-def _params(weights, dims: MLPDims, backward: bool):
-    buf, offs = pack_weights(weights, dims, backward)
+def ring_matrices(weights, dims: MLPDims, pre: bool):
+    """B^T ([N, K], K contiguous) of every product of the backward kernel
+    with a weight operand, in the order it takes them (`bw_schedule` in the
+    CUDA source): the recompute's trunk, feature and view layers; then
+    g_feat (view_w[:width]), with `pre` dd (the direction rows of view_w),
+    the last trunk layer's g_h (feat_w), the trunk from the top down (the
+    skip layer's h rows, after, with `pre`, its encoding rows), and with
+    `pre` layer 0's input gradient (tw0)."""
+    w, e = dims.width, dims.in_dim
+    cat = dims.skip + 1 if dims.skip + 1 < dims.depth else -1
+    mats = [weights[f"tw{i}"].t() for i in range(dims.depth)]
+    mats += [weights["feat_w"].t(), weights["view_w"].t(),
+             weights["view_w"][:w]]
+    if pre:
+        mats.append(weights["view_w"][w:])
+    mats.append(weights["feat_w"])
+    for i in range(dims.depth - 1, 0, -1):
+        tw = weights[f"tw{i}"]
+        if i == cat:
+            if pre:
+                mats.append(tw[:e])
+            tw = tw[e:]
+        mats.append(tw)
+    if pre:
+        mats.append(weights["tw0"])
+    return mats
+
+
+def swizzle_stages(bt):
+    """B^T [N, K] (K a multiple of 64) -> its K / 64 stages [N, 64], one
+    after another, each row's chunk of 8 (16 bytes in bf16) c at chunk
+    c ^ (row % 8): the 128-byte swizzle in which wgmma reads a K-major
+    operand from shared memory, so that one bulk copy lands a stage as the
+    kernel reads it."""
+    n, k = bt.shape
+    t = bt.reshape(n, k // 64, 8, 8).transpose(0, 1)
+    rows = torch.arange(n, device=bt.device)
+    src = torch.arange(8, device=bt.device)[None, :] ^ (rows % 8)[:, None]
+    return t.gather(2, src[None, :, :, None].expand(t.shape)).reshape(-1)
+
+
+def pack_ring(weights, dims: MLPDims, pre: bool):
+    """The backward kernel's weight stages, in one bf16 buffer in the order
+    it takes them (`ring_matrices`, each through `swizzle_stages`)."""
+    return torch.cat([swizzle_stages(m.to(torch.bfloat16))
+                      for m in ring_matrices(weights, dims, pre)])
+
+
+_ring_index_cache: dict = {}
+
+
+def ring_index(dims: MLPDims, pre: bool, device):
+    """`pack_ring` as a gather: the index, into the weights flattened and
+    concatenated in `_weight_order`, of every element of the ring (int32 on
+    `device`, built once per geometry), so that the backward packs its ring
+    in three launches instead of some eighty."""
+    key = (dims, pre, str(device))
+    if key not in _ring_index_cache:
+        ids, off = {}, 0
+        for n, shape in weight_shapes(dims).items():
+            ids[n] = torch.arange(off, off + math.prod(shape),
+                                  dtype=torch.int32).view(shape)
+            off += math.prod(shape)
+        _ring_index_cache[key] = torch.cat(
+            [swizzle_stages(m) for m in ring_matrices(ids, dims, pre)]
+        ).to(device)
+    return _ring_index_cache[key]
+
+
+def _params(weights, dims: MLPDims, backward: bool = False,
+            pre: bool = False):
+    """(FmParams, the bf16 buffers it points into): the forward's weight
+    copies, or with `backward` the heads and the backward kernel's weight
+    ring (v1's with `pre`)."""
+    buf, offs = pack_weights(weights, dims, mats=not backward)
 
     def at(name, tr=False):
         return buf.data_ptr() + 2 * offs[(name, tr)]
 
     prm = _FmParams()
     for i in range(dims.depth):
-        prm.wt[i] = at(f"tw{i}", True)
-        prm.w[i] = at(f"tw{i}") if backward else None
         prm.tb[i] = weights[f"tb{i}"].data_ptr()
-    prm.feat_wt, prm.view_wt = at("feat_w", True), at("view_w", True)
-    if backward:
-        prm.feat_w, prm.view_w = at("feat_w"), at("view_w")
+    if not backward:
+        for i in range(dims.depth):
+            prm.wt[i] = at(f"tw{i}", True)
+        prm.feat_wt, prm.view_wt = at("feat_w", True), at("view_w", True)
     prm.rgb_w, prm.sigma_w = at("rgb_w"), at("sigma_w")
     for n in ("feat_b", "view_b", "rgb_b", "sigma_b"):
         setattr(prm, n, weights[n].data_ptr())
@@ -472,7 +547,13 @@ def _params(weights, dims: MLPDims, backward: bool):
         prm.sem_w, prm.sem_b = at("sem_w"), weights["sem_b"].data_ptr()
     prm.depth, prm.skip, prm.out_extra = dims.depth, dims.skip, dims.out_extra
     prm.multires, prm.multires_views = dims.multires, dims.multires_views
-    return prm, buf
+    bufs = [buf]
+    if backward:
+        flat = torch.cat([weights[n].reshape(-1) for n in _weight_order(dims)])
+        ring = flat.to(torch.bfloat16)[ring_index(dims, pre, flat.device)]
+        prm.ring, prm.ring_bytes = ring.data_ptr(), 2 * ring.numel()
+        bufs.append(ring)
+    return prm, bufs
 
 
 def _raise_on(lib, fn_name: str, err: int):
@@ -489,7 +570,7 @@ def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool):
     lib = _lib()
     # the bf16 weight copies stay referenced until the launch is queued; the
     # caching allocator then reuses them in stream order
-    prm, _bf16 = _params(weights, dims, backward=False)
+    prm, _bf16 = _params(weights, dims)
     p, dev = inputs[0].shape[0], inputs[0].device
     out = torch.empty((p, 4 + dims.out_extra), dtype=torch.float32,
                       device=dev)
@@ -501,12 +582,28 @@ def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool):
     return out
 
 
-def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
-    """One launch of the backward (the recompute-and-backprop kernel, then
-    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`) or, with
-    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`): (f32 weight
-    gradients for the cotangent g [P, 4+e] in `_weight_order`, dx, dd), the
-    input gradients [P, 128] f32 with `pre` and None without."""
+class _BwdCall(NamedTuple):
+    """The arguments of one backward launch and the buffers they point
+    into (`_bwd_args`)."""
+    lib: ctypes.CDLL
+    args: tuple
+    grads: dict                 # views of `flat` at `offs`
+    flat: torch.Tensor
+    offs: dict
+    head_b: torch.Tensor
+    bias64: torch.Tensor | None
+    dx: torch.Tensor | None
+    dd: torch.Tensor | None
+    scratch: tuple              # act, grad
+    keep: tuple                 # what the arguments point into besides
+
+
+def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool) -> _BwdCall:
+    """Check the inputs and allocate what a backward launch on (xd,) (v2)
+    or, with `pre`, on the encodings (x_enc, d_enc) (v1) needs: the weight
+    ring, the scratch (fm_scratch_cols: P x fa and P x fg bf16), the zeroed
+    f32 weight gradients in `_weight_order`, the heads' f64 bias sums, and
+    with `pre` v1's f64 bias sums and the input gradients dx, dd."""
     _check_kernel_args(weights, inputs, dims, pre)
     p, dev = inputs[0].shape[0], inputs[0].device
     if g.shape != (p, 4 + dims.out_extra):
@@ -514,21 +611,28 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
                          f"got {tuple(g.shape)}")
     g = g.to(torch.float32).contiguous()
     lib = _lib()
-    prm, _bf16 = _params(weights, dims, backward=True)
+    prm, bufs = _params(weights, dims, backward=True, pre=pre)
     fa, fg = ctypes.c_int(), ctypes.c_int()
     _raise_on(lib, "fm_scratch_cols", lib.fm_scratch_cols(
         dims.depth, dims.skip, ctypes.byref(fa), ctypes.byref(fg)))
-    act = torch.empty((p // 2, fa.value), dtype=torch.int32, device=dev)
-    grad = torch.empty((p // 2, fg.value), dtype=torch.int32, device=dev)
+    act = torch.empty((p, fa.value), dtype=torch.bfloat16, device=dev)
+    grad = torch.empty((p, fg.value), dtype=torch.bfloat16, device=dev)
     # one zeroed buffer; each gradient starts on 16 bytes (float2 atomics)
+    # but the heads' biases, which follow the other biases in the order of
+    # the kernel's f64 sums (FmGrads.bias64, head_b), so that one copy each
+    # brings those in
     shapes = weight_shapes(dims)
-    flat = torch.zeros(sum(_round_up(math.prod(s), 4)
-                           for s in shapes.values()),
-                       dtype=torch.float32, device=dev)
-    grads, off = {}, 0
-    for n, s in shapes.items():
-        grads[n] = flat[off:off + math.prod(s)].view(s)
-        off += _round_up(math.prod(s), 4)
+    biases = [f"tb{i}" for i in range(dims.depth)] + ["feat_b", "view_b"]
+    heads = ["rgb_b", "sigma_b"] + (["sem_b"] if dims.out_extra else [])
+    offs, off = {}, 0
+    for n in biases + heads + [n for n in shapes if n not in biases + heads]:
+        if n not in heads[1:]:
+            off = _round_up(off, 4)
+        offs[n] = off
+        off += math.prod(shapes[n])
+    flat = torch.zeros(off, dtype=torch.float32, device=dev)
+    grads = {n: flat[offs[n]:offs[n] + math.prod(s)].view(s)
+             for n, s in shapes.items()}
     grd = _FmGrads()
     for i in range(dims.depth):
         grd.tw[i] = grads[f"tw{i}"].data_ptr()
@@ -539,7 +643,7 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
     # the heads' bias gradients, summed in f64 by the kernel
     head_b = torch.zeros(8, dtype=torch.float64, device=dev)
     grd.head_b = head_b.data_ptr()
-    dx = dd = None
+    bias64 = dx = dd = None
     if pre:
         # the trunk's, feature and view biases' f64 sums (FmGrads.bias64),
         # and the input gradients, which the kernel writes whole
@@ -549,25 +653,51 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
         dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
         grd.bias64, grd.dx, grd.dd = (bias64.data_ptr(), dx.data_ptr(),
                                       dd.data_ptr())
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ins = [a.data_ptr() for a in inputs] + ([] if pre else [None])
+    args = (ctypes.byref(prm), ctypes.byref(grd), *ins, g.data_ptr(),
+            act.data_ptr(), grad.data_ptr(), p)
+    # the bf16 weights, g and the scratch stay referenced until the launch is
+    # queued; the caching allocator then reuses them in stream order
+    return _BwdCall(lib, args, grads, flat, offs, head_b, bias64, dx, dd,
+                    (act, grad), (prm, grd, bufs, g))
+
+
+def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
+    """One launch of the backward (the recompute-and-backprop kernel, then
+    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`) or, with
+    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`): (f32 weight
+    gradients for the cotangent g [P, 4+e] in `_weight_order`, dx, dd), the
+    input gradients [P, 128] f32 with `pre` and None without."""
+    c = _bwd_args(weights, inputs, g, dims, pre=pre)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    args = c.args if pre else c.args[:3] + c.args[4:]    # fm_bwd: no d_enc
     name = "fm_bwd_pre" if pre else "fm_bwd"
-    _raise_on(lib, name, getattr(lib, name)(
-        ctypes.byref(prm), ctypes.byref(grd),
-        *(a.data_ptr() for a in inputs), g.data_ptr(), act.data_ptr(),
-        grad.data_ptr(), p, stream))
-    grads["rgb_b"].copy_(head_b[None, :3])
-    grads["sigma_b"].copy_(head_b[None, 3:4])
-    if dims.out_extra:
-        grads["sem_b"].copy_(head_b[None, 4:5])
+    _raise_on(c.lib, name, getattr(c.lib, name)(*args, stream))
+    nout = 4 + dims.out_extra
+    h0 = c.offs["rgb_b"]
+    c.flat[h0:h0 + nout].copy_(c.head_b[:nout])
     if not pre:
-        return grads, dx, dd
-    w = dims.width
-    for i in range(dims.depth):
-        grads[f"tb{i}"].copy_(bias64[None, i * w:(i + 1) * w])
-    grads["feat_b"].copy_(bias64[None, dims.depth * w:(dims.depth + 1) * w])
-    grads["view_b"].copy_(bias64[None, (dims.depth + 1) * w:
-                                 (dims.depth + 1) * w + dims.view_width])
-    return grads, dx, dd
+        return c.grads, None, None
+    n_bias = (dims.depth + 1) * dims.width + dims.view_width
+    c.flat[:n_bias].copy_(c.bias64[:n_bias])
+    return c.grads, c.dx, c.dd
+
+
+def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
+    """For timing the backward's two kernels apart (`fm_bwd_pass`): two
+    functions that launch, on one set of buffers, the recompute-and-backprop
+    kernel and the weight-gradient kernel (which reduces what the first one
+    wrote; call that one first), and the bytes of that scratch. Counts no
+    launch; no result is read."""
+    c = _bwd_args(weights, inputs, g, dims, pre=pre)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    scratch_bytes = sum(a.numel() * a.element_size() for a in c.scratch)
+
+    def run(k):
+        _raise_on(c.lib, "fm_bwd_pass",
+                  c.lib.fm_bwd_pass(*c.args, int(pre), k, stream))
+
+    return (lambda: run(1)), (lambda: run(2)), scratch_bytes
 
 
 def fused_mlp_pe_fwd_kernel(weights, xd, dims: MLPDims):

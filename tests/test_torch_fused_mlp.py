@@ -182,11 +182,51 @@ def test_pack_weights_layout():
     f = tfm.FusedMLPField(depth=3, semantic=True, device="cpu")
     f.reset_parameters(torch.Generator().manual_seed(1))
     w = {n: p.detach() for n, p in f.weights.items()}
-    buf, offs = tfm.pack_weights(w, f.dims, backward=True)
+    buf, offs = tfm.pack_weights(w, f.dims)
     assert buf.dtype == torch.bfloat16
     for (n, tr), off in offs.items():
         assert off % 8 == 0
         src = w[n].t() if tr else w[n]
         got = buf[off:off + src.numel()].view(src.shape)
         assert torch.equal(got, src.to(torch.bfloat16)), (n, tr)
-    assert len(offs) == 2 * (3 + 2) + 3
+    assert len(offs) == (3 + 2) + 3
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_pack_ring_layout(pre):
+    """The backward kernel's weight stages: every product's B^T [N, K] cut
+    into K / 64 stages [N, 64], each row's 16-byte chunk c at c ^ (row % 8),
+    in the order the kernel takes them (its bw_schedule): the recompute,
+    then the gradients of the view, feature and trunk layers from the top,
+    with v1 (`pre`) adding dd, the skip layer's encoding rows and layer 0."""
+    f = tfm.FusedMLPField(device="cpu")
+    f.reset_parameters(torch.Generator().manual_seed(2))
+    w = {n: p.detach() for n, p in f.weights.items()}
+    d = f.dims
+    ring = tfm.pack_ring(w, d, pre)
+    assert ring.dtype == torch.bfloat16
+    want = [w[f"tw{i}"].t() for i in range(8)]
+    want += [w["feat_w"].t(), w["view_w"].t(), w["view_w"][:256]]
+    want += [w["view_w"][256:]] if pre else []
+    want += [w["feat_w"], w["tw7"], w["tw6"]]
+    want += [w["tw5"][:128]] if pre else []
+    want += [w["tw5"][128:], w["tw4"], w["tw3"], w["tw2"], w["tw1"]]
+    want += [w["tw0"]] if pre else []
+    # the stages as bw_schedule in the CUDA source counts them
+    n_stages = sum(m.shape[1] // 64 for m in want)
+    assert n_stages == (76 if not pre else 86)
+    off = 0
+    for m in want:
+        n, k = m.shape
+        stages = ring[off:off + n * k].view(k // 64, n, 8, 8)
+        off += n * k
+        rows = torch.arange(n)
+        for c in range(8):
+            got = stages[:, rows, (c ^ (rows % 8)), :]     # [K/64, N, 8]
+            ref = m.to(torch.bfloat16).reshape(n, k // 64, 8, 8)[:, :, c]
+            assert torch.equal(got, ref.transpose(0, 1))
+    assert off == ring.numel()
+    # the kernel path packs the same buffer with one gather
+    flat = torch.cat([w[n].reshape(-1) for n in tfm._weight_order(d)])
+    idx = tfm.ring_index(d, pre, "cpu")
+    assert torch.equal(flat.to(torch.bfloat16)[idx], ring)
