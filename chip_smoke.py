@@ -8,7 +8,8 @@
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source,
-     started together (timed);
+     started together (timed); ptxas's registers and spills of both
+     fm_fwd_kernel instantiations (none may spill);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
      table, 262,144 points from the trainer's calibrated ray distribution;
@@ -22,10 +23,12 @@ Phases, each fatal on failure (no phase's error is caught):
   6. hold the fused encode+MLP kernels (forward and backward) against their
      plain version evaluated in float64 at the fine pass's shape (262,144
      points, 8 x 256, skip 4) and, with the semantic head, at 131,072
-     points; time kernel, plain version and a chain of bf16 torch.matmul
-     calls (the yardstick) with CUDA events, and the backward's two kernels
-     apart (fm_bwd_kernel's executed TFLOP/s, fm_dw_kernel's GB/s against
-     reading its scratch once);
+     points; the autograd wrapper must pack the weight ring once for its
+     forward and backward; time kernel, plain version and a chain of bf16
+     torch.matmul calls (the yardstick) with CUDA events, the forward's
+     executed TFLOP/s and the rate at which it streams its ring stages,
+     and the backward's two kernels apart (fm_bwd_kernel's executed
+     TFLOP/s, fm_dw_kernel's GB/s against reading its scratch once);
   7. the MLP arm of the main path: `Trainer` at
      `Config(prepare=True, no_tcnn=True, lrate=5e-4, lrate_decay=250)`
      (8 x 256 fields, 64+64 samples, 2 groups x 1024 rays) on the same
@@ -53,9 +56,10 @@ Phases, each fatal on failure (no phase's error is caught):
      float64 at the fine pass's shape (262,144 points of the MLP arm's rays)
      and, with the semantic head, at 131,072 points: output, every weight
      gradient, dx and dd, padded lanes exactly 0; then `make_fused_field_fn`
-     on CUDA tensors with the points' gradient, counting its launches; time
-     kernel, plain version and the bf16 matmul chain with its autograd
-     backward, and the backward's two kernels apart;
+     on CUDA tensors with the points' gradient, counting its launches and
+     its ring packs (one); time kernel, plain version and the bf16 matmul
+     chain with its autograd backward, the forward's rates as in phase 6,
+     and the backward's two kernels apart;
  12. hold the calibration kernel (`csrc/kbench_cal.cu`) against its plain
      version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it through
      the port's `tools.kbench.calibrate` (TFLOP/s) beside `torch.bmm` and
@@ -439,6 +443,70 @@ def time_bwd_passes(w, inputs, g, dims, *, pre, tag):
     return ms1, ms2
 
 
+def count_ring_packs(fn):
+    """fn() with `fused_mlp.gather_ring` counted: (its result, how many
+    times the fused MLP's weight ring was packed)."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    real, calls = fm.gather_ring, []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    fm.gather_ring = counted
+    try:
+        out = fn()
+    finally:
+        fm.gather_ring = real
+    return out, len(calls)
+
+
+def time_fwd(w, inputs, dims, out_k, *, pre, tag):
+    """The fused MLP forward kernel alone (ring and heads packed once, its
+    output equal to the kernel's `out_k` bit for bit) timed with CUDA
+    events: its executed rate (its products at the widths it multiplies,
+    the ring's first depth + 2 matrices; the heads on the CUDA cores not
+    counted) and the rate at which its blocks stream those stages from L2.
+    Returns its ms."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    p = inputs[0].shape[0]
+    flop = p * sum(2 * m.shape[0] * m.shape[1]
+                   for m in fm.ring_matrices(w, dims, pre)[:dims.depth + 2])
+    ring_bytes = p // 64 * 2 * fm.forward_ring_elems(dims)
+    run = fm.fwd_fn(w, inputs, dims, pre=pre)
+    if not torch.equal(run(), out_k):
+        raise AssertionError("the pre-packed forward differs from the kernel")
+    ms = cuda_ms(run)
+    log(f"[{tag}] P={p} forward kernel alone: {ms:.4f} ms, "
+        f"{flop / ms / 1e9:.1f} TFLOP/s executed ({flop:.4e} FLOP), ring "
+        f"stages {ring_bytes / ms / 1e6:.1f} GB/s ({ring_bytes:.4e} bytes a "
+        f"launch)")
+    return ms
+
+
+def kernel_resources(build_log):
+    """ptxas -v's report of each kernel entry in `build_log`: {mangled
+    name: (registers, stack bytes, spill store bytes, spill load bytes)}."""
+    import re
+    res, name, frame = {}, None, (0, 0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name] = (int(m.group(1)),) + frame
+            name = None
+    return res
+
+
 def compare_mlp_kernels(trainer):
     """Phase 6: the fused MLP kernels against their plain version evaluated
     in float64 (same bf16 roundings). Returns the per-kernel records
@@ -496,10 +564,19 @@ def compare_mlp_kernels(trainer):
                                  f"version (bound: 2 x plain f32 and 1e-2): "
                                  f"{bad}, finite {bool(finite)}")
 
-        # the autograd wrapper on CUDA tensors goes through the kernels
+        # the autograd wrapper on CUDA tensors goes through the kernels, on
+        # one weight ring
         leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
-        out_a = fm.fused_mlp_pe(leaves, xd, dims)
-        out_a.backward(g)
+
+        def autograd_call():
+            out = fm.fused_mlp_pe(leaves, xd, dims)
+            out.backward(g)
+            return out
+
+        out_a, packs = count_ring_packs(autograd_call)
+        if packs != 1:
+            raise AssertionError(f"forward and backward packed the weight "
+                                 f"ring {packs} times, want once")
         if not torch.equal(out_a.detach(), out_k):
             raise AssertionError("autograd wrapper forward differs from kernel")
         if out_of_bound({n: (rel(leaves[n].grad, d_64[n]), errs[n][1])
@@ -519,6 +596,7 @@ def compare_mlp_kernels(trainer):
         ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_fwd_kernel(w, xd, dims))
         ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g,
                                                                dims))
+        time_fwd(w, (xd,), dims, out_k, pre=False, tag="mlp kernels")
         time_bwd_passes(w, (xd,), g, dims, pre=False, tag="mlp kernels")
         ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_pe_plain(w, xd, dims))
         ms["plain_bwd"] = cuda_ms(lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g,
@@ -1005,13 +1083,19 @@ def compare_mlp_v1_kernels(points):
         fm.launches_v1.update(fwd=0, bwd=0)
         pts_a = pts.clone().requires_grad_()
         leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
-        out_a = fm.make_fused_field_fn(dims)(leaves, pts_a, vd)
-        out_a.backward(g[:b * s].reshape(b, s, -1))
+
+        def entry_call():
+            out = fm.make_fused_field_fn(dims)(leaves, pts_a, vd)
+            out.backward(g[:b * s].reshape(b, s, -1))
+            return out
+
+        out_a, packs = count_ring_packs(entry_call)
         torch.cuda.synchronize()
         counts = dict(fm.launches_v1)
-        if counts != {"fwd": 1, "bwd": 1}:
-            raise AssertionError(f"make_fused_field_fn launched {counts}, "
-                                 f"want #7 and #8 once each")
+        if counts != {"fwd": 1, "bwd": 1} or packs != 1:
+            raise AssertionError(f"make_fused_field_fn launched {counts} and "
+                                 f"packed the ring {packs} times, want #7 "
+                                 f"and #8 once each on one ring")
         if not torch.equal(out_a.detach().reshape(b * s, -1),
                            out_k[:b * s]):
             raise AssertionError("entry point forward differs from kernel")
@@ -1024,8 +1108,8 @@ def compare_mlp_v1_kernels(points):
                                        dpts_p.reshape(-1, 3),
                                        dpts_64.double().reshape(-1, 3),
                                        flip[:b * s])}
-        log(f"[mlp v1 kernels] make_fused_field_fn: launches {counts}; "
-            f"the points' gradients:")
+        log(f"[mlp v1 kernels] make_fused_field_fn: launches {counts}, "
+            f"ring packs {packs}; the points' gradients:")
         log_point_errs(pts_errs)
         if point_out_of_bound(pts_errs):
             raise AssertionError("point gradients out of bound")
@@ -1045,6 +1129,7 @@ def compare_mlp_v1_kernels(points):
         del out_l, x_l, d_l
         ms["fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims))
         ms["bwd"] = cuda_ms(lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims))
+        time_fwd(w, (x, d), dims, out_k, pre=True, tag="mlp v1 kernels")
         time_bwd_passes(w, (x, d), g, dims, pre=True, tag="mlp v1 kernels")
         ms["plain_fwd"] = cuda_ms(lambda: fm.fused_mlp_fwd_plain(w, x, d,
                                                                  dims))
@@ -1349,6 +1434,13 @@ def main(argv):
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
+    fwd_res = {n: r for n, r in kernel_resources(
+        build_logs["fused_mlp_pe"]).items() if "fm_fwd_kernel" in n}
+    log(f"[build] fm_fwd_kernel (registers, stack, spill stores, spill "
+        f"loads): {fwd_res}")
+    if len(fwd_res) != 2 or any(r[2] or r[3] for r in fwd_res.values()):
+        raise AssertionError("an fm_fwd_kernel instantiation is missing "
+                             "from the build log or spills")
 
     scene, masks, held_pose, held_rgb = synthetic_scene()
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"

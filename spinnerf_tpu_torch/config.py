@@ -41,7 +41,6 @@ class Config:
     #                                   dense/XOR-prime index); auto = mxu
     #                                   below 2^13 entries, else win
     fused_mlp: bool = True            # MLP field through its fused kernel
-    #                                   (the MLP field is not ported yet)
     alpha_model_path: str | None = None
 
     # sampling / rendering

@@ -16,18 +16,63 @@
 // gradients of the activations), counted at the encodings' unpadded widths
 // (63 and 27 lanes; the kernels also multiply the zero padding up to 128),
 // against 32 bytes of input, so the bound is the tensor-core rate. The
-// tensor core's accumulator rounds toward zero, so every kernel here takes
-// each partial product of at most 64 terms in a fresh accumulator and adds
-// it to an f32 running sum in registers. sinf is the full-range libm sine:
+// tensor core's accumulator rounds toward zero, so the backward's kernels
+// take each partial product of at most 64 terms in a fresh accumulator and
+// add it to an f32 running sum in registers (the forward's error stays
+// within its gate without that fold). sinf is the full-range libm sine:
 // arguments reach 2^9 * |x|. Never build with --use_fast_math.
 //
-// The forward (fm_fwd_kernel): one block of 256 threads owns 64 points.
-// Their activations stay in shared memory as bf16 (encodings 2 x 64 x 128,
-// two 64 x 256 ping-pong buffers). The ~0.64 M weights (1.3 MB in bf16) do
-// not fit in a block's 227 KB, so each layer's weights stream through a
-// double-buffered 64-deep stage with cp.async, K contiguous, read by all 8
-// warps; fragments come from shared memory with ldmatrix into mma.sync
-// m16n8k16 bf16 -> f32. The 1-3 column heads run on the CUDA cores.
+// fm_fwd_kernel and fm_bwd_kernel share one machinery. One block of 384
+// threads owns 64 points: two consumer warpgroups, each computing 128 of
+// the 256 output columns (64 of 128) of every product with wgmma
+// m64n128k16 (m64n64k16), and a producer warpgroup of which one thread
+// works. Every trunk, feature and view product reads A (the block's bf16
+// activations, or in the backward its gradients) and B (a 64-deep weight
+// stage, [N][64], K contiguous) from shared memory in the 128-byte swizzle.
+// The producer streams the stages, which pack_ring lays out pre-swizzled,
+// contiguous and in the order the backward consumes them, with
+// cp.async.bulk into a ring of 32 KB slots; a full mbarrier a slot counts
+// their bytes and an empty one the 8 consumer warps' releases, so no
+// consumer waits on a block-wide barrier inside a K loop. Activations live
+// in one buffer: a layer's output is written over its input once both
+// warpgroups are done with their products (a named barrier). The heads
+// (1-3 columns) run on the CUDA cores.
+// Registers: ptxas gives a thread 168 (65,536 / 384). In the backward,
+// setmaxnreg moves the producer warpgroup to 24 and the consumers to 240 at
+// run time, but the consumers' code is allocated within the 168. A
+// backward consumer holds a 64-float accumulator and the 64-float running
+// sum, with no spills; a second accumulator, to overlap a stage's fold with
+// the next stage's product, spilled and ran slower.
+//
+// The forward (fm_fwd_kernel) multiplies 1.28 MFLOP a point at its padded
+// widths (3.35e11 FLOP at P = 262,144: 0.34 ms at 989 TFLOP/s). Its weights
+// are the first 42 stages of the backward's ring (the trunk, feature and
+// view products: ring_schedule with fwd), 1,248 KB that every block streams
+// from L2, 5.2 GB at P = 262,144. With one block of 8 consumer warps an SM,
+// what does not overlap the products bounds it: the block's encoding (v2
+// takes 84 full-range sines a point), each layer's epilogue and its
+// barriers. What the design does about that:
+// - fw_product takes no fold: a layer's whole K accumulates in the tensor
+//   core, and each stage is issued before the previous one is waited on,
+//   so the stages follow each other without a gap. The output stays within
+//   twice the plain f32 version's error against float64 (chip_smoke.py
+//   phases 6 and 11 hold it there). The backward's recompute keeps the
+//   fold, so its activations are not bit-equal to the forward's: the two
+//   sum the same bf16 products in another order, and a ReLU mask can
+//   differ only where a pre-activation lies within that rounding of 0
+//   (ROADMAP.md queue C);
+// - the producer warp streams from the block's start, while the other 11
+//   warps (the consumers and the producer warpgroup's three idle warps)
+//   encode; no setmaxnreg, which made no difference here.
+// The sigma and semantic heads read the last trunk output before the
+// feature's epilogue overwrites it, the rgb head the view output, four
+// threads a point; each point's raw [4 + e] f32 is written once. Shared
+// memory (bytes): encodings 2 x 16,384 (the x encoding later v), the
+// activation buffer 32,768, the ring 4 x 32,768, barriers 64: 196,672, and
+// 1,024 to align the swizzle, of 232,448. A block of 128 points would halve
+// the ring's L2 traffic and let one warpgroup's epilogue overlap the
+// other's products, but its encodings and activations (128 KB) leave room
+// for 3 slots only.
 //
 // The backward, two kernels. The weight gradient dW = A^T G sums over every
 // point, which a block of 64 points cannot finish, so fm_bwd_kernel
@@ -35,40 +80,19 @@
 // layer's input activations A and output gradients G to a scratch;
 // fm_dw_kernel then reduces A^T G over the points.
 // - fm_bwd_kernel is bound by operations: 2.39 MFLOP a point at the widths
-//   it multiplies (627 GFLOP at P = 262,144: 0.63 ms at 989 TFLOP/s). One
-//   block of 384 threads owns 64 points: two consumer warpgroups, each
-//   computing 128 of the 256 output columns (64 of 128) of every product
-//   with wgmma m64n128k16 (m64n64k16), and a producer warpgroup of which
-//   one thread works. Every trunk, feature and view product, in the
-//   recompute and in the data gradients, reads A (the block's bf16
-//   activations or gradients) and B (a 64-deep weight stage, [N][64], K
-//   contiguous) from shared memory in the 128-byte swizzle. The producer
-//   streams the stages, which pack_ring lays out pre-swizzled, contiguous
-//   and in the order they are consumed, with cp.async.bulk into a ring of 4
-//   slots of 32 KB; a full mbarrier a slot counts their bytes and an empty
-//   one the 8 consumer warps' releases, so no consumer waits on a
-//   block-wide barrier inside a K loop. Activations and gradients live in
-//   one buffer: a layer's output is written over its input once both
-//   warpgroups are done with their products (a named barrier), which frees
-//   the room for the fourth slot. Each layer's A or G tile leaves with one
-//   bulk store (shared -> device) issued after its epilogue, which overlaps
-//   the next layer's products; the buffer is rewritten only once the store
-//   has read it (cp.async.bulk.wait_group.read). The ReLU masks stay as bits
-//   in shared memory, read back by the thread that wrote them. The heads
-//   (1-3 columns) run on the CUDA cores; sigma's and the semantic head's
-//   weight gradients read the last trunk output before the feature
-//   overwrites it.
+//   it multiplies (627 GFLOP at P = 262,144: 0.63 ms at 989 TFLOP/s). Its
+//   ring has 4 slots. Each layer's A or G tile leaves with one bulk store
+//   (shared -> device) issued after its epilogue, which overlaps the next
+//   layer's products; the buffer is rewritten only once the store has read
+//   it (cp.async.bulk.wait_group.read). The ReLU masks stay as bits in
+//   shared memory, read back by the thread that wrote them. Sigma's and the
+//   semantic head's weight gradients read the last trunk output before the
+//   feature overwrites it.
 //   Shared memory (bytes): encodings 2 x 16,384 (later v and g_v), the
 //   activation buffer 32,768, the ring 4 x 32,768, cotangent 2,048,
 //   barriers 64, the PRE path's column sums 4,096, ReLU bits (depth + 1) x
 //   2,048 = 18,432 at depth 8: 221,248, and 1,024 to align the swizzle, of
 //   232,448.
-//   Registers: ptxas gives a thread 168 (65,536 / 384); setmaxnreg moves
-//   the producer warpgroup to 24 and the consumers to 240 at run time, but
-//   the consumers' code is allocated within the 168. A consumer holds a
-//   64-float accumulator and the 64-float running sum, with no spills; a
-//   second accumulator, to overlap a stage's fold with the next stage's
-//   product, spilled and ran slower.
 //   Measured and left out on the H100: clusters of 2 or 4 blocks sharing
 //   each stage by multicast bulk copies (the same time or slower: the
 //   weights' L2 traffic does not bound this kernel), and a 3-slot ring with
@@ -111,7 +135,8 @@
 // gradients over f32 gradients (the v2 kernel over bf16-rounded ones), so
 // with PRE the gradient epilogues add their f32 column sums per warp, in
 // f64 atomics, and fm_dw_kernel skips its bias pass. The padded input lanes
-// of dx and dd are products with the weights' zero rows: exactly 0.
+// of dx and dd are products with the weights' zero rows: exactly 0. The
+// forward's ring prefix is the same with and without PRE.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,32 +144,18 @@
 typedef __nv_bfloat16 bf16;
 
 #define FM_BM 64             // points per block
-#define FM_THREADS 256
 #define FM_W 256             // trunk width
 #define FM_E 128             // padded encoding widths (in_dim, dir_dim)
 #define FM_V 128             // view width
 #define FM_KT 64             // depth of a weight stage
 #define FM_MAX_DEPTH 16
-#define LDH (FM_W + 8)       // row pitches in bf16, padded against bank conflicts
-#define LDE (FM_E + 8)
-#define LDB (FM_KT + 8)
-#define STAGE_ELEMS (FM_W * LDB)
 
-// fm_fwd_kernel's shared memory, in bytes
-#define SM_XE 0
-#define SM_DE (SM_XE + FM_BM * LDE * 2)
-#define SM_H0 (SM_DE + FM_BM * LDE * 2)
-#define SM_H1 (SM_H0 + FM_BM * LDH * 2)
-#define SM_B (SM_H1 + FM_BM * LDH * 2)
-#define SM_FWD_END (SM_B + 2 * STAGE_ELEMS * 2)
-
-// Weights (bf16) and biases (f32), bound from ops/fused_mlp.py (_FmParams).
+// Biases (f32) and the bf16 weights, bound from ops/fused_mlp.py
+// (_FmParams): the trunk, feature and view matrices as the stages of `ring`
+// (pack_ring), the heads as they are (pack_weights).
 struct FmParams {
-  const bf16* wt[FM_MAX_DEPTH];   // trunk weights transposed: [256][K_i]
   const float* tb[FM_MAX_DEPTH];  // [256]
-  const bf16* feat_wt;            // [256][256] transposed
   const float* feat_b;
-  const bf16* view_wt;            // [128][384] transposed
   const float* view_b;
   const bf16* rgb_w;              // [128][3]
   const float* rgb_b;
@@ -153,7 +164,7 @@ struct FmParams {
   const bf16* sem_w;              // [256] when out_extra
   const float* sem_b;
   int depth, skip, out_extra, multires, multires_views;
-  const bf16* ring;               // the backward's weight stages (pack_ring)
+  const bf16* ring;               // the weight stages (pack_ring)
   long long ring_bytes;
 };
 
@@ -214,21 +225,6 @@ __device__ __forceinline__ float ldbf(const bf16* p) {
   return __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void red_add2(float* addr, float a, float b) {
 #if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
   atomicAdd(reinterpret_cast<float2*>(addr), make_float2(a, b));
@@ -236,158 +232,6 @@ __device__ __forceinline__ void red_add2(float* addr, float a, float b) {
   atomicAdd(addr, a);
   atomicAdd(addr + 1, b);
 #endif
-}
-
-// d += a * b on the tensor cores: A 16x16 (row), B 16x8 (col), bf16 -> f32.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8, and register j receives matrix j in the mma
-// fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// Stage rows [0, NT*32) x columns [k0, k0+FM_KT) of a K-contiguous weight
-// matrix bt (row pitch ldb) into dst [NT*32][LDB].
-template <int NT>
-__device__ __forceinline__ void load_b_stage(bf16* dst,
-                                             const bf16* __restrict__ bt,
-                                             int ldb, int k0) {
-  constexpr int N = NT * 32, CH = FM_KT / 8;   // 16-byte chunks a row
-  for (int c = threadIdx.x; c < N * CH; c += FM_THREADS) {
-    const int n = c / CH, q = c % CH;
-    cp_async16(dst + n * LDB + q * 8, bt + (size_t)n * ldb + k0 + q * 8);
-  }
-}
-
-// acc[64][NT*32] = A[64][K] * B, where B^T is bt [NT*32][ldb] in device
-// memory (K contiguous) and A lies in shared memory: columns [0, k0len) in
-// a0 (pitch lda0), the rest in a1 (pitch lda1). Warp w owns rows
-// (w/4)*32.. and columns (w%4)*NT*8..; acc[mt][nt][2h+j] is row
-// (w/4)*32 + mt*16 + lane/4 + 8h, column (w%4)*NT*8 + nt*8 + 2(lane%4) + j.
-// Starts and ends with a __syncthreads, so A may be written just before and
-// the output buffer just after.
-template <int NT>
-__device__ __forceinline__ void block_mma(float (&acc)[2][NT][4],
-                                          const bf16* a0, int lda0, int k0len,
-                                          const bf16* a1, int lda1,
-                                          const bf16* __restrict__ bt,
-                                          int ldb, int K, bf16* bst) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.0f;
-  const int nk = K / FM_KT;
-  load_b_stage<NT>(bst, bt, ldb, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk)
-      load_b_stage<NT>(bst + ((kt + 1) & 1) * STAGE_ELEMS, bt, ldb,
-                       (kt + 1) * FM_KT);
-    cp_async_commit();  // possibly empty: keeps wait_group 1 exact
-    cp_async_wait1();
-    __syncthreads();
-    const bf16* bs = bst + (kt & 1) * STAGE_ELEMS;
-    const int k = kt * FM_KT;
-    const bf16* a = k < k0len ? a0 : a1;
-    const int lda = k < k0len ? lda0 : lda1;
-    const int ka = k < k0len ? k : k - k0len;
-    // the tensor core's accumulator holds one stage (64 products); the
-    // running sum is kept outside it in f32
-    float part[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < FM_KT / 16; ++ks) {
-      // A: rows lane % 16, columns + 8 for lanes 16-31 -> a0..a3
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(af[mt], a + (wm * 32 + mt * 16 + (lane & 15)) * lda + ka +
-                            ks * 16 + (lane >> 4) * 8);
-      // B (rows n, K contiguous): two n-tiles a load, lanes 0-15 the first
-      // (k, k + 8), lanes 16-31 the second -> b0, b1, b0', b1'
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, bs + (wn * NT * 8 + nt * 8 + (lane >> 4) * 8 + (lane & 7)) *
-                             LDB + ks * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(part[0][nt], af[0], bf[0], bf[1]);
-        mma16816(part[1][nt], af[1], bf[0], bf[1]);
-        mma16816(part[0][nt + 1], af[0], bf[2], bf[3]);
-        mma16816(part[1][nt + 1], af[1], bf[2], bf[3]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[mt][nt][c] += part[mt][nt][c];
-    __syncthreads();
-  }
-}
-
-// out = bf16(act(acc + bias)); with relu, the bits (z > 0) of this thread's
-// accumulator positions go to mask[word * FM_THREADS + tid].
-template <int NT>
-__device__ __forceinline__ void epi_bias_act(float (&acc)[2][NT][4],
-                                             const float* __restrict__ bias,
-                                             bool relu, bf16* out, int ldo,
-                                             uint32_t* mask) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  constexpr int NW = (2 * NT * 4 + 31) / 32;
-  uint32_t bits[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) bits[w] = 0u;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * t;
-      const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 32 + mt * 16 + g + 8 * h;
-        float v0 = acc[mt][nt][2 * h] + b0;
-        float v1 = acc[mt][nt][2 * h + 1] + b1;
-        if (relu) {
-          const int idx = (mt * NT + nt) * 4 + 2 * h;
-          if (v0 > 0.0f) bits[idx >> 5] |= 1u << (idx & 31);
-          if (v1 > 0.0f) bits[(idx + 1) >> 5] |= 1u << ((idx + 1) & 31);
-          v0 = v0 > 0.0f ? v0 : 0.0f;
-          v1 = v1 > 0.0f ? v1 : 0.0f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + row * ldo + col) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-    }
-  if (mask) {
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mask[w * FM_THREADS + threadIdx.x] = bits[w];
-  }
 }
 
 // The sum of s over the 8 lanes of a warp that share lane % 4: one column's
@@ -409,154 +253,9 @@ __device__ __forceinline__ float pe_value(const float* x3, int j, int nf) {
   return sinf(r >= 3 ? __fadd_rn(xb, 1.57079637f) : xb);
 }
 
-__device__ __forceinline__ void encode_block(const float* __restrict__ xd,
-                                             int p0, const FmParams& p,
-                                             bf16* xe, bf16* de) {
-  for (int i = threadIdx.x; i < FM_BM * FM_E; i += FM_THREADS) {
-    const int r = i / FM_E, j = i % FM_E;
-    const float* x = xd + (size_t)(p0 + r) * 8;
-    xe[r * LDE + j] = __float2bfloat16_rn(pe_value(x, j, p.multires));
-    de[r * LDE + j] = __float2bfloat16_rn(pe_value(x + 3, j, p.multires_views));
-  }
-}
-
-// The PRE path's encodings: rows p0.. of x_enc and d_enc ([P][128] f32,
-// 16-byte aligned) rounded to bf16, four lanes a thread.
-__device__ __forceinline__ void load_block(const float* __restrict__ x_enc,
-                                           const float* __restrict__ d_enc,
-                                           int p0, bf16* xe, bf16* de) {
-  constexpr int Q = FM_E / 4;
-  for (int i = threadIdx.x; i < FM_BM * Q; i += FM_THREADS) {
-    const int r = i / Q, c = (i - r * Q) * 4;
-    const size_t off = (size_t)(p0 + r) * FM_E + c;
-    const float4 a = *reinterpret_cast<const float4*>(x_enc + off);
-    const float4 b = *reinterpret_cast<const float4*>(d_enc + off);
-    __nv_bfloat162* xo = reinterpret_cast<__nv_bfloat162*>(xe + r * LDE + c);
-    __nv_bfloat162* dout = reinterpret_cast<__nv_bfloat162*>(de + r * LDE + c);
-    xo[0] = __floats2bfloat162_rn(a.x, a.y);
-    xo[1] = __floats2bfloat162_rn(a.z, a.w);
-    dout[0] = __floats2bfloat162_rn(b.x, b.y);
-    dout[1] = __floats2bfloat162_rn(b.z, b.w);
-  }
-}
-
-// The forward through the view layer for the block at p0. Leaves the last
-// trunk output in hb[(depth-1)&1], the feature in hb[depth&1], the view
-// output in xe (the encoding is dead by then) and the dir encoding in de.
-// The inputs are xd [P][8] (in_x; in_d unused), or with PRE the encodings
-// x_enc and d_enc [P][128].
-template <bool PRE>
-__device__ __forceinline__ void forward_pass(const FmParams& p,
-                                             const float* __restrict__ in_x,
-                                             const float* __restrict__ in_d,
-                                             int p0, uint8_t* smem) {
-  bf16* xe = reinterpret_cast<bf16*>(smem + SM_XE);
-  bf16* de = reinterpret_cast<bf16*>(smem + SM_DE);
-  bf16* hb[2] = {reinterpret_cast<bf16*>(smem + SM_H0),
-                 reinterpret_cast<bf16*>(smem + SM_H1)};
-  bf16* bst = reinterpret_cast<bf16*>(smem + SM_B);
-  const int D = p.depth;
-  const bool sk = p.skip + 1 < D;
-
-  if (PRE)
-    load_block(in_x, in_d, p0, xe, de);
-  else
-    encode_block(in_x, p0, p, xe, de);
-  __syncthreads();
-  for (int i = 0; i < D; ++i) {
-    float acc[2][8][4];
-    if (i == 0)
-      block_mma<8>(acc, xe, LDE, FM_E, xe, LDE, p.wt[0], FM_E, FM_E, bst);
-    else if (sk && i == p.skip + 1)
-      block_mma<8>(acc, xe, LDE, FM_E, hb[(i - 1) & 1], LDH, p.wt[i],
-                   FM_E + FM_W, FM_E + FM_W, bst);
-    else
-      block_mma<8>(acc, hb[(i - 1) & 1], LDH, FM_W, hb[(i - 1) & 1], LDH,
-                   p.wt[i], FM_W, FM_W, bst);
-    epi_bias_act<8>(acc, p.tb[i], true, hb[i & 1], LDH, nullptr);
-    __syncthreads();
-  }
-  const bf16* hl = hb[(D - 1) & 1];
-  bf16* feat = hb[D & 1];
-  {
-    float acc[2][8][4];
-    block_mma<8>(acc, hl, LDH, FM_W, hl, LDH, p.feat_wt, FM_W, FM_W, bst);
-    epi_bias_act<8>(acc, p.feat_b, false, feat, LDH, nullptr);
-  }
-  __syncthreads();
-  {
-    float acc[2][4][4];
-    block_mma<4>(acc, feat, LDH, FM_W, de, LDE, p.view_wt, FM_W + FM_E,
-                 FM_W + FM_E, bst);
-    epi_bias_act<4>(acc, p.view_b, true, xe, LDE, nullptr);
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// kernels
-// ---------------------------------------------------------------------------
-
-template <bool PRE>
-__global__ void __launch_bounds__(FM_THREADS, 1)
-fm_fwd_kernel(const FmParams p, const float* __restrict__ in_x,
-              const float* __restrict__ in_d, float* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int p0 = blockIdx.x * FM_BM;
-  forward_pass<PRE>(p, in_x, in_d, p0, smem);
-
-  // heads on the CUDA cores: 4 lanes a point, pairs of k interleaved
-  const bf16* hl = reinterpret_cast<const bf16*>(
-      smem + ((p.depth - 1) & 1 ? SM_H1 : SM_H0));
-  const bf16* v = reinterpret_cast<const bf16*>(smem + SM_XE);
-  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-  float s = 0.0f, se = 0.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-  for (int kk = 0; kk < FM_W / 8; ++kk) {
-    const int k = 2 * q + 8 * kk;
-    const __nv_bfloat162 h2 =
-        *reinterpret_cast<const __nv_bfloat162*>(hl + r * LDH + k);
-    const float h0 = __low2float(h2), h1 = __high2float(h2);
-    s = fmaf(h0, ldbf(p.sigma_w + k), s);
-    s = fmaf(h1, ldbf(p.sigma_w + k + 1), s);
-    if (p.out_extra) {
-      se = fmaf(h0, ldbf(p.sem_w + k), se);
-      se = fmaf(h1, ldbf(p.sem_w + k + 1), se);
-    }
-  }
-  for (int kk = 0; kk < FM_V / 8; ++kk) {
-    const int k = 2 * q + 8 * kk;
-    const __nv_bfloat162 v2 =
-        *reinterpret_cast<const __nv_bfloat162*>(v + r * LDE + k);
-    const float v0 = __low2float(v2), v1 = __high2float(v2);
-    c0 = fmaf(v0, ldbf(p.rgb_w + 3 * k), c0);
-    c1 = fmaf(v0, ldbf(p.rgb_w + 3 * k + 1), c1);
-    c2 = fmaf(v0, ldbf(p.rgb_w + 3 * k + 2), c2);
-    c0 = fmaf(v1, ldbf(p.rgb_w + 3 * k + 3), c0);
-    c1 = fmaf(v1, ldbf(p.rgb_w + 3 * k + 4), c1);
-    c2 = fmaf(v1, ldbf(p.rgb_w + 3 * k + 5), c2);
-  }
-#pragma unroll
-  for (int m = 1; m < 4; m <<= 1) {
-    s += __shfl_xor_sync(0xFFFFFFFFu, s, m);
-    se += __shfl_xor_sync(0xFFFFFFFFu, se, m);
-    c0 += __shfl_xor_sync(0xFFFFFFFFu, c0, m);
-    c1 += __shfl_xor_sync(0xFFFFFFFFu, c1, m);
-    c2 += __shfl_xor_sync(0xFFFFFFFFu, c2, m);
-  }
-  if (q == 0) {
-    const int nout = 4 + p.out_extra;
-    float* o = out + (size_t)(p0 + r) * nout;
-    o[0] = c0 + p.rgb_b[0];
-    o[1] = c1 + p.rgb_b[1];
-    o[2] = c2 + p.rgb_b[2];
-    o[3] = s + p.sigma_b[0];
-    if (p.out_extra) o[4] = se + p.sem_b[0];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the backward: warpgroup MMA (wgmma) on 128-byte-swizzled tiles, weights
-// through an asynchronous ring (see the note at the top)
+// warpgroup MMA (wgmma) on 128-byte-swizzled tiles, weights through an
+// asynchronous ring (see the note at the top)
 // ---------------------------------------------------------------------------
 
 #define BW_CONSUMERS 256                 // two consumer warpgroups
@@ -582,6 +281,14 @@ fm_fwd_kernel(const FmParams p, const float* __restrict__ in_x,
 #define SB_MASK (SB_CSUM + 4 * FM_W * 4) // ReLU bits, 2 words a thread a layer
 #define SB_END(depth) (SB_MASK + ((depth) + 1) * 2 * BW_CONSUMERS * 4)
 
+// fm_fwd_kernel's: SB_XE (later v), SB_DE and SB_H as above, then a ring of
+// FW_SLOTS slots at SB_RING and its full and empty barriers
+#define FW_SLOTS 4
+#define FW_ENCODERS (BW_THREADS - 32)    // all warps but the producer's
+#define FW_BAR (SB_RING + FW_SLOTS * BW_SLOT_BYTES)
+#define FW_SMEM (FW_BAR + FW_SLOTS * 16 + SMEM_ALIGN)
+static_assert(FW_SMEM <= SMEM_MAX, "fm_fwd_kernel's ring does not fit");
+
 // fm_dw_kernel's ring: a [64 points][64 inputs] A tile and a [64 points]
 // [256 outputs] G tile a stage
 #define DW_SLOTS 4
@@ -591,8 +298,8 @@ fm_fwd_kernel(const FmParams p, const float* __restrict__ in_x,
 #define DW_SMEM (DW_BRED + 8 * FM_W * 4 + SMEM_ALIGN)
 #define DW_MAX_LAYERS (FM_MAX_DEPTH + 2)
 
-// The weight stages in the order fm_bwd_kernel consumes them: kb[s] is the
-// size of stage s in 16 KB ([128][64] bf16) units, 1 or 2 (bw_schedule).
+// The weight stages in the order a kernel consumes them: kb[s] is the size
+// of stage s in 16 KB ([128][64] bf16) units, 1 or 2 (ring_schedule).
 struct BwRing {
   int n;
   unsigned char kb[BW_MAX_STAGES];
@@ -629,6 +336,9 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // keeps the compiler from reading accumulators before wg_wait0
 template <int R>
@@ -785,10 +495,11 @@ struct Pipe {
     ++s;
     return slot;
   }
-  // consumer: the slot of the next stage, once it has arrived
-  __device__ int acquire() const {
-    const int slot = s % nslots;
-    mbar_wait(full + 8 * slot, (s / nslots) & 1);
+  // consumer: the slot of the stage k after the next one to release, once
+  // it has arrived
+  __device__ int acquire(int k = 0) const {
+    const int st = s + k, slot = st % nslots;
+    mbar_wait(full + 8 * slot, (st / nslots) & 1);
     return slot;
   }
   // a consumer warp is done with the stage
@@ -798,6 +509,20 @@ struct Pipe {
     ++s;
   }
 };
+
+// The producer thread: the plan's stages, read one after another from src,
+// each into the next slot of the ring.
+__device__ __forceinline__ void stream_ring(const bf16* src_ring,
+                                            const BwRing& plan, Pipe& ring) {
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(src_ring);
+  for (int s = 0; s < plan.n; ++s) {
+    const uint32_t bytes = plan.kb[s] * 16384u;
+    const int slot = ring.produce(bytes);
+    bulk_g2s(ring.base + slot * BW_SLOT_BYTES, src, bytes,
+             ring.full + 8 * slot);
+    src += bytes;
+  }
+}
 
 // The consumer thread's place in an m64nNW accumulator: element
 // 4j + 2h + e is row acc_row(h), column wg * NW + 8j + 2 (t % 4) + e.
@@ -852,6 +577,35 @@ __device__ __forceinline__ void bw_product(float (&sum)[NW / 2], uint32_t a0,
 #pragma unroll
     for (int i = 0; i < NW / 2; ++i) sum[i] += part[i];
   }
+}
+
+// The forward's product: acc as bw_product's sum, but the whole K
+// accumulated in the tensor core (scale-d 1 after the first k16 step) with
+// no fold, and stage kb + 1 issued before stage kb is waited on and
+// released, so that the tensor cores see no gap between stages.
+template <int NW>
+__device__ __forceinline__ void fw_product(float (&acc)[NW / 2], uint32_t a0,
+                                           int n0, uint32_t a1, int nkb,
+                                           Pipe& ring) {
+  const uint32_t boff = (threadIdx.x >> 7) * NW * 128;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const uint32_t a = kb < n0 ? a0 + kb * 8192 : a1 + (kb - n0) * 8192;
+    const uint32_t b =
+        ring.base + ring.acquire(kb > 0) * BW_SLOT_BYTES + boff;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_k16<NW, 0>(acc, desc_sw128(a + ks * 32, 16, 1024),
+                       desc_sw128(b + ks * 32, 16, 1024), kb > 0 || ks > 0);
+    wg_commit();
+    if (kb > 0) {   // stage kb - 1 is done
+      wg_wait1();
+      ring.release();
+    }
+  }
+  wg_wait0();
+  fence_regs(acc);
+  ring.release();
 }
 
 // out = bf16(act(sum + bias)) at this thread's accumulator positions; with
@@ -996,15 +750,15 @@ __device__ __forceinline__ void bw_store_f32(const float (&sum)[NW / 2],
 
 // The block's encodings into the swizzled xe / de tiles: computed from xd
 // [P][8] (v2) or, with PRE, read from x_enc / d_enc [P][128] f32 (16-byte
-// aligned) and rounded to bf16.
+// aligned) and rounded to bf16; by the nt threads numbered t = 0.. nt - 1.
 template <bool PRE>
 __device__ __forceinline__ void bw_inputs(const float* __restrict__ in_x,
                                           const float* __restrict__ in_d,
                                           int p0, const FmParams& p, bf16* xe,
-                                          bf16* de) {
+                                          bf16* de, int t, int nt) {
   if (PRE) {
     constexpr int Q = FM_E / 4;
-    for (int i = threadIdx.x; i < FM_BM * Q; i += BW_CONSUMERS) {
+    for (int i = t; i < FM_BM * Q; i += nt) {
       const int r = i / Q, c = (i - r * Q) * 4;
       const size_t off = (size_t)(p0 + r) * FM_E + c;
       const float4 a = *reinterpret_cast<const float4*>(in_x + off);
@@ -1018,13 +772,140 @@ __device__ __forceinline__ void bw_inputs(const float* __restrict__ in_x,
       dout[1] = __floats2bfloat162_rn(b.z, b.w);
     }
   } else {
-    for (int i = threadIdx.x; i < FM_BM * FM_E; i += BW_CONSUMERS) {
+    for (int i = t; i < FM_BM * FM_E; i += nt) {
       const int r = i / FM_E, j = i % FM_E;
       const float* x = in_x + (size_t)(p0 + r) * 8;
       xe[swz(r, j)] = __float2bfloat16_rn(pe_value(x, j, p.multires));
       de[swz(r, j)] = __float2bfloat16_rn(pe_value(x + 3, j, p.multires_views));
     }
   }
+}
+
+// fm_fwd_kernel's consumer warpgroups: the block's forward from its
+// encodings through the view layer on the ring's stages, then the heads on
+// the CUDA cores, four threads a point (row r; columns 2q and 2q + 1 of
+// every 8).
+__device__ __forceinline__ void fw_consumers(const FmParams& p,
+                                             float* __restrict__ out,
+                                             uint8_t* smem, Pipe& ring) {
+  const uint32_t sb = smem_u32(smem);
+  const int tid = threadIdx.x;
+  bf16* xe = reinterpret_cast<bf16*>(smem + SB_XE);   // v after the view layer
+  // the activation buffer, each layer's output written over its input
+  bf16* hb = reinterpret_cast<bf16*>(smem + SB_H);
+  const uint32_t a_xe = sb + SB_XE, a_de = sb + SB_DE, a_h = sb + SB_H;
+  const int p0 = blockIdx.x * FM_BM;
+  const int D = p.depth;
+  const bool sk = p.skip + 1 < D;
+  // after an epilogue: its tile is complete for wgmma and for every thread
+  auto written = [&]() {
+    fence_async();
+    consumers_sync();
+  };
+
+  for (int i = 0; i < D; ++i) {
+    float sum[64];
+    if (i == 0)
+      fw_product<128>(sum, a_xe, 2, a_xe, 2, ring);
+    else if (sk && i == p.skip + 1)
+      fw_product<128>(sum, a_xe, 2, a_h, 6, ring);
+    else
+      fw_product<128>(sum, a_h, 4, a_h, 4, ring);
+    consumers_sync();   // both warpgroups are done reading hb
+    bw_epi_act<128>(sum, p.tb[i], true, hb, nullptr);
+    written();
+  }
+  const int r = tid >> 2, q = tid & 3;
+  float s = 0.0f, se = 0.0f;
+  {
+    float sum[64];
+    fw_product<128>(sum, a_h, 4, a_h, 4, ring);
+    // sigma and the semantic logit from the last trunk output, before the
+    // feature overwrites it
+    for (int k = 2 * q; k < FM_W; k += 8) {
+      const float2 h = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(hb + swz(r, k)));
+      s = fmaf(h.x, ldbf(p.sigma_w + k), s);
+      s = fmaf(h.y, ldbf(p.sigma_w + k + 1), s);
+      if (p.out_extra) {
+        se = fmaf(h.x, ldbf(p.sem_w + k), se);
+        se = fmaf(h.y, ldbf(p.sem_w + k + 1), se);
+      }
+    }
+    consumers_sync();
+    bw_epi_act<128>(sum, p.feat_b, false, hb, nullptr);
+    written();
+  }
+  {
+    float sum[32];
+    fw_product<64>(sum, a_h, 4, a_de, 6, ring);
+    // no reader of the x encoding is left: v goes over it
+    bw_epi_act<64>(sum, p.view_b, true, xe, nullptr);
+    consumers_sync();
+  }
+  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  for (int k = 2 * q; k < FM_V; k += 8) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(xe + swz(r, k)));
+    const bf16* w = p.rgb_w + 3 * k;
+    c0 = fmaf(v.x, ldbf(w), c0);
+    c1 = fmaf(v.x, ldbf(w + 1), c1);
+    c2 = fmaf(v.x, ldbf(w + 2), c2);
+    c0 = fmaf(v.y, ldbf(w + 3), c0);
+    c1 = fmaf(v.y, ldbf(w + 4), c1);
+    c2 = fmaf(v.y, ldbf(w + 5), c2);
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    s += __shfl_xor_sync(0xFFFFFFFFu, s, m);
+    se += __shfl_xor_sync(0xFFFFFFFFu, se, m);
+    c0 += __shfl_xor_sync(0xFFFFFFFFu, c0, m);
+    c1 += __shfl_xor_sync(0xFFFFFFFFu, c1, m);
+    c2 += __shfl_xor_sync(0xFFFFFFFFu, c2, m);
+  }
+  // raw [rgb, sigma, (logit)]: thread q writes column q, and q = 0 the logit
+  const int nout = 4 + p.out_extra;
+  float* o = out + (size_t)(p0 + r) * nout;
+  o[q] = q == 0   ? c0 + p.rgb_b[0]
+         : q == 1 ? c1 + p.rgb_b[1]
+         : q == 2 ? c2 + p.rgb_b[2]
+                  : s + p.sigma_b[0];
+  if (p.out_extra && q == 0) o[4] = se + p.sem_b[0];
+}
+
+// The forward of a block of 64 points: raw [P][4 + out_extra] f32 in out,
+// from xd [P][8] (in_x; in_d unused) or, with PRE, the encodings x_enc and
+// d_enc [P][128]. Thread 256 streams the plan's stages (the ring's forward
+// prefix) through FW_SLOTS slots, and its warp does nothing else; the other
+// 11 warps encode the block's inputs. Then threads 0-255 are the consumers
+// (warpgroup wg owns output columns wg * NW..). No setmaxnreg: the consumers
+// fit in the 168 registers a thread has at launch.
+template <bool PRE>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+fm_fwd_kernel(const FmParams p, const __grid_constant__ BwRing plan,
+              const float* __restrict__ in_x, const float* __restrict__ in_d,
+              float* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)smem_raw + SMEM_ALIGN - 1) & ~(uintptr_t)(SMEM_ALIGN - 1));
+  const uint32_t sb = smem_u32(smem);
+  Pipe ring = {sb + SB_RING, sb + FW_BAR, sb + FW_BAR + 8 * FW_SLOTS,
+               FW_SLOTS, BW_SLOT_BYTES, 0};
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >> 5 == BW_CONSUMERS / 32) {   // the producer warp
+    if (threadIdx.x == BW_CONSUMERS) stream_ring(p.ring, plan, ring);
+    return;
+  }
+  const int t = threadIdx.x < BW_CONSUMERS ? threadIdx.x : threadIdx.x - 32;
+  bw_inputs<PRE>(in_x, in_d, blockIdx.x * FM_BM, p,
+                 reinterpret_cast<bf16*>(smem + SB_XE),
+                 reinterpret_cast<bf16*>(smem + SB_DE), t, FW_ENCODERS);
+  fence_async();
+  // named barrier 2: the encoders (the consumers' is 1)
+  asm volatile("bar.sync 2, %0;\n" ::"n"(FW_ENCODERS) : "memory");
+  if (threadIdx.x < BW_CONSUMERS) fw_consumers(p, out, smem, ring);
 }
 
 // fm_bwd_kernel's consumer warpgroups: everything but the weight stream.
@@ -1070,7 +951,7 @@ __device__ __forceinline__ void bw_consumers(
   // layer i's ReLU bits at mask + i * 512, the view layer's at D * 512
 
   // ---- the forward, recomputed ----
-  bw_inputs<PRE>(in_x, in_d, p0, p, xe, de);
+  bw_inputs<PRE>(in_x, in_d, p0, p, xe, de, tid, BW_CONSUMERS);
   for (int i = tid; i < FM_BM * 8; i += BW_CONSUMERS) {
     const int r = i >> 3, c = i & 7;
     gs[i] = c < nout ? g[(size_t)(p0 + r) * nout + c] : 0.0f;
@@ -1244,16 +1125,7 @@ fm_bwd_kernel(const FmParams p, const FmGrads gr, const FmLayout lay,
   if (tid >= BW_CONSUMERS) {   // the producer warpgroup: one thread works
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         BW_PRODUCER_REGS));
-    if (tid == BW_CONSUMERS) {
-      const uint8_t* src = reinterpret_cast<const uint8_t*>(p.ring);
-      for (int s = 0; s < plan.n; ++s) {
-        const uint32_t bytes = plan.kb[s] * 16384u;
-        const int slot = ring.produce(bytes);
-        bulk_g2s(ring.base + slot * BW_SLOT_BYTES, src, bytes,
-                 ring.full + 8 * slot);
-        src += bytes;
-      }
-    }
+    if (tid == BW_CONSUMERS) stream_ring(p.ring, plan, ring);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         BW_CONSUMER_REGS));
@@ -1428,43 +1300,16 @@ extern "C" int fm_scratch_cols(int depth, int skip, int* fa, int* fg) {
   return 0;
 }
 
-template <bool PRE>
-static int fm_fwd_launch(const FmParams* p, const void* in_x,
-                         const void* in_d, void* out, int n_points,
-                         void* stream) {
-  int err = fm_check(p, n_points, PRE);
-  if (err || n_points == 0) return err;
-  err = (int)cudaFuncSetAttribute(fm_fwd_kernel<PRE>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  SM_FWD_END);
-  if (err) return err;
-  fm_fwd_kernel<PRE><<<n_points / FM_BM, FM_THREADS, SM_FWD_END,
-                       (cudaStream_t)stream>>>(
-      *p, (const float*)in_x, (const float*)in_d, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fm_fwd(const FmParams* p, const void* xd, void* out,
-                      int n_points, void* stream) {
-  return fm_fwd_launch<false>(p, xd, nullptr, out, n_points, stream);
-}
-
-// The pre-encoded forward (kernel #7): x_enc, d_enc [n_points][128] f32.
-extern "C" int fm_fwd_pre(const FmParams* p, const void* x_enc,
-                          const void* d_enc, void* out, int n_points,
-                          void* stream) {
-  return fm_fwd_launch<true>(p, x_enc, d_enc, out, n_points, stream);
-}
-
-// The backward's weight stages, in the order fm_bwd_kernel consumes them
-// (and ops/fused_mlp.py::pack_ring packs them): the recompute's trunk,
-// feature and view products, then g_feat, (PRE) dd, the last trunk layer's
-// g_h, the trunk from the top down with (PRE) the skip layer's encoding
-// slice before its h part, and (PRE) layer 0's input gradient. A product
-// with N outputs and depth K takes K / 64 stages of N x 64 bf16. Returns
-// false if there are more than BW_MAX_STAGES.
-static bool bw_schedule(int depth, int skip, bool pre, BwRing* r,
-                        long long* bytes) {
+// The weight stages in the order fm_bwd_kernel consumes them (and
+// ops/fused_mlp.py::pack_ring packs them): the recompute's trunk, feature
+// and view products (with fwd only these: fm_fwd_kernel's plan, the same
+// with and without pre), then g_feat, (pre) dd, the last trunk layer's g_h,
+// the trunk from the top down with (pre) the skip layer's encoding slice
+// before its h part, and (pre) layer 0's input gradient. A product with N
+// outputs and depth K takes K / 64 stages of N x 64 bf16. Returns false if
+// there are more than BW_MAX_STAGES.
+static bool ring_schedule(int depth, int skip, bool pre, bool fwd, BwRing* r,
+                          long long* bytes) {
   r->n = 0;
   *bytes = 0;
   auto add = [&](int n_out, int k) {
@@ -1481,6 +1326,7 @@ static bool bw_schedule(int depth, int skip, bool pre, BwRing* r,
     ok = ok && add(FM_W, i == 0 ? FM_E : sk && i == skip + 1 ? FM_E + FM_W
                                                              : FM_W);
   ok = ok && add(FM_W, FM_W) && add(FM_V, FM_W + FM_E);
+  if (fwd) return ok;
   ok = ok && add(FM_W, FM_V);
   if (pre) ok = ok && add(FM_E, FM_V);
   ok = ok && add(FM_W, FM_W);
@@ -1490,6 +1336,42 @@ static bool bw_schedule(int depth, int skip, bool pre, BwRing* r,
   }
   if (pre) ok = ok && add(FM_E, FM_W);
   return ok;
+}
+
+// p->ring: pack_ring's stages, or at least their forward prefix, p->ring_bytes
+// long.
+template <bool PRE>
+static int fm_fwd_launch(const FmParams* p, const void* in_x,
+                         const void* in_d, void* out, int n_points,
+                         void* stream) {
+  int err = fm_check(p, n_points, PRE);
+  if (err || n_points == 0) return err;
+  BwRing plan;
+  long long ring_bytes;
+  if (!p->ring ||
+      !ring_schedule(p->depth, p->skip, PRE, true, &plan, &ring_bytes) ||
+      p->ring_bytes < ring_bytes)
+    return (int)cudaErrorInvalidValue;
+  err = (int)cudaFuncSetAttribute(fm_fwd_kernel<PRE>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  FW_SMEM);
+  if (err) return err;
+  fm_fwd_kernel<PRE><<<n_points / FM_BM, BW_THREADS, FW_SMEM,
+                       (cudaStream_t)stream>>>(
+      *p, plan, (const float*)in_x, (const float*)in_d, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fm_fwd(const FmParams* p, const void* xd, void* out,
+                      int n_points, void* stream) {
+  return fm_fwd_launch<false>(p, xd, nullptr, out, n_points, stream);
+}
+
+// The pre-encoded forward (kernel #7): x_enc, d_enc [n_points][128] f32.
+extern "C" int fm_fwd_pre(const FmParams* p, const void* x_enc,
+                          const void* d_enc, void* out, int n_points,
+                          void* stream) {
+  return fm_fwd_launch<true>(p, x_enc, d_enc, out, n_points, stream);
 }
 
 // act: n_points x fa bf16, grad: n_points x fg bf16 of scratch
@@ -1511,7 +1393,7 @@ static int fm_bwd_launch(const FmParams* p, const FmGrads* gr,
   BwRing ring;
   long long ring_bytes;
   if (smem > SMEM_MAX || !p->ring ||
-      !bw_schedule(p->depth, p->skip, PRE, &ring, &ring_bytes) ||
+      !ring_schedule(p->depth, p->skip, PRE, false, &ring, &ring_bytes) ||
       ring_bytes != p->ring_bytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -48,10 +48,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where the compiler's output for `library_path(name)` is kept."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names) -> dict[str, str]:
     """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns each source's
-    compiler output (ptxas register and spill report); raises on failure."""
+    process per source, all started together. Returns each named source's
+    compiler output (ptxas register and spill report), of this build or the
+    one that built the library before ("" where none was kept); raises on
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -64,14 +71,14 @@ def build(names) -> dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    logs = {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        logs[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        report_path(name).write_text(log)
         os.replace(tmp, out)     # atomic: a reader never sees a partial file
-    return logs
+    return {name: report_path(name).read_text()
+            if report_path(name).exists() else "" for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,7 +22,11 @@ by `_weight_order`.
 Both launch the kernels of `csrc/fused_mlp_pe.cu` for CUDA tensors (or
 raise) and run their plain versions (`fused_mlp_pe_plain` /
 `fused_mlp_pe_bwd_plain`, `fused_mlp_fwd_plain` / `fused_mlp_bwd_plain`) for
-CPU tensors.
+CPU tensors. The kernels read the trunk, feature and view matrices as one
+ring of pre-swizzled weight stages (`pack_ring`, packed by `gather_ring`):
+the forward its first stages, the backward all of them. The autograd
+functions pack it once a call, in the forward, and keep it for the
+backward.
 """
 from __future__ import annotations
 
@@ -347,9 +351,7 @@ _VP = ctypes.c_void_p
 
 class _FmParams(ctypes.Structure):
     """`FmParams` of the CUDA source, field for field."""
-    _fields_ = [("wt", _VP * _MAX_DEPTH), ("tb", _VP * _MAX_DEPTH),
-                ("feat_wt", _VP), ("feat_b", _VP),
-                ("view_wt", _VP), ("view_b", _VP),
+    _fields_ = [("tb", _VP * _MAX_DEPTH), ("feat_b", _VP), ("view_b", _VP),
                 ("rgb_w", _VP), ("rgb_b", _VP), ("sigma_w", _VP),
                 ("sigma_b", _VP), ("sem_w", _VP), ("sem_b", _VP),
                 ("depth", ctypes.c_int), ("skip", ctypes.c_int),
@@ -382,8 +384,8 @@ def _lib():
         lib.fm_scratch_cols.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int)]
-        for fn in (lib.fm_fwd, lib.fm_fwd_pre, lib.fm_bwd, lib.fm_bwd_pre,
-                   lib.fm_bwd_pass, lib.fm_scratch_cols):
+        for fn in (lib.fm_fwd, lib.fm_fwd_pre, lib.fm_bwd,
+                   lib.fm_bwd_pre, lib.fm_bwd_pass, lib.fm_scratch_cols):
             fn.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -431,37 +433,32 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
                              f"{w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def pack_weights(weights, dims: MLPDims, mats: bool = True):
-    """The bf16 copies the forward kernel reads, in one buffer: the trunk,
-    feature and view matrices transposed ([out, in], K contiguous) and the
-    heads as they are (only the heads without `mats`: the backward takes
-    its matrices from `pack_ring`). Returns (buffer, {(name, transposed):
-    element offset}); every offset is a multiple of 8 (16 bytes, for
-    cp.async)."""
-    names = [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w"]
+def pack_weights(weights, dims: MLPDims):
+    """The heads' bf16 copies the kernels read, in one buffer (the other
+    matrices come as `pack_ring`'s stages). Returns (buffer, {name: element
+    offset}); every offset is a multiple of 8 (16 bytes)."""
     heads = ["rgb_w", "sigma_w"] + (["sem_w"] if dims.out_extra else [])
-    parts = ([(n, True) for n in names] if mats else []) + [
-        (n, False) for n in heads]
     offsets, total = {}, 0
-    for n, tr in parts:
-        offsets[(n, tr)] = total
+    for n in heads:
+        offsets[n] = total
         total += _round_up(weights[n].numel(), 8)
     buf = torch.empty(total, dtype=torch.bfloat16,
                       device=weights["rgb_w"].device)
-    for (n, tr), off in offsets.items():
-        src = weights[n].t() if tr else weights[n]
-        buf[off:off + src.numel()].view(src.shape).copy_(src)
+    for n, off in offsets.items():
+        buf[off:off + weights[n].numel()].view(weights[n].shape).copy_(
+            weights[n])
     return buf, offsets
 
 
 def ring_matrices(weights, dims: MLPDims, pre: bool):
     """B^T ([N, K], K contiguous) of every product of the backward kernel
-    with a weight operand, in the order it takes them (`bw_schedule` in the
-    CUDA source): the recompute's trunk, feature and view layers; then
-    g_feat (view_w[:width]), with `pre` dd (the direction rows of view_w),
-    the last trunk layer's g_h (feat_w), the trunk from the top down (the
-    skip layer's h rows, after, with `pre`, its encoding rows), and with
-    `pre` layer 0's input gradient (tw0)."""
+    with a weight operand, in the order it takes them (`ring_schedule` in
+    the CUDA source): the recompute's trunk, feature and view layers (the
+    first depth + 2, which the forward kernel takes, the same with and
+    without `pre`); then g_feat (view_w[:width]), with `pre` dd (the
+    direction rows of view_w), the last trunk layer's g_h (feat_w), the
+    trunk from the top down (the skip layer's h rows, after, with `pre`,
+    its encoding rows), and with `pre` layer 0's input gradient (tw0)."""
     w, e = dims.width, dims.in_dim
     cat = dims.skip + 1 if dims.skip + 1 < dims.depth else -1
     mats = [weights[f"tw{i}"].t() for i in range(dims.depth)]
@@ -496,8 +493,9 @@ def swizzle_stages(bt):
 
 
 def pack_ring(weights, dims: MLPDims, pre: bool):
-    """The backward kernel's weight stages, in one bf16 buffer in the order
-    it takes them (`ring_matrices`, each through `swizzle_stages`)."""
+    """The kernels' weight stages, in one bf16 buffer in the order the
+    backward takes them (`ring_matrices`, each through `swizzle_stages`);
+    the forward reads the first `forward_ring_elems`."""
     return torch.cat([swizzle_stages(m.to(torch.bfloat16))
                       for m in ring_matrices(weights, dims, pre)])
 
@@ -505,11 +503,18 @@ def pack_ring(weights, dims: MLPDims, pre: bool):
 _ring_index_cache: dict = {}
 
 
+def forward_ring_elems(dims: MLPDims) -> int:
+    """Elements of the ring's first depth + 2 matrices, the stages the
+    forward kernel takes: the trunk, feature and view layers."""
+    return sum(math.prod(s) for n, s in weight_shapes(dims).items()
+               if n.startswith("tw") or n in ("feat_w", "view_w"))
+
+
 def ring_index(dims: MLPDims, pre: bool, device):
     """`pack_ring` as a gather: the index, into the weights flattened and
     concatenated in `_weight_order`, of every element of the ring (int32 on
-    `device`, built once per geometry), so that the backward packs its ring
-    in three launches instead of some eighty."""
+    `device`, built once per geometry), so that the ring is packed in three
+    launches instead of some eighty."""
     key = (dims, pre, str(device))
     if key not in _ring_index_cache:
         ids, off = {}, 0
@@ -523,37 +528,34 @@ def ring_index(dims: MLPDims, pre: bool, device):
     return _ring_index_cache[key]
 
 
-def _params(weights, dims: MLPDims, backward: bool = False,
-            pre: bool = False):
-    """(FmParams, the bf16 buffers it points into): the forward's weight
-    copies, or with `backward` the heads and the backward kernel's weight
-    ring (v1's with `pre`)."""
-    buf, offs = pack_weights(weights, dims, mats=not backward)
+def gather_ring(weights, dims: MLPDims, pre: bool, forward: bool = False):
+    """`pack_ring` (v1's with `pre`) with one gather (`ring_index`); with
+    `forward` only the forward kernel's stages."""
+    flat = torch.cat([weights[n].reshape(-1) for n in _weight_order(dims)])
+    idx = ring_index(dims, pre, flat.device)
+    if forward:
+        idx = idx[:forward_ring_elems(dims)]
+    return flat.to(torch.bfloat16)[idx]
 
-    def at(name, tr=False):
-        return buf.data_ptr() + 2 * offs[(name, tr)]
 
+def _params(weights, dims: MLPDims, ring):
+    """(FmParams, the bf16 buffers it points into): the biases, the heads
+    (`pack_weights`) and the weight stages `ring` (`gather_ring`)."""
+    buf, offs = pack_weights(weights, dims)
     prm = _FmParams()
     for i in range(dims.depth):
         prm.tb[i] = weights[f"tb{i}"].data_ptr()
-    if not backward:
-        for i in range(dims.depth):
-            prm.wt[i] = at(f"tw{i}", True)
-        prm.feat_wt, prm.view_wt = at("feat_w", True), at("view_w", True)
-    prm.rgb_w, prm.sigma_w = at("rgb_w"), at("sigma_w")
+    prm.rgb_w = buf.data_ptr() + 2 * offs["rgb_w"]
+    prm.sigma_w = buf.data_ptr() + 2 * offs["sigma_w"]
     for n in ("feat_b", "view_b", "rgb_b", "sigma_b"):
         setattr(prm, n, weights[n].data_ptr())
     if dims.out_extra:
-        prm.sem_w, prm.sem_b = at("sem_w"), weights["sem_b"].data_ptr()
+        prm.sem_w = buf.data_ptr() + 2 * offs["sem_w"]
+        prm.sem_b = weights["sem_b"].data_ptr()
     prm.depth, prm.skip, prm.out_extra = dims.depth, dims.skip, dims.out_extra
     prm.multires, prm.multires_views = dims.multires, dims.multires_views
-    bufs = [buf]
-    if backward:
-        flat = torch.cat([weights[n].reshape(-1) for n in _weight_order(dims)])
-        ring = flat.to(torch.bfloat16)[ring_index(dims, pre, flat.device)]
-        prm.ring, prm.ring_bytes = ring.data_ptr(), 2 * ring.numel()
-        bufs.append(ring)
-    return prm, bufs
+    prm.ring, prm.ring_bytes = ring.data_ptr(), 2 * ring.numel()
+    return prm, (buf, ring)
 
 
 def _raise_on(lib, fn_name: str, err: int):
@@ -562,23 +564,40 @@ def _raise_on(lib, fn_name: str, err: int):
                            f"{lib.fm_error_string(err).decode()}")
 
 
-def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool):
-    """One launch of the forward kernel on (xd,) (v2, `fm_fwd`) or, with
-    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_fwd_pre`): raw [P, 4+e]
-    f32 (no autograd)."""
+def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, ring=None):
+    """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
+    `fm_fwd`, #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1,
+    `fm_fwd_pre`, #7) needs: a function that launches the kernel on those
+    buffers and returns raw [P, 4+e] f32 (the same tensor each call).
+    `ring`: `gather_ring`'s whole ring or its forward stages, packed here
+    when None. Counts no launch, so it also times the kernel alone."""
     _check_kernel_args(weights, inputs, dims, pre)
     lib = _lib()
-    # the bf16 weight copies stay referenced until the launch is queued; the
-    # caching allocator then reuses them in stream order
-    prm, _bf16 = _params(weights, dims)
-    p, dev = inputs[0].shape[0], inputs[0].device
-    out = torch.empty((p, 4 + dims.out_extra), dtype=torch.float32,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if ring is None:
+        ring = gather_ring(weights, dims, pre, forward=True)
+    prm, bufs = _params(weights, dims, ring)
+    out = torch.empty((inputs[0].shape[0], 4 + dims.out_extra),
+                      dtype=torch.float32, device=inputs[0].device)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     name = "fm_fwd_pre" if pre else "fm_fwd"
-    _raise_on(lib, name, getattr(lib, name)(
-        ctypes.byref(prm), *(a.data_ptr() for a in inputs), out.data_ptr(),
-        p, stream))
+    launch, ins = getattr(lib, name), [a.data_ptr() for a in inputs]
+
+    def run():
+        _raise_on(lib, name, launch(ctypes.byref(prm), *ins, out.data_ptr(),
+                                    out.shape[0], stream))
+        return out
+
+    run.keep = bufs     # what prm points into, alive as long as run
+    return run
+
+
+def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, ring=None):
+    """One launch of the forward kernel (`fwd_fn`), counted: raw [P, 4+e]
+    f32 (no autograd)."""
+    # the bf16 buffers stay referenced until the launch is queued; the
+    # caching allocator then reuses them in stream order
+    out = fwd_fn(weights, inputs, dims, pre=pre, ring=ring)()
+    (launches_v1 if pre else launches)["fwd"] += 1
     return out
 
 
@@ -598,12 +617,14 @@ class _BwdCall(NamedTuple):
     keep: tuple                 # what the arguments point into besides
 
 
-def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool) -> _BwdCall:
+def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
+              ring=None) -> _BwdCall:
     """Check the inputs and allocate what a backward launch on (xd,) (v2)
     or, with `pre`, on the encodings (x_enc, d_enc) (v1) needs: the weight
-    ring, the scratch (fm_scratch_cols: P x fa and P x fg bf16), the zeroed
-    f32 weight gradients in `_weight_order`, the heads' f64 bias sums, and
-    with `pre` v1's f64 bias sums and the input gradients dx, dd."""
+    ring (`gather_ring`, packed here when `ring` is None), the scratch
+    (fm_scratch_cols: P x fa and P x fg bf16), the zeroed f32 weight
+    gradients in `_weight_order`, the heads' f64 bias sums, and with `pre`
+    v1's f64 bias sums and the input gradients dx, dd."""
     _check_kernel_args(weights, inputs, dims, pre)
     p, dev = inputs[0].shape[0], inputs[0].device
     if g.shape != (p, 4 + dims.out_extra):
@@ -611,7 +632,8 @@ def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool) -> _BwdCall:
                          f"got {tuple(g.shape)}")
     g = g.to(torch.float32).contiguous()
     lib = _lib()
-    prm, bufs = _params(weights, dims, backward=True, pre=pre)
+    prm, bufs = _params(weights, dims, gather_ring(weights, dims, pre)
+                        if ring is None else ring)
     fa, fg = ctypes.c_int(), ctypes.c_int()
     _raise_on(lib, "fm_scratch_cols", lib.fm_scratch_cols(
         dims.depth, dims.skip, ctypes.byref(fa), ctypes.byref(fg)))
@@ -662,17 +684,20 @@ def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool) -> _BwdCall:
                     (act, grad), (prm, grd, bufs, g))
 
 
-def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool):
+def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                ring=None):
     """One launch of the backward (the recompute-and-backprop kernel, then
-    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`) or, with
-    `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`): (f32 weight
-    gradients for the cotangent g [P, 4+e] in `_weight_order`, dx, dd), the
-    input gradients [P, 128] f32 with `pre` and None without."""
-    c = _bwd_args(weights, inputs, g, dims, pre=pre)
+    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`, #10) or,
+    with `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`, #8),
+    counted: (f32 weight gradients for the cotangent g [P, 4+e] in
+    `_weight_order`, dx, dd), the input gradients [P, 128] f32 with `pre`
+    and None without. `ring`: `gather_ring`'s, packed here when None."""
+    c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=ring)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     args = c.args if pre else c.args[:3] + c.args[4:]    # fm_bwd: no d_enc
     name = "fm_bwd_pre" if pre else "fm_bwd"
     _raise_on(c.lib, name, getattr(c.lib, name)(*args, stream))
+    (launches_v1 if pre else launches)["bwd"] += 1
     nout = 4 + dims.out_extra
     h0 = c.offs["rgb_b"]
     c.flat[h0:h0 + nout].copy_(c.head_b[:nout])
@@ -702,48 +727,44 @@ def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
 
 def fused_mlp_pe_fwd_kernel(weights, xd, dims: MLPDims):
     """One launch of the v2 forward kernel (#9): raw [P, 4+e] f32."""
-    out = _fwd_launch(weights, (xd,), dims, pre=False)
-    launches["fwd"] += 1
-    return out
+    return _fwd_launch(weights, (xd,), dims, pre=False)
 
 
 def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
     """One launch of the v2 backward (#10): f32 weight gradients for the
     cotangent g [P, 4+e], in `_weight_order`."""
     grads, _, _ = _bwd_launch(weights, (xd,), g, dims, pre=False)
-    launches["bwd"] += 1
     return grads
 
 
 def fused_mlp_fwd_kernel(weights, x_enc, d_enc, dims: MLPDims):
     """One launch of the v1 forward kernel (#7) on the encodings x_enc,
     d_enc [P, 128] f32: raw [P, 4+e] f32."""
-    out = _fwd_launch(weights, (x_enc, d_enc), dims, pre=True)
-    launches_v1["fwd"] += 1
-    return out
+    return _fwd_launch(weights, (x_enc, d_enc), dims, pre=True)
 
 
 def fused_mlp_bwd_kernel(weights, x_enc, d_enc, g, dims: MLPDims):
     """One launch of the v1 backward (#8): (f32 weight gradients in
     `_weight_order`, dx [P, 128], dd [P, 128]) for the cotangent g."""
-    out = _bwd_launch(weights, (x_enc, d_enc), g, dims, pre=True)
-    launches_v1["bwd"] += 1
-    return out
+    return _bwd_launch(weights, (x_enc, d_enc), g, dims, pre=True)
 
 
 class _FusedMLPPE(torch.autograd.Function):
     """Kernel forward and backward on CUDA tensors, the plain version on CPU
     tensors; the gradient flows to the weights only, as in the JAX custom
-    VJP."""
+    VJP. On CUDA the forward packs the weight ring, which the backward
+    reads too: the saved weights cannot change in between (autograd's
+    version check)."""
 
     @staticmethod
     def forward(ctx, dims, xd, *ws):
         weights = dict(zip(_weight_order(dims), ws))
         ctx.dims = dims
         ctx.save_for_backward(xd, *ws)
-        if xd.is_cuda:
-            return fused_mlp_pe_fwd_kernel(weights, xd, dims)
-        return fused_mlp_pe_plain(weights, xd, dims)
+        if not xd.is_cuda:
+            return fused_mlp_pe_plain(weights, xd, dims)
+        ctx.ring = gather_ring(weights, dims, pre=False)
+        return _fwd_launch(weights, (xd,), dims, pre=False, ring=ctx.ring)
 
     @staticmethod
     def backward(ctx, g):
@@ -751,7 +772,8 @@ class _FusedMLPPE(torch.autograd.Function):
         dims = ctx.dims
         weights = dict(zip(_weight_order(dims), ws))
         if xd.is_cuda:
-            d = fused_mlp_pe_bwd_kernel(weights, xd, g, dims)
+            d, _, _ = _bwd_launch(weights, (xd,), g, dims, pre=False,
+                                  ring=ctx.ring)
         else:
             d = fused_mlp_pe_bwd_plain(weights, xd, g, dims)
         return (None, None, *(d[n] for n in _weight_order(dims)))
@@ -785,16 +807,19 @@ def make_fused_pe_field_fn(dims: MLPDims, *, block: int = 512):
 class _FusedMLP(torch.autograd.Function):
     """The v1 kernels (#7/#8) on CUDA tensors, their plain version on CPU
     tensors; the gradient flows to the weights and to both encodings, as in
-    the JAX custom VJP."""
+    the JAX custom VJP. The weight ring is packed once, as in
+    `_FusedMLPPE`."""
 
     @staticmethod
     def forward(ctx, dims, x_enc, d_enc, *ws):
         weights = dict(zip(_weight_order(dims), ws))
         ctx.dims = dims
         ctx.save_for_backward(x_enc, d_enc, *ws)
-        if x_enc.is_cuda:
-            return fused_mlp_fwd_kernel(weights, x_enc, d_enc, dims)
-        return fused_mlp_fwd_plain(weights, x_enc, d_enc, dims)
+        if not x_enc.is_cuda:
+            return fused_mlp_fwd_plain(weights, x_enc, d_enc, dims)
+        ctx.ring = gather_ring(weights, dims, pre=True)
+        return _fwd_launch(weights, (x_enc, d_enc), dims, pre=True,
+                           ring=ctx.ring)
 
     @staticmethod
     def backward(ctx, g):
@@ -802,7 +827,8 @@ class _FusedMLP(torch.autograd.Function):
         dims = ctx.dims
         weights = dict(zip(_weight_order(dims), ws))
         if x_enc.is_cuda:
-            d, dx, dd = fused_mlp_bwd_kernel(weights, x_enc, d_enc, g, dims)
+            d, dx, dd = _bwd_launch(weights, (x_enc, d_enc), g, dims,
+                                    pre=True, ring=ctx.ring)
         else:
             d, dx, dd = fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims)
         return (None, dx, dd, *(d[n] for n in _weight_order(dims)))

@@ -22,8 +22,8 @@ def exponential_lr(lrate: float, lrate_decay: float):
 class Optimizer:
     """Adam with the exponential schedule, an optional global-norm gradient
     clip (optax `clip_by_global_norm` semantics) and optional L2 decay of
-    the hash tables (`table_wd`, added to their gradients before Adam: L2
-    through Adam, not AdamW).
+    the hash tables (`table_wd`, added to their gradients after the clip and
+    before Adam: L2 through Adam, not AdamW, as optax chains them).
 
     `step()` applies one update from the parameters' `.grad`; `count` is the
     number of updates applied so far."""
@@ -39,6 +39,11 @@ class Optimizer:
         groups = [{"params": rest, "weight_decay": 0.0}]
         if table:
             groups.append({"params": table, "weight_decay": table_wd})
+        # Adam skips a parameter whose .grad is None (`zero_grad` leaves
+        # None where no loss reached it, e.g. the coarse field under
+        # --no_coarse); optax decays a table whatever its gradient, so a
+        # decayed table without one gets a zero gradient before the update
+        self.decayed = table if table_wd > 0 else []
         self.adam = torch.optim.Adam(groups, lr=lrate, betas=(0.9, 0.999),
                                      eps=1e-8)
         self.count = 0
@@ -57,6 +62,9 @@ class Optimizer:
             g.mul_(scale)
 
     def step(self):
+        for p in self.decayed:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.grad_clip is not None:
             self._clip()
         lr = self.schedule(self.count)

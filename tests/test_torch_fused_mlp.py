@@ -179,24 +179,25 @@ def test_kernel_wrappers_take_no_cpu_tensors():
 
 
 def test_pack_weights_layout():
+    """The heads' bf16 copies, as they are, each on 16 bytes."""
     f = tfm.FusedMLPField(depth=3, semantic=True, device="cpu")
     f.reset_parameters(torch.Generator().manual_seed(1))
     w = {n: p.detach() for n, p in f.weights.items()}
     buf, offs = tfm.pack_weights(w, f.dims)
     assert buf.dtype == torch.bfloat16
-    for (n, tr), off in offs.items():
+    for n, off in offs.items():
         assert off % 8 == 0
-        src = w[n].t() if tr else w[n]
-        got = buf[off:off + src.numel()].view(src.shape)
-        assert torch.equal(got, src.to(torch.bfloat16)), (n, tr)
-    assert len(offs) == (3 + 2) + 3
+        got = buf[off:off + w[n].numel()].view(w[n].shape)
+        assert torch.equal(got, w[n].to(torch.bfloat16)), n
+    assert list(offs) == ["rgb_w", "sigma_w", "sem_w"]
+    assert buf.numel() == 128 * 3 + 256 + 256
 
 
 @pytest.mark.parametrize("pre", [False, True])
 def test_pack_ring_layout(pre):
     """The backward kernel's weight stages: every product's B^T [N, K] cut
     into K / 64 stages [N, 64], each row's 16-byte chunk c at c ^ (row % 8),
-    in the order the kernel takes them (its bw_schedule): the recompute,
+    in the order the kernel takes them (its ring_schedule): the recompute,
     then the gradients of the view, feature and trunk layers from the top,
     with v1 (`pre`) adding dd, the skip layer's encoding rows and layer 0."""
     f = tfm.FusedMLPField(device="cpu")
@@ -212,7 +213,7 @@ def test_pack_ring_layout(pre):
     want += [w["tw5"][:128]] if pre else []
     want += [w["tw5"][128:], w["tw4"], w["tw3"], w["tw2"], w["tw1"]]
     want += [w["tw0"]] if pre else []
-    # the stages as bw_schedule in the CUDA source counts them
+    # the stages as ring_schedule in the CUDA source counts them
     n_stages = sum(m.shape[1] // 64 for m in want)
     assert n_stages == (76 if not pre else 86)
     off = 0
@@ -230,3 +231,60 @@ def test_pack_ring_layout(pre):
     flat = torch.cat([w[n].reshape(-1) for n in tfm._weight_order(d)])
     idx = tfm.ring_index(d, pre, "cpu")
     assert torch.equal(flat.to(torch.bfloat16)[idx], ring)
+
+
+def _unswizzle_stages(flat, n, k):
+    """`swizzle_stages` undone: K / 64 stages [N, 64] -> B^T [N, K]. The
+    swizzle is an involution: chunk c of row r sits at c ^ (r % 8)."""
+    stages = flat.view(k // 64, n, 8, 8)
+    rows = torch.arange(n)
+    src = torch.arange(8)[None, :] ^ (rows % 8)[:, None]
+    got = stages.gather(2, src[None, :, :, None].expand(stages.shape))
+    return got.transpose(0, 1).reshape(n, k)
+
+
+@pytest.mark.parametrize("pre", [False, True])
+def test_forward_reads_the_ring_prefix(pre):
+    """What the forward kernel reads: the ring's first depth + 2 matrices
+    (the trunk, feature and view layers: 42 stages, 1,248 KB, the count of
+    ring_schedule with fwd in the CUDA source, the same with and without
+    `pre`) and the packed heads. Un-swizzled, with the f32 biases, they give
+    the plain forward bit for bit."""
+    f = tfm.FusedMLPField(semantic=True, device="cpu")
+    f.reset_parameters(torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    w = {n: (torch.randn(p.shape, generator=gen) * 0.1
+             if n.endswith("_b") or n.startswith("tb") else p.detach())
+         for n, p in f.weights.items()}
+    d = f.dims
+    n_elems = tfm.forward_ring_elems(d)
+    prefix = tfm.gather_ring(w, d, pre, forward=True)
+    assert torch.equal(prefix, tfm.pack_ring(w, d, pre)[:n_elems])
+    mats = tfm.ring_matrices(w, d, pre)[:d.depth + 2]
+    assert sum(m.shape[1] // 64 for m in mats) == 42
+    assert 2 * prefix.numel() == 1248 * 1024
+
+    ring_w = dict(w)
+    off = 0
+    for name in [f"tw{i}" for i in range(d.depth)] + ["feat_w", "view_w"]:
+        k, n = w[name].shape
+        ring_w[name] = _unswizzle_stages(prefix[off:off + n * k], n, k
+                                         ).t().float().contiguous()
+        off += n * k
+    assert off == n_elems
+    buf, offs = tfm.pack_weights(w, d)
+    for name, o in offs.items():
+        ring_w[name] = buf[o:o + w[name].numel()].view(w[name].shape).float()
+
+    rng = np.random.RandomState(5)
+    xd = torch.from_numpy(np.concatenate(
+        [rng.randn(64, 6) * 2.0, np.zeros((64, 2))], 1).astype(np.float32))
+    if pre:
+        x, dirs = tfm._encodings(xd, d)
+        want = tfm.fused_mlp_fwd_plain(w, x, dirs, d)
+        got = tfm.fused_mlp_fwd_plain(ring_w, x, dirs, d)
+    else:
+        want = tfm.fused_mlp_pe_plain(w, xd, d)
+        got = tfm.fused_mlp_pe_plain(ring_w, xd, d)
+    assert got.shape == (64, 5)
+    assert torch.equal(got, want)
