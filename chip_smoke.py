@@ -12,8 +12,11 @@ Phases, each fatal on failure (no phase's error is caught):
      fm_fwd_kernel instantiations (none may spill);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
-     table, 262,144 points from the trainer's calibrated ray distribution;
-     time kernel and plain version with CUDA events;
+     table, 262,144 points from the trainer's calibrated ray distribution,
+     and the backward again with one level's dense box widened to a morton
+     span of 32,768; time kernel and plain version with CUDA events; print
+     the scatter's census (a JSON line: per level the regime, distinct
+     entries touched, contributions per entry; points per segment);
   4. the hash arm of the main path: `Trainer` at the default prepare
      configuration (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16
      MLPs, 1024 rays x 64+64 samples) on an in-memory synthetic scene of 12
@@ -69,7 +72,8 @@ Phases, each fatal on failure (no phase's error is caught):
      checked against its in-memory render; `Trainer` built with no scene at
      the reference's DS-NeRF prepare configuration (factor 2, COLMAP sparse
      depth with the depth loss, lindisp, white background, density noise,
-     hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory and
+     hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory,
+     phase 3's census and backward check run on its points, and it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
      decoded with the port's reader.
@@ -159,9 +163,117 @@ def fine_pass_points(trainer):
     return x
 
 
+def scatter_census(tag, x, res, t, bounds, boxes):
+    """The backward's scatter on points x, level by level (printed as one
+    JSON line): the regime (paged, or dense with its morton span), the
+    distinct table entries the corners touch, and the mean and largest
+    number of (point, corner) contributions per touched entry; for paged
+    levels the distinct entries per segment (mean, largest). Once for the
+    point set: points per segment (mean, largest, empty segments)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    idx, _ = hw.corner_indices_weights_win(x, res, t, bounds, boxes)
+    n_seg = hw.n_segments(t)
+    seg = hw.point_base(x, t, bounds).long() // hw.PAGE_ENTRIES
+    per_seg = torch.bincount(seg, minlength=n_seg)
+    levels = []
+    for l, (r, box) in enumerate(zip(res, hw.normalize_dense_box(res, t,
+                                                                boxes))):
+        u, c = torch.unique(idx[l].reshape(-1), return_counts=True)
+        row = {"level": l, "res": int(r),
+               "regime": "paged" if box is None else "dense",
+               "span": (hw.PAGE_ENTRIES if box is None
+                        else hw.box_morton_span(box[3:])),
+               "distinct": int(u.numel()),
+               "mean_per_entry": round(float(c.double().mean()), 2),
+               "max_per_entry": int(c.max())}
+        if box is None:
+            d = torch.bincount(u // hw.PAGE_ENTRIES, minlength=n_seg)
+            row["distinct_per_segment"] = [round(float(d.double().mean()), 1),
+                                           int(d.max())]
+        levels.append(row)
+    log(json.dumps({"census": {
+        "points": tag, "n": int(x.shape[0]), "segments": n_seg,
+        "points_per_segment": {"mean": float(per_seg.double().mean()),
+                               "max": int(per_seg.max()),
+                               "empty": int((per_seg == 0).sum())},
+        "levels": levels}}))
+    del idx
+
+
+def hold_bwd(tag, x, res, bounds, boxes, table, g):
+    """#2 (the encode's backward kernel) on points x with the index
+    (res, bounds, boxes): held against the plain version evaluated in
+    float64 (atomics add in an order that varies between runs; float64 is
+    the exact sum of the same f32 weights and cotangents) within 1e-5 of
+    max |dtable|, the f32 plain version's own error printed beside; then
+    kernel and plain version timed with CUDA events; the autograd wrapper's
+    table gradient held at the same bound. Returns (max abs error, ms,
+    plain ms)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    t = table.shape[1]
+    rows = hw.level_scalars(res, t, boxes)
+    base = hw.point_base(x, t, bounds)
+    tab64 = table.double().requires_grad_()
+    (dtab_64,) = torch.autograd.grad(
+        hw.hash_encode_plain(tab64, x, res, bounds, boxes), tab64, g.double())
+    del tab64
+    scale = float(dtab_64.abs().max())
+
+    def bwd_rel(d):
+        return float((d.double() - dtab_64).abs().max()) / scale
+
+    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, base, rows, table.shape)
+    tab = table.clone().requires_grad_()
+    out_g = hw.hash_encode_plain(tab, x, res, bounds, boxes)
+    (dtab_p,) = torch.autograd.grad(out_g, tab, g, retain_graph=True)
+    tab_a = table.clone().requires_grad_()
+    hw.hash_encode_win_fused(tab_a, x, res, bounds, boxes).backward(g)
+    torch.cuda.synchronize()
+    err = float((dtab_k.double() - dtab_64).abs().max())
+    rel, rel_p, rel_a = bwd_rel(dtab_k), bwd_rel(dtab_p), bwd_rel(tab_a.grad)
+    del dtab_64, dtab_p, tab_a
+    log(f"[kernels {tag}] bwd max|kernel - plain f64| = {err:.3e} (relative "
+        f"{rel:.3e}, bound 1e-5; autograd wrapper {rel_a:.3e}); plain f32 "
+        f"relative {rel_p:.3e}; max|dtable| {scale:.3e}")
+    if not (torch.isfinite(dtab_k).all() and rel <= 1e-5):
+        raise AssertionError(f"backward kernel disagrees with the plain "
+                             f"version ({tag})")
+    if rel_a > 1e-5:
+        raise AssertionError(f"autograd wrapper backward differs from plain "
+                             f"({tag})")
+    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(g, x, base, rows,
+                                                       table.shape))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, tab, g,
+                                                   retain_graph=True))
+    log(f"[kernels {tag}] bwd {ms:.4f} ms (plain {plain_ms:.4f})")
+    return err, ms, plain_ms
+
+
+def box_32768(x, res, t, boxes):
+    """The dense boxes `boxes` with one more: the first paged level of
+    resolution >= 32 gets a calibrated-style box of 20 x 20 x 20 cells
+    around the points' median cell, whose morton span is 32,768 (the
+    largest the index admits)."""
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    out = list(hw.normalize_dense_box(res, t, boxes))
+    l32 = next(l for l, (r, b) in enumerate(zip(res, out))
+               if b is None and r >= 32)
+    r = res[l32]
+    mid = (x.median(0).values * r).floor().long().tolist()
+    out[l32] = tuple(min(max(c - 10, 0), r - 21) for c in mid) + (20,) * 3
+    if hw.box_morton_span(out[l32][3:]) != 32768:
+        raise AssertionError(f"box {out[l32]} does not span 32768")
+    return tuple(out), l32
+
+
 def compare_kernels(trainer, x):
     """Phase 3: kernels vs plain version at the main path's shapes, on the
-    points x of `fine_pass_points`. Returns the per-kernel records (without
+    points x of `fine_pass_points`, and the backward once more with a
+    dense box of span 32,768. Returns the per-kernel records (without
     launch counts)."""
     import torch
 
@@ -171,12 +283,10 @@ def compare_kernels(trainer, x):
     enc = trainer.model.encoder
     res, bounds, boxes = enc.resolutions, enc.bounds, enc._boxes
     l, t, _ = enc.table.shape
-    table = torch.randn((l, t, 2), generator=torch.Generator().manual_seed(2)
-                        ).to(dev)
-    g = torch.randn((N_POINTS, 2 * l), generator=torch.Generator()
-                    .manual_seed(3)).to(dev)
+    table, g = hash_inputs(enc.table.shape, dev)
     rows = hw.level_scalars(res, t, boxes)
     base = hw.point_base(x, t, bounds)
+    scatter_census("hash", x, res, t, bounds, boxes)
 
     # forward
     out_k = hw.hash_encode_win_fwd_kernel(table, x, base, rows)
@@ -189,61 +299,42 @@ def compare_kernels(trainer, x):
     if not (torch.isfinite(out_k).all() and fwd_rel <= 1e-6):
         raise AssertionError("forward kernel disagrees with the plain version")
 
-    # backward. Atomics add in an order that varies between runs, so the
-    # kernel is held against the plain version evaluated in float64 (the
-    # exact sum of the same f32 weights and cotangents); the f32 plain
-    # version's own error against it is printed beside.
-    tab64 = table.double().requires_grad_()
-    (dtab_64,) = torch.autograd.grad(
-        hw.hash_encode_plain(tab64, x, res, bounds, boxes), tab64, g.double())
-    scale = float(dtab_64.abs().max())
-
-    def bwd_rel(d):
-        return float((d.double() - dtab_64).abs().max()) / scale
-
-    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, base, rows, table.shape)
-    tab = table.clone().requires_grad_()
-    out_g = hw.hash_encode_plain(tab, x, res, bounds, boxes)
-    (dtab_p,) = torch.autograd.grad(out_g, tab, g, retain_graph=True)
-    torch.cuda.synchronize()
-    bwd_err = float((dtab_k.double() - dtab_64).abs().max())
-    log(f"[kernels] bwd max|kernel - plain f64| = {bwd_err:.3e} (relative "
-        f"{bwd_rel(dtab_k):.3e}, bound 1e-5); plain f32 relative "
-        f"{bwd_rel(dtab_p):.3e}; max|dtable| {scale:.3e}")
-    if not (torch.isfinite(dtab_k).all() and bwd_rel(dtab_k) <= 1e-5):
-        raise AssertionError("backward kernel disagrees with the plain version")
+    # backward
+    bwd_err, bwd_ms, bwd_plain_ms = hold_bwd("hash", x, res, bounds, boxes,
+                                             table, g)
 
     # the autograd wrapper on CUDA tensors goes through the kernels
-    tab2 = table.clone().requires_grad_()
-    out_a = hw.hash_encode_win_fused(tab2, x, res, bounds, boxes)
-    out_a.backward(g)
+    out_a = hw.hash_encode_win_fused(table.clone().requires_grad_(), x, res,
+                                     bounds, boxes)
     if not torch.equal(out_a.detach(), out_k):
         raise AssertionError("autograd wrapper forward differs from kernel")
-    if bwd_rel(tab2.grad) > 1e-5:
-        raise AssertionError("autograd wrapper backward differs from plain")
-    del tab64, dtab_64, tab2, out_a
+    del out_a
+
+    # a dense level of span 32,768, whatever the scene calibrated
+    boxes32, l32 = box_32768(x, res, t, boxes)
+    log(f"[kernels dense 32768] level {l32} (res {res[l32]}) box "
+        f"{boxes32[l32]}")
+    err32, ms32, _ = hold_bwd("dense 32768", x, res, bounds, boxes32, table,
+                              g)
 
     # times (CUDA events, back-to-back launches)
     fwd_ms = cuda_ms(lambda: hw.hash_encode_win_fwd_kernel(table, x, base,
                                                            rows))
     fwd_plain_ms = cuda_ms(lambda: hw.hash_encode_plain(table, x, res, bounds,
                                                         boxes))
-    bwd_ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(g, x, base, rows,
-                                                           table.shape))
-    bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, tab, g,
-                                                       retain_graph=True))
 
     # least time: each input read once, each output written once. The
     # forward reads only the table entries this run's points touch.
     idx, _ = hw.corner_indices_weights_win(x, res, t, bounds, boxes)
     lvl = torch.arange(l, device=dev)[:, None, None] * t
     touched = int(torch.unique(idx + lvl).numel())
+    del idx, lvl
     n = N_POINTS
     fwd_bytes = touched * 8 + n * 12 + n * 4 + n * l * 8
     bwd_bytes = n * l * 8 + n * 12 + n * 4 + l * t * 8
     # per (point, level): 3 axes x 5 geometry ops, 8 corners x (2 weight
     # products + ~10 integer hash ops), and the blend's 8 x 2 x 2 (fwd) or
-    # the update's 8 x 2 products and 8 x 2 atomic adds (bwd)
+    # the update's 8 x 2 products and 8 x 2 adds (bwd)
     ops = n * l * (15 + 8 * 12 + 32)
     records = []
     for name, src_line, ms, plain_ms, nbytes, err in (
@@ -261,11 +352,22 @@ def compare_kernels(trainer, x):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
+    records[1].update(dense32768_ms=ms32, dense32768_max_abs_err=err32)
     log(f"[kernels] N={n} L={l} T={t}: touched table entries {touched}; "
         f"fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}), "
         f"bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}); "
         f"library: no single PyTorch call computes this encode")
     return records
+
+
+def hash_inputs(shape, dev):
+    """The random table and cotangent that phase 3 holds #1/#2 with."""
+    import torch
+    table = torch.randn(shape, generator=torch.Generator().manual_seed(2)
+                        ).to(dev)
+    g = torch.randn((N_POINTS, 2 * shape[0]), generator=torch.Generator()
+                    .manual_seed(3)).to(dev)
+    return table, g
 
 
 def bank_points(trainer, n_rays, seed):
@@ -1251,8 +1353,9 @@ def disk_arm(exp_root, argv):
     """Phase 13: a scene written to disk by the port's `make_scene`, loaded
     by `Trainer` (no scene handed in) at the reference's DS-NeRF prepare
     configuration with COLMAP sparse depth; 200 steps, then the prepare
-    dump. Returns the launch counts of the hash kernels over the 200
-    steps."""
+    dump. Before training, phase 3's census and backward check on this
+    arm's points. Returns the launch counts of the hash kernels over the
+    200 steps, and the check's (max abs error, ms, plain ms)."""
     import numpy as np
     import torch
 
@@ -1313,6 +1416,17 @@ def disk_arm(exp_root, argv):
         raise AssertionError("the depth group holds no rays")
     if tr.scene.images.shape != (N_VIEWS, H, W, 3):
         raise AssertionError(f"loaded images {tr.scene.images.shape}")
+
+    # phase 3's backward check on this arm's points: the loaded scene's
+    # recentred, rescaled world and its own calibration
+    enc = tr.model.encoder
+    x = fine_pass_points(tr)
+    scatter_census("disk", x, enc.resolutions, enc.table.shape[1],
+                   enc.bounds, enc._boxes)
+    table, g = hash_inputs(enc.table.shape, tr.device)
+    held = hold_bwd("disk", x, enc.resolutions, enc.bounds, enc._boxes,
+                    table, g)
+    del x, table, g
 
     # 4.-5. 200 steps: steps 1-10 and 191-200 one call each, for their
     # losses
@@ -1375,7 +1489,7 @@ def disk_arm(exp_root, argv):
         f"{int(disp0.max())}")
     if "--profile" in argv:
         profile_steps(tr, step_ms)
-    return counts
+    return counts, held
 
 
 def profile_steps(trainer, step_ms, n_steps=5):
@@ -1399,13 +1513,18 @@ def profile_steps(trainer, step_ms, n_steps=5):
             rows.append((ev.self_device_time_total, ev.key, ev.count))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows) / 1e3 / n_steps
+    def entry(us, k, c):
+        return {"name": k[:90], "ms_per_step": us / 1e3 / n_steps,
+                "launches_per_step": c / n_steps}
+
     log(json.dumps({"profile": {
         "steps": n_steps, "device_ms_per_step": device_ms,
         "step_ms_unprofiled": step_ms,
         "device_busy_share": device_ms / step_ms,
-        "top": [{"name": k[:90], "ms_per_step": us / 1e3 / n_steps,
-                 "launches_per_step": c / n_steps}
-                for us, k, c in rows[:15]]}}))
+        "top": [entry(*r) for r in rows[:15]],
+        # every kernel of the windowed hash encode (#1, #2), however small
+        "hash_encode_win": [entry(*r) for r in rows
+                            if r[1].startswith(("he_", "hb_"))]}}))
 
 
 def main(argv):
@@ -1517,7 +1636,9 @@ def main(argv):
 
     # 13. the disk arm: the DS-NeRF prepare configuration on a scene
     # directory with COLMAP sparse depth
-    disk_counts = disk_arm(exp_root, argv)
+    disk_counts, (err, ms, plain_ms) = disk_arm(exp_root, argv)
+    records[1].update(disk_ms=ms, disk_plain_ms=plain_ms,
+                      disk_max_abs_err=err)
 
     for r in records:
         r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]

@@ -8,29 +8,59 @@
 // computes: a direct gather at any point count, without the TPU kernel's
 // two-page window, its clamp aliasing or its Z-sort.
 //
-// What bounds it on an H100: every (point, level) reads 8 scattered 8-byte
-// table entries (and the backward issues 8 scattered float2 atomics) inside
-// a 64 MiB f32 table per field at 2^19 entries x 16 levels, which is larger
-// than the 50 MB L2 — so the gather is bound by scattered memory
-// transactions, not by arithmetic (about 150 integer and float operations a
-// thread). This is the simple first design: one thread per (point, level),
-// point-major so that a warp's 8-byte output stores are contiguous and its
-// 16 threads of one point share that point's coordinates; the 8 corner loads
-// are issued before the blend so they are in flight together. The backward
-// sums the hot coarse dense levels in shared memory first
-// (he_bwd_dense_kernel).
+// What bounds it on an H100. Forward: every (point, level) reads 8
+// scattered 8-byte entries of a 64 MiB f32 table (2^19 entries x 16
+// levels), larger than the 50 MB L2, so the gather is bound by scattered
+// memory transactions, not by its ~150 integer and float operations. One
+// thread per (point, level), point-major, so that a warp's 8-byte output
+// stores are contiguous; the 8 corner loads are issued before the blend.
+//
+// Backward: the least it can do is read each cotangent once and write each
+// gradient entry once; one global atomic per (point, level, corner) would
+// instead scatter 8 reductions a (point, level) over the 64 MiB gradient.
+// The index makes the writes local: on a paged level all 8 corners of a
+// point lie in its own segment's page [base, base + 1024), and on a dense
+// level in the box's morton span (<= 32,768 entries). So the backward
+//   1. sorts the point ids by segment (a counting sort: hb_count_kernel,
+//      hb_plan_kernel, hb_scatter_kernel) and cuts each segment into chunks
+//      of at most HB_CHUNK points (an empty segment is one empty chunk);
+//   2. paged levels (hb_page_kernel): one block per (chunk, level) sums its
+//      points into the page held whole in shared memory (8 KB), then
+//      writes the page with plain coalesced stores, zeros included; the
+//      chunks of a segment longer than HB_CHUNK add their nonzero entries
+//      to a page zeroed before (hb_zero_split_kernel);
+//   3. dense levels of span <= HB_DENSE_SPAN (hb_dense_kernel): blocks sum
+//      slices of the sorted points over the whole span in shared memory and
+//      write per-block partial sums; span HB_WIDE_SPAN (hb_wide_kernel,
+//      256 KB): a cluster of HB_CLUSTER blocks holds the span in its
+//      distributed shared memory, each corner added in the block that owns
+//      its quarter; hb_reduce_kernel sums the partials and writes each dense
+//      row once, zeros beyond the span included.
+// Within a warp, lanes whose corners share an entry are summed first
+// (warp_add: __match_any_sync, then a prefix sum over each group by pointer
+// jumping), so a hot coarse entry takes one shared-memory atomic a warp.
+// The grids are sized from upper bounds (at most ceil(N / HB_CHUNK) +
+// n_segments chunks); surplus blocks exit at once, and no count is read
+// back to the host. What bounds it now is not bytes (one pass over g and
+// one write of the table take ~0.03 ms at 262,144 points) but the eight
+// shared-memory updates a (point, level) and the dependent loads of short
+// blocks (PERF.md section 6).
 //
 // Bit-exactness: the corner indices must equal the host index function's bit
 // for bit, so the geometry rounds as the f32 host path does: explicit
 // __fmul_rn / __fsub_rn, and the library is built with -fmad=false (an FMA
 // contraction of x*r - floor(x*r) changes frac). Never build with
 // --use_fast_math.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+namespace cg = cooperative_groups;
+
 #define HE_MAX_LEVELS 32
 #define HE_ROW 8            // (res, dense flag, ox, oy, oz, ex, ey, ez)
+#define HE_PAGE_ENTRIES 1024  // PAGE_ENTRIES: a segment's page
 #define HE_PAGE_MASK 1023u  // PAGE_ENTRIES - 1: the in-segment hash range
 #define HE_THREADS 256
 
@@ -124,98 +154,377 @@ he_fwd_kernel(const float2* __restrict__ table, const float* __restrict__ x,
 }
 
 __device__ __forceinline__ void red_add2(float2* addr, float a, float b) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(addr, make_float2(a, b));  // one vector atomic on sm_90
-#else
-  atomicAdd(&addr->x, a);
-  atomicAdd(&addr->y, b);
-#endif
+  atomicAdd(addr, make_float2(a, b));  // one vector reduction on sm_90
 }
 
-// dtable[l, idx_c] += w_c * g[p, l] over all points and corners of the
-// levels not in `skip` (a bitmask of levels he_bwd_dense_kernel handles).
-__global__ void __launch_bounds__(HE_THREADS)
-he_bwd_kernel(const float2* __restrict__ g, const float* __restrict__ x,
-              const int* __restrict__ base, LevelRows rows, unsigned skip,
-              float2* __restrict__ dtable, int64_t total, int levels,
-              int64_t t) {
-  __shared__ int srows[HE_MAX_LEVELS * HE_ROW];
-  load_rows(rows, levels, srows);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const int64_t p = tid / levels;
-  const int l = (int)(tid - p * levels);
-  if ((skip >> l) & 1u) return;
-  const float xp[3] = {x[3 * p], x[3 * p + 1], x[3 * p + 2]};
-  uint32_t idx[8];
-  float w[8];
-  corner_geom(xp, (uint32_t)base[p], srows + l * HE_ROW, idx, w);
-  const float2 gv = g[tid];
-  float2* dl = dtable + (int64_t)l * t;
-#pragma unroll
-  for (int c = 0; c < 8; ++c)
-    red_add2(dl + idx[c], __fmul_rn(w[c], gv.x), __fmul_rn(w[c], gv.y));
-}
+// The backward's schedule. Compile-time constants, mirrored in
+// ops/hash_encode_win.py, which sizes the scratch.
+#define HB_THREADS 256
+#define HB_CHUNK 1024          // points of one segment a page block takes
+#define HB_DENSE_SPAN 4096     // largest span one block sums (32 KB)
+#define HB_WIDE_SPAN 32768     // DENSE_BOX_CAP: summed across a cluster
+#define HB_CLUSTER 4           // blocks of a cluster, each a quarter (64 KB)
+#define HB_PART (HB_WIDE_SPAN / HB_CLUSTER)
+#define HB_PART_BITS 13        // log2(HB_PART)
+#define HB_PLAN_THREADS 1024
+#define HB_REDUCE_TILE HB_THREADS   // dense-row entries a reduce block writes
 
-// The coarse dense levels: every point lands in a box of a few hundred
-// entries, so each entry would take tens of thousands of global atomics per
-// call — serialized at one L2 address, and a float32 chain that long loses
-// about 1e-5 relative accuracy. Instead each block sums HE_DENSE_POINTS
-// points of one level into shared memory (a float2 per entry of the level's
-// morton span) and adds its nonzero partial sums to the table once.
-#define HE_DENSE_SPAN 4096     // largest span summed in shared memory (32 KB)
-#define HE_DENSE_POINTS 4096   // points per block
-
-struct DenseLevels {
+struct LevelSet {
   int n;
   int level[HE_MAX_LEVELS];
-  int span[HE_MAX_LEVELS];
+  int span[HE_MAX_LEVELS];    // morton span (dense), 0 (paged)
+  int parts[HE_MAX_LEVELS];   // partial sums of the level (dense)
+  long long offset[HE_MAX_LEVELS];  // float2 offset of its partials
 };
 
-__global__ void __launch_bounds__(HE_THREADS)
-he_bwd_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
-                    const int* __restrict__ base, LevelRows rows,
-                    DenseLevels dense, float* __restrict__ dtable, int n,
-                    int levels, int64_t t) {
-  extern __shared__ float acc[];
-  __shared__ int srows[HE_MAX_LEVELS * HE_ROW];
-  load_rows(rows, levels, srows);
-  const int l = dense.level[blockIdx.y];
-  const int span2 = 2 * dense.span[blockIdx.y];
-  for (int i = threadIdx.x; i < span2; i += blockDim.x) acc[i] = 0.0f;
+// The level's row of LevelRows, through shared memory into registers.
+__device__ __forceinline__ void level_row(const LevelRows& rows, int l,
+                                          int* srow, int row[HE_ROW]) {
+  if (threadIdx.x < HE_ROW) srow[threadIdx.x] = rows.v[l * HE_ROW + threadIdx.x];
   __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += stride) {
+#pragma unroll
+  for (int i = 0; i < HE_ROW; ++i) row[i] = srow[i];
+}
+
+__device__ __forceinline__ void zero_smem(float2* acc, int entries) {
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  for (int i = threadIdx.x; i < entries / 2; i += blockDim.x)
+    a4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// Adds (vx, vy) at entry `key` for every lane of `active` (the lanes that
+// call; a prefix of the warp). Lanes whose keys are equal are summed first
+// and the highest lane of each group calls add(key, sum): the inclusive
+// prefix sum over the group, in lane order, by pointer jumping (each lane
+// adds the sum held by its nearest lower group member, then takes that
+// member's pointer), ceil(log2(group size)) shuffle rounds. A warp with no
+// two adjacent lanes on one entry (the fine levels) skips the match.
+template <class Add>
+__device__ __forceinline__ void warp_add(unsigned active, uint32_t key,
+                                         float vx, float vy, const Add& add) {
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t below = __shfl_up_sync(active, key, 1);
+  if (!__any_sync(active, lane > 0 && below == key)) {
+    add(key, vx, vy);
+    return;
+  }
+  const unsigned peers = __match_any_sync(active, key);
+  const unsigned lower = peers & ((1u << lane) - 1u);
+  int prev = lower ? 31 - __clz(lower) : -1;
+  const unsigned most = __reduce_max_sync(active, (unsigned)__popc(peers));
+  for (unsigned reach = 1; reach < most; reach <<= 1) {
+    const int src = prev >= 0 ? prev : (int)lane;
+    const float ox = __shfl_sync(active, vx, src);
+    const float oy = __shfl_sync(active, vy, src);
+    const int pp = __shfl_sync(active, prev, src);
+    if (prev >= 0) {
+      vx = __fadd_rn(vx, ox);
+      vy = __fadd_rn(vy, oy);
+      prev = pp;
+    }
+  }
+  if ((peers >> lane) == 1u) add(key, vx, vy);
+}
+
+// Adds (a, b) to a float2 in the block's own shared memory with one 64-bit
+// compare-and-swap loop: both features in one update. (Two f32 reductions,
+// red.shared.add.f32, measured slower on the H100.)
+__device__ __forceinline__ void smem_add2(float2* p, float a, float b) {
+  unsigned long long* q = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long cur = *reinterpret_cast<volatile unsigned long long*>(q);
+  while (true) {
+    float2 v;
+    memcpy(&v, &cur, sizeof(v));
+    v.x = __fadd_rn(v.x, a);
+    v.y = __fadd_rn(v.y, b);
+    unsigned long long next;
+    memcpy(&next, &v, sizeof(next));
+    const unsigned long long seen = atomicCAS(q, cur, next);
+    if (seen == cur) break;
+    cur = seen;
+  }
+}
+
+struct SmemAdd {
+  float2* acc;
+  __device__ __forceinline__ void operator()(uint32_t k, float a,
+                                             float b) const {
+    smem_add2(acc + k, a, b);
+  }
+};
+
+// The span lives in the shared memory of the cluster's blocks, a quarter
+// each: entry k in block k >> HB_PART_BITS.
+struct ClusterAdd {
+  float2* acc;
+  __device__ __forceinline__ void operator()(uint32_t k, float a,
+                                             float b) const {
+    float2* dst = cg::this_cluster().map_shared_rank(acc, k >> HB_PART_BITS) +
+                  (k & (HB_PART - 1));
+    atomicAdd(&dst->x, a);
+    atomicAdd(&dst->y, b);
+  }
+};
+
+// Sums the points order[i_begin, i_end) of level l (geometry `row`) into
+// add: one point a thread, HB_THREADS at a time, warps kept converged for
+// warp_add. `seg_base` is the points' common page base on a paged level
+// (keys are then offsets in the page), 0 on a dense level.
+template <class Add>
+__device__ __forceinline__ void scatter_points(
+    const float2* __restrict__ g, const float* __restrict__ x,
+    const int* __restrict__ order, int i_begin, int i_end, int l, int levels,
+    const int row[HE_ROW], uint32_t seg_base, const Add& add) {
+  for (int i0 = i_begin; i0 < i_end; i0 += HB_THREADS) {
+    const int i = i0 + (int)threadIdx.x;
+    const bool on = i < i_end;
+    const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
+    if (!on) continue;
+    const int64_t p = order[i];
     const float xp[3] = {x[3 * p], x[3 * p + 1], x[3 * p + 2]};
     uint32_t idx[8];
     float w[8];
-    corner_geom(xp, (uint32_t)base[p], srows + l * HE_ROW, idx, w);
+    corner_geom(xp, seg_base, row, idx, w);
     const float2 gv = g[p * levels + l];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      atomicAdd(acc + 2 * idx[c], __fmul_rn(w[c], gv.x));
-      atomicAdd(acc + 2 * idx[c] + 1, __fmul_rn(w[c], gv.y));
-    }
-  }
-  __syncthreads();
-  float* dl = dtable + (int64_t)l * t * 2;
-  for (int i = threadIdx.x; i < span2; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(dl + i, v);
+    for (int c = 0; c < 8; ++c)
+      warp_add(active, idx[c] - seg_base, __fmul_rn(w[c], gv.x),
+               __fmul_rn(w[c], gv.y), add);
   }
 }
 
-// Morton span of a dense level's box (box_morton_span), 0 for hash levels.
-static int dense_span(const int* row) {
-  if (!row[1]) return 0;
-  int bits = 0;
-  for (int a = 0; a < 3; ++a) {
-    int b = 0;
-    while ((1 << b) < row[5 + a] + 2) ++b;
-    if (b > bits) bits = b;
+// 1. counts[seg] = points of each segment (seg = base >> 10); one global
+// atomic per segment a warp.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_count_kernel(const int* __restrict__ base, int n, int* __restrict__ counts) {
+  const int i = blockIdx.x * HB_THREADS + threadIdx.x;
+  const bool on = i < n;
+  const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
+  if (!on) return;
+  const int seg = base[i] / HE_PAGE_ENTRIES;
+  const unsigned peers = __match_any_sync(active, seg);
+  if ((threadIdx.x & 31u) == (unsigned)(__ffs(peers) - 1))
+    atomicAdd(counts + seg, __popc(peers));
+}
+
+// Exclusive prefix sum over the block (HB_PLAN_THREADS threads); `tot`
+// holds 33 ints of shared memory, *total gets the block's sum.
+__device__ int block_excl_scan(int v, int* tot, int* total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc += o;
   }
-  return 1 << (3 * bits);
+  if (lane == 31) tot[wid] = inc;
+  __syncthreads();
+  if (wid == 0) {
+    const int wv = tot[lane];
+    int wi = wv;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xFFFFFFFFu, wi, d);
+      if (lane >= d) wi += o;
+    }
+    tot[lane] = wi - wv;
+    if (lane == 31) tot[32] = wi;
+  }
+  __syncthreads();
+  const int excl = inc - v + tot[wid];
+  *total = tot[32];
+  __syncthreads();
+  return excl;
+}
+
+// 2. One block: segment starts (cursor), the chunk table (segment, first
+// sorted position, points, sole chunk of its segment), the segments split
+// into several chunks, and meta = (chunks, split segments).
+__global__ void __launch_bounds__(HB_PLAN_THREADS)
+hb_plan_kernel(const int* __restrict__ counts, int n_seg,
+               int* __restrict__ cursor, int4* __restrict__ chunks,
+               int* __restrict__ split, int* __restrict__ meta) {
+  __shared__ int tot[33];
+  int carry_p = 0, carry_c = 0, carry_s = 0;
+  for (int s0 = 0; s0 < n_seg; s0 += HB_PLAN_THREADS) {
+    const int s = s0 + (int)threadIdx.x;
+    const int cnt = s < n_seg ? counts[s] : 0;
+    const int nch = s < n_seg ? max(1, (cnt + HB_CHUNK - 1) / HB_CHUNK) : 0;
+    const int sp = cnt > HB_CHUNK ? 1 : 0;
+    int tp, tc, ts;
+    const int p0 = carry_p + block_excl_scan(cnt, tot, &tp);
+    const int c0 = carry_c + block_excl_scan(nch, tot, &tc);
+    const int k0 = carry_s + block_excl_scan(sp, tot, &ts);
+    if (s < n_seg) {
+      cursor[s] = p0;
+      for (int j = 0; j < nch; ++j)
+        chunks[c0 + j] = make_int4(s, p0 + j * HB_CHUNK,
+                                   min(HB_CHUNK, cnt - j * HB_CHUNK),
+                                   nch == 1 ? 1 : 0);
+      if (sp) split[k0] = s;
+    }
+    carry_p += tp;
+    carry_c += tc;
+    carry_s += ts;
+  }
+  if (threadIdx.x == 0) {
+    meta[0] = carry_c;
+    meta[1] = carry_s;
+  }
+}
+
+// 3. order[cursor[seg]++] = i; a warp's points of one segment keep their
+// lane order and take one global atomic.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_scatter_kernel(const int* __restrict__ base, int n, int* __restrict__ cursor,
+                  int* __restrict__ order) {
+  const int i = blockIdx.x * HB_THREADS + threadIdx.x;
+  const bool on = i < n;
+  const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
+  if (!on) return;
+  const int seg = base[i] / HE_PAGE_ENTRIES;
+  const unsigned peers = __match_any_sync(active, seg);
+  const unsigned lane = threadIdx.x & 31u;
+  const int leader = __ffs(peers) - 1;
+  int pos = 0;
+  if (lane == (unsigned)leader) pos = atomicAdd(cursor + seg, __popc(peers));
+  pos = __shfl_sync(peers, pos, leader);
+  order[pos + __popc(peers & ((1u << lane) - 1u))] = i;
+}
+
+// 4. Zero the pages of the split segments on every paged level; block =
+// split segment x paged level.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
+                     const int* __restrict__ meta, float2* __restrict__ dtable,
+                     int64_t t) {
+  const int li = blockIdx.x % paged.n;
+  const int k = blockIdx.x / paged.n;
+  if (k >= meta[1]) return;
+  float4* dst = reinterpret_cast<float4*>(
+      dtable + (int64_t)paged.level[li] * t +
+      (int64_t)split[k] * HE_PAGE_ENTRIES);
+  for (int i = threadIdx.x; i < HE_PAGE_ENTRIES / 2; i += HB_THREADS)
+    dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// 5. Paged levels: block = chunk x paged level (the levels of one chunk are
+// neighbours in launch order, so a point's cotangent row is read from
+// device memory once and from L2 after). One block a (chunk, level) keeps
+// ~46 short blocks an SM in flight; one block a chunk looping over the
+// levels measured slower (fewer blocks, each a chain of dependent levels).
+__global__ void __launch_bounds__(HB_THREADS)
+hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+               LevelRows rows, LevelSet paged, const int* __restrict__ order,
+               const int4* __restrict__ chunks, const int* __restrict__ meta,
+               float2* __restrict__ dtable, int levels, int64_t t) {
+  __shared__ __align__(16) float2 acc[HE_PAGE_ENTRIES];
+  __shared__ int srow[HE_ROW];
+  const int li = blockIdx.x % paged.n;
+  const int k = blockIdx.x / paged.n;
+  if (k >= meta[0]) return;
+  const int4 ch = chunks[k];
+  const int l = paged.level[li];
+  zero_smem(acc, HE_PAGE_ENTRIES);
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);  // its barrier also orders the zeroing
+  const uint32_t seg_base = (uint32_t)ch.x * HE_PAGE_ENTRIES;
+  scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
+                 SmemAdd{acc});
+  __syncthreads();
+  float2* dst = dtable + (int64_t)l * t + seg_base;
+  if (ch.w) {
+    const float4* a4 = reinterpret_cast<const float4*>(acc);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES / 2; i += HB_THREADS)
+      d4[i] = a4[i];
+  } else {
+    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS) {
+      const float2 v = acc[i];
+      if (v.x != 0.0f || v.y != 0.0f) red_add2(dst + i, v.x, v.y);
+    }
+  }
+}
+
+// 6. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
+// points x level (the levels of a slice neighbours in launch order); the
+// block's sums over the whole span go to its row of the level's partials.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+                LevelRows rows, LevelSet dense, const int* __restrict__ order,
+                float2* __restrict__ partials, int n, int levels) {
+  extern __shared__ __align__(16) float2 dacc[];
+  __shared__ int srow[HE_ROW];
+  const int di = blockIdx.x % dense.n;
+  const int b = blockIdx.x / dense.n;
+  const int l = dense.level[di], span = dense.span[di];
+  const int parts = dense.parts[di];
+  zero_smem(dacc, span);
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);
+  scatter_points(g, x, order, (int)((int64_t)n * b / parts),
+                 (int)((int64_t)n * (b + 1) / parts), l, levels, row, 0u,
+                 SmemAdd{dacc});
+  __syncthreads();
+  float4* out = reinterpret_cast<float4*>(partials + dense.offset[di] +
+                                          (int64_t)b * span);
+  const float4* a4 = reinterpret_cast<const float4*>(dacc);
+  for (int i = threadIdx.x; i < span / 2; i += HB_THREADS) out[i] = a4[i];
+}
+
+// 7. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c
+// of the sorted points (its blocks a quarter of it each) into the span,
+// which its HB_CLUSTER blocks hold a quarter each; each block then writes
+// its quarter to the cluster's row of the partials.
+__global__ void __cluster_dims__(HB_CLUSTER, 1, 1) __launch_bounds__(HB_THREADS)
+hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+               LevelRows rows, LevelSet wide, const int* __restrict__ order,
+               float2* __restrict__ partials, int n, int levels) {
+  extern __shared__ __align__(16) float2 wacc[];
+  __shared__ int srow[HE_ROW];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / HB_CLUSTER;
+  const int di = cid % wide.n;
+  const int c = cid / wide.n;
+  const int l = wide.level[di];
+  const int slices = wide.parts[di] * HB_CLUSTER;
+  const int s = c * HB_CLUSTER + rank;
+  zero_smem(wacc, HB_PART);
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);
+  cluster.sync();  // every quarter zeroed before any block adds to it
+  scatter_points(g, x, order, (int)((int64_t)n * s / slices),
+                 (int)((int64_t)n * (s + 1) / slices), l, levels, row, 0u,
+                 ClusterAdd{wacc});
+  cluster.sync();  // every add landed; no block exits while others add
+  float4* out = reinterpret_cast<float4*>(
+      partials + wide.offset[di] + (int64_t)c * HB_WIDE_SPAN +
+      (int64_t)rank * HB_PART);
+  const float4* a4 = reinterpret_cast<const float4*>(wacc);
+  for (int i = threadIdx.x; i < HB_PART / 2; i += HB_THREADS) out[i] = a4[i];
+}
+
+// 8. Dense rows: entry e < span = the sum of the level's partials, zero
+// beyond; block = tile of HB_REDUCE_TILE entries x dense level.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_reduce_kernel(const float2* __restrict__ partials, LevelSet dense,
+                 float2* __restrict__ dtable, int64_t t) {
+  const int di = blockIdx.x % dense.n;
+  const int64_t e = (int64_t)(blockIdx.x / dense.n) * HB_REDUCE_TILE +
+                    threadIdx.x;
+  if (e >= t) return;
+  const int span = dense.span[di];
+  float2 sum = make_float2(0.0f, 0.0f);
+  if (e < span) {
+    const float2* src = partials + dense.offset[di] + e;
+    for (int b = 0; b < dense.parts[di]; ++b) {
+      const float2 v = src[(int64_t)b * span];
+      sum.x = __fadd_rn(sum.x, v.x);
+      sum.y = __fadd_rn(sum.y, v.y);
+    }
+  }
+  dtable[(int64_t)dense.level[di] * t + e] = sum;
 }
 
 static int launch_args(const int* rows_host, int n, int levels,
@@ -230,8 +539,9 @@ static int launch_args(const int* rows_host, int n, int levels,
 }
 
 // C interface, bound with ctypes. Pointers are device pointers except
-// rows_host ([levels, 8] int32 on the host). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after each launch.
+// rows_host ([levels, 8] int32) and spans_host ([levels] int32) on the
+// host. Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after each launch.
 extern "C" int he_win_fwd(const void* table, const void* x, const void* base,
                           const int* rows_host, void* out, int n, int levels,
                           long long t, void* stream) {
@@ -246,45 +556,153 @@ extern "C" int he_win_fwd(const void* table, const void* x, const void* base,
   return (int)cudaGetLastError();
 }
 
+// Scratch sizes of the backward (ops/hash_encode_win.py::bwd_plan computes
+// the same): int32 work = chunk table (4 ints a chunk), counts, cursor,
+// meta (4), split segments, order; float2 partials = per dense level,
+// parts x span.
+static int64_t max_chunks(int n, int n_seg) {
+  return ((int64_t)n + HB_CHUNK - 1) / HB_CHUNK + n_seg;
+}
+
+static int64_t max_split(int n, int n_seg) {
+  const int64_t s = (int64_t)n / (HB_CHUNK + 1);
+  return s < n_seg ? s : n_seg;
+}
+
+#define HB_CHECK()                               \
+  do {                                           \
+    const int e_ = (int)cudaGetLastError();      \
+    if (e_) return e_;                           \
+  } while (0)
+
+// spans_host: per level 0 (paged) or the dense box's morton span, a power
+// of 8 <= HB_DENSE_SPAN or exactly HB_WIDE_SPAN. dense_parts: partial sums
+// (blocks) per dense level of span <= HB_DENSE_SPAN; wide_parts: clusters
+// per level of span HB_WIDE_SPAN.
 extern "C" int he_win_bwd(const void* g, const void* x, const void* base,
                           const int* rows_host, void* dtable, int n,
-                          int levels, long long t, void* stream) {
+                          int levels, long long t, const int* spans_host,
+                          void* work, long long work_ints, void* partials,
+                          long long partial_entries, int dense_parts,
+                          int wide_parts, void* stream) {
   LevelRows rows;
   int64_t total;
   unsigned blocks;
   int err = launch_args(rows_host, n, levels, &rows, &total, &blocks);
-  if (err || total == 0) return err;
-  DenseLevels dense;
-  memset(&dense, 0, sizeof(dense));
-  unsigned skip = 0;
-  int max_span = 0;
-  for (int l = 0; l < levels; ++l) {
-    const int span = dense_span(rows.v + l * HE_ROW);
-    if (span == 0 || span > HE_DENSE_SPAN || span > t) continue;
-    dense.level[dense.n] = l;
-    dense.span[dense.n] = span;
-    dense.n++;
-    skip |= 1u << l;
-    if (span > max_span) max_span = span;
-  }
+  if (err) return err;
+  if (t < HE_PAGE_ENTRIES || (t & (t - 1)) || dense_parts < 1 ||
+      wide_parts < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (skip != (levels == 32 ? 0xFFFFFFFFu : (1u << levels) - 1u)) {
-    he_bwd_kernel<<<blocks, HE_THREADS, 0, s>>>(
-        (const float2*)g, (const float*)x, (const int*)base, rows, skip,
-        (float2*)dtable, total, levels, (int64_t)t);
-    err = (int)cudaGetLastError();
-    if (err) return err;
+  if (n == 0)
+    return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8, s);
+  LevelSet paged, dense, wide, rowsets;
+  memset(&paged, 0, sizeof(paged));
+  memset(&dense, 0, sizeof(dense));
+  memset(&wide, 0, sizeof(wide));
+  int64_t part_off = 0;
+  int dense_max = 8;
+  for (int l = 0; l < levels; ++l) {
+    const int span = spans_host[l];
+    const bool flag = rows.v[l * HE_ROW + 1] != 0;
+    if (span == 0 && !flag) {
+      paged.level[paged.n++] = l;
+      continue;
+    }
+    const bool pow8 = span >= 8 && !(span & (span - 1)) &&
+                      (__builtin_ctz((unsigned)span) % 3) == 0;
+    if (!flag || !pow8 || span > t) return (int)cudaErrorInvalidValue;
+    LevelSet* set;
+    int parts;
+    if (span <= HB_DENSE_SPAN) {
+      set = &dense;
+      parts = dense_parts;
+      if (span > dense_max) dense_max = span;
+    } else if (span == HB_WIDE_SPAN) {
+      set = &wide;
+      parts = wide_parts;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    set->level[set->n] = l;
+    set->span[set->n] = span;
+    set->parts[set->n] = parts;
+    set->offset[set->n] = part_off;
+    set->n++;
+    part_off += (int64_t)parts * span;
   }
+  const int n_seg = (int)(t / HE_PAGE_ENTRIES);
+  const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
+  if (work_ints < 4 * n_chunks + 2 * (int64_t)n_seg + 4 + n_split + n ||
+      partial_entries < part_off)
+    return (int)cudaErrorInvalidValue;
+  int* w = (int*)work;
+  int4* chunks = (int4*)w;
+  int* counts = w + 4 * n_chunks;
+  int* cursor = counts + n_seg;
+  int* meta = cursor + n_seg;
+  int* split = meta + 4;
+  int* order = split + n_split;
+  float2* part = (float2*)partials;
+  const unsigned pt_blocks = (unsigned)((n + HB_THREADS - 1) / HB_THREADS);
+
+  // 1.-3. the counting sort by segment
+  err = (int)cudaMemsetAsync(counts, 0, sizeof(int) * n_seg, s);
+  if (err) return err;
+  hb_count_kernel<<<pt_blocks, HB_THREADS, 0, s>>>((const int*)base, n, counts);
+  HB_CHECK();
+  hb_plan_kernel<<<1, HB_PLAN_THREADS, 0, s>>>(counts, n_seg, cursor, chunks,
+                                               split, meta);
+  HB_CHECK();
+  hb_scatter_kernel<<<pt_blocks, HB_THREADS, 0, s>>>((const int*)base, n,
+                                                     cursor, order);
+  HB_CHECK();
+  // 4.-5. paged levels
+  if (paged.n) {
+    if (n_split) {
+      hb_zero_split_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0, s>>>(
+          paged, split, meta, (float2*)dtable, (int64_t)t);
+      HB_CHECK();
+    }
+    hb_page_kernel<<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
+        (const float2*)g, (const float*)x, rows, paged, order, chunks, meta,
+        (float2*)dtable, levels, (int64_t)t);
+    HB_CHECK();
+  }
+  // 6.-8. dense levels
   if (dense.n) {
-    dim3 grid((unsigned)((n + HE_DENSE_POINTS - 1) / HE_DENSE_POINTS),
-              (unsigned)dense.n);
-    he_bwd_dense_kernel<<<grid, HE_THREADS, 2 * max_span * sizeof(float),
-                          s>>>((const float2*)g, (const float*)x,
-                               (const int*)base, rows, dense, (float*)dtable,
-                               n, levels, (int64_t)t);
-    err = (int)cudaGetLastError();
+    hb_dense_kernel<<<(unsigned)(dense_parts * dense.n), HB_THREADS,
+                      (size_t)dense_max * sizeof(float2), s>>>(
+        (const float2*)g, (const float*)x, rows, dense, order, part, n,
+        levels);
+    HB_CHECK();
   }
-  return err;
+  if (wide.n) {
+    const size_t smem = (size_t)HB_PART * sizeof(float2);
+    err = (int)cudaFuncSetAttribute(
+        hb_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+    hb_wide_kernel<<<(unsigned)(wide_parts * HB_CLUSTER * wide.n), HB_THREADS,
+                     smem, s>>>((const float2*)g, (const float*)x, rows, wide,
+                                order, part, n, levels);
+    HB_CHECK();
+  }
+  memcpy(&rowsets, &dense, sizeof(rowsets));
+  for (int i = 0; i < wide.n; ++i) {
+    rowsets.level[rowsets.n] = wide.level[i];
+    rowsets.span[rowsets.n] = wide.span[i];
+    rowsets.parts[rowsets.n] = wide.parts[i];
+    rowsets.offset[rowsets.n] = wide.offset[i];
+    rowsets.n++;
+  }
+  if (rowsets.n) {
+    const int64_t tiles = (t + HB_REDUCE_TILE - 1) / HB_REDUCE_TILE;
+    hb_reduce_kernel<<<(unsigned)(tiles * rowsets.n), HB_THREADS, 0, s>>>(
+        part, rowsets, (float2*)dtable, (int64_t)t);
+    HB_CHECK();
+  }
+  return 0;
 }
 
 extern "C" const char* he_error_string(int err) {

@@ -23,6 +23,8 @@ the coords-major [3, N] transpose).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -248,13 +250,75 @@ def hash_encode_plain(table, x, resolutions, page_bounds=None,
 # the CUDA kernels
 # -----------------------------------------------------------------------------
 
+# The backward's schedule: compile-time constants of csrc/hash_encode_win.cu,
+# mirrored here to plan the launch and size its scratch.
+CHUNK_POINTS = 1024     # HB_CHUNK: points of one segment a page block takes
+DENSE_SMEM_SPAN = 4096  # HB_DENSE_SPAN: largest span one block sums (32 KB)
+WIDE_SPAN = DENSE_BOX_CAP   # HB_WIDE_SPAN: summed across a cluster of
+CLUSTER_BLOCKS = 4          # HB_CLUSTER blocks, a quarter each
+_SMS = 132              # the H100's multiprocessors: the dense grids fill them
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How `he_win_bwd` runs the table gradient of N points: per level the
+    regime's span (0: paged, its corners in the point's 1024-entry page;
+    else the dense box's morton span), the levels of each kernel, the
+    partial sums per dense level (`dense_parts` blocks per level of span <=
+    DENSE_SMEM_SPAN, `wide_parts` clusters per level of span WIDE_SPAN),
+    and the scratch sizes."""
+    spans: tuple
+    paged: tuple
+    dense: tuple
+    wide: tuple
+    dense_parts: int
+    wide_parts: int
+    work_ints: int
+    partial_entries: int
+
+
+def bwd_plan(rows, n: int, t: int) -> BwdPlan:
+    """The launch plan of the backward for level rows (`level_scalars`), N
+    points and table size t, as the CUDA source expects it (cached: the
+    trainer asks for the same plan twice a step)."""
+    return _bwd_plan(tuple(tuple(int(v) for v in r) for r in rows), int(n),
+                     int(t))
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_plan(rows, n, t):
+    spans = tuple(box_morton_span(r[5:8]) if r[1] else 0 for r in rows)
+    paged = tuple(l for l, s in enumerate(spans) if s == 0)
+    dense = tuple(l for l, s in enumerate(spans) if 0 < s <= DENSE_SMEM_SPAN)
+    wide = tuple(l for l, s in enumerate(spans) if s > DENSE_SMEM_SPAN)
+    if any(spans[l] != WIDE_SPAN for l in wide) or max(spans) > t:
+        raise ValueError(f"dense spans {spans} do not fit table size {t}")
+    # enough blocks to fill the card (4 dense blocks or 2 cluster blocks an
+    # SM), each at least 2048 (dense) or 1024 (cluster) points
+    dense_parts = max(1, min(-(-4 * _SMS // max(len(dense), 1)),
+                             -(-n // 2048)))
+    wide_parts = max(1, min(-(-2 * _SMS // (CLUSTER_BLOCKS
+                                           * max(len(wide), 1))),
+                            -(-n // (1024 * CLUSTER_BLOCKS))))
+    n_seg = n_segments(t)
+    max_chunks = -(-n // CHUNK_POINTS) + n_seg
+    max_split = min(n_seg, n // (CHUNK_POINTS + 1))
+    return BwdPlan(
+        spans=spans, paged=paged, dense=dense, wide=wide,
+        dense_parts=dense_parts, wide_parts=wide_parts,
+        work_ints=4 * max_chunks + 2 * n_seg + 4 + max_split + n,
+        partial_entries=(dense_parts * sum(spans[l] for l in dense)
+                         + wide_parts * WIDE_SPAN * len(wide)))
+
+
 def _lib():
     lib = cuda_build.load("hash_encode_win")
     if not getattr(lib, "_he_typed", False):
-        args = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_longlong, ctypes.c_void_p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.he_win_fwd.argtypes = [p] * 5 + [i, i, ll, p]
+        lib.he_win_bwd.argtypes = ([p] * 5 + [i, i, ll] + [p, p, ll, p, ll]
+                                   + [i, i, p])
         for fn in (lib.he_win_fwd, lib.he_win_bwd):
-            fn.argtypes = args
             fn.restype = ctypes.c_int
         lib.he_error_string.argtypes = [ctypes.c_int]
         lib.he_error_string.restype = ctypes.c_char_p
@@ -262,9 +326,11 @@ def _lib():
     return lib
 
 
-def _launch(fn_name: str, src, x, base, rows, dst, levels: int, t: int):
+def _launch(fn_name: str, src, x, base, rows, dst, levels: int, t: int,
+            *extra):
     """Validate the point inputs, then launch `fn_name` on the current
-    stream and raise on a launch error."""
+    stream (`extra`: the backward's plan arguments) and raise on a launch
+    error."""
     n = x.shape[0]
     if not (x.is_cuda and base.is_cuda and src.device == x.device == base.device):
         raise ValueError("kernel inputs must be CUDA tensors on one device")
@@ -285,7 +351,7 @@ def _launch(fn_name: str, src, x, base, rows, dst, levels: int, t: int):
     err = getattr(lib, fn_name)(
         src.data_ptr(), x.data_ptr(), base.data_ptr(),
         ctypes.cast(rows_c, ctypes.c_void_p), dst.data_ptr(), n, levels, t,
-        stream)
+        *extra, stream)
     if err:
         raise RuntimeError(f"{fn_name} launch failed: "
                            f"{lib.he_error_string(err).decode()}")
@@ -313,16 +379,26 @@ def hash_encode_win_fwd_kernel(table, x, base, rows):
 
 
 def hash_encode_win_bwd_kernel(g, x, base, rows, table_shape):
-    """One launch of the backward (its direct kernel, and the shared-memory
-    kernel for coarse dense levels): the [L, T, 2] f32 table gradient of the
-    encode for cotangent g [N, L*2]."""
+    """One call of the backward (`he_win_bwd`: the counting sort by
+    segment, then the page, dense and cluster kernels of `bwd_plan`): the
+    [L, T, 2] f32 table gradient of the encode for cotangent g [N, L*2].
+    Every entry is written by a kernel, so nothing is zero-filled here."""
     l, t, _ = table_shape
-    if g.shape != (x.shape[0], 2 * l):
-        raise ValueError(f"cotangent must be [{x.shape[0]}, {2 * l}], got "
+    n = x.shape[0]
+    if g.shape != (n, 2 * l):
+        raise ValueError(f"cotangent must be [{n}, {2 * l}], got "
                          f"{tuple(g.shape)}")
     g = g.to(torch.float32).contiguous()
-    dtable = torch.zeros(table_shape, dtype=torch.float32, device=g.device)
-    _launch("he_win_bwd", g, x, base, rows, dtable, l, t)
+    plan = bwd_plan(rows, n, t)
+    dtable = torch.empty(table_shape, dtype=torch.float32, device=g.device)
+    work = torch.empty(plan.work_ints, dtype=torch.int32, device=g.device)
+    partials = torch.empty((max(plan.partial_entries, 1), 2),
+                           dtype=torch.float32, device=g.device)
+    spans_c = (ctypes.c_int * l)(*plan.spans)
+    _launch("he_win_bwd", g, x, base, rows, dtable, l, t,
+            ctypes.cast(spans_c, ctypes.c_void_p), work.data_ptr(),
+            work.numel(), partials.data_ptr(), plan.partial_entries,
+            plan.dense_parts, plan.wide_parts)
     launches["bwd"] += 1
     return dtable
 
