@@ -41,17 +41,23 @@ Phases, each fatal on failure (no phase's error is caught):
      backward) against their plain version at three shapes, on the 262,144
      points of phase 3: (a) the instant-NGP (dense / XOR-prime) index at
      16 x 2^19 x 2, (b) the same at 2^12, where `auto` takes it and the
-     backward stages whole levels in shared memory, (c) the windowed index
-     at 2^19 through `hash_encode_win`; time kernel, plain version, the
-     backward's other designs (global atomics alone; the shared map where
-     the default stages whole levels) and the yardsticks: `embedding_bag`
-     with per-sample weights for the forward, its autograd backward and
-     `index_add_` of the precomputed w * g for the backward;
+     backward stages whole levels in shared memory, both with the corners
+     read from idx / w (idx mode) and rebuilt from the points (points mode:
+     the forward bit-equal to idx mode's, `hash_encode_ngp_fused` reaching
+     both kernels), (c) the windowed index at 2^19 through
+     `hash_encode_win` (idx mode); the card's instant-NGP indices equal to
+     the CPU's; print the census of (a)'s scatter (a JSON line: per level
+     dense or hashed, distinct entries, contributions per entry, distinct
+     entries per block of 1,024 and 4,096 points); time kernels, plain
+     version and the yardsticks: `embedding_bag` with per-sample weights
+     for the forward, its autograd backward and `index_add_` of the
+     precomputed w * g for the backward (idx mode; points mode has none);
  10. the XOR-prime hash arm of the main path: `Trainer` at
      `Config(prepare=True, hash_impl="mxu", llffhold=8, i_feat=200,
      i_testset=200)` (16 x 2^19 x 2, bf16 MLPs, 1024 rays x 64+64 samples)
      on the scene with its ball masks: steps 1-199 without hooks (launch
-     counts set to 0 just before), then step 200 through the Trainer's own
+     counts set to 0 just before; points-mode kernels at least twice a
+     step, idx-mode kernels never), then step 200 through the Trainer's own
      testset hook and prepare dump (timed), the dump's PNGs checked, and the
      held-out view rendered;
  11. hold the v1 fused MLP kernels (`fused_mlp`: encodings computed outside,
@@ -73,7 +79,8 @@ Phases, each fatal on failure (no phase's error is caught):
      the reference's DS-NeRF prepare configuration (factor 2, COLMAP sparse
      depth with the depth loss, lindisp, white background, density noise,
      hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory,
-     phase 3's census and backward check run on its points, and it
+     phase 3's census and backward check and phase 9's instant-NGP
+     census run on its points, and it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
      decoded with the port's reader.
@@ -199,6 +206,46 @@ def scatter_census(tag, x, res, t, bounds, boxes):
                                "max": int(per_seg.max()),
                                "empty": int((per_seg == 0).sum())},
         "levels": levels}}))
+    del idx
+
+
+def ngp_census(tag, x, res, t):
+    """The instant-NGP index's scatter on points x at table size t, level by
+    level (one JSON line): dense or hashed, the distinct table entries the
+    corners touch, the mean and largest number of (point, corner)
+    contributions per touched entry, the share of (point, corner) pairs
+    whose entry equals the previous point's (what a warp's pre-sum can
+    merge), and the distinct entries of a block of 1,024 and of 4,096
+    consecutive points (mean, largest)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    idx, _ = he.corner_indices_weights_ngp(x, res, t)
+    n = x.shape[0]
+    levels = []
+    for l, r in enumerate(res):
+        keys = idx[l]                                        # [8, N]
+        u, c = torch.unique(keys.reshape(-1), return_counts=True)
+        row = {"level": l, "res": int(r),
+               "regime": "dense" if he.level_is_dense(r, t) else "hashed",
+               "distinct": int(u.numel()),
+               "mean_per_entry": round(float(c.double().mean()), 2),
+               "max_per_entry": int(c.max()),
+               "adjacent_equal": round(float(
+                   (keys[:, 1:] == keys[:, :-1]).double().mean()), 4)}
+        for p in (1024, 4096):
+            nb = n // p
+            if not nb:
+                continue
+            blk = (keys[:, :nb * p].reshape(8, nb, p).permute(1, 0, 2)
+                   .reshape(nb, 8 * p))
+            s = torch.sort(blk, dim=1).values
+            d = (s[:, 1:] != s[:, :-1]).sum(1) + 1
+            row[f"distinct_per_{p}"] = [round(float(d.double().mean()), 1),
+                                        int(d.max())]
+        levels.append(row)
+    log(json.dumps({"census_ngp": {"points": tag, "n": int(n), "t": int(t),
+                                   "levels": levels}}))
     del idx
 
 
@@ -800,11 +847,17 @@ def render_held_out(trainer, pose, gt_rgb, tag):
         raise AssertionError("held-out PSNR is not finite")
 
 
-def compare_idx_shape(tag, table, idx, w, plain, entry, g):
-    """Phase 9, one shape: the index-gather kernels against `plain` (table,
-    idx, w) -> [N, L*2]-compatible output; `entry` is the autograd entry
-    point that must reach the kernels. Returns (forward error, backward
-    error, times in ms, bound terms)."""
+def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
+                      x=None, res=None):
+    """Phase 9, one shape: the index-gather kernels with corners from idx / w
+    (idx mode) against `plain` (table, idx, w) -> [N, L*2]-compatible
+    output; `entry` is the autograd entry point that must reach them (its
+    launches are added to `entry_launches`; the checks and the timing call
+    the kernels directly). With
+    points x and resolutions `res` (the instant-NGP index), points mode too:
+    its forward bit-equal to idx mode's, its backward and its autograd
+    entry `hash_encode_ngp_fused` held as idx mode's are. Returns (errors,
+    times in ms, bound terms), keyed by mode."""
     import torch
 
     from spinnerf_tpu_torch.ops import hash_encode as he
@@ -816,14 +869,15 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g):
     out_k = he.hash_encode_idx_fwd_kernel(table, idx32, w)
     out_p = plain(table, idx, w).reshape(n, l, 2)
     torch.cuda.synchronize()
-    fwd_err = float((out_k - out_p).abs().max())
-    fwd_rel = fwd_err / float(out_p.abs().max())
+    err = {"fwd": float((out_k - out_p).abs().max())}
+    fwd_rel = err["fwd"] / float(out_p.abs().max())
 
     # backward against the plain version evaluated in float64
     tab64 = table.double().requires_grad_()
     out64 = plain(tab64, idx, w)
     (dtab_64,) = torch.autograd.grad(out64, tab64,
                                      g3.double().reshape(out64.shape))
+    del tab64, out64
     scale = float(dtab_64.abs().max())
 
     def bwd_rel(d):
@@ -835,31 +889,38 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g):
     g_p = g3.reshape(out_g.shape)
     (dtab_p,) = torch.autograd.grad(out_g, tab, g_p, retain_graph=True)
     torch.cuda.synchronize()
-    bwd_err = float((dtab_k.double() - dtab_64).abs().max())
+    err["bwd"] = float((dtab_k.double() - dtab_64).abs().max())
     log(f"[idx kernels {tag}] L={l} T={t} N={n}: fwd max|kernel - plain| = "
-        f"{fwd_err:.3e} (relative {fwd_rel:.3e}, bound 1e-6); bwd max|kernel "
-        f"- plain f64| = {bwd_err:.3e} (relative {bwd_rel(dtab_k):.3e}, bound "
-        f"1e-5); plain f32 relative {bwd_rel(dtab_p):.3e}; max|dtable| "
-        f"{scale:.3e}")
+        f"{err['fwd']:.3e} (relative {fwd_rel:.3e}, bound 1e-6); bwd "
+        f"max|kernel - plain f64| = {err['bwd']:.3e} (relative "
+        f"{bwd_rel(dtab_k):.3e}, bound 1e-5); plain f32 relative "
+        f"{bwd_rel(dtab_p):.3e}; max|dtable| {scale:.3e}")
     if not (torch.isfinite(out_k).all() and fwd_rel <= 1e-6):
         raise AssertionError(f"{tag}: forward kernel disagrees with plain")
     if not (torch.isfinite(dtab_k).all() and bwd_rel(dtab_k) <= 1e-5):
         raise AssertionError(f"{tag}: backward kernel disagrees with plain")
+    del dtab_p
 
-    # the autograd entry point on CUDA tensors goes through the kernels
-    launched = dict(he.launches)
-    tab2 = table.clone().requires_grad_()
-    out_a = entry(tab2, idx, w)
-    out_a.backward(g3.reshape(out_a.shape))
-    if (he.launches["fwd"] != launched["fwd"] + 1
-            or he.launches["bwd"] != launched["bwd"] + 1):
-        raise AssertionError(f"{tag}: the entry point missed the kernels")
-    if not torch.equal(out_a.detach().reshape(n, l, 2), out_k):
-        raise AssertionError(f"{tag}: autograd forward differs from kernel")
-    if bwd_rel(tab2.grad) > 1e-5:
-        raise AssertionError(f"{tag}: autograd backward out of bound")
-    del tab64, out64, tab2, out_a
+    def hold_entry(fn, keys, *args):
+        """The autograd entry point `fn` on CUDA tensors launches the
+        forward and backward kernels counted under `keys` once each; its
+        output equals the forward kernel's, its gradient is in bound."""
+        launched = dict(he.launches)
+        tab2 = table.clone().requires_grad_()
+        out_a = fn(tab2, *args)
+        out_a.backward(g3.reshape(out_a.shape))
+        if any(he.launches[k] != launched[k] + 1 for k in keys):
+            raise AssertionError(f"{tag}: {fn.__name__} missed the kernels")
+        if not torch.equal(out_a.detach().reshape(n, l, 2), out_k):
+            raise AssertionError(f"{tag}: {fn.__name__} forward differs "
+                                 f"from the kernel")
+        if bwd_rel(tab2.grad) > 1e-5:
+            raise AssertionError(f"{tag}: {fn.__name__} backward out of "
+                                 f"bound")
+        for k in keys:
+            entry_launches[k] += 1
 
+    hold_entry(entry, ("fwd", "bwd"), idx, w)
     ms = {"fwd": cuda_ms(lambda: he.hash_encode_idx_fwd_kernel(table, idx32,
                                                                w)),
           "bwd": cuda_ms(lambda: he.hash_encode_idx_bwd_kernel(
@@ -867,19 +928,7 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g):
           "plain_fwd": cuda_ms(lambda: plain(table, idx, w)),
           "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
               out_g, tab, g_p, retain_graph=True))}
-    # the backward's other designs, timed beside the default: global atomics
-    # alone, and (where the default stages whole levels) the shared map
-    variants = ["atomic"] + (["map"] if t <= 8192 else [])
-    for v in variants:
-        d = he.hash_encode_idx_bwd_kernel(g3, idx32, w, table.shape, v)
-        torch.cuda.synchronize()
-        ms[f"bwd_{v}_rel"] = bwd_rel(d)
-        ms[f"bwd_{v}"] = cuda_ms(lambda: he.hash_encode_idx_bwd_kernel(
-            g3, idx32, w, table.shape, v))
-    log(f"[idx kernels {tag}] bwd designs: " + ", ".join(
-        f"{v} {ms[f'bwd_{v}']:.4f} ms (relative {ms[f'bwd_{v}_rel']:.3e})"
-        for v in variants) + f"; default {ms['bwd']:.4f} ms")
-    del out_g, tab, dtab_p
+    del out_g, tab
 
     # the yardsticks, one PyTorch call each, on flat indices into the
     # [L*T, 2] table laid out before the timed region: the forward as
@@ -929,74 +978,152 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g):
     corner_bytes = idx32.numel() * 4 + w.numel() * 4
     bound = {"fwd": (corner_bytes + n * l * 8 + touched * 8, n * l * 32),
              "bwd": (corner_bytes + n * l * 8 + l * t * 8, n * l * 32)}
-    return fwd_err, bwd_err, ms, bound
+    if x is None:
+        return err, ms, bound
+
+    # points mode: the corners rebuilt from x in the kernels
+    plan = he.bwd_plan(tuple(res), t)
+    out_x = he.hash_encode_ngp_fwd_kernel(table, x, res)
+    dtab_x = he.hash_encode_ngp_bwd_kernel(g3, x, res, table.shape)
+    torch.cuda.synchronize()
+    err["fwd_pts"] = float((out_x - out_p).abs().max())
+    err["bwd_pts"] = float((dtab_x.double() - dtab_64).abs().max())
+    log(f"[idx kernels {tag}] points mode: fwd bit-equal to idx mode "
+        f"{torch.equal(out_x, out_k)}; bwd max|kernel - plain f64| = "
+        f"{err['bwd_pts']:.3e} (relative {bwd_rel(dtab_x):.3e}, bound 1e-5); "
+        f"plan regime {plan.regime}, points {plan.points}, size {plan.size}")
+    if not torch.equal(out_x, out_k):
+        raise AssertionError(f"{tag}: points-mode forward differs from idx "
+                             f"mode's")
+    if not (torch.isfinite(dtab_x).all() and bwd_rel(dtab_x) <= 1e-5):
+        raise AssertionError(f"{tag}: points-mode backward disagrees with "
+                             f"plain")
+    hold_entry(he.hash_encode_ngp_fused, ("fwd_pts", "bwd_pts"), x, res)
+    del dtab_x, dtab_64
+    ms["fwd_pts"] = cuda_ms(lambda: he.hash_encode_ngp_fwd_kernel(table, x,
+                                                                  res))
+    ms["bwd_pts"] = cuda_ms(lambda: he.hash_encode_ngp_bwd_kernel(
+        g3, x, res, table.shape))
+    # the backward's regimes apart: the same kernel (zero fill included) on
+    # the levels of each regime alone
+    for name, code in (("staged", he.STAGED), ("map", he.MAP),
+                       ("direct", he.DIRECT)):
+        lv = [i for i, r in enumerate(plan.regime) if r == code]
+        if lv:
+            g_lv = g3[:, lv].contiguous()
+            res_lv = tuple(res[i] for i in lv)
+            ms[f"bwd_pts_{name}"] = cuda_ms(
+                lambda: he.hash_encode_ngp_bwd_kernel(g_lv, x, res_lv,
+                                                      (len(lv), t, 2)))
+            log(f"[idx kernels {tag}] points-mode bwd, {name} levels {lv} "
+                f"alone: {ms[f'bwd_pts_{name}']:.4f} ms")
+    # its plain version: the index function, then the gather and blend
+
+    def plain_pts(tb):
+        return he.hash_encode_xla(tb, *he.corner_indices_weights_ngp(x, res,
+                                                                    t))
+
+    tab = table.clone().requires_grad_()
+    out_g = plain_pts(tab)
+    ms["plain_fwd_pts"] = cuda_ms(lambda: plain_pts(table))
+    ms["plain_bwd_pts"] = cuda_ms(lambda: torch.autograd.grad(
+        out_g, tab, g3, retain_graph=True))
+    del out_g, tab
+    # points mode's least time: x, not the corners; 32 flops a (point,
+    # level) as above, and the index's ~130 integer and float operations
+    pts_ops = n * l * (32 + 130)
+    bound["fwd_pts"] = (n * 12 + n * l * 8 + touched * 8, pts_ops)
+    bound["bwd_pts"] = (n * 12 + n * l * 8 + l * t * 8, pts_ops)
+    log(f"[idx kernels {tag}] points mode: fwd {ms['fwd_pts']:.4f} ms "
+        f"(idx mode {ms['fwd']:.4f}), bwd {ms['bwd_pts']:.4f} ms (idx mode "
+        f"{ms['bwd']:.4f}); library: no single PyTorch call computes the "
+        f"encode from the points")
+    return err, ms, bound
 
 
 def compare_idx_kernels(x, geom):
     """Phase 9: the index-gather kernels at (a) 16 x 2^19 x 2 with the
-    instant-NGP index, (b) the same at 2^12, (c) the windowed index at 2^19.
-    `geom` carries the default field's resolutions and calibration. Returns
-    the records of shape (a), the main path's (without launch counts)."""
+    instant-NGP index, (b) the same at 2^12, both in idx and in points
+    mode, (c) the windowed index at 2^19 in idx mode; the census of (a)'s
+    scatter. `geom` carries the default field's resolutions and
+    calibration. Returns the records of shape (a) (points mode: the main
+    path's; idx mode: launch counts from this phase's entry points)."""
     import torch
 
-    from spinnerf_tpu_torch.models.hashgrid import HashGridEncoding
     from spinnerf_tpu_torch.ops import hash_encode as he
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
     dev = x.device
-    l = len(geom["res"])
+    res = geom["res"]
+    l = len(res)
     g = torch.randn((N_POINTS, 2 * l), generator=torch.Generator()
                     .manual_seed(7)).to(dev)
+    ngp_census("phase 3", x, res, 1 << 19)
+    entry_launches = dict.fromkeys(he.launches, 0)
     results = {}
     for tag, log2t in (("a: XOR 2^19", 19), ("b: XOR 2^12", 12)):
-        enc = HashGridEncoding(n_levels=l, log2_table_size=log2t,
-                               base_res=geom["base_res"],
-                               finest_res=geom["finest_res"], impl="mxu",
-                               device=dev)
-        idx, w = enc.corner_indices_weights(x)
+        idx, w = he.corner_indices_weights_ngp(x, res, 1 << log2t)
         # the card's int32 index arithmetic against the CPU's, bit for bit
-        idx_c, w_c = enc.corner_indices_weights(x[:8192].cpu())
+        idx_c, w_c = he.corner_indices_weights_ngp(x[:8192].cpu(), res,
+                                                   1 << log2t)
         if not (torch.equal(idx[..., :8192].cpu(), idx_c)
                 and torch.equal(w[..., :8192].cpu(), w_c)):
             raise AssertionError(f"{tag}: corner indices differ from the CPU")
-        del enc
         table = torch.randn((l, 1 << log2t, 2), generator=torch.Generator()
                             .manual_seed(8)).to(dev)
         results[tag] = compare_idx_shape(tag, table, idx, w,
                                          he.hash_encode_xla,
-                                         he.hash_encode_mxu, g)
+                                         he.hash_encode_mxu, g,
+                                         entry_launches, x, res)
         del idx, w, table
     t = 1 << 19
-    idx, w = hw.corner_indices_weights_win(x, geom["res"], t,
-                                           geom["bounds"], geom["boxes"])
+    idx, w = hw.corner_indices_weights_win(x, res, t, geom["bounds"],
+                                           geom["boxes"])
     table = torch.randn((l, t, 2), generator=torch.Generator()
                         .manual_seed(9)).to(dev)
     compare_idx_shape("c: windowed 2^19", table, idx, w,
-                      hw.hash_encode_exact, hw.hash_encode_win, g)
+                      hw.hash_encode_exact, hw.hash_encode_win, g,
+                      entry_launches)
     del idx, w, table
     torch.cuda.empty_cache()
 
-    fwd_err, bwd_err, ms, bound = results["a: XOR 2^19"]
+    err, ms, bound = results["a: XOR 2^19"]
     records = []
-    for k, lines, err in (("fwd", (78, 316), fwd_err),
-                          ("bwd", (113, 359), bwd_err)):
+    for name, k, lines, lib in (
+            ("hash_encode_ngp_fwd", "fwd_pts", ":78", None),
+            ("hash_encode_ngp_bwd", "bwd_pts", ":113", None),
+            ("hash_encode_idx_fwd", "fwd", ":78, spinnerf_tpu/ops/"
+             "hash_encode_win.py:316", "lib_fwd"),
+            ("hash_encode_idx_bwd", "bwd", ":113, spinnerf_tpu/ops/"
+             "hash_encode_win.py:359", "lib_bwd")):
         nbytes, ops = bound[k]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_OPS_PER_S * 1e3
         records.append({
-            "name": f"hash_encode_idx_{k}", "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "spinnerf_tpu_torch/csrc/hash_encode_idx.cu",
-            "replaces": (f"spinnerf_tpu/ops/hash_encode.py:{lines[0]}, "
-                         f"spinnerf_tpu/ops/hash_encode_win.py:{lines[1]}"),
-            "max_abs_err": err, "ms": ms[k], "plain_ms": ms[f"plain_{k}"],
+            "replaces": f"spinnerf_tpu/ops/hash_encode.py{lines}",
+            "max_abs_err": err[k], "ms": ms[k],
+            "plain_ms": ms[f"plain_{k}"],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": ms[f"lib_{k}"]})
-    # the backward's second yardstick: embedding_bag's autograd backward
-    records[1]["embedding_bag_bwd_ms"] = ms["lib_bag_bwd"]
-    log(f"[idx kernels] shape a bound: fwd {records[0]['bound_ms']:.4f} ms "
-        f"({bound['fwd'][0]:.4e} bytes), bwd {records[1]['bound_ms']:.4f} ms "
-        f"({bound['bwd'][0]:.4e} bytes); library: embedding_bag (fwd), "
-        f"index_add_ (bwd)")
+            "library_ms": ms[lib] if lib else None})
+    # idx mode is on no main path: its launches are those of this phase's
+    # calls of its entry points (a, b, c); the backward's second yardstick
+    for r, k in zip(records[2:], ("fwd", "bwd")):
+        r.update(launches=entry_launches[k], launches_from="phase 9's "
+                 "hash_encode_mxu (a, b) and hash_encode_win (c)")
+    records[3]["embedding_bag_bwd_ms"] = ms["lib_bag_bwd"]
+    b = results["b: XOR 2^12"][1]
+    records[0]["ms_2_12"], records[1]["ms_2_12"] = b["fwd_pts"], b["bwd_pts"]
+    records[1]["regime_ms"] = {k[8:]: v for k, v in ms.items()
+                               if k.startswith("bwd_pts_")}
+    log(f"[idx kernels] shape a bound: points mode fwd "
+        f"{records[0]['bound_ms']:.4f} ms ({bound['fwd_pts'][0]:.4e} bytes), "
+        f"bwd {records[1]['bound_ms']:.4f} ms ({bound['bwd_pts'][0]:.4e} "
+        f"bytes); idx mode fwd {records[2]['bound_ms']:.4f} ms "
+        f"({bound['fwd'][0]:.4e} bytes), bwd {records[3]['bound_ms']:.4f} "
+        f"ms ({bound['bwd'][0]:.4e} bytes); library: embedding_bag (idx "
+        f"fwd), index_add_ (idx bwd), none (points mode)")
     return records
 
 
@@ -1026,7 +1153,7 @@ def xor_arm(scene, held_pose, held_rgb, common, argv):
         raise AssertionError("the XOR arm is not the 16 x 2^19 x 2 mxu field")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    he.launches.update(fwd=0, bwd=0)
+    he.launches.update(fwd=0, bwd=0, fwd_pts=0, bwd_pts=0)
     psnr_1 = float(tr.fit(1, hooks=False)["psnr"])
     tr.fit(10, hooks=False)
     torch.cuda.synchronize()
@@ -1061,10 +1188,14 @@ def xor_arm(scene, held_pose, held_rgb, common, argv):
         raise AssertionError("loss is not finite")
     if not psnr_end > psnr_1:
         raise AssertionError("PSNR did not rise")
-    for k in ("fwd", "bwd"):
+    # the field rebuilds its corners in the kernels: points mode only
+    for k in ("fwd_pts", "bwd_pts"):
         if timed_counts[k] < 2 * (STEPS - 1):
-            raise AssertionError(f"idx {k} kernel launched {timed_counts[k]} "
+            raise AssertionError(f"{k} kernel launched {timed_counts[k]} "
                                  f"times in {STEPS - 1} steps")
+    if timed_counts["fwd"] or timed_counts["bwd"]:
+        raise AssertionError(f"idx-mode kernels launched in steps 1-"
+                             f"{STEPS - 1}: {timed_counts}")
 
     # the dump: one PNG per view and per mask, 336 x 252 8-bit grayscale
     out = tr.exp_dir / "lama_input"
@@ -1423,6 +1554,7 @@ def disk_arm(exp_root, argv):
     x = fine_pass_points(tr)
     scatter_census("disk", x, enc.resolutions, enc.table.shape[1],
                    enc.bounds, enc._boxes)
+    ngp_census("disk", x, enc.resolutions, enc.table.shape[1])
     table, g = hash_inputs(enc.table.shape, tr.device)
     held = hold_bwd("disk", x, enc.resolutions, enc.bounds, enc._boxes,
                     table, g)
@@ -1522,9 +1654,12 @@ def profile_steps(trainer, step_ms, n_steps=5):
         "step_ms_unprofiled": step_ms,
         "device_busy_share": device_ms / step_ms,
         "top": [entry(*r) for r in rows[:15]],
-        # every kernel of the windowed hash encode (#1, #2), however small
+        # every kernel of the windowed hash encode (#1, #2) and of the
+        # index-gather encode (#3-#6), however small
         "hash_encode_win": [entry(*r) for r in rows
-                            if r[1].startswith(("he_", "hb_"))]}}))
+                            if r[1].startswith(("he_", "hb_"))],
+        "hash_encode_idx": [entry(*r) for r in rows
+                            if r[1].startswith(("hi_", "void hi_"))]}}))
 
 
 def main(argv):
@@ -1644,8 +1779,8 @@ def main(argv):
         r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]
     for r in mlp_records:
         r["launches"] = mlp_counts[r["name"].rsplit("_", 1)[1]]
-    for r in idx_records:
-        r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1]]
+    for r in idx_records[:2]:    # points mode; idx mode counts in phase 9
+        r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1] + "_pts"]
     log(f"[launches] the disk arm's hash kernels: {disk_counts}")
     log(json.dumps({"kernels": records + mlp_records + idx_records
                     + v1_records + [cal_record]}))

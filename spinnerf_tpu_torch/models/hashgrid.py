@@ -13,9 +13,9 @@ Two index functions, as in the JAX package (`impl`):
   here);
 - "mxu" / "xla": the reference's instant-NGP index (dense where the level's
   grid fits the table, else the XOR-prime hash, `corner_indices_weights`)
-  through `ops/hash_encode.py::hash_encode_mxu`, the index-gather CUDA
-  kernels on the card (both impls mean that here). Both compute the f32
-  blend and cast it to `compute_dtype`.
+  through `ops/hash_encode.py::hash_encode_ngp_fused`, whose CUDA kernels
+  rebuild the index from the points on the card (both impls mean that
+  here). Both compute the f32 blend and cast it to `compute_dtype`.
 "auto" is "win" for tables of 2^13 entries and more, else "mxu" (the JAX
 package's choice on a TPU). On the CPU every impl takes its plain version.
 """
@@ -33,8 +33,6 @@ from spinnerf_tpu_torch.models.embedding import sh_encoding
 from spinnerf_tpu_torch.ops import hash_encode as he
 from spinnerf_tpu_torch.ops import hash_encode_win as hw
 
-_PRIMES = (1, 2654435761, 805459861)
-_P1_INT32 = _PRIMES[1] - (1 << 32)    # the bit pattern of p1 as an int32
 _WIN_IMPLS = ("win", "win_xla")
 _IDX_IMPLS = ("mxu", "xla")
 
@@ -175,38 +173,8 @@ class HashGridEncoding(nn.Module):
         The integers are int32: products wrap modulo 2^32 and XOR and the
         mask act on the bits, so the low 32 bits are the uint32 results (the
         linear index of a dense level never wraps: (r+2)^3 < 2^31)."""
-        t = 1 << self.log2_table_size
-        res = self.resolutions
-        n = x.shape[0]
-        scales = torch.tensor(res, dtype=x.dtype, device=x.device)
-        xs = scales[:, None, None] * x.T[None]               # [L, 3, N]
-        x0f = torch.floor(xs)
-        frac = xs - x0f
-        x0 = x0f.to(torch.int32)
-        # per axis: [L, 2, N] for the offsets 0 and 1
-        cx, cy, cz = (torch.stack([x0[:, a], x0[:, a] + 1], dim=1)
-                      for a in range(3))
-        # resolutions grow with the level, so the dense levels lead
-        nd = sum((r + 1) ** 3 <= t for r in res)
-        parts = []
-        if nd:
-            r1 = torch.tensor([r + 1 for r in res[:nd]], dtype=torch.int32,
-                              device=x.device)[:, None, None]
-            parts.append((cx[:nd] * (r1 * r1))[:, :, None, None]
-                         + (cy[:nd] * r1)[:, None, :, None]
-                         + cz[:nd][:, None, None, :])
-        if nd < len(res):
-            parts.append(cx[nd:][:, :, None, None]
-                         ^ (cy[nd:] * _P1_INT32)[:, None, :, None]
-                         ^ (cz[nd:] * _PRIMES[2])[:, None, None, :])
-        # corners in the order ci = 4i + 2j + k: [L, 2, 2, 2, N] -> [L, 8, N]
-        idx = torch.cat(parts) if len(parts) > 1 else parts[0]
-        idx = idx.bitwise_and_(t - 1).reshape(-1, 8, n)     # % T, T = 2^k
-        wx, wy, wz = (torch.stack([1.0 - frac[:, a], frac[:, a]], dim=1)
-                      for a in range(3))
-        w = ((wx[:, :, None, None] * wy[:, None, :, None])
-             * wz[:, None, None, :]).reshape(-1, 8, n)
-        return idx, w
+        return he.corner_indices_weights_ngp(x, self.resolutions,
+                                             1 << self.log2_table_size)
 
     def forward(self, x):
         shape = x.shape[:-1]
@@ -215,8 +183,7 @@ class HashGridEncoding(nn.Module):
             out = hw.hash_encode_win_fused(self.table, x, self.resolutions,
                                            self.bounds, self._boxes)
         else:
-            idx, w = self.corner_indices_weights(x)
-            out = he.hash_encode_mxu(self.table, idx, w)
+            out = he.hash_encode_ngp_fused(self.table, x, self.resolutions)
         return out.to(self.compute_dtype).reshape(
             *shape, self.n_levels * self.features)
 

@@ -19,14 +19,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC")
-# Per source. -fmad=false: the hash kernels' corner geometry must round as
-# the f32 host index function does (see the note in
-# csrc/hash_encode_win.cu); the MLP kernels need no such rule, and the
-# index-gather kernels round with explicit intrinsics.
+# Per source. -fmad=false: both hash sources rebuild the corner geometry
+# in the kernel, and it must round as the f32 host index function does, bit
+# for bit (see the notes in csrc/hash_encode_win.cu and
+# csrc/hash_encode_idx.cu); the MLP kernels need no such rule.
 NVCC_FLAGS = {
     "hash_encode_win": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "fused_mlp_pe": _BASE_FLAGS + ("-Xptxas", "-v"),
-    "hash_encode_idx": _BASE_FLAGS + ("-Xptxas", "-v"),
+    "hash_encode_idx": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "kbench_cal": _BASE_FLAGS + ("-Xptxas", "-v"),
 }
 

@@ -61,7 +61,7 @@ def test_plain_matches_jax_xla(n, l, log2t):
     assert out_t.shape == out_j.shape == (n, l, 2)
     assert _rel(out_t, out_j) <= 1.5e-6
     assert _rel(grad_t, grad_j) <= 1.5e-6
-    assert the.launches == {"fwd": 0, "bwd": 0}   # CPU: no kernel launched
+    assert not any(the.launches.values())   # CPU: no kernel launched
 
 
 @pytest.mark.parametrize("n,l,log2t", [(300, 2, 8), (700, 2, 12)])
@@ -165,4 +165,4 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         the.hash_encode_idx_bwd_kernel(g, idx, w, tuple(table.shape))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         the.hash_encode_idx_fwd_kernel(torch.zeros((2, 256, 4)), idx, w)
-    assert the.launches == {"fwd": 0, "bwd": 0}
+    assert not any(the.launches.values())
