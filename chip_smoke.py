@@ -9,14 +9,18 @@ Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source,
      started together (timed); ptxas's registers and spills of both
-     fm_fwd_kernel instantiations (none may spill);
+     fm_fwd_kernel instantiations, of hf_fwd_kernel (#1) and of
+     kc_wgmma_kernel (#11) (none may spill);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
      table, 262,144 points from the trainer's calibrated ray distribution,
      and the backward again with one level's dense box widened to a morton
-     span of 32,768; time kernel and plain version with CUDA events; print
-     the scatter's census (a JSON line: per level the regime, distinct
-     entries touched, contributions per entry; points per segment);
+     span of 32,768; the forward's page bases equal to `point_base`'s, and
+     `hash_encode_win_fused` on CUDA tensors launching the forward kernel
+     alone, with the plain page lookup made to raise; time kernel, plain
+     version and `point_base` with CUDA events; print the scatter's census
+     (a JSON line: per level the regime, distinct entries touched,
+     contributions per entry; points per segment);
   4. the hash arm of the main path: `Trainer` at the default prepare
      configuration (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16
      MLPs, 1024 rays x 64+64 samples) on an in-memory synthetic scene of 12
@@ -69,18 +73,18 @@ Phases, each fatal on failure (no phase's error is caught):
      its ring packs (one); time kernel, plain version and the bf16 matmul
      chain with its autograd backward, the forward's rates as in phase 6,
      and the backward's two kernels apart;
- 12. hold the calibration kernel (`csrc/kbench_cal.cu`) against its plain
-     version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it through
-     the port's `tools.kbench.calibrate` (TFLOP/s) beside `torch.bmm` and
-     the plain version;
+ 12. hold the calibration kernel (`csrc/kbench_cal.cu`, wgmma) against its
+     plain version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it
+     through the port's `tools.kbench.calibrate` (TFLOP/s) beside
+     `torch.bmm` and the plain version;
  13. the disk arm: `data.synthetic.make_scene` writes 12 views at 504 x 672
      with masks and a COLMAP model of 3000 points; one image decoded and
      checked against its in-memory render; `Trainer` built with no scene at
      the reference's DS-NeRF prepare configuration (factor 2, COLMAP sparse
      depth with the depth loss, lindisp, white background, density noise,
      hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory,
-     phase 3's census and backward check and phase 9's instant-NGP
-     census run on its points, and it
+     phase 3's census, forward and backward checks and phase 9's
+     instant-NGP census run on its points, and it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
      decoded with the port's reader.
@@ -137,12 +141,25 @@ def synthetic_scene():
     return scene, masks, held_out[0], held_out[1]
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, iters=20, warmup=3, queue_ahead=False):
+    """Mean ms of `fn` over `iters` back-to-back calls, CUDA events. With
+    queue_ahead, a spin kernel of at least twice the calls' host time runs
+    first, so that the host has enqueued every call before the card
+    reaches them: the events then time the card alone, not the host's
+    launch pace (for a call of several launches)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * host_s * 2e9))   # cycles, <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -176,7 +193,9 @@ def scatter_census(tag, x, res, t, bounds, boxes):
     distinct table entries the corners touch, and the mean and largest
     number of (point, corner) contributions per touched entry; for paged
     levels the distinct entries per segment (mean, largest). Once for the
-    point set: points per segment (mean, largest, empty segments)."""
+    point set: points per segment (mean, largest, empty segments), and the
+    sort's chunks (count, points each, full ones) and the forward's blocks
+    (with points, launched, their mean fill)."""
     import torch
 
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
@@ -200,11 +219,29 @@ def scatter_census(tag, x, res, t, bounds, boxes):
             row["distinct_per_segment"] = [round(float(d.double().mean()), 1),
                                            int(d.max())]
         levels.append(row)
+    # the forward's blocks: chunks of at most CHUNK_POINTS points of one
+    # segment (an empty segment is one empty chunk), cut into blocks of
+    # FWD_BLOCK_POINTS
+    n_ch = torch.clamp(-(-per_seg // hw.CHUNK_POINTS), min=1)
+    sizes = torch.cat([torch.clamp(c - hw.CHUNK_POINTS * torch.arange(
+        int(k), device=c.device), max=hw.CHUNK_POINTS)
+        for c, k in zip(per_seg, n_ch)])
+    blocks = int((-(-sizes // FWD_BLOCK_POINTS)).sum())
+    launched = ((-(-x.shape[0] // hw.CHUNK_POINTS) + n_seg)
+                * (hw.CHUNK_POINTS // FWD_BLOCK_POINTS))
     log(json.dumps({"census": {
         "points": tag, "n": int(x.shape[0]), "segments": n_seg,
         "points_per_segment": {"mean": float(per_seg.double().mean()),
                                "max": int(per_seg.max()),
                                "empty": int((per_seg == 0).sum())},
+        "chunks": {"n": int(sizes.numel()),
+                   "points_mean": float(sizes.double().mean()),
+                   "points_max": int(sizes.max()),
+                   "full": int((sizes == hw.CHUNK_POINTS).sum()),
+                   "forward_blocks_with_points": blocks,
+                   "forward_blocks_launched": launched,
+                   "forward_block_fill": x.shape[0] / (blocks
+                                                       * FWD_BLOCK_POINTS)},
         "levels": levels}}))
     del idx
 
@@ -250,20 +287,20 @@ def ngp_census(tag, x, res, t):
 
 
 def hold_bwd(tag, x, res, bounds, boxes, table, g):
-    """#2 (the encode's backward kernel) on points x with the index
-    (res, bounds, boxes): held against the plain version evaluated in
-    float64 (atomics add in an order that varies between runs; float64 is
-    the exact sum of the same f32 weights and cotangents) within 1e-5 of
-    max |dtable|, the f32 plain version's own error printed beside; then
-    kernel and plain version timed with CUDA events; the autograd wrapper's
-    table gradient held at the same bound. Returns (max abs error, ms,
-    plain ms)."""
+    """#2 (the encode's backward, from the forward's sort) on points x
+    with the index (res, bounds, boxes): held against the plain version
+    evaluated in float64 (atomics add in an order that varies between
+    runs; float64 is the exact sum of the same f32 weights and cotangents)
+    within 1e-5 of max |dtable|, the f32 plain version's own error printed
+    beside; then kernel and plain version timed with CUDA events; the
+    autograd wrapper's table gradient held at the same bound. Returns (max
+    abs error, ms, plain ms)."""
     import torch
 
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
     t = table.shape[1]
     rows = hw.level_scalars(res, t, boxes)
-    base = hw.point_base(x, t, bounds)
+    _, _, work = hw.hash_encode_win_fwd_kernel(table, x, bounds, rows)
     tab64 = table.double().requires_grad_()
     (dtab_64,) = torch.autograd.grad(
         hw.hash_encode_plain(tab64, x, res, bounds, boxes), tab64, g.double())
@@ -273,7 +310,7 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     def bwd_rel(d):
         return float((d.double() - dtab_64).abs().max()) / scale
 
-    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, base, rows, table.shape)
+    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape)
     tab = table.clone().requires_grad_()
     out_g = hw.hash_encode_plain(tab, x, res, bounds, boxes)
     (dtab_p,) = torch.autograd.grad(out_g, tab, g, retain_graph=True)
@@ -292,12 +329,106 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     if rel_a > 1e-5:
         raise AssertionError(f"autograd wrapper backward differs from plain "
                              f"({tag})")
-    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(g, x, base, rows,
-                                                       table.shape))
+    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(g, x, work, rows,
+                                                       table.shape),
+                 queue_ahead=True)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, tab, g,
                                                    retain_graph=True))
     log(f"[kernels {tag}] bwd {ms:.4f} ms (plain {plain_ms:.4f})")
     return err, ms, plain_ms
+
+
+FWD_BLOCK_POINTS = 256   # HF_PTS: sorted points of a chunk a block takes
+
+
+def hold_fwd(tag, x, res, bounds, boxes, table):
+    """#1 (the encode's forward: page lookup, sort by segment, gather) on
+    points x with the index (res, bounds, boxes): its output within 1e-6 of
+    max |value| of the plain version, its page bases equal to
+    `point_base`'s; the autograd wrapper on CUDA tensors must call the
+    forward once and run no tensor operation but allocations, with the
+    page lookup's plain functions made to raise; then the forward (queued
+    ahead: it is five launches), the plain version and `point_base` (the
+    lookup the kernels took in, as PyTorch ops) timed with CUDA events,
+    and its kernel launches counted. Returns (max abs error, ms, plain ms,
+    point_base ms, point_base launches)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    t = table.shape[1]
+    rows = hw.level_scalars(res, t, boxes)
+    out_k, base_k, _ = hw.hash_encode_win_fwd_kernel(table, x, bounds, rows)
+    out_p = hw.hash_encode_plain(table, x, res, bounds, boxes)
+    base_p = hw.point_base(x, t, bounds)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    rel = err / float(out_p.abs().max())
+    base_equal = torch.equal(base_k, base_p)
+    log(f"[kernels {tag}] fwd max|kernel - plain| = {err:.3e} (relative "
+        f"{rel:.3e}, bound 1e-6); page bases equal to point_base's: "
+        f"{base_equal}")
+    if not (torch.isfinite(out_k).all() and rel <= 1e-6):
+        raise AssertionError(f"forward kernel disagrees with the plain "
+                             f"version ({tag})")
+    if not base_equal:
+        raise AssertionError(f"forward kernel's page bases differ from "
+                             f"point_base ({tag})")
+    del out_p, base_p
+
+    # the autograd wrapper: one call of the forward and no other tensor
+    # operation than allocations (every aten op recorded below the
+    # autograd layer), the plain page lookup made to raise
+    tab = table.clone().requires_grad_()
+    saved = {k: getattr(hw, k) for k in ("point_base", "page_lookup",
+                                          "zkey27")}
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the card path called the plain page lookup")
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    ops, before = [], hw.launches["fwd"]
+    try:
+        for k in saved:
+            setattr(hw, k, refuse)
+        with Ops():
+            out_a = hw.hash_encode_win_fused(tab, x, res, bounds, boxes)
+    finally:
+        for k, v in saved.items():
+            setattr(hw, k, v)
+    names = sorted({str(o) for o in ops})
+    log(f"[kernels {tag}] hash_encode_win_fused on CUDA tensors: "
+        f"{hw.launches['fwd'] - before} call of the forward; tensor "
+        f"operations {names}")
+    if hw.launches["fwd"] - before != 1 or any(
+            not n.startswith("aten.empty") for n in names):
+        raise AssertionError(f"hash_encode_win_fused ran {names} beside "
+                             f"the forward ({tag})")
+    if not torch.equal(out_a.detach(), out_k):
+        raise AssertionError("autograd wrapper forward differs from kernel")
+    del out_a, tab, out_k
+    # what the lookup launched when it ran outside the kernels: its tensor
+    # operations other than views, a kernel each
+    ops.clear()
+    with Ops():
+        hw.point_base(x, t, bounds)
+    base_launches = sum(not o.is_view for o in ops)
+    log(f"[kernels {tag}] point_base on CUDA tensors: {base_launches} "
+        f"operations that launch a kernel ({len(ops)} with views)")
+
+    ms = cuda_ms(lambda: hw.hash_encode_win_fwd_kernel(table, x, bounds,
+                                                       rows),
+                 queue_ahead=True)
+    plain_ms = cuda_ms(lambda: hw.hash_encode_plain(table, x, res, bounds,
+                                                    boxes))
+    base_ms = cuda_ms(lambda: hw.point_base(x, t, bounds))
+    log(f"[kernels {tag}] fwd {ms:.4f} ms (plain {plain_ms:.4f}; "
+        f"point_base alone {base_ms:.4f})")
+    return err, ms, plain_ms, base_ms, base_launches
 
 
 def box_32768(x, res, t, boxes):
@@ -331,31 +462,15 @@ def compare_kernels(trainer, x):
     res, bounds, boxes = enc.resolutions, enc.bounds, enc._boxes
     l, t, _ = enc.table.shape
     table, g = hash_inputs(enc.table.shape, dev)
-    rows = hw.level_scalars(res, t, boxes)
-    base = hw.point_base(x, t, bounds)
     scatter_census("hash", x, res, t, bounds, boxes)
 
     # forward
-    out_k = hw.hash_encode_win_fwd_kernel(table, x, base, rows)
-    out_p = hw.hash_encode_plain(table, x, res, bounds, boxes)
-    torch.cuda.synchronize()
-    fwd_err = float((out_k - out_p).abs().max())
-    fwd_rel = fwd_err / float(out_p.abs().max())
-    log(f"[kernels] fwd max|kernel - plain| = {fwd_err:.3e} "
-        f"(relative {fwd_rel:.3e}, bound 1e-6)")
-    if not (torch.isfinite(out_k).all() and fwd_rel <= 1e-6):
-        raise AssertionError("forward kernel disagrees with the plain version")
+    fwd_err, fwd_ms, fwd_plain_ms, base_ms, base_launches = hold_fwd(
+        "hash", x, res, bounds, boxes, table)
 
     # backward
     bwd_err, bwd_ms, bwd_plain_ms = hold_bwd("hash", x, res, bounds, boxes,
                                              table, g)
-
-    # the autograd wrapper on CUDA tensors goes through the kernels
-    out_a = hw.hash_encode_win_fused(table.clone().requires_grad_(), x, res,
-                                     bounds, boxes)
-    if not torch.equal(out_a.detach(), out_k):
-        raise AssertionError("autograd wrapper forward differs from kernel")
-    del out_a
 
     # a dense level of span 32,768, whatever the scene calibrated
     boxes32, l32 = box_32768(x, res, t, boxes)
@@ -363,12 +478,6 @@ def compare_kernels(trainer, x):
         f"{boxes32[l32]}")
     err32, ms32, _ = hold_bwd("dense 32768", x, res, bounds, boxes32, table,
                               g)
-
-    # times (CUDA events, back-to-back launches)
-    fwd_ms = cuda_ms(lambda: hw.hash_encode_win_fwd_kernel(table, x, base,
-                                                           rows))
-    fwd_plain_ms = cuda_ms(lambda: hw.hash_encode_plain(table, x, res, bounds,
-                                                        boxes))
 
     # least time: each input read once, each output written once. The
     # forward reads only the table entries this run's points touch.
@@ -399,9 +508,12 @@ def compare_kernels(trainer, x):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None})
+    records[0].update(point_base_ms=base_ms,
+                      point_base_launches=base_launches)
     records[1].update(dense32768_ms=ms32, dense32768_max_abs_err=err32)
     log(f"[kernels] N={n} L={l} T={t}: touched table entries {touched}; "
-        f"fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}), "
+        f"fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}; the page lookup "
+        f"it took in, point_base, {base_ms:.4f} as PyTorch ops), "
         f"bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}); "
         f"library: no single PyTorch call computes this encode")
     return records
@@ -1484,9 +1596,11 @@ def disk_arm(exp_root, argv):
     """Phase 13: a scene written to disk by the port's `make_scene`, loaded
     by `Trainer` (no scene handed in) at the reference's DS-NeRF prepare
     configuration with COLMAP sparse depth; 200 steps, then the prepare
-    dump. Before training, phase 3's census and backward check on this
-    arm's points. Returns the launch counts of the hash kernels over the
-    200 steps, and the check's (max abs error, ms, plain ms)."""
+    dump. Before training, phase 3's census and forward and backward
+    checks on this arm's points. Returns the launch counts of the hash
+    kernels over the 200 steps, and the forward's (max abs error, ms, plain
+    ms, point_base ms, point_base launches) and the backward's (max abs
+    error, ms, plain ms)."""
     import numpy as np
     import torch
 
@@ -1548,14 +1662,16 @@ def disk_arm(exp_root, argv):
     if tr.scene.images.shape != (N_VIEWS, H, W, 3):
         raise AssertionError(f"loaded images {tr.scene.images.shape}")
 
-    # phase 3's backward check on this arm's points: the loaded scene's
-    # recentred, rescaled world and its own calibration
+    # phase 3's forward and backward checks on this arm's points: the
+    # loaded scene's recentred, rescaled world and its own calibration
     enc = tr.model.encoder
     x = fine_pass_points(tr)
     scatter_census("disk", x, enc.resolutions, enc.table.shape[1],
                    enc.bounds, enc._boxes)
     ngp_census("disk", x, enc.resolutions, enc.table.shape[1])
     table, g = hash_inputs(enc.table.shape, tr.device)
+    held_fwd = hold_fwd("disk", x, enc.resolutions, enc.bounds, enc._boxes,
+                        table)
     held = hold_bwd("disk", x, enc.resolutions, enc.bounds, enc._boxes,
                     table, g)
     del x, table, g
@@ -1621,12 +1737,13 @@ def disk_arm(exp_root, argv):
         f"{int(disp0.max())}")
     if "--profile" in argv:
         profile_steps(tr, step_ms)
-    return counts, held
+    return counts, held_fwd, held
 
 
 def profile_steps(trainer, step_ms, n_steps=5):
-    """torch.profiler over a few steps: device time by kernel, and the
-    device's busy share of the unprofiled step time `step_ms`."""
+    """torch.profiler over a few steps: device time by kernel, kernel
+    launches a step, and the device's busy share of the unprofiled step
+    time `step_ms`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     start = trainer.step
@@ -1653,11 +1770,12 @@ def profile_steps(trainer, step_ms, n_steps=5):
         "steps": n_steps, "device_ms_per_step": device_ms,
         "step_ms_unprofiled": step_ms,
         "device_busy_share": device_ms / step_ms,
+        "kernel_launches_per_step": sum(r[2] for r in rows) / n_steps,
         "top": [entry(*r) for r in rows[:15]],
         # every kernel of the windowed hash encode (#1, #2) and of the
         # index-gather encode (#3-#6), however small
         "hash_encode_win": [entry(*r) for r in rows
-                            if r[1].startswith(("he_", "hb_"))],
+                            if r[1].startswith(("hf_", "hb_"))],
         "hash_encode_idx": [entry(*r) for r in rows
                             if r[1].startswith(("hi_", "void hi_"))]}}))
 
@@ -1688,13 +1806,18 @@ def main(argv):
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
-    fwd_res = {n: r for n, r in kernel_resources(
-        build_logs["fused_mlp_pe"]).items() if "fm_fwd_kernel" in n}
-    log(f"[build] fm_fwd_kernel (registers, stack, spill stores, spill "
-        f"loads): {fwd_res}")
-    if len(fwd_res) != 2 or any(r[2] or r[3] for r in fwd_res.values()):
-        raise AssertionError("an fm_fwd_kernel instantiation is missing "
-                             "from the build log or spills")
+    # kernels that must not spill: each instantiation of the fused MLP's
+    # forward, the hash forward (#1) and the calibration (#11)
+    for src, kernel, want in (("fused_mlp_pe", "fm_fwd_kernel", 2),
+                              ("hash_encode_win", "hf_fwd_kernel", 1),
+                              ("kbench_cal", "kc_wgmma_kernel", 8)):
+        res = {n: r for n, r in kernel_resources(build_logs[src]).items()
+               if kernel in n}
+        log(f"[build] {kernel} (registers, stack, spill stores, spill "
+            f"loads): {res}")
+        if len(res) != want or any(r[2] or r[3] for r in res.values()):
+            raise AssertionError(f"{kernel} is missing from the build log "
+                                 f"or spills")
 
     scene, masks, held_pose, held_rgb = synthetic_scene()
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -1771,7 +1894,10 @@ def main(argv):
 
     # 13. the disk arm: the DS-NeRF prepare configuration on a scene
     # directory with COLMAP sparse depth
-    disk_counts, (err, ms, plain_ms) = disk_arm(exp_root, argv)
+    disk_counts, disk_fwd, (err, ms, plain_ms) = disk_arm(exp_root, argv)
+    records[0].update(disk_ms=disk_fwd[1], disk_plain_ms=disk_fwd[2],
+                      disk_max_abs_err=disk_fwd[0],
+                      disk_point_base_ms=disk_fwd[3])
     records[1].update(disk_ms=ms, disk_plain_ms=plain_ms,
                       disk_max_abs_err=err)
 

@@ -2,7 +2,8 @@
 // backward scatter-add, with the corner geometry rebuilt in the kernel.
 //
 // Replaces the Pallas kernels of spinnerf_tpu/ops/hash_encode_win.py:
-//   forward  _win_fwd_fused_kernel (:580; _corner_geom :526, _paired_gather :258)
+//   forward  _win_fwd_fused_kernel (:580; _corner_geom :526, _paired_gather
+//            :258; the page base _point_bc :718-721)
 //   backward _win_bwd_fused_kernel (:593; _bwd_accumulate :324)
 // It computes what hash_encode_exact(table, *corner_indices_weights_win(...))
 // computes: a direct gather at any point count, without the TPU kernel's
@@ -10,26 +11,53 @@
 //
 // What bounds it on an H100. Forward: every (point, level) reads 8
 // scattered 8-byte entries of a 64 MiB f32 table (2^19 entries x 16
-// levels), larger than the 50 MB L2, so the gather is bound by scattered
-// memory transactions, not by its ~150 integer and float operations. One
-// thread per (point, level), point-major, so that a warp's 8-byte output
-// stores are contiguous; the 8 corner loads are issued before the blend.
+// levels), larger than the 50 MB L2. In the order the points come (samples
+// along rays), 32 consecutive points of a fine level touch some 120
+// distinct 32-byte sectors with their 256 corner loads, so a direct gather
+// is bound by scattered sector requests, not by its bytes or its ~150
+// integer and float operations. But on a paged level all 8 corners of a
+// point lie in its own segment's page [base, base + 1024) (8 KB), and on a
+// dense level in the box's morton span (<= 32,768 entries). So the
+// forward (he_win_fwd)
+//   1. finds each point's page in the kernel (hf_key_kernel): the block
+//      stages the sorted page bounds (T / 1024 keys < 2^27, as int32) in
+//      shared memory, and a thread a point computes zkey27 (floor(x * 512)
+//      clamped to [0, 511], morton-interleaved) and #(bounds <= key) - 1 by
+//      halving steps, as ops/hash_encode_win.py::point_base computes them
+//      (searchsorted with right=True counts repeated bounds); it writes the
+//      base [N] int32 and counts the points of each segment;
+//   2. sorts the point ids by segment (a counting sort: hb_plan_kernel,
+//      hb_scatter_kernel) and cuts each segment into chunks of at most
+//      HB_CHUNK points (an empty segment is one empty chunk);
+//   3. hf_fwd_kernel: a block takes HF_PTS sorted points of one chunk and
+//      every level. A paged level's page is copied whole into shared memory
+//      (cp.async, double-buffered: the next paged level's page loads while
+//      this one is read) and the corners are read from it. A dense level is
+//      gathered directly, corners ci and ci+4 with one 16-byte load where
+//      they are entries e and e^1: they differ only in cx, and where cx is
+//      even the shifted morton code, which interleaves x lowest, puts them
+//      on one 16-byte pair (the paged hash does too: its prime on x is 1).
+//      The rows of the block's points are staged in shared memory (an odd
+//      pitch, so a warp's column of stores hits 32 banks), and each point's
+//      row of out [N, L, 2] is written once, whole.
+// The order and the chunk table are the backward's too: autograd keeps the
+// scratch they live in, and the backward starts from them. The blend adds
+// corners 0..7 in order, f32, no FMA, as the plain version's index and a
+// sequential blend would. A block of 128 consecutive points that gathered
+// every level directly (no sort) and a block a (chunk, paged level) were
+// measured slower (PERF.md section 6).
 //
 // Backward: the least it can do is read each cotangent once and write each
 // gradient entry once; one global atomic per (point, level, corner) would
 // instead scatter 8 reductions a (point, level) over the 64 MiB gradient.
-// The index makes the writes local: on a paged level all 8 corners of a
-// point lie in its own segment's page [base, base + 1024), and on a dense
-// level in the box's morton span (<= 32,768 entries). So the backward
-//   1. sorts the point ids by segment (a counting sort: hb_count_kernel,
-//      hb_plan_kernel, hb_scatter_kernel) and cuts each segment into chunks
-//      of at most HB_CHUNK points (an empty segment is one empty chunk);
-//   2. paged levels (hb_page_kernel): one block per (chunk, level) sums its
+// The index makes the writes local, as above. So the backward, from the
+// forward's sort,
+//   1. paged levels (hb_page_kernel): one block per (chunk, level) sums its
 //      points into the page held whole in shared memory (8 KB), then
 //      writes the page with plain coalesced stores, zeros included; the
 //      chunks of a segment longer than HB_CHUNK add their nonzero entries
 //      to a page zeroed before (hb_zero_split_kernel);
-//   3. dense levels of span <= HB_DENSE_SPAN (hb_dense_kernel): blocks sum
+//   2. dense levels of span <= HB_DENSE_SPAN (hb_dense_kernel): blocks sum
 //      slices of the sorted points over the whole span in shared memory and
 //      write per-block partial sums; span HB_WIDE_SPAN (hb_wide_kernel,
 //      256 KB): a cluster of HB_CLUSTER blocks holds the span in its
@@ -62,7 +90,6 @@ namespace cg = cooperative_groups;
 #define HE_ROW 8            // (res, dense flag, ox, oy, oz, ex, ey, ez)
 #define HE_PAGE_ENTRIES 1024  // PAGE_ENTRIES: a segment's page
 #define HE_PAGE_MASK 1023u  // PAGE_ENTRIES - 1: the in-segment hash range
-#define HE_THREADS 256
 
 struct LevelRows {
   int v[HE_MAX_LEVELS * HE_ROW];
@@ -117,50 +144,14 @@ __device__ __forceinline__ void corner_geom(const float xp[3], uint32_t base,
   }
 }
 
-__device__ __forceinline__ void load_rows(const LevelRows& rows, int levels,
-                                          int* srows) {
-  for (int i = threadIdx.x; i < levels * HE_ROW; i += blockDim.x)
-    srows[i] = rows.v[i];
-  __syncthreads();
-}
-
-// out[p, l] (float2) = sum_c w_c * table[l, idx_c]; thread = p * L + l.
-__global__ void __launch_bounds__(HE_THREADS)
-he_fwd_kernel(const float2* __restrict__ table, const float* __restrict__ x,
-              const int* __restrict__ base, LevelRows rows,
-              float2* __restrict__ out, int64_t total, int levels,
-              int64_t t) {
-  __shared__ int srows[HE_MAX_LEVELS * HE_ROW];
-  load_rows(rows, levels, srows);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const int64_t p = tid / levels;
-  const int l = (int)(tid - p * levels);
-  const float xp[3] = {x[3 * p], x[3 * p + 1], x[3 * p + 2]};
-  uint32_t idx[8];
-  float w[8];
-  corner_geom(xp, (uint32_t)base[p], srows + l * HE_ROW, idx, w);
-  const float2* tl = table + (int64_t)l * t;
-  float2 f[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) f[c] = __ldg(tl + idx[c]);
-  float2 acc = make_float2(0.0f, 0.0f);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f[c].x));
-    acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f[c].y));
-  }
-  out[tid] = acc;
-}
-
 __device__ __forceinline__ void red_add2(float2* addr, float a, float b) {
   atomicAdd(addr, make_float2(a, b));  // one vector reduction on sm_90
 }
 
-// The backward's schedule. Compile-time constants, mirrored in
+// The encode's schedule. Compile-time constants, mirrored in
 // ops/hash_encode_win.py, which sizes the scratch.
 #define HB_THREADS 256
-#define HB_CHUNK 1024          // points of one segment a page block takes
+#define HB_CHUNK 1024          // points of one segment a chunk holds
 #define HB_DENSE_SPAN 4096     // largest span one block sums (32 KB)
 #define HB_WIDE_SPAN 32768     // DENSE_BOX_CAP: summed across a cluster
 #define HB_CLUSTER 4           // blocks of a cluster, each a quarter (64 KB)
@@ -293,15 +284,74 @@ __device__ __forceinline__ void scatter_points(
   }
 }
 
-// 1. counts[seg] = points of each segment (seg = base >> 10); one global
+// The forward's block of sorted points, and the page bounds it stages.
+#define HF_PTS 256
+#define HF_MAX_SEGS 16384    // staged page bounds (64 KB): T <= 2^24
+
+// The point's key on the fixed 512^3 partition grid (zkey27 in
+// ops/hash_encode_win.py): x * 512 is exact in f32, the cast truncates
+// toward zero, then the clamp to [0, 511].
+__device__ __forceinline__ int zkey27(const float xp[3]) {
+  uint32_t c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    c[a] = (uint32_t)min(max((int)__fmul_rn(xp[a], 512.0f), 0), 511);
+  return (int)(spread9(c[0]) | (spread9(c[1]) << 1) | (spread9(c[2]) << 2));
+}
+
+// #(sb[i] <= z) - 1 over the sorted bounds sb[0, n_seg), n_seg a power of
+// two: the last i with sb[i] <= z, found by halving steps (repeated bounds
+// count as torch.searchsorted(right=True) counts them); -1 if there is none.
+__device__ __forceinline__ int page_of(const int* sb, int n_seg, int z) {
+  int pos = 0;
+  for (int step = n_seg >> 1; step > 0; step >>= 1)
+    if (sb[pos + step] <= z) pos += step;
+  return sb[0] <= z ? pos : -1;
+}
+
+// The 8 gathers of one (point, level), corner ci and ci+4 from one 16-byte
+// load where they are entries e and e^1 (the row is 16-byte aligned: T is
+// even), then the blend in corner order 0..7, f32, no FMA.
+__device__ __forceinline__ float2 gather_blend(const float2* __restrict__ tl,
+                                               const uint32_t idx[8],
+                                               const float w[8]) {
+  float2 f[8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t e0 = idx[c], e1 = idx[c + 4];
+    const float4 v = __ldg(reinterpret_cast<const float4*>(tl + (e0 & ~1u)));
+    const float2 lo = make_float2(v.x, v.y), hi = make_float2(v.z, v.w);
+    const bool odd = (e0 & 1u) != 0;
+    f[c] = odd ? hi : lo;
+    f[c + 4] = (e0 ^ e1) == 1u ? (odd ? lo : hi) : __ldg(tl + e1);
+  }
+  float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f[c].x));
+    acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f[c].y));
+  }
+  return acc;
+}
+
+// 1. base_out[i] = the point's page base, and counts[seg] = points of each
+// segment; the bounds staged in shared memory (n_seg int32), one global
 // atomic per segment a warp.
 __global__ void __launch_bounds__(HB_THREADS)
-hb_count_kernel(const int* __restrict__ base, int n, int* __restrict__ counts) {
+hf_key_kernel(const float* __restrict__ x, const long long* __restrict__ bounds,
+              int n_seg, int n, int* __restrict__ base_out,
+              int* __restrict__ counts) {
+  extern __shared__ int sb[];
+  for (int i = threadIdx.x; i < n_seg; i += HB_THREADS) sb[i] = (int)bounds[i];
+  __syncthreads();
   const int i = blockIdx.x * HB_THREADS + threadIdx.x;
   const bool on = i < n;
   const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
   if (!on) return;
-  const int seg = base[i] / HE_PAGE_ENTRIES;
+  const float xp[3] = {x[3 * (int64_t)i], x[3 * (int64_t)i + 1],
+                       x[3 * (int64_t)i + 2]};
+  const int seg = page_of(sb, n_seg, zkey27(xp));
+  base_out[i] = seg * HE_PAGE_ENTRIES;
   const unsigned peers = __match_any_sync(active, seg);
   if ((threadIdx.x & 31u) == (unsigned)(__ffs(peers) - 1))
     atomicAdd(counts + seg, __popc(peers));
@@ -392,7 +442,119 @@ hb_scatter_kernel(const int* __restrict__ base, int n, int* __restrict__ cursor,
   order[pos + __popc(peers & ((1u << lane) - 1u))] = i;
 }
 
-// 4. Zero the pages of the split segments on every paged level; block =
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes device -> shared, asynchronously; groups of them committed and
+// waited for
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first paged level at or after l (levels if none).
+__device__ __forceinline__ int next_paged(const int* srows, int l, int levels) {
+  while (l < levels && srows[l * HE_ROW + 1]) ++l;
+  return l;
+}
+
+// 4. The forward: block = part (HF_PTS sorted points) of a chunk x every
+// level; surplus blocks (past the chunks, or past a chunk's points) exit at
+// once. Dynamic shared memory: two pages [2][1024] float2, then the rows
+// [HF_PTS][2L + 1] f32.
+__global__ void __launch_bounds__(HF_PTS)
+hf_fwd_kernel(const float2* __restrict__ table, const float* __restrict__ x,
+              LevelRows rows, const int* __restrict__ order,
+              const int4* __restrict__ chunks, const int* __restrict__ meta,
+              float* __restrict__ out, int levels, int64_t t) {
+  extern __shared__ __align__(16) float hf_smem[];
+  float2* pages = reinterpret_cast<float2*>(hf_smem);
+  float* tile = hf_smem + 4 * HE_PAGE_ENTRIES;
+  __shared__ int srows[HE_MAX_LEVELS * HE_ROW];
+  __shared__ int sp[HF_PTS];
+  constexpr int parts = HB_CHUNK / HF_PTS;
+  const int k = blockIdx.x / parts;
+  if (k >= meta[0]) return;
+  const int4 ch = chunks[k];
+  const int i0 = (blockIdx.x - k * parts) * HF_PTS;
+  if (i0 >= ch.z) return;
+  const int npts = min(HF_PTS, ch.z - i0);
+  const int tid = threadIdx.x, pitch = 2 * levels + 1;
+  const uint32_t seg_base = (uint32_t)ch.x * HE_PAGE_ENTRIES;
+  for (int i = tid; i < levels * HE_ROW; i += HF_PTS) srows[i] = rows.v[i];
+  const int p = tid < npts ? order[ch.y + i0 + tid] : -1;
+  sp[tid] = p;
+  float xp[3] = {0.0f, 0.0f, 0.0f};
+  if (p >= 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) xp[a] = x[3 * (int64_t)p + a];
+  }
+  __syncthreads();
+  // the block's page of paged level l into buffer b
+  auto stage = [&](int l, int b) {
+    const float2* src = table + (int64_t)l * t + seg_base;
+    const uint32_t dst = smem_u32(pages + b * HE_PAGE_ENTRIES);
+    for (int i = tid; i < HE_PAGE_ENTRIES / 2; i += HF_PTS)
+      cp16(dst + 16 * i, src + 2 * i);
+    cp_commit();
+  };
+  int nxt = next_paged(srows, 0, levels), buf = 0;
+  if (nxt < levels) stage(nxt, 0);
+  for (int l = 0; l < levels; ++l) {
+    const int* row = srows + l * HE_ROW;
+    uint32_t idx[8];
+    float w[8];
+    float2 acc = make_float2(0.0f, 0.0f);
+    if (row[1]) {   // dense: straight from the table
+      if (p >= 0) {
+        corner_geom(xp, 0u, row, idx, w);
+        acc = gather_blend(table + (int64_t)l * t, idx, w);
+      }
+    } else {        // paged: from the page, the next one loading meanwhile
+      nxt = next_paged(srows, l + 1, levels);
+      if (nxt < levels) {
+        stage(nxt, buf ^ 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      if (p >= 0) {
+        corner_geom(xp, seg_base, row, idx, w);
+        const float2* pg = pages + buf * HE_PAGE_ENTRIES;
+        float2 f[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) f[c] = pg[idx[c] - seg_base];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc.x = __fadd_rn(acc.x, __fmul_rn(w[c], f[c].x));
+          acc.y = __fadd_rn(acc.y, __fmul_rn(w[c], f[c].y));
+        }
+      }
+      __syncthreads();   // every read of this page before it is reloaded
+      buf ^= 1;
+    }
+    tile[tid * pitch + 2 * l] = acc.x;
+    tile[tid * pitch + 2 * l + 1] = acc.y;
+  }
+  __syncthreads();
+  const int row2 = 2 * levels;
+  for (int i = tid; i < npts * row2; i += HF_PTS) {
+    const int q = i / row2;
+    const int j = i - q * row2;
+    out[(int64_t)sp[q] * row2 + j] = tile[q * pitch + j];
+  }
+}
+
+// Backward 1. Zero the pages of the split segments on every paged level; block =
 // split segment x paged level.
 __global__ void __launch_bounds__(HB_THREADS)
 hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
@@ -408,7 +570,7 @@ hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
     dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// 5. Paged levels: block = chunk x paged level (the levels of one chunk are
+// Backward 2. Paged levels: block = chunk x paged level (the levels of one chunk are
 // neighbours in launch order, so a point's cotangent row is read from
 // device memory once and from L2 after). One block a (chunk, level) keeps
 // ~46 short blocks an SM in flight; one block a chunk looping over the
@@ -446,7 +608,7 @@ hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   }
 }
 
-// 6. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
+// Backward 3. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
 // points x level (the levels of a slice neighbours in launch order); the
 // block's sums over the whole span go to its row of the level's partials.
 __global__ void __launch_bounds__(HB_THREADS)
@@ -472,7 +634,7 @@ hb_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   for (int i = threadIdx.x; i < span / 2; i += HB_THREADS) out[i] = a4[i];
 }
 
-// 7. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c
+// Backward 4. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c
 // of the sorted points (its blocks a quarter of it each) into the span,
 // which its HB_CLUSTER blocks hold a quarter each; each block then writes
 // its quarter to the cluster's row of the partials.
@@ -505,7 +667,7 @@ hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   for (int i = threadIdx.x; i < HB_PART / 2; i += HB_THREADS) out[i] = a4[i];
 }
 
-// 8. Dense rows: entry e < span = the sum of the level's partials, zero
+// Backward 5. Dense rows: entry e < span = the sum of the level's partials, zero
 // beyond; block = tile of HB_REDUCE_TILE entries x dense level.
 __global__ void __launch_bounds__(HB_THREADS)
 hb_reduce_kernel(const float2* __restrict__ partials, LevelSet dense,
@@ -528,38 +690,18 @@ hb_reduce_kernel(const float2* __restrict__ partials, LevelSet dense,
 }
 
 static int launch_args(const int* rows_host, int n, int levels,
-                       LevelRows* rows, int64_t* total, unsigned* blocks) {
+                       LevelRows* rows) {
   if (levels <= 0 || levels > HE_MAX_LEVELS || n < 0)
     return (int)cudaErrorInvalidValue;
   memset(rows, 0, sizeof(*rows));
   memcpy(rows->v, rows_host, sizeof(int) * levels * HE_ROW);
-  *total = (int64_t)n * levels;
-  *blocks = (unsigned)((*total + HE_THREADS - 1) / HE_THREADS);
   return 0;
 }
 
-// C interface, bound with ctypes. Pointers are device pointers except
-// rows_host ([levels, 8] int32) and spans_host ([levels] int32) on the
-// host. Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after each launch.
-extern "C" int he_win_fwd(const void* table, const void* x, const void* base,
-                          const int* rows_host, void* out, int n, int levels,
-                          long long t, void* stream) {
-  LevelRows rows;
-  int64_t total;
-  unsigned blocks;
-  int err = launch_args(rows_host, n, levels, &rows, &total, &blocks);
-  if (err || total == 0) return err;
-  he_fwd_kernel<<<blocks, HE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float2*)table, (const float*)x, (const int*)base, rows,
-      (float2*)out, total, levels, (int64_t)t);
-  return (int)cudaGetLastError();
-}
-
-// Scratch sizes of the backward (ops/hash_encode_win.py::bwd_plan computes
-// the same): int32 work = chunk table (4 ints a chunk), counts, cursor,
-// meta (4), split segments, order; float2 partials = per dense level,
-// parts x span.
+// The int32 scratch that the forward's sort fills and the backward reads
+// (ops/hash_encode_win.py::bwd_plan sizes it the same): the chunk table
+// (4 ints a chunk), counts, cursor, meta (4: chunks, split segments),
+// split segments, order.
 static int64_t max_chunks(int n, int n_seg) {
   return ((int64_t)n + HB_CHUNK - 1) / HB_CHUNK + n_seg;
 }
@@ -569,29 +711,110 @@ static int64_t max_split(int n, int n_seg) {
   return s < n_seg ? s : n_seg;
 }
 
+struct Work {
+  int4* chunks;
+  int *counts, *cursor, *meta, *split, *order;
+};
+
+static int work_layout(void* work, long long work_ints, int n, int n_seg,
+                       Work* w) {
+  const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
+  if (work_ints < 4 * n_chunks + 2 * (int64_t)n_seg + 4 + n_split + n)
+    return (int)cudaErrorInvalidValue;
+  int* p = (int*)work;
+  w->chunks = (int4*)p;
+  w->counts = p + 4 * n_chunks;
+  w->cursor = w->counts + n_seg;
+  w->meta = w->cursor + n_seg;
+  w->split = w->meta + 4;
+  w->order = w->split + n_split;
+  return 0;
+}
+
+static bool table_ok(long long t) {
+  return t >= HE_PAGE_ENTRIES && !(t & (t - 1));
+}
+
 #define HB_CHECK()                               \
   do {                                           \
     const int e_ = (int)cudaGetLastError();      \
     if (e_) return e_;                           \
   } while (0)
 
-// spans_host: per level 0 (paged) or the dense box's morton span, a power
-// of 8 <= HB_DENSE_SPAN or exactly HB_WIDE_SPAN. dense_parts: partial sums
-// (blocks) per dense level of span <= HB_DENSE_SPAN; wide_parts: clusters
-// per level of span HB_WIDE_SPAN.
-extern "C" int he_win_bwd(const void* g, const void* x, const void* base,
-                          const int* rows_host, void* dtable, int n,
-                          int levels, long long t, const int* spans_host,
-                          void* work, long long work_ints, void* partials,
+// C interface, bound with ctypes. Pointers are device pointers except
+// rows_host ([levels, 8] int32) and spans_host ([levels] int32) on the
+// host. Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after each launch.
+
+// The forward: out [n, levels, 2] f32, base_out [n] int32 (each point's
+// page base), and the sort in `work` for the backward. bounds: the n_seg =
+// t / 1024 sorted page bounds, int64.
+extern "C" int he_win_fwd(const void* table, const void* x,
+                          const void* bounds, int n_seg, const int* rows_host,
+                          void* out, void* base_out, void* work,
+                          long long work_ints, int n, int levels, long long t,
+                          void* stream) {
+  LevelRows rows;
+  int err = launch_args(rows_host, n, levels, &rows);
+  if (err) return err;
+  if (!table_ok(t) || n_seg != t / HE_PAGE_ENTRIES || n_seg > HF_MAX_SEGS)
+    return (int)cudaErrorInvalidValue;
+  Work w;
+  err = work_layout(work, work_ints, n, n_seg, &w);
+  if (err) return err;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned pt_blocks = (unsigned)((n + HB_THREADS - 1) / HB_THREADS);
+  const size_t key_smem = sizeof(int) * n_seg;
+  const size_t fwd_smem = sizeof(float) * (4 * HE_PAGE_ENTRIES +
+                                           HF_PTS * (2 * levels + 1));
+  if (key_smem > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(
+        hf_key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)key_smem);
+    if (err) return err;
+  }
+  if (fwd_smem > 48 * 1024) {
+    err = (int)cudaFuncSetAttribute(
+        hf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)fwd_smem);
+    if (err) return err;
+  }
+  err = (int)cudaMemsetAsync(w.counts, 0, sizeof(int) * n_seg, s);
+  if (err) return err;
+  hf_key_kernel<<<pt_blocks, HB_THREADS, key_smem, s>>>(
+      (const float*)x, (const long long*)bounds, n_seg, n, (int*)base_out,
+      w.counts);
+  HB_CHECK();
+  hb_plan_kernel<<<1, HB_PLAN_THREADS, 0, s>>>(w.counts, n_seg, w.cursor,
+                                               w.chunks, w.split, w.meta);
+  HB_CHECK();
+  hb_scatter_kernel<<<pt_blocks, HB_THREADS, 0, s>>>((const int*)base_out, n,
+                                                     w.cursor, w.order);
+  HB_CHECK();
+  const int64_t blocks = max_chunks(n, n_seg) * (HB_CHUNK / HF_PTS);
+  hf_fwd_kernel<<<(unsigned)blocks, HF_PTS, fwd_smem, s>>>(
+      (const float2*)table, (const float*)x, rows, w.order, w.chunks, w.meta,
+      (float*)out, levels, (int64_t)t);
+  HB_CHECK();
+  return 0;
+}
+
+// The backward, from the forward's sort in `work`. spans_host: per level 0
+// (paged) or the dense box's morton span, a power of 8 <= HB_DENSE_SPAN or
+// exactly HB_WIDE_SPAN. dense_parts: partial sums (blocks) per dense level
+// of span <= HB_DENSE_SPAN; wide_parts: clusters per level of span
+// HB_WIDE_SPAN; float2 partials: per dense level, parts x span.
+extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
+                          void* dtable, int n, int levels, long long t,
+                          const int* spans_host, void* work,
+                          long long work_ints, void* partials,
                           long long partial_entries, int dense_parts,
                           int wide_parts, void* stream) {
   LevelRows rows;
-  int64_t total;
-  unsigned blocks;
-  int err = launch_args(rows_host, n, levels, &rows, &total, &blocks);
+  int err = launch_args(rows_host, n, levels, &rows);
   if (err) return err;
-  if (t < HE_PAGE_ENTRIES || (t & (t - 1)) || dense_parts < 1 ||
-      wide_parts < 1)
+  if (!table_ok(t) || dense_parts < 1 || wide_parts < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n == 0)
@@ -632,48 +855,30 @@ extern "C" int he_win_bwd(const void* g, const void* x, const void* base,
     part_off += (int64_t)parts * span;
   }
   const int n_seg = (int)(t / HE_PAGE_ENTRIES);
-  const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
-  if (work_ints < 4 * n_chunks + 2 * (int64_t)n_seg + 4 + n_split + n ||
-      partial_entries < part_off)
-    return (int)cudaErrorInvalidValue;
-  int* w = (int*)work;
-  int4* chunks = (int4*)w;
-  int* counts = w + 4 * n_chunks;
-  int* cursor = counts + n_seg;
-  int* meta = cursor + n_seg;
-  int* split = meta + 4;
-  int* order = split + n_split;
-  float2* part = (float2*)partials;
-  const unsigned pt_blocks = (unsigned)((n + HB_THREADS - 1) / HB_THREADS);
-
-  // 1.-3. the counting sort by segment
-  err = (int)cudaMemsetAsync(counts, 0, sizeof(int) * n_seg, s);
+  Work w;
+  err = work_layout(work, work_ints, n, n_seg, &w);
   if (err) return err;
-  hb_count_kernel<<<pt_blocks, HB_THREADS, 0, s>>>((const int*)base, n, counts);
-  HB_CHECK();
-  hb_plan_kernel<<<1, HB_PLAN_THREADS, 0, s>>>(counts, n_seg, cursor, chunks,
-                                               split, meta);
-  HB_CHECK();
-  hb_scatter_kernel<<<pt_blocks, HB_THREADS, 0, s>>>((const int*)base, n,
-                                                     cursor, order);
-  HB_CHECK();
-  // 4.-5. paged levels
+  if (partial_entries < part_off) return (int)cudaErrorInvalidValue;
+  const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
+  float2* part = (float2*)partials;
+
+  // 1.-2. paged levels
   if (paged.n) {
     if (n_split) {
       hb_zero_split_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0, s>>>(
-          paged, split, meta, (float2*)dtable, (int64_t)t);
+          paged, w.split, w.meta, (float2*)dtable, (int64_t)t);
       HB_CHECK();
     }
     hb_page_kernel<<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
-        (const float2*)g, (const float*)x, rows, paged, order, chunks, meta,
-        (float2*)dtable, levels, (int64_t)t);
+        (const float2*)g, (const float*)x, rows, paged, w.order, w.chunks,
+        w.meta, (float2*)dtable, levels, (int64_t)t);
     HB_CHECK();
   }
-  // 6.-8. dense levels
+  // 3.-5. dense levels
   if (dense.n) {
     hb_dense_kernel<<<(unsigned)(dense_parts * dense.n), HB_THREADS,
                       (size_t)dense_max * sizeof(float2), s>>>(
-        (const float2*)g, (const float*)x, rows, dense, order, part, n,
+        (const float2*)g, (const float*)x, rows, dense, w.order, part, n,
         levels);
     HB_CHECK();
   }
@@ -685,7 +890,7 @@ extern "C" int he_win_bwd(const void* g, const void* x, const void* base,
     if (err) return err;
     hb_wide_kernel<<<(unsigned)(wide_parts * HB_CLUSTER * wide.n), HB_THREADS,
                      smem, s>>>((const float2*)g, (const float*)x, rows, wide,
-                                order, part, n, levels);
+                                w.order, part, n, levels);
     HB_CHECK();
   }
   memcpy(&rowsets, &dense, sizeof(rowsets));

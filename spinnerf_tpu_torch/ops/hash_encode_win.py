@@ -13,9 +13,10 @@ ported exactly (`corner_indices_weights_win`):
 What the JAX module adds only for the TPU is not ported: the Z-sort (results
 do not depend on point order), the two-page window with its clamp aliasing
 and page packing, and the compare-reduce page lookup (here
-`torch.searchsorted`). The kernels (`csrc/hash_encode_win.cu`) gather
-directly, so they compute `hash_encode_exact(table,
-*corner_indices_weights_win(...))` at any point count.
+`torch.searchsorted`; the forward kernel searches the bounds staged in
+shared memory). The kernels (`csrc/hash_encode_win.cu`) gather directly, so
+they compute `hash_encode_exact(table, *corner_indices_weights_win(...))` at
+any point count.
 
 Layout: points are rows, `x` is [N, 3] in [0, 1] (the JAX functions take
 the coords-major [3, N] transpose).
@@ -41,6 +42,7 @@ WINDOW_ENTRIES = 2 * PAGE_ENTRIES
 # bound; kept because it is part of the index semantics).
 DENSE_BOX_CAP = 32 * PAGE_ENTRIES
 _MAX_LEVELS = 32        # HE_MAX_LEVELS in the CUDA source
+MAX_SEGMENTS = 16384    # HF_MAX_SEGS: the forward stages the bounds (64 KB)
 
 # Kernel launches by the wrapper, counted where it launches and nowhere else.
 launches = {"fwd": 0, "bwd": 0}
@@ -250,9 +252,9 @@ def hash_encode_plain(table, x, resolutions, page_bounds=None,
 # the CUDA kernels
 # -----------------------------------------------------------------------------
 
-# The backward's schedule: compile-time constants of csrc/hash_encode_win.cu,
-# mirrored here to plan the launch and size its scratch.
-CHUNK_POINTS = 1024     # HB_CHUNK: points of one segment a page block takes
+# The encode's schedule: compile-time constants of csrc/hash_encode_win.cu,
+# mirrored here to plan the launches and size their scratch.
+CHUNK_POINTS = 1024     # HB_CHUNK: points of one segment a chunk holds
 DENSE_SMEM_SPAN = 4096  # HB_DENSE_SPAN: largest span one block sums (32 KB)
 WIDE_SPAN = DENSE_BOX_CAP   # HB_WIDE_SPAN: summed across a cluster of
 CLUSTER_BLOCKS = 4          # HB_CLUSTER blocks, a quarter each
@@ -266,7 +268,9 @@ class BwdPlan:
     else the dense box's morton span), the levels of each kernel, the
     partial sums per dense level (`dense_parts` blocks per level of span <=
     DENSE_SMEM_SPAN, `wide_parts` clusters per level of span WIDE_SPAN),
-    and the scratch sizes."""
+    and the scratch sizes: `work_ints` for the forward's sort, which the
+    backward reads, and `partial_entries` for the dense levels' partial
+    sums."""
     spans: tuple
     paged: tuple
     dense: tuple
@@ -315,9 +319,9 @@ def _lib():
     lib = cuda_build.load("hash_encode_win")
     if not getattr(lib, "_he_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.he_win_fwd.argtypes = [p] * 5 + [i, i, ll, p]
-        lib.he_win_bwd.argtypes = ([p] * 5 + [i, i, ll] + [p, p, ll, p, ll]
-                                   + [i, i, p])
+        lib.he_win_fwd.argtypes = [p, p, p, i, p, p, p, p, ll, i, i, ll, p]
+        lib.he_win_bwd.argtypes = [p, p, p, p, i, i, ll, p, p, ll, p, ll, i,
+                                   i, p]
         for fn in (lib.he_win_fwd, lib.he_win_bwd):
             fn.restype = ctypes.c_int
         lib.he_error_string.argtypes = [ctypes.c_int]
@@ -326,98 +330,127 @@ def _lib():
     return lib
 
 
-def _launch(fn_name: str, src, x, base, rows, dst, levels: int, t: int,
-            *extra):
-    """Validate the point inputs, then launch `fn_name` on the current
-    stream (`extra`: the backward's plan arguments) and raise on a launch
-    error."""
+def _check(x, rows, levels: int, t: int, *tensors):
+    """Validate the point inputs and the geometry of a launch: `tensors`
+    are its other inputs, which must share x's CUDA device."""
     n = x.shape[0]
-    if not (x.is_cuda and base.is_cuda and src.device == x.device == base.device):
+    if not (x.is_cuda and all(v.device == x.device for v in tensors)):
         raise ValueError("kernel inputs must be CUDA tensors on one device")
     if x.dtype != torch.float32 or x.shape != (n, 3) or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 [N, 3], got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if base.dtype != torch.int32 or base.shape != (n,) or not base.is_contiguous():
-        raise ValueError("base must be a contiguous int32 [N] (point_base)")
     if len(rows) != levels or not 0 < levels <= _MAX_LEVELS:
         raise ValueError(f"{len(rows)} level rows for {levels} levels "
                          f"(at most {_MAX_LEVELS})")
     if t & (t - 1) or t < PAGE_ENTRIES:
         raise ValueError(f"table size {t} must be a power of two >= "
                          f"{PAGE_ENTRIES}")
+
+
+def _call(fn_name: str, dev, *args):
+    """Call the C entry `fn_name` on dev's current stream; raise on a
+    launch error."""
     lib = _lib()
-    rows_c = (ctypes.c_int * (levels * 8))(*[v for r in rows for v in r])
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = getattr(lib, fn_name)(
-        src.data_ptr(), x.data_ptr(), base.data_ptr(),
-        ctypes.cast(rows_c, ctypes.c_void_p), dst.data_ptr(), n, levels, t,
-        *extra, stream)
+    err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(dev)
+                                .cuda_stream)
     if err:
         raise RuntimeError(f"{fn_name} launch failed: "
                            f"{lib.he_error_string(err).decode()}")
 
 
+def _rows_c(rows):
+    flat = [v for r in rows for v in r]
+    return ctypes.cast((ctypes.c_int * len(flat))(*flat), ctypes.c_void_p)
+
+
 def point_base(x, t: int, page_bounds):
-    """[N] int32 segment base per point (`_point_bc` in the JAX module)."""
+    """[N] int32 segment base per point (`_point_bc` in the JAX module):
+    the plain version of what the forward computes in its first kernel."""
     base, _ = page_lookup(zkey27(x), t, page_bounds)
     return base.to(torch.int32).contiguous()
 
 
-def hash_encode_win_fwd_kernel(table, x, base, rows):
-    """One launch of the forward kernel: [N, L*2] f32 (no autograd). base
-    from `point_base`, rows from `level_scalars`."""
+def hash_encode_win_fwd_kernel(table, x, bounds, rows):
+    """One call of the forward (`he_win_fwd`: each point's page found in
+    the kernel, the counting sort by segment, then the gather; no
+    autograd): (out [N, L*2] f32, base [N] int32, work). bounds: the page
+    bounds as a `bounds_tensor` on the card; rows from `level_scalars`.
+    base is each point's page base, as `point_base` computes it; work is
+    the int32 scratch that holds the sort (`bwd_plan`'s `work_ints`), which
+    the backward reads."""
     if (table.dtype != torch.float32 or table.ndim != 3
             or table.shape[2] != 2 or not table.is_contiguous()):
         raise ValueError(f"table must be a contiguous float32 [L, T, 2], got "
                          f"{table.dtype} {tuple(table.shape)}")
     l, t, _ = table.shape
-    out = torch.empty((x.shape[0], 2 * l), dtype=torch.float32,
-                      device=table.device)
-    _launch("he_win_fwd", table, x, base, rows, out, l, t)
+    _check(x, rows, l, t, table, bounds)
+    n_seg = n_segments(t)
+    if (bounds.dtype != torch.int64 or bounds.shape != (n_seg,)
+            or not bounds.is_contiguous()):
+        raise ValueError(f"bounds must be a contiguous int64 [{n_seg}] "
+                         f"(bounds_tensor), got {bounds.dtype} "
+                         f"{tuple(bounds.shape)}")
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"table size {t} has more than {MAX_SEGMENTS} "
+                         f"segments")
+    n = x.shape[0]
+    dev = table.device
+    out = torch.empty((n, 2 * l), dtype=torch.float32, device=dev)
+    base = torch.empty(n, dtype=torch.int32, device=dev)
+    work = torch.empty(bwd_plan(rows, n, t).work_ints, dtype=torch.int32,
+                       device=dev)
+    _call("he_win_fwd", dev, table.data_ptr(), x.data_ptr(),
+          bounds.data_ptr(), n_seg, _rows_c(rows), out.data_ptr(),
+          base.data_ptr(), work.data_ptr(), work.numel(), n, l, t)
     launches["fwd"] += 1
-    return out
+    return out, base, work
 
 
-def hash_encode_win_bwd_kernel(g, x, base, rows, table_shape):
-    """One call of the backward (`he_win_bwd`: the counting sort by
-    segment, then the page, dense and cluster kernels of `bwd_plan`): the
-    [L, T, 2] f32 table gradient of the encode for cotangent g [N, L*2].
-    Every entry is written by a kernel, so nothing is zero-filled here."""
+def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape):
+    """One call of the backward (`he_win_bwd`: the page, dense and cluster
+    kernels of `bwd_plan`, from the forward's sort): the [L, T, 2] f32 table
+    gradient of the encode for cotangent g [N, L*2]. work: the scratch of
+    the forward call on the same points and rows. Every entry is written by
+    a kernel, so nothing is zero-filled here."""
     l, t, _ = table_shape
     n = x.shape[0]
+    _check(x, rows, l, t, g, work)
     if g.shape != (n, 2 * l):
         raise ValueError(f"cotangent must be [{n}, {2 * l}], got "
                          f"{tuple(g.shape)}")
-    g = g.to(torch.float32).contiguous()
     plan = bwd_plan(rows, n, t)
+    if work.dtype != torch.int32 or work.shape != (plan.work_ints,):
+        raise ValueError("work must be the forward's int32 scratch")
+    g = g.to(torch.float32).contiguous()
     dtable = torch.empty(table_shape, dtype=torch.float32, device=g.device)
-    work = torch.empty(plan.work_ints, dtype=torch.int32, device=g.device)
     partials = torch.empty((max(plan.partial_entries, 1), 2),
                            dtype=torch.float32, device=g.device)
     spans_c = (ctypes.c_int * l)(*plan.spans)
-    _launch("he_win_bwd", g, x, base, rows, dtable, l, t,
-            ctypes.cast(spans_c, ctypes.c_void_p), work.data_ptr(),
-            work.numel(), partials.data_ptr(), plan.partial_entries,
-            plan.dense_parts, plan.wide_parts)
+    _call("he_win_bwd", g.device, g.data_ptr(), x.data_ptr(), _rows_c(rows),
+          dtable.data_ptr(), n, l, t, ctypes.cast(spans_c, ctypes.c_void_p),
+          work.data_ptr(), work.numel(), partials.data_ptr(),
+          plan.partial_entries, plan.dense_parts, plan.wide_parts)
     launches["bwd"] += 1
     return dtable
 
 
 class _HashEncodeWin(torch.autograd.Function):
     """Kernel forward and backward; the gradient flows to the table only
-    (sample positions are not trainable), as in the JAX custom VJP."""
+    (sample positions are not trainable), as in the JAX custom VJP. The
+    backward starts from the forward's sort of the points by segment."""
 
     @staticmethod
-    def forward(ctx, table, x, base, rows):
-        ctx.save_for_backward(x, base)
+    def forward(ctx, table, x, bounds, rows):
+        out, _, work = hash_encode_win_fwd_kernel(table, x, bounds, rows)
+        ctx.save_for_backward(x, work)
         ctx.rows = rows
         ctx.table_shape = tuple(table.shape)
-        return hash_encode_win_fwd_kernel(table, x, base, rows)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, base = ctx.saved_tensors
-        dtable = hash_encode_win_bwd_kernel(g, x, base, ctx.rows,
+        x, work = ctx.saved_tensors
+        dtable = hash_encode_win_bwd_kernel(g, x, work, ctx.rows,
                                             ctx.table_shape)
         return dtable, None, None, None
 
@@ -444,6 +477,8 @@ def hash_encode_win_fused(table, x, resolutions, page_bounds=None,
     version. `page_bounds` may be a tuple, None, or a `bounds_tensor`."""
     if not table.is_cuda:
         return hash_encode_plain(table, x, resolutions, page_bounds, dense_box)
-    rows = level_scalars(resolutions, table.shape[1], dense_box)
-    base = point_base(x, table.shape[1], page_bounds)
-    return _HashEncodeWin.apply(table, x, base, rows)
+    t = table.shape[1]
+    if not torch.is_tensor(page_bounds):
+        page_bounds = bounds_tensor(t, page_bounds, table.device)
+    return _HashEncodeWin.apply(table, x, page_bounds,
+                                level_scalars(resolutions, t, dense_box))

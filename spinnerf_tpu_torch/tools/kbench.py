@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 
 import torch
 
@@ -37,13 +38,46 @@ _VP = ctypes.c_void_p
 def _lib():
     lib = cuda_build.load("kbench_cal")
     if not getattr(lib, "_kc_typed", False):
-        lib.kc_run.argtypes = [_VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _VP]
+        lib.kc_run.argtypes = [_VP, _VP, _VP] + [ctypes.c_int] * 5 + [_VP]
         lib.kc_run.restype = ctypes.c_int
         lib.kc_error_string.argtypes = [ctypes.c_int]
         lib.kc_error_string.restype = ctypes.c_char_p
         lib._kc_typed = True
     return lib
+
+
+# The kernel's schedule: compile-time constants of csrc/kbench_cal.cu,
+# mirrored here to plan the launch.
+UNIT_COLS = 128         # KC_NU: output columns of a unit
+SLOTS = 3               # KC_SLOTS: stages of the ring
+TILE_BYTES = 8192       # KC_TILE: a swizzled [64][64] bf16 tile
+SMEM_MAX = 232448       # a block's shared memory on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class CalPlan:
+    """How `kc_run` takes `blocks` blocks at depth k: persistent blocks
+    (`grid`, at most one an SM, each walking units of (block, 128 output
+    columns)), the bytes of a unit's A and B stage (A in whole [64][64]
+    tiles, B as two [k][64] column tiles) and a block's shared memory (the
+    ring's SLOTS stages, its barriers and the swizzle's alignment), which
+    the CUDA source checks against its own count."""
+    grid: int
+    a_bytes: int
+    b_bytes: int
+    smem: int
+
+
+def cal_plan(blocks: int, k: int, sms: int) -> CalPlan:
+    """The calibration kernel's launch at `blocks` blocks, depth k, on a
+    card of `sms` multiprocessors."""
+    a_bytes = 2 * -(-k // 64) * TILE_BYTES
+    b_bytes = 2 * k * 128
+    smem = SLOTS * (a_bytes + b_bytes) + 16 * SLOTS + 1024
+    if smem > SMEM_MAX:
+        raise ValueError(f"k={k}: {smem} bytes of shared memory")
+    return CalPlan(grid=max(1, min(blocks * COLS // UNIT_COLS, sms)),
+                   a_bytes=a_bytes, b_bytes=b_bytes, smem=smem)
 
 
 def cal_plain(a, b, k: int, reps: int):
@@ -73,10 +107,13 @@ def cal_kernel(a, b, k: int, reps: int):
         raise ValueError(f"k must be a multiple of 16 in [16, {KMAX}] and "
                          f"reps >= 1, got k={k} reps={reps}")
     lib = _lib()
+    plan = cal_plan(blocks, k, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
     out = torch.empty((blocks, ROWS, COLS), dtype=torch.float32,
                       device=a.device)
     err = lib.kc_run(a.data_ptr(), b.data_ptr(), out.data_ptr(), blocks, k,
-                     reps, torch.cuda.current_stream(a.device).cuda_stream)
+                     reps, plan.grid, plan.smem,
+                     torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"kc_run launch failed: "
                            f"{lib.kc_error_string(err).decode()}")

@@ -5,8 +5,8 @@ package (`spinnerf_tpu/ops/hash_encode_win.py`).
 `bwd_plan` (per-level regime and span, partial sums and scratch that the
 wrapper passes to the CUDA source) is held against JAX `box_morton_span` /
 `box_dense_ok` on calibrated boxes. A plain emulation of the kernels'
-schedule in f32 (counting sort by segment, chunks of `CHUNK_POINTS`
-points, a page accumulator per (chunk, paged level) flushed by store or by
+schedule in f32 (the forward's counting sort by segment, chunks of
+`CHUNK_POINTS` points, a page accumulator per (chunk, paged level) flushed by store or by
 addition, per-slice partial sums of the dense spans reduced afterwards)
 must write every entry and give JAX `hash_encode_exact`'s table gradient
 within 1e-6 of its largest entry (the gradient evaluated in float64, as

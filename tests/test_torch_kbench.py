@@ -65,3 +65,23 @@ def test_flop_count_and_kernel_wrapper_guards():
     with pytest.raises(RuntimeError, match="card"):
         tkb.calibrate(64, blocks=2, device="cpu")
     assert tkb.launches == {"cal": 0}
+
+
+@pytest.mark.parametrize("k", list(range(16, tkb.KMAX + 1, 16)))
+def test_cal_plan_fits_the_card(k):
+    """The kernel's launch plan at every depth it takes: four units of 128
+    output columns a block, at most one persistent block an SM, A in whole
+    swizzled [64][64] tiles and B as two [k][64] column tiles, every tile
+    1024-byte aligned (the 128-byte swizzle repeats every 1024 bytes), and
+    three stages in a block's shared memory."""
+    plan = tkb.cal_plan(4096, k, 132)
+    assert plan.grid == 132 and tkb.cal_plan(10, k, 132).grid == 40
+    assert plan.a_bytes == 128 * 64 * 2 * -(-k // 64)
+    assert plan.b_bytes == 2 * k * 64 * 2
+    assert plan.a_bytes % 1024 == 0 and (plan.b_bytes // 2) % 1024 == 0
+    assert (plan.a_bytes + plan.b_bytes) % 1024 == 0
+    assert plan.smem == tkb.SLOTS * (plan.a_bytes + plan.b_bytes) + 1072
+    assert plan.smem <= tkb.SMEM_MAX
+    # the MN-major descriptor's stride between B's column tiles, k * 128
+    # bytes, fits its 14-bit field (in 16-byte units)
+    assert (k * 128) >> 4 < 1 << 14
