@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # the whole smoke run, one card
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown of
-                                       # a few train steps
+                                       # a few train steps of each arm
 
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
@@ -87,10 +87,30 @@ Phases, each fatal on failure (no phase's error is caught):
      instant-NGP census run on its points, and it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
-     decoded with the port's reader.
+     decoded with the port's reader;
+ 14. the fit arm: `make_scene` writes 12 views at 504 x 672 (factor 1, two
+     object-removed ground-truth views, every view masked, the exact hole
+     masks in label_full/; lama_images/ and depth/ are the analytic
+     object-removed renders) and `pipeline.stages.stage_fit` trains the
+     reference's DS-NeRF fit configuration (hash grid 16 x 2^19 x 2 at
+     lr 0.03 / decay 10, COLMAP depth, 4 x 31 x 42 LPIPS patches) for 400
+     steps, each step's metrics and the hash kernels' launches recorded
+     around the step function: lpips_loss exactly 0 up to step 300 and
+     finite and > 0 after, the training PSNR rising, the hash kernels'
+     launches a step higher after step 300 (the patch renders); the step-200
+     sanity panel decoded; the patch loss at fixed views and anchors through
+     the kernels and with the plain encode on the same CUDA tensors; #1
+     and #2 held against their plain version, as in phase 3, on that patch
+     render's fine-pass points (666,624, all in the mask boxes) and on one
+     training batch's; the LPIPS of a full frame on the card against float64 on the CPU (TF32
+     off); `stage_eval` (PSNR, SSIM, LPIPS and their masked forms for both
+     ground-truth views); then a Trainer with --alpha_model_path on the
+     fit's checkpoint trains 20 steps: its density is the frozen field's,
+     bit for bit, and the checkpoint's bytes are unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -519,14 +539,33 @@ def compare_kernels(trainer, x):
     return records
 
 
-def hash_inputs(shape, dev):
-    """The random table and cotangent that phase 3 holds #1/#2 with."""
+def hash_inputs(shape, dev, n=N_POINTS):
+    """The random table and the cotangent of n points that phase 3 holds
+    #1/#2 with."""
     import torch
     table = torch.randn(shape, generator=torch.Generator().manual_seed(2)
                         ).to(dev)
-    g = torch.randn((N_POINTS, 2 * shape[0]), generator=torch.Generator()
+    g = torch.randn((n, 2 * shape[0]), generator=torch.Generator()
                     .manual_seed(3)).to(dev)
     return table, g
+
+
+@contextlib.contextmanager
+def recorded_encodes():
+    """Within the block, each call of the windowed encode
+    (`hash_encode_win_fused`, as the hash-grid field makes it) also appends
+    a copy of its points [N, 3] to the list it yields."""
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    calls, fused = [], hw.hash_encode_win_fused
+
+    def record(table, x, res, bounds=None, boxes=None):
+        calls.append(x.detach().clone())
+        return fused(table, x, res, bounds, boxes)
+    hw.hash_encode_win_fused = record
+    try:
+        yield calls
+    finally:
+        hw.hash_encode_win_fused = fused
 
 
 def bank_points(trainer, n_rays, seed):
@@ -1740,10 +1779,364 @@ def disk_arm(exp_root, argv):
     return counts, held_fwd, held
 
 
-def profile_steps(trainer, step_ms, n_steps=5):
+FIT_H, FIT_W = 504, 672     # written and trained at factor 1
+FIT_STEPS, LPIPS_START = 400, 300
+FIT_PATCH_RTOL = 1e-4       # the patch loss, kernels against plain version
+LPIPS_F64_RTOL = 1e-5       # the card's LPIPS against float64 on the CPU
+
+
+class StepRecorder:
+    """Wraps the step function that `Trainer` builds (`train.loop.
+    make_train_step`): keeps each step's metrics (device tensors, read after
+    the run) and, on entering or leaving the steps named in `edges`,
+    synchronises and notes the host clock and the hash kernels' launch
+    counts. It also keeps the patch-LPIPS function the Trainer passed."""
+
+    def __init__(self, edges):
+        self.edges = set(edges)
+        self.metrics = {}
+        self.marks = {}
+        self.lpips_fn = None
+
+    def mark(self, key):
+        import torch
+
+        from spinnerf_tpu_torch.ops import hash_encode_win as hw
+        if key in self.edges:
+            torch.cuda.synchronize()
+            self.marks[key] = (time.perf_counter(), dict(hw.launches))
+
+    def wrap(self, make_train_step):
+        def make(*args, **kw):
+            self.lpips_fn = kw.get("lpips_fn")
+            step = make_train_step(*args, **kw)
+
+            def recorded(i, generator=None):
+                self.mark(("enter", i))
+                self.metrics[i] = step(i, generator)
+                self.mark(("exit", i))
+                return self.metrics[i]
+            recorded.loss_fn = step.loss_fn
+            recorded.field_fns = step.field_fns
+            return recorded
+        return make
+
+    def window(self, first, last, skip=None):
+        """(host seconds, {kernel: launches}) from entering step `first` to
+        leaving step `last`, less the gap between leaving and entering the
+        steps of `skip` (a hook between them)."""
+        t0, c0 = self.marks[("enter", first)]
+        t1, c1 = self.marks[("exit", last)]
+        dt = t1 - t0
+        counts = {k: c1[k] - c0[k] for k in c1}
+        if skip is not None:
+            s0, d0 = self.marks[("exit", skip[0])]
+            s1, d1 = self.marks[("enter", skip[1])]
+            dt -= s1 - s0
+            counts = {k: counts[k] - (d1[k] - d0[k]) for k in counts}
+        return dt, counts
+
+
+def fit_arm(exp_root, argv):
+    """Phase 14: the inpainting fit stage from a scene directory through
+    `pipeline.stages.stage_fit` (400 steps; the patch-LPIPS term from step
+    301) and `stage_eval`, then a frozen-density Trainer on the fit's
+    checkpoint. #1 and #2 are held against their plain version on the
+    points of the patch render's fine pass and of one training batch's.
+    Returns the hash kernels' launches a step over steps 1-300 and
+    301-400, and {"patch" or "train": (hold_fwd's, hold_bwd's results)}."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.core import sampling
+    from spinnerf_tpu_torch.data import raybank, synthetic
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.models import lpips as lpips_lib
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.pipeline import stages
+    from spinnerf_tpu_torch.train import loop, lpips_patch
+
+    # 1. the scene: 2 object-removed ground-truth views, every view masked,
+    # the exact hole masks in label_full/; lama_images/ and depth/ are the
+    # analytic object-removed renders (`tools/full_run.py
+    # --analytic-guidance`)
+    scene_dir = exp_root / "fit_scene"
+    shutil.rmtree(scene_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.make_scene(scene_dir, n_views=N_VIEWS, h=FIT_H, w=FIT_W,
+                         factor=1, n_points=3000, n_gt=2,
+                         gt_mask_subdir="label_full")
+    write_s = time.perf_counter() - t0
+
+    # 2. the reference's DS-NeRF fit configuration (`tools/full_run.py:
+    # 128-147`, the hash grid's lr 0.03 / decay 10); stage_fit sets
+    # lpips=True and prepare=False
+    cfg = Config(expname="fit", basedir=str(exp_root), datadir=str(scene_dir),
+                 dataset_type="llff", N_gt=2, factor=1, N_rand=1024,
+                 N_samples=64, N_importance=64, use_viewdirs=True,
+                 raw_noise_std=1.0, colmap_depth=True, depth_loss=True,
+                 depth_lambda=0.1, no_ndc=True, lindisp=True, render_factor=1,
+                 i_feat=200, feat_weight=0.1, lrate=0.03, lrate_decay=10,
+                 white_bkgd=True, masks_gt_subdir="label_full", i_weights=400,
+                 i_video=0, i_testset=0, i_print=100, lpips_batch_size=4,
+                 lpips_render_factor=2, patch_len_factor=8, no_reload=True,
+                 N_iters=FIT_STEPS)
+
+    # 3. stage_fit, its steps recorded
+    rec = StepRecorder([("enter", 1), ("enter", 11), ("exit", 200),
+                        ("enter", 201), ("exit", LPIPS_START),
+                        ("enter", LPIPS_START + 1), ("exit", FIT_STEPS)])
+    make_train_step = loop.make_train_step
+    loop.make_train_step = rec.wrap(make_train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tr = stages.stage_fit(cfg, n_iters=FIT_STEPS, log=log)
+    finally:
+        loop.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated() / 2 ** 30
+    enc = tr.model.encoder
+    setup_s = rec.marks[("enter", 1)][0] - t0
+    ph, pw = lpips_patch.patch_size(tr.scene.hwf, cfg.lpips_render_factor,
+                                    cfg.patch_len_factor)
+    log(f"[setup fit] scene written in {write_s:.3f} s ({N_VIEWS} views at "
+        f"{FIT_W} x {FIT_H}, factor 1, 2 ground-truth views); stage_fit's "
+        f"Trainer in {setup_s:.3f} s (scene load {tr.load_s['scene']:.3f} s,"
+        f" sparse depth {tr.load_s['sparse_depth']:.4f} s); images "
+        f"{tr.scene.images.shape}, train views {tr.i_train.tolist()}, test "
+        f"views {tr.i_test.tolist()}, rays per step "
+        f"{cfg.N_rand * tr._batches_per_step()}, encoder {enc.impl} "
+        f"{tuple(enc.table.shape)}, LPIPS patches {cfg.lpips_batch_size} x "
+        f"{ph} x {pw}")
+    if tuple(enc.table.shape) != (16, 1 << 19, 2) or enc.impl != "win":
+        raise AssertionError("the fit arm is not the 16 x 2^19 x 2 win field")
+    if rec.lpips_fn is None or list(tr.i_test) != [0, 1]:
+        raise AssertionError("the fit has no patch term or other test views")
+
+    ms = {i: {k: float(v) for k, v in m.items()}
+          for i, m in sorted(rec.metrics.items())}
+    if sorted(ms) != list(range(1, FIT_STEPS + 1)):
+        raise AssertionError(f"recorded steps {sorted(ms)[:3]}...")
+    lp_before = [ms[i]["lpips_loss"] for i in range(1, LPIPS_START + 1)]
+    lp_after = [ms[i]["lpips_loss"]
+                for i in range(LPIPS_START + 1, FIT_STEPS + 1)]
+    dt_a, c_a = rec.window(11, LPIPS_START, skip=(200, 201))
+    dt_b, c_b = rec.window(LPIPS_START + 1, FIT_STEPS)
+    _, c_1 = rec.window(1, LPIPS_START, skip=(200, 201))
+    hook_s = rec.marks[("enter", 201)][0] - rec.marks[("exit", 200)][0]
+    step_a = dt_a * 1e3 / (LPIPS_START - 10)
+    step_b = dt_b * 1e3 / (FIT_STEPS - LPIPS_START)
+    per_a = {k: v / LPIPS_START for k, v in c_1.items()}
+    per_b = {k: v / (FIT_STEPS - LPIPS_START) for k, v in c_b.items()}
+    p_first = float(np.mean([ms[i]["psnr"] for i in range(1, 11)]))
+    p_last = float(np.mean([ms[i]["psnr"]
+                            for i in range(FIT_STEPS - 9, FIT_STEPS + 1)]))
+    log(f"[train fit] {FIT_STEPS} steps in {fit_s:.3f} s: {step_a:.3f} "
+        f"ms/step (steps 11-{LPIPS_START}, step 200's panel hook "
+        f"{hook_s:.3f} s left out), {step_b:.3f} ms/step (steps "
+        f"{LPIPS_START + 1}-{FIT_STEPS}, with the patch term); PSNR mean of "
+        f"steps 1-10 {p_first:.3f} -> steps {FIT_STEPS - 9}-{FIT_STEPS} "
+        f"{p_last:.3f}; lpips_loss steps {LPIPS_START + 1}-{FIT_STEPS} "
+        f"{min(lp_after):.6f}-{max(lp_after):.6f} (mean "
+        f"{np.mean(lp_after):.6f}); loss step {FIT_STEPS} "
+        f"{ms[FIT_STEPS]['loss']:.5f}; hash launches a step {per_a} (steps "
+        f"1-{LPIPS_START}) and {per_b} (steps {LPIPS_START + 1}-"
+        f"{FIT_STEPS}); peak memory {peak_fit:.2f} GiB")
+    if any(v != 0.0 for v in lp_before):
+        raise AssertionError("lpips_loss is not 0 before its start step")
+    if not all(math.isfinite(v) and v > 0 for v in lp_after):
+        raise AssertionError("lpips_loss is not finite and > 0 after 300")
+    if not all(math.isfinite(m["loss"]) for m in ms.values()):
+        raise AssertionError("the fit's loss is not finite")
+    if not p_last > p_first:
+        raise AssertionError("the fit's PSNR did not rise")
+    for k in ("fwd", "bwd"):
+        if not 0 < per_a[k] < per_b[k]:
+            raise AssertionError(f"hash {k} launches a step {per_a[k]} then "
+                                 f"{per_b[k]}: the patch renders must add")
+
+    # 4. the step-200 sanity panel
+    panel = read_png(tr.exp_dir / "test_renders" / "fit_fit_000200.png")
+    if panel.shape != (FIT_H, 3 * FIT_W, 3) or not panel.std() > 0:
+        raise AssertionError(f"sanity panel {panel.shape}, constant or wrong")
+    log(f"[hooks fit] step-200 sanity panel {panel.shape}")
+
+    # 5. the patch term at fixed views and anchors, through the kernels and
+    # with the hash encode's plain version on the same CUDA tensors
+    lpips_fn = rec.lpips_fn
+    views = torch.arange(cfg.lpips_batch_size)
+    u = torch.as_tensor(np.random.RandomState(0).rand(
+        cfg.lpips_batch_size, 2), dtype=torch.float32)
+    fused = hw.hash_encode_win_fused
+    with torch.no_grad():
+        n0 = dict(hw.launches)
+        with recorded_encodes() as patch_x:
+            lp_k = float(lpips_fn(views=views, u=u))
+        n1 = dict(hw.launches)
+        hw.hash_encode_win_fused = (
+            lambda table, x, res, pb=None, db=None:
+            hw.hash_encode_plain(table, x, res, pb, db))
+        try:
+            lp_p = float(lpips_fn(views=views, u=u))
+        finally:
+            hw.hash_encode_win_fused = fused
+        n2 = dict(hw.launches)
+    patch_rel = abs(lp_k - lp_p) / abs(lp_p)
+    gen = torch.Generator(tr.device).manual_seed(1)
+    for _ in range(3):
+        lpips_fn(gen).backward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        lpips_fn(gen).backward()
+    torch.cuda.synchronize()
+    patch_ms = (time.perf_counter() - t0) * 1e3 / 10
+    tr.optimizer.zero_grad()
+    log(f"[patch fit] views {views.tolist()}, u {u.tolist()}: loss through "
+        f"the kernels {lp_k:.8f} ({n1['fwd'] - n0['fwd']} forward "
+        f"launches), plain {lp_p:.8f}: {patch_rel:.3e} relative (bound "
+        f"{FIT_PATCH_RTOL}); the patch term forward + backward "
+        f"{patch_ms:.3f} ms (host clock, 10 calls)")
+    if n1["fwd"] - n0["fwd"] < 2 or n2 != n1:
+        raise AssertionError(f"patch render launches: {n0} -> {n1} -> {n2}")
+    if not patch_rel <= FIT_PATCH_RTOL:
+        raise AssertionError("the patch loss's kernels and plain version "
+                             "disagree")
+
+    # #1 and #2 on the points of that patch render's fine pass (all in the
+    # mask boxes) and of one training batch's fine pass (step 300's draw,
+    # no patch term), as phase 3 holds them on its own points
+    with torch.no_grad(), recorded_encodes() as train_x:
+        tr.step_fn.loss_fn(LPIPS_START,
+                           torch.Generator(tr.device).manual_seed(2))
+    n_samples = cfg.N_samples + cfg.N_importance
+    want = {"patch": cfg.lpips_batch_size * ph * pw * n_samples,
+            "train": cfg.N_rand * tr._batches_per_step() * n_samples}
+    held = {}
+    for tag, calls in (("patch", patch_x), ("train", train_x)):
+        x = max(calls, key=len)
+        if x.shape != (want[tag], 3):
+            raise AssertionError(f"the {tag} fine pass encodes "
+                                 f"{tuple(x.shape)} points")
+        scatter_census(f"fit {tag}", x, enc.resolutions, enc.table.shape[1],
+                       enc.bounds, enc._boxes)
+        table, g = hash_inputs(enc.table.shape, tr.device, len(x))
+        held[tag] = (hold_fwd(f"fit {tag}", x, enc.resolutions, enc.bounds,
+                              enc._boxes, table),
+                     hold_bwd(f"fit {tag}", x, enc.resolutions, enc.bounds,
+                              enc._boxes, table, g))
+        del x, table, g
+    del patch_x, train_x
+    torch.cuda.empty_cache()
+
+    # 6. LPIPS of one full frame on the card against float64 on the CPU
+    rgbs, _ = tr.render_poses_list(tr.scene.poses[tr.i_test[:1]])
+    pred = torch.as_tensor(rgbs[0])
+    gt = torch.as_tensor(tr.scene.images[tr.i_test[0]])
+    lp_card = lpips_lib.load_lpips(device=tr.device)
+    pred_c, gt_c = pred.to(tr.device), gt.to(tr.device)
+    with torch.no_grad():
+        d32 = float(lp_card(pred_c, gt_c))
+        conv_ctx = lpips_lib._f32_convs
+        lpips_lib._f32_convs = contextlib.nullcontext
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            d_tf32 = float(lp_card(pred_c, gt_c))
+        finally:
+            lpips_lib._f32_convs = conv_ctx
+            torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        d64 = float(lpips_lib.load_lpips(device="cpu").double()(
+            pred.double(), gt.double()))
+        cpu_s = time.perf_counter() - t0
+    lp_rel = abs(d32 - d64) / abs(d64)
+    log(f"[lpips fit] view {tr.i_test[0]} {FIT_W} x {FIT_H}: card {d32:.9f}, "
+        f"float64 on the CPU {d64:.9f} ({cpu_s:.1f} s): {lp_rel:.3e} relative"
+        f" (bound {LPIPS_F64_RTOL}); with TF32 convolutions {d_tf32:.9f}: "
+        f"{abs(d_tf32 - d64) / abs(d64):.3e}")
+    if not lp_rel <= LPIPS_F64_RTOL:
+        raise AssertionError("the card's LPIPS is not float64's")
+
+    # 7. stage_eval
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = stages.stage_eval(cfg, tr, log=log)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    peak_eval = torch.cuda.max_memory_allocated() / 2 ** 30
+    summary = res["summary"]
+    keys = [f"{m}{k}" for m in ("", "masked_")
+            for k in ("psnr", "ssim", "lpips_random_vgg")]
+    log(json.dumps({"eval_fit": {"seconds": eval_s, "peak_gib": peak_eval,
+                                 "summary": summary,
+                                 "per_view": res["per_view"]}}))
+    if sorted(summary) != sorted(keys) or not all(
+            math.isfinite(summary[k]) for k in keys):
+        raise AssertionError(f"eval summary {summary}")
+    if not all(set(keys) <= set(r) for r in res["per_view"]) or len(
+            res["per_view"]) != 2:
+        raise AssertionError("eval has not a masked row for both GT views")
+    if "--profile" in argv:
+        # 5 steps without the patch term (its start moved past them), then
+        # 5 with it
+        lpips_fn.start_iter = 10 ** 9
+        profile_steps(tr, step_a, tag="fit, steps <= 300")
+        lpips_fn.start_iter = LPIPS_START
+        profile_steps(tr, step_b, tag="fit, steps > 300")
+
+    # 8. the frozen-density run on the fit's checkpoint
+    ckpts = sorted((tr.exp_dir / "checkpoints").glob("*.pt"))
+    digest = [hashlib.sha256(p.read_bytes()).hexdigest() for p in ckpts]
+    cfg2 = dataclasses.replace(tr.cfg, expname="fit_frozen",
+                               alpha_model_path=str(tr.exp_dir), i_feat=0,
+                               i_weights=0)
+    t0 = time.perf_counter()
+    tr2 = loop.Trainer(cfg2, log=log)
+    loss2 = float(tr2.fit(20, hooks=False)["loss"])
+    torch.cuda.synchronize()
+    frozen_s = time.perf_counter() - t0
+    state = torch.load(ckpts[-1], map_location=tr.device, weights_only=True)
+    fine = {k[5:]: v for k, v in state["params"].items()
+            if k.startswith("fine.")}
+    for name, p in tr2.frozen.state_dict().items():
+        if not torch.equal(p, fine[name]):
+            raise AssertionError(f"the frozen field's {name} moved")
+    if [hashlib.sha256(p.read_bytes()).hexdigest() for p in ckpts] != digest:
+        raise AssertionError("the frozen checkpoint's bytes changed")
+    batch, _ = raybank.sample_group(tr2.bank, "clf", 1024, step=1)
+    z = sampling.stratified_z_vals(batch["near"], batch["far"], 64,
+                                   lindisp=True, perturb=False)
+    pts = sampling.ray_points(batch["origins"], batch["directions"], z)
+    with torch.no_grad():
+        want = tr2.frozen(pts, batch["viewdirs"])[..., 3]
+        got = [fn(pts, batch["viewdirs"])[..., 3]
+               for fn in tr2.step_fn.field_fns]
+        own = tr2.fields["fine"](pts, batch["viewdirs"])[..., 3]
+    log(f"[frozen fit] Trainer with --alpha_model_path and 20 steps in "
+        f"{frozen_s:.3f} s, loss at step 20 {loss2:.5f}; density of both "
+        f"passes equal to the frozen "
+        f"field's at {pts.shape[0] * pts.shape[1]} points: "
+        f"{[bool(torch.equal(g, want)) for g in got]}; the trained field's "
+        f"own density differs at {int((own != want).sum())} of them; "
+        f"checkpoint {ckpts[-1].name} unchanged")
+    if not math.isfinite(loss2) or not all(torch.equal(g, want)
+                                           for g in got):
+        raise AssertionError("the frozen run's density is not the frozen "
+                             "field's")
+    return per_a, per_b, held
+
+
+def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
-    time `step_ms`."""
+    time `step_ms`; `tag` names the arm (default: the experiment)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     start = trainer.step
@@ -1767,6 +2160,7 @@ def profile_steps(trainer, step_ms, n_steps=5):
                 "launches_per_step": c / n_steps}
 
     log(json.dumps({"profile": {
+        "arm": tag or trainer.cfg.expname,
         "steps": n_steps, "device_ms_per_step": device_ms,
         "step_ms_unprofiled": step_ms,
         "device_busy_share": device_ms / step_ms,
@@ -1900,6 +2294,21 @@ def main(argv):
                       disk_point_base_ms=disk_fwd[3])
     records[1].update(disk_ms=ms, disk_plain_ms=plain_ms,
                       disk_max_abs_err=err)
+    torch.cuda.empty_cache()
+
+    # 14. the fit arm: stage_fit with the patch-LPIPS term, stage_eval and
+    # the frozen-density mode
+    fit_a, fit_b, fit_held = fit_arm(exp_root, argv)
+    for r in records:
+        k = r["name"].rsplit("_", 1)[1]
+        r["fit_launches_per_step"] = {
+            f"steps_1_{LPIPS_START}": fit_a[k],
+            f"steps_{LPIPS_START + 1}_{FIT_STEPS}": fit_b[k]}
+    for tag, (fwd, bwd) in fit_held.items():
+        for r, (err, ms, plain_ms) in ((records[0], fwd[:3]),
+                                       (records[1], bwd)):
+            r.update({f"fit_{tag}_ms": ms, f"fit_{tag}_plain_ms": plain_ms,
+                      f"fit_{tag}_max_abs_err": err})
 
     for r in records:
         r["launches"] = hash_counts[r["name"].rsplit("_", 1)[1]]

@@ -1,10 +1,11 @@
-"""Carry the JAX package's field parameters across to the port.
+"""Carry the JAX package's parameters across to the port.
 
 `fields_state_dicts` takes the JAX parameter tree as numpy arrays — what
 `jax.tree.map(np.asarray, params)` gives for `init_params`' {"coarse",
 "fine"} — and returns one state dict per field: `HashGridField` and
 `NeRFField` from flax trees, `FusedMLPField` from the fused weight dict.
 flax Dense kernels are [in, out]; `nn.Linear.weight` is [out, in].
+`lpips_state_dict` does the same for the LPIPS VGG16 and its heads.
 """
 from __future__ import annotations
 
@@ -55,3 +56,20 @@ def nerf_field_tree(model) -> dict:
         name: {"kernel": lin.weight.detach().cpu().numpy().T.copy(),
                "bias": lin.bias.detach().cpu().numpy().copy()}
         for name, lin in model.named_children()}}
+
+
+def lpips_state_dict(vgg_params, lin) -> dict:
+    """The JAX LPIPS parameters (`load_lpips(...).consts`: the flax VGG16
+    tree and the five heads; numpy or JAX leaves) -> the state dict of
+    `models.lpips.LPIPS`. flax Conv kernels are [kh, kw, in, out]; torch's
+    are [out, in, kh, kw]."""
+    tree = vgg_params.get("params", vgg_params)
+    out = {}
+    for name, leaf in tree.items():
+        out[f"vgg.{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(np.array(leaf["kernel"], np.float32), (3, 2, 0, 1))))
+        out[f"vgg.{name}.bias"] = torch.from_numpy(
+            np.array(leaf["bias"], np.float32))
+    for i, w in enumerate(lin):
+        out[f"lin{i}"] = torch.from_numpy(np.array(w, np.float32))
+    return out

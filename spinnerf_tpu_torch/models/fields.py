@@ -77,9 +77,11 @@ class NeRFField(nn.Module):
         return (nn.functional.linear(h.to(dt), lin.weight.to(dt))
                 + lin.bias.to(dt))
 
-    def forward(self, pts, viewdirs=None):
+    def forward(self, pts, viewdirs=None, frozen_sigma=None):
         """pts [..., 3]; viewdirs [B, 3] against pts [B, S, 3]. Returns
-        [..., 4 (+1)] float32."""
+        [..., 4 (+1)] float32. `frozen_sigma` [..., 1] (the frozen-density
+        mode, already detached by the caller) is the density, and the sigma
+        head is not applied."""
         dt = self.compute_dtype
         pe = positional_encoding(pts, self.multires).to(dt)
         h = pe
@@ -87,7 +89,8 @@ class NeRFField(nn.Module):
             h = torch.relu(self._dense(f"trunk_{i}", h))
             if i in self.skips:
                 h = torch.cat([pe, h], dim=-1)
-        sigma = self._dense("sigma_head", h).float()
+        sigma = (frozen_sigma.float() if frozen_sigma is not None
+                 else self._dense("sigma_head", h).float())
         heads = [self._dense("semantic_head", h).float()] if self.semantic \
             else []
         if self.use_viewdirs:

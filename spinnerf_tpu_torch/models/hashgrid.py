@@ -97,9 +97,11 @@ def level_resolutions(n_levels: int, base_res: int, finest_res: float):
 
 
 def _lecun_normal_(weight, generator):
-    """flax's default Dense kernel init (truncated normal, variance 1/fan_in),
-    drawn on the CPU so a seed gives the same weights on every device."""
-    fan_in = weight.shape[1]
+    """flax's default Dense and Conv kernel init (truncated normal, variance
+    1/fan_in; fan_in the inputs of one output: [out, in] or [out, in, kh,
+    kw]), drawn on the CPU so a seed gives the same weights on every
+    device."""
+    fan_in = weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     w = torch.empty(weight.shape, dtype=torch.float32)
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std,
@@ -260,10 +262,12 @@ class HashGridField(nn.Module):
         dt = self.compute_dtype
         return nn.functional.linear(h, lin.weight.to(dt), lin.bias.to(dt))
 
-    def forward(self, pts, viewdirs):
+    def forward(self, pts, viewdirs, frozen_sigma=None):
         """pts [..., 3] world coords in [-bound, bound]; viewdirs [B, 3] unit,
         broadcast over the sample axis of pts [B, S, 3]. Returns
-        [..., 4(+1)] float32."""
+        [..., 4(+1)] float32. `frozen_sigma` [..., 1] (the frozen-density
+        mode, already detached by the caller) replaces the density column;
+        the sigma net still runs, for the geometry features."""
         if viewdirs is None:
             raise ValueError("HashGridField requires view directions")
         dt = self.compute_dtype
@@ -288,5 +292,7 @@ class HashGridField(nn.Module):
         for i in range(self.num_layers_color - 1):
             c = torch.relu(self._dense(f"color_{i}", c))
         rgb = self._dense("color_out", c).float()
+        if frozen_sigma is not None:
+            sigma = frozen_sigma.reshape(-1, 1).float()
         raw = torch.cat([rgb, sigma] + heads, dim=-1)
         return raw.reshape(*shape, raw.shape[-1])

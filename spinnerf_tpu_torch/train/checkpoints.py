@@ -1,7 +1,8 @@
 """Checkpoints: `torch.save` of {step, params, opt_state} every
 `save_interval` steps under <exp_dir>/checkpoints, the newest restored on
-resume, and `--ft_path` loading (port of `spinnerf_tpu/train/checkpoints.py`,
-which uses orbax; the port reads its own files, not orbax's).
+resume, `--ft_path` loading and the frozen field of `--alpha_model_path`
+(port of `spinnerf_tpu/train/checkpoints.py`, which uses orbax; the port
+reads its own files, not orbax's).
 """
 from __future__ import annotations
 
@@ -84,3 +85,21 @@ def restore_from_path(path, *, map_location=None):
     step = data.get("step", int(m.group(1)) if m else 0)
     return step, {"params": data["params"],
                   "opt_state": data.get("opt_state")}
+
+
+def frozen_field_state(exp_dir, *, map_location=None):
+    """The state dict of the field that `--alpha_model_path` freezes: the
+    newest checkpoint of experiment `exp_dir`, its "fine" field where it has
+    one, else its "coarse" (JAX `train/loop.py:287-306`). Raises
+    FileNotFoundError when the experiment has no checkpoint."""
+    exp = Path(exp_dir)
+    step = None
+    if (exp / "checkpoints").is_dir():
+        step, restored = CheckpointManager(exp).restore(
+            map_location=map_location)
+    if step is None:
+        raise FileNotFoundError(f"--alpha_model_path {exp}: no checkpoint")
+    params = restored["params"]
+    key = "fine" if any(k.startswith("fine.") for k in params) else "coarse"
+    return {k[len(key) + 1:]: v for k, v in params.items()
+            if k.startswith(key + ".")}

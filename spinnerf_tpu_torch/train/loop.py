@@ -3,11 +3,14 @@
 `no_tcnn`, the MLP field).
 
 The scene is handed in or loaded from `datadir` (`data/dispatch.py`), with
-COLMAP sparse depth under `--colmap_depth`; `--ft_path` loads weights.
-Hooks ported, at the JAX cadences: console metrics and the live control file
-(`i_print`), checkpoints (`i_weights`), the spiral videos (`i_video`), the
-testset dump with its PSNR (`i_testset`), the prepare-mode disparity dump for
-LaMa (`i_feat`, forced at the last step of every `fit`), and the
+COLMAP sparse depth under `--colmap_depth`; `--ft_path` loads weights;
+`--lpips` adds stage 5's patch-LPIPS term on a scene with masks;
+`--alpha_model_path` takes the density from another experiment's frozen
+field. Hooks ported, at the JAX cadences: console metrics and the live
+control file (`i_print`), checkpoints (`i_weights`), the spiral videos
+(`i_video`), the testset dump with its PSNR (`i_testset`), the prepare-mode
+disparity dump for LaMa (`i_feat`, forced at the last step of every `fit`)
+and, outside prepare mode, the sanity panel (`i_feat` > 10), and the
 `page_bounds.json` sidecar that pins the hash index semantics to the
 experiment. The JAX trainer's other options and hooks raise
 NotImplementedError naming their ROADMAP.md entry instead of being
@@ -34,11 +37,14 @@ from spinnerf_tpu_torch.models.hashgrid import (HashGridField,
                                                 calibrate_dense_box,
                                                 calibrate_page_bounds,
                                                 level_resolutions)
+from spinnerf_tpu_torch.models.lpips import load_lpips
 from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
 from spinnerf_tpu_torch.train import checkpoints, schedule
+from spinnerf_tpu_torch.train.lpips_patch import make_patch_lpips_fn
 from spinnerf_tpu_torch.train.step import (TrainConfig, _active_groups,
                                            init_params, make_train_step)
 from spinnerf_tpu_torch.utils.live_control import LiveControl
+from spinnerf_tpu_torch.utils.visualization import sanity_panel
 
 _QUEUE_A = "ROADMAP.md queue A"
 
@@ -106,6 +112,18 @@ def _scene_hash_calibration(bank, model):
             calibrate_dense_box(x01, resolutions, model.log2_table_size))
 
 
+def _read_page_bounds(path: Path):
+    """(page bounds, dense boxes) pinned by a `page_bounds.json` sidecar; a
+    sidecar without "dense_box" pins dense_box=None."""
+    data = json.loads(path.read_text())
+    bounds = data["page_bounds"]
+    bounds = None if bounds is None else tuple(int(c) for c in bounds)
+    box = data.get("dense_box")
+    box = (None if box is None else tuple(
+        None if b is None else tuple(int(v) for v in b) for b in box))
+    return bounds, box
+
+
 def render_config(cfg: Config, *, train: bool) -> RenderConfig:
     return RenderConfig(
         n_samples=cfg.N_samples,
@@ -147,12 +165,6 @@ def train_config(cfg: Config) -> TrainConfig:
 
 
 def _check_ported(cfg: Config):
-    if cfg.lpips:
-        raise _unported("the patch-LPIPS loss (--lpips; models/lpips.py, "
-                        "train/lpips_patch.py)", _QUEUE_A)
-    if cfg.alpha_model_path:
-        raise _unported("the frozen-density mode (--alpha_model_path)",
-                        _QUEUE_A)
     if cfg.mesh_shape > 1:
         raise _unported("data parallelism over several cards (--mesh_shape)",
                         _QUEUE_A)
@@ -176,13 +188,7 @@ class Trainer:
                 f"are disposable).")
         path = self.exp_dir / "page_bounds.json"
         if path.exists():
-            data = json.loads(path.read_text())
-            saved = data["page_bounds"]
-            saved = None if saved is None else tuple(int(c) for c in saved)
-            saved_box = data.get("dense_box")
-            saved_box = (None if saved_box is None else tuple(
-                None if b is None else tuple(int(v) for v in b)
-                for b in saved_box))
+            saved, saved_box = _read_page_bounds(path)
             if saved != bounds or saved_box != dense_box:
                 self.log(
                     f"page_bounds: using the experiment's pinned value from "
@@ -258,8 +264,24 @@ class Trainer:
         self.optimizer = schedule.make_optimizer(
             self.fields.named_parameters(), cfg.lrate, cfg.lrate_decay,
             cfg.grad_clip, table_wd=cfg.table_wd)
+        lpips_fn = None
+        if cfg.lpips and self.scene.masks is not None:
+            lpips_fn = make_patch_lpips_fn(
+                self.fields, self.scene, self.i_train,
+                lpips=load_lpips(device=self.device),
+                render=render_config(cfg, train=False), near=self.bank.near,
+                far=self.bank.far, ndc=self.bank.ndc,
+                lpips_render_factor=cfg.lpips_render_factor,
+                patch_len_factor=cfg.patch_len_factor,
+                batch_size=cfg.lpips_batch_size)
+        # NeRF_RGB mode: the density comes, gradient-free, from a frozen
+        # pretrained field (`--alpha_model_path`), built like the coarse one
+        self.frozen = None
+        if cfg.alpha_model_path:
+            self.frozen = self._frozen_field()
         self.step_fn = make_train_step(self.fields, self.tcfg, self.bank,
-                                       self.optimizer)
+                                       self.optimizer, lpips_fn=lpips_fn,
+                                       frozen_raw_fn=self.frozen)
         # draws the stratified jitter and importance uniforms on the device
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.step = 0
@@ -281,6 +303,28 @@ class Trainer:
                 self.optimizer.load_state_dict(restored["opt_state"])
             self.step = step
             self.log(f"resumed from checkpoint at step {step}")
+
+    def _frozen_field(self):
+        """The `--alpha_model_path` experiment's field (fine, else coarse),
+        frozen and built like the coarse one. A hash-grid field reads its
+        table under the index it was trained with: that experiment's own
+        `page_bounds.json`, which must exist."""
+        alpha = Path(self.cfg.alpha_model_path)
+        state = checkpoints.frozen_field_state(alpha,
+                                               map_location=self.device)
+        bounds = dense_box = None
+        if isinstance(self.model, HashGridField):
+            side = alpha / "page_bounds.json"
+            if not side.exists():
+                raise ValueError(
+                    f"--alpha_model_path {alpha}: no page_bounds.json, so "
+                    f"the index its hash table was trained under is unknown")
+            bounds, dense_box = _read_page_bounds(side)
+        field = build_model(self.cfg, semantic=self.cfg.mvseg,
+                            device=self.device, page_bounds=bounds,
+                            dense_box=dense_box)
+        field.load_state_dict(state)
+        return field.requires_grad_(False)
 
     def field_fns(self):
         """(coarse, fine) field callables (pts, viewdirs) -> raw."""
@@ -372,6 +416,22 @@ class Trainer:
         self.log(f"[{step}] wrote LaMa guidance inputs to {out}")
         return out
 
+    def _sanity_panel_hook(self, step):
+        """The 3-panel render / inpainted-depth prior / disparity image of
+        one training view (`run_nerf.py:1581-1597`), written under
+        <expdir>/test_renders/."""
+        idx = int(np.random.RandomState(step).choice(self.i_train))
+        rgbs, disps = self.render_poses_list(self.scene.poses[idx:idx + 1])
+        out = self.exp_dir / "test_renders"
+        out.mkdir(exist_ok=True)
+        prior = (self.scene.inpainted_depths[idx]
+                 if self.scene.inpainted_depths is not None
+                 else np.zeros(self.scene.images[idx].shape[:2]))
+        path = out / f"{self.cfg.expname}_{step:06d}.png"
+        sanity_panel(rgbs[0], prior, disps[0], path)
+        self.log(f"[{step}] wrote the sanity panel {path}")
+        return path
+
     def _check_hooks(self, start: int, n_iters: int):
         """Raise before training if an unported hook would fire in range."""
         cfg = self.cfg
@@ -380,9 +440,6 @@ class Trainer:
         def fires(every):
             return bool(every) and any(i % every == 0 for i in steps)
 
-        if not cfg.prepare and cfg.i_feat > 10 and fires(cfg.i_feat):
-            raise _unported("the sanity-panel hook (i_feat without --prepare; "
-                            "utils/visualization.py)", _QUEUE_A)
         if cfg.mvseg and fires(cfg.i_img):
             raise _unported("the MVSeg panel hook (i_img)", _QUEUE_A)
 
@@ -423,4 +480,7 @@ class Trainer:
             if cfg.prepare and cfg.i_feat and (i % cfg.i_feat == 0
                                                or i == n_iters):
                 self._prepare_hook(i)
+            elif (not cfg.prepare and cfg.i_feat > 10
+                  and i % cfg.i_feat == 0):
+                self._sanity_panel_hook(i)
         return metrics

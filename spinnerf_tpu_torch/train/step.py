@@ -12,7 +12,10 @@ composite. Loss terms:
   sigma  optional URF sigma loss on the depth rays
   seg    MVSeg BCE on composited logits
   distortion  optional mip-NeRF 360 regularizer
-The patch-LPIPS term of stage 5 is not ported yet (ROADMAP.md queue A).
+  lpips  stage 5's patch-LPIPS term (`train/lpips_patch.py`), after its
+         start step
+With a frozen field (`--alpha_model_path`) the density comes, without a
+gradient, from that field.
 """
 from __future__ import annotations
 
@@ -79,19 +82,37 @@ def _concat_batches(batches: list[dict]) -> dict:
     return {k: torch.cat([b[k] for b in batches]) for k in keys}
 
 
+def _with_frozen_sigma(field, frozen_raw_fn):
+    def field_fn(pts, viewdirs):
+        with torch.no_grad():
+            sigma = frozen_raw_fn(pts, viewdirs)[..., 3:4]
+        return field(pts, viewdirs, frozen_sigma=sigma)
+    return field_fn
+
+
 def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
-                    bank: raybank.RayBank, optimizer):
+                    bank: raybank.RayBank, optimizer, *, lpips_fn=None,
+                    frozen_raw_fn=None):
     """Build the train step over `fields` ({"coarse"[, "fine"]}, see
     `init_params`) and `optimizer` (`schedule.make_optimizer` over their
     parameters).
 
+    lpips_fn: optional `lpips_fn(generator) -> scalar` (the patch term of
+      `train/lpips_patch.py`), computed only when step_idx > its
+      `start_iter` (`run_nerf.py:1523`; JAX multiplies it by a 0/1 factor to
+      keep its graph static); otherwise `metrics["lpips_loss"]` is 0.
+    frozen_raw_fn: optional frozen field `(pts, viewdirs) -> raw`, run under
+      `torch.no_grad()`; its column 3 is the density of both passes (the
+      NeRF_RGB / --alpha_model_path mode, `run_nerf_helpers.py:159-216`).
+
     Returns step(step_idx, generator=None) -> metrics, a dict of 0-d
     tensors; it updates the fields in place. `generator` draws the
     stratified jitter and importance-sampling uniforms (with perturb), the
-    density noise and, without epoch sampling or with `single_image`, the
-    batch indices.
+    density noise, the patch term's views and anchors and, without epoch
+    sampling or with `single_image`, the batch indices.
     `step.loss_fn(step_idx, generator)` gives (loss, metrics) without the
-    update."""
+    update; `step.field_fns` are the (coarse, fine) field functions the
+    step renders with."""
     groups = _active_groups(cfg, bank)
     use_depth = (cfg.depth_supervision and bank.depth_group is not None
                  and bank.depth_group.count > 0)
@@ -99,6 +120,9 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
     rcfg = cfg.render
     coarse_fn = fields["coarse"]
     fine_fn = fields["fine"] if "fine" in fields else coarse_fn
+    if frozen_raw_fn is not None:
+        coarse_fn = _with_frozen_sigma(coarse_fn, frozen_raw_fn)
+        fine_fn = _with_frozen_sigma(fine_fn, frozen_raw_fn)
 
     def loss_fn(step_idx: int, generator=None):
         batches, targets = [], []
@@ -211,6 +235,14 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
             loss = loss + cfg.distortion_weight * dist
             metrics["distortion"] = dist
 
+        if lpips_fn is not None:
+            if step_idx > getattr(lpips_fn, "start_iter", 0):
+                lp = lpips_fn(generator)
+                loss = loss + lp
+            else:
+                lp = torch.zeros((), dtype=torch.float32, device=bank.device)
+            metrics["lpips_loss"] = lp
+
         metrics["loss"] = loss
         return loss, metrics
 
@@ -222,6 +254,7 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
         return {k: v.detach() for k, v in metrics.items()}
 
     step.loss_fn = loss_fn
+    step.field_fns = (coarse_fn, fine_fn)
     return step
 
 

@@ -2,8 +2,10 @@
 hash-index sidecar as the JAX Trainer, loads a scene directory with COLMAP
 sparse depth and takes the JAX Trainer's first step there, samples the
 --no_batching batches, checkpoints and --ft_path round-trip, the live control
-file applies, unported options raise, and the package imports neither JAX
-nor the JAX package."""
+file applies, --lpips refuses patches under 16 pixels, --alpha_model_path
+freezes another experiment's density, the fit-mode sanity panel is written,
+unported options raise, and the package imports neither JAX nor the JAX
+package."""
 import dataclasses
 import json
 import subprocess
@@ -24,6 +26,8 @@ from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.convert import fields_state_dicts
 from spinnerf_tpu_torch.data import llff as tllff
 from spinnerf_tpu_torch.data import raybank as traybank
+from spinnerf_tpu_torch.eval.metrics import to8b
+from spinnerf_tpu_torch.eval.render import read_png
 from spinnerf_tpu_torch.models.fields import NeRFField
 from spinnerf_tpu_torch.models.hashgrid import HashGridField
 from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
@@ -148,8 +152,8 @@ def test_idx_trainer_fits_and_psnr_rises(scene_pair, tmp_path, impl):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(dataset_type="blender"), dict(dataset_type="dtu"), dict(lpips=True),
-    dict(alpha_model_path="x"), dict(mesh_shape=2)])
+    dict(dataset_type="blender"), dict(dataset_type="dtu"),
+    dict(mesh_shape=2)])
 def test_unported_options_raise(scene_pair, tmp_path, flag):
     """Through the disk loader (no scene handed in)."""
     d, _, _ = scene_pair
@@ -158,19 +162,114 @@ def test_unported_options_raise(scene_pair, tmp_path, flag):
                 log=lambda *a: None)
 
 
-def test_unported_hooks_raise_before_training(scene_pair, tmp_path):
-    """The sanity panel (i_feat > 10 outside prepare mode) is not ported:
-    fit raises before its first step when the hook would fire."""
+def test_mvseg_panel_hook_raises_before_training(scene_pair, tmp_path):
+    """The MVSeg panel (i_img) is not ported: fit raises before its first
+    step when the hook would fire."""
     d, _, tsc = scene_pair
-    tr = Trainer(tiny(Config, tmp_path, d, prepare=False, i_feat=20),
-                 scene=tsc, device="cpu", log=lambda *a: None)
+    tr = Trainer(tiny(Config, tmp_path, d, mvseg=True, i_img=3), scene=tsc,
+                 device="cpu", log=lambda *a: None)
     tr.fit(2)
+    with pytest.raises(NotImplementedError, match="MVSeg panel"):
+        tr.fit(3)
     assert tr.step == 2
-    with pytest.raises(NotImplementedError, match="sanity-panel"):
-        tr.fit(20)
-    assert tr.step == 2
-    tr.fit(20, hooks=False)
-    assert tr.step == 20
+
+
+def test_lpips_with_too_small_patches_raises(scene_pair, tmp_path):
+    """36 x 44 views at the default factors (2, 8) give 4 x 4 patches: the
+    Trainer refuses them (the JAX package's LPIPS is NaN there); without
+    masks there is no patch term to refuse."""
+    d, _, tsc = scene_pair
+    for kw in (dict(scene=tsc), {}):
+        with pytest.raises(ValueError, match="patch_len_factor 8"):
+            Trainer(tiny(Config, tmp_path, d, prepare=False, lpips=True),
+                    device="cpu", log=lambda *a: None, **kw)
+    tr = Trainer(tiny(Config, tmp_path / "nm", d, prepare=False, lpips=True),
+                 scene=dataclasses.replace(tsc, masks=None), device="cpu",
+                 log=lambda *a: None)
+    assert "lpips_loss" not in tr.fit(1)
+
+
+def test_missing_alpha_checkpoint_raises(scene_pair, tmp_path):
+    d, _, tsc = scene_pair
+    for path in (tmp_path / "none", tmp_path):
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            Trainer(tiny(Config, tmp_path / "t", d,
+                         alpha_model_path=str(path)),
+                    scene=tsc, device="cpu", log=lambda *a: None)
+
+
+def test_alpha_model_path_freezes_the_density(scene_pair, tmp_path):
+    """The frozen field is the alpha experiment's fine field; after training
+    the step's density is still the frozen field's, which neither the
+    optimizer nor the checkpoint file saw change. The alpha experiment is a
+    prepare run with every view in training and the fit holds two views
+    out (N_gt=2), so the two experiments calibrate other page bounds: the
+    frozen field reads its table under its own experiment's, bit for bit
+    the alpha field's density. Without that sidecar the Trainer raises."""
+    d, _, tsc = scene_pair
+    src = Trainer(tiny(Config, tmp_path / "a", d, expname="alpha",
+                       i_weights=2), scene=tsc, device="cpu",
+                  log=lambda *a: None)
+    src.fit(2)
+    ckpt = src.ckpt.path(2).read_bytes()
+    tr = Trainer(tiny(Config, tmp_path / "b", d, prepare=False, N_gt=2,
+                      alpha_model_path=str(src.exp_dir)),
+                 scene=tsc, device="cpu", log=lambda *a: None)
+    assert len(tr.i_train) == len(src.i_train) - 2
+    assert tr.frozen.page_bounds == src.model.page_bounds
+    assert tr.model.page_bounds != src.model.page_bounds
+    for (n, p), q in zip(src.fields["fine"].named_parameters(),
+                         tr.frozen.parameters()):
+        assert torch.equal(p, q) and not q.requires_grad, n
+    frozen = {n: p.clone() for n, p in tr.frozen.named_parameters()}
+    tr.fit(3)
+    assert src.ckpt.path(2).read_bytes() == ckpt
+    for n, p in tr.frozen.named_parameters():
+        assert torch.equal(p, frozen[n]), n
+    batch, _ = traybank.sample_group(tr.bank, "clf", 16, step=1)
+    pts = batch["origins"][:, None] + batch["directions"][:, None] * \
+        torch.linspace(2.0, 4.0, 5)[:, None]
+    with torch.no_grad():
+        want = tr.frozen(pts, batch["viewdirs"])[..., 3]
+        assert torch.equal(src.fields["fine"](pts, batch["viewdirs"])[
+            ..., 3], want)
+        for fn in tr.step_fn.field_fns:
+            assert torch.equal(fn(pts, batch["viewdirs"])[..., 3], want)
+        assert not torch.equal(tr.fields["fine"](pts, batch["viewdirs"])[
+            ..., 3], want)
+    (src.exp_dir / "page_bounds.json").unlink()
+    with pytest.raises(ValueError, match="page_bounds.json"):
+        Trainer(tiny(Config, tmp_path / "c", d, prepare=False,
+                     alpha_model_path=str(src.exp_dir)),
+                scene=tsc, device="cpu", log=lambda *a: None)
+
+
+def test_sanity_panel_hook_writes_its_png(scene_pair, tmp_path):
+    """Outside prepare mode, i_feat > 10 writes the render / prior /
+    disparity panel of one training view at each multiple, then training
+    goes on; i_feat <= 10 writes none."""
+    d, _, tsc = scene_pair
+    tr = Trainer(tiny(Config, tmp_path, d, prepare=False, i_feat=11),
+                 scene=tsc, device="cpu", log=lambda *a: None)
+    tr.fit(12)
+    out = tr.exp_dir / "test_renders"
+    assert sorted(p.name for p in out.iterdir()) == ["t_000011.png"]
+    panel = read_png(out / "t_000011.png")
+    h, w = tsc.images.shape[1:3]
+    assert panel.shape == (h, 3 * w, 3)
+    idx = int(np.random.RandomState(11).choice(tr.i_train))
+    tr2 = Trainer(tiny(Config, tmp_path / "r", d, prepare=False, i_feat=11),
+                  scene=tsc, device="cpu", log=lambda *a: None)
+    tr2.fit(11, hooks=False)
+    rgbs, _ = tr2.render_poses_list(tsc.poses[idx:idx + 1])
+    np.testing.assert_array_equal(panel[:, :w], to8b(rgbs[0]))
+    # the prior and the disparity, each scaled to the full 8-bit range
+    assert panel[:, w:].min() == 0 and panel[:, w:2 * w].max() == 255
+    assert tr.step == 12
+    tr3 = Trainer(tiny(Config, tmp_path / "s", d, prepare=False, i_feat=10),
+                  scene=tsc, device="cpu", log=lambda *a: None)
+    tr3.fit(10)
+    assert not (tr3.exp_dir / "test_renders").exists()
 
 
 def _png_gray(path):
