@@ -106,7 +106,29 @@ Phases, each fatal on failure (no phase's error is caught):
      off); `stage_eval` (PSNR, SSIM, LPIPS and their masked forms for both
      ground-truth views); then a Trainer with --alpha_model_path on the
      fit's checkpoint trains 20 steps: its density is the frozen field's,
-     bit for bit, and the checkpoint's bytes are unchanged.
+     bit for bit, and the checkpoint's bytes are unchanged;
+ 15. LaMa and the whole pipeline: `make_scene` writes 12 views at 504 x
+     672 (two ground-truth views, masks on views 2, 6 and 10 only, the
+     exact masks in label_full/). The big-lama generator (ngf 64, 18
+     blocks; seeded random weights unless big-lama.ckpt is in
+     $SPINNERF_WEIGHTS_DIR) on view 2: its f32 forward (TF32 off) against
+     the same module in float64 on the card, logits within 1e-5 of the
+     largest and the sigmoid output within a quarter of that (its slope
+     is at most 1/4); its time (CUDA events, 20 runs), launches, peak
+     memory and bound (operations counted from the shapes), TF32's error
+     and time beside; one block's FourierUnit ([1, 192, 63, 84]) against
+     float64 on the card and against the CPU (the explicit inverse FFT is
+     device-independent), beside what torch.fft.irfft2 makes of the same
+     non-Hermitian spectrum on each; `refine_predict` at two levels (15
+     Adam steps at 504 x 672), the known region unchanged, one step's
+     latent gradient against float64. Then `pipeline.stages.run_pipeline`
+     (MVSeg 200 steps, prepare 200, the guidance, the fit 310, the eval)
+     at the fit arm's configuration, the hash counts set to 0 just before:
+     every stage's trainer launches #1 and #2, no plain encode on the
+     card, one generator on the card, one PNG per view in label/, depth/
+     and lama_images/, lama_images/ within 1 LSB of the images outside the
+     dilated masks, `stage_seconds` and `pipeline_results.json`, MVSeg's
+     IoU on its mask views against label_full/, the fit's PSNR rising.
 """
 from __future__ import annotations
 
@@ -2133,6 +2155,421 @@ def fit_arm(exp_root, argv):
     return per_a, per_b, held
 
 
+MVSEG_VIEWS = [2, 6, 10]     # the views whose masks MVSeg lifts
+PIPE_ITERS = dict(mvseg_iters=200, prepare_iters=200, fit_iters=310)
+# the fit arm's DS-NeRF configuration, MVSeg's panel at its last step
+PIPE_CFG = dict(dataset_type="llff", N_gt=2, factor=1, N_rand=1024,
+                N_samples=64, N_importance=64, use_viewdirs=True,
+                raw_noise_std=1.0, colmap_depth=True, depth_loss=True,
+                depth_lambda=0.1, no_ndc=True, lindisp=True, render_factor=1,
+                i_feat=200, feat_weight=0.1, lrate=0.03, lrate_decay=10,
+                white_bkgd=True, masks_gt_subdir="label_full", i_weights=0,
+                i_video=0, i_testset=0, i_print=100, i_img=200,
+                lpips_batch_size=4, lpips_render_factor=2, patch_len_factor=8,
+                no_reload=True)
+CARD = "cuda"
+LAMA_F64_RTOL = 1e-5        # the generator's logits against float64
+FU_RTOL = 1e-5              # FourierUnit against float64 and the CPU
+REFINE_GRAD_RMS, REFINE_GRAD_MAX = 1e-2, 5e-2   # the latent gradient
+MVSEG_IOU_MIN = 0.5         # MVSeg's IoU on its mask views, predicted
+
+
+def lama_flops(gen, x):
+    """(convolution MACs, FFT flops) of one forward of `gen` on x, counted
+    from the shapes by forward hooks on a copy on the meta device: a conv
+    takes out elements x in channels / groups x kh x kw, a transpose conv
+    in elements x out channels x kh x kw; a FourierUnit's rfft2 2.5 N
+    log2 N a channel (N = H W), its inverse a complex ifft over H and a
+    real one over W."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from spinnerf_tpu_torch.models import lama
+    meta = copy.deepcopy(gen).to("meta")
+    count = {"macs": 0, "fft": 0.0}
+
+    def conv(m, inp, out):
+        k = m.kernel_size[0] * m.kernel_size[1]
+        count["macs"] += (inp[0].numel() * m.out_channels * k
+                          if isinstance(m, nn.ConvTranspose2d) else
+                          out.numel() * m.in_channels // m.groups * k)
+
+    def fourier(m, inp, out):
+        n, c, h, w = inp[0].shape
+        c_out = m.conv_layer.out_channels // 2
+        count["fft"] += n * (c * 2.5 * h * w * math.log2(h * w) + c_out * (
+            5 * h * math.log2(h) * (w // 2 + 1)
+            + 2.5 * w * math.log2(w) * h))
+    for m in meta.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.register_forward_hook(conv)
+        elif isinstance(m, lama.FourierUnit):
+            m.register_forward_hook(fourier)
+    with torch.no_grad():
+        meta(x.to("meta"))
+    return count["macs"], count["fft"]
+
+
+def kernel_launches(fn, top=8):
+    """(CUDA kernel launches, their device ms, the `top` kernels by device
+    ms as [name, ms, launches]) of one call of fn, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total / 1e3, ev.key[:80], ev.count)
+                   for ev in prof.key_averages()
+                   if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                   and not getattr(ev, "is_user_annotation", False)
+                   and "#" not in ev.key), reverse=True)
+    return (sum(r[2] for r in rows), sum(r[0] for r in rows),
+            [[k, ms, c] for ms, k, c in rows[:top]])
+
+
+def rel_err(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+class StageRecorder:
+    """Wraps the step function of each Trainer built while it is installed
+    (`train.loop.make_train_step`): one record per Trainer, in order, with
+    each step's metrics and the hash kernels' launch counts at its first
+    step and after its last."""
+
+    def __init__(self):
+        self.runs = []
+
+    def wrap(self, make_train_step):
+        from spinnerf_tpu_torch.ops import hash_encode_win as hw
+
+        def make(*args, **kw):
+            step = make_train_step(*args, **kw)
+            run = {"metrics": {}, "first": None, "last": None}
+            self.runs.append(run)
+
+            def recorded(i, generator=None):
+                if run["first"] is None:
+                    run["first"] = dict(hw.launches)
+                run["metrics"][i] = step(i, generator)
+                run["last"] = dict(hw.launches)
+                return run["metrics"][i]
+            recorded.loss_fn = step.loss_fn
+            recorded.field_fns = step.field_fns
+            return recorded
+        return make
+
+
+def lama_arm(exp_root):
+    """Phase 15: the scene; the LaMa generator and refiner on its view 2
+    (`lama_checks`); then `run_pipeline` with MVSeg (`pipeline_arm`)."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import synthetic
+    from spinnerf_tpu_torch.eval.render import read_png
+
+    # 2 object-removed ground-truth views, masks on the MVSEG_VIEWS (and,
+    # as make_scene writes them, on the ground-truth views), every view's
+    # exact mask in label_full/
+    scene_dir = exp_root / "pipe_scene"
+    shutil.rmtree(scene_dir, ignore_errors=True)
+    synthetic.make_scene(scene_dir, n_views=N_VIEWS, h=FIT_H, w=FIT_W,
+                         factor=1, n_points=3000, n_gt=2,
+                         mask_views=MVSEG_VIEWS, gt_mask_subdir="label_full")
+    img_dir = scene_dir / "images"
+    image = read_png(img_dir / "view002.png").astype(np.float32) / 255.0
+    hole = (read_png(img_dir / "label" / "view002.png") > 127).astype(
+        np.float32)
+    lama_checks(image, hole)
+    pipeline_arm(exp_root, scene_dir)
+
+
+def lama_checks(image, hole):
+    """The generator at big-lama width on one view: its f32 forward
+    against float64 on the card (logits and output), TF32's error, time,
+    launches, memory and bound; one block's FourierUnit against float64 on
+    the card and against the CPU; `refine_predict` at two levels and one
+    step's latent gradient against float64."""
+    import contextlib
+    import copy
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch import weights
+    from spinnerf_tpu_torch.models import lama
+    from spinnerf_tpu_torch.pipeline import inpaint2d
+    from spinnerf_tpu_torch.utils.resize import area_resize
+
+    h_img, w_img = image.shape[:2]
+
+    # the generator: its forward against float64 on the card, TF32's
+    # error, time, launches and memory
+    t0 = time.perf_counter()
+    gen = inpaint2d.load_generator()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in gen.parameters())
+    dev = next(gen.parameters()).device
+    inp, _, _, _ = inpaint2d._net_input(image, hole)
+    x = torch.as_tensor(inp, device=dev)
+    macs, fft_flops = lama_flops(gen, x)
+    flops = 2 * macs + fft_flops
+    n_bytes = 4 * (n_params + x.numel() + 3 * h_img * w_img)
+    bound_ms = max(flops / F32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+
+    def logits(g, a):
+        with lama._f32_convs():
+            return g.model[:-1](a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        y = gen(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = cuda_ms(lambda: gen(x))
+        launches, device_ms, top = kernel_launches(lambda: gen(x))
+        lg = logits(gen, x)
+        g64 = copy.deepcopy(gen).double()
+        x64 = x.double()
+        y64, lg64 = g64(x64), logits(g64, x64)
+        f32_ctx, tf32 = lama._f32_convs, torch.backends.cudnn.allow_tf32
+        lama._f32_convs = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            lg_tf32 = logits(gen, x)
+            tf32_ms = cuda_ms(lambda: gen(x))
+            tf32_launches, tf32_device_ms, tf32_top = kernel_launches(
+                lambda: gen(x))
+        finally:
+            lama._f32_convs = f32_ctx
+            torch.backends.cudnn.allow_tf32 = tf32
+    lg_max = float(lg64.abs().max())
+    lg_err, tf32_err = rel_err(lg, lg64), rel_err(lg_tf32, lg64)
+    out_err = float((y.double() - y64).abs().max())
+    out_bound = 0.25 * LAMA_F64_RTOL * lg_max
+    saturated = float(((y64 < 1e-4) | (y64 > 1 - 1e-4)).double().mean())
+    log(json.dumps({"lama_generator": {
+        "weights": weights.find("big_lama") or "seeded random",
+        "params": n_params, "load_s": load_s, "input": list(x.shape),
+        "ms": ms, "device_ms_profiled": device_ms, "launches": launches,
+        "peak_gib": peak, "conv_gmac": macs / 1e9, "fft_gflop": fft_flops / 1e9,
+        "bound_ms": bound_ms, "bound_by": "operations",
+        "logits_max_abs": lg_max, "logits_rel_err_f64": lg_err,
+        "out_max_abs_err_f64": out_err, "out_bound": out_bound,
+        "saturated_share": saturated, "top": top, "tf32_ms": tf32_ms,
+        "tf32_logits_rel_err_f64": tf32_err,
+        "tf32_device_ms_profiled": tf32_device_ms,
+        "tf32_launches": tf32_launches, "tf32_top": tf32_top}}))
+    if dev.type != CARD:
+        raise AssertionError("the generator is not on the card")
+    if not (lg_err <= LAMA_F64_RTOL and out_err <= out_bound):
+        raise AssertionError("the generator's f32 forward is not float64's")
+
+    # one block's FourierUnit ([1, 192, 63, 84] in, 384 interleaved
+    # channels) against float64 on the card and against the CPU; and what
+    # torch.fft.irfft2 makes of its non-Hermitian spectrum on each
+    fu = gen.model[gen.n_front].conv1.ffc.convg2g.fu
+    xf = torch.as_tensor(np.random.RandomState(11).randn(
+        1, 192, h_img // 8, w_img // 8).astype(np.float32))
+    with torch.no_grad(), lama._f32_convs():
+        a = fu(xf.to(dev)).cpu()
+        b = copy.deepcopy(fu).double()(xf.to(dev).double()).cpu()
+        c = copy.deepcopy(fu).cpu()(xf)
+        f = torch.fft.rfft2(xf.to(dev), norm="ortho")
+        f = torch.stack((f.real, f.imag), 2).reshape(1, 384, h_img // 8, -1)
+        f = torch.relu(fu.bn(fu.conv_layer(f))).reshape(
+            1, 192, 2, h_img // 8, -1)
+        spec = torch.complex(f[:, :, 0], f[:, :, 1])
+        naive = [torch.fft.irfft2(sp, s=xf.shape[-2:], norm="ortho").cpu()
+                 for sp in (spec, spec.cpu())]
+    fu_f64, fu_cpu = rel_err(a, b), rel_err(a, c)
+    log(f"[lama fu] FourierUnit {tuple(xf.shape)}: card against float64 "
+        f"{fu_f64:.3e}, against the CPU {fu_cpu:.3e} (bound {FU_RTOL}); "
+        f"the spectrum's DC column has |imag| up to "
+        f"{float(spec[..., 0].imag.abs().max()):.4f}; torch.fft.irfft2 of it"
+        f" on the card against the CPU {rel_err(naive[0], naive[1]):.3e}, "
+        f"against this inverse {rel_err(naive[0], b):.3e}")
+    if not (fu_f64 <= FU_RTOL and fu_cpu <= FU_RTOL):
+        raise AssertionError("FourierUnit's inverse is not device-independent")
+
+    # refine_predict: two levels (252 x 336, 504 x 672), 15 Adam steps at
+    # the finest through rear's backward; one step's latent gradient
+    # against float64
+    inpainter = inpaint2d.Inpainter(gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = inpaint2d.refine_predict(gen, image, hole, min_side=h_img // 2,
+                                   inpainter=inpainter)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    levels = inpaint2d._build_pyramid(image, hole, min_side=h_img // 2)
+    known = inpaint2d.dilate_mask(hole) == 0
+    (img0, m0), (img1, m1) = levels
+    prev = inpaint2d.predict(gen, img0, inpaint2d.dilate_mask(m0),
+                             inpainter=inpainter)
+    inp1, m_p, _, (h, w) = inpaint2d._net_input(img1,
+                                                inpaint2d.dilate_mask(m1))
+    m_ref = area_resize(m_p[:h, :w, 0], *prev.shape[:2]) > 1e-6
+    arrays = [prev.transpose(2, 0, 1), m_ref[None].astype(np.float32),
+              img1.transpose(2, 0, 1), m_p[:h, :w].transpose(2, 0, 1)]
+    z = inpainter.front(inpainter.tensor(inp1))
+    grads = []
+    for ip, dt in ((inpainter, torch.float32),
+                   (inpaint2d.Inpainter(g64), torch.float64)):
+        zz = tuple(t.detach().to(dt).requires_grad_() for t in z)
+        args = [torch.as_tensor(np.ascontiguousarray(a_), dtype=dt,
+                                device=dev) for a_ in arrays]
+        loss = ip.refine_loss(zz, *args)
+        with lama._f32_convs():
+            grads.append(torch.autograd.grad(loss, zz))
+    g_max = [rel_err(g, g_) for g, g_ in zip(*grads)]
+    g_rms = [float(((g.double() - g_).pow(2).mean()
+                    / g_.pow(2).mean()).sqrt()) for g, g_ in zip(*grads)]
+    del g64, grads
+    torch.cuda.empty_cache()
+    log(f"[lama refine] refine_predict {w_img} x {h_img}, levels "
+        f"{[lv[0].shape[:2] for lv in levels]}, 15 Adam steps: "
+        f"{refine_s:.3f} s; the known region unchanged: "
+        f"{bool(np.array_equal(out[known], image[known]))}; one step's "
+        f"latent gradient (z_l, z_g) against float64: max {g_max}, rms "
+        f"{g_rms} (bounds {REFINE_GRAD_MAX}, {REFINE_GRAD_RMS})")
+    if [lv[0].shape[:2] for lv in levels] != [(h_img // 2, w_img // 2),
+                                               (h_img, w_img)]:
+        raise AssertionError("the pyramid is not two levels")
+    if out.shape != image.shape or not np.array_equal(out[known],
+                                                      image[known]):
+        raise AssertionError("refine_predict changed the known region")
+    if max(g_max) > REFINE_GRAD_MAX or max(g_rms) > REFINE_GRAD_RMS:
+        raise AssertionError("the refiner's latent gradient is not "
+                             "float64's")
+    del gen, inpainter
+    torch.cuda.empty_cache()
+
+
+def pipeline_arm(exp_root, scene_dir):
+    """`run_pipeline` (MVSeg -> prepare -> LaMa guidance -> fit -> eval) on
+    the scene at PIPE_CFG, the hash counts set to 0 just before and read
+    just after: every stage's trainer launches #1 and #2 and no plain
+    encode runs on the card; one generator, on the card; each stage's
+    products, `stage_seconds` and `pipeline_results.json`; MVSeg's IoU on
+    its mask views; the fit's PSNR rises."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.pipeline import inpaint2d, mvseg, stages
+    from spinnerf_tpu_torch.train import loop
+
+    img_dir = scene_dir / "images"
+    names = sorted(p.name for p in img_dir.glob("*.png"))
+    cfg = Config(expname="pipe", basedir=str(exp_root),
+                 datadir=str(scene_dir), **PIPE_CFG)
+    rec = StageRecorder()
+    gens, plain_on_card = [], []
+    make_train_step, load_generator = (loop.make_train_step,
+                                       inpaint2d.load_generator)
+    plain = hw.hash_encode_plain
+
+    def loaded(*a, **kw):
+        gens.append(load_generator(*a, **kw))
+        return gens[-1]
+
+    def guarded_plain(table, *a, **kw):
+        if table.is_cuda:
+            plain_on_card.append(tuple(table.shape))
+        return plain(table, *a, **kw)
+    loop.make_train_step = rec.wrap(make_train_step)
+    inpaint2d.load_generator = loaded
+    hw.hash_encode_plain = guarded_plain
+    hw.launches.update(fwd=0, bwd=0)
+    t0 = time.perf_counter()
+    try:
+        tr, res = stages.run_pipeline(cfg, log=log, **PIPE_ITERS)
+    finally:
+        loop.make_train_step = make_train_step
+        inpaint2d.load_generator = load_generator
+        hw.hash_encode_plain = plain
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    counts = dict(hw.launches)
+    per_stage = [{k: run["last"][k] - run["first"][k] for k in counts}
+                 for run in rec.runs]
+    fit_ms = rec.runs[-1]["metrics"]
+    n_fit = PIPE_ITERS["fit_iters"]
+    p_first = float(np.mean([float(fit_ms[i]["psnr"]) for i in range(1, 11)]))
+    p_last = float(np.mean([float(fit_ms[i]["psnr"])
+                            for i in range(n_fit - 9, n_fit + 1)]))
+    secs = res["stage_seconds"]
+    pred = np.stack([read_png(img_dir / "label" / names[v]) / 255.0
+                     for v in MVSEG_VIEWS])
+    gt = np.stack([read_png(img_dir / "label_full" / names[v]) / 255.0
+                   for v in MVSEG_VIEWS])
+    seg = mvseg.evaluate_masks(pred, gt)
+    rest = [v for v in range(2, N_VIEWS) if v not in MVSEG_VIEWS]
+    seg_rest = mvseg.evaluate_masks(
+        np.stack([read_png(img_dir / "label" / names[v]) / 255.0
+                  for v in rest]),
+        np.stack([read_png(img_dir / "label_full" / names[v]) / 255.0
+                  for v in rest]))
+    log(json.dumps({"pipeline": {
+        "seconds": pipe_s, "stage_seconds": secs,
+        "guidance_s_per_view": secs["inpaint_guidance"] / (2 * N_VIEWS),
+        "steps": PIPE_ITERS, "hash_launches_per_stage": per_stage,
+        "hash_launches": counts,
+        "mvseg_mask_views": {"views": MVSEG_VIEWS, **seg},
+        "mvseg_other_views": {"views": rest, **seg_rest},
+        "fit_psnr_steps_1_10": p_first,
+        f"fit_psnr_steps_{n_fit - 9}_{n_fit}": p_last,
+        "eval_summary": res["summary"]}}))
+
+    if len(rec.runs) != 3 or any(
+            c["fwd"] <= 0 or c["bwd"] <= 0 for c in per_stage):
+        raise AssertionError(f"a stage's trainer did not launch #1 and #2: "
+                             f"{per_stage}")
+    if plain_on_card:
+        raise AssertionError(f"the plain encode ran on the card: "
+                             f"{plain_on_card}")
+    if len(gens) != 1 or not all(p.device.type == CARD
+                                 for p in gens[0].parameters()):
+        raise AssertionError("the guidance's generator is not one, on the "
+                             "card")
+    for sub in ("label", "depth", "lama_images"):
+        got = sorted(p.name for p in (img_dir / sub).glob("*.png"))
+        if got != names:
+            raise AssertionError(f"{sub}/ holds {got}")
+    panel = read_png(exp_root / "pipe_mvseg" / "test_renders" /
+                     f"pipe_mvseg_seg_{PIPE_ITERS['mvseg_iters']:06d}.png")
+    worst = 0
+    for n in names:
+        src = read_png(img_dir / n).astype(int)
+        m = read_png(img_dir / "label" / n) > 127
+        keep = inpaint2d.dilate_mask(m.astype(np.float32)) == 0
+        worst = max(worst, int(np.abs(
+            read_png(img_dir / "lama_images" / n).astype(int) - src)[keep]
+            .max(initial=0)))
+    log(f"[pipeline] lama_images/ outside the dilated masks: at most "
+        f"{worst} LSB from the images; MVSeg's panel {panel.shape}")
+    if worst > 1:
+        raise AssertionError("LaMa changed pixels outside the masks")
+    if set(secs) != {"mvseg", "prepare", "inpaint_guidance", "fit", "eval"}:
+        raise AssertionError(f"stage_seconds {secs}")
+    saved = json.loads((exp_root / "pipe" / "pipeline_results.json")
+                       .read_text())
+    if saved != json.loads(json.dumps(res)):
+        raise AssertionError("pipeline_results.json is not the summary")
+    if not seg["iou"] >= MVSEG_IOU_MIN:
+        raise AssertionError(f"MVSeg's IoU {seg['iou']}")
+    if not p_last > p_first:
+        raise AssertionError("the pipeline's fit PSNR did not rise")
+
+
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
@@ -2299,6 +2736,10 @@ def main(argv):
     # 14. the fit arm: stage_fit with the patch-LPIPS term, stage_eval and
     # the frozen-density mode
     fit_a, fit_b, fit_held = fit_arm(exp_root, argv)
+    torch.cuda.empty_cache()
+
+    # 15. the LaMa generator and refiner, then run_pipeline with MVSeg
+    lama_arm(exp_root)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

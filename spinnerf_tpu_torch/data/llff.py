@@ -15,8 +15,9 @@ The machine with the card has neither cv2 nor PIL: PNG files are decoded by
 `eval.render.read_png`, and the three cv2 operations the JAX loader uses are
 computed here with the same results: `minify` (INTER_AREA at an integer
 factor, a box mean with cv2's uint8 rounding), `dilate_mask` (5 x 5, 5
-iterations) and `resize_nearest` (INTER_NEAREST). Other image formats (JPEG)
-go through cv2, imported when such a file is read.
+iterations) and `resize_nearest` (INTER_NEAREST, from `utils/resize.py`).
+Other image formats (JPEG) go through cv2, imported when such a file is
+read.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from spinnerf_tpu_torch.eval.render import read_png, write_png
+from spinnerf_tpu_torch.utils.resize import nearest_resize as resize_nearest
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".JPEG", ".PNG")
 
@@ -105,8 +107,9 @@ def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
     if h % factor or w % factor:
         raise NotImplementedError(
             f"downsampling {w} x {h} by {factor}: sides that are not multiples "
-            f"of the factor take cv2's fractional area weights, which are not "
-            f"ported; see ROADMAP.md queue A #9")
+            f"of the factor take cv2's fractional area weights "
+            f"(`utils/resize.py`), which minify does not use yet; see "
+            f"ROADMAP.md queue A #9")
     blocks = img.reshape(h // factor, factor, w // factor, factor,
                          *img.shape[2:]).astype(np.int64)
     s = blocks.sum(axis=(1, 3))
@@ -143,17 +146,6 @@ def dilate_mask(mask: np.ndarray, kernel: int = 5, iterations: int = 5):
     out = torch.nn.functional.max_pool2d(m, side, stride=1,
                                          padding=side // 2)
     return out[0, 0].numpy().astype(mask.dtype)
-
-
-def resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """cv2.resize(img, (w, h), INTER_NEAREST): source index floor(i * src /
-    dst), clamped to the last row / column."""
-    sh, sw = img.shape[:2]
-    rows = np.minimum(np.floor(np.arange(h) * (sh / h)).astype(np.int64),
-                      sh - 1)
-    cols = np.minimum(np.floor(np.arange(w) * (sw / w)).astype(np.int64),
-                      sw - 1)
-    return img[rows][:, cols]
 
 
 # --- pose math ----------------------------------------------------------------

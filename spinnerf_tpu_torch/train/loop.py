@@ -10,11 +10,11 @@ field. Hooks ported, at the JAX cadences: console metrics and the live
 control file (`i_print`), checkpoints (`i_weights`), the spiral videos
 (`i_video`), the testset dump with its PSNR (`i_testset`), the prepare-mode
 disparity dump for LaMa (`i_feat`, forced at the last step of every `fit`)
-and, outside prepare mode, the sanity panel (`i_feat` > 10), and the
-`page_bounds.json` sidecar that pins the hash index semantics to the
-experiment. The JAX trainer's other options and hooks raise
-NotImplementedError naming their ROADMAP.md entry instead of being
-skipped.
+and, outside prepare mode, the sanity panel (`i_feat` > 10), the MVSeg
+panel (`i_img`, with `mvseg`), and the `page_bounds.json` sidecar that
+pins the hash index semantics to the experiment. Options not ported yet
+(`--mesh_shape`, the blender and DTU loaders) raise NotImplementedError
+naming their ROADMAP.md entry.
 """
 from __future__ import annotations
 
@@ -432,24 +432,32 @@ class Trainer:
         self.log(f"[{step}] wrote the sanity panel {path}")
         return path
 
-    def _check_hooks(self, start: int, n_iters: int):
-        """Raise before training if an unported hook would fire in range."""
-        cfg = self.cfg
-        steps = range(start, n_iters + 1)
-
-        def fires(every):
-            return bool(every) and any(i % every == 0 for i in steps)
-
-        if cfg.mvseg and fires(cfg.i_img):
-            raise _unported("the MVSeg panel hook (i_img)", _QUEUE_A)
+    def _mvseg_panel_hook(self, step):
+        """The MVSeg sanity image: one training view's render beside its
+        sigmoid objectness map (`MVSeg/DS_NeRF/run_nerf.py:1334-1360`),
+        written under <expdir>/test_renders/."""
+        idx = int(np.random.RandomState(step).choice(self.i_train))
+        renderer = eval_render.make_param_frame_renderer(
+            self.scene.hwf, self.fields, render_config(self.cfg, train=False),
+            near=self.bank.near, far=self.bank.far, ndc=self.bank.ndc,
+            chunk=self.cfg.chunk, render_factor=self.cfg.render_factor,
+            maps=("rgb", "prob"), device=self.device)
+        maps = renderer(self.scene.poses[idx])
+        prob = 1.0 / (1.0 + np.exp(-maps["prob"]))
+        panel = np.concatenate([np.clip(maps["rgb"], 0, 1),
+                                np.repeat(prob[..., None], 3, -1)], axis=1)
+        out = self.exp_dir / "test_renders"
+        out.mkdir(exist_ok=True)
+        path = out / f"{self.cfg.expname}_seg_{step:06d}.png"
+        eval_render.write_png(path, eval_metrics.to8b(panel))
+        self.log(f"[{step}] wrote the MVSeg panel {path}")
+        return path
 
     def fit(self, n_iters: int | None = None, *, hooks: bool = True):
         """Train to step `n_iters` (default N_iters), running the cadence
         hooks unless `hooks=False`. Returns the metrics of the last step."""
         cfg = self.cfg
         n_iters = cfg.N_iters if n_iters is None else n_iters
-        if hooks:
-            self._check_hooks(self.step + 1, n_iters)
         t0 = time.time()
         rays_done = 0
         metrics = {}
@@ -483,4 +491,6 @@ class Trainer:
             elif (not cfg.prepare and cfg.i_feat > 10
                   and i % cfg.i_feat == 0):
                 self._sanity_panel_hook(i)
+            if cfg.mvseg and cfg.i_img and i % cfg.i_img == 0:
+                self._mvseg_panel_hook(i)
         return metrics

@@ -6,9 +6,11 @@ equal the JAX package's `metrics.psnr` / `metrics.ssim` and LPIPS on the
 same rendered arrays within 1e-5 (relative; SSIM, in [-1, 1], absolute),
 with random VGG16 weights dropped into `SPINNERF_WEIGHTS_DIR` in
 torchvision's format behind both; the fit's sanity panel at i_feat;
-`stage_prepare`'s dump; the stages still to port raise, naming
-ROADMAP.md; and `write_gallery` and the weights registry's `find` match
-the JAX package's."""
+`stage_prepare`'s dump; `stage_inpaint_guidance` against the JAX stage
+with one tiny generator behind both (files and pixels within 1 LSB);
+`run_pipeline` with and without MVSeg on a 32 x 40 scene (the JAX
+package's pipeline contract); and `write_gallery` and the weights
+registry's `find` match the JAX package's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,14 +152,116 @@ def test_prepare_stage_dumps_the_guidance_inputs(scene_dir, tmp_path):
         scene_dir / "images_4"
 
 
-@pytest.mark.parametrize("fn,queue", [
-    (lambda c: stages.stage_mvseg(c), "A5"),
-    (lambda c: stages.stage_inpaint_guidance(c, None), "A6"),
-    (lambda c: stages.run_pipeline(c), "A9")])
-def test_unported_stages_raise(fn, queue):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue.*{queue}"):
-        fn(Config())
+def _tiny_generators(monkeypatch):
+    """Both packages' `load_generator` patched to one tiny generator (JAX's
+    seeded variables, carried to the port)."""
+    from spinnerf_tpu.models import lama as jlama
+    from spinnerf_tpu.pipeline import inpaint2d as jinp
+    from spinnerf_tpu_torch.convert import lama_state_dict
+    from spinnerf_tpu_torch.models import lama as tlama
+    from spinnerf_tpu_torch.pipeline import inpaint2d as tinp
+    tiny = dict(ngf=8, n_blocks=2, max_features=64)
+    gen = jlama.FFCResNetGenerator(**tiny)
+    v = jax.tree.map(np.asarray, jax.jit(gen.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 4))))
+    tgen = tlama.FFCResNetGenerator(**tiny, device="cpu")
+    tgen.load_state_dict(lama_state_dict(v), strict=True)
+    monkeypatch.setattr(jinp, "load_generator",
+                        lambda checkpoint_path=None, **kw: (gen, v))
+    monkeypatch.setattr(tinp, "load_generator",
+                        lambda checkpoint_path=None, device=None, **kw:
+                        tgen.requires_grad_(False))
+
+
+def test_inpaint_guidance_matches_jax(tmp_path, monkeypatch):
+    """Stage 4 of both packages on copies of one scene and one prepare
+    dump: the same files in depth/ and lama_images/, pixels within 1
+    LSB."""
+    import cv2
+    import shutil
+    from spinnerf_tpu.config import Config as JConfig
+    from spinnerf_tpu.pipeline import stages as jstages
+    from spinnerf_tpu_torch.eval.render import write_png
+    _tiny_generators(monkeypatch)
+    src = synthetic.make_scene(tmp_path / "scene", n_views=4, h=32, w=40,
+                               factor=1, n_points=100)
+    for sub in ("depth", "lama_images"):
+        shutil.rmtree(src / "images" / sub)
+    lama_in = tmp_path / "lama_in"
+    (lama_in / "label").mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    for i in range(4):
+        write_png(lama_in / f"img{i:03d}.png",
+                  (rng.rand(32, 40) * 255).astype(np.uint8))
+        write_png(lama_in / "label" / f"img{i:03d}.png",
+                  read_png(src / "images" / "label" / f"view{i:03d}.png"))
+    dirs = {}
+    for tag, cls, stage_fn, kw in (
+            ("port", Config, stages.stage_inpaint_guidance,
+             dict(device="cpu")),
+            ("jax", JConfig, jstages.stage_inpaint_guidance, {})):
+        scene = shutil.copytree(src, tmp_path / f"scene_{tag}")
+        cfg = cls(expname="g", basedir=str(tmp_path / f"logs_{tag}"),
+                  datadir=str(scene), factor=1)
+        dirs[tag] = stage_fn(cfg, lama_in, log=lambda *a: None, **kw)
+    assert dirs["port"][0] == tmp_path / "scene_port" / "images" / "depth"
+    for got, want in zip(dirs["port"], dirs["jax"]):
+        names = sorted(p.name for p in want.glob("*.png"))
+        assert names == [f"view{i:03d}.png" for i in range(4)]
+        assert sorted(p.name for p in got.glob("*.png")) == names
+        for n in names:
+            a = read_png(got / n).astype(int)
+            b = cv2.cvtColor(cv2.imread(str(want / n)), cv2.COLOR_BGR2RGB)
+            assert np.abs(a - b).max() <= 1, (got.name, n)
+
+
+@pytest.mark.parametrize("skip_mvseg", [True, False])
+def test_run_pipeline_writes_the_scene_contract(tmp_path, skip_mvseg):
+    """`run_pipeline` on a 32 x 40 scene on the CPU, the JAX package's
+    `test_pipeline.py` contract (JAX's own run is a slow test): every
+    stage's products, `stage_seconds` and `pipeline_results.json`. The
+    default generator (seeded big-lama) does the guidance."""
+    import json
+    import shutil
+    scene = synthetic.make_scene(tmp_path / "scene", n_views=5, h=32, w=40,
+                                 factor=1, n_points=100,
+                                 mask_views=[0, 1, 2, 3, 4])
+    img_dir = scene / "images"
+    for sub in ("depth", "lama_images"):
+        shutil.rmtree(img_dir / sub)
+    labels = {p.name: p.read_bytes() for p in (img_dir / "label").iterdir()}
+    cfg = Config(expname="pipe", basedir=str(tmp_path / "logs"),
+                 datadir=str(scene), factor=1, no_ndc=True, no_tcnn=True,
+                 netdepth=2, netwidth=32, netdepth_fine=2, netwidth_fine=32,
+                 multires=4, multires_views=2, N_samples=8, N_importance=4,
+                 N_rand=64, lrate=5e-3, lrate_decay=250, i_print=0,
+                 i_weights=0, i_video=0, i_testset=0, i_feat=1, chunk=2048,
+                 compute_dtype="float32", render_factor=1, N_gt=1,
+                 lpips_render_factor=1, patch_len_factor=2,
+                 lpips_batch_size=1, mask_dilate_iters=1)
+    trainer, results = stages.run_pipeline(
+        cfg, mvseg_iters=10, prepare_iters=10, fit_iters=10, refine=False,
+        skip_mvseg=skip_mvseg, log=lambda *a: None, device="cpu")
+    names = [f"view{i:03d}.png" for i in range(5)]
+    for sub in ("label", "depth", "lama_images"):
+        assert sorted(p.name for p in (img_dir / sub).glob("*.png")) == \
+            names, sub
+    for n in names:
+        assert read_png(img_dir / "lama_images" / n).shape == (32, 40, 3)
+    # MVSeg rewrites label/ only when it runs
+    rewritten = any(labels[n] != (img_dir / "label" / n).read_bytes()
+                    for n in names)
+    assert rewritten == (not skip_mvseg)
+    assert (tmp_path / "logs" / "pipe_mvseg").exists() == (not skip_mvseg)
+    assert trainer.step == 10 and trainer.cfg.expname == "pipe_fit"
+    assert np.isfinite(results["summary"]["psnr"])
+    want = {"prepare", "inpaint_guidance", "fit", "eval"} | (
+        set() if skip_mvseg else {"mvseg"})
+    assert set(results["stage_seconds"]) == want
+    assert all(t >= 0 for t in results["stage_seconds"].values())
+    out = json.loads((tmp_path / "logs" / "pipe" /
+                      "pipeline_results.json").read_text())
+    assert out == json.loads(json.dumps(results))
 
 
 def test_gallery_html_equals_jax(tmp_path):

@@ -3,8 +3,8 @@ hash-index sidecar as the JAX Trainer, loads a scene directory with COLMAP
 sparse depth and takes the JAX Trainer's first step there, samples the
 --no_batching batches, checkpoints and --ft_path round-trip, the live control
 file applies, --lpips refuses patches under 16 pixels, --alpha_model_path
-freezes another experiment's density, the fit-mode sanity panel is written,
-unported options raise, and the package imports neither JAX nor the JAX
+freezes another experiment's density, the fit-mode sanity panel and the
+MVSeg panel are written, unported options raise, and the package imports neither JAX nor the JAX
 package."""
 import dataclasses
 import json
@@ -26,12 +26,13 @@ from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.convert import fields_state_dicts
 from spinnerf_tpu_torch.data import llff as tllff
 from spinnerf_tpu_torch.data import raybank as traybank
+from spinnerf_tpu_torch.eval import render as eval_render
 from spinnerf_tpu_torch.eval.metrics import to8b
 from spinnerf_tpu_torch.eval.render import read_png
 from spinnerf_tpu_torch.models.fields import NeRFField
 from spinnerf_tpu_torch.models.hashgrid import HashGridField
 from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
-from spinnerf_tpu_torch.train.loop import Trainer
+from spinnerf_tpu_torch.train.loop import Trainer, render_config
 from spinnerf_tpu_torch.utils.live_control import LiveControl
 
 torch.set_num_threads(1)
@@ -162,16 +163,27 @@ def test_unported_options_raise(scene_pair, tmp_path, flag):
                 log=lambda *a: None)
 
 
-def test_mvseg_panel_hook_raises_before_training(scene_pair, tmp_path):
-    """The MVSeg panel (i_img) is not ported: fit raises before its first
-    step when the hook would fire."""
+def test_mvseg_panel_hook_writes_its_png(scene_pair, tmp_path):
+    """At i_img the MVSeg Trainer writes one training view's render beside
+    its sigmoid(prob) map, the view `RandomState(step).choice(i_train)`, as
+    the JAX Trainer does."""
     d, _, tsc = scene_pair
     tr = Trainer(tiny(Config, tmp_path, d, mvseg=True, i_img=3), scene=tsc,
                  device="cpu", log=lambda *a: None)
-    tr.fit(2)
-    with pytest.raises(NotImplementedError, match="MVSeg panel"):
-        tr.fit(3)
-    assert tr.step == 2
+    tr.fit(3)
+    out = tr.exp_dir / "test_renders"
+    assert sorted(p.name for p in out.glob("*.png")) == ["t_seg_000003.png"]
+    panel = read_png(out / "t_seg_000003.png")
+    assert panel.shape == (36, 88, 3)
+    idx = int(np.random.RandomState(3).choice(tr.i_train))
+    maps = eval_render.make_param_frame_renderer(
+        tsc.hwf, tr.fields, render_config(tr.cfg, train=False),
+        near=tr.bank.near, far=tr.bank.far, ndc=tr.bank.ndc,
+        maps=("rgb", "prob"), device="cpu")(tsc.poses[idx])
+    prob = 1.0 / (1.0 + np.exp(-maps["prob"]))
+    np.testing.assert_array_equal(panel[:, 44:],
+                                  to8b(np.repeat(prob[..., None], 3, -1)))
+    np.testing.assert_array_equal(panel[:, :44], to8b(maps["rgb"]))
 
 
 def test_lpips_with_too_small_patches_raises(scene_pair, tmp_path):
