@@ -128,7 +128,21 @@ Phases, each fatal on failure (no phase's error is caught):
      card, one generator on the card, one PNG per view in label/, depth/
      and lama_images/, lama_images/ within 1 LSB of the images outside the
      dilated masks, `stage_seconds` and `pipeline_results.json`, MVSeg's
-     IoU on its mask views against label_full/, the fit's PSNR rising.
+     IoU on its mask views against label_full/, the fit's PSNR rising;
+ 16. the command-line entry point (`spinnerf_tpu_torch.cli`) on a fresh
+     12-view 504 x 672 scene with a COLMAP model and masks on every view:
+     `--help` and `poses` as `python -m spinnerf_tpu_torch.cli` (exit code
+     0; the poses within 1e-5 of make_scene's), then in this process
+     `train` at the disk arm's DS-NeRF prepare configuration at factor 1
+     (200 steps, #1 and #2 at least twice a step, loss finite, PSNR up,
+     depth loss down), `render` of the test views (the tree, #1 launched
+     and #2 not), of the orbit at 1/4 and of the sigma plot, `refine_masks`
+     on the test views' tree (beside `refine_all` on the card and on the
+     CPU: masks bit-equal, maps within 1e-12, each refined mask inside its
+     dilated input, some pixel un-masked; seconds a view, candidates, the
+     un-masked share in the dilation ring), `eval` (within 1e-5 of the
+     metrics on the CPU) and `strip_ckpt` (the step's parameters, bit for
+     bit, through `restore_from_path`); each command's seconds.
 """
 from __future__ import annotations
 
@@ -2570,6 +2584,271 @@ def pipeline_arm(exp_root, scene_dir):
         raise AssertionError("the pipeline's fit PSNR did not rise")
 
 
+CLI_HOLD = 4                # --llffhold: the test views 0, 4 and 8
+CLI_POSE_TOL = 1e-5         # poses_bounds.npy's poses against make_scene's
+CLI_EVAL_TOL = 1e-5         # the eval JSON against metrics in-process
+REFINE_TOL = 1e-12          # the card's refined maps against the CPU's
+# the disk arm's DS-NeRF prepare configuration at factor 1, as flags
+CLI_FLAGS = ["--dataset_type", "llff", "--factor", "1", "--prepare", "True",
+             "--N_rand", "1024", "--N_samples", "64", "--N_importance", "64",
+             "--use_viewdirs", "True", "--raw_noise_std", "1.0",
+             "--colmap_depth", "True", "--depth_loss", "True",
+             "--depth_lambda", "0.1", "--no_ndc", "True", "--lindisp",
+             "True", "--render_factor", "1", "--feat_weight", "0.1",
+             "--lrate", "0.03", "--lrate_decay", "10", "--white_bkgd",
+             "True", "--llffhold", str(CLI_HOLD), "--N_iters", str(STEPS),
+             "--i_print", "50", "--i_weights", str(STEPS), "--i_video", "0",
+             "--i_testset", "0", "--i_feat", "0"]
+
+
+def cli_arm(exp_root):
+    """Phase 16: the commands of `spinnerf_tpu_torch.cli` on a fresh scene,
+    in this process (`main`) so that the launch counts can be read, and
+    `--help` and `poses` as `python -m spinnerf_tpu_torch.cli`: poses,
+    train, render (test, mypath, test_ray), refine_masks (beside
+    `refine_all` on the card and on the CPU), eval, strip_ckpt. Returns
+    each command's seconds."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.data import synthetic
+    from spinnerf_tpu_torch.data.llff import (dilate_mask, imread_float,
+                                              imread_gray8)
+    from spinnerf_tpu_torch.eval import metrics
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.pipeline import mask_refine
+    from spinnerf_tpu_torch.train import loop
+    from spinnerf_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                      restore_from_path)
+    secs = {}
+
+    def run(name, argv):
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[cli] {name}: {secs[name]:.3f} s")
+        if rc != 0:
+            raise AssertionError(f"`{name}` returned {rc}")
+
+    scene = exp_root / "cli_scene"
+    shutil.rmtree(scene, ignore_errors=True)
+    synthetic.make_scene(scene, n_views=N_VIEWS, h=FIT_H, w=FIT_W, factor=1,
+                         n_points=3000)
+    written = np.load(scene / "poses_bounds.npy")
+
+    # 1. --help and poses as `python -m spinnerf_tpu_torch.cli`, the two
+    # processes started together
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "spinnerf_tpu_torch.cli", *argv],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, argv in (("help", ["--help"]),
+                           ("poses", ["poses", str(scene)]))}
+    outs = {name: p.communicate(timeout=300) for name, p in procs.items()}
+    secs["help_and_poses"] = time.perf_counter() - t0
+    for name, p in procs.items():
+        log(f"[cli] python -m spinnerf_tpu_torch.cli {name}: exit code "
+            f"{p.returncode}")
+        if p.returncode != 0:
+            raise AssertionError(f"`{name}` exited {p.returncode}: "
+                                 f"{outs[name][1][-2000:]}")
+    if "python -m spinnerf_tpu_torch.cli" not in outs["help"][0]:
+        raise AssertionError("--help does not print the usage")
+    got = np.load(scene / "poses_bounds.npy")
+    pose_err = float(np.abs(got[:, :15] - written[:, :15]).max())
+    log(f"[cli] poses_bounds.npy {got.shape}: poses and hwf within "
+        f"{pose_err:.3g} of make_scene's; (near, far) of view 0 from the "
+        f"sparse points {got[0, 15:].round(4).tolist()}, make_scene's depth "
+        f"percentiles {written[0, 15:].round(4).tolist()}")
+    if got.shape != written.shape or not pose_err <= CLI_POSE_TOL:
+        raise AssertionError("poses_bounds.npy's poses are not make_scene's")
+
+    # 2. train, each step's metrics recorded around the step function
+    exp = exp_root / "cli"
+    exp_args = ["--expname", "cli", "--basedir", str(exp_root), "--datadir",
+                str(scene)] + CLI_FLAGS
+    rec = StageRecorder()
+    make_train_step = loop.make_train_step
+    loop.make_train_step = rec.wrap(make_train_step)
+    hw.launches.update(fwd=0, bwd=0)
+    try:
+        run("train", ["train"] + exp_args)
+    finally:
+        loop.make_train_step = make_train_step
+    train_counts = dict(hw.launches)
+    ms = rec.runs[0]["metrics"]
+
+    def mean(k, steps):
+        return float(np.mean([float(ms[i][k]) for i in steps]))
+
+    first, last = range(1, 11), range(STEPS - 9, STEPS + 1)
+    p_first, p_last = mean("psnr", first), mean("psnr", last)
+    d_first, d_last = mean("depth_loss", first), mean("depth_loss", last)
+    log(f"[cli] train: {len(ms)} steps, PSNR {p_first:.3f} -> {p_last:.3f}, "
+        f"depth loss {d_first:.5f} -> {d_last:.5f} (steps 1-10, "
+        f"{STEPS - 9}-{STEPS}); hash launches {train_counts}")
+    if sorted(ms) != list(range(1, STEPS + 1)) or not all(
+            math.isfinite(float(m["loss"])) for m in ms.values()):
+        raise AssertionError("train: steps missing or a loss not finite")
+    if not (p_last > p_first and d_last < d_first):
+        raise AssertionError("train: PSNR did not rise or the depth loss "
+                             "did not fall")
+    if min(train_counts.values()) < 2 * STEPS:
+        raise AssertionError(f"train: #1 / #2 not launched twice a step: "
+                             f"{train_counts}")
+    torch.cuda.empty_cache()
+
+    # 3. render: the test views (their tree), the orbit, the sigma plot
+    render = ["render"] + exp_args + ["--render_only", "True"]
+    test_views = list(range(0, N_VIEWS, CLI_HOLD))
+    hw.launches.update(fwd=0, bwd=0)
+    run("render_test", render + ["--render_test", "True"])
+    render_counts = dict(hw.launches)
+    rdir = exp / f"renderonly_test_{STEPS:06d}"
+    for sub, ext in (("rgb", "png"), ("depth", "npy"), ("disp", "npy"),
+                     ("weight", "npy"), ("z", "npy"), ("alpha", "npy"),
+                     ("pose", "txt"), ("images", "png")):
+        if len(list((rdir / sub).glob(f"*.{ext}"))) != len(test_views):
+            raise AssertionError(f"render_test: {sub}/ is not one file a "
+                                 f"test view")
+    if not (rdir / "intrinsics.txt").exists():
+        raise AssertionError("render_test: no intrinsics.txt")
+    log(f"[cli] render_test: {len(test_views)} views, hash launches "
+        f"{render_counts}")
+    if render_counts["fwd"] < 1 or render_counts["bwd"] != 0:
+        raise AssertionError("render_test: #1 not launched, or #2 launched")
+    run("render_mypath", render + ["--render_mypath", "True",
+                                   "--render_factor", "4"])
+    orbit = sorted((exp / f"renderonly_mypath_{STEPS:06d}" / "rgb")
+                   .glob("*.png"))
+    if len(orbit) != 40 or read_png(orbit[0]).shape != (FIT_H // 4,
+                                                        FIT_W // 4, 3):
+        raise AssertionError("render_mypath: not 40 frames at 1/4")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run("render_test_ray", render + ["--render_test_ray", "True"])
+    text = buf.getvalue()
+    log(text.strip())
+    if "colmap depth:" not in text or "estimated depth:" not in text or \
+            not (exp / f"renderonly_ray_{STEPS:06d}" / "rays.png").exists():
+        raise AssertionError("render_test_ray: no depths or no plot")
+
+    # 4. refine_masks on the test views' tree with their masks; then
+    # refine_all on the same dumps on the card and on the CPU
+    mask_dir = exp_root / "cli_masks"
+    shutil.rmtree(mask_dir, ignore_errors=True)
+    mask_dir.mkdir()
+    for v in test_views:
+        shutil.copy(scene / "images" / "label" / f"view{v:03d}.png", mask_dir)
+    out_dir = exp_root / "cli_refined"
+    run("refine_masks", ["refine_masks", "--render_dir", str(rdir),
+                         "--mask_dir", str(mask_dir), "--out_dir",
+                         str(out_dir)])
+    files = sorted(mask_dir.glob("*.png"))
+    orig = [imread_gray8(f) > 127 for f in files]
+    masks = []
+    for f in files:     # as the command reads them
+        m = imread_gray8(f).astype(np.float32)
+        m = (m / max(m.max(), 1) > 0.5).astype(np.float32)
+        masks.append(dilate_mask(m, iterations=5))
+    intr = np.loadtxt(rdir / "intrinsics.txt")
+    kw = dict(focal=float(intr[0, 0]), cx=float(intr[0, 2]),
+              cy=float(intr[1, 2]))
+    views = {}
+    for dev in (CARD, "cpu"):
+        dumps = mask_refine.load_view_dumps(rdir, masks, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views[dev] = mask_refine.refine_all(dumps, **kw)
+        torch.cuda.synchronize()
+        secs[f"refine_all_{dev}"] = time.perf_counter() - t0
+    n_samples = dumps[0].z.shape[-1]
+    del dumps
+    # the first of several valid samples, on the card
+    valid = torch.rand((1 << 20, n_samples), device=CARD) < 0.05
+    first = torch.argmax(valid.to(torch.int32), dim=-1).cpu().numpy()
+    if not np.array_equal(first, np.argmax(valid.cpu().numpy(), axis=-1)):
+        raise AssertionError("argmax on the card is not the first maximum")
+    img_err = disp_err = 0.0
+    n_freed = n_ring = n_cand = 0
+    for i, ((ic, mc, dc), (ip, mp, dp)) in enumerate(zip(views[CARD],
+                                                        views["cpu"])):
+        if not torch.equal(mc.cpu(), mp):
+            raise AssertionError(f"view {i}: the card's refined mask is not "
+                                 f"the CPU's")
+        img_err = max(img_err, float((ic.cpu().double() - ip.double())
+                                     .abs().max()))
+        disp_err = max(disp_err, float((dc.cpu().double() - dp.double())
+                                       .abs().max()))
+        dilated, refined = masks[i] > 0.5, mp.numpy() > 0.5
+        if (refined & ~dilated).any():
+            raise AssertionError(f"view {i}: refined mask outside its "
+                                 f"dilated input")
+        freed = dilated & ~refined
+        n_freed += int(freed.sum())
+        n_ring += int((freed & ~orig[i]).sum())
+        n_cand += int(dilated.sum()) * n_samples
+        label = read_png(out_dir / "refined_images" / "label" / files[i].name)
+        if not np.array_equal(label, (mp.numpy() * 255).astype(np.uint8)):
+            raise AssertionError(f"view {i}: the command's label PNG is not "
+                                 f"the refined mask")
+    log(json.dumps({"refine_masks": {
+        "views": len(files), "size": [FIT_H, FIT_W],
+        "masked_pixels_x_samples": n_cand,
+        "card_s_per_view": secs[f"refine_all_{CARD}"] / len(files),
+        "cpu_s_per_view": secs["refine_all_cpu"] / len(files),
+        "command_s": secs["refine_masks"], "unmasked": n_freed,
+        "unmasked_share_in_ring": n_ring / max(n_freed, 1),
+        "card_vs_cpu_image_err": img_err, "card_vs_cpu_disp_err": disp_err}}))
+    if not (img_err <= REFINE_TOL and disp_err <= REFINE_TOL):
+        raise AssertionError("the card's refined maps are not the CPU's")
+    if n_freed < 1:
+        raise AssertionError("refine_masks un-masked no pixel")
+    del views
+    torch.cuda.empty_cache()
+
+    # 5. eval of the rendered test views against the scene's images
+    run("eval", ["eval", "--pred_dir", str(rdir / "rgb"), "--gt_dir",
+                 str(rdir / "images"), "--json_out",
+                 str(exp_root / "cli_eval.json")])
+    rows = json.loads((exp_root / "cli_eval.json").read_text())["per_image"]
+    eval_err = 0.0
+    for row in rows:
+        pred = torch.from_numpy(imread_float(rdir / "rgb" / row["name"]))
+        gt = torch.from_numpy(imread_float(rdir / "images" / row["name"]))
+        eval_err = max(eval_err,
+                       abs(row["psnr"] - float(metrics.psnr(pred, gt))),
+                       abs(row["ssim"] - float(metrics.ssim(pred, gt))))
+    log(f"[cli] eval: {[(r['psnr'], r['ssim']) for r in rows]}, within "
+        f"{eval_err:.3g} of the metrics on the CPU")
+    if len(rows) != len(test_views) or not eval_err <= CLI_EVAL_TOL:
+        raise AssertionError("eval's JSON is not the metrics")
+
+    # 6. strip_ckpt: parameters only, loaded by --ft_path's reader
+    run("strip_ckpt", ["strip_ckpt", "--exp_dir", str(exp), "--out_dir",
+                       str(exp_root / "cli_stripped")])
+    step, restored = restore_from_path(exp_root / "cli_stripped" /
+                                       f"params_{STEPS}.pt")
+    full = torch.load(CheckpointManager(exp).path(STEPS), map_location="cpu",
+                      weights_only=True)["params"]
+    if step != STEPS or restored["opt_state"] is not None or \
+            restored["params"].keys() != full.keys() or not all(
+                torch.equal(restored["params"][k], v)
+                for k, v in full.items()):
+        raise AssertionError("the stripped checkpoint is not the step's "
+                             "parameters")
+    log(json.dumps({"cli": {"seconds": secs,
+                            "total_s": sum(secs.values())}}))
+    return secs
+
+
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
@@ -2740,6 +3019,10 @@ def main(argv):
 
     # 15. the LaMa generator and refiner, then run_pipeline with MVSeg
     lama_arm(exp_root)
+    torch.cuda.empty_cache()
+
+    # 16. the command-line entry point
+    cli_arm(exp_root)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

@@ -98,6 +98,28 @@ def imread_float(path) -> np.ndarray:
         65535.0 if img.dtype == np.uint16 else 255.0)
 
 
+def imread_rgb8(path) -> np.ndarray:
+    """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order):
+    gray repeated, alpha dropped, 16-bit to its high byte."""
+    img = imread(path)
+    if img.dtype == np.uint16:
+        img = (img >> 8).astype(np.uint8)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return img[..., :3]
+
+
+def imread_gray8(path) -> np.ndarray:
+    """uint8 [H, W] as cv2's grayscale read gives it: gray as stored,
+    colour by cvtColor's fixed-point luma (R 4899, G 9617, B 1868, >> 14,
+    rounded; exact on masks whose channels are equal). cv2's PNG reader
+    rounds some colour pixels 1 apart, which moves a mask's 0.5 threshold
+    only at gray 127 / 128."""
+    img = imread_rgb8(path)
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
+
+
 def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
     """cv2.resize(img, (W // f, H // f), INTER_AREA) of a uint8 or uint16
     image whose sides are multiples of f: the mean of each f x f block,

@@ -210,14 +210,17 @@ def load_lin_weights_from_torch(path):
 
 
 def load_lpips(vgg_weights_path=None, lin_weights_path=None, *,
-               seed: int = 0, device=None) -> LPIPS:
+               seed: int = 0, device=None,
+               require_weights: bool = False) -> LPIPS:
     """An `LPIPS` module on `device`: explicit paths, else files in
     `$SPINNERF_WEIGHTS_DIR`, else the seeded random VGG and uniform heads
-    (NOT numerically LPIPS)."""
+    (NOT numerically LPIPS); `require_weights` raises
+    `weights.MissingWeightsError` instead of falling back."""
+    find = wreg.require if require_weights else wreg.find
     if vgg_weights_path is None:
-        vgg_weights_path = wreg.find("vgg16")
+        vgg_weights_path = find("vgg16")
     if lin_weights_path is None:
-        lin_weights_path = wreg.find("lpips_lin")
+        lin_weights_path = find("lpips_lin")
     model = LPIPS(device=device)
     if vgg_weights_path is not None:
         load_vgg_params_from_torch(vgg_weights_path, model.vgg)

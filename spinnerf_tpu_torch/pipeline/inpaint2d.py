@@ -212,28 +212,6 @@ def load_generator(checkpoint_path=None, device=None, **kwargs):
     return gen.to(resolve_device(device)).requires_grad_(False)
 
 
-def _read_rgb(path) -> np.ndarray:
-    """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order):
-    gray repeated, alpha dropped, 16-bit to its high byte."""
-    img = llff.imread(path)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=-1)
-    return img[..., :3]
-
-
-def _read_gray(path) -> np.ndarray:
-    """uint8 [H, W] as cv2's grayscale read gives it: gray as stored,
-    colour by cvtColor's fixed-point luma (R 4899, G 9617, B 1868, >> 14,
-    rounded; exact on masks whose channels are equal). cv2's PNG reader
-    rounds some colour pixels 1 apart, which moves a mask's 0.5 threshold
-    only at gray 127 / 128."""
-    img = _read_rgb(path)
-    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
-    return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
-
-
 def inpaint_directory(in_dir, out_dir, *, checkpoint_path=None,
                       refine: bool = False, inpainter: Inpainter | None = None,
                       device=None, **refine_kwargs):
@@ -251,14 +229,14 @@ def inpaint_directory(in_dir, out_dir, *, checkpoint_path=None,
                     if p.suffix.lower() in (".png", ".jpg", ".jpeg")
                     and "_mask" not in p.stem)
     for p in images:
-        img = _read_rgb(p).astype(np.float32) / 255.0
+        img = llff.imread_rgb8(p).astype(np.float32) / 255.0
         mp = in_dir / "label" / (p.stem + ".png")
         if not mp.exists():
             mp = next(iter(sorted(in_dir.glob(p.stem + "_mask*"))),
                       in_dir / (p.stem + "_mask.png"))
         if not mp.exists():
             raise FileNotFoundError(mp)
-        m = (_read_gray(mp).astype(np.float32) / 255.0 > 0.5)
+        m = (llff.imread_gray8(mp).astype(np.float32) / 255.0 > 0.5)
         m = m.astype(np.float32)
         if m.shape != img.shape[:2]:
             m = nearest_resize(m, *img.shape[:2])

@@ -107,7 +107,7 @@ def stage_inpaint_guidance(cfg: Config, lama_in, *, checkpoint_path=None,
             shutil.copy(src, rgb_in / f"img{i:03d}.png")
         else:
             write_png(rgb_in / f"img{i:03d}.png", llff.imread(src))
-        write_png(rgb_in / "label" / f"img{i:03d}.png", inpaint2d._read_gray(
+        write_png(rgb_in / "label" / f"img{i:03d}.png", llff.imread_gray8(
             img_dir / "label" / (Path(name).stem + ".png")))
     return depth_dir, inpaint(rgb_in, "rgb", "lama_images")
 

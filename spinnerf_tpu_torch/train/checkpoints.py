@@ -1,13 +1,14 @@
 """Checkpoints: `torch.save` of {step, params, opt_state} every
 `save_interval` steps under <exp_dir>/checkpoints, the newest restored on
-resume, `--ft_path` loading and the frozen field of `--alpha_model_path`
-(port of `spinnerf_tpu/train/checkpoints.py`, which uses orbax; the port
+resume, `--ft_path` loading, the frozen field of `--alpha_model_path` and
+the parameters-only distribution file of `strip_checkpoint` (port of `spinnerf_tpu/train/checkpoints.py`, which uses orbax; the port
 reads its own files, not orbax's).
 """
 from __future__ import annotations
 
 import os
 import re
+import shutil
 from pathlib import Path
 
 import torch
@@ -87,14 +88,17 @@ def restore_from_path(path, *, map_location=None):
                   "opt_state": data.get("opt_state")}
 
 
-def frozen_field_state(exp_dir, *, map_location=None):
+def frozen_field_state(path, *, map_location=None):
     """The state dict of the field that `--alpha_model_path` freezes: the
-    newest checkpoint of experiment `exp_dir`, its "fine" field where it has
-    one, else its "coarse" (JAX `train/loop.py:287-306`). Raises
-    FileNotFoundError when the experiment has no checkpoint."""
-    exp = Path(exp_dir)
+    newest checkpoint of experiment `path` (or the file `strip_checkpoint`
+    wrote), its "fine" field where it has one, else its "coarse" (JAX
+    `train/loop.py:287-306`). Raises FileNotFoundError when the experiment
+    has no checkpoint."""
+    exp = Path(path)
     step = None
-    if (exp / "checkpoints").is_dir():
+    if exp.is_file():
+        step, restored = restore_from_path(exp, map_location=map_location)
+    elif (exp / "checkpoints").is_dir():
         step, restored = CheckpointManager(exp).restore(
             map_location=map_location)
     if step is None:
@@ -103,3 +107,40 @@ def frozen_field_state(exp_dir, *, map_location=None):
     key = "fine" if any(k.startswith("fine.") for k in params) else "coarse"
     return {k[len(key) + 1:]: v for k, v in params.items()
             if k.startswith(key + ".")}
+
+
+def page_bounds_path(path) -> Path:
+    """Where the `page_bounds.json` of a frozen field lies: in an
+    experiment directory, or beside a file `strip_checkpoint` wrote."""
+    p = Path(path)
+    return (p.with_suffix(".page_bounds.json") if p.is_file()
+            else p / "page_bounds.json")
+
+
+def strip_checkpoint(exp_dir, out_dir, *, step=None):
+    """Write a distribution checkpoint containing only the parameters
+    (parity: `lama/bin/make_checkpoint.py` — strip optimizer/training state)
+    of the newest checkpoint of `exp_dir`, or of `step`, to
+    `<out_dir>/params_<step>.pt`, a file that `restore_from_path`
+    (`--ft_path`) and `frozen_field_state` (`--alpha_model_path`) read as
+    parameters only; the experiment's `page_bounds.json` goes beside it as
+    `params_<step>.page_bounds.json`. Returns (step, out_path)."""
+    src = CheckpointManager(exp_dir)
+    steps = src.steps()
+    if step is None and steps:
+        step = steps[0]
+    if step is None or step not in steps:
+        raise FileNotFoundError(
+            f"no checkpoint{'' if step is None else f' at step {step}'} "
+            f"under {src.dir}")
+    data = torch.load(src.path(step), map_location="cpu", weights_only=True)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dst = out / f"params_{step}.pt"
+    tmp = dst.with_suffix(".tmp")
+    torch.save({"step": step, "params": data["params"]}, tmp)
+    os.replace(tmp, dst)      # re-running the strip overwrites
+    side = Path(exp_dir) / "page_bounds.json"
+    if side.exists():
+        shutil.copyfile(side, page_bounds_path(dst))
+    return step, dst

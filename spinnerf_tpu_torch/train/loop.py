@@ -314,7 +314,7 @@ class Trainer:
                                                map_location=self.device)
         bounds = dense_box = None
         if isinstance(self.model, HashGridField):
-            side = alpha / "page_bounds.json"
+            side = checkpoints.page_bounds_path(alpha)
             if not side.exists():
                 raise ValueError(
                     f"--alpha_model_path {alpha}: no page_bounds.json, so "

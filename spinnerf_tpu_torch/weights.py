@@ -15,7 +15,8 @@ passed to a loader always win):
       ade20k_resnet50.pth       MIT CSAIL ADE20k encoder weights
       ade20k_ppm_decoder.pth    MIT CSAIL ADE20k ppm_deepsup decoder weights
 
-Every consumer calls `find(<name>)`.
+Every consumer calls `find(<name>)`; one that has no fallback calls
+`require(<name>)`, which raises MissingWeightsError.
 """
 from __future__ import annotations
 
@@ -57,3 +58,18 @@ def find(name: str) -> str | None:
         if p.is_file():
             return str(p)
     return None
+
+
+class MissingWeightsError(FileNotFoundError):
+    """A checkpoint a caller requires is not dropped in."""
+
+
+def require(name: str) -> str:
+    """Path to the named checkpoint; raises MissingWeightsError when it is
+    not dropped in."""
+    path = find(name)
+    if path is None:
+        raise MissingWeightsError(
+            f"{WELL_KNOWN[name][0]} is not in ${ENV_VAR} "
+            f"({weights_dir() or 'unset'})")
+    return path

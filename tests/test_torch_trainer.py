@@ -373,6 +373,7 @@ def test_port_imports_no_jax():
         "import spinnerf_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'spinnerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "importlib.import_module('spinnerf_tpu_torch.cli.__main__')\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'spinnerf_tpu' or k.startswith('spinnerf_tpu.')]\n"
         "assert not bad, bad\n"
