@@ -142,7 +142,25 @@ Phases, each fatal on failure (no phase's error is caught):
      dilated input, some pixel un-masked; seconds a view, candidates, the
      un-masked share in the dilation ring), `eval` (within 1e-5 of the
      metrics on the CPU) and `strip_ckpt` (the step's parameters, bit for
-     bit, through `restore_from_path`); each command's seconds.
+     bit, through `restore_from_path`); each command's seconds;
+ 17. the other scene readers and the full-scale pipeline tool: (a) a
+     Blender scene (24 RGBA views at 800 x 800 of the world from
+     pose_spherical(theta, -30, 4), alpha on the ball and a table of
+     radius 1.5, whose z-depths lie inside near / far 2 / 6) trained
+     through `train --dataset_type blender --half_res --white_bkgd` for
+     200 steps on the default hash-grid field, (b) a DTU scene (16 views
+     at 800 x 600 with cameras.npz, cut from DTU's 49 at 1600 x 1200; test
+     views 3 and 11 left out) through `train --dataset_type dtu`, each
+     with #1 and #2 launched 400 times, the training PSNR rising, the
+     bank's near / far the dataset's, NDC off, and a held-out view's PSNR;
+     (c) the native COLMAP reader (`data/colmap_fast.py`, built by g++):
+     its sparse depth equal to `colmap.sparse_depth_for_views` on the disk
+     arm's scene and on a 10^5-point model, both readers timed there; (d)
+     `tools.full_run` in this process at 12 views, 2016 x 1134 at factor 2
+     (the full 1008 x 567) and `--iters-scale 40`, once per model on
+     copies of one scene: every trainer stage launches #1 / #2 (hash grid)
+     or #9 / #10 (MLP), the fit's PSNR rises, `summary` and
+     `stage_seconds` printed; the phase's seconds.
 """
 from __future__ import annotations
 
@@ -2253,14 +2271,16 @@ def rel_err(a, b):
 class StageRecorder:
     """Wraps the step function of each Trainer built while it is installed
     (`train.loop.make_train_step`): one record per Trainer, in order, with
-    each step's metrics and the hash kernels' launch counts at its first
-    step and after its last."""
+    each step's metrics and the launch counts (`launches`, by default the
+    hash kernels') at its first step and after its last."""
 
-    def __init__(self):
+    def __init__(self, launches=None):
         self.runs = []
+        self.launches = launches
 
     def wrap(self, make_train_step):
         from spinnerf_tpu_torch.ops import hash_encode_win as hw
+        launches = hw.launches if self.launches is None else self.launches
 
         def make(*args, **kw):
             step = make_train_step(*args, **kw)
@@ -2269,9 +2289,9 @@ class StageRecorder:
 
             def recorded(i, generator=None):
                 if run["first"] is None:
-                    run["first"] = dict(hw.launches)
+                    run["first"] = dict(launches)
                 run["metrics"][i] = step(i, generator)
-                run["last"] = dict(hw.launches)
+                run["last"] = dict(launches)
                 return run["metrics"][i]
             recorded.loss_fn = step.loss_fn
             recorded.field_fns = step.field_fns
@@ -2849,6 +2869,353 @@ def cli_arm(exp_root):
     return secs
 
 
+# phase 17: the Blender and DTU scenes, the native COLMAP reader and the
+# full-scale pipeline tool
+BLENDER_VIEWS, BLENDER_SIDE = 24, 800       # trained at half resolution
+BLENDER_ANGLE_X = 0.6911112070083618        # the lego scene's field of view
+DTU_VIEWS, DTU_H, DTU_W = 16, 600, 800      # DTU ships 49 views, 1600 x 1200
+DTU_TEST = [3, 11]                          # left out of the DTU training
+TABLE_RADIUS = 1.5          # the plane is kept within this radius
+COLMAP_POINTS = 100_000     # the native-vs-Python timing's model
+# 12 views at 2016 x 1134, trained at factor 2 (the full 1008 x 567)
+FULL_RUN_SCENE = dict(views=12, gt=4, h=1134, w=2016, factor=2)
+FULL_RUN_ARGS = ["--iters-scale", "40"] + [
+    a for k, v in FULL_RUN_SCENE.items() for a in (f"--{k}", str(v))]
+# the CLI's training flags on the default hash-grid field: 200 steps, no
+# hook renders
+LOADER_FLAGS = ["--N_iters", str(STEPS), "--i_print", "50", "--i_weights",
+                "0", "--i_video", "0", "--i_testset", "0", "--i_feat", "0",
+                "--no_reload", "True"]
+
+
+def world_view(c2w, h, w, focal):
+    """RGB [h, w, 3], z-depth [h, w] and the hit mask (the ball, or the
+    plane within TABLE_RADIUS of the origin) of one camera of the
+    plane-and-ball world."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import synthetic
+    rgb, z, ball = synthetic.render_view(c2w, h, w, focal)
+    i, j = np.meshgrid(np.arange(w, dtype=np.float32),
+                       np.arange(h, dtype=np.float32), indexing="xy")
+    d = np.stack([(i - w * 0.5) / focal, -(j - h * 0.5) / focal,
+                  -np.ones_like(i)], -1) @ c2w[:3, :3].T
+    p = c2w[:3, 3] + np.where(np.isfinite(z), z, 0.0)[..., None] * d
+    table = np.isfinite(z) & (np.linalg.norm(p[..., :2], axis=-1)
+                              < TABLE_RADIUS)
+    return rgb, z, ball | table
+
+
+def write_blender_scene(d):
+    """BLENDER_VIEWS RGBA frames of the world at BLENDER_SIDE from
+    `pose_spherical(theta, -30, 4)` (alpha: the hit mask) and
+    transforms_{train,val,test}.json (every 6th view val, every 6th from
+    the 4th test). Returns the z-depth range of the hit pixels."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import blender
+    from spinnerf_tpu_torch.eval.render import write_png
+    side = BLENDER_SIDE
+    focal = 0.5 * side / np.tan(0.5 * BLENDER_ANGLE_X)
+    frames = {"train": [], "val": [], "test": []}
+    zs = []
+    for k in range(BLENDER_VIEWS):
+        split = ("val" if k % 6 == 0 else "test" if k % 6 == 3
+                 else "train")
+        c2w = blender.pose_spherical(-180.0 + 360.0 * k / BLENDER_VIEWS,
+                                     -30.0, 4.0)
+        rgb, z, hit = world_view(c2w[:3], side, side, focal)
+        zs.append(z[hit])
+        (d / split).mkdir(parents=True, exist_ok=True)
+        name = f"r_{len(frames[split])}"
+        write_png(d / split / f"{name}.png", (np.concatenate(
+            [rgb, hit[..., None].astype(np.float32)], -1) * 255)
+            .astype(np.uint8))
+        frames[split].append({"file_path": f"./{split}/{name}",
+                              "transform_matrix": c2w.tolist()})
+    for split, fr in frames.items():
+        (d / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": BLENDER_ANGLE_X, "frames": fr}))
+    zs = np.concatenate(zs)
+    return float(zs.min()), float(zs.max())
+
+
+def write_dtu_scene(d):
+    """DTU_VIEWS views of the world at DTU_W x DTU_H from a ring at radius
+    3, height 1.8 (white off the ball and the table) in image/, and
+    cameras.npz with world_mat_<i> = K [R | t] in OpenCV's frame. Returns
+    the z-depth range of the hit pixels."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import synthetic
+    from spinnerf_tpu_torch.eval.render import write_png
+    (d / "image").mkdir(parents=True)
+    focal = 1.2 * DTU_W
+    k = np.array([[focal, 0, DTU_W / 2], [0, focal, DTU_H / 2], [0, 0, 1]])
+    mats, zs = {}, []
+    for v in range(DTU_VIEWS):
+        th = 2 * np.pi * v / DTU_VIEWS
+        c2w = synthetic.look_at_pose(
+            [3.0 * np.cos(th), 3.0 * np.sin(th), 1.8], target=(0, 0, 0.3))
+        rgb, z, hit = world_view(c2w, DTU_H, DTU_W, focal)
+        rgb[~hit] = 1.0
+        zs.append(z[hit])
+        write_png(d / "image" / f"{v:06d}.png", (rgb * 255).astype(np.uint8))
+        r_cv = np.stack([c2w[:, 0], -c2w[:, 1], -c2w[:, 2]], 1).T
+        p = np.eye(4)
+        p[:3] = k @ np.concatenate([r_cv, (-r_cv @ c2w[:, 3])[:, None]], 1)
+        mats[f"world_mat_{v}"] = p
+    np.savez(d / "cameras.npz", **mats)
+    zs = np.concatenate(zs)
+    return float(zs.min()), float(zs.max())
+
+
+def cli_train_held_out(tag, exp_root, scene_dir, flags, near_far):
+    """Phase 17 (a) / (b): `train` through the command line (in this
+    process) on a scene directory, each step's metrics recorded around the
+    step function and the Trainer kept; #1 and #2 launched twice a step
+    (2 x STEPS each), the training PSNR rising, the bank's near / far the
+    dataset's; then the first test view rendered and scored."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.core.losses import mse, mse_to_psnr
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train import loop
+
+    kept = []
+
+    class Kept(loop.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.append(self)
+    rec = StageRecorder()
+    make_train_step, trainer_cls = loop.make_train_step, loop.Trainer
+    loop.make_train_step, loop.Trainer = rec.wrap(make_train_step), Kept
+    hw.launches.update(fwd=0, bwd=0)
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(["train", "--expname", tag, "--basedir", str(exp_root),
+                       "--datadir", str(scene_dir)] + flags + LOADER_FLAGS)
+    finally:
+        loop.make_train_step, loop.Trainer = make_train_step, trainer_cls
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(hw.launches)
+    tr = kept[0]
+    ms = rec.runs[0]["metrics"]
+    p_first = float(np.mean([float(ms[i]["psnr"]) for i in range(1, 11)]))
+    p_last = float(np.mean([float(ms[i]["psnr"])
+                            for i in range(STEPS - 9, STEPS + 1)]))
+    t = int(tr.i_test[0])
+    t0 = time.perf_counter()
+    rgbs, _ = tr.render_poses_list(tr.scene.poses[t:t + 1])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rgb = torch.as_tensor(rgbs[0], device=tr.device)
+    held = float(mse_to_psnr(mse(rgb, torch.as_tensor(tr.scene.images[t],
+                                                      device=tr.device))))
+    out = {"images": list(tr.scene.images.shape), "hwf": list(tr.scene.hwf),
+           "train_views": len(tr.i_train), "test_views": len(tr.i_test),
+           "near_far": [tr.bank.near, tr.bank.far], "ndc": tr.bank.ndc,
+           "load_s": tr.load_s, "train_s": train_s,
+           "psnr_steps_1_10": p_first,
+           f"psnr_steps_{STEPS - 9}_{STEPS}": p_last,
+           "hash_launches": counts, "held_out_view": t,
+           "held_out_psnr": held, "render_s": render_s}
+    log(json.dumps({tag: out}))
+    if rc != 0 or sorted(ms) != list(range(1, STEPS + 1)) or not all(
+            math.isfinite(float(m["loss"])) for m in ms.values()):
+        raise AssertionError(f"{tag}: exit code {rc}, steps missing or a "
+                             f"loss not finite")
+    if not p_last > p_first:
+        raise AssertionError(f"{tag}: the training PSNR did not rise")
+    if (tr.bank.near, tr.bank.far) != near_far or tr.bank.ndc:
+        raise AssertionError(f"{tag}: bank near / far {tr.bank.near}, "
+                             f"{tr.bank.far} (ndc {tr.bank.ndc})")
+    if rgb.shape != tuple(tr.scene.images.shape[1:]) or \
+            not math.isfinite(held):
+        raise AssertionError(f"{tag}: the held-out render")
+    if counts != {"fwd": 2 * STEPS, "bwd": 2 * STEPS}:
+        raise AssertionError(f"{tag}: #1 / #2 launched {counts} times, not "
+                             f"{2 * STEPS} each")
+    return out
+
+
+def colmap_fast_arm(exp_root):
+    """Phase 17 (c): the native COLMAP reader. On the disk arm's scene its
+    sparse depth equals `colmap.sparse_depth_for_views`, array for array;
+    then both are timed (best of 3) on a model of COLMAP_POINTS points that
+    `make_scene` writes, and equal there too."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import colmap, colmap_fast, synthetic
+    from spinnerf_tpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    build_s = time.perf_counter() - t0
+
+    def same(sparse, **kw):
+        a = colmap_fast.sparse_depth_for_views(sparse, **kw)
+        b = colmap.sparse_depth_for_views(sparse, **kw)
+        return len(a) == len(b) and all(
+            x.keys() == y.keys() and all(
+                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                for k in y) for x, y in zip(a, b)), sum(
+                    len(x["depth"]) for x in a)
+
+    disk = exp_root / "disk_scene" / "sparse" / "0"
+    disk_equal, disk_n = same(disk, factor=DISK_FACTOR, bd_scale=0.75)
+    big = exp_root / "colmap_big"
+    shutil.rmtree(big, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.make_scene(big, n_views=N_VIEWS, h=48, w=64,
+                         n_points=COLMAP_POINTS)
+    write_s = time.perf_counter() - t0
+    sparse = big / "sparse" / "0"
+    big_equal, big_n = same(sparse)
+    times = {}
+    for name, fn in (("python", colmap.sparse_depth_for_views),
+                     ("native", colmap_fast.sparse_depth_for_views)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(sparse)
+            runs.append(time.perf_counter() - t0)
+        times[name] = min(runs)
+    n_points = len(colmap_fast.read_points_columns(sparse / "points3D.bin")
+                   ["ids"])
+    out = {"library": lib.name, "build_or_cached_s": build_s,
+           "disk_scene_equal": disk_equal, "disk_scene_depths": disk_n,
+           "model_points": n_points, "model_depths": big_n,
+           "model_equal": big_equal, "model_write_s": write_s,
+           "python_s": times["python"], "native_s": times["native"],
+           "speedup": times["python"] / times["native"]}
+    log(json.dumps({"colmap_fast": out}))
+    if not (disk_equal and big_equal and disk_n > 0 and big_n > 0):
+        raise AssertionError("colmap_fast's sparse depth is not the Python "
+                             "reader's")
+    return out
+
+
+def full_run_arm(exp_root):
+    """Phase 17 (d): `python -m spinnerf_tpu_torch.tools.full_run` in this
+    process at FULL_RUN_ARGS (12 views at 2016 x 1134, trained at factor 2:
+    the full 1008 x 567), once per model on copies of one generated scene,
+    each Trainer's step function recorded: every trainer stage launches the
+    model's kernels (#1 / #2 or #9 / #10), the fit's PSNR is finite and
+    rises, the JSON has the JAX tool's keys."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.tools import full_run
+    from spinnerf_tpu_torch.train import loop
+
+    from spinnerf_tpu_torch import weights
+
+    # one scene, generated by the tool and copied for each model (a run
+    # overwrites its label/ and guidance directories)
+    gen = exp_root / "full_run_scene"
+    shutil.rmtree(gen, ignore_errors=True)
+    t0 = time.perf_counter()
+    full_run.make_scene(gen, **FULL_RUN_SCENE,
+                        analytic=weights.find("big_lama") is None)
+    gen_s = time.perf_counter() - t0
+    results = {}
+    for model, counter in (("hashgrid", hw.launches),
+                           ("mlp", fm.launches)):
+        work = exp_root / f"full_run_{model}"
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.copytree(gen / "scene", work / "scene")
+        rec = StageRecorder(counter)
+        make_train_step = loop.make_train_step
+        loop.make_train_step = rec.wrap(make_train_step)
+        counter.update(fwd=0, bwd=0)
+        t0 = time.perf_counter()
+        try:
+            rc = full_run.main(FULL_RUN_ARGS + [
+                "--model", model, "--workdir", str(work)])
+        finally:
+            loop.make_train_step = make_train_step
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = json.loads((work / "FULLRUN_torch.json").read_text())
+        per_stage = [{k: run["last"][k] - run["first"][k] for k in counter}
+                     for run in rec.runs]
+        fit = rec.runs[-1]["metrics"]
+        n_fit = res["config"]["iters"]["fit"]
+        psnr = [float(fit[i]["psnr"]) for i in range(1, n_fit + 1)]
+        p_first, p_last = float(np.mean(psnr[:10])), float(np.mean(psnr[-10:]))
+        out = {"seconds": secs, "scene_gen_s": gen_s,
+               "summary": res["summary"],
+               "stage_seconds": res["stage_seconds"],
+               "config": res["config"],
+               "peak_device_memory_gib": res.get("peak_device_memory_gib"),
+               "kernel_launches_per_trainer": per_stage,
+               "kernel_launches": dict(counter),
+               "fit_psnr_steps_1_10": p_first,
+               "fit_psnr_last_10": p_last}
+        log(json.dumps({f"full_run_{model}": out}))
+        if rc != 0 or set(res["stage_seconds"]) != {
+                "mvseg", "prepare", "inpaint_guidance", "fit", "eval"}:
+            raise AssertionError(f"full_run {model}: exit code {rc}, stages "
+                                 f"{res['stage_seconds']}")
+        if not all(math.isfinite(p) for p in psnr) or not p_last > p_first:
+            raise AssertionError(f"full_run {model}: the fit's PSNR is not "
+                                 f"finite or did not rise")
+        if not all(math.isfinite(v) for v in res["summary"].values()):
+            raise AssertionError(f"full_run {model}: summary {res['summary']}")
+        if len(per_stage) != 3 or any(c["fwd"] <= 0 or c["bwd"] <= 0
+                                      for c in per_stage):
+            raise AssertionError(f"full_run {model}: a trainer did not "
+                                 f"launch its kernels: {per_stage}")
+        results[model] = out
+        torch.cuda.empty_cache()
+    return results
+
+
+def loaders_arm(exp_root):
+    """Phase 17: (a) a Blender scene, (b) a DTU scene, each trained through
+    the command line and scored on a held-out view; (c) the native COLMAP
+    reader; (d) the full-scale pipeline tool on both models. Prints its
+    seconds."""
+    import torch
+
+    t_start = time.perf_counter()
+    out = {}
+    for tag, write, flags, near_far, zr in (
+            ("blender", write_blender_scene,
+             ["--dataset_type", "blender", "--half_res", "--white_bkgd"],
+             (2.0, 6.0), (2.0, 6.0)),
+            ("dtu", write_dtu_scene,
+             ["--dataset_type", "dtu", "--test_scene",
+              *map(str, DTU_TEST)], (0.1, 5.0), (0.1, 5.0))):
+        scene_dir = exp_root / f"{tag}_scene"
+        shutil.rmtree(scene_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        z_lo, z_hi = write(scene_dir)
+        log(f"[{tag}] scene written in {time.perf_counter() - t0:.1f} s; "
+            f"the hit pixels' z-depth {z_lo:.3f} .. {z_hi:.3f} (near / far "
+            f"{near_far[0]} / {near_far[1]})" + (
+                f"; {DTU_VIEWS} views at {DTU_W} x {DTU_H}, cut from DTU's "
+                f"49 at 1600 x 1200" if tag == "dtu" else
+                f"; {BLENDER_VIEWS} views at {BLENDER_SIDE} x "
+                f"{BLENDER_SIDE}, trained at half resolution"))
+        if not (zr[0] <= z_lo and z_hi <= zr[1]):
+            raise AssertionError(f"{tag}: the world leaves near / far")
+        out[tag] = cli_train_held_out(tag, exp_root, scene_dir, flags,
+                                      near_far)
+        torch.cuda.empty_cache()
+    out["colmap_fast"] = colmap_fast_arm(exp_root)
+    out["full_run"] = full_run_arm(exp_root)
+    log(f"[phase 17] {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
@@ -3023,6 +3390,11 @@ def main(argv):
 
     # 16. the command-line entry point
     cli_arm(exp_root)
+    torch.cuda.empty_cache()
+
+    # 17. the Blender and DTU scenes, the native COLMAP reader and the
+    # full-scale pipeline tool
+    loaders_arm(exp_root)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

@@ -339,16 +339,21 @@ def sparse_depth_for_views(sparse_dir, *, factor: float = 1.0,
     (times `bd_scale`), its pixel coordinate (divided by `factor`) and the
     weight 2 exp(-(err / mean err)^2). Points outside the view's [close,
     far] `bounds` (or, without bounds, behind the camera) are dropped.
-    Returns a list of {"depth" [K], "coord" [K, 2], "weight" [K]}.
-
-    The points are taken as columns (ids, xyz, error) with an id -> row
-    lookup table, so that each view's points are gathered with array
-    indexing rather than one dict lookup per keypoint."""
+    Returns a list of {"depth" [K], "coord" [K, 2], "weight" [K]}."""
     _, images, points = read_model(sparse_dir)
-    ids = np.fromiter(points, np.int64, len(points))
-    xyz = np.array([p.xyz for p in points.values()],
-                   np.float64).reshape(-1, 3)
-    err = np.array([p.error for p in points.values()], np.float64)
+    return sparse_depth_from_columns(
+        images, np.fromiter(points, np.int64, len(points)),
+        np.array([p.xyz for p in points.values()], np.float64).reshape(-1, 3),
+        np.array([p.error for p in points.values()], np.float64),
+        factor=factor, bd_scale=bd_scale, bounds=bounds)
+
+
+def sparse_depth_from_columns(images, ids, xyz, err, *, factor: float = 1.0,
+                              bd_scale: float = 1.0, bounds=None):
+    """`sparse_depth_for_views` from the images and the points as columns
+    (ids [N], xyz [N, 3], error [N]), with an id -> row lookup table, so
+    that each view's points are gathered with array indexing rather than
+    one dict lookup per keypoint."""
     err_mean = float(err.mean()) if len(err) else 1.0
     # COLMAP's point ids are small integers
     max_id = int(ids.max()) if len(ids) else 0

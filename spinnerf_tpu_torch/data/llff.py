@@ -13,9 +13,10 @@ Disk layout (the reference's `README.md:32-51`):
 
 The machine with the card has neither cv2 nor PIL: PNG files are decoded by
 `eval.render.read_png`, and the three cv2 operations the JAX loader uses are
-computed here with the same results: `minify` (INTER_AREA at an integer
-factor, a box mean with cv2's uint8 rounding), `dilate_mask` (5 x 5, 5
-iterations) and `resize_nearest` (INTER_NEAREST, from `utils/resize.py`).
+computed here with the same results: `minify` (INTER_AREA: cv2's block
+means and fractional weights with its integer rounding), `dilate_mask`
+(5 x 5, 5 iterations) and `resize_nearest` (INTER_NEAREST, from
+`utils/resize.py`).
 Other image formats (JPEG) go through cv2, imported when such a file is
 read.
 """
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from spinnerf_tpu_torch.eval.render import read_png, write_png
-from spinnerf_tpu_torch.utils.resize import nearest_resize as resize_nearest
+from spinnerf_tpu_torch.utils.resize import (area_resize_int,
+                                              nearest_resize as resize_nearest)
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".JPG", ".JPEG", ".PNG")
 
@@ -122,25 +124,10 @@ def imread_gray8(path) -> np.ndarray:
 
 def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
     """cv2.resize(img, (W // f, H // f), INTER_AREA) of a uint8 or uint16
-    image whose sides are multiples of f: the mean of each f x f block,
-    rounded as cv2 rounds it (sum + 2 >> 2 at f = 2, its vector path; else
-    the f32 product sum * (1 / f^2) to the nearest, ties to even)."""
+    image, bit for bit (`utils/resize.py::area_resize_int`): block means
+    where both scales are whole, cv2's fractional weights elsewhere."""
     h, w = img.shape[:2]
-    if h % factor or w % factor:
-        raise NotImplementedError(
-            f"downsampling {w} x {h} by {factor}: sides that are not multiples "
-            f"of the factor take cv2's fractional area weights "
-            f"(`utils/resize.py`), which minify does not use yet; see "
-            f"ROADMAP.md queue A #9")
-    blocks = img.reshape(h // factor, factor, w // factor, factor,
-                         *img.shape[2:]).astype(np.int64)
-    s = blocks.sum(axis=(1, 3))
-    if factor == 2:
-        out = (s + 2) >> 2
-    else:
-        out = np.rint(s.astype(np.float32)
-                      * np.float32(1.0 / (factor * factor)))
-    return out.astype(img.dtype)
+    return area_resize_int(img, h // factor, w // factor)
 
 
 def minify(scene_dir, factor: int):

@@ -70,6 +70,7 @@ def _pad_idx(idx: np.ndarray, multiple: int = 1024):
 
 def build_raybank(scene, i_train, *, depth_list=None, prepare: bool = False,
                   train_gt: bool = False, ndc: bool = False,
+                  near: float | None = None, far: float | None = None,
                   semantic: bool = False, device=None) -> RayBank:
     """Assemble a RayBank from a `llff.Scene` on `device`.
 
@@ -77,7 +78,9 @@ def build_raybank(scene, i_train, *, depth_list=None, prepare: bool = False,
     indexed by scene view id; outside prepare mode, points inside the
     object mask are dropped. The groups are pre-shuffled with the fixed
     generator `np.random.default_rng(0xC0FFEE)`, in the JAX bank's order, so
-    epoch batches are identical to the JAX package's."""
+    epoch batches are identical to the JAX package's. near / far: the
+    dataset's constants (blender, dtu); None takes NDC's (0, 1) or the
+    scene's bounds."""
     device = resolve_device(device)
     h, w, focal = scene.hwf
     i_train = np.asarray(i_train)
@@ -156,7 +159,10 @@ def build_raybank(scene, i_train, *, depth_list=None, prepare: bool = False,
             weight=dev(np.pad(weight, (0, pad)), torch.float32),
             count=k, max_depth=float(depth.max()) if k else 1.0)
 
-    near, far = (0.0, 1.0) if ndc else (scene.near, scene.far)
+    if near is None:
+        near = 0.0 if ndc else scene.near
+    if far is None:
+        far = 1.0 if ndc else scene.far
     return RayBank(images=dev(images, torch.float32),
                    poses=dev(poses, torch.float32),
                    labels=dev(labels, torch.float32),

@@ -136,7 +136,7 @@ class HashGridEncoding(nn.Module):
             if device.type == "cuda":
                 raise NotImplementedError(
                     "the index-gather kernels take features=2; other feature "
-                    "counts run only on the CPU (ROADMAP.md queue A)")
+                    "counts run only on the CPU (ROADMAP.md B1d)")
         self.impl = impl
         self.n_levels = n_levels
         self.features = features

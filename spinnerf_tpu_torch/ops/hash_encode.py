@@ -221,7 +221,7 @@ def _check_table_shape(shape, points_mode=False):
     if f != 2:
         raise NotImplementedError(
             f"the index-gather kernels take features=2, got {f}; other "
-            f"feature counts run only on the CPU (ROADMAP.md queue A)")
+            f"feature counts run only on the CPU (ROADMAP.md B1d)")
     if not 0 < l <= _MAX_LEVELS or not 0 < t <= _MAX_TABLE:
         raise ValueError(f"table [{l}, {t}, 2]: at most {_MAX_LEVELS} levels "
                          f"and 2^30 entries")

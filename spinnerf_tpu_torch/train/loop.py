@@ -12,9 +12,9 @@ control file (`i_print`), checkpoints (`i_weights`), the spiral videos
 disparity dump for LaMa (`i_feat`, forced at the last step of every `fit`)
 and, outside prepare mode, the sanity panel (`i_feat` > 10), the MVSeg
 panel (`i_img`, with `mvseg`), and the `page_bounds.json` sidecar that
-pins the hash index semantics to the experiment. Options not ported yet
-(`--mesh_shape`, the blender and DTU loaders) raise NotImplementedError
-naming their ROADMAP.md entry.
+pins the hash index semantics to the experiment. COLMAP's sparse depth is
+read by the native parser (`data/colmap_fast.py`). `--mesh_shape` is not
+ported yet and raises NotImplementedError naming its ROADMAP.md entry.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.config import Config
 from spinnerf_tpu_torch.core.rendering import RenderConfig
-from spinnerf_tpu_torch.data import colmap, dispatch, llff, raybank
+from spinnerf_tpu_torch.data import colmap_fast, dispatch, llff, raybank
 from spinnerf_tpu_torch.eval import metrics as eval_metrics
 from spinnerf_tpu_torch.eval import render as eval_render
 from spinnerf_tpu_torch.models.fields import NeRFField
@@ -215,6 +215,7 @@ class Trainer:
         # host seconds of the scene and sparse-depth reads in `load_s`
         self.load_s = {}
         t0 = time.perf_counter()
+        near = far = None
         if scene is not None:
             self.scene = scene
             self.i_train, self.i_test = llff.train_test_split(
@@ -223,13 +224,13 @@ class Trainer:
                 n_train=cfg.N_train,
                 train_scene=cfg.train_scene, test_scene=cfg.test_scene)
         else:
-            self.scene, self.i_train, self.i_test = \
+            self.scene, self.i_train, self.i_test, near, far = \
                 dispatch.load_scene_for_config(cfg)
             self.load_s["scene"] = time.perf_counter() - t0
         depth_list = None
         if cfg.colmap_depth:
             t0 = time.perf_counter()
-            depth_list = colmap.sparse_depth_for_views(
+            depth_list = colmap_fast.sparse_depth_for_views(
                 Path(cfg.datadir) / "sparse" / "0", factor=cfg.factor,
                 bd_scale=self.scene.scale)
             self.load_s["sparse_depth"] = time.perf_counter() - t0
@@ -238,7 +239,7 @@ class Trainer:
         self.bank = raybank.build_raybank(
             self.scene, self.i_train, depth_list=depth_list,
             prepare=cfg.prepare, train_gt=cfg.train_gt, semantic=cfg.mvseg,
-            ndc=use_ndc, device=self.device)
+            ndc=use_ndc, near=near, far=far, device=self.device)
 
         bounds = dense_box = None
         probe = build_model(cfg, semantic=cfg.mvseg, device="meta")

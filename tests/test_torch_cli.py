@@ -119,7 +119,8 @@ def test_render_modes(trained, capsys):
     render = ["render"] + args + ["--render_only", "True"]
     assert main(render + ["--render_test", "True"], device="cpu") == 0
     out = exp / "renderonly_test_000010"
-    _, i_train, i_test = dispatch.load_scene_for_config(load_config(args))
+    _, i_train, i_test, *_ = dispatch.load_scene_for_config(
+        load_config(args))
     for sub, ext in (("rgb", "png"), ("depth", "npy"), ("disp", "npy"),
                      ("weight", "npy"), ("z", "npy"), ("alpha", "npy"),
                      ("pose", "txt"), ("images", "png")):
@@ -128,7 +129,8 @@ def test_render_modes(trained, capsys):
     assert np.load(out / "alpha" / "000000.npy").shape == (32, 40, 12)
 
     assert main(render + ["--render_mypath", "True"], device="cpu") == 0
-    scene, _, i_test = dispatch.load_scene_for_config(load_config(args))
+    scene, _, i_test, *_ = dispatch.load_scene_for_config(
+        load_config(args))
     anchors = scene.poses[i_test][3:4]
     if len(anchors) == 0:
         anchors = scene.poses[i_test][:1]

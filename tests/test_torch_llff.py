@@ -3,7 +3,8 @@
 `data/dispatch.py`) against cv2 and the JAX package: decoded pixels, the
 area downsample, the mask dilation and the nearest resize bit-equal to cv2;
 loaded scenes equal to JAX `llff.load_scene` (images, masks and depths
-exact; poses, bounds and render poses within 1e-6)."""
+exact; poses, bounds and render poses within 1e-6). The Blender and DTU
+branches are held in `test_torch_loaders.py`."""
 import dataclasses
 import shutil
 import struct
@@ -188,8 +189,51 @@ def test_area_downsample_matches_cv2(factor):
                           interpolation=cv2.INTER_AREA)
         np.testing.assert_array_equal(tllff.area_downsample(img, factor),
                                       want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllff.area_downsample(np.zeros((9, 8), np.uint8), 2)
+    # a side that is not a multiple of the factor: cv2's fractional weights
+    img = np.random.RandomState(factor).randint(0, 256, (9, 8), np.uint8)
+    np.testing.assert_array_equal(
+        tllff.area_downsample(img, 2),
+        cv2.resize(img, (4, 4), interpolation=cv2.INTER_AREA))
+
+
+@pytest.mark.parametrize("factor", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_area_downsample_fractional_matches_cv2(factor, dtype):
+    """Sides that are not multiples of the factor, bit-equal to cv2's
+    INTER_AREA: fractional weights in float32 where a scale is not whole,
+    block sums where both are (e.g. 10 / (10 // 4) = 5), and 2 x 2 blocks
+    rounded as cv2's vector path rounds them (1, 3 or 4 channels) or
+    not (2 channels)."""
+    top = np.iinfo(dtype).max
+    for i, shape in enumerate((
+            (8 * factor + 1, 11 * factor + 3, 3), (7 * factor - 1, 5 * factor),
+            (6 * factor + 5, 9 * factor + 1, 4), (5 * factor + 3, 4 * factor,
+                                                  2),
+            (567 * factor // 2 + 1, 41, 3), (10, 10), (8, 10, 3))):
+        rng = np.random.RandomState(100 * factor + i)
+        for img in (rng.randint(0, top + 1, shape).astype(dtype),
+                    np.full(shape, top // 2 + 1, dtype),
+                    (rng.rand(*shape) > 0.5).astype(dtype) * top):
+            want = cv2.resize(img, (shape[1] // factor, shape[0] // factor),
+                              interpolation=cv2.INTER_AREA)
+            np.testing.assert_array_equal(tllff.area_downsample(img, factor),
+                                          want, err_msg=str(shape))
+
+
+def test_minify_at_sides_that_are_not_multiples(tmp_path):
+    """`minify` at factor 4 of 1134-row-like sides (1134 / 4 = 283.5):
+    the PNGs it writes decode to cv2's INTER_AREA of the originals."""
+    rng = np.random.RandomState(7)
+    (tmp_path / "images").mkdir()
+    imgs = {"a": rng.randint(0, 256, (45, 62, 3), np.uint8),
+            "b": rng.randint(0, 256, (45, 62, 4), np.uint8)}
+    for name, img in imgs.items():
+        write_png(tmp_path / "images" / f"{name}.png", img)
+    out = tllff.minify(tmp_path, 4)
+    for name, img in imgs.items():
+        np.testing.assert_array_equal(
+            read_png(out / f"{name}.png"),
+            cv2.resize(img, (15, 11), interpolation=cv2.INTER_AREA))
 
 
 def test_dilate_and_nearest_resize_match_cv2():
@@ -309,11 +353,8 @@ def test_dispatch_matches_jax(jax_scene, tmp_path, kw):
     got_scene, *got = tdispatch.load_scene_for_config(cfg)
     want_scene, *want = jdispatch.load_scene_for_config(cfg)
     _assert_scenes_equal(got_scene, want_scene)
-    for a, b in zip(got, want[:2]):
+    for a, b in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(a, b)
-    assert want[2:] == [None, None]
-    for dt in ("blender", "dtu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdispatch.load_scene_for_config(_cfg(d, dataset_type=dt))
+    assert got[2:] == want[2:] == [None, None]
     with pytest.raises(ValueError, match="dataset_type"):
         tdispatch.load_scene_for_config(_cfg(d, dataset_type="x"))

@@ -153,10 +153,12 @@ def test_idx_trainer_fits_and_psnr_rises(scene_pair, tmp_path, impl):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(dataset_type="blender"), dict(dataset_type="dtu"),
-    dict(mesh_shape=2)])
+    dict(dataset_type="blender", mesh_shape=2),
+    dict(dataset_type="dtu", mesh_shape=4), dict(mesh_shape=2)])
 def test_unported_options_raise(scene_pair, tmp_path, flag):
-    """Through the disk loader (no scene handed in)."""
+    """Through the disk loader (no scene handed in), whatever the dataset
+    type: --mesh_shape (ROADMAP A8). The Blender and DTU loaders are ported
+    and trained in `tests/test_torch_loaders.py`."""
     d, _, _ = scene_pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(tiny(Config, tmp_path, d, **flag), device="cpu",
