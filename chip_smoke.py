@@ -160,7 +160,30 @@ Phases, each fatal on failure (no phase's error is caught):
      (the full 1008 x 567) and `--iters-scale 40`, once per model on
      copies of one scene: every trainer stage launches #1 / #2 (hash grid)
      or #9 / #10 (MLP), the fit's PSNR rises, `summary` and
-     `stage_seconds` printed; the phase's seconds.
+     `stage_seconds` printed; the phase's seconds;
+ 18. LaMa training and its tools (no kernel of the table): 16 views at
+     504 x 672 from `make_scene`, 12 to train on and 4 made into a
+     validation set by `gen_masks`. (a) `lama_train` in this process at
+     big-lama's width (ngf 64, 18 blocks; `NLayerDiscriminator` ndf 64, 4
+     layers), batch 8, crop 256, `--perceptual resnet_pl` (seeded random
+     ADE20k weights unless the MIT file is in $SPINNERF_WEIGHTS_DIR), 40
+     steps with validation at step 20, each step's metrics and seconds
+     recorded: every metric finite, g_l1's mean over steps 31-40 below
+     step 0's, the visualizer grid decoded, the checkpoint written, and a
+     second call to 45 steps resuming from it; images/s, peak memory,
+     and (`utils/profiling.py`) the device time, kernel launches and busy
+     share a step over 3 steady steps; (b) one step at batch 2, crop 128,
+     in f32 (TF32 off) and in float64 from identical weights: every loss,
+     every gradient before clipping (cosine, relative L2) and the BN
+     running statistics, the L2 gate shown to refuse the same step with
+     TF32 on; (c) `inception_pool3` at 299 and the dilated ResNet50's
+     four stages against float64; (d) `gen_masks` for every kind,
+     predictions by `inpaint2d.predict`, `eval_inpainting --fid` (keyed
+     `fid_random_inception` without weights; the FID held against the
+     same images' float64 pool3 features), `side_by_side`,
+     `analyze_errors`, `inner_features`, `report` on (a)'s metrics and
+     `export` (the traced generator reloaded and held against the module);
+     each command's seconds.
 """
 from __future__ import annotations
 
@@ -3216,6 +3239,562 @@ def loaders_arm(exp_root):
     return out
 
 
+# phase 18: LaMa training (big-lama against its discriminator at full
+# width) and the LaMa commands
+LAMA_TRAIN_VIEWS, LAMA_VAL_VIEWS = 12, 4
+LAMA_STEPS, LAMA_RESUME_STEPS, LAMA_I_VAL = 40, 45, 20
+LAMA_BATCH, LAMA_CROP = 8, 256       # the CLI's defaults (big-lama's)
+LAMA_NGF, LAMA_BLOCKS = 64, 18       # big-lama's generator
+LAMA_PROFILE_STEPS = 3
+LAMA_F64_BATCH, LAMA_F64_CROP = 2, 128
+# f32 (TF32 off) against float64 on the card. Measured in the first run
+# (PR 14): d_adv 1.47e-4 (the other losses <= 9.0e-7), the lowest
+# gradient cosine 0.99818 (D) / 0.99985 (G), the BN statistics 3.1e-6;
+# the same step on the CPU: 1.9e-5, 0.99993 / 0.99980, 2.1e-6. The
+# gradients' relative L2 5.0e-3 / 5.3e-3 (G / D) against the TF32-on
+# control's 0.146 / 0.050 (PR 14, run F), whose losses lie within 7.8e-4
+LAMA_LOSS_RTOL = 1e-3        # each loss of one step, relative
+LAMA_GRAD_COS = 0.995        # each gradient tensor's cosine to float64's
+LAMA_GRAD_L2 = 1.5e-2        # each phase's gradients, relative L2
+LAMA_BN_RTOL = 1e-4          # the BN running statistics after the step
+NET_F64_RTOL = 2e-5          # inception pool3 (4.5e-7), the ResNet50 (2.1e-6)
+# eval_inpainting's FID against the same images' float64 pool3 features:
+# 2.96e-6 (PR 14, run F; 9.1e-6 on the CPU at 120 x 160)
+FID_RTOL = 1e-4
+# the traced generator against the module on the card: 2.68e-5 of the
+# output in the first run, where the CPU gives equal outputs
+EXPORT_RTOL = 1e-4
+MASK_KINDS = ("mixed", "irregular", "rectangle", "outpainting", "dumb",
+              "superres", "squares", "segm")
+
+
+class LamaRecorder:
+    """Wraps `train.lama_loop.make_lama_train_step` while installed: every
+    step's metrics (floats) and seconds (the card synchronised around the
+    step), and the last state and step function it built."""
+
+    def __init__(self):
+        self.metrics, self.step_s = [], []
+        self.state = self.step_fn = None
+
+    def wrap(self, make):
+        import torch
+
+        def wrapped(gen, disc, **kw):
+            init_fn, step_fn = make(gen, disc, **kw)
+            self.step_fn = step_fn
+
+            def init(seed=0):
+                self.state = init_fn(seed)
+                return self.state
+
+            def step(state, images, masks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step_fn(state, images, masks)
+                self.metrics.append({k: float(v) for k, v in m.items()})
+                self.step_s.append(time.perf_counter() - t0)
+                return m
+            return init, step
+        return wrapped
+
+
+def device_rows(prof):
+    """(device ms, kernel launches) summed over a torch.profiler run's CUDA
+    kernels (record_function ranges excluded)."""
+    rows = [(ev.self_device_time_total, ev.count)
+            for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and not getattr(ev, "is_user_annotation", False)
+            and "#" not in ev.key]
+    return sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+
+
+def lama_training_arm(exp_root, train_dir, val_dir):
+    """Phase 18 (a): `lama_train` in this process at big-lama's width with
+    resnet_pl, each step recorded; the gates; the resume; a profile of a
+    few steady steps (`utils/profiling.py`)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.data.lama_masks import MixedMaskGenerator
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.train import lama_loop
+    from spinnerf_tpu_torch.train.lama_trainer import make_batch, to_nchw
+    from spinnerf_tpu_torch.utils import profiling
+
+    exp = exp_root / "lama_train"
+    shutil.rmtree(exp, ignore_errors=True)
+    argv = ["lama_train", "--indir", str(train_dir), "--exp_dir", str(exp),
+            "--val_dir", str(val_dir), "--i_val", str(LAMA_I_VAL),
+            "--batch_size", str(LAMA_BATCH), "--crop", str(LAMA_CROP),
+            "--ngf", str(LAMA_NGF), "--n_blocks", str(LAMA_BLOCKS),
+            "--perceptual", "resnet_pl"]
+    out = {}
+    runs = []
+    for n_steps in (LAMA_STEPS, LAMA_RESUME_STEPS):
+        rec = LamaRecorder()
+        make = lama_loop.make_lama_train_step
+        lama_loop.make_lama_train_step = rec.wrap(make)
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv + ["--n_steps", str(n_steps)])
+        finally:
+            lama_loop.make_lama_train_step = make
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[lama_train] {line}")
+        if rc != 0:
+            raise AssertionError(f"lama_train returned {rc}")
+        runs.append((rec, secs, text, torch.cuda.max_memory_allocated()))
+    (rec, secs, _, peak), (rec2, secs2, text2, _) = runs
+    steps = rec.metrics
+    if len(steps) != LAMA_STEPS or \
+            len(rec2.metrics) != LAMA_RESUME_STEPS - LAMA_STEPS:
+        raise AssertionError(f"lama_train ran {len(steps)} + "
+                             f"{len(rec2.metrics)} steps")
+    bad = [(i, k) for i, m in enumerate(steps + rec2.metrics)
+           for k, v in m.items() if not math.isfinite(v)]
+    rows = [json.loads(line) for line in
+            (exp / "metrics.jsonl").read_text().splitlines()]
+    bad += [r["step"] for r in rows if not all(
+        math.isfinite(v) for k, v in r.items() if k not in ("step", "val"))]
+    l1_0 = steps[0]["g_l1"]
+    l1_late = float(np.mean([m["g_l1"] for m in steps[30:40]]))
+    steady = rec.step_s[2:]
+    step_s = float(np.median(steady))
+    out.update(seconds=secs, resume_seconds=secs2, steps=len(steps),
+               g_l1_step_0=l1_0, g_l1_steps_31_40=l1_late,
+               first_step_s=rec.step_s[0], median_step_s=step_s,
+               images_per_s=LAMA_BATCH * len(steady) / sum(steady),
+               peak_device_memory_gib=peak / 2 ** 30,
+               metrics_step_0=steps[0], metrics_step_40=steps[-1],
+               val_rows=[r for r in rows if "val" in r])
+    log(f"[lama_train] {len(steps)} steps in {secs:.1f} s: g_l1 step 0 "
+        f"{l1_0:.5f}, mean of steps 31-40 {l1_late:.5f}; median step "
+        f"{step_s * 1e3:.1f} ms, {out['images_per_s']:.2f} images/s, peak "
+        f"{out['peak_device_memory_gib']:.2f} GiB")
+    if bad:
+        raise AssertionError(f"lama_train: non-finite metrics at {bad}")
+    if not l1_late < l1_0:
+        raise AssertionError("lama_train: g_l1 did not fall")
+    if not any("val" in r for r in rows):
+        raise AssertionError("lama_train: no validation row")
+    grid = read_png(exp / "visualizations" / "step_000000.png")
+    if grid.shape != (min(LAMA_BATCH, 8) * LAMA_CROP, 4 * LAMA_CROP, 3):
+        raise AssertionError(f"visualizer grid {grid.shape}")
+    ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    log(f"[lama_train] grid {grid.shape} decoded; checkpoints {ckpts}")
+    if f"ckpt_{LAMA_STEPS - 1:08d}.pt" not in ckpts:
+        raise AssertionError("lama_train wrote no checkpoint")
+    if f"resumed inpainter training from step {LAMA_STEPS - 1}" \
+            not in text2:
+        raise AssertionError("the second lama_train did not resume")
+
+    # a few steady steps of the resumed state under torch.profiler
+    images = lama_loop.load_image_dir(train_dir)
+    rng = np.random.RandomState(1)
+    crops, masks = make_batch([images[j] for j in rng.choice(
+        len(images), LAMA_BATCH)], MixedMaskGenerator(), rng, LAMA_CROP)
+    x, m = to_nchw(crops, CARD), to_nchw(masks, CARD)
+    state, step_fn = rec2.state, rec2.step_fn
+    step_fn(state, x, m)
+    torch.cuda.synchronize()
+    with profiling.trace(exp_root / "lama_trace") as prof:
+        for _ in range(LAMA_PROFILE_STEPS):
+            step_fn(state, x, m)
+    dev_ms, launches = device_rows(prof)
+    dev_ms /= LAMA_PROFILE_STEPS
+    launches /= LAMA_PROFILE_STEPS
+    out.update(profile_steps=LAMA_PROFILE_STEPS,
+               device_ms_per_step=dev_ms, launches_per_step=launches,
+               device_busy_share=dev_ms / (step_s * 1e3))
+    log(f"[lama_train] profiled {LAMA_PROFILE_STEPS} steps: {dev_ms:.1f} "
+        f"device ms and {launches:.0f} kernel launches a step, busy share "
+        f"{out['device_busy_share']:.3f} of the {step_s * 1e3:.1f} ms step")
+    return out, exp
+
+
+@contextlib.contextmanager
+def tf32_everywhere():
+    """TF32 on for cuDNN and matmuls through the whole LaMa step, every
+    `_f32_convs` block of its modules made to switch it on as well: the
+    control that phase 18 (b)'s gradient gate must refuse."""
+    import torch
+
+    from spinnerf_tpu_torch.models import lama, lpips, segmentation
+    from spinnerf_tpu_torch.train import lama_trainer
+
+    @contextlib.contextmanager
+    def tf32_on():
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+    mods = (lama, lpips, segmentation, lama_trainer)
+    saved = [m._f32_convs for m in mods]
+    for m in mods:
+        m._f32_convs = tf32_on
+    try:
+        with tf32_on():
+            yield
+    finally:
+        for m, f in zip(mods, saved):
+            m._f32_convs = f
+
+
+def lama_f64_step(images):
+    """Phase 18 (b): one step at big-lama's width, batch 2, crop 128, from
+    identical weights, in f32 (TF32 off), in float64 and with TF32 on
+    (the control) on the card: every loss, each gradient before clipping
+    and the BN running statistics against float64's."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.data.lama_masks import MixedMaskGenerator
+    from spinnerf_tpu_torch.models.discriminator import NLayerDiscriminator
+    from spinnerf_tpu_torch.models.lama import FFCResNetGenerator
+    from spinnerf_tpu_torch.models.segmentation import make_resnet_pl
+    from spinnerf_tpu_torch.train import lama_trainer as lt
+
+    rng = np.random.RandomState(2)
+    crops, masks = lt.make_batch([images[j] for j in rng.choice(
+        len(images), LAMA_F64_BATCH)], MixedMaskGenerator(), rng,
+        LAMA_F64_CROP)
+    gen = FFCResNetGenerator(ngf=LAMA_NGF, n_blocks=LAMA_BLOCKS, device=CARD)
+    gen.reset_parameters(torch.Generator().manual_seed(0))
+    disc = NLayerDiscriminator(device=CARD)
+    disc.reset_parameters(torch.Generator().manual_seed(1))
+    runs = {}
+    clip = lt.clip_by_global_norm_
+    for name, dtype, ctx in (("f32", torch.float32, contextlib.nullcontext),
+                             ("tf32", torch.float32, tf32_everywhere),
+                             ("f64", torch.float64, contextlib.nullcontext)):
+        g = copy.deepcopy(gen).to(dtype)
+        d = copy.deepcopy(disc).to(dtype)
+        pl_fn, enc = make_resnet_pl(device=CARD)
+        enc.to(dtype)
+        _, step_fn = lt.make_lama_train_step(g, d, perceptual_fn=pl_fn)
+        state = lt.LamaTrainState(g, d, *(
+            torch.optim.Adam(mod.parameters(), lr=lr, eps=1e-8)
+            for mod, lr in ((g, 1e-3), (d, 1e-4))))
+        grads = []
+
+        def capture(params, max_norm):
+            grads.append([p.grad.detach().clone() for p in params])
+            return clip(params, max_norm)
+        lt.clip_by_global_norm_ = capture
+        try:
+            t0 = time.perf_counter()
+            with ctx():
+                m = step_fn(state, lt.to_nchw(crops, CARD).to(dtype),
+                            lt.to_nchw(masks, CARD).to(dtype))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            lt.clip_by_global_norm_ = clip
+        bufs = [b.detach().clone() for mod in (g, d)
+                for k, b in mod.state_dict().items() if "running" in k]
+        runs[name] = ({k: float(v) for k, v in m.items()}, grads, bufs,
+                      secs)
+        del g, d, enc, state
+        torch.cuda.empty_cache()
+    m64, g64, b64, s64 = runs["f64"]
+
+    def against_f64(m32, g32, b32):
+        loss_err = {k: abs(m32[k] - m64[k]) / max(abs(m64[k]), 1e-30)
+                    for k in m64}
+        cos, l2, zero, worst = {}, {}, {}, {}
+        for phase, a_list, b_list in (("gen", g32[0], g64[0]),
+                                      ("disc", g32[1], g64[1])):
+            # the transpose convs' biases feed train-mode BNs, which cancel
+            # them: their exact gradient is 0 (float64's is ~1e-15) and
+            # f32's is noise without a direction
+            top = max(float(b.abs().max()) for b in b_list)
+            live = [(a, b) for a, b in zip(a_list, b_list)
+                    if float(b.abs().max()) > 1e-9 * top]
+            zero[phase] = len(b_list) - len(live)
+            cs = sorted((float(torch.nn.functional.cosine_similarity(
+                a.double().flatten(), b.flatten(), dim=0)), i,
+                list(b.shape)) for i, (a, b) in enumerate(live))
+            cos[phase] = cs[0][0]
+            worst[phase] = cs[:3]
+            num = sum(float(((a.double() - b) ** 2).sum())
+                      for a, b in zip(a_list, b_list))
+            den = sum(float((b ** 2).sum()) for b in b_list)
+            l2[phase] = math.sqrt(num / den)
+        bn_err = max(float((a.double() - b).abs().max() / b.abs().max())
+                     for a, b in zip(b32, b64) if b.abs().max() > 0)
+        return {"loss_rel_err": loss_err, "grad_min_cosine": cos,
+                "grad_tensors_exactly_zero": zero,
+                "grad_worst_cosines": worst, "grad_rel_l2_err": l2,
+                "bn_stats_rel_err": bn_err}
+    out = against_f64(*runs["f32"][:3])
+    control = against_f64(*runs["tf32"][:3])
+    out.update(tf32_control=control, f32_step_s=runs["f32"][3],
+               tf32_step_s=runs["tf32"][3], f64_step_s=s64,
+               batch=LAMA_F64_BATCH, crop=LAMA_F64_CROP)
+    log(json.dumps({"lama_f64_step": out}))
+    if not all(e <= LAMA_LOSS_RTOL for e in out["loss_rel_err"].values()):
+        raise AssertionError(f"a loss is off float64's: {out}")
+    if not all(c >= LAMA_GRAD_COS for c in out["grad_min_cosine"].values()):
+        raise AssertionError(f"a gradient is off float64's: {out}")
+    if not all(e <= LAMA_GRAD_L2 for e in out["grad_rel_l2_err"].values()):
+        raise AssertionError(f"a gradient is off float64's: {out}")
+    if not out["bn_stats_rel_err"] <= LAMA_BN_RTOL:
+        raise AssertionError(f"BN statistics off float64's: {out}")
+    # the gate tells a step with TF32 on from one without, in each phase
+    if any(e <= LAMA_GRAD_L2 for e in control["grad_rel_l2_err"].values()):
+        raise AssertionError(f"the TF32 control passes the gradient gate: "
+                             f"{control}")
+    return out
+
+
+def lama_nets_f64(images):
+    """Phase 18 (c): `inception_pool3` at 299 and the dilated ResNet50's
+    four stage features, f32 (TF32 off) against float64 on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.models.inception import load_inception
+    from spinnerf_tpu_torch.models.segmentation import (imagenet_normalize,
+                                                        make_resnet_pl)
+    x = torch.as_tensor(np.stack([im[:299, :299] for im in images[:4]]),
+                        device=CARD).permute(0, 3, 1, 2).contiguous()
+    net = load_inception(device=CARD)
+    net64 = copy.deepcopy(net).double()
+    with torch.no_grad():
+        f32 = net(x)
+        f64 = net64(x.double())
+    inc_err = rel_err(f32, f64)
+    del net64
+    _, enc = make_resnet_pl(device=CARD)
+    enc64 = copy.deepcopy(enc).double()
+    xs = imagenet_normalize(x[:2, :, :256, :256])
+    with torch.no_grad():
+        s32 = enc(xs)
+        s64 = enc64(xs.double())
+    res_err = [rel_err(a, b) for a, b in zip(s32, s64)]
+    out = {"inception_pool3_rel_err": inc_err,
+           "inception_shape": list(f32.shape),
+           "resnet50_stage_rel_err": res_err,
+           "resnet50_stage_shapes": [list(a.shape) for a in s32]}
+    log(json.dumps({"lama_nets_f64": out}))
+    if not inc_err <= NET_F64_RTOL or not max(res_err) <= NET_F64_RTOL:
+        raise AssertionError(f"a network is off float64's: {out}")
+    return out
+
+
+def lama_commands_arm(exp_root, src_dir, val_dir, train_exp):
+    """Phase 18 (d): gen_masks for every kind, predictions by
+    `inpaint2d.predict`, eval_inpainting --fid, side_by_side,
+    analyze_errors, inner_features, report and export on the card; each
+    command's seconds."""
+    import contextlib
+    import copy
+    import io
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.eval.inpainting import (InceptionFeatureExtractor,
+                                                    frechet_distance)
+    from spinnerf_tpu_torch.eval.render import read_png, write_png
+    from spinnerf_tpu_torch.models.lpips import _f32_convs
+    from spinnerf_tpu_torch.pipeline import inpaint2d, lama_tools
+    secs, info = {}, {}
+    root = exp_root / "lama_cmds"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def run(name, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"[lama_cmds] {name}: {secs[name]:.3f} s; "
+            f"{buf.getvalue().strip()[-300:]}")
+        if rc != 0:
+            raise AssertionError(f"`{name}` returned {rc}")
+        return buf.getvalue()
+
+    n_src = len([p for p in src_dir.iterdir() if p.suffix == ".png"])
+    for kind in MASK_KINDS:
+        d = root / f"masks_{kind}"
+        run(f"gen_masks_{kind}", ["gen_masks", "--indir", str(src_dir),
+                                  "--outdir", str(d), "--kind", kind])
+        pairs = lama_tools.load_eval_pairs(d)
+        empty = [mp.name for _, mp in pairs if read_png(mp).max() == 0]
+        info[f"gen_masks_{kind}_pairs"] = len(pairs)
+        if empty or (kind != "segm" and len(pairs) != n_src):
+            raise AssertionError(f"gen_masks {kind}: {len(pairs)} pairs, "
+                                 f"empty {empty}")
+    # predictions by the port's inpainter on the card
+    pred = root / "pred"
+    pred.mkdir()
+    gen = inpaint2d.load_generator(device=CARD)
+    t0 = time.perf_counter()
+    pairs = lama_tools.load_eval_pairs(val_dir)
+    for ip, mp in pairs:
+        img = lama_tools._imread_rgb(ip)
+        out = inpaint2d.predict(gen, img, lama_tools._imread_mask(mp))
+        write_png(pred / mp.name,
+                  (np.clip(out, 0, 1) * 255).astype(np.uint8))
+    torch.cuda.synchronize()
+    secs["predict"] = time.perf_counter() - t0
+    tsv = root / "eval" / "metrics.tsv"
+    fid_calls = []
+    extract = InceptionFeatureExtractor.__call__
+
+    def recorded(self, images):
+        feats = extract(self, images)
+        if not fid_calls:
+            fid_calls.append((self.net, [], []))
+        fid_calls[-1][1].append(np.asarray(images))
+        fid_calls[-1][2].append(feats)
+        return feats
+    InceptionFeatureExtractor.__call__ = recorded
+    try:
+        run("eval_inpainting", ["eval_inpainting", "--datadir",
+                                str(val_dir), "--predictdir", str(pred),
+                                "--outpath", str(tsv), "--fid"])
+    finally:
+        InceptionFeatureExtractor.__call__ = extract
+    rows = {line.split("\t")[0]: line.split("\t")
+            for line in tsv.read_text().splitlines()}
+    fid_key = "fid" if "fid" in rows else "fid_random_inception"
+    info["fid_key"] = fid_key
+    info["ssim_fid100_f1"] = float(rows["ssim_fid100_f1"][2])
+    # the command's FID against one from the same images' pool3 features
+    # in float64 (the TSV keeps 4 decimals; without weights the FID is
+    # ~1e-8)
+    (net, imgs, feats), = fid_calls
+    net64 = copy.deepcopy(net).double()
+    with torch.no_grad():
+        feats64 = [torch.cat([net64(torch.as_tensor(
+            im[i:i + 4], dtype=torch.float64, device=CARD).permute(
+                0, 3, 1, 2)) for i in range(0, len(im), 4)]).cpu().numpy()
+            for im in imgs]
+    del net64
+    info["fid"] = frechet_distance(*feats)
+    info["fid_f64_features"] = frechet_distance(*feats64)
+    info["fid_rel_err"] = abs(info["fid"] - info["fid_f64_features"]) / \
+        max(info["fid_f64_features"], 1e-300)
+    if not (rows[fid_key][2] == f"{info['fid']:.4f}"
+            and info["fid_f64_features"] > 0
+            and info["fid_rel_err"] <= FID_RTOL):
+        raise AssertionError(f"eval_inpainting's FID: {rows[fid_key]}, "
+                             f"{info}")
+    run("side_by_side", ["side_by_side", "--datadir", str(val_dir),
+                         "--outdir", str(root / "sbs"), str(pred)])
+    sheets = sorted((root / "sbs").glob("*.png"))
+    shapes = {read_png(p).shape for p in sheets}
+    if len(sheets) != len(pairs) or len(shapes) != 1:
+        raise AssertionError(f"side_by_side: {len(sheets)} sheets {shapes}")
+    run("analyze_errors", ["analyze_errors", "--datadir", str(val_dir),
+                           "--predictdir", str(pred), "--outdir",
+                           str(root / "errors"), "--worst_k", "2"])
+    if len(list((root / "errors").glob("worst_ssim_*.png"))) != 2 or not \
+            (root / "errors" / "report.html").exists():
+        raise AssertionError("analyze_errors wrote no worst cases")
+    run("inner_features", ["inner_features", "--indir", str(val_dir),
+                           "--outdir", str(root / "feats")])
+    feats = sorted((root / "feats").glob("*_features.npy"))
+    z = np.load(feats[0])
+    info["inner_features_shape"] = list(z.shape)
+    if len(feats) != len(pairs) or not np.isfinite(z).all():
+        raise AssertionError("inner_features")
+    text = run("report", ["report", str(train_exp / "metrics.jsonl")])
+    if "g_l1" not in text:
+        raise AssertionError("report has no g_l1 row")
+    run("export", ["export", "--outpath", str(root / "gen.pt"),
+                   "--height", "256", "--width", "256"])
+    traced = torch.jit.load(str(root / "gen.pt"), map_location=CARD)
+    x = torch.rand(1, 4, 256, 256, device=CARD,
+                   generator=torch.Generator(CARD).manual_seed(0))
+    gen64 = copy.deepcopy(gen).double()
+    with torch.no_grad(), _f32_convs():
+        want = gen(x)
+        ref = gen64(x.double())
+        got = traced(x)
+        with torch.jit.optimized_execution(False):
+            plain = traced(x)
+    del gen64
+    info.update(export_rel_err=rel_err(got, want),
+                export_bit_equal=bool(torch.equal(got, want)),
+                export_unoptimized_rel_err=rel_err(plain, want),
+                export_f64_err=rel_err(got, ref),
+                module_f64_err=rel_err(want, ref))
+    # the traced generator is within the module's own distance from
+    # float64 (twice it, and EXPORT_RTOL of the module's output)
+    if not (info["export_rel_err"] <= EXPORT_RTOL and info[
+            "export_f64_err"] <= 2 * info["module_f64_err"] + 1e-7):
+        raise AssertionError(f"the traced generator is off: {info}")
+    log(json.dumps({"lama_commands": {"seconds": secs, **info}}))
+    return secs, info
+
+
+def lama_train_phase(exp_root):
+    """Phase 18: LaMa training and the LaMa commands (module docstring)."""
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.data import synthetic
+    from spinnerf_tpu_torch.train.lama_loop import load_image_dir
+
+    t_start = time.perf_counter()
+    scene = exp_root / "lama_scene"
+    shutil.rmtree(scene, ignore_errors=True)
+    synthetic.make_scene(scene, n_views=LAMA_TRAIN_VIEWS + LAMA_VAL_VIEWS,
+                         h=FIT_H, w=FIT_W, factor=1, n_points=300)
+    views = sorted((scene / "images").glob("*.png"))
+    train_dir, src_dir = exp_root / "lama_images", exp_root / "lama_val_src"
+    for d, vs in ((train_dir, views[:LAMA_TRAIN_VIEWS]),
+                  (src_dir, views[LAMA_TRAIN_VIEWS:])):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir()
+        for v in vs:
+            shutil.copy(v, d / v.name)
+    val_dir = exp_root / "lama_val"
+    shutil.rmtree(val_dir, ignore_errors=True)
+    if cli_main(["gen_masks", "--indir", str(src_dir), "--outdir",
+                 str(val_dir)]) != 0:
+        raise AssertionError("gen_masks for the validation set")
+    train, train_exp = lama_training_arm(exp_root, train_dir, val_dir)
+    torch.cuda.empty_cache()
+    images = load_image_dir(train_dir)
+    f64 = lama_f64_step(images)
+    nets = lama_nets_f64(images)
+    torch.cuda.empty_cache()
+    secs, info = lama_commands_arm(exp_root, src_dir, val_dir, train_exp)
+    total = time.perf_counter() - t_start
+    log(json.dumps({"lama": {"train": train, "f64_step": f64,
+                             "nets_f64": nets, "command_seconds": secs,
+                             "commands": info, "seconds": total}}))
+    log(f"[phase 18] {total:.1f} s")
+
+
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
@@ -3395,6 +3974,10 @@ def main(argv):
     # 17. the Blender and DTU scenes, the native COLMAP reader and the
     # full-scale pipeline tool
     loaders_arm(exp_root)
+    torch.cuda.empty_cache()
+
+    # 18. LaMa training at big-lama's width and the LaMa commands
+    lama_train_phase(exp_root)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

@@ -11,10 +11,14 @@ Commands mirror the reference's separately-launched programs (SURVEY §0):
   poses    COLMAP -> poses_bounds.npy export (`imgs2poses.py`)
   synth    generate the synthetic test scene
   strip_ckpt      distribution checkpoint (`make_checkpoint.py`)
-Not ported yet (ROADMAP.md queue A7; each raises NotImplementedError):
-  gen_masks, lama_train, eval_inpainting, side_by_side, analyze_errors,
-  inner_features, report; export (the JAX package's `jax.export` of the
-  generator) stays out.
+  gen_masks       inpainting eval-set synthesis (`gen_mask_dataset.py`)
+  lama_train      adversarial inpainter training (`lama/bin/train.py`)
+  eval_inpainting score predictions (`evaluate_predicts.py`)
+  side_by_side    predictor comparison sheets (`side_by_side.py`)
+  analyze_errors  worst-case mining (`analyze_errors.py`)
+  inner_features  generator latent dumps (`predict_inner_features.py`)
+  export          the generator traced with TorchScript (`to_jit.py`)
+  report          summarize a metrics JSONL (`report_from_tb.py`)
 
 All accept `--config <file>` with the reference's config.txt syntax.
 Commands that train, render or score run on the CUDA card; `main(argv,
@@ -24,17 +28,8 @@ from __future__ import annotations
 
 import sys
 
-_A7 = "ROADMAP.md queue A7"
-# the JAX package's LaMa training and evaluation commands
-_LAMA_COMMANDS = {
-    "gen_masks": "the inpainting eval-set synthesis (gen_masks)",
-    "lama_train": "adversarial inpainter training (lama_train)",
-    "eval_inpainting": "inpainting prediction scoring (eval_inpainting)",
-    "side_by_side": "predictor comparison sheets (side_by_side)",
-    "analyze_errors": "inpainting error analysis (analyze_errors)",
-    "inner_features": "generator latent dumps (inner_features)",
-    "report": "metrics-log reports (report)",
-}
+_MASK_KINDS = ["mixed", "irregular", "rectangle", "outpainting", "dumb",
+               "superres", "squares", "segm"]
 
 
 def _render(cfg, device):
@@ -176,6 +171,236 @@ def _pipeline(rest, device):
     return 0
 
 
+def _gen_masks(rest, device):
+    """An inpainting eval dataset: for each image `<name>_crop000.png` and
+    `<name>_crop000_maskNNN.png` pairs (the LaMa eval layout; parity:
+    `lama/bin/gen_mask_dataset.py`)."""
+    import argparse
+    from pathlib import Path
+
+    import numpy as np
+
+    from spinnerf_tpu_torch.data import lama_masks
+    from spinnerf_tpu_torch.data.llff import imread_rgb8
+    from spinnerf_tpu_torch.eval.render import write_png
+    ap = argparse.ArgumentParser("spinnerf gen_masks")
+    ap.add_argument("--indir", required=True)
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--n_masks", type=int, default=1,
+                    help="mask variants per image")
+    ap.add_argument("--kind", default="mixed", choices=_MASK_KINDS)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--segm_weights", default=None,
+                    help="--kind segm: MIT ade20k encoder weights "
+                         "(default: $SPINNERF_WEIGHTS_DIR pickup)")
+    a = ap.parse_args(rest)
+    gen = {"mixed": lama_masks.MixedMaskGenerator(),
+           "irregular": lama_masks.irregular_mask,
+           "rectangle": lama_masks.rectangle_mask,
+           "outpainting": lama_masks.outpainting_mask,
+           "dumb": lama_masks.dumb_area_mask,
+           "superres": lama_masks.superres_mask,
+           "squares": lama_masks.squares_mask, "segm": None}[a.kind]
+    segm_gen = None
+    if a.kind == "segm":
+        # learned object-mask proposal (gen_mask_dataset.py with
+        # SegmentationMask; eval/masks.py's ADE20k adaptation)
+        from spinnerf_tpu_torch.eval.masks import (LearnedMaskGenerator,
+                                                   ade20k_instances)
+        segm_gen = LearnedMaskGenerator(
+            ade20k_instances(a.segm_weights, device=device), seed=a.seed)
+    indir, outdir = Path(a.indir), Path(a.outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(a.seed)
+    n_pairs = n_skipped = 0
+    for p in sorted(indir.iterdir()):
+        if p.suffix.lower() not in (".png", ".jpg", ".jpeg"):
+            continue
+        img = imread_rgb8(p)
+        h, w = img.shape[:2]
+        stem = f"{p.stem}_crop000"
+        write_png(outdir / f"{stem}.png", img)
+        if segm_gen is not None:
+            segm_masks = segm_gen.get_masks(
+                img.astype(np.float32) / 255.0)[:a.n_masks]
+            if not segm_masks:   # no usable object: no orphan image
+                (outdir / f"{stem}.png").unlink(missing_ok=True)
+                n_skipped += 1
+                continue
+            for k, m in enumerate(segm_masks):
+                write_png(outdir / f"{stem}_mask{k:03d}.png",
+                          (m * 255).astype(np.uint8))
+                n_pairs += 1
+            continue
+        for k in range(a.n_masks):
+            # a generator may legally draw an empty mask (min_times=0);
+            # an eval pair needs a hole
+            for _ in range(20):
+                m = np.asarray(gen(h, w, rng)).reshape(h, w)
+                if m.any():
+                    break
+            write_png(outdir / f"{stem}_mask{k:03d}.png",
+                      (m * 255).astype(np.uint8))
+            n_pairs += 1
+    msg = f"wrote {n_pairs} image/mask pairs to {outdir}"
+    if n_skipped:
+        msg += f" ({n_skipped} images skipped: no usable object mask)"
+    print(msg)
+    return 0
+
+
+def _lama_train(rest, device):
+    """Adversarial inpainter training (parity: `lama/bin/train.py`)."""
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf lama_train")
+    ap.add_argument("--indir", required=True)
+    ap.add_argument("--exp_dir", required=True)
+    ap.add_argument("--val_dir", default=None)
+    ap.add_argument("--n_steps", type=int, default=1000)
+    ap.add_argument("--batch_size", type=int, default=8)
+    ap.add_argument("--crop", type=int, default=256)
+    ap.add_argument("--i_val", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ngf", type=int, default=64,
+                    help="generator width (big-lama: 64)")
+    ap.add_argument("--n_blocks", type=int, default=18,
+                    help="FFC resblocks (big-lama: 18)")
+    ap.add_argument("--perceptual", default="none",
+                    choices=["none", "vgg", "resnet_pl"],
+                    help="perceptual loss (big-lama: resnet_pl)")
+    ap.add_argument("--perceptual_weights", default=None,
+                    help="MIT ade20k encoder torch checkpoint")
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.train.lama_loop import train_inpainter
+    train_inpainter(a.indir, a.exp_dir, n_steps=a.n_steps,
+                    batch_size=a.batch_size, crop=a.crop,
+                    val_dir=a.val_dir, i_val=a.i_val, seed=a.seed,
+                    gen_kwargs=dict(ngf=a.ngf, n_blocks=a.n_blocks),
+                    perceptual=a.perceptual,
+                    perceptual_weights=a.perceptual_weights, device=device)
+    return 0
+
+
+def _eval_inpainting(rest, device):
+    """Score precomputed predictions (`lama/bin/evaluate_predicts.py`)."""
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf eval_inpainting")
+    ap.add_argument("--datadir", required=True)
+    ap.add_argument("--predictdir", required=True)
+    ap.add_argument("--outpath", required=True)
+    ap.add_argument("--fid", action="store_true",
+                    help="compute the Fréchet statistic (InceptionV3 "
+                         "pool3; real FID when pt_inception.pth is in "
+                         "$SPINNERF_WEIGHTS_DIR, else reported as "
+                         "fid_random_inception)")
+    ap.add_argument("--inception_weights", default=None,
+                    help="explicit pytorch-fid InceptionV3 state_dict")
+    ap.add_argument("--lpips", action="store_true",
+                    help="also score LPIPS (real when vgg16.pth + "
+                         "lpips_vgg_lin.pth are dropped in)")
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    fe = None
+    if a.fid or a.inception_weights:
+        from spinnerf_tpu_torch.eval.inpainting import \
+            InceptionFeatureExtractor
+        fe = InceptionFeatureExtractor(a.inception_weights, device=device)
+    lpips_fn, lpips_key = None, "lpips"
+    if a.lpips:
+        from spinnerf_tpu_torch.models.lpips import load_lpips_labeled
+        lpips_fn, lpips_key = load_lpips_labeled(device=device)
+    results = lama_tools.evaluate_predicts(a.datadir, a.predictdir,
+                                           a.outpath, lpips_fn=lpips_fn,
+                                           lpips_key=lpips_key,
+                                           feature_extractor=fe,
+                                           device=device)
+    for group, tbl in results.items():
+        print(group, {k: (round(v["mean"], 4)
+                          if isinstance(v, dict) else round(v, 4))
+                      for k, v in tbl.items() if k != "n"})
+    return 0
+
+
+def _side_by_side(rest, device):
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf side_by_side")
+    ap.add_argument("--datadir", required=True)
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--max_n", type=int, default=100)
+    ap.add_argument("--black", action="store_true")
+    ap.add_argument("predictdirs", nargs="+")
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    out = lama_tools.side_by_side(a.datadir, a.predictdirs, a.outdir,
+                                  max_n=a.max_n, black=a.black)
+    print(f"comparison sheets written to {out}")
+    return 0
+
+
+def _analyze_errors(rest, device):
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf analyze_errors")
+    ap.add_argument("--datadir", required=True)
+    ap.add_argument("--predictdir", required=True)
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--worst_k", type=int, default=10)
+    ap.add_argument("--sort_by", default="ssim")
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    lama_tools.analyze_errors(a.datadir, a.predictdir, a.outdir,
+                              worst_k=a.worst_k, sort_by=a.sort_by,
+                              device=device)
+    print(f"error analysis written to {a.outdir}")
+    return 0
+
+
+def _inner_features(rest, device):
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf inner_features")
+    ap.add_argument("--indir", required=True)
+    ap.add_argument("--outdir", required=True)
+    ap.add_argument("--model_path", default=None)
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    out = lama_tools.predict_inner_features(
+        a.indir, a.outdir, checkpoint_path=a.model_path, device=device)
+    print(f"inner features written to {out}")
+    return 0
+
+
+def _export(rest, device):
+    """The generator traced with TorchScript (parity: `lama/bin/to_jit.py`;
+    the JAX package writes StableHLO)."""
+    import argparse
+    ap = argparse.ArgumentParser("spinnerf export")
+    ap.add_argument("--outpath", required=True)
+    ap.add_argument("--model_path", default=None)
+    ap.add_argument("--height", type=int, default=512)
+    ap.add_argument("--width", type=int, default=512)
+    a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    out = lama_tools.export_generator(
+        a.outpath, checkpoint_path=a.model_path,
+        input_shape=(1, 4, a.height, a.width), device=device)
+    print(f"serialized generator written to {out}")
+    return 0
+
+
+def _report(rest, device):
+    """Summarize a metrics JSONL (parity: `lama/bin/report_from_tb.py`)."""
+    from spinnerf_tpu_torch.pipeline import lama_tools
+    print(lama_tools.format_report(lama_tools.report_from_logs(rest[0])))
+    return 0
+
+
+# the LaMa training and evaluation commands
+_LAMA = {"gen_masks": _gen_masks, "lama_train": _lama_train,
+         "eval_inpainting": _eval_inpainting, "side_by_side": _side_by_side,
+         "analyze_errors": _analyze_errors,
+         "inner_features": _inner_features, "export": _export,
+         "report": _report}
+
+
 def main(argv=None, *, device=None):
     """Run one command; returns its exit code (0, or 2 for an unknown
     command). `device` is handed to every Trainer and stage the command
@@ -264,14 +489,8 @@ def main(argv=None, *, device=None):
         print(f"synthetic scene written to {out}")
         return 0
 
-    if cmd in _LAMA_COMMANDS:
-        from spinnerf_tpu_torch.train.loop import _unported
-        raise _unported(_LAMA_COMMANDS[cmd], _A7)
-
-    if cmd == "export":
-        raise NotImplementedError(
-            f"export (the JAX package's jax.export of the LaMa generator to "
-            f"StableHLO) stays out of the port; see {_A7}")
+    if cmd in _LAMA:
+        return _LAMA[cmd](rest, device)
 
     print(f"unknown command: {cmd}", file=sys.stderr)
     return 2

@@ -103,7 +103,11 @@ def imread_float(path) -> np.ndarray:
 def imread_rgb8(path) -> np.ndarray:
     """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order):
     gray repeated, alpha dropped, 16-bit to its high byte."""
-    img = imread(path)
+    return to_rgb8(imread(path))
+
+
+def to_rgb8(img: np.ndarray) -> np.ndarray:
+    """`imread_rgb8`'s conversion of pixels as `imread` gives them."""
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
     if img.ndim == 2:

@@ -259,8 +259,8 @@ def read_png(path) -> np.ndarray:
     alpha (the gray value repeated); uint16 for 16-bit images, else uint8
     (grayscale below 8 bits scaled to 0..255). Transparency chunks (tRNS)
     are ignored, where cv2 adds an alpha channel. All five row filters;
-    interlaced files raise."""
-    data = Path(path).read_bytes()
+    interlaced files raise. `path` may also be the file's bytes."""
+    data = path if isinstance(path, bytes) else Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, plte, hdr = 8, [], None, None

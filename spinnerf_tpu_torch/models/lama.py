@@ -22,8 +22,10 @@ modules/ffc.py`), so a big-lama generator `state_dict` loads with
   big-lama.yaml). `front` (pad, stem, downsamples -> the latent pair) and
   `rear` (the rest) split it as the refiner does.
 
-BatchNorm runs in inference mode on its running statistics (eps 1e-5, as
-flax's). The convolutions run in f32 with TF32 off on the card.
+BatchNorm is `models/batchnorm.py`'s: in `eval()` mode (the default) it
+normalises with the running statistics (eps 1e-5, as flax's); in `train()`
+mode with the batch's, updating the running ones as flax does. The
+convolutions run in f32 with TF32 off on the card.
 
 The inverse FFT: after the 1x1 conv, BN and ReLU the half spectrum that
 `FourierUnit` inverts is not Hermitian, so "irfft2" of it is a choice. The
@@ -40,7 +42,7 @@ import torch
 from torch import nn
 
 from spinnerf_tpu_torch import resolve_device
-from spinnerf_tpu_torch.models.hashgrid import _lecun_normal_
+from spinnerf_tpu_torch.models.batchnorm import BatchNorm2d, flax_init_
 from spinnerf_tpu_torch.models.lpips import _f32_convs
 
 
@@ -66,7 +68,7 @@ class FourierUnit(nn.Module):
         super().__init__()
         self.conv_layer = nn.Conv2d(2 * in_channels, 2 * out_channels, 1,
                                     bias=False)
-        self.bn = nn.BatchNorm2d(2 * out_channels)
+        self.bn = BatchNorm2d(2 * out_channels)
 
     def forward(self, x):
         n, c, h, w = x.shape
@@ -91,7 +93,7 @@ class SpectralTransform(nn.Module):
         half = out_channels // 2
         self.conv1 = nn.Sequential(
             nn.Conv2d(in_channels, half, 1, bias=False),
-            nn.BatchNorm2d(half), nn.ReLU())
+            BatchNorm2d(half), nn.ReLU())
         self.fu = FourierUnit(half, half)
         if enable_lfu:
             self.lfu = FourierUnit(half, half)
@@ -173,9 +175,9 @@ class FFCBnAct(nn.Module):
         self.ffc = FFC(in_channels, out_channels, kernel, ratio_gin,
                        ratio_gout, stride, dilation, enable_lfu, padding)
         if self.ffc.out_cl:
-            self.bn_l = nn.BatchNorm2d(self.ffc.out_cl)
+            self.bn_l = BatchNorm2d(self.ffc.out_cl)
         if self.ffc.out_cg:
-            self.bn_g = nn.BatchNorm2d(self.ffc.out_cg)
+            self.bn_g = BatchNorm2d(self.ffc.out_cg)
         self.act = (nn.functional.relu if act == "relu" else
                     lambda h: nn.functional.leaky_relu(h, 0.2))
 
@@ -217,7 +219,8 @@ class FFCResNetGenerator(nn.Module):
     mask, H and W multiples of 8), output [N, 3, H, W] in (0, 1).
 
     Built on `device` (the card unless the caller asks for the CPU) in
-    inference mode. Its parameters are seeded random until a checkpoint is
+    inference mode (`train()` for flax's training-mode BatchNorm). Its
+    parameters are seeded random until a checkpoint is
     loaded (`reset_parameters`)."""
 
     def __init__(self, input_nc: int = 4, output_nc: int = 3, ngf: int = 64,
@@ -244,7 +247,7 @@ class FFCResNetGenerator(nn.Module):
             model += [nn.ConvTranspose2d(min(max_features, ngf * mult), cout,
                                          3, stride=2, padding=1,
                                          output_padding=1),
-                      nn.BatchNorm2d(cout), nn.ReLU()]
+                      BatchNorm2d(cout), nn.ReLU()]
         model += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, output_nc, 7),
                   nn.Sigmoid()]
         self.model = nn.Sequential(*model)
@@ -257,17 +260,7 @@ class FFCResNetGenerator(nn.Module):
         bias 0, mean 0, variance 1 — flax's default initialisers, drawn
         from another random stream than `jax.random`, so they cannot equal
         the JAX package's random generator."""
-        for m in self.modules():
-            if isinstance(m, nn.ConvTranspose2d):
-                _lecun_normal_(m.weight.transpose(0, 1), generator)
-            elif isinstance(m, nn.Conv2d):
-                _lecun_normal_(m.weight, generator)
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and \
-                    m.bias is not None:
-                nn.init.zeros_(m.bias)
-            if isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
-        return self
+        return flax_init_(self, generator)
 
     def front(self, x):
         """Pad, stem and downsamples -> the latent pair (z_l, z_g)."""

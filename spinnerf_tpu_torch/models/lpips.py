@@ -54,12 +54,18 @@ _SCALE = (0.458, 0.448, 0.450)
 
 @contextlib.contextmanager
 def _f32_convs():
-    prev = torch.backends.cudnn.allow_tf32
+    """TF32 off for cuDNN convolutions and CUDA matmuls within the block,
+    the previous settings restored after. The backward of a graph built
+    inside runs under whatever is set when it runs."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class _F32Trunk(torch.autograd.Function):

@@ -399,7 +399,7 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
     each a contiguous float32 CUDA tensor with P a multiple of 64."""
     if dims.compute_dtype == "float32":
         raise NotImplementedError("compute_dtype='float32' has no kernel on "
-                                  "the card yet; see ROADMAP.md queue A #3")
+                                  "the card yet; see ROADMAP.md B1a")
     # the one geometry chip_smoke.py's phases 6 and 11 hold against the plain
     # version: the reference's 8 x 256 with skip 4 and (v2, whose kernels
     # encode) 10 / 4 octaves
@@ -410,7 +410,7 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
         raise NotImplementedError(
             f"the fused MLP kernels are verified at depth 8, skip 4, width "
             f"256, view width 128{'' if pre else ' and 10 / 4 octaves'} "
-            f"only, got {dims}; see ROADMAP.md queue A #3")
+            f"only, got {dims}; see ROADMAP.md B1b")
     p = inputs[0].shape[0]
     width = (dims.in_dim, dims.dir_dim) if pre else (8,)
     for a, k in zip(inputs, width):

@@ -31,11 +31,11 @@ class CheckpointManager:
     def path(self, step: int) -> Path:
         return self.dir / f"ckpt_{step:08d}.pt"
 
-    def maybe_save(self, step: int, params, opt_state):
-        """Save when `step` is a positive multiple of the interval; params
-        and opt_state are state dicts."""
-        if not (self.save_interval and step % self.save_interval == 0
-                and step > 0):
+    def maybe_save(self, step: int, params, opt_state, force: bool = False):
+        """Save when `step` is a positive multiple of the interval, or when
+        `force`; params and opt_state are state dicts."""
+        if not (force or (self.save_interval and step % self.save_interval
+                          == 0 and step > 0)):
             return False
         tmp = self.path(step).with_suffix(".tmp")
         torch.save({"step": step, "params": params, "opt_state": opt_state},

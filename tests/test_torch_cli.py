@@ -327,12 +327,3 @@ def test_run_colmap_issues_the_jax_commands(tmp_path, monkeypatch):
     for fn in (jposes.gen_poses, poses.gen_poses):
         with pytest.raises(RuntimeError, match="COLMAP binary not found"):
             fn(tmp_path / "port" / "scene")
-
-
-@pytest.mark.parametrize("cmd", ["gen_masks", "lama_train",
-                                 "eval_inpainting", "side_by_side",
-                                 "analyze_errors", "inner_features",
-                                 "report", "export"])
-def test_lama_commands_name_queue_a7(cmd):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A7"):
-        main([cmd, "--indir", "x"], device="cpu")

@@ -376,12 +376,24 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'spinnerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('spinnerf_tpu_torch.cli.__main__')\n"
+        "for m in NEW:\n"
+        "    assert 'spinnerf_tpu_torch.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'spinnerf_tpu' or k.startswith('spinnerf_tpu.')]\n"
         "assert not bad, bad\n"
+        "lazy = [k for k in sys.modules\n"
+        "        if k.split('.')[0] in ('cv2', 'matplotlib', 'PIL')]\n"
+        "assert not lazy, lazy\n"
         "print(len([k for k in sys.modules if k.startswith('spinnerf_tpu_torch')]))\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+    # the LaMa-training modules, none of which may import cv2, matplotlib
+    # or PIL when imported
+    new = ["data.lama_masks", "data.shards", "models.batchnorm",
+           "models.discriminator", "models.segmentation", "models.inception",
+           "models.generators", "train.lama_losses", "train.lama_trainer",
+           "train.lama_loop", "eval.inpainting", "eval.masks",
+           "utils.countless", "pipeline.lama_tools"]
+    out = subprocess.run([sys.executable, "-c", f"NEW = {new!r}\n" + code],
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 20
 
