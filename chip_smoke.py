@@ -183,7 +183,38 @@ Phases, each fatal on failure (no phase's error is caught):
      same images' float64 pool3 features), `side_by_side`,
      `analyze_errors`, `inner_features`, `report` on (a)'s metrics and
      `export` (the traced generator reloaded and held against the module);
-     each command's seconds.
+     each command's seconds;
+ 19. data parallelism (`spinnerf_tpu_torch.parallel`), no kernel of its
+     own: (a) `dryrun_data_parallel(2, device="cuda:0")`, two ranks over
+     gloo on this card against one rank on it: the hash-grid prepare step
+     (16 x 2^19 x 2, calibrated index, f32, 1024 rays a group x 64+64,
+     stratified jitter; #1 / #2 launched on each rank's shard and
+     counted), the big-lama G + D step (ngf 64, 18 blocks, batch 8 as 4 +
+     4, crop 256, resnet_pl, TF32 off) and a frame rendered pixel-sharded
+     at 252 x 336, each against its gate (loss 1e-5 relative, parameters
+     1e-5; G within 5e-3, the metrics of the step's starting state within
+     1e-5 relative, G's and D's BatchNorm running statistics within 1e-5
+     of max(1, |value|), their averaged gradients before the clip within
+     1e-2 relative L2; the frame within 1e-6 of its largest value) and
+     the replicas bit-equal; the LaMa step also under two controls, each
+     of which must fail its gates: BatchNorm statistics of each rank's
+     shard (the metrics and statistics gates) and gradients summed, not
+     averaged (the gradient gate) (a launch whose rank raises fails, not
+     hangs: the CPU tests hold that); (b) a process group of one rank over
+     NCCL: the hash arm's Trainer and the MLP arm's each train 20 steps in
+     it, its all-reduces counted (and the gradient all-reduce shown to
+     leave a tensor bit for bit), beside two runs of 20 steps without a
+     group (bit-equal when those two are; otherwise step 1's metrics
+     bit-equal, step 1's parameters within 1e-5 and the parameters after
+     20 steps within twice the two runs' own difference: neither arm is
+     bit-reproducible on the card, since #2 and #10 add gradients with
+     atomics, so bit-equality of a group of one is held on the CPU, in
+     tests/test_torch_parallel.py);
+     (c) `train
+     --mesh_shape 2` through `cli.__main__.main(..., device="cuda:0")` on
+     phase 13's scene for 50 steps: two ranks, one checkpoint (rank 0's),
+     the ranks' parameters bit-equal at the end, the PSNR rising; the
+     seconds of each part.
 """
 from __future__ import annotations
 
@@ -191,9 +222,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3795,6 +3828,173 @@ def lama_train_phase(exp_root):
     log(f"[phase 18] {total:.1f} s")
 
 
+DP_RANKS, DP_GROUP_STEPS, DP_CLI_STEPS = 2, 20, 50
+# a group of one against a run without one after step 1: two runs without a
+# group differ by the rounding of #2's and #10's atomic sums (up to 4.1e-7),
+# a step that goes wrong moves parameters by about lr (5e-4 and up)
+# (PERF.md §6, data parallelism)
+DP_STEP1_ABS = 1e-5
+
+
+@contextlib.contextmanager
+def stdout_to(path):
+    """File descriptor 1, this process's and the processes it starts,
+    into `path` within the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def data_parallel_phase(exp_root, scene):
+    """Phase 19: data parallelism across processes (module docstring)."""
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.cli.__main__ import main as cli_main
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.parallel import dryrun
+    from spinnerf_tpu_torch.parallel import mesh as mesh_lib
+    from spinnerf_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    secs, out = {}, {}
+
+    # (a) one rank against two on this card
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_data_parallel(DP_RANKS, device="cuda:0", log=log)
+    for r, launches in enumerate(res["nerf"]["launches"]):
+        if not (launches["fwd"] >= 2 and launches["bwd"] >= 2):
+            raise AssertionError(f"rank {r} did not run #1 / #2 on its "
+                                 f"shard: {launches}")
+    log(f"[dp] (a) NeRF step: loss {res['nerf']['loss']:.6f}, 1 vs "
+        f"{DP_RANKS} ranks relative {res['nerf']['loss_rel']:.3g} (gate "
+        f"{dryrun.NERF_LOSS_REL}), parameters "
+        f"{res['nerf']['param_max_abs']:.3g} (gate {dryrun.NERF_PARAM_ABS}); "
+        f"LaMa step: G {res['lama']['gen_max_abs']:.3g} (gate "
+        f"{dryrun.LAMA_GEN_ABS}), metrics {res['lama']['metrics_max_rel']:.3g}"
+        f" (gate {dryrun.LAMA_METRIC_REL}), BN statistics "
+        f"{res['lama']['stats_max_rel']:.3g} (gate {dryrun.LAMA_STATS_REL}), "
+        f"gradients {res['lama']['grad_rel_l2']} (gate "
+        f"{dryrun.LAMA_GRAD_REL}); controls failing their gates "
+        f"{ {c: r['fails'] for c, r in res['controls'].items()} }; frame "
+        f"{res['render']['shape']}: equal {res['render']['equal']}, largest "
+        f"difference {res['render']['max_abs']:.3g} of "
+        f"{res['render']['max_value']:.4g} (gate {dryrun.RENDER_REL} of it); "
+        f"replicas bit-equal on all three; #1 / #2 launches per rank "
+        f"{res['nerf']['launches']}")
+    out["dryrun"] = res
+    secs["a"] = time.perf_counter() - t0
+
+    # (b) an NCCL group of one rank: nothing changes but the collectives,
+    # on the hash arm and on the MLP arm
+    t0 = time.perf_counter()
+    common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
+                  no_reload=True, i_print=0, i_weights=0, i_video=0,
+                  i_testset=0, i_feat=0)
+    arms = {"hash": {}, "mlp": dict(no_tcnn=True, lrate=5e-4,
+                                    lrate_decay=250)}
+
+    def train(arm, tag):
+        tr = Trainer(Config(expname=f"dp_{arm}_{tag}", **arms[arm],
+                            **common), scene=scene, log=log)
+        first = tr.fit(1, hooks=False)
+        step1 = [p.detach().clone() for p in tr.fields.parameters()]
+        tr.fit(DP_GROUP_STEPS, hooks=False)
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in first.items()},
+                [p.detach().clone() for p in tr.fields.parameters()], step1)
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    out["group_of_one"] = {}
+    for arm in arms:
+        with tempfile.TemporaryDirectory(prefix="dp_group_") as rdzv:
+            mesh = mesh_lib.join(0, 1,
+                                 init_method=f"file://{rdzv}/rendezvous")
+            try:
+                before = mesh_lib.calls["all_reduce"]
+                group = train(arm, "group")
+                reduces = mesh_lib.calls["all_reduce"] - before
+                backend = torch.distributed.get_backend()
+                # the step's gradient all-reduce leaves a group of one's
+                # tensors as they were, bit for bit
+                copies = [t.clone() for t in group[1]]
+                mesh.all_reduce_mean_(copies)
+                identity = all(torch.equal(a, b)
+                               for a, b in zip(copies, group[1]))
+            finally:
+                mesh_lib.leave()
+        runs = [train(arm, f"solo{i}") for i in range(2)]
+        d_group = max_diff(group[1], runs[0][1])
+        d_runs = max_diff(runs[0][1], runs[1][1])
+        res_b = dict(backend=backend, mesh=list(mesh[:2]),
+                     all_reduces=reduces, reduce_is_identity=identity,
+                     params_max_abs=d_group,
+                     solo_runs_max_abs=d_runs,
+                     step1_metrics_equal=group[0] == runs[0][0],
+                     step1_params_max_abs=max_diff(group[2], runs[0][2]),
+                     step1_solo_runs_max_abs=max_diff(runs[0][2],
+                                                      runs[1][2]),
+                     step1_solo_runs_differ_in=sum(
+                         not torch.equal(x, y)
+                         for x, y in zip(runs[0][2], runs[1][2])))
+        out["group_of_one"][arm] = res_b
+        log(f"[dp] (b) {arm} arm: {res_b}")
+        if (backend != "nccl" or reduces < 2 * DP_GROUP_STEPS
+                or not identity):
+            raise AssertionError("the group of one did not all-reduce over "
+                                 "NCCL, or its all-reduce changed a value")
+        if d_runs == 0.0 and d_group != 0.0:
+            raise AssertionError("a group of one changed the parameters")
+        if d_runs != 0.0 and not (
+                group[0] == runs[0][0] and d_group <= 2 * d_runs
+                and res_b["step1_params_max_abs"] <= DP_STEP1_ABS):
+            raise AssertionError("a group of one differs from the runs "
+                                 "without")
+    secs["b"] = time.perf_counter() - t0
+
+    # (c) the command line, two ranks on this card over gloo
+    t0 = time.perf_counter()
+    exp = exp_root / "dp_cli"
+    shutil.rmtree(exp, ignore_errors=True)
+    flags = list(CLI_FLAGS)         # phase 16's, on phase 13's scene
+    for flag, value in (("--factor", DISK_FACTOR), ("--N_iters", DP_CLI_STEPS),
+                        ("--i_weights", DP_CLI_STEPS), ("--i_print", 10)):
+        flags[flags.index(flag) + 1] = str(value)
+    argv = (["train", "--expname", "dp_cli", "--basedir", str(exp_root),
+             "--datadir", str(exp_root / "disk_scene"), "--mesh_shape",
+             str(DP_RANKS), "--no_reload", "True"] + flags)
+    captured = exp_root / "dp_cli.log"
+    with stdout_to(captured):
+        rc = cli_main(argv, device="cuda:0")
+    text = captured.read_text()
+    log(text.rstrip())
+    ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    psnr = [float(line.split(" psnr ")[1].split()[0])
+            for line in text.splitlines() if " psnr " in line]
+    out["cli"] = dict(rc=rc, checkpoints=ckpts, psnr=psnr)
+    log(f"[dp] (c) {out['cli']}")
+    if rc != 0 or ckpts != [f"ckpt_{DP_CLI_STEPS:08d}.pt"]:
+        raise AssertionError("train --mesh_shape 2 did not leave rank 0's "
+                             "one checkpoint")
+    if f"[{DP_CLI_STEPS}] {DP_RANKS} ranks, parameters bit-equal" not in text:
+        raise AssertionError("the ranks' parameters are not reported equal")
+    if len(psnr) != DP_CLI_STEPS // 10 or not psnr[-1] > psnr[0]:
+        raise AssertionError(f"the PSNR did not rise: {psnr}")
+    secs["c"] = time.perf_counter() - t0
+    out["seconds"] = dict(secs, phase=time.perf_counter() - t_phase)
+    log(json.dumps({"data_parallel": out}, default=str))
+    log(f"[phase 19] {out['seconds']['phase']:.1f} s")
+
+
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
     """torch.profiler over a few steps: device time by kernel, kernel
     launches a step, and the device's busy share of the unprofiled step
@@ -3978,6 +4178,11 @@ def main(argv):
 
     # 18. LaMa training at big-lama's width and the LaMa commands
     lama_train_phase(exp_root)
+    torch.cuda.empty_cache()
+
+    # 19. data parallelism: two ranks on this card, a group of one, and
+    # the command line's --mesh_shape 2
+    data_parallel_phase(exp_root, scene)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

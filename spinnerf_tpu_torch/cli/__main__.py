@@ -23,9 +23,18 @@ Commands mirror the reference's separately-launched programs (SURVEY §0):
 All accept `--config <file>` with the reference's config.txt syntax.
 Commands that train, render or score run on the CUDA card; `main(argv,
 device="cpu")` runs them on the CPU.
+
+Data parallelism: train, render, mvseg, pipeline and lama_train take
+`--mesh_shape N` (0, the default, is every local card) and, outside a
+process group, launch N ranks (`parallel.launch`: one card each over NCCL,
+or all on `device` over gloo); under `torchrun --nproc_per_node N -m
+spinnerf_tpu_torch.cli ...` each process joins the group torchrun set up.
+Only rank 0 writes.
 """
 from __future__ import annotations
 
+import importlib
+import os
 import sys
 
 _MASK_KINDS = ["mixed", "irregular", "rectangle", "outpainting", "dumb",
@@ -64,6 +73,8 @@ def _render(cfg, device):
     out = tr.exp_dir / f"renderonly_{name}_{start:06d}"
     rgbs, disps = tr.render_poses_list(poses, save_dir=out, gt_images=gt,
                                        save_alpha=True)
+    if not tr.writes:
+        return 0
     eval_render.write_video(out / "rgb.mp4", rgbs)
     eval_render.write_video(out / "disp.mp4",
                             eval_render.normalize_disps_for_video(disps))
@@ -80,6 +91,8 @@ def _render_test_ray(tr, start):
     from spinnerf_tpu_torch.core import rendering, sampling
     from spinnerf_tpu_torch.data import raybank as rb
     from spinnerf_tpu_torch.utils.visualization import visualize_sigma
+    if not tr.writes:           # one ray batch, on rank 0
+        return 0
     out = tr.exp_dir / f"renderonly_ray_{start:06d}"
     out.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(tr.device).manual_seed(0)
@@ -144,11 +157,9 @@ def _refine_masks(rest, device):
     return 0
 
 
-def _pipeline(rest, device):
+def _pipeline_args(rest):
+    """The pipeline's own flags, and the Config's."""
     import argparse
-
-    from spinnerf_tpu_torch.config import load_config
-    from spinnerf_tpu_torch.pipeline.stages import run_pipeline
     # per-stage budgets (the reference trains each stage with its own
     # N_iters: mvseg 4000, prepare 4001, fit 10001 — README.md:65,140)
     # allow_abbrev=False: prefix matching must not steal the Config
@@ -161,13 +172,20 @@ def _pipeline(rest, device):
     ap.add_argument("--skip_mvseg", action="store_true")
     ap.add_argument("--no_refine", action="store_true")
     ap.add_argument("--lama_checkpoint", default=None)
-    a, rest = ap.parse_known_args(rest)
+    return ap.parse_known_args(rest)
+
+
+def _pipeline(rest, device):
+    from spinnerf_tpu_torch.config import load_config
+    from spinnerf_tpu_torch.pipeline.stages import run_pipeline
+    a, rest = _pipeline_args(rest)
     cfg = load_config(rest)
     _, results = run_pipeline(
         cfg, mvseg_iters=a.mvseg_iters, prepare_iters=a.prepare_iters,
         fit_iters=a.fit_iters, lama_checkpoint=a.lama_checkpoint,
         refine=not a.no_refine, skip_mvseg=a.skip_mvseg, device=device)
-    print(results.get("summary", {}))
+    if _writes():
+        print(results.get("summary", {}))
     return 0
 
 
@@ -270,14 +288,18 @@ def _lama_train(rest, device):
                     help="perceptual loss (big-lama: resnet_pl)")
     ap.add_argument("--perceptual_weights", default=None,
                     help="MIT ade20k encoder torch checkpoint")
+    ap.add_argument("--mesh_shape", type=int, default=0,
+                    help="data-parallel ranks (0: every local card)")
     a = ap.parse_args(rest)
+    from spinnerf_tpu_torch.parallel import mesh as mesh_lib
     from spinnerf_tpu_torch.train.lama_loop import train_inpainter
     train_inpainter(a.indir, a.exp_dir, n_steps=a.n_steps,
                     batch_size=a.batch_size, crop=a.crop,
                     val_dir=a.val_dir, i_val=a.i_val, seed=a.seed,
                     gen_kwargs=dict(ngf=a.ngf, n_blocks=a.n_blocks),
                     perceptual=a.perceptual,
-                    perceptual_weights=a.perceptual_weights, device=device)
+                    perceptual_weights=a.perceptual_weights, device=device,
+                    mesh=mesh_lib.for_config(a.mesh_shape))
     return 0
 
 
@@ -401,15 +423,74 @@ _LAMA = {"gen_masks": _gen_masks, "lama_train": _lama_train,
          "report": _report}
 
 
+# the commands that train or render data-parallel under --mesh_shape
+_DATA_PARALLEL = ("train", "render", "mvseg", "pipeline", "lama_train")
+
+
+def _writes() -> bool:
+    """True on the rank that writes (any rank outside a process group)."""
+    from spinnerf_tpu_torch.parallel import mesh as mesh_lib
+    mesh = mesh_lib.current()
+    return mesh is None or mesh.rank == 0
+
+
+def _n_ranks(cmd, rest, device) -> int:
+    """The ranks a data-parallel command asks for: its --mesh_shape, with 0
+    every local card (one rank on the CPU or a named device)."""
+    import torch
+    if cmd == "lama_train":
+        import argparse
+        ap = argparse.ArgumentParser(add_help=False)
+        ap.add_argument("--mesh_shape", type=int, default=0)
+        n = ap.parse_known_args(rest)[0].mesh_shape
+    else:
+        from spinnerf_tpu_torch.config import load_config
+        if cmd == "pipeline":
+            rest = _pipeline_args(rest)[1]
+        n = load_config(rest).mesh_shape
+    if n == 0:
+        n = (torch.cuda.device_count()
+             if device is None and torch.cuda.is_available() else 1)
+    return n
+
+
+def _run_ranks(argv, device):
+    """A data-parallel command outside a process group: in the group
+    torchrun set up (RANK / WORLD_SIZE in the environment), else on
+    `--mesh_shape` launched ranks; None when it runs on this process
+    alone."""
+    from spinnerf_tpu_torch.parallel import mesh as mesh_lib
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        mesh = mesh_lib.join(device=device)
+        try:
+            return main(argv, device=mesh.device)
+        finally:
+            mesh_lib.leave()
+    n = _n_ranks(argv[0], argv[1:], device)
+    if n <= 1:
+        return None
+    # by import name: under `python -m` this module is `__main__`
+    entry = importlib.import_module("spinnerf_tpu_torch.cli.__main__").main
+    return max(mesh_lib.launch(n, entry, argv, device=device))
+
+
 def main(argv=None, *, device=None):
     """Run one command; returns its exit code (0, or 2 for an unknown
     command). `device` is handed to every Trainer and stage the command
-    builds (default: the card)."""
+    builds (default: the card); a data-parallel command (module docstring)
+    hands it to each rank it launches."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
+
+    if cmd in _DATA_PARALLEL:
+        from spinnerf_tpu_torch.parallel import mesh as mesh_lib
+        if mesh_lib.current() is None:
+            code = _run_ranks(argv, device)
+            if code is not None:
+                return code
 
     if cmd == "train":
         from spinnerf_tpu_torch.config import load_config
@@ -425,12 +506,16 @@ def main(argv=None, *, device=None):
         from spinnerf_tpu_torch.config import load_config
         from spinnerf_tpu_torch.pipeline import mvseg as mvseg_lib
         from spinnerf_tpu_torch.train.loop import Trainer
+        from spinnerf_tpu_torch.parallel import mesh as mesh_lib
         cfg = load_config(rest)
         cfg.mvseg = True
         tr = Trainer(cfg, device=device)
         tr.fit()
-        out_dir, masks = mvseg_lib.export_masks(
-            tr, out_subdir="label", opening=cfg.post_opening)
+        out_dir, masks = mesh_lib.rank0_only(
+            tr.mesh, mvseg_lib.export_masks, tr, out_subdir="label",
+            opening=cfg.post_opening)
+        if not tr.writes:
+            return 0
         print(f"wrote {len(masks)} lifted masks to {out_dir}")
         if tr.scene.masks_gt is not None:
             m = mvseg_lib.evaluate_masks(masks, tr.scene.masks_gt)

@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from spinnerf_tpu_torch.core import sampling
+from spinnerf_tpu_torch.core.sampling import Rows
+from spinnerf_tpu_torch.parallel.mesh import pad_to_multiple
 
 # A field function maps (points [B,S,3], viewdirs [B,3]) -> raw outputs
 # [B, S, C] with C >= 4: rgb logits (3), sigma (1), then an optional
@@ -44,14 +46,16 @@ def composite(raw, z_vals, rays_d, *, raw_noise_std: float = 0.0,
               noise=None, generator=None, white_bkgd: bool = False,
               semantic: bool = False, only_object: bool = False,
               oo_threshold: float | None = None,
-              harsh_bg_remove: bool = False) -> RenderOutputs:
+              harsh_bg_remove: bool = False,
+              rows: Rows | None = None) -> RenderOutputs:
     """Alpha-composite raw field outputs [B, S, C] along each ray.
 
     alpha_i = 1 - exp(-relu(sigma_i + noise) * dist_i * |d|)
     w_i     = alpha_i * prod_{j<i}(1 - alpha_j + 1e-10)
 
     noise: optional [B, S] standard normals (scaled by raw_noise_std);
-    drawn from `generator` when None and raw_noise_std > 0. The remaining
+    drawn from `generator` when None and raw_noise_std > 0 (for the whole
+    batch of `rows` when given). The remaining
     flags follow `spinnerf_tpu.core.rendering.composite`.
     """
     dists = z_vals[..., 1:] - z_vals[..., :-1]
@@ -63,8 +67,9 @@ def composite(raw, z_vals, rays_d, *, raw_noise_std: float = 0.0,
     sigma = raw[..., 3]
     if raw_noise_std > 0.0:
         if noise is None:
-            noise = torch.randn(sigma.shape, generator=generator,
-                                dtype=sigma.dtype, device=sigma.device)
+            noise = sampling.draw(torch.randn, sigma.shape, rows=rows,
+                                  generator=generator, dtype=sigma.dtype,
+                                  device=sigma.device)
         sigma = sigma + noise * raw_noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
@@ -136,24 +141,27 @@ class RenderResult(NamedTuple):
 
 def render_rays(ray_batch: dict, field_fn: FieldFn, cfg: RenderConfig,
                 fine_field_fn: FieldFn | None = None,
-                generator=None) -> RenderResult:
+                generator=None, rows: Rows | None = None) -> RenderResult:
     """Coarse(+fine) volumetric rendering of a ray batch.
 
     generator: draws the stratified jitter, the importance-sampling uniforms
-    and the density noise (only where `cfg` asks for them)."""
+    and the density noise (only where `cfg` asks for them); with `rows`,
+    the batch is those rows of a larger one, and each draw is made for the
+    larger batch and indexed by them."""
     origins, dirs = ray_batch["origins"], ray_batch["directions"]
     viewdirs = ray_batch["viewdirs"]
 
     z_vals = sampling.stratified_z_vals(
         ray_batch["near"], ray_batch["far"], cfg.n_samples,
-        lindisp=cfg.lindisp, perturb=cfg.perturb, generator=generator)
+        lindisp=cfg.lindisp, perturb=cfg.perturb, generator=generator,
+        rows=rows)
 
     pts = sampling.ray_points(origins, dirs, z_vals)
     raw = field_fn(pts, viewdirs)
     kw = dict(raw_noise_std=cfg.raw_noise_std, generator=generator,
               white_bkgd=cfg.white_bkgd, semantic=cfg.semantic,
               only_object=cfg.only_object, oo_threshold=cfg.oo_threshold,
-              harsh_bg_remove=cfg.harsh_bg_remove)
+              harsh_bg_remove=cfg.harsh_bg_remove, rows=rows)
     coarse = composite(raw, z_vals, dirs, **kw)
 
     if cfg.n_importance <= 0:
@@ -161,7 +169,7 @@ def render_rays(ray_batch: dict, field_fn: FieldFn, cfg: RenderConfig,
 
     z_combined, z_samples = sampling.hierarchical_z_vals(
         z_vals, coarse.weights, cfg.n_importance, det=not cfg.perturb,
-        generator=generator)
+        generator=generator, rows=rows)
     pts_fine = sampling.ray_points(origins, dirs, z_combined)
     fine_fn = fine_field_fn if fine_field_fn is not None else field_fn
     raw_fine = fine_fn(pts_fine, viewdirs)
@@ -179,16 +187,58 @@ def _cat_outputs(parts):
     return torch.cat(parts, dim=0)
 
 
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rebuild(t, leaves) for t in tree))
+    return next(leaves)
+
+
+def _render_sharded(rb, field_fn, cfg, fine_field_fn, generator, mesh):
+    """One chunk split across the mesh: each rank renders its contiguous
+    share of ceil(m / size) rows (rows past the chunk's end repeat its last
+    ray) with the chunk's draws, and every rank gets the whole result."""
+    m = rb["origins"].shape[0]
+    per = -(-m // mesh.size)
+    index = torch.arange(mesh.rank * per, (mesh.rank + 1) * per,
+                         device=rb["origins"].device).clamp(max=m - 1)
+    res = render_rays({k: v[index] for k, v in rb.items()}, field_fn, cfg,
+                      fine_field_fn, generator=generator,
+                      rows=Rows(index, m))
+    full = mesh.gather_rows(_leaves(res))
+    return _rebuild(res, iter(x[:m] for x in full))
+
+
 def render_rays_chunked(ray_batch: dict, field_fn: FieldFn,
                         cfg: RenderConfig, chunk: int,
                         fine_field_fn: FieldFn | None = None,
-                        generator=None) -> RenderResult:
+                        generator=None, mesh=None) -> RenderResult:
     """Render a large ray batch in chunks of `chunk` rays (bounds memory) and
-    concatenate the per-ray results."""
+    concatenate the per-ray results.
+
+    mesh: optional `parallel.Mesh`: the chunk is rounded up to a multiple of
+    its size and each chunk's rays are split across the ranks (pixel-
+    parallel frame rendering); every rank returns the whole result, equal
+    to the unsplit render's (each ray renders on its own)."""
     n = ray_batch["origins"].shape[0]
+    if mesh is not None:
+        chunk = pad_to_multiple(chunk, mesh.size)
     parts = []
     for s in range(0, n, chunk):
         rb = {k: v[s:s + chunk] for k, v in ray_batch.items()}
-        parts.append(render_rays(rb, field_fn, cfg, fine_field_fn,
-                                 generator=generator))
+        if mesh is None:
+            parts.append(render_rays(rb, field_fn, cfg, fine_field_fn,
+                                     generator=generator))
+        else:
+            parts.append(_render_sharded(rb, field_fn, cfg, fine_field_fn,
+                                         generator, mesh))
     return _cat_outputs(parts)

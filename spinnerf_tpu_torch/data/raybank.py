@@ -9,6 +9,10 @@ and computes the rays on the device.
 Groups: rgb (label == 1; all pixels in prepare/train-GT mode), clf
 (label == 0; all pixels in prepare mode), inp (label != 0, with the
 inpainted disparity as target), depth (COLMAP sparse-depth rays).
+
+Under data parallelism (`mesh=`) every rank draws a group's whole batch
+from the same generator and keeps its contiguous 1/N of it, so the ranks
+together hold what one rank would, group by group.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.core import rays as ray_lib
+from spinnerf_tpu_torch.parallel.mesh import pad_to_multiple
 
 
 @dataclass(frozen=True)
@@ -151,7 +156,7 @@ def build_raybank(scene, i_train, *, depth_list=None, prepare: bool = False,
             perm = shuffle_rng.permutation(k)
             view, coord = view[perm], coord[perm]
             depth, weight = depth[perm], weight[perm]
-        pad = -(-max(k, 1) // 1024) * 1024 - k
+        pad = pad_to_multiple(max(k, 1), 1024) - k
         depth_group = DepthRayGroup(
             view=dev(np.pad(view, (0, pad)), torch.int64),
             coord=dev(np.pad(coord, ((0, pad), (0, 0))), torch.float32),
@@ -214,11 +219,13 @@ def epoch_indices(step, batch_size: int, count: int, device=None):
     return torch.remainder(_wrap_int32(j + _wrap_int32(e * 65521)), c)
 
 
-def _draw(count, batch_size, step, generator, device):
+def _draw(count, batch_size, step, generator, device, mesh=None):
     if step is None:
-        return torch.randint(0, max(count, 1), (batch_size,),
-                             generator=generator, device=device)
-    return epoch_indices(step, batch_size, count, device=device)
+        i = torch.randint(0, max(count, 1), (batch_size,),
+                          generator=generator, device=device)
+    else:
+        i = epoch_indices(step, batch_size, count, device=device)
+    return i if mesh is None else mesh.shard_rows(i)
 
 
 def pixel_batch(bank: RayBank, view, row, col, inp_depth: bool = True):
@@ -237,12 +244,13 @@ def pixel_batch(bank: RayBank, view, row, col, inp_depth: bool = True):
 
 
 def sample_group(bank: RayBank, name: str, batch_size: int, step=None,
-                 generator=None):
+                 generator=None, mesh=None):
     """A ray batch from a pixel group: epoch strides when `step` is given,
-    else uniform with replacement from `generator`. Returns (ray_batch,
-    targets) as `pixel_batch` gives them."""
+    else uniform with replacement from `generator`; with `mesh`, this
+    rank's 1/N of it. Returns (ray_batch, targets) as `pixel_batch` gives
+    them."""
     g = bank.groups[name]
-    i = _draw(g.count, batch_size, step, generator, bank.device)
+    i = _draw(g.count, batch_size, step, generator, bank.device, mesh)
     vrc = g.idx[i]
     return pixel_batch(bank, vrc[:, 0], vrc[:, 1], vrc[:, 2])
 
@@ -261,11 +269,12 @@ def single_image_bounds(hwf, step_idx: int, precrop_iters: int = 0,
 
 def sample_single_image(bank: RayBank, batch_size: int, step_idx: int, *,
                         precrop_iters: int = 0, precrop_frac: float = 0.5,
-                        generator=None):
+                        generator=None, mesh=None):
     """The reference's `--no_batching` sampler (`run_nerf.py:1415-1452`):
     `batch_size` pixels, uniform with replacement from `generator`, of one
-    training view drawn uniformly, within `single_image_bounds`. Returns
-    (ray_batch, targets 'rgb' and 'label')."""
+    training view drawn uniformly, within `single_image_bounds`; with
+    `mesh`, this rank's 1/N of them. Returns (ray_batch, targets 'rgb' and
+    'label')."""
     r0, r1, c0, c1 = single_image_bounds(bank.hwf, step_idx, precrop_iters,
                                          precrop_frac)
     dev = bank.device
@@ -275,14 +284,17 @@ def sample_single_image(bank: RayBank, batch_size: int, step_idx: int, *,
                         device=dev)
     col = torch.randint(c0, c1, (batch_size,), generator=generator,
                         device=dev)
+    if mesh is not None:
+        view, row, col = (mesh.shard_rows(a) for a in (view, row, col))
     return pixel_batch(bank, view, row, col, inp_depth=False)
 
 
 def sample_depth_group(bank: RayBank, batch_size: int, step=None,
-                       generator=None):
-    """A sparse-depth ray batch (epoch strides when `step` is given)."""
+                       generator=None, mesh=None):
+    """A sparse-depth ray batch (epoch strides when `step` is given; with
+    `mesh`, this rank's 1/N of it)."""
     g = bank.depth_group
-    i = _draw(g.count, batch_size, step, generator, bank.device)
+    i = _draw(g.count, batch_size, step, generator, bank.device, mesh)
     view = g.view[i]
     coord = g.coord[i]
     rays_o, rays_d = rays_for_pixels(bank.poses, bank.hwf, view,

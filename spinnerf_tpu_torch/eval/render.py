@@ -8,7 +8,9 @@ disk contract of the reference and the JAX package. The machine with the
 card has neither cv2 nor imageio, so PNGs are written by `write_png` and
 read by `read_png` (stdlib zlib/struct and numpy); `write_video` keeps the
 JAX package's file-format chain (imageio, then cv2, then per-frame PNGs),
-importing both lazily.
+importing both lazily. With `mesh=` (`parallel.Mesh`) each chunk of a
+frame is split across the ranks and gathered, every rank gets every frame,
+and only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -68,11 +70,12 @@ def _frame_hwf(hwf, render_factor: int):
 def make_frame_renderer(hwf, field_fn, cfg: RenderConfig, *, near, far,
                         ndc: bool = False, chunk: int = 8192,
                         fine_field_fn=None, render_factor: int = 0,
-                        maps=None, device=None):
+                        maps=None, device=None, mesh=None):
     """A `(c2w, generator=None) -> per-pixel maps` renderer: numpy arrays
     [H, W, ...] of the fine pass (default LIGHT_MAPS, plus "prob" with
     cfg.semantic). Request HEAVY_MAPS entries only when they are read.
-    Renders on `device` (the card unless the caller asks for the CPU)."""
+    Renders on `device` (the card unless the caller asks for the CPU), with
+    `mesh` pixel-sharded across its ranks (every rank must call it)."""
     maps = _default_maps(cfg) if maps is None else tuple(maps)
     _check_maps(maps, cfg)
     device = resolve_device(device)
@@ -85,7 +88,7 @@ def make_frame_renderer(hwf, field_fn, cfg: RenderConfig, *, near, far,
                                                near, far, ndc=ndc)
             res = rendering.render_rays_chunked(
                 batch, field_fn, cfg, chunk, fine_field_fn=fine_field_fn,
-                generator=generator)
+                generator=generator, mesh=mesh)
         out = {}
         for m in maps:
             v = getattr(res.fine, m)
@@ -113,7 +116,7 @@ def render_frame(c2w, hwf, field_fn, cfg: RenderConfig, *, near, far,
 def make_param_frame_renderer(hwf, fields, cfg: RenderConfig, *, near, far,
                               ndc: bool = False, chunk: int = 8192,
                               render_factor: int = 0, maps=None,
-                              device=None):
+                              device=None, mesh=None):
     """`make_frame_renderer` over a trainer's fields ({"coarse"[, "fine"]},
     an `nn.ModuleDict`), read at each call: the JAX counterpart passes the
     parameters as jit arguments so that periodic hooks render fresh weights
@@ -128,7 +131,7 @@ def make_param_frame_renderer(hwf, fields, cfg: RenderConfig, *, near, far,
     return make_frame_renderer(hwf, coarse, cfg, near=near, far=far, ndc=ndc,
                                chunk=chunk, fine_field_fn=fine,
                                render_factor=render_factor, maps=maps,
-                               device=device)
+                               device=device, mesh=mesh)
 
 
 def _host(a) -> np.ndarray:
@@ -139,14 +142,17 @@ def render_path(poses, hwf, field_fn, cfg: RenderConfig, *, near, far,
                 ndc: bool = False, chunk: int = 8192, fine_field_fn=None,
                 render_factor: int = 0, save_dir=None, gt_images=None,
                 save_alpha: bool = False, frame_fn=None, device=None,
-                generator=None):
+                generator=None, mesh=None):
     """Render a pose list; with `save_dir`, dump the reference's per-frame
     artifact tree (rgb/, depth/, disp/, weight/, z/, pose/, images/ with
     `gt_images`, alpha/ with `save_alpha`, intrinsics.txt). `frame_fn`
     (a renderer taking `maps_for_save`'s maps) replaces the one built from
-    `field_fn`. Returns (rgbs [M, H, W, 3], disps [M, H, W]) as numpy."""
+    `field_fn`. With `mesh` the frames render pixel-sharded (a `frame_fn`
+    must be built with the same mesh) and only rank 0 writes. Returns
+    (rgbs [M, H, W, 3], disps [M, H, W]) as numpy, on every rank."""
     h, w, focal = _frame_hwf(hwf, render_factor)
-    if save_dir is not None:
+    writes = mesh is None or mesh.rank == 0
+    if save_dir is not None and writes:
         save_dir = Path(save_dir)
         for sub in ["rgb", "depth", "disp", "weight", "z", "pose", "images"] \
                 + (["alpha"] if save_alpha else []):
@@ -158,13 +164,14 @@ def render_path(poses, hwf, field_fn, cfg: RenderConfig, *, near, far,
     needed = maps_for_save(save_dir, save_alpha)
     renderer = frame_fn if frame_fn is not None else make_frame_renderer(
         (h, w, focal), field_fn, cfg, near=near, far=far, ndc=ndc,
-        chunk=chunk, fine_field_fn=fine_field_fn, maps=needed, device=device)
+        chunk=chunk, fine_field_fn=fine_field_fn, maps=needed, device=device,
+        mesh=mesh)
     rgbs, disps = [], []
     for i, c2w in enumerate(poses):
         maps = renderer(c2w, generator)
         rgbs.append(maps["rgb"])
         disps.append(maps["disp"])
-        if save_dir is None:
+        if save_dir is None or not writes:
             continue
         write_png(save_dir / "rgb" / f"{i:06d}.png", to8b(maps["rgb"]))
         np.save(save_dir / "depth" / f"{i:06d}.npy", maps["depth"])

@@ -19,6 +19,12 @@ differentiated through them (the LaMa trainer's discriminator phase). With
 their graph and the next eval-mode pass normalises with those, until
 `track_graph` is turned off (`graph_stats`).
 
+Under data parallelism (`sync_batchnorm`), a train-mode pass takes the
+statistics of the whole batch: each rank's E[x] and E[x^2] (equal shards)
+averaged across ranks by a differentiable all-reduce, so the gradient
+through the statistics is the whole batch's, and the running statistics
+stay equal on every rank.
+
 `flax_init_` gives a module's convolutions and BatchNorms flax's default
 initialisers, from a CPU `torch.Generator`.
 """
@@ -30,6 +36,7 @@ import torch
 from torch import nn
 
 from spinnerf_tpu_torch.models.hashgrid import _lecun_normal_
+from spinnerf_tpu_torch.parallel.mesh import all_reduce_sum
 
 MOMENTUM = 0.99          # flax's: the running value's share
 EPS = 1e-5
@@ -45,6 +52,7 @@ class BatchNorm2d(nn.BatchNorm2d):
                          device=device, dtype=dtype)
         self.track_graph = False
         self.graph_stats = None
+        self.mesh = None            # `sync_batchnorm`'s
 
     def forward(self, x):
         if not self.training:
@@ -53,8 +61,11 @@ class BatchNorm2d(nn.BatchNorm2d):
                 return _normalize(x, mean, var, self.weight, self.bias,
                                   self.eps)
             return super().forward(x)
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        mean, sq = x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+        if self.mesh is not None:
+            mean, sq = (all_reduce_sum(torch.stack([mean, sq]))
+                        / self.mesh.size).unbind()
+        var = torch.clamp(sq - mean * mean, min=0.0)
         new_mean = MOMENTUM * self.running_mean + (1.0 - MOMENTUM) * mean
         new_var = MOMENTUM * self.running_var + (1.0 - MOMENTUM) * var
         # new buffers, not in-place updates: an earlier eval-mode pass
@@ -91,6 +102,14 @@ def flax_init_(module: nn.Module, generator=None):
         if isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return module
+
+
+def sync_batchnorm(module: nn.Module, mesh):
+    """Every `BatchNorm2d` of `module` takes its train-mode statistics over
+    the ranks of `mesh` (a `parallel.Mesh`; None: this rank's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
 
 
 @contextlib.contextmanager

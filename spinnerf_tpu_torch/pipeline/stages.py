@@ -14,7 +14,11 @@ same on-disk layout:
   stage_eval             6. PSNR, SSIM and LPIPS of the test views,
                             full-frame and masked;
 and `run_pipeline` runs them in order. Stages run on the card unless
-`device="cpu"` is passed.
+`device="cpu"` is passed. In a process group (`--mesh_shape N`) every
+stage's Trainer trains data-parallel on every rank; the stages that have no
+mesh in the JAX package (the mask export, the LaMa guidance, the eval) run
+on rank 0 while the other ranks wait, and every rank returns rank 0's
+result.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from spinnerf_tpu_torch.data import llff
 from spinnerf_tpu_torch.eval import metrics
 from spinnerf_tpu_torch.eval.render import write_png
 from spinnerf_tpu_torch.models.lpips import load_lpips_labeled
+from spinnerf_tpu_torch.parallel import mesh as mesh_lib
 from spinnerf_tpu_torch.pipeline import inpaint2d, mvseg
 from spinnerf_tpu_torch.train.loop import Trainer
 
@@ -51,9 +56,10 @@ def stage_mvseg(cfg: Config, *, n_iters=None, log=print, device=None):
                         prepare=True, lpips=False, i_feat=0)
     tr = Trainer(mv_cfg, log=log, device=device)
     tr.fit(n_iters)
-    out_dir, masks = mvseg.export_masks(tr, out_subdir="label",
-                                        opening=cfg.post_opening)
-    log(f"[mvseg] wrote {len(masks)} masks to {out_dir}")
+    out_dir, masks = mesh_lib.rank0_only(tr.mesh, mvseg.export_masks, tr,
+                                         out_subdir="label",
+                                         opening=cfg.post_opening)
+    tr.log(f"[mvseg] wrote {len(masks)} masks to {out_dir}")
     return out_dir
 
 
@@ -68,7 +74,7 @@ def stage_prepare(cfg: Config, *, n_iters=None, log=print, device=None):
     tr = Trainer(prep_cfg, log=log, device=device)
     tr.fit(n_iters)
     out = tr._prepare_hook(tr.step)
-    log(f"[prepare] guidance inputs at {out}")
+    tr.log(f"[prepare] guidance inputs at {out}")
     return out
 
 
@@ -79,6 +85,13 @@ def stage_inpaint_guidance(cfg: Config, lama_in, *, checkpoint_path=None,
     `images_<f>/lama_images/`, one generator for both passes. The staging
     files are `img{i:03d}.png` in the sorted order of the images, renamed
     back to each image's stem. Returns (depth dir, lama_images dir)."""
+    return mesh_lib.rank0_only(mesh_lib.current(), _inpaint_guidance, cfg,
+                               lama_in, checkpoint_path=checkpoint_path,
+                               refine=refine, log=log, device=device)
+
+
+def _inpaint_guidance(cfg, lama_in, *, checkpoint_path, refine, log,
+                      device):
     img_dir = _images_dir(cfg)
     names = sorted(p.name for p in img_dir.iterdir()
                    if p.suffix.lower() in (".png", ".jpg", ".jpeg"))
@@ -132,6 +145,10 @@ def stage_eval(cfg: Config, trainer, *, log=print):
     The masks are `scene.masks_gt` (the exact hole masks, e.g.
     `label_full/`) when loaded, else `scene.masks`. Returns {"per_view":
     rows, "summary": the mean of each key}, or {} without test views."""
+    return mesh_lib.rank0_only(trainer.mesh, _eval, trainer, log=log)
+
+
+def _eval(trainer, *, log):
     if len(trainer.i_test) == 0:
         log("[eval] no test views")
         return {}
@@ -139,7 +156,8 @@ def stage_eval(cfg: Config, trainer, *, log=print):
     lpips_fn, lpips_key = load_lpips_labeled(device=dev)
     eval_masks = (trainer.scene.masks_gt if trainer.scene.masks_gt is not None
                   else trainer.scene.masks)
-    rgbs, _ = trainer.render_poses_list(trainer.scene.poses[trainer.i_test])
+    rgbs, _ = trainer.render_poses_list(trainer.scene.poses[trainer.i_test],
+                                        sharded=False)
     rows = []
     with torch.no_grad():
         for r, t in zip(rgbs, trainer.i_test):
@@ -173,8 +191,12 @@ def run_pipeline(cfg: Config, *, mvseg_iters=None, prepare_iters=None,
     object-removed renders in place of LaMa's), the fit and the eval.
     Returns (the fit's Trainer, the eval's results); the results, with each
     stage's wall-clock seconds under "stage_seconds", are also written to
-    `<basedir>/<expname>/pipeline_results.json`."""
+    `<basedir>/<expname>/pipeline_results.json`. In a process group every
+    rank runs it (module docstring) and only rank 0 logs and writes."""
     timings: dict[str, float] = {}
+    mesh = mesh_lib.current()
+    if mesh is not None and mesh.rank != 0:
+        log = mesh_lib.quiet
 
     def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
@@ -192,12 +214,13 @@ def run_pipeline(cfg: Config, *, mvseg_iters=None, prepare_iters=None,
           checkpoint_path=lama_checkpoint, refine=refine, log=log,
           device=device)
     if guidance_hook is not None:
-        guidance_hook()
+        mesh_lib.rank0_only(mesh, guidance_hook)
     trainer = timed("fit", stage_fit, cfg, n_iters=fit_iters, log=log,
                     device=device)
     results = timed("eval", stage_eval, cfg, trainer, log=log)
     results["stage_seconds"] = timings
-    out = Path(cfg.basedir) / cfg.expname / "pipeline_results.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(results, indent=2))
+    if mesh is None or mesh.rank == 0:
+        out = Path(cfg.basedir) / cfg.expname / "pipeline_results.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(results, indent=2))
     return trainer, results

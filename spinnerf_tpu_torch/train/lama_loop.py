@@ -8,10 +8,14 @@ grids (`training/visualizers/directory.py`), checkpoints
 (`train/checkpoints.py`; resume from the newest), validation with the
 binned `InpaintingEvaluator`, and the metrics JSONL that
 `pipeline.lama_tools.report_from_logs` reads. Runs on the card unless the
-caller asks for the CPU; PNGs are read and written without cv2.
+caller asks for the CPU; PNGs are read and written without cv2. With a
+mesh (`parallel.Mesh`) every rank draws the same global batch from the
+seed and the step keeps its share; only rank 0 writes metrics, grids,
+validation and checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -25,6 +29,7 @@ from spinnerf_tpu_torch.data.llff import imread_rgb8
 from spinnerf_tpu_torch.eval.render import write_png
 from spinnerf_tpu_torch.models.discriminator import NLayerDiscriminator
 from spinnerf_tpu_torch.models.lama import FFCResNetGenerator
+from spinnerf_tpu_torch.parallel import mesh as mesh_lib
 from spinnerf_tpu_torch.train.lama_trainer import (make_batch,
                                                    make_lama_train_step,
                                                    to_nchw)
@@ -106,17 +111,25 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
                     i_print: int = 50, i_vis: int = 250, i_ckpt: int = 500,
                     i_val: int = 0, seed: int = 0, max_images=None,
                     perceptual: str = "none", perceptual_weights=None,
-                    log=print, device=None):
+                    log=print, device=None, mesh=None):
     """Train the FFC inpainter on an image directory on `device` (the card
     unless the caller asks for the CPU). Returns the `LamaTrainState`.
 
     Writes `<exp_dir>/metrics.jsonl`, grids under
     `<exp_dir>/visualizations/` and checkpoints of the whole state
     (G, D, EMA, both optimizers) under `<exp_dir>/checkpoints/`; resumes
-    from the newest one.
+    from the newest one. With `mesh`, this rank's part of a data-parallel
+    run (`batch_size` divisible by its size); every rank returns its state,
+    once rank 0 has written what it writes.
     """
     from spinnerf_tpu_torch.train.checkpoints import CheckpointManager
 
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch size {batch_size} does not split over "
+                         f"{mesh.size} ranks")
+    writes = mesh is None or mesh.rank == 0
+    if not writes:
+        log = mesh_lib.quiet
     device = resolve_device(device)
     exp_dir = Path(exp_dir)
     exp_dir.mkdir(parents=True, exist_ok=True)
@@ -129,7 +142,8 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
         gen, disc,
         perceptual_fn=make_perceptual_fn(perceptual,
                                          weights_path=perceptual_weights,
-                                         device=device))
+                                         device=device),
+        mesh=mesh)
     state = init_fn(seed)
 
     ckpt = CheckpointManager(exp_dir, save_interval=i_ckpt)
@@ -138,6 +152,10 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
         _, restored = ckpt.restore(map_location=device)
         state.load_state_dict(restored["params"])
         log(f"resumed inpainter training from step {latest}")
+    if mesh is not None:            # every rank starts from rank 0's state
+        mesh.broadcast_(list(gen.parameters()) + list(gen.buffers())
+                        + list(disc.parameters()) + list(disc.buffers())
+                        + list(state.ema.values()))
 
     mask_gen = MixedMaskGenerator()
     rng = np.random.RandomState(seed)
@@ -145,7 +163,8 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
     start = state.step
     t_print = time.time()
     steps_since_print = 0
-    with open(exp_dir / "metrics.jsonl", "a") as mfile:
+    with (open(exp_dir / "metrics.jsonl", "a") if writes
+          else contextlib.nullcontext()) as mfile:
         for i in range(start, n_steps):
             idx = rng.choice(len(images), batch_size)
             crops, masks = make_batch([images[j] for j in idx], mask_gen,
@@ -160,11 +179,14 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
                 t_print = time.time()
                 rate = batch_size * steps_since_print / dt
                 steps_since_print = 0
-                mfile.write(json.dumps({"step": i, **m}) + "\n")
-                mfile.flush()
+                if writes:
+                    mfile.write(json.dumps({"step": i, **m}) + "\n")
+                    mfile.flush()
                 log(f"[{i}/{n_steps}] g_total {m['g_total']:.4f} "
                     f"d_total {m['d_total']:.4f} g_l1 {m['g_l1']:.4f} "
                     f"({rate:.1f} img/s)")
+            if not writes:
+                continue
             if i_vis and i % i_vis == 0:
                 ema_gen.load_state_dict(state.ema_state_dict())
                 masked = crops * (1.0 - masks)
@@ -181,6 +203,8 @@ def train_inpainter(indir, exp_dir, *, n_steps: int = 1000,
                 mfile.write(json.dumps({"step": i, "val": res["total"]})
                             + "\n")
                 mfile.flush()
+    if mesh is not None:
+        mesh.barrier()
     return state
 
 

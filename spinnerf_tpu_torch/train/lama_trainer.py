@@ -20,6 +20,12 @@ One step reproduces the JAX step's mix of BatchNorm modes
   the statistics that pass produced, differentiated through them as flax
   does (`graph_stats`).
 
+With a mesh (`parallel.Mesh`) the step takes the global batch and keeps
+this rank's share; G's and D's train-mode BatchNorms take the whole batch's
+statistics (`models/batchnorm.py::sync_batchnorm`), each gradient is
+averaged across ranks before the clip, so the norm is the global one, and
+the EMA stays replicated.
+
 Clipping is optax's `clip_by_global_norm`: g / |g| * max only when
 |g| >= max (torch's `clip_grad_norm_` scales by max / (|g| + 1e-6)). The
 whole step runs with TF32 off in cuDNN and in matmuls, forward and
@@ -31,7 +37,7 @@ import numpy as np
 import torch
 
 from spinnerf_tpu_torch.data.lama_masks import MixedMaskGenerator
-from spinnerf_tpu_torch.models.batchnorm import graph_stats
+from spinnerf_tpu_torch.models.batchnorm import graph_stats, sync_batchnorm
 from spinnerf_tpu_torch.models.discriminator import NLayerDiscriminator
 from spinnerf_tpu_torch.models.lama import FFCResNetGenerator
 from spinnerf_tpu_torch.models.lpips import _f32_convs
@@ -94,7 +100,7 @@ def make_lama_train_step(gen: FFCResNetGenerator, disc: NLayerDiscriminator,
                          *, weights: LamaLossWeights = LamaLossWeights(),
                          gen_lr: float = 1e-3, disc_lr: float = 1e-4,
                          ema_decay: float = 0.999, grad_clip: float = 1.0,
-                         perceptual_fn=None):
+                         perceptual_fn=None, mesh=None):
     """(init_fn, step_fn) for adversarial inpainter training.
 
     init_fn(seed=0) -> LamaTrainState: G and D reset from
@@ -103,7 +109,12 @@ def make_lama_train_step(gen: FFCResNetGenerator, disc: NLayerDiscriminator,
     parameters, fresh optimizers.
     step_fn(state, images [N, 3, H, W], masks [N, 1, H, W]) -> metrics
     ({name: 0-d tensor}); G, D, the EMA and the optimizers update in place.
+    With `mesh`, images and masks are the global batch (N divisible by the
+    mesh's size) and the metrics are the means across ranks.
     """
+    sync_batchnorm(gen, mesh)
+    sync_batchnorm(disc, mesh)
+
     def make_opts(g, d):
         return (torch.optim.Adam(g.parameters(), lr=gen_lr,
                                  betas=(0.9, 0.999), eps=1e-8),
@@ -122,12 +133,16 @@ def make_lama_train_step(gen: FFCResNetGenerator, disc: NLayerDiscriminator,
         grads = torch.autograd.grad(loss, params)
         for p, g in zip(params, grads):
             p.grad = g
+        if mesh is not None:
+            mesh.all_reduce_mean_([p.grad for p in params])
         clip_by_global_norm_(params, grad_clip)
         opt.step()
 
     def step_fn(state: LamaTrainState, images, masks):
         g_params = list(gen.parameters())
         d_params = list(disc.parameters())
+        if mesh is not None:
+            images, masks = mesh.shard_rows(images), mesh.shard_rows(masks)
         inp = net_input(images, masks)
         with _f32_convs():
             # ---- generator phase: D, feature matching and the perceptual
@@ -172,6 +187,8 @@ def make_lama_train_step(gen: FFCResNetGenerator, disc: NLayerDiscriminator,
                 update(d_params, d_loss, state.disc_opt)
         state.step += 1
         metrics.update(d_adv=d_adv, d_gp=gp, d_total=d_loss)
+        if mesh is not None:
+            return mesh.mean_metrics(metrics)
         return {k: v.detach() for k, v in metrics.items()}
 
     return init_fn, step_fn

@@ -13,8 +13,15 @@ disparity dump for LaMa (`i_feat`, forced at the last step of every `fit`)
 and, outside prepare mode, the sanity panel (`i_feat` > 10), the MVSeg
 panel (`i_img`, with `mvseg`), and the `page_bounds.json` sidecar that
 pins the hash index semantics to the experiment. COLMAP's sparse depth is
-read by the native parser (`data/colmap_fast.py`). `--mesh_shape` is not
-ported yet and raises NotImplementedError naming its ROADMAP.md entry.
+read by the native parser (`data/colmap_fast.py`).
+
+`--mesh_shape N` trains data-parallel on the N ranks of a process group
+(`parallel/mesh.py`: the CLI launches them, or `torchrun`): each rank keeps
+its share of every ray batch, the gradients are averaged across ranks, the
+hooks render pixel-sharded, and only rank 0 writes (checkpoints,
+`page_bounds.json`, the logs, the testset, video, panels and the prepare
+dump) while the others wait at a barrier. 0 takes the group this process is
+in, if any.
 """
 from __future__ import annotations
 
@@ -39,19 +46,13 @@ from spinnerf_tpu_torch.models.hashgrid import (HashGridField,
                                                 level_resolutions)
 from spinnerf_tpu_torch.models.lpips import load_lpips
 from spinnerf_tpu_torch.ops.fused_mlp import FusedMLPField
+from spinnerf_tpu_torch.parallel import mesh as mesh_lib
 from spinnerf_tpu_torch.train import checkpoints, schedule
 from spinnerf_tpu_torch.train.lpips_patch import make_patch_lpips_fn
 from spinnerf_tpu_torch.train.step import (TrainConfig, _active_groups,
                                            init_params, make_train_step)
-from spinnerf_tpu_torch.utils.live_control import LiveControl
+from spinnerf_tpu_torch.utils.live_control import MUTABLE_KEYS, LiveControl
 from spinnerf_tpu_torch.utils.visualization import sanity_panel
-
-_QUEUE_A = "ROADMAP.md queue A"
-
-
-def _unported(what: str, entry: str):
-    return NotImplementedError(f"{what} is not ported yet; see {entry}")
-
 
 def build_model(cfg: Config, semantic: bool = False, device=None,
                 page_bounds=None, dense_box=None, fine: bool = False):
@@ -164,14 +165,10 @@ def train_config(cfg: Config) -> TrainConfig:
     )
 
 
-def _check_ported(cfg: Config):
-    if cfg.mesh_shape > 1:
-        raise _unported("data parallelism over several cards (--mesh_shape)",
-                        _QUEUE_A)
-
-
 class Trainer:
-    """End-to-end DS-NeRF-style trainer on one scene, on one device."""
+    """End-to-end DS-NeRF-style trainer on one scene: on one device, or
+    data-parallel on each rank of a process group (`--mesh_shape`, module
+    docstring); `writes` is True on the rank that writes files."""
 
     def _persist_page_bounds(self, bounds, dense_box):
         """Pin the hash index semantics (Z-CDF page bounds and dense boxes)
@@ -203,13 +200,16 @@ class Trainer:
 
     def __init__(self, cfg: Config, *, scene: llff.Scene | None = None,
                  device=None, log=print):
-        _check_ported(cfg)
         self.cfg = cfg
-        self.log = log
+        # the process group this rank trains in (None: one device)
+        self.mesh = mesh_lib.for_config(cfg.mesh_shape)
+        self.writes = self.mesh is None or self.mesh.rank == 0
+        self.log = log if self.writes else mesh_lib.quiet
         self.device = resolve_device(device)
         self.exp_dir = cfg.exp_dir()
         self.exp_dir.mkdir(parents=True, exist_ok=True)
-        cfg.save()
+        if self.writes:
+            cfg.save()
 
         # the data (dataset_type dispatch, `run_nerf.py:985-1112`), with the
         # host seconds of the scene and sparse-depth reads in `load_s`
@@ -248,7 +248,8 @@ class Trainer:
             # experiment dir pins it (`_persist_page_bounds`)
             if cfg.hash_region_calib:
                 bounds, dense_box = _scene_hash_calibration(self.bank, probe)
-            bounds, dense_box = self._persist_page_bounds(bounds, dense_box)
+            bounds, dense_box = self._rank0_first(self._persist_page_bounds,
+                                                  bounds, dense_box)
 
         def make_model(fine=False):
             return build_model(cfg, semantic=cfg.mvseg, device=self.device,
@@ -282,7 +283,8 @@ class Trainer:
             self.frozen = self._frozen_field()
         self.step_fn = make_train_step(self.fields, self.tcfg, self.bank,
                                        self.optimizer, lpips_fn=lpips_fn,
-                                       frozen_raw_fn=self.frozen)
+                                       frozen_raw_fn=self.frozen,
+                                       mesh=self.mesh)
         # draws the stratified jitter and importance uniforms on the device
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.step = 0
@@ -304,6 +306,25 @@ class Trainer:
                 self.optimizer.load_state_dict(restored["opt_state"])
             self.step = step
             self.log(f"resumed from checkpoint at step {step}")
+        if self.mesh is not None:
+            # every rank starts from rank 0's parameters
+            self.mesh.broadcast_(list(self.fields.parameters()))
+
+    def _rank0_first(self, fn, *args):
+        """fn(*args) on rank 0, then, once it is done, on the other ranks
+        (rank 0 writes what they read); just fn(*args) without a mesh."""
+        if self.writes:
+            out = fn(*args)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        if not self.writes:
+            out = fn(*args)
+        return out
+
+    def _barrier(self):
+        """Under a mesh, wait until rank 0 has written what it writes."""
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _frozen_field(self):
         """The `--alpha_model_path` experiment's field (fine, else coarse),
@@ -346,28 +367,34 @@ class Trainer:
     # --- rendering helpers ---------------------------------------------------
 
     def render_poses_list(self, poses, *, render_factor=None, save_dir=None,
-                          gt_images=None, save_alpha=False):
+                          gt_images=None, save_alpha=False, sharded=True):
         """Render poses with the current fields (`eval_render.render_path`,
-        fetching only `maps_for_save`'s maps). Returns (rgbs, disps) numpy."""
+        fetching only `maps_for_save`'s maps), pixel-sharded under a mesh
+        (every rank calls it; rank 0 writes) unless `sharded=False` (a
+        caller on rank 0 alone). Returns (rgbs, disps) numpy."""
         cfg = self.cfg
         rf = cfg.render_factor if render_factor is None else render_factor
         rcfg = render_config(cfg, train=False)
+        mesh = self.mesh if sharded else None
         renderer = eval_render.make_param_frame_renderer(
             self.scene.hwf, self.fields, rcfg, near=self.bank.near,
             far=self.bank.far, ndc=self.bank.ndc, chunk=cfg.chunk,
             render_factor=rf, maps=eval_render.maps_for_save(save_dir,
                                                              save_alpha),
-            device=self.device)
+            device=self.device, mesh=mesh)
         return eval_render.render_path(
             poses, self.scene.hwf, None, rcfg, near=self.bank.near,
             far=self.bank.far, ndc=self.bank.ndc, chunk=cfg.chunk,
             render_factor=rf, save_dir=save_dir, gt_images=gt_images,
-            save_alpha=save_alpha, frame_fn=renderer, device=self.device)
+            save_alpha=save_alpha, frame_fn=renderer, device=self.device,
+            mesh=mesh)
 
     # --- cadence hooks -------------------------------------------------------
 
     def _video_hook(self, step):
         rgbs, disps = self.render_poses_list(self.scene.render_poses)
+        if not self.writes:
+            return
         vdir = self.exp_dir / f"video_{step:06d}"
         vdir.mkdir(exist_ok=True)
         eval_render.write_video(vdir / "rgb.mp4", rgbs)
@@ -393,17 +420,26 @@ class Trainer:
                                       torch.from_numpy(self.scene.images[t])))
               for r, t in zip(rgbs, self.i_test)]
         self.log(f"[{step}] testset PSNR mean {np.mean(ps):.2f}")
-        (tdir / "psnr.json").write_text(json.dumps(
-            {"per_view": ps, "mean": float(np.mean(ps))}))
+        if self.writes:
+            (tdir / "psnr.json").write_text(json.dumps(
+                {"per_view": ps, "mean": float(np.mean(ps))}))
 
     def _prepare_hook(self, step, out_dir=None):
         """Render every pose's disparity, and its downsampled mask where the
         scene has masks, into the LaMa staging layout
         (`run_nerf.py:1599-1609`): <out>/img{i:03}.png and
-        <out>/label/img{i:03}.png, 8-bit grayscale."""
+        <out>/label/img{i:03}.png, 8-bit grayscale. Under a mesh every rank
+        renders, rank 0 writes, and all return once it has."""
         out = Path(out_dir) if out_dir else self.exp_dir / "lama_input"
-        (out / "label").mkdir(parents=True, exist_ok=True)
         _, disps = self.render_poses_list(self.scene.poses)
+        if self.writes:
+            self._write_prepare_dump(out, disps)
+        self._barrier()
+        self.log(f"[{step}] wrote LaMa guidance inputs to {out}")
+        return out
+
+    def _write_prepare_dump(self, out, disps):
+        (out / "label").mkdir(parents=True, exist_ok=True)
         rf = max(self.cfg.render_factor, 1)
         for i, d in enumerate(disps):
             eval_render.write_png(
@@ -414,8 +450,6 @@ class Trainer:
                 eval_render.write_png(
                     out / "label" / f"img{i:0>3}.png",
                     (np.clip(m, 0, 1) * 255).astype(np.uint8))
-        self.log(f"[{step}] wrote LaMa guidance inputs to {out}")
-        return out
 
     def _sanity_panel_hook(self, step):
         """The 3-panel render / inpainted-depth prior / disparity image of
@@ -423,6 +457,8 @@ class Trainer:
         <expdir>/test_renders/."""
         idx = int(np.random.RandomState(step).choice(self.i_train))
         rgbs, disps = self.render_poses_list(self.scene.poses[idx:idx + 1])
+        if not self.writes:
+            return None
         out = self.exp_dir / "test_renders"
         out.mkdir(exist_ok=True)
         prior = (self.scene.inpainted_depths[idx]
@@ -442,8 +478,10 @@ class Trainer:
             self.scene.hwf, self.fields, render_config(self.cfg, train=False),
             near=self.bank.near, far=self.bank.far, ndc=self.bank.ndc,
             chunk=self.cfg.chunk, render_factor=self.cfg.render_factor,
-            maps=("rgb", "prob"), device=self.device)
+            maps=("rgb", "prob"), device=self.device, mesh=self.mesh)
         maps = renderer(self.scene.poses[idx])
+        if not self.writes:
+            return None
         prob = 1.0 / (1.0 + np.exp(-maps["prob"]))
         panel = np.concatenate([np.clip(maps["rgb"], 0, 1),
                                 np.repeat(prob[..., None], 3, -1)], axis=1)
@@ -456,7 +494,9 @@ class Trainer:
 
     def fit(self, n_iters: int | None = None, *, hooks: bool = True):
         """Train to step `n_iters` (default N_iters), running the cadence
-        hooks unless `hooks=False`. Returns the metrics of the last step."""
+        hooks unless `hooks=False`. Returns the metrics of the last step
+        (under a mesh: the means across ranks, on every rank, once rank 0
+        has written what it writes)."""
         cfg = self.cfg
         n_iters = cfg.N_iters if n_iters is None else n_iters
         t0 = time.time()
@@ -470,14 +510,15 @@ class Trainer:
             if not hooks:
                 continue
             if cfg.i_print and i % cfg.i_print == 0:
-                control.poll()
+                self._poll(control)
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t0
                 self.log(f"[{i}/{n_iters}] loss {m['loss']:.4f} "
                          f"psnr {m['psnr']:.2f} "
                          f"({rays_done / max(dt, 1e-9):.0f} rays/s)")
-            self.ckpt.maybe_save(i, self.fields.state_dict(),
-                                 self.optimizer.state_dict())
+            if self.writes:
+                self.ckpt.maybe_save(i, self.fields.state_dict(),
+                                     self.optimizer.state_dict())
             if cfg.i_video and i % cfg.i_video == 0:
                 self._video_hook(i)
             if cfg.i_testset and i % cfg.i_testset == 0:
@@ -494,4 +535,23 @@ class Trainer:
                 self._sanity_panel_hook(i)
             if cfg.mvseg and cfg.i_img and i % cfg.i_img == 0:
                 self._mvseg_panel_hook(i)
+        if self.mesh is not None:
+            # the replicas must not have drifted apart; this also waits
+            # for what rank 0 writes
+            if not self.mesh.replicas_equal(list(self.fields.parameters())):
+                raise RuntimeError(f"step {self.step}: the {self.mesh.size} "
+                                   f"ranks' parameters differ")
+            self.log(f"[{self.step}] {self.mesh.size} ranks, parameters "
+                     f"bit-equal across ranks")
         return metrics
+
+    def _poll(self, control):
+        """The live control file, read by rank 0 and its knobs sent to the
+        other ranks, so that every rank runs the same hooks."""
+        if self.writes:
+            control.poll()
+        if self.mesh is not None:
+            knobs = self.mesh.broadcast_object(
+                {k: getattr(self.cfg, k) for k in MUTABLE_KEYS})
+            for k, v in knobs.items():
+                setattr(self.cfg, k, v)

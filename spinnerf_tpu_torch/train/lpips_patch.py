@@ -13,7 +13,9 @@ anchors come from per-view mask bounding boxes computed once. The views and
 the anchor uniforms come from the step's `torch.Generator`. Without
 perturbation or density noise each ray's render is deterministic and
 independent of the others, so the patches render as one ray batch; the
-result equals the JAX module's loop over patches.
+result equals the JAX module's loop over patches. Under data parallelism
+every rank computes the whole term from the same draws: its mean across
+ranks, which the step takes, is the term itself.
 """
 from __future__ import annotations
 

@@ -16,6 +16,16 @@ composite. Loss terms:
          start step
 With a frozen field (`--alpha_model_path`) the density comes, without a
 gradient, from that field.
+
+With a mesh (`parallel.Mesh`) each rank renders its 1/N of every group of
+the batch, with the whole batch's random draws, so N ranks compute what one
+rank computes: each rank's loss is its share (`core/losses.py`), the
+gradients are averaged across ranks in one flat all-reduce before the
+update, and the metrics are the means across ranks, with three terms that
+are not plain means handled apart: the inpainted-disparity NaN guard zeroes
+the term on every rank when any rank's is NaN, masked means divide by the
+whole batch's count, and the PSNR is taken of the mean MSE. The patch-LPIPS
+term is computed whole on every rank (its mean across ranks is itself).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from torch import nn
 
 from spinnerf_tpu_torch.core import losses, rendering, sampling
 from spinnerf_tpu_torch.core.rendering import RenderConfig
+from spinnerf_tpu_torch.core.sampling import Rows
 from spinnerf_tpu_torch.data import raybank
 
 
@@ -92,7 +103,7 @@ def _with_frozen_sigma(field, frozen_raw_fn):
 
 def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
                     bank: raybank.RayBank, optimizer, *, lpips_fn=None,
-                    frozen_raw_fn=None):
+                    frozen_raw_fn=None, mesh=None):
     """Build the train step over `fields` ({"coarse"[, "fine"]}, see
     `init_params`) and `optimizer` (`schedule.make_optimizer` over their
     parameters).
@@ -104,6 +115,8 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
     frozen_raw_fn: optional frozen field `(pts, viewdirs) -> raw`, run under
       `torch.no_grad()`; its column 3 is the density of both passes (the
       NeRF_RGB / --alpha_model_path mode, `run_nerf_helpers.py:159-216`).
+    mesh: optional `parallel.Mesh` for data parallelism (module docstring);
+      `cfg.n_rand` must divide by its size (ValueError otherwise).
 
     Returns step(step_idx, generator=None) -> metrics, a dict of 0-d
     tensors; it updates the fields in place. `generator` draws the
@@ -111,12 +124,17 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
     density noise, the patch term's views and anchors and, without epoch
     sampling or with `single_image`, the batch indices.
     `step.loss_fn(step_idx, generator)` gives (loss, metrics) without the
-    update; `step.field_fns` are the (coarse, fine) field functions the
-    step renders with."""
+    update (with a mesh: this rank's loss, and the metrics across ranks);
+    `step.field_fns` are the (coarse, fine) field functions the step
+    renders with."""
     groups = _active_groups(cfg, bank)
     use_depth = (cfg.depth_supervision and bank.depth_group is not None
                  and bank.depth_group.count > 0)
     b = cfg.n_rand
+    if mesh is not None and b % mesh.size:
+        raise ValueError(f"N_rand {b} does not split over {mesh.size} "
+                         f"ranks")
+    n_local = b if mesh is None else b // mesh.size   # a group's rays here
     rcfg = cfg.render
     coarse_fn = fields["coarse"]
     fine_fn = fields["fine"] if "fine" in fields else coarse_fn
@@ -131,27 +149,38 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
             if cfg.single_image and name in ("clf", "rgb"):
                 ba, tg = raybank.sample_single_image(
                     bank, b, step_idx, precrop_iters=cfg.precrop_iters,
-                    precrop_frac=cfg.precrop_frac, generator=generator)
+                    precrop_frac=cfg.precrop_frac, generator=generator,
+                    mesh=mesh)
             else:
                 ba, tg = raybank.sample_group(bank, name, b, step=step,
-                                              generator=generator)
+                                              generator=generator, mesh=mesh)
             batches.append(ba)
             targets.append(tg)
         if use_depth:
             depth_batch = raybank.sample_depth_group(bank, b, step=step,
-                                                     generator=generator)
+                                                     generator=generator,
+                                                     mesh=mesh)
             if not cfg.depth_with_rgb:
                 batches.append({k: depth_batch[k]
                                 for k in ("origins", "directions", "near",
                                           "far", "viewdirs")})
 
         fused = _concat_batches(batches)
+        rows = None
+        if mesh is not None:
+            # this rank's rows of the fused batch one rank would render
+            local = (torch.arange(n_local, device=bank.device)
+                     + mesh.rank * n_local)
+            rows = Rows(torch.cat([g * b + local
+                                   for g in range(len(batches))]),
+                        len(batches) * b)
         res = rendering.render_rays(fused, coarse_fn, rcfg,
-                                    fine_field_fn=fine_fn, generator=generator)
+                                    fine_field_fn=fine_fn, generator=generator,
+                                    rows=rows)
         fine, coarse = res.fine, res.coarse
 
         def seg(x, i):
-            return x[i * b:(i + 1) * b]
+            return x[i * n_local:(i + 1) * n_local]
 
         metrics = {}
         loss = torch.zeros((), dtype=torch.float32, device=bank.device)
@@ -162,7 +191,7 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
         i = gi["clf"] if "clf" in gi else gi["rgb"]
         tgt = targets[i]["rgb"]
         img_loss = losses.mse(seg(fine.rgb, i), tgt)
-        metrics["psnr"] = losses.mse_to_psnr(img_loss)
+        metrics["psnr"] = img_loss      # the PSNR of its mean, below
         if cfg.use_coarse_loss and coarse is not None:
             img_loss = img_loss + losses.mse(seg(coarse.rgb, i), tgt)
         loss = loss + img_loss
@@ -198,8 +227,10 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
             inp_loss = losses.mse(seg(fine.disp, i), tgt)
             if cfg.use_coarse_loss and coarse is not None:
                 inp_loss = inp_loss + losses.mse(seg(coarse.disp, i), tgt)
-            inp_loss = torch.where(torch.isnan(inp_loss),
-                                   torch.zeros_like(inp_loss), inp_loss)
+            nan = torch.isnan(inp_loss)
+            if mesh is not None:
+                nan = mesh.any(nan)
+            inp_loss = torch.where(nan, torch.zeros_like(inp_loss), inp_loss)
             loss = loss + inp_loss
             metrics["inp_loss"] = inp_loss
 
@@ -244,12 +275,18 @@ def make_train_step(fields: nn.ModuleDict, cfg: TrainConfig,
             metrics["lpips_loss"] = lp
 
         metrics["loss"] = loss
+        if mesh is not None:
+            metrics = mesh.mean_metrics(metrics)
+        metrics["psnr"] = losses.mse_to_psnr(metrics["psnr"])
         return loss, metrics
 
     def step(step_idx: int, generator=None):
         optimizer.zero_grad()
         loss, metrics = loss_fn(step_idx, generator)
         loss.backward()
+        if mesh is not None:
+            mesh.all_reduce_mean_([p.grad for p in optimizer.params
+                                   if p.grad is not None])
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

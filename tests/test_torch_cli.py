@@ -73,6 +73,64 @@ def test_train_needs_the_card_unless_cpu_is_asked(trained):
         main(["train"] + args)
 
 
+def test_train_mesh_shape_2_launches_two_ranks(tmp_path, capfd):
+    """`train --mesh_shape 2` on the CPU launches two gloo ranks: rank 0
+    alone logs and writes the one checkpoint, and the ranks end with
+    bit-equal parameters; `render` on two ranks writes one rank's tree."""
+    scene = synthetic.make_scene(tmp_path / "scene", n_views=5, h=32, w=40,
+                                 factor=1)
+    args = TOY + ["--basedir", str(tmp_path / "logs"), "--datadir",
+                  str(scene), "--mesh_shape", "2", "--i_print", "4"]
+    assert main(["train"] + args, device="cpu") == 0
+    out = capfd.readouterr().out
+    ckpts = sorted(p.name for p in
+                   (tmp_path / "logs" / "cli" / "checkpoints").iterdir())
+    assert ckpts == ["ckpt_00000010.pt"]
+    assert [line.split()[0] for line in out.splitlines()
+            if " psnr " in line] == ["[4/12]", "[8/12]", "[12/12]"]
+    assert "[12] 2 ranks, parameters bit-equal across ranks" in out
+    # `render --render_test` on two ranks (pixel-sharded) writes what one
+    # rank writes, bit for bit
+    out_dir = tmp_path / "logs" / "cli" / "renderonly_test_000010"
+    trees = []
+    for n in ("2", "1"):
+        assert main(["render", "--render_test"] + args + ["--mesh_shape", n],
+                    device="cpu") == 0
+        trees.append({p.relative_to(out_dir): p.read_bytes()
+                      for p in out_dir.rglob("*") if p.is_file()})
+    assert trees[0] == trees[1] and len(trees[0]) > 8
+
+
+def test_train_joins_the_group_torchrun_sets_up(tmp_path):
+    """`torchrun --standalone --nproc_per_node 2` over a two-line entry
+    that calls `main(sys.argv[1:], device="cpu")`: each process joins the
+    group from torchrun's environment (gloo on the CPU) instead of
+    launching ranks of its own."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    scene = synthetic.make_scene(tmp_path / "scene", n_views=5, h=32, w=40,
+                                 factor=1)
+    entry = tmp_path / "entry.py"
+    entry.write_text("import sys\n"
+                     "from spinnerf_tpu_torch.cli.__main__ import main\n"
+                     "sys.exit(main(sys.argv[1:], device='cpu'))\n")
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    args = TOY + ["--basedir", str(tmp_path / "logs"), "--datadir",
+                  str(scene), "--mesh_shape", "2"]
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", str(entry), "train"] + args,
+        capture_output=True, text=True, timeout=300, env=env, cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("[12] 2 ranks, parameters bit-equal") == 1
+    assert sorted(p.name for p in (tmp_path / "logs" / "cli" /
+                                   "checkpoints").iterdir()) == \
+        ["ckpt_00000010.pt"]
+
+
 def test_load_config_matches_jax(tmp_path):
     cfg_file = tmp_path / "config.txt"
     cfg_file.write_text("expname = fern\n# a comment\ndatadir = ./data/x\n"

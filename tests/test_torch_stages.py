@@ -9,7 +9,8 @@ torchvision's format behind both; the fit's sanity panel at i_feat;
 `stage_prepare`'s dump; `stage_inpaint_guidance` against the JAX stage
 with one tiny generator behind both (files and pixels within 1 LSB);
 `run_pipeline` with and without MVSeg on a 32 x 40 scene (the JAX
-package's pipeline contract); and `write_gallery` and the weights
+package's pipeline contract), and through `pipeline --mesh_shape 2` on
+two gloo ranks; and `write_gallery` and the weights
 registry's `find` match the JAX package's."""
 import jax
 import jax.numpy as jnp
@@ -262,6 +263,52 @@ def test_run_pipeline_writes_the_scene_contract(tmp_path, skip_mvseg):
     out = json.loads((tmp_path / "logs" / "pipe" /
                       "pipeline_results.json").read_text())
     assert out == json.loads(json.dumps(results))
+
+
+def test_run_pipeline_on_two_ranks(tmp_path, capfd):
+    """`pipeline --mesh_shape 2` on the CPU (two gloo ranks launched by the
+    command line): MVSeg, prepare and the fit train data-parallel, the mask
+    export, the LaMa guidance and the eval run on rank 0, which alone
+    logs and writes; the scene contract as on one rank."""
+    import json
+    import shutil
+
+    from spinnerf_tpu_torch.cli.__main__ import main
+    scene = synthetic.make_scene(tmp_path / "scene", n_views=5, h=32, w=40,
+                                 factor=1, n_points=100,
+                                 mask_views=[0, 1, 2, 3, 4])
+    img_dir = scene / "images"
+    for sub in ("depth", "lama_images"):
+        shutil.rmtree(img_dir / sub)
+    flags = dict(expname="pipe", basedir=tmp_path / "logs", datadir=scene,
+                 factor=1, no_ndc=True, no_tcnn=True, netdepth=2,
+                 netwidth=32, netdepth_fine=2, netwidth_fine=32, multires=4,
+                 multires_views=2, N_samples=8, N_importance=4, N_rand=64,
+                 lrate=5e-3, lrate_decay=250, i_print=5, i_weights=0,
+                 i_video=0, i_testset=0, i_feat=0, chunk=2048,
+                 compute_dtype="float32", render_factor=1, N_gt=1,
+                 lpips_render_factor=1, patch_len_factor=2,
+                 lpips_batch_size=1, mask_dilate_iters=1, mesh_shape=2,
+                 mvseg_iters=10, prepare_iters=10, fit_iters=10)
+    argv = ["pipeline", "--no_refine"] + [
+        a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    assert main(argv, device="cpu") == 0
+    names = [f"view{i:03d}.png" for i in range(5)]
+    for sub in ("label", "depth", "lama_images"):
+        assert sorted(p.name for p in (img_dir / sub).glob("*.png")) == \
+            names, sub
+    out = json.loads((tmp_path / "logs" / "pipe" /
+                      "pipeline_results.json").read_text())
+    assert set(out["stage_seconds"]) == {"mvseg", "prepare",
+                                         "inpaint_guidance", "fit", "eval"}
+    assert np.isfinite(out["summary"]["psnr"])
+    text = capfd.readouterr().out
+    for stage in ("mvseg", "prepare", "inpaint_guidance", "fit", "eval"):
+        assert text.count(f"[pipeline] stage {stage}:") == 1, stage
+    # rank 0's log of the three trainers
+    assert text.count("[5/10] loss") == 3
+    assert text.count("[10] 2 ranks, parameters bit-equal across ranks") \
+        == 3
 
 
 def test_gallery_html_equals_jax(tmp_path):
