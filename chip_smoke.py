@@ -20,12 +20,24 @@ Phases, each fatal on failure (no phase's error is caught):
      alone, with the plain page lookup made to raise; time kernel, plain
      version and `point_base` with CUDA events; print the scatter's census
      (a JSON line: per level the regime, distinct entries touched,
-     contributions per entry; points per segment);
+     contributions per entry; points per segment); then both again at 16
+     x 2^25 x 2 (B1c: 32,768 segments, the largest table JAX's windowed
+     kernel takes) on the same points, under uniform bounds and under
+     bounds and dense boxes calibrated at 2^25, with the same gates. Every
+     hold of #2 (here and in phases 13 and 14) also holds its fixed-order
+     variant (B1e): within the same 1e-5 of float64, bit-equal over 5 more
+     launches on the same inputs, and taken, once and bit-equal, by
+     `hash_encode_win_fused`'s backward under
+     `torch.use_deterministic_algorithms(True)`; both timed;
   4. the hash arm of the main path: `Trainer` at the default prepare
      configuration (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16
      MLPs, 1024 rays x 64+64 samples) on an in-memory synthetic scene of 12
      views at 252 x 336, for 200 steps, with the kernel launch counts set to
      0 just before and read just after;
+ 4b. the same Trainer at `log2_hashmap_size=25` (two 16 x 2^25 x 2 tables)
+     for 50 steps, after phase 6: the PSNR at step 1 and at the end (it
+     must rise), the step time, the peak device memory, #1 / #2 twice a
+     step;
   5. render a held-out view with `render_rays_chunked` and check it;
   6. hold the fused encode+MLP kernels (forward and backward) against their
      plain version evaluated in float64 at the fine pass's shape (262,144
@@ -35,7 +47,9 @@ Phases, each fatal on failure (no phase's error is caught):
      torch.matmul calls (the yardstick) with CUDA events, the forward's
      executed TFLOP/s and the rate at which it streams its ring stages,
      and the backward's two kernels apart (fm_bwd_kernel's executed
-     TFLOP/s, fm_dw_kernel's GB/s against reading its scratch once);
+     TFLOP/s, fm_dw_kernel's GB/s against reading its scratch once); the
+     backward, whose sums run in a fixed order (B1e), bit-equal over 5 more
+     launches on the same inputs and through the autograd wrapper;
   7. the MLP arm of the main path: `Trainer` at
      `Config(prepare=True, no_tcnn=True, lrate=5e-4, lrate_decay=250)`
      (8 x 256 fields, 64+64 samples, 2 groups x 1024 rays) on the same
@@ -56,6 +70,9 @@ Phases, each fatal on failure (no phase's error is caught):
      version and the yardsticks: `embedding_bag` with per-sample weights
      for the forward, its autograd backward and `index_add_` of the
      precomputed w * g for the backward (idx mode; points mode has none);
+     each backward's fixed-order variant (both modes, every shape) within
+     1e-5 of float64, bit-equal over 5 more launches, taken once and
+     bit-equal by its autograd entry in deterministic mode, and timed;
  10. the XOR-prime hash arm of the main path: `Trainer` at
      `Config(prepare=True, hash_impl="mxu", llffhold=8, i_feat=200,
      i_testset=200)` (16 x 2^19 x 2, bf16 MLPs, 1024 rays x 64+64 samples)
@@ -72,7 +89,8 @@ Phases, each fatal on failure (no phase's error is caught):
      on CUDA tensors with the points' gradient, counting its launches and
      its ring packs (one); time kernel, plain version and the bf16 matmul
      chain with its autograd backward, the forward's rates as in phase 6,
-     and the backward's two kernels apart;
+     and the backward's two kernels apart; the backward bit-equal over 5
+     more launches;
  12. hold the calibration kernel (`csrc/kbench_cal.cu`, wgmma) against its
      plain version at k = 64 and 128, reps 8 and 64, 4096 blocks; time it
      through the port's `tools.kbench.calibrate` (TFLOP/s) beside
@@ -84,7 +102,9 @@ Phases, each fatal on failure (no phase's error is caught):
      depth with the depth loss, lindisp, white background, density noise,
      hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory,
      phase 3's census, forward and backward checks and phase 9's
-     instant-NGP census run on its points, and it
+     instant-NGP census run on its points, #6's fixed-order variant on
+     them and #10 and #8 on its rays (each within its phase's bound and
+     bit-equal over 5 more launches), and it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
      decoded with the port's reader;
@@ -201,15 +221,18 @@ Phases, each fatal on failure (no phase's error is caught):
      shard (the metrics and statistics gates) and gradients summed, not
      averaged (the gradient gate) (a launch whose rank raises fails, not
      hangs: the CPU tests hold that); (b) a process group of one rank over
-     NCCL: the hash arm's Trainer and the MLP arm's each train 20 steps in
-     it, its all-reduces counted (and the gradient all-reduce shown to
+     NCCL: the hash, MLP and XOR arms' Trainers each train 20 steps in it
+     under `torch.use_deterministic_algorithms(True)` (the kernels'
+     fixed-order variants; CUBLAS_WORKSPACE_CONFIG is set at the script's
+     start), its all-reduces counted (and the gradient all-reduce shown to
      leave a tensor bit for bit), beside two runs of 20 steps without a
-     group (bit-equal when those two are; otherwise step 1's metrics
-     bit-equal, step 1's parameters within 1e-5 and the parameters after
-     20 steps within twice the two runs' own difference: neither arm is
-     bit-reproducible on the card, since #2 and #10 add gradients with
-     atomics, so bit-equality of a group of one is held on the CPU, in
-     tests/test_torch_parallel.py);
+     group in the same mode: the two runs and the group bit-equal (every
+     parameter after step 1 and after 20 steps, and step 1's metrics), the
+     variants launched (counts set to 0 before and read after: the kernels
+     line's launches of #2's, #6's and #10's variants); as a control, two
+     runs with the mode off report how many tensors differ (not gated);
+     with --profile, each arm's device time and launches a step in both
+     modes;
      (c) `train
      --mesh_shape 2` through `cli.__main__.main(..., device="cuda:0")` on
      phase 13's scene for 50 steps: two ranks, one checkpoint (rank 0's),
@@ -230,10 +253,15 @@ import tempfile
 import time
 from pathlib import Path
 
+# cuBLAS is reproducible under torch.use_deterministic_algorithms (phase
+# 19 (b)) only with a fixed workspace, set before the first cuBLAS handle
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 N_VIEWS, H, W = 12, 252, 336
 STEPS = 200
 N_POINTS = 2048 * 128          # the fine pass of one step: 2 groups x 1024 rays
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+DET_REPEATS = 5                # launches of a fixed-order variant held equal
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 N_POINTS_SEM = 1024 * 128      # the semantic-head check
@@ -296,6 +324,47 @@ def cuda_ms(fn, iters=20, warmup=3, queue_ahead=False):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def deterministic_mode(on=True):
+    """torch.use_deterministic_algorithms(on) within the block: the kernel
+    wrappers take their fixed-order variants where on."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def tensors_of(out):
+    """The tensors of a kernel wrapper's result (a tensor, a dict, or a
+    tuple of those and None), in order."""
+    import torch
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return list(out.values())
+    return [t for o in out if o is not None for t in tensors_of(o)]
+
+
+def repeats_equal(fn, first, n=DET_REPEATS):
+    """fn() n more times on the same inputs: is every result bit-equal to
+    `first`, fn()'s earlier result?"""
+    import torch
+    ref = tensors_of(first)
+    for _ in range(n):
+        out = tensors_of(fn())
+        if len(out) != len(ref) or not all(torch.equal(a, b)
+                                           for a, b in zip(ref, out)):
+            return False
+    return True
+
+
+# Fixed-order variants held in this run: tag -> {max_abs_err, ms, ...}
+DET_HELD = {}
 
 
 def fine_pass_points(trainer):
@@ -423,8 +492,11 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     runs; float64 is the exact sum of the same f32 weights and cotangents)
     within 1e-5 of max |dtable|, the f32 plain version's own error printed
     beside; then kernel and plain version timed with CUDA events; the
-    autograd wrapper's table gradient held at the same bound. Returns (max
-    abs error, ms, plain ms)."""
+    autograd wrapper's table gradient held at the same bound. Its
+    fixed-order variant likewise, and bit-equal over DET_REPEATS more
+    launches and through the autograd wrapper in deterministic mode (its
+    error and time in DET_HELD[tag]). Returns (max abs error, ms, plain
+    ms)."""
     import torch
 
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
@@ -437,34 +509,70 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     del tab64
     scale = float(dtab_64.abs().max())
 
-    def bwd_rel(d):
-        return float((d.double() - dtab_64).abs().max()) / scale
+    def abs_err(d):   # level by level: no float64 copy of a 2^25 table
+        return max(float((d[l].double() - dtab_64[l]).abs().max())
+                   for l in range(d.shape[0]))
 
-    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape)
+    def bwd_rel(d):
+        return abs_err(d) / scale
+
+    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
+                                           deterministic=False)
     tab = table.clone().requires_grad_()
     out_g = hw.hash_encode_plain(tab, x, res, bounds, boxes)
     (dtab_p,) = torch.autograd.grad(out_g, tab, g, retain_graph=True)
     tab_a = table.clone().requires_grad_()
     hw.hash_encode_win_fused(tab_a, x, res, bounds, boxes).backward(g)
     torch.cuda.synchronize()
-    err = float((dtab_k.double() - dtab_64).abs().max())
+    err = abs_err(dtab_k)
     rel, rel_p, rel_a = bwd_rel(dtab_k), bwd_rel(dtab_p), bwd_rel(tab_a.grad)
-    del dtab_64, dtab_p, tab_a
+    del dtab_p, tab_a, dtab_k
     log(f"[kernels {tag}] bwd max|kernel - plain f64| = {err:.3e} (relative "
         f"{rel:.3e}, bound 1e-5; autograd wrapper {rel_a:.3e}); plain f32 "
         f"relative {rel_p:.3e}; max|dtable| {scale:.3e}")
-    if not (torch.isfinite(dtab_k).all() and rel <= 1e-5):
+    if not (math.isfinite(err) and rel <= 1e-5):
         raise AssertionError(f"backward kernel disagrees with the plain "
                              f"version ({tag})")
     if rel_a > 1e-5:
         raise AssertionError(f"autograd wrapper backward differs from plain "
                              f"({tag})")
-    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(g, x, work, rows,
-                                                       table.shape),
-                 queue_ahead=True)
+
+    # the fixed-order variant: the same bound, bit-equal launches, and the
+    # autograd wrapper takes it in deterministic mode
+    def variant():
+        return hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
+                                             deterministic=True)
+
+    dtab_d = variant()
+    err_d = abs_err(dtab_d)
+    same = repeats_equal(variant, dtab_d)
+    before = hw.launches_det["bwd"]
+    tab_d = table.clone().requires_grad_()
+    with deterministic_mode():
+        hw.hash_encode_win_fused(tab_d, x, res, bounds, boxes).backward(g)
+    wrapped = (hw.launches_det["bwd"] - before == 1
+               and torch.equal(tab_d.grad, dtab_d))
+    del tab_d, dtab_d, dtab_64
+    log(f"[kernels {tag}] bwd fixed-order variant: max|variant - plain f64| "
+        f"= {err_d:.3e} (relative {err_d / scale:.3e}, bound 1e-5); "
+        f"{DET_REPEATS} more launches bit-equal: {same}; the autograd "
+        f"wrapper in deterministic mode launched it once, bit-equal: "
+        f"{wrapped}")
+    if not (math.isfinite(err_d) and err_d / scale <= 1e-5):
+        raise AssertionError(f"fixed-order backward disagrees with the plain "
+                             f"version ({tag})")
+    if not (same and wrapped):
+        raise AssertionError(f"fixed-order backward not reproducible or not "
+                             f"taken by the wrapper ({tag})")
+    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(
+        g, x, work, rows, table.shape, deterministic=False), queue_ahead=True)
+    ms_d = cuda_ms(variant, queue_ahead=True)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, tab, g,
                                                    retain_graph=True))
-    log(f"[kernels {tag}] bwd {ms:.4f} ms (plain {plain_ms:.4f})")
+    log(f"[kernels {tag}] bwd {ms:.4f} ms (fixed-order variant {ms_d:.4f}, "
+        f"{ms_d / ms:.3f}x; plain {plain_ms:.4f})")
+    DET_HELD[tag] = {"max_abs_err": err_d, "ms": ms_d, "atomic_ms": ms,
+                     "plain_ms": plain_ms}
     return err, ms, plain_ms
 
 
@@ -608,6 +716,7 @@ def compare_kernels(trainer, x):
         f"{boxes32[l32]}")
     err32, ms32, _ = hold_bwd("dense 32768", x, res, bounds, boxes32, table,
                               g)
+    big = big_table_holds(x, res)
 
     # least time: each input read once, each output written once. The
     # forward reads only the table entries this run's points touch.
@@ -641,12 +750,54 @@ def compare_kernels(trainer, x):
     records[0].update(point_base_ms=base_ms,
                       point_base_launches=base_launches)
     records[1].update(dense32768_ms=ms32, dense32768_max_abs_err=err32)
+    for tag, (fwd, bwd) in big.items():
+        records[0].update({f"t2_25_{tag}_ms": fwd[1],
+                           f"t2_25_{tag}_plain_ms": fwd[2],
+                           f"t2_25_{tag}_max_abs_err": fwd[0]})
+        records[1].update({f"t2_25_{tag}_ms": bwd[1],
+                           f"t2_25_{tag}_plain_ms": bwd[2],
+                           f"t2_25_{tag}_max_abs_err": bwd[0]})
     log(f"[kernels] N={n} L={l} T={t}: touched table entries {touched}; "
         f"fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}; the page lookup "
         f"it took in, point_base, {base_ms:.4f} as PyTorch ops), "
         f"bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}); "
         f"library: no single PyTorch call computes this encode")
     return records
+
+
+BIG_LOG2_T = 25        # JAX's largest windowed table (_pack_pages)
+
+
+def big_table_holds(x, res):
+    """Phase 3 at 16 x 2^25 x 2 (B1c): #1 and #2 held as at 2^19 on the
+    points x, under uniform bounds with the default dense boxes and under
+    bounds and boxes calibrated at 2^25 on every fourth point. Returns
+    {"uniform" / "calibrated": (hold_fwd's, hold_bwd's results)}."""
+    import torch
+
+    from spinnerf_tpu_torch.models import hashgrid as hg
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    t = 1 << BIG_LOG2_T
+    sample = x[::4].cpu().numpy()
+    cal = (hg.calibrate_page_bounds(sample, BIG_LOG2_T),
+           hg.calibrate_dense_box(sample, res, BIG_LOG2_T))
+    # made on the card: 2^30 normal draws take seconds on the host
+    table = torch.randn((len(res), t, 2), device=x.device,
+                        generator=torch.Generator(x.device).manual_seed(2))
+    _, g = hash_inputs((len(res), 1024, 2), x.device)
+    out = {}
+    for tag, (bounds, boxes) in (("uniform", (None, None)),
+                                 ("calibrated", cal)):
+        bt = hw.bounds_tensor(t, bounds, x.device)
+        log(f"[kernels 2^25 {tag}] table {tuple(table.shape)} "
+            f"({table.numel() * 4 / 2 ** 30:.1f} GiB), {hw.n_segments(t)} "
+            f"segments, dense levels "
+            f"{sum(b is not None for b in hw.normalize_dense_box(res, t, boxes))}")
+        out[tag] = (hold_fwd(f"2^25 {tag}", x, res, bt, boxes, table),
+                    hold_bwd(f"2^25 {tag}", x, res, bt, boxes, table, g))
+    del table, g
+    torch.cuda.empty_cache()
+    return out
 
 
 def hash_inputs(shape, dev, n=N_POINTS):
@@ -837,7 +988,8 @@ def time_bwd_passes(w, inputs, g, dims, *, pre, tag):
     fm_bwd_kernel's executed rate (its products at the widths it multiplies,
     `ring_matrices`; the heads on the CUDA cores not counted) and
     fm_dw_kernel's rate reading the scratch, against reading it once at the
-    HBM rate. Returns (ms of pass 1, ms of pass 2)."""
+    HBM rate; each pass includes its fixed-order sums. Returns (ms of pass
+    1, ms of pass 2)."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     p = inputs[0].shape[0]
     run1, run2, scratch = fm.bwd_pass_fns(w, inputs, g, dims, pre=pre)
@@ -992,6 +1144,16 @@ def compare_mlp_kernels(trainer):
         if out_of_bound({n: (rel(leaves[n].grad, d_64[n]), errs[n][1])
                          for n in d_64}):
             raise AssertionError("autograd wrapper backward out of bound")
+
+        # the backward's sums run in a fixed order: launches on the same
+        # inputs, the autograd wrapper's included, are bit-equal
+        same = repeats_equal(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g,
+                                                                dims), d_k)
+        wrapped = all(torch.equal(leaves[n].grad, d_k[n]) for n in d_k)
+        log(f"[mlp kernels] bwd: {DET_REPEATS} more launches bit-equal: "
+            f"{same}; the autograd wrapper's gradients bit-equal: {wrapped}")
+        if not (same and wrapped):
+            raise AssertionError("the MLP backward is not reproducible")
         del d_p, out_64, d_64, leaves, out_a
         if semantic:
             continue
@@ -1074,6 +1236,49 @@ def train_arm(trainer, launches, tag):
             raise AssertionError(f"{k} kernel launched {counts[k]} times in "
                                  f"{STEPS} steps (want >= 2 per step)")
     return step_ms, counts
+
+
+BIG_STEPS = 50
+
+
+def big_table_arm(scene, common):
+    """Phase 4b (B1c): the hash arm's Trainer at `Config(prepare=True,
+    log2_hashmap_size=25)` (16 x 2^25 x 2: a 4 GiB table, its gradient and
+    two Adam moments) for BIG_STEPS steps: the PSNR at step 1 and at the
+    end (it must rise), the step time over steps 2-BIG_STEPS, the peak
+    device memory, and #1 / #2 at least twice a step. Returns a summary."""
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(Config(expname="prepare_2_25", log2_hashmap_size=BIG_LOG2_T,
+                        **common), scene=scene, log=log)
+    setup_s = time.perf_counter() - t0
+    hw.launches.update(fwd=0, bwd=0)
+    psnr_1 = float(tr.fit(1)["psnr"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_end = tr.fit(BIG_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (BIG_STEPS - 1)
+    out = {"table": list(tr.model.encoder.table.shape), "setup_s": setup_s,
+           "psnr_1": psnr_1, f"psnr_{BIG_STEPS}": float(m_end["psnr"]),
+           "loss_end": float(m_end["loss"]), "step_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": dict(hw.launches)}
+    log(json.dumps({"big_table_trainer": out}))
+    del tr
+    torch.cuda.empty_cache()
+    if not (math.isfinite(out["loss_end"]) and out[f"psnr_{BIG_STEPS}"]
+            > psnr_1):
+        raise AssertionError("the 2^25 trainer's PSNR did not rise")
+    if min(out["launches"].values()) < 2 * BIG_STEPS:
+        raise AssertionError(f"the 2^25 trainer launched {out['launches']}")
+    return out
 
 
 def render_held_out(trainer, pose, gt_rgb, tag):
@@ -1181,6 +1386,33 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
         for k in keys:
             entry_launches[k] += 1
 
+    def hold_variant(key, variant, fn, *args):
+        """The backward's fixed-order variant under `key` ("bwd": idx mode,
+        "bwd_pts": points mode): within 1e-5 of float64, bit-equal over
+        DET_REPEATS more launches, and taken once, bit-equal, by the
+        autograd entry `fn` in deterministic mode; then timed."""
+        d = variant()
+        err[f"{key}_det"] = float((d.double() - dtab_64).abs().max())
+        same = repeats_equal(variant, d)
+        before = he.launches_det[key]
+        tab2 = table.clone().requires_grad_()
+        with deterministic_mode():
+            out_a = fn(tab2, *args)
+            out_a.backward(g3.reshape(out_a.shape))
+        wrapped = (he.launches_det[key] - before == 1
+                   and torch.equal(tab2.grad, d))
+        log(f"[idx kernels {tag}] {key} fixed-order variant: max|variant - "
+            f"plain f64| = {err[f'{key}_det']:.3e} (relative "
+            f"{bwd_rel(d):.3e}, bound 1e-5); {DET_REPEATS} more launches "
+            f"bit-equal: {same}; {fn.__name__} in deterministic mode took "
+            f"it once, bit-equal: {wrapped}")
+        if not (math.isfinite(err[f"{key}_det"]) and bwd_rel(d) <= 1e-5
+                and same and wrapped):
+            raise AssertionError(f"{tag}: the fixed-order {key} is out of "
+                                 f"bound, not reproducible or not taken")
+        entry_launches[f"{key}_det"] += 1
+        ms[f"{key}_det"] = cuda_ms(variant)
+
     hold_entry(entry, ("fwd", "bwd"), idx, w)
     ms = {"fwd": cuda_ms(lambda: he.hash_encode_idx_fwd_kernel(table, idx32,
                                                                w)),
@@ -1190,6 +1422,8 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
           "plain_bwd": cuda_ms(lambda: torch.autograd.grad(
               out_g, tab, g_p, retain_graph=True))}
     del out_g, tab
+    hold_variant("bwd", lambda: he.hash_encode_idx_bwd_kernel(
+        g3, idx32, w, table.shape, deterministic=True), entry, idx, w)
 
     # the yardsticks, one PyTorch call each, on flat indices into the
     # [L*T, 2] table laid out before the timed region: the forward as
@@ -1260,6 +1494,9 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
         raise AssertionError(f"{tag}: points-mode backward disagrees with "
                              f"plain")
     hold_entry(he.hash_encode_ngp_fused, ("fwd_pts", "bwd_pts"), x, res)
+    hold_variant("bwd_pts", lambda: he.hash_encode_ngp_bwd_kernel(
+        g3, x, res, table.shape, deterministic=True),
+        he.hash_encode_ngp_fused, x, res)
     del dtab_x, dtab_64
     ms["fwd_pts"] = cuda_ms(lambda: he.hash_encode_ngp_fwd_kernel(table, x,
                                                                   res))
@@ -1319,7 +1556,8 @@ def compare_idx_kernels(x, geom):
     g = torch.randn((N_POINTS, 2 * l), generator=torch.Generator()
                     .manual_seed(7)).to(dev)
     ngp_census("phase 3", x, res, 1 << 19)
-    entry_launches = dict.fromkeys(he.launches, 0)
+    entry_launches = dict.fromkeys(list(he.launches)
+                                   + ["bwd_det", "bwd_pts_det"], 0)
     results = {}
     for tag, log2t in (("a: XOR 2^19", 19), ("b: XOR 2^12", 12)):
         idx, w = he.corner_indices_weights_ngp(x, res, 1 << log2t)
@@ -1374,10 +1612,19 @@ def compare_idx_kernels(x, geom):
         r.update(launches=entry_launches[k], launches_from="phase 9's "
                  "hash_encode_mxu (a, b) and hash_encode_win (c)")
     records[3]["embedding_bag_bwd_ms"] = ms["lib_bag_bwd"]
+    # the fixed-order variants (points mode's launches: phase 19 (b)'s XOR
+    # arm; idx mode's: this phase's entry calls in deterministic mode)
+    for key, rec in (("bwd_pts", records[1]), ("bwd", records[3])):
+        DET_HELD[f"idx {key}"] = {
+            "max_abs_err": err[f"{key}_det"], "ms": ms[f"{key}_det"],
+            "atomic_ms": ms[key], "plain_ms": rec["plain_ms"],
+            "ms_2_12": results["b: XOR 2^12"][1][f"{key}_det"],
+            "launches_phase9": entry_launches[f"{key}_det"]}
     b = results["b: XOR 2^12"][1]
     records[0]["ms_2_12"], records[1]["ms_2_12"] = b["fwd_pts"], b["bwd_pts"]
     records[1]["regime_ms"] = {k[8:]: v for k, v in ms.items()
-                               if k.startswith("bwd_pts_")}
+                               if k.startswith("bwd_pts_")
+                               and not k.endswith("_det")}
     log(f"[idx kernels] shape a bound: points mode fwd "
         f"{records[0]['bound_ms']:.4f} ms ({bound['fwd_pts'][0]:.4e} bytes), "
         f"bwd {records[1]['bound_ms']:.4f} ms ({bound['bwd_pts'][0]:.4e} "
@@ -1560,6 +1807,14 @@ def compare_mlp_v1_kernels(points):
             raise AssertionError(f"v1 fused MLP kernels disagree with the "
                                  f"plain version (bound: 2 x plain f32 and "
                                  f"1e-2): {bad}, finite {bool(finite)}")
+        # the backward's sums run in a fixed order: bit-equal launches
+        same = repeats_equal(lambda: fm.fused_mlp_bwd_kernel(w, x, d, g,
+                                                             dims),
+                             (d_k, dx_k, dd_k))
+        log(f"[mlp v1 kernels] bwd: {DET_REPEATS} more launches bit-equal: "
+            f"{same}")
+        if not same:
+            raise AssertionError("the v1 MLP backward is not reproducible")
         errs.update({n: e["max"] + (float((k_.double() - ref).abs().max()),)
                      for (n, e), k_, ref in zip(pt_errs.items(),
                                                 (dx_k, dd_k),
@@ -1741,6 +1996,85 @@ def compare_calibration(device):
 DISK_H, DISK_W, DISK_FACTOR = 504, 672, 2   # written; loaded at 252 x 336
 
 
+def det_holds_on(tag, tr, x):
+    """Reproducibility on an arm's own points (#2's variant is held by
+    hold_bwd): #6's fixed-order variant (the instant-NGP points-mode
+    backward) on the fine-pass points x at the arm's table size, within
+    1e-5 of float64; #10 and #8, whose sums always run in a fixed order,
+    with phase 6's MLP weights on the fine pass of the arm's bank rays,
+    their weight gradients within phase 6's bound; each bit-equal over
+    DET_REPEATS more launches."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    dev = tr.device
+    res = tr.model.encoder.resolutions
+    shape = (len(res), tr.model.encoder.table.shape[1], 2)
+    table, g = hash_inputs(shape, dev)
+    g3 = g.reshape(-1, len(res), 2)
+    idx, w = he.corner_indices_weights_ngp(x, res, shape[1])
+    tab64 = table.double().requires_grad_()
+    (d64,) = torch.autograd.grad(he.hash_encode_xla(tab64, idx, w), tab64,
+                                 g3.double())
+    del tab64, idx, w
+
+    def v6():
+        return he.hash_encode_ngp_bwd_kernel(g3, x, res, shape,
+                                             deterministic=True)
+
+    d = v6()
+    rel6 = float((d.double() - d64).abs().max() / d64.abs().max())
+    same6 = repeats_equal(v6, d)
+    del d, d64, table, g, g3
+
+    field = fm.FusedMLPField(device=dev)
+    field.reset_parameters(torch.Generator().manual_seed(4))
+    dims = field.dims
+    gen = torch.Generator().manual_seed(5)
+    w = {n: p.detach().clone() for n, p in field.weights.items()}
+    for n in w:
+        if n.endswith("_b") or n.startswith("tb"):
+            w[n] = (torch.randn(w[n].shape, generator=gen) * 0.1).to(dev)
+    pts, vd = bank_points(tr, N_POINTS // 128, seed=1)
+    p = pts.shape[0] * pts.shape[1]
+    xd = torch.cat([pts.reshape(-1, 3),
+                    vd[:, None].expand(pts.shape).reshape(-1, 3),
+                    torch.zeros((p, 2), device=dev)], -1).contiguous()
+    xe, de = fm.field_encodings(pts, vd, dims)
+    gm = torch.randn((p, 4), generator=gen).to(dev)
+
+    def rel(a, ref):
+        return float((a.double() - ref).abs().max() / ref.abs().max())
+
+    out = {"ngp_bwd": (rel6, same6)}
+    for name, variant, plain in (
+            ("fused_mlp_pe_bwd",
+             lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, gm, dims),
+             lambda dt: fm.fused_mlp_pe_bwd_plain(w, xd, gm, dims, dt)),
+            ("fused_mlp_bwd",
+             lambda: fm.fused_mlp_bwd_kernel(w, xe, de, gm, dims)[0],
+             lambda dt: fm.fused_mlp_bwd_plain(w, xe, de, gm, dims, dt)[0])):
+        d_d = variant()
+        d_p, d_64 = plain(torch.float32), plain(torch.float64)
+        errs = {n: (rel(d_d[n], d_64[n]), rel(d_p[n], d_64[n]))
+                for n in d_64}
+        same = repeats_equal(variant, d_d)
+        out[name] = (max(e[0] for e in errs.values()), same)
+        if out_of_bound(errs) or not same:
+            raise AssertionError(f"{tag}: {name} is out of bound or not "
+                                 f"reproducible: {errs}")
+        del d_d, d_p, d_64
+    log(f"[det {tag}] #6's fixed-order variant, #10 and #8 on this arm's "
+        f"points (largest relative error vs float64, {DET_REPEATS} more "
+        f"launches bit-equal): {out}")
+    if not (rel6 <= 1e-5 and same6):
+        raise AssertionError(f"{tag}: the fixed-order instant-NGP backward "
+                             f"is out of bound or not reproducible")
+    DET_HELD[f"{tag} points"] = out
+    torch.cuda.empty_cache()
+
+
 def disk_arm(exp_root, argv):
     """Phase 13: a scene written to disk by the port's `make_scene`, loaded
     by `Trainer` (no scene handed in) at the reference's DS-NeRF prepare
@@ -1823,7 +2157,9 @@ def disk_arm(exp_root, argv):
                         table)
     held = hold_bwd("disk", x, enc.resolutions, enc.bounds, enc._boxes,
                     table, g)
-    del x, table, g
+    del table, g
+    det_holds_on("disk", tr, x)
+    del x
 
     # 4.-5. 200 steps: steps 1-10 and 191-200 one call each, for their
     # losses
@@ -3829,11 +4165,6 @@ def lama_train_phase(exp_root):
 
 
 DP_RANKS, DP_GROUP_STEPS, DP_CLI_STEPS = 2, 20, 50
-# a group of one against a run without one after step 1: two runs without a
-# group differ by the rounding of #2's and #10's atomic sums (up to 4.1e-7),
-# a step that goes wrong moves parameters by about lr (5e-4 and up)
-# (PERF.md §6, data parallelism)
-DP_STEP1_ABS = 1e-5
 
 
 @contextlib.contextmanager
@@ -3852,13 +4183,15 @@ def stdout_to(path):
         os.close(saved)
 
 
-def data_parallel_phase(exp_root, scene):
+def data_parallel_phase(exp_root, scene, argv=()):
     """Phase 19: data parallelism across processes (module docstring)."""
-    import numpy as np
     import torch
 
     from spinnerf_tpu_torch.cli.__main__ import main as cli_main
     from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
     from spinnerf_tpu_torch.parallel import dryrun
     from spinnerf_tpu_torch.parallel import mesh as mesh_lib
     from spinnerf_tpu_torch.train.loop import Trainer
@@ -3892,73 +4225,110 @@ def data_parallel_phase(exp_root, scene):
     out["dryrun"] = res
     secs["a"] = time.perf_counter() - t0
 
-    # (b) an NCCL group of one rank: nothing changes but the collectives,
-    # on the hash arm and on the MLP arm
+    # (b) in deterministic mode (the kernels' fixed-order variants), two
+    # runs without a group and an NCCL group of one rank, bit-equal, on the
+    # hash, MLP and XOR arms; the same two runs with the mode off beside
     t0 = time.perf_counter()
     common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
                   no_reload=True, i_print=0, i_weights=0, i_video=0,
                   i_testset=0, i_feat=0)
     arms = {"hash": {}, "mlp": dict(no_tcnn=True, lrate=5e-4,
-                                    lrate_decay=250)}
+                                    lrate_decay=250),
+            "xor": dict(hash_impl="mxu")}
+    profile = "--profile" in argv
 
     def train(arm, tag):
         tr = Trainer(Config(expname=f"dp_{arm}_{tag}", **arms[arm],
                             **common), scene=scene, log=log)
         first = tr.fit(1, hooks=False)
         step1 = [p.detach().clone() for p in tr.fields.parameters()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         tr.fit(DP_GROUP_STEPS, hooks=False)
         torch.cuda.synchronize()
-        return ({k: float(v) for k, v in first.items()},
-                [p.detach().clone() for p in tr.fields.parameters()], step1)
+        step_ms = (time.perf_counter() - t1) * 1e3 / (DP_GROUP_STEPS - 1)
+        params = [p.detach().clone() for p in tr.fields.parameters()]
+        if profile and tag == "solo0":
+            mode = ("on" if torch.are_deterministic_algorithms_enabled()
+                    else "off")
+            profile_steps(tr, step_ms, tag=f"{arm} arm, deterministic {mode}")
+        return ({k: float(v) for k, v in first.items()}, params, step1,
+                step_ms)
+
+    def n_differ(a, b):
+        return sum(not torch.equal(x, y) for x, y in zip(a, b))
 
     def max_diff(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
+    counters = ((hw, "launches_det"), (he, "launches_det"),
+                (fm, "launches"))
     out["group_of_one"] = {}
+    with deterministic_mode():
+        for mod, name in counters:
+            getattr(mod, name).update(dict.fromkeys(getattr(mod, name), 0))
+        for arm in arms:
+            with tempfile.TemporaryDirectory(prefix="dp_group_") as rdzv:
+                mesh = mesh_lib.join(0, 1,
+                                     init_method=f"file://{rdzv}/rendezvous")
+                try:
+                    before = mesh_lib.calls["all_reduce"]
+                    group = train(arm, "group")
+                    reduces = mesh_lib.calls["all_reduce"] - before
+                    backend = torch.distributed.get_backend()
+                    # the step's gradient all-reduce leaves a group of one's
+                    # tensors as they were, bit for bit
+                    copies = [t.clone() for t in group[1]]
+                    mesh.all_reduce_mean_(copies)
+                    identity = all(torch.equal(a, b)
+                                   for a, b in zip(copies, group[1]))
+                finally:
+                    mesh_lib.leave()
+            runs = [train(arm, f"solo{i}") for i in range(2)]
+            res_b = dict(backend=backend, mesh=list(mesh[:2]),
+                         all_reduces=reduces, reduce_is_identity=identity,
+                         tensors=len(group[1]),
+                         solo_runs_differ_in=n_differ(runs[0][1], runs[1][1]),
+                         group_differs_in=(n_differ(group[1], runs[0][1])
+                                           + n_differ(group[2], runs[0][2])),
+                         step1_differ_in=n_differ(runs[0][2], runs[1][2]),
+                         step1_metrics_equal=(group[0] == runs[0][0]
+                                              == runs[1][0]),
+                         step_ms=[r[3] for r in (group, *runs)])
+            out["group_of_one"][arm] = res_b
+            log(f"[dp] (b) {arm} arm, deterministic mode: {res_b}")
+            if (backend != "nccl" or reduces < 2 * DP_GROUP_STEPS
+                    or not identity):
+                raise AssertionError("the group of one did not all-reduce "
+                                     "over NCCL, or its all-reduce changed "
+                                     "a value")
+            if (res_b["solo_runs_differ_in"] or res_b["group_differs_in"]
+                    or res_b["step1_differ_in"]
+                    or not res_b["step1_metrics_equal"]):
+                raise AssertionError(f"{arm} arm: runs in deterministic mode "
+                                     f"are not bit-equal")
+        det_launches = {mod.__name__.rsplit(".", 1)[1]: dict(getattr(mod, n))
+                        for mod, n in counters}
+    log(f"[dp] (b) fixed-order launches over the deterministic runs: "
+        f"{det_launches}")
+    out["det_launches"] = det_launches
+    for key, want in (("hash_encode_win", "bwd"), ("fused_mlp", "bwd"),
+                      ("hash_encode", "bwd_pts")):
+        if det_launches[key][want] < 2 * 3 * DP_GROUP_STEPS:
+            raise AssertionError(f"the deterministic runs launched "
+                                 f"{det_launches}")
+    # the control: the same two runs with the mode off (not gated)
+    out["control_mode_off"] = {}
     for arm in arms:
-        with tempfile.TemporaryDirectory(prefix="dp_group_") as rdzv:
-            mesh = mesh_lib.join(0, 1,
-                                 init_method=f"file://{rdzv}/rendezvous")
-            try:
-                before = mesh_lib.calls["all_reduce"]
-                group = train(arm, "group")
-                reduces = mesh_lib.calls["all_reduce"] - before
-                backend = torch.distributed.get_backend()
-                # the step's gradient all-reduce leaves a group of one's
-                # tensors as they were, bit for bit
-                copies = [t.clone() for t in group[1]]
-                mesh.all_reduce_mean_(copies)
-                identity = all(torch.equal(a, b)
-                               for a, b in zip(copies, group[1]))
-            finally:
-                mesh_lib.leave()
         runs = [train(arm, f"solo{i}") for i in range(2)]
-        d_group = max_diff(group[1], runs[0][1])
-        d_runs = max_diff(runs[0][1], runs[1][1])
-        res_b = dict(backend=backend, mesh=list(mesh[:2]),
-                     all_reduces=reduces, reduce_is_identity=identity,
-                     params_max_abs=d_group,
-                     solo_runs_max_abs=d_runs,
-                     step1_metrics_equal=group[0] == runs[0][0],
-                     step1_params_max_abs=max_diff(group[2], runs[0][2]),
-                     step1_solo_runs_max_abs=max_diff(runs[0][2],
-                                                      runs[1][2]),
-                     step1_solo_runs_differ_in=sum(
-                         not torch.equal(x, y)
-                         for x, y in zip(runs[0][2], runs[1][2])))
-        out["group_of_one"][arm] = res_b
-        log(f"[dp] (b) {arm} arm: {res_b}")
-        if (backend != "nccl" or reduces < 2 * DP_GROUP_STEPS
-                or not identity):
-            raise AssertionError("the group of one did not all-reduce over "
-                                 "NCCL, or its all-reduce changed a value")
-        if d_runs == 0.0 and d_group != 0.0:
-            raise AssertionError("a group of one changed the parameters")
-        if d_runs != 0.0 and not (
-                group[0] == runs[0][0] and d_group <= 2 * d_runs
-                and res_b["step1_params_max_abs"] <= DP_STEP1_ABS):
-            raise AssertionError("a group of one differs from the runs "
-                                 "without")
+        out["control_mode_off"][arm] = dict(
+            solo_runs_differ_in=n_differ(runs[0][1], runs[1][1]),
+            step1_differ_in=n_differ(runs[0][2], runs[1][2]),
+            max_abs=max_diff(runs[0][1], runs[1][1]),
+            step_ms=[r[3] for r in runs])
+    log(f"[dp] (b) control, deterministic mode off: two runs differ in "
+        f"{ {a: r['solo_runs_differ_in'] for a, r in out['control_mode_off'].items()} } "
+        f"tensors: {out['control_mode_off']}")
     secs["b"] = time.perf_counter() - t0
 
     # (c) the command line, two ranks on this card over gloo
@@ -3993,6 +4363,43 @@ def data_parallel_phase(exp_root, scene):
     out["seconds"] = dict(secs, phase=time.perf_counter() - t_phase)
     log(json.dumps({"data_parallel": out}, default=str))
     log(f"[phase 19] {out['seconds']['phase']:.1f} s")
+    return out
+
+
+def fixed_order_records(records, mlp_records, idx_records, v1_records,
+                        det_launches):
+    """The kernels line's entries of the fixed-order variants of #2, #6
+    and #4 (B1e; #10 and #8 always sum in a fixed order), each beside its
+    atomic kernel's record: the same function, so the same plain version,
+    bound and library call; its own launches (phase 19 (b)'s deterministic
+    runs, or for #4, which no arm runs, phase 9's entry calls), error and
+    time, and the atomic kernel's time on the same inputs
+    (`atomic_ms`)."""
+    by_name = {r["name"]: r for r in records + mlp_records + idx_records
+               + v1_records}
+    out = []
+    for name, held, launches, extra in (
+            ("hash_encode_win_bwd", "hash",
+             det_launches["hash_encode_win"]["bwd"],
+             {k: DET_HELD[k]["ms"] for k in DET_HELD
+              if k.startswith(("disk", "fit", "dense", "2^25"))
+              and "ms" in DET_HELD[k]}),
+            ("hash_encode_ngp_bwd", "idx bwd_pts",
+             det_launches["hash_encode"]["bwd_pts"], {}),
+            ("hash_encode_idx_bwd", "idx bwd",
+             DET_HELD["idx bwd"]["launches_phase9"], {})):
+        base, h = by_name[name], DET_HELD[held]
+        rec = {k: base[k] for k in ("route", "source", "replaces",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+        rec.update(name=f"{name}_fixed_order", launches=launches,
+                   max_abs_err=h["max_abs_err"], ms=h["ms"],
+                   atomic_ms=h["atomic_ms"],
+                   ms_over_atomic=h["ms"] / h["atomic_ms"])
+        if extra:
+            rec["ms_other_points"] = extra
+        out.append(rec)
+    return out
 
 
 def profile_steps(trainer, step_ms, n_steps=5, tag=None):
@@ -4113,6 +4520,10 @@ def main(argv):
     del trainer
     torch.cuda.empty_cache()
 
+    # 4b. the hash arm at the largest table JAX's windowed kernel takes
+    big_trainer = big_table_arm(scene, common)
+    records[0]["t2_25_trainer"] = big_trainer
+
     # 7.-8. the MLP arm: the reference's --no_tcnn operating point
     # (tools/full_run.py:138-144)
     mlp_cfg = Config(expname="mlp_prepare", no_tcnn=True, lrate=5e-4,
@@ -4182,7 +4593,7 @@ def main(argv):
 
     # 19. data parallelism: two ranks on this card, a group of one, and
     # the command line's --mesh_shape 2
-    data_parallel_phase(exp_root, scene)
+    dp = data_parallel_phase(exp_root, scene, argv)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {
@@ -4201,8 +4612,10 @@ def main(argv):
     for r in idx_records[:2]:    # points mode; idx mode counts in phase 9
         r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1] + "_pts"]
     log(f"[launches] the disk arm's hash kernels: {disk_counts}")
+    det_records = fixed_order_records(records, mlp_records, idx_records,
+                                      v1_records, dp["det_launches"])
     log(json.dumps({"kernels": records + mlp_records + idx_records
-                    + v1_records + [cal_record]}))
+                    + v1_records + [cal_record] + det_records}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,13 +110,29 @@
 //   streams chunks of 64 points (an 8 KB A tile and a 32 KB G tile) into a
 //   ring of 4 slots; A^T and G are MN-major wgmma operands read straight from
 //   the exported tiles; each chunk's product is folded into the f32 sum.
-//   Split-K over points, sized to whole waves of one block an SM, with one
-//   float2 red.add per output per split. The v2 bias gradients, the column
-//   sums of the bf16 G, come in the same pass: the layer's blocks of one
-//   slice of points each sum their share of the columns. 288 threads (two
-//   consumer warpgroups and a producer warp), 168 registers, no spills.
+//   Split-K over points, sized to whole waves of one block an SM; each
+//   split writes its partial sums to scratch (below). The v2 bias
+//   gradients, the column sums of the bf16 G, come in the same pass: the
+//   layer's blocks of one slice of points each sum their share of the
+//   columns. 288 threads (two consumer warpgroups and a producer warp), 168
+//   registers, no spills.
 // - A wait on a ring barrier that lasts 2^32 clocks traps: a fault of the
 //   schedule fails the launch instead of hanging the card.
+//
+// Sums in a fixed order, so that a launch's result depends on its inputs
+// alone (two launches on the same inputs are bit-equal): the sums that a
+// block or a split cannot finish go to scratch, and small kernels add them
+// in a fixed order, as JAX's kernel adds its grid steps in order:
+// fm_dw_kernel's splits (dwpart [split][layer record: k x n weights, then
+// n biases]) in split order (fm_split_sum_kernel), and fm_bwd_kernel's
+// per-block head sums (hpart [block][896]: sigma_w, sem_w, rgb_w; hpart64
+// [block][8]: the heads' biases) and, with PRE, its per-block f64 bias
+// sums (bpart64 [block][(depth + 2) x 256]) in block order (fm_rows_kernel:
+// 32 slices of the blocks, each summed in order, then the slices in
+// order). The scratch is splits x 0.64 M floats (56 MB at 262,144 points)
+// and blocks x 904 values (15 MB); the backward measured within 2 % of the
+// float atomics this replaced, whose order changed from run to run
+// (PERF.md section 6).
 //
 // The same kernels, instantiated with PRE = true, also replace the v1 Pallas
 // pair of spinnerf_tpu/ops/fused_mlp.py, which reads encodings computed
@@ -133,8 +149,8 @@
 // layer-0 product added to it by the same thread), so no f32 tile stays
 // resident beside the block's activations. The v1 kernel sums its bias
 // gradients over f32 gradients (the v2 kernel over bf16-rounded ones), so
-// with PRE the gradient epilogues add their f32 column sums per warp, in
-// f64 atomics, and fm_dw_kernel skips its bias pass. The padded input lanes
+// with PRE the gradient epilogues sum their f32 columns per block in f64
+// (bpart64, above), and fm_dw_kernel skips its bias pass. The padded input lanes
 // of dx and dd are products with the weights' zero rows: exactly 0. The
 // forward's ring prefix is the same with and without PRE.
 #include <cuda_bf16.h>
@@ -181,7 +197,14 @@ struct FmGrads {
   double* head_b;
   double* bias64;
   float *dx, *dd;
+  // the fixed-order sums' scratch (fm_partial_sizes); bpart64 with PRE only
+  float* dwpart;
+  float* hpart;
+  double* hpart64;
+  double* bpart64;
 };
+
+#define FM_HEADS (2 * FM_W + 3 * FM_V)   // hpart's row: sigma, sem, rgb
 
 // Column offsets (in features; multiples of 64) of each activation and
 // gradient in the backward's scratch. A layer's input is contiguous: the skip
@@ -223,15 +246,6 @@ __device__ __forceinline__ float bfr(float x) {  // round to bf16 and back
 
 __device__ __forceinline__ float ldbf(const bf16* p) {
   return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void red_add2(float* addr, float a, float b) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(reinterpret_cast<float2*>(addr), make_float2(a, b));
-#else
-  atomicAdd(addr, a);
-  atomicAdd(addr + 1, b);
-#endif
 }
 
 // The sum of s over the 8 lanes of a warp that share lane % 4: one column's
@@ -713,15 +727,18 @@ __device__ __forceinline__ void bw_epi_grad(const float (&sum)[NW / 2],
   }
 }
 
-// The PRE path's bias gradient of one layer: the four warps' column sums
-// that bw_epi_grad left in csum, added in f32, then one f64 atomic a column
-// and block. Call after the barrier that follows the epilogue.
-__device__ __forceinline__ void bias_flush(const float* csum, double* bsum,
-                                           int n) {
+// The PRE path's bias gradient of one layer (at `off` in bias64): the four
+// warps' column sums that bw_epi_grad left in csum, added in f32, into the
+// block's row of bpart64 in f64. Call after the barrier that follows the
+// epilogue.
+__device__ __forceinline__ void bias_flush(const float* csum,
+                                           const FmGrads& gr, int off, int n,
+                                           int depth) {
   const int t = threadIdx.x;
-  if (t < n)
-    atomicAdd(bsum + t, (double)(csum[t] + csum[FM_W + t] +
-                                 csum[2 * FM_W + t] + csum[3 * FM_W + t]));
+  if (t >= n) return;
+  const double v = (double)(csum[t] + csum[FM_W + t] + csum[2 * FM_W + t] +
+                            csum[3 * FM_W + t]);
+  gr.bpart64[(size_t)blockIdx.x * (depth + 2) * FM_W + off + t] = v;
 }
 
 // Write (or, with add, add to) this thread's f32 accumulator entries at
@@ -983,8 +1000,9 @@ __device__ __forceinline__ void bw_consumers(
       s = fmaf(h, bfr(gs[r * 8 + 3]), s);
       if (p.out_extra) se = fmaf(h, bfr(gs[r * 8 + 4]), se);
     }
-    atomicAdd(gr.sigma_w + tid, s);
-    if (p.out_extra) atomicAdd(gr.sem_w + tid, se);
+    float* hp = gr.hpart + (size_t)blockIdx.x * FM_HEADS;  // the block's
+    hp[tid] = s;
+    if (p.out_extra) hp[FM_W + tid] = se;
     before_write();
     bw_epi_act<128>(sum, p.feat_b, false, hb, nullptr);
     after_write();
@@ -1007,12 +1025,12 @@ __device__ __forceinline__ void bw_consumers(
     float s = 0.0f;
     for (int r = 0; r < FM_BM; ++r)
       s = fmaf(__bfloat162float(xe[swz(r, n)]), bfr(gs[r * 8 + c]), s);
-    atomicAdd(gr.rgb_w + o, s);
+    gr.hpart[(size_t)blockIdx.x * FM_HEADS + 2 * FM_W + o] = s;
   }
   if (tid < nout) {
     double s = 0.0;
     for (int r = 0; r < FM_BM; ++r) s += (double)gs[r * 8 + tid];
-    atomicAdd(gr.head_b + tid, s);
+    gr.hpart64[(size_t)blockIdx.x * 8 + tid] = s;
   }
 
   // g_v = bf16((g_rgb rgb_w^T) * (view > 0)) in the view layer's
@@ -1041,7 +1059,7 @@ __device__ __forceinline__ void bw_consumers(
     bw_epi_grad<64>(gv, mask + D * 512, de, nullptr, p, csum);
   }
   after_write();
-  if (PRE) bias_flush(csum, gr.bias64 + (D + 1) * FM_W, FM_V);
+  if (PRE) bias_flush(csum, gr, (D + 1) * FM_W, FM_V, D);
   export_tiles(grad_blk, lay.gv, de, FM_V);
 
   // ---- the backward ----
@@ -1058,7 +1076,7 @@ __device__ __forceinline__ void bw_consumers(
     bw_store_f32<64>(sum, gr.dd + (size_t)p0 * FM_E, FM_E, false);
   }
   after_write();
-  if (PRE) bias_flush(csum, gr.bias64 + D * FM_W, FM_W);
+  if (PRE) bias_flush(csum, gr, D * FM_W, FM_W, D);
   export_tiles(grad_blk, lay.gfeat, hb, FM_W);
 
   // g_z of the last trunk layer: (g_feat feat_w^T + heads) * mask
@@ -1068,7 +1086,7 @@ __device__ __forceinline__ void bw_consumers(
     before_write();
     bw_epi_grad<128>(sum, mask + (D - 1) * 512, hb, gs, p, csum);
     after_write();
-    if (PRE) bias_flush(csum, gr.bias64 + (D - 1) * FM_W, FM_W);
+    if (PRE) bias_flush(csum, gr, (D - 1) * FM_W, FM_W, D);
     export_tiles(grad_blk, lay.gz[D - 1], hb, FM_W);
   }
 
@@ -1087,7 +1105,7 @@ __device__ __forceinline__ void bw_consumers(
     before_write();
     bw_epi_grad<128>(sum, mask + (i - 1) * 512, hb, nullptr, p, csum);
     after_write();
-    if (PRE) bias_flush(csum, gr.bias64 + (i - 1) * FM_W, FM_W);
+    if (PRE) bias_flush(csum, gr, (i - 1) * FM_W, FM_W, D);
     export_tiles(grad_blk, lay.gz[i - 1], hb, FM_W);
   }
   if (PRE) {  // dx += g_z0 W0^T (each thread adds to the entries it wrote)
@@ -1099,7 +1117,7 @@ __device__ __forceinline__ void bw_consumers(
 }
 
 // Recompute the forward of a block of 64 points, back-propagate through it,
-// add the heads' weight gradients (atomics, once a block) and export A and G
+// write the block's sums of the heads' gradients and export A and G
 // of the layers that fm_dw_kernel reduces. PRE: see the note at the top (dx,
 // dd and the f32 bias sums). Threads 0-255 are the consumers (warpgroup wg
 // owns output columns wg * NW..), threads 256-383 the producer warpgroup,
@@ -1141,21 +1159,25 @@ struct DwLayer {
   int a_off, k, g_off, n, tile0;
   float* dw;
   float* db;
+  int nb;            // biases in the layer's split record (n, or 0 with PRE)
+  long long poff;    // the record's offset in a split's partial sums
 };
 
 struct DwPlan {
   int n;
   DwLayer l[DW_MAX_LAYERS];
+  long long stride;  // floats of a split's partial sums (its records)
 };
 
 // The consumers of fm_dw_kernel: this warpgroup's NW output columns of the
 // block's 64 inputs, over n_chunks chunks of 64 points from the ring. A^T
 // (inputs x points) and G (points x outputs) are both MN-major operands:
 // the tiles as the backward exported them.
+// rec: this split's record of the layer in the partial sums.
 template <int NW>
 __device__ __forceinline__ void dw_consume(const DwLayer& L, int m,
                                            int n_chunks, Pipe& q,
-                                           uint8_t* smem) {
+                                           uint8_t* smem, float* rec) {
   const int t = threadIdx.x, wg = t >> 7;
   // v2's bias gradient: the column sums of the bf16 G. The layer's K / 64
   // blocks of one slice of points share its n / 8 groups of 8 columns, ccw
@@ -1212,8 +1234,8 @@ __device__ __forceinline__ void dw_consume(const DwLayer& L, int m,
     for (int h = 0; h < 2; ++h) {
       const int row = m * 64 + acc_row(h);
       const int col = wg * NW + 8 * j + 2 * (t & 3);
-      red_add2(L.dw + (size_t)row * L.n + col, sum[4 * j + 2 * h],
-               sum[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(rec + (size_t)row * L.n + col) =
+          make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
     }
   if (bias) {   // the row groups' sums meet in shared memory
     float* bred = reinterpret_cast<float*>(smem + DW_BRED);
@@ -1226,7 +1248,7 @@ __device__ __forceinline__ void dw_consume(const DwLayer& L, int m,
     if (t < 8 * ccw && 8 * cc0 + t < L.n) {
       float s = 0.0f;
       for (int r = 0; r < nrg; ++r) s += bred[r * ccw * 8 + t];
-      atomicAdd(L.db + 8 * cc0 + t, s);
+      rec[(size_t)L.k * L.n + 8 * cc0 + t] = s;
     }
   }
 }
@@ -1235,7 +1257,7 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
 fm_dw_kernel(const bf16* __restrict__ act, int fa,
              const bf16* __restrict__ grad, int fg,
              const __grid_constant__ DwPlan plan, int n_chunks,
-             int chunks_per_split) {
+             int chunks_per_split, float* __restrict__ part) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       ((uintptr_t)smem_raw + SMEM_ALIGN - 1) & ~(uintptr_t)(SMEM_ALIGN - 1));
@@ -1266,10 +1288,53 @@ fm_dw_kernel(const bf16* __restrict__ act, int fa,
     }
     return;
   }
+  float* rec = part + blockIdx.y * plan.stride + L.poff;
   if (L.n == FM_W)
-    dw_consume<128>(L, m, c_end - c_begin, q, smem);
+    dw_consume<128>(L, m, c_end - c_begin, q, smem, rec);
   else
-    dw_consume<64>(L, m, c_end - c_begin, q, smem);
+    dw_consume<64>(L, m, c_end - c_begin, q, smem, rec);
+}
+
+// fm_dw_kernel's second pass: each layer's weight (and bias)
+// gradients from the splits' records in `part`, added in split order;
+// blockIdx.y the layer, a thread an element of its record.
+__global__ void __launch_bounds__(256)
+fm_split_sum_kernel(const float* __restrict__ part, int splits,
+                    const __grid_constant__ DwPlan plan) {
+  const DwLayer& L = plan.l[blockIdx.y];
+  const long long nw = (long long)L.k * L.n, rec = nw + L.nb;
+  for (long long e = (long long)blockIdx.x * 256 + threadIdx.x; e < rec;
+       e += (long long)gridDim.x * 256) {
+    const float* src = part + L.poff + e;
+    float v = src[0];
+    for (int s = 1; s < splits; ++s) v += src[s * plan.stride];
+    if (e < nw)
+      L.dw[e] = v;
+    else
+      L.db[e - nw] = v;
+  }
+}
+
+// fm_bwd_kernel's per-block sums: dst[c] = the sum over the
+// blocks' rows r of src[r * ld + c], c < cols: 32 slices of the rows
+// (thread row y takes r = y, y + 32, ...) each summed in order, then the
+// slices in order. blockDim (32, 32), 32 columns a block.
+template <class T>
+__global__ void __launch_bounds__(1024)
+fm_rows_kernel(const T* __restrict__ src, int rows, long long ld, int cols,
+               T* __restrict__ dst) {
+  __shared__ T slice[32][33];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  T v = 0;
+  if (c < cols)
+    for (int r = threadIdx.y; r < rows; r += 32) v += src[r * ld + c];
+  slice[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  if (threadIdx.y == 0 && c < cols) {
+    T sum = slice[0][threadIdx.x];
+    for (int k = 1; k < 32; ++k) sum += slice[k][threadIdx.x];
+    dst[c] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1374,11 +1439,97 @@ extern "C" int fm_fwd_pre(const FmParams* p, const void* x_enc,
   return fm_fwd_launch<true>(p, x_enc, d_enc, out, n_points, stream);
 }
 
+// fm_dw_kernel's plan: the layers whose A^T G it reduces (their weight and,
+// without PRE, bias gradients from gr; gr null: sizes only), each layer's
+// record in a split's partial sums, and the split-K over the points: whole
+// waves of one block an SM on the H100's 132 SMs, about seven; per chunks
+// of 64 points a split.
+static void dw_plan(int depth, int skip, bool pre, const FmGrads* gr,
+                    const FmLayout& lay, int n_points, DwPlan* plan,
+                    int* splits_out, int* per_out) {
+  plan->n = 0;
+  int tiles = 0;
+  long long poff = 0;
+  const bool sk = skip + 1 < depth;
+  for (int i = 0; i < depth + 2; ++i) {
+    DwLayer& L = plan->l[plan->n++];
+    if (i < depth) {
+      const bool cat = sk && i == skip + 1;
+      L.a_off = (i == 0 || cat) ? lay.xe : lay.h[i - 1];
+      L.k = i == 0 ? FM_E : cat ? FM_E + FM_W : FM_W;
+      L.g_off = lay.gz[i];
+      L.n = FM_W;
+      L.dw = gr ? gr->tw[i] : nullptr;
+      L.db = gr ? gr->tb[i] : nullptr;
+    } else if (i == depth) {
+      L.a_off = lay.h[depth - 1];
+      L.k = FM_W;
+      L.g_off = lay.gfeat;
+      L.n = FM_W;
+      L.dw = gr ? gr->feat_w : nullptr;
+      L.db = gr ? gr->feat_b : nullptr;
+    } else {
+      L.a_off = lay.feat;
+      L.k = FM_W + FM_E;
+      L.g_off = lay.gv;
+      L.n = FM_V;
+      L.dw = gr ? gr->view_w : nullptr;
+      L.db = gr ? gr->view_b : nullptr;
+    }
+    if (pre) L.db = nullptr;   // summed in f32 by fm_bwd_kernel
+    L.nb = pre ? 0 : L.n;
+    L.poff = poff;
+    poff += (long long)L.k * L.n + L.nb;
+    L.tile0 = tiles;
+    tiles += L.k / 64;
+  }
+  plan->stride = poff;
+  const int n_chunks = n_points / FM_BM;
+  int splits = (7 * 132 + tiles / 2) / tiles;
+  if (splits < 1) splits = 1;
+  if (splits > n_chunks) splits = n_chunks;
+  const int per = (n_chunks + splits - 1) / splits;
+  *splits_out = (n_chunks + per - 1) / per;
+  *per_out = per;
+}
+
+template <class T>
+static int rows_sum(const T* src, int rows, long long ld, int cols, T* dst,
+                    cudaStream_t s) {
+  fm_rows_kernel<T><<<(cols + 31) / 32, dim3(32, 32), 0, s>>>(src, rows, ld,
+                                                               cols, dst);
+  return (int)cudaGetLastError();
+}
+
+// The fixed-order sums' scratch, in elements: sizes[0] dwpart (f32),
+// sizes[1] hpart (f32), sizes[2] hpart64 (f64), sizes[3] bpart64 (f64, 0
+// without pre).
+extern "C" int fm_partial_sizes(int depth, int skip, int pre, int n_points,
+                            long long* sizes) {
+  if (depth < 1 || depth > FM_MAX_DEPTH || n_points < FM_BM ||
+      n_points % FM_BM)
+    return (int)cudaErrorInvalidValue;
+  FmLayout lay;
+  fm_layout(depth, skip, &lay);
+  DwPlan plan;
+  int splits, per;
+  dw_plan(depth, skip, pre != 0, nullptr, lay, n_points, &plan, &splits,
+          &per);
+  const long long blocks = n_points / FM_BM;
+  sizes[0] = splits * plan.stride;
+  sizes[1] = blocks * FM_HEADS;
+  sizes[2] = blocks * 8;
+  sizes[3] = pre ? blocks * (depth + 2) * FM_W : 0;
+  return 0;
+}
+
 // act: n_points x fa bf16, grad: n_points x fg bf16 of scratch
-// (fm_scratch_cols); every gradient in `gr` zeroed by the caller (with PRE:
-// bias64 too; dx and dd are written whole); p->ring the weight stages of
+// (fm_scratch_cols); every gradient in `gr` is written whole (with PRE the
+// trunk's, feature and view biases go to bias64 instead of tb, feat_b,
+// view_b; dx and dd too); p->ring the weight stages of
 // pack_ring, p->ring_bytes long. passes: 1 fm_bwd_kernel, 2 fm_dw_kernel
-// (on the scratch a pass 1 wrote), 3 both.
+// (on the scratch a pass 1 wrote), 3 both, each pass with its fixed-order
+// sums; gr's scratch sized by fm_partial_sizes.
 template <bool PRE>
 static int fm_bwd_launch(const FmParams* p, const FmGrads* gr,
                          const void* in_x, const void* in_d, const void* g,
@@ -1388,6 +1539,8 @@ static int fm_bwd_launch(const FmParams* p, const FmGrads* gr,
   if (err || n_points == 0) return err;
   if ((PRE && (!gr->bias64 || !gr->dx || !gr->dd)) || passes < 1 ||
       passes > 3)
+    return (int)cudaErrorInvalidValue;
+  if (!gr->dwpart || !gr->hpart || !gr->hpart64 || (PRE && !gr->bpart64))
     return (int)cudaErrorInvalidValue;
   const int smem = SB_END(p->depth) + SMEM_ALIGN;
   BwRing ring;
@@ -1408,55 +1561,48 @@ static int fm_bwd_launch(const FmParams* p, const FmGrads* gr,
         *p, *gr, lay, ring, (const float*)in_x, (const float*)in_d,
         (const float*)g, (bf16*)act, (bf16*)grad);
     err = (int)cudaGetLastError();
-    if (err || !(passes & 2)) return err;
+    if (err) return err;
+    {   // the blocks' head (and PRE bias) sums, in block order
+      const int blocks = n_points / FM_BM, D = p->depth;
+      err = rows_sum(gr->hpart, blocks, FM_HEADS, FM_W, gr->sigma_w, s);
+      if (!err && p->out_extra)
+        err = rows_sum(gr->hpart + FM_W, blocks, FM_HEADS, FM_W, gr->sem_w,
+                       s);
+      if (!err)
+        err = rows_sum(gr->hpart + 2 * FM_W, blocks, FM_HEADS, 3 * FM_V,
+                       gr->rgb_w, s);
+      if (!err)
+        err = rows_sum(gr->hpart64, blocks, 8, 4 + p->out_extra, gr->head_b,
+                       s);
+      if (!err && PRE)
+        err = rows_sum(gr->bpart64, blocks, (D + 2) * FM_W,
+                       (D + 1) * FM_W + FM_V, gr->bias64, s);
+      if (err) return err;
+    }
+    if (!(passes & 2)) return 0;
   }
 
   DwPlan plan;
-  plan.n = 0;
-  int tiles = 0;
-  const bool sk = p->skip + 1 < p->depth;
-  for (int i = 0; i < p->depth + 2; ++i) {
-    DwLayer& L = plan.l[plan.n++];
-    if (i < p->depth) {
-      const bool cat = sk && i == p->skip + 1;
-      L.a_off = (i == 0 || cat) ? lay.xe : lay.h[i - 1];
-      L.k = i == 0 ? FM_E : cat ? FM_E + FM_W : FM_W;
-      L.g_off = lay.gz[i];
-      L.n = FM_W;
-      L.dw = gr->tw[i];
-      L.db = gr->tb[i];
-    } else if (i == p->depth) {
-      L.a_off = lay.h[p->depth - 1];
-      L.k = FM_W;
-      L.g_off = lay.gfeat;
-      L.n = FM_W;
-      L.dw = gr->feat_w;
-      L.db = gr->feat_b;
-    } else {
-      L.a_off = lay.feat;
-      L.k = FM_W + FM_E;
-      L.g_off = lay.gv;
-      L.n = FM_V;
-      L.dw = gr->view_w;
-      L.db = gr->view_b;
-    }
-    if (PRE) L.db = nullptr;   // summed in f32 by fm_bwd_kernel
-    L.tile0 = tiles;
-    tiles += L.k / 64;
-  }
-  // whole waves of one block per SM on the H100's 132 SMs, about seven
+  int splits, per;
+  dw_plan(p->depth, p->skip, PRE, gr, lay, n_points, &plan, &splits, &per);
   const int n_chunks = n_points / FM_BM;
-  int splits = (7 * 132 + tiles / 2) / tiles;
-  if (splits < 1) splits = 1;
-  if (splits > n_chunks) splits = n_chunks;
-  const int per = (n_chunks + splits - 1) / splits;
-  splits = (n_chunks + per - 1) / per;
   err = (int)cudaFuncSetAttribute(
       fm_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
   if (err) return err;
-  fm_dw_kernel<<<dim3(tiles, splits), DW_THREADS, DW_SMEM, s>>>(
-      (const bf16*)act, lay.fa, (const bf16*)grad, lay.fg, plan, n_chunks,
-      per);
+  fm_dw_kernel<<<dim3(plan.l[plan.n - 1].tile0 + plan.l[plan.n - 1].k / 64,
+                      splits),
+                 DW_THREADS, DW_SMEM, s>>>((const bf16*)act, lay.fa,
+                                           (const bf16*)grad, lay.fg, plan,
+                                           n_chunks, per, gr->dwpart);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  long long most = 0;
+  for (int i = 0; i < plan.n; ++i) {
+    const long long rec = (long long)plan.l[i].k * plan.l[i].n + plan.l[i].nb;
+    most = rec > most ? rec : most;
+  }
+  fm_split_sum_kernel<<<dim3((unsigned)((most + 255) / 256), plan.n), 256, 0,
+                        s>>>(gr->dwpart, splits, plan);
   return (int)cudaGetLastError();
 }
 

@@ -70,6 +70,23 @@
 // global reductions, most of its time, and the hot levels' shared
 // updates (PERF.md §6).
 //
+// The fixed-order variant (hi_bwd_fix, hi_bwd_pts_fix; taken under
+// torch.use_deterministic_algorithms): the sums above are f32 adds whose
+// order follows the scheduling (the warps' shared updates, the map's slot
+// order, which comes from compare-and-swap races, and the global
+// reductions), so two launches on the same inputs differ in the last bits.
+// The variant rounds each contribution w * g once to an integer multiple of
+// 1 / scale and adds the integers as int64 in the same regimes, into int64
+// pairs in shared memory and then into an int64 copy of the gradient in
+// scratch, which one more kernel converts to f32 (hi_fix_out_kernel):
+// integer sums are exact, so no order of adds, inserts or blocks moves a
+// bit. scale = 2^(61 - e) with 2^e > 16 N max|g| max|w| (max|w| = 1 in
+// points mode; a first kernel finds the maxima), above any sum an entry can
+// reach (8 corners a point), so no sum overflows, and a contribution moves
+// by at most 32 N max|g| max|w| 2^-62, far below the f32 sums' own
+// rounding. A non-finite input makes every entry NaN. As csrc/
+// hash_encode_win.cu does for the windowed backward.
+//
 // Bit-exactness: points mode's indices and weights must equal the host's
 // bit for bit, so the geometry rounds with __fmul_rn / __fsub_rn and the
 // library is built with -fmad=false. Never build with --use_fast_math.
@@ -98,6 +115,7 @@
 // ---------------------------------------------------------------------------
 
 struct IdxCorners {
+  static constexpr bool unit_w = false;   // the weights are inputs
   const int* idx;  // [L, 8, N]
   const float* w;  // [L, 8, N]
   int64_t n;
@@ -118,6 +136,7 @@ struct NgpLevels {
 };
 
 struct PointCorners {
+  static constexpr bool unit_w = true;    // products of fractions in [0, 1]
   const float* x;  // [N, 3]
   NgpLevels lv;
   uint32_t mask;   // T - 1
@@ -255,10 +274,17 @@ __device__ __forceinline__ void smem_add2(float2* p, float a, float b) {
   }
 }
 
-template <int K>
+template <class T, int K>
 struct Vals {
-  float v[K];
+  T v[K];
 };
+
+__device__ __forceinline__ float vsum(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ long long vsum(long long a, long long b) {
+  return a + b;
+}
 
 // Adds `val` at `key` for every lane of `active` (the lanes that call; a
 // prefix of the warp), as warp_add in hash_encode_win.cu: lanes whose keys
@@ -266,9 +292,9 @@ struct Vals {
 // lane order, by pointer jumping) and the highest lane of each group calls
 // add(key, sum). A warp with no two adjacent lanes on one entry skips the
 // match; HI_EMPTY keys (nothing to add) never count as a match.
-template <int K, class Add>
+template <class T, int K, class Add>
 __device__ __forceinline__ void warp_add(unsigned active, uint32_t key,
-                                         Vals<K> val, const Add& add) {
+                                         Vals<T, K> val, const Add& add) {
   const unsigned lane = threadIdx.x & 31u;
   const uint32_t below = __shfl_up_sync(active, key, 1);
   if (!__any_sync(active, lane > 0 && below == key && key != HI_EMPTY)) {
@@ -281,13 +307,13 @@ __device__ __forceinline__ void warp_add(unsigned active, uint32_t key,
   const unsigned most = __reduce_max_sync(active, (unsigned)__popc(peers));
   for (unsigned reach = 1; reach < most; reach <<= 1) {
     const int src = prev >= 0 ? prev : (int)lane;
-    Vals<K> o;
+    Vals<T, K> o;
 #pragma unroll
     for (int i = 0; i < K; ++i) o.v[i] = __shfl_sync(active, val.v[i], src);
     const int pp = __shfl_sync(active, prev, src);
     if (prev >= 0) {
 #pragma unroll
-      for (int i = 0; i < K; ++i) val.v[i] = __fadd_rn(val.v[i], o.v[i]);
+      for (int i = 0; i < K; ++i) val.v[i] = vsum(val.v[i], o.v[i]);
       prev = pp;
     }
   }
@@ -302,7 +328,7 @@ struct PairAdd {
   float4* dl;
   uint32_t pairs;  // T / 2
   __device__ __forceinline__ void operator()(uint32_t k,
-                                             const Vals<4>& v) const {
+                                             const Vals<float, 4>& v) const {
     if (k < pairs)
       atomicAdd(dl + k, make_float4(v.v[0], v.v[1], v.v[2], v.v[3]));
   }
@@ -313,7 +339,7 @@ struct StagedAdd {
   float2* dl;
   uint32_t size, t;
   __device__ __forceinline__ void operator()(uint32_t k,
-                                             const Vals<2>& v) const {
+                                             const Vals<float, 2>& v) const {
     if (k < size)
       smem_add2(acc + k, v.v[0], v.v[1]);
     else if (k < t)
@@ -327,7 +353,7 @@ struct MapAdd {
   float2* dl;
   uint32_t mask, shift, t;
   __device__ __forceinline__ void operator()(uint32_t k,
-                                             const Vals<2>& v) const {
+                                             const Vals<float, 2>& v) const {
     if (k >= t) return;
     volatile uint32_t* vkeys = keys;
     uint32_t s = (k * 2654435761u) >> shift;
@@ -346,13 +372,104 @@ struct MapAdd {
   }
 };
 
+// The fixed-order variant's updates: int64 pairs, added with 64-bit integer
+// atomics (exact, so their order does not matter), in shared memory or in
+// the level's row `gl` of the int64 gradient.
+__device__ __forceinline__ void fix_add2(longlong2* p, long long a,
+                                         long long b) {
+  if (a) atomicAdd(reinterpret_cast<unsigned long long*>(&p->x),
+                   (unsigned long long)a);
+  if (b) atomicAdd(reinterpret_cast<unsigned long long*>(&p->y),
+                   (unsigned long long)b);
+}
+
+typedef Vals<long long, 2> Fix2;
+
+struct DirectFixAdd {
+  longlong2* gl;
+  uint32_t t;
+  __device__ __forceinline__ void operator()(uint32_t k, const Fix2& v) const {
+    if (k < t) fix_add2(gl + k, v.v[0], v.v[1]);
+  }
+};
+
+struct StagedFixAdd {
+  longlong2* acc;
+  longlong2* gl;
+  uint32_t size, t;
+  __device__ __forceinline__ void operator()(uint32_t k, const Fix2& v) const {
+    if (k < size)
+      fix_add2(acc + k, v.v[0], v.v[1]);
+    else if (k < t)
+      fix_add2(gl + k, v.v[0], v.v[1]);
+  }
+};
+
+struct MapFixAdd {
+  longlong2* acc;
+  uint32_t* keys;
+  longlong2* gl;
+  uint32_t mask, shift, t;
+  __device__ __forceinline__ void operator()(uint32_t k, const Fix2& v) const {
+    if (k >= t) return;
+    volatile uint32_t* vkeys = keys;
+    uint32_t s = (k * 2654435761u) >> shift;
+#pragma unroll 1
+    for (int probe = 0; probe < HI_MAP_PROBES; ++probe) {
+      uint32_t cur = vkeys[s];
+      if (cur == HI_EMPTY) cur = atomicCAS(keys + s, HI_EMPTY, k);
+      if (cur == HI_EMPTY || cur == k) {
+        fix_add2(acc + s, v.v[0], v.v[1]);
+        return;
+      }
+      s = (s + 1) & mask;
+    }
+    fix_add2(gl + k, v.v[0], v.v[1]);
+  }
+};
+
+// A contribution as the sums take it: f32 (AsF32), or rounded once to a
+// multiple of 1 / scale (AsFix).
+struct AsF32 {
+  typedef float T;
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+struct AsFix {
+  typedef long long T;
+  double scale;
+  __device__ __forceinline__ long long operator()(float v) const {
+    return __double2ll_rn((double)v * scale);
+  }
+};
+
+struct FixScale {
+  double scale, inv;
+};
+
+// The launch's scale from amax (max|g|, max|w| as f32 bits; max|w| taken
+// as 1 where `unit_w`) and the point count: 2^(61 - e) with 16 n max|g|
+// max|w| < 2^e. A non-finite bound gives inv = NaN: every entry NaN.
+__device__ __forceinline__ FixScale fix_scale(const unsigned* amax,
+                                              long long n, bool unit_w) {
+  const double b = 16.0 * (double)n * (double)__uint_as_float(amax[0]) *
+                   (unit_w ? 1.0 : (double)__uint_as_float(amax[1]));
+  if (!(b <= 1.0e308)) return {0.0, __longlong_as_double(0x7FF8000000000000LL)};
+  int e = 0;
+  if (b > 0.0) frexp(b, &e);
+  e = max(e, -960);   // keeps the scale finite for denormal inputs
+  return {ldexp(1.0, 61 - e), ldexp(1.0, e - 61)};
+}
+
 // Sums the points [p0, p1) of level l into add, one corner at a time: one
 // point a thread, HI_THREADS at a time, warps kept converged for warp_add.
-template <class Corners, class Add>
+// `val` turns each f32 contribution into what `add` sums.
+template <class Corners, class Val, class Add>
 __device__ __forceinline__ void scatter(const float2* __restrict__ g,
                                         const Corners& corners, int64_t p0,
                                         int64_t p1, int l, int levels,
-                                        uint32_t t, const Add& add) {
+                                        uint32_t t, const Val& val,
+                                        const Add& add) {
   for (int64_t i0 = p0; i0 < p1; i0 += HI_THREADS) {
     const int64_t p = i0 + threadIdx.x;
     const bool on = p < p1;
@@ -366,15 +483,16 @@ __device__ __forceinline__ void scatter(const float2* __restrict__ g,
     for (int c = 0; c < 8; ++c) {
       const bool ok = ic[c] < t;
       warp_add(active, ok ? ic[c] : HI_EMPTY,
-               Vals<2>{{ok ? __fmul_rn(wc[c], gv.x) : 0.0f,
-                        ok ? __fmul_rn(wc[c], gv.y) : 0.0f}},
+               Vals<typename Val::T, 2>{
+                   {val(ok ? __fmul_rn(wc[c], gv.x) : 0.0f),
+                    val(ok ? __fmul_rn(wc[c], gv.y) : 0.0f)}},
                add);
     }
   }
 }
 
 // The entry's half of a pair's four floats.
-__device__ __forceinline__ void put_half(Vals<4>& v, uint32_t e, float a,
+__device__ __forceinline__ void put_half(Vals<float, 4>& v, uint32_t e, float a,
                                          float b) {
   if (e & 1u) {
     v.v[2] = a;
@@ -408,13 +526,13 @@ __device__ __forceinline__ void scatter_pairs(const float2* __restrict__ g,
     for (int c = 0; c < 4; ++c) {
       const uint32_t e0 = ic[c], e1 = ic[c + 4];
       const bool both = paired(e0, e1, t);
-      Vals<4> v{{0.0f, 0.0f, 0.0f, 0.0f}};
+      Vals<float, 4> v{{0.0f, 0.0f, 0.0f, 0.0f}};
       put_half(v, e0, __fmul_rn(wc[c], gv.x), __fmul_rn(wc[c], gv.y));
       if (both)
         put_half(v, e1, __fmul_rn(wc[c + 4], gv.x),
                  __fmul_rn(wc[c + 4], gv.y));
       warp_add(active, e0 < t ? e0 >> 1 : HI_EMPTY, v, add);
-      Vals<4> u{{0.0f, 0.0f, 0.0f, 0.0f}};
+      Vals<float, 4> u{{0.0f, 0.0f, 0.0f, 0.0f}};
       put_half(u, e1, __fmul_rn(wc[c + 4], gv.x), __fmul_rn(wc[c + 4], gv.y));
       warp_add(active, !both && e1 < t ? e1 >> 1 : HI_EMPTY, u, add);
     }
@@ -422,11 +540,13 @@ __device__ __forceinline__ void scatter_pairs(const float2* __restrict__ g,
 }
 
 // Block b takes level l (plan.first[l] <= b < plan.first[l + 1]) and its
-// points [(b - first[l]) * pts[l], + pts[l]).
-template <class Corners>
+// points [(b - first[l]) * pts[l], + pts[l]). FIX: the fixed-order variant,
+// every sum into the int64 gradient acc64 [L, T] (amax: max|g|, max|w|).
+template <class Corners, bool FIX>
 __global__ void __launch_bounds__(HI_THREADS)
 hi_bwd_kernel(const float2* __restrict__ g, Corners corners, BwdPlan plan,
-              float2* __restrict__ dtable, int n, int levels, uint32_t t) {
+              float2* __restrict__ dtable, int n, int levels, uint32_t t,
+              longlong2* __restrict__ acc64, const unsigned* __restrict__ amax) {
   extern __shared__ __align__(16) unsigned char smem[];
   int l = 0;
   while (l + 1 < levels && (int)blockIdx.x >= plan.first[l + 1]) ++l;
@@ -434,39 +554,105 @@ hi_bwd_kernel(const float2* __restrict__ g, Corners corners, BwdPlan plan,
   const int64_t p0 = (int64_t)(blockIdx.x - plan.first[l]) * plan.pts[l];
   const int64_t p1 = min((int64_t)n, p0 + plan.pts[l]);
   float2* dl = dtable + (int64_t)l * t;
-  if (regime == HI_DIRECT) {
-    scatter_pairs(g, corners, p0, p1, l, levels, t, dl);
-    return;
-  }
   const uint32_t size = (uint32_t)plan.size[l];
-  float2* acc = reinterpret_cast<float2*>(smem);       // [size]
-  uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
   const bool map = regime == HI_MAP;
-  for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
-    acc[i] = make_float2(0.0f, 0.0f);
-    if (map) keys[i] = HI_EMPTY;
-  }
-  __syncthreads();
-  if (map)
-    scatter(g, corners, p0, p1, l, levels, t,
-            MapAdd{acc, keys, dl, size - 1, (uint32_t)__clz(size) + 1u, t});
-  else
-    scatter(g, corners, p0, p1, l, levels, t, StagedAdd{acc, dl, size, t});
-  __syncthreads();
-  if (map) {
-    for (uint32_t s = threadIdx.x; s < size; s += HI_THREADS) {
-      const uint32_t k = keys[s];
-      if (k != HI_EMPTY) red_add2(dl + k, acc[s].x, acc[s].y);
+  if constexpr (FIX) {
+    const AsFix fix{fix_scale(amax, n, Corners::unit_w).scale};
+    longlong2* gl = acc64 + (int64_t)l * t;
+    if (regime == HI_DIRECT) {
+      scatter(g, corners, p0, p1, l, levels, t, fix, DirectFixAdd{gl, t});
+      return;
+    }
+    longlong2* acc = reinterpret_cast<longlong2*>(smem);     // [size]
+    uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
+    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+      acc[i] = make_longlong2(0, 0);
+      if (map) keys[i] = HI_EMPTY;
+    }
+    __syncthreads();
+    if (map)
+      scatter(g, corners, p0, p1, l, levels, t, fix,
+              MapFixAdd{acc, keys, gl, size - 1, (uint32_t)__clz(size) + 1u,
+                        t});
+    else
+      scatter(g, corners, p0, p1, l, levels, t, fix,
+              StagedFixAdd{acc, gl, size, t});
+    __syncthreads();
+    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+      const uint32_t k = map ? keys[i] : i;
+      if (k != HI_EMPTY) fix_add2(gl + k, acc[i].x, acc[i].y);
     }
   } else {
-    // two entries a reduction (size is even; an added 0 changes nothing)
-    const float4* a4 = reinterpret_cast<const float4*>(acc);
-    float4* d4 = reinterpret_cast<float4*>(dl);
-    for (uint32_t i = threadIdx.x; i < size / 2; i += HI_THREADS) {
-      const float4 v = a4[i];
-      if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
-        atomicAdd(d4 + i, v);
+    if (regime == HI_DIRECT) {
+      scatter_pairs(g, corners, p0, p1, l, levels, t, dl);
+      return;
     }
+    float2* acc = reinterpret_cast<float2*>(smem);       // [size]
+    uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
+    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+      acc[i] = make_float2(0.0f, 0.0f);
+      if (map) keys[i] = HI_EMPTY;
+    }
+    __syncthreads();
+    if (map)
+      scatter(g, corners, p0, p1, l, levels, t, AsF32{},
+              MapAdd{acc, keys, dl, size - 1, (uint32_t)__clz(size) + 1u, t});
+    else
+      scatter(g, corners, p0, p1, l, levels, t, AsF32{},
+              StagedAdd{acc, dl, size, t});
+    __syncthreads();
+    if (map) {
+      for (uint32_t s = threadIdx.x; s < size; s += HI_THREADS) {
+        const uint32_t k = keys[s];
+        if (k != HI_EMPTY) red_add2(dl + k, acc[s].x, acc[s].y);
+      }
+    } else {
+      // two entries a reduction (size is even; an added 0 changes nothing)
+      const float4* a4 = reinterpret_cast<const float4*>(acc);
+      float4* d4 = reinterpret_cast<float4*>(dl);
+      for (uint32_t i = threadIdx.x; i < size / 2; i += HI_THREADS) {
+        const float4 v = a4[i];
+        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+          atomicAdd(d4 + i, v);
+      }
+    }
+  }
+}
+
+// FIX: amax[0] = max |g|, amax[1] = max |w| (w null: left 0) as f32 bits
+// (non-negative floats order as their bits do; a NaN's above inf's); amax
+// zeroed before.
+__global__ void __launch_bounds__(HI_THREADS)
+hi_absmax_kernel(const float* __restrict__ g, long long ng,
+                 const float* __restrict__ w, long long nw,
+                 unsigned* __restrict__ amax) {
+  unsigned m[2] = {0u, 0u};
+  const long long step = (long long)gridDim.x * HI_THREADS;
+  const long long i0 = (long long)blockIdx.x * HI_THREADS + threadIdx.x;
+  for (long long i = i0; i < ng; i += step)
+    m[0] = max(m[0], __float_as_uint(fabsf(g[i])));
+  if (w)
+    for (long long i = i0; i < nw; i += step)
+      m[1] = max(m[1], __float_as_uint(fabsf(w[i])));
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const unsigned v = __reduce_max_sync(0xFFFFFFFFu, m[k]);
+    if ((threadIdx.x & 31u) == 0 && v) atomicMax(amax + k, v);
+  }
+}
+
+// FIX: dtable = acc64 / scale, entry for entry (count entries).
+template <bool UNIT_W>
+__global__ void __launch_bounds__(HI_THREADS)
+hi_fix_out_kernel(const longlong2* __restrict__ acc64, long long count,
+                  float2* __restrict__ dtable, long long n,
+                  const unsigned* __restrict__ amax) {
+  const FixScale f = fix_scale(amax, n, UNIT_W);
+  for (long long i = (long long)blockIdx.x * HI_THREADS + threadIdx.x;
+       i < count; i += (long long)gridDim.x * HI_THREADS) {
+    const longlong2 v = acc64[i];
+    dtable[i] = make_float2((float)((double)v.x * f.inv),
+                            (float)((double)v.y * f.inv));
   }
 }
 
@@ -499,7 +685,8 @@ static int make_levels(const int* res, const int* dense, int levels,
 // entries: they need an even T and a 16-byte aligned dtable.
 static int make_plan(const int* regime, const int* pts, const int* size,
                      int n, int levels, long long t, const void* dtable,
-                     BwdPlan* plan, int* smem) {
+                     bool fix, BwdPlan* plan, int* smem) {
+  const int entry = fix ? 16 : 8;   // a float2 or, FIX, a longlong2
   const bool pairs = t % 2 == 0 && (uintptr_t)dtable % 16 == 0;
   memset(plan, 0, sizeof(*plan));
   long long blocks = 0;
@@ -510,11 +697,11 @@ static int make_plan(const int* regime, const int* pts, const int* size,
     if (r == HI_STAGED) {
       if (!pairs || s < 2 || s % 2 || s > HI_LEVEL_CAP || s > t)
         return (int)cudaErrorInvalidValue;
-      *smem = s * 8 > *smem ? s * 8 : *smem;
+      *smem = s * entry > *smem ? s * entry : *smem;
     } else if (r == HI_MAP) {
       if (s < HI_MAP_MIN || s > HI_MAP_CAP || (s & (s - 1)))
         return (int)cudaErrorInvalidValue;
-      *smem = s * 12 > *smem ? s * 12 : *smem;
+      *smem = s * (entry + 4) > *smem ? s * (entry + 4) : *smem;
     } else if (r != HI_DIRECT || !pairs) {
       return (int)cudaErrorInvalidValue;
     }
@@ -541,29 +728,61 @@ static int launch_fwd(const void* table, const Corners& corners, void* out,
   return (int)cudaGetLastError();
 }
 
-template <class Corners>
+// FIX: `fix` holds max|g| and max|w| (16 bytes), then the int64 gradient
+// [L, T] longlong2, fix_bytes long; w: idx mode's weights (null in points
+// mode).
+template <class Corners, bool FIX>
 static int launch_bwd(const void* g, const Corners& corners, void* dtable,
                       int n, int levels, long long t, const int* regime,
-                      const int* pts, const int* size, void* stream) {
+                      const int* pts, const int* size, const float* w,
+                      void* fix, long long fix_bytes, void* stream) {
   BwdPlan plan;
   int smem = 0;
-  int err = make_plan(regime, pts, size, n, levels, t, dtable, &plan, &smem);
+  int err = make_plan(regime, pts, size, n, levels, t, dtable, FIX, &plan,
+                      &smem);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(hi_bwd_kernel<Corners>,
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long entries = (long long)levels * t;
+  unsigned* amax = nullptr;
+  longlong2* acc64 = nullptr;
+  if (FIX) {
+    if (!fix || fix_bytes < 16 + entries * 16)
+      return (int)cudaErrorInvalidValue;
+    amax = (unsigned*)fix;
+    acc64 = (longlong2*)((char*)fix + 16);
+    err = (int)cudaMemsetAsync(fix, 0, 16 + entries * 16, s);
+    if (err) return err;
+    const long long ng = (long long)n * levels * 2;
+    const long long want = (ng + HI_THREADS - 1) / HI_THREADS;
+    hi_absmax_kernel<<<(unsigned)(want < 8 * 132 ? want : 8 * 132),
+                       HI_THREADS, 0, s>>>((const float*)g, ng, w,
+                                           (long long)levels * 8 * n, amax);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  err = (int)cudaFuncSetAttribute(hi_bwd_kernel<Corners, FIX>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  hi_bwd_kernel<Corners><<<(unsigned)plan.first[levels], HI_THREADS, smem,
-                           (cudaStream_t)stream>>>(
+  hi_bwd_kernel<Corners, FIX><<<(unsigned)plan.first[levels], HI_THREADS,
+                                smem, s>>>(
       (const float2*)g, corners, plan, (float2*)dtable, n, levels,
-      (uint32_t)t);
+      (uint32_t)t, acc64, amax);
+  err = (int)cudaGetLastError();
+  if (err || !FIX) return err;
+  const long long want = (entries + HI_THREADS - 1) / HI_THREADS;
+  hi_fix_out_kernel<Corners::unit_w><<<(unsigned)(want < 32 * 132 ? want
+                                                                 : 32 * 132),
+                                       HI_THREADS, 0, s>>>(
+      acc64, entries, (float2*)dtable, n, amax);
   return (int)cudaGetLastError();
 }
 
 // All pointers are device pointers except the per-level int arrays (host
 // memory, `levels` each): table and dtable [L, T, 2] f32, idx [L, 8, N]
 // int32, w [L, 8, N] f32, x [N, 3] f32, out and g [N, L, 2] f32; dtable
-// must be zeroed by the caller. res / dense: each level's resolution and
+// must be zeroed by the caller (the fixed-order entries write it whole).
+// res / dense: each level's resolution and
 // dense flag (points mode); regime / pts / size: the backward's plan
 // (ops/hash_encode.py::bwd_plan). Each call launches one kernel on
 // `stream`, does not synchronise, and returns cudaGetLastError().
@@ -592,8 +811,25 @@ extern "C" int hi_bwd(const void* g, const void* idx, const void* w,
                       void* stream) {
   const int err = check_args(n, levels, t);
   if (err || n == 0) return err;
-  return launch_bwd(g, IdxCorners{(const int*)idx, (const float*)w, n},
-                    dtable, n, levels, t, regime, pts, size, stream);
+  return launch_bwd<IdxCorners, false>(
+      g, IdxCorners{(const int*)idx, (const float*)w, n}, dtable, n, levels,
+      t, regime, pts, size, nullptr, nullptr, 0, stream);
+}
+
+// The fixed-order variants (see the note at the top): the same arguments
+// and the scratch `fix` (16 + L x T x 16 bytes).
+extern "C" int hi_bwd_fix(const void* g, const void* idx, const void* w,
+                          void* dtable, int n, int levels, long long t,
+                          const int* regime, const int* pts, const int* size,
+                          void* fix, long long fix_bytes, void* stream) {
+  const int err = check_args(n, levels, t);
+  if (err) return err;
+  if (n == 0)
+    return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8,
+                                (cudaStream_t)stream);
+  return launch_bwd<IdxCorners, true>(
+      g, IdxCorners{(const int*)idx, (const float*)w, n}, dtable, n, levels,
+      t, regime, pts, size, (const float*)w, fix, fix_bytes, stream);
 }
 
 extern "C" int hi_bwd_pts(const void* g, const void* x, const int* res,
@@ -604,7 +840,26 @@ extern "C" int hi_bwd_pts(const void* g, const void* x, const int* res,
   int err = check_args(n, levels, t);
   if (!err) err = make_levels(res, dense, levels, t, &pc.lv);
   if (err || n == 0) return err;
-  return launch_bwd(g, pc, dtable, n, levels, t, regime, pts, size, stream);
+  return launch_bwd<PointCorners, false>(g, pc, dtable, n, levels, t, regime,
+                                        pts, size, nullptr, nullptr, 0,
+                                        stream);
+}
+
+extern "C" int hi_bwd_pts_fix(const void* g, const void* x, const int* res,
+                              const int* dense, void* dtable, int n,
+                              int levels, long long t, const int* regime,
+                              const int* pts, const int* size, void* fix,
+                              long long fix_bytes, void* stream) {
+  PointCorners pc{(const float*)x, {}, (uint32_t)(t - 1)};
+  int err = check_args(n, levels, t);
+  if (!err) err = make_levels(res, dense, levels, t, &pc.lv);
+  if (err) return err;
+  if (n == 0)
+    return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8,
+                                (cudaStream_t)stream);
+  return launch_bwd<PointCorners, true>(g, pc, dtable, n, levels, t, regime,
+                                        pts, size, nullptr, fix, fix_bytes,
+                                        stream);
 }
 
 extern "C" const char* hi_error_string(int err) {

@@ -20,12 +20,17 @@
 // dense level in the box's morton span (<= 32,768 entries). So the
 // forward (he_win_fwd)
 //   1. finds each point's page in the kernel (hf_key_kernel): the block
-//      stages the sorted page bounds (T / 1024 keys < 2^27, as int32) in
-//      shared memory, and a thread a point computes zkey27 (floor(x * 512)
-//      clamped to [0, 511], morton-interleaved) and #(bounds <= key) - 1 by
-//      halving steps, as ops/hash_encode_win.py::point_base computes them
-//      (searchsorted with right=True counts repeated bounds); it writes the
-//      base [N] int32 and counts the points of each segment;
+//      stages every stride-th of the sorted page bounds (T / 1024 keys <
+//      2^27, as int32; at most HF_STAGED of them, 16 KB: all of them up to
+//      T = 2^22) in shared memory, and a thread a point computes zkey27
+//      (floor(x * 512) clamped to [0, 511], morton-interleaved) and
+//      #(bounds <= key) - 1 by halving steps, first over the staged bounds,
+//      then over the stride bounds after the one found, read from device
+//      memory (3 steps at T = 2^25), as ops/hash_encode_win.py::point_base
+//      computes them (searchsorted with right=True counts repeated bounds);
+//      it writes the base [N] int32 and counts the points of each segment.
+//      T reaches 2^25 (32,768 segments), the range JAX's windowed kernel
+//      states (_pack_pages: page ids fit 15 bits);
 //   2. sorts the point ids by segment (a counting sort: hb_plan_kernel,
 //      hb_scatter_kernel) and cuts each segment into chunks of at most
 //      HB_CHUNK points (an empty segment is one empty chunk);
@@ -73,6 +78,24 @@
 // one write of the table take ~0.03 ms at 262,144 points) but the eight
 // shared-memory updates a (point, level) and the dependent loads of short
 // blocks (PERF.md section 6).
+//
+// The fixed-order variant (he_win_bwd_fix, taken under
+// torch.use_deterministic_algorithms): the sums above are f32 adds whose
+// order follows the sort's order within a segment (hb_scatter_kernel's
+// atomics place a warp's points), the compare-and-swap races in shared
+// memory and the cluster's atomics, so two launches on the same inputs
+// differ in the last bits. The variant rounds each contribution w * g once
+// to an integer multiple of 1 / scale and adds the integers as int64, in
+// the same kernels: integer sums are exact, so no order of points, adds or
+// blocks moves a bit. scale = 2^(61 - e) with 2^e > 16 N max|g| (a launch's
+// first kernel finds max|g|), above any sum an entry can reach (8 corners a
+// point, |w| <= 1 for points in [0, 1], with twice that for headroom), so
+// no sum overflows; a contribution moves by at most 32 N max|g| 2^-62
+// (2^-37 max|g| at N = 2^20), far below the f32 sums' own rounding. The
+// shared sums take 16 bytes an entry (a page 16 KB, a dense span of 4096
+// 64 KB, a cluster's quarter 128 KB); the split segments' chunks add their
+// pages to int64 pages in scratch, converted once (hb_split_out_kernel); a
+// non-finite cotangent makes every entry NaN.
 //
 // Bit-exactness: the corner indices must equal the host index function's bit
 // for bit, so the geometry rounds as the f32 host path does: explicit
@@ -177,12 +200,6 @@ __device__ __forceinline__ void level_row(const LevelRows& rows, int l,
   for (int i = 0; i < HE_ROW; ++i) row[i] = srow[i];
 }
 
-__device__ __forceinline__ void zero_smem(float2* acc, int entries) {
-  float4* a4 = reinterpret_cast<float4*>(acc);
-  for (int i = threadIdx.x; i < entries / 2; i += blockDim.x)
-    a4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
 // Adds (vx, vy) at entry `key` for every lane of `active` (the lanes that
 // call; a prefix of the warp). Lanes whose keys are equal are summed first
 // and the highest lane of each group calls add(key, sum): the inclusive
@@ -190,9 +207,16 @@ __device__ __forceinline__ void zero_smem(float2* acc, int entries) {
 // adds the sum held by its nearest lower group member, then takes that
 // member's pointer), ceil(log2(group size)) shuffle rounds. A warp with no
 // two adjacent lanes on one entry (the fine levels) skips the match.
-template <class Add>
-__device__ __forceinline__ void warp_add(unsigned active, uint32_t key,
-                                         float vx, float vy, const Add& add) {
+__device__ __forceinline__ float vsum(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ long long vsum(long long a, long long b) {
+  return a + b;
+}
+
+template <class T, class Add>
+__device__ __forceinline__ void warp_add(unsigned active, uint32_t key, T vx,
+                                         T vy, const Add& add) {
   const unsigned lane = threadIdx.x & 31u;
   const uint32_t below = __shfl_up_sync(active, key, 1);
   if (!__any_sync(active, lane > 0 && below == key)) {
@@ -205,12 +229,12 @@ __device__ __forceinline__ void warp_add(unsigned active, uint32_t key,
   const unsigned most = __reduce_max_sync(active, (unsigned)__popc(peers));
   for (unsigned reach = 1; reach < most; reach <<= 1) {
     const int src = prev >= 0 ? prev : (int)lane;
-    const float ox = __shfl_sync(active, vx, src);
-    const float oy = __shfl_sync(active, vy, src);
+    const T ox = __shfl_sync(active, vx, src);
+    const T oy = __shfl_sync(active, vy, src);
     const int pp = __shfl_sync(active, prev, src);
     if (prev >= 0) {
-      vx = __fadd_rn(vx, ox);
-      vy = __fadd_rn(vy, oy);
+      vx = vsum(vx, ox);
+      vy = vsum(vy, oy);
       prev = pp;
     }
   }
@@ -257,15 +281,79 @@ struct ClusterAdd {
   }
 };
 
+// The fixed-order variant's sums: int64 pairs, added with 64-bit integer
+// atomics (exact, so their order does not matter).
+__device__ __forceinline__ void fix_add2(longlong2* p, long long a,
+                                         long long b) {
+  if (a) atomicAdd(reinterpret_cast<unsigned long long*>(&p->x),
+                   (unsigned long long)a);
+  if (b) atomicAdd(reinterpret_cast<unsigned long long*>(&p->y),
+                   (unsigned long long)b);
+}
+
+struct SmemFixAdd {
+  longlong2* acc;
+  __device__ __forceinline__ void operator()(uint32_t k, long long a,
+                                             long long b) const {
+    fix_add2(acc + k, a, b);
+  }
+};
+
+struct ClusterFixAdd {
+  longlong2* acc;
+  __device__ __forceinline__ void operator()(uint32_t k, long long a,
+                                             long long b) const {
+    fix_add2(cg::this_cluster().map_shared_rank(acc, k >> HB_PART_BITS) +
+                 (k & (HB_PART - 1)),
+             a, b);
+  }
+};
+
+// A contribution as the sums take it: f32 (AsF32), or rounded once to a
+// multiple of 1 / scale (AsFix).
+struct AsF32 {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+struct FixScale {
+  double scale, inv;
+};
+
+struct AsFix {
+  double scale;
+  __device__ __forceinline__ long long operator()(float v) const {
+    return __double2ll_rn((double)v * scale);
+  }
+};
+
+// The launch's scale from amax (max |g| as f32 bits) and the point count:
+// 2^(61 - e) with 16 n max|g| < 2^e. A non-finite max|g| gives inv = NaN:
+// every entry comes out NaN.
+__device__ __forceinline__ FixScale fix_scale(const unsigned* amax,
+                                              long long n) {
+  const double b = 16.0 * (double)n * (double)__uint_as_float(*amax);
+  if (!(b <= 1.0e308)) return {0.0, __longlong_as_double(0x7FF8000000000000LL)};
+  int e = 0;
+  if (b > 0.0) frexp(b, &e);
+  e = max(e, -960);   // keeps the scale finite for denormal cotangents
+  return {ldexp(1.0, 61 - e), ldexp(1.0, e - 61)};
+}
+
+__device__ __forceinline__ float2 from_fix(longlong2 v, const FixScale& f) {
+  return make_float2((float)((double)v.x * f.inv), (float)((double)v.y * f.inv));
+}
+
 // Sums the points order[i_begin, i_end) of level l (geometry `row`) into
 // add: one point a thread, HB_THREADS at a time, warps kept converged for
 // warp_add. `seg_base` is the points' common page base on a paged level
-// (keys are then offsets in the page), 0 on a dense level.
-template <class Add>
+// (keys are then offsets in the page), 0 on a dense level. `val` turns each
+// f32 contribution into what `add` sums.
+template <class Val, class Add>
 __device__ __forceinline__ void scatter_points(
     const float2* __restrict__ g, const float* __restrict__ x,
     const int* __restrict__ order, int i_begin, int i_end, int l, int levels,
-    const int row[HE_ROW], uint32_t seg_base, const Add& add) {
+    const int row[HE_ROW], uint32_t seg_base, const Val& val,
+    const Add& add) {
   for (int i0 = i_begin; i0 < i_end; i0 += HB_THREADS) {
     const int i = i0 + (int)threadIdx.x;
     const bool on = i < i_end;
@@ -279,14 +367,15 @@ __device__ __forceinline__ void scatter_points(
     const float2 gv = g[p * levels + l];
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      warp_add(active, idx[c] - seg_base, __fmul_rn(w[c], gv.x),
-               __fmul_rn(w[c], gv.y), add);
+      warp_add(active, idx[c] - seg_base, val(__fmul_rn(w[c], gv.x)),
+               val(__fmul_rn(w[c], gv.y)), add);
   }
 }
 
-// The forward's block of sorted points, and the page bounds it stages.
+// The forward's block of sorted points, and the page bounds.
 #define HF_PTS 256
-#define HF_MAX_SEGS 16384    // staged page bounds (64 KB): T <= 2^24
+#define HF_MAX_SEGS 32768    // T <= 2^25: JAX's range (_pack_pages)
+#define HF_STAGED 4096       // page bounds hf_key_kernel stages (16 KB)
 
 // The point's key on the fixed 512^3 partition grid (zkey27 in
 // ops/hash_encode_win.py): x * 512 is exact in f32, the cast truncates
@@ -299,14 +388,24 @@ __device__ __forceinline__ int zkey27(const float xp[3]) {
   return (int)(spread9(c[0]) | (spread9(c[1]) << 1) | (spread9(c[2]) << 2));
 }
 
-// #(sb[i] <= z) - 1 over the sorted bounds sb[0, n_seg), n_seg a power of
-// two: the last i with sb[i] <= z, found by halving steps (repeated bounds
-// count as torch.searchsorted(right=True) counts them); -1 if there is none.
-__device__ __forceinline__ int page_of(const int* sb, int n_seg, int z) {
+// #(bounds[i] <= z) - 1 over the sorted bounds [0, n_seg): the last i with
+// bounds[i] <= z (repeated bounds count as torch.searchsorted(right=True)
+// counts them); -1 if there is none. sb holds bounds[0], bounds[stride],
+// ... (n_st of them; n_st and stride powers of two): halving steps find the
+// last staged bound <= z, and every bound from the next staged one on is
+// > z, so log2(stride) more steps over the bounds in device memory find
+// the answer among the stride bounds from there.
+__device__ __forceinline__ int page_of(const int* sb, int n_st,
+                                       const long long* __restrict__ bounds,
+                                       int stride, int z) {
+  if (sb[0] > z) return -1;
   int pos = 0;
-  for (int step = n_seg >> 1; step > 0; step >>= 1)
+  for (int step = n_st >> 1; step > 0; step >>= 1)
     if (sb[pos + step] <= z) pos += step;
-  return sb[0] <= z ? pos : -1;
+  pos *= stride;
+  for (int step = stride >> 1; step > 0; step >>= 1)
+    if (__ldg(bounds + pos + step) <= (long long)z) pos += step;
+  return pos;
 }
 
 // The 8 gathers of one (point, level), corner ci and ci+4 from one 16-byte
@@ -335,14 +434,17 @@ __device__ __forceinline__ float2 gather_blend(const float2* __restrict__ tl,
 }
 
 // 1. base_out[i] = the point's page base, and counts[seg] = points of each
-// segment; the bounds staged in shared memory (n_seg int32), one global
-// atomic per segment a warp.
+// segment; every stride-th bound staged in shared memory (page_of), one
+// global atomic per segment a warp.
 __global__ void __launch_bounds__(HB_THREADS)
 hf_key_kernel(const float* __restrict__ x, const long long* __restrict__ bounds,
               int n_seg, int n, int* __restrict__ base_out,
               int* __restrict__ counts) {
-  extern __shared__ int sb[];
-  for (int i = threadIdx.x; i < n_seg; i += HB_THREADS) sb[i] = (int)bounds[i];
+  __shared__ int sb[HF_STAGED];
+  const int stride = n_seg > HF_STAGED ? n_seg / HF_STAGED : 1;
+  const int n_st = n_seg / stride;
+  for (int i = threadIdx.x; i < n_st; i += HB_THREADS)
+    sb[i] = (int)bounds[(int64_t)i * stride];
   __syncthreads();
   const int i = blockIdx.x * HB_THREADS + threadIdx.x;
   const bool on = i < n;
@@ -350,7 +452,7 @@ hf_key_kernel(const float* __restrict__ x, const long long* __restrict__ bounds,
   if (!on) return;
   const float xp[3] = {x[3 * (int64_t)i], x[3 * (int64_t)i + 1],
                        x[3 * (int64_t)i + 2]};
-  const int seg = page_of(sb, n_seg, zkey27(xp));
+  const int seg = page_of(sb, n_st, bounds, stride, zkey27(xp));
   base_out[i] = seg * HE_PAGE_ENTRIES;
   const unsigned peers = __match_any_sync(active, seg);
   if ((threadIdx.x & 31u) == (unsigned)(__ffs(peers) - 1))
@@ -388,8 +490,9 @@ __device__ int block_excl_scan(int v, int* tot, int* total) {
 }
 
 // 2. One block: segment starts (cursor), the chunk table (segment, first
-// sorted position, points, sole chunk of its segment), the segments split
-// into several chunks, and meta = (chunks, split segments).
+// sorted position, points, and 1 for the sole chunk of its segment or
+// -(1 + k) for a chunk of split segment k), the segments split into
+// several chunks, and meta = (chunks, split segments).
 __global__ void __launch_bounds__(HB_PLAN_THREADS)
 hb_plan_kernel(const int* __restrict__ counts, int n_seg,
                int* __restrict__ cursor, int4* __restrict__ chunks,
@@ -410,7 +513,7 @@ hb_plan_kernel(const int* __restrict__ counts, int n_seg,
       for (int j = 0; j < nch; ++j)
         chunks[c0 + j] = make_int4(s, p0 + j * HB_CHUNK,
                                    min(HB_CHUNK, cnt - j * HB_CHUNK),
-                                   nch == 1 ? 1 : 0);
+                                   nch == 1 ? 1 : -(1 + k0));
       if (sp) split[k0] = s;
     }
     carry_p += tp;
@@ -554,20 +657,64 @@ hf_fwd_kernel(const float2* __restrict__ table, const float* __restrict__ x,
   }
 }
 
-// Backward 1. Zero the pages of the split segments on every paged level; block =
-// split segment x paged level.
+// The backward's sums: f32 pairs (the default) or, in the fixed-order
+// variant, int64 pairs (FIX).
+template <bool FIX>
+struct Sums {
+  typedef float2 T;
+};
+template <>
+struct Sums<true> {
+  typedef longlong2 T;
+};
+
+// bytes of shared or device memory zeroed with 16-byte stores by the block
+__device__ __forceinline__ void zero_bytes(void* p, int bytes) {
+  float4* a4 = reinterpret_cast<float4*>(p);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    a4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// bytes copied with 16-byte loads and stores by the block
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src,
+                                           int bytes) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d4[i] = s4[i];
+}
+
+// Backward 0 (FIX). amax[0] = max |v| over v[0, count) as f32 bits
+// (non-negative floats order as their bits do; a NaN's bits order above
+// inf's); amax zeroed before.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_absmax_kernel(const float* __restrict__ v, long long count,
+                 unsigned* __restrict__ amax) {
+  unsigned m = 0;
+  for (long long i = (long long)blockIdx.x * HB_THREADS + threadIdx.x;
+       i < count; i += (long long)gridDim.x * HB_THREADS)
+    m = max(m, __float_as_uint(fabsf(v[i])));
+  m = __reduce_max_sync(0xFFFFFFFFu, m);
+  if ((threadIdx.x & 31u) == 0 && m) atomicMax(amax, m);
+}
+
+// Backward 1. Zero the pages of the split segments on every paged level
+// (FIX: their int64 pages in scratch, split segment k's at (k * paged.n +
+// li) pages); block = split segment x paged level.
+template <bool FIX>
 __global__ void __launch_bounds__(HB_THREADS)
 hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
                      const int* __restrict__ meta, float2* __restrict__ dtable,
-                     int64_t t) {
+                     int64_t t, longlong2* __restrict__ split_acc) {
   const int li = blockIdx.x % paged.n;
   const int k = blockIdx.x / paged.n;
   if (k >= meta[1]) return;
-  float4* dst = reinterpret_cast<float4*>(
-      dtable + (int64_t)paged.level[li] * t +
-      (int64_t)split[k] * HE_PAGE_ENTRIES);
-  for (int i = threadIdx.x; i < HE_PAGE_ENTRIES / 2; i += HB_THREADS)
-    dst[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (FIX)
+    zero_bytes(split_acc + ((int64_t)k * paged.n + li) * HE_PAGE_ENTRIES,
+               HE_PAGE_ENTRIES * 16);
+  else
+    zero_bytes(dtable + (int64_t)paged.level[li] * t +
+                   (int64_t)split[k] * HE_PAGE_ENTRIES,
+               HE_PAGE_ENTRIES * 8);
 }
 
 // Backward 2. Paged levels: block = chunk x paged level (the levels of one chunk are
@@ -575,74 +722,122 @@ hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
 // device memory once and from L2 after). One block a (chunk, level) keeps
 // ~46 short blocks an SM in flight; one block a chunk looping over the
 // levels measured slower (fewer blocks, each a chain of dependent levels).
+template <bool FIX>
 __global__ void __launch_bounds__(HB_THREADS)
 hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                LevelRows rows, LevelSet paged, const int* __restrict__ order,
                const int4* __restrict__ chunks, const int* __restrict__ meta,
-               float2* __restrict__ dtable, int levels, int64_t t) {
-  __shared__ __align__(16) float2 acc[HE_PAGE_ENTRIES];
+               float2* __restrict__ dtable, int levels, int64_t t,
+               const unsigned* __restrict__ amax,
+               longlong2* __restrict__ split_acc, int n) {
+  typedef typename Sums<FIX>::T S;
+  __shared__ __align__(16) S acc[HE_PAGE_ENTRIES];
   __shared__ int srow[HE_ROW];
   const int li = blockIdx.x % paged.n;
   const int k = blockIdx.x / paged.n;
   if (k >= meta[0]) return;
   const int4 ch = chunks[k];
   const int l = paged.level[li];
-  zero_smem(acc, HE_PAGE_ENTRIES);
+  zero_bytes(acc, sizeof(acc));
   int row[HE_ROW];
   level_row(rows, l, srow, row);  // its barrier also orders the zeroing
   const uint32_t seg_base = (uint32_t)ch.x * HE_PAGE_ENTRIES;
-  scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
-                 SmemAdd{acc});
-  __syncthreads();
   float2* dst = dtable + (int64_t)l * t + seg_base;
-  if (ch.w) {
-    const float4* a4 = reinterpret_cast<const float4*>(acc);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES / 2; i += HB_THREADS)
-      d4[i] = a4[i];
+  if constexpr (FIX) {
+    const FixScale f = fix_scale(amax, n);
+    scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
+                   AsFix{f.scale}, SmemFixAdd{acc});
+    __syncthreads();
+    if (ch.w > 0) {
+      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
+        dst[i] = from_fix(acc[i], f);
+    } else {
+      longlong2* sa = split_acc +
+                      ((int64_t)(-ch.w - 1) * paged.n + li) * HE_PAGE_ENTRIES;
+      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
+        fix_add2(sa + i, acc[i].x, acc[i].y);
+    }
   } else {
-    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS) {
-      const float2 v = acc[i];
-      if (v.x != 0.0f || v.y != 0.0f) red_add2(dst + i, v.x, v.y);
+    scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
+                   AsF32{}, SmemAdd{acc});
+    __syncthreads();
+    if (ch.w > 0) {
+      copy_bytes(dst, acc, sizeof(acc));
+    } else {
+      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS) {
+        const float2 v = acc[i];
+        if (v.x != 0.0f || v.y != 0.0f) red_add2(dst + i, v.x, v.y);
+      }
     }
   }
+}
+
+// Backward 2b (FIX). The split segments' int64 pages into the table;
+// block = split segment x paged level.
+__global__ void __launch_bounds__(HB_THREADS)
+hb_split_out_kernel(LevelSet paged, const int* __restrict__ split,
+                    const int* __restrict__ meta,
+                    const longlong2* __restrict__ split_acc,
+                    float2* __restrict__ dtable, int64_t t,
+                    const unsigned* __restrict__ amax, int n) {
+  const int li = blockIdx.x % paged.n;
+  const int k = blockIdx.x / paged.n;
+  if (k >= meta[1]) return;
+  const FixScale f = fix_scale(amax, n);
+  const longlong2* src =
+      split_acc + ((int64_t)k * paged.n + li) * HE_PAGE_ENTRIES;
+  float2* dst = dtable + (int64_t)paged.level[li] * t +
+                (int64_t)split[k] * HE_PAGE_ENTRIES;
+  for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
+    dst[i] = from_fix(src[i], f);
 }
 
 // Backward 3. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
 // points x level (the levels of a slice neighbours in launch order); the
 // block's sums over the whole span go to its row of the level's partials.
+template <bool FIX>
 __global__ void __launch_bounds__(HB_THREADS)
 hb_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                 LevelRows rows, LevelSet dense, const int* __restrict__ order,
-                float2* __restrict__ partials, int n, int levels) {
-  extern __shared__ __align__(16) float2 dacc[];
+                typename Sums<FIX>::T* __restrict__ partials, int n,
+                int levels, const unsigned* __restrict__ amax) {
+  typedef typename Sums<FIX>::T S;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  S* dacc = reinterpret_cast<S*>(dsmem);
   __shared__ int srow[HE_ROW];
   const int di = blockIdx.x % dense.n;
   const int b = blockIdx.x / dense.n;
   const int l = dense.level[di], span = dense.span[di];
   const int parts = dense.parts[di];
-  zero_smem(dacc, span);
+  zero_bytes(dacc, span * (int)sizeof(S));
   int row[HE_ROW];
   level_row(rows, l, srow, row);
-  scatter_points(g, x, order, (int)((int64_t)n * b / parts),
-                 (int)((int64_t)n * (b + 1) / parts), l, levels, row, 0u,
-                 SmemAdd{dacc});
+  const int i0 = (int)((int64_t)n * b / parts);
+  const int i1 = (int)((int64_t)n * (b + 1) / parts);
+  if constexpr (FIX)
+    scatter_points(g, x, order, i0, i1, l, levels, row, 0u,
+                   AsFix{fix_scale(amax, n).scale}, SmemFixAdd{dacc});
+  else
+    scatter_points(g, x, order, i0, i1, l, levels, row, 0u, AsF32{},
+                   SmemAdd{dacc});
   __syncthreads();
-  float4* out = reinterpret_cast<float4*>(partials + dense.offset[di] +
-                                          (int64_t)b * span);
-  const float4* a4 = reinterpret_cast<const float4*>(dacc);
-  for (int i = threadIdx.x; i < span / 2; i += HB_THREADS) out[i] = a4[i];
+  copy_bytes(partials + dense.offset[di] + (int64_t)b * span, dacc,
+             span * (int)sizeof(S));
 }
 
 // Backward 4. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c
 // of the sorted points (its blocks a quarter of it each) into the span,
 // which its HB_CLUSTER blocks hold a quarter each; each block then writes
 // its quarter to the cluster's row of the partials.
+template <bool FIX>
 __global__ void __cluster_dims__(HB_CLUSTER, 1, 1) __launch_bounds__(HB_THREADS)
 hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                LevelRows rows, LevelSet wide, const int* __restrict__ order,
-               float2* __restrict__ partials, int n, int levels) {
-  extern __shared__ __align__(16) float2 wacc[];
+               typename Sums<FIX>::T* __restrict__ partials, int n,
+               int levels, const unsigned* __restrict__ amax) {
+  typedef typename Sums<FIX>::T S;
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  S* wacc = reinterpret_cast<S*>(wsmem);
   __shared__ int srow[HE_ROW];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -652,26 +847,32 @@ hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   const int l = wide.level[di];
   const int slices = wide.parts[di] * HB_CLUSTER;
   const int s = c * HB_CLUSTER + rank;
-  zero_smem(wacc, HB_PART);
+  zero_bytes(wacc, HB_PART * (int)sizeof(S));
   int row[HE_ROW];
   level_row(rows, l, srow, row);
   cluster.sync();  // every quarter zeroed before any block adds to it
-  scatter_points(g, x, order, (int)((int64_t)n * s / slices),
-                 (int)((int64_t)n * (s + 1) / slices), l, levels, row, 0u,
-                 ClusterAdd{wacc});
+  const int i0 = (int)((int64_t)n * s / slices);
+  const int i1 = (int)((int64_t)n * (s + 1) / slices);
+  if constexpr (FIX)
+    scatter_points(g, x, order, i0, i1, l, levels, row, 0u,
+                   AsFix{fix_scale(amax, n).scale}, ClusterFixAdd{wacc});
+  else
+    scatter_points(g, x, order, i0, i1, l, levels, row, 0u, AsF32{},
+                   ClusterAdd{wacc});
   cluster.sync();  // every add landed; no block exits while others add
-  float4* out = reinterpret_cast<float4*>(
-      partials + wide.offset[di] + (int64_t)c * HB_WIDE_SPAN +
-      (int64_t)rank * HB_PART);
-  const float4* a4 = reinterpret_cast<const float4*>(wacc);
-  for (int i = threadIdx.x; i < HB_PART / 2; i += HB_THREADS) out[i] = a4[i];
+  copy_bytes(partials + wide.offset[di] + (int64_t)c * HB_WIDE_SPAN +
+                 (int64_t)rank * HB_PART,
+             wacc, HB_PART * (int)sizeof(S));
 }
 
-// Backward 5. Dense rows: entry e < span = the sum of the level's partials, zero
-// beyond; block = tile of HB_REDUCE_TILE entries x dense level.
+// Backward 5. Dense rows: entry e < span = the sum of the level's partials
+// in partial order (FIX: int64, then converted), zero beyond; block = tile
+// of HB_REDUCE_TILE entries x dense level.
+template <bool FIX>
 __global__ void __launch_bounds__(HB_THREADS)
-hb_reduce_kernel(const float2* __restrict__ partials, LevelSet dense,
-                 float2* __restrict__ dtable, int64_t t) {
+hb_reduce_kernel(const typename Sums<FIX>::T* __restrict__ partials,
+                 LevelSet dense, float2* __restrict__ dtable, int64_t t,
+                 const unsigned* __restrict__ amax, int n) {
   const int di = blockIdx.x % dense.n;
   const int64_t e = (int64_t)(blockIdx.x / dense.n) * HB_REDUCE_TILE +
                     threadIdx.x;
@@ -679,11 +880,21 @@ hb_reduce_kernel(const float2* __restrict__ partials, LevelSet dense,
   const int span = dense.span[di];
   float2 sum = make_float2(0.0f, 0.0f);
   if (e < span) {
-    const float2* src = partials + dense.offset[di] + e;
-    for (int b = 0; b < dense.parts[di]; ++b) {
-      const float2 v = src[(int64_t)b * span];
-      sum.x = __fadd_rn(sum.x, v.x);
-      sum.y = __fadd_rn(sum.y, v.y);
+    const auto* src = partials + dense.offset[di] + e;
+    if constexpr (FIX) {
+      longlong2 s = make_longlong2(0, 0);
+      for (int b = 0; b < dense.parts[di]; ++b) {
+        const longlong2 v = src[(int64_t)b * span];
+        s.x += v.x;
+        s.y += v.y;
+      }
+      sum = from_fix(s, fix_scale(amax, n));
+    } else {
+      for (int b = 0; b < dense.parts[di]; ++b) {
+        const float2 v = src[(int64_t)b * span];
+        sum.x = __fadd_rn(sum.x, v.x);
+        sum.y = __fadd_rn(sum.y, v.y);
+      }
     }
   }
   dtable[(int64_t)dense.level[di] * t + e] = sum;
@@ -765,15 +976,8 @@ extern "C" int he_win_fwd(const void* table, const void* x,
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned pt_blocks = (unsigned)((n + HB_THREADS - 1) / HB_THREADS);
-  const size_t key_smem = sizeof(int) * n_seg;
   const size_t fwd_smem = sizeof(float) * (4 * HE_PAGE_ENTRIES +
                                            HF_PTS * (2 * levels + 1));
-  if (key_smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(
-        hf_key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)key_smem);
-    if (err) return err;
-  }
   if (fwd_smem > 48 * 1024) {
     err = (int)cudaFuncSetAttribute(
         hf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -782,7 +986,7 @@ extern "C" int he_win_fwd(const void* table, const void* x,
   }
   err = (int)cudaMemsetAsync(w.counts, 0, sizeof(int) * n_seg, s);
   if (err) return err;
-  hf_key_kernel<<<pt_blocks, HB_THREADS, key_smem, s>>>(
+  hf_key_kernel<<<pt_blocks, HB_THREADS, 0, s>>>(
       (const float*)x, (const long long*)bounds, n_seg, n, (int*)base_out,
       w.counts);
   HB_CHECK();
@@ -804,13 +1008,18 @@ extern "C" int he_win_fwd(const void* table, const void* x,
 // (paged) or the dense box's morton span, a power of 8 <= HB_DENSE_SPAN or
 // exactly HB_WIDE_SPAN. dense_parts: partial sums (blocks) per dense level
 // of span <= HB_DENSE_SPAN; wide_parts: clusters per level of span
-// HB_WIDE_SPAN; float2 partials: per dense level, parts x span.
-extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
-                          void* dtable, int n, int levels, long long t,
-                          const int* spans_host, void* work,
-                          long long work_ints, void* partials,
-                          long long partial_entries, int dense_parts,
-                          int wide_parts, void* stream) {
+// HB_WIDE_SPAN; partials: per dense level, parts x span entries of 8 bytes
+// (float2) or, FIX, 16 (longlong2). FIX: `fix` holds max|g| (16 bytes) and
+// then the split segments' int64 pages (max_split x paged levels x 1024
+// longlong2), fix_bytes long.
+template <bool FIX>
+static int win_bwd(const void* g, const void* x, const int* rows_host,
+                   void* dtable, int n, int levels, long long t,
+                   const int* spans_host, void* work, long long work_ints,
+                   void* partials, long long partial_entries, int dense_parts,
+                   int wide_parts, void* fix, long long fix_bytes,
+                   void* stream) {
+  typedef typename Sums<FIX>::T S;
   LevelRows rows;
   int err = launch_args(rows_host, n, levels, &rows);
   if (err) return err;
@@ -860,37 +1069,67 @@ extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
   if (err) return err;
   if (partial_entries < part_off) return (int)cudaErrorInvalidValue;
   const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
-  float2* part = (float2*)partials;
+  S* part = (S*)partials;
+  unsigned* amax = nullptr;
+  longlong2* split_acc = nullptr;
+  if (FIX) {
+    if (!fix || fix_bytes < 16 + n_split * paged.n * HE_PAGE_ENTRIES * 16)
+      return (int)cudaErrorInvalidValue;
+    amax = (unsigned*)fix;
+    split_acc = (longlong2*)((char*)fix + 16);
+    err = (int)cudaMemsetAsync(amax, 0, 16, s);
+    if (err) return err;
+    const long long count = (long long)n * levels * 2;
+    const long long want = (count + HB_THREADS - 1) / HB_THREADS;
+    hb_absmax_kernel<<<(unsigned)(want < 8 * 132 ? want : 8 * 132),
+                       HB_THREADS, 0, s>>>((const float*)g, count, amax);
+    HB_CHECK();
+  }
 
   // 1.-2. paged levels
   if (paged.n) {
     if (n_split) {
-      hb_zero_split_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0, s>>>(
-          paged, w.split, w.meta, (float2*)dtable, (int64_t)t);
+      hb_zero_split_kernel<FIX><<<(unsigned)(n_split * paged.n), HB_THREADS,
+                                  0, s>>>(paged, w.split, w.meta,
+                                          (float2*)dtable, (int64_t)t,
+                                          split_acc);
       HB_CHECK();
     }
-    hb_page_kernel<<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
+    hb_page_kernel<FIX><<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
         (const float2*)g, (const float*)x, rows, paged, w.order, w.chunks,
-        w.meta, (float2*)dtable, levels, (int64_t)t);
+        w.meta, (float2*)dtable, levels, (int64_t)t, amax, split_acc, n);
     HB_CHECK();
+    if (FIX && n_split) {
+      hb_split_out_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0,
+                            s>>>(paged, w.split, w.meta, split_acc,
+                                 (float2*)dtable, (int64_t)t, amax, n);
+      HB_CHECK();
+    }
   }
   // 3.-5. dense levels
   if (dense.n) {
-    hb_dense_kernel<<<(unsigned)(dense_parts * dense.n), HB_THREADS,
-                      (size_t)dense_max * sizeof(float2), s>>>(
-        (const float2*)g, (const float*)x, rows, dense, w.order, part, n,
-        levels);
+    const size_t smem = (size_t)dense_max * sizeof(S);
+    if (smem > 48 * 1024) {
+      err = (int)cudaFuncSetAttribute(
+          hb_dense_kernel<FIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err) return err;
+    }
+    hb_dense_kernel<FIX><<<(unsigned)(dense_parts * dense.n), HB_THREADS,
+                           smem, s>>>((const float2*)g, (const float*)x, rows,
+                                      dense, w.order, part, n, levels, amax);
     HB_CHECK();
   }
   if (wide.n) {
-    const size_t smem = (size_t)HB_PART * sizeof(float2);
+    const size_t smem = (size_t)HB_PART * sizeof(S);
     err = (int)cudaFuncSetAttribute(
-        hb_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hb_wide_kernel<FIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err) return err;
-    hb_wide_kernel<<<(unsigned)(wide_parts * HB_CLUSTER * wide.n), HB_THREADS,
-                     smem, s>>>((const float2*)g, (const float*)x, rows, wide,
-                                w.order, part, n, levels);
+    hb_wide_kernel<FIX><<<(unsigned)(wide_parts * HB_CLUSTER * wide.n),
+                          HB_THREADS, smem, s>>>(
+        (const float2*)g, (const float*)x, rows, wide, w.order, part, n,
+        levels, amax);
     HB_CHECK();
   }
   memcpy(&rowsets, &dense, sizeof(rowsets));
@@ -903,11 +1142,36 @@ extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
   }
   if (rowsets.n) {
     const int64_t tiles = (t + HB_REDUCE_TILE - 1) / HB_REDUCE_TILE;
-    hb_reduce_kernel<<<(unsigned)(tiles * rowsets.n), HB_THREADS, 0, s>>>(
-        part, rowsets, (float2*)dtable, (int64_t)t);
+    hb_reduce_kernel<FIX><<<(unsigned)(tiles * rowsets.n), HB_THREADS, 0, s>>>(
+        part, rowsets, (float2*)dtable, (int64_t)t, amax, n);
     HB_CHECK();
   }
   return 0;
+}
+
+extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
+                          void* dtable, int n, int levels, long long t,
+                          const int* spans_host, void* work,
+                          long long work_ints, void* partials,
+                          long long partial_entries, int dense_parts,
+                          int wide_parts, void* stream) {
+  return win_bwd<false>(g, x, rows_host, dtable, n, levels, t, spans_host,
+                        work, work_ints, partials, partial_entries,
+                        dense_parts, wide_parts, nullptr, 0, stream);
+}
+
+// The fixed-order variant (see the note at the top): the same arguments,
+// partials of 16 bytes an entry, and the scratch `fix`.
+extern "C" int he_win_bwd_fix(const void* g, const void* x,
+                              const int* rows_host, void* dtable, int n,
+                              int levels, long long t, const int* spans_host,
+                              void* work, long long work_ints, void* partials,
+                              long long partial_entries, int dense_parts,
+                              int wide_parts, void* fix, long long fix_bytes,
+                              void* stream) {
+  return win_bwd<true>(g, x, rows_host, dtable, n, levels, t, spans_host,
+                       work, work_ints, partials, partial_entries,
+                       dense_parts, wide_parts, fix, fix_bytes, stream);
 }
 
 extern "C" const char* he_error_string(int err) {

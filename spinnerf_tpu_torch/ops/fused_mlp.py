@@ -365,7 +365,7 @@ class _FmGrads(ctypes.Structure):
     _fields_ = [("tw", _VP * _MAX_DEPTH), ("tb", _VP * _MAX_DEPTH)] + [
         (n, _VP) for n in ("feat_w", "feat_b", "view_w", "view_b", "rgb_w",
                            "sigma_w", "sem_w", "head_b", "bias64", "dx",
-                           "dd")]
+                           "dd", "dwpart", "hpart", "hpart64", "bpart64")]
 
 
 def _lib():
@@ -384,8 +384,11 @@ def _lib():
         lib.fm_scratch_cols.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int),
                                         ctypes.POINTER(ctypes.c_int)]
+        lib.fm_partial_sizes.argtypes = [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)]
         for fn in (lib.fm_fwd, lib.fm_fwd_pre, lib.fm_bwd,
-                   lib.fm_bwd_pre, lib.fm_bwd_pass, lib.fm_scratch_cols):
+                   lib.fm_bwd_pre, lib.fm_bwd_pass, lib.fm_scratch_cols,
+                   lib.fm_partial_sizes):
             fn.restype = ctypes.c_int
         lib.fm_error_string.argtypes = [ctypes.c_int]
         lib.fm_error_string.restype = ctypes.c_char_p
@@ -624,7 +627,8 @@ def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
     ring (`gather_ring`, packed here when `ring` is None), the scratch
     (fm_scratch_cols: P x fa and P x fg bf16), the zeroed f32 weight
     gradients in `_weight_order`, the heads' f64 bias sums, and with `pre`
-    v1's f64 bias sums and the input gradients dx, dd."""
+    v1's f64 bias sums and the input gradients dx, dd, and the scratch of
+    the partial sums the kernels add in a fixed order (fm_partial_sizes)."""
     _check_kernel_args(weights, inputs, dims, pre)
     p, dev = inputs[0].shape[0], inputs[0].device
     if g.shape != (p, 4 + dims.out_extra):
@@ -675,13 +679,23 @@ def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
         dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
         grd.bias64, grd.dx, grd.dd = (bias64.data_ptr(), dx.data_ptr(),
                                       dd.data_ptr())
+    # the splits' and the blocks' partial sums, added in a fixed order
+    sizes = (ctypes.c_longlong * 4)()
+    _raise_on(lib, "fm_partial_sizes", lib.fm_partial_sizes(
+        dims.depth, dims.skip, int(pre), p, sizes))
+    parts = tuple(torch.empty(max(int(k), 1), dtype=dt, device=dev)
+                  for k, dt in zip(sizes, (torch.float32, torch.float32,
+                                           torch.float64, torch.float64)))
+    grd.dwpart, grd.hpart, grd.hpart64 = (a.data_ptr() for a in parts[:3])
+    if pre:
+        grd.bpart64 = parts[3].data_ptr()
     ins = [a.data_ptr() for a in inputs] + ([] if pre else [None])
     args = (ctypes.byref(prm), ctypes.byref(grd), *ins, g.data_ptr(),
             act.data_ptr(), grad.data_ptr(), p)
     # the bf16 weights, g and the scratch stay referenced until the launch is
     # queued; the caching allocator then reuses them in stream order
     return _BwdCall(lib, args, grads, flat, offs, head_b, bias64, dx, dd,
-                    (act, grad), (prm, grd, bufs, g))
+                    (act, grad), (prm, grd, bufs, g, parts))
 
 
 def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
@@ -691,7 +705,10 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     with `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`, #8),
     counted: (f32 weight gradients for the cotangent g [P, 4+e] in
     `_weight_order`, dx, dd), the input gradients [P, 128] f32 with `pre`
-    and None without. `ring`: `gather_ring`'s, packed here when None."""
+    and None without. `ring`: `gather_ring`'s, packed here when None. The
+    sums of the blocks' and splits' partial gradients run in a fixed order
+    (the note in the CUDA source), so launches on the same inputs are
+    bit-equal."""
     c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=ring)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     args = c.args if pre else c.args[:3] + c.args[4:]    # fm_bwd: no d_enc
@@ -713,7 +730,7 @@ def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
     functions that launch, on one set of buffers, the recompute-and-backprop
     kernel and the weight-gradient kernel (which reduces what the first one
     wrote; call that one first), and the bytes of that scratch. Counts no
-    launch; no result is read."""
+    launch; no result is read. Each pass includes its fixed-order sums."""
     c = _bwd_args(weights, inputs, g, dims, pre=pre)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     scratch_bytes = sum(a.numel() * a.element_size() for a in c.scratch)

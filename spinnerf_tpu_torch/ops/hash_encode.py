@@ -11,6 +11,9 @@ its table gradient the scatter-add of w * g.
 - `hash_encode_mxu` launches the kernels of `csrc/hash_encode_idx.cu` on
   CUDA tensors (or raises) and takes the plain version on CPU tensors. It
   computes the f32 blend; the TPU kernel rounds the table and w * g to bf16.
+  Under `torch.use_deterministic_algorithms(True)` the backward takes its
+  fixed-order variant, whose result does not depend on the order of its
+  sums (the note in the CUDA source).
   The windowed entry point `ops/hash_encode_win.py::hash_encode_win` goes
   through the same kernels;
 - `hash_encode_ngp_fused` encodes points with the instant-NGP index
@@ -35,8 +38,11 @@ _PRIMES = (1, 2654435761, 805459861)
 _P1_INT32 = _PRIMES[1] - (1 << 32)    # the bit pattern of p1 as an int32
 
 # Kernel launches by the wrappers, counted where they launch and nowhere else.
-# "fwd"/"bwd": corners from idx / w; "fwd_pts"/"bwd_pts": from the points.
+# "fwd"/"bwd": corners from idx / w; "fwd_pts"/"bwd_pts": from the points;
+# launches_det: the backward's fixed-order variants (`hi_bwd_fix`,
+# `hi_bwd_pts_fix`).
 launches = {"fwd": 0, "bwd": 0, "fwd_pts": 0, "bwd_pts": 0}
+launches_det = {"bwd": 0, "bwd_pts": 0}
 
 
 def recommended_impl(log2_table_size: int, on_tpu: bool) -> str:
@@ -180,7 +186,10 @@ def _lib():
         lib.hi_fwd_pts.argtypes = [p] * 5 + [i, i, ll, p]
         lib.hi_bwd.argtypes = [p] * 4 + [i, i, ll] + [p] * 4
         lib.hi_bwd_pts.argtypes = [p] * 5 + [i, i, ll] + [p] * 4
-        for fn in (lib.hi_fwd, lib.hi_fwd_pts, lib.hi_bwd, lib.hi_bwd_pts):
+        lib.hi_bwd_fix.argtypes = [p] * 4 + [i, i, ll] + [p] * 4 + [ll, p]
+        lib.hi_bwd_pts_fix.argtypes = [p] * 5 + [i, i, ll] + [p] * 4 + [ll, p]
+        for fn in (lib.hi_fwd, lib.hi_fwd_pts, lib.hi_bwd, lib.hi_bwd_pts,
+                   lib.hi_bwd_fix, lib.hi_bwd_pts_fix):
             fn.restype = ctypes.c_int
         lib.hi_error_string.argtypes = [ctypes.c_int]
         lib.hi_error_string.restype = ctypes.c_char_p
@@ -255,6 +264,34 @@ def _cotangent(g, n: int, levels: int):
     return g.to(torch.float32).contiguous()
 
 
+def fix_bytes(table_shape) -> int:
+    """Scratch of the fixed-order backward: the maxima (16 bytes), then an
+    int64 pair (16 bytes) a table entry."""
+    l, t, _ = table_shape
+    return 16 + 16 * l * t
+
+
+def _bwd_call(name, g, args_for, table_shape, deterministic):
+    """Launch the backward `name` (or, `deterministic`, its fixed-order
+    variant `name`_fix with its scratch) into a new table gradient, which
+    the atomic kernel adds to (zeroed here) and the variant writes whole;
+    args_for(dtable) gives the C arguments before the stream. Counts the
+    launch."""
+    key = "bwd_pts" if name == "hi_bwd_pts" else "bwd"
+    if deterministic:
+        dtable = torch.empty(table_shape, dtype=torch.float32, device=g.device)
+        nbytes = fix_bytes(table_shape)
+        fix = torch.empty(nbytes // 8, dtype=torch.int64, device=g.device)
+        _call(name + "_fix", g, *args_for(dtable), fix.data_ptr(), nbytes)
+        launches_det[key] += 1
+    else:
+        dtable = torch.zeros(table_shape, dtype=torch.float32,
+                             device=g.device)
+        _call(name, g, *args_for(dtable))
+        launches[key] += 1
+    return dtable
+
+
 def _check_table(table):
     if table.dtype != torch.float32 or not table.is_contiguous():
         raise ValueError(f"table must be contiguous float32, got "
@@ -276,21 +313,23 @@ def hash_encode_idx_fwd_kernel(table, idx, w):
     return out
 
 
-def hash_encode_idx_bwd_kernel(g, idx, w, table_shape):
+def hash_encode_idx_bwd_kernel(g, idx, w, table_shape, deterministic=None):
     """One launch of the backward, corners from idx / w: the [L, T, 2] f32
     table gradient for cotangent g [N, L, 2] (any float dtype; [N, L*2] is
-    the same memory)."""
+    the same memory). `deterministic` (default:
+    `torch.are_deterministic_algorithms_enabled()`) takes the fixed-order
+    variant."""
+    if deterministic is None:
+        deterministic = torch.are_deterministic_algorithms_enabled()
     _check_table_shape(table_shape)
     l, t, _ = table_shape
     n = idx.shape[2]
     _check_corners(idx, w, l, g.device)
     g = _cotangent(g, n, l)
-    dtable = torch.zeros(table_shape, dtype=torch.float32, device=g.device)
     plan = bwd_plan((None,) * l, t).c_arrays()
-    _call("hi_bwd", g, g.data_ptr(), idx.data_ptr(), w.data_ptr(),
-          dtable.data_ptr(), n, l, t, *plan)
-    launches["bwd"] += 1
-    return dtable
+    return _bwd_call("hi_bwd", g, lambda d: (
+        g.data_ptr(), idx.data_ptr(), w.data_ptr(), d.data_ptr(), n, l, t,
+        *plan), table_shape, deterministic)
 
 
 def hash_encode_ngp_fwd_kernel(table, x, resolutions):
@@ -308,21 +347,25 @@ def hash_encode_ngp_fwd_kernel(table, x, resolutions):
     return out
 
 
-def hash_encode_ngp_bwd_kernel(g, x, resolutions, table_shape):
+def hash_encode_ngp_bwd_kernel(g, x, resolutions, table_shape,
+                               deterministic=None):
     """One launch of the backward, corners rebuilt from the points x: the
     [L, T, 2] f32 table gradient for cotangent g [N, L, 2] (any float
-    dtype; [N, L*2] is the same memory)."""
+    dtype; [N, L*2] is the same memory). `deterministic` (default:
+    `torch.are_deterministic_algorithms_enabled()`) takes the fixed-order
+    variant."""
+    if deterministic is None:
+        deterministic = torch.are_deterministic_algorithms_enabled()
     _check_table_shape(table_shape, points_mode=True)
     l, t, _ = table_shape
     n = x.shape[0]
     _check_points(x, l, resolutions, g.device)
     g = _cotangent(g, n, l)
-    dtable = torch.zeros(table_shape, dtype=torch.float32, device=g.device)
     plan = bwd_plan(tuple(int(r) for r in resolutions), t).c_arrays()
-    _call("hi_bwd_pts", g, g.data_ptr(), x.data_ptr(),
-          *_geometry(resolutions, t), dtable.data_ptr(), n, l, t, *plan)
-    launches["bwd_pts"] += 1
-    return dtable
+    geom = _geometry(resolutions, t)
+    return _bwd_call("hi_bwd_pts", g, lambda d: (
+        g.data_ptr(), x.data_ptr(), *geom, d.data_ptr(), n, l, t, *plan),
+        table_shape, deterministic)
 
 
 class _HashEncodeIdx(torch.autograd.Function):

@@ -13,10 +13,13 @@ ported exactly (`corner_indices_weights_win`):
 What the JAX module adds only for the TPU is not ported: the Z-sort (results
 do not depend on point order), the two-page window with its clamp aliasing
 and page packing, and the compare-reduce page lookup (here
-`torch.searchsorted`; the forward kernel searches the bounds staged in
-shared memory). The kernels (`csrc/hash_encode_win.cu`) gather directly, so
-they compute `hash_encode_exact(table, *corner_indices_weights_win(...))` at
-any point count.
+`torch.searchsorted`; the forward kernel searches the bounds, a part of
+them staged in shared memory). The kernels (`csrc/hash_encode_win.cu`)
+gather directly, so they compute
+`hash_encode_exact(table, *corner_indices_weights_win(...))` at any point
+count, for tables of 2^10 to 2^25 entries (JAX's windowed range). Under
+`torch.use_deterministic_algorithms(True)` the backward takes its
+fixed-order variant, whose result does not depend on the order of its sums.
 
 Layout: points are rows, `x` is [N, 3] in [0, 1] (the JAX functions take
 the coords-major [3, N] transpose).
@@ -42,10 +45,14 @@ WINDOW_ENTRIES = 2 * PAGE_ENTRIES
 # bound; kept because it is part of the index semantics).
 DENSE_BOX_CAP = 32 * PAGE_ENTRIES
 _MAX_LEVELS = 32        # HE_MAX_LEVELS in the CUDA source
-MAX_SEGMENTS = 16384    # HF_MAX_SEGS: the forward stages the bounds (64 KB)
+# HF_MAX_SEGS: T <= 2^25, the range JAX's windowed kernel states
+# (`spinnerf_tpu/ops/hash_encode_win.py::_pack_pages`: page ids fit 15 bits)
+MAX_SEGMENTS = 32768
 
-# Kernel launches by the wrapper, counted where it launches and nowhere else.
+# Kernel launches by the wrapper, counted where it launches and nowhere else;
+# launches_det: the backward's fixed-order variant (`he_win_bwd_fix`).
 launches = {"fwd": 0, "bwd": 0}
+launches_det = {"bwd": 0}
 
 
 # -----------------------------------------------------------------------------
@@ -269,8 +276,11 @@ class BwdPlan:
     partial sums per dense level (`dense_parts` blocks per level of span <=
     DENSE_SMEM_SPAN, `wide_parts` clusters per level of span WIDE_SPAN),
     and the scratch sizes: `work_ints` for the forward's sort, which the
-    backward reads, and `partial_entries` for the dense levels' partial
-    sums."""
+    backward reads, `partial_entries` for the dense levels' partial sums
+    (8 bytes an entry, 16 in the fixed-order variant), and that variant's
+    `fix_bytes`: max |g| (16 bytes), then an int64 page (1024 x 16 bytes)
+    a paged level of each segment that can be split (`split_entries` in
+    all)."""
     spans: tuple
     paged: tuple
     dense: tuple
@@ -279,6 +289,8 @@ class BwdPlan:
     wide_parts: int
     work_ints: int
     partial_entries: int
+    split_entries: int
+    fix_bytes: int
 
 
 def bwd_plan(rows, n: int, t: int) -> BwdPlan:
@@ -307,12 +319,14 @@ def _bwd_plan(rows, n, t):
     n_seg = n_segments(t)
     max_chunks = -(-n // CHUNK_POINTS) + n_seg
     max_split = min(n_seg, n // (CHUNK_POINTS + 1))
+    split_entries = max_split * len(paged) * PAGE_ENTRIES
     return BwdPlan(
         spans=spans, paged=paged, dense=dense, wide=wide,
         dense_parts=dense_parts, wide_parts=wide_parts,
         work_ints=4 * max_chunks + 2 * n_seg + 4 + max_split + n,
         partial_entries=(dense_parts * sum(spans[l] for l in dense)
-                         + wide_parts * WIDE_SPAN * len(wide)))
+                         + wide_parts * WIDE_SPAN * len(wide)),
+        split_entries=split_entries, fix_bytes=16 + 16 * split_entries)
 
 
 def _lib():
@@ -322,7 +336,9 @@ def _lib():
         lib.he_win_fwd.argtypes = [p, p, p, i, p, p, p, p, ll, i, i, ll, p]
         lib.he_win_bwd.argtypes = [p, p, p, p, i, i, ll, p, p, ll, p, ll, i,
                                    i, p]
-        for fn in (lib.he_win_fwd, lib.he_win_bwd):
+        lib.he_win_bwd_fix.argtypes = [p, p, p, p, i, i, ll, p, p, ll, p, ll,
+                                       i, i, p, ll, p]
+        for fn in (lib.he_win_fwd, lib.he_win_bwd, lib.he_win_bwd_fix):
             fn.restype = ctypes.c_int
         lib.he_error_string.argtypes = [ctypes.c_int]
         lib.he_error_string.restype = ctypes.c_char_p
@@ -383,16 +399,18 @@ def hash_encode_win_fwd_kernel(table, x, bounds, rows):
         raise ValueError(f"table must be a contiguous float32 [L, T, 2], got "
                          f"{table.dtype} {tuple(table.shape)}")
     l, t, _ = table.shape
-    _check(x, rows, l, t, table, bounds)
     n_seg = n_segments(t)
+    if n_seg > MAX_SEGMENTS:
+        raise ValueError(f"table size {t} has {n_seg} segments: the windowed "
+                         f"kernels take at most {MAX_SEGMENTS} (T <= 2^25, "
+                         f"the range JAX's windowed kernel states in "
+                         f"_pack_pages: page ids fit 15 bits)")
+    _check(x, rows, l, t, table, bounds)
     if (bounds.dtype != torch.int64 or bounds.shape != (n_seg,)
             or not bounds.is_contiguous()):
         raise ValueError(f"bounds must be a contiguous int64 [{n_seg}] "
                          f"(bounds_tensor), got {bounds.dtype} "
                          f"{tuple(bounds.shape)}")
-    if n_seg > MAX_SEGMENTS:
-        raise ValueError(f"table size {t} has more than {MAX_SEGMENTS} "
-                         f"segments")
     n = x.shape[0]
     dev = table.device
     out = torch.empty((n, 2 * l), dtype=torch.float32, device=dev)
@@ -406,12 +424,21 @@ def hash_encode_win_fwd_kernel(table, x, bounds, rows):
     return out, base, work
 
 
-def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape):
+def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape,
+                               deterministic=None):
     """One call of the backward (`he_win_bwd`: the page, dense and cluster
     kernels of `bwd_plan`, from the forward's sort): the [L, T, 2] f32 table
     gradient of the encode for cotangent g [N, L*2]. work: the scratch of
     the forward call on the same points and rows. Every entry is written by
-    a kernel, so nothing is zero-filled here."""
+    a kernel, so nothing is zero-filled here.
+
+    `deterministic` (default: `torch.are_deterministic_algorithms_enabled()`)
+    takes the fixed-order variant `he_win_bwd_fix`, whose sums are exact
+    int64 sums of the contributions rounded once to a fixed point (the note
+    in the CUDA source), so that launches on the same inputs are bit-equal
+    whatever the order of the sort and of the adds."""
+    if deterministic is None:
+        deterministic = torch.are_deterministic_algorithms_enabled()
     l, t, _ = table_shape
     n = x.shape[0]
     _check(x, rows, l, t, g, work)
@@ -423,14 +450,24 @@ def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape):
         raise ValueError("work must be the forward's int32 scratch")
     g = g.to(torch.float32).contiguous()
     dtable = torch.empty(table_shape, dtype=torch.float32, device=g.device)
-    partials = torch.empty((max(plan.partial_entries, 1), 2),
-                           dtype=torch.float32, device=g.device)
+    # a float2 (8 bytes) or, fixed-order, a longlong2 (16) an entry
+    partials = torch.empty((max(plan.partial_entries, 1),
+                            2 if deterministic else 1),
+                           dtype=torch.int64, device=g.device)
     spans_c = (ctypes.c_int * l)(*plan.spans)
-    _call("he_win_bwd", g.device, g.data_ptr(), x.data_ptr(), _rows_c(rows),
-          dtable.data_ptr(), n, l, t, ctypes.cast(spans_c, ctypes.c_void_p),
-          work.data_ptr(), work.numel(), partials.data_ptr(),
-          plan.partial_entries, plan.dense_parts, plan.wide_parts)
-    launches["bwd"] += 1
+    args = (g.data_ptr(), x.data_ptr(), _rows_c(rows), dtable.data_ptr(), n,
+            l, t, ctypes.cast(spans_c, ctypes.c_void_p), work.data_ptr(),
+            work.numel(), partials.data_ptr(), plan.partial_entries,
+            plan.dense_parts, plan.wide_parts)
+    if deterministic:
+        fix = torch.empty(plan.fix_bytes // 8, dtype=torch.int64,
+                          device=g.device)
+        _call("he_win_bwd_fix", g.device, *args, fix.data_ptr(),
+              plan.fix_bytes)
+        launches_det["bwd"] += 1
+    else:
+        _call("he_win_bwd", g.device, *args)
+        launches["bwd"] += 1
     return dtable
 
 
