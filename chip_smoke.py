@@ -4,13 +4,15 @@
     python3 chip_smoke.py              # the whole smoke run, one card
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown of
                                        # a few train steps of each arm
+    python3 chip_smoke.py --phase 20   # phases 1, 2 and 20 alone
 
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source,
      started together (timed); ptxas's registers and spills of both
      fm_fwd_kernel instantiations, of hf_fwd_kernel (#1) and of
-     kc_wgmma_kernel (#11) (none may spill);
+     kc_wgmma_kernel (#11) (none may spill), and of every kernel of
+     csrc/fused_mlp_gen.cu (printed);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
      table, 262,144 points from the trainer's calibrated ray distribution,
@@ -237,7 +239,30 @@ Phases, each fatal on failure (no phase's error is caught):
      --mesh_shape 2` through `cli.__main__.main(..., device="cuda:0")` on
      phase 13's scene for 50 steps: two ranks, one checkpoint (rank 0's),
      the ranks' parameters bit-equal at the end, the PSNR rising; the
-     seconds of each part.
+     seconds of each part;
+ 20. the fused MLP on the generic kernels (csrc/fused_mlp_gen.cu, B1a /
+     B1b): bf16 8 x 256 still routes #9 / #10 and #7 / #8 to the wgmma
+     kernels; (a) at f32 8 x 256 on the MLP arm's 262,144 fine-pass points
+     (and 131,072 with the semantic head), bf16 and f32 8 x 128, f32 2 x 32
+     at 4 / 2 octaves, depth 3, depth 10, width 512, 12 / 6 octaves and 21
+     octaves (65,536 points each): #9 / #10 and #7 / #8, each launch
+     counted on the route "gen", held against the plain version in
+     float64 on the card: the output within 2 x the plain f32 / bf16
+     version's error, every gradient (and dx, dd) within 2 x the plain
+     version's against the float64 evaluation with each side's own ReLU
+     masks (the kernel's read back from its recompute), the points whose
+     masks differ from float64's at most max(4 x the plain version's,
+     P / 1000), dx's and dd's padded lanes exactly 0, the backward
+     bit-equal over 5 more launches and through the autograd wrappers;
+     (b) at (a)'s first case, the kernels, the plain version and an f32
+     torch.matmul chain with its autograd backward (TF32 off) timed with
+     CUDA events, each with the function's FLOP over its time, and the
+     backward's two passes apart; (c) `Trainer` at the MLP arm's
+     configuration in f32 for 100 steps and at width 128 in bf16 for 50:
+     #9 / #10 launched twice a step each on the generic route and the
+     wgmma kernels never, the PSNR rising; (d) `tools.full_run --smoke
+     --model mlp` in this process: exit 0, every stage, the generic
+     kernels launched.
 """
 from __future__ import annotations
 
@@ -871,15 +896,17 @@ def mlp_flops(dims, input_grads=False):
     return fwd, bwd
 
 
-def library_chain(weights, dims, *, pre):
-    """The yardstick: the same MLP as a chain of bf16 torch.matmul calls
-    (cuBLAS) with f32 biases. Returns (fwd(inputs), the bf16 leaves it
-    differentiates): inputs are (xd,), encoded in PyTorch, or with `pre`
-    the v1 encodings (x_enc, d_enc). Timed only; the port never calls it."""
+def library_chain(weights, dims, *, pre, dtype=None):
+    """The yardstick: the same MLP as a chain of torch.matmul calls
+    (cuBLAS) in `dtype` (default bf16) with f32 biases. Returns
+    (fwd(inputs), the leaves it differentiates): inputs are (xd,), encoded
+    in PyTorch, or with `pre` the v1 encodings (x_enc, d_enc). Timed only;
+    the port never calls it."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
-    leaves = {n: (w.to(torch.bfloat16) if n.endswith("_w")
+    dt = dtype or torch.bfloat16
+    leaves = {n: (w.to(dt) if n.endswith("_w")
                   or n.startswith("tw") else w.clone()).requires_grad_()
               for n, w in weights.items()}
 
@@ -888,33 +915,33 @@ def library_chain(weights, dims, *, pre):
 
     def fwd(inputs):
         if pre:
-            x, d = (a.bfloat16() for a in inputs)
+            x, d = (a.to(dt) for a in inputs)
         else:
-            x = fm.encode(inputs[0], dims.multires, 0, dims.in_dim).bfloat16()
+            x = fm.encode(inputs[0], dims.multires, 0, dims.in_dim).to(dt)
             d = fm.encode(inputs[0], dims.multires_views, 3,
-                          dims.dir_dim).bfloat16()
+                          dims.dir_dim).to(dt)
         h = x
         for i in range(dims.depth):
-            h = torch.relu(dense(h, f"tw{i}", f"tb{i}")).bfloat16()
+            h = torch.relu(dense(h, f"tw{i}", f"tb{i}")).to(dt)
             if i == dims.skip:
                 h = torch.cat([x, h], dim=-1)
         heads = [dense(h, "sigma_w", "sigma_b")]
         if dims.out_extra:
             heads.append(dense(h, "sem_w", "sem_b"))
-        feat = dense(h, "feat_w", "feat_b").bfloat16()
+        feat = dense(h, "feat_w", "feat_b").to(dt)
         v = torch.relu(dense(torch.cat([feat, d], -1), "view_w",
-                             "view_b")).bfloat16()
+                             "view_b")).to(dt)
         return torch.cat([dense(v, "rgb_w", "rgb_b")] + heads, dim=-1)
 
     return fwd, leaves
 
 
-def out_of_bound(errs):
+def out_of_bound(errs, cap=1e-2):
     """Names whose kernel error (relative to max |value| of the float64
-    evaluation) exceeds twice the plain f32 version's own, or 1e-2.
-    errs: name -> (kernel error, plain error, ...)."""
+    evaluation) exceeds twice the plain f32 version's own, or `cap` (None:
+    no cap). errs: name -> (kernel error, plain error, ...)."""
     return [n for n, (k, q, *_) in errs.items()
-            if not (k <= 2 * q and k <= 1e-2)]
+            if not (k <= 2 * q and (cap is None or k <= cap))]
 
 
 def relu_flips(weights, x, d, dims):
@@ -4366,6 +4393,463 @@ def data_parallel_phase(exp_root, scene, argv=()):
     return out
 
 
+# phase 20: the fused MLP on the generic kernels (csrc/fused_mlp_gen.cu) at
+# the configurations the wgmma kernels do not take
+GEN_SMALL = 65536            # points of (a)'s cases 2-4
+GEN_F32_STEPS = 100          # (c): the f32 trainer's steps
+GEN_BF16_STEPS = 50          # (c): the bf16 trainer at width 128
+F32_TF32_OPS_PER_S = 495e12 / 3   # 3 x TF32 on the tensor cores (B2)
+# (tag, compute type, depth, width, (multires, multires_views), semantic,
+# points): (a)1 the main path's width in f32, (a)2 the parity tools' 8 x
+# 128, (a)3 full_run --smoke's 2 x 32, (a)4 the other geometries
+GEN_CASES = (
+    ("f32 8x256", "float32", 8, 256, (10, 4), False, N_POINTS),
+    ("f32 8x256 semantic", "float32", 8, 256, (10, 4), True, N_POINTS_SEM),
+    ("bf16 8x128", "bfloat16", 8, 128, (10, 4), False, GEN_SMALL),
+    ("f32 8x128", "float32", 8, 128, (10, 4), False, GEN_SMALL),
+    ("f32 2x32 4/2", "float32", 2, 32, (4, 2), False, GEN_SMALL),
+    ("f32 depth 3", "float32", 3, 256, (10, 4), False, GEN_SMALL),
+    ("bf16 depth 10", "bfloat16", 10, 256, (10, 4), False, GEN_SMALL),
+    ("f32 width 512", "float32", 8, 512, (10, 4), False, GEN_SMALL),
+    ("f32 12/6 octaves", "float32", 8, 256, (12, 6), False, GEN_SMALL),
+    ("bf16 21 octaves", "bfloat16", 8, 256, (21, 4), False, GEN_SMALL),
+)
+
+
+def gen_field_weights(compute, depth, width, octaves, semantic, dev, seed):
+    """A seeded `FusedMLPField`'s weights at this configuration with
+    non-zero biases (so that every bias path counts), and its dims."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    field = fm.FusedMLPField(depth=depth, width=width, multires=octaves[0],
+                             multires_views=octaves[1], semantic=semantic,
+                             compute_dtype=getattr(torch, compute),
+                             device=dev)
+    field.reset_parameters(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    w = {n: p.detach().clone() for n, p in field.weights.items()}
+    for n in w:
+        if n.endswith("_b") or n.startswith("tb"):
+            w[n] = (torch.randn(w[n].shape, generator=gen) * 0.1).to(dev)
+    return field.dims, w
+
+
+def counted(fn, want):
+    """fn() with every fused MLP counter set to 0 first: its result, after
+    checking that it launched exactly `want` ({(route, v1): {"fwd": n,
+    "bwd": n}}, every other counter 0)."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    for rt in ("wgmma", "gen"):
+        for pre in (False, True):
+            fm._counts(rt, pre).update(fwd=0, bwd=0)
+    out = fn()
+    got = {(rt, pre): dict(fm._counts(rt, pre)) for rt in ("wgmma", "gen")
+           for pre in (False, True)}
+    zero = {"fwd": 0, "bwd": 0}
+    if any(got[k] != want.get(k, zero) for k in got):
+        raise AssertionError(f"launches {got}, want {want}")
+    return out
+
+
+def gen_rel(a, ref):
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def mask_flips(a, b):
+    """[P] bool: the points where two sets of ReLU masks (`_relu_masks`'s
+    form) differ in any unit."""
+    out = a[1].ne(b[1]).any(1)
+    for x, y in zip(a[0], b[0]):
+        out |= x.ne(y).any(1)
+    return out
+
+
+def own_masks(w, inputs, dims, acc_dtype, pre):
+    """The ReLU masks of the plain version's own forward in `acc_dtype` on
+    (xd,) or, with `pre`, on the encodings (x_enc, d_enc)."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    enc = inputs if pre else fm._encodings(inputs[0], dims)
+    _, zs, _, _, vz, _ = fm._forward_acts(w, *enc, dims, acc_dtype)
+    return fm._relu_masks(zs, vz, None)
+
+
+def gen_hold(tag, dims, w, pts, vd, seed):
+    """Phase 20 (a), one configuration: #9 / #10 and #7 / #8 against their
+    plain versions evaluated in float64 on the card, each launch counted on
+    the route "gen". The forward within 2 x the plain f32 or bf16 version's
+    own error against float64; every gradient (v1: also dx and dd) within
+    2 x the plain version's, each held against the float64 evaluation that
+    takes its own ReLU masks (the kernel's read back from its recompute,
+    `gen_relu_masks`): a unit whose pre-activation lies within rounding of
+    0 switches a whole gradient term, differently in any two evaluations,
+    so against float64's own masks the errors of two f32 evaluations differ
+    by several times at random; with each side's masks they are rounding
+    alone. The points where the kernel's masks differ from float64's
+    number at most max(4 x the plain version's, P / 1000), and dx's and
+    dd's padded lanes are exactly 0. The backward bit-equal over 5 more
+    launches and through the autograd wrappers. Returns ({name: (kernel rel
+    error, plain rel error, kernel abs error), each against its gated
+    reference, and "flips"} for v2 and for v1, and the inputs)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    dev = pts.device
+    b, s = pts.shape[0], pts.shape[1]
+    p = b * s
+    gen = torch.Generator().manual_seed(seed)
+    xd = torch.cat([pts.reshape(-1, 3), vd[:, None].expand(pts.shape)
+                    .reshape(-1, 3), torch.zeros((p, 2), device=dev)],
+                   -1).contiguous()
+    g = torch.randn((p, 4 + dims.out_extra), generator=gen).to(dev)
+    x, d = fm.field_encodings(pts, vd, dims, multires=dims.multires,
+                              multires_views=dims.multires_views)
+    if fm.route(dims) != "gen" or fm.route(dims, True) != "gen":
+        raise AssertionError(f"{tag}: not on the generic route")
+    out = {}
+    for pre, ins in ((False, (xd,)), (True, (x, d))):
+        name = "v1 (#7 / #8)" if pre else "v2 (#9 / #10)"
+        if pre:
+            fwd = lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims)
+            bwd = lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims)
+            pfwd = lambda dt: fm.fused_mlp_fwd_plain(w, x, d, dims, dt)
+            pbwd = lambda dt, m=None: fm.fused_mlp_bwd_plain(
+                w, x, d, g, dims, dt, masks=m)
+        else:
+            fwd = lambda: fm.fused_mlp_pe_fwd_kernel(w, xd, dims)
+            bwd = lambda: (fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims),)
+            pfwd = lambda dt: fm.fused_mlp_pe_plain(w, xd, dims, dt)
+            pbwd = lambda dt, m=None: (fm.fused_mlp_pe_bwd_plain(
+                w, xd, g, dims, dt, masks=m),)
+        out_k = counted(fwd, {("gen", pre): {"fwd": 1, "bwd": 0}})
+        res_k = counted(bwd, {("gen", pre): {"fwd": 0, "bwd": 1}})
+        out_64 = pfwd(torch.float64)
+        errs = {"out": (gen_rel(out_k, out_64),
+                        gen_rel(pfwd(torch.float32), out_64),
+                        float((out_k.double() - out_64).abs().max()))}
+        del out_64
+        m_k = fm.gen_relu_masks(w, ins, dims, pre=pre)
+        m_p = own_masks(w, ins, dims, torch.float32, pre)
+        m_64 = own_masks(w, ins, dims, torch.float64, pre)
+        flips = {"kernel": int(mask_flips(m_k, m_64).sum()),
+                 "plain": int(mask_flips(m_p, m_64).sum())}
+        del m_64
+        res_p = pbwd(torch.float32)
+        ref_k = pbwd(torch.float64, m_k)
+        ref_p = pbwd(torch.float64, m_p)
+        del m_k, m_p
+        ref = pbwd(torch.float64)
+        torch.cuda.synchronize()
+
+        def tensors(res):   # (weight gradients, [dx, dd]) as name -> tensor
+            return dict(res[0], **dict(zip(("dx", "dd"), res[1:])))
+
+        tk, tp, rk, rp, r64 = (tensors(t) for t in (res_k, res_p, ref_k,
+                                                    ref_p, ref))
+        raw = {n: (gen_rel(tk[n], r64[n]), gen_rel(tp[n], r64[n]))
+               for n in r64}
+        errs.update({n: (gen_rel(tk[n], rk[n]), gen_rel(tp[n], rp[n]),
+                         float((tk[n].double() - rk[n]).abs().max()))
+                     for n in r64})
+        del ref_k, ref_p, ref, rk, rp, r64
+        log(f"[gen mlp] {tag} {name} P={p}: relative error vs float64 with "
+            f"each side's masks, kernel / plain {dims.compute_dtype}:")
+        log("  " + ", ".join(f"{n} {k:.3e}/{q:.3e}"
+                             for n, (k, q, _) in errs.items()))
+        log(f"  vs float64's own masks, kernel / plain: " + ", ".join(
+            f"{n} {k:.3e}/{q:.3e}" for n, (k, q) in raw.items()))
+        log(f"  points whose masks differ from float64's: {flips}")
+        finite = torch.isfinite(out_k).all() and all(
+            torch.isfinite(v).all() for v in tk.values())
+        bad = out_of_bound(errs, cap=None)
+        if pre:
+            raw_x = 3 * (1 + 2 * dims.multires)
+            raw_d = 3 * (1 + 2 * dims.multires_views)
+            pad = {"dx": tk["dx"][:, raw_x:], "dd": tk["dd"][:, raw_d:],
+                   "dtw0": tk["tw0"][raw_x:]}
+            bad += [n for n, v in pad.items()
+                    if v.numel() and float(v.abs().max()) != 0.0]
+        if (bad or not finite or flips["kernel"] > max(4 * flips["plain"],
+                                                       p // 1000)):
+            raise AssertionError(f"{tag} {name}: out of bound (2 x plain): "
+                                 f"{bad}, finite {bool(finite)}, flips "
+                                 f"{flips}")
+        same = repeats_equal(bwd, res_k)
+        leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
+        x_l, d_l = x.clone().requires_grad_(), d.clone().requires_grad_()
+
+        def autograd_call():
+            if pre:
+                o = fm.fused_mlp(dims, 512, leaves, x_l, d_l)
+            else:
+                o = fm.fused_mlp_pe(leaves, xd, dims)
+            o.backward(g)
+            return o
+
+        out_a = counted(autograd_call, {("gen", pre): {"fwd": 1, "bwd": 1}})
+        wrapped = torch.equal(out_a.detach(), out_k) and all(
+            torch.equal(leaves[n].grad, res_k[0][n]) for n in res_k[0])
+        if pre:
+            wrapped = wrapped and torch.equal(x_l.grad, res_k[1]) and \
+                torch.equal(d_l.grad, res_k[2])
+        log(f"[gen mlp] {tag} {name}: {DET_REPEATS} more backward launches "
+            f"bit-equal: {same}; the autograd wrapper bit-equal: {wrapped}")
+        if not (same and wrapped):
+            raise AssertionError(f"{tag} {name}: the backward is not "
+                                 f"reproducible")
+        out[pre] = dict(errs, flips=flips)
+        del leaves, out_a, res_k, res_p, tk, tp
+    return out[False], out[True], (xd, g, x, d)
+
+
+def gen_times(w, dims, inputs, tag):
+    """Phase 20 (b): #9 / #10 and #7 / #8 at (a)1 timed with CUDA events
+    beside the plain version and the f32 torch.matmul chain with its
+    autograd backward (TF32 off), each with the function's FLOP over its
+    time; the backward's two passes apart. Returns {version: {name:
+    ms}}."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    xd, g, x, d = inputs
+    p = xd.shape[0]
+    ms = {}
+    for pre in (False, True):
+        ins = (x, d) if pre else (xd,)
+        fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
+        if pre:
+            kf = lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims)
+            kb = lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims)
+            pf = lambda: fm.fused_mlp_fwd_plain(w, x, d, dims)
+            pb = lambda: fm.fused_mlp_bwd_plain(w, x, d, g, dims)
+        else:
+            kf = lambda: fm.fused_mlp_pe_fwd_kernel(w, xd, dims)
+            kb = lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)
+            pf = lambda: fm.fused_mlp_pe_plain(w, xd, dims)
+            pb = lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g, dims)
+        m = {"fwd": cuda_ms(kf), "bwd": cuda_ms(kb),
+             "plain_fwd": cuda_ms(pf), "plain_bwd": cuda_ms(pb)}
+        lib_fwd, lib_leaves = library_chain(w, dims, pre=pre,
+                                            dtype=torch.float32)
+        with torch.no_grad():
+            m["lib_fwd"] = cuda_ms(lambda: lib_fwd(ins))
+        lin = [a.clone().requires_grad_() for a in ins] if pre else list(ins)
+        out_l = lib_fwd(lin)
+        wrt = list(lib_leaves.values()) + (lin if pre else [])
+        m["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            out_l, wrt, g, retain_graph=True))
+        del out_l
+        run1, run2, scratch = fm.bwd_pass_fns(w, ins, g, dims, pre=pre)
+        m["bwd_pass1"], m["bwd_pass2"] = cuda_ms(run1), cuda_ms(run2)
+        name = "v1 (#7 / #8)" if pre else "v2 (#9 / #10)"
+        rate = {k: (fwd_flop if "fwd" in k else bwd_flop) / v / 1e9
+                for k, v in m.items() if "pass" not in k}
+        log(f"[gen mlp] {tag} {name} P={p}: " + ", ".join(
+            f"{k} {v:.4f} ms ({rate[k]:.2f} TFLOP/s)" if k in rate else
+            f"{k} {v:.4f} ms" for k, v in m.items())
+            + f"; the function {fwd_flop:.4e} / {bwd_flop:.4e} FLOP, the "
+            f"scratch {scratch:.4e} bytes; TF32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        ms[pre] = m
+    return ms
+
+
+def gen_trainer(scene, common, tag, steps, **cfg_kw):
+    """Phase 20 (c): a Trainer at the MLP arm's configuration with
+    `cfg_kw` for `steps` steps: both fields on the generic route, #9 / #10
+    launched twice a step each and the wgmma kernels never, the PSNR
+    rising. Returns its record."""
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    from spinnerf_tpu_torch.train.loop import Trainer
+    cfg = Config(expname=f"gen_{tag}", no_tcnn=True, lrate=5e-4,
+                 lrate_decay=250, **dict(common, N_iters=steps), **cfg_kw)
+    tr = Trainer(cfg, scene=scene, log=log)
+    dims = {k: f.dims for k, f in tr.fields.items()}
+    if any(fm.route(v) != "gen" for v in dims.values()):
+        raise AssertionError(f"{tag}: a field is not on the generic route")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m1 = counted(lambda: tr.fit(1), {("gen", False): {"fwd": 2, "bwd": 2}})
+    want = {("gen", False): {"fwd": 2 * (steps - 1),
+                             "bwd": 2 * (steps - 1)}}
+    m_end = counted(lambda: tr.fit(steps), want)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = {"steps": steps, "psnr_step_1": float(m1["psnr"]),
+           "psnr_end": float(m_end["psnr"]), "loss_end": float(m_end["loss"]),
+           "ms_per_step": dt * 1e3 / steps,
+           "launches_per_step": {"fwd": 2, "bwd": 2},
+           "dims": dims["fine"]._asdict()}
+    log(f"[gen mlp] trainer {tag}: {json.dumps(rec)}")
+    if not math.isfinite(rec["loss_end"]) or not (
+            rec["psnr_end"] > rec["psnr_step_1"]):
+        raise AssertionError(f"{tag}: the loss is not finite or the PSNR "
+                             f"did not rise")
+    return rec
+
+
+def gen_full_run_smoke(exp_root):
+    """Phase 20 (d): `tools.full_run --smoke --model mlp` in this process
+    on the card (its f32 2 x 32 field on the generic route): exit 0, every
+    stage, #9 / #10 launched and the wgmma kernels not."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    from spinnerf_tpu_torch.tools import full_run
+    work = exp_root / "full_run_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    for rt in ("wgmma", "gen"):
+        for pre in (False, True):
+            fm._counts(rt, pre).update(fwd=0, bwd=0)
+    t0 = time.perf_counter()
+    rc = full_run.main(["--smoke", "--model", "mlp", "--views", "6",
+                        "--gt", "2", "--h", "128", "--w", "160",
+                        "--iters-scale", "1000", "--workdir", str(work)])
+    torch.cuda.synchronize()
+    res = json.loads((work / "FULLRUN_torch.json").read_text())
+    out = {"rc": rc, "seconds": time.perf_counter() - t0,
+           "summary": res["summary"], "stage_seconds": res["stage_seconds"],
+           "launches_gen": dict(fm.launches_gen),
+           "launches_wgmma": dict(fm.launches)}
+    log(f"[gen mlp] full_run --smoke --model mlp: {json.dumps(out)}")
+    if (rc != 0 or set(res["stage_seconds"]) != {
+            "mvseg", "prepare", "inpaint_guidance", "fit", "eval"}
+            or min(fm.launches_gen.values()) < 1 or any(fm.launches.values())
+            or not all(math.isfinite(v) for v in res["summary"].values())):
+        raise AssertionError(f"full_run --smoke --model mlp: {out}")
+    return out
+
+
+def gen_mlp_phase(exp_root, scene, common, points):
+    """Phase 20: the fused MLP on the generic kernels. points: semantic ->
+    (pts [R, 128, 3], viewdirs [R, 3]), the MLP arm's fine-pass rays.
+    Returns the kernels line's records of #9, #10, #7 and #8 on the
+    generic route."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False     # stated: f32 is f32
+    dev = points[False][0].device
+
+    # the wgmma kernels keep their one configuration (bf16 8 x 256)
+    dims, w = gen_field_weights("bfloat16", 8, 256, (10, 4), False, dev, 4)
+    pts, vd = (t[:32] for t in points[False])
+    p = pts.shape[0] * pts.shape[1]
+    xd = torch.cat([pts.reshape(-1, 3), vd[:, None].expand(pts.shape)
+                    .reshape(-1, 3), torch.zeros((p, 2), device=dev)],
+                   -1).contiguous()
+    x, d = fm.field_encodings(pts, vd, dims)
+    g = torch.zeros((p, 4), device=dev)
+    one = {"fwd": 1, "bwd": 1}
+    counted(lambda: (fm.fused_mlp_pe_fwd_kernel(w, xd, dims),
+                     fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)),
+            {("wgmma", False): one})
+    counted(lambda: (fm.fused_mlp_fwd_kernel(w, x, d, dims),
+                     fm.fused_mlp_bwd_kernel(w, x, d, g, dims)),
+            {("wgmma", True): one})
+    log("[gen mlp] bf16 8 x 256: route wgmma, #9 / #10 and #7 / #8 on the "
+        "wgmma kernels")
+
+    # (a) every configuration, (b) times at (a)1
+    held = {}
+    for i, (tag, compute, depth, width, octaves, semantic, n) in enumerate(
+            GEN_CASES):
+        pts, vd = points[semantic]
+        pts, vd = pts[:n // 128], vd[:n // 128]
+        dims, w = gen_field_weights(compute, depth, width, octaves, semantic,
+                                    dev, 10 + i)
+        t0 = time.perf_counter()
+        errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i)
+        held[tag] = {"v2": errs, "v1": errs1,
+                     "seconds": time.perf_counter() - t0}
+        if i == 0:
+            first = (dims, w, inputs)
+            # the v1 entry point on these points, with their gradient
+            pts_a = pts.clone().requires_grad_()
+
+            def entry():
+                out = fm.make_fused_field_fn(dims)(w, pts_a, vd)
+                out.backward(inputs[1][:out.shape[0] * out.shape[1]]
+                             .reshape(out.shape))
+
+            v1_counts = {"fwd": 1, "bwd": 1}
+            counted(entry, {("gen", True): v1_counts})
+            del pts_a
+        del inputs
+        torch.cuda.empty_cache()
+    dims, w, inputs = first
+    ms = gen_times(w, dims, inputs, GEN_CASES[0][0])
+    del first, inputs
+    torch.cuda.empty_cache()
+
+    # (c) trainers, (d) full_run --smoke
+    f32 = gen_trainer(scene, common, "f32", GEN_F32_STEPS,
+                      compute_dtype="float32")
+    bf16 = gen_trainer(scene, common, "bf16_w128", GEN_BF16_STEPS,
+                       netwidth=128, netwidth_fine=128)
+    torch.cuda.empty_cache()
+    smoke = gen_full_run_smoke(exp_root)
+    torch.cuda.empty_cache()
+
+    records = []
+    p = GEN_CASES[0][6]
+    for pre, rows in ((False, (("fused_mlp_pe_fwd", 411), ("fused_mlp_pe_bwd",
+                                                           424))),
+                      (True, (("fused_mlp_fwd", 106), ("fused_mlp_bwd",
+                                                       115)))):
+        fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
+        n_w = sum(v.numel() for v in w.values())
+        enc = p * (dims.in_dim + dims.dir_dim) * 4 if pre else p * 32
+        nbytes = {"fwd": enc + n_w * 4 + p * (4 + dims.out_extra) * 4,
+                  "bwd": (2 if pre else 1) * enc + p * (4 + dims.out_extra)
+                  * 4 + 2 * n_w * 4}
+        errs = {n: e for n, e in held[GEN_CASES[0][0]][
+            "v1" if pre else "v2"].items() if n != "flips"}
+        for name, line in rows:
+            k = name.rsplit("_", 1)[1]
+            flop = fwd_flop if k == "fwd" else bwd_flop
+            bytes_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+            ops_ms = flop / F32_OPS_PER_S * 1e3
+            m = ms[pre]
+            records.append({
+                "name": f"{name}_gen", "route": "cuda",
+                "source": "spinnerf_tpu_torch/csrc/fused_mlp_gen.cu",
+                "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{line}",
+                "launches": (v1_counts if pre else
+                             {"fwd": 2 * GEN_F32_STEPS,
+                              "bwd": 2 * GEN_F32_STEPS})[k],
+                "launches_from": ("make_fused_field_fn at (a)1" if pre else
+                                  f"(c)'s f32 trainer, {GEN_F32_STEPS} "
+                                  f"steps"),
+                "max_abs_err": (errs["out"][2] if k == "fwd" else
+                                max(e[2] for n, e in errs.items()
+                                    if n != "out")),
+                "ms": m[k], "plain_ms": m[f"plain_{k}"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_ms_3xtf32": flop / F32_TF32_OPS_PER_S * 1e3,
+                "library_ms": m[f"lib_{k}"],
+                "library": "f32 torch.matmul chain, TF32 off",
+                "compute_dtype": "float32", "points": p})
+    total = time.perf_counter() - t_start
+    log(json.dumps({"gen_mlp": {
+        "cases": {t: {"seconds": h["seconds"], **{
+            f"{v}_rel_err_kernel_plain": {n: e[:2] for n, e in h[v].items()
+                                          if n != "flips"}
+            for v in ("v2", "v1")}, **{f"{v}_flipped_points": h[v]["flips"]
+                                       for v in ("v2", "v1")}}
+                  for t, h in held.items()},
+        "times_ms": {"v2": ms[False], "v1": ms[True]},
+        "trainers": {"f32": f32, "bf16_w128": bf16},
+        "full_run_smoke": smoke, "seconds": total}}))
+    log(f"[phase 20] {total:.1f} s")
+    return records
+
+
 def fixed_order_records(records, mlp_records, idx_records, v1_records,
                         det_launches):
     """The kernels line's entries of the fixed-order variants of #2, #6
@@ -4465,7 +4949,8 @@ def main(argv):
     # 2. build
     t0 = time.perf_counter()
     build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe",
-                                   "hash_encode_idx", "kbench_cal"])
+                                   "hash_encode_idx", "kbench_cal",
+                                   "fused_mlp_gen"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
@@ -4481,6 +4966,9 @@ def main(argv):
         if len(res) != want or any(r[2] or r[3] for r in res.values()):
             raise AssertionError(f"{kernel} is missing from the build log "
                                  f"or spills")
+    log(f"[build] csrc/fused_mlp_gen.cu kernels (registers, stack, spill "
+        f"stores, spill loads): "
+        f"{kernel_resources(build_logs['fused_mlp_gen'])}")
 
     scene, masks, held_pose, held_rgb = synthetic_scene()
     exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -4488,6 +4976,22 @@ def main(argv):
     common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
                   no_reload=True, N_iters=STEPS, i_print=50, i_weights=0,
                   i_video=0, i_testset=0, i_feat=0)
+
+    mlp_cfg = Config(expname="mlp_prepare", no_tcnn=True, lrate=5e-4,
+                     lrate_decay=250, **common)
+    if "--phase" in argv and argv[argv.index("--phase") + 1:][:1] == ["20"]:
+        # phase 20 alone, on the MLP arm's fine-pass rays
+        mlp_trainer = Trainer(mlp_cfg, scene=scene, log=log)
+        points = {False: bank_points(mlp_trainer, N_POINTS // 128, 7),
+                  True: bank_points(mlp_trainer, N_POINTS_SEM // 128, 8)}
+        del mlp_trainer
+        gen_records = gen_mlp_phase(exp_root, scene, common, points)
+        log(json.dumps({"kernels": gen_records}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # the trainer at the default prepare configuration
     cfg = Config(expname="default_prepare", **common)
@@ -4526,8 +5030,6 @@ def main(argv):
 
     # 7.-8. the MLP arm: the reference's --no_tcnn operating point
     # (tools/full_run.py:138-144)
-    mlp_cfg = Config(expname="mlp_prepare", no_tcnn=True, lrate=5e-4,
-                     lrate_decay=250, **common)
     mlp_trainer = Trainer(mlp_cfg, scene=scene, log=log)
     log(f"[setup] MLP trainer: coarse and fine "
         f"{type(mlp_trainer.fields['coarse']).__name__} "
@@ -4552,7 +5054,6 @@ def main(argv):
 
     # 11. the v1 fused MLP kernels, and make_fused_field_fn
     v1_records = compare_mlp_v1_kernels(v1_points)
-    del v1_points
     torch.cuda.empty_cache()
 
     # 12. the calibration kernel
@@ -4594,6 +5095,11 @@ def main(argv):
     # 19. data parallelism: two ranks on this card, a group of one, and
     # the command line's --mesh_shape 2
     dp = data_parallel_phase(exp_root, scene, argv)
+    torch.cuda.empty_cache()
+
+    # 20. the fused MLP on the generic kernels: f32 and other geometries
+    gen_records = gen_mlp_phase(exp_root, scene, common, v1_points)
+    del v1_points
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {
@@ -4615,7 +5121,8 @@ def main(argv):
     det_records = fixed_order_records(records, mlp_records, idx_records,
                                       v1_records, dp["det_launches"])
     log(json.dumps({"kernels": records + mlp_records + idx_records
-                    + v1_records + [cal_record] + det_records}))
+                    + v1_records + [cal_record] + det_records
+                    + gen_records}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ _BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_FLAGS = {
     "hash_encode_win": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "fused_mlp_pe": _BASE_FLAGS + ("-Xptxas", "-v"),
+    "fused_mlp_gen": _BASE_FLAGS + ("-Xptxas", "-v"),
     "hash_encode_idx": _BASE_FLAGS + ("-fmad=false", "-Xptxas", "-v"),
     "kbench_cal": _BASE_FLAGS + ("-Xptxas", "-v"),
 }

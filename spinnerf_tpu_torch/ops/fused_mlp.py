@@ -19,14 +19,21 @@ their gradients dx, dd, so autograd reaches the points. Weights are a dict
 of f32 tensors in the JAX layout: kernels [in, out], biases [1, out], named
 by `_weight_order`.
 
-Both launch the kernels of `csrc/fused_mlp_pe.cu` for CUDA tensors (or
-raise) and run their plain versions (`fused_mlp_pe_plain` /
-`fused_mlp_pe_bwd_plain`, `fused_mlp_fwd_plain` / `fused_mlp_bwd_plain`) for
-CPU tensors. The kernels read the trunk, feature and view matrices as one
-ring of pre-swizzled weight stages (`pack_ring`, packed by `gather_ring`):
-the forward its first stages, the backward all of them. The autograd
-functions pack it once a call, in the forward, and keep it for the
-backward.
+Both launch a kernel family for CUDA tensors (or raise) and run their
+plain versions (`fused_mlp_pe_plain` / `fused_mlp_pe_bwd_plain`,
+`fused_mlp_fwd_plain` / `fused_mlp_bwd_plain`) for CPU tensors. `route`
+picks the family from the geometry and the compute type:
+- "wgmma" (`csrc/fused_mlp_pe.cu`): bf16 at depth 8, skip 4, width 256,
+  view width 128, 128 / 128 encoding lanes and (v2) 10 / 4 octaves. Its
+  kernels read the trunk, feature and view matrices as one ring of
+  pre-swizzled bf16 weight stages (`pack_ring`, packed by `gather_ring`):
+  the forward its first stages, the backward all of them.
+- "gen" (`csrc/fused_mlp_gen.cu`): every other configuration within
+  `GEN_LIMITS`, f32 or bf16, on the CUDA cores. Its kernels read the
+  weights rounded to the compute type and their transposes (`gen_pack`).
+Beyond the limits a kernel entry raises ValueError; nothing falls back to
+the plain version on the card. The autograd functions pack the route's
+weights once a call, in the forward, and keep them for the backward.
 """
 from __future__ import annotations
 
@@ -43,13 +50,23 @@ from spinnerf_tpu_torch.models.embedding import positional_encoding
 from spinnerf_tpu_torch.ops import cuda_build
 
 # Kernel launches by the wrappers, counted where they launch and nowhere
-# else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8).
+# else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8) of the wgmma
+# route, and the same functions on the generic route.
 launches = {"fwd": 0, "bwd": 0}
 launches_v1 = {"fwd": 0, "bwd": 0}
+launches_gen = {"fwd": 0, "bwd": 0}
+launches_gen_v1 = {"fwd": 0, "bwd": 0}
 
 _HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
 _MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
 _BM = 64                                   # FM_BM: points per kernel block
+# The wgmma kernels' one configuration: (depth, skip, width, view_width,
+# in_dim, dir_dim, multires, multires_views) in bf16; v1 reads no octaves.
+WGMMA_GEOMETRY = (8, 4, 256, 128, 128, 128, 10, 4)
+# The generic family's limits (csrc/fused_mlp_gen.cu: FG_MAX_DEPTH, and the
+# widths whose block buffers fit the shared memory, fg_bm).
+GEN_LIMITS = {"depth": (1, 32), "width": (8, 2048), "enc_dims": (128, 256)}
+_GEN_MAX_JOBS = GEN_LIMITS["depth"][1] + 5       # FG_MAX_JOBS
 
 
 class MLPDims(NamedTuple):
@@ -239,11 +256,19 @@ def fused_mlp_fwd_plain(weights, x_enc, d_enc, dims: MLPDims,
     return _heads(weights, h, v, dims, acc_dtype)
 
 
+def _relu_masks(zs, vz, masks):
+    """The ReLU masks a backward takes: `masks` (trunk layers' [P, width]
+    and the view layer's [P, view_width] bool, e.g. another evaluation's)
+    or the evaluation's own, z > 0."""
+    return masks if masks is not None else ([z > 0 for z in zs], vz > 0)
+
+
 def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
-                           acc_dtype=torch.float32) -> dict:
+                           acc_dtype=torch.float32, masks=None) -> dict:
     """What the backward kernel computes (`_bwd_pe_kernel`): the forward
     recomputed with its roundings, then weight gradients only, for the
     cotangent g [P, 4+e], in `_weight_order` (shapes of the weights).
+    `masks`: the ReLU masks to take (`_relu_masks`), by default its own.
 
     Bias gradients are sums in `acc_dtype` over all P points; the JAX kernel
     rounds each block's sum of a bf16 gradient to bf16 (`fused_mlp.py:515`)
@@ -251,6 +276,7 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
     r = _rounding(dims, acc_dtype)
     acts_in, zs, h_last, hv, vz, v = _forward_acts(
         weights, *_encodings(xd, dims), dims, acc_dtype)
+    trunk_masks, view_mask = _relu_masks(zs, vz, masks)
     g = g.to(acc_dtype)
     w = dims.width
     g_rgb, g_sigma = g[:, :3], g[:, 3:4]
@@ -265,7 +291,7 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
         return a.sum(dim=0, keepdim=True)
 
     d = {"rgb_w": mm_tn(v, g_rgb), "rgb_b": colsum(g_rgb)}
-    g_v = r(mm_nt(g_rgb, weights["rgb_w"]) * (vz > 0))
+    g_v = r(mm_nt(g_rgb, weights["rgb_w"]) * view_mask)
     d["view_w"], d["view_b"] = mm_tn(hv, g_v), colsum(g_v)
     g_feat = r(mm_nt(g_v, weights["view_w"][:w]))
     d["feat_w"], d["feat_b"] = mm_tn(h_last, g_feat), colsum(g_feat)
@@ -279,7 +305,7 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
     for i in range(dims.depth - 1, -1, -1):
         if i == dims.skip:
             g_h = g_h[:, dims.in_dim:]      # the encoding's gradient is dead
-        g_z = r(g_h * (zs[i] > 0))
+        g_z = r(g_h * trunk_masks[i])
         d[f"tw{i}"], d[f"tb{i}"] = mm_tn(acts_in[i], g_z), colsum(g_z)
         if i > 0:
             g_h = mm_nt(g_z, weights[f"tw{i}"])
@@ -287,13 +313,13 @@ def fused_mlp_pe_bwd_plain(weights, xd, g, dims: MLPDims,
 
 
 def fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims: MLPDims,
-                        acc_dtype=torch.float32):
+                        acc_dtype=torch.float32, masks=None):
     """What the v1 backward kernel computes (`_bwd_kernel`): the forward
     recomputed on the encodings, then every weight gradient and the input
     gradients dx [P, in_dim] (layer 0's input gradient plus the skip layer's
     encoding slice) and dd [P, dir_dim] (the view layer's direction slice),
     for the cotangent g [P, 4+e]. Returns (weight gradients in
-    `_weight_order`, dx, dd).
+    `_weight_order`, dx, dd). `masks`: as in `fused_mlp_pe_bwd_plain`.
 
     The rounding points are v1's, not v2's (`fused_mlp_pe_bwd_plain`): v1
     keeps the gradients g_v, g_feat and g_z in f32 and rounds them only as
@@ -303,6 +329,7 @@ def fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims: MLPDims,
     r = _rounding(dims, acc_dtype)
     acts_in, zs, h_last, hv, vz, v = _forward_acts(weights, x_enc, d_enc,
                                                    dims, acc_dtype)
+    trunk_masks, view_mask = _relu_masks(zs, vz, masks)
     g = g.to(acc_dtype)
     w = dims.width
     g_rgb, g_sigma = g[:, :3], g[:, 3:4]
@@ -317,7 +344,7 @@ def fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims: MLPDims,
         return a.sum(dim=0, keepdim=True)
 
     d = {"rgb_w": mm_tn(v, g_rgb), "rgb_b": colsum(g_rgb)}
-    g_v = mm_nt(g_rgb, weights["rgb_w"]) * (vz > 0)
+    g_v = mm_nt(g_rgb, weights["rgb_w"]) * view_mask
     d["view_w"], d["view_b"] = mm_tn(hv, g_v), colsum(g_v)
     g_hv = mm_nt(g_v, weights["view_w"])
     g_feat, dd = g_hv[:, :w], g_hv[:, w:]
@@ -335,7 +362,7 @@ def fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims: MLPDims,
             # the skip layer's input was [x, h_skip]
             dx = dx + g_h[:, :dims.in_dim]
             g_h = g_h[:, dims.in_dim:]
-        g_z = g_h * (zs[i] > 0)
+        g_z = g_h * trunk_masks[i]
         d[f"tw{i}"], d[f"tb{i}"] = mm_tn(acts_in[i], g_z), colsum(g_z)
         g_h = mm_nt(g_z, weights[f"tw{i}"])
     dx = dx + g_h
@@ -396,28 +423,63 @@ def _lib():
     return lib
 
 
-def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
-    """Raise unless the kernels take `dims` and the inputs: xd [P, 8] (v2)
-    or, with `pre`, the encodings (x_enc [P, 128], d_enc [P, 128]) (v1),
-    each a contiguous float32 CUDA tensor with P a multiple of 64."""
-    if dims.compute_dtype == "float32":
-        raise NotImplementedError("compute_dtype='float32' has no kernel on "
-                                  "the card yet; see ROADMAP.md B1a")
-    # the one geometry chip_smoke.py's phases 6 and 11 hold against the plain
-    # version: the reference's 8 x 256 with skip 4 and (v2, whose kernels
-    # encode) 10 / 4 octaves
+def route(dims: MLPDims, pre: bool = False) -> str:
+    """The kernel family of `dims` on the card: "wgmma" (bf16 at
+    `WGMMA_GEOMETRY`; v1, `pre`, at any octave count) or "gen" (every other
+    configuration within `GEN_LIMITS`). Raises ValueError naming the limit
+    a configuration breaks."""
+    if dims.compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"unsupported compute_dtype {dims.compute_dtype!r}")
+    if dims.out_extra not in (0, 1):
+        raise ValueError(f"the fused MLP kernels take out_extra 0 or 1, got "
+                         f"{dims.out_extra}")
     geom = (dims.depth, dims.skip, dims.width, dims.view_width, dims.in_dim,
             dims.dir_dim) + (() if pre else (dims.multires,
                                             dims.multires_views))
-    if geom != (8, 4, 256, 128, 128, 128, 10, 4)[:len(geom)]:
-        raise NotImplementedError(
-            f"the fused MLP kernels are verified at depth 8, skip 4, width "
-            f"256, view width 128{'' if pre else ' and 10 / 4 octaves'} "
-            f"only, got {dims}; see ROADMAP.md B1b")
+    if (dims.compute_dtype == "bfloat16"
+            and geom == WGMMA_GEOMETRY[:len(geom)]):
+        return "wgmma"
+    lo, hi = GEN_LIMITS["depth"]
+    if not lo <= dims.depth <= hi:
+        raise ValueError(f"the fused MLP kernels take depth {lo}-{hi}, got "
+                         f"{dims.depth}")
+    if dims.skip < 0 or dims.depth == dims.skip + 1:
+        raise ValueError(f"the fused MLP kernels take skip >= 0 and depth "
+                         f"!= skip + 1 (the concat would feed the heads), "
+                         f"got depth {dims.depth}, skip {dims.skip}")
+    lo, hi = GEN_LIMITS["width"]
+    if not lo <= dims.width <= hi:
+        raise ValueError(f"the fused MLP kernels take width {lo}-{hi}, got "
+                         f"{dims.width}")
+    if not 1 <= dims.view_width <= dims.width:
+        raise ValueError(f"the fused MLP kernels take a view width of 1 to "
+                         f"the width, got {dims.view_width}")
+    enc = GEN_LIMITS["enc_dims"]
+    if dims.in_dim not in enc or dims.dir_dim not in enc:
+        raise ValueError(f"the fused MLP kernels take encoding widths "
+                         f"(in_dim, dir_dim) of {enc}, got {dims.in_dim}, "
+                         f"{dims.dir_dim}")
+    if not pre and not (0 <= dims.multires
+                        and 3 * (1 + 2 * dims.multires) <= dims.in_dim
+                        and 0 <= dims.multires_views
+                        and 3 * (1 + 2 * dims.multires_views)
+                        <= dims.dir_dim):
+        raise ValueError(f"{dims.multires} / {dims.multires_views} octaves "
+                         f"do not fit encoding widths {dims.in_dim} / "
+                         f"{dims.dir_dim}")
+    return "gen"
+
+
+def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool) -> str:
+    """The route of `dims` (`route`); raise unless the kernels take the
+    inputs: xd [P, 8] (v2) or, with `pre`, the encodings (x_enc [P, in_dim],
+    d_enc [P, dir_dim]) (v1), each a contiguous float32 CUDA tensor with P a
+    multiple of 64."""
+    rt = route(dims, pre)
     p = inputs[0].shape[0]
     width = (dims.in_dim, dims.dir_dim) if pre else (8,)
     for a, k in zip(inputs, width):
-        # the v1 kernels read the encodings as float4
+        # the v1 wgmma kernels read the encodings as float4
         if (not a.is_cuda or a.dtype != torch.float32 or a.shape != (p, k)
                 or not a.is_contiguous() or p % _BM
                 or a.data_ptr() % 16):
@@ -434,6 +496,14 @@ def _check_kernel_args(weights, inputs, dims: MLPDims, pre: bool):
             raise ValueError(f"weight {n} must be a contiguous, 16-byte "
                              f"aligned float32 {shape} on {dev}, got "
                              f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    return rt
+
+
+def _counts(rt: str, pre: bool) -> dict:
+    """The launch counter of a route's forward and backward (v1: `pre`)."""
+    return {("wgmma", False): launches, ("wgmma", True): launches_v1,
+            ("gen", False): launches_gen,
+            ("gen", True): launches_gen_v1}[(rt, pre)]
 
 
 def pack_weights(weights, dims: MLPDims):
@@ -562,27 +632,321 @@ def _params(weights, dims: MLPDims, ring):
 
 
 def _raise_on(lib, fn_name: str, err: int):
+    """Raise if a C entry returned an error; `fn_name`'s prefix (fm_, fg_)
+    names the library's error-string function."""
     if err:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.fm_error_string(err).decode()}")
+        text = getattr(lib, fn_name.split("_")[0] + "_error_string")(err)
+        raise RuntimeError(f"{fn_name} launch failed: {text.decode()}")
 
 
-def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, ring=None):
-    """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
-    `fm_fwd`, #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1,
-    `fm_fwd_pre`, #7) needs: a function that launches the kernel on those
-    buffers and returns raw [P, 4+e] f32 (the same tensor each call).
-    `ring`: `gather_ring`'s whole ring or its forward stages, packed here
-    when None. Counts no launch, so it also times the kernel alone."""
+# -----------------------------------------------------------------------------
+# the generic kernels (csrc/fused_mlp_gen.cu)
+# -----------------------------------------------------------------------------
+
+class _FgParams(ctypes.Structure):
+    """`FgParams` of csrc/fused_mlp_gen.cu, field for field."""
+    _fields_ = (
+        [(n, _VP * GEN_LIMITS["depth"][1]) for n in ("tw", "tb", "twt")]
+        + [(n, _VP) for n in ("feat_w", "feat_b", "featt", "view_w", "view_b",
+                              "viewt", "rgb_w", "rgb_b", "rgbt", "sigma_w",
+                              "sigma_b", "sem_w", "sem_b")]
+        + [(n, ctypes.c_longlong * _GEN_MAX_JOBS) for n in ("gw", "gb")]
+        + [("n_params", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in ("depth", "skip", "width",
+                                       "view_width", "in_dim", "dir_dim",
+                                       "out_extra", "multires",
+                                       "multires_views", "bf16")])
+
+
+def _gen_lib():
+    lib = cuda_build.load("fused_mlp_gen")
+    if not getattr(lib, "_fg_typed", False):
+        prm, i32 = ctypes.POINTER(_FgParams), ctypes.c_int
+        lib.fg_fwd.argtypes = [prm, _VP, _VP, i32, _VP]
+        lib.fg_fwd_pre.argtypes = [prm, _VP, _VP, _VP, i32, _VP]
+        lib.fg_bwd.argtypes = [prm] + [_VP] * 6 + [i32, _VP]
+        lib.fg_bwd_pre.argtypes = [prm] + [_VP] * 9 + [i32, _VP]
+        lib.fg_bwd_pass.argtypes = [prm] + [_VP] * 9 + [i32] * 3 + [_VP]
+        lib.fg_sizes.argtypes = [prm, i32, i32,
+                                 ctypes.POINTER(ctypes.c_longlong)]
+        for fn in (lib.fg_fwd, lib.fg_fwd_pre, lib.fg_bwd, lib.fg_bwd_pre,
+                   lib.fg_bwd_pass, lib.fg_sizes):
+            fn.restype = i32
+        lib.fg_error_string.argtypes = [i32]
+        lib.fg_error_string.restype = ctypes.c_char_p
+        lib._fg_typed = True
+    return lib
+
+
+def _gen_matrices(dims: MLPDims):
+    """The weight matrices the generic kernels multiply, in
+    `_weight_order`."""
+    return [n for n in _weight_order(dims)
+            if n.startswith("tw") or n.endswith("_w")]
+
+
+def _gen_transposed(dims: MLPDims):
+    """The matrices whose transposes the generic backward multiplies
+    (sigma_w and sem_w, [width, 1], serve as their own)."""
+    return [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w",
+                                                     "rgb_w"]
+
+
+def gen_pack_offsets(dims: MLPDims, backward: bool = True):
+    """({name: element offset}, elements) of `gen_pack`'s buffer: every
+    matrix of `_gen_matrices`, then with `backward` the transposes of
+    `_gen_transposed`, keyed "<name>^T"."""
+    shapes = weight_shapes(dims)
+    offs, off = {}, 0
+    for n in _gen_matrices(dims):
+        offs[n], off = off, off + math.prod(shapes[n])
+    if backward:
+        for n in _gen_transposed(dims):
+            offs[n + "^T"], off = off, off + math.prod(shapes[n])
+    return offs, off
+
+
+_gen_index_cache: dict = {}
+
+
+def _gen_transpose_index(dims: MLPDims, device):
+    """The index, into the matrices of `gen_pack`'s buffer, of every element
+    of its transposes (int64 on `device`, built once per geometry)."""
+    key = (dims, str(device))
+    if key not in _gen_index_cache:
+        shapes = weight_shapes(dims)
+        offs, _ = gen_pack_offsets(dims, backward=False)
+        _gen_index_cache[key] = torch.cat([
+            torch.arange(offs[n], offs[n] + math.prod(shapes[n])).view(
+                shapes[n]).t().reshape(-1)
+            for n in _gen_transposed(dims)]).to(device)
+    return _gen_index_cache[key]
+
+
+def gen_pack(weights, dims: MLPDims, *, backward: bool = True):
+    """What the generic kernels read of the weight matrices, in one f32
+    buffer (`gen_pack_offsets`): each matrix in the JAX layout [in, out]
+    rounded to the compute type, as the plain version rounds it, and with
+    `backward` their transposes [out, in]. The biases are read as they
+    are."""
+    flat = torch.cat([weights[n].reshape(-1) for n in _gen_matrices(dims)])
+    if dims.compute_dtype == "bfloat16":
+        flat = flat.to(torch.bfloat16).to(torch.float32)
+    if backward:
+        flat = torch.cat([flat, flat[_gen_transpose_index(dims,
+                                                          flat.device)]])
+    return flat
+
+
+def _flat_offsets(dims: MLPDims):
+    """({name: element offset}, elements) of the weights flattened one
+    after another in `_weight_order`: the generic backward's gradient
+    buffer."""
+    offs, off = {}, 0
+    for n, shape in weight_shapes(dims).items():
+        offs[n], off = off, off + math.prod(shape)
+    return offs, off
+
+
+def gen_params(weights, dims: MLPDims, pack) -> _FgParams:
+    """FgParams: the biases, the matrices of `pack` (`gen_pack`'s buffer,
+    the forward's or the backward's) and the gradients' offsets in the
+    flat buffer (`_flat_offsets`), by job: the trunk, the feature, view,
+    rgb, sigma and semantic layers."""
+    offs, n_bwd = gen_pack_offsets(dims, backward=True)
+    n_fwd = gen_pack_offsets(dims, backward=False)[1]
+    if pack.dtype != torch.float32 or pack.numel() not in (n_fwd, n_bwd):
+        raise ValueError(f"the generic kernels' pack must be gen_pack's "
+                         f"f32 buffer of {n_fwd} or {n_bwd} elements, got "
+                         f"{pack.dtype} {pack.numel()}")
+    base = pack.data_ptr()
+
+    def ptr(key):
+        return base + 4 * offs[key] if offs[key] < pack.numel() else None
+
+    prm = _FgParams()
+    for i in range(dims.depth):
+        prm.tw[i], prm.twt[i] = ptr(f"tw{i}"), ptr(f"tw{i}^T")
+        prm.tb[i] = weights[f"tb{i}"].data_ptr()
+    for n in ("feat", "view", "rgb"):
+        setattr(prm, f"{n}_w", ptr(f"{n}_w"))
+        setattr(prm, f"{n}t", ptr(f"{n}_w^T"))
+    heads = ["sigma"] + (["sem"] if dims.out_extra else [])
+    for n in heads:
+        setattr(prm, f"{n}_w", ptr(f"{n}_w"))
+    for n in ["feat", "view", "rgb"] + heads:
+        setattr(prm, f"{n}_b", weights[f"{n}_b"].data_ptr())
+    goff, prm.n_params = _flat_offsets(dims)
+    jobs = [f"tw{i}" for i in range(dims.depth)] + [
+        f"{n}_w" for n in ["feat", "view", "rgb"] + heads]
+    for j, n in enumerate(jobs):
+        prm.gw[j] = goff[n]
+        prm.gb[j] = goff[n.replace("tw", "tb").replace("_w", "_b")]
+    prm.depth, prm.skip, prm.width = dims.depth, dims.skip, dims.width
+    prm.view_width, prm.in_dim, prm.dir_dim = (dims.view_width, dims.in_dim,
+                                               dims.dir_dim)
+    prm.out_extra, prm.multires = dims.out_extra, dims.multires
+    prm.multires_views = dims.multires_views
+    prm.bf16 = int(dims.compute_dtype == "bfloat16")
+    return prm
+
+
+class _GenBwdCall(NamedTuple):
+    """The arguments of one generic backward and the buffers they point
+    into (`_gen_bwd_args`)."""
+    lib: ctypes.CDLL
+    prm: _FgParams
+    ptrs: tuple             # in_x, in_d, g, grads, dx, dd, scratch, part, acc
+    n_points: int
+    flat: torch.Tensor      # the gradients in `_weight_order`
+    dx: torch.Tensor | None
+    dd: torch.Tensor | None
+    scratch_bytes: int
+    keep: tuple             # what the arguments point into besides
+
+
+def _gen_bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                  pack=None) -> _GenBwdCall:
+    """Check the inputs and allocate what a generic backward on (xd,) (v2)
+    or, with `pre`, on the encodings (x_enc, d_enc) (v1) needs: the packed
+    weights (`gen_pack`, packed here when `pack` is None), the flat f32
+    gradients (every entry written by the kernels), with `pre` dx and dd,
+    and the scratch, split partial sums and chunk sums (`fg_sizes`)."""
     _check_kernel_args(weights, inputs, dims, pre)
-    lib = _lib()
-    if ring is None:
-        ring = gather_ring(weights, dims, pre, forward=True)
-    prm, bufs = _params(weights, dims, ring)
+    p, dev = inputs[0].shape[0], inputs[0].device
+    if g.shape != (p, 4 + dims.out_extra):
+        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
+                         f"got {tuple(g.shape)}")
+    g = g.to(torch.float32).contiguous()
+    lib = _gen_lib()
+    if pack is None:
+        pack = gen_pack(weights, dims, backward=True)
+    if pack.numel() != gen_pack_offsets(dims, backward=True)[1]:
+        raise ValueError("the generic backward needs gen_pack's buffer with "
+                         "the transposes (backward=True)")
+    prm = gen_params(weights, dims, pack)
+    sizes = (ctypes.c_longlong * 3)()
+    _raise_on(lib, "fg_sizes", lib.fg_sizes(ctypes.byref(prm), p, int(pre),
+                                            sizes))
+    scratch, part, acc = (torch.empty(max(int(k), 1), dtype=dt, device=dev)
+                          for k, dt in zip(sizes, (torch.float32,
+                                                   torch.float64,
+                                                   torch.float64)))
+    flat = (torch.empty if p else torch.zeros)(
+        prm.n_params, dtype=torch.float32, device=dev)
+    dx = dd = None
+    if pre:
+        dx = torch.empty((p, dims.in_dim), dtype=torch.float32, device=dev)
+        dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
+    ptrs = (inputs[0].data_ptr(), inputs[1].data_ptr() if pre else None,
+            g.data_ptr(), flat.data_ptr(),
+            dx.data_ptr() if pre else None, dd.data_ptr() if pre else None,
+            scratch.data_ptr(), part.data_ptr(), acc.data_ptr())
+    # the pack, g and the scratch stay referenced until the launch is
+    # queued; the caching allocator then reuses them in stream order
+    return _GenBwdCall(lib, prm, ptrs, p, flat, dx, dd, 4 * int(sizes[0]),
+                       (pack, g, scratch, part, acc))
+
+
+def gen_scratch_columns(dims: MLPDims) -> dict:
+    """The generic backward's scratch columns, as `fg_layout` in
+    csrc/fused_mlp_gen.cu lays them out (change both together): each
+    trunk layer's output "h" (its ReLU mask kept as the sign of a zero),
+    the encodings "xe" / "de" (xe right before the skip layer's h, so that
+    the skip layer's input is contiguous), "feat", the view output "v",
+    the gradients, the cotangent, and "cols" in all."""
+    sk = dims.skip + 1 < dims.depth
+    c, out = 0, {"h": []}
+    for i in range(dims.depth):
+        if sk and i == dims.skip:
+            out["xe"], c = c, c + dims.in_dim
+        out["h"].append(c)
+        c += dims.width
+    if not sk:
+        out["xe"], c = c, c + dims.in_dim
+    for name, n in (("feat", dims.width), ("de", dims.dir_dim),
+                    ("v", dims.view_width)):
+        out[name], c = c, c + n
+    out["gz"] = [c + i * dims.width for i in range(dims.depth)]
+    c += dims.depth * dims.width
+    for name, n in (("gfeat", dims.width), ("gv", dims.view_width),
+                    ("gin", 4 + dims.out_extra)):
+        out[name], c = c, c + n
+    out["cols"] = c
+    return out
+
+
+def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
+    """The ReLU masks that the generic backward's recompute takes at every
+    point (its pass 1 alone, read back from the scratch: a unit is on where
+    the stored output is not +0): ([P, width] bool per trunk layer,
+    [P, view_width] bool), for holding the kernel's gradients against an
+    evaluation with the same masks (`fused_mlp_pe_bwd_plain(masks=)`).
+    The points run in pieces that fit one chunk of the scratch."""
+    cols = gen_scratch_columns(dims)
+    p = inputs[0].shape[0]
+    piece = max(_BM, (4 << 30) // (4 * cols["cols"]) // _BM * _BM)
+    trunk, view = [[] for _ in range(dims.depth)], []
+    for p0 in range(0, p, piece):
+        part = tuple(a[p0:p0 + piece] for a in inputs)
+        g = torch.zeros((part[0].shape[0], 4 + dims.out_extra),
+                        device=part[0].device)
+        c = _gen_bwd_args(weights, part, g, dims, pre=pre)
+        stream = torch.cuda.current_stream(part[0].device).cuda_stream
+        _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
+            ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1, stream))
+        n = part[0].shape[0]
+        scr = c.keep[2][:cols["cols"] * n].view(cols["cols"], n).view(
+            torch.int32)
+        for i, c0 in enumerate(cols["h"]):
+            trunk[i].append((scr[c0:c0 + dims.width] != 0).t())
+        view.append((scr[cols["v"]:cols["v"] + dims.view_width] != 0).t())
+    return [torch.cat(t) for t in trunk], torch.cat(view)
+
+
+def _gen_bwd(weights, inputs, g, dims: MLPDims, *, pre: bool, pack=None):
+    """One generic backward (`fg_bwd`, `fg_bwd_pre`), uncounted: (f32
+    weight gradients in `_weight_order`, dx, dd)."""
+    c = _gen_bwd_args(weights, inputs, g, dims, pre=pre, pack=pack)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    if pre:
+        err = c.lib.fg_bwd_pre(ctypes.byref(c.prm), *c.ptrs, c.n_points,
+                               stream)
+    else:
+        in_x, _, g_, grads, _, _, *rest = c.ptrs
+        err = c.lib.fg_bwd(ctypes.byref(c.prm), in_x, g_, grads, *rest,
+                           c.n_points, stream)
+    _raise_on(c.lib, "fg_bwd_pre" if pre else "fg_bwd", err)
+    offs, _ = _flat_offsets(dims)
+    grads = {n: c.flat[offs[n]:offs[n] + math.prod(s)].view(s)
+             for n, s in weight_shapes(dims).items()}
+    return grads, c.dx, c.dd
+
+
+def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
+    """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
+    #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1, #7) needs on
+    the route of `dims` (`route`): a function that launches the kernel on
+    those buffers and returns raw [P, 4+e] f32 (the same tensor each call),
+    its route as `run.route`. `pack`: `pack_for`'s (wgmma: `gather_ring`'s
+    whole ring or its forward stages; gen: `gen_pack`'s buffer), packed here
+    when None. Counts no launch, so it also times the kernel alone."""
+    rt = _check_kernel_args(weights, inputs, dims, pre)
+    if rt == "gen":
+        lib = _gen_lib()
+        if pack is None:
+            pack = gen_pack(weights, dims, backward=False)
+        prm, bufs = gen_params(weights, dims, pack), (pack,)
+        name = "fg_fwd_pre" if pre else "fg_fwd"
+    else:
+        lib = _lib()
+        if pack is None:
+            pack = gather_ring(weights, dims, pre, forward=True)
+        prm, bufs = _params(weights, dims, pack)
+        name = "fm_fwd_pre" if pre else "fm_fwd"
     out = torch.empty((inputs[0].shape[0], 4 + dims.out_extra),
                       dtype=torch.float32, device=inputs[0].device)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
-    name = "fm_fwd_pre" if pre else "fm_fwd"
     launch, ins = getattr(lib, name), [a.data_ptr() for a in inputs]
 
     def run():
@@ -591,17 +955,28 @@ def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, ring=None):
         return out
 
     run.keep = bufs     # what prm points into, alive as long as run
+    run.route = rt
     return run
 
 
-def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, ring=None):
-    """One launch of the forward kernel (`fwd_fn`), counted: raw [P, 4+e]
-    f32 (no autograd)."""
-    # the bf16 buffers stay referenced until the launch is queued; the
+def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
+    """One launch of the forward kernel (`fwd_fn`), counted on its route:
+    raw [P, 4+e] f32 (no autograd)."""
+    # the packed buffers stay referenced until the launch is queued; the
     # caching allocator then reuses them in stream order
-    out = fwd_fn(weights, inputs, dims, pre=pre, ring=ring)()
-    (launches_v1 if pre else launches)["fwd"] += 1
+    run = fwd_fn(weights, inputs, dims, pre=pre, pack=pack)
+    out = run()
+    _counts(run.route, pre)["fwd"] += 1
     return out
+
+
+def pack_for(weights, dims: MLPDims, pre: bool):
+    """What the route's kernels read of the weights, packed once for a
+    forward and its backward: the wgmma ring (`gather_ring`) or the generic
+    kernels' buffer (`gen_pack`)."""
+    if route(dims, pre) == "gen":
+        return gen_pack(weights, dims, backward=True)
+    return gather_ring(weights, dims, pre)
 
 
 class _BwdCall(NamedTuple):
@@ -699,22 +1074,27 @@ def _bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
 
 
 def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
-                ring=None):
-    """One launch of the backward (the recompute-and-backprop kernel, then
-    the split-K weight-gradient kernel) on (xd,) (v2, `fm_bwd`, #10) or,
-    with `pre`, on the encodings (x_enc, d_enc) (v1, `fm_bwd_pre`, #8),
-    counted: (f32 weight gradients for the cotangent g [P, 4+e] in
-    `_weight_order`, dx, dd), the input gradients [P, 128] f32 with `pre`
-    and None without. `ring`: `gather_ring`'s, packed here when None. The
-    sums of the blocks' and splits' partial gradients run in a fixed order
-    (the note in the CUDA source), so launches on the same inputs are
+                pack=None):
+    """One launch of the backward on (xd,) (v2, #10) or, with `pre`, on the
+    encodings (x_enc, d_enc) (v1, #8), on the route of `dims` (wgmma:
+    `fm_bwd` / `fm_bwd_pre`, the recompute-and-backprop kernel, then the
+    split-K weight-gradient kernel; gen: `fg_bwd` / `fg_bwd_pre`), counted:
+    (f32 weight gradients for the cotangent g [P, 4+e] in `_weight_order`,
+    dx, dd), the input gradients [P, in_dim] / [P, dir_dim] f32 with `pre`
+    and None without. `pack`: `pack_for`'s, packed here when None. The sums
+    of the blocks' and splits' partial gradients run in a fixed order (the
+    notes in the CUDA sources), so launches on the same inputs are
     bit-equal."""
-    c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=ring)
+    if route(dims, pre) == "gen":
+        out = _gen_bwd(weights, inputs, g, dims, pre=pre, pack=pack)
+        _counts("gen", pre)["bwd"] += 1
+        return out
+    c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=pack)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     args = c.args if pre else c.args[:3] + c.args[4:]    # fm_bwd: no d_enc
     name = "fm_bwd_pre" if pre else "fm_bwd"
     _raise_on(c.lib, name, getattr(c.lib, name)(*args, stream))
-    (launches_v1 if pre else launches)["bwd"] += 1
+    _counts("wgmma", pre)["bwd"] += 1
     nout = 4 + dims.out_extra
     h0 = c.offs["rgb_b"]
     c.flat[h0:h0 + nout].copy_(c.head_b[:nout])
@@ -726,19 +1106,30 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
 
 
 def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
-    """For timing the backward's two kernels apart (`fm_bwd_pass`): two
-    functions that launch, on one set of buffers, the recompute-and-backprop
-    kernel and the weight-gradient kernel (which reduces what the first one
-    wrote; call that one first), and the bytes of that scratch. Counts no
-    launch; no result is read. Each pass includes its fixed-order sums."""
-    c = _bwd_args(weights, inputs, g, dims, pre=pre)
+    """For timing the backward's two passes apart (`fm_bwd_pass`,
+    `fg_bwd_pass`, on the route of `dims`): two functions that launch, on
+    one set of buffers, the recompute-and-backprop kernel and the
+    weight-gradient reduction (which reduces what the first one wrote; call
+    that one first; the generic route runs each pass over its chunks of
+    points), and the bytes of that scratch. Counts no launch; no result is
+    read. Each pass includes its fixed-order sums."""
+    if route(dims, pre) == "gen":
+        c = _gen_bwd_args(weights, inputs, g, dims, pre=pre)
+        scratch_bytes = c.scratch_bytes
+
+        def run(k):
+            _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
+                ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), k,
+                stream))
+    else:
+        c = _bwd_args(weights, inputs, g, dims, pre=pre)
+        scratch_bytes = sum(a.numel() * a.element_size() for a in c.scratch)
+
+        def run(k):
+            _raise_on(c.lib, "fm_bwd_pass",
+                      c.lib.fm_bwd_pass(*c.args, int(pre), k, stream))
+
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
-    scratch_bytes = sum(a.numel() * a.element_size() for a in c.scratch)
-
-    def run(k):
-        _raise_on(c.lib, "fm_bwd_pass",
-                  c.lib.fm_bwd_pass(*c.args, int(pre), k, stream))
-
     return (lambda: run(1)), (lambda: run(2)), scratch_bytes
 
 
@@ -755,23 +1146,24 @@ def fused_mlp_pe_bwd_kernel(weights, xd, g, dims: MLPDims) -> dict:
 
 
 def fused_mlp_fwd_kernel(weights, x_enc, d_enc, dims: MLPDims):
-    """One launch of the v1 forward kernel (#7) on the encodings x_enc,
-    d_enc [P, 128] f32: raw [P, 4+e] f32."""
+    """One launch of the v1 forward kernel (#7) on the encodings x_enc
+    [P, in_dim], d_enc [P, dir_dim] f32: raw [P, 4+e] f32."""
     return _fwd_launch(weights, (x_enc, d_enc), dims, pre=True)
 
 
 def fused_mlp_bwd_kernel(weights, x_enc, d_enc, g, dims: MLPDims):
     """One launch of the v1 backward (#8): (f32 weight gradients in
-    `_weight_order`, dx [P, 128], dd [P, 128]) for the cotangent g."""
+    `_weight_order`, dx [P, in_dim], dd [P, dir_dim]) for the cotangent
+    g."""
     return _bwd_launch(weights, (x_enc, d_enc), g, dims, pre=True)
 
 
 class _FusedMLPPE(torch.autograd.Function):
-    """Kernel forward and backward on CUDA tensors, the plain version on CPU
-    tensors; the gradient flows to the weights only, as in the JAX custom
-    VJP. On CUDA the forward packs the weight ring, which the backward
-    reads too: the saved weights cannot change in between (autograd's
-    version check)."""
+    """Kernel forward and backward on CUDA tensors (the route of `dims`),
+    the plain version on CPU tensors; the gradient flows to the weights
+    only, as in the JAX custom VJP. On CUDA the forward packs the route's
+    weights (`pack_for`), which the backward reads too: the saved weights
+    cannot change in between (autograd's version check)."""
 
     @staticmethod
     def forward(ctx, dims, xd, *ws):
@@ -780,8 +1172,8 @@ class _FusedMLPPE(torch.autograd.Function):
         ctx.save_for_backward(xd, *ws)
         if not xd.is_cuda:
             return fused_mlp_pe_plain(weights, xd, dims)
-        ctx.ring = gather_ring(weights, dims, pre=False)
-        return _fwd_launch(weights, (xd,), dims, pre=False, ring=ctx.ring)
+        ctx.pack = pack_for(weights, dims, pre=False)
+        return _fwd_launch(weights, (xd,), dims, pre=False, pack=ctx.pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -790,7 +1182,7 @@ class _FusedMLPPE(torch.autograd.Function):
         weights = dict(zip(_weight_order(dims), ws))
         if xd.is_cuda:
             d, _, _ = _bwd_launch(weights, (xd,), g, dims, pre=False,
-                                  ring=ctx.ring)
+                                  pack=ctx.pack)
         else:
             d = fused_mlp_pe_bwd_plain(weights, xd, g, dims)
         return (None, None, *(d[n] for n in _weight_order(dims)))
@@ -824,7 +1216,7 @@ def make_fused_pe_field_fn(dims: MLPDims, *, block: int = 512):
 class _FusedMLP(torch.autograd.Function):
     """The v1 kernels (#7/#8) on CUDA tensors, their plain version on CPU
     tensors; the gradient flows to the weights and to both encodings, as in
-    the JAX custom VJP. The weight ring is packed once, as in
+    the JAX custom VJP. The weights are packed once, as in
     `_FusedMLPPE`."""
 
     @staticmethod
@@ -834,9 +1226,9 @@ class _FusedMLP(torch.autograd.Function):
         ctx.save_for_backward(x_enc, d_enc, *ws)
         if not x_enc.is_cuda:
             return fused_mlp_fwd_plain(weights, x_enc, d_enc, dims)
-        ctx.ring = gather_ring(weights, dims, pre=True)
+        ctx.pack = pack_for(weights, dims, pre=True)
         return _fwd_launch(weights, (x_enc, d_enc), dims, pre=True,
-                           ring=ctx.ring)
+                           pack=ctx.pack)
 
     @staticmethod
     def backward(ctx, g):
@@ -845,7 +1237,7 @@ class _FusedMLP(torch.autograd.Function):
         weights = dict(zip(_weight_order(dims), ws))
         if x_enc.is_cuda:
             d, dx, dd = _bwd_launch(weights, (x_enc, d_enc), g, dims,
-                                    pre=True, ring=ctx.ring)
+                                    pre=True, pack=ctx.pack)
         else:
             d, dx, dd = fused_mlp_bwd_plain(weights, x_enc, d_enc, g, dims)
         return (None, dx, dd, *(d[n] for n in _weight_order(dims)))

@@ -159,23 +159,31 @@ def test_field_init_is_seeded_padded_and_validated():
 
 def test_kernel_wrappers_take_no_cpu_tensors():
     """The kernel wrappers never fall back to the plain version: CPU
-    tensors raise, and so do float32 compute (no kernel yet) and a
-    geometry that the card check does not hold (depth 6)."""
+    tensors raise on either route, float32 compute and depth 6 route to the
+    generic kernels (and still refuse CPU tensors), and a geometry past the
+    generic kernels' limits raises naming the limit."""
     f = tfm.FusedMLPField(device="cpu")
     f.reset_parameters(torch.Generator().manual_seed(0))
     w = {n: p.detach() for n, p in f.weights.items()}
     xd = torch.zeros(64, 8)
+    assert tfm.route(f.dims) == "wgmma"
     with pytest.raises(ValueError, match="CUDA"):
         tfm.fused_mlp_pe_fwd_kernel(w, xd, f.dims)
     with pytest.raises(ValueError, match="CUDA"):
         tfm.fused_mlp_pe_bwd_kernel(w, xd, torch.zeros(64, 4), f.dims)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.fused_mlp_pe_fwd_kernel(w, xd, f.dims._replace(
-            compute_dtype="float32"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    f32 = f.dims._replace(compute_dtype="float32")
+    assert tfm.route(f32) == "gen"
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_pe_fwd_kernel(w, xd, f32)
+    deep = f.dims._replace(depth=6)
+    assert tfm.route(deep) == "gen"
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_pe_bwd_kernel(w, xd, torch.zeros(64, 4), deep)
+    with pytest.raises(ValueError, match="width 8-2048"):
         tfm.fused_mlp_pe_bwd_kernel(w, xd, torch.zeros(64, 4),
-                                    f.dims._replace(depth=6))
+                                    f.dims._replace(width=4096))
     assert tfm.launches == {"fwd": 0, "bwd": 0}
+    assert tfm.launches_gen == {"fwd": 0, "bwd": 0}
 
 
 def test_pack_weights_layout():

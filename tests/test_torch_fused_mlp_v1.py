@@ -177,9 +177,9 @@ def test_v1_and_v2_plain_share_the_forward_and_differ_in_bias_rounding():
 
 def test_kernel_wrappers_take_no_cpu_tensors():
     """The v1 kernel wrappers never fall back to the plain version: CPU
-    tensors raise, and so do float32 compute and a geometry that the card
-    check does not hold; other octave counts are the encoder's business and
-    pass the geometry check."""
+    tensors raise on either route; float32 compute and width 128 route to
+    the generic kernels; other octave counts are the encoder's business
+    and keep the wgmma route; a depth past the generic limits raises."""
     f = tfm.FusedMLPField(device="cpu")
     f.reset_parameters(torch.Generator().manual_seed(0))
     w = {n: p.detach() for n, p in f.weights.items()}
@@ -189,14 +189,21 @@ def test_kernel_wrappers_take_no_cpu_tensors():
         tfm.fused_mlp_fwd_kernel(w, x, d, f.dims)
     with pytest.raises(ValueError, match="CUDA"):
         tfm.fused_mlp_bwd_kernel(w, x, d, g, f.dims)
+    assert tfm.route(f.dims._replace(multires=6), pre=True) == "wgmma"
     with pytest.raises(ValueError, match="CUDA"):
         tfm.fused_mlp_fwd_kernel(w, x, d, f.dims._replace(multires=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.fused_mlp_fwd_kernel(w, x, d, f.dims._replace(
-            compute_dtype="float32"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.fused_mlp_bwd_kernel(w, x, d, g, f.dims._replace(width=128))
+    f32 = f.dims._replace(compute_dtype="float32")
+    assert tfm.route(f32, pre=True) == "gen"
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_fwd_kernel(w, x, d, f32)
+    narrow = f.dims._replace(width=128)
+    assert tfm.route(narrow, pre=True) == "gen"
+    with pytest.raises(ValueError, match="CUDA"):
+        tfm.fused_mlp_bwd_kernel(w, x, d, g, narrow)
+    with pytest.raises(ValueError, match="depth 1-32"):
+        tfm.fused_mlp_bwd_kernel(w, x, d, g, f.dims._replace(depth=40))
     with pytest.raises(ValueError, match="multiple"):
         tfm.fused_mlp(f.dims, 64, w, torch.zeros(65, 128),
                       torch.zeros(65, 128))
+    assert tfm.launches_gen_v1 == {"fwd": 0, "bwd": 0}
     assert tfm.launches_v1 == {"fwd": 0, "bwd": 0}
