@@ -245,8 +245,11 @@ Phases, each fatal on failure (no phase's error is caught):
      kernels; (a) at f32 8 x 256 on the MLP arm's 262,144 fine-pass points
      (and 131,072 with the semantic head), bf16 and f32 8 x 128, f32 2 x 32
      at 4 / 2 octaves, depth 3, depth 10, width 512, 12 / 6 octaves and 21
-     octaves (65,536 points each): #9 / #10 and #7 / #8, each launch
-     counted on the route "gen", held against the plain version in
+     octaves, and width 1,024 (65,536 points each): #9 / #10 and #7 / #8,
+     each launch counted on the route "gen" (the backward on the tensor
+     cores, "bwd_tc", where `gen_bwd_plan` takes the geometry, f32 as six
+     bf16 products; width 1,024 past the plan on the CUDA cores, "bwd"),
+     held against the plain version in
      float64 on the card: the output within 2 x the plain f32 / bf16
      version's error, every gradient (and dx, dd) within 2 x the plain
      version's against the float64 evaluation with each side's own ReLU
@@ -254,15 +257,17 @@ Phases, each fatal on failure (no phase's error is caught):
      masks differ from float64's at most max(4 x the plain version's,
      P / 1000), dx's and dd's padded lanes exactly 0, the backward
      bit-equal over 5 more launches and through the autograd wrappers;
-     (b) at (a)'s first case, the kernels, the plain version and an f32
-     torch.matmul chain with its autograd backward (TF32 off) timed with
-     CUDA events, each with the function's FLOP over its time, and the
-     backward's two passes apart; (c) `Trainer` at the MLP arm's
+     (b) at (a)'s first case, the kernels, the CUDA cores' backward, the
+     plain version and an f32 torch.matmul chain with its autograd
+     backward (TF32 off) timed with CUDA events, each with the function's
+     FLOP over its time (the tensor cores' backward also against 989 / 6
+     TFLOP/s of f32 work), and both backwards' two passes apart; at bf16
+     8 x 128 the two backwards side by side; (c) `Trainer` at the MLP arm's
      configuration in f32 for 100 steps and at width 128 in bf16 for 50:
-     #9 / #10 launched twice a step each on the generic route and the
-     wgmma kernels never, the PSNR rising; (d) `tools.full_run --smoke
-     --model mlp` in this process: exit 0, every stage, the generic
-     kernels launched.
+     #9 / #10 launched twice a step each on the generic route (the
+     backward on the tensor cores) and the wgmma kernels never, the PSNR
+     rising, the step time; (d) `tools.full_run --smoke --model mlp` in
+     this process: exit 0, every stage, the generic kernels launched.
 """
 from __future__ import annotations
 
@@ -4399,9 +4404,11 @@ GEN_SMALL = 65536            # points of (a)'s cases 2-4
 GEN_F32_STEPS = 100          # (c): the f32 trainer's steps
 GEN_BF16_STEPS = 50          # (c): the bf16 trainer at width 128
 F32_TF32_OPS_PER_S = 495e12 / 3   # 3 x TF32 on the tensor cores (B2)
+F32_SPLIT_OPS_PER_S = 989e12 / 6  # f32 as six bf16 products (fused_mlp_gen)
 # (tag, compute type, depth, width, (multires, multires_views), semantic,
 # points): (a)1 the main path's width in f32, (a)2 the parity tools' 8 x
-# 128, (a)3 full_run --smoke's 2 x 32, (a)4 the other geometries
+# 128, (a)3 full_run --smoke's 2 x 32, (a)4 the other geometries; width
+# 1,024 lies past the tensor cores' plan (its backward on the CUDA cores)
 GEN_CASES = (
     ("f32 8x256", "float32", 8, 256, (10, 4), False, N_POINTS),
     ("f32 8x256 semantic", "float32", 8, 256, (10, 4), True, N_POINTS_SEM),
@@ -4413,6 +4420,7 @@ GEN_CASES = (
     ("f32 width 512", "float32", 8, 512, (10, 4), False, GEN_SMALL),
     ("f32 12/6 octaves", "float32", 8, 256, (12, 6), False, GEN_SMALL),
     ("bf16 21 octaves", "bfloat16", 8, 256, (21, 4), False, GEN_SMALL),
+    ("f32 width 1024", "float32", 8, 1024, (10, 4), False, GEN_SMALL),
 )
 
 
@@ -4438,18 +4446,26 @@ def gen_field_weights(compute, depth, width, octaves, semantic, dev, seed):
 def counted(fn, want):
     """fn() with every fused MLP counter set to 0 first: its result, after
     checking that it launched exactly `want` ({(route, v1): {"fwd": n,
-    "bwd": n}}, every other counter 0)."""
+    "bwd": n, "bwd_tc": n}}, every counter not named 0)."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     for rt in ("wgmma", "gen"):
         for pre in (False, True):
-            fm._counts(rt, pre).update(fwd=0, bwd=0)
+            c = fm._counts(rt, pre)
+            c.update({k: 0 for k in c})
     out = fn()
     got = {(rt, pre): dict(fm._counts(rt, pre)) for rt in ("wgmma", "gen")
            for pre in (False, True)}
-    zero = {"fwd": 0, "bwd": 0}
-    if any(got[k] != want.get(k, zero) for k in got):
+    if any(got[k] != {n: want.get(k, {}).get(n, 0) for n in got[k]}
+           for k in got):
         raise AssertionError(f"launches {got}, want {want}")
     return out
+
+
+def gen_bwd_key(dims, pre=False):
+    """The generic route's backward counter that `dims` launches: "bwd_tc"
+    on the tensor cores where `gen_bwd_plan` takes it, else "bwd"."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    return "bwd_tc" if fm.gen_bwd_plan(dims, pre) is not None else "bwd"
 
 
 def gen_rel(a, ref):
@@ -4521,8 +4537,9 @@ def gen_hold(tag, dims, w, pts, vd, seed):
             pfwd = lambda dt: fm.fused_mlp_pe_plain(w, xd, dims, dt)
             pbwd = lambda dt, m=None: (fm.fused_mlp_pe_bwd_plain(
                 w, xd, g, dims, dt, masks=m),)
-        out_k = counted(fwd, {("gen", pre): {"fwd": 1, "bwd": 0}})
-        res_k = counted(bwd, {("gen", pre): {"fwd": 0, "bwd": 1}})
+        bk = gen_bwd_key(dims, pre)
+        out_k = counted(fwd, {("gen", pre): {"fwd": 1}})
+        res_k = counted(bwd, {("gen", pre): {bk: 1}})
         out_64 = pfwd(torch.float64)
         errs = {"out": (gen_rel(out_k, out_64),
                         gen_rel(pfwd(torch.float32), out_64),
@@ -4552,8 +4569,9 @@ def gen_hold(tag, dims, w, pts, vd, seed):
                          float((tk[n].double() - rk[n]).abs().max()))
                      for n in r64})
         del ref_k, ref_p, ref, rk, rp, r64
-        log(f"[gen mlp] {tag} {name} P={p}: relative error vs float64 with "
-            f"each side's masks, kernel / plain {dims.compute_dtype}:")
+        log(f"[gen mlp] {tag} {name} P={p}: backward {bk}; relative error "
+            f"vs float64 with each side's masks, kernel / plain "
+            f"{dims.compute_dtype}:")
         log("  " + ", ".join(f"{n} {k:.3e}/{q:.3e}"
                              for n, (k, q, _) in errs.items()))
         log(f"  vs float64's own masks, kernel / plain: " + ", ".join(
@@ -4586,7 +4604,7 @@ def gen_hold(tag, dims, w, pts, vd, seed):
             o.backward(g)
             return o
 
-        out_a = counted(autograd_call, {("gen", pre): {"fwd": 1, "bwd": 1}})
+        out_a = counted(autograd_call, {("gen", pre): {"fwd": 1, bk: 1}})
         wrapped = torch.equal(out_a.detach(), out_k) and all(
             torch.equal(leaves[n].grad, res_k[0][n]) for n in res_k[0])
         if pre:
@@ -4597,7 +4615,7 @@ def gen_hold(tag, dims, w, pts, vd, seed):
         if not (same and wrapped):
             raise AssertionError(f"{tag} {name}: the backward is not "
                                  f"reproducible")
-        out[pre] = dict(errs, flips=flips)
+        out[pre] = dict(errs, flips=flips, backward=bk)
         del leaves, out_a, res_k, res_p, tk, tp
     return out[False], out[True], (xd, g, x, d)
 
@@ -4606,8 +4624,11 @@ def gen_times(w, dims, inputs, tag):
     """Phase 20 (b): #9 / #10 and #7 / #8 at (a)1 timed with CUDA events
     beside the plain version and the f32 torch.matmul chain with its
     autograd backward (TF32 off), each with the function's FLOP over its
-    time; the backward's two passes apart. Returns {version: {name:
-    ms}}."""
+    time: the backward on the route `gen_bwd_plan` picks (the tensor cores,
+    "bwd") and on the CUDA cores ("bwd_cc", uncounted), each pass of both
+    apart (pass 1 the recompute and back-propagation, pass 2 the weight
+    gradients), the tensor cores' also against 989 / 6 TFLOP/s of f32
+    work. Returns {version: {name: ms}}."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4617,6 +4638,9 @@ def gen_times(w, dims, inputs, tag):
     for pre in (False, True):
         ins = (x, d) if pre else (xd,)
         fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
+        # pass 2 computes every weight gradient (the forward's products'
+        # shapes), pass 1 the rest
+        pass_flop = {1: bwd_flop - fwd_flop, 2: fwd_flop}
         if pre:
             kf = lambda: fm.fused_mlp_fwd_kernel(w, x, d, dims)
             kb = lambda: fm.fused_mlp_bwd_kernel(w, x, d, g, dims)
@@ -4627,7 +4651,8 @@ def gen_times(w, dims, inputs, tag):
             kb = lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)
             pf = lambda: fm.fused_mlp_pe_plain(w, xd, dims)
             pb = lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g, dims)
-        m = {"fwd": cuda_ms(kf), "bwd": cuda_ms(kb),
+        cc = lambda: fm._gen_bwd(w, ins, g, dims, pre=pre)
+        m = {"fwd": cuda_ms(kf), "bwd": cuda_ms(kb), "bwd_cc": cuda_ms(cc),
              "plain_fwd": cuda_ms(pf), "plain_bwd": cuda_ms(pb)}
         lib_fwd, lib_leaves = library_chain(w, dims, pre=pre,
                                             dtype=torch.float32)
@@ -4639,19 +4664,47 @@ def gen_times(w, dims, inputs, tag):
         m["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
             out_l, wrt, g, retain_graph=True))
         del out_l
-        run1, run2, scratch = fm.bwd_pass_fns(w, ins, g, dims, pre=pre)
-        m["bwd_pass1"], m["bwd_pass2"] = cuda_ms(run1), cuda_ms(run2)
+        for tc, key in ((True, "bwd"), (False, "bwd_cc")):
+            run1, run2, scratch = fm.bwd_pass_fns(w, ins, g, dims, pre=pre,
+                                                  tc=tc)
+            m[f"{key}_pass1"], m[f"{key}_pass2"] = cuda_ms(run1), cuda_ms(run2)
+            del run1, run2
         name = "v1 (#7 / #8)" if pre else "v2 (#9 / #10)"
-        rate = {k: (fwd_flop if "fwd" in k else bwd_flop) / v / 1e9
-                for k, v in m.items() if "pass" not in k}
+        rate = {k: (fwd_flop if "fwd" in k else
+                    pass_flop[int(k[-1])] if "pass" in k else bwd_flop)
+                / v / 1e9 for k, v in m.items()}
         log(f"[gen mlp] {tag} {name} P={p}: " + ", ".join(
-            f"{k} {v:.4f} ms ({rate[k]:.2f} TFLOP/s)" if k in rate else
-            f"{k} {v:.4f} ms" for k, v in m.items())
-            + f"; the function {fwd_flop:.4e} / {bwd_flop:.4e} FLOP, the "
-            f"scratch {scratch:.4e} bytes; TF32 "
+            f"{k} {v:.4f} ms ({rate[k]:.2f} TFLOP/s)" for k, v in m.items())
+            + f"; the function {fwd_flop:.4e} / {bwd_flop:.4e} FLOP (passes "
+            f"{pass_flop[1]:.4e} / {pass_flop[2]:.4e}), the scratch "
+            f"{scratch:.4e} bytes; TF32 "
             f"{torch.backends.cuda.matmul.allow_tf32}")
+        log(f"[gen mlp] {tag} {name}: the tensor cores' backward at "
+            f"{rate['bwd']:.2f} TFLOP/s of f32 work, "
+            f"{rate['bwd'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} of six bf16 "
+            f"products at 989 TFLOP/s (passes "
+            f"{rate['bwd_pass1'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} / "
+            f"{rate['bwd_pass2'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f}); "
+            f"{m['bwd_cc'] / m['bwd']:.2f}x the CUDA cores', "
+            f"{m['lib_bwd'] / m['bwd']:.2f}x the chain's")
         ms[pre] = m
     return ms
+
+
+def gen_bwd_pair_times(w, dims, inputs, tag):
+    """Phase 20 (b) at bf16 8 x 128 (the parity nets): the backward (v2)
+    on the tensor cores, one bf16 product a pair, beside the CUDA cores',
+    on the same inputs, with CUDA events. Returns {name: ms}."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    xd, g, _, _ = inputs
+    bwd_flop = mlp_flops(dims)[1] * xd.shape[0]
+    m = {"bwd": cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)),
+         "bwd_cc": cuda_ms(lambda: fm._gen_bwd(w, (xd,), g, dims,
+                                               pre=False))}
+    log(f"[gen mlp] {tag} v2 P={xd.shape[0]}: " + ", ".join(
+        f"{k} {v:.4f} ms ({bwd_flop / v / 1e9:.2f} TFLOP/s)"
+        for k, v in m.items()) + f"; {m['bwd_cc'] / m['bwd']:.2f}x")
+    return m
 
 
 def gen_trainer(scene, common, tag, steps, **cfg_kw):
@@ -4670,18 +4723,20 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
     dims = {k: f.dims for k, f in tr.fields.items()}
     if any(fm.route(v) != "gen" for v in dims.values()):
         raise AssertionError(f"{tag}: a field is not on the generic route")
+    bk = gen_bwd_key(dims["fine"])
+    if bk != gen_bwd_key(dims["coarse"]):
+        raise AssertionError(f"{tag}: the fields take different backwards")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m1 = counted(lambda: tr.fit(1), {("gen", False): {"fwd": 2, "bwd": 2}})
-    want = {("gen", False): {"fwd": 2 * (steps - 1),
-                             "bwd": 2 * (steps - 1)}}
+    m1 = counted(lambda: tr.fit(1), {("gen", False): {"fwd": 2, bk: 2}})
+    want = {("gen", False): {"fwd": 2 * (steps - 1), bk: 2 * (steps - 1)}}
     m_end = counted(lambda: tr.fit(steps), want)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rec = {"steps": steps, "psnr_step_1": float(m1["psnr"]),
            "psnr_end": float(m_end["psnr"]), "loss_end": float(m_end["loss"]),
            "ms_per_step": dt * 1e3 / steps,
-           "launches_per_step": {"fwd": 2, "bwd": 2},
+           "launches_per_step": {"fwd": 2, bk: 2}, "backward": bk,
            "dims": dims["fine"]._asdict()}
     log(f"[gen mlp] trainer {tag}: {json.dumps(rec)}")
     if not math.isfinite(rec["loss_end"]) or not (
@@ -4694,7 +4749,8 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
 def gen_full_run_smoke(exp_root):
     """Phase 20 (d): `tools.full_run --smoke --model mlp` in this process
     on the card (its f32 2 x 32 field on the generic route): exit 0, every
-    stage, #9 / #10 launched and the wgmma kernels not."""
+    stage, #9 and the tensor cores' #10 launched, the CUDA cores' #10 and
+    the wgmma kernels not."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4717,7 +4773,8 @@ def gen_full_run_smoke(exp_root):
     log(f"[gen mlp] full_run --smoke --model mlp: {json.dumps(out)}")
     if (rc != 0 or set(res["stage_seconds"]) != {
             "mvseg", "prepare", "inpaint_guidance", "fit", "eval"}
-            or min(fm.launches_gen.values()) < 1 or any(fm.launches.values())
+            or min(fm.launches_gen["fwd"], fm.launches_gen["bwd_tc"]) < 1
+            or fm.launches_gen["bwd"] or any(fm.launches.values())
             or not all(math.isfinite(v) for v in res["summary"].values())):
         raise AssertionError(f"full_run --smoke --model mlp: {out}")
     return out
@@ -4727,7 +4784,8 @@ def gen_mlp_phase(exp_root, scene, common, points):
     """Phase 20: the fused MLP on the generic kernels. points: semantic ->
     (pts [R, 128, 3], viewdirs [R, 3]), the MLP arm's fine-pass rays.
     Returns the kernels line's records of #9, #10, #7 and #8 on the
-    generic route."""
+    generic route: the forwards, the backwards on the tensor cores and on
+    the CUDA cores."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4766,6 +4824,10 @@ def gen_mlp_phase(exp_root, scene, common, points):
         errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i)
         held[tag] = {"v2": errs, "v1": errs1,
                      "seconds": time.perf_counter() - t0}
+        if tag == "bf16 8x128":
+            pair_ms = gen_bwd_pair_times(w, dims, inputs, tag)
+        if errs["backward"] == "bwd":
+            past_plan = tag      # the CUDA cores' backward, held above
         if i == 0:
             first = (dims, w, inputs)
             # the v1 entry point on these points, with their gradient
@@ -4777,7 +4839,8 @@ def gen_mlp_phase(exp_root, scene, common, points):
                              .reshape(out.shape))
 
             v1_counts = {"fwd": 1, "bwd": 1}
-            counted(entry, {("gen", True): v1_counts})
+            counted(entry, {("gen", True): {"fwd": 1, gen_bwd_key(dims, True):
+                                            1}})
             del pts_a
         del inputs
         torch.cuda.empty_cache()
@@ -4797,10 +4860,12 @@ def gen_mlp_phase(exp_root, scene, common, points):
 
     records = []
     p = GEN_CASES[0][6]
-    for pre, rows in ((False, (("fused_mlp_pe_fwd", 411), ("fused_mlp_pe_bwd",
-                                                           424))),
-                      (True, (("fused_mlp_fwd", 106), ("fused_mlp_bwd",
-                                                       115)))):
+    for pre, rows in ((False, (("fused_mlp_pe_fwd", 411, "fwd"),
+                               ("fused_mlp_pe_bwd", 616, "bwd"),
+                               ("fused_mlp_pe_bwd", 424, "bwd_cc"))),
+                      (True, (("fused_mlp_fwd", 106, "fwd"),
+                              ("fused_mlp_bwd", 294, "bwd"),
+                              ("fused_mlp_bwd", 115, "bwd_cc")))):
         fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
         n_w = sum(v.numel() for v in w.values())
         enc = p * (dims.in_dim + dims.dir_dim) * 4 if pre else p * 32
@@ -4808,42 +4873,67 @@ def gen_mlp_phase(exp_root, scene, common, points):
                   "bwd": (2 if pre else 1) * enc + p * (4 + dims.out_extra)
                   * 4 + 2 * n_w * 4}
         errs = {n: e for n, e in held[GEN_CASES[0][0]][
-            "v1" if pre else "v2"].items() if n != "flips"}
-        for name, line in rows:
-            k = name.rsplit("_", 1)[1]
+            "v1" if pre else "v2"].items() if n not in ("flips", "backward")}
+        cc_errs = {n: e for n, e in held[past_plan][
+            "v1" if pre else "v2"].items() if n not in ("flips", "backward")}
+        for name, line, k in rows:
             flop = fwd_flop if k == "fwd" else bwd_flop
-            bytes_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
-            ops_ms = flop / F32_OPS_PER_S * 1e3
+            bytes_ms = nbytes[k[:3]] / HBM_BYTES_PER_S * 1e3
+            # the tensor cores' backward does six bf16 products for each f32
+            # one; the CUDA cores' and the forward f32 FMAs
+            ops_ms = flop / (F32_SPLIT_OPS_PER_S if k == "bwd"
+                             else F32_OPS_PER_S) * 1e3
             m = ms[pre]
-            records.append({
-                "name": f"{name}_gen", "route": "cuda",
+            if k == "fwd":
+                launches, frm = ((1, "make_fused_field_fn at (a)1") if pre
+                                 else (2 * GEN_F32_STEPS, f"(c)'s f32 "
+                                       f"trainer, {GEN_F32_STEPS} steps"))
+            elif k == "bwd":
+                launches, frm = ((1, "make_fused_field_fn at (a)1") if pre
+                                 else (f32["launches_per_step"]["bwd_tc"]
+                                       * GEN_F32_STEPS, f"(c)'s f32 trainer, "
+                                       f"{GEN_F32_STEPS} steps"))
+            else:
+                launches, frm = 1, (f"(a)'s {past_plan} case, past the "
+                                    f"tensor cores' plan: its counted call")
+            rec = {
+                "name": f"{name}_gen" + ("_tc" if k == "bwd" else ""),
+                "route": "cuda",
                 "source": "spinnerf_tpu_torch/csrc/fused_mlp_gen.cu",
                 "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{line}",
-                "launches": (v1_counts if pre else
-                             {"fwd": 2 * GEN_F32_STEPS,
-                              "bwd": 2 * GEN_F32_STEPS})[k],
-                "launches_from": ("make_fused_field_fn at (a)1" if pre else
-                                  f"(c)'s f32 trainer, {GEN_F32_STEPS} "
-                                  f"steps"),
+                "launches": launches, "launches_from": frm,
                 "max_abs_err": (errs["out"][2] if k == "fwd" else
-                                max(e[2] for n, e in errs.items()
+                                max(e[2] for n, e in (
+                                    errs if k == "bwd" else cc_errs).items()
                                     if n != "out")),
-                "ms": m[k], "plain_ms": m[f"plain_{k}"],
+                "max_abs_err_from": ("(a)1" if k != "bwd_cc" else
+                                     f"(a)'s {past_plan} case"),
+                "ms": m[k], "plain_ms": m[f"plain_{k[:3]}"],
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_ms_f32_cuda_cores": flop / F32_OPS_PER_S * 1e3,
                 "bound_ms_3xtf32": flop / F32_TF32_OPS_PER_S * 1e3,
-                "library_ms": m[f"lib_{k}"],
+                "library_ms": m[f"lib_{k[:3]}"],
                 "library": "f32 torch.matmul chain, TF32 off",
-                "compute_dtype": "float32", "points": p})
+                "compute_dtype": "float32", "points": p}
+            if k != "fwd":
+                rec.update(pass1_ms=m[f"{k}_pass1"], pass2_ms=m[f"{k}_pass2"])
+            if k == "bwd":
+                rec.update(units="tensor cores, f32 as six bf16 products",
+                           cuda_cores_ms=m["bwd_cc"])
+            records.append(rec)
     total = time.perf_counter() - t_start
     log(json.dumps({"gen_mlp": {
         "cases": {t: {"seconds": h["seconds"], **{
-            f"{v}_rel_err_kernel_plain": {n: e[:2] for n, e in h[v].items()
-                                          if n != "flips"}
+            f"{v}_rel_err_kernel_plain": {
+                n: e[:2] for n, e in h[v].items()
+                if n not in ("flips", "backward")}
             for v in ("v2", "v1")}, **{f"{v}_flipped_points": h[v]["flips"]
                                        for v in ("v2", "v1")}}
                   for t, h in held.items()},
-        "times_ms": {"v2": ms[False], "v1": ms[True]},
+        "times_ms": {"v2": ms[False], "v1": ms[True],
+                     "bf16_8x128_v2_bwd": pair_ms},
+        "backward": {t: h["v2"]["backward"] for t, h in held.items()},
         "trainers": {"f32": f32, "bf16_w128": bf16},
         "full_run_smoke": smoke, "seconds": total}}))
     log(f"[phase 20] {total:.1f} s")

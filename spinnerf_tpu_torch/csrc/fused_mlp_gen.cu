@@ -38,10 +38,11 @@
 // MFLOP a point forward and 3.49 backward (csrc/fused_mlp_pe.cu's note)
 // against 32 bytes of input; on the CUDA cores (132 SMs x 128 FMA lanes x 2
 // a clock, 67 TFLOP/s at 1.98 GHz) that bounds 262,144 points at about 4.7
-// ms forward and 13.7 ms backward. This family uses no tensor core: it is
-// the simple design that is right first (ROADMAP.md B2 holds its speed
-// work: 3 x TF32 or wgmma for f32, width as a template parameter of the
-// wgmma tiles for bf16).
+// ms forward and 13.7 ms backward. The forward (fg_fwd_kernel) and the
+// backward of the geometries gen_bwd_plan refuses run on the CUDA cores:
+// the simple design that is right first. The backward of every other
+// geometry runs on the tensor cores (the ft_ kernels, below), with f32 as
+// six exact bf16 products.
 //
 // The block product (block_product). A block of 256 threads owns BM points
 // (64, 32, 16 or 8: the largest whose buffers fit, fg_bm) and keeps their
@@ -63,8 +64,9 @@
 // so cudaFuncSetAttribute), 180,736 at BM 16, width 1,024, and 213,248 at
 // BM 8, width 2,048 with 256-lane encodings: the largest width.
 //
-// The backward, two kernels and a sum, as in the wgmma design. The weight
-// gradient dW = A^T G sums over every point, which a block cannot finish:
+// The backward on the CUDA cores (the geometries gen_bwd_plan refuses),
+// two kernels and a sum, as in the wgmma design. The weight gradient dW =
+// A^T G sums over every point, which a block cannot finish:
 // - fg_bwd_kernel recomputes the block's forward, writes each layer's input
 //   activations A (the ReLU mask kept as the sign of a zero: a unit whose
 //   pre-activation is positive but rounds to 0 stores -0) and the
@@ -736,6 +738,903 @@ __global__ void fg_split_sum_kernel(const double* part, int splits,
 }
 
 // ---------------------------------------------------------------------------
+// The backward on the tensor cores (ft_bwd_kernel, ft_dw_kernel): the two
+// passes of fg_bwd_kernel and fg_dw_kernel as wgmma products, for every
+// geometry whose buffers fit (ft_geom; ops/fused_mlp.py::gen_bwd_plan is
+// its mirror and picks this backward or the CUDA cores' before launch).
+//
+// f32 as six bf16 products. Every f32 operand x splits into three bf16
+// parts, hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid); each
+// subtraction is exact and each part carries 8 significant bits, so hi +
+// mid + lo == x for |x| >= 2^-100. x w is then lo.hi + mid.mid + hi.lo +
+// mid.hi + hi.mid + hi.hi (x's part first), issued smallest first into
+// one f32 accumulator; a product of two bf16 values is exact in f32 and the
+// three dropped terms are below 2^-24 |x w|. At bf16 the operands are
+// already bf16 (gen_pack rounds the weights; the activations and gradients
+// are rounded where the plain version rounds them): one part, one product.
+// The weights arrive split (ops/fused_mlp.py::gen_ring: three planes a
+// stage, pre-swizzled); the activations and gradients are split in
+// registers as each wgmma's A fragment is loaded (m64n64k16, A from
+// registers). The tensor core's accumulator truncates (measured on the
+// H100: a fresh accumulator every 64-deep stage, 24 wgmmas of 16, erred up
+// to 4x the plain f32 version against float64), so every k16 step's six
+// products go to a fresh accumulator, added in f32 to a sum in registers
+// while the next step runs (ft_chunk: two accumulators in turn); pass 2
+// adds each stage's f32 sum to an f64 one.
+//
+// What bounds it on an H100: the products. At 8 x 256 in f32 the backward
+// multiplies 3.49 MFLOP a point, 20.9 MFLOP of bf16 as six products: 5.55
+// ms at 989 TFLOP/s for 262,144 points (pass 1 about two thirds). Every
+// 64-point block streams every weight stage (7.2 MB at 8 x 256 in f32)
+// from L2; clusters of two blocks sharing each stage by multicast measured
+// no faster, so L2 does not bound it. What the card measured beyond the
+// products: in pass 1 each tile's epilogue and each layer's read-back of
+// its input (more than half of its time: taking them out left 0.40 of
+// it), and registers (the epilogue's loads issued before the products
+// held 32 registers through them and made pass 1 1.3x slower); in pass 2 a
+// CUDA-core kernel for the heads and the tail of a non-persistent grid
+// (2.2x), both gone.
+//
+// Pass 1, ft_bwd_kernel: a block of 64 points (wgmma's M), two consumer
+// warpgroups and a producer warp. The block's activations stay in shared
+// memory as f32 rows ([64][wp + 8]: one layer's input, `buf`, and the
+// encoding x or d, `xs`); every product of the recompute and of the
+// back-propagation walks its output in tiles of 64 columns, the
+// warpgroups taking alternate tiles, and its input in 64-deep chunks, one
+// weight stage ([64 N][64 K] bf16 in the 128-byte swizzle, per part) a
+// chunk. The producer streams the stages, laid out in the order the
+// consumers take them, with cp.async.bulk into a ring of `slots` stages
+// (full / empty mbarriers; the empty one counts the owning warpgroup's 4
+// warps). A tile's epilogue is fg_bwd_kernel's, element for element: bias,
+// ReLU with the mask kept as the sign of a zero, the rounding, the scratch
+// columns, dx and dd; the rgb head's gradient (3 columns) runs on the CUDA
+// cores. A layer's output goes to the scratch only; once every tile is
+// done the next product's input is read back from there into buf. The
+// scratch holds fg_layout's columns block-major, [P / 64][cols][64] f32, so
+// that a block writes and reads back one contiguous region and pass 2's
+// stage of 64 points is contiguous (the column-major [cols][P] of the CUDA
+// cores' backward scatters a block's accesses in 256-byte pieces over the
+// whole chunk). Shared memory: slots x parts x 8 KB + 256 (wp + 8) + 256
+// (max(in_dim, dir_dim) + 8) + 2,048 + 16 slots + 1,024 bytes, at most
+// 232,448 with at least 2 slots: f32 takes every width to 512 with 128-lane
+// encodings and to 384 with 256-lane ones, bf16 to 640 and 512.
+//
+// Pass 2, ft_dw_kernel: dW = A^T G over the points, for every layer (the
+// heads' 1-3 columns padded to a tile of 64). A work item is 128 inputs
+// (one warpgroup each 64) x 64 outputs of one layer over a split of the
+// points, and the blocks are persistent (one an SM, items in the order
+// tile + tiles x split). An item walks its split in stages of 64 points:
+// cp.async brings each stage's A^T and G rows (f32, from the scratch; both
+// have the points contiguous, K-major) into a ring of 3 raw stages; the
+// threads split G into parts in shared memory (double-buffered) and each
+// warpgroup loads its A^T fragments from the raw stage, split in
+// registers; a stage's four k16 sums are added in f32, then to an f64
+// sum. The items of the first 128 inputs also sum G's columns in f64 (the
+// bias gradients). Each split writes its f64 partial sums to `part` and
+// fg_split_sum_kernel adds them in split and chunk order: no atomics, two
+// launches on the same inputs are bit-equal.
+// ---------------------------------------------------------------------------
+
+#define FT_BM 64                          // points a block (wgmma's M)
+#define FT_CONSUMERS 256                  // two consumer warpgroups
+#define FT_THREADS (FT_CONSUMERS + 32)    // and a producer warp
+#define FT_T 64                           // a weight stage: 64 N x 64 K
+#define FT_PLANE 8192                     // bytes of one bf16 [64][64] part
+#define FT_PAD 8                          // f32 row padding of the buffers
+#define FT_MIN_SLOTS 2
+#define FT_MAX_SLOTS 8
+#define FT_ALIGN 1024                     // the swizzle repeats every 1 KB
+#define FT_DW_THREADS 256                 // ft_dw_kernel: two warpgroups
+#define FT_DW_ITEMS 1056                  // its work items a chunk: 8 an SM
+
+// The pass-1 geometry (ft_geom).
+struct FtGeom {
+  int np;         // parts of an operand: 3 (f32) or 1 (bf16)
+  int wp, vwp;    // width and view width, padded to FT_T with zeros
+  int emax;       // max(in_dim, dir_dim)
+  int slots;      // weight stages in the ring
+  int smem;       // bytes of shared memory
+  long long stages;
+};
+
+static int ft_smem(int np, int wp, int emax, int slots) {
+  return slots * np * FT_PLANE + FT_BM * 4 * (wp + FT_PAD) +
+         FT_BM * 4 * (emax + FT_PAD) + FT_BM * 8 * 4 + 16 * slots + FT_ALIGN;
+}
+
+// The products of pass 1, in order: trunk 0..depth-1, feature, view (the
+// recompute), then the feature's input gradient (and dd), the last trunk
+// layer's, and down the trunk to layer 1 (v2) or 0 (v1, dx).
+enum { FT_TRUNK, FT_FEAT, FT_VIEW, FT_GFEAT, FT_GTOP, FT_GTRUNK };
+
+struct FtProd {
+  int kind, layer;
+  int nk;        // K chunks of FT_T
+  int nx;        // of which from xs (the encoding)
+  int x_first;   // the xs chunks come first (else last)
+  int n;         // output columns (padded), a multiple of FT_T
+};
+
+__host__ __device__ __forceinline__ int ft_n_products(const FgParams& p,
+                                                      bool pre) {
+  return p.depth + 4 + (pre ? p.depth : p.depth - 1);
+}
+
+__host__ __device__ __forceinline__ FtProd ft_product(const FgParams& p,
+                                                      const FtGeom& G,
+                                                      int pi, bool pre) {
+  const int D = p.depth, E = p.in_dim / FT_T, Wk = G.wp / FT_T;
+  const bool sk = p.skip + 1 < D;
+  FtProd r;
+  r.layer = 0;
+  r.nx = 0;
+  r.x_first = 1;
+  r.n = G.wp;
+  r.nk = Wk;
+  if (pi < D) {
+    const bool cat = sk && pi == p.skip + 1;
+    r.kind = FT_TRUNK;
+    r.layer = pi;
+    r.nx = (pi == 0 || cat) ? E : 0;
+    r.nk = pi == 0 ? E : cat ? E + Wk : Wk;
+  } else if (pi == D) {
+    r.kind = FT_FEAT;
+  } else if (pi == D + 1) {        // [feat, d]: buf's chunks, then xs's
+    r.kind = FT_VIEW;
+    r.nx = p.dir_dim / FT_T;
+    r.nk = Wk + r.nx;
+    r.x_first = 0;
+    r.n = G.vwp;
+  } else if (pi == D + 2) {
+    r.kind = FT_GFEAT;
+    r.nk = G.vwp / FT_T;
+    r.n = G.wp + (pre ? p.dir_dim : 0);
+  } else if (pi == D + 3) {
+    r.kind = FT_GTOP;
+  } else {
+    const int i = D - 1 - (pi - D - 4);
+    const bool cat = sk && i == p.skip + 1;
+    r.kind = FT_GTRUNK;
+    r.layer = i;
+    if (pre) r.n = i == 0 ? p.in_dim : cat ? p.in_dim + G.wp : G.wp;
+  }
+  return r;
+}
+
+// The geometry of pass 1 for p, from the dims alone; 0 where it does not
+// fit (the CUDA cores' backward takes those).
+static int ft_geom(const FgParams* p, int pre, FtGeom* G) {
+  if (p->in_dim % FT_T || p->dir_dim % FT_T) return 0;
+  G->np = p->bf16 ? 1 : 3;
+  G->wp = (p->width + FT_T - 1) / FT_T * FT_T;
+  G->vwp = (p->view_width + FT_T - 1) / FT_T * FT_T;
+  G->emax = p->in_dim > p->dir_dim ? p->in_dim : p->dir_dim;
+  int s = FT_MAX_SLOTS;
+  while (s >= FT_MIN_SLOTS && ft_smem(G->np, G->wp, G->emax, s) > FG_SMEM_MAX)
+    --s;
+  if (s < FT_MIN_SLOTS) return 0;
+  G->slots = s;
+  G->smem = ft_smem(G->np, G->wp, G->emax, s);
+  G->stages = 0;
+  for (int pi = 0; pi < ft_n_products(*p, pre != 0); ++pi) {
+    const FtProd r = ft_product(*p, *G, pi, pre != 0);
+    G->stages += (long long)(r.n / FT_T) * r.nk;
+  }
+  return 1;
+}
+
+// --- wgmma, mbarriers and bulk copies (as in csrc/fused_mlp_pe.cu) --------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// A wgmma shared-memory descriptor for the 128-byte swizzle (K-major: sbo
+// is the byte stride between groups of 8 rows).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// keeps A's fragment registers alive (unwritten) until here: a wgmma
+// reads them asynchronously, until its wait
+template <int NP>
+__device__ __forceinline__ void keep_frag(uint32_t (&a)[NP][4]) {
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[q][r])::"memory");
+}
+
+// d (+)= A B for one 16-deep step of m64n64k16: A [64 x 16] bf16 from
+// registers (a0-a3: rows r, r + 8 by columns 2 (t % 4) + {0, 1}, + 8, in
+// the accumulator's row order), B [16 x 64] from shared memory, K-major.
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t a, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t a, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(a), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+// Wait until the barrier's phase differs from `parity`; a wait of 2^32
+// clocks is a fault of the schedule and traps, so that the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t a, uint32_t parity) {
+  long long t0 = 0;
+  for (int n = 0;; ++n) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (n == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 32))
+      __trap();
+  }
+}
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// generic-proxy writes to shared memory, before wgmma reads them
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the two consumer warpgroups (named barrier 1; the producer never joins)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FT_CONSUMERS) : "memory");
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 values as NP bf16x2 parts, largest first: part 0 + part 1 + part
+// 2 == v exactly (NP = 3); part 0 = v rounded to bf16 (NP = 1).
+template <int NP>
+__device__ __forceinline__ void split2(float2 v, uint32_t (&o)[NP]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  o[0] = bf2_bits(h);
+  if constexpr (NP == 3) {
+    const float2 hf = __bfloat1622float2(h);
+    const float rx = __fsub_rn(v.x, hf.x), ry = __fsub_rn(v.y, hf.y);
+    const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+    const float2 mf = __bfloat1622float2(m);
+    o[1] = bf2_bits(m);
+    o[2] = bf2_bits(__floats2bfloat162_rn(__fsub_rn(rx, mf.x),
+                                          __fsub_rn(ry, mf.y)));
+  }
+}
+
+// One k16 step: acc (+)= A B over the parts. a[q]: A's part q (0 hi, 1 mid,
+// 2 lo); B's part q at b + q * FT_PLANE. The six products smallest first:
+// lo.hi, mid.mid, hi.lo, mid.hi, hi.mid, hi.hi. fresh: the step starts
+// the accumulator.
+template <int NP>
+__device__ __forceinline__ void ft_k16(float (&acc)[32],
+                                       const uint32_t (&a)[NP][4],
+                                       uint32_t b, int fresh) {
+  auto B = [&](int q) { return desc_sw128(b + q * FT_PLANE, 16, 1024); };
+  if constexpr (NP == 1) {
+    wgmma_rs64(acc, a[0][0], a[0][1], a[0][2], a[0][3], B(0), !fresh);
+  } else {
+    wgmma_rs64(acc, a[2][0], a[2][1], a[2][2], a[2][3], B(0), !fresh);
+    wgmma_rs64(acc, a[1][0], a[1][1], a[1][2], a[1][3], B(1), 1);
+    wgmma_rs64(acc, a[0][0], a[0][1], a[0][2], a[0][3], B(2), 1);
+    wgmma_rs64(acc, a[1][0], a[1][1], a[1][2], a[1][3], B(0), 1);
+    wgmma_rs64(acc, a[0][0], a[0][1], a[0][2], a[0][3], B(1), 1);
+    wgmma_rs64(acc, a[0][0], a[0][1], a[0][2], a[0][3], B(0), 1);
+  }
+}
+
+// A's fragment of one k16 step, split: v = (rows r, r + 8) x (columns c,
+// c + 8) as float2 pairs in the register order of wgmma_rs64.
+template <int NP>
+__device__ __forceinline__ void ft_frag(const float2 (&v)[4],
+                                        uint32_t (&a)[NP][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    uint32_t o[NP];
+    split2<NP>(v[r], o);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) a[q][r] = o[q];
+  }
+}
+
+// --- pass 1 ----------------------------------------------------------------
+
+// A 64-deep chunk's four k16 steps, each in a fresh accumulator (the
+// tensor core's accumulation truncates; a k16 step's six products are 96
+// terms) added to sum by fold while the next step runs: two accumulators
+// in turn. frag(ks, v) loads A's fragment of step ks as float2 pairs; b is
+// the chunk's weight stage (part q at b + q * FT_PLANE). Returns when
+// every product has read its operands.
+template <int NP, class Frag, class Fold>
+__device__ __forceinline__ void ft_chunk(uint32_t b, Frag frag, Fold fold) {
+  float acc0[32], acc1[32];
+  uint32_t af[4][NP][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    float2 v[4];
+    frag(ks, v);
+    ft_frag<NP>(v, af[ks]);
+    wg_fence();
+    if (ks & 1)
+      ft_k16<NP>(acc1, af[ks], b + ks * 32, 1);
+    else
+      ft_k16<NP>(acc0, af[ks], b + ks * 32, 1);
+    wg_commit();
+    if (ks > 0) {   // step ks - 1 is done
+      wg_wait1();
+      keep_frag<NP>(af[ks - 1]);
+      if (ks & 1) {
+        fence_regs(acc0);
+        fold(acc0);
+      } else {
+        fence_regs(acc1);
+        fold(acc1);
+      }
+    }
+  }
+  wg_wait0();
+  keep_frag<NP>(af[3]);
+  fence_regs(acc1);
+  fold(acc1);
+}
+
+// One output tile (64 columns) of product pr for this warpgroup: sum over
+// its K chunks, the weight stages gbase + tp * 2 nk + kc * npair + wg of
+// the ring.
+template <int NP>
+__device__ __forceinline__ void ft_tile(float (&sum)[32], const FtProd& pr,
+                                        int tp, int npair, int gbase,
+                                        const float* buf, int bs,
+                                        const float* xs, int xst,
+                                        uint32_t ring_s, uint32_t full,
+                                        uint32_t empty, const FtGeom& G) {
+  const int t = threadIdx.x, wg = t >> 7, lane = t & 31;
+  const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
+  for (int kc = 0; kc < pr.nk; ++kc) {
+    const bool from_x =
+        pr.x_first ? kc < pr.nx : kc >= pr.nk - pr.nx;
+    const int ck = from_x ? (pr.x_first ? kc : kc - (pr.nk - pr.nx))
+                          : (pr.x_first ? kc - pr.nx : kc);
+    const int st = from_x ? xst : bs;
+    const float* a = (from_x ? xs : buf) + r0 * st + FT_T * ck + c0;
+    const int gi = gbase + tp * 2 * pr.nk + kc * npair + wg;
+    const int slot = gi % G.slots;
+    mbar_wait(full + 8 * slot, (gi / G.slots) & 1);
+    ft_chunk<NP>(
+        ring_s + slot * NP * FT_PLANE,
+        [&](int ks, float2 (&v)[4]) {
+          const float* q = a + 16 * ks;
+          v[0] = ld2(q);
+          v[1] = ld2(q + 8 * st);
+          v[2] = ld2(q + 8);
+          v[3] = ld2(q + 8 * st + 8);
+        },
+        [&](const float (&acc)[32]) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sum[i] += acc[i];
+        });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+  }
+}
+
+// What a tile's epilogue reads besides its sums, loaded together (one
+// latency) after the tile's products: the recompute's bias of each output
+// column, the back-propagation's ReLU mask of each output (the scratch's
+// stored activation); 0 where there is none. (Loaded before the products,
+// they held 32 registers through them, and pass 1 ran 1.3x slower on the
+// H100.)
+template <bool PRE>
+__device__ __forceinline__ void ft_pre(const FgParams& p, const FgLayout& L,
+                                       const FtProd& pr, int tile,
+                                       const float* blk, float (&m)[32]) {
+  const int t = threadIdx.x, lane = t & 31, D = p.depth, i = pr.layer;
+  const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2);
+  const bool cat = p.skip + 1 < D && i == p.skip + 1;
+  const int xo = pr.kind == FT_GTRUNK && PRE && (i == 0 || cat) ? p.in_dim : 0;
+  const int below = pr.kind == FT_GTOP ? D - 1 : i - 1;
+  const float* bias = pr.kind == FT_TRUNK  ? p.tb[i]
+                      : pr.kind == FT_FEAT ? p.feat_b
+                      : pr.kind == FT_VIEW ? p.view_b
+                                           : nullptr;
+  const int nb = pr.kind == FT_VIEW ? p.view_width : p.width;
+  const bool mask =
+      pr.kind == FT_GTOP || (pr.kind == FT_GTRUNK && below >= 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = FT_T * tile + 8 * j + 2 * (lane & 3) + e;
+        float v = 0.0f;
+        if (bias) {
+          if (n < nb) v = __ldg(bias + n);
+        } else if (mask && n - xo >= 0 && n - xo < p.width) {
+          v = __ldcg(blk + (L.h[below] + n - xo) * FT_BM + r0 + 8 * h);
+        }
+        m[4 * j + 2 * h + e] = v;
+      }
+}
+
+// The tile's epilogue: fg_bwd_kernel's, element for element (column n of
+// the product's padded output at row r0 (+ 8)); pre: ft_pre's.
+template <bool PRE>
+__device__ __forceinline__ void ft_epi(const FgParams& p, const FgLayout& L,
+                                       const FtGeom& G, const FtProd& pr,
+                                       int tile, const float (&sum)[32],
+                                       const float (&pre)[32], float* blk,
+                                       long long gp0, const float* gs,
+                                       float* dx, float* dd) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2);
+  const int bf = p.bf16, W = p.width, VW = p.view_width, D = p.depth;
+  const int i = pr.layer;
+  const bool sk = p.skip + 1 < D, cat = sk && i == p.skip + 1;
+  auto each = [&](auto f) {    // f(sum, pre, column, row) of every element
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          f(sum[4 * j + 2 * h + e], pre[4 * j + 2 * h + e],
+            FT_T * tile + 8 * j + 2 * (lane & 3) + e, r0 + 8 * h);
+  };
+  if (pr.kind == FT_TRUNK) {
+    float* o = blk + L.h[i] * FT_BM;
+    each([&](float a, float b, int n, int row) {
+      if (n < W) o[n * FT_BM + row] = act(a + b, bf, true);
+    });
+  } else if (pr.kind == FT_FEAT) {
+    float* o = blk + L.feat * FT_BM;
+    each([&](float a, float b, int n, int row) {
+      if (n < W) o[n * FT_BM + row] = rnd(a + b, bf);
+    });
+  } else if (pr.kind == FT_VIEW) {
+    float* o = blk + L.v * FT_BM;
+    each([&](float a, float b, int n, int row) {
+      if (n < VW) o[n * FT_BM + row] = act(a + b, bf, true);
+    });
+  } else if (pr.kind == FT_GFEAT) {
+    float* o = blk + L.gfeat * FT_BM;
+    each([&](float a, float, int n, int row) {
+      if (n < W)
+        o[n * FT_BM + row] = PRE ? a : rnd(a, bf);
+      else if (PRE && n >= G.wp)
+        dd[(gp0 + row) * p.dir_dim + (n - G.wp)] = a;
+    });
+  } else if (pr.kind == FT_GTOP) {
+    float* o = blk + L.gz[D - 1] * FT_BM;
+    each([&](float a, float b, int n, int row) {
+      if (n < W) {
+        float v = fmaf(gs[row * 8 + 3], __ldg(p.sigma_w + n), a);
+        if (p.out_extra) v = fmaf(gs[row * 8 + 4], __ldg(p.sem_w + n), v);
+        o[n * FT_BM + row] = relu_grad(v, b, PRE, bf);
+      }
+    });
+  } else {   // FT_GTRUNK: layer i's input gradient; dx from the skip first
+    const int xo = PRE && (i == 0 || cat) ? p.in_dim : 0;
+    float* o = i > 0 ? blk + L.gz[i - 1] * FT_BM : nullptr;
+    each([&](float a, float b, int n, int row) {
+      if (n < xo) {
+        float* q = dx + (gp0 + row) * p.in_dim + n;
+        *q = (i == 0 && sk) ? *q + a : a;
+      } else if (n - xo < W) {
+        o[(n - xo) * FT_BM + row] = relu_grad(a, b, PRE, bf);
+      }
+    });
+  }
+}
+
+// buf[pt][c] = r(the block's scratch column c at pt) for c < n, 0 to npad: a
+// thread a column and 8 points, four such at a time (their loads issued
+// together).
+__device__ __forceinline__ void ft_reload(float* buf, int bs,
+                                          const float* src, int n, int npad,
+                                          int bf) {
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int units = npad * (FT_BM / 8);
+  for (int u0 = threadIdx.x; u0 < units; u0 += 4 * FT_CONSUMERS) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int u = u0 + q * FT_CONSUMERS;
+      const int c = u % npad, r = (u / npad) * 8;
+      a[q] = b[q] = z;
+      if (u < units && c < n) {
+        a[q] = __ldcg(reinterpret_cast<const float4*>(src + c * FT_BM + r));
+        b[q] = __ldcg(
+            reinterpret_cast<const float4*>(src + c * FT_BM + r + 4));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int u = u0 + q * FT_CONSUMERS;
+      if (u >= units) break;
+      const int c = u % npad, r = (u / npad) * 8;
+      float* d = buf + r * bs + c;
+      d[0] = rnd(a[q].x, bf);
+      d[bs] = rnd(a[q].y, bf);
+      d[2 * bs] = rnd(a[q].z, bf);
+      d[3 * bs] = rnd(a[q].w, bf);
+      d[4 * bs] = rnd(b[q].x, bf);
+      d[5 * bs] = rnd(b[q].y, bf);
+      d[6 * bs] = rnd(b[q].z, bf);
+      d[7 * bs] = rnd(b[q].w, bf);
+    }
+  }
+}
+
+// An encoding (x: lanes from 0 of xd; d: from 3) of the block's points
+// into xs and its scratch columns, rounded; PRE reads it as given.
+template <bool PRE>
+__device__ __forceinline__ void ft_encode(float* xs, int xst, int dim,
+                                          const float* src, int lane0,
+                                          int nf, long long gp0, int bf,
+                                          float* scol) {
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < dim * FT_BM; idx += FT_CONSUMERS) {
+    const int j = idx / FT_BM, pt = idx - j * FT_BM;
+    const long long q = gp0 + pt;
+    const float v = rnd(PRE ? __ldg(src + q * dim + j)
+                            : pe_lane(src + q * 8 + lane0, j, nf),
+                        bf);
+    xs[pt * xst + j] = v;
+    scol[j * FT_BM + pt] = v;
+  }
+}
+
+template <bool PRE, int NP>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+    ft_bwd_kernel(const __grid_constant__ FgParams p,
+                  const __grid_constant__ FgLayout L,
+                  const __grid_constant__ FtGeom G,
+                  const float* in_x, const float* in_d, const float* g,
+                  float* dx, float* dd, float* scr, long long cp0,
+                  const uint8_t* ring) {
+  extern __shared__ uint8_t ft_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)ft_raw + FT_ALIGN - 1) & ~(uintptr_t)(FT_ALIGN - 1));
+  const uint32_t ring_s = smem_u32(base);
+  float* buf = reinterpret_cast<float*>(base + G.slots * NP * FT_PLANE);
+  const int bs = G.wp + FT_PAD, xst = G.emax + FT_PAD;
+  float* xs = buf + FT_BM * bs;
+  float* gs = xs + FT_BM * xst;                 // the cotangent, rounded
+  const uint32_t full = smem_u32(gs + FT_BM * 8), empty = full + 8 * G.slots;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < G.slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nprod = ft_n_products(p, PRE);
+  if (t >= FT_CONSUMERS) {   // the producer warp: one thread streams
+    if (t == FT_CONSUMERS) {
+      const uint32_t bytes = NP * FT_PLANE;
+      const uint8_t* src = ring;
+      for (long long gi = 0; gi < G.stages; ++gi) {
+        const int slot = (int)(gi % G.slots);
+        if (gi >= G.slots)
+          mbar_wait(empty + 8 * slot, (uint32_t)((gi / G.slots) - 1) & 1);
+        mbar_expect(full + 8 * slot, bytes);
+        bulk_g2s(ring_s + slot * bytes, src, bytes, full + 8 * slot);
+        src += bytes;
+      }
+    }
+    return;
+  }
+  const long long gp0 = cp0 + (long long)blockIdx.x * FT_BM;
+  const int W = p.width, VW = p.view_width, D = p.depth, bf = p.bf16;
+  const int no = 4 + p.out_extra, wg = t >> 7;
+  // the block's scratch: its columns, 64 points each (block-major)
+  float* blk = scr + (long long)blockIdx.x * L.cols * FT_BM;
+  auto col = [&](int c) { return blk + c * FT_BM; };
+  ft_encode<PRE>(xs, xst, p.in_dim, in_x, 0, p.multires, gp0, bf,
+                 col(L.xe));
+  consumers_sync();
+  int gbase = 0;
+  for (int pi = 0; pi < nprod; ++pi) {
+    const FtProd pr = ft_product(p, G, pi, PRE);
+    const int nt = pr.n / FT_T;
+    for (int tp = 0; 2 * tp < nt; ++tp) {
+      const int tile = 2 * tp + wg;
+      if (tile < nt) {
+        float sum[32], pre[32];
+        ft_tile<NP>(sum, pr, tp, nt - 2 * tp < 2 ? 1 : 2, gbase, buf, bs, xs,
+                    xst, ring_s, full, empty, G);
+        ft_pre<PRE>(p, L, pr, tile, blk, pre);
+        ft_epi<PRE>(p, L, G, pr, tile, sum, pre, blk, gp0, gs, dx, dd);
+      }
+    }
+    gbase += nt * pr.nk;
+    consumers_sync();
+    // what the next product reads
+    if (pr.kind == FT_TRUNK) {
+      ft_reload(buf, bs, col(L.h[pr.layer]), W, G.wp, bf);
+    } else if (pr.kind == FT_FEAT) {
+      ft_reload(buf, bs, col(L.feat), W, G.wp, bf);
+      ft_encode<PRE>(xs, xst, p.dir_dim, PRE ? in_d : in_x, 3,
+                     p.multires_views, gp0, bf, col(L.de));
+    } else if (pr.kind == FT_VIEW) {
+      // the cotangent: as it is to the scratch, rounded to gs; then G_v =
+      // (r(g_rgb) r(rgb_w)^T) * [vz > 0] on the CUDA cores into buf (the
+      // forward's pack: rgb_w [view_width][3]; the kernel reads no
+      // transposes)
+      for (int idx = t; idx < no * FT_BM; idx += FT_CONSUMERS) {
+        const int c = idx / FT_BM, pt = idx - c * FT_BM;
+        const float v = __ldg(g + (gp0 + pt) * no + c);
+        col(L.gin + c)[pt] = v;
+        gs[pt * 8 + c] = rnd(v, bf);
+      }
+      consumers_sync();
+      for (int i0 = t; i0 < G.vwp * FT_BM; i0 += 8 * FT_CONSUMERS) {
+        float vm[8];   // the view layer's stored outputs (masks), together
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int idx = i0 + q * FT_CONSUMERS;
+          const int n = idx / FT_BM, pt = idx - n * FT_BM;
+          vm[q] = idx < G.vwp * FT_BM && n < VW ? __ldcg(col(L.v + n) + pt)
+                                                : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int idx = i0 + q * FT_CONSUMERS;
+          if (idx >= G.vwp * FT_BM) break;
+          const int n = idx / FT_BM, pt = idx - n * FT_BM;
+          float gv = 0.0f;
+          if (n < VW) {
+            float a = 0.0f;
+            for (int c = 0; c < 3; ++c)
+              a = fmaf(gs[pt * 8 + c], __ldg(p.rgb_w + n * 3 + c), a);
+            gv = relu_grad(a, vm[q], PRE, bf);
+            col(L.gv + n)[pt] = gv;
+          }
+          buf[pt * bs + n] = rnd(gv, bf);
+        }
+      }
+    } else if (pr.kind == FT_GFEAT) {
+      ft_reload(buf, bs, col(L.gfeat), W, G.wp, bf);
+    } else if (pr.kind == FT_GTOP) {
+      ft_reload(buf, bs, col(L.gz[D - 1]), W, G.wp, bf);
+    } else if (pr.layer - 1 >= (PRE ? 0 : 1)) {
+      ft_reload(buf, bs, col(L.gz[pr.layer - 1]), W, G.wp, bf);
+    }
+    consumers_sync();
+  }
+}
+
+// --- pass 2 ----------------------------------------------------------------
+
+// One weight gradient of ft_dw_kernel: A (k scratch columns from a_off), G
+// (n columns from g_off), its tiles from tile0: mp blocks of 128 inputs x
+// ntn of 64 outputs.
+struct FtJob {
+  int a_off, k, g_off, n, mp, ntn, tile0;
+  long long w_off, b_off;
+};
+
+struct FtDwPlan {
+  int n_jobs, tiles, cols;   // cols: the scratch's columns (block-major)
+  FtJob job[FG_MAX_JOBS];
+};
+
+// ft_dw_kernel's shared memory: FT_DW_BUF raw f32 stages (A^T: 128 rows
+// x 64 points, G: 64 rows x 64 points, rows padded by FT_PAD), then G's
+// parts, double-buffered.
+#define FT_DW_BUF 3
+#define FT_DW_RS (FT_T + FT_PAD)                       // a raw row's floats
+#define FT_DW_RAW (3 * FT_T * FT_DW_RS * 4)            // bytes of a stage
+template <int NP>
+constexpr int ft_dw_smem() {
+  return FT_DW_BUF * FT_DW_RAW + 2 * NP * FT_PLANE + FT_ALIGN;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+template <int NP>
+__global__ void __launch_bounds__(FT_DW_THREADS, 1)
+    ft_dw_kernel(const __grid_constant__ FtDwPlan plan, const float* scr,
+                 int pc, int per, int splits, int bf, double* part,
+                 long long n_params) {
+  extern __shared__ uint8_t ft_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)ft_raw + FT_ALIGN - 1) & ~(uintptr_t)(FT_ALIGN - 1));
+  uint8_t* planes = base + FT_DW_BUF * FT_DW_RAW;
+  // persistent blocks: work item = tile + tiles x split, in that order, so
+  // that the blocks at work side by side share a split's points in L2
+  for (int item = blockIdx.x; item < plan.tiles * splits;
+       item += gridDim.x) {
+    const int tile = item % plan.tiles, split = item / plan.tiles;
+    int j = 0;
+    while (j + 1 < plan.n_jobs && plan.job[j + 1].tile0 <= tile) ++j;
+    const FtJob& jb = plan.job[j];
+    const int lt = tile - jb.tile0;
+    const int m2 = lt / jb.ntn, n0 = (lt % jb.ntn) * FT_T;
+    const int t = threadIdx.x, wg = t >> 7, lane = t & 31;
+    const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2), c0 = 2 * (lane & 3);
+    const bool bias = m2 == 0;
+    const int p_begin = split * per;
+    const int p_end = min(pc, p_begin + per);
+    const int n_st = (p_end - p_begin + FT_T - 1) / FT_T;
+    const int k0 = m2 * 2 * FT_T;
+    // stage s's raw rows (A^T's 128, then G's 64) into buffer s % FT_DW_BUF:
+    // 16-byte copies, zeros past the layer's inputs and outputs
+    auto issue = [&](int s) {
+      if (s < n_st) {
+        float* raw =
+            reinterpret_cast<float*>(base + (s % FT_DW_BUF) * FT_DW_RAW);
+        const int pb = p_begin + s * FT_T;
+        for (int c = t; c < 3 * FT_T * (FT_T / 4); c += FT_DW_THREADS) {
+          const int row = c / (FT_T / 4), q = (c % (FT_T / 4)) * 4;
+          const bool is_a = row < 2 * FT_T;
+          const int r = is_a ? k0 + row : n0 + row - 2 * FT_T;
+          const bool ok = r < (is_a ? jb.k : jb.n);
+          const float* src =
+              scr + ((long long)(pb / FT_BM) * plan.cols +
+                     (is_a ? jb.a_off : jb.g_off) + (ok ? r : 0)) * FT_BM + q;
+          cp_async16(raw + row * FT_DW_RS + q, src, ok);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    double acc[32];
+  #pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0;
+    double bsum = 0.0;
+    const int ns = t >> 2, q0 = (t & 3) * 16;    // this thread's G row, points
+  #pragma unroll
+    for (int s = 0; s < FT_DW_BUF - 1; ++s) issue(s);
+    for (int s = 0; s < n_st; ++s) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(FT_DW_BUF - 2) : "memory");
+      __syncthreads();          // stage s is in; every thread is past s - 1
+      issue(s + FT_DW_BUF - 1);
+      const float* raw =
+          reinterpret_cast<const float*>(base + (s % FT_DW_BUF) * FT_DW_RAW);
+      uint8_t* pl = planes + (s & 1) * NP * FT_PLANE;
+      // G's row ns, points q0..q0+15: the bias sum (f64, the f32 values),
+      // then r(G) split into parts, two 16-byte chunks of each part
+      const float* grow = raw + (2 * FT_T + ns) * FT_DW_RS + q0;
+  #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 u0 = ld4(grow + 8 * h), u1 = ld4(grow + 8 * h + 4);
+        if (bias)
+          bsum = (((((((bsum + u0.x) + u0.y) + u0.z) + u0.w) + u1.x) + u1.y) +
+                  u1.z) + u1.w;
+        const float2 v[4] = {make_float2(rnd(u0.x, bf), rnd(u0.y, bf)),
+                             make_float2(rnd(u0.z, bf), rnd(u0.w, bf)),
+                             make_float2(rnd(u1.x, bf), rnd(u1.y, bf)),
+                             make_float2(rnd(u1.z, bf), rnd(u1.w, bf))};
+        uint32_t w[NP][4];
+        ft_frag<NP>(v, w);
+        const int chunk = (q0 >> 3) + h;
+  #pragma unroll
+        for (int q = 0; q < NP; ++q)
+          *reinterpret_cast<uint4*>(pl + q * FT_PLANE + ns * 128 +
+                                    ((chunk ^ (ns & 7)) << 4)) =
+              make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]);
+      }
+      fence_async();
+      __syncthreads();
+      // A^T's rows wg * 64 + r0 (+ 8) of the stage's raw tile; the stage's
+      // four k16 products summed in f32, then added to the f64 sum
+      const float* a = raw + (wg * FT_T + r0) * FT_DW_RS + c0;
+      float ssum[32];
+  #pragma unroll
+      for (int i = 0; i < 32; ++i) ssum[i] = 0.0f;
+      ft_chunk<NP>(
+          smem_u32(pl),
+          [&](int ks, float2 (&v)[4]) {
+            const float* q = a + 16 * ks;
+            v[0] = ld2(q);
+            v[1] = ld2(q + 8 * FT_DW_RS);
+            v[2] = ld2(q + 8);
+            v[3] = ld2(q + 8 * FT_DW_RS + 8);
+          },
+          [&](const float (&prt)[32]) {
+  #pragma unroll
+            for (int i = 0; i < 32; ++i) ssum[i] += prt[i];
+          });
+  #pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += (double)ssum[i];
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    double* dst = part + (long long)split * n_params;
+    const int ka = k0 + wg * FT_T + r0;
+  #pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+  #pragma unroll
+      for (int h = 0; h < 2; ++h)
+  #pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = ka + 8 * h, n = n0 + 8 * jj + c0 + e;
+          if (k < jb.k && n < jb.n)
+            dst[jb.w_off + (long long)k * jb.n + n] = acc[4 * jj + 2 * h + e];
+        }
+    if (bias) {   // the 4 threads of row ns, in a fixed order
+      double sm = bsum;
+      sm += __shfl_xor_sync(0xFFFFFFFFu, sm, 1);
+      sm += __shfl_xor_sync(0xFFFFFFFFu, sm, 2);
+      if ((t & 3) == 0 && n0 + ns < jb.n) dst[jb.b_off + n0 + ns] = sm;
+    }
+    __syncthreads();   // the buffers are free for the next item
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C interface, bound with ctypes. Pointers are device pointers except the
 // struct, which is host memory. Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
@@ -932,6 +1831,139 @@ static int fg_bwd_launch(const FgParams* p, const void* in_x,
   return 0;
 }
 
+// --- the tensor-core backward's host side ---------------------------------
+
+static void ft_dw_plan(const FgParams* p, const FgLayout& L, FtDwPlan* plan) {
+  plan->n_jobs = 0;
+  plan->tiles = 0;
+  plan->cols = L.cols;
+  auto add = [&](int a_off, int k, int g_off, int n, int job) {
+    FtJob& j = plan->job[plan->n_jobs++];
+    j.a_off = a_off;
+    j.k = k;
+    j.g_off = g_off;
+    j.n = n;
+    j.mp = (k + 2 * FT_T - 1) / (2 * FT_T);
+    j.ntn = (n + FT_T - 1) / FT_T;
+    j.tile0 = plan->tiles;
+    j.w_off = p->gw[job];
+    j.b_off = p->gb[job];
+    plan->tiles += j.mp * j.ntn;
+  };
+  const bool sk = p->skip + 1 < p->depth;
+  const int D = p->depth, W = p->width, VW = p->view_width;
+  for (int i = 0; i < D; ++i) {
+    const bool cat = sk && i == p->skip + 1;
+    add(i == 0 || cat ? L.xe : L.h[i - 1],
+        i == 0 ? p->in_dim : cat ? p->in_dim + W : W, L.gz[i], W, i);
+  }
+  add(L.h[D - 1], W, L.gfeat, W, D);                   // feature
+  add(L.feat, W + p->dir_dim, L.gv, VW, D + 1);        // view, on [feat, d]
+  add(L.v, VW, L.gin, 3, D + 2);                       // rgb
+  add(L.h[D - 1], W, L.gin + 3, 1, D + 3);             // sigma
+  if (p->out_extra) add(L.h[D - 1], W, L.gin + 4, 1, D + 4);   // semantic
+}
+
+// Pass 2's splits of a chunk of pc points (about FT_DW_ITEMS work items,
+// tiles x splits, for the persistent blocks), each `per` points, a
+// multiple of FT_T.
+static int ft_splits(const FtDwPlan& plan, int pc, int* per) {
+  int s = (FT_DW_ITEMS + plan.tiles - 1) / plan.tiles;
+  if (s > pc / FT_T) s = pc / FT_T;
+  if (s < 1) s = 1;
+  int pp = (pc + s - 1) / s;
+  pp = (pp + FT_T - 1) / FT_T * FT_T;
+  *per = pp;
+  return (pc + pp - 1) / pp;
+}
+
+template <bool PRE, int NP>
+static int ft_bwd_launch(const FgParams* p, const FtGeom& G,
+                         const void* in_x, const void* in_d, const void* g,
+                         void* grads, void* dx, void* dd, void* scratch,
+                         void* part, void* acc, const void* ring,
+                         int n_points, int passes, cudaStream_t s) {
+  FgLayout L;
+  fg_layout(*p, &L);
+  FtDwPlan dplan;
+  ft_dw_plan(p, L, &dplan);
+  int dev, sms;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(
+      ft_bwd_kernel<PRE, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G.smem);
+  if (err) return err;
+  const int dw_smem = ft_dw_smem<NP>();
+  err = (int)cudaFuncSetAttribute(
+      ft_dw_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+  if (err) return err;
+  const int chunk = fg_chunk(L, n_points);
+  for (int c0 = 0; c0 < n_points; c0 += chunk) {
+    const int pc = n_points - c0 < chunk ? n_points - c0 : chunk;
+    if (passes & 1) {
+      ft_bwd_kernel<PRE, NP><<<pc / FT_BM, FT_THREADS, G.smem, s>>>(
+          *p, L, G, (const float*)in_x, (const float*)in_d, (const float*)g,
+          (float*)dx, (float*)dd, (float*)scratch, c0, (const uint8_t*)ring);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+    if (passes & 2) {
+      int per;
+      const int splits = ft_splits(dplan, pc, &per);
+      const int items = dplan.tiles * splits;
+      ft_dw_kernel<NP><<<items < sms ? items : sms, FT_DW_THREADS, dw_smem,
+                         s>>>(dplan, (const float*)scratch, pc, per, splits,
+                              p->bf16, (double*)part, p->n_params);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+      fg_split_sum_kernel<<<(unsigned)((p->n_params + 255) / 256), 256, 0,
+                            s>>>((const double*)part, splits, p->n_params,
+                                 (double*)acc, c0 == 0,
+                                 c0 + pc >= n_points, (float*)grads);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+  }
+  return 0;
+}
+
+// Check the arguments, plan, and launch pass 1, 2 or both (passes 1-3).
+static int ft_bwd_entry(const FgParams* p, const void* in_x, const void* in_d,
+                        const void* g, void* grads, void* dx, void* dd,
+                        void* scratch, void* part, void* acc,
+                        const void* ring, long long ring_bytes, int n_points,
+                        int pre, int passes, void* stream) {
+  int err = fg_check(p, n_points, pre != 0);
+  if (err || n_points == 0) return err;
+  FtGeom G;
+  if (!ft_geom(p, pre, &G) ||
+      ring_bytes != G.stages * G.np * FT_PLANE)
+    return (int)cudaErrorInvalidValue;
+  if (!in_x || (pre && (!in_d || !dx || !dd)) || !g || !grads || !scratch ||
+      !part || !acc || !ring || passes < 1 || passes > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pre)
+    return G.np == 3
+               ? ft_bwd_launch<true, 3>(p, G, in_x, in_d, g, grads, dx, dd,
+                                        scratch, part, acc, ring, n_points,
+                                        passes, s)
+               : ft_bwd_launch<true, 1>(p, G, in_x, in_d, g, grads, dx, dd,
+                                        scratch, part, acc, ring, n_points,
+                                        passes, s);
+  return G.np == 3
+             ? ft_bwd_launch<false, 3>(p, G, in_x, in_d, g, grads, dx, dd,
+                                       scratch, part, acc, ring, n_points,
+                                       passes, s)
+             : ft_bwd_launch<false, 1>(p, G, in_x, in_d, g, grads, dx, dd,
+                                       scratch, part, acc, ring, n_points,
+                                       passes, s);
+}
+
 extern "C" int fg_bwd(const FgParams* p, const void* xd, const void* g,
                       void* grads, void* scratch, void* part, void* acc,
                       int n_points, void* stream) {
@@ -961,6 +1993,82 @@ extern "C" int fg_bwd_pass(const FgParams* p, const void* in_x,
              : fg_bwd_launch<false>(p, in_x, nullptr, g, grads, nullptr,
                                     nullptr, scratch, part, acc, n_points,
                                     pass, stream);
+}
+
+// The tensor-core backward's plan for p (ft_geom): out = {taken (0 / 1),
+// shared memory bytes, ring slots, weight stages, ring bytes, padded width,
+// padded view width, parts}; ops/fused_mlp.py::gen_bwd_plan mirrors it.
+extern "C" int fg_tc_plan(const FgParams* p, int pre, long long* out) {
+  if (!p || !out) return (int)cudaErrorInvalidValue;
+  FtGeom G;
+  const int ok = ft_geom(p, pre, &G);
+  out[0] = ok;
+  out[1] = ok ? G.smem : 0;
+  out[2] = ok ? G.slots : 0;
+  out[3] = ok ? G.stages : 0;
+  out[4] = ok ? G.stages * G.np * FT_PLANE : 0;
+  out[5] = ok ? G.wp : 0;
+  out[6] = ok ? G.vwp : 0;
+  out[7] = ok ? G.np : 0;
+  return 0;
+}
+
+// fg_sizes for the tensor-core backward: the same scratch and chunk sums,
+// its own split count.
+extern "C" int fg_tc_sizes(const FgParams* p, int n_points, int pre,
+                           long long* sizes) {
+  const int err = fg_check(p, n_points, pre != 0);
+  if (err) return err;
+  FtGeom G;
+  if (!ft_geom(p, pre, &G)) return (int)cudaErrorInvalidValue;
+  if (n_points == 0) {
+    sizes[0] = sizes[1] = sizes[2] = 0;
+    return 0;
+  }
+  FgLayout L;
+  fg_layout(*p, &L);
+  FtDwPlan plan;
+  ft_dw_plan(p, L, &plan);
+  const int chunk = fg_chunk(L, n_points);
+  int per;
+  const int splits = ft_splits(plan, chunk, &per);   // the most of any chunk
+  sizes[0] = (long long)chunk * L.cols;
+  sizes[1] = (long long)splits * p->n_params;
+  sizes[2] = p->n_params;
+  return 0;
+}
+
+// The tensor-core backward (v2, #10): ring is gen_ring's buffer of
+// ring_bytes; the rest as fg_bwd.
+extern "C" int fg_bwd_tc(const FgParams* p, const void* xd, const void* g,
+                         void* grads, void* scratch, void* part, void* acc,
+                         const void* ring, long long ring_bytes, int n_points,
+                         void* stream) {
+  return ft_bwd_entry(p, xd, nullptr, g, grads, nullptr, nullptr, scratch,
+                      part, acc, ring, ring_bytes, n_points, 0, 3, stream);
+}
+
+// The tensor-core backward (v1, #8): also dx and dd, as fg_bwd_pre.
+extern "C" int fg_bwd_tc_pre(const FgParams* p, const void* x_enc,
+                             const void* d_enc, const void* g, void* grads,
+                             void* dx, void* dd, void* scratch, void* part,
+                             void* acc, const void* ring,
+                             long long ring_bytes, int n_points,
+                             void* stream) {
+  return ft_bwd_entry(p, x_enc, d_enc, g, grads, dx, dd, scratch, part, acc,
+                      ring, ring_bytes, n_points, 1, 3, stream);
+}
+
+// One pass of either tensor-core backward (pre: v1), for timing them apart.
+extern "C" int fg_bwd_tc_pass(const FgParams* p, const void* in_x,
+                              const void* in_d, const void* g, void* grads,
+                              void* dx, void* dd, void* scratch, void* part,
+                              void* acc, const void* ring,
+                              long long ring_bytes, int n_points, int pre,
+                              int pass, void* stream) {
+  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
+  return ft_bwd_entry(p, in_x, in_d, g, grads, dx, dd, scratch, part, acc,
+                      ring, ring_bytes, n_points, pre, pass, stream);
 }
 
 extern "C" const char* fg_error_string(int err) {

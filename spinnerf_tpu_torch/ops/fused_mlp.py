@@ -29,8 +29,13 @@ picks the family from the geometry and the compute type:
   pre-swizzled bf16 weight stages (`pack_ring`, packed by `gather_ring`):
   the forward its first stages, the backward all of them.
 - "gen" (`csrc/fused_mlp_gen.cu`): every other configuration within
-  `GEN_LIMITS`, f32 or bf16, on the CUDA cores. Its kernels read the
-  weights rounded to the compute type and their transposes (`gen_pack`).
+  `GEN_LIMITS`, f32 or bf16. Its forward runs on the CUDA cores and reads
+  the weights rounded to the compute type (`gen_pack`). Its backward runs
+  on the tensor cores wherever `gen_bwd_plan` takes the geometry, f32 as
+  six exact bf16 products (`split_bf16x3`), from the weights split into
+  bf16 stages once a call (`gen_ring`); elsewhere on the CUDA cores, from
+  `gen_pack`'s transposes. The choice is made from the dims alone, before
+  launch, and counted apart (`launches_gen["bwd_tc"]` beside "bwd").
 Beyond the limits a kernel entry raises ValueError; nothing falls back to
 the plain version on the card. The autograd functions pack the route's
 weights once a call, in the forward, and keep them for the backward.
@@ -51,11 +56,12 @@ from spinnerf_tpu_torch.ops import cuda_build
 
 # Kernel launches by the wrappers, counted where they launch and nowhere
 # else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8) of the wgmma
-# route, and the same functions on the generic route.
+# route, and the same functions on the generic route, whose backward is
+# "bwd_tc" on the tensor cores and "bwd" on the CUDA cores.
 launches = {"fwd": 0, "bwd": 0}
 launches_v1 = {"fwd": 0, "bwd": 0}
-launches_gen = {"fwd": 0, "bwd": 0}
-launches_gen_v1 = {"fwd": 0, "bwd": 0}
+launches_gen = {"fwd": 0, "bwd": 0, "bwd_tc": 0}
+launches_gen_v1 = {"fwd": 0, "bwd": 0, "bwd_tc": 0}
 
 _HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
 _MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
@@ -64,9 +70,18 @@ _BM = 64                                   # FM_BM: points per kernel block
 # in_dim, dir_dim, multires, multires_views) in bf16; v1 reads no octaves.
 WGMMA_GEOMETRY = (8, 4, 256, 128, 128, 128, 10, 4)
 # The generic family's limits (csrc/fused_mlp_gen.cu: FG_MAX_DEPTH, and the
-# widths whose block buffers fit the shared memory, fg_bm).
+# widths whose block buffers fit the shared memory, fg_bm). Within them the
+# backward runs on the tensor cores where `gen_bwd_plan`'s buffers fit
+# (every width to 512 with 128-lane encodings; f32 to 384 and bf16 to 512
+# with 256-lane ones; bf16 to 640 with 128), on the CUDA cores elsewhere.
 GEN_LIMITS = {"depth": (1, 32), "width": (8, 2048), "enc_dims": (128, 256)}
 _GEN_MAX_JOBS = GEN_LIMITS["depth"][1] + 5       # FG_MAX_JOBS
+# The tensor-core backward's constants (csrc/fused_mlp_gen.cu, FT_*;
+# change both together): points a block, a weight stage's side, bytes of
+# one bf16 stage part, f32 row padding, ring slots, shared memory alignment
+# and the block's shared memory.
+_FT = {"BM": 64, "T": 64, "PLANE": 8192, "PAD": 8, "MIN_SLOTS": 2,
+       "MAX_SLOTS": 8, "ALIGN": 1024, "SMEM_MAX": 232448}
 
 
 class MLPDims(NamedTuple):
@@ -667,10 +682,18 @@ def _gen_lib():
         lib.fg_bwd.argtypes = [prm] + [_VP] * 6 + [i32, _VP]
         lib.fg_bwd_pre.argtypes = [prm] + [_VP] * 9 + [i32, _VP]
         lib.fg_bwd_pass.argtypes = [prm] + [_VP] * 9 + [i32] * 3 + [_VP]
-        lib.fg_sizes.argtypes = [prm, i32, i32,
-                                 ctypes.POINTER(ctypes.c_longlong)]
+        i64, ll_p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+        lib.fg_sizes.argtypes = [prm, i32, i32, ll_p]
+        lib.fg_tc_sizes.argtypes = [prm, i32, i32, ll_p]
+        lib.fg_tc_plan.argtypes = [prm, i32, ll_p]
+        lib.fg_bwd_tc.argtypes = [prm] + [_VP] * 7 + [i64, i32, _VP]
+        lib.fg_bwd_tc_pre.argtypes = [prm] + [_VP] * 10 + [i64, i32, _VP]
+        lib.fg_bwd_tc_pass.argtypes = [prm] + [_VP] * 10 + [i64] + [i32] * 3 \
+            + [_VP]
         for fn in (lib.fg_fwd, lib.fg_fwd_pre, lib.fg_bwd, lib.fg_bwd_pre,
-                   lib.fg_bwd_pass, lib.fg_sizes):
+                   lib.fg_bwd_pass, lib.fg_sizes, lib.fg_tc_sizes,
+                   lib.fg_tc_plan, lib.fg_bwd_tc,
+                   lib.fg_bwd_tc_pre, lib.fg_bwd_tc_pass):
             fn.restype = i32
         lib.fg_error_string.argtypes = [i32]
         lib.fg_error_string.restype = ctypes.c_char_p
@@ -850,7 +873,9 @@ def _gen_bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
 
 def gen_scratch_columns(dims: MLPDims) -> dict:
     """The generic backward's scratch columns, as `fg_layout` in
-    csrc/fused_mlp_gen.cu lays them out (change both together): each
+    csrc/fused_mlp_gen.cu lays them out (change both together; the CUDA
+    cores' backward keeps each column's points contiguous, [cols][P], the
+    tensor cores' each 64 points' columns, [P / 64][cols][64]): each
     trunk layer's output "h" (its ReLU mask kept as the sign of a zero),
     the encodings "xe" / "de" (xe right before the skip layer's h, so that
     the skip layer's input is contiguous), "feat", the view output "v",
@@ -878,8 +903,9 @@ def gen_scratch_columns(dims: MLPDims) -> dict:
 
 def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
     """The ReLU masks that the generic backward's recompute takes at every
-    point (its pass 1 alone, read back from the scratch: a unit is on where
-    the stored output is not +0): ([P, width] bool per trunk layer,
+    point (its pass 1 alone, on the tensor cores where `gen_bwd_plan` takes
+    `dims`, read back from the scratch: a unit is on where the stored
+    output is not +0): ([P, width] bool per trunk layer,
     [P, view_width] bool), for holding the kernel's gradients against an
     evaluation with the same masks (`fused_mlp_pe_bwd_plain(masks=)`).
     The points run in pieces that fit one chunk of the scratch."""
@@ -887,20 +913,39 @@ def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
     p = inputs[0].shape[0]
     piece = max(_BM, (4 << 30) // (4 * cols["cols"]) // _BM * _BM)
     trunk, view = [[] for _ in range(dims.depth)], []
+    tc = gen_bwd_plan(dims, pre) is not None
+    pack = (GenPack(gen_pack(weights, dims, backward=False),
+                    gen_ring(weights, dims, pre)) if tc else None)
     for p0 in range(0, p, piece):
         part = tuple(a[p0:p0 + piece] for a in inputs)
         g = torch.zeros((part[0].shape[0], 4 + dims.out_extra),
                         device=part[0].device)
-        c = _gen_bwd_args(weights, part, g, dims, pre=pre)
         stream = torch.cuda.current_stream(part[0].device).cuda_stream
-        _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
-            ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1, stream))
+        if tc:
+            c = _gen_tc_args(weights, part, g, dims, pre=pre, pack=pack)
+            _raise_on(c.lib, "fg_bwd_tc_pass", c.lib.fg_bwd_tc_pass(
+                ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1,
+                stream))
+        else:
+            c = _gen_bwd_args(weights, part, g, dims, pre=pre)
+            _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
+                ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1,
+                stream))
         n = part[0].shape[0]
-        scr = c.keep[2][:cols["cols"] * n].view(cols["cols"], n).view(
-            torch.int32)
+        scr = c.keep[2][:cols["cols"] * n].view(torch.int32)
+        if tc:    # block-major: [P / 64][cols][64]
+            scr = scr.view(n // _BM, cols["cols"], _BM)
+
+            def on(c0, k):
+                return (scr[:, c0:c0 + k] != 0).transpose(1, 2).reshape(n, k)
+        else:     # column-major: [cols][P]
+            scr = scr.view(cols["cols"], n)
+
+            def on(c0, k):
+                return (scr[c0:c0 + k] != 0).t()
         for i, c0 in enumerate(cols["h"]):
-            trunk[i].append((scr[c0:c0 + dims.width] != 0).t())
-        view.append((scr[cols["v"]:cols["v"] + dims.view_width] != 0).t())
+            trunk[i].append(on(c0, dims.width))
+        view.append(on(cols["v"], dims.view_width))
     return [torch.cat(t) for t in trunk], torch.cat(view)
 
 
@@ -923,17 +968,281 @@ def _gen_bwd(weights, inputs, g, dims: MLPDims, *, pre: bool, pack=None):
     return grads, c.dx, c.dd
 
 
+# -----------------------------------------------------------------------------
+# the generic backward on the tensor cores (csrc/fused_mlp_gen.cu, ft_*)
+# -----------------------------------------------------------------------------
+
+def split_bf16x3(x):
+    """An f32 tensor as three bf16 parts (hi, mid, lo), largest first:
+    hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid). Each subtraction
+    is exact in f32 and each part keeps 8 significant bits, so hi + mid +
+    lo == x bit for bit wherever |x| >= 2^-100 (and for 0); the kernels
+    split their operands so (`split2` in the CUDA source)."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def _ft_products(dims: MLPDims, pre: bool, wp: int, vwp: int):
+    """The tensor-core backward's pass-1 products in the kernel's order
+    (`ft_product`): (kind, layer, K chunks, chunks from the encoding
+    buffer, whether those come first, output columns padded)."""
+    t, d = _FT["T"], dims.depth
+    e, sk = dims.in_dim // t, dims.skip + 1 < dims.depth
+    out = []
+    for i in range(d):
+        cat = sk and i == dims.skip + 1
+        out.append(("trunk", i, e if i == 0 else e + wp // t if cat
+                    else wp // t, e if i == 0 or cat else 0, True, wp))
+    out += [("feat", 0, wp // t, 0, True, wp),
+            ("view", 0, wp // t + dims.dir_dim // t, dims.dir_dim // t,
+             False, vwp),
+            ("gfeat", 0, vwp // t, 0, True, wp + (dims.dir_dim if pre else 0)),
+            ("gtop", 0, wp // t, 0, True, wp)]
+    for i in range(d - 1, -1 if pre else 0, -1):
+        cat = sk and i == dims.skip + 1
+        n = (wp if not pre else dims.in_dim if i == 0
+             else dims.in_dim + wp if cat else wp)
+        out.append(("gtrunk", i, wp // t, 0, True, n))
+    return out
+
+
+def gen_bwd_plan(dims: MLPDims, pre: bool = False):
+    """The tensor-core backward's plan for `dims` (`ft_geom` in the CUDA
+    source, from the geometry alone), or None where it does not take it
+    (the CUDA cores' backward does): operand parts (3 at f32, 1 at bf16),
+    width and view width padded to 64 with zeros, weight stages in the ring
+    and its bytes, ring slots and shared memory, and the products."""
+    if route(dims, pre) != "gen":
+        return None
+    t = _FT["T"]
+    if dims.in_dim % t or dims.dir_dim % t:
+        return None
+    parts = 1 if dims.compute_dtype == "bfloat16" else 3
+    wp, vwp = _round_up(dims.width, t), _round_up(dims.view_width, t)
+    emax = max(dims.in_dim, dims.dir_dim)
+
+    def smem(s):
+        return (s * parts * _FT["PLANE"] + _FT["BM"] * 4 * (wp + _FT["PAD"])
+                + _FT["BM"] * 4 * (emax + _FT["PAD"]) + _FT["BM"] * 8 * 4
+                + 16 * s + _FT["ALIGN"])
+
+    fits = [s for s in range(_FT["MAX_SLOTS"], _FT["MIN_SLOTS"] - 1, -1)
+            if smem(s) <= _FT["SMEM_MAX"]]
+    if not fits:
+        return None
+    prods = _ft_products(dims, pre, wp, vwp)
+    stages = sum(n // t * nk for _, _, nk, _, _, n in prods)
+    return {"parts": parts, "wp": wp, "vwp": vwp, "slots": fits[0],
+            "smem": smem(fits[0]), "stages": stages,
+            "ring_bytes": stages * parts * _FT["PLANE"], "products": prods}
+
+
+def _pad_map(n, npad, base=0):
+    """Index j -> base + j for j < n, -1 (a zero) up to npad."""
+    m = np.full(npad, -1, np.int64)
+    m[:n] = base + np.arange(n)
+    return m
+
+
+def _ft_swizzle():
+    """The 128-byte swizzle of a [64][64] bf16 tile (`swz` in
+    csrc/fused_mlp_pe.cu): element (r, k) at r 64 + ((k / 8) ^ (r % 8)) 8 +
+    k % 8. It is its own inverse."""
+    r, k = np.divmod(np.arange(64 * 64), 64)
+    return r * 64 + (((k >> 3) ^ (r & 7)) << 3) + (k & 7)
+
+
+def _ft_stage_matrix(dims: MLPDims, pre: bool, prod, wp, vwp, offs):
+    """Product `prod`'s weights as the kernel reads them, [N][K] padded:
+    each entry's index in the weights flattened in `_weight_order`
+    (`_flat_offsets`), -1 where it is a zero. The recompute's products
+    (trunk, feat, view) read their matrix transposed, M[n][k] = w[k'][n'];
+    the back-propagation's as it is, M[n][k] = w[n'][k'] (' : the maps
+    below from the padded index to the matrix's)."""
+    kind, i, _, _, _, n = prod
+    w, vw, e, ed = dims.width, dims.view_width, dims.in_dim, dims.dir_dim
+    cat = dims.skip + 1 < dims.depth and i == dims.skip + 1
+    hmap, xmap = _pad_map(w, wp), _pad_map(e, e)
+    xh = np.concatenate([xmap, _pad_map(w, wp, e)])      # [x, h] rows
+    fh = np.concatenate([hmap, _pad_map(ed, ed, w)])     # [feat, d] rows
+    name, ncols = {"trunk": (f"tw{i}", w), "feat": ("feat_w", w),
+                   "view": ("view_w", vw), "gfeat": ("view_w", vw),
+                   "gtop": ("feat_w", w), "gtrunk": (f"tw{i}", w)}[kind]
+    if kind == "trunk":        # rows over K, columns over N
+        rows, cols = (xmap if i == 0 else xh if cat else hmap), hmap
+    elif kind == "feat":
+        rows, cols = hmap, hmap
+    elif kind == "view":
+        rows, cols = fh, _pad_map(vw, vwp)
+    elif kind == "gfeat":      # rows over N, columns over K
+        rows, cols = (fh if pre else hmap), _pad_map(vw, vwp)
+    elif kind == "gtop":
+        rows, cols = hmap, hmap
+    elif pre:
+        rows, cols = (xmap if i == 0 else xh if cat else hmap), hmap
+    else:                      # v2: the h part of the layer's input only
+        rows, cols = _pad_map(w, wp, e if cat else 0), hmap
+    if kind in ("trunk", "feat", "view"):
+        r_of, c_of = rows[None, :], cols[:, None]
+    else:
+        r_of, c_of = rows[:, None], cols[None, :]
+    out = np.where((r_of >= 0) & (c_of >= 0), offs[name] + r_of * ncols
+                   + c_of, -1)
+    assert out.shape == (n, prod[2] * _FT["T"]), (kind, out.shape, n)
+    return out
+
+
+_ring_index_cache: dict = {}
+
+
+def gen_ring_index(dims: MLPDims, pre: bool):
+    """The tensor-core backward's weight stages in the order its producer
+    streams them: for each product, each pair of output tiles (the two
+    warpgroups'), each 64-deep chunk, the pair's tiles; each stage a
+    [64 N][64 K] tile in the 128-byte swizzle. Returns int64 [stages,
+    4096]: each element's index in the weights flattened in
+    `_weight_order`, -1 for a zero (padding). Built once per geometry."""
+    key = (dims, pre)
+    if key not in _ring_index_cache:
+        plan = gen_bwd_plan(dims, pre)
+        offs, _ = _flat_offsets(dims)
+        sw = _ft_swizzle()
+        t, stages = _FT["T"], []
+        for prod in plan["products"]:
+            m = _ft_stage_matrix(dims, pre, prod, plan["wp"], plan["vwp"],
+                                 offs)
+            nt, nk = prod[5] // t, prod[2]
+            assert m.shape == (nt * t, nk * t)
+            tiles = m.reshape(nt, t, nk, t).transpose(0, 2, 1, 3).reshape(
+                nt, nk, t * t)
+            for tp in range((nt + 1) // 2):
+                for kc in range(nk):
+                    for wgp in range(min(2, nt - 2 * tp)):
+                        stages.append(tiles[2 * tp + wgp, kc][sw])
+        idx = np.stack(stages)
+        assert idx.shape[0] == plan["stages"]
+        _ring_index_cache[key] = torch.from_numpy(idx)
+    return _ring_index_cache[key]
+
+
+def gen_ring(weights, dims: MLPDims, pre: bool):
+    """What the tensor-core backward reads of the weights: every stage of
+    `gen_ring_index` as its parts (`split_bf16x3` at f32; the bf16 rounding
+    alone at bf16, as `gen_pack` rounds), part after part: bf16
+    [stages, parts, 4096], flat. Packed once a call."""
+    plan = gen_bwd_plan(dims, pre)
+    if plan is None:
+        raise ValueError(f"the tensor-core backward does not take {dims}")
+    dev = weights["tw0"].device
+    idx = gen_ring_index(dims, pre).to(dev).reshape(-1)
+    flat = torch.cat([weights[n].reshape(-1).float()
+                      for n in _weight_order(dims)] + [
+        torch.zeros(1, device=dev)])
+    vals = flat[torch.where(idx < 0, flat.numel() - 1, idx)].view(
+        plan["stages"], -1)
+    parts = ((vals.to(torch.bfloat16),) if plan["parts"] == 1
+             else split_bf16x3(vals))
+    return torch.stack(parts, dim=1).reshape(-1)
+
+
+class GenPack(NamedTuple):
+    """The generic route's weights for a forward and its backward
+    (`pack_for`): `gen_pack`'s f32 buffer (with the transposes when the
+    backward runs on the CUDA cores) and `gen_ring`'s stages (when it runs
+    on the tensor cores, else None)."""
+    flat: torch.Tensor
+    ring: torch.Tensor | None
+
+
+def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                 pack: GenPack | None = None) -> _GenBwdCall:
+    """`_gen_bwd_args` for the tensor-core backward: `pack_for`'s
+    `GenPack` (packed here when None; the ring in `keep[-1]`), the plan
+    checked against the CUDA source's (`fg_tc_plan`), its sizes
+    (`fg_tc_sizes`)."""
+    _check_kernel_args(weights, inputs, dims, pre)
+    plan = gen_bwd_plan(dims, pre)
+    if plan is None:
+        raise ValueError(f"the tensor-core backward does not take {dims}")
+    p, dev = inputs[0].shape[0], inputs[0].device
+    if g.shape != (p, 4 + dims.out_extra):
+        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
+                         f"got {tuple(g.shape)}")
+    g = g.to(torch.float32).contiguous()
+    lib = _gen_lib()
+    if pack is None:
+        pack = GenPack(gen_pack(weights, dims, backward=False),
+                       gen_ring(weights, dims, pre))
+    ring = pack.ring
+    prm = gen_params(weights, dims, pack.flat)
+    got = (ctypes.c_longlong * 8)()
+    _raise_on(lib, "fg_tc_plan", lib.fg_tc_plan(ctypes.byref(prm), int(pre),
+                                                got))
+    want = (1, plan["smem"], plan["slots"], plan["stages"],
+            plan["ring_bytes"], plan["wp"], plan["vwp"], plan["parts"])
+    if tuple(got) != want or ring.numel() * 2 != plan["ring_bytes"]:
+        raise RuntimeError(f"gen_bwd_plan {want} disagrees with the CUDA "
+                           f"source's {tuple(got)} or the ring's "
+                           f"{ring.numel() * 2} bytes")
+    sizes = (ctypes.c_longlong * 3)()
+    _raise_on(lib, "fg_tc_sizes", lib.fg_tc_sizes(ctypes.byref(prm), p,
+                                                  int(pre), sizes))
+    scratch, part, acc = (torch.empty(max(int(k), 1), dtype=dt, device=dev)
+                          for k, dt in zip(sizes, (torch.float32,
+                                                   torch.float64,
+                                                   torch.float64)))
+    flat = (torch.empty if p else torch.zeros)(
+        prm.n_params, dtype=torch.float32, device=dev)
+    dx = dd = None
+    if pre:
+        dx = torch.empty((p, dims.in_dim), dtype=torch.float32, device=dev)
+        dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
+    ptrs = (inputs[0].data_ptr(), inputs[1].data_ptr() if pre else None,
+            g.data_ptr(), flat.data_ptr(),
+            dx.data_ptr() if pre else None, dd.data_ptr() if pre else None,
+            scratch.data_ptr(), part.data_ptr(), acc.data_ptr(),
+            ring.data_ptr(), plan["ring_bytes"])
+    return _GenBwdCall(lib, prm, ptrs, p, flat, dx, dd, 4 * int(sizes[0]),
+                       (pack.flat, g, scratch, part, acc, ring))
+
+
+def _gen_bwd_tc(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                pack: GenPack | None = None):
+    """One tensor-core backward (`fg_bwd_tc`, `fg_bwd_tc_pre`), uncounted:
+    (f32 weight gradients in `_weight_order`, dx, dd)."""
+    c = _gen_tc_args(weights, inputs, g, dims, pre=pre, pack=pack)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    in_x, in_d, g_, grads, dx, dd, *rest = c.ptrs
+    if pre:
+        err = c.lib.fg_bwd_tc_pre(ctypes.byref(c.prm), in_x, in_d, g_, grads,
+                                  dx, dd, *rest, c.n_points, stream)
+    else:
+        err = c.lib.fg_bwd_tc(ctypes.byref(c.prm), in_x, g_, grads, *rest,
+                              c.n_points, stream)
+    _raise_on(c.lib, "fg_bwd_tc_pre" if pre else "fg_bwd_tc", err)
+    offs, _ = _flat_offsets(dims)
+    grads = {n: c.flat[offs[n]:offs[n] + math.prod(s)].view(s)
+             for n, s in weight_shapes(dims).items()}
+    return grads, c.dx, c.dd
+
+
 def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
     """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
     #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1, #7) needs on
     the route of `dims` (`route`): a function that launches the kernel on
     those buffers and returns raw [P, 4+e] f32 (the same tensor each call),
     its route as `run.route`. `pack`: `pack_for`'s (wgmma: `gather_ring`'s
-    whole ring or its forward stages; gen: `gen_pack`'s buffer), packed here
-    when None. Counts no launch, so it also times the kernel alone."""
+    whole ring or its forward stages; gen: `gen_pack`'s buffer or a
+    `GenPack`), packed here when None. Counts no launch, so it also times
+    the kernel alone."""
     rt = _check_kernel_args(weights, inputs, dims, pre)
     if rt == "gen":
         lib = _gen_lib()
+        if isinstance(pack, GenPack):
+            pack = pack.flat
         if pack is None:
             pack = gen_pack(weights, dims, backward=False)
         prm, bufs = gen_params(weights, dims, pack), (pack,)
@@ -972,10 +1281,14 @@ def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
 
 def pack_for(weights, dims: MLPDims, pre: bool):
     """What the route's kernels read of the weights, packed once for a
-    forward and its backward: the wgmma ring (`gather_ring`) or the generic
-    kernels' buffer (`gen_pack`)."""
+    forward and its backward: the wgmma ring (`gather_ring`) or, on the
+    generic route, a `GenPack`: `gen_pack`'s buffer and, where the backward
+    runs on the tensor cores (`gen_bwd_plan`), `gen_ring`'s stages."""
     if route(dims, pre) == "gen":
-        return gen_pack(weights, dims, backward=True)
+        if gen_bwd_plan(dims, pre) is None:
+            return GenPack(gen_pack(weights, dims, backward=True), None)
+        return GenPack(gen_pack(weights, dims, backward=False),
+                       gen_ring(weights, dims, pre))
     return gather_ring(weights, dims, pre)
 
 
@@ -1078,7 +1391,9 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     """One launch of the backward on (xd,) (v2, #10) or, with `pre`, on the
     encodings (x_enc, d_enc) (v1, #8), on the route of `dims` (wgmma:
     `fm_bwd` / `fm_bwd_pre`, the recompute-and-backprop kernel, then the
-    split-K weight-gradient kernel; gen: `fg_bwd` / `fg_bwd_pre`), counted:
+    split-K weight-gradient kernel; gen: `fg_bwd_tc` / `fg_bwd_tc_pre` on
+    the tensor cores where `gen_bwd_plan` takes `dims`, else `fg_bwd` /
+    `fg_bwd_pre`, each counted on its own key), counted:
     (f32 weight gradients for the cotangent g [P, 4+e] in `_weight_order`,
     dx, dd), the input gradients [P, in_dim] / [P, dir_dim] f32 with `pre`
     and None without. `pack`: `pack_for`'s, packed here when None. The sums
@@ -1086,8 +1401,13 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     notes in the CUDA sources), so launches on the same inputs are
     bit-equal."""
     if route(dims, pre) == "gen":
-        out = _gen_bwd(weights, inputs, g, dims, pre=pre, pack=pack)
-        _counts("gen", pre)["bwd"] += 1
+        if gen_bwd_plan(dims, pre) is not None:
+            out = _gen_bwd_tc(weights, inputs, g, dims, pre=pre, pack=pack)
+            _counts("gen", pre)["bwd_tc"] += 1
+        else:
+            out = _gen_bwd(weights, inputs, g, dims, pre=pre,
+                           pack=pack.flat if pack is not None else None)
+            _counts("gen", pre)["bwd"] += 1
         return out
     c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=pack)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
@@ -1105,20 +1425,27 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     return c.grads, c.dx, c.dd
 
 
-def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
+def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                 tc: bool | None = None):
     """For timing the backward's two passes apart (`fm_bwd_pass`,
-    `fg_bwd_pass`, on the route of `dims`): two functions that launch, on
-    one set of buffers, the recompute-and-backprop kernel and the
-    weight-gradient reduction (which reduces what the first one wrote; call
-    that one first; the generic route runs each pass over its chunks of
-    points), and the bytes of that scratch. Counts no launch; no result is
-    read. Each pass includes its fixed-order sums."""
+    `fg_bwd_tc_pass`, `fg_bwd_pass`, on the route of `dims`): two functions
+    that launch, on one set of buffers, the recompute-and-backprop kernel
+    and the weight-gradient reduction (which reduces what the first one
+    wrote; call that one first; the generic route runs each pass over its
+    chunks of points), and the bytes of that scratch. On the generic route
+    `tc` picks the tensor cores' backward (True) or the CUDA cores' (False;
+    None: `gen_bwd_plan`'s choice). Counts no launch; no result is read.
+    Each pass includes its fixed-order sums."""
     if route(dims, pre) == "gen":
-        c = _gen_bwd_args(weights, inputs, g, dims, pre=pre)
+        if tc is None:
+            tc = gen_bwd_plan(dims, pre) is not None
+        c = (_gen_tc_args if tc else _gen_bwd_args)(weights, inputs, g, dims,
+                                                    pre=pre)
         scratch_bytes = c.scratch_bytes
+        name = "fg_bwd_tc_pass" if tc else "fg_bwd_pass"
 
         def run(k):
-            _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
+            _raise_on(c.lib, name, getattr(c.lib, name)(
                 ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), k,
                 stream))
     else:
