@@ -11,8 +11,9 @@ Phases, each fatal on failure (no phase's error is caught):
   2. build the CUDA kernels from csrc/ with nvcc, one process per source,
      started together (timed); ptxas's registers and spills of both
      fm_fwd_kernel instantiations, of hf_fwd_kernel (#1) and of
-     kc_wgmma_kernel (#11) (none may spill), and of every kernel of
-     csrc/fused_mlp_gen.cu (printed);
+     kc_wgmma_kernel (#11) and of the four ft_fwd_kernel instantiations
+     (the generic forward on the tensor cores) (none may spill), and of
+     every kernel of csrc/fused_mlp_gen.cu (printed);
   3. hold the hash-grid encode kernels (forward and backward) against their
      plain PyTorch version at the main path's full shape: a 16 x 2^19 x 2
      table, 262,144 points from the trainer's calibrated ray distribution,
@@ -246,28 +247,33 @@ Phases, each fatal on failure (no phase's error is caught):
      (and 131,072 with the semantic head), bf16 and f32 8 x 128, f32 2 x 32
      at 4 / 2 octaves, depth 3, depth 10, width 512, 12 / 6 octaves and 21
      octaves, and width 1,024 (65,536 points each): #9 / #10 and #7 / #8,
-     each launch counted on the route "gen" (the backward on the tensor
-     cores, "bwd_tc", where `gen_bwd_plan` takes the geometry, f32 as six
-     bf16 products; width 1,024 past the plan on the CUDA cores, "bwd"),
-     held against the plain version in
-     float64 on the card: the output within 2 x the plain f32 / bf16
-     version's error, every gradient (and dx, dd) within 2 x the plain
+     each launch counted on the route "gen" (the forward and the backward
+     on the tensor cores, "fwd_tc" and "bwd_tc", where `gen_fwd_plan` and
+     `gen_bwd_plan` take the geometry, f32 as six bf16 products; past the
+     plans on the CUDA cores, "fwd" and "bwd": the forward at f32 widths
+     512 and 1,024, the backward at 1,024), held against the plain version
+     in float64 on the card: the output within 2 x the plain f32 / bf16
+     version's error (at the first case also the CUDA cores' forward,
+     uncounted), every gradient (and dx, dd) within 2 x the plain
      version's against the float64 evaluation with each side's own ReLU
      masks (the kernel's read back from its recompute), the points whose
      masks differ from float64's at most max(4 x the plain version's,
-     P / 1000), dx's and dd's padded lanes exactly 0, the backward
-     bit-equal over 5 more launches and through the autograd wrappers;
-     (b) at (a)'s first case, the kernels, the CUDA cores' backward, the
-     plain version and an f32 torch.matmul chain with its autograd
-     backward (TF32 off) timed with CUDA events, each with the function's
-     FLOP over its time (the tensor cores' backward also against 989 / 6
-     TFLOP/s of f32 work), and both backwards' two passes apart; at bf16
-     8 x 128 the two backwards side by side; (c) `Trainer` at the MLP arm's
-     configuration in f32 for 100 steps and at width 128 in bf16 for 50:
-     #9 / #10 launched twice a step each on the generic route (the
-     backward on the tensor cores) and the wgmma kernels never, the PSNR
-     rising, the step time; (d) `tools.full_run --smoke --model mlp` in
-     this process: exit 0, every stage, the generic kernels launched.
+     P / 1000), dx's and dd's padded lanes exactly 0, the forward and the
+     backward bit-equal over 5 more launches and through the autograd
+     wrappers; (b) at (a)'s first case, both forwards alone (the tensor
+     cores' and the CUDA cores'), the kernels' entries, the CUDA cores'
+     backward, the plain version and an f32 torch.matmul chain with its
+     autograd backward (TF32 off) timed with CUDA events, each with the
+     function's FLOP over its time (the tensor cores' forward and backward
+     also against 989 / 6 TFLOP/s of f32 work), and both backwards' two
+     passes apart; at bf16 8 x 128 the two forwards and the two backwards
+     side by side; (c) `Trainer` at the MLP arm's configuration in f32 for
+     100 steps and at width 128 in bf16 for 50: #9 / #10 launched twice a
+     step each on the tensor cores ("fwd_tc", "bwd_tc") and the CUDA
+     cores' and the wgmma kernels never, the PSNR rising, the step time;
+     (d) `tools.full_run --smoke --model mlp` in this process: exit 0,
+     every stage, #9 and #10 on the tensor cores, never on the CUDA
+     cores.
 """
 from __future__ import annotations
 
@@ -4446,7 +4452,7 @@ def gen_field_weights(compute, depth, width, octaves, semantic, dev, seed):
 def counted(fn, want):
     """fn() with every fused MLP counter set to 0 first: its result, after
     checking that it launched exactly `want` ({(route, v1): {"fwd": n,
-    "bwd": n, "bwd_tc": n}}, every counter not named 0)."""
+    "fwd_tc": n, "bwd": n, "bwd_tc": n}}, every counter not named 0)."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     for rt in ("wgmma", "gen"):
         for pre in (False, True):
@@ -4466,6 +4472,13 @@ def gen_bwd_key(dims, pre=False):
     on the tensor cores where `gen_bwd_plan` takes it, else "bwd"."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     return "bwd_tc" if fm.gen_bwd_plan(dims, pre) is not None else "bwd"
+
+
+def gen_fwd_key(dims, pre=False):
+    """The generic route's forward counter that `dims` launches: "fwd_tc"
+    on the tensor cores where `gen_fwd_plan` takes it, else "fwd"."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    return "fwd_tc" if fm.gen_fwd_plan(dims, pre) is not None else "fwd"
 
 
 def gen_rel(a, ref):
@@ -4490,11 +4503,13 @@ def own_masks(w, inputs, dims, acc_dtype, pre):
     return fm._relu_masks(zs, vz, None)
 
 
-def gen_hold(tag, dims, w, pts, vd, seed):
+def gen_hold(tag, dims, w, pts, vd, seed, cc_fwd=False):
     """Phase 20 (a), one configuration: #9 / #10 and #7 / #8 against their
     plain versions evaluated in float64 on the card, each launch counted on
-    the route "gen". The forward within 2 x the plain f32 or bf16 version's
-    own error against float64; every gradient (v1: also dx and dd) within
+    the route "gen" and the key its plans pick. The forward within 2 x the
+    plain f32 or bf16 version's own error against float64 (with `cc_fwd`,
+    where the forward runs on the tensor cores, also the CUDA cores'
+    forward, uncounted: "out_cc"); every gradient (v1: also dx and dd) within
     2 x the plain version's, each held against the float64 evaluation that
     takes its own ReLU masks (the kernel's read back from its recompute,
     `gen_relu_masks`): a unit whose pre-activation lies within rounding of
@@ -4503,10 +4518,11 @@ def gen_hold(tag, dims, w, pts, vd, seed):
     by several times at random; with each side's masks they are rounding
     alone. The points where the kernel's masks differ from float64's
     number at most max(4 x the plain version's, P / 1000), and dx's and
-    dd's padded lanes are exactly 0. The backward bit-equal over 5 more
-    launches and through the autograd wrappers. Returns ({name: (kernel rel
-    error, plain rel error, kernel abs error), each against its gated
-    reference, and "flips"} for v2 and for v1, and the inputs)."""
+    dd's padded lanes are exactly 0. The forward and the backward bit-equal
+    over 5 more launches and through the autograd wrappers. Returns ({name:
+    (kernel rel error, plain rel error, kernel abs error), each against its
+    gated reference, "flips", and the counter keys "forward", "backward"}
+    for v2 and for v1, and the inputs)."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4537,13 +4553,18 @@ def gen_hold(tag, dims, w, pts, vd, seed):
             pfwd = lambda dt: fm.fused_mlp_pe_plain(w, xd, dims, dt)
             pbwd = lambda dt, m=None: (fm.fused_mlp_pe_bwd_plain(
                 w, xd, g, dims, dt, masks=m),)
-        bk = gen_bwd_key(dims, pre)
-        out_k = counted(fwd, {("gen", pre): {"fwd": 1}})
+        bk, fk = gen_bwd_key(dims, pre), gen_fwd_key(dims, pre)
+        out_k = counted(fwd, {("gen", pre): {fk: 1}})
         res_k = counted(bwd, {("gen", pre): {bk: 1}})
         out_64 = pfwd(torch.float64)
-        errs = {"out": (gen_rel(out_k, out_64),
-                        gen_rel(pfwd(torch.float32), out_64),
+        p_err = gen_rel(pfwd(torch.float32), out_64)
+        errs = {"out": (gen_rel(out_k, out_64), p_err,
                         float((out_k.double() - out_64).abs().max()))}
+        if cc_fwd and fk == "fwd_tc":
+            out_cc = fm.fwd_fn(w, ins, dims, pre=pre, tc=False)()
+            errs["out_cc"] = (gen_rel(out_cc, out_64), p_err,
+                              float((out_cc.double() - out_64).abs().max()))
+            del out_cc
         del out_64
         m_k = fm.gen_relu_masks(w, ins, dims, pre=pre)
         m_p = own_masks(w, ins, dims, torch.float32, pre)
@@ -4569,7 +4590,8 @@ def gen_hold(tag, dims, w, pts, vd, seed):
                          float((tk[n].double() - rk[n]).abs().max()))
                      for n in r64})
         del ref_k, ref_p, ref, rk, rp, r64
-        log(f"[gen mlp] {tag} {name} P={p}: backward {bk}; relative error "
+        log(f"[gen mlp] {tag} {name} P={p}: forward {fk}, backward {bk}; "
+            f"relative error "
             f"vs float64 with each side's masks, kernel / plain "
             f"{dims.compute_dtype}:")
         log("  " + ", ".join(f"{n} {k:.3e}/{q:.3e}"
@@ -4592,7 +4614,7 @@ def gen_hold(tag, dims, w, pts, vd, seed):
             raise AssertionError(f"{tag} {name}: out of bound (2 x plain): "
                                  f"{bad}, finite {bool(finite)}, flips "
                                  f"{flips}")
-        same = repeats_equal(bwd, res_k)
+        same = repeats_equal(fwd, out_k) and repeats_equal(bwd, res_k)
         leaves = {n: v.clone().requires_grad_() for n, v in w.items()}
         x_l, d_l = x.clone().requires_grad_(), d.clone().requires_grad_()
 
@@ -4604,18 +4626,19 @@ def gen_hold(tag, dims, w, pts, vd, seed):
             o.backward(g)
             return o
 
-        out_a = counted(autograd_call, {("gen", pre): {"fwd": 1, bk: 1}})
+        out_a = counted(autograd_call, {("gen", pre): {fk: 1, bk: 1}})
         wrapped = torch.equal(out_a.detach(), out_k) and all(
             torch.equal(leaves[n].grad, res_k[0][n]) for n in res_k[0])
         if pre:
             wrapped = wrapped and torch.equal(x_l.grad, res_k[1]) and \
                 torch.equal(d_l.grad, res_k[2])
-        log(f"[gen mlp] {tag} {name}: {DET_REPEATS} more backward launches "
-            f"bit-equal: {same}; the autograd wrapper bit-equal: {wrapped}")
+        log(f"[gen mlp] {tag} {name}: {DET_REPEATS} more forward and "
+            f"backward launches bit-equal: {same}; the autograd wrapper "
+            f"bit-equal: {wrapped}")
         if not (same and wrapped):
-            raise AssertionError(f"{tag} {name}: the backward is not "
-                                 f"reproducible")
-        out[pre] = dict(errs, flips=flips, backward=bk)
+            raise AssertionError(f"{tag} {name}: the forward or the backward "
+                                 f"is not reproducible")
+        out[pre] = dict(errs, flips=flips, forward=fk, backward=bk)
         del leaves, out_a, res_k, res_p, tk, tp
     return out[False], out[True], (xd, g, x, d)
 
@@ -4624,11 +4647,14 @@ def gen_times(w, dims, inputs, tag):
     """Phase 20 (b): #9 / #10 and #7 / #8 at (a)1 timed with CUDA events
     beside the plain version and the f32 torch.matmul chain with its
     autograd backward (TF32 off), each with the function's FLOP over its
-    time: the backward on the route `gen_bwd_plan` picks (the tensor cores,
-    "bwd") and on the CUDA cores ("bwd_cc", uncounted), each pass of both
-    apart (pass 1 the recompute and back-propagation, pass 2 the weight
-    gradients), the tensor cores' also against 989 / 6 TFLOP/s of f32
-    work. Returns {version: {name: ms}}."""
+    time: the forward kernel alone on the tensor cores ("fwd_tc") and on
+    the CUDA cores ("fwd_cc"), and through the counted entry, which packs
+    the forward's ring each call ("fwd_call"); the backward on the route
+    `gen_bwd_plan` picks (the tensor cores, "bwd") and on the CUDA cores
+    ("bwd_cc", uncounted), each pass of both apart (pass 1 the recompute
+    and back-propagation, pass 2 the weight gradients); the tensor cores'
+    also against 989 / 6 TFLOP/s of f32 work. Returns {version: {name:
+    ms}}."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4652,8 +4678,11 @@ def gen_times(w, dims, inputs, tag):
             pf = lambda: fm.fused_mlp_pe_plain(w, xd, dims)
             pb = lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g, dims)
         cc = lambda: fm._gen_bwd(w, ins, g, dims, pre=pre)
-        m = {"fwd": cuda_ms(kf), "bwd": cuda_ms(kb), "bwd_cc": cuda_ms(cc),
-             "plain_fwd": cuda_ms(pf), "plain_bwd": cuda_ms(pb)}
+        m = {"fwd_tc": cuda_ms(fm.fwd_fn(w, ins, dims, pre=pre, tc=True)),
+             "fwd_cc": cuda_ms(fm.fwd_fn(w, ins, dims, pre=pre, tc=False)),
+             "fwd_call": cuda_ms(kf), "bwd": cuda_ms(kb),
+             "bwd_cc": cuda_ms(cc), "plain_fwd": cuda_ms(pf),
+             "plain_bwd": cuda_ms(pb)}
         lib_fwd, lib_leaves = library_chain(w, dims, pre=pre,
                                             dtype=torch.float32)
         with torch.no_grad():
@@ -4679,6 +4708,11 @@ def gen_times(w, dims, inputs, tag):
             f"{pass_flop[1]:.4e} / {pass_flop[2]:.4e}), the scratch "
             f"{scratch:.4e} bytes; TF32 "
             f"{torch.backends.cuda.matmul.allow_tf32}")
+        log(f"[gen mlp] {tag} {name}: the tensor cores' forward at "
+            f"{rate['fwd_tc']:.2f} TFLOP/s of f32 work, "
+            f"{rate['fwd_tc'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} of six bf16 "
+            f"products at 989 TFLOP/s; {m['fwd_cc'] / m['fwd_tc']:.2f}x the "
+            f"CUDA cores', {m['lib_fwd'] / m['fwd_tc']:.2f}x the chain's")
         log(f"[gen mlp] {tag} {name}: the tensor cores' backward at "
             f"{rate['bwd']:.2f} TFLOP/s of f32 work, "
             f"{rate['bwd'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} of six bf16 "
@@ -4691,27 +4725,32 @@ def gen_times(w, dims, inputs, tag):
     return ms
 
 
-def gen_bwd_pair_times(w, dims, inputs, tag):
-    """Phase 20 (b) at bf16 8 x 128 (the parity nets): the backward (v2)
-    on the tensor cores, one bf16 product a pair, beside the CUDA cores',
-    on the same inputs, with CUDA events. Returns {name: ms}."""
+def gen_pair_times(w, dims, inputs, tag):
+    """Phase 20 (b) at bf16 8 x 128 (the parity nets): the forward alone
+    and the backward (v2) on the tensor cores, one bf16 product a pair,
+    beside the CUDA cores', on the same inputs, with CUDA events. Returns
+    {name: ms}."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     xd, g, _, _ = inputs
-    bwd_flop = mlp_flops(dims)[1] * xd.shape[0]
-    m = {"bwd": cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)),
+    flop = dict(zip(("fwd", "bwd"), (f * xd.shape[0]
+                                     for f in mlp_flops(dims))))
+    m = {"fwd_tc": cuda_ms(fm.fwd_fn(w, (xd,), dims, pre=False, tc=True)),
+         "fwd_cc": cuda_ms(fm.fwd_fn(w, (xd,), dims, pre=False, tc=False)),
+         "bwd": cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)),
          "bwd_cc": cuda_ms(lambda: fm._gen_bwd(w, (xd,), g, dims,
                                                pre=False))}
     log(f"[gen mlp] {tag} v2 P={xd.shape[0]}: " + ", ".join(
-        f"{k} {v:.4f} ms ({bwd_flop / v / 1e9:.2f} TFLOP/s)"
-        for k, v in m.items()) + f"; {m['bwd_cc'] / m['bwd']:.2f}x")
+        f"{k} {v:.4f} ms ({flop[k[:3]] / v / 1e9:.2f} TFLOP/s)"
+        for k, v in m.items()) + f"; forward {m['fwd_cc'] / m['fwd_tc']:.2f}x"
+        f", backward {m['bwd_cc'] / m['bwd']:.2f}x")
     return m
 
 
 def gen_trainer(scene, common, tag, steps, **cfg_kw):
     """Phase 20 (c): a Trainer at the MLP arm's configuration with
     `cfg_kw` for `steps` steps: both fields on the generic route, #9 / #10
-    launched twice a step each and the wgmma kernels never, the PSNR
-    rising. Returns its record."""
+    launched twice a step each (the forward on the tensor cores) and the
+    wgmma kernels never, the PSNR rising. Returns its record."""
     import torch
 
     from spinnerf_tpu_torch.config import Config
@@ -4723,20 +4762,22 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
     dims = {k: f.dims for k, f in tr.fields.items()}
     if any(fm.route(v) != "gen" for v in dims.values()):
         raise AssertionError(f"{tag}: a field is not on the generic route")
-    bk = gen_bwd_key(dims["fine"])
-    if bk != gen_bwd_key(dims["coarse"]):
-        raise AssertionError(f"{tag}: the fields take different backwards")
+    bk, fk = gen_bwd_key(dims["fine"]), gen_fwd_key(dims["fine"])
+    if (bk, fk) != (gen_bwd_key(dims["coarse"]), gen_fwd_key(dims["coarse"])):
+        raise AssertionError(f"{tag}: the fields take different kernels")
+    if fk != "fwd_tc":
+        raise AssertionError(f"{tag}: the forward is not on the tensor cores")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m1 = counted(lambda: tr.fit(1), {("gen", False): {"fwd": 2, bk: 2}})
-    want = {("gen", False): {"fwd": 2 * (steps - 1), bk: 2 * (steps - 1)}}
+    m1 = counted(lambda: tr.fit(1), {("gen", False): {fk: 2, bk: 2}})
+    want = {("gen", False): {fk: 2 * (steps - 1), bk: 2 * (steps - 1)}}
     m_end = counted(lambda: tr.fit(steps), want)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rec = {"steps": steps, "psnr_step_1": float(m1["psnr"]),
            "psnr_end": float(m_end["psnr"]), "loss_end": float(m_end["loss"]),
            "ms_per_step": dt * 1e3 / steps,
-           "launches_per_step": {"fwd": 2, bk: 2}, "backward": bk,
+           "launches_per_step": {fk: 2, bk: 2}, "backward": bk,
            "dims": dims["fine"]._asdict()}
     log(f"[gen mlp] trainer {tag}: {json.dumps(rec)}")
     if not math.isfinite(rec["loss_end"]) or not (
@@ -4749,8 +4790,8 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
 def gen_full_run_smoke(exp_root):
     """Phase 20 (d): `tools.full_run --smoke --model mlp` in this process
     on the card (its f32 2 x 32 field on the generic route): exit 0, every
-    stage, #9 and the tensor cores' #10 launched, the CUDA cores' #10 and
-    the wgmma kernels not."""
+    stage, #9 and #10 launched on the tensor cores, the CUDA cores' #9 and
+    #10 and the wgmma kernels not."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4759,7 +4800,8 @@ def gen_full_run_smoke(exp_root):
     shutil.rmtree(work, ignore_errors=True)
     for rt in ("wgmma", "gen"):
         for pre in (False, True):
-            fm._counts(rt, pre).update(fwd=0, bwd=0)
+            c = fm._counts(rt, pre)
+            c.update({k: 0 for k in c})
     t0 = time.perf_counter()
     rc = full_run.main(["--smoke", "--model", "mlp", "--views", "6",
                         "--gt", "2", "--h", "128", "--w", "160",
@@ -4773,8 +4815,9 @@ def gen_full_run_smoke(exp_root):
     log(f"[gen mlp] full_run --smoke --model mlp: {json.dumps(out)}")
     if (rc != 0 or set(res["stage_seconds"]) != {
             "mvseg", "prepare", "inpaint_guidance", "fit", "eval"}
-            or min(fm.launches_gen["fwd"], fm.launches_gen["bwd_tc"]) < 1
-            or fm.launches_gen["bwd"] or any(fm.launches.values())
+            or min(fm.launches_gen["fwd_tc"], fm.launches_gen["bwd_tc"]) < 1
+            or fm.launches_gen["fwd"] or fm.launches_gen["bwd"]
+            or any(fm.launches.values())
             or not all(math.isfinite(v) for v in res["summary"].values())):
         raise AssertionError(f"full_run --smoke --model mlp: {out}")
     return out
@@ -4784,8 +4827,8 @@ def gen_mlp_phase(exp_root, scene, common, points):
     """Phase 20: the fused MLP on the generic kernels. points: semantic ->
     (pts [R, 128, 3], viewdirs [R, 3]), the MLP arm's fine-pass rays.
     Returns the kernels line's records of #9, #10, #7 and #8 on the
-    generic route: the forwards, the backwards on the tensor cores and on
-    the CUDA cores."""
+    generic route: the forwards and the backwards, each on the tensor cores
+    and on the CUDA cores."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4821,13 +4864,14 @@ def gen_mlp_phase(exp_root, scene, common, points):
         dims, w = gen_field_weights(compute, depth, width, octaves, semantic,
                                     dev, 10 + i)
         t0 = time.perf_counter()
-        errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i)
+        errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i,
+                                       cc_fwd=i == 0)
         held[tag] = {"v2": errs, "v1": errs1,
                      "seconds": time.perf_counter() - t0}
         if tag == "bf16 8x128":
-            pair_ms = gen_bwd_pair_times(w, dims, inputs, tag)
+            pair_ms = gen_pair_times(w, dims, inputs, tag)
         if errs["backward"] == "bwd":
-            past_plan = tag      # the CUDA cores' backward, held above
+            past_plan = tag      # both CUDA-core kernels, held and counted
         if i == 0:
             first = (dims, w, inputs)
             # the v1 entry point on these points, with their gradient
@@ -4838,9 +4882,8 @@ def gen_mlp_phase(exp_root, scene, common, points):
                 out.backward(inputs[1][:out.shape[0] * out.shape[1]]
                              .reshape(out.shape))
 
-            v1_counts = {"fwd": 1, "bwd": 1}
-            counted(entry, {("gen", True): {"fwd": 1, gen_bwd_key(dims, True):
-                                            1}})
+            counted(entry, {("gen", True): {gen_fwd_key(dims, True): 1,
+                                            gen_bwd_key(dims, True): 1}})
             del pts_a
         del inputs
         torch.cuda.empty_cache()
@@ -4860,79 +4903,90 @@ def gen_mlp_phase(exp_root, scene, common, points):
 
     records = []
     p = GEN_CASES[0][6]
-    for pre, rows in ((False, (("fused_mlp_pe_fwd", 411, "fwd"),
-                               ("fused_mlp_pe_bwd", 616, "bwd"),
-                               ("fused_mlp_pe_bwd", 424, "bwd_cc"))),
-                      (True, (("fused_mlp_fwd", 106, "fwd"),
-                              ("fused_mlp_bwd", 294, "bwd"),
-                              ("fused_mlp_bwd", 115, "bwd_cc")))):
+    # (name, line, key): each function on the tensor cores and on the CUDA
+    # cores (counted past the plans, in (a)'s case past_plan)
+    rows = {False: (("fused_mlp_pe_fwd_gen_tc", 411, "fwd_tc"),
+                    ("fused_mlp_pe_fwd_gen", 411, "fwd_cc"),
+                    ("fused_mlp_pe_bwd_gen_tc", 616, "bwd"),
+                    ("fused_mlp_pe_bwd_gen", 424, "bwd_cc")),
+            True: (("fused_mlp_fwd_gen_tc", 106, "fwd_tc"),
+                   ("fused_mlp_fwd_gen", 106, "fwd_cc"),
+                   ("fused_mlp_bwd_gen_tc", 294, "bwd"),
+                   ("fused_mlp_bwd_gen", 115, "bwd_cc"))}
+    meta = ("flips", "forward", "backward")
+    for pre in (False, True):
         fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
         n_w = sum(v.numel() for v in w.values())
         enc = p * (dims.in_dim + dims.dir_dim) * 4 if pre else p * 32
         nbytes = {"fwd": enc + n_w * 4 + p * (4 + dims.out_extra) * 4,
                   "bwd": (2 if pre else 1) * enc + p * (4 + dims.out_extra)
                   * 4 + 2 * n_w * 4}
-        errs = {n: e for n, e in held[GEN_CASES[0][0]][
-            "v1" if pre else "v2"].items() if n not in ("flips", "backward")}
-        cc_errs = {n: e for n, e in held[past_plan][
-            "v1" if pre else "v2"].items() if n not in ("flips", "backward")}
-        for name, line, k in rows:
-            flop = fwd_flop if k == "fwd" else bwd_flop
-            bytes_ms = nbytes[k[:3]] / HBM_BYTES_PER_S * 1e3
-            # the tensor cores' backward does six bf16 products for each f32
-            # one; the CUDA cores' and the forward f32 FMAs
-            ops_ms = flop / (F32_SPLIT_OPS_PER_S if k == "bwd"
-                             else F32_OPS_PER_S) * 1e3
-            m = ms[pre]
-            if k == "fwd":
-                launches, frm = ((1, "make_fused_field_fn at (a)1") if pre
-                                 else (2 * GEN_F32_STEPS, f"(c)'s f32 "
-                                       f"trainer, {GEN_F32_STEPS} steps"))
-            elif k == "bwd":
-                launches, frm = ((1, "make_fused_field_fn at (a)1") if pre
-                                 else (f32["launches_per_step"]["bwd_tc"]
-                                       * GEN_F32_STEPS, f"(c)'s f32 trainer, "
-                                       f"{GEN_F32_STEPS} steps"))
-            else:
+        v = "v1" if pre else "v2"
+        errs = {n: e for n, e in held[GEN_CASES[0][0]][v].items()
+                if n not in meta}
+        cc_errs = {n: e for n, e in held[past_plan][v].items()
+                   if n not in meta}
+        m = ms[pre]
+        for name, line, k in rows[pre]:
+            fb = k[:3]
+            flop = fwd_flop if fb == "fwd" else bwd_flop
+            bytes_ms = nbytes[fb] / HBM_BYTES_PER_S * 1e3
+            # the tensor cores do six bf16 products for each f32 one; the
+            # CUDA cores f32 FMAs
+            tc = k in ("fwd_tc", "bwd")
+            ops_ms = flop / (F32_SPLIT_OPS_PER_S if tc else F32_OPS_PER_S) \
+                * 1e3
+            if not tc:
                 launches, frm = 1, (f"(a)'s {past_plan} case, past the "
                                     f"tensor cores' plan: its counted call")
+            elif pre:
+                launches, frm = 1, "make_fused_field_fn at (a)1"
+            else:
+                launches = (f32["launches_per_step"][f"{fb}_tc"]
+                            * GEN_F32_STEPS)
+                frm = f"(c)'s f32 trainer, {GEN_F32_STEPS} steps"
+            err, err_from = {
+                "fwd_tc": (errs["out"][2], "(a)1"),
+                "fwd_cc": (errs["out_cc"][2], "(a)1, uncounted"),
+                "bwd": (max(e[2] for n, e in errs.items()
+                            if not n.startswith("out")), "(a)1"),
+                "bwd_cc": (max(e[2] for n, e in cc_errs.items()
+                               if not n.startswith("out")),
+                           f"(a)'s {past_plan} case")}[k]
             rec = {
-                "name": f"{name}_gen" + ("_tc" if k == "bwd" else ""),
-                "route": "cuda",
+                "name": name, "route": "cuda",
                 "source": "spinnerf_tpu_torch/csrc/fused_mlp_gen.cu",
                 "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{line}",
                 "launches": launches, "launches_from": frm,
-                "max_abs_err": (errs["out"][2] if k == "fwd" else
-                                max(e[2] for n, e in (
-                                    errs if k == "bwd" else cc_errs).items()
-                                    if n != "out")),
-                "max_abs_err_from": ("(a)1" if k != "bwd_cc" else
-                                     f"(a)'s {past_plan} case"),
-                "ms": m[k], "plain_ms": m[f"plain_{k[:3]}"],
+                "max_abs_err": err, "max_abs_err_from": err_from,
+                "ms": m[k], "plain_ms": m[f"plain_{fb}"],
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bound_ms_f32_cuda_cores": flop / F32_OPS_PER_S * 1e3,
                 "bound_ms_3xtf32": flop / F32_TF32_OPS_PER_S * 1e3,
-                "library_ms": m[f"lib_{k[:3]}"],
+                "library_ms": m[f"lib_{fb}"],
                 "library": "f32 torch.matmul chain, TF32 off",
                 "compute_dtype": "float32", "points": p}
-            if k != "fwd":
+            if fb == "bwd":
                 rec.update(pass1_ms=m[f"{k}_pass1"], pass2_ms=m[f"{k}_pass2"])
-            if k == "bwd":
+            if tc:
                 rec.update(units="tensor cores, f32 as six bf16 products",
-                           cuda_cores_ms=m["bwd_cc"])
+                           cuda_cores_ms=m[f"{fb}_cc"])
+            if k == "fwd_tc":
+                rec["entry_ms"] = m["fwd_call"]
             records.append(rec)
     total = time.perf_counter() - t_start
     log(json.dumps({"gen_mlp": {
         "cases": {t: {"seconds": h["seconds"], **{
             f"{v}_rel_err_kernel_plain": {
                 n: e[:2] for n, e in h[v].items()
-                if n not in ("flips", "backward")}
+                if n not in ("flips", "forward", "backward")}
             for v in ("v2", "v1")}, **{f"{v}_flipped_points": h[v]["flips"]
                                        for v in ("v2", "v1")}}
                   for t, h in held.items()},
         "times_ms": {"v2": ms[False], "v1": ms[True],
-                     "bf16_8x128_v2_bwd": pair_ms},
+                     "bf16_8x128_v2": pair_ms},
+        "forward": {t: h["v2"]["forward"] for t, h in held.items()},
         "backward": {t: h["v2"]["backward"] for t, h in held.items()},
         "trainers": {"f32": f32, "bf16_w128": bf16},
         "full_run_smoke": smoke, "seconds": total}}))
@@ -5045,10 +5099,12 @@ def main(argv):
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")
     # kernels that must not spill: each instantiation of the fused MLP's
-    # forward, the hash forward (#1) and the calibration (#11)
+    # forward (wgmma, and the generic one on the tensor cores), the hash
+    # forward (#1) and the calibration (#11)
     for src, kernel, want in (("fused_mlp_pe", "fm_fwd_kernel", 2),
                               ("hash_encode_win", "hf_fwd_kernel", 1),
-                              ("kbench_cal", "kc_wgmma_kernel", 8)):
+                              ("kbench_cal", "kc_wgmma_kernel", 8),
+                              ("fused_mlp_gen", "ft_fwd_kernel", 4)):
         res = {n: r for n, r in kernel_resources(build_logs[src]).items()
                if kernel in n}
         log(f"[build] {kernel} (registers, stack, spill stores, spill "

@@ -38,11 +38,11 @@
 // MFLOP a point forward and 3.49 backward (csrc/fused_mlp_pe.cu's note)
 // against 32 bytes of input; on the CUDA cores (132 SMs x 128 FMA lanes x 2
 // a clock, 67 TFLOP/s at 1.98 GHz) that bounds 262,144 points at about 4.7
-// ms forward and 13.7 ms backward. The forward (fg_fwd_kernel) and the
-// backward of the geometries gen_bwd_plan refuses run on the CUDA cores:
-// the simple design that is right first. The backward of every other
-// geometry runs on the tensor cores (the ft_ kernels, below), with f32 as
-// six exact bf16 products.
+// ms forward and 13.7 ms backward. The forward and the backward of the
+// geometries their tensor-core plans refuse (gen_fwd_plan, gen_bwd_plan)
+// run on the CUDA cores (fg_fwd_kernel, fg_bwd_kernel): the simple design
+// that is right first. Every other geometry runs on the tensor cores (the
+// ft_ kernels, below), with f32 as six exact bf16 products.
 //
 // The block product (block_product). A block of 256 threads owns BM points
 // (64, 32, 16 or 8: the largest whose buffers fit, fg_bm) and keeps their
@@ -826,6 +826,8 @@ __global__ void fg_split_sum_kernel(const double* part, int splits,
 #define FT_ALIGN 1024                     // the swizzle repeats every 1 KB
 #define FT_DW_THREADS 256                 // ft_dw_kernel: two warpgroups
 #define FT_DW_ITEMS 1056                  // its work items a chunk: 8 an SM
+#define FT_FWD_TILES 3                    // ft_fwd_kernel: the most output
+                                          // tiles a warpgroup takes a product
 
 // The pass-1 geometry (ft_geom).
 struct FtGeom {
@@ -840,6 +842,15 @@ struct FtGeom {
 static int ft_smem(int np, int wp, int emax, int slots) {
   return slots * np * FT_PLANE + FT_BM * 4 * (wp + FT_PAD) +
          FT_BM * 4 * (emax + FT_PAD) + FT_BM * 8 * 4 + 16 * slots + FT_ALIGN;
+}
+
+// The most ring slots, FT_MIN_SLOTS to FT_MAX_SLOTS, whose shared memory
+// smem(slots) fits a block; 0 if none does.
+template <class Smem>
+static int ft_slots(Smem smem) {
+  for (int s = FT_MAX_SLOTS; s >= FT_MIN_SLOTS; --s)
+    if (smem(s) <= FG_SMEM_MAX) return s;
+  return 0;
 }
 
 // The products of pass 1, in order: trunk 0..depth-1, feature, view (the
@@ -909,15 +920,47 @@ static int ft_geom(const FgParams* p, int pre, FtGeom* G) {
   G->wp = (p->width + FT_T - 1) / FT_T * FT_T;
   G->vwp = (p->view_width + FT_T - 1) / FT_T * FT_T;
   G->emax = p->in_dim > p->dir_dim ? p->in_dim : p->dir_dim;
-  int s = FT_MAX_SLOTS;
-  while (s >= FT_MIN_SLOTS && ft_smem(G->np, G->wp, G->emax, s) > FG_SMEM_MAX)
-    --s;
-  if (s < FT_MIN_SLOTS) return 0;
-  G->slots = s;
-  G->smem = ft_smem(G->np, G->wp, G->emax, s);
+  G->slots =
+      ft_slots([&](int s) { return ft_smem(G->np, G->wp, G->emax, s); });
+  if (!G->slots) return 0;
+  G->smem = ft_smem(G->np, G->wp, G->emax, G->slots);
   G->stages = 0;
   for (int pi = 0; pi < ft_n_products(*p, pre != 0); ++pi) {
     const FtProd r = ft_product(*p, *G, pi, pre != 0);
+    G->stages += (long long)(r.n / FT_T) * r.nk;
+  }
+  return 1;
+}
+
+// The tensor-core forward's shared memory: the ring, two activation
+// buffers (a layer's input and its output) and the encoding buffer (no
+// cotangent).
+static int ft_fwd_smem(int np, int wp, int emax, int slots) {
+  return slots * np * FT_PLANE + 2 * FT_BM * 4 * (wp + FT_PAD) +
+         FT_BM * 4 * (emax + FT_PAD) + 16 * slots + FT_ALIGN;
+}
+
+// The geometry of the tensor-core forward for p (ft_fwd_kernel), from the
+// dims alone: the recompute's products of ft_product (trunk, feature, view;
+// the same for v1 and v2), so its weight stages are the first of ft_geom's;
+// 0 where its buffers and FT_MIN_SLOTS slots do not fit, or a product
+// has more than 2 FT_FWD_TILES output tiles (fg_fwd_kernel takes those).
+// Its shared memory exceeds ft_geom's, so ft_geom takes every geometry it
+// takes.
+static int ft_fwd_geom(const FgParams* p, FtGeom* G) {
+  if (p->in_dim % FT_T || p->dir_dim % FT_T) return 0;
+  G->np = p->bf16 ? 1 : 3;
+  G->wp = (p->width + FT_T - 1) / FT_T * FT_T;
+  G->vwp = (p->view_width + FT_T - 1) / FT_T * FT_T;
+  G->emax = p->in_dim > p->dir_dim ? p->in_dim : p->dir_dim;
+  if (G->wp > 2 * FT_FWD_TILES * FT_T) return 0;
+  G->slots = ft_slots(
+      [&](int s) { return ft_fwd_smem(G->np, G->wp, G->emax, s); });
+  if (!G->slots) return 0;
+  G->smem = ft_fwd_smem(G->np, G->wp, G->emax, G->slots);
+  G->stages = 0;
+  for (int pi = 0; pi < p->depth + 2; ++pi) {
+    const FtProd r = ft_product(*p, *G, pi, false);
     G->stages += (long long)(r.n / FT_T) * r.nk;
   }
   return 1;
@@ -1331,7 +1374,8 @@ __device__ __forceinline__ void ft_reload(float* buf, int bs,
 }
 
 // An encoding (x: lanes from 0 of xd; d: from 3) of the block's points
-// into xs and its scratch columns, rounded; PRE reads it as given.
+// into xs and, unless scol is null (the forward), its scratch columns,
+// rounded; PRE reads it as given.
 template <bool PRE>
 __device__ __forceinline__ void ft_encode(float* xs, int xst, int dim,
                                           const float* src, int lane0,
@@ -1345,7 +1389,40 @@ __device__ __forceinline__ void ft_encode(float* xs, int xst, int dim,
                             : pe_lane(src + q * 8 + lane0, j, nf),
                         bf);
     xs[pt * xst + j] = v;
-    scol[j * FT_BM + pt] = v;
+    if (scol) scol[j * FT_BM + pt] = v;
+  }
+}
+
+// The ring's barriers: full (the producer's arrival with the stage's bytes)
+// and empty (the owning warpgroup's 4 warps) of every slot.
+__device__ __forceinline__ void ft_ring_init(uint32_t full, uint32_t empty,
+                                             int slots) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp: its first thread streams the ring's stages, NP parts
+// each, in the consumers' order, a slot once its last stage is consumed.
+template <int NP>
+__device__ __forceinline__ void ft_produce(const uint8_t* ring,
+                                           uint32_t ring_s, uint32_t full,
+                                           uint32_t empty, const FtGeom& G) {
+  if (threadIdx.x != FT_CONSUMERS) return;
+  const uint32_t bytes = NP * FT_PLANE;
+  const uint8_t* src = ring;
+  for (long long gi = 0; gi < G.stages; ++gi) {
+    const int slot = (int)(gi % G.slots);
+    if (gi >= G.slots)
+      mbar_wait(empty + 8 * slot, (uint32_t)((gi / G.slots) - 1) & 1);
+    mbar_expect(full + 8 * slot, bytes);
+    bulk_g2s(ring_s + slot * bytes, src, bytes, full + 8 * slot);
+    src += bytes;
   }
 }
 
@@ -1367,28 +1444,10 @@ __global__ void __launch_bounds__(FT_THREADS, 1)
   float* gs = xs + FT_BM * xst;                 // the cotangent, rounded
   const uint32_t full = smem_u32(gs + FT_BM * 8), empty = full + 8 * G.slots;
   const int t = threadIdx.x;
-  if (t == 0) {
-    for (int s = 0; s < G.slots; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ft_ring_init(full, empty, G.slots);
   const int nprod = ft_n_products(p, PRE);
-  if (t >= FT_CONSUMERS) {   // the producer warp: one thread streams
-    if (t == FT_CONSUMERS) {
-      const uint32_t bytes = NP * FT_PLANE;
-      const uint8_t* src = ring;
-      for (long long gi = 0; gi < G.stages; ++gi) {
-        const int slot = (int)(gi % G.slots);
-        if (gi >= G.slots)
-          mbar_wait(empty + 8 * slot, (uint32_t)((gi / G.slots) - 1) & 1);
-        mbar_expect(full + 8 * slot, bytes);
-        bulk_g2s(ring_s + slot * bytes, src, bytes, full + 8 * slot);
-        src += bytes;
-      }
-    }
+  if (t >= FT_CONSUMERS) {
+    ft_produce<NP>(ring, ring_s, full, empty, G);
     return;
   }
   const long long gp0 = cp0 + (long long)blockIdx.x * FT_BM;
@@ -1631,6 +1690,182 @@ __global__ void __launch_bounds__(FT_DW_THREADS, 1)
       if ((t & 3) == 0 && n0 + ns < jb.n) dst[jb.b_off + n0 + ns] = sm;
     }
     __syncthreads();   // the buffers are free for the next item
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward on the tensor cores (ft_fwd_kernel): #9 gen and #7 gen, what
+// fg_fwd_kernel computes, for every geometry ft_fwd_geom takes
+// (ops/fused_mlp.py::gen_fwd_plan is its mirror and picks this forward or
+// fg_fwd_kernel before launch).
+//
+// What bounds it on an H100: the products. At 8 x 256 the forward
+// multiplies 1.19 MFLOP a point, 3.11e11 FLOP at 262,144 points: in f32,
+// as six exact bf16 products (the backward's note above), 1.89 ms at 989
+// TFLOP/s; in bf16 one product. Every 64-point block streams the forward's
+// 156 weight stages, 3.8 MB at 8 x 256 in f32, from L2 (15.7 GB a call).
+//
+// The design is pass 1's recompute without its scratch: a block of 64
+// points, two consumer warpgroups taking alternate 64-column tiles of each
+// product and a producer warp streaming the ring (ft_produce). The ring is
+// the first stages of gen_ring's (the recompute's products come first
+// there), so one ring packed for a forward and its backward serves both.
+// Its products are ft_product's trunk 0..depth-1 (the skip layer on
+// [x, h]), feature, and view on [feat, d], each through ft_tile (a fresh
+// accumulator every k16 step). No layer goes to device memory: the block's
+// activations stay in shared memory as two f32 buffers [64][wp + 8], a
+// layer's input and its output, swapped after each product, beside the
+// encoding buffer (x, then d once the trunk is done). Each tile's epilogue
+// writes its output to the other buffer at once, so a product ends with one
+// barrier. (tools/fwd_variants.py on the H100, f32 8 x 256, 262,144
+// points: 5.35-5.46 ms, against 5.53-5.57 with one buffer that each
+// warpgroup's finished tiles overwrite once both have read it, held in
+// registers until then (5 ring slots, 424 bytes of spills), and 5.46-5.49
+// with the first tile staged in shared memory (3 slots, 268 bytes of
+// spills): the ring's depth, 2 slots here, is not what bounds it. Only this
+// layout, with the tile loop unrolled over FT_FWD_TILES, compiles without
+// spills: as a loop of runtime length it spills 36 bytes.) A tile's
+// epilogue is fg_fwd_kernel's,
+// element for element: bias, ReLU through act(z + b, bf, false), the
+// rounding to the compute type (the feature layer without the ReLU), zero
+// in the padding columns. The heads are fg_fwd_kernel's f32 FMAs on the
+// CUDA cores: sigma (and the semantic logit) off the last trunk output,
+// rgb off the view layer's. Shared memory: slots x parts x 8 KB + 512
+// (wp + 8) + 256 (max(in_dim, dir_dim) + 8) + 16 slots + 1,024 bytes, at
+// most 232,448 with at least 2 slots: f32 takes every width to 256 with
+// 128-lane encodings (2 slots) and to 192 with 256-lane ones, bf16 to 320
+// and 256.
+// ---------------------------------------------------------------------------
+
+// The bias of each of a recompute tile's columns (ft_tile's register
+// order; 0 past the layer's outputs).
+__device__ __forceinline__ void ft_bias(const FgParams& p, const FtProd& pr,
+                                        int tile, float (&b)[32]) {
+  const int lane = threadIdx.x & 31;
+  const float* bias = pr.kind == FT_TRUNK  ? p.tb[pr.layer]
+                      : pr.kind == FT_FEAT ? p.feat_b
+                                           : p.view_b;
+  const int nb = pr.kind == FT_VIEW ? p.view_width : p.width;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = FT_T * tile + 8 * j + 2 * (lane & 3) + e;
+      const float v = n < nb ? __ldg(bias + n) : 0.0f;
+      b[4 * j + e] = v;
+      b[4 * j + 2 + e] = v;
+    }
+}
+
+// The forward's epilogue of a tile: fg_fwd_kernel's, element for element.
+__device__ __forceinline__ void ft_fwd_epi(const FgParams& p,
+                                           const FtProd& pr, int tile,
+                                           const float (&sum)[32],
+                                           const float (&b)[32],
+                                           float (&o)[32]) {
+  const int lane = threadIdx.x & 31, bf = p.bf16;
+  const int nb = pr.kind == FT_VIEW ? p.view_width : p.width;
+  const bool relu = pr.kind != FT_FEAT;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = 4 * j + 2 * h + e;
+        const int n = FT_T * tile + 8 * j + 2 * (lane & 3) + e;
+        const float z = sum[k] + b[k];
+        o[k] = n >= nb ? 0.0f : relu ? act(z, bf, false) : rnd(z, bf);
+      }
+}
+
+// A tile's values o (ft_tile's register order) into columns col0.. of dst
+// [64][ds].
+__device__ __forceinline__ void ft_put(float* dst, int ds, int col0,
+                                       const float (&o)[32]) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(dst + (r0 + 8 * h) * ds + col0 + 8 * j +
+                                 2 * (lane & 3)) =
+          make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+}
+
+// The block's points from blockIdx.x * 64: encodings (v2) or their rounded
+// copies (PRE), the products, the heads; raw [P][4 + e] to out.
+template <bool PRE, int NP>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+    ft_fwd_kernel(const __grid_constant__ FgParams p,
+                  const __grid_constant__ FtGeom G, const float* in_x,
+                  const float* in_d, float* out, const uint8_t* ring) {
+  extern __shared__ uint8_t ft_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)ft_raw + FT_ALIGN - 1) & ~(uintptr_t)(FT_ALIGN - 1));
+  const uint32_t ring_s = smem_u32(base);
+  const int bs = G.wp + FT_PAD, xst = G.emax + FT_PAD;
+  float* buf = reinterpret_cast<float*>(base + G.slots * NP * FT_PLANE);
+  float* nbuf = buf + FT_BM * bs;
+  float* xs = nbuf + FT_BM * bs;
+  const uint32_t full = smem_u32(xs + FT_BM * xst), empty = full + 8 * G.slots;
+  const int t = threadIdx.x;
+  ft_ring_init(full, empty, G.slots);
+  if (t >= FT_CONSUMERS) {
+    ft_produce<NP>(ring, ring_s, full, empty, G);
+    return;
+  }
+  const long long gp0 = (long long)blockIdx.x * FT_BM;
+  const int D = p.depth, bf = p.bf16, no = 4 + p.out_extra, wg = t >> 7;
+  ft_encode<PRE>(xs, xst, p.in_dim, in_x, 0, p.multires, gp0, bf, nullptr);
+  consumers_sync();
+  int gbase = 0;
+  for (int pi = 0; pi < D + 2; ++pi) {
+    const FtProd pr = ft_product(p, G, pi, PRE);
+    const int nt = pr.n / FT_T;
+#pragma unroll
+    for (int tp = 0; tp < FT_FWD_TILES; ++tp) {
+      const int tile = 2 * tp + wg;
+      if (tile < nt) {
+        float sum[32], b[32], o[32];
+        ft_tile<NP>(sum, pr, tp, nt - 2 * tp < 2 ? 1 : 2, gbase, buf, bs, xs,
+                    xst, ring_s, full, empty, G);
+        ft_bias(p, pr, tile, b);
+        ft_fwd_epi(p, pr, tile, sum, b, o);
+        ft_put(nbuf, bs, FT_T * tile, o);
+      }
+    }
+    gbase += nt * pr.nk;
+    consumers_sync();   // the output is whole, the input read
+    float* in = buf;
+    buf = nbuf;
+    nbuf = in;
+    if (pi == D - 1) {
+      // x is read no more: the direction's encoding, which the view layer
+      // reads after the feature product's barrier; sigma (and the semantic
+      // logit) off the last trunk output, which the view layer overwrites
+      ft_encode<PRE>(xs, xst, p.dir_dim, PRE ? in_d : in_x, 3,
+                     p.multires_views, gp0, bf, nullptr);
+      for (int idx = t; idx < FT_BM * (1 + p.out_extra); idx += FT_CONSUMERS) {
+        const int c = idx / FT_BM, pt = idx - c * FT_BM;
+        const float* w = c == 0 ? p.sigma_w : p.sem_w;
+        const float* h = buf + pt * bs;
+        float a = 0.0f;
+        for (int k = 0; k < p.width; ++k) a = fmaf(h[k], __ldg(w + k), a);
+        out[(gp0 + pt) * no + 3 + c] =
+            a + __ldg(c == 0 ? p.sigma_b : p.sem_b);
+      }
+    } else if (pi == D + 1) {   // rgb off the view layer
+      for (int idx = t; idx < FT_BM * 3; idx += FT_CONSUMERS) {
+        const int c = idx / FT_BM, pt = idx - c * FT_BM;
+        const float* v = buf + pt * bs;
+        float a = 0.0f;
+        for (int k = 0; k < p.view_width; ++k)
+          a = fmaf(v[k], __ldg(p.rgb_w + k * 3 + c), a);
+        out[(gp0 + pt) * no + c] = a + __ldg(p.rgb_b + c);
+      }
+    }
   }
 }
 
@@ -2011,6 +2246,85 @@ extern "C" int fg_tc_plan(const FgParams* p, int pre, long long* out) {
   out[6] = ok ? G.vwp : 0;
   out[7] = ok ? G.np : 0;
   return 0;
+}
+
+// The tensor-core forward's plan for p (ft_fwd_geom; the same for v1 and
+// v2, `pre` checked as fg_tc_plan's): out as fg_tc_plan's;
+// ops/fused_mlp.py::gen_fwd_plan mirrors it.
+extern "C" int fg_tc_fwd_plan(const FgParams* p, int pre, long long* out) {
+  if (!p || !out || (pre != 0 && pre != 1)) return (int)cudaErrorInvalidValue;
+  FtGeom G;
+  const int ok = ft_fwd_geom(p, &G);
+  out[0] = ok;
+  out[1] = ok ? G.smem : 0;
+  out[2] = ok ? G.slots : 0;
+  out[3] = ok ? G.stages : 0;
+  out[4] = ok ? G.stages * G.np * FT_PLANE : 0;
+  out[5] = ok ? G.wp : 0;
+  out[6] = ok ? G.vwp : 0;
+  out[7] = ok ? G.np : 0;
+  return 0;
+}
+
+template <bool PRE, int NP>
+static int ft_fwd_launch(const FgParams* p, const FtGeom& G,
+                         const void* in_x, const void* in_d, void* out,
+                         const void* ring, int n_points, cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(
+      ft_fwd_kernel<PRE, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G.smem);
+  if (err) return err;
+  ft_fwd_kernel<PRE, NP><<<n_points / FT_BM, FT_THREADS, G.smem, s>>>(
+      *p, G, (const float*)in_x, (const float*)in_d, (float*)out,
+      (const uint8_t*)ring);
+  return (int)cudaGetLastError();
+}
+
+// Check the arguments and the plan, and launch the tensor-core forward.
+// ring: gen_ring's forward stages, or its whole ring (ft_geom's stages:
+// the ring a forward and its backward share), of ring_bytes.
+static int ft_fwd_entry(const FgParams* p, const void* in_x,
+                        const void* in_d, void* out, const void* ring,
+                        long long ring_bytes, int n_points, int pre,
+                        void* stream) {
+  int err = fg_check(p, n_points, pre != 0);
+  if (err || n_points == 0) return err;
+  FtGeom G, B;
+  if (!ft_fwd_geom(p, &G)) return (int)cudaErrorInvalidValue;
+  const long long stage = (long long)G.np * FT_PLANE;
+  if (ring_bytes != G.stages * stage &&
+      !(ft_geom(p, pre, &B) && ring_bytes == B.stages * stage))
+    return (int)cudaErrorInvalidValue;
+  if (!in_x || (pre && !in_d) || !out || !ring)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pre)
+    return G.np == 3 ? ft_fwd_launch<true, 3>(p, G, in_x, in_d, out, ring,
+                                              n_points, s)
+                     : ft_fwd_launch<true, 1>(p, G, in_x, in_d, out, ring,
+                                              n_points, s);
+  return G.np == 3 ? ft_fwd_launch<false, 3>(p, G, in_x, nullptr, out, ring,
+                                             n_points, s)
+                   : ft_fwd_launch<false, 1>(p, G, in_x, nullptr, out, ring,
+                                             n_points, s);
+}
+
+// The tensor-core forward (v2, #9): raw [P][4 + e] f32 from xd [P][8], as
+// fg_fwd.
+extern "C" int fg_fwd_tc(const FgParams* p, const void* xd, void* out,
+                         const void* ring, long long ring_bytes, int n_points,
+                         void* stream) {
+  return ft_fwd_entry(p, xd, nullptr, out, ring, ring_bytes, n_points, 0,
+                      stream);
+}
+
+// The tensor-core forward (v1, #7), on the encodings, as fg_fwd_pre.
+extern "C" int fg_fwd_tc_pre(const FgParams* p, const void* x_enc,
+                             const void* d_enc, void* out, const void* ring,
+                             long long ring_bytes, int n_points,
+                             void* stream) {
+  return ft_fwd_entry(p, x_enc, d_enc, out, ring, ring_bytes, n_points, 1,
+                      stream);
 }
 
 // fg_sizes for the tensor-core backward: the same scratch and chunk sums,

@@ -29,16 +29,21 @@ picks the family from the geometry and the compute type:
   pre-swizzled bf16 weight stages (`pack_ring`, packed by `gather_ring`):
   the forward its first stages, the backward all of them.
 - "gen" (`csrc/fused_mlp_gen.cu`): every other configuration within
-  `GEN_LIMITS`, f32 or bf16. Its forward runs on the CUDA cores and reads
-  the weights rounded to the compute type (`gen_pack`). Its backward runs
-  on the tensor cores wherever `gen_bwd_plan` takes the geometry, f32 as
-  six exact bf16 products (`split_bf16x3`), from the weights split into
-  bf16 stages once a call (`gen_ring`); elsewhere on the CUDA cores, from
-  `gen_pack`'s transposes. The choice is made from the dims alone, before
-  launch, and counted apart (`launches_gen["bwd_tc"]` beside "bwd").
+  `GEN_LIMITS`, f32 or bf16. Its forward and its backward each run on the
+  tensor cores wherever their plan takes the geometry (`gen_fwd_plan`:
+  f32 widths to 256; `gen_bwd_plan`: to 512), f32 as six exact bf16
+  products (`split_bf16x3`), from the weights split into bf16 stages once
+  a call (`gen_ring`: the backward's whole ring, whose first stages are
+  the forward's, or the forward's alone); elsewhere on the CUDA cores, from
+  the weights rounded to the compute type (`gen_pack`) and, in the
+  backward, their transposes. Each choice is made from the dims alone,
+  before launch, and counted apart (`launches_gen["fwd_tc"]` beside
+  "fwd", "bwd_tc" beside "bwd").
 Beyond the limits a kernel entry raises ValueError; nothing falls back to
 the plain version on the card. The autograd functions pack the route's
-weights once a call, in the forward, and keep them for the backward.
+weights once a call, in the forward, and keep them for the backward; a
+forward that records no gradient (`torch.no_grad`, or no input that
+requires one) launches without them and packs only what it reads.
 """
 from __future__ import annotations
 
@@ -56,12 +61,13 @@ from spinnerf_tpu_torch.ops import cuda_build
 
 # Kernel launches by the wrappers, counted where they launch and nowhere
 # else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8) of the wgmma
-# route, and the same functions on the generic route, whose backward is
-# "bwd_tc" on the tensor cores and "bwd" on the CUDA cores.
+# route, and the same functions on the generic route, whose forward and
+# backward are "fwd_tc" / "bwd_tc" on the tensor cores and "fwd" / "bwd" on
+# the CUDA cores.
 launches = {"fwd": 0, "bwd": 0}
 launches_v1 = {"fwd": 0, "bwd": 0}
-launches_gen = {"fwd": 0, "bwd": 0, "bwd_tc": 0}
-launches_gen_v1 = {"fwd": 0, "bwd": 0, "bwd_tc": 0}
+launches_gen = {"fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
+launches_gen_v1 = {"fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
 
 _HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
 _MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
@@ -71,17 +77,20 @@ _BM = 64                                   # FM_BM: points per kernel block
 WGMMA_GEOMETRY = (8, 4, 256, 128, 128, 128, 10, 4)
 # The generic family's limits (csrc/fused_mlp_gen.cu: FG_MAX_DEPTH, and the
 # widths whose block buffers fit the shared memory, fg_bm). Within them the
-# backward runs on the tensor cores where `gen_bwd_plan`'s buffers fit
-# (every width to 512 with 128-lane encodings; f32 to 384 and bf16 to 512
-# with 256-lane ones; bf16 to 640 with 128), on the CUDA cores elsewhere.
+# forward and the backward each run on the tensor cores where their plan's
+# buffers fit (`gen_fwd_plan`: f32 to width 256 with 128-lane encodings and
+# to 192 with 256-lane ones, bf16 to 320 and 256; `gen_bwd_plan`: every
+# width to 512 with 128-lane encodings, f32 to 384 and bf16 to 512 with
+# 256-lane ones, bf16 to 640 with 128), on the CUDA cores elsewhere.
 GEN_LIMITS = {"depth": (1, 32), "width": (8, 2048), "enc_dims": (128, 256)}
 _GEN_MAX_JOBS = GEN_LIMITS["depth"][1] + 5       # FG_MAX_JOBS
-# The tensor-core backward's constants (csrc/fused_mlp_gen.cu, FT_*;
-# change both together): points a block, a weight stage's side, bytes of
-# one bf16 stage part, f32 row padding, ring slots, shared memory alignment
-# and the block's shared memory.
+# The tensor-core kernels' constants (csrc/fused_mlp_gen.cu, FT_*; change
+# both together): points a block, a weight stage's side, bytes of one bf16
+# stage part, f32 row padding, ring slots, shared memory alignment, the
+# block's shared memory, and the most output tiles a warpgroup of the
+# forward takes a product.
 _FT = {"BM": 64, "T": 64, "PLANE": 8192, "PAD": 8, "MIN_SLOTS": 2,
-       "MAX_SLOTS": 8, "ALIGN": 1024, "SMEM_MAX": 232448}
+       "MAX_SLOTS": 8, "ALIGN": 1024, "SMEM_MAX": 232448, "FWD_TILES": 3}
 
 
 class MLPDims(NamedTuple):
@@ -686,6 +695,9 @@ def _gen_lib():
         lib.fg_sizes.argtypes = [prm, i32, i32, ll_p]
         lib.fg_tc_sizes.argtypes = [prm, i32, i32, ll_p]
         lib.fg_tc_plan.argtypes = [prm, i32, ll_p]
+        lib.fg_tc_fwd_plan.argtypes = [prm, i32, ll_p]
+        lib.fg_fwd_tc.argtypes = [prm, _VP, _VP, _VP, i64, i32, _VP]
+        lib.fg_fwd_tc_pre.argtypes = [prm, _VP, _VP, _VP, _VP, i64, i32, _VP]
         lib.fg_bwd_tc.argtypes = [prm] + [_VP] * 7 + [i64, i32, _VP]
         lib.fg_bwd_tc_pre.argtypes = [prm] + [_VP] * 10 + [i64, i32, _VP]
         lib.fg_bwd_tc_pass.argtypes = [prm] + [_VP] * 10 + [i64] + [i32] * 3 \
@@ -693,7 +705,8 @@ def _gen_lib():
         for fn in (lib.fg_fwd, lib.fg_fwd_pre, lib.fg_bwd, lib.fg_bwd_pre,
                    lib.fg_bwd_pass, lib.fg_sizes, lib.fg_tc_sizes,
                    lib.fg_tc_plan, lib.fg_bwd_tc,
-                   lib.fg_bwd_tc_pre, lib.fg_bwd_tc_pass):
+                   lib.fg_bwd_tc_pre, lib.fg_bwd_tc_pass, lib.fg_tc_fwd_plan,
+                   lib.fg_fwd_tc, lib.fg_fwd_tc_pre):
             fn.restype = i32
         lib.fg_error_string.argtypes = [i32]
         lib.fg_error_string.restype = ctypes.c_char_p
@@ -1009,12 +1022,9 @@ def _ft_products(dims: MLPDims, pre: bool, wp: int, vwp: int):
     return out
 
 
-def gen_bwd_plan(dims: MLPDims, pre: bool = False):
-    """The tensor-core backward's plan for `dims` (`ft_geom` in the CUDA
-    source, from the geometry alone), or None where it does not take it
-    (the CUDA cores' backward does): operand parts (3 at f32, 1 at bf16),
-    width and view width padded to 64 with zeros, weight stages in the ring
-    and its bytes, ring slots and shared memory, and the products."""
+def _ft_plan(dims: MLPDims, pre: bool, forward: bool):
+    """`gen_bwd_plan`, or with `forward` `gen_fwd_plan`: `ft_geom` /
+    `ft_fwd_geom` of the CUDA source."""
     if route(dims, pre) != "gen":
         return None
     t = _FT["T"]
@@ -1022,22 +1032,50 @@ def gen_bwd_plan(dims: MLPDims, pre: bool = False):
         return None
     parts = 1 if dims.compute_dtype == "bfloat16" else 3
     wp, vwp = _round_up(dims.width, t), _round_up(dims.view_width, t)
+    if forward and wp > 2 * _FT["FWD_TILES"] * t:
+        return None
     emax = max(dims.in_dim, dims.dir_dim)
+    # besides the ring: the activation buffers (the forward's input and
+    # output, the backward's one), the encoding's, the backward's cotangent
+    fixed = ((2 if forward else 1) * _FT["BM"] * 4 * (wp + _FT["PAD"])
+             + _FT["BM"] * 4 * (emax + _FT["PAD"])
+             + (0 if forward else _FT["BM"] * 8 * 4) + _FT["ALIGN"])
 
     def smem(s):
-        return (s * parts * _FT["PLANE"] + _FT["BM"] * 4 * (wp + _FT["PAD"])
-                + _FT["BM"] * 4 * (emax + _FT["PAD"]) + _FT["BM"] * 8 * 4
-                + 16 * s + _FT["ALIGN"])
+        return s * parts * _FT["PLANE"] + 16 * s + fixed
 
     fits = [s for s in range(_FT["MAX_SLOTS"], _FT["MIN_SLOTS"] - 1, -1)
             if smem(s) <= _FT["SMEM_MAX"]]
     if not fits:
         return None
     prods = _ft_products(dims, pre, wp, vwp)
+    if forward:
+        prods = prods[:dims.depth + 2]
     stages = sum(n // t * nk for _, _, nk, _, _, n in prods)
     return {"parts": parts, "wp": wp, "vwp": vwp, "slots": fits[0],
             "smem": smem(fits[0]), "stages": stages,
             "ring_bytes": stages * parts * _FT["PLANE"], "products": prods}
+
+
+def gen_bwd_plan(dims: MLPDims, pre: bool = False):
+    """The tensor-core backward's plan for `dims` (`ft_geom` in the CUDA
+    source, from the geometry alone), or None where it does not take it
+    (the CUDA cores' backward does): operand parts (3 at f32, 1 at bf16),
+    width and view width padded to 64 with zeros, weight stages in the ring
+    and its bytes, ring slots and shared memory, and the products."""
+    return _ft_plan(dims, pre, forward=False)
+
+
+def gen_fwd_plan(dims: MLPDims, pre: bool = False):
+    """The tensor-core forward's plan for `dims` (`ft_fwd_geom` in the CUDA
+    source, from the geometry alone), or None where it does not take it
+    (the CUDA cores' forward does): `gen_bwd_plan`'s keys for the
+    recompute's products alone (trunk, feature, view: the backward's first
+    depth + 2, so its stages are the first of the backward's ring), with
+    two activation buffers and no cotangent in shared memory, and at most
+    2 x FWD_TILES output tiles of 64 a product. Every geometry it takes
+    the backward's plan takes too."""
+    return _ft_plan(dims, pre, forward=True)
 
 
 def _pad_map(n, npad, base=0):
@@ -1095,19 +1133,20 @@ def _ft_stage_matrix(dims: MLPDims, pre: bool, prod, wp, vwp, offs):
     return out
 
 
-_ring_index_cache: dict = {}
+_gen_ring_index_cache: dict = {}
 
 
-def gen_ring_index(dims: MLPDims, pre: bool):
-    """The tensor-core backward's weight stages in the order its producer
+def gen_ring_index(dims: MLPDims, pre: bool, forward: bool = False):
+    """The tensor-core backward's weight stages (with `forward`, the
+    forward's: `gen_fwd_plan`'s products) in the order its producer
     streams them: for each product, each pair of output tiles (the two
     warpgroups'), each 64-deep chunk, the pair's tiles; each stage a
     [64 N][64 K] tile in the 128-byte swizzle. Returns int64 [stages,
     4096]: each element's index in the weights flattened in
     `_weight_order`, -1 for a zero (padding). Built once per geometry."""
-    key = (dims, pre)
-    if key not in _ring_index_cache:
-        plan = gen_bwd_plan(dims, pre)
+    key = (dims, pre, forward)
+    if key not in _gen_ring_index_cache:
+        plan = _ft_plan(dims, pre, forward)
         offs, _ = _flat_offsets(dims)
         sw = _ft_swizzle()
         t, stages = _FT["T"], []
@@ -1124,20 +1163,22 @@ def gen_ring_index(dims: MLPDims, pre: bool):
                         stages.append(tiles[2 * tp + wgp, kc][sw])
         idx = np.stack(stages)
         assert idx.shape[0] == plan["stages"]
-        _ring_index_cache[key] = torch.from_numpy(idx)
-    return _ring_index_cache[key]
+        _gen_ring_index_cache[key] = torch.from_numpy(idx)
+    return _gen_ring_index_cache[key]
 
 
-def gen_ring(weights, dims: MLPDims, pre: bool):
-    """What the tensor-core backward reads of the weights: every stage of
-    `gen_ring_index` as its parts (`split_bf16x3` at f32; the bf16 rounding
-    alone at bf16, as `gen_pack` rounds), part after part: bf16
+def gen_ring(weights, dims: MLPDims, pre: bool, forward: bool = False):
+    """What the tensor-core backward reads of the weights (with `forward`,
+    what the forward reads, the backward's first stages): every stage of
+    `gen_ring_index` as its parts (`split_bf16x3` at f32; the bf16
+    rounding alone at bf16, as `gen_pack` rounds), part after part: bf16
     [stages, parts, 4096], flat. Packed once a call."""
-    plan = gen_bwd_plan(dims, pre)
+    plan = _ft_plan(dims, pre, forward)
     if plan is None:
-        raise ValueError(f"the tensor-core backward does not take {dims}")
+        what = "forward" if forward else "backward"
+        raise ValueError(f"the tensor-core {what} does not take {dims}")
     dev = weights["tw0"].device
-    idx = gen_ring_index(dims, pre).to(dev).reshape(-1)
+    idx = gen_ring_index(dims, pre, forward).to(dev).reshape(-1)
     flat = torch.cat([weights[n].reshape(-1).float()
                       for n in _weight_order(dims)] + [
         torch.zeros(1, device=dev)])
@@ -1152,9 +1193,32 @@ class GenPack(NamedTuple):
     """The generic route's weights for a forward and its backward
     (`pack_for`): `gen_pack`'s f32 buffer (with the transposes when the
     backward runs on the CUDA cores) and `gen_ring`'s stages (when it runs
-    on the tensor cores, else None)."""
+    on the tensor cores, else None; the forward reads its first)."""
     flat: torch.Tensor
     ring: torch.Tensor | None
+
+
+def _check_tc_plan(lib, prm, dims: MLPDims, pre: bool, ring, *,
+                   forward: bool):
+    """Raise RuntimeError unless the CUDA source's plan (`fg_tc_plan`, with
+    `forward` `fg_tc_fwd_plan`) equals `gen_bwd_plan`'s (`gen_fwd_plan`'s)
+    and `ring` holds its stages (a forward also reads the first stages of
+    the backward's ring)."""
+    plan = _ft_plan(dims, pre, forward)
+    name = "fg_tc_fwd_plan" if forward else "fg_tc_plan"
+    got = (ctypes.c_longlong * 8)()
+    _raise_on(lib, name, getattr(lib, name)(ctypes.byref(prm), int(pre),
+                                            got))
+    want = (1, plan["smem"], plan["slots"], plan["stages"],
+            plan["ring_bytes"], plan["wp"], plan["vwp"], plan["parts"])
+    rings = {plan["ring_bytes"]}
+    if forward:
+        rings.add(gen_bwd_plan(dims, pre)["ring_bytes"])
+    if tuple(got) != want or ring.numel() * 2 not in rings:
+        raise RuntimeError(f"{'gen_fwd_plan' if forward else 'gen_bwd_plan'}"
+                           f" {want} disagrees with the CUDA source's "
+                           f"{tuple(got)} or the ring's {ring.numel() * 2} "
+                           f"bytes")
 
 
 def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
@@ -1178,15 +1242,7 @@ def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
                        gen_ring(weights, dims, pre))
     ring = pack.ring
     prm = gen_params(weights, dims, pack.flat)
-    got = (ctypes.c_longlong * 8)()
-    _raise_on(lib, "fg_tc_plan", lib.fg_tc_plan(ctypes.byref(prm), int(pre),
-                                                got))
-    want = (1, plan["smem"], plan["slots"], plan["stages"],
-            plan["ring_bytes"], plan["wp"], plan["vwp"], plan["parts"])
-    if tuple(got) != want or ring.numel() * 2 != plan["ring_bytes"]:
-        raise RuntimeError(f"gen_bwd_plan {want} disagrees with the CUDA "
-                           f"source's {tuple(got)} or the ring's "
-                           f"{ring.numel() * 2} bytes")
+    _check_tc_plan(lib, prm, dims, pre, ring, forward=False)
     sizes = (ctypes.c_longlong * 3)()
     _raise_on(lib, "fg_tc_sizes", lib.fg_tc_sizes(ctypes.byref(prm), p,
                                                   int(pre), sizes))
@@ -1229,53 +1285,71 @@ def _gen_bwd_tc(weights, inputs, g, dims: MLPDims, *, pre: bool,
     return grads, c.dx, c.dd
 
 
-def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
+def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None,
+           tc: bool | None = None):
     """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
     #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1, #7) needs on
     the route of `dims` (`route`): a function that launches the kernel on
     those buffers and returns raw [P, 4+e] f32 (the same tensor each call),
-    its route as `run.route`. `pack`: `pack_for`'s (wgmma: `gather_ring`'s
-    whole ring or its forward stages; gen: `gen_pack`'s buffer or a
-    `GenPack`), packed here when None. Counts no launch, so it also times
-    the kernel alone."""
+    its route as `run.route` and its launch counter's key as `run.key`
+    ("fwd_tc" for the generic forward on the tensor cores, else "fwd").
+    On the generic route `tc` picks the tensor cores' forward (True) or the
+    CUDA cores' (False; None: `gen_fwd_plan`'s choice, checked against the
+    CUDA source's). `pack`: `pack_for`'s (wgmma: `gather_ring`'s whole ring
+    or its forward stages; gen: a `GenPack`, or `gen_pack`'s buffer),
+    packed here when None (the forward's ring stages alone). Counts no
+    launch, so it also times the kernel alone."""
     rt = _check_kernel_args(weights, inputs, dims, pre)
+    ins = [a.data_ptr() for a in inputs]
+    out = torch.empty((inputs[0].shape[0], 4 + dims.out_extra),
+                      dtype=torch.float32, device=inputs[0].device)
+    key, ring_args = "fwd", []
     if rt == "gen":
         lib = _gen_lib()
-        if isinstance(pack, GenPack):
-            pack = pack.flat
-        if pack is None:
-            pack = gen_pack(weights, dims, backward=False)
-        prm, bufs = gen_params(weights, dims, pack), (pack,)
+        if tc is None:
+            tc = gen_fwd_plan(dims, pre) is not None
+        flat, ring = pack if isinstance(pack, GenPack) else (pack, None)
+        if flat is None:
+            flat = gen_pack(weights, dims, backward=False)
+        prm, bufs = gen_params(weights, dims, flat), (flat,)
         name = "fg_fwd_pre" if pre else "fg_fwd"
+        if tc:
+            if gen_fwd_plan(dims, pre) is None:
+                raise ValueError(f"the tensor-core forward does not take "
+                                 f"{dims}")
+            if ring is None:
+                ring = gen_ring(weights, dims, pre, forward=True)
+            _check_tc_plan(lib, prm, dims, pre, ring, forward=True)
+            key, bufs = "fwd_tc", (flat, ring)
+            name = "fg_fwd_tc_pre" if pre else "fg_fwd_tc"
+            ring_args = [ring.data_ptr(), 2 * ring.numel()]
     else:
         lib = _lib()
         if pack is None:
             pack = gather_ring(weights, dims, pre, forward=True)
         prm, bufs = _params(weights, dims, pack)
         name = "fm_fwd_pre" if pre else "fm_fwd"
-    out = torch.empty((inputs[0].shape[0], 4 + dims.out_extra),
-                      dtype=torch.float32, device=inputs[0].device)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
-    launch, ins = getattr(lib, name), [a.data_ptr() for a in inputs]
+    launch = getattr(lib, name)
 
     def run():
         _raise_on(lib, name, launch(ctypes.byref(prm), *ins, out.data_ptr(),
-                                    out.shape[0], stream))
+                                    *ring_args, out.shape[0], stream))
         return out
 
     run.keep = bufs     # what prm points into, alive as long as run
-    run.route = rt
+    run.route, run.key = rt, key
     return run
 
 
 def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
-    """One launch of the forward kernel (`fwd_fn`), counted on its route:
-    raw [P, 4+e] f32 (no autograd)."""
+    """One launch of the forward kernel (`fwd_fn`), counted on its route
+    and key: raw [P, 4+e] f32 (no autograd)."""
     # the packed buffers stay referenced until the launch is queued; the
     # caching allocator then reuses them in stream order
     run = fwd_fn(weights, inputs, dims, pre=pre, pack=pack)
     out = run()
-    _counts(run.route, pre)["fwd"] += 1
+    _counts(run.route, pre)[run.key] += 1
     return out
 
 
@@ -1283,7 +1357,9 @@ def pack_for(weights, dims: MLPDims, pre: bool):
     """What the route's kernels read of the weights, packed once for a
     forward and its backward: the wgmma ring (`gather_ring`) or, on the
     generic route, a `GenPack`: `gen_pack`'s buffer and, where the backward
-    runs on the tensor cores (`gen_bwd_plan`), `gen_ring`'s stages."""
+    runs on the tensor cores (`gen_bwd_plan`), `gen_ring`'s stages, whose
+    first are the tensor-core forward's (`gen_fwd_plan` takes no geometry
+    that `gen_bwd_plan` refuses)."""
     if route(dims, pre) == "gen":
         if gen_bwd_plan(dims, pre) is None:
             return GenPack(gen_pack(weights, dims, backward=True), None)
@@ -1515,12 +1591,20 @@ class _FusedMLPPE(torch.autograd.Function):
         return (None, None, *(d[n] for n in _weight_order(dims)))
 
 
+def _records_grad(tensors) -> bool:
+    """Whether autograd records a function of `tensors` here."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def fused_mlp_pe(weights, xd, dims: MLPDims):
     """Fused encode + MLP: xd [P, 8] f32 (x, y, z, dx, dy, dz, 0, 0) ->
     raw [P, 4 + out_extra] f32, differentiable in `weights` only. On CUDA
-    tensors P must be a multiple of 64."""
-    return _FusedMLPPE.apply(dims, xd,
-                             *(weights[n] for n in _weight_order(dims)))
+    tensors P must be a multiple of 64; where no gradient is recorded the
+    forward kernel runs alone, on what it reads of the weights."""
+    ws = [weights[n] for n in _weight_order(dims)]
+    if xd.is_cuda and not _records_grad(ws):
+        return _fwd_launch(weights, (xd,), dims, pre=False)
+    return _FusedMLPPE.apply(dims, xd, *ws)
 
 
 def make_fused_pe_field_fn(dims: MLPDims, *, block: int = 512):
@@ -1579,8 +1663,10 @@ def fused_mlp(dims: MLPDims, block: int, weights: dict, x_enc, d_enc):
     if p % block or (x_enc.is_cuda and block % _BM):
         raise ValueError(f"{p} points are not a multiple of the block "
                          f"{block} (a multiple of {_BM} on the card)")
-    return _FusedMLP.apply(dims, x_enc, d_enc,
-                           *(weights[n] for n in _weight_order(dims)))
+    ws = [weights[n] for n in _weight_order(dims)]
+    if x_enc.is_cuda and not _records_grad(ws + [x_enc, d_enc]):
+        return _fwd_launch(weights, (x_enc, d_enc), dims, pre=True)
+    return _FusedMLP.apply(dims, x_enc, d_enc, *ws)
 
 
 def make_fused_field_fn(dims: MLPDims, *, multires: int = 10,

@@ -236,8 +236,8 @@ def test_kernel_entries_refuse_cpu_tensors(case):
                  lambda: tfm.fwd_fn(w, (x, d), dims, pre=True)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert tfm.launches_gen == tfm.launches_gen_v1 == {"fwd": 0, "bwd": 0,
-                                                       "bwd_tc": 0}
+    assert tfm.launches_gen == tfm.launches_gen_v1 == {
+        "fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
