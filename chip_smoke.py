@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown of
                                        # a few train steps of each arm
     python3 chip_smoke.py --phase 20   # phases 1, 2 and 20 alone
+    python3 chip_smoke.py --phase 21   # phases 1, 2 and 21 alone
 
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
@@ -273,7 +274,20 @@ Phases, each fatal on failure (no phase's error is caught):
      cores' and the wgmma kernels never, the PSNR rising, the step time;
      (d) `tools.full_run --smoke --model mlp` in this process: exit 0,
      every stage, #9 and #10 on the tensor cores, never on the CUDA
-     cores.
+     cores;
+ 21. JPEG captures and hash grids of 1, 4 or 8 features (B1f, B1d; no
+     kernel of their own, `jpeg_phase`): (a) with cv2 unimportable, every
+     committed fixture of tests/data/jpeg decoded by the native decoder to
+     the shape and SHA-256 of cv2's unchanged, colour and gray reads, and
+     the decoder's ms per megapixel; (b) the committed 12-view JPEG scene
+     (504 x 672) beside its PNG twin from `make_scene`: the decoded views
+     against the PNG ones (RGB and luma PSNR), then `Config(prepare=True)`
+     for 100 steps on each at factor 2 (`minify` of the JPEG originals),
+     one view held out: the PSNR rising, the held-out PSNRs within 0.5 dB;
+     (c) `HashGridEncoding` at features 1, 4 and 8 (16 x 2^19, "auto") on
+     phase 3's 262,144 points in f32 and bf16, forward and table gradient
+     within their rounding bounds of float64, the launch counters of #1-#6
+     at 0.
 """
 from __future__ import annotations
 
@@ -5071,6 +5085,267 @@ def profile_steps(trainer, step_ms, n_steps=5, tag=None):
                             if r[1].startswith(("hi_", "void hi_"))]}}))
 
 
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+JPEG_STEPS = 100
+JPEG_HELD = 0                # the view held out of both trainers
+JPEG_RGB_PSNR_MIN = 26.0     # decoded views against the PNG twin's, RGB
+JPEG_LUMA_PSNR_MIN = 40.0    # the gray read against the PNG's libjpeg luma
+JPEG_HELD_DB = 0.5           # held-out PSNR, JPEG scene against PNG scene
+JPEG_TIMING_REPS = 3
+FEATURE_COUNTS = (1, 4, 8)
+JPEG_FEAT_LOG2T = 19         # (c)'s tables: 16 x 2^19, the default field's
+
+
+def jpeg_phase(exp_root, x=None):
+    """Phase 21: JPEG captures and hash grids of 1, 4 or 8 features on the
+    card (B1f, B1d), each gate fatal.
+
+    (a) cv2 is made unimportable in this process (`sys.modules["cv2"] =
+    None`; where the machine has cv2 its path is printed) and `import
+    cv2` must then fail. Every committed fixture (`tests/data/jpeg/`) decodes through
+    `data/jpeg.py` to cv2's pixels: `llff.imread`, `imread_rgb8` and
+    `imread_gray8` give the shape and SHA-256 that cv2's unchanged, colour
+    and gray reads gave where the fixtures were made (`expected.json`).
+    The decoder's ms per megapixel over the scene's 12 views (colour and
+    gray reads, the bytes in memory, best of JPEG_TIMING_REPS).
+    (b) The committed JPEG scene (12 views at 504 x 672, q95 4:2:0,
+    progressive) copied to `build/chip_smoke/jpeg_scene` and its PNG twin
+    written by `synthetic.make_scene` at the same seed and size: every
+    decoded view within JPEG_RGB_PSNR_MIN dB of the PNG's in RGB (cv2's
+    own decode measured 26.33 dB on the worst view where the fixtures were
+    made: 4:2:0 halves the chroma of the checker's and the ball's edges)
+    and JPEG_LUMA_PSNR_MIN dB in luma (the gray read against libjpeg's Y of
+    the PNG; measured 46.76 dB). Then `Config(prepare=True)` trains
+    JPEG_STEPS steps on each scene from its directory at factor 2 (which
+    runs `minify` of the originals), view JPEG_HELD held out: the PSNR must
+    rise on the JPEG scene, and its held-out PSNR (against the PNG scene's
+    view) must lie within JPEG_HELD_DB dB of the PNG scene's.
+    (c) `HashGridEncoding` at features 1, 4 and 8 (16 x 2^19, impl="auto",
+    which resolves to "xla" as JAX's `_resolve_impl` does) on CUDA tensors,
+    in f32 and bf16, forward and backward on 262,144 points (phase 3's,
+    else the fine pass of the JPEG scene's trainer), against the same
+    computation in float64 on the same corners and weights: each output
+    within its rounding bound, f32 9 * 2^-24 * S and bf16 11 * 2^-8 * S
+    (S = sum over the corners of |table| * |w|: the products' roundings,
+    in bf16 also the casts of table and weights, and the 8-term sum in any
+    order, accumulated in f32 or in bf16), and each table-gradient entry
+    within (n + 4) * u * S_e (n its contributions, u the unit roundoff:
+    2^-24 in f32, 2^-8 in bf16; S_e = the sum of |w| * |g| over them: the
+    scatter's sums in any order and precision); the launch counters of
+    #1-#6 stay at 0.
+    Returns a summary."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.core.losses import mse, mse_to_psnr
+    from spinnerf_tpu_torch.core.rendering import render_rays_chunked
+    from spinnerf_tpu_torch.data import jpeg, llff, raybank, synthetic
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.models.hashgrid import HashGridEncoding
+    from spinnerf_tpu_torch.ops import hash_encode as he
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer, render_config
+    t_start = time.perf_counter()
+    out = {}
+
+    # (a) the fixtures, without cv2
+    import importlib.util
+    spec = (importlib.util.find_spec("cv2")
+            if sys.modules.get("cv2", False) is not None else None)
+    sys.modules["cv2"] = None
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        log(f"[jpeg] cv2 on this machine: "
+            f"{spec.origin if spec else 'not importable'}; import cv2 now "
+            f"fails in this process ({e}); every JPEG below is decoded by "
+            f"native/jpeg_native.cpp")
+    else:
+        raise AssertionError("cv2 is importable: phase 21 holds the port's "
+                             "decoder where cv2 is absent")
+    expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
+    reads = (("unchanged", llff.imread), ("color", llff.imread_rgb8),
+             ("gray", llff.imread_gray8))
+    for name, want in expected.items():
+        for read, fn in reads:
+            img = fn(JPEG_FIXTURES / name)
+            got = {"shape": list(img.shape), "sha256": hashlib.sha256(
+                np.ascontiguousarray(img).tobytes()).hexdigest()}
+            if got != want[read]:
+                raise AssertionError(f"{name} {read}: {got}, cv2 gave "
+                                     f"{want[read]}")
+    views = sorted((JPEG_FIXTURES / "scene" / "images").glob("*.jpg"))
+    blobs = [p.read_bytes() for p in views]
+    mpix = sum(jpeg.decode(b, name=p, mode="gray").size
+               for b, p in zip(blobs, views)) / 1e6
+    for mode in ("color", "gray"):
+        best = math.inf
+        for _ in range(JPEG_TIMING_REPS):
+            t0 = time.perf_counter()
+            for b, p in zip(blobs, views):
+                jpeg.decode(b, name=p, mode=mode)
+            best = min(best, time.perf_counter() - t0)
+        out[f"decode_{mode}_ms_per_mp"] = best * 1e3 / mpix
+    log(f"[jpeg] {len(expected)} fixtures x 3 reads equal to cv2's "
+        f"(shape and SHA-256); decode of the scene's {len(views)} views "
+        f"({mpix:.4f} MP): colour {out['decode_color_ms_per_mp']:.3f} ms/MP, "
+        f"gray {out['decode_gray_ms_per_mp']:.3f} ms/MP (host, one thread)")
+
+    # (b) the JPEG scene and its PNG twin
+    jpeg_dir, png_dir = exp_root / "jpeg_scene", exp_root / "png_scene"
+    shutil.rmtree(jpeg_dir, ignore_errors=True)
+    shutil.rmtree(png_dir, ignore_errors=True)
+    shutil.copytree(JPEG_FIXTURES / "scene", jpeg_dir)
+    t0 = time.perf_counter()
+    synthetic.make_scene(png_dir, n_views=len(views), h=504, w=672, factor=1,
+                         seed=0)
+    out["png_scene_s"] = time.perf_counter() - t0
+    rgb_db, luma_db = [], []
+    for p in views:
+        png = read_png(png_dir / "images" / (p.stem + ".png"))
+        r, g, b = (png[..., i].astype(np.int64) for i in range(3))
+        luma = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+        for dbs, a, ref in ((rgb_db, llff.imread(p), png),
+                            (luma_db, llff.imread_gray8(p), luma)):
+            err = np.mean((a.astype(np.float64) - ref) ** 2)
+            dbs.append(float(10 * np.log10(255.0 ** 2 / err)))
+    out.update(view_psnr_rgb_min=min(rgb_db), view_psnr_luma_min=min(luma_db))
+    log(f"[jpeg] PNG twin written in {out['png_scene_s']:.3f} s; decoded "
+        f"views against it: RGB PSNR {min(rgb_db):.3f}-{max(rgb_db):.3f} dB, "
+        f"luma {min(luma_db):.3f}-{max(luma_db):.3f} dB")
+    if not (min(rgb_db) >= JPEG_RGB_PSNR_MIN
+            and min(luma_db) >= JPEG_LUMA_PSNR_MIN):
+        raise AssertionError("a decoded view is too far from its PNG twin")
+
+    trainers = {}
+    for tag, d in (("jpeg", jpeg_dir), ("png", png_dir)):
+        cfg = Config(expname=f"{tag}_scene", basedir=str(exp_root),
+                     datadir=str(d), dataset_type="llff", factor=2,
+                     prepare=True, no_ndc=True, no_reload=True,
+                     train_scene=[i for i in range(len(views))
+                                  if i != JPEG_HELD],
+                     test_scene=[JPEG_HELD], N_iters=JPEG_STEPS, i_print=50,
+                     i_weights=0, i_video=0, i_testset=0, i_feat=0)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, log=log, device=CARD)
+        setup_s = time.perf_counter() - t0
+        psnr_1 = float(tr.fit(1)["psnr"])
+        t0 = time.perf_counter()
+        m_end = tr.fit(JPEG_STEPS)
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (JPEG_STEPS - 1)
+        trainers[tag] = tr
+        out[tag] = {"setup_s": setup_s, "psnr_1": psnr_1,
+                    f"psnr_{JPEG_STEPS}": float(m_end["psnr"]),
+                    "step_ms": step_ms,
+                    "images": list(tr.scene.images.shape)}
+    gt = torch.as_tensor(trainers["png"].scene.images[JPEG_HELD],
+                         device=CARD)
+    for tag, tr in trainers.items():
+        coarse, fine = tr.field_fns()
+        with torch.no_grad():
+            batch, (h, w) = raybank.frame_ray_batch(
+                tr.bank.hwf, torch.as_tensor(tr.scene.poses[JPEG_HELD],
+                                             device=tr.device),
+                tr.bank.near, tr.bank.far)
+            res = render_rays_chunked(batch, coarse,
+                                      render_config(tr.cfg, train=False),
+                                      tr.cfg.chunk, fine_field_fn=fine)
+        rgb = res.fine.rgb.reshape(h, w, 3)
+        if not torch.isfinite(rgb).all():
+            raise AssertionError(f"the {tag} scene's held-out render is not "
+                                 f"finite")
+        out[tag]["held_psnr"] = float(mse_to_psnr(mse(rgb, gt)))
+    log(json.dumps({"jpeg_scene": out}))
+    if out["jpeg"]["images"] != [len(views), 252, 336, 3]:
+        raise AssertionError(f"the JPEG scene loaded {out['jpeg']['images']}")
+    if not out["jpeg"][f"psnr_{JPEG_STEPS}"] > out["jpeg"]["psnr_1"]:
+        raise AssertionError("PSNR did not rise on the JPEG scene")
+    if not abs(out["jpeg"]["held_psnr"]
+               - out["png"]["held_psnr"]) <= JPEG_HELD_DB:
+        raise AssertionError("the JPEG scene's held-out PSNR is more than "
+                             f"{JPEG_HELD_DB} dB from the PNG scene's")
+
+    # (c) hash grids of 1, 4 and 8 features
+    model = trainers["jpeg"].model
+    if x is None:
+        x = fine_pass_points(trainers["jpeg"])
+    finest = model.finest_res_per_unit * model.bound
+    del trainers
+    counters = (he.launches, he.launches_det, hw.launches, hw.launches_det)
+    for c in counters:
+        c.update({k: 0 for k in c})
+    gen = torch.Generator().manual_seed(21)
+    feats = {}
+    for f in FEATURE_COUNTS:
+        table = torch.empty((16, 1 << JPEG_FEAT_LOG2T, f)).uniform_(
+            -1, 1, generator=gen)
+        g = torch.randn((x.shape[0], 16 * f), generator=gen)
+        table, g = table.to(CARD), g.to(CARD)
+        for dt, u, c_out in ((torch.float32, 2.0 ** -24, 9 * 2.0 ** -24),
+                             (torch.bfloat16, 2.0 ** -8, 11 * 2.0 ** -8)):
+            enc = HashGridEncoding(features=f,
+                                   log2_table_size=JPEG_FEAT_LOG2T,
+                                   finest_res=finest, compute_dtype=dt,
+                                   device=CARD)
+            if enc.impl != "xla":
+                raise AssertionError(f"features={f} resolved to {enc.impl}")
+            with torch.no_grad():
+                enc.table.copy_(table)
+            if CARD == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = enc(x)
+            (y.float() * g).sum().backward()
+            if CARD == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            idx, w = enc.corner_indices_weights(x)
+            w64, g64 = w.double(), g.double()
+            t64 = table.double().requires_grad_()
+            ref = he.hash_encode_xla(t64, idx, w64)
+            (gref,) = torch.autograd.grad(ref, t64,
+                                          g64.reshape(ref.shape))
+            ref = ref.detach()
+            a64 = torch.zeros_like(t64, requires_grad=True)
+            scale = he.hash_encode_xla(t64.detach().abs(), idx, w64.abs())
+            (s_e,) = torch.autograd.grad(
+                he.hash_encode_xla(a64, idx, w64.abs()), a64,
+                g64.abs().reshape(ref.shape))
+            t_n = 1 << JPEG_FEAT_LOG2T
+            flat = (idx.long() + t_n * torch.arange(
+                16, device=idx.device)[:, None, None]).reshape(-1)
+            n_e = torch.bincount(flat, minlength=16 * t_n).reshape(
+                16, t_n, 1).double()
+            err_out = (y.detach().double().reshape(ref.shape) - ref).abs()
+            err_g = (enc.table.grad.double() - gref).abs()
+            r_out = float((err_out / (c_out * scale + 1e-300)).max())
+            r_g = float((err_g / ((n_e + 4) * u * s_e + 1e-300)).max())
+            key = f"f{f}_{str(dt).split('.')[1]}"
+            feats[key] = {"ms_fwd_bwd": ms, "out_err_over_bound": r_out,
+                          "grad_err_over_bound": r_g,
+                          "max_abs_err_out": float(err_out.max()),
+                          "max_abs_err_grad": float(err_g.max())}
+            if not (r_out <= 1 and r_g <= 1):
+                raise AssertionError(f"features={f} {dt}: {feats[key]}")
+            del enc, y, idx, w, w64, t64, ref, gref, a64, scale, s_e, flat
+            del n_e, err_out, err_g
+        del table, g
+    launched = {f"{m}.{k}": v for m, c in zip(
+        ("he", "he_det", "hw", "hw_det"), counters) for k, v in c.items()}
+    out["features"] = feats
+    log(json.dumps({"hash_features": feats, "launches_1_6": launched}))
+    if any(launched.values()):
+        raise AssertionError(f"a hash kernel launched: {launched}")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[jpeg] phase 21 in {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -5133,6 +5408,15 @@ def main(argv):
         del mlp_trainer
         gen_records = gen_mlp_phase(exp_root, scene, common, points)
         log(json.dumps({"kernels": gen_records}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if "--phase" in argv and argv[argv.index("--phase") + 1:][:1] == ["21"]:
+        # phase 21 alone, on the JPEG scene trainer's fine-pass points
+        jpeg_phase(exp_root)
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5246,6 +5530,10 @@ def main(argv):
     # 20. the fused MLP on the generic kernels: f32 and other geometries
     gen_records = gen_mlp_phase(exp_root, scene, common, v1_points)
     del v1_points
+    torch.cuda.empty_cache()
+
+    # 21. JPEG captures and hash grids of 1, 4 or 8 features
+    jpeg_phase(exp_root, x)
     for r in records:
         k = r["name"].rsplit("_", 1)[1]
         r["fit_launches_per_step"] = {

@@ -12,13 +12,16 @@ Disk layout (the reference's `README.md:32-51`):
   scene/sparse/0/*.bin          COLMAP model
 
 The machine with the card has neither cv2 nor PIL: PNG files are decoded by
-`eval.render.read_png`, and the three cv2 operations the JAX loader uses are
-computed here with the same results: `minify` (INTER_AREA: cv2's block
-means and fractional weights with its integer rounding), `dilate_mask`
-(5 x 5, 5 iterations) and `resize_nearest` (INTER_NEAREST, from
-`utils/resize.py`).
-Other image formats (JPEG) go through cv2, imported when such a file is
-read.
+`eval.render.read_png` and JPEG files (`.jpg` / `.jpeg` in any letter case)
+by the native decoder of `data/jpeg.py`, both to cv2's pixels, and the
+three cv2 operations the JAX loader uses are computed here with the same
+results: `minify` (INTER_AREA: cv2's block means and fractional weights
+with its integer rounding), `dilate_mask` (5 x 5, 5 iterations) and
+`resize_nearest` (INTER_NEAREST, from `utils/resize.py`). `imread` is cv2's
+unchanged read (no EXIF orientation); `imread_rgb8` and `imread_gray8` are
+its colour and grayscale reads, which turn the image by its EXIF
+orientation. Other formats (TIFF, BMP, WebP) go through cv2, imported when
+such a file is read, and name the file where it is absent.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spinnerf_tpu_torch.data import jpeg
 from spinnerf_tpu_torch.eval.render import read_png, write_png
 from spinnerf_tpu_torch.utils.resize import (area_resize_int,
                                               nearest_resize as resize_nearest)
@@ -68,26 +72,41 @@ def _list_images(d: Path):
                   and "cutout" not in p.name and "pseudo" not in p.name)
 
 
-def imread(path) -> np.ndarray:
-    """An image file's pixels as `cv2.imread(path, IMREAD_UNCHANGED)` gives
-    them, in RGB(A) channel order: PNG through `read_png`, other formats
-    through cv2 (raises naming the file where cv2 is absent)."""
-    path = Path(path)
-    if path.suffix.lower() == ".png":
-        return read_png(path)
+def _kind(path: Path) -> str:
+    suffix = path.suffix.lower()
+    return {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg"}.get(suffix, "")
+
+
+def _cv2_read(path: Path, flag: str) -> np.ndarray:
+    """cv2.imread(path, IMREAD_<flag>) in RGB(A) order, for the formats the
+    port does not decode itself; raises naming the file where cv2 is
+    absent."""
     try:
         import cv2
     except ImportError:
         raise RuntimeError(f"{path}: reading {path.suffix} files needs cv2, "
-                           f"which is not installed (PNG files are read "
-                           f"without it)") from None
-    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+                           f"which is not installed (PNG and JPEG files are "
+                           f"read without it)") from None
+    img = cv2.imread(str(path), getattr(cv2, f"IMREAD_{flag}"))
     if img is None:
         raise FileNotFoundError(path)
     if img.ndim == 3:
         img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4
                            else cv2.COLOR_BGR2RGB)
     return img
+
+
+def imread(path) -> np.ndarray:
+    """An image file's pixels as `cv2.imread(path, IMREAD_UNCHANGED)` gives
+    them, in RGB(A) order and without EXIF orientation: PNG through
+    `read_png`, JPEG through `data/jpeg.py`, other formats through cv2."""
+    path = Path(path)
+    kind = _kind(path)
+    if kind == "png":
+        return read_png(path)
+    if kind == "jpeg":
+        return jpeg.decode(path.read_bytes(), name=path)
+    return _cv2_read(path, "UNCHANGED")
 
 
 def imread_float(path) -> np.ndarray:
@@ -102,8 +121,18 @@ def imread_float(path) -> np.ndarray:
 
 def imread_rgb8(path) -> np.ndarray:
     """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order):
-    gray repeated, alpha dropped, 16-bit to its high byte."""
-    return to_rgb8(imread(path))
+    gray repeated, alpha dropped, 16-bit to its high byte, turned by the
+    file's EXIF orientation."""
+    path = Path(path)
+    kind = _kind(path)
+    if kind == "png":
+        img, orientation = read_png(path, with_orientation=True)
+        return jpeg.orient(to_rgb8(img), orientation)
+    if kind == "jpeg":
+        data = path.read_bytes()
+        return jpeg.orient(jpeg.decode(data, name=path, mode="color"),
+                           jpeg.exif_orientation(data))
+    return _cv2_read(path, "COLOR")
 
 
 def to_rgb8(img: np.ndarray) -> np.ndarray:
@@ -116,14 +145,26 @@ def to_rgb8(img: np.ndarray) -> np.ndarray:
 
 
 def imread_gray8(path) -> np.ndarray:
-    """uint8 [H, W] as cv2's grayscale read gives it: gray as stored,
-    colour by cvtColor's fixed-point luma (R 4899, G 9617, B 1868, >> 14,
-    rounded; exact on masks whose channels are equal). cv2's PNG reader
-    rounds some colour pixels 1 apart, which moves a mask's 0.5 threshold
-    only at gray 127 / 128."""
-    img = imread_rgb8(path)
-    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
-    return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
+    """uint8 [H, W] as cv2's grayscale read gives it, turned by the file's
+    EXIF orientation. PNG: gray as stored, colour by cvtColor's fixed-point
+    luma (R 4899, G 9617, B 1868, >> 14, rounded; exact on masks whose
+    channels are equal); cv2's PNG reader rounds some colour pixels 1
+    apart, which moves a mask's 0.5 threshold only at gray 127 / 128.
+    JPEG: libjpeg's grayscale output (the Y component of a YCbCr file),
+    which is not the luma of the colour read."""
+    path = Path(path)
+    kind = _kind(path)
+    if kind == "png":
+        img, orientation = read_png(path, with_orientation=True)
+        rgb = to_rgb8(img)
+        r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+        gray = (r * 4899 + g * 9617 + b * 1868 + 8192) >> 14
+        return jpeg.orient(gray.astype(np.uint8), orientation)
+    if kind == "jpeg":
+        data = path.read_bytes()
+        return jpeg.orient(jpeg.decode(data, name=path, mode="gray"),
+                           jpeg.exif_orientation(data))
+    return _cv2_read(path, "GRAYSCALE")
 
 
 def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
@@ -135,7 +176,8 @@ def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
 
 
 def minify(scene_dir, factor: int):
-    """Create `images_<factor>/` by area-downsampling `images/` (PNG files;
+    """Create `images_<factor>/` by area-downsampling `images/` (PNG or JPEG
+    originals, read unchanged as `imread` reads them; PNG files written;
     no-op if the directory exists). Returns the directory."""
     scene_dir = Path(scene_dir)
     out_dir = scene_dir / f"images_{factor}"

@@ -5,9 +5,9 @@ The reference's LaMa trainer can stream tar shards of images
 (`lama/saicinpainting/training/data/datasets.py:25-100`,
 `InpaintingTrainWebDataset`). Here: plain `tarfile` shards, a
 shuffled-shard + shuffle-buffer iterator, and a writer that shards an image
-tree. PNG members are decoded by the port's own reader
-(`eval/render.py::read_png`); JPEG members need cv2, imported when one is
-met.
+tree. Members are decoded without cv2, as JAX's `cv2.imdecode(...,
+IMREAD_COLOR)` decodes them: PNG by `eval/render.py::read_png`, JPEG by the
+native decoder of `data/jpeg.py`, each turned by its EXIF orientation.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
+from spinnerf_tpu_torch.data import jpeg
 from spinnerf_tpu_torch.data.llff import to_rgb8
 from spinnerf_tpu_torch.eval.render import read_png
 
@@ -51,15 +52,18 @@ def write_tar_shards(indir, out_dir, *, shard_size: int = 1000,
 
 
 def _decode(name: str, data: bytes):
-    """[H, W, 3] float32 RGB in [0, 1] of one member's bytes, or None when
-    cv2 cannot decode a JPEG member (as `cv2.imdecode` gives None)."""
+    """[H, W, 3] float32 RGB in [0, 1] of one member's bytes, or None where
+    a JPEG member does not decode (as `cv2.imdecode` gives None)."""
     if name.lower().endswith(".png"):
-        return to_rgb8(read_png(data)).astype(np.float32) / 255.0
-    import cv2
-    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        return None
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+        img, orientation = read_png(data, with_orientation=True)
+        img = jpeg.orient(to_rgb8(img), orientation)
+    else:
+        try:
+            img = jpeg.orient(jpeg.decode(data, name=name, mode="color"),
+                              jpeg.exif_orientation(data))
+        except ValueError:
+            return None
+    return img.astype(np.float32) / 255.0
 
 
 def iter_shard_images(shard_paths, *, rng=None, shuffle_shards: bool = True,

@@ -25,6 +25,7 @@ from spinnerf_tpu_torch import resolve_device
 from spinnerf_tpu_torch.core import rendering
 from spinnerf_tpu_torch.core.rendering import RenderConfig
 from spinnerf_tpu_torch.data import raybank
+from spinnerf_tpu_torch.data.jpeg import exif_orientation
 from spinnerf_tpu_torch.eval.metrics import to8b
 
 # Light maps hold one value per pixel; the heavy ones are per-sample
@@ -259,18 +260,22 @@ def _png_unfilter(data: np.ndarray, filters: np.ndarray, bpp: int):
     return out[1:, 1:].reshape(h, n).astype(np.uint8)
 
 
-def read_png(path) -> np.ndarray:
+def read_png(path, *, with_orientation: bool = False):
     """Decode a PNG as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` does, with
     the channels in RGB(A) order instead of BGR(A): [H, W] for grayscale,
     [H, W, 3] for RGB and palette images, [H, W, 4] for RGBA and grayscale +
     alpha (the gray value repeated); uint16 for 16-bit images, else uint8
     (grayscale below 8 bits scaled to 0..255). Transparency chunks (tRNS)
     are ignored, where cv2 adds an alpha channel. All five row filters;
-    interlaced files raise. `path` may also be the file's bytes."""
+    interlaced files raise. `path` may also be the file's bytes.
+
+    with_orientation: also return the EXIF orientation (1-8) of the first
+    `eXIf` chunk (`data.jpeg.exif_orientation`; 1 without one), which cv2's
+    colour and grayscale reads apply and its unchanged read does not."""
     data = path if isinstance(path, bytes) else Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, plte, hdr = 8, [], None, None
+    pos, idat, plte, hdr, exif = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
@@ -281,6 +286,8 @@ def read_png(path) -> np.ndarray:
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
+        elif tag == b"eXIf" and exif is None:
+            exif = body
         elif tag == b"IEND":
             break
     w, h, depth, color, _, _, interlace = hdr
@@ -306,11 +313,15 @@ def read_png(path) -> np.ndarray:
         if color == 0:
             img = img * np.uint8(255 // ((1 << depth) - 1))
     if color == 3:
-        return plte[img[..., 0]]
-    if color == 4:
-        return np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
-                              axis=-1)
-    return img[..., 0] if channels == 1 else img
+        img = plte[img[..., 0]]
+    elif color == 4:
+        img = np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
+                             axis=-1)
+    elif channels == 1:
+        img = img[..., 0]
+    if with_orientation:
+        return img, 1 if exif is None else exif_orientation(exif)
+    return img
 
 
 def write_video(path, frames, fps: int = 30):

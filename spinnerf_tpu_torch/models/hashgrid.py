@@ -11,13 +11,20 @@ Two index functions, as in the JAX package (`impl`):
 - "win" / "win_xla": the windowed index of `ops/hash_encode_win.py` with an
   exact gather, the fused CUDA kernels on the card (both impls mean that
   here);
-- "mxu" / "xla": the reference's instant-NGP index (dense where the level's
-  grid fits the table, else the XOR-prime hash, `corner_indices_weights`)
+- "mxu": the reference's instant-NGP index (dense where the level's grid
+  fits the table, else the XOR-prime hash, `corner_indices_weights`)
   through `ops/hash_encode.py::hash_encode_ngp_fused`, whose CUDA kernels
-  rebuild the index from the points on the card (both impls mean that
-  here). Both compute the f32 blend and cast it to `compute_dtype`.
-"auto" is "win" for tables of 2^13 entries and more, else "mxu" (the JAX
-package's choice on a TPU). On the CPU every impl takes its plain version.
+  rebuild the index from the points on the card; the f32 blend, cast to
+  `compute_dtype`;
+- "xla": the same index and a gather on any device, with no kernel, as
+  JAX's XLA branch computes it: table and weights cast to `compute_dtype`,
+  their products summed over the 8 corners (an f32 accumulation rounded to
+  `compute_dtype`). Any feature count.
+Both windowed impls and "mxu" take features=2 and raise ValueError for
+others, as JAX does. "auto" resolves as JAX's `_resolve_impl` does on a
+TPU: "xla" for features != 2 or tables under 64 entries, else "win" for
+tables of 2^13 entries and more and "mxu" below. On the CPU every impl
+takes its plain version.
 """
 from __future__ import annotations
 
@@ -125,18 +132,16 @@ class HashGridEncoding(nn.Module):
                  dense_box: tuple | None = None, device=None):
         super().__init__()
         if impl == "auto":
-            impl = he.recommended_impl(log2_table_size, on_tpu=True)
+            if features != 2 or ((1 << log2_table_size) * 2) % 128:
+                impl = "xla"
+            else:
+                impl = he.recommended_impl(log2_table_size, on_tpu=True)
         if impl not in _WIN_IMPLS + _IDX_IMPLS:
             raise ValueError(f"unknown hash_impl {impl!r}")
         device = resolve_device(device)
-        if features != 2:
-            if impl in _WIN_IMPLS:
-                raise ValueError("the windowed hash encode supports "
-                                 "features=2")
-            if device.type == "cuda":
-                raise NotImplementedError(
-                    "the index-gather kernels take features=2; other feature "
-                    "counts run only on the CPU (ROADMAP.md B1d)")
+        if features != 2 and impl != "xla":
+            raise ValueError(f"the {impl!r} hash encode supports features=2 "
+                             f"(impl='xla' takes any)")
         self.impl = impl
         self.n_levels = n_levels
         self.features = features
@@ -184,8 +189,11 @@ class HashGridEncoding(nn.Module):
         if self.impl in _WIN_IMPLS:
             out = hw.hash_encode_win_fused(self.table, x, self.resolutions,
                                            self.bounds, self._boxes)
-        else:
+        elif self.impl == "mxu":
             out = he.hash_encode_ngp_fused(self.table, x, self.resolutions)
+        else:
+            out = he.hash_encode_xla(self.table.to(self.compute_dtype),
+                                     *self.corner_indices_weights(x))
         return out.to(self.compute_dtype).reshape(
             *shape, self.n_levels * self.features)
 

@@ -7,7 +7,8 @@ writes a file of its own and renames it into place, so processes that
 build at once never load a partial library. A failed build raises with the
 compiler's output.
 
-    python -m spinnerf_tpu_torch.native.build     # build now, print the path
+    python -m spinnerf_tpu_torch.native.build     # build every native/*.cpp
+                                                  # now, print the paths
 """
 from __future__ import annotations
 
@@ -68,5 +69,6 @@ def load(name: str = "colmap_native") -> ctypes.CDLL:
 
 
 if __name__ == "__main__":
-    print(build())
+    for src in sorted(SRC.glob("*.cpp")):
+        print(build(src.stem))
     sys.exit(0)

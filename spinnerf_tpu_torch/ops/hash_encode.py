@@ -7,7 +7,11 @@ encode as one-hot MXU products against a lane-packed table (`packed_rows`,
 the same: out[n, l, :] = sum_c w[l, c, n] * table[l, idx[l, c, n], :], and
 its table gradient the scatter-add of w * g.
 
-- `hash_encode_xla` is the plain version on any device;
+- `hash_encode_xla` is the plain version on any device. Given a table cast
+  to `compute_dtype` it is also JAX's XLA branch of
+  `HashGridEncoding.__call__`, the "xla" impl of `models/hashgrid.py`:
+  products in that dtype, summed with an f32 accumulation and rounded once,
+  at any feature count;
 - `hash_encode_mxu` launches the kernels of `csrc/hash_encode_idx.cu` on
   CUDA tensors (or raises) and takes the plain version on CPU tensors. It
   computes the f32 blend; the TPU kernel rounds the table and w * g to bf16.
@@ -60,8 +64,10 @@ def recommended_impl(log2_table_size: int, on_tpu: bool) -> str:
 
 def hash_encode_xla(table, idx, weights):
     """Plain gather + trilinear blend on any device: table [L, T, F], idx and
-    weights [L, 8, N] -> [N, L, F] in the table's dtype. Differentiable wrt
-    the table through autograd (an index_put accumulate)."""
+    weights [L, 8, N] -> [N, L, F] in the table's dtype (weights cast to it;
+    torch sums reduced-precision floats with an f32 accumulator, as `jnp.sum`
+    does). Differentiable wrt the table through autograd (an index_put
+    accumulate in the table's dtype)."""
     l, t, f = table.shape
     lvl = torch.arange(l, device=table.device)[:, None, None]
     feats = table[lvl, idx.long()]                          # [L, 8, N, F]
@@ -228,9 +234,9 @@ def _check_points(x, levels: int, resolutions, device):
 def _check_table_shape(shape, points_mode=False):
     l, t, f = shape
     if f != 2:
-        raise NotImplementedError(
-            f"the index-gather kernels take features=2, got {f}; other "
-            f"feature counts run only on the CPU (ROADMAP.md B1d)")
+        raise ValueError(
+            f"the index-gather kernels take features=2, got {f}; "
+            f"`hash_encode_xla` takes any feature count")
     if not 0 < l <= _MAX_LEVELS or not 0 < t <= _MAX_TABLE:
         raise ValueError(f"table [{l}, {t}, 2]: at most {_MAX_LEVELS} levels "
                          f"and 2^30 entries")

@@ -145,18 +145,44 @@ def test_plain_encode_and_table_grad(case):
 
 
 def test_unported_impl_raises():
-    """Every JAX impl is ported for features=2. The instant-NGP index with
-    another feature count has no kernel: it raises for the card (before any
-    allocation) and takes the plain version on the CPU; the windowed index
-    takes features=2 only, as in JAX; an unknown impl is refused."""
-    for impl in ("mxu", "xla"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thg.HashGridEncoding(log2_table_size=12, features=4, impl=impl,
-                                 device="cuda")
-        enc = thg.HashGridEncoding(log2_table_size=12, features=4, impl=impl,
-                                   device="cpu")
-        assert enc.table.shape == (16, 1 << 12, 4)
-    with pytest.raises(ValueError, match="features=2"):
-        thg.HashGridEncoding(log2_table_size=13, features=4, device="cpu")
+    """`auto` resolves as JAX's `_resolve_impl`: features != 2 (and tables
+    under 64 entries) take "xla", the gather summed in `compute_dtype`,
+    which runs on any device; at features=4 and 2^13 entries it equals
+    JAX's `HashGridEncoding` in bf16 within 2^-8 of the largest output
+    (bf16's unit roundoff; measured equal), forward and table gradient. An explicit
+    "mxu", "win" or "win_xla" with features != 2 raises ValueError, as
+    JAX's kernels do; an unknown impl is refused."""
+    kw = dict(n_levels=4, features=4, log2_table_size=13, base_res=4,
+              finest_res=64.0)
+    enc = thg.HashGridEncoding(**kw, device="cpu")
+    assert enc.impl == "xla" and enc.compute_dtype == torch.bfloat16
+    rng = np.random.RandomState(3)
+    table = rng.uniform(-1, 1, (4, 1 << 13, 4)).astype(np.float32)
+    x = _points(3)
+    g = rng.randn(len(x), 16).astype(np.float32)
+    jenc = jhg.HashGridEncoding(**kw)
+
+    def jax_loss(tab):
+        out = jenc.apply({"params": {"table": tab}}, jnp.asarray(x))
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    (_, out_j), grad_j = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(table))
+    out_j = np.asarray(out_j.astype(jnp.float32))
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(table))
+    out_t = enc(torch.from_numpy(x))
+    assert out_t.dtype == torch.bfloat16 and out_t.shape == (len(x), 16)
+    (out_t.float() * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out_t.detach().float().numpy(), out_j,
+                               rtol=0, atol=2.0 ** -8 * np.abs(out_j).max())
+    grad_j = np.asarray(grad_j)
+    np.testing.assert_allclose(enc.table.grad.numpy(), grad_j, rtol=0,
+                               atol=2.0 ** -8 * np.abs(grad_j).max())
+    assert thg.HashGridEncoding(log2_table_size=5, device="cpu").impl == "xla"
+    for impl in ("mxu", "win", "win_xla"):
+        with pytest.raises(ValueError, match="features=2"):
+            thg.HashGridEncoding(log2_table_size=13, features=4, impl=impl,
+                                 device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         thg.HashGridEncoding(log2_table_size=13, impl="tcnn", device="cpu")

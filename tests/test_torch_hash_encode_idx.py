@@ -163,6 +163,6 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         the.hash_encode_idx_fwd_kernel(table, idx, w)
     with pytest.raises(ValueError, match="CUDA"):
         the.hash_encode_idx_bwd_kernel(g, idx, w, tuple(table.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="features=2"):
         the.hash_encode_idx_fwd_kernel(torch.zeros((2, 256, 4)), idx, w)
     assert not any(the.launches.values())

@@ -343,7 +343,7 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         the.hash_encode_ngp_fwd_kernel(table, x, res)
     with pytest.raises(ValueError, match="CUDA"):
         the.hash_encode_ngp_bwd_kernel(g, x, res, tuple(table.shape))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="features=2"):
         the.hash_encode_ngp_fwd_kernel(torch.zeros((2, 256, 4)), x, res)
     with pytest.raises(ValueError, match="power-of-two"):
         the.hash_encode_ngp_bwd_kernel(g, x, res, (2, 300, 2))

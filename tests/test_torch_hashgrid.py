@@ -215,15 +215,15 @@ def test_field_xla_f32_matches_jax(semantic):
 
 @pytest.mark.parametrize("semantic", [False, True])
 def test_field_xla_bf16_matches_jax(semantic):
-    """impl="xla" in bf16. JAX's xla branch multiplies and sums the 8
-    corners in bf16 and scatter-adds the table gradient in bf16
-    (`hashgrid.py:304-310`); the port blends in f32 and rounds once, as its
-    kernel does. Raw outputs differ by a few bf16 steps (measured 2.4e-3 of
-    max |value|; bound 1e-2). Gradients are sums over 240 points of values
-    that differ by bf16 steps and flipped ReLUs, so their small entries
-    differ by up to 30 % while each gradient keeps its direction and size:
-    measured cosine >= 0.992 and norms within 4.3 % (bounds 0.98 and
-    10 %)."""
+    """impl="xla" in bf16. Both packages multiply the 8 corners in bf16, sum
+    them with an f32 accumulator rounded to bf16 and scatter-add the table
+    gradient in bf16 (JAX's `hashgrid.py:302-310`; the port's encoder casts
+    the table to `compute_dtype` before `hash_encode_xla`). The MLPs' bf16
+    matmuls round differently in the two libraries, so raw outputs differ
+    by a few bf16 steps (bound 1e-2 of max |value|). Gradients are sums over
+    240 points of values that differ by bf16 steps and flipped ReLUs, so
+    their small entries differ by up to 30 % while each gradient keeps its
+    direction and size (bounds: cosine 0.98, norms within 10 %)."""
     raw_t, raw_j, grads = _idx_outputs(semantic, "bfloat16")
     assert _rel(raw_t, raw_j) <= 1e-2
     for name, (a, b) in grads.items():
@@ -245,3 +245,43 @@ def test_auto_small_table_takes_the_index_gather_route():
     want = the.hash_encode_xla(enc.table, idx, w).reshape(200, 8)
     assert torch.equal(enc(x), want)
     assert TEnc(log2_table_size=13, device="cpu").impl == "win"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("features", [1, 4, 8])
+def test_features_xla_matches_jax(features, dtype):
+    """B1d: features 1, 4 and 8 under `auto` take "xla" in both packages
+    (JAX's `_resolve_impl`); the port's encode and table gradient equal
+    JAX's on the same table and points: f32 within 1e-6 of the largest
+    value, bf16 (the same casts and the same f32 accumulation) within
+    2^-8 of it (bf16's unit roundoff; measured equal)."""
+    kw = dict(n_levels=6, features=features, log2_table_size=10, base_res=4,
+              finest_res=64.0)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    rng = np.random.RandomState(features)
+    table = rng.uniform(-1, 1, (6, 1 << 10, features)).astype(np.float32)
+    x = _unit_points(features)
+    g = rng.randn(len(x), 6 * features).astype(np.float32)
+    jenc = JEnc(**kw, compute_dtype=jdt)
+
+    def jax_loss(tab):
+        out = jenc.apply({"params": {"table": tab}}, jnp.asarray(x))
+        return jnp.sum(out.astype(jnp.float32) * g), out
+
+    (_, out_j), grad_j = jax.value_and_grad(jax_loss, has_aux=True)(
+        jnp.asarray(table))
+    out_j = np.asarray(out_j.astype(jnp.float32))
+    grad_j = np.asarray(grad_j)
+    enc = TEnc(**kw, compute_dtype=tdt, device="cpu")
+    assert enc.impl == "xla"
+    with torch.no_grad():
+        enc.table.copy_(torch.from_numpy(table))
+    out_t = enc(torch.from_numpy(x))
+    assert out_t.dtype == tdt and out_t.shape == (len(x), 6 * features)
+    (out_t.float() * torch.from_numpy(g)).sum().backward()
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(out_t.detach().float().numpy(), out_j,
+                               rtol=0, atol=tol * np.abs(out_j).max())
+    np.testing.assert_allclose(enc.table.grad.numpy(), grad_j, rtol=0,
+                               atol=tol * np.abs(grad_j).max())

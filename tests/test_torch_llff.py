@@ -163,19 +163,29 @@ def test_write_png_round_trips_16_bit_and_alpha(tmp_path):
 
 
 def test_imread_without_cv2_raises_for_jpeg(tmp_path, monkeypatch):
-    """PNG never goes through cv2; other formats need it and name the
-    file when it is absent."""
+    """PNG and JPEG never go through cv2: without it, a JPEG decodes to
+    cv2's pixels (`data/jpeg.py`) in the unchanged, colour and gray reads,
+    whatever the suffix's letter case; other formats still need cv2 and
+    name the file when it is absent."""
     img = _image((6, 8, 3), np.uint8, 2)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
     cv2.imwrite(str(tmp_path / "a.png"), img)
-    want = cv2.cvtColor(cv2.imread(str(tmp_path / "a.jpg")),
-                        cv2.COLOR_BGR2RGB)
-    np.testing.assert_array_equal(tllff.imread(tmp_path / "a.jpg"), want)
+    cv2.imwrite(str(tmp_path / "a.bmp"), img)
+    shutil.copy(tmp_path / "a.jpg", tmp_path / "b.JPEG")
+    want = {"unchanged": _cv2_rgb(cv2.imread(str(tmp_path / "a.jpg"),
+                                             cv2.IMREAD_UNCHANGED)),
+            "color": _cv2_rgb(cv2.imread(str(tmp_path / "a.jpg"))),
+            "gray": cv2.imread(str(tmp_path / "a.jpg"), cv2.IMREAD_GRAYSCALE)}
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
     np.testing.assert_array_equal(tllff.imread(tmp_path / "a.png"),
                                   _cv2_rgb(img))
-    with pytest.raises(RuntimeError, match="a.jpg"):
-        tllff.imread(tmp_path / "a.jpg")
+    for name in ("a.jpg", "b.JPEG"):
+        for read, fn in (("unchanged", tllff.imread),
+                         ("color", tllff.imread_rgb8),
+                         ("gray", tllff.imread_gray8)):
+            np.testing.assert_array_equal(fn(tmp_path / name), want[read])
+    with pytest.raises(RuntimeError, match="a.bmp"):
+        tllff.imread(tmp_path / "a.bmp")
 
 
 @pytest.mark.parametrize("factor", [2, 3, 4, 8])
