@@ -287,18 +287,30 @@ Phases, each fatal on failure (no phase's error is caught):
      (c) `HashGridEncoding` at features 1, 4 and 8 (16 x 2^19, "auto") on
      phase 3's 262,144 points in f32 and bf16, forward and table gradient
      within their rounding bounds of float64, the launch counters of #1-#6
-     at 0.
+     at 0; (a) holds every fixture under both sources (cv2.imread's and
+     cv2.imdecode's), damaged and 4-component ones included;
+     (d) damaged, incomplete and CMYK / YCCK captures (F1,
+     `damaged_jpeg_phase`): the committed scene with view 3 as YCCK, view 7
+     as CMYK, view 10 cut and view 5 edited: `load_scene` at factor 2
+     equal to the JAX package's image stack (its SHA-256 in expected.json),
+     `Config(prepare=True)` for 100 steps on it with #1 / #2 launched and
+     the PSNR rising, and the decoder's ms per megapixel on each damaged
+     class and on the valid views; (e) a tar shard of damaged and
+     4-component members through `iter_shard_images`: JAX's count and
+     SHA-256s, in JAX's order.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 from pathlib import Path
@@ -5134,8 +5146,6 @@ def jpeg_phase(exp_root, x=None):
     scatter's sums in any order and precision); the launch counters of
     #1-#6 stay at 0.
     Returns a summary."""
-    import hashlib
-
     import numpy as np
     import torch
 
@@ -5166,17 +5176,26 @@ def jpeg_phase(exp_root, x=None):
     else:
         raise AssertionError("cv2 is importable: phase 21 holds the port's "
                              "decoder where cv2 is absent")
-    expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
+    all_expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
+    expected = all_expected["files"]
     reads = (("unchanged", llff.imread), ("color", llff.imread_rgb8),
              ("gray", llff.imread_gray8))
-    for name, want in expected.items():
+    for name, sources in expected.items():
+        data = (JPEG_FIXTURES / name).read_bytes()
+        orientation = jpeg.exif_orientation(data)
         for read, fn in reads:
-            img = fn(JPEG_FIXTURES / name)
-            got = {"shape": list(img.shape), "sha256": hashlib.sha256(
-                np.ascontiguousarray(img).tobytes()).hexdigest()}
-            if got != want[read]:
-                raise AssertionError(f"{name} {read}: {got}, cv2 gave "
-                                     f"{want[read]}")
+            for source in ("file", "buffer"):
+                try:   # a buffer read as shards._decode reads a member
+                    img = (fn(JPEG_FIXTURES / name) if source == "file"
+                           else jpeg.orient(jpeg.decode(
+                               data, name=name, mode=read, source=source),
+                               1 if read == "unchanged" else orientation))
+                    got = {"shape": list(img.shape), "sha256": sha256(img)}
+                except ValueError:
+                    got = None
+                if got != sources[source][read]:
+                    raise AssertionError(f"{name} {source} {read}: {got}, "
+                                         f"cv2 gave {sources[source][read]}")
     views = sorted((JPEG_FIXTURES / "scene" / "images").glob("*.jpg"))
     blobs = [p.read_bytes() for p in views]
     mpix = sum(jpeg.decode(b, name=p, mode="gray").size
@@ -5189,8 +5208,9 @@ def jpeg_phase(exp_root, x=None):
                 jpeg.decode(b, name=p, mode=mode)
             best = min(best, time.perf_counter() - t0)
         out[f"decode_{mode}_ms_per_mp"] = best * 1e3 / mpix
-    log(f"[jpeg] {len(expected)} fixtures x 3 reads equal to cv2's "
-        f"(shape and SHA-256); decode of the scene's {len(views)} views "
+    log(f"[jpeg] {len(expected)} fixtures x 3 reads x 2 sources equal to "
+        f"cv2's (shape and SHA-256, or None); decode of the scene's "
+        f"{len(views)} views "
         f"({mpix:.4f} MP): colour {out['decode_color_ms_per_mp']:.3f} ms/MP, "
         f"gray {out['decode_gray_ms_per_mp']:.3f} ms/MP (host, one thread)")
 
@@ -5341,8 +5361,138 @@ def jpeg_phase(exp_root, x=None):
     log(json.dumps({"hash_features": feats, "launches_1_6": launched}))
     if any(launched.values()):
         raise AssertionError(f"a hash kernel launched: {launched}")
+    out["damaged"] = damaged_jpeg_phase(exp_root, all_expected)
     out["seconds"] = time.perf_counter() - t_start
     log(f"[jpeg] phase 21 in {out['seconds']:.1f} s")
+    return out
+
+
+def build_mixed_scene(recipe, dst):
+    """Phase 21 (d)'s scene: the committed JPEG scene with the views that
+    `recipe` (expected.json's "mixed_scene") names replaced by its YCCK and
+    CMYK files, one cut at a byte offset and one with bytes XORed."""
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(JPEG_FIXTURES / "scene", dst)
+    views = sorted((dst / "images").glob("*.jpg"))
+    for k, name in recipe["replace"].items():
+        shutil.copy(JPEG_FIXTURES / name, views[int(k)])
+    k, off = recipe["cut"]
+    views[k].write_bytes(views[k].read_bytes()[:off])
+    k, edits = recipe["xor"]
+    data = bytearray(views[k].read_bytes())
+    for off, mask in edits:
+        data[off] ^= mask
+    views[k].write_bytes(bytes(data))
+    return views
+
+
+def sha256(img):
+    import hashlib
+
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def damaged_jpeg_phase(exp_root, expected):
+    """Phase 21 (d) and (e), with cv2 still unimportable (each gate fatal).
+
+    (d) The mixed scene (`build_mixed_scene`): the committed 12 views with
+    view 3 as YCCK and view 7 as CMYK (tests/data/jpeg/mixed), view 10 cut
+    and view 5 edited in its scan data. `load_scene(factor=2)` (`minify` of
+    the originals, read as cv2.imread reads them) must give the image stack
+    whose SHA-256 the JAX package gave where the fixtures were made; then
+    `Config(prepare=True)` trains JPEG_STEPS steps on it: #1 and #2 launched
+    (their counters read around the fit) and the PSNR rising. The decoder's
+    ms per megapixel (colour read from the bytes, file semantics, best of
+    JPEG_TIMING_REPS) on the valid views and on each damaged class: YCCK,
+    CMYK, cut, edited, and a valid view with its last three scans dropped
+    (block smoothing). (a) has held every fixture's reads to cv2 under both
+    sources.
+    (e) A tar of expected.json's "shard" members: the port's
+    `iter_shard_images` (its seed, shuffle buffer, no loop) yields as many
+    images as JAX's did, whose SHA-256s come in JAX's order.
+    Returns a summary."""
+    import numpy as np
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.data import jpeg, llff, shards
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    out = {}
+    recipe = expected["mixed_scene"]
+    scene = exp_root / "mixed_scene"
+    views = build_mixed_scene(recipe, scene)
+    images = llff.load_scene(scene, factor=2, prepare=True).images
+    out["load_scene_s"] = time.perf_counter() - t0
+    if [list(images.shape), sha256(images)] != [recipe["images_shape"],
+                                                 recipe["images_sha256"]]:
+        raise AssertionError(f"the mixed scene's images {images.shape} "
+                             f"differ from JAX's (SHA-256 {sha256(images)})")
+    del images
+    cfg = Config(expname="mixed_scene", basedir=str(exp_root),
+                 datadir=str(scene), dataset_type="llff", factor=2,
+                 prepare=True, no_ndc=True, no_reload=True,
+                 train_scene=[i for i in range(len(views)) if i != JPEG_HELD],
+                 test_scene=[JPEG_HELD], N_iters=JPEG_STEPS, i_print=50,
+                 i_weights=0, i_video=0, i_testset=0, i_feat=0)
+    tr = Trainer(cfg, log=log, device=CARD)
+    hw.launches.update({k: 0 for k in hw.launches})
+    psnr_1 = float(tr.fit(1)["psnr"])
+    psnr_end = float(tr.fit(JPEG_STEPS)["psnr"])
+    out.update(psnr_1=psnr_1, psnr_end=psnr_end, launches=dict(hw.launches))
+    del tr
+    if not (hw.launches["fwd"] > 0 and hw.launches["bwd"] > 0):
+        raise AssertionError(f"#1 / #2 did not launch: {hw.launches}")
+    if not psnr_end > psnr_1:
+        raise AssertionError("PSNR did not rise on the mixed scene")
+    valid = [p.read_bytes() for k, p in enumerate(views)
+             if str(k) not in recipe["replace"]
+             and k not in (recipe["cut"][0], recipe["xor"][0])]
+    prog = valid[0]
+    sos = [i for i in range(len(prog) - 1) if prog[i:i + 2] == b"\xff\xda"]
+    classes = {"valid": valid,
+               "ycck": [views[int(k)].read_bytes() for k, n in
+                        recipe["replace"].items() if "003" in n],
+               "cmyk": [views[int(k)].read_bytes() for k, n in
+                        recipe["replace"].items() if "007" in n],
+               "cut": [views[recipe["cut"][0]].read_bytes()],
+               "edited": [views[recipe["xor"][0]].read_bytes()],
+               "missing_scans": [prog[:sos[-3]] + b"\xff\xd9"]}
+    ms_per_mp = {}
+    for tag, blobs in classes.items():
+        best, mp = math.inf, 0
+        for _ in range(JPEG_TIMING_REPS):
+            t1, mp = time.perf_counter(), 0
+            for b in blobs:
+                img = jpeg.decode(b, name=tag, mode="color", source="file")
+                mp += img.shape[0] * img.shape[1] / 1e6
+            best = min(best, time.perf_counter() - t1)
+        ms_per_mp[tag] = best * 1e3 / mp
+    out["decode_color_ms_per_mp"] = ms_per_mp
+
+    # (e) the shard
+    shard = expected["shard"]
+    tar = exp_root / "mixed_shard.tar"
+    with tarfile.open(tar, "w") as tf:
+        for name in shard["members"]:
+            data = (JPEG_FIXTURES / name).read_bytes()
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    got = [sha256(img) for img in shards.iter_shard_images(
+        [tar], rng=np.random.RandomState(shard["seed"]),
+        shuffle_buffer=shard["shuffle_buffer"], loop=False)]
+    out["shard_images"] = len(got)
+    if got != shard["sha256"]:
+        raise AssertionError(f"the shard yields {len(got)} images, JAX "
+                             f"{len(shard['sha256'])}, or other pixels")
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"damaged_jpeg": out}))
+    log(f"[jpeg] (d) the mixed scene's stack equals JAX's; {JPEG_STEPS} "
+        f"steps PSNR {psnr_1:.3f} -> {psnr_end:.3f} dB, #1 / #2 launched "
+        f"{out['launches']}; (e) {len(got)} of {len(shard['members'])} "
+        f"shard members in JAX's order; (d) + (e) in {out['seconds']:.1f} s")
     return out
 
 

@@ -2,20 +2,28 @@
 
 `decode` runs the port's native decoder (`native/jpeg_native.cpp`, built
 with g++ at first use and loaded with ctypes), whose pixels equal those
-libjpeg-turbo gives cv2: `decode(data, name=...)` is cv2's
-`IMREAD_UNCHANGED` read (gray stays [H, W], colour is [H, W, 3], no
-orientation applied), `mode="color"` / `"gray"` cv2's colour and grayscale
-decodes before their orientation step. Channels are in RGB order.
+libjpeg-turbo gives cv2, on valid and on damaged streams alike:
+`decode(data, name=...)` is cv2's `IMREAD_UNCHANGED` read (gray stays
+[H, W], colour and CMYK / YCCK are [H, W, 3], no orientation applied),
+`mode="color"` / `"gray"` cv2's colour and grayscale decodes before their
+orientation step. Channels are in RGB order.
+
+`source` says whose semantics a read follows where the data ends early.
+`"file"` is `cv2.imread`'s: libjpeg's stdio source inserts a fake EOI, so a
+truncated file decodes (blocks past the cut grey, a progressive image
+block-smoothed). `"buffer"` is `cv2.imdecode`'s: OpenCV's memory source
+suspends there and cv2 gives None, which `decode` reports as a ValueError;
+only a single-scan image whose scan is whole survives a missing EOI.
 
 `exif_orientation` reads the orientation tag (0x0112) of IFD0 from a JPEG's
 APP1 `Exif` segment or from a PNG's `eXIf` chunk, and `orient` applies it as
 cv2's `ExifTransform` does; cv2's colour and grayscale reads do both, its
 unchanged read neither.
 
-The decoder refuses, with a ValueError naming the file and the marker,
-arithmetic coding, lossless and hierarchical frames, precision other than
-8 bits, 2 or 4 components (CMYK, YCCK) and truncated or corrupt streams
-(cv2 warns there and returns the image with the missing blocks grey).
+The decoder refuses, with a ValueError naming the file and the marker where
+there is one: arithmetic coding, lossless and hierarchical frames,
+precision other than 8 bits, 2 components, frames without a scan, and
+every stream that libjpeg refuses.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import numpy as np
 from spinnerf_tpu_torch.native import build as _native
 
 _MODES = {"unchanged": None, "color": 3, "gray": 1}   # -> output channels
+_SOURCES = {"buffer": 0, "file": 1}                    # -> the decoder's flags
 _ERR_LEN = 512
 
 
@@ -35,33 +44,39 @@ _ERR_LEN = 512
 def _lib() -> ctypes.CDLL:
     """The decoder's library (built at first use), its functions typed."""
     lib = _native.load("jpeg_native")
-    vp, i64, buf = ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p
+    vp, i64, i32, buf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                         ctypes.c_char_p)
     lib.jd_header.restype = ctypes.c_int
-    lib.jd_header.argtypes = [buf, i64, vp, vp, i64]
+    lib.jd_header.argtypes = [buf, i64, i32, vp, vp, i64]
     lib.jd_decode.restype = ctypes.c_int
-    lib.jd_decode.argtypes = [buf, i64, ctypes.c_int32, vp, i64, vp, i64]
+    lib.jd_decode.argtypes = [buf, i64, i32, i32, vp, i64, vp, i64]
     return lib
 
 
-def decode(data: bytes, *, name, mode: str = "unchanged") -> np.ndarray:
+def decode(data: bytes, *, name, mode: str = "unchanged",
+           source: str = "buffer") -> np.ndarray:
     """uint8 pixels of a JPEG byte string: [H, W] gray or [H, W, 3] RGB
     (`mode`: "unchanged" as the file stores it, "color" always RGB,
-    "gray" always [H, W]). Raises ValueError naming `name` where the
-    decoder refuses the stream."""
+    "gray" always [H, W]), read as `cv2.imdecode` (`source="buffer"`) or
+    `cv2.imread` (`source="file"`) reads it. Raises ValueError naming
+    `name` where that cv2 read gives None or the decoder refuses."""
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
+    if source not in _SOURCES:
+        raise ValueError(f"source must be one of {sorted(_SOURCES)}, got "
+                         f"{source!r}")
     data = bytes(data)
-    lib = _lib()
+    lib, flags = _lib(), _SOURCES[source]
     err = ctypes.create_string_buffer(_ERR_LEN)
     hwc = np.zeros(3, np.int32)
-    if lib.jd_header(data, len(data), hwc.ctypes.data, ctypes.addressof(err),
-                     _ERR_LEN):
+    if lib.jd_header(data, len(data), flags, hwc.ctypes.data,
+                     ctypes.addressof(err), _ERR_LEN):
         raise ValueError(f"{name}: {err.value.decode()}")
     h, w, ncomp = (int(v) for v in hwc)
     channels = _MODES[mode] or (1 if ncomp == 1 else 3)
     out = np.empty((h, w, channels) if channels == 3 else (h, w), np.uint8)
-    if lib.jd_decode(data, len(data), channels, out.ctypes.data, out.size,
-                     ctypes.addressof(err), _ERR_LEN):
+    if lib.jd_decode(data, len(data), flags, channels, out.ctypes.data,
+                     out.size, ctypes.addressof(err), _ERR_LEN):
         raise ValueError(f"{name}: {err.value.decode()}")
     return out
 

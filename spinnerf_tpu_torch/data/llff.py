@@ -20,8 +20,11 @@ with its integer rounding), `dilate_mask` (5 x 5, 5 iterations) and
 `resize_nearest` (INTER_NEAREST, from `utils/resize.py`). `imread` is cv2's
 unchanged read (no EXIF orientation); `imread_rgb8` and `imread_gray8` are
 its colour and grayscale reads, which turn the image by its EXIF
-orientation. Other formats (TIFF, BMP, WebP) go through cv2, imported when
-such a file is read, and name the file where it is absent.
+orientation. JPEG files are read with `cv2.imread`'s semantics (the
+decoder's `source="file"`): a truncated file decodes as libjpeg's fake EOI
+leaves it, a damaged one as libjpeg recovers it. Other formats (TIFF, BMP,
+WebP) go through cv2, imported when such a file is read, and name the file
+where it is absent.
 """
 from __future__ import annotations
 
@@ -105,7 +108,7 @@ def imread(path) -> np.ndarray:
     if kind == "png":
         return read_png(path)
     if kind == "jpeg":
-        return jpeg.decode(path.read_bytes(), name=path)
+        return jpeg.decode(path.read_bytes(), name=path, source="file")
     return _cv2_read(path, "UNCHANGED")
 
 
@@ -130,7 +133,8 @@ def imread_rgb8(path) -> np.ndarray:
         return jpeg.orient(to_rgb8(img), orientation)
     if kind == "jpeg":
         data = path.read_bytes()
-        return jpeg.orient(jpeg.decode(data, name=path, mode="color"),
+        return jpeg.orient(jpeg.decode(data, name=path, mode="color",
+                                       source="file"),
                            jpeg.exif_orientation(data))
     return _cv2_read(path, "COLOR")
 
@@ -150,8 +154,9 @@ def imread_gray8(path) -> np.ndarray:
     luma (R 4899, G 9617, B 1868, >> 14, rounded; exact on masks whose
     channels are equal); cv2's PNG reader rounds some colour pixels 1
     apart, which moves a mask's 0.5 threshold only at gray 127 / 128.
-    JPEG: libjpeg's grayscale output (the Y component of a YCbCr file),
-    which is not the luma of the colour read."""
+    JPEG: libjpeg's grayscale output (the Y component of a YCbCr file,
+    OpenCV's luma of a CMYK one), which is not the luma of the colour
+    read."""
     path = Path(path)
     kind = _kind(path)
     if kind == "png":
@@ -162,7 +167,8 @@ def imread_gray8(path) -> np.ndarray:
         return jpeg.orient(gray.astype(np.uint8), orientation)
     if kind == "jpeg":
         data = path.read_bytes()
-        return jpeg.orient(jpeg.decode(data, name=path, mode="gray"),
+        return jpeg.orient(jpeg.decode(data, name=path, mode="gray",
+                                       source="file"),
                            jpeg.exif_orientation(data))
     return _cv2_read(path, "GRAYSCALE")
 

@@ -7,7 +7,9 @@ The reference's LaMa trainer can stream tar shards of images
 shuffled-shard + shuffle-buffer iterator, and a writer that shards an image
 tree. Members are decoded without cv2, as JAX's `cv2.imdecode(...,
 IMREAD_COLOR)` decodes them: PNG by `eval/render.py::read_png`, JPEG by the
-native decoder of `data/jpeg.py`, each turned by its EXIF orientation.
+native decoder of `data/jpeg.py` with `cv2.imdecode`'s semantics
+(`source="buffer"`: a member cut short is dropped, as cv2 gives None for
+it), each turned by its EXIF orientation.
 """
 from __future__ import annotations
 
@@ -52,14 +54,15 @@ def write_tar_shards(indir, out_dir, *, shard_size: int = 1000,
 
 
 def _decode(name: str, data: bytes):
-    """[H, W, 3] float32 RGB in [0, 1] of one member's bytes, or None where
-    a JPEG member does not decode (as `cv2.imdecode` gives None)."""
+    """[H, W, 3] float32 RGB in [0, 1] of one member's bytes, or None
+    exactly where `cv2.imdecode` gives None for a JPEG member."""
     if name.lower().endswith(".png"):
         img, orientation = read_png(data, with_orientation=True)
         img = jpeg.orient(to_rgb8(img), orientation)
     else:
         try:
-            img = jpeg.orient(jpeg.decode(data, name=name, mode="color"),
+            img = jpeg.orient(jpeg.decode(data, name=name, mode="color",
+                                          source="buffer"),
                               jpeg.exif_orientation(data))
         except ValueError:
             return None

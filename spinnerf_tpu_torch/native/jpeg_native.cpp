@@ -1,33 +1,61 @@
-// JPEG decoder with a plain C interface, equal pixel for pixel to
-// libjpeg-turbo 3.x's default decompression (the library cv2 bundles):
-// the islow integer IDCT with its range-limit table, libjpeg's "fancy"
-// triangle upsamplers (h2v1, h2v2, h1v2) and plain replication elsewhere,
-// and the fixed-point YCbCr -> RGB and RGB -> gray tables.
+// JPEG decoder with a plain C interface, equal pixel for pixel to what cv2 5
+// gets from the libjpeg-turbo 3.1 it bundles (a SIMD build), on valid and on
+// damaged streams alike.
 //
 // Takes Huffman-coded 8-bit frames: SOF0 / SOF1 (sequential, interleaved or
 // not) and SOF2 (progressive: spectral selection, successive approximation,
-// EOB runs); 1 or 3 components, sampling factors 1-4; restart intervals;
-// DHT / DQT between scans (each component keeps the quantisation table it
-// had at its first scan, as libjpeg latches it); the standard Huffman
-// tables where a scan names one never defined; JFIF and Adobe APP14
-// (transform 0: RGB stored as is).
+// EOB runs); 1, 3 or 4 components (gray; YCbCr or RGB; CMYK or YCCK, chosen
+// by jdapimin.c's rules on JFIF and Adobe APP14 markers and component ids),
+// sampling factors 1-4; restart intervals; DHT / DQT between scans (each
+// component keeps the quantisation table it had at its first scan, as
+// libjpeg latches it); the standard Huffman tables where a scan names a
+// table 0 or 1 never defined.
+//
+// Damage is read as libjpeg reads it where cv2 only warns:
+//  - a scan's data ends at a marker (or where the input ends); the bits
+//    after its last byte are zeros, and once a block has needed them the
+//    rest of the restart interval is left as it is (zero coefficients in a
+//    sequential scan: grey blocks);
+//  - a Huffman code that matches no table entry decodes as symbol 0;
+//  - a restart marker missing or misnumbered: jpeg_resync_to_restart;
+//  - bytes before a marker are skipped; scans out of progression order, an
+//    AC scan before its DC scan, a sequential scan with progressive
+//    parameters and a component without a scan are decoded on;
+//  - a progressive image whose first nine AC coefficients are incomplete is
+//    block-smoothed (jdcoefct.c decompress_smooth_data: the 5 x 5 DC window
+//    of libjpeg-turbo 2.1 and later).
+// Parameters and tables are checked where libjpeg checks them, and refused
+// where it calls ERREXIT.
+//
+// Two sources, as cv2's two reads feed libjpeg. A file read (cv2.imread,
+// jdatasrc.c's stdio source) finds a fake EOI (FF D9) wherever the data
+// runs out. A buffer read (cv2.imdecode, OpenCV's memory source) suspends
+// there, and cv2 gives None; except after the scan of a single-scan image,
+// where only jpeg_finish_decompress reads on and cv2 keeps the image.
+//
+// The IDCT is libjpeg-turbo's islow as its SSE2 / AVX2 code computes it
+// (16-bit products and sums, saturating packs), the upsamplers its fancy
+// ones, colour its fixed-point tables, and 4-component images OpenCV's CMYK
+// -> BGR and CMYK -> gray conversions (icvCvt_CMYK2BGR_8u_C4C3R,
+// icvCvt_CMYK2Gray_8u_C4C1R).
 //
 // Refused, with an error naming the marker: arithmetic coding (SOF9-SOF11,
 // SOF13-SOF15, DAC), lossless (SOF3) and hierarchical (SOF5-SOF7, DHP, EXP)
-// frames, precision other than 8 bits, 2 or 4 components, and a stream
-// that is truncated or corrupt (libjpeg warns there and fills the missing
-// blocks). A progressive file whose scans leave bits of the first nine AC
-// coefficients missing is refused too: libjpeg block-smooths such a file,
-// and a complete file decodes unsmoothed, as here.
+// frames, precision other than 8 bits, 2 components, and every stream
+// libjpeg refuses.
 //
 // Interface (Python binds it with ctypes, spinnerf_tpu_torch/data/jpeg.py):
-//   jd_header(buf, len, hwc[3], err, errlen)  -> 0, or -1 with a message
-//   jd_decode(buf, len, channels, out, outlen, err, errlen) -> 0 / -1
-// `channels` 3 gives RGB [H, W, 3] (cv2's colour read, channel order RGB),
-// 1 gives gray [H, W] (cv2's grayscale read: the Y component of a YCbCr
-// file, libjpeg's luma of an RGB one).
+//   jd_header(buf, len, flags, hwc[3], err, errlen) -> 0, or -1 with a
+//                                                      message
+//   jd_decode(buf, len, flags, channels, out, outlen, err, errlen) -> 0 / -1
+// `flags` bit 0 set is a file read, clear a buffer read. `channels` 3 gives
+// RGB [H, W, 3] (cv2's colour read, channel order RGB), 1 gives gray
+// [H, W] (cv2's grayscale read: the Y component of a YCbCr file, libjpeg's
+// luma of an RGB one, OpenCV's of a CMYK one).
 
 #include <algorithm>
+#include <array>
+#include <climits>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -42,6 +70,10 @@ struct JpegError {
 
 [[noreturn]] void fail(const std::string& msg) { throw JpegError{msg}; }
 
+const char kSuspended[] =
+    "truncated: the data ends before the image does (a buffer read stops "
+    "here, as cv2.imdecode does; a file read would find libjpeg's fake EOI)";
+
 // zigzag position -> natural position; 16 extra entries catch a run that
 // overshoots the block in corrupt data, as libjpeg's table does
 const int kNatural[80] = {
@@ -50,7 +82,6 @@ const int kNatural[80] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
-
 std::string hex2(int m) {
   char b[8];
   std::snprintf(b, sizeof b, "0x%02X", m & 0xFF);
@@ -127,11 +158,12 @@ struct HuffSpec {  // a table as DHT defines it
   uint8_t vals[256] = {};
 };
 
-struct Huff {  // jdhuff.c's derived table
+// jdhuff.c's derived table, with its 8-bit lookahead
+struct Huff {
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
-  uint16_t look[512];  // 9-bit lookahead: (length << 8) | symbol, 0 = miss
+  uint16_t look[256];  // (length << 8) | symbol; length 9: a longer code
 
   // jpeg_make_d_derived_tbl, with its validation
   void build(const HuffSpec& s, bool dc) {
@@ -165,14 +197,14 @@ struct Huff {  // jdhuff.c's derived table
       }
     }
     valoffset[17] = 0;
-    maxcode[17] = 0xFFFFF;
+    maxcode[17] = 0xFFFFF;  // ends the bit-by-bit search at 17 bits
     std::memcpy(vals, s.vals, 256);
-    std::memset(look, 0, sizeof look);
+    for (uint16_t& e : look) e = 9 << 8;
     p = 0;
-    for (int l = 1; l <= 9; l++) {
+    for (int l = 1; l <= 8; l++) {
       for (int i = 1; i <= s.bits[l]; i++, p++) {
-        int lookbits = static_cast<int>(huffcode[p]) << (9 - l);
-        for (int c = 0; c < (1 << (9 - l)); c++)
+        int lookbits = static_cast<int>(huffcode[p]) << (8 - l);
+        for (int c = 0; c < (1 << (8 - l)); c++)
           look[lookbits + c] = static_cast<uint16_t>((l << 8) | s.vals[p]);
       }
     }
@@ -183,89 +215,12 @@ struct Huff {  // jdhuff.c's derived table
   }
 };
 
-// The entropy-coded bytes of a scan, read MSB first with FF00 unstuffed.
-// At a marker (or the end of the file) no further bytes enter the buffer;
-// a decode that needs bits past them is a truncated or corrupt stream.
-struct Bits {
-  const uint8_t* p;
-  const uint8_t* end;
-  uint64_t acc = 0;  // real bits at the top
-  int n = 0;
-  bool stop = false;  // reached a marker or the end
-
-  void fill() {
-    while (n <= 56 && !stop) {
-      if (p >= end) {
-        stop = true;
-        break;
-      }
-      unsigned c = *p;
-      if (c == 0xFF) {
-        const uint8_t* q = p + 1;
-        while (q < end && *q == 0xFF) q++;
-        if (q < end && *q == 0) {
-          p = q + 1;
-        } else {  // a marker: leave p on its last FF
-          p = q - 1;
-          stop = true;
-          break;
-        }
-      } else {
-        p++;
-      }
-      acc |= static_cast<uint64_t>(c) << (56 - n);
-      n += 8;
-    }
-  }
-  [[noreturn]] void starve() const {
-    if (p >= end) fail("truncated: the data ends inside a scan");
-    fail("corrupt data: a scan's data ends before its last block (" +
-         marker_name(p + 1 < end ? p[1] : 0) + " follows)");
-  }
-  void consume(int k) {
-    if (k > n) starve();
-    acc <<= k;
-    n -= k;
-  }
-  int get(int k) {  // k in 1..16
-    if (n < k) fill();
-    int v = static_cast<int>(acc >> (64 - k));
-    consume(k);
-    return v;
-  }
-  int bit() { return get(1); }
-  int decode(const Huff& h) {
-    if (n < 16) fill();
-    unsigned peek = static_cast<unsigned>(acc >> 48);
-    unsigned e = h.look[peek >> 7];
-    if (e) {
-      consume(static_cast<int>(e >> 8));
-      return static_cast<int>(e & 0xFF);
-    }
-    for (int l = 10; l <= 16; l++) {
-      int32_t code = static_cast<int32_t>(peek >> (16 - l));
-      if (code <= h.maxcode[l]) {
-        consume(l);
-        return h.vals[(code + h.valoffset[l]) & 0xFF];
-      }
-    }
-    if (n < 16 && stop) starve();
-    fail("corrupt data: a Huffman code matches no table entry");
-  }
-  // discard the buffered bits; leave p on the next marker's code byte
-  int next_marker() {
-    acc = 0;
-    n = 0;
-    stop = false;
-    while (p < end && *p != 0xFF) p++;  // extraneous bytes: libjpeg warns
-    while (p < end && *p == 0xFF) p++;
-    if (p >= end) fail("truncated: the file ends without EOI");
-    return *p++;
-  }
-};
-
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v + static_cast<int>((~0u << s) + 1) : v;
+}
+
+inline int16_t lo16(int64_t x) {
+  return static_cast<int16_t>(static_cast<uint16_t>(x));
 }
 
 struct Comp {
@@ -274,156 +229,279 @@ struct Comp {
   int bwp = 0, bhp = 0;  // blocks allocated: whole interleaved MCUs
   int dw = 0, dh = 0;    // samples (libjpeg's downsampled width / height)
   std::vector<int16_t> coef;
-  int16_t q[64] = {};  // latched at the component's first scan
+  uint16_t q[64] = {};  // latched at the component's first scan
   bool latched = false;
-  bool coded = false;
-  int coef_bits[64];
-  int pred = 0;
+  int coef_bits[64];       // jdphuff.c's progression state
+  int prev_coef_bits[64];  // ... as it stood before the component's last scan
   int dc_tbl = 0, ac_tbl = 0;
 };
 
-enum class Space { kGray, kYCbCr, kRGB };
+enum class Space { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+enum class Mode { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
 struct Decoder {
   const uint8_t* buf;
   size_t len;
-  size_t pos = 0;
+  bool file;         // a file read: fake EOIs past the data
+  size_t pos = 0;    // libjpeg's next_input_byte
+  int unread_marker = 0;
+
+  // frame
+  bool saw_soi = false, saw_sof = false, progressive = false;
+  int sof_marker = 0;
   int width = 0, height = 0, ncomp = 0;
-  bool progressive = false;
-  bool have_sof = false, seen_sos = false;
-  bool jfif = false, adobe = false;
-  int adobe_transform = -1;
-  Space space = Space::kYCbCr;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
+  bool jfif = false, adobe = false;
+  int adobe_transform = 0;
+  Space space = Space::kYCbCr;
   int restart_interval = 0;
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   HuffSpec dc_spec[4], ac_spec[4];
   std::vector<Comp> comps;
+  bool multi_scan = false;
+  int input_scan_number = 0;
+  int last_good_imcu = 0;  // the last iMCU row decoded before data ran out
 
-  Decoder(const uint8_t* b, size_t n) : buf(b), len(n) {}
+  // scan
+  std::vector<int> sc;  // component indices, in scan order
+  int ss = 0, se = 0, ah = 0, al = 0;
+  Mode mode = Mode::kSeq;
+  int next_restart_num = 0, restarts_to_go = 0;
+  Huff dct[4], act[4];
+  int pred[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
+  int nblk = 0;  // blocks per MCU
+  int blk_comp[10];
+  int16_t* blk[10];
 
-  int byte() {
-    if (pos >= len) fail("truncated: the file ends inside a marker segment");
-    return buf[pos++];
+  // bit reader: `left` valid bits at the bottom of acc (jdhuff.h)
+  uint64_t acc = 0;
+  int left = 0;
+  bool insufficient = false;
+
+  Decoder(const uint8_t* b, size_t n, bool f) : buf(b), len(n), file(f) {}
+
+  // --- input: jdatasrc.c's stdio source (file) or OpenCV's (buffer) ---
+
+  int past_end(size_t i) const {
+    if (!file) fail(kSuspended);
+    return (i - len) & 1 ? 0xD9 : 0xFF;
   }
+  int byte() { return pos < len ? buf[pos++] : past_end(pos++); }
   int word() {
     int hi = byte();
     return (hi << 8) | byte();
   }
-  int next_marker() {
-    while (pos < len && buf[pos] != 0xFF) pos++;
-    for (;;) {
-      while (pos < len && buf[pos] == 0xFF) pos++;
-      if (pos >= len) fail("truncated: the file ends without EOI");
-      int c = buf[pos++];
-      if (c != 0) return c;
-      while (pos < len && buf[pos] != 0xFF) pos++;  // FF00 outside a scan
-    }
-  }
-  size_t segment(int m) {  // returns the segment's end; pos after length
-    int l = word();
-    if (l < 2) fail("bad length in " + marker_name(m));
-    size_t e = pos + static_cast<size_t>(l) - 2;
-    if (e > len) fail("truncated: the file ends inside " + marker_name(m));
-    return e;
+  void skip(int64_t n) {
+    if (n > 0) pos += static_cast<size_t>(n);
   }
 
-  // Reads markers until the first SOS (header_only) or until EOI,
-  // decoding every scan on the way.
-  void run(bool header_only) {
-    if (len < 2 || buf[0] != 0xFF || buf[1] != 0xD8)
-      fail("not a JPEG file (no SOI)");
-    pos = 2;
+  // --- markers: jdmarker.c ---
+
+  void next_marker() {
     for (;;) {
-      int m = next_marker();
-      switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
-          sof(m);
-          break;
-        case 0xC3: fail("SOF3 (lossless JPEG) is not supported");
-        case 0xC5: case 0xC6: case 0xC7:
-          fail(marker_name(m) + " (hierarchical JPEG) is not supported");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-          fail(marker_name(m) + " (arithmetic coding) is not supported");
-        case 0xCC: fail("DAC (arithmetic coding) is not supported");
-        case 0xDE: case 0xDF:
-          fail(marker_name(m) + " (hierarchical JPEG) is not supported");
-        case 0xC4: dht(); break;
-        case 0xDB: dqt(); break;
-        case 0xDD: {
-          size_t e = segment(m);
-          if (e - pos != 2) fail("bad length in DRI");
-          restart_interval = word();
-          break;
-        }
-        case 0xDA:
-          if (!have_sof) fail("SOS before SOF");
-          if (header_only) return;
-          sos();
-          break;
-        case 0xD9:
-          if (!seen_sos) fail("truncated: EOI before the first scan");
-          return;
-        case 0xD8: fail("a second SOI");
-        case 0x01: case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4:
-        case 0xD5: case 0xD6: case 0xD7:
-          break;  // parameterless, ignored as libjpeg does
-        default:
-          if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
-            size_t e = segment(m);
-            if (m == 0xE0 && e - pos >= 14 && !seen_sos &&
-                std::memcmp(buf + pos, "JFIF\0", 5) == 0)
-              jfif = true;
-            if (m == 0xEE && e - pos >= 12 && !seen_sos &&
-                std::memcmp(buf + pos, "Adobe", 5) == 0) {
-              adobe = true;
-              adobe_transform = buf[pos + 11];
-            }
-            pos = e;
-          } else {
-            fail("unsupported " + marker_name(m));
-          }
+      int c = byte();
+      while (c != 0xFF) c = byte();  // extraneous bytes: libjpeg warns
+      do c = byte(); while (c == 0xFF);
+      if (c != 0) {
+        unread_marker = c;
+        return;
       }
     }
   }
 
-  void sof(int m) {
-    if (have_sof) fail("a second SOF");
-    size_t e = segment(m);
+  // read_markers: true at an SOS (its header read), false at EOI
+  bool read_markers() {
+    for (;;) {
+      if (unread_marker == 0) {
+        if (!saw_soi) {
+          int c = byte(), c2 = byte();
+          if (c != 0xFF || c2 != 0xD8) fail("not a JPEG file (no SOI)");
+          unread_marker = c2;
+        } else {
+          next_marker();
+        }
+      }
+      int m = unread_marker;
+      switch (m) {
+        case 0xD8:
+          if (saw_soi) fail("a second SOI");
+          saw_soi = true;
+          break;
+        case 0xC0: case 0xC1: case 0xC2:
+          get_sof(m);
+          break;
+        case 0xC3: fail("SOF3 (lossless JPEG) is not supported");
+        case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
+          fail(marker_name(m) + " (hierarchical JPEG) is not supported");
+        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+          fail(marker_name(m) + " (arithmetic coding) is not supported");
+        case 0xCC: fail("DAC (arithmetic coding) is not supported");
+        case 0xDA:
+          get_sos();
+          unread_marker = 0;
+          return true;
+        case 0xD9:
+          unread_marker = 0;
+          return false;
+        case 0xC4: get_dht(); break;
+        case 0xDB: get_dqt(); break;
+        case 0xDD: {
+          if (word() != 4) fail("bad length in DRI");
+          restart_interval = word();
+          break;
+        }
+        case 0x01: case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4:
+        case 0xD5: case 0xD6: case 0xD7:
+          break;  // parameterless, ignored as libjpeg does
+        default:
+          if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC)
+            get_appn(m);
+          else
+            fail("unsupported " + marker_name(m));
+      }
+      unread_marker = 0;
+    }
+  }
+
+  // APPn, COM and DNL: examine APP0 (JFIF) and APP14 (Adobe), skip the rest
+  // (a length below 2 skips nothing, as skip_variable does)
+  void get_appn(int m) {
+    int64_t length = word() - 2;
+    uint8_t b[14];
+    int n = 0;
+    if (m == 0xE0 || m == 0xEE) {
+      n = length >= 14 ? 14 : length > 0 ? static_cast<int>(length) : 0;
+      for (int i = 0; i < n; i++) b[i] = static_cast<uint8_t>(byte());
+      length -= n;
+    }
+    if (m == 0xE0 && n >= 14 && std::memcmp(b, "JFIF\0", 5) == 0) jfif = true;
+    if (m == 0xEE && n >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+      adobe = true;
+      adobe_transform = b[11];
+    }
+    skip(length);
+  }
+
+  void get_sof(int m) {
+    int length = word();
     int precision = byte();
-    height = word();
-    width = word();
-    ncomp = byte();
+    int h = word(), w = word(), n = byte();
+    length -= 8;
+    if (saw_sof) fail("a second SOF (" + marker_name(m) + ")");
+    if (h == 0)
+      fail("height 0 (" + marker_name(m) + "; a DNL height) is not supported");
+    if (w == 0 || n == 0) fail("an empty image in " + marker_name(m));
+    if (length != 3 * n) fail("bad length in " + marker_name(m));
     if (precision != 8)
       fail(std::to_string(precision) + "-bit precision (" + marker_name(m) +
            ") is not supported");
-    if (height == 0)
-      fail("height 0 (" + marker_name(m) + "; a DNL height) is not supported");
-    if (width == 0) fail("width 0 in " + marker_name(m));
-    if (ncomp != 1 && ncomp != 3)
-      fail(std::to_string(ncomp) + " components (" + marker_name(m) +
-           (ncomp == 4 ? "; CMYK / YCCK" : "") + ") are not supported");
-    if (e - pos != static_cast<size_t>(3 * ncomp))
-      fail("bad length in " + marker_name(m));
-    comps.resize(ncomp);
-    for (int i = 0; i < ncomp; i++) {
-      Comp& c = comps[i];
+    if (n != 1 && n != 3 && n != 4)
+      fail(std::to_string(n) + " components (" + marker_name(m) +
+           ") are not supported");
+    height = h;
+    width = w;
+    ncomp = n;
+    comps.resize(n);
+    for (Comp& c : comps) {
       c.id = byte();
       int hv = byte();
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = byte();
+      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
+      for (int k = 0; k < 64; k++) c.prev_coef_bits[k] = 0;
+    }
+    saw_sof = true;
+    sof_marker = m;
+    progressive = m == 0xC2;
+  }
+
+  void get_dht() {
+    int64_t length = word() - 2;
+    while (length > 16) {
+      int index = byte();
+      HuffSpec s;
+      int count = 0;
+      for (int i = 1; i <= 16; i++) {
+        s.bits[i] = static_cast<uint8_t>(byte());
+        count += s.bits[i];
+      }
+      length -= 17;
+      if (count > 256 || count > length) fail("bad Huffman table (DHT)");
+      for (int i = 0; i < count; i++) s.vals[i] = static_cast<uint8_t>(byte());
+      length -= count;
+      bool ac = index & 0x10;
+      if (ac) index -= 0x10;
+      if (index < 0 || index > 3)
+        fail("bad Huffman table index in DHT: " + std::to_string(index));
+      s.defined = true;
+      (ac ? ac_spec : dc_spec)[index] = s;
+    }
+    if (length != 0) fail("bad length in DHT");
+  }
+
+  void get_dqt() {
+    int64_t length = word() - 2;
+    while (length > 0) {
+      int n = byte();
+      int prec = n >> 4;
+      n &= 15;
+      if (n > 3) fail("bad quantisation table index in DQT");
+      qt_defined[n] = true;
+      for (int i = 0; i < 64; i++)
+        qt[n][kNatural[i]] = static_cast<uint16_t>(prec ? word() : byte());
+      length -= prec ? 129 : 65;
+    }
+    if (length != 0) fail("bad length in DQT");
+  }
+
+  void get_sos() {
+    if (!saw_sof) fail("SOS before SOF");
+    int length = word();
+    int n = byte();
+    if (length != 2 * n + 6 || n < 1 || n > 4) fail("bad SOS header");
+    sc.clear();
+    for (int i = 0; i < n; i++) {
+      int id = byte(), t = byte();
+      // libjpeg-turbo's lookup: the first component with this id whose
+      // index is not below the scan position
+      int ci = -1;
+      for (int j = i; j < std::min(ncomp, 4) && ci < 0; j++)
+        if (comps[j].id == id) ci = j;
+      if (ci < 0) fail("SOS names an unknown component");
+      for (int j : sc)
+        if (j == ci) fail("SOS names a component twice");
+      comps[ci].dc_tbl = t >> 4;
+      comps[ci].ac_tbl = t & 15;
+      sc.push_back(ci);
+    }
+    ss = byte();
+    se = byte();
+    int a = byte();
+    ah = a >> 4;
+    al = a & 15;
+    next_restart_num = 0;
+    input_scan_number++;
+  }
+
+  // --- jpeg_read_header: markers through the first SOS, initial_setup ---
+
+  void read_header() {
+    // OpenCV picks its JPEG decoder by the signature FF D8 FF
+    if (len < 3 || buf[0] != 0xFF || buf[1] != 0xD8 || buf[2] != 0xFF)
+      fail("not a JPEG file (no SOI)");
+    if (!read_markers())
+      fail(saw_sof ? "truncated: EOI before the first scan"
+                   : "no image: EOI before SOF");
+    if (width > 65500 || height > 65500) fail("image too big");
+    for (const Comp& c : comps) {
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
-        fail("bad sampling factors in " + marker_name(m));
-      if (c.tq > 3) fail("bad quantisation table index in " + marker_name(m));
-      for (int j = 0; j < i; j++)
-        if (comps[j].id == c.id)
-          fail("two components share an id in " + marker_name(m));
+        fail("bad sampling factors in " + marker_name(sof_marker));
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    progressive = m == 0xC2;
     mcux = (width + hmax * 8 - 1) / (hmax * 8);
     mcuy = (height + vmax * 8 - 1) / (vmax * 8);
     for (Comp& c : comps) {
@@ -435,334 +513,495 @@ struct Decoder {
       c.bh = (c.dh + 7) / 8;
       c.bwp = mcux * c.h;
       c.bhp = mcuy * c.v;
-      for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
-    have_sof = true;
-  }
-
-  void dht() {
-    size_t e = segment(0xC4);
-    int64_t length = static_cast<int64_t>(e - pos);
-    while (length > 16) {
-      int index = byte();
-      uint8_t bits[17] = {};
-      int count = 0;
-      for (int i = 1; i <= 16; i++) {
-        bits[i] = static_cast<uint8_t>(byte());
-        count += bits[i];
-      }
-      length -= 17;
-      if (count > 256 || count > length) fail("bad Huffman table (DHT)");
-      HuffSpec s;
-      s.defined = true;
-      std::memcpy(s.bits, bits, 17);
-      for (int i = 0; i < count; i++) s.vals[i] = static_cast<uint8_t>(byte());
-      length -= count;
-      bool ac = index & 0x10;
-      if (ac) index -= 0x10;
-      if (index < 0 || index > 3)
-        fail("bad Huffman table index in DHT: " + std::to_string(index));
-      (ac ? ac_spec : dc_spec)[index] = s;
-    }
-    if (length != 0) fail("bad length in DHT");
-  }
-
-  void dqt() {
-    size_t e = segment(0xDB);
-    int64_t length = static_cast<int64_t>(e - pos);
-    while (length > 0) {
-      int n = byte();
-      int prec = n >> 4;
-      n &= 15;
-      if (n > 3) fail("bad quantisation table index in DQT");
-      length -= 1 + 64 * (prec ? 2 : 1);
-      if (length < 0) fail("bad length in DQT");
-      for (int i = 0; i < 64; i++)
-        qt[n][kNatural[i]] = static_cast<uint16_t>(prec ? word() : byte());
-      qt_defined[n] = true;
-    }
-  }
-
-  void decide_space() {
+    multi_scan = static_cast<int>(sc.size()) < ncomp || progressive;
+    // default_decompress_parms
     if (ncomp == 1) {
       space = Space::kGray;
-    } else if (jfif) {
-      space = Space::kYCbCr;
-    } else if (adobe) {
-      space = adobe_transform == 0 ? Space::kRGB : Space::kYCbCr;
-    } else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66) {
-      space = Space::kRGB;  // 'R', 'G', 'B'
+    } else if (ncomp == 3) {
+      if (jfif)
+        space = Space::kYCbCr;
+      else if (adobe)
+        space = adobe_transform == 0 ? Space::kRGB : Space::kYCbCr;
+      else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66)
+        space = Space::kRGB;  // 'R', 'G', 'B'
+      else
+        space = Space::kYCbCr;
     } else {
-      space = Space::kYCbCr;
+      space = adobe && adobe_transform == 0 ? Space::kCMYK
+              : adobe                       ? Space::kYCCK
+                                            : Space::kCMYK;
     }
   }
 
-  void sos() {
-    size_t e = segment(0xDA);
-    int ns = byte();
-    if (ns < 1 || ns > 4 || e - pos != static_cast<size_t>(2 * ns + 3))
-      fail("bad SOS header");
-    std::vector<int> sc;
-    for (int i = 0; i < ns; i++) {
-      int id = byte(), t = byte();
-      int ci = -1;
-      for (int j = 0; j < ncomp; j++)
-        if (comps[j].id == id) ci = j;
-      if (ci < 0) fail("SOS names an unknown component");
-      for (int j : sc)
-        if (j == ci) fail("SOS names a component twice");
-      comps[ci].dc_tbl = t >> 4;
-      comps[ci].ac_tbl = t & 15;
-      if (comps[ci].dc_tbl > 3 || comps[ci].ac_tbl > 3)
-        fail("bad Huffman table index in SOS");
-      sc.push_back(ci);
-    }
-    int ss = byte(), se = byte(), a = byte();
-    int ah = a >> 4, al = a & 15;
-    if (!seen_sos) decide_space();
-    seen_sos = true;
-    if (ns > 1) {
-      int blocks = 0;
-      for (int ci : sc) blocks += comps[ci].h * comps[ci].v;
-      if (blocks > 10) fail("an MCU of more than 10 blocks");
-    }
-    for (int ci : sc) {  // latch_quant_tables
-      Comp& c = comps[ci];
-      if (!c.latched) {
-        if (!qt_defined[c.tq]) fail("a scan uses an undefined DQT table");
-        for (int k = 0; k < 64; k++) c.q[k] = static_cast<int16_t>(qt[c.tq][k]);
-        c.latched = true;
-      }
-      if (c.coef.empty())
-        c.coef.assign(static_cast<size_t>(c.bwp) * c.bhp * 64, 0);
-    }
-    if (progressive) {
-      check_progression(sc, ss, se, ah, al);
-    } else {
-      if (ss != 0 || se != 63 || ah != 0 || al != 0)
-        fail("corrupt data: a sequential scan with progressive parameters");
-      for (int ci : sc) {
-        if (comps[ci].coded) fail("corrupt data: a component in two scans");
-        comps[ci].coded = true;
-      }
-    }
-    decode_scan(sc, ss, se, ah, al);
-  }
+  // --- jpeg_start_decompress and the scans ---
 
-  void check_progression(const std::vector<int>& sc, int ss, int se, int ah,
-                         int al) {
-    bool bad = false;
-    if (ss == 0) {
-      if (se != 0) bad = true;
-    } else {
-      if (ss > se || se > 63) bad = true;
-      if (sc.size() != 1) bad = true;
-    }
-    if (ah != 0 && al != ah - 1) bad = true;
-    if (al > 13) bad = true;
-    if (bad) fail("corrupt data: bad progressive scan parameters");
-    for (int ci : sc) {
-      Comp& c = comps[ci];
-      if (ss > 0 && c.coef_bits[0] < 0)
-        fail("corrupt data: an AC scan before the component's DC scan");
-      for (int k = ss; k <= se; k++) {
-        int expected = c.coef_bits[k] < 0 ? 0 : c.coef_bits[k];
-        if (ah != expected)
-          fail("corrupt data: scans out of progression order");
-        c.coef_bits[k] = al;
-      }
-      c.coded = true;
+  void decode_image() {
+    for (Comp& c : comps) c.coef.assign(size_t(c.bwp) * c.bhp * 64, 0);
+    standard_tables();
+    start_scan();
+    decode_scan();
+    if (!multi_scan) return;  // jpeg_finish_decompress: cv2 ignores it
+    while (read_markers()) {
+      start_scan();
+      decode_scan();
     }
   }
 
   Huff table(bool dc, int i) {
-    HuffSpec& s = (dc ? dc_spec : ac_spec)[i];
+    const HuffSpec& s = (dc ? dc_spec : ac_spec)[i];
+    if (i > 3 || !s.defined) fail("a scan uses an undefined DHT table");
     Huff h;
-    if (s.defined) {
-      h.build(s, dc);
-      return h;
-    }
-    if (i > 1) fail("a scan uses an undefined DHT table");
-    HuffSpec std_spec;
-    if (dc) {
-      std::memcpy(std_spec.bits, i ? kStdDcChrBits : kStdDcLumBits, 17);
-      std::memcpy(std_spec.vals, kStdDcVals, 12);
-    } else {
-      std::memcpy(std_spec.bits, i ? kStdAcChrBits : kStdAcLumBits, 17);
-      std::memcpy(std_spec.vals, i ? kStdAcChrVals : kStdAcLumVals, 162);
-    }
-    h.build(std_spec, dc);
+    h.build(s, dc);
     return h;
   }
 
-  void decode_scan(const std::vector<int>& sc, int ss, int se, int ah,
-                   int al) {
-    enum { kSeq, kDcFirst, kDcRefine, kAcFirst, kAcRefine } mode;
-    if (!progressive)
-      mode = kSeq;
-    else if (ss == 0)
-      mode = ah ? kDcRefine : kDcFirst;
-    else
-      mode = ah ? kAcRefine : kAcFirst;
-    int nsc = static_cast<int>(sc.size());
-    std::vector<Huff> dct(nsc), act(nsc);
-    for (int i = 0; i < nsc; i++) {
-      const Comp& c = comps[sc[i]];
-      if (mode == kSeq || mode == kDcFirst) dct[i] = table(true, c.dc_tbl);
-      if (mode == kSeq || mode == kAcFirst || mode == kAcRefine)
-        act[i] = table(false, c.ac_tbl);
-    }
-    for (int ci : sc) comps[ci].pred = 0;
-    int nx, ny;
-    if (nsc > 1) {
-      nx = mcux;
-      ny = mcuy;
-    } else {
-      nx = comps[sc[0]].bw;
-      ny = comps[sc[0]].bh;
-    }
-    Bits br{buf + pos, buf + len};
-    int eobrun = 0, next_rst = 0;
-    const int p1 = 1 << al, m1 = -(1 << al);
-    int64_t total = static_cast<int64_t>(nx) * ny;
-
-    auto block = [&](int i, int16_t* b) {
-      Comp& c = comps[sc[i]];
-      switch (mode) {
-        case kSeq: {
-          int s = br.decode(dct[i]);
-          if (s) s = extend(br.get(s), s);
-          c.pred += s;
-          b[0] = static_cast<int16_t>(c.pred);
-          for (int k = 1; k < 64; k++) {
-            int rs = br.decode(act[i]);
-            int r = rs >> 4;
-            s = rs & 15;
-            if (s) {
-              k += r;
-              b[kNatural[k]] = static_cast<int16_t>(extend(br.get(s), s));
-            } else {
-              if (r != 15) break;
-              k += 15;
-            }
-          }
-          break;
-        }
-        case kDcFirst: {
-          int s = br.decode(dct[i]);
-          if (s) s = extend(br.get(s), s);
-          c.pred += s;
-          b[0] = static_cast<int16_t>(static_cast<uint32_t>(c.pred) << al);
-          break;
-        }
-        case kDcRefine:
-          if (br.bit()) b[0] = static_cast<int16_t>(b[0] | p1);
-          break;
-        case kAcFirst:
-          if (eobrun > 0) {
-            eobrun--;
-            break;
-          }
-          for (int k = ss; k <= se; k++) {
-            int rs = br.decode(act[i]);
-            int r = rs >> 4, s = rs & 15;
-            if (s) {
-              k += r;
-              int val = extend(br.get(s), s);
-              b[kNatural[k]] =
-                  static_cast<int16_t>(static_cast<uint32_t>(val) << al);
-            } else if (r == 15) {
-              k += 15;
-            } else {
-              eobrun = 1 << r;
-              if (r) eobrun += br.get(r);
-              eobrun--;
-              break;
-            }
-          }
-          break;
-        case kAcRefine: {
-          int k = ss;
-          if (eobrun == 0) {
-            for (; k <= se; k++) {
-              int rs = br.decode(act[i]);
-              int r = rs >> 4, s = rs & 15;
-              if (s) {
-                if (s != 1) fail("corrupt data: bad refinement symbol");
-                s = br.bit() ? p1 : m1;
-              } else if (r != 15) {
-                eobrun = 1 << r;
-                if (r) eobrun += br.get(r);
-                break;
-              }
-              do {
-                int16_t* t = b + kNatural[k];
-                if (*t != 0) {
-                  if (br.bit() && (*t & p1) == 0)
-                    *t = static_cast<int16_t>(*t >= 0 ? *t + p1 : *t + m1);
-                } else if (--r < 0) {
-                  break;
-                }
-                k++;
-              } while (k <= se);
-              if (s) b[kNatural[k]] = static_cast<int16_t>(s);
-            }
-          }
-          if (eobrun > 0) {
-            for (; k <= se; k++) {
-              int16_t* t = b + kNatural[k];
-              if (*t != 0 && br.bit() && (*t & p1) == 0)
-                *t = static_cast<int16_t>(*t >= 0 ? *t + p1 : *t + m1);
-            }
-            eobrun--;
-          }
-          break;
-        }
+  // The standard tables (Annex K.3) where the file defines none: OpenCV
+  // loads all four when no table 0 or 1 came before the first SOS
+  // (Motion-JPEG frames), libjpeg's sequential decoder each one undefined
+  // when decoding starts (std_huff_tables); its progressive one none.
+  void standard_tables() {
+    bool none = true;
+    for (int i = 0; i < 2; i++)
+      none = none && !dc_spec[i].defined && !ac_spec[i].defined;
+    if (!none && progressive) return;
+    for (int i = 0; i < 2; i++) {
+      if (!dc_spec[i].defined) {
+        dc_spec[i].defined = true;
+        std::memcpy(dc_spec[i].bits, i ? kStdDcChrBits : kStdDcLumBits, 17);
+        std::memcpy(dc_spec[i].vals, kStdDcVals, 12);
       }
-    };
-
-    for (int64_t m = 0; m < total; m++) {
-      if (restart_interval && m > 0 && m % restart_interval == 0) {
-        int rm = br.next_marker();
-        if (rm != 0xD0 + next_rst)
-          fail("corrupt data: " + marker_name(rm) + " where RST" +
-               std::to_string(next_rst) + " was due");
-        next_rst = (next_rst + 1) & 7;
-        eobrun = 0;
-        for (int ci : sc) comps[ci].pred = 0;
-      }
-      int mx = static_cast<int>(m % nx), my = static_cast<int>(m / nx);
-      if (nsc == 1) {
-        Comp& c = comps[sc[0]];
-        block(0, &c.coef[(static_cast<size_t>(my) * c.bwp + mx) * 64]);
-        continue;
-      }
-      for (int i = 0; i < nsc; i++) {
-        Comp& c = comps[sc[i]];
-        for (int y = 0; y < c.v; y++)
-          for (int x = 0; x < c.h; x++)
-            block(i, &c.coef[(static_cast<size_t>(my * c.v + y) * c.bwp +
-                              mx * c.h + x) * 64]);
+      if (!ac_spec[i].defined) {
+        ac_spec[i].defined = true;
+        std::memcpy(ac_spec[i].bits, i ? kStdAcChrBits : kStdAcLumBits, 17);
+        std::memcpy(ac_spec[i].vals, i ? kStdAcChrVals : kStdAcLumVals, 162);
       }
     }
-    pos = static_cast<size_t>(br.p - buf);
   }
 
-  void finish() {
-    for (const Comp& c : comps) {
-      if (!c.coded) fail("truncated: a component has no scan");
-      if (progressive)  // libjpeg's smoothing_ok: coefficients 1-9
-        for (int k = 1; k < 10; k++)
-          if (c.coef_bits[k] != 0)
-            fail("truncated: progressive scans leave AC coefficient bits "
-                 "missing (libjpeg would block-smooth the image)");
+  // jdinput.c start_input_pass: per_scan_setup, latch_quant_tables, and the
+  // entropy decoder's start_pass
+  void start_scan() {
+    const int nsc = static_cast<int>(sc.size());
+    nblk = 0;
+    for (int i = 0; i < nsc; i++) {
+      const Comp& c = comps[sc[i]];
+      int n = nsc == 1 ? 1 : c.h * c.v;
+      if (nblk + n > 10) fail("an MCU of more than 10 blocks");
+      while (n--) blk_comp[nblk++] = i;
+    }
+    for (int ci : sc) {
+      Comp& c = comps[ci];
+      if (c.latched) continue;
+      if (c.tq > 3 || !qt_defined[c.tq])
+        fail("a scan uses an undefined DQT table");
+      std::memcpy(c.q, qt[c.tq], sizeof c.q);
+      c.latched = true;
+    }
+    if (progressive) {
+      start_progressive_scan();
+    } else {
+      mode = Mode::kSeq;  // progressive parameters only warn
+      for (int i = 0; i < nsc; i++) {
+        dct[i] = table(true, comps[sc[i]].dc_tbl);
+        act[i] = table(false, comps[sc[i]].ac_tbl);
+      }
+    }
+    for (int& p : pred) p = 0;
+    acc = 0;
+    left = 0;
+    insufficient = false;
+    eobrun = 0;
+    restarts_to_go = restart_interval;
+  }
+
+  // jdphuff.c start_pass_phuff_decoder
+  void start_progressive_scan() {
+    const int nsc = static_cast<int>(sc.size());
+    bool dc_band = ss == 0, bad = false;
+    if (dc_band) {
+      if (se != 0) bad = true;
+    } else {
+      if (ss > se || se > 63) bad = true;
+      if (nsc != 1) bad = true;
+    }
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) fail("corrupt data: bad progressive scan parameters");
+    for (int ci : sc) {  // scans out of order only warn
+      Comp& c = comps[ci];
+      for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+        c.prev_coef_bits[k] = input_scan_number > 1 ? c.coef_bits[k] : 0;
+      for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+    }
+    mode = dc_band ? (ah ? Mode::kDcRefine : Mode::kDcFirst)
+                   : (ah ? Mode::kAcRefine : Mode::kAcFirst);
+    for (int i = 0; i < nsc; i++) {
+      const Comp& c = comps[sc[i]];
+      if (mode == Mode::kDcFirst) dct[i] = table(true, c.dc_tbl);
+      if (!dc_band) act[i] = table(false, c.ac_tbl);
+    }
+  }
+
+  void decode_scan() {
+    if (sc.size() == 1) {
+      Comp& c = comps[sc[0]];
+      for (int by = 0; by < c.bh; by++)
+        for (int bx = 0; bx < c.bw; bx++) {
+          if (!insufficient) last_good_imcu = by / c.v;
+          blk[0] = &c.coef[(size_t(by) * c.bwp + bx) * 64];
+          decode_mcu();
+        }
+      return;
+    }
+    for (int my = 0; my < mcuy; my++)
+      for (int mx = 0; mx < mcux; mx++) {
+        if (!insufficient) last_good_imcu = my;
+        int b = 0;
+        for (int ci : sc) {
+          Comp& c = comps[ci];
+          for (int y = 0; y < c.v; y++)
+            for (int x = 0; x < c.h; x++)
+              blk[b++] = &c.coef[(size_t(my * c.v + y) * c.bwp + mx * c.h + x) *
+                                 64];
+        }
+        decode_mcu();
+      }
+  }
+
+  // --- bit reading: jdhuff.h's macros, jpeg_fill_bit_buffer ---
+
+  // Loads the buffer to 57 bits, stopping at a marker; past a marker a
+  // request for more bits than are left gets zeros and marks the segment
+  // out of data.
+  void fill(int nbits) {
+    while (unread_marker == 0 && left < 57) {
+      int c = pos < len ? buf[pos++] : past_end(pos++);
+      if (c == 0xFF) {
+        do c = pos < len ? buf[pos++] : past_end(pos++); while (c == 0xFF);
+        if (c != 0) {
+          unread_marker = c;
+          break;
+        }
+        c = 0xFF;
+      }
+      acc = (acc << 8) | static_cast<unsigned>(c);
+      left += 8;
+    }
+    if (unread_marker != 0 && nbits > left) {
+      insufficient = true;
+      acc <<= 57 - left;
+      left = 57;
+    }
+  }
+  void check(int n) {
+    if (left < n) fill(n);
+  }
+  int get(int n) {
+    left -= n;
+    return static_cast<int>((acc >> left) & ((1u << n) - 1));
+  }
+  int peek8() const { return static_cast<int>((acc >> (left - 8)) & 0xFF); }
+
+  // HUFF_DECODE and jpeg_huff_decode: a code matching no entry is symbol 0
+  int decode(const Huff& h) {
+    int l;
+    if (left < 8) {
+      fill(0);
+      if (left < 8) {
+        l = 1;
+        goto slow;
+      }
+    }
+    {
+      int e = h.look[peek8()];
+      l = e >> 8;
+      if (l <= 8) {
+        left -= l;
+        return e & 0xFF;
+      }
+    }
+  slow:
+    check(l);
+    int32_t code = get(l);
+    while (code > h.maxcode[l]) {
+      code <<= 1;
+      check(1);
+      code |= get(1);
+      l++;
+    }
+    return l > 16 ? 0 : h.vals[(code + h.valoffset[l]) & 0xFF];
+  }
+
+  // FILL_BIT_BUFFER_FAST and HUFF_DECODE_FAST, on bytes known to be there
+  void fill_fast(const uint8_t*& q) {
+    if (left > 16) return;
+    for (int i = 0; i < 6; i++) {
+      int c0 = *q++, c1 = *q;
+      acc = (acc << 8) | static_cast<unsigned>(c0);
+      left += 8;
+      if (c0 == 0xFF) {
+        q++;
+        if (c1 != 0) {  // a marker: zeros instead, and the MCU is redone
+          unread_marker = c1;
+          q -= 2;
+          acc &= ~uint64_t{0xFF};
+        }
+      }
+    }
+  }
+  int decode_fast(const Huff& h, const uint8_t*& q) {
+    fill_fast(q);
+    int s = h.look[peek8()];
+    int l = s >> 8;
+    left -= l;
+    if (l <= 8) return s & 0xFF;
+    s = static_cast<int>((acc >> left) & ((1u << l) - 1));
+    while (s > h.maxcode[l]) {
+      s = (s << 1) | get(1);
+      l++;
+    }
+    return l > 16 ? 0 : h.vals[(s + h.valoffset[l]) & 0xFF];
+  }
+
+  // --- restarts: process_restart, read_restart_marker, resync ---
+
+  void process_restart() {
+    left = 0;
+    if (unread_marker == 0) next_marker();
+    if (unread_marker == 0xD0 + next_restart_num)
+      unread_marker = 0;
+    else
+      resync_to_restart(next_restart_num);
+    next_restart_num = (next_restart_num + 1) & 7;
+    for (int& p : pred) p = 0;
+    eobrun = 0;
+    restarts_to_go = restart_interval;
+    if (unread_marker == 0) insufficient = false;
+  }
+
+  // jpeg_resync_to_restart: 1 discards the marker and decodes on, 2 scans
+  // to the next marker and decides again, 3 leaves the marker (the segment
+  // decodes as empty)
+  void resync_to_restart(int desired) {
+    for (;;) {
+      int m = unread_marker, action;
+      if (m < 0xC0)
+        action = 2;
+      else if (m < 0xD0 || m > 0xD7)
+        action = 3;
+      else if (m == 0xD0 + ((desired + 1) & 7) ||
+               m == 0xD0 + ((desired + 2) & 7))
+        action = 3;
+      else if (m == 0xD0 + ((desired - 1) & 7) ||
+               m == 0xD0 + ((desired - 2) & 7))
+        action = 2;
+      else
+        action = 1;
+      if (action == 1) unread_marker = 0;
+      if (action != 2) return;
+      next_marker();
+    }
+  }
+
+  // --- MCU decoders: jdhuff.c decode_mcu, jdphuff.c decode_mcu_* ---
+
+  void decode_mcu() {
+    bool usefast = mode == Mode::kSeq;
+    if (restart_interval) {
+      if (restarts_to_go == 0) process_restart();
+      usefast = false;
+    }
+    if (mode == Mode::kDcRefine) {
+      dc_refine();
+    } else if (!insufficient) {
+      switch (mode) {
+        case Mode::kSeq:
+          if (pos >= len || len - pos < size_t(512) * nblk || unread_marker)
+            usefast = false;
+          if (!usefast || !seq_fast()) seq_slow();
+          break;
+        case Mode::kDcFirst: dc_first(); break;
+        case Mode::kAcFirst: ac_first(); break;
+        default: ac_refine(); break;
+      }
+    }
+    if (restart_interval) restarts_to_go--;
+  }
+
+  void seq_slow() {
+    for (int b = 0; b < nblk; b++) {
+      const int i = blk_comp[b];
+      int16_t* block = blk[b];
+      int s = decode(dct[i]);
+      if (s) {
+        check(s);
+        s = extend(get(s), s);
+      }
+      pred[i] = static_cast<int>(static_cast<unsigned>(pred[i]) + s);
+      block[0] = lo16(pred[i]);
+      for (int k = 1; k < 64; k++) {
+        int rs = decode(act[i]);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          check(s);
+          block[kNatural[k]] = lo16(extend(get(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+  }
+
+  // decode_mcu_fast: false (state as before) where it met a marker; the
+  // slow decoder then redoes the MCU over whatever it wrote
+  bool seq_fast() {
+    const uint64_t acc0 = acc;
+    const int left0 = left;
+    int pred0[4];
+    std::memcpy(pred0, pred, sizeof pred);
+    const uint8_t* q = buf + pos;
+    for (int b = 0; b < nblk; b++) {
+      const int i = blk_comp[b];
+      int16_t* block = blk[b];
+      int s = decode_fast(dct[i], q);
+      if (s) {
+        fill_fast(q);
+        s = extend(get(s), s);
+      }
+      pred[i] = static_cast<int>(static_cast<unsigned>(pred[i]) + s);
+      block[0] = lo16(pred[i]);
+      for (int k = 1; k < 64; k++) {
+        int rs = decode_fast(act[i], q);
+        int r = rs >> 4;
+        s = rs & 15;
+        if (s) {
+          k += r;
+          fill_fast(q);
+          block[kNatural[k]] = lo16(extend(get(s), s));
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
+      }
+    }
+    if (unread_marker) {
+      unread_marker = 0;
+      acc = acc0;
+      left = left0;
+      std::memcpy(pred, pred0, sizeof pred);
+      return false;
+    }
+    pos = static_cast<size_t>(q - buf);
+    return true;
+  }
+
+  void dc_first() {
+    for (int b = 0; b < nblk; b++) {
+      const int i = blk_comp[b];
+      int s = decode(dct[i]);
+      if (s) {
+        check(s);
+        s = extend(get(s), s);
+      }
+      if ((pred[i] >= 0 && s > INT_MAX - pred[i]) ||
+          (pred[i] < 0 && s < INT_MIN - pred[i]))
+        fail("corrupt data: a DC coefficient overflows");
+      pred[i] += s;
+      blk[b][0] = lo16(static_cast<int64_t>(
+          static_cast<uint64_t>(static_cast<int64_t>(pred[i])) << al));
+    }
+  }
+
+  void dc_refine() {  // no out-of-data test: zero bits change nothing
+    const int p1 = 1 << al;
+    for (int b = 0; b < nblk; b++) {
+      check(1);
+      if (get(1)) blk[b][0] = static_cast<int16_t>(blk[b][0] | p1);
+    }
+  }
+
+  void ac_first() {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    int16_t* block = blk[0];
+    const Huff& h = act[0];
+    for (int k = ss; k <= se; k++) {
+      int rs = decode(h);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        check(s);
+        int v = extend(get(s), s);
+        block[kNatural[k]] = lo16(static_cast<int64_t>(
+            static_cast<uint64_t>(static_cast<int64_t>(v)) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1u << r;
+        if (r) {
+          check(r);
+          eobrun += get(r);
+        }
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  void ac_refine() {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int16_t* block = blk[0];
+    const Huff& h = act[0];
+    auto correct = [&](int16_t* t) {  // a correction bit for a nonzero coef
+      check(1);
+      if (get(1) && (*t & p1) == 0)
+        *t = lo16(*t >= 0 ? *t + p1 : *t + m1);
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = decode(h);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {  // a size other than 1 only warns
+          check(1);
+          s = get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1u << r;
+          if (r) {
+            check(r);
+            eobrun += get(r);
+          }
+          break;
+        }
+        do {
+          int16_t* t = block + kNatural[k];
+          if (*t != 0)
+            correct(t);
+          else if (--r < 0)
+            break;
+          k++;
+        } while (k <= se);
+        if (s) block[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* t = block + kNatural[k];
+        if (*t != 0) correct(t);
+      }
+      eobrun--;
     }
   }
 };
 
 // --- output -------------------------------------------------------------
 
-uint8_t g_idct_limit[1024];
 uint8_t g_limit[1024];  // sample_range_limit, index + 256
 int g_cr_r[256], g_cb_b[256];
 int64_t g_cr_g[256], g_cb_g[256];
@@ -776,15 +1015,6 @@ inline int64_t fix(double x) {
 
 struct Tables {
   Tables() {
-    // jdmaster.c prepare_range_limit_table, seen through IDCT_range_limit
-    for (int v = 0; v < 1024; v++) {
-      int o;
-      if (v < 128) o = v + 128;
-      else if (v < 512) o = 255;
-      else if (v < 896) o = 0;
-      else o = v - 896;
-      g_idct_limit[v] = static_cast<uint8_t>(o);
-    }
     for (int i = 0; i < 1024; i++) {
       int x = i - 256;
       g_limit[i] = static_cast<uint8_t>(x < 0 ? 0 : x > 255 ? 255 : x);
@@ -804,132 +1034,236 @@ struct Tables {
 };
 const Tables g_tables;
 
-// jidctint.c jpeg_idct_islow
-constexpr int kConst = 13, kPass1 = 2;
-inline int64_t descale(int64_t x, int n) {
-  return (x + (int64_t{1} << (n - 1))) >> n;
+inline int16_t sat16(int32_t x) {
+  return static_cast<int16_t>(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
 }
 
-void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
+// One pass of jidctint-sse2.asm / jidctint-avx2.asm (the islow IDCT as
+// libjpeg-turbo's SIMD code computes it): 16-bit inputs, the sums
+// in0 +- in4, in7 + in3 and in5 + in1 wrapped to 16 bits, products and the
+// rest in 32 bits; each output descaled by `sh`.
+inline void idct_pass(const int16_t* in, int sh, int32_t* o) {
+  const int32_t i0 = in[0], i1 = in[1], i2 = in[2], i3 = in[3], i4 = in[4],
+                i5 = in[5], i6 = in[6], i7 = in[7];
+  const int32_t tmp3 = i2 * 10703 + i6 * 4433;  // FIX(0.541 + 0.765), ...
+  const int32_t tmp2 = i2 * 4433 + i6 * -10704;
+  const int32_t tmp0 = int32_t{lo16(i0 + i4)} * 8192;
+  const int32_t tmp1 = int32_t{lo16(i0 - i4)} * 8192;
+  const int32_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3;
+  const int32_t t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  const int32_t z3 = lo16(i7 + i3), z4 = lo16(i5 + i1);
+  const int32_t z3p = z3 * -6436 + z4 * 9633;  // FIX(1.175 - 1.961), ...
+  const int32_t z4p = z3 * 9633 + z4 * 6437;
+  const int32_t o0 = i7 * -4927 + i1 * -7373 + z3p;
+  const int32_t o3 = i7 * -7373 + i1 * 4926 + z4p;
+  const int32_t o1 = i5 * -4176 + i3 * -20995 + z4p;
+  const int32_t o2 = i5 * -20995 + i3 * 4177 + z3p;
+  const int32_t r = 1 << (sh - 1);
+  o[0] = (t10 + o3 + r) >> sh;
+  o[7] = (t10 - o3 + r) >> sh;
+  o[1] = (t11 + o2 + r) >> sh;
+  o[6] = (t11 - o2 + r) >> sh;
+  o[2] = (t12 + o1 + r) >> sh;
+  o[5] = (t12 - o1 + r) >> sh;
+  o[3] = (t13 + o0 + r) >> sh;
+  o[4] = (t13 - o0 + r) >> sh;
+}
+
+// jsimd_idct_islow: dequantisation is a 16-bit product; a block whose rows
+// 1-7 are all zero takes the DC-only first pass (wrapped << 2), other
+// columns the full one (saturated to 16 bits); the rows' outputs saturate
+// to [-128, 127] before + 128.
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int stride) {
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-        ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (ip[0] * qp[0]) * (1 << kPass1);
-      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
-      continue;
+  int16_t ws[64];
+  bool rows_zero = true;
+  for (int k = 8; k < 64 && rows_zero; k++) rows_zero = in[k] == 0;
+  if (rows_zero) {
+    for (int c = 0; c < 8; c++) {
+      int16_t dc = lo16(int64_t{lo16(int64_t{in[c]} * q[c])} * 4);
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
     }
-    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * 4433;
-    int64_t tmp2 = z1 + z3 * -15137;
-    int64_t tmp3 = z1 + z2 * 6270;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * (1 << kConst);
-    int64_t tmp1 = (z2 - z3) * (1 << kConst);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * 9633;
-    tmp0 *= 2446;
-    tmp1 *= 16819;
-    tmp2 *= 25172;
-    tmp3 *= 12299;
-    z1 *= -7373;
-    z2 *= -20995;
-    z3 *= -16069;
-    z4 *= -3196;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConst - kPass1;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-    wp[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-    wp[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-    wp[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-    wp[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-    wp[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-    wp[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-    wp[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  } else {
+    for (int c = 0; c < 8; c++) {
+      int16_t col[8];
+      bool ac = false;
+      for (int r = 0; r < 8; r++) {
+        col[r] = lo16(int64_t{in[8 * r + c]} * q[8 * r + c]);
+        ac |= r > 0 && col[r] != 0;
+      }
+      if (!ac) {  // the full pass's result, without its arithmetic
+        int16_t dc = sat16(int32_t{col[0]} * 4);
+        for (int r = 0; r < 8; r++) ws[8 * r + c] = dc;
+        continue;
+      }
+      int32_t o[8];
+      idct_pass(col, 11, o);
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = sat16(o[r]);
+    }
   }
-  const int sh = kConst + kPass1 + 3;
   for (int r = 0; r < 8; r++) {
-    const int* wp = ws + 8 * r;
+    const int16_t* w = ws + 8 * r;
     uint8_t* op = out + static_cast<size_t>(r) * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 &&
-        wp[6] == 0 && wp[7] == 0) {
-      uint8_t dc = g_idct_limit[descale(wp[0], kPass1 + 3) & 1023];
-      std::memset(op, dc, 8);
+    if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+      int32_t v = (int32_t{w[0]} + 16) >> 5;
+      std::memset(op, std::clamp(v, -128, 127) + 128, 8);
       continue;
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * 4433;
-    int64_t tmp2 = z1 + z3 * -15137;
-    int64_t tmp3 = z1 + z2 * 6270;
-    int64_t tmp0 = (static_cast<int64_t>(wp[0]) + wp[4]) * (1 << kConst);
-    int64_t tmp1 = (static_cast<int64_t>(wp[0]) - wp[4]) * (1 << kConst);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * 9633;
-    tmp0 *= 2446;
-    tmp1 *= 16819;
-    tmp2 *= 25172;
-    tmp3 *= 12299;
-    z1 *= -7373;
-    z2 *= -20995;
-    z3 *= -16069;
-    z4 *= -3196;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    op[0] = g_idct_limit[descale(tmp10 + tmp3, sh) & 1023];
-    op[7] = g_idct_limit[descale(tmp10 - tmp3, sh) & 1023];
-    op[1] = g_idct_limit[descale(tmp11 + tmp2, sh) & 1023];
-    op[6] = g_idct_limit[descale(tmp11 - tmp2, sh) & 1023];
-    op[2] = g_idct_limit[descale(tmp12 + tmp1, sh) & 1023];
-    op[5] = g_idct_limit[descale(tmp12 - tmp1, sh) & 1023];
-    op[3] = g_idct_limit[descale(tmp13 + tmp0, sh) & 1023];
-    op[4] = g_idct_limit[descale(tmp13 - tmp0, sh) & 1023];
+    int32_t o[8];
+    idct_pass(w, 18, o);
+    for (int c = 0; c < 8; c++)
+      op[c] = static_cast<uint8_t>(std::clamp(o[c], -128, 127) + 128);
+  }
+}
+
+// jdcoefct.c smoothing_ok: the coef_bits of coefficients 0-9 latched for
+// each component (now, and before the component's last scan); false where
+// no component needs smoothing or one cannot have it
+struct Smoothing {
+  std::vector<std::array<int, 10>> now, before;
+};
+
+bool smoothing_ok(const Decoder& d, Smoothing& sm) {
+  if (!d.progressive) return false;
+  bool useful = false;
+  sm.now.assign(d.ncomp, {});
+  sm.before.assign(d.ncomp, {});
+  for (int ci = 0; ci < d.ncomp; ci++) {
+    const Comp& c = d.comps[ci];
+    if (!c.latched) return false;
+    for (int k : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+      if (c.q[k] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    sm.now[ci][0] = c.coef_bits[0];
+    for (int k = 1; k < 10; k++) {
+      sm.before[ci][k] = d.input_scan_number > 1 ? c.prev_coef_bits[k] : -1;
+      sm.now[ci][k] = c.coef_bits[k];
+      if (c.coef_bits[k] != 0) useful = true;
+    }
+  }
+  return useful;
+}
+
+// decompress_smooth_data for one block: the first nine AC coefficients that
+// are zero and not known exactly are estimated from the DC values of the
+// 5 x 5 blocks around (DC interpolation too where no AC data came at all)
+void smooth_block(const Comp& c, const int* bits, const int dcv[25],
+                  int16_t* ws) {
+  const int64_t q00 = c.q[0];
+  auto dc = [&](int n) -> int64_t { return dcv[n - 1]; };  // DC01..DC25
+  const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 &&
+                         bits[4] == -1 && bits[5] == -1 && bits[6] == -1 &&
+                         bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+  auto predict = [&](int al, int64_t qk, int64_t num) {
+    int64_t pred;
+    if (num >= 0) {
+      pred = ((qk << 7) + num) / (qk << 8);
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    } else {
+      pred = ((qk << 7) - num) / (qk << 8);
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      pred = -pred;
+    }
+    return lo16(pred);
+  };
+  struct Term {
+    int bit, pos;
+    int64_t change, keep;  // the estimates with and without DC interpolation
+  };
+  const Term terms[9] = {
+      {1, 1,
+       -dc(1) - dc(2) + dc(4) + dc(5) - 3 * dc(6) + 13 * dc(7) -
+           13 * dc(9) + 3 * dc(10) - 3 * dc(11) + 38 * dc(12) -
+           38 * dc(14) + 3 * dc(15) - 3 * dc(16) + 13 * dc(17) -
+           13 * dc(19) + 3 * dc(20) - dc(21) - dc(22) + dc(24) + dc(25),
+       -7 * dc(11) + 50 * dc(12) - 50 * dc(14) + 7 * dc(15)},
+      {2, 8,
+       -dc(1) - 3 * dc(2) - 3 * dc(3) - 3 * dc(4) - dc(5) - dc(6) +
+           13 * dc(7) + 38 * dc(8) + 13 * dc(9) - dc(10) + dc(16) -
+           13 * dc(17) - 38 * dc(18) - 13 * dc(19) + dc(20) + dc(21) +
+           3 * dc(22) + 3 * dc(23) + 3 * dc(24) + dc(25),
+       -7 * dc(3) + 50 * dc(8) - 50 * dc(18) + 7 * dc(23)},
+      {3, 16,
+       dc(3) + 2 * dc(7) + 7 * dc(8) + 2 * dc(9) - 5 * dc(12) - 14 * dc(13) -
+           5 * dc(14) + 2 * dc(17) + 7 * dc(18) + 2 * dc(19) + dc(23),
+       -dc(3) + 13 * dc(8) - 24 * dc(13) + 13 * dc(18) - dc(23)},
+      {4, 9,
+       -dc(1) + dc(5) + 9 * dc(7) - 9 * dc(9) - 9 * dc(17) + 9 * dc(19) +
+           dc(21) - dc(25),
+       dc(10) + dc(16) - 10 * dc(17) + 10 * dc(19) - dc(2) - dc(20) +
+           dc(22) - dc(24) + dc(4) - dc(6) + 10 * dc(7) - 10 * dc(9)},
+      {5, 2,
+       2 * dc(7) - 5 * dc(8) + 2 * dc(9) + dc(11) + 7 * dc(12) -
+           14 * dc(13) + 7 * dc(14) + dc(15) + 2 * dc(17) - 5 * dc(18) +
+           2 * dc(19),
+       -dc(11) + 13 * dc(12) - 24 * dc(13) + 13 * dc(14) - dc(15)},
+      {6, 3, dc(7) - dc(9) + 2 * dc(12) - 2 * dc(14) + dc(17) - dc(19), 0},
+      {7, 10, dc(7) - 3 * dc(8) + dc(9) - dc(17) + 3 * dc(18) - dc(19), 0},
+      {8, 17, dc(7) - dc(9) - 3 * dc(12) + 3 * dc(14) + dc(17) - dc(19), 0},
+      {9, 24, dc(7) + 2 * dc(8) + dc(9) - dc(17) - 2 * dc(18) - dc(19), 0}};
+  for (int t = 0; t < (change_dc ? 9 : 5); t++) {
+    const Term& e = terms[t];
+    const int al = bits[e.bit];
+    if (al != 0 && ws[e.pos] == 0)
+      ws[e.pos] = predict(al, c.q[e.pos],
+                          q00 * (change_dc ? e.change : e.keep));
+  }
+  if (change_dc) {
+    const int64_t num =
+        q00 * (-2 * dc(1) - 6 * dc(2) - 8 * dc(3) - 6 * dc(4) - 2 * dc(5) -
+               6 * dc(6) + 6 * dc(7) + 42 * dc(8) + 6 * dc(9) - 6 * dc(10) -
+               8 * dc(11) + 42 * dc(12) + 152 * dc(13) + 42 * dc(14) -
+               8 * dc(15) - 6 * dc(16) + 6 * dc(17) + 42 * dc(18) +
+               6 * dc(19) - 6 * dc(20) - 2 * dc(21) - 6 * dc(22) -
+               8 * dc(23) - 6 * dc(24) - 2 * dc(25));
+    ws[0] = predict(0, q00, num);
   }
 }
 
 // A component's samples [bh*8, bw*8] (rows past dh / columns past dw are
-// never read).
-std::vector<uint8_t> samples(const Comp& c) {
-  int stride = c.bw * 8;
+// never read), block-smoothed where `sm` is given.
+std::vector<uint8_t> samples(const Decoder& d, int ci, const Smoothing* sm) {
+  const Comp& c = d.comps[ci];
+  const int stride = c.bw * 8;
   std::vector<uint8_t> pl(static_cast<size_t>(stride) * c.bh * 8);
-  for (int by = 0; by < c.bh; by++)
-    for (int bx = 0; bx < c.bw; bx++)
-      idct_islow(&c.coef[(static_cast<size_t>(by) * c.bwp + bx) * 64], c.q,
-                 &pl[(static_cast<size_t>(by) * 8) * stride + bx * 8], stride);
+  auto block = [&](int by, int bx) {
+    return &c.coef[(static_cast<size_t>(by) * c.bwp + bx) * 64];
+  };
+  for (int by = 0; by < c.bh; by++) {
+    // the rows two above to two below as jdcoefct.c finds them: it counts
+    // the rows of an iMCU row's height (v, or the last row's remainder)
+    // over all iMCU rows, so the row before a short last iMCU row reaches
+    // into the padding rows below the image
+    const int imcu = by / c.v, total = d.mcuy;
+    const int rows = imcu == total - 1 && c.bh % c.v ? c.bh % c.v : c.v;
+    const int ib = imcu * rows + by % c.v, ibs = rows * total;
+    int r[5];
+    r[2] = by;
+    r[1] = ib > 0 ? by - 1 : by;
+    r[0] = ib > 1 ? by - 2 : r[1];
+    r[3] = ib < ibs - 1 ? by + 1 : by;
+    r[4] = ib < ibs - 2 ? by + 2 : r[3];
+    const int* bits = nullptr;
+    if (sm)
+      bits = (imcu > d.last_good_imcu ? sm->before[ci] : sm->now[ci]).data();
+    for (int bx = 0; bx < c.bw; bx++) {
+      uint8_t* out = &pl[(static_cast<size_t>(by) * 8) * stride + bx * 8];
+      if (!sm) {
+        idct_islow(block(by, bx), c.q, out, stride);
+        continue;
+      }
+      int dcv[25];
+      for (int i = 0; i < 5; i++)
+        for (int j = 0; j < 5; j++)
+          dcv[5 * i + j] = block(r[i], std::clamp(bx + j - 2, 0, c.bw - 1))[0];
+      int16_t ws[64];
+      std::memcpy(ws, block(by, bx), sizeof ws);
+      smooth_block(c, bits, dcv, ws);
+      idct_islow(ws, c.q, out, stride);
+    }
+  }
   return pl;
 }
-
 // jdsample.c: the component upsampled to [height, width], with the method
 // libjpeg-turbo's jinit_upsampler picks (fancy upsampling on, no scaling).
 // Edges repeat the last real sample, as libjpeg's context rows and end
@@ -989,14 +1323,19 @@ std::vector<uint8_t> upsample(const Comp& c, const std::vector<uint8_t>& pl,
   return out;
 }
 
-void render(Decoder& d, int channels, uint8_t* out) {
+void render(const Decoder& d, int channels, uint8_t* out) {
   const int W = d.width, H = d.height;
   const size_t np = static_cast<size_t>(W) * H;
-  bool only_y = channels == 1 && d.space != Space::kRGB;
+  Smoothing sm;
+  const Smoothing* smp = smoothing_ok(d, sm) ? &sm : nullptr;
+  const bool four = d.space == Space::kCMYK || d.space == Space::kYCCK;
+  // a gray read of a gray or YCbCr image needs the Y component alone
+  const bool only_y = channels == 1 &&
+                      (d.space == Space::kGray || d.space == Space::kYCbCr);
   std::vector<std::vector<uint8_t>> up(d.ncomp);
   for (int ci = 0; ci < (only_y ? 1 : d.ncomp); ci++)
-    up[ci] = upsample(d.comps[ci], samples(d.comps[ci]), d.hmax, d.vmax, W, H);
-  if (d.space == Space::kGray || only_y) {
+    up[ci] = upsample(d.comps[ci], samples(d, ci, smp), d.hmax, d.vmax, W, H);
+  if (only_y || d.space == Space::kGray) {
     const uint8_t* y = up[0].data();
     if (channels == 1) {
       std::memcpy(out, y, np);
@@ -1007,6 +1346,33 @@ void render(Decoder& d, int channels, uint8_t* out) {
     return;
   }
   const uint8_t *a = up[0].data(), *b = up[1].data(), *c = up[2].data();
+  if (four) {
+    const uint8_t* k = up[3].data();
+    for (size_t i = 0; i < np; i++) {
+      int cc = a[i], mm = b[i], yy = c[i], kk = k[i];
+      if (d.space == Space::kYCCK) {  // jdcolor.c ycck_cmyk_convert
+        int y = a[i], cb = b[i], cr = c[i];
+        cc = g_limit[256 + 255 - (y + g_cr_r[cr])];
+        mm = g_limit[256 + 255 -
+                     (y + static_cast<int>((g_cb_g[cb] + g_cr_g[cr]) >>
+                                           kScale))];
+        yy = g_limit[256 + 255 - (y + g_cb_b[cb])];
+      }
+      // OpenCV's CMYK -> BGR (here RGB) and CMYK -> gray
+      cc = kk - ((255 - cc) * kk >> 8);
+      mm = kk - ((255 - mm) * kk >> 8);
+      yy = kk - ((255 - yy) * kk >> 8);
+      if (channels == 1) {
+        out[i] = static_cast<uint8_t>((yy * 1868 + mm * 9617 + cc * 4899 +
+                                       (1 << 13)) >> 14);
+      } else {
+        out[3 * i] = static_cast<uint8_t>(cc);
+        out[3 * i + 1] = static_cast<uint8_t>(mm);
+        out[3 * i + 2] = static_cast<uint8_t>(yy);
+      }
+    }
+    return;
+  }
   if (d.space == Space::kRGB) {
     for (size_t i = 0; i < np; i++) {
       if (channels == 1) {
@@ -1041,11 +1407,11 @@ void set_error(char* err, int64_t errlen, const std::string& msg) {
 
 extern "C" {
 
-int jd_header(const uint8_t* buf, int64_t len, int32_t* hwc, char* err,
-              int64_t errlen) {
+int jd_header(const uint8_t* buf, int64_t len, int32_t flags, int32_t* hwc,
+              char* err, int64_t errlen) {
   try {
-    Decoder d(buf, static_cast<size_t>(len));
-    d.run(true);
+    Decoder d(buf, static_cast<size_t>(len), flags & 1);
+    d.read_header();
     hwc[0] = d.height;
     hwc[1] = d.width;
     hwc[2] = d.ncomp;
@@ -1056,15 +1422,16 @@ int jd_header(const uint8_t* buf, int64_t len, int32_t* hwc, char* err,
   }
 }
 
-int jd_decode(const uint8_t* buf, int64_t len, int32_t channels, uint8_t* out,
-              int64_t outlen, char* err, int64_t errlen) {
+int jd_decode(const uint8_t* buf, int64_t len, int32_t flags,
+              int32_t channels, uint8_t* out, int64_t outlen, char* err,
+              int64_t errlen) {
   try {
     if (channels != 1 && channels != 3) fail("channels must be 1 or 3");
-    Decoder d(buf, static_cast<size_t>(len));
-    d.run(false);
-    d.finish();
+    Decoder d(buf, static_cast<size_t>(len), flags & 1);
+    d.read_header();
     if (outlen != static_cast<int64_t>(d.width) * d.height * channels)
       fail("output buffer of the wrong size");
+    d.decode_image();
     render(d, channels, out);
     return 0;
   } catch (const JpegError& e) {

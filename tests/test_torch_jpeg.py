@@ -13,8 +13,11 @@ native/jpeg_native.cpp` through `data/jpeg.py`; `data/llff.py`'s reads,
   cv2's unchanged read does, `imread_rgb8` / `imread_gray8` equal cv2's
   colour and grayscale reads.
 - Refused streams (arithmetic, lossless and hierarchical frames, 12-bit
-  precision, 2 and 4 components, truncated data) raise naming the file.
-- The committed fixtures still decode to `tests/data/jpeg/expected.json`.
+  precision, 2 components, frames without a scan) raise naming the file;
+  damaged and 4-component streams are `tests/test_torch_jpeg_damaged.py`'s.
+- The committed fixtures still decode to `tests/data/jpeg/expected.json`,
+  read from disk as cv2.imread reads them and from memory as cv2.imdecode
+  does.
 - With cv2 made unimportable, `llff.imread`, `load_scene` at factor 2 and
   `shards._decode` give exactly what JAX's modules give with cv2.
 """
@@ -234,10 +237,6 @@ def _refusals():
         hdr = (b"\xff\xc0" + struct.pack(">HBHHB", 8 + 3 * n, 8, 16, 24, n)
                + comps)
         out[f"{n} components"] = b"\xff\xd8" + hdr + b"\xff\xd9"
-    out["truncated"] = base[:len(base) // 2]
-    prog = encode(smooth_noisy(16, 24, 3, 6), progressive=True)
-    out["missing scans"] = prog[:prog.rfind(b"\xff\xda")] + b"\xff\xd9"
-    out["no EOI"] = base[:-2]
     return out
 
 
@@ -263,29 +262,43 @@ def _sha(img):
 
 def test_fixtures_match_expected():
     """Every committed fixture: cv2's decode still gives the recorded shape
-    and hash in each read, and so does the port's (`llff.imread`,
-    `imread_rgb8`, `imread_gray8`, which apply the EXIF orientation as
-    cv2's colour and gray reads do)."""
-    expected = json.loads((FIXTURES / "expected.json").read_text())
+    and hash (or None) in each read from disk (`cv2.imread`) and from memory
+    (`cv2.imdecode`), and so does the port's: `llff.imread`, `imread_rgb8`
+    and `imread_gray8` (which read as cv2.imread does and apply the EXIF
+    orientation as cv2's colour and gray reads do) and `jpeg.decode` of the
+    bytes."""
+    expected = json.loads((FIXTURES / "expected.json").read_text())["files"]
     files = sorted(p.relative_to(FIXTURES).as_posix()
                    for p in FIXTURES.rglob("*.jpg"))
-    assert files == sorted(expected) and len(files) == 25
-    for name, reads in expected.items():
+    assert files == sorted(expected) and len(files) == 42
+    for name, sources in expected.items():
         path = FIXTURES / name
         data = path.read_bytes()
+        orientation = jpeg.exif_orientation(data)
         for read, fn in (("unchanged", tllff.imread),
                          ("color", tllff.imread_rgb8),
                          ("gray", tllff.imread_gray8)):
-            want = reads[read]
-            ref = cv2.imread(str(path), READS[read])
-            ref = ref[..., ::-1] if ref.ndim == 3 else ref
-            assert [list(ref.shape), _sha(ref)] == [want["shape"],
-                                                    want["sha256"]], name
-            got = fn(path)
-            assert [list(got.shape), _sha(got)] == [want["shape"],
-                                                    want["sha256"]], name
-        assert jpeg.exif_orientation(data) == {"exif_6.jpg": 6,
-                                               "exif_8.jpg": 8}.get(name, 1)
+            for source, want in ((s, sources[s][read])
+                                 for s in ("file", "buffer")):
+                ref = (cv2.imread(str(path), READS[read]) if source == "file"
+                       else cv2.imdecode(np.frombuffer(data, np.uint8),
+                                         READS[read]))
+                if ref is not None and ref.ndim == 3:
+                    ref = ref[..., ::-1]
+                assert (None if ref is None else
+                        {"shape": list(ref.shape), "sha256": _sha(ref)}) \
+                    == want, (name, source, read)
+                try:
+                    got = (fn(path) if source == "file" else jpeg.orient(
+                        jpeg.decode(data, name=name, mode=read),
+                        1 if read == "unchanged" else orientation))
+                except ValueError:
+                    got = None
+                assert (None if got is None else
+                        {"shape": list(got.shape), "sha256": _sha(got)}) \
+                    == want, (name, source, read)
+        assert orientation == {"exif_6.jpg": 6,
+                               "exif_8.jpg": 8}.get(name, 1)
 
 
 @pytest.fixture
