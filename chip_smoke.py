@@ -246,35 +246,36 @@ Phases, each fatal on failure (no phase's error is caught):
      B1b): bf16 8 x 256 still routes #9 / #10 and #7 / #8 to the wgmma
      kernels; (a) at f32 8 x 256 on the MLP arm's 262,144 fine-pass points
      (and 131,072 with the semantic head), bf16 and f32 8 x 128, f32 2 x 32
-     at 4 / 2 octaves, depth 3, depth 10, width 512, 12 / 6 octaves and 21
-     octaves, and width 1,024 (65,536 points each): #9 / #10 and #7 / #8,
-     each launch counted on the route "gen" (the forward and the backward
-     on the tensor cores, "fwd_tc" and "bwd_tc", where `gen_fwd_plan` and
-     `gen_bwd_plan` take the geometry, f32 as six bf16 products; past the
-     plans on the CUDA cores, "fwd" and "bwd": the forward at f32 widths
-     512 and 1,024, the backward at 1,024), held against the plain version
-     in float64 on the card: the output within 2 x the plain f32 / bf16
-     version's error (at the first case also the CUDA cores' forward,
-     uncounted), every gradient (and dx, dd) within 2 x the plain
-     version's against the float64 evaluation with each side's own ReLU
-     masks (the kernel's read back from its recompute), the points whose
-     masks differ from float64's at most max(4 x the plain version's,
-     P / 1000), dx's and dd's padded lanes exactly 0, the forward and the
-     backward bit-equal over 5 more launches and through the autograd
-     wrappers; (b) at (a)'s first case, both forwards alone (the tensor
-     cores' and the CUDA cores'), the kernels' entries, the CUDA cores'
-     backward, the plain version and an f32 torch.matmul chain with its
-     autograd backward (TF32 off) timed with CUDA events, each with the
-     function's FLOP over its time (the tensor cores' forward and backward
-     also against 989 / 6 TFLOP/s of f32 work), and both backwards' two
-     passes apart; at bf16 8 x 128 the two forwards and the two backwards
-     side by side; (c) `Trainer` at the MLP arm's configuration in f32 for
-     100 steps and at width 128 in bf16 for 50: #9 / #10 launched twice a
-     step each on the tensor cores ("fwd_tc", "bwd_tc") and the CUDA
-     cores' and the wgmma kernels never, the PSNR rising, the step time;
-     (d) `tools.full_run --smoke --model mlp` in this process: exit 0,
-     every stage, #9 and #10 on the tensor cores, never on the CUDA
-     cores;
+     at 4 / 2 octaves, depth 3, depth 10, width 512, 12 / 6 octaves, 21
+     octaves and width 1,024 in f32 (65,536 points each), and width 1,024
+     in bf16 and with the semantic head (32,768 points each): #9 / #10 and
+     #7 / #8, each launch counted on the route "gen" and the kernels its
+     plans pick (the fused
+     tensor-core kernels, "fwd_tc" and "bwd_tc", where `gen_fwd_plan` and
+     `gen_bwd_plan` take the geometry; else the layer-streamed ones,
+     "fwd_ls" and "bwd_ls": the forward at f32 widths 512 and 1,024, the
+     backward at 1,024; f32 as six bf16 products on both), held against
+     the plain version in float64 on the card: the output within 2 x the
+     plain f32 / bf16 version's error, every gradient (and dx, dd) within
+     2 x the plain version's against the float64 evaluation with each
+     side's own ReLU masks (the kernel's read back from its recompute),
+     the points whose masks differ from float64's at most max(4 x the
+     plain version's, P / 1000), dx's and dd's padded lanes exactly 0, the
+     forward and the backward bit-equal over 5 more launches and through
+     the autograd wrappers; `make_fused_field_fn` with the points'
+     gradient at f32 8 x 256 and 8 x 1,024; (b) at (a)'s first case, and
+     at f32 and bf16 8 x 1,024 and f32 8 x 512 (the forward) on 262,144
+     points: the forward kernel alone, the kernels' entries, the backward's
+     two passes apart, the plain version and a torch.matmul chain in the
+     compute type with its autograd backward (TF32 off) timed with CUDA
+     events, each with the function's FLOP over its time and its share of
+     the tensor cores' rate (f32: 989 / 6 TFLOP/s of six bf16 products);
+     (c) `Trainer` at the MLP arm's configuration in f32 for 100 steps, at
+     width 128 in bf16 for 50 (the fused kernels) and at width 1,024 in
+     bf16 for 30 (the layer-streamed ones): #9 / #10 launched twice a step
+     each and the wgmma kernels never, the PSNR rising, the step time and
+     the peak device memory; (d) `tools.full_run --smoke --model mlp` in
+     this process: exit 0, every stage, #9 and #10 on the fused kernels;
  21. JPEG captures and hash grids of 1, 4 or 8 features (B1f, B1d; no
      kernel of their own, `jpeg_phase`): (a) with cv2 unimportable, every
      committed fixture of tests/data/jpeg decoded by the native decoder to
@@ -4435,12 +4436,14 @@ def data_parallel_phase(exp_root, scene, argv=()):
 GEN_SMALL = 65536            # points of (a)'s cases 2-4
 GEN_F32_STEPS = 100          # (c): the f32 trainer's steps
 GEN_BF16_STEPS = 50          # (c): the bf16 trainer at width 128
-F32_TF32_OPS_PER_S = 495e12 / 3   # 3 x TF32 on the tensor cores (B2)
+GEN_WIDE_STEPS = 30          # (c): the bf16 trainer at width 1,024
 F32_SPLIT_OPS_PER_S = 989e12 / 6  # f32 as six bf16 products (fused_mlp_gen)
 # (tag, compute type, depth, width, (multires, multires_views), semantic,
 # points): (a)1 the main path's width in f32, (a)2 the parity tools' 8 x
 # 128, (a)3 full_run --smoke's 2 x 32, (a)4 the other geometries; width
-# 1,024 lies past the tensor cores' plan (its backward on the CUDA cores)
+# 512 lies past the fused forward's plan, width 1,024 past both plans (the
+# layer-streamed kernels; bf16 and the semantic head on 32,768 points, to
+# keep the phase under a minute)
 GEN_CASES = (
     ("f32 8x256", "float32", 8, 256, (10, 4), False, N_POINTS),
     ("f32 8x256 semantic", "float32", 8, 256, (10, 4), True, N_POINTS_SEM),
@@ -4453,7 +4456,16 @@ GEN_CASES = (
     ("f32 12/6 octaves", "float32", 8, 256, (12, 6), False, GEN_SMALL),
     ("bf16 21 octaves", "bfloat16", 8, 256, (21, 4), False, GEN_SMALL),
     ("f32 width 1024", "float32", 8, 1024, (10, 4), False, GEN_SMALL),
+    ("bf16 width 1024", "bfloat16", 8, 1024, (10, 4), False,
+     GEN_SMALL // 2),
+    ("f32 width 1024 semantic", "float32", 8, 1024, (10, 4), True,
+     GEN_SMALL // 2),
 )
+# (b)'s layer-streamed geometries at N_POINTS: (tag, compute type, width,
+# forward only)
+GEN_WIDE = (("f32 8x1024", "float32", 1024, False),
+            ("bf16 8x1024", "bfloat16", 1024, False),
+            ("f32 8x512", "float32", 512, True))
 
 
 def gen_field_weights(compute, depth, width, octaves, semantic, dev, seed):
@@ -4478,7 +4490,7 @@ def gen_field_weights(compute, depth, width, octaves, semantic, dev, seed):
 def counted(fn, want):
     """fn() with every fused MLP counter set to 0 first: its result, after
     checking that it launched exactly `want` ({(route, v1): {"fwd": n,
-    "fwd_tc": n, "bwd": n, "bwd_tc": n}}, every counter not named 0)."""
+    "bwd_ls": n, ...}}, every counter not named 0)."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     for rt in ("wgmma", "gen"):
         for pre in (False, True):
@@ -4495,16 +4507,17 @@ def counted(fn, want):
 
 def gen_bwd_key(dims, pre=False):
     """The generic route's backward counter that `dims` launches: "bwd_tc"
-    on the tensor cores where `gen_bwd_plan` takes it, else "bwd"."""
+    on the fused tensor-core kernels where `gen_bwd_plan` takes it, else
+    "bwd_ls" on the layer-streamed ones."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
-    return "bwd_tc" if fm.gen_bwd_plan(dims, pre) is not None else "bwd"
+    return "bwd_tc" if fm.gen_bwd_plan(dims, pre) is not None else "bwd_ls"
 
 
 def gen_fwd_key(dims, pre=False):
     """The generic route's forward counter that `dims` launches: "fwd_tc"
-    on the tensor cores where `gen_fwd_plan` takes it, else "fwd"."""
+    where `gen_fwd_plan` takes it, else "fwd_ls"."""
     from spinnerf_tpu_torch.ops import fused_mlp as fm
-    return "fwd_tc" if fm.gen_fwd_plan(dims, pre) is not None else "fwd"
+    return "fwd_tc" if fm.gen_fwd_plan(dims, pre) is not None else "fwd_ls"
 
 
 def gen_rel(a, ref):
@@ -4529,32 +4542,14 @@ def own_masks(w, inputs, dims, acc_dtype, pre):
     return fm._relu_masks(zs, vz, None)
 
 
-def gen_hold(tag, dims, w, pts, vd, seed, cc_fwd=False):
-    """Phase 20 (a), one configuration: #9 / #10 and #7 / #8 against their
-    plain versions evaluated in float64 on the card, each launch counted on
-    the route "gen" and the key its plans pick. The forward within 2 x the
-    plain f32 or bf16 version's own error against float64 (with `cc_fwd`,
-    where the forward runs on the tensor cores, also the CUDA cores'
-    forward, uncounted: "out_cc"); every gradient (v1: also dx and dd) within
-    2 x the plain version's, each held against the float64 evaluation that
-    takes its own ReLU masks (the kernel's read back from its recompute,
-    `gen_relu_masks`): a unit whose pre-activation lies within rounding of
-    0 switches a whole gradient term, differently in any two evaluations,
-    so against float64's own masks the errors of two f32 evaluations differ
-    by several times at random; with each side's masks they are rounding
-    alone. The points where the kernel's masks differ from float64's
-    number at most max(4 x the plain version's, P / 1000), and dx's and
-    dd's padded lanes are exactly 0. The forward and the backward bit-equal
-    over 5 more launches and through the autograd wrappers. Returns ({name:
-    (kernel rel error, plain rel error, kernel abs error), each against its
-    gated reference, "flips", and the counter keys "forward", "backward"}
-    for v2 and for v1, and the inputs)."""
+def gen_inputs(dims, pts, vd, seed):
+    """(xd, g, x_enc, d_enc) of the points pts [R, S, 3] and directions
+    vd [R, 3]: the v2 input, a seeded cotangent, the v1 encodings."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     dev = pts.device
-    b, s = pts.shape[0], pts.shape[1]
-    p = b * s
+    p = pts.shape[0] * pts.shape[1]
     gen = torch.Generator().manual_seed(seed)
     xd = torch.cat([pts.reshape(-1, 3), vd[:, None].expand(pts.shape)
                     .reshape(-1, 3), torch.zeros((p, 2), device=dev)],
@@ -4562,6 +4557,34 @@ def gen_hold(tag, dims, w, pts, vd, seed, cc_fwd=False):
     g = torch.randn((p, 4 + dims.out_extra), generator=gen).to(dev)
     x, d = fm.field_encodings(pts, vd, dims, multires=dims.multires,
                               multires_views=dims.multires_views)
+    return xd, g, x, d
+
+
+def gen_hold(tag, dims, w, pts, vd, seed):
+    """Phase 20 (a), one configuration: #9 / #10 and #7 / #8 against their
+    plain versions evaluated in float64 on the card, each launch counted on
+    the route "gen" and the key its plans pick (the fused tensor-core
+    kernels or the layer-streamed ones). The forward within 2 x the plain
+    f32 or bf16 version's own error against float64; every gradient (v1:
+    also dx and dd) within 2 x the plain version's, each held against the
+    float64 evaluation that takes its own ReLU masks (the kernel's read
+    back from its recompute, `gen_relu_masks`): a unit whose pre-activation
+    lies within rounding of 0 switches a whole gradient term, differently
+    in any two evaluations, so against float64's own masks the errors of
+    two f32 evaluations differ by several times at random; with each
+    side's masks they are rounding alone. The points where the kernel's
+    masks differ from float64's number at most max(4 x the plain
+    version's, P / 1000), and dx's and dd's padded lanes are exactly 0. The
+    forward and the backward bit-equal over 5 more launches and through
+    the autograd wrappers. Returns ({name: (kernel rel error, plain rel
+    error, kernel abs error), each against its gated reference, "flips",
+    and the counter keys "forward", "backward"} for v2 and for v1, and the
+    inputs)."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    xd, g, x, d = gen_inputs(dims, pts, vd, seed)
+    p = xd.shape[0]
     if fm.route(dims) != "gen" or fm.route(dims, True) != "gen":
         raise AssertionError(f"{tag}: not on the generic route")
     out = {}
@@ -4586,11 +4609,6 @@ def gen_hold(tag, dims, w, pts, vd, seed, cc_fwd=False):
         p_err = gen_rel(pfwd(torch.float32), out_64)
         errs = {"out": (gen_rel(out_k, out_64), p_err,
                         float((out_k.double() - out_64).abs().max()))}
-        if cc_fwd and fk == "fwd_tc":
-            out_cc = fm.fwd_fn(w, ins, dims, pre=pre, tc=False)()
-            errs["out_cc"] = (gen_rel(out_cc, out_64), p_err,
-                              float((out_cc.double() - out_64).abs().max()))
-            del out_cc
         del out_64
         m_k = fm.gen_relu_masks(w, ins, dims, pre=pre)
         m_p = own_masks(w, ins, dims, torch.float32, pre)
@@ -4669,24 +4687,51 @@ def gen_hold(tag, dims, w, pts, vd, seed, cc_fwd=False):
     return out[False], out[True], (xd, g, x, d)
 
 
-def gen_times(w, dims, inputs, tag):
-    """Phase 20 (b): #9 / #10 and #7 / #8 at (a)1 timed with CUDA events
-    beside the plain version and the f32 torch.matmul chain with its
-    autograd backward (TF32 off), each with the function's FLOP over its
-    time: the forward kernel alone on the tensor cores ("fwd_tc") and on
-    the CUDA cores ("fwd_cc"), and through the counted entry, which packs
-    the forward's ring each call ("fwd_call"); the backward on the route
-    `gen_bwd_plan` picks (the tensor cores, "bwd") and on the CUDA cores
-    ("bwd_cc", uncounted), each pass of both apart (pass 1 the recompute
-    and back-propagation, pass 2 the weight gradients); the tensor cores'
-    also against 989 / 6 TFLOP/s of f32 work. Returns {version: {name:
-    ms}}."""
+def gen_bound_ms(dims, pre, p):
+    """{"fwd", "bwd"}: (bound ms, "bytes" or "operations") of the function
+    at p points: its bytes (inputs read once, outputs written once) over
+    HBM's rate against its products, at f32 as six bf16 products on the
+    tensor cores, at bf16 as one (989 TFLOP/s)."""
+    from spinnerf_tpu_torch.ops import fused_mlp as fm
+    fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
+    n_w = sum(math.prod(s) for s in fm.weight_shapes(dims).values())
+    enc = p * (dims.in_dim + dims.dir_dim) * 4 if pre else p * 32
+    nbytes = {"fwd": enc + n_w * 4 + p * (4 + dims.out_extra) * 4,
+              "bwd": (2 if pre else 1) * enc + p * (4 + dims.out_extra) * 4
+              + 2 * n_w * 4}
+    rate = (F32_SPLIT_OPS_PER_S if dims.compute_dtype == "float32"
+            else BF16_OPS_PER_S)
+    out = {}
+    for k, flop in (("fwd", fwd_flop), ("bwd", bwd_flop)):
+        bytes_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        ops_ms = flop / rate * 1e3
+        out[k] = (max(bytes_ms, ops_ms),
+                  "bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def gen_times(w, dims, inputs, tag, *, fwd_only=False, iters=20,
+              slow_iters=20, warmup=3, brief_v1=False):
+    """Phase 20 (b) at one geometry: #9 / #10 and #7 / #8 timed with CUDA
+    events beside the plain version and the torch.matmul chain in the
+    geometry's compute type with its autograd backward (f32 with TF32
+    off), each with the function's FLOP over its time: the forward kernel
+    alone ("fwd", the key its plan picks), through the counted entry, which
+    packs the forward's stages each call ("fwd_call"), the backward through
+    its entry ("bwd") and its two passes apart (pass 1 the recompute and
+    back-propagation, pass 2 the weight gradients); `fwd_only`: the
+    forwards alone; `brief_v1`: v1 without the entry's forward and the
+    passes (v2's kernels). The plain version and the chain `slow_iters`
+    times each, the kernels `iters`, each after `warmup` calls (the plain
+    version and the chain after one).
+    Returns {v1: {name: ms}}."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
     xd, g, x, d = inputs
     p = xd.shape[0]
     ms = {}
+    slow = dict(iters=slow_iters, warmup=1)
     for pre in (False, True):
         ins = (x, d) if pre else (xd,)
         fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
@@ -4703,80 +4748,64 @@ def gen_times(w, dims, inputs, tag):
             kb = lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)
             pf = lambda: fm.fused_mlp_pe_plain(w, xd, dims)
             pb = lambda: fm.fused_mlp_pe_bwd_plain(w, xd, g, dims)
-        cc = lambda: fm._gen_bwd(w, ins, g, dims, pre=pre)
-        m = {"fwd_tc": cuda_ms(fm.fwd_fn(w, ins, dims, pre=pre, tc=True)),
-             "fwd_cc": cuda_ms(fm.fwd_fn(w, ins, dims, pre=pre, tc=False)),
-             "fwd_call": cuda_ms(kf), "bwd": cuda_ms(kb),
-             "bwd_cc": cuda_ms(cc), "plain_fwd": cuda_ms(pf),
-             "plain_bwd": cuda_ms(pb)}
-        lib_fwd, lib_leaves = library_chain(w, dims, pre=pre,
-                                            dtype=torch.float32)
+        fast = dict(iters=iters, warmup=warmup)
+        brief = brief_v1 and pre
+        m = {"fwd": cuda_ms(fm.fwd_fn(w, ins, dims, pre=pre), **fast)}
+        if not brief:
+            m["fwd_call"] = cuda_ms(kf, **fast)
+        m["plain_fwd"] = cuda_ms(pf, **slow)
+        if not fwd_only:
+            m["bwd"] = cuda_ms(kb, **fast)
+            m["plain_bwd"] = cuda_ms(pb, **slow)
+        lib_fwd, lib_leaves = library_chain(
+            w, dims, pre=pre, dtype=getattr(torch, dims.compute_dtype))
         with torch.no_grad():
-            m["lib_fwd"] = cuda_ms(lambda: lib_fwd(ins))
-        lin = [a.clone().requires_grad_() for a in ins] if pre else list(ins)
-        out_l = lib_fwd(lin)
-        wrt = list(lib_leaves.values()) + (lin if pre else [])
-        m["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-            out_l, wrt, g, retain_graph=True))
-        del out_l
-        for tc, key in ((True, "bwd"), (False, "bwd_cc")):
-            run1, run2, scratch = fm.bwd_pass_fns(w, ins, g, dims, pre=pre,
-                                                  tc=tc)
-            m[f"{key}_pass1"], m[f"{key}_pass2"] = cuda_ms(run1), cuda_ms(run2)
-            del run1, run2
+            m["lib_fwd"] = cuda_ms(lambda: lib_fwd(ins), **slow)
+        if not fwd_only:
+            lin = [a.clone().requires_grad_() for a in ins] if pre \
+                else list(ins)
+            out_l = lib_fwd(lin)
+            wrt = list(lib_leaves.values()) + (lin if pre else [])
+            m["lib_bwd"] = cuda_ms(lambda: torch.autograd.grad(
+                out_l, wrt, g, retain_graph=True), **slow)
+            del out_l
+            if not brief:
+                run1, run2, _ = fm.bwd_pass_fns(w, ins, g, dims, pre=pre)
+                m["bwd_pass1"] = cuda_ms(run1, **fast)
+                m["bwd_pass2"] = cuda_ms(run2, **fast)
+                del run1, run2
         name = "v1 (#7 / #8)" if pre else "v2 (#9 / #10)"
         rate = {k: (fwd_flop if "fwd" in k else
                     pass_flop[int(k[-1])] if "pass" in k else bwd_flop)
                 / v / 1e9 for k, v in m.items()}
-        log(f"[gen mlp] {tag} {name} P={p}: " + ", ".join(
-            f"{k} {v:.4f} ms ({rate[k]:.2f} TFLOP/s)" for k, v in m.items())
-            + f"; the function {fwd_flop:.4e} / {bwd_flop:.4e} FLOP (passes "
-            f"{pass_flop[1]:.4e} / {pass_flop[2]:.4e}), the scratch "
-            f"{scratch:.4e} bytes; TF32 "
+        log(f"[gen mlp] {tag} {name} P={p}: forward {gen_fwd_key(dims, pre)}"
+            + ("" if fwd_only else f", backward {gen_bwd_key(dims, pre)}")
+            + ": " + ", ".join(f"{k} {v:.4f} ms ({rate[k]:.2f} TFLOP/s)"
+                               for k, v in m.items())
+            + f"; the function {fwd_flop:.4e} / {bwd_flop:.4e} FLOP; the "
+            f"chain (lib) in {dims.compute_dtype}; TF32 "
             f"{torch.backends.cuda.matmul.allow_tf32}")
-        log(f"[gen mlp] {tag} {name}: the tensor cores' forward at "
-            f"{rate['fwd_tc']:.2f} TFLOP/s of f32 work, "
-            f"{rate['fwd_tc'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} of six bf16 "
-            f"products at 989 TFLOP/s; {m['fwd_cc'] / m['fwd_tc']:.2f}x the "
-            f"CUDA cores', {m['lib_fwd'] / m['fwd_tc']:.2f}x the chain's")
-        log(f"[gen mlp] {tag} {name}: the tensor cores' backward at "
-            f"{rate['bwd']:.2f} TFLOP/s of f32 work, "
-            f"{rate['bwd'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} of six bf16 "
-            f"products at 989 TFLOP/s (passes "
-            f"{rate['bwd_pass1'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f} / "
-            f"{rate['bwd_pass2'] * 1e12 / F32_SPLIT_OPS_PER_S:.3f}); "
-            f"{m['bwd_cc'] / m['bwd']:.2f}x the CUDA cores', "
-            f"{m['lib_bwd'] / m['bwd']:.2f}x the chain's")
+        peak = (F32_SPLIT_OPS_PER_S if dims.compute_dtype == "float32"
+                else BF16_OPS_PER_S)
+        log(f"[gen mlp] {tag} {name}: the forward at {rate['fwd']:.2f} "
+            f"TFLOP/s, {rate['fwd'] * 1e12 / peak:.3f} of the tensor cores' "
+            f"rate for {dims.compute_dtype}, {m['lib_fwd'] / m['fwd']:.2f}x "
+            f"the {dims.compute_dtype} chain's speed" + ("" if fwd_only else
+            f"; the backward at {rate['bwd']:.2f} TFLOP/s, "
+            f"{rate['bwd'] * 1e12 / peak:.3f}" + ("" if brief else
+            f" (passes {rate['bwd_pass1'] * 1e12 / peak:.3f} / "
+            f"{rate['bwd_pass2'] * 1e12 / peak:.3f})") +
+            f", {m['lib_bwd'] / m['bwd']:.2f}x the chain's speed"))
         ms[pre] = m
     return ms
-
-
-def gen_pair_times(w, dims, inputs, tag):
-    """Phase 20 (b) at bf16 8 x 128 (the parity nets): the forward alone
-    and the backward (v2) on the tensor cores, one bf16 product a pair,
-    beside the CUDA cores', on the same inputs, with CUDA events. Returns
-    {name: ms}."""
-    from spinnerf_tpu_torch.ops import fused_mlp as fm
-    xd, g, _, _ = inputs
-    flop = dict(zip(("fwd", "bwd"), (f * xd.shape[0]
-                                     for f in mlp_flops(dims))))
-    m = {"fwd_tc": cuda_ms(fm.fwd_fn(w, (xd,), dims, pre=False, tc=True)),
-         "fwd_cc": cuda_ms(fm.fwd_fn(w, (xd,), dims, pre=False, tc=False)),
-         "bwd": cuda_ms(lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, g, dims)),
-         "bwd_cc": cuda_ms(lambda: fm._gen_bwd(w, (xd,), g, dims,
-                                               pre=False))}
-    log(f"[gen mlp] {tag} v2 P={xd.shape[0]}: " + ", ".join(
-        f"{k} {v:.4f} ms ({flop[k[:3]] / v / 1e9:.2f} TFLOP/s)"
-        for k, v in m.items()) + f"; forward {m['fwd_cc'] / m['fwd_tc']:.2f}x"
-        f", backward {m['bwd_cc'] / m['bwd']:.2f}x")
-    return m
 
 
 def gen_trainer(scene, common, tag, steps, **cfg_kw):
     """Phase 20 (c): a Trainer at the MLP arm's configuration with
     `cfg_kw` for `steps` steps: both fields on the generic route, #9 / #10
-    launched twice a step each (the forward on the tensor cores) and the
-    wgmma kernels never, the PSNR rising. Returns its record."""
+    launched twice a step each on the keys their plans pick and the wgmma
+    kernels never, the PSNR rising. Returns its record (with the step's
+    ms and the peak device memory)."""
     import torch
 
     from spinnerf_tpu_torch.config import Config
@@ -4791,9 +4820,8 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
     bk, fk = gen_bwd_key(dims["fine"]), gen_fwd_key(dims["fine"])
     if (bk, fk) != (gen_bwd_key(dims["coarse"]), gen_fwd_key(dims["coarse"])):
         raise AssertionError(f"{tag}: the fields take different kernels")
-    if fk != "fwd_tc":
-        raise AssertionError(f"{tag}: the forward is not on the tensor cores")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m1 = counted(lambda: tr.fit(1), {("gen", False): {fk: 2, bk: 2}})
     want = {("gen", False): {fk: 2 * (steps - 1), bk: 2 * (steps - 1)}}
@@ -4803,8 +4831,9 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
     rec = {"steps": steps, "psnr_step_1": float(m1["psnr"]),
            "psnr_end": float(m_end["psnr"]), "loss_end": float(m_end["loss"]),
            "ms_per_step": dt * 1e3 / steps,
-           "launches_per_step": {fk: 2, bk: 2}, "backward": bk,
-           "dims": dims["fine"]._asdict()}
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {fk: 2, bk: 2}, "forward": fk,
+           "backward": bk, "dims": dims["fine"]._asdict()}
     log(f"[gen mlp] trainer {tag}: {json.dumps(rec)}")
     if not math.isfinite(rec["loss_end"]) or not (
             rec["psnr_end"] > rec["psnr_step_1"]):
@@ -4816,8 +4845,8 @@ def gen_trainer(scene, common, tag, steps, **cfg_kw):
 def gen_full_run_smoke(exp_root):
     """Phase 20 (d): `tools.full_run --smoke --model mlp` in this process
     on the card (its f32 2 x 32 field on the generic route): exit 0, every
-    stage, #9 and #10 launched on the tensor cores, the CUDA cores' #9 and
-    #10 and the wgmma kernels not."""
+    stage, #9 and #10 launched on the fused tensor-core kernels, the
+    layer-streamed and the wgmma kernels not."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4842,7 +4871,7 @@ def gen_full_run_smoke(exp_root):
     if (rc != 0 or set(res["stage_seconds"]) != {
             "mvseg", "prepare", "inpaint_guidance", "fit", "eval"}
             or min(fm.launches_gen["fwd_tc"], fm.launches_gen["bwd_tc"]) < 1
-            or fm.launches_gen["fwd"] or fm.launches_gen["bwd"]
+            or fm.launches_gen["fwd_ls"] or fm.launches_gen["bwd_ls"]
             or any(fm.launches.values())
             or not all(math.isfinite(v) for v in res["summary"].values())):
         raise AssertionError(f"full_run --smoke --model mlp: {out}")
@@ -4852,9 +4881,9 @@ def gen_full_run_smoke(exp_root):
 def gen_mlp_phase(exp_root, scene, common, points):
     """Phase 20: the fused MLP on the generic kernels. points: semantic ->
     (pts [R, 128, 3], viewdirs [R, 3]), the MLP arm's fine-pass rays.
-    Returns the kernels line's records of #9, #10, #7 and #8 on the
-    generic route: the forwards and the backwards, each on the tensor cores
-    and on the CUDA cores."""
+    Returns
+    the kernels line's records of #9, #10, #7 and #8 on the generic route:
+    each on the fused tensor-core kernels and on the layer-streamed ones."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -4881,8 +4910,9 @@ def gen_mlp_phase(exp_root, scene, common, points):
     log("[gen mlp] bf16 8 x 256: route wgmma, #9 / #10 and #7 / #8 on the "
         "wgmma kernels")
 
-    # (a) every configuration, (b) times at (a)1
-    held = {}
+    # (a) every configuration; the v1 entry point with the points' gradient
+    # at (a)1 (the fused kernels) and at f32 width 1,024 (layer-streamed)
+    held, v1_entry = {}, {}
     for i, (tag, compute, depth, width, octaves, semantic, n) in enumerate(
             GEN_CASES):
         pts, vd = points[semantic]
@@ -4890,17 +4920,16 @@ def gen_mlp_phase(exp_root, scene, common, points):
         dims, w = gen_field_weights(compute, depth, width, octaves, semantic,
                                     dev, 10 + i)
         t0 = time.perf_counter()
-        errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i,
-                                       cc_fwd=i == 0)
+        errs, errs1, inputs = gen_hold(tag, dims, w, pts, vd, 30 + i)
         held[tag] = {"v2": errs, "v1": errs1,
                      "seconds": time.perf_counter() - t0}
-        if tag == "bf16 8x128":
-            pair_ms = gen_pair_times(w, dims, inputs, tag)
-        if errs["backward"] == "bwd":
-            past_plan = tag      # both CUDA-core kernels, held and counted
-        if i == 0:
-            first = (dims, w, inputs)
-            # the v1 entry point on these points, with their gradient
+        if tag in ("f32 width 512", "f32 width 1024"):
+            want = ("fwd_ls", "bwd_tc" if width == 512 else "bwd_ls")
+            if (errs["forward"], errs["backward"]) != want or (
+                    errs1["forward"], errs1["backward"]) != want:
+                raise AssertionError(f"{tag}: kernels {errs['forward']}, "
+                                     f"{errs['backward']}, want {want}")
+        if tag in (GEN_CASES[0][0], "f32 width 1024"):
             pts_a = pts.clone().requires_grad_()
 
             def entry():
@@ -4908,14 +4937,34 @@ def gen_mlp_phase(exp_root, scene, common, points):
                 out.backward(inputs[1][:out.shape[0] * out.shape[1]]
                              .reshape(out.shape))
 
-            counted(entry, {("gen", True): {gen_fwd_key(dims, True): 1,
-                                            gen_bwd_key(dims, True): 1}})
+            keys = {gen_fwd_key(dims, True): 1, gen_bwd_key(dims, True): 1}
+            counted(entry, {("gen", True): keys})
+            v1_entry.update(keys)
             del pts_a
         del inputs
         torch.cuda.empty_cache()
-    dims, w, inputs = first
-    ms = gen_times(w, dims, inputs, GEN_CASES[0][0])
-    del first, inputs
+
+    # (b) times: the fused kernels at (a)1, the layer-streamed ones at
+    # GEN_WIDE on N_POINTS
+    tag, compute, depth, width, octaves, semantic, n = GEN_CASES[0]
+    dims, w = gen_field_weights(compute, depth, width, octaves, semantic,
+                                dev, 10)
+    inputs = gen_inputs(dims, *points[False], 30)
+    ms = {tag: gen_times(w, dims, inputs, tag, iters=10)}
+    meta = {tag: (dims, w)}
+    del inputs
+    torch.cuda.empty_cache()
+    wide = {}
+    for j, (tag, compute, width, fwd_only) in enumerate(GEN_WIDE):
+        dims, w = gen_field_weights(compute, 8, width, (10, 4), False, dev,
+                                    60 + j)
+        wide[tag] = (dims, w, gen_inputs(dims, *points[False], 70 + j),
+                     fwd_only)
+    for tag, (dims, w, ins, fwd_only) in wide.items():
+        ms[tag] = gen_times(w, dims, ins, tag, fwd_only=fwd_only, iters=2,
+                            slow_iters=1, warmup=1, brief_v1=True)
+        meta[tag] = (dims, w)
+    del wide
     torch.cuda.empty_cache()
 
     # (c) trainers, (d) full_run --smoke
@@ -4924,82 +4973,84 @@ def gen_mlp_phase(exp_root, scene, common, points):
     bf16 = gen_trainer(scene, common, "bf16_w128", GEN_BF16_STEPS,
                        netwidth=128, netwidth_fine=128)
     torch.cuda.empty_cache()
+    wide_tr = gen_trainer(scene, common, "bf16_w1024", GEN_WIDE_STEPS,
+                          netwidth=1024, netwidth_fine=1024)
+    if (wide_tr["forward"], wide_tr["backward"]) != ("fwd_ls", "bwd_ls"):
+        raise AssertionError(f"the width-1,024 trainer took "
+                             f"{wide_tr['forward']}, {wide_tr['backward']}")
+    torch.cuda.empty_cache()
     smoke = gen_full_run_smoke(exp_root)
     torch.cuda.empty_cache()
 
     records = []
-    p = GEN_CASES[0][6]
-    # (name, line, key): each function on the tensor cores and on the CUDA
-    # cores (counted past the plans, in (a)'s case past_plan)
-    rows = {False: (("fused_mlp_pe_fwd_gen_tc", 411, "fwd_tc"),
-                    ("fused_mlp_pe_fwd_gen", 411, "fwd_cc"),
-                    ("fused_mlp_pe_bwd_gen_tc", 616, "bwd"),
-                    ("fused_mlp_pe_bwd_gen", 424, "bwd_cc")),
-            True: (("fused_mlp_fwd_gen_tc", 106, "fwd_tc"),
-                   ("fused_mlp_fwd_gen", 106, "fwd_cc"),
-                   ("fused_mlp_bwd_gen_tc", 294, "bwd"),
-                   ("fused_mlp_bwd_gen", 115, "bwd_cc"))}
-    meta = ("flips", "forward", "backward")
+    # (name, line, key, timed geometry, launches' trainer): each function on
+    # the fused tensor-core kernels (timed at (a)1, launched by (c)'s f32
+    # trainer or the v1 entry at (a)1) and on the layer-streamed ones (timed
+    # at f32 8 x 1,024, launched by (c)'s width-1,024 trainer or the v1
+    # entry at f32 width 1,024)
+    main_tc, main_ls = GEN_CASES[0][0], GEN_WIDE[0][0]
+    rows = {False: (("fused_mlp_pe_fwd_gen_tc", 411, "fwd", main_tc),
+                    ("fused_mlp_pe_fwd_gen_ls", 411, "fwd", main_ls),
+                    ("fused_mlp_pe_bwd_gen_tc", 616, "bwd", main_tc),
+                    ("fused_mlp_pe_bwd_gen_ls", 616, "bwd", main_ls)),
+            True: (("fused_mlp_fwd_gen_tc", 106, "fwd", main_tc),
+                   ("fused_mlp_fwd_gen_ls", 106, "fwd", main_ls),
+                   ("fused_mlp_bwd_gen_tc", 294, "bwd", main_tc),
+                   ("fused_mlp_bwd_gen_ls", 294, "bwd", main_ls))}
+    meta_keys = ("flips", "forward", "backward")
+    err_case = {main_tc: GEN_CASES[0][0], main_ls: "f32 width 1024"}
     for pre in (False, True):
-        fwd_flop, bwd_flop = (f * p for f in mlp_flops(dims, pre))
-        n_w = sum(v.numel() for v in w.values())
-        enc = p * (dims.in_dim + dims.dir_dim) * 4 if pre else p * 32
-        nbytes = {"fwd": enc + n_w * 4 + p * (4 + dims.out_extra) * 4,
-                  "bwd": (2 if pre else 1) * enc + p * (4 + dims.out_extra)
-                  * 4 + 2 * n_w * 4}
         v = "v1" if pre else "v2"
-        errs = {n: e for n, e in held[GEN_CASES[0][0]][v].items()
-                if n not in meta}
-        cc_errs = {n: e for n, e in held[past_plan][v].items()
-                   if n not in meta}
-        m = ms[pre]
-        for name, line, k in rows[pre]:
-            fb = k[:3]
-            flop = fwd_flop if fb == "fwd" else bwd_flop
-            bytes_ms = nbytes[fb] / HBM_BYTES_PER_S * 1e3
-            # the tensor cores do six bf16 products for each f32 one; the
-            # CUDA cores f32 FMAs
-            tc = k in ("fwd_tc", "bwd")
-            ops_ms = flop / (F32_SPLIT_OPS_PER_S if tc else F32_OPS_PER_S) \
-                * 1e3
-            if not tc:
-                launches, frm = 1, (f"(a)'s {past_plan} case, past the "
-                                    f"tensor cores' plan: its counted call")
-            elif pre:
-                launches, frm = 1, "make_fused_field_fn at (a)1"
+        for name, line, fb, geo in rows[pre]:
+            dims, w = meta[geo]
+            p = N_POINTS
+            m = ms[geo][pre]
+            bound = gen_bound_ms(dims, pre, p)
+            errs = {n: e for n, e in held[err_case[geo]][v].items()
+                    if n not in meta_keys}
+            ls = geo == main_ls
+            key = f"{fb}_ls" if ls else f"{fb}_tc"
+            if pre:
+                launches = v1_entry[key]
+                frm = (f"make_fused_field_fn at (a)'s "
+                       f"{err_case[geo]} case")
             else:
-                launches = (f32["launches_per_step"][f"{fb}_tc"]
-                            * GEN_F32_STEPS)
-                frm = f"(c)'s f32 trainer, {GEN_F32_STEPS} steps"
-            err, err_from = {
-                "fwd_tc": (errs["out"][2], "(a)1"),
-                "fwd_cc": (errs["out_cc"][2], "(a)1, uncounted"),
-                "bwd": (max(e[2] for n, e in errs.items()
-                            if not n.startswith("out")), "(a)1"),
-                "bwd_cc": (max(e[2] for n, e in cc_errs.items()
-                               if not n.startswith("out")),
-                           f"(a)'s {past_plan} case")}[k]
+                tr = wide_tr if ls else f32
+                launches = tr["launches_per_step"][key] * tr["steps"]
+                frm = f"(c)'s trainer at {tr['dims']['width']} wide, " \
+                      f"{tr['dims']['compute_dtype']}, {tr['steps']} steps"
+            err = (errs["out"][2] if fb == "fwd" else
+                   max(e[2] for n, e in errs.items() if n != "out"))
             rec = {
                 "name": name, "route": "cuda",
                 "source": "spinnerf_tpu_torch/csrc/fused_mlp_gen.cu",
                 "replaces": f"spinnerf_tpu/ops/fused_mlp.py:{line}",
                 "launches": launches, "launches_from": frm,
-                "max_abs_err": err, "max_abs_err_from": err_from,
-                "ms": m[k], "plain_ms": m[f"plain_{fb}"],
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bound_ms_f32_cuda_cores": flop / F32_OPS_PER_S * 1e3,
-                "bound_ms_3xtf32": flop / F32_TF32_OPS_PER_S * 1e3,
+                "max_abs_err": err,
+                "max_abs_err_from": f"(a)'s {err_case[geo]} case",
+                "ms": m[fb], "plain_ms": m[f"plain_{fb}"],
+                "bound_ms": bound[fb][0], "bound_by": bound[fb][1],
                 "library_ms": m[f"lib_{fb}"],
-                "library": "f32 torch.matmul chain, TF32 off",
-                "compute_dtype": "float32", "points": p}
-            if fb == "bwd":
-                rec.update(pass1_ms=m[f"{k}_pass1"], pass2_ms=m[f"{k}_pass2"])
-            if tc:
-                rec.update(units="tensor cores, f32 as six bf16 products",
-                           cuda_cores_ms=m[f"{fb}_cc"])
-            if k == "fwd_tc":
+                "library": f"{dims.compute_dtype} torch.matmul chain, "
+                           f"TF32 off",
+                "compute_dtype": dims.compute_dtype, "width": dims.width,
+                "points": p,
+                "units": "tensor cores, f32 as six bf16 products"}
+            if fb == "bwd" and "bwd_pass1" in m:
+                rec.update(pass1_ms=m["bwd_pass1"], pass2_ms=m["bwd_pass2"])
+            elif "fwd_call" in m:
                 rec["entry_ms"] = m["fwd_call"]
+            if ls:   # the other layer-streamed geometries of (b)
+                for tag, (dims2, _) in meta.items():
+                    if tag in (main_tc, main_ls) or fb not in ms[tag][pre]:
+                        continue
+                    b2 = gen_bound_ms(dims2, pre, p)[fb]
+                    m2 = ms[tag][pre]
+                    rec[tag] = {"ms": m2[fb], "plain_ms": m2[f"plain_{fb}"],
+                                "bound_ms": b2[0], "bound_by": b2[1],
+                                "library_ms": m2[f"lib_{fb}"],
+                                "library": f"{dims2.compute_dtype} "
+                                           f"torch.matmul chain"}
             records.append(rec)
     total = time.perf_counter() - t_start
     log(json.dumps({"gen_mlp": {
@@ -5010,11 +5061,11 @@ def gen_mlp_phase(exp_root, scene, common, points):
             for v in ("v2", "v1")}, **{f"{v}_flipped_points": h[v]["flips"]
                                        for v in ("v2", "v1")}}
                   for t, h in held.items()},
-        "times_ms": {"v2": ms[False], "v1": ms[True],
-                     "bf16_8x128_v2": pair_ms},
+        "times_ms": {t: {"v2": m[False], "v1": m[True]}
+                     for t, m in ms.items()},
         "forward": {t: h["v2"]["forward"] for t, h in held.items()},
         "backward": {t: h["v2"]["backward"] for t, h in held.items()},
-        "trainers": {"f32": f32, "bf16_w128": bf16},
+        "trainers": {"f32": f32, "bf16_w128": bf16, "bf16_w1024": wide_tr},
         "full_run_smoke": smoke, "seconds": total}}))
     log(f"[phase 20] {total:.1f} s")
     return records
@@ -5529,7 +5580,8 @@ def main(argv):
     for src, kernel, want in (("fused_mlp_pe", "fm_fwd_kernel", 2),
                               ("hash_encode_win", "hf_fwd_kernel", 1),
                               ("kbench_cal", "kc_wgmma_kernel", 8),
-                              ("fused_mlp_gen", "ft_fwd_kernel", 4)):
+                              ("fused_mlp_gen", "ft_fwd_kernel", 4),
+                              ("fused_mlp_gen", "ls_prod_kernel", 2)):
         res = {n: r for n, r in kernel_resources(build_logs[src]).items()
                if kernel in n}
         log(f"[build] {kernel} (registers, stack, spill stores, spill "

@@ -1,16 +1,16 @@
 // The fused NeRF MLP at every compute type and geometry JAX's kernels take,
-// on the CUDA cores of Hopper (sm_90a): forward and backward of the v2 pair
-// (encoding in the kernel) and of the v1 pair (encodings given, input
+// on the tensor cores of Hopper (sm_90a): forward and backward of the v2
+// pair (encoding in the kernel) and of the v1 pair (encodings given, input
 // gradients returned).
 //
 // Replaces, beside csrc/fused_mlp_pe.cu (which stays the route at the one
 // configuration its wgmma tiles take: bf16, depth 8, skip 4, width 256,
 // view width 128, 128 / 128 encoding lanes, 10 / 4 octaves), the Pallas
 // kernels of spinnerf_tpu/ops/fused_mlp.py:
-//   v2 forward  _fwd_pe_kernel (:411; pallas_call :574)  fg_fwd
-//   v2 backward _bwd_pe_kernel (:424; pallas_call :616)  fg_bwd
-//   v1 forward  _fwd_kernel    (:106; pallas_call :248)  fg_fwd_pre
-//   v1 backward _bwd_kernel    (:115; pallas_call :294)  fg_bwd_pre
+//   v2 forward  _fwd_pe_kernel (:411; pallas_call :574)  fg_fwd_tc, fg_fwd_ls
+//   v2 backward _bwd_pe_kernel (:424; pallas_call :616)  fg_bwd_tc, fg_bwd_ls
+//   v1 forward  _fwd_kernel    (:106; pallas_call :248)  fg_fwd_tc_pre, ..._ls
+//   v1 backward _bwd_kernel    (:115; pallas_call :294)  fg_bwd_tc_pre, ..._ls
 // at any of their configurations within these limits (ops/fused_mlp.py
 // checks them first and raises ValueError naming the one broken):
 // compute type bf16 or f32; depth 1-32 with depth != skip + 1 (JAX's
@@ -21,117 +21,95 @@
 // It computes what the plain versions in ops/fused_mlp.py compute
 // (fused_mlp_pe_plain, fused_mlp_pe_bwd_plain, fused_mlp_fwd_plain,
 // fused_mlp_bwd_plain), roundings included. Every operand of a product is
-// rounded to the compute type (bf16: __float2bfloat16_rn and back; the
-// wrapper rounds the weights once a call, gen_pack, and the kernels round
-// the activations and gradients where the plain version does); products and
-// sums are f32 (a product of two bf16 values is exact in f32, so one FMA
-// path serves both types); f32 bias, ReLU, then the cast. The skip concat
-// [x, h] feeds layer skip + 1 (a depth <= skip has none); the sigma (and
-// semantic) head reads the last trunk output; then the feature layer, the
-// view layer on [feat, d] and the rgb head. v2 encodes with the full-range
-// sinf and pi/2 added in f32, as fm_fwd_kernel does: never build with
-// --use_fast_math. The bias gradients are sums over the bf16-rounded
-// gradients in v2 and over the f32 ones in v1 (JAX's difference, which the
-// plain backward versions keep).
+// rounded to the compute type (bf16: __float2bfloat16_rn; the weights once
+// a call as they are split into stages, the activations and gradients
+// where the plain version rounds them); products and sums are f32 (a
+// product of two bf16 values is exact in f32); f32 bias, ReLU, then the
+// cast. The skip concat [x, h] feeds layer skip + 1 (a depth <= skip has
+// none); the sigma (and semantic) head reads the last trunk output; then
+// the feature layer, the view layer on [feat, d] and the rgb head. v2
+// encodes with the full-range sinf and pi/2 added in f32, as fm_fwd_kernel
+// does: never build with --use_fast_math. The bias gradients are sums over
+// the bf16-rounded gradients in v2 and over the f32 ones in v1 (JAX's
+// difference, which the plain backward versions keep). f32 runs as six
+// exact bf16 products on wgmma (split2, the note above ft_k16).
 //
-// What bounds it on an H100: arithmetic. At 8 x 256 the function needs 1.19
-// MFLOP a point forward and 3.49 backward (csrc/fused_mlp_pe.cu's note)
-// against 32 bytes of input; on the CUDA cores (132 SMs x 128 FMA lanes x 2
-// a clock, 67 TFLOP/s at 1.98 GHz) that bounds 262,144 points at about 4.7
-// ms forward and 13.7 ms backward. The forward and the backward of the
-// geometries their tensor-core plans refuse (gen_fwd_plan, gen_bwd_plan)
-// run on the CUDA cores (fg_fwd_kernel, fg_bwd_kernel): the simple design
-// that is right first. Every other geometry runs on the tensor cores (the
-// ft_ kernels, below), with f32 as six exact bf16 products.
+// What bounds it on an H100: the products. At 8 x 256 the function needs
+// 1.19 MFLOP a point forward and 3.49 backward (csrc/fused_mlp_pe.cu's
+// note) against 32 bytes of input; at 8 x 1,024 (view width 512) 18.1 and
+// 54.1 (54.3 with v1's input gradients). As six bf16 products at 989
+// TFLOP/s, f32 at 8 x 1,024 bounds 262,144 points at 28.8 ms forward and
+// 86.0 ms backward; bf16 at a sixth of that. Two routes, picked per
+// direction from the dims alone before launch (ops/fused_mlp.py::
+// gen_fwd_plan, gen_bwd_plan, gen_layer_plan; each geometry takes exactly
+// one):
 //
-// The block product (block_product). A block of 256 threads owns BM points
-// (64, 32, 16 or 8: the largest whose buffers fit, fg_bm) and keeps their
-// activations in shared memory, feature-major ([feature][BM] f32, so that a
-// thread's 4 points are one 16-byte load). A product [BM x N] walks N in
-// passes of 4,096 / BM columns; each thread owns 4 points x 4 columns, the
-// lanes of a warp neighbouring points (their activation loads are
-// consecutive, their weight loads broadcasts). Weights are staged in tiles
-// of 16 rows x the pass's columns by cp.async, two tiles in flight, so each
-// block reads each weight once a pass from L2. A layer whose input is a
-// concat ([x, h], [feat, d]) is a product over two segments; v2 multiplies
-// only the encodings' unpadded lanes (the padding lanes are zero), v1 all
-// of them, as JAX's v1 kernel does. The heads (1-3 columns) are plain dot
-// products, a thread a (point, head).
+// - The fused tensor-core kernels (ft_fwd_kernel; ft_bwd_kernel, then
+//   ft_dw_kernel): a block of 64 points keeps every activation of its
+//   points in shared memory as f32 rows and walks the layers one after
+//   another. wgmma needs 64 rows, so a block cannot take fewer points, and
+//   its buffers (2 x 64 x 4 (wp + 8) bytes forward) cap the width: f32 to
+//   256 forward and 512 backward with 128-lane encodings.
 //
-// Shared memory (bytes): 4 BM (in_dim + dir_dim + 2 width + 8) for the
-// encodings, two activation buffers and the cotangent, plus 2 x 16 x 4,096 /
-// BM x 4 for the weight tiles: 206,848 at BM 64, width 256 (above 48 KB,
-// so cudaFuncSetAttribute), 180,736 at BM 16, width 1,024, and 213,248 at
-// BM 8, width 2,048 with 256-lane encodings: the largest width.
+// - The layer-streamed kernels (ls_, every wider geometry: f32 8 x 512
+//   forward, 8 x 1,024 both ways). No activation has to fit in shared
+//   memory: each layer is one product [points x K] x [K x N] over a chunk
+//   of points (ls_prod_kernel: 128 points x 128 columns a block, a
+//   warpgroup each 64 points on m64n128k16 with both operands in shared
+//   memory, K in 64-deep stages that a producer warp streams with three
+//   bulk copies into an mbarrier ring). Between layers the activations lie
+//   in device memory as the next product's operand: its bf16 parts (three
+//   at f32, one at bf16), written by the previous layer's epilogue (bias,
+//   ReLU, the rounding the plain version makes, then the split), so that
+//   f32 stays six exact products and an activation is split once, not once
+//   a tile. At f32 8 x 1,024 a layer's operand is 1.5 GiB for 262,144
+//   points, in two buffers used in turn; a block reads its 128 points'
+//   operand tiles once per 128 output columns (L2 serves the repeats: the
+//   column tiles of one row tile are neighbours in the grid). Concat layers
+//   are products over two segments. The heads (1-3 columns) are partial
+//   sums in each column tile's epilogue, added in tile order by
+//   ls_heads_kernel: no atomics. The backward's first pass runs the same
+//   products (the recompute, then the back-propagation: G_feat, the last
+//   trunk layer's G with the heads' terms, down the trunk; v1's dx and dd
+//   as products of their own) and writes the scratch that ft_dw_kernel
+//   reads (each layer's input A, the ReLU masks as the sign of a zero, each
+//   layer's output gradient G, block-major); the second pass is
+//   ft_dw_kernel's. What bounds it beyond the products: every k16 step
+//   waits for its six products before adding them to the sum (a fresh
+//   accumulator a step: the tensor core's accumulation truncates), a
+//   stage's bytes (96 KB at f32) against 2 ring slots, and the operand
+//   traffic through L2.
 //
-// The backward on the CUDA cores (the geometries gen_bwd_plan refuses),
-// two kernels and a sum, as in the wgmma design. The weight gradient dW =
-// A^T G sums over every point, which a block cannot finish:
-// - fg_bwd_kernel recomputes the block's forward, writes each layer's input
-//   activations A (the ReLU mask kept as the sign of a zero: a unit whose
-//   pre-activation is positive but rounds to 0 stores -0) and the
-//   cotangent to scratch, then back-propagates, writing each layer's
-//   output gradient G; in v1 also dx (the layer-0 and skip-layer products'
-//   encoding columns, added by the thread that wrote the first) and dd.
-// - fg_dw_kernel reduces A^T r(G) and the bias sums of G. A block owns a
-//   64 x 64 tile of one layer's dW and a split of the points; a thread 4 x
-//   4 entries, summed in f32 over a stage of 32 points and then added to an
-//   f64 sum. The bias sums (of the tiles of row 0) add each point in f64:
-//   a sum of a zero-mean gradient cancels, and f32 stages of 32 points
-//   lost 1.09e-7 of the semantic head's bias sum against the plain f32
-//   version's 6.1e-9 (relative to float64's, at 131,072 points on the
-//   H100). Each split writes its f64 partial sums to scratch.
-// - fg_split_sum_kernel adds the splits in split order (and a chunk's sum
-//   to the sum of the chunks before it, in chunk order), then writes the f32
-//   gradients in the weights' layout. No atomics: two launches on the same
-//   inputs are bit-equal (the contract ROADMAP.md B1e gave #8 and #10).
-// The scratch is P x cols f32, cols = in_dim + dir_dim + 2 (depth + 1)
-// width + 2 view_width + 4 + out_extra: 5,124 columns at 8 x 256, 5.37 GB
-// at P = 262,144; 19,716 at width 1,024 (view 512), 20.7 GB. So the points
-// run in chunks of at most 4 GiB (FG_SCRATCH_BYTES), each chunk a
-// backward kernel, a dW kernel and a sum: 2 chunks of 131,072 points
-// (2.69 GB) at 8 x 256, 5 of 52,480 (4.14 GB) at width 1,024. The split
-// partial sums take splits x (weights) f64, 36 MB at 8 x 256.
+// Both backwards sum dW in a fixed order (f64 partial sums per split of the
+// points, added in split and chunk order by fg_split_sum_kernel): two
+// launches on the same inputs are bit-equal (the contract ROADMAP.md B1e
+// gave #8 and #10). The scratch is P x cols f32, cols = in_dim + dir_dim +
+// 2 (depth + 1) width + 2 view_width + 4 + out_extra: 5,124 columns at
+// 8 x 256, 19,716 at width 1,024 (view 512); the points run in chunks of
+// at most 4 GiB of it (FG_SCRATCH_BYTES): 2 chunks of 131,072 points at
+// 8 x 256, 5 of 52,480 at width 1,024.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#define FG_THREADS 256
-#define FG_TM 4                    // points a thread in a product
-#define FG_TN 4                    // columns a thread in a product
-#define FG_KT 16                   // rows of a staged weight tile
-#define FG_TILE 4096               // points x columns of one pass
 #define FG_MAX_DEPTH 32
 #define FG_MAX_JOBS (FG_MAX_DEPTH + 5)
+#define FG_MAX_WIDTH 2048          // the widest layer (GEN_LIMITS)
 #define FG_SMEM_MAX 232448         // a block's shared memory on the H100
-#define FG_GROWS 8                 // cotangent rows in shared memory
-#define FG_DT 64                   // fg_dw_kernel's output tile side
-#define FG_PT 32                   // points a stage of fg_dw_kernel
-#define FG_PS (FG_PT + 4)          // the stride of its staged rows
 #define FG_SCRATCH_BYTES (4LL << 30)
-#define FG_DW_BLOCKS 1056          // fg_dw_kernel's target grid: 8 an SM
 
-// Bound from ops/fused_mlp.py (_FgParams), field for field. The matrices
-// are f32, already rounded to the compute type (gen_pack): tw / feat_w /
-// view_w / rgb_w in the JAX layout [in, out] for the forward, twt / featt /
-// viewt / rgbt their transposes [out, in] for the backward (sigma_w and
-// sem_w serve as their own). Biases are the f32 weights as they are.
-// gw / gb: each gradient's element offset in the flat f32 gradient buffer
-// (the weights' order), by job: trunk 0..depth-1, feat, view, rgb, sigma,
-// sem.
+// Bound from ops/fused_mlp.py (_FgParams), field for field. The heads'
+// matrices are f32, rounded to the compute type (gen_heads): rgb_w
+// [view_width][3], sigma_w and sem_w [width]; the biases are the f32
+// weights as they are. The trunk, feature and view matrices come as bf16
+// weight stages (gen_ring, gen_ls_ring). gw / gb: each gradient's element
+// offset in the flat f32 gradient buffer (the weights' order), by job:
+// trunk 0..depth-1, feat, view, rgb, sigma, sem.
 struct FgParams {
-  const float* tw[FG_MAX_DEPTH];
   const float* tb[FG_MAX_DEPTH];
-  const float* twt[FG_MAX_DEPTH];
-  const float* feat_w;
   const float* feat_b;
-  const float* featt;
-  const float* view_w;
   const float* view_b;
-  const float* viewt;
   const float* rgb_w;
   const float* rgb_b;
-  const float* rgbt;
   const float* sigma_w;
   const float* sigma_b;
   const float* sem_w;
@@ -151,26 +129,13 @@ struct FgParams {
   int bf16;
 };
 
-// Scratch columns (features), each P f32 long. A layer's input is
+// The backward's scratch columns (features). A layer's input is
 // contiguous: the skip layer's [x, h_skip] and the view layer's [feat, d].
 struct FgLayout {
   int cols;
   int xe, feat, de, v, gfeat, gv, gin;
   int h[FG_MAX_DEPTH];
   int gz[FG_MAX_DEPTH];
-};
-
-// One weight gradient of fg_dw_kernel: A (k scratch columns from a_off), G
-// (n columns from g_off), its tiles from tile0 (ntn across n), and where
-// its weight and bias sums go in a split's record.
-struct FgJob {
-  int a_off, k, g_off, n, tile0, ntn;
-  long long w_off, b_off;
-};
-
-struct FgPlan {
-  int n_jobs, tiles;
-  FgJob job[FG_MAX_JOBS];
 };
 
 static void fg_layout(const FgParams& p, FgLayout* L) {
@@ -204,16 +169,8 @@ __device__ __forceinline__ float rnd(float x, int bf) {
   return bf ? bfr(x) : x;
 }
 
-__device__ __forceinline__ float4 rnd4(float4 a, int bf) {
-  return bf ? make_float4(bfr(a.x), bfr(a.y), bfr(a.z), bfr(a.w)) : a;
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
 }
 
 // relu(z) in the compute type; with `mark`, a positive z that rounds to 0
@@ -231,12 +188,6 @@ __device__ __forceinline__ float relu_grad(float g, float h, bool pre,
   return pre ? r : rnd(r, bf);
 }
 
-__device__ __forceinline__ float4 relu_grad4(float4 g, float4 h, bool pre,
-                                             int bf) {
-  return make_float4(relu_grad(g.x, h.x, pre, bf), relu_grad(g.y, h.y, pre, bf),
-                     relu_grad(g.z, h.z, pre, bf), relu_grad(g.w, h.w, pre, bf));
-}
-
 // One lane j of the positional encoding of xyz (3 floats in device memory)
 // with nf octaves: [x, sin(x 2^0), cos(x 2^0), sin(x 2^1), ...], zero past
 // 3 (1 + 2 nf); cos is sin(x 2^f + pi/2) with the f32 add.
@@ -247,478 +198,6 @@ __device__ __forceinline__ float pe_lane(const float* xyz, int j, int nf) {
   const float scale = __int_as_float((127 + f) << 23);   // 2^f, exact
   const float xb = __fmul_rn(__ldg(xyz + r % 3), scale);
   return sinf(r >= 3 ? __fadd_rn(xb, 1.57079637f) : xb);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = ok ? 4 : 0;       // 0: fill with zeros, read nothing
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// the block product: out[BM x n_out] = sum over segments of A_s B_s, A_s in
-// shared memory ([k][BM]), B_s in device memory ([k][ldb], row-major)
-// ---------------------------------------------------------------------------
-
-struct Seg {
-  const float* a;
-  int k;
-  const float* b;
-  int ldb;
-};
-
-__device__ __forceinline__ void tile_of(const Seg* seg, int nseg, int t,
-                                        int* s, int* k0) {
-  int i = 0;
-  while (i + 1 < nseg) {
-    const int n_i = (seg[i].k + FG_KT - 1) / FG_KT;
-    if (t < n_i) break;
-    t -= n_i;
-    ++i;
-  }
-  *s = i;
-  *k0 = t * FG_KT;
-}
-
-// Stage weight tile t of the pass from column n0: FG_KT rows x nt columns,
-// zero past the segment's rows and n_out.
-__device__ __forceinline__ void stage_tile(const Seg* seg, int nseg, int t,
-                                           int n0, int n_out, int nt,
-                                           float* dst) {
-  int s, k0;
-  tile_of(seg, nseg, t, &s, &k0);
-  const Seg g = seg[s];
-  for (int idx = threadIdx.x; idx < FG_KT * nt; idx += FG_THREADS) {
-    const int kk = idx / nt, nn = idx - kk * nt;
-    const int k = k0 + kk, n = n0 + nn;
-    const bool ok = k < g.k && n < n_out;
-    cp_async4(dst + idx, ok ? g.b + (long long)k * g.ldb + n : g.b, ok);
-  }
-  cp_async_commit();
-}
-
-__device__ __forceinline__ void fma_step(float (&acc)[FG_TM][FG_TN],
-                                         const float* a, const float* b) {
-  const float4 av = ld4(a), bv = ld4(b);
-  const float ar[FG_TM] = {av.x, av.y, av.z, av.w};
-  const float br[FG_TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-  for (int i = 0; i < FG_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < FG_TN; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-}
-
-// epi(pt0, n, v): the sums of column n at the thread's points pt0..pt0+3.
-// Every thread of the block calls this; it ends with a barrier.
-template <class Epi>
-__device__ __forceinline__ void block_product(const Seg* seg, int nseg,
-                                              int n_out, int bm, float* wt,
-                                              Epi epi) {
-  const int pgs = bm / FG_TM;
-  const int nt = FG_TILE / bm;
-  const int pg = threadIdx.x % pgs, cg = threadIdx.x / pgs;
-  int n_tiles = 0;
-  for (int s = 0; s < nseg; ++s) n_tiles += (seg[s].k + FG_KT - 1) / FG_KT;
-  for (int n0 = 0; n0 < n_out; n0 += nt) {
-    float acc[FG_TM][FG_TN];
-#pragma unroll
-    for (int i = 0; i < FG_TM; ++i)
-#pragma unroll
-      for (int j = 0; j < FG_TN; ++j) acc[i][j] = 0.0f;
-    stage_tile(seg, nseg, 0, n0, n_out, nt, wt);
-    for (int t = 0; t < n_tiles; ++t) {
-      if (t + 1 < n_tiles) {
-        stage_tile(seg, nseg, t + 1, n0, n_out, nt,
-                   wt + ((t + 1) & 1) * FG_KT * nt);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      int s, k0;
-      tile_of(seg, nseg, t, &s, &k0);
-      const float* a = seg[s].a + (long long)k0 * bm + pg * FG_TM;
-      const float* b = wt + (t & 1) * FG_KT * nt + cg * FG_TN;
-      const int kn = min(FG_KT, seg[s].k - k0);
-      if (kn == FG_KT) {
-#pragma unroll
-        for (int kk = 0; kk < FG_KT; ++kk)
-          fma_step(acc, a + kk * bm, b + kk * nt);
-      } else {
-        for (int kk = 0; kk < kn; ++kk) fma_step(acc, a + kk * bm, b + kk * nt);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < FG_TN; ++j) {
-      const int n = n0 + cg * FG_TN + j;
-      if (n < n_out)
-        epi(pg * FG_TM, n,
-            make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]));
-    }
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// the forward of a block's points
-// ---------------------------------------------------------------------------
-
-struct FgSmem {
-  float *x, *d, *h0, *h1, *gb, *wt;
-};
-
-__device__ __forceinline__ FgSmem carve(float* base, const FgParams& p,
-                                        int bm) {
-  FgSmem s;
-  s.x = base;
-  s.d = s.x + p.in_dim * bm;
-  s.h0 = s.d + p.dir_dim * bm;
-  s.h1 = s.h0 + p.width * bm;
-  s.gb = s.h1 + p.width * bm;
-  s.wt = s.gb + FG_GROWS * bm;
-  return s;
-}
-
-// The block's points gp0 .. gp0 + bm - 1: encodings (v2) or their rounded
-// copies (PRE), trunk, feature and view layers. Without SAVE (the forward
-// kernel) the heads too, into out [P][4 + e]; with SAVE (the backward's
-// recompute) every layer's input to the scratch columns of L (points lp0..
-// of a chunk of pc), the masks kept (act).
-template <bool PRE, bool SAVE>
-__device__ __forceinline__ void forward_block(
-    const FgParams& p, const FgLayout& L, int bm, const FgSmem& s,
-    const float* in_x, const float* in_d, long long gp0, float* out,
-    float* scr, int pc, int lp0) {
-  const int W = p.width, VW = p.view_width, bf = p.bf16;
-  const int kx = PRE ? p.in_dim : 3 * (1 + 2 * p.multires);
-  const int kd = PRE ? p.dir_dim : 3 * (1 + 2 * p.multires_views);
-  for (int idx = threadIdx.x; idx < p.in_dim * bm; idx += FG_THREADS) {
-    const int j = idx / bm, pt = idx - j * bm;
-    const long long q = gp0 + pt;
-    const float v = rnd(PRE ? __ldg(in_x + q * p.in_dim + j)
-                            : pe_lane(in_x + q * 8, j, p.multires),
-                        bf);
-    s.x[idx] = v;
-    if (SAVE) scr[(long long)(L.xe + j) * pc + lp0 + pt] = v;
-  }
-  for (int idx = threadIdx.x; idx < p.dir_dim * bm; idx += FG_THREADS) {
-    const int j = idx / bm, pt = idx - j * bm;
-    const long long q = gp0 + pt;
-    const float v = rnd(PRE ? __ldg(in_d + q * p.dir_dim + j)
-                            : pe_lane(in_x + q * 8 + 3, j, p.multires_views),
-                        bf);
-    s.d[idx] = v;
-    if (SAVE) scr[(long long)(L.de + j) * pc + lp0 + pt] = v;
-  }
-  __syncthreads();
-
-  const bool sk = p.skip + 1 < p.depth;
-  float* cur = s.h1;
-  for (int i = 0; i < p.depth; ++i) {
-    float* nxt = (i & 1) ? s.h1 : s.h0;
-    Seg seg[2];
-    int ns = 1;
-    if (i == 0) {
-      seg[0] = Seg{s.x, kx, p.tw[0], W};
-    } else if (sk && i == p.skip + 1) {
-      seg[0] = Seg{s.x, kx, p.tw[i], W};
-      seg[1] = Seg{cur, W, p.tw[i] + (long long)p.in_dim * W, W};
-      ns = 2;
-    } else {
-      seg[0] = Seg{cur, W, p.tw[i], W};
-    }
-    const float* bias = p.tb[i];
-    float* col = SAVE ? scr + (long long)L.h[i] * pc + lp0 : nullptr;
-    block_product(seg, ns, W, bm, s.wt, [&](int pt0, int n, float4 z) {
-      const float b = __ldg(bias + n);
-      const float4 h = make_float4(act(z.x + b, bf, SAVE), act(z.y + b, bf, SAVE),
-                                   act(z.z + b, bf, SAVE), act(z.w + b, bf, SAVE));
-      st4(nxt + n * bm + pt0, h);
-      if (SAVE) st4(col + (long long)n * pc + pt0, h);
-    });
-    cur = nxt;
-  }
-  float* hl = cur;                                  // the last trunk output
-  float* fb = (p.depth & 1) ? s.h1 : s.h0;          // the other buffer
-  const int no = 4 + p.out_extra;
-
-  if (!SAVE) {   // sigma (and the semantic logit) off the last trunk output
-    for (int idx = threadIdx.x; idx < bm * (1 + p.out_extra);
-         idx += FG_THREADS) {
-      const int c = idx / bm, pt = idx - c * bm;
-      const float* w = c == 0 ? p.sigma_w : p.sem_w;
-      float a = 0.0f;
-      for (int k = 0; k < W; ++k) a = fmaf(hl[k * bm + pt], __ldg(w + k), a);
-      out[(gp0 + pt) * no + 3 + c] = a + __ldg(c == 0 ? p.sigma_b : p.sem_b);
-    }
-  }
-  {   // the feature layer
-    Seg seg[1] = {Seg{hl, W, p.feat_w, W}};
-    float* col = SAVE ? scr + (long long)L.feat * pc + lp0 : nullptr;
-    block_product(seg, 1, W, bm, s.wt, [&](int pt0, int n, float4 z) {
-      const float b = __ldg(p.feat_b + n);
-      const float4 f = make_float4(rnd(z.x + b, bf), rnd(z.y + b, bf),
-                                   rnd(z.z + b, bf), rnd(z.w + b, bf));
-      st4(fb + n * bm + pt0, f);
-      if (SAVE) st4(col + (long long)n * pc + pt0, f);
-    });
-  }
-  {   // the view layer on [feat, d], into the last trunk output's buffer
-    Seg seg[2] = {Seg{fb, W, p.view_w, VW},
-                  Seg{s.d, kd, p.view_w + (long long)W * VW, VW}};
-    float* col = SAVE ? scr + (long long)L.v * pc + lp0 : nullptr;
-    block_product(seg, 2, VW, bm, s.wt, [&](int pt0, int n, float4 z) {
-      const float b = __ldg(p.view_b + n);
-      const float4 v = make_float4(act(z.x + b, bf, SAVE), act(z.y + b, bf, SAVE),
-                                   act(z.z + b, bf, SAVE), act(z.w + b, bf, SAVE));
-      st4(hl + n * bm + pt0, v);
-      if (SAVE) st4(col + (long long)n * pc + pt0, v);
-    });
-  }
-  if (!SAVE) {   // rgb off the view layer
-    for (int idx = threadIdx.x; idx < bm * 3; idx += FG_THREADS) {
-      const int c = idx / bm, pt = idx - c * bm;
-      float a = 0.0f;
-      for (int k = 0; k < VW; ++k)
-        a = fmaf(hl[k * bm + pt], __ldg(p.rgb_w + k * 3 + c), a);
-      out[(gp0 + pt) * no + c] = a + __ldg(p.rgb_b + c);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernels
-// ---------------------------------------------------------------------------
-
-template <bool PRE>
-__global__ void __launch_bounds__(FG_THREADS)
-    fg_fwd_kernel(FgParams p, FgLayout L, int bm, const float* in_x,
-                  const float* in_d, float* out) {
-  extern __shared__ __align__(16) float fg_smem[];
-  const FgSmem s = carve(fg_smem, p, bm);
-  forward_block<PRE, false>(p, L, bm, s, in_x, in_d,
-                            (long long)blockIdx.x * bm, out, nullptr, 0, 0);
-}
-
-// One chunk of pc points from cp0: the recompute, then back-propagation
-// from the cotangent g [P][4 + e]; writes A, G and the cotangent to the
-// chunk's scratch (column c of point pt at scr[c * pc + pt]) and, with PRE,
-// dx [P][in_dim] and dd [P][dir_dim].
-template <bool PRE>
-__global__ void __launch_bounds__(FG_THREADS)
-    fg_bwd_kernel(FgParams p, FgLayout L, int bm, const float* in_x,
-                  const float* in_d, const float* g, float* dx, float* dd,
-                  float* scr, int pc, long long cp0) {
-  extern __shared__ __align__(16) float fg_smem[];
-  const FgSmem s = carve(fg_smem, p, bm);
-  const int lp0 = blockIdx.x * bm;
-  const long long gp0 = cp0 + lp0;
-  forward_block<PRE, true>(p, L, bm, s, in_x, in_d, gp0, nullptr, scr, pc,
-                           lp0);
-  const int W = p.width, VW = p.view_width, bf = p.bf16;
-  const int no = 4 + p.out_extra;
-  // the scratch column c of the block's points
-  auto col = [&](int c) { return scr + (long long)c * pc + lp0; };
-  // the cotangent: as it is to scratch (the heads' weight and bias sums),
-  // rounded to shared memory (the operand of the heads' products)
-  for (int idx = threadIdx.x; idx < no * bm; idx += FG_THREADS) {
-    const int c = idx / bm, pt = idx - c * bm;
-    const float v = __ldg(g + (gp0 + pt) * no + c);
-    col(L.gin + c)[pt] = v;
-    s.gb[idx] = rnd(v, bf);
-  }
-  __syncthreads();
-
-  {   // G_v = (r(g_rgb) r(rgb_w)^T) * [vz > 0]
-    Seg seg[1] = {Seg{s.gb, 3, p.rgbt, VW}};
-    block_product(seg, 1, VW, bm, s.wt, [&](int pt0, int n, float4 a) {
-      const float4 G = relu_grad4(a, ld4(col(L.v + n) + pt0), PRE, bf);
-      st4(col(L.gv + n) + pt0, G);
-      st4(s.h0 + n * bm + pt0, rnd4(G, bf));
-    });
-  }
-  {   // G_feat = r(G_v) r(view_w[:W])^T (rounded in v2); with PRE also dd,
-      // the direction columns
-    Seg seg[1] = {Seg{s.h0, VW, p.viewt, W + p.dir_dim}};
-    block_product(seg, 1, PRE ? W + p.dir_dim : W, bm, s.wt,
-                  [&](int pt0, int n, float4 a) {
-      if (n < W) {
-        const float4 G = PRE ? a : rnd4(a, bf);
-        st4(col(L.gfeat + n) + pt0, G);
-        st4(s.h1 + n * bm + pt0, rnd4(G, bf));
-      } else {
-        float* q = dd + (gp0 + pt0) * p.dir_dim + (n - W);
-        q[0] = a.x;
-        q[p.dir_dim] = a.y;
-        q[2 * p.dir_dim] = a.z;
-        q[3 * p.dir_dim] = a.w;
-      }
-    });
-  }
-  const int top = p.depth - 1;
-  {   // the last trunk layer's G: r(G_feat) r(feat_w)^T + r(g_sigma)
-      // r(sigma_w)^T (+ the semantic head's), through its ReLU
-    Seg seg[3] = {Seg{s.h1, W, p.featt, W}, Seg{s.gb + 3 * bm, 1, p.sigma_w, W},
-                  Seg{s.gb + 4 * bm, 1, p.sem_w, W}};
-    block_product(seg, 2 + p.out_extra, W, bm, s.wt,
-                  [&](int pt0, int n, float4 a) {
-      const float4 G = relu_grad4(a, ld4(col(L.h[top] + n) + pt0), PRE, bf);
-      st4(col(L.gz[top] + n) + pt0, G);
-      st4(s.h0 + n * bm + pt0, rnd4(G, bf));
-    });
-  }
-  // down the trunk: layer i's input gradient r(G_i) tw_i^T. Its encoding
-  // columns (layer 0, the skip layer) are dx with PRE and not computed in
-  // v2; the rest is layer i - 1's output gradient, through its ReLU.
-  const bool sk = p.skip + 1 < p.depth;
-  float* ga = s.h0;
-  float* gn = s.h1;
-  for (int i = top; i >= (PRE ? 0 : 1); --i) {
-    const bool cat = sk && i == p.skip + 1;
-    const int ki = i == 0 ? p.in_dim : cat ? p.in_dim + W : W;
-    const int xo = (i == 0 || cat) ? p.in_dim : 0;
-    const int below = i - 1;
-    const bool add = i == 0 && sk;   // dx already holds the skip layer's
-    Seg seg[1] = {Seg{ga, W, p.twt[i] + (PRE ? 0 : xo), ki}};
-    block_product(seg, 1, PRE ? ki : ki - xo, bm, s.wt,
-                  [&](int pt0, int n, float4 a) {
-      const int c = PRE ? n : n + xo;
-      if (c < xo) {
-        float* q = dx + (gp0 + pt0) * p.in_dim + c;
-        const int ld = p.in_dim;
-        q[0] = add ? q[0] + a.x : a.x;
-        q[ld] = add ? q[ld] + a.y : a.y;
-        q[2 * ld] = add ? q[2 * ld] + a.z : a.z;
-        q[3 * ld] = add ? q[3 * ld] + a.w : a.w;
-      } else {
-        const int j = c - xo;
-        const float4 G =
-            relu_grad4(a, ld4(col(L.h[below] + j) + pt0), PRE, bf);
-        st4(col(L.gz[below] + j) + pt0, G);
-        st4(gn + j * bm + pt0, rnd4(G, bf));
-      }
-    });
-    float* t = ga;
-    ga = gn;
-    gn = t;
-  }
-}
-
-// A split of a chunk's points (blockIdx.y, `per` points from blockIdx.y *
-// per) for one 64 x 64 tile of one job's dW and, in the tiles of row 0, its
-// bias sums; the f64 partial sums go to part[split][n_params] at the
-// gradient's offset.
-__global__ void __launch_bounds__(FG_THREADS)
-    fg_dw_kernel(FgPlan plan, const float* scr, int pc, int per, int bf,
-                 double* part, long long n_params) {
-  __shared__ __align__(16) float as[FG_DT * FG_PS];
-  __shared__ __align__(16) float gs[FG_DT * FG_PS];
-  __shared__ __align__(16) float gr[FG_DT * FG_PS];
-  int j = 0;
-  while (j + 1 < plan.n_jobs && plan.job[j + 1].tile0 <= (int)blockIdx.x) ++j;
-  const FgJob jb = plan.job[j];
-  const int lt = blockIdx.x - jb.tile0;
-  const int k0 = (lt / jb.ntn) * FG_DT, n0 = (lt % jb.ntn) * FG_DT;
-  const bool bias = k0 == 0;
-  const int p_begin = blockIdx.y * per;
-  const int p_end = min(pc, p_begin + per);
-  // the thread's entries: rows kr + 16 i, columns nr + 16 j
-  const int kr = threadIdx.x % 16, nr = threadIdx.x / 16;
-  float acc[4][4];
-  double acc64[4][4];
-  double bs64[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    bs64[a] = 0.0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      acc[a][b] = 0.0f;
-      acc64[a][b] = 0.0;
-    }
-  }
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int pb = p_begin; pb < p_end; pb += FG_PT) {
-    for (int idx = threadIdx.x; idx < FG_DT * (FG_PT / 4);
-         idx += FG_THREADS) {
-      const int r = idx / (FG_PT / 4), q = (idx % (FG_PT / 4)) * 4;
-      const int pnt = pb + q;
-      float4 a = zero, g = zero;
-      if (pnt < p_end && k0 + r < jb.k)
-        a = ld4(scr + (long long)(jb.a_off + k0 + r) * pc + pnt);
-      if (pnt < p_end && n0 + r < jb.n)
-        g = ld4(scr + (long long)(jb.g_off + n0 + r) * pc + pnt);
-      st4(as + r * FG_PS + q, a);
-      st4(gs + r * FG_PS + q, rnd4(g, bf));
-      if (bias) st4(gr + r * FG_PS + q, g);
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int q = 0; q < FG_PT; q += 4) {
-      float4 a[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ld4(as + (kr + 16 * i) * FG_PS + q);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) g[i] = ld4(gs + (nr + 16 * i) * FG_PS + q);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float t = acc[i][c];
-          t = fmaf(a[i].x, g[c].x, t);
-          t = fmaf(a[i].y, g[c].y, t);
-          t = fmaf(a[i].z, g[c].z, t);
-          t = fmaf(a[i].w, g[c].w, t);
-          acc[i][c] = t;
-        }
-      if (bias && kr == 0) {   // f64 a point: a bias sum cancels
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 v = ld4(gr + (nr + 16 * c) * FG_PS + q);
-          bs64[c] = (((bs64[c] + v.x) + v.y) + v.z) + v.w;
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        acc64[a][b] += (double)acc[a][b];
-        acc[a][b] = 0.0f;
-      }
-    }
-  }
-  double* dst = part + (long long)blockIdx.y * n_params;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + kr + 16 * i;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + nr + 16 * c;
-      if (k < jb.k && n < jb.n)
-        dst[jb.w_off + (long long)k * jb.n + n] = acc64[i][c];
-    }
-  }
-  if (bias && kr == 0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + nr + 16 * c;
-      if (n < jb.n) dst[jb.b_off + n] = bs64[c];
-    }
-  }
 }
 
 // acc (+)= the splits' sums in split order; the last chunk writes the f32
@@ -738,10 +217,11 @@ __global__ void fg_split_sum_kernel(const double* part, int splits,
 }
 
 // ---------------------------------------------------------------------------
-// The backward on the tensor cores (ft_bwd_kernel, ft_dw_kernel): the two
-// passes of fg_bwd_kernel and fg_dw_kernel as wgmma products, for every
-// geometry whose buffers fit (ft_geom; ops/fused_mlp.py::gen_bwd_plan is
-// its mirror and picks this backward or the CUDA cores' before launch).
+// The backward on the tensor cores (ft_bwd_kernel, ft_dw_kernel): a
+// recompute and back-propagation pass and a weight-gradient pass, both as
+// wgmma products, for every geometry whose buffers fit (ft_geom;
+// ops/fused_mlp.py::gen_bwd_plan is its mirror and picks this backward or
+// the layer-streamed one before launch).
 //
 // f32 as six bf16 products. Every f32 operand x splits into three bf16
 // parts, hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid); each
@@ -750,7 +230,7 @@ __global__ void fg_split_sum_kernel(const double* part, int splits,
 // mid.hi + hi.mid + hi.hi (x's part first), issued smallest first into
 // one f32 accumulator; a product of two bf16 values is exact in f32 and the
 // three dropped terms are below 2^-24 |x w|. At bf16 the operands are
-// already bf16 (gen_pack rounds the weights; the activations and gradients
+// already bf16 (gen_ring rounds the weights; the activations and gradients
 // are rounded where the plain version rounds them): one part, one product.
 // The weights arrive split (ops/fused_mlp.py::gen_ring: three planes a
 // stage, pre-swizzled); the activations and gradients are split in
@@ -785,16 +265,16 @@ __global__ void fg_split_sum_kernel(const double* part, int splits,
 // chunk. The producer streams the stages, laid out in the order the
 // consumers take them, with cp.async.bulk into a ring of `slots` stages
 // (full / empty mbarriers; the empty one counts the owning warpgroup's 4
-// warps). A tile's epilogue is fg_bwd_kernel's, element for element: bias,
-// ReLU with the mask kept as the sign of a zero, the rounding, the scratch
-// columns, dx and dd; the rgb head's gradient (3 columns) runs on the CUDA
-// cores. A layer's output goes to the scratch only; once every tile is
+// warps). A tile's epilogue is the plain version's, element for element:
+// bias, ReLU with the mask kept as the sign of a zero, the rounding, the
+// scratch columns, dx and dd; the rgb head's gradient (3 columns) runs on
+// the CUDA cores. A layer's output goes to the scratch only; once every tile is
 // done the next product's input is read back from there into buf. The
 // scratch holds fg_layout's columns block-major, [P / 64][cols][64] f32, so
 // that a block writes and reads back one contiguous region and pass 2's
-// stage of 64 points is contiguous (the column-major [cols][P] of the CUDA
-// cores' backward scatters a block's accesses in 256-byte pieces over the
-// whole chunk). Shared memory: slots x parts x 8 KB + 256 (wp + 8) + 256
+// stage of 64 points is contiguous (a column-major [cols][P] would scatter
+// a block's accesses in 256-byte pieces over the whole chunk). Shared
+// memory: slots x parts x 8 KB + 256 (wp + 8) + 256
 // (max(in_dim, dir_dim) + 8) + 2,048 + 16 slots + 1,024 bytes, at most
 // 232,448 with at least 2 slots: f32 takes every width to 512 with 128-lane
 // encodings and to 384 with 256-lane ones, bf16 to 640 and 512.
@@ -913,7 +393,7 @@ __host__ __device__ __forceinline__ FtProd ft_product(const FgParams& p,
 }
 
 // The geometry of pass 1 for p, from the dims alone; 0 where it does not
-// fit (the CUDA cores' backward takes those).
+// fit (the layer-streamed backward takes those).
 static int ft_geom(const FgParams* p, int pre, FtGeom* G) {
   if (p->in_dim % FT_T || p->dir_dim % FT_T) return 0;
   G->np = p->bf16 ? 1 : 3;
@@ -944,7 +424,8 @@ static int ft_fwd_smem(int np, int wp, int emax, int slots) {
 // dims alone: the recompute's products of ft_product (trunk, feature, view;
 // the same for v1 and v2), so its weight stages are the first of ft_geom's;
 // 0 where its buffers and FT_MIN_SLOTS slots do not fit, or a product
-// has more than 2 FT_FWD_TILES output tiles (fg_fwd_kernel takes those).
+// has more than 2 FT_FWD_TILES output tiles (the layer-streamed forward
+// takes those).
 // Its shared memory exceeds ft_geom's, so ft_geom takes every geometry it
 // takes.
 static int ft_fwd_geom(const FgParams* p, FtGeom* G) {
@@ -1264,7 +745,7 @@ __device__ __forceinline__ void ft_pre(const FgParams& p, const FgLayout& L,
       }
 }
 
-// The tile's epilogue: fg_bwd_kernel's, element for element (column n of
+// The tile's epilogue: the plain version's, element for element (column n of
 // the product's padded output at row r0 (+ 8)); pre: ft_pre's.
 template <bool PRE>
 __device__ __forceinline__ void ft_epi(const FgParams& p, const FgLayout& L,
@@ -1694,10 +1175,9 @@ __global__ void __launch_bounds__(FT_DW_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The forward on the tensor cores (ft_fwd_kernel): #9 gen and #7 gen, what
-// fg_fwd_kernel computes, for every geometry ft_fwd_geom takes
-// (ops/fused_mlp.py::gen_fwd_plan is its mirror and picks this forward or
-// fg_fwd_kernel before launch).
+// The forward on the tensor cores (ft_fwd_kernel): #9 gen and #7 gen, for
+// every geometry ft_fwd_geom takes (ops/fused_mlp.py::gen_fwd_plan is its
+// mirror and picks this forward or the layer-streamed one before launch).
 //
 // What bounds it on an H100: the products. At 8 x 256 the forward
 // multiplies 1.19 MFLOP a point, 3.11e11 FLOP at 262,144 points: in f32,
@@ -1725,12 +1205,11 @@ __global__ void __launch_bounds__(FT_DW_THREADS, 1)
 // spills): the ring's depth, 2 slots here, is not what bounds it. Only this
 // layout, with the tile loop unrolled over FT_FWD_TILES, compiles without
 // spills: as a loop of runtime length it spills 36 bytes.) A tile's
-// epilogue is fg_fwd_kernel's,
-// element for element: bias, ReLU through act(z + b, bf, false), the
-// rounding to the compute type (the feature layer without the ReLU), zero
-// in the padding columns. The heads are fg_fwd_kernel's f32 FMAs on the
-// CUDA cores: sigma (and the semantic logit) off the last trunk output,
-// rgb off the view layer's. Shared memory: slots x parts x 8 KB + 512
+// epilogue is the plain version's, element for element: bias, ReLU through
+// act(z + b, bf, false), the rounding to the compute type (the feature
+// layer without the ReLU), zero in the padding columns. The heads are f32
+// FMAs on the CUDA cores: sigma (and the semantic logit) off the last trunk
+// output, rgb off the view layer's. Shared memory: slots x parts x 8 KB + 512
 // (wp + 8) + 256 (max(in_dim, dir_dim) + 8) + 16 slots + 1,024 bytes, at
 // most 232,448 with at least 2 slots: f32 takes every width to 256 with
 // 128-lane encodings (2 slots) and to 192 with 256-lane ones, bf16 to 320
@@ -1757,7 +1236,8 @@ __device__ __forceinline__ void ft_bias(const FgParams& p, const FtProd& pr,
     }
 }
 
-// The forward's epilogue of a tile: fg_fwd_kernel's, element for element.
+// The forward's epilogue of a tile: the plain version's, element for
+// element.
 __device__ __forceinline__ void ft_fwd_epi(const FgParams& p,
                                            const FtProd& pr, int tile,
                                            const float (&sum)[32],
@@ -1870,31 +1350,480 @@ __global__ void __launch_bounds__(FT_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The layer-streamed route (ls_ kernels): #9 / #10 and #7 / #8 gen at the
+// geometries whose block buffers the ft_ kernels cannot hold (ls_geom takes
+// a direction exactly where ft_fwd_geom / ft_geom refuse it;
+// ops/fused_mlp.py::gen_layer_plan is its mirror). The design is in the
+// note at the head of this file; in short, every layer is one product
+// [points x K] x [K x N] over the whole chunk of points, launched on its
+// own, and what one layer hands the next lies in device memory as the
+// next product's bf16 operand parts.
+//
+// Operand buffers (ls_put8, ls_put2): [P / 64][kc][parts][64 x 64] bf16,
+// kc = the buffer's lanes / 64, each [64 points][64 lanes] tile in the
+// 128-byte swizzle (lane chunk c of point r at chunk c ^ (r % 8)), so that
+// one bulk copy lands a 64-point stage of all its parts as wgmma reads A
+// (K-major). The weight stages (gen_ls_ring): per product, per 128-column
+// tile, per 64-deep chunk, [parts][128 N][64 K] in the same swizzle.
+// ---------------------------------------------------------------------------
+
+#define LS_BM 128                   // points a block: two warpgroups of 64
+#define LS_BN 128                   // output columns a block (m64n128k16)
+#define LS_T 64                     // a stage's depth; an operand tile's side
+#define LS_CONSUMERS 256            // two consumer warpgroups
+#define LS_THREADS (LS_CONSUMERS + 32)   // and a producer warp
+#define LS_APLANE 8192              // bytes of a bf16 [64][64] operand part
+#define LS_BPLANE 16384             // bytes of a bf16 [128][64] weight part
+#define LS_MIN_SLOTS 2
+#define LS_MAX_SLOTS 8
+#define LS_MAX_PRODS (2 * FG_MAX_DEPTH + 8)
+#define LS_HEADS 5                  // head partial sums a point and tile
+#define LS_WORK_BYTES (4LL << 30)   // the forward's operand buffers, at most
+#define LS_ENC_THREADS 256
+
+// operand buffers: the encodings x and d, two for the layers in turn
+enum { LS_BX, LS_BD, LS_BH0, LS_BH1, LS_NBUF };
+// what a product's epilogue does with its sums
+enum { LS_TRUNK, LS_FEAT, LS_VIEW, LS_GFEAT, LS_DD, LS_GTOP, LS_GTRUNK,
+       LS_DX };
+
+// One product: n output columns in ntn tiles of LS_BN, K in nk chunks of
+// LS_T, the first nseg0 from operand buffer src0, the rest from src1 (the
+// skip layer's [x, h], the view layer's [feat, d]); the epilogue writes the
+// next product's operand to buffer dst (-1: none).
+struct LsProd {
+  int kind, layer, n, ntn, nk, nseg0, src0, src1, dst;
+};
+
+// A product's launch (ls_prod_kernel).
+struct LsArgs {
+  const uint8_t* a0;      // K's first segment's operand buffer
+  const uint8_t* a1;      // its second's (null: none)
+  int akc0, akc1;         // their chunks (a 64-point block's tiles)
+  int nseg0, nk, ntn, kind, layer, pre;
+  const uint8_t* b;       // the product's weight stages
+  uint8_t* dst;           // the operand buffer written (null: none)
+  int dkc;                // its chunks
+  float* scr;             // the chunk's scratch (null: the forward)
+  float* hp;              // head partial sums [ntn][rows][LS_HEADS] or null
+  long long rows;         // the chunk's points, padded to LS_BM
+  int n_rows;             // its points
+  long long p0;           // its first point (g, dx, dd)
+  const float* g;
+  float* dx;
+  float* dd;
+  int dx_add;             // dx += (the skip layer's part is in)
+};
+
+// d (+)= A B for one 16-deep step of m64n128k16, both from shared memory,
+// K-major (as csrc/fused_mlp_pe.cu's wgmma_n128).
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One k16 step into a fresh accumulator: A's part q at sa + q LS_APLANE,
+// B's at sb + q LS_BPLANE; at f32 ft_k16's six products, smallest first.
+template <int NP>
+__device__ __forceinline__ void ls_k16(float (&acc)[64], uint32_t sa,
+                                       uint32_t sb) {
+  auto A = [&](int q) { return desc_sw128(sa + q * LS_APLANE, 16, 1024); };
+  auto B = [&](int q) { return desc_sw128(sb + q * LS_BPLANE, 16, 1024); };
+  if constexpr (NP == 1) {
+    wgmma_ss128(acc, A(0), B(0), 0);
+  } else {
+    wgmma_ss128(acc, A(2), B(0), 0);
+    wgmma_ss128(acc, A(1), B(1), 1);
+    wgmma_ss128(acc, A(0), B(2), 1);
+    wgmma_ss128(acc, A(1), B(0), 1);
+    wgmma_ss128(acc, A(0), B(1), 1);
+    wgmma_ss128(acc, A(0), B(0), 1);
+  }
+}
+
+// The byte offset of (point r of 64-point block blk, lane k) in an operand
+// buffer of kc chunks, part 0; part q lies q LS_APLANE further.
+template <int NP>
+__device__ __forceinline__ long long ls_at(long long blk, int kc, int r,
+                                           int k) {
+  const int kk = k & 63;
+  return (blk * kc + (k >> 6)) * NP * (long long)LS_APLANE +
+         2 * (r * 64 + ((((kk >> 3) ^ (r & 7))) << 3) + (kk & 7));
+}
+
+// Lanes k, k + 1 (k even) of point r as their NP parts.
+template <int NP>
+__device__ __forceinline__ void ls_put2(uint8_t* buf, int kc, long long blk,
+                                        int r, int k, float v0, float v1) {
+  uint32_t o[NP];
+  split2<NP>(make_float2(v0, v1), o);
+  uint8_t* at = buf + ls_at<NP>(blk, kc, r, k);
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    *reinterpret_cast<uint32_t*>(at + q * LS_APLANE) = o[q];
+}
+
+// Lanes k .. k + 7 (k a multiple of 8) of point r: 16 bytes a part.
+template <int NP>
+__device__ __forceinline__ void ls_put8(uint8_t* buf, int kc, long long blk,
+                                        int r, int k, const float (&v)[8]) {
+  uint32_t w[NP][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    uint32_t o[NP];
+    split2<NP>(make_float2(v[2 * m], v[2 * m + 1]), o);
+#pragma unroll
+    for (int q = 0; q < NP; ++q) w[q][m] = o[q];
+  }
+  uint8_t* at = buf + ls_at<NP>(blk, kc, r, k);
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    *reinterpret_cast<uint4*>(at + q * LS_APLANE) =
+        make_uint4(w[q][0], w[q][1], w[q][2], w[q][3]);
+}
+
+// The encodings of a chunk's points (rows from p0; zero past n_rows, up to
+// the padded `rows`) rounded to the compute type, into the operand buffers
+// X and D and, with scr (the backward), the scratch columns xe / de (as
+// ft_encode: v2 computes them, PRE reads them as given). A thread 8 lanes
+// of one point, the points of a lane group side by side.
+template <bool PRE, int NP>
+__global__ void __launch_bounds__(LS_ENC_THREADS)
+    ls_encode_kernel(const __grid_constant__ FgParams p,
+                     const __grid_constant__ FgLayout L, const float* in_x,
+                     const float* in_d, long long p0, int n_rows,
+                     long long rows, uint8_t* X, uint8_t* Dd, float* scr) {
+  const int gx = p.in_dim / 8, gd = p.dir_dim / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * (gx + gd)) return;
+  const int grp = (int)(idx / rows);
+  const long long row = idx - grp * rows;
+  const bool isx = grp < gx;
+  const int dim = isx ? p.in_dim : p.dir_dim;
+  const int k0 = 8 * (isx ? grp : grp - gx);
+  const long long q = p0 + row, blk = row / LS_T;
+  const int r = (int)(row - blk * LS_T);
+  const bool live = row < n_rows;
+  float* col = scr && live ? scr + blk * L.cols * LS_T +
+                                 (long long)((isx ? L.xe : L.de) + k0) *
+                                     LS_T + r
+                           : nullptr;
+  float v[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    const int j = k0 + l;
+    float x = 0.0f;
+    if (live)
+      x = rnd(PRE ? __ldg((isx ? in_x : in_d) + q * dim + j)
+                  : pe_lane(in_x + q * 8 + (isx ? 0 : 3), j,
+                            isx ? p.multires : p.multires_views),
+              p.bf16);
+    v[l] = x;
+    if (col) col[l * LS_T] = x;
+  }
+  ls_put8<NP>(isx ? X : Dd, dim / LS_T, blk, r, k0, v);
+}
+
+// The backward's cotangent: as it is to the scratch columns gin (the
+// heads' gradients), and G_v = (r(g_rgb) r(rgb_w)^T) * [v > 0] (3 deep, on
+// the CUDA cores, as ft_bwd_kernel) to the scratch columns gv and, rounded,
+// to the operand buffer H (its first vwp lanes of kc chunks). A thread 8
+// columns of one point (a last group of threads the cotangent's columns).
+template <int NP>
+__global__ void __launch_bounds__(LS_ENC_THREADS)
+    ls_gv_kernel(const __grid_constant__ FgParams p,
+                 const __grid_constant__ FgLayout L, const float* g, int pre,
+                 long long p0, int n_rows, long long rows, int vwp, int kc,
+                 uint8_t* H, float* scr) {
+  const int ng = vwp / 8;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * (ng + 1)) return;
+  const int grp = (int)(idx / rows);
+  const long long row = idx - grp * rows;
+  const long long q = p0 + row, blk = row / LS_T;
+  const int r = (int)(row - blk * LS_T);
+  const bool live = row < n_rows;
+  const int no = 4 + p.out_extra, bf = p.bf16;
+  float* sblk = scr + blk * L.cols * LS_T + r;
+  if (grp == ng) {
+    if (live)
+      for (int c = 0; c < no; ++c)
+        sblk[(long long)(L.gin + c) * LS_T] = __ldg(g + q * no + c);
+    return;
+  }
+  float gs[3] = {0.0f, 0.0f, 0.0f};
+  if (live)
+    for (int c = 0; c < 3; ++c) gs[c] = rnd(__ldg(g + q * no + c), bf);
+  const int n0 = 8 * grp;
+  float v[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    const int n = n0 + l;
+    float gv = 0.0f;
+    if (live && n < p.view_width) {
+      float a = 0.0f;
+      for (int c = 0; c < 3; ++c)
+        a = fmaf(gs[c], __ldg(p.rgb_w + n * 3 + c), a);
+      gv = relu_grad(a, sblk[(long long)(L.v + n) * LS_T], pre != 0, bf);
+      sblk[(long long)(L.gv + n) * LS_T] = gv;
+    }
+    v[l] = gv;
+  }
+  ls_put8<NP>(H, kc, blk, r, n0, v);
+}
+
+// The epilogue of a product's tile: column n of the sums at point r0 (+ 8)
+// of 64-point block blk; every kind as ft_epi / ft_fwd_epi computes it,
+// element for element, the heads' partial sums as fixed-order sums of the
+// tile's columns.
+template <int NP>
+__device__ __forceinline__ void ls_epi(const FgParams& p, const FgLayout& L,
+                                       const LsArgs& a, int tn, long long blk,
+                                       const float (&sum)[64]) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * ((t >> 5) & 3) + (lane >> 2);
+  const int bf = p.bf16, W = p.width, D = p.depth, no = 4 + p.out_extra;
+  const int kind = a.kind, i = a.layer;
+  const bool save = a.scr != nullptr, pre = a.pre != 0;
+  float* sblk = save ? a.scr + blk * L.cols * LS_T : nullptr;
+  const float* bias = kind == LS_TRUNK  ? p.tb[i]
+                      : kind == LS_FEAT ? p.feat_b
+                                        : p.view_b;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const long long row = blk * LS_T + r, q = a.p0 + row;
+    const bool live = row < a.n_rows;
+    float hs[3] = {0.0f, 0.0f, 0.0f};
+    float gsig = 0.0f, gsem = 0.0f;
+    if (kind == LS_GTOP && live) {
+      gsig = rnd(__ldg(a.g + q * no + 3), bf);
+      if (p.out_extra) gsem = rnd(__ldg(a.g + q * no + 4), bf);
+    }
+    auto at = [&](int c, int n) -> float& {
+      return sblk[(long long)(c + n) * LS_T + r];
+    };
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = LS_BN * tn + 8 * j + 2 * (lane & 3) + e;
+        const float z = sum[4 * j + 2 * h + e];
+        float o = 0.0f;
+        if (kind == LS_TRUNK) {
+          if (n < W) {
+            o = act(z + __ldg(bias + n), bf, save);
+            if (save && live) at(L.h[i], n) = o;
+            if (a.hp) {
+              hs[0] = fmaf(o, __ldg(p.sigma_w + n), hs[0]);
+              if (p.out_extra) hs[1] = fmaf(o, __ldg(p.sem_w + n), hs[1]);
+            }
+          }
+        } else if (kind == LS_FEAT) {
+          if (n < W) {
+            o = rnd(z + __ldg(bias + n), bf);
+            if (save && live) at(L.feat, n) = o;
+          }
+        } else if (kind == LS_VIEW) {
+          if (n < p.view_width) {
+            o = act(z + __ldg(bias + n), bf, save);
+            if (save && live) at(L.v, n) = o;
+            if (a.hp) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                hs[c] = fmaf(o, __ldg(p.rgb_w + n * 3 + c), hs[c]);
+            }
+          }
+        } else if (kind == LS_GFEAT) {
+          if (n < W && live) {
+            o = pre ? z : rnd(z, bf);
+            at(L.gfeat, n) = o;
+          }
+        } else if (kind == LS_DD) {
+          if (n < p.dir_dim && live) a.dd[q * p.dir_dim + n] = z;
+        } else if (kind == LS_GTOP) {
+          if (n < W && live) {
+            float s = fmaf(gsig, __ldg(p.sigma_w + n), z);
+            if (p.out_extra) s = fmaf(gsem, __ldg(p.sem_w + n), s);
+            o = relu_grad(s, at(L.h[D - 1], n), pre, bf);
+            at(L.gz[D - 1], n) = o;
+          }
+        } else if (kind == LS_GTRUNK) {
+          if (n < W && live) {
+            o = relu_grad(z, at(L.h[i - 1], n), pre, bf);
+            at(L.gz[i - 1], n) = o;
+          }
+        } else {   // LS_DX: the encoding's part of layer i's input gradient
+          if (n < p.in_dim && live) {
+            float* d = a.dx + q * p.in_dim + n;
+            *d = a.dx_add ? *d + z : z;
+          }
+        }
+        v[e] = o;
+      }
+      const int n0 = LS_BN * tn + 8 * j + 2 * (lane & 3);
+      if (a.dst && n0 < a.dkc * LS_T)
+        ls_put2<NP>(a.dst, a.dkc, blk, r, n0, v[0], v[1]);
+    }
+    if (a.hp) {   // the row's 4 threads, in a fixed order
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        hs[c] += __shfl_xor_sync(0xFFFFFFFFu, hs[c], 1);
+        hs[c] += __shfl_xor_sync(0xFFFFFFFFu, hs[c], 2);
+      }
+      if ((lane & 3) == 0) {
+        float* d = a.hp + ((long long)tn * a.rows + row) * LS_HEADS;
+        if (kind == LS_VIEW) {
+          d[0] = hs[0];
+          d[1] = hs[1];
+          d[2] = hs[2];
+        } else {
+          d[3] = hs[0];
+          if (p.out_extra) d[4] = hs[1];
+        }
+      }
+    }
+  }
+}
+
+// One product over a chunk: a block computes 128 points (a warpgroup each
+// 64) x 128 columns (tile tn of blockIdx.x % ntn) over the whole K, its
+// stages streamed by the producer warp's first thread (three bulk copies a
+// stage: each warpgroup's operand tiles, the weight stage) into a ring of
+// `slots`; each k16 step's products in a fresh accumulator added to an f32
+// sum (the tensor core's accumulation truncates; ft_chunk's note). Two
+// other schedules were measured on the H100 (f32 / bf16 8 x 1,024,
+// 262,144 points, against this one's 88.5 / 40.2 ms forward): each k16
+// step split into two 64-column halves (m64n64k16) with two accumulators
+// in turn, so that the tensor cores run while the threads add, took 1.19x
+// at f32 (105.5 ms: the smaller products read A twice from shared memory);
+// bf16 with the whole K in one accumulator took 0.84x (33.6 ms) but its
+// truncation moved 16,578 of 65,536 points' ReLU masks off float64's
+// (the plain bf16 version's 5,321) and failed phase 20's gates.
+template <int NP>
+__global__ void __launch_bounds__(LS_THREADS, 1)
+    ls_prod_kernel(const __grid_constant__ FgParams p,
+                   const __grid_constant__ FgLayout L,
+                   const __grid_constant__ LsArgs a, int slots) {
+  extern __shared__ uint8_t ls_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)ls_raw + FT_ALIGN - 1) & ~(uintptr_t)(FT_ALIGN - 1));
+  constexpr uint32_t AB = NP * LS_APLANE, BB = NP * LS_BPLANE;
+  constexpr uint32_t ST = 2 * AB + BB;
+  const uint32_t ring_s = smem_u32(base);
+  const uint32_t full = ring_s + slots * ST, empty = full + 8 * slots;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // the consumers' 8 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tn = (int)(blockIdx.x % a.ntn);
+  const long long rb = blockIdx.x / a.ntn;   // points LS_BM rb ..
+  if (t >= LS_CONSUMERS) {
+    if (t != LS_CONSUMERS) return;
+    for (int kc = 0; kc < a.nk; ++kc) {
+      const int slot = kc % slots;
+      if (kc >= slots) mbar_wait(empty + 8 * slot, ((kc / slots) - 1) & 1);
+      const uint32_t dst = ring_s + slot * ST, bar = full + 8 * slot;
+      mbar_expect(bar, ST);
+      const bool s1 = kc >= a.nseg0;
+      const int akc = s1 ? a.akc1 : a.akc0;
+      const uint8_t* src = (s1 ? a.a1 : a.a0) +
+                           ((2 * rb) * akc + (s1 ? kc - a.nseg0 : kc)) *
+                               (long long)AB;
+      bulk_g2s(dst, src, AB, bar);
+      bulk_g2s(dst + AB, src + (long long)akc * AB, AB, bar);
+      bulk_g2s(dst + 2 * AB, a.b + ((long long)tn * a.nk + kc) * BB, BB,
+               bar);
+    }
+    return;
+  }
+  const int wg = t >> 7, lane = t & 31;
+  float sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.0f;
+  for (int kc = 0; kc < a.nk; ++kc) {
+    const int slot = kc % slots;
+    mbar_wait(full + 8 * slot, (kc / slots) & 1);
+    const uint32_t sa = ring_s + slot * ST + wg * AB;
+    const uint32_t sb = ring_s + slot * ST + 2 * AB;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      float acc[64];
+      wg_fence();
+      ls_k16<NP>(acc, sa + ks * 32, sb + ks * 32);
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);
+  }
+  ls_epi<NP>(p, L, a, tn, 2 * rb + wg, sum);
+}
+
+// The forward's heads: raw [P][4 + e] from the partial sums of the view
+// layer's tiles (rgb, columns 0-2) and of the last trunk layer's (sigma,
+// the semantic logit), each added in tile order, then the bias.
+__global__ void ls_heads_kernel(const __grid_constant__ FgParams p,
+                                const float* hp, long long rows, int n_rows,
+                                int ntn_t, int ntn_v, float* out) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+  const int no = 4 + p.out_extra;
+  for (int c = 0; c < no; ++c) {
+    const int nt = c < 3 ? ntn_v : ntn_t;
+    float s = 0.0f;
+    for (int k = 0; k < nt; ++k)
+      s += hp[((long long)k * rows + row) * LS_HEADS + c];
+    const float b = c < 3 ? __ldg(p.rgb_b + c)
+                          : __ldg(c == 3 ? p.sigma_b : p.sem_b);
+    out[row * no + c] = s + b;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C interface, bound with ctypes. Pointers are device pointers except the
 // struct, which is host memory. Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
 // the kernels do not take).
 // ---------------------------------------------------------------------------
 
-// The points a block takes (the largest of 64, 32, 16, 8 whose shared
-// memory fits) and its shared memory in bytes; 0 if none fits.
-static int fg_bm(const FgParams* p, int* smem) {
-  for (int bm = 64; bm >= 8; bm /= 2) {
-    const long long fl =
-        (long long)bm * (p->in_dim + p->dir_dim + 2 * p->width + FG_GROWS) +
-        2LL * FG_KT * (FG_TILE / bm);
-    if (fl * 4 <= FG_SMEM_MAX) {
-      *smem = (int)(fl * 4);
-      return bm;
-    }
-  }
-  return 0;
-}
-
+// The arguments every generic kernel takes (GEN_LIMITS); P a multiple of
+// 64.
 static int fg_check(const FgParams* p, int n_points, bool pre) {
   if (!p || p->depth < 1 || p->depth > FG_MAX_DEPTH || p->skip < 0 ||
-      p->skip + 1 == p->depth || p->width < 1 || p->view_width < 1 ||
-      p->view_width > p->width || p->in_dim < 1 || p->dir_dim < 1 ||
+      p->skip + 1 == p->depth || p->width < 8 || p->width > FG_MAX_WIDTH ||
+      p->view_width < 1 || p->view_width > p->width || p->in_dim < 64 ||
+      p->in_dim > 256 || p->in_dim % 64 || p->dir_dim < 64 ||
+      p->dir_dim > 256 || p->dir_dim % 64 ||
       (p->out_extra != 0 && p->out_extra != 1) ||
       (p->bf16 != 0 && p->bf16 != 1) || n_points < 0 || n_points % 64 ||
       p->n_params < 1)
@@ -1903,167 +1832,17 @@ static int fg_check(const FgParams* p, int n_points, bool pre) {
                p->multires_views < 0 ||
                3 * (1 + 2 * p->multires_views) > p->dir_dim))
     return (int)cudaErrorInvalidValue;
-  int smem;
-  if (!fg_bm(p, &smem)) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-static void fg_plan(const FgParams* p, const FgLayout& L, FgPlan* plan) {
-  plan->n_jobs = 0;
-  plan->tiles = 0;
-  auto add = [&](int a_off, int k, int g_off, int n, int job) {
-    FgJob& j = plan->job[plan->n_jobs++];
-    j.a_off = a_off;
-    j.k = k;
-    j.g_off = g_off;
-    j.n = n;
-    j.ntn = (n + FG_DT - 1) / FG_DT;
-    j.tile0 = plan->tiles;
-    j.w_off = p->gw[job];
-    j.b_off = p->gb[job];
-    plan->tiles += ((k + FG_DT - 1) / FG_DT) * j.ntn;
-  };
-  const bool sk = p->skip + 1 < p->depth;
-  const int D = p->depth, W = p->width, VW = p->view_width;
-  for (int i = 0; i < D; ++i) {
-    const bool cat = sk && i == p->skip + 1;
-    add(i == 0 || cat ? L.xe : L.h[i - 1],
-        i == 0 ? p->in_dim : cat ? p->in_dim + W : W, L.gz[i], W, i);
-  }
-  add(L.h[D - 1], W, L.gfeat, W, D);                   // feature
-  add(L.feat, W + p->dir_dim, L.gv, VW, D + 1);        // view, on [feat, d]
-  add(L.v, VW, L.gin, 3, D + 2);                       // rgb
-  add(L.h[D - 1], W, L.gin + 3, 1, D + 3);             // sigma
-  if (p->out_extra) add(L.h[D - 1], W, L.gin + 4, 1, D + 4);   // semantic
-}
-
-// The points of a chunk: as few chunks as keep the scratch within
-// FG_SCRATCH_BYTES, each a multiple of 64 points.
+// The points of a chunk of the backward: as few chunks as keep the scratch
+// within FG_SCRATCH_BYTES, each a multiple of 64 points.
 static int fg_chunk(const FgLayout& L, int n_points) {
   const long long row = (long long)L.cols * 4;
   for (int n = 1;; ++n) {
     const long long c = ((n_points + n - 1) / n + 63) / 64 * 64;
     if (c * row <= FG_SCRATCH_BYTES || c <= 64) return (int)c;
   }
-}
-
-// fg_dw_kernel's splits of a chunk of pc points (about FG_DW_BLOCKS blocks
-// in all), each `per` points, a multiple of FG_PT.
-static int fg_splits(const FgPlan& plan, int pc, int* per) {
-  int s = (FG_DW_BLOCKS + plan.tiles - 1) / plan.tiles;
-  if (s > pc / FG_PT) s = pc / FG_PT;
-  if (s < 1) s = 1;
-  int pp = (pc + s - 1) / s;
-  pp = (pp + FG_PT - 1) / FG_PT * FG_PT;
-  *per = pp;
-  return (pc + pp - 1) / pp;
-}
-
-// sizes[0]: the scratch in f32 (one chunk), sizes[1]: the split partial
-// sums in f64, sizes[2]: the sum over chunks in f64.
-extern "C" int fg_sizes(const FgParams* p, int n_points, int pre,
-                        long long* sizes) {
-  const int err = fg_check(p, n_points, pre != 0);
-  if (err) return err;
-  if (n_points == 0) {
-    sizes[0] = sizes[1] = sizes[2] = 0;
-    return 0;
-  }
-  FgLayout L;
-  fg_layout(*p, &L);
-  FgPlan plan;
-  fg_plan(p, L, &plan);
-  const int chunk = fg_chunk(L, n_points);
-  int per;
-  const int splits = fg_splits(plan, chunk, &per);   // the most of any chunk
-  sizes[0] = (long long)chunk * L.cols;
-  sizes[1] = (long long)splits * p->n_params;
-  sizes[2] = p->n_params;
-  return 0;
-}
-
-template <bool PRE>
-static int fg_fwd_launch(const FgParams* p, const void* in_x,
-                         const void* in_d, void* out, int n_points,
-                         void* stream) {
-  int err = fg_check(p, n_points, PRE);
-  if (err || n_points == 0) return err;
-  if (!in_x || (PRE && !in_d) || !out) return (int)cudaErrorInvalidValue;
-  int smem;
-  const int bm = fg_bm(p, &smem);
-  err = (int)cudaFuncSetAttribute(
-      fg_fwd_kernel<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  FgLayout L;
-  fg_layout(*p, &L);
-  fg_fwd_kernel<PRE><<<n_points / bm, FG_THREADS, smem,
-                       (cudaStream_t)stream>>>(
-      *p, L, bm, (const float*)in_x, (const float*)in_d, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fg_fwd(const FgParams* p, const void* xd, void* out,
-                      int n_points, void* stream) {
-  return fg_fwd_launch<false>(p, xd, nullptr, out, n_points, stream);
-}
-
-extern "C" int fg_fwd_pre(const FgParams* p, const void* x_enc,
-                          const void* d_enc, void* out, int n_points,
-                          void* stream) {
-  return fg_fwd_launch<true>(p, x_enc, d_enc, out, n_points, stream);
-}
-
-// grads: the flat f32 gradient buffer (p->n_params, every entry written);
-// scratch, part, acc sized by fg_sizes. passes: 1 the backward kernels, 2
-// the reductions (on the scratch the last pass 1 wrote), 3 both, chunk by
-// chunk.
-template <bool PRE>
-static int fg_bwd_launch(const FgParams* p, const void* in_x,
-                         const void* in_d, const void* g, void* grads,
-                         void* dx, void* dd, void* scratch, void* part,
-                         void* acc, int n_points, int passes, void* stream) {
-  int err = fg_check(p, n_points, PRE);
-  if (err || n_points == 0) return err;
-  if (!in_x || (PRE && (!in_d || !dx || !dd)) || !g || !grads || !scratch ||
-      !part || !acc || passes < 1 || passes > 3)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  FgLayout L;
-  fg_layout(*p, &L);
-  FgPlan plan;
-  fg_plan(p, L, &plan);
-  int smem;
-  const int bm = fg_bm(p, &smem);
-  err = (int)cudaFuncSetAttribute(
-      fg_bwd_kernel<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  const int chunk = fg_chunk(L, n_points);
-  for (int c0 = 0; c0 < n_points; c0 += chunk) {
-    const int pc = n_points - c0 < chunk ? n_points - c0 : chunk;
-    if (passes & 1) {
-      fg_bwd_kernel<PRE><<<pc / bm, FG_THREADS, smem, s>>>(
-          *p, L, bm, (const float*)in_x, (const float*)in_d,
-          (const float*)g, (float*)dx, (float*)dd, (float*)scratch, pc, c0);
-      err = (int)cudaGetLastError();
-      if (err) return err;
-    }
-    if (passes & 2) {
-      int per;
-      const int splits = fg_splits(plan, pc, &per);
-      fg_dw_kernel<<<dim3(plan.tiles, splits), FG_THREADS, 0, s>>>(
-          plan, (const float*)scratch, pc, per, p->bf16, (double*)part,
-          p->n_params);
-      err = (int)cudaGetLastError();
-      if (err) return err;
-      fg_split_sum_kernel<<<(unsigned)((p->n_params + 255) / 256), 256, 0,
-                            s>>>((const double*)part, splits, p->n_params,
-                                 (double*)acc, c0 == 0,
-                                 c0 + pc >= n_points, (float*)grads);
-      err = (int)cudaGetLastError();
-      if (err) return err;
-    }
-  }
-  return 0;
 }
 
 // --- the tensor-core backward's host side ---------------------------------
@@ -2197,37 +1976,6 @@ static int ft_bwd_entry(const FgParams* p, const void* in_x, const void* in_d,
              : ft_bwd_launch<false, 1>(p, G, in_x, in_d, g, grads, dx, dd,
                                        scratch, part, acc, ring, n_points,
                                        passes, s);
-}
-
-extern "C" int fg_bwd(const FgParams* p, const void* xd, const void* g,
-                      void* grads, void* scratch, void* part, void* acc,
-                      int n_points, void* stream) {
-  return fg_bwd_launch<false>(p, xd, nullptr, g, grads, nullptr, nullptr,
-                              scratch, part, acc, n_points, 3, stream);
-}
-
-// The pre-encoded backward (#8): also writes dx [P][in_dim] and dd
-// [P][dir_dim], every entry.
-extern "C" int fg_bwd_pre(const FgParams* p, const void* x_enc,
-                          const void* d_enc, const void* g, void* grads,
-                          void* dx, void* dd, void* scratch, void* part,
-                          void* acc, int n_points, void* stream) {
-  return fg_bwd_launch<true>(p, x_enc, d_enc, g, grads, dx, dd, scratch, part,
-                             acc, n_points, 3, stream);
-}
-
-// One pass of either backward (pre: v1), for timing them apart.
-extern "C" int fg_bwd_pass(const FgParams* p, const void* in_x,
-                           const void* in_d, const void* g, void* grads,
-                           void* dx, void* dd, void* scratch, void* part,
-                           void* acc, int n_points, int pre, int pass,
-                           void* stream) {
-  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
-  return pre ? fg_bwd_launch<true>(p, in_x, in_d, g, grads, dx, dd, scratch,
-                                   part, acc, n_points, pass, stream)
-             : fg_bwd_launch<false>(p, in_x, nullptr, g, grads, nullptr,
-                                    nullptr, scratch, part, acc, n_points,
-                                    pass, stream);
 }
 
 // The tensor-core backward's plan for p (ft_geom): out = {taken (0 / 1),
@@ -2383,6 +2131,405 @@ extern "C" int fg_bwd_tc_pass(const FgParams* p, const void* in_x,
   if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
   return ft_bwd_entry(p, in_x, in_d, g, grads, dx, dd, scratch, part, acc,
                       ring, ring_bytes, n_points, pre, pass, stream);
+}
+
+// --- the layer-streamed route's host side ---------------------------------
+
+// The route's geometry for p, from the dims alone: its products (the
+// forward's depth + 2, or with the back-propagation's), weight stages,
+// ring slots and shared memory.
+struct LsGeom {
+  int np, wp, vwp, slots, smem, n_prods;
+  long long stages;
+  LsProd prod[LS_MAX_PRODS];
+};
+
+static int ls_smem(int np, int slots) {
+  return slots * np * (2 * LS_APLANE + LS_BPLANE) + 16 * slots + FT_ALIGN;
+}
+
+// Every product of a backward, in launch order: the recompute (trunk
+// 0..depth-1, the skip layer on [x, h]; feature; view on [feat, d]); then
+// the back-propagation from G_v (ls_gv_kernel writes it to H0): G_feat,
+// with pre dd, the last trunk layer's G, and down the trunk to layer 1,
+// with pre the encoding's part of the skip layer's input gradient before
+// it and of layer 0's at the end (dx). The layers alternate between H0
+// and H1. Returns the count.
+static int ls_products(const FgParams& p, int pre, int wp, int vwp,
+                       LsProd* out) {
+  const int D = p.depth, W = p.width, E = p.in_dim / LS_T, Wk = wp / LS_T;
+  const int cat = p.skip + 1 < D ? p.skip + 1 : -1;
+  int n = 0;
+  auto add = [&](int kind, int layer, int cols, int s0, int k0, int s1,
+                 int k1, int dst) {
+    LsProd& r = out[n++];
+    r.kind = kind;
+    r.layer = layer;
+    r.n = cols;
+    r.ntn = (cols + LS_BN - 1) / LS_BN;
+    r.nseg0 = k0;
+    r.nk = k0 + (s1 >= 0 ? k1 : 0);
+    r.src0 = s0;
+    r.src1 = s1;
+    r.dst = dst;
+  };
+  auto H = [](int i) { return LS_BH0 + (i & 1); };   // layer i's output
+  for (int i = 0; i < D; ++i) {
+    if (i == 0)
+      add(LS_TRUNK, 0, W, LS_BX, E, -1, 0, H(0));
+    else if (i == cat)
+      add(LS_TRUNK, i, W, LS_BX, E, H(i - 1), Wk, H(i));
+    else
+      add(LS_TRUNK, i, W, H(i - 1), Wk, -1, 0, H(i));
+  }
+  add(LS_FEAT, 0, W, H(D - 1), Wk, -1, 0, H(D));
+  add(LS_VIEW, 0, p.view_width, H(D), Wk, LS_BD, p.dir_dim / LS_T, -1);
+  add(LS_GFEAT, 0, W, LS_BH0, vwp / LS_T, -1, 0, LS_BH1);
+  if (pre) add(LS_DD, 0, p.dir_dim, LS_BH0, vwp / LS_T, -1, 0, -1);
+  add(LS_GTOP, 0, W, LS_BH1, Wk, -1, 0, LS_BH0);
+  auto G = [&](int i) { return LS_BH0 + ((D - 1 - i) & 1); };   // G_i
+  for (int i = D - 1; i >= 1; --i) {
+    if (pre && i == cat) add(LS_DX, i, p.in_dim, G(i), Wk, -1, 0, -1);
+    add(LS_GTRUNK, i, W, G(i), Wk, -1, 0, G(i - 1));
+  }
+  if (pre) add(LS_DX, 0, p.in_dim, G(0), Wk, -1, 0, -1);
+  return n;
+}
+
+// The geometry of the forward (`forward`) or the backward on this route;
+// 0 where the ft_ kernels take that direction (ft_fwd_geom, ft_geom).
+static int ls_geom(const FgParams* p, int pre, int forward, LsGeom* G) {
+  FtGeom F;
+  if (p->in_dim % LS_T || p->dir_dim % LS_T) return 0;
+  if (forward ? ft_fwd_geom(p, &F) : ft_geom(p, pre, &F)) return 0;
+  G->np = p->bf16 ? 1 : 3;
+  G->wp = (p->width + LS_T - 1) / LS_T * LS_T;
+  G->vwp = (p->view_width + LS_T - 1) / LS_T * LS_T;
+  G->slots = 0;
+  for (int s = LS_MAX_SLOTS; s >= LS_MIN_SLOTS && !G->slots; --s)
+    if (ls_smem(G->np, s) <= FG_SMEM_MAX) G->slots = s;
+  if (!G->slots) return 0;
+  G->smem = ls_smem(G->np, G->slots);
+  const int all = ls_products(*p, pre, G->wp, G->vwp, G->prod);
+  G->n_prods = forward ? p->depth + 2 : all;
+  G->stages = 0;
+  for (int i = 0; i < G->n_prods; ++i)
+    G->stages += (long long)G->prod[i].ntn * G->prod[i].nk;
+  return 1;
+}
+
+// A chunk's operand buffers (X, D, H0, H1) and, in the forward, the head
+// partial sums, at byte offsets of the work buffer.
+struct LsWork {
+  long long rows, off[LS_NBUF + 1], bytes;
+  int lanes[LS_NBUF];
+};
+
+static long long ls_align(long long x) { return (x + 1023) / 1024 * 1024; }
+
+static void ls_work(const FgParams& p, const LsGeom& G, long long chunk,
+                    bool heads, LsWork* w) {
+  w->rows = (chunk + LS_BM - 1) / LS_BM * LS_BM;
+  w->lanes[LS_BX] = p.in_dim;
+  w->lanes[LS_BD] = p.dir_dim;
+  w->lanes[LS_BH0] = w->lanes[LS_BH1] = G.wp;
+  long long o = 0;
+  for (int b = 0; b < LS_NBUF; ++b) {
+    w->off[b] = o;
+    o = ls_align(o + w->rows * w->lanes[b] * 2LL * G.np);
+  }
+  w->off[LS_NBUF] = o;
+  if (heads)
+    o = ls_align(o + (long long)((p.width + LS_BN - 1) / LS_BN) * w->rows *
+                         LS_HEADS * 4);
+  w->bytes = o;
+}
+
+// The forward's chunk: as few as keep its work within LS_WORK_BYTES, each a
+// multiple of 64 points.
+static int ls_fwd_chunk(const FgParams& p, const LsGeom& G, int n_points) {
+  for (int n = 1;; ++n) {
+    const long long c = ((n_points + n - 1) / n + 63) / 64 * 64;
+    LsWork w;
+    ls_work(p, G, c, true, &w);
+    if (w.bytes <= LS_WORK_BYTES || c <= 64) return (int)c;
+  }
+}
+
+// One chunk of pc points from c0: the encodings, then each product of
+// G (a forward's, with the heads, into out; or a backward's pass 1, into
+// the scratch scr, with the cotangent and G_v before the back-propagation).
+template <int NP>
+static int ls_chunk(const FgParams* p, const FgLayout& L, const LsGeom& G,
+                    int pre, bool fwd, const float* in_x, const float* in_d,
+                    const float* g, float* out, float* dx, float* dd,
+                    float* scr, const uint8_t* ring, uint8_t* work,
+                    const LsWork& w, long long c0, int pc, cudaStream_t s) {
+  uint8_t* buf[LS_NBUF];
+  for (int b = 0; b < LS_NBUF; ++b) buf[b] = work + w.off[b];
+  float* hp = fwd ? reinterpret_cast<float*>(work + w.off[LS_NBUF]) : nullptr;
+  auto grid = [](long long n) { return (unsigned)((n + 255) / 256); };
+  const long long n_enc = w.rows * ((p->in_dim + p->dir_dim) / 8);
+  if (pre)
+    ls_encode_kernel<true, NP><<<grid(n_enc), LS_ENC_THREADS, 0, s>>>(
+        *p, L, in_x, in_d, c0, pc, w.rows, buf[LS_BX], buf[LS_BD], scr);
+  else
+    ls_encode_kernel<false, NP><<<grid(n_enc), LS_ENC_THREADS, 0, s>>>(
+        *p, L, in_x, in_d, c0, pc, w.rows, buf[LS_BX], buf[LS_BD], scr);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  long long stage0 = 0;
+  for (int pi = 0; pi < G.n_prods; ++pi) {
+    const LsProd& pr = G.prod[pi];
+    if (pi == p->depth + 2) {   // the cotangent, G_v into H0
+      ls_gv_kernel<NP><<<grid(w.rows * (G.vwp / 8 + 1)), LS_ENC_THREADS, 0,
+                         s>>>(*p, L, g, pre, c0, pc, w.rows, G.vwp,
+                              w.lanes[LS_BH0] / LS_T, buf[LS_BH0], scr);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+    LsArgs a = {};
+    a.a0 = buf[pr.src0];
+    a.akc0 = w.lanes[pr.src0] / LS_T;
+    if (pr.src1 >= 0) {
+      a.a1 = buf[pr.src1];
+      a.akc1 = w.lanes[pr.src1] / LS_T;
+    }
+    a.nseg0 = pr.nseg0;
+    a.nk = pr.nk;
+    a.ntn = pr.ntn;
+    a.kind = pr.kind;
+    a.layer = pr.layer;
+    a.pre = pre;
+    a.b = ring + stage0 * NP * LS_BPLANE;
+    if (pr.dst >= 0) {
+      a.dst = buf[pr.dst];
+      a.dkc = w.lanes[pr.dst] / LS_T;
+    }
+    a.scr = scr;
+    if (fwd && (pr.kind == LS_VIEW ||
+                (pr.kind == LS_TRUNK && pr.layer == p->depth - 1)))
+      a.hp = hp;
+    a.rows = w.rows;
+    a.n_rows = pc;
+    a.p0 = c0;
+    a.g = g;
+    a.dx = dx;
+    a.dd = dd;
+    a.dx_add = pr.kind == LS_DX && pr.layer == 0 && p->skip + 1 < p->depth;
+    const long long blocks = (long long)pr.ntn * (w.rows / LS_BM);
+    ls_prod_kernel<NP><<<(unsigned)blocks, LS_THREADS, G.smem, s>>>(
+        *p, L, a, G.slots);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    stage0 += (long long)pr.ntn * pr.nk;
+  }
+  if (fwd) {
+    ls_heads_kernel<<<grid(pc), 256, 0, s>>>(
+        *p, hp, w.rows, pc, (p->width + LS_BN - 1) / LS_BN,
+        (p->view_width + LS_BN - 1) / LS_BN, out + c0 * (4 + p->out_extra));
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
+// The route's plan for p (ls_geom): out = {taken (0 / 1), shared memory
+// bytes, ring slots, weight stages, ring bytes, padded width, padded view
+// width, parts, products}; ops/fused_mlp.py::gen_layer_plan mirrors it.
+extern "C" int fg_ls_plan(const FgParams* p, int pre, int forward,
+                          long long* out) {
+  if (!p || !out || (pre != 0 && pre != 1)) return (int)cudaErrorInvalidValue;
+  LsGeom G;
+  const int ok = ls_geom(p, pre, forward, &G);
+  out[0] = ok;
+  out[1] = ok ? G.smem : 0;
+  out[2] = ok ? G.slots : 0;
+  out[3] = ok ? G.stages : 0;
+  out[4] = ok ? G.stages * G.np * LS_BPLANE : 0;
+  out[5] = ok ? G.wp : 0;
+  out[6] = ok ? G.vwp : 0;
+  out[7] = ok ? G.np : 0;
+  out[8] = ok ? G.n_prods : 0;
+  return 0;
+}
+
+// sizes: [0] the backward's scratch in f32 (one chunk), [1] its split
+// partial sums in f64, [2] the sum over chunks in f64 (as fg_tc_sizes; 0
+// for a forward), [3] the work buffer's bytes (operand buffers, head
+// partial sums).
+extern "C" int fg_ls_sizes(const FgParams* p, int n_points, int pre,
+                           int forward, long long* sizes) {
+  const int err = fg_check(p, n_points, pre != 0);
+  if (err) return err;
+  LsGeom G;
+  if (!sizes || !ls_geom(p, pre, forward, &G))
+    return (int)cudaErrorInvalidValue;
+  sizes[0] = sizes[1] = sizes[2] = sizes[3] = 0;
+  if (n_points == 0) return 0;
+  LsWork w;
+  if (forward) {
+    ls_work(*p, G, ls_fwd_chunk(*p, G, n_points), true, &w);
+    sizes[3] = w.bytes;
+    return 0;
+  }
+  FgLayout L;
+  fg_layout(*p, &L);
+  FtDwPlan plan;
+  ft_dw_plan(p, L, &plan);
+  const int chunk = fg_chunk(L, n_points);
+  int per;
+  const int splits = ft_splits(plan, chunk, &per);   // the most of any chunk
+  ls_work(*p, G, chunk, false, &w);
+  sizes[0] = (long long)chunk * L.cols;
+  sizes[1] = (long long)splits * p->n_params;
+  sizes[2] = p->n_params;
+  sizes[3] = w.bytes;
+  return 0;
+}
+
+template <int NP>
+static int ls_fwd_launch(const FgParams* p, const LsGeom& G,
+                         const void* in_x, const void* in_d, void* out,
+                         const void* ring, void* work, int n_points, int pre,
+                         cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(
+      ls_prod_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G.smem);
+  if (err) return err;
+  FgLayout L;
+  fg_layout(*p, &L);
+  const int chunk = ls_fwd_chunk(*p, G, n_points);
+  LsWork w;
+  ls_work(*p, G, chunk, true, &w);
+  for (int c0 = 0; c0 < n_points; c0 += chunk) {
+    const int pc = n_points - c0 < chunk ? n_points - c0 : chunk;
+    err = ls_chunk<NP>(p, L, G, pre, true, (const float*)in_x,
+                       (const float*)in_d, nullptr, (float*)out, nullptr,
+                       nullptr, nullptr, (const uint8_t*)ring,
+                       (uint8_t*)work, w, c0, pc, s);
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The layer-streamed forward (#9 / #7 gen with pre): raw [P][4 + e] f32
+// from xd [P][8] or from the encodings. ring: gen_ls_ring's forward stages
+// or its backward's whole ring (whose first stages they are); work:
+// fg_ls_sizes' bytes.
+extern "C" int fg_fwd_ls(const FgParams* p, const void* in_x,
+                         const void* in_d, void* out, const void* ring,
+                         long long ring_bytes, void* work,
+                         long long work_bytes, int n_points, int pre,
+                         void* stream) {
+  int err = fg_check(p, n_points, pre != 0);
+  if (err || n_points == 0) return err;
+  LsGeom G, B;
+  if (!ls_geom(p, pre, 1, &G)) return (int)cudaErrorInvalidValue;
+  const long long stage = (long long)G.np * LS_BPLANE;
+  if (ring_bytes != G.stages * stage &&
+      !(ls_geom(p, pre, 0, &B) && ring_bytes == B.stages * stage))
+    return (int)cudaErrorInvalidValue;
+  LsWork w;
+  ls_work(*p, G, ls_fwd_chunk(*p, G, n_points), true, &w);
+  if (!in_x || (pre && !in_d) || !out || !ring || !work ||
+      work_bytes < w.bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return G.np == 3 ? ls_fwd_launch<3>(p, G, in_x, in_d, out, ring, work,
+                                      n_points, pre, s)
+                   : ls_fwd_launch<1>(p, G, in_x, in_d, out, ring, work,
+                                      n_points, pre, s);
+}
+
+template <int NP>
+static int ls_bwd_launch(const FgParams* p, const LsGeom& G,
+                         const void* in_x, const void* in_d, const void* g,
+                         void* grads, void* dx, void* dd, void* scratch,
+                         void* part, void* acc, void* work, const void* ring,
+                         int n_points, int pre, int passes, cudaStream_t s) {
+  FgLayout L;
+  fg_layout(*p, &L);
+  FtDwPlan dplan;
+  ft_dw_plan(p, L, &dplan);
+  int dev, sms;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(
+      ls_prod_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G.smem);
+  if (err) return err;
+  const int dw_smem = ft_dw_smem<NP>();
+  err = (int)cudaFuncSetAttribute(
+      ft_dw_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+  if (err) return err;
+  const int chunk = fg_chunk(L, n_points);
+  LsWork w;
+  ls_work(*p, G, chunk, false, &w);
+  for (int c0 = 0; c0 < n_points; c0 += chunk) {
+    const int pc = n_points - c0 < chunk ? n_points - c0 : chunk;
+    if (passes & 1) {
+      err = ls_chunk<NP>(p, L, G, pre, false, (const float*)in_x,
+                         (const float*)in_d, (const float*)g, nullptr,
+                         (float*)dx, (float*)dd, (float*)scratch,
+                         (const uint8_t*)ring, (uint8_t*)work, w, c0, pc, s);
+      if (err) return err;
+    }
+    if (passes & 2) {
+      int per;
+      const int splits = ft_splits(dplan, pc, &per);
+      const int items = dplan.tiles * splits;
+      ft_dw_kernel<NP><<<items < sms ? items : sms, FT_DW_THREADS, dw_smem,
+                         s>>>(dplan, (const float*)scratch, pc, per, splits,
+                              p->bf16, (double*)part, p->n_params);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+      fg_split_sum_kernel<<<(unsigned)((p->n_params + 255) / 256), 256, 0,
+                            s>>>((const double*)part, splits, p->n_params,
+                                 (double*)acc, c0 == 0,
+                                 c0 + pc >= n_points, (float*)grads);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+  }
+  return 0;
+}
+
+// The layer-streamed backward (#10 / #8 gen with pre: also dx [P][in_dim]
+// and dd [P][dir_dim], every entry): pass 1 (passes & 1) the recompute and
+// the back-propagation into the scratch, pass 2 (passes & 2) ft_dw_kernel's
+// weight gradients into grads (every entry written), chunk by chunk; ring:
+// gen_ls_ring's; scratch, part, acc, work: fg_ls_sizes'.
+extern "C" int fg_bwd_ls(const FgParams* p, const void* in_x,
+                         const void* in_d, const void* g, void* grads,
+                         void* dx, void* dd, void* scratch, void* part,
+                         void* acc, void* work, long long work_bytes,
+                         const void* ring, long long ring_bytes, int n_points,
+                         int pre, int passes, void* stream) {
+  int err = fg_check(p, n_points, pre != 0);
+  if (err || n_points == 0) return err;
+  LsGeom G;
+  if (!ls_geom(p, pre, 0, &G) ||
+      ring_bytes != G.stages * G.np * LS_BPLANE)
+    return (int)cudaErrorInvalidValue;
+  FgLayout L;
+  fg_layout(*p, &L);
+  LsWork w;
+  ls_work(*p, G, fg_chunk(L, n_points), false, &w);
+  if (!in_x || (pre && (!in_d || !dx || !dd)) || !g || !grads || !scratch ||
+      !part || !acc || !work || work_bytes < w.bytes || !ring ||
+      passes < 1 || passes > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return G.np == 3
+             ? ls_bwd_launch<3>(p, G, in_x, in_d, g, grads, dx, dd, scratch,
+                                part, acc, work, ring, n_points, pre, passes,
+                                s)
+             : ls_bwd_launch<1>(p, G, in_x, in_d, g, grads, dx, dd, scratch,
+                                part, acc, work, ring, n_points, pre, passes,
+                                s);
 }
 
 extern "C" const char* fg_error_string(int err) {

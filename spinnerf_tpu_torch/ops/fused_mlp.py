@@ -29,16 +29,18 @@ picks the family from the geometry and the compute type:
   pre-swizzled bf16 weight stages (`pack_ring`, packed by `gather_ring`):
   the forward its first stages, the backward all of them.
 - "gen" (`csrc/fused_mlp_gen.cu`): every other configuration within
-  `GEN_LIMITS`, f32 or bf16. Its forward and its backward each run on the
-  tensor cores wherever their plan takes the geometry (`gen_fwd_plan`:
-  f32 widths to 256; `gen_bwd_plan`: to 512), f32 as six exact bf16
-  products (`split_bf16x3`), from the weights split into bf16 stages once
-  a call (`gen_ring`: the backward's whole ring, whose first stages are
-  the forward's, or the forward's alone); elsewhere on the CUDA cores, from
-  the weights rounded to the compute type (`gen_pack`) and, in the
-  backward, their transposes. Each choice is made from the dims alone,
-  before launch, and counted apart (`launches_gen["fwd_tc"]` beside
-  "fwd", "bwd_tc" beside "bwd").
+  `GEN_LIMITS`, f32 or bf16, on the tensor cores with f32 as six exact
+  bf16 products (`split_bf16x3`). Its forward and its backward each take
+  one of two kernel sets, picked from the dims alone before launch and
+  counted apart: the fused kernels wherever their plan's block buffers fit
+  (`gen_fwd_plan`: f32 widths to 256; `gen_bwd_plan`: to 512; counted as
+  `launches_gen["fwd_tc"]` / "bwd_tc"), from the weights split into bf16
+  stages once a call (`gen_ring`: the backward's whole ring, whose first
+  stages are the forward's, or the forward's alone); the layer-streamed
+  kernels at every wider geometry (`gen_layer_plan`; "fwd_ls" / "bwd_ls"),
+  one product a layer with the activations between layers in device
+  memory, from their own stages (`gen_ls_ring`). Both read the heads'
+  matrices rounded to the compute type (`gen_heads`).
 Beyond the limits a kernel entry raises ValueError; nothing falls back to
 the plain version on the card. The autograd functions pack the route's
 weights once a call, in the forward, and keep them for the backward; a
@@ -62,12 +64,12 @@ from spinnerf_tpu_torch.ops import cuda_build
 # Kernel launches by the wrappers, counted where they launch and nowhere
 # else: the v2 kernels (#9/#10) and the v1 kernels (#7/#8) of the wgmma
 # route, and the same functions on the generic route, whose forward and
-# backward are "fwd_tc" / "bwd_tc" on the tensor cores and "fwd" / "bwd" on
-# the CUDA cores.
+# backward are "fwd_tc" / "bwd_tc" on the fused tensor-core kernels and
+# "fwd_ls" / "bwd_ls" on the layer-streamed ones.
 launches = {"fwd": 0, "bwd": 0}
 launches_v1 = {"fwd": 0, "bwd": 0}
-launches_gen = {"fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
-launches_gen_v1 = {"fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
+launches_gen = {"fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0, "bwd_ls": 0}
+launches_gen_v1 = {"fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0, "bwd_ls": 0}
 
 _HALF_PI = float(np.float32(np.pi / 2.0))   # the TPU kernel's f32 phase
 _MAX_DEPTH = 16                            # FM_MAX_DEPTH in the CUDA source
@@ -75,13 +77,13 @@ _BM = 64                                   # FM_BM: points per kernel block
 # The wgmma kernels' one configuration: (depth, skip, width, view_width,
 # in_dim, dir_dim, multires, multires_views) in bf16; v1 reads no octaves.
 WGMMA_GEOMETRY = (8, 4, 256, 128, 128, 128, 10, 4)
-# The generic family's limits (csrc/fused_mlp_gen.cu: FG_MAX_DEPTH, and the
-# widths whose block buffers fit the shared memory, fg_bm). Within them the
-# forward and the backward each run on the tensor cores where their plan's
-# buffers fit (`gen_fwd_plan`: f32 to width 256 with 128-lane encodings and
-# to 192 with 256-lane ones, bf16 to 320 and 256; `gen_bwd_plan`: every
-# width to 512 with 128-lane encodings, f32 to 384 and bf16 to 512 with
-# 256-lane ones, bf16 to 640 with 128), on the CUDA cores elsewhere.
+# The generic family's limits (csrc/fused_mlp_gen.cu: FG_MAX_DEPTH,
+# FG_MAX_WIDTH). Within them the forward and the backward each run on the
+# fused tensor-core kernels where their plan's buffers fit (`gen_fwd_plan`:
+# f32 to width 256 with 128-lane encodings and to 192 with 256-lane ones,
+# bf16 to 320 and 256; `gen_bwd_plan`: every width to 512 with 128-lane
+# encodings, f32 to 384 and bf16 to 512 with 256-lane ones, bf16 to 640
+# with 128), on the layer-streamed ones elsewhere (`gen_layer_plan`).
 GEN_LIMITS = {"depth": (1, 32), "width": (8, 2048), "enc_dims": (128, 256)}
 _GEN_MAX_JOBS = GEN_LIMITS["depth"][1] + 5       # FG_MAX_JOBS
 # The tensor-core kernels' constants (csrc/fused_mlp_gen.cu, FT_*; change
@@ -91,6 +93,11 @@ _GEN_MAX_JOBS = GEN_LIMITS["depth"][1] + 5       # FG_MAX_JOBS
 # forward takes a product.
 _FT = {"BM": 64, "T": 64, "PLANE": 8192, "PAD": 8, "MIN_SLOTS": 2,
        "MAX_SLOTS": 8, "ALIGN": 1024, "SMEM_MAX": 232448, "FWD_TILES": 3}
+# The layer-streamed kernels' constants (csrc/fused_mlp_gen.cu, LS_*;
+# change both together): output columns a block, a stage's depth, bytes of
+# a bf16 operand tile part and of a weight stage part, ring slots.
+_LS = {"BN": 128, "T": 64, "APLANE": 8192, "BPLANE": 16384, "MIN_SLOTS": 2,
+       "MAX_SLOTS": 8}
 
 
 class MLPDims(NamedTuple):
@@ -670,9 +677,8 @@ def _raise_on(lib, fn_name: str, err: int):
 class _FgParams(ctypes.Structure):
     """`FgParams` of csrc/fused_mlp_gen.cu, field for field."""
     _fields_ = (
-        [(n, _VP * GEN_LIMITS["depth"][1]) for n in ("tw", "tb", "twt")]
-        + [(n, _VP) for n in ("feat_w", "feat_b", "featt", "view_w", "view_b",
-                              "viewt", "rgb_w", "rgb_b", "rgbt", "sigma_w",
+        [("tb", _VP * GEN_LIMITS["depth"][1])]
+        + [(n, _VP) for n in ("feat_b", "view_b", "rgb_w", "rgb_b", "sigma_w",
                               "sigma_b", "sem_w", "sem_b")]
         + [(n, ctypes.c_longlong * _GEN_MAX_JOBS) for n in ("gw", "gb")]
         + [("n_params", ctypes.c_longlong)]
@@ -685,93 +691,58 @@ class _FgParams(ctypes.Structure):
 def _gen_lib():
     lib = cuda_build.load("fused_mlp_gen")
     if not getattr(lib, "_fg_typed", False):
-        prm, i32 = ctypes.POINTER(_FgParams), ctypes.c_int
-        lib.fg_fwd.argtypes = [prm, _VP, _VP, i32, _VP]
-        lib.fg_fwd_pre.argtypes = [prm, _VP, _VP, _VP, i32, _VP]
-        lib.fg_bwd.argtypes = [prm] + [_VP] * 6 + [i32, _VP]
-        lib.fg_bwd_pre.argtypes = [prm] + [_VP] * 9 + [i32, _VP]
-        lib.fg_bwd_pass.argtypes = [prm] + [_VP] * 9 + [i32] * 3 + [_VP]
-        i64, ll_p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
-        lib.fg_sizes.argtypes = [prm, i32, i32, ll_p]
-        lib.fg_tc_sizes.argtypes = [prm, i32, i32, ll_p]
-        lib.fg_tc_plan.argtypes = [prm, i32, ll_p]
-        lib.fg_tc_fwd_plan.argtypes = [prm, i32, ll_p]
-        lib.fg_fwd_tc.argtypes = [prm, _VP, _VP, _VP, i64, i32, _VP]
-        lib.fg_fwd_tc_pre.argtypes = [prm, _VP, _VP, _VP, _VP, i64, i32, _VP]
-        lib.fg_bwd_tc.argtypes = [prm] + [_VP] * 7 + [i64, i32, _VP]
-        lib.fg_bwd_tc_pre.argtypes = [prm] + [_VP] * 10 + [i64, i32, _VP]
-        lib.fg_bwd_tc_pass.argtypes = [prm] + [_VP] * 10 + [i64] + [i32] * 3 \
-            + [_VP]
-        for fn in (lib.fg_fwd, lib.fg_fwd_pre, lib.fg_bwd, lib.fg_bwd_pre,
-                   lib.fg_bwd_pass, lib.fg_sizes, lib.fg_tc_sizes,
-                   lib.fg_tc_plan, lib.fg_bwd_tc,
-                   lib.fg_bwd_tc_pre, lib.fg_bwd_tc_pass, lib.fg_tc_fwd_plan,
-                   lib.fg_fwd_tc, lib.fg_fwd_tc_pre):
-            fn.restype = i32
-        lib.fg_error_string.argtypes = [i32]
-        lib.fg_error_string.restype = ctypes.c_char_p
+        _gen_signatures(lib)
         lib._fg_typed = True
     return lib
 
 
-def _gen_matrices(dims: MLPDims):
-    """The weight matrices the generic kernels multiply, in
-    `_weight_order`."""
-    return [n for n in _weight_order(dims)
-            if n.startswith("tw") or n.endswith("_w")]
+def _gen_signatures(lib):
+    """Declare the C entries' argument and result types on `lib` (the
+    CUDA source's `extern "C"` signatures, in order)."""
+    prm, i32 = ctypes.POINTER(_FgParams), ctypes.c_int
+    i64, ll_p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+    lib.fg_tc_sizes.argtypes = [prm, i32, i32, ll_p]
+    lib.fg_tc_plan.argtypes = [prm, i32, ll_p]
+    lib.fg_tc_fwd_plan.argtypes = [prm, i32, ll_p]
+    lib.fg_fwd_tc.argtypes = [prm, _VP, _VP, _VP, i64, i32, _VP]
+    lib.fg_fwd_tc_pre.argtypes = [prm, _VP, _VP, _VP, _VP, i64, i32, _VP]
+    lib.fg_bwd_tc.argtypes = [prm] + [_VP] * 7 + [i64, i32, _VP]
+    lib.fg_bwd_tc_pre.argtypes = [prm] + [_VP] * 10 + [i64, i32, _VP]
+    lib.fg_bwd_tc_pass.argtypes = [prm] + [_VP] * 10 + [i64] + [i32] * 3 + [
+        _VP]
+    lib.fg_ls_plan.argtypes = [prm, i32, i32, ll_p]
+    lib.fg_ls_sizes.argtypes = [prm, i32, i32, i32, ll_p]
+    lib.fg_fwd_ls.argtypes = [prm, _VP, _VP, _VP, _VP, i64, _VP, i64,
+                              i32, i32, _VP]
+    lib.fg_bwd_ls.argtypes = [prm] + [_VP] * 10 + [i64, _VP, i64] + [
+        i32] * 3 + [_VP]
+    for fn in (lib.fg_tc_sizes, lib.fg_tc_plan, lib.fg_bwd_tc,
+               lib.fg_bwd_tc_pre, lib.fg_bwd_tc_pass, lib.fg_tc_fwd_plan,
+               lib.fg_fwd_tc, lib.fg_fwd_tc_pre, lib.fg_ls_plan,
+               lib.fg_ls_sizes, lib.fg_fwd_ls, lib.fg_bwd_ls):
+        fn.restype = i32
+    lib.fg_error_string.argtypes = [i32]
+    lib.fg_error_string.restype = ctypes.c_char_p
 
 
-def _gen_transposed(dims: MLPDims):
-    """The matrices whose transposes the generic backward multiplies
-    (sigma_w and sem_w, [width, 1], serve as their own)."""
-    return [f"tw{i}" for i in range(dims.depth)] + ["feat_w", "view_w",
-                                                     "rgb_w"]
-
-
-def gen_pack_offsets(dims: MLPDims, backward: bool = True):
-    """({name: element offset}, elements) of `gen_pack`'s buffer: every
-    matrix of `_gen_matrices`, then with `backward` the transposes of
-    `_gen_transposed`, keyed "<name>^T"."""
+def _gen_heads_offsets(dims: MLPDims):
+    """({name: element offset}, elements) of `gen_heads`' buffer."""
     shapes = weight_shapes(dims)
     offs, off = {}, 0
-    for n in _gen_matrices(dims):
+    for n in ["rgb_w", "sigma_w"] + (["sem_w"] if dims.out_extra else []):
         offs[n], off = off, off + math.prod(shapes[n])
-    if backward:
-        for n in _gen_transposed(dims):
-            offs[n + "^T"], off = off, off + math.prod(shapes[n])
     return offs, off
 
 
-_gen_index_cache: dict = {}
-
-
-def _gen_transpose_index(dims: MLPDims, device):
-    """The index, into the matrices of `gen_pack`'s buffer, of every element
-    of its transposes (int64 on `device`, built once per geometry)."""
-    key = (dims, str(device))
-    if key not in _gen_index_cache:
-        shapes = weight_shapes(dims)
-        offs, _ = gen_pack_offsets(dims, backward=False)
-        _gen_index_cache[key] = torch.cat([
-            torch.arange(offs[n], offs[n] + math.prod(shapes[n])).view(
-                shapes[n]).t().reshape(-1)
-            for n in _gen_transposed(dims)]).to(device)
-    return _gen_index_cache[key]
-
-
-def gen_pack(weights, dims: MLPDims, *, backward: bool = True):
-    """What the generic kernels read of the weight matrices, in one f32
-    buffer (`gen_pack_offsets`): each matrix in the JAX layout [in, out]
-    rounded to the compute type, as the plain version rounds it, and with
-    `backward` their transposes [out, in]. The biases are read as they
-    are."""
-    flat = torch.cat([weights[n].reshape(-1) for n in _gen_matrices(dims)])
-    if dims.compute_dtype == "bfloat16":
-        flat = flat.to(torch.bfloat16).to(torch.float32)
-    if backward:
-        flat = torch.cat([flat, flat[_gen_transpose_index(dims,
-                                                          flat.device)]])
-    return flat
+def gen_heads(weights, dims: MLPDims):
+    """What the generic kernels read of the heads' matrices, in one f32
+    buffer (`_gen_heads_offsets`): rgb_w [view_width, 3], sigma_w and with
+    the semantic head sem_w [width, 1], rounded to the compute type as the
+    plain version rounds them. The other matrices come as bf16 stages
+    (`gen_ring`, `gen_ls_ring`); the biases are read as they are."""
+    offs, _ = _gen_heads_offsets(dims)
+    flat = torch.cat([weights[n].reshape(-1) for n in offs]).float()
+    return _rounding(dims, torch.float32)(flat)
 
 
 def _flat_offsets(dims: MLPDims):
@@ -784,37 +755,27 @@ def _flat_offsets(dims: MLPDims):
     return offs, off
 
 
-def gen_params(weights, dims: MLPDims, pack) -> _FgParams:
-    """FgParams: the biases, the matrices of `pack` (`gen_pack`'s buffer,
-    the forward's or the backward's) and the gradients' offsets in the
-    flat buffer (`_flat_offsets`), by job: the trunk, the feature, view,
-    rgb, sigma and semantic layers."""
-    offs, n_bwd = gen_pack_offsets(dims, backward=True)
-    n_fwd = gen_pack_offsets(dims, backward=False)[1]
-    if pack.dtype != torch.float32 or pack.numel() not in (n_fwd, n_bwd):
-        raise ValueError(f"the generic kernels' pack must be gen_pack's "
-                         f"f32 buffer of {n_fwd} or {n_bwd} elements, got "
-                         f"{pack.dtype} {pack.numel()}")
-    base = pack.data_ptr()
-
-    def ptr(key):
-        return base + 4 * offs[key] if offs[key] < pack.numel() else None
-
+def gen_params(weights, dims: MLPDims, heads) -> _FgParams:
+    """FgParams: the biases, the heads' matrices in `heads` (`gen_heads`'
+    buffer) and the gradients' offsets in the flat buffer
+    (`_flat_offsets`), by job: the trunk, the feature, view, rgb, sigma and
+    semantic layers."""
+    offs, n_heads = _gen_heads_offsets(dims)
+    if heads.dtype != torch.float32 or heads.numel() != n_heads:
+        raise ValueError(f"the generic kernels' heads must be gen_heads' "
+                         f"f32 buffer of {n_heads} elements, got "
+                         f"{heads.dtype} {heads.numel()}")
     prm = _FgParams()
     for i in range(dims.depth):
-        prm.tw[i], prm.twt[i] = ptr(f"tw{i}"), ptr(f"tw{i}^T")
         prm.tb[i] = weights[f"tb{i}"].data_ptr()
-    for n in ("feat", "view", "rgb"):
-        setattr(prm, f"{n}_w", ptr(f"{n}_w"))
-        setattr(prm, f"{n}t", ptr(f"{n}_w^T"))
-    heads = ["sigma"] + (["sem"] if dims.out_extra else [])
-    for n in heads:
-        setattr(prm, f"{n}_w", ptr(f"{n}_w"))
-    for n in ["feat", "view", "rgb"] + heads:
+    for n, off in offs.items():
+        setattr(prm, n, heads.data_ptr() + 4 * off)
+    heads_ = ["sigma"] + (["sem"] if dims.out_extra else [])
+    for n in ["feat", "view", "rgb"] + heads_:
         setattr(prm, f"{n}_b", weights[f"{n}_b"].data_ptr())
     goff, prm.n_params = _flat_offsets(dims)
     jobs = [f"tw{i}" for i in range(dims.depth)] + [
-        f"{n}_w" for n in ["feat", "view", "rgb"] + heads]
+        f"{n}_w" for n in ["feat", "view", "rgb"] + heads_]
     for j, n in enumerate(jobs):
         prm.gw[j] = goff[n]
         prm.gb[j] = goff[n.replace("tw", "tb").replace("_w", "_b")]
@@ -829,70 +790,26 @@ def gen_params(weights, dims: MLPDims, pack) -> _FgParams:
 
 class _GenBwdCall(NamedTuple):
     """The arguments of one generic backward and the buffers they point
-    into (`_gen_bwd_args`)."""
+    into (`_gen_tc_args`, `_gen_ls_args`)."""
     lib: ctypes.CDLL
     prm: _FgParams
-    ptrs: tuple             # in_x, in_d, g, grads, dx, dd, scratch, part, acc
+    ptrs: tuple             # in_x, in_d, g, grads, dx, dd, scratch, ...
     n_points: int
     flat: torch.Tensor      # the gradients in `_weight_order`
     dx: torch.Tensor | None
     dd: torch.Tensor | None
     scratch_bytes: int
-    keep: tuple             # what the arguments point into besides
-
-
-def _gen_bwd_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
-                  pack=None) -> _GenBwdCall:
-    """Check the inputs and allocate what a generic backward on (xd,) (v2)
-    or, with `pre`, on the encodings (x_enc, d_enc) (v1) needs: the packed
-    weights (`gen_pack`, packed here when `pack` is None), the flat f32
-    gradients (every entry written by the kernels), with `pre` dx and dd,
-    and the scratch, split partial sums and chunk sums (`fg_sizes`)."""
-    _check_kernel_args(weights, inputs, dims, pre)
-    p, dev = inputs[0].shape[0], inputs[0].device
-    if g.shape != (p, 4 + dims.out_extra):
-        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
-                         f"got {tuple(g.shape)}")
-    g = g.to(torch.float32).contiguous()
-    lib = _gen_lib()
-    if pack is None:
-        pack = gen_pack(weights, dims, backward=True)
-    if pack.numel() != gen_pack_offsets(dims, backward=True)[1]:
-        raise ValueError("the generic backward needs gen_pack's buffer with "
-                         "the transposes (backward=True)")
-    prm = gen_params(weights, dims, pack)
-    sizes = (ctypes.c_longlong * 3)()
-    _raise_on(lib, "fg_sizes", lib.fg_sizes(ctypes.byref(prm), p, int(pre),
-                                            sizes))
-    scratch, part, acc = (torch.empty(max(int(k), 1), dtype=dt, device=dev)
-                          for k, dt in zip(sizes, (torch.float32,
-                                                   torch.float64,
-                                                   torch.float64)))
-    flat = (torch.empty if p else torch.zeros)(
-        prm.n_params, dtype=torch.float32, device=dev)
-    dx = dd = None
-    if pre:
-        dx = torch.empty((p, dims.in_dim), dtype=torch.float32, device=dev)
-        dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
-    ptrs = (inputs[0].data_ptr(), inputs[1].data_ptr() if pre else None,
-            g.data_ptr(), flat.data_ptr(),
-            dx.data_ptr() if pre else None, dd.data_ptr() if pre else None,
-            scratch.data_ptr(), part.data_ptr(), acc.data_ptr())
-    # the pack, g and the scratch stay referenced until the launch is
-    # queued; the caching allocator then reuses them in stream order
-    return _GenBwdCall(lib, prm, ptrs, p, flat, dx, dd, 4 * int(sizes[0]),
-                       (pack, g, scratch, part, acc))
+    keep: tuple             # heads, g, scratch, ...: what ptrs point into
 
 
 def gen_scratch_columns(dims: MLPDims) -> dict:
     """The generic backward's scratch columns, as `fg_layout` in
-    csrc/fused_mlp_gen.cu lays them out (change both together; the CUDA
-    cores' backward keeps each column's points contiguous, [cols][P], the
-    tensor cores' each 64 points' columns, [P / 64][cols][64]): each
-    trunk layer's output "h" (its ReLU mask kept as the sign of a zero),
-    the encodings "xe" / "de" (xe right before the skip layer's h, so that
-    the skip layer's input is contiguous), "feat", the view output "v",
-    the gradients, the cotangent, and "cols" in all."""
+    csrc/fused_mlp_gen.cu lays them out (change both together; both
+    backwards keep each 64 points' columns together, [P / 64][cols][64]):
+    each trunk layer's output "h" (its ReLU mask kept as the sign of a
+    zero), the encodings "xe" / "de" (xe right before the skip layer's h,
+    so that the skip layer's input is contiguous), "feat", the view output
+    "v", the gradients, the cotangent, and "cols" in all."""
     sk = dims.skip + 1 < dims.depth
     c, out = 0, {"h": []}
     for i in range(dims.depth):
@@ -916,9 +833,9 @@ def gen_scratch_columns(dims: MLPDims) -> dict:
 
 def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
     """The ReLU masks that the generic backward's recompute takes at every
-    point (its pass 1 alone, on the tensor cores where `gen_bwd_plan` takes
-    `dims`, read back from the scratch: a unit is on where the stored
-    output is not +0): ([P, width] bool per trunk layer,
+    point (its pass 1 alone, on the kernels `gen_bwd_plan` /
+    `gen_layer_plan` pick, read back from the scratch: a unit is on where
+    the stored output is not +0): ([P, width] bool per trunk layer,
     [P, view_width] bool), for holding the kernel's gradients against an
     evaluation with the same masks (`fused_mlp_pe_bwd_plain(masks=)`).
     The points run in pieces that fit one chunk of the scratch."""
@@ -927,8 +844,9 @@ def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
     piece = max(_BM, (4 << 30) // (4 * cols["cols"]) // _BM * _BM)
     trunk, view = [[] for _ in range(dims.depth)], []
     tc = gen_bwd_plan(dims, pre) is not None
-    pack = (GenPack(gen_pack(weights, dims, backward=False),
-                    gen_ring(weights, dims, pre)) if tc else None)
+    pack = GenPack(gen_heads(weights, dims),
+                   gen_ring(weights, dims, pre) if tc else None,
+                   None if tc else gen_ls_ring(weights, dims, pre))
     for p0 in range(0, p, piece):
         part = tuple(a[p0:p0 + piece] for a in inputs)
         g = torch.zeros((part[0].shape[0], 4 + dims.out_extra),
@@ -940,41 +858,26 @@ def gen_relu_masks(weights, inputs, dims: MLPDims, *, pre: bool):
                 ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1,
                 stream))
         else:
-            c = _gen_bwd_args(weights, part, g, dims, pre=pre)
-            _raise_on(c.lib, "fg_bwd_pass", c.lib.fg_bwd_pass(
+            c = _gen_ls_args(weights, part, g, dims, pre=pre, pack=pack)
+            _raise_on(c.lib, "fg_bwd_ls", c.lib.fg_bwd_ls(
                 ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 1,
                 stream))
         n = part[0].shape[0]
-        scr = c.keep[2][:cols["cols"] * n].view(torch.int32)
-        if tc:    # block-major: [P / 64][cols][64]
-            scr = scr.view(n // _BM, cols["cols"], _BM)
+        scr = c.keep[2][:cols["cols"] * n].view(torch.int32).view(
+            n // _BM, cols["cols"], _BM)     # block-major: [P / 64][cols][64]
 
-            def on(c0, k):
-                return (scr[:, c0:c0 + k] != 0).transpose(1, 2).reshape(n, k)
-        else:     # column-major: [cols][P]
-            scr = scr.view(cols["cols"], n)
+        def on(c0, k):
+            return (scr[:, c0:c0 + k] != 0).transpose(1, 2).reshape(n, k)
 
-            def on(c0, k):
-                return (scr[c0:c0 + k] != 0).t()
         for i, c0 in enumerate(cols["h"]):
             trunk[i].append(on(c0, dims.width))
         view.append(on(cols["v"], dims.view_width))
     return [torch.cat(t) for t in trunk], torch.cat(view)
 
 
-def _gen_bwd(weights, inputs, g, dims: MLPDims, *, pre: bool, pack=None):
-    """One generic backward (`fg_bwd`, `fg_bwd_pre`), uncounted: (f32
-    weight gradients in `_weight_order`, dx, dd)."""
-    c = _gen_bwd_args(weights, inputs, g, dims, pre=pre, pack=pack)
-    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
-    if pre:
-        err = c.lib.fg_bwd_pre(ctypes.byref(c.prm), *c.ptrs, c.n_points,
-                               stream)
-    else:
-        in_x, _, g_, grads, _, _, *rest = c.ptrs
-        err = c.lib.fg_bwd(ctypes.byref(c.prm), in_x, g_, grads, *rest,
-                           c.n_points, stream)
-    _raise_on(c.lib, "fg_bwd_pre" if pre else "fg_bwd", err)
+def _gen_grads(c: _GenBwdCall, dims: MLPDims):
+    """(f32 weight gradients in `_weight_order`, dx, dd) of a launched
+    backward `c`."""
     offs, _ = _flat_offsets(dims)
     grads = {n: c.flat[offs[n]:offs[n] + math.prod(s)].view(s)
              for n, s in weight_shapes(dims).items()}
@@ -1058,19 +961,21 @@ def _ft_plan(dims: MLPDims, pre: bool, forward: bool):
 
 
 def gen_bwd_plan(dims: MLPDims, pre: bool = False):
-    """The tensor-core backward's plan for `dims` (`ft_geom` in the CUDA
-    source, from the geometry alone), or None where it does not take it
-    (the CUDA cores' backward does): operand parts (3 at f32, 1 at bf16),
-    width and view width padded to 64 with zeros, weight stages in the ring
-    and its bytes, ring slots and shared memory, and the products."""
+    """The fused tensor-core backward's plan for `dims` (`ft_geom` in the
+    CUDA source, from the geometry alone), or None where it does not take
+    it (the layer-streamed backward does, `gen_layer_plan`): operand parts
+    (3 at f32, 1 at bf16), width and view width padded to 64 with zeros,
+    weight stages in the ring and its bytes, ring slots and shared memory,
+    and the products."""
     return _ft_plan(dims, pre, forward=False)
 
 
 def gen_fwd_plan(dims: MLPDims, pre: bool = False):
-    """The tensor-core forward's plan for `dims` (`ft_fwd_geom` in the CUDA
-    source, from the geometry alone), or None where it does not take it
-    (the CUDA cores' forward does): `gen_bwd_plan`'s keys for the
-    recompute's products alone (trunk, feature, view: the backward's first
+    """The fused tensor-core forward's plan for `dims` (`ft_fwd_geom` in
+    the CUDA source, from the geometry alone), or None where it does not
+    take it (the layer-streamed forward does, `gen_layer_plan`):
+    `gen_bwd_plan`'s keys for the recompute's products alone (trunk,
+    feature, view: the backward's first
     depth + 2, so its stages are the first of the backward's ring), with
     two activation buffers and no cotangent in shared memory, and at most
     2 x FWD_TILES output tiles of 64 a product. Every geometry it takes
@@ -1171,8 +1076,8 @@ def gen_ring(weights, dims: MLPDims, pre: bool, forward: bool = False):
     """What the tensor-core backward reads of the weights (with `forward`,
     what the forward reads, the backward's first stages): every stage of
     `gen_ring_index` as its parts (`split_bf16x3` at f32; the bf16
-    rounding alone at bf16, as `gen_pack` rounds), part after part: bf16
-    [stages, parts, 4096], flat. Packed once a call."""
+    rounding alone at bf16, as the plain version rounds), part after part:
+    bf16 [stages, parts, 4096], flat. Packed once a call."""
     plan = _ft_plan(dims, pre, forward)
     if plan is None:
         what = "forward" if forward else "backward"
@@ -1191,11 +1096,14 @@ def gen_ring(weights, dims: MLPDims, pre: bool, forward: bool = False):
 
 class GenPack(NamedTuple):
     """The generic route's weights for a forward and its backward
-    (`pack_for`): `gen_pack`'s f32 buffer (with the transposes when the
-    backward runs on the CUDA cores) and `gen_ring`'s stages (when it runs
-    on the tensor cores, else None; the forward reads its first)."""
-    flat: torch.Tensor
+    (`pack_for`): `gen_heads`' buffer, `gen_ring`'s stages where the
+    backward runs on the fused tensor-core kernels (the forward there reads
+    their first), and `gen_ls_ring`'s where a direction runs on the
+    layer-streamed ones (the backward's whole ring, whose first stages the
+    forward reads, or the forward's alone); None where not needed."""
+    heads: torch.Tensor
     ring: torch.Tensor | None
+    ls_ring: torch.Tensor | None
 
 
 def _check_tc_plan(lib, prm, dims: MLPDims, pre: bool, ring, *,
@@ -1221,31 +1129,16 @@ def _check_tc_plan(lib, prm, dims: MLPDims, pre: bool, ring, *,
                            f"bytes")
 
 
-def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
-                 pack: GenPack | None = None) -> _GenBwdCall:
-    """`_gen_bwd_args` for the tensor-core backward: `pack_for`'s
-    `GenPack` (packed here when None; the ring in `keep[-1]`), the plan
-    checked against the CUDA source's (`fg_tc_plan`), its sizes
-    (`fg_tc_sizes`)."""
-    _check_kernel_args(weights, inputs, dims, pre)
-    plan = gen_bwd_plan(dims, pre)
-    if plan is None:
-        raise ValueError(f"the tensor-core backward does not take {dims}")
+def _bwd_buffers(lib, prm, sizes_fn, inputs, g, dims: MLPDims, *, pre: bool,
+                 args=()):
+    """The buffers a generic backward writes: (sizes, scratch f32, split
+    partial sums f64, chunk sums f64, the flat f32 gradients (every entry
+    written), dx and dd with `pre`) for `sizes_fn` (`fg_tc_sizes` or
+    `fg_ls_sizes`, its four sizes then)."""
     p, dev = inputs[0].shape[0], inputs[0].device
-    if g.shape != (p, 4 + dims.out_extra):
-        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
-                         f"got {tuple(g.shape)}")
-    g = g.to(torch.float32).contiguous()
-    lib = _gen_lib()
-    if pack is None:
-        pack = GenPack(gen_pack(weights, dims, backward=False),
-                       gen_ring(weights, dims, pre))
-    ring = pack.ring
-    prm = gen_params(weights, dims, pack.flat)
-    _check_tc_plan(lib, prm, dims, pre, ring, forward=False)
-    sizes = (ctypes.c_longlong * 3)()
-    _raise_on(lib, "fg_tc_sizes", lib.fg_tc_sizes(ctypes.byref(prm), p,
-                                                  int(pre), sizes))
+    sizes = (ctypes.c_longlong * 4)()
+    _raise_on(lib, sizes_fn, getattr(lib, sizes_fn)(
+        ctypes.byref(prm), p, int(pre), *args, sizes))
     scratch, part, acc = (torch.empty(max(int(k), 1), dtype=dt, device=dev)
                           for k, dt in zip(sizes, (torch.float32,
                                                    torch.float64,
@@ -1256,19 +1149,53 @@ def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
     if pre:
         dx = torch.empty((p, dims.in_dim), dtype=torch.float32, device=dev)
         dd = torch.empty((p, dims.dir_dim), dtype=torch.float32, device=dev)
+    return sizes, scratch, part, acc, flat, dx, dd
+
+
+def _check_cotangent(inputs, g, dims: MLPDims):
+    p = inputs[0].shape[0]
+    if g.shape != (p, 4 + dims.out_extra):
+        raise ValueError(f"cotangent must be [{p}, {4 + dims.out_extra}], "
+                         f"got {tuple(g.shape)}")
+    return g.to(torch.float32).contiguous()
+
+
+def _gen_tc_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                 pack: GenPack | None = None) -> _GenBwdCall:
+    """Check the inputs and allocate what a fused tensor-core backward on
+    (xd,) (v2) or, with `pre`, on the encodings (x_enc, d_enc) (v1) needs:
+    `pack_for`'s `GenPack` (packed here when None; the ring in
+    `keep[-1]`), the plan checked against the CUDA source's (`fg_tc_plan`),
+    its sizes (`fg_tc_sizes`), the flat f32 gradients, with `pre` dx and
+    dd."""
+    _check_kernel_args(weights, inputs, dims, pre)
+    plan = gen_bwd_plan(dims, pre)
+    if plan is None:
+        raise ValueError(f"the tensor-core backward does not take {dims}")
+    g = _check_cotangent(inputs, g, dims)
+    lib = _gen_lib()
+    if pack is None or pack.ring is None:
+        pack = GenPack(gen_heads(weights, dims),
+                       gen_ring(weights, dims, pre), None)
+    ring = pack.ring
+    prm = gen_params(weights, dims, pack.heads)
+    _check_tc_plan(lib, prm, dims, pre, ring, forward=False)
+    sizes, scratch, part, acc, flat, dx, dd = _bwd_buffers(
+        lib, prm, "fg_tc_sizes", inputs, g, dims, pre=pre)
     ptrs = (inputs[0].data_ptr(), inputs[1].data_ptr() if pre else None,
             g.data_ptr(), flat.data_ptr(),
             dx.data_ptr() if pre else None, dd.data_ptr() if pre else None,
             scratch.data_ptr(), part.data_ptr(), acc.data_ptr(),
             ring.data_ptr(), plan["ring_bytes"])
-    return _GenBwdCall(lib, prm, ptrs, p, flat, dx, dd, 4 * int(sizes[0]),
-                       (pack.flat, g, scratch, part, acc, ring))
+    return _GenBwdCall(lib, prm, ptrs, inputs[0].shape[0], flat, dx, dd,
+                       4 * int(sizes[0]),
+                       (pack.heads, g, scratch, part, acc, ring))
 
 
 def _gen_bwd_tc(weights, inputs, g, dims: MLPDims, *, pre: bool,
                 pack: GenPack | None = None):
-    """One tensor-core backward (`fg_bwd_tc`, `fg_bwd_tc_pre`), uncounted:
-    (f32 weight gradients in `_weight_order`, dx, dd)."""
+    """One fused tensor-core backward (`fg_bwd_tc`, `fg_bwd_tc_pre`),
+    uncounted: (f32 weight gradients in `_weight_order`, dx, dd)."""
     c = _gen_tc_args(weights, inputs, g, dims, pre=pre, pack=pack)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
     in_x, in_d, g_, grads, dx, dd, *rest = c.ptrs
@@ -1279,65 +1206,303 @@ def _gen_bwd_tc(weights, inputs, g, dims: MLPDims, *, pre: bool,
         err = c.lib.fg_bwd_tc(ctypes.byref(c.prm), in_x, g_, grads, *rest,
                               c.n_points, stream)
     _raise_on(c.lib, "fg_bwd_tc_pre" if pre else "fg_bwd_tc", err)
-    offs, _ = _flat_offsets(dims)
-    grads = {n: c.flat[offs[n]:offs[n] + math.prod(s)].view(s)
-             for n, s in weight_shapes(dims).items()}
-    return grads, c.dx, c.dd
+    return _gen_grads(c, dims)
 
 
-def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None,
-           tc: bool | None = None):
+# -----------------------------------------------------------------------------
+# the layer-streamed kernels (csrc/fused_mlp_gen.cu, ls_*)
+# -----------------------------------------------------------------------------
+
+# The operand buffers of `ls_products` (LS_BX, LS_BD, LS_BH0, LS_BH1).
+_LS_BUFS = ("x", "d", "h0", "h1")
+
+
+def _ls_products(dims: MLPDims, pre: bool, wp: int, vwp: int):
+    """`ls_products` of the CUDA source: every product of the
+    layer-streamed backward in launch order (the forward takes the first
+    depth + 2), each (kind, layer, output columns, column tiles of 128, K
+    chunks of 64, of which from the first segment, that segment's operand
+    buffer, the second's or None, the buffer the epilogue writes or None):
+    the recompute (trunk, the skip layer on [x, h]; feature; view on
+    [feat, d]), then from G_v (in "h0"): G_feat, with `pre` dd, the last
+    trunk layer's G, down the trunk to layer 1, with `pre` dx's part of the
+    skip layer before it and of layer 0 at the end."""
+    t, bn, d = _LS["T"], _LS["BN"], dims.depth
+    e, wk = dims.in_dim // t, wp // t
+    cat = dims.skip + 1 if dims.skip + 1 < d else -1
+    out = []
+
+    def add(kind, layer, n, s0, k0, s1=None, k1=0, dst=None):
+        out.append((kind, layer, n, -(-n // bn), k0 + (k1 if s1 else 0), k0,
+                    s0, s1, dst))
+
+    def h(i):
+        return "h0" if i % 2 == 0 else "h1"
+
+    for i in range(d):
+        if i == 0:
+            add("trunk", 0, dims.width, "x", e, dst=h(0))
+        elif i == cat:
+            add("trunk", i, dims.width, "x", e, h(i - 1), wk, dst=h(i))
+        else:
+            add("trunk", i, dims.width, h(i - 1), wk, dst=h(i))
+    add("feat", 0, dims.width, h(d - 1), wk, dst=h(d))
+    add("view", 0, dims.view_width, h(d), wk, "d", dims.dir_dim // t)
+    add("gfeat", 0, dims.width, "h0", vwp // t, dst="h1")
+    if pre:
+        add("dd", 0, dims.dir_dim, "h0", vwp // t)
+    add("gtop", 0, dims.width, "h1", wk, dst="h0")
+
+    def g(i):     # the buffer of layer i's output gradient
+        return h(d - 1 - i)
+
+    for i in range(d - 1, 0, -1):
+        if pre and i == cat:
+            add("dx", i, dims.in_dim, g(i), wk)
+        add("gtrunk", i, dims.width, g(i), wk, dst=g(i - 1))
+    if pre:
+        add("dx", 0, dims.in_dim, g(0), wk)
+    return out
+
+
+def gen_layer_plan(dims: MLPDims, pre: bool = False, forward: bool = False):
+    """The layer-streamed kernels' plan for `dims` (`ls_geom` in the CUDA
+    source, from the geometry alone) for the forward (`forward`) or the
+    backward, or None where the fused tensor-core kernels take that
+    direction (`gen_fwd_plan`, `gen_bwd_plan`) or the route is not "gen":
+    operand parts (3 at f32, 1 at bf16), width and view width padded to 64,
+    ring slots and shared memory, the products (`_ls_products`; the
+    forward's first depth + 2), their weight stages and the ring's
+    bytes."""
+    if route(dims, pre) != "gen":
+        return None
+    if (gen_fwd_plan if forward else gen_bwd_plan)(dims, pre) is not None:
+        return None
+    t = _LS["T"]
+    if dims.in_dim % t or dims.dir_dim % t:
+        return None
+    parts = 1 if dims.compute_dtype == "bfloat16" else 3
+    wp, vwp = _round_up(dims.width, t), _round_up(dims.view_width, t)
+
+    def smem(s):
+        return (s * parts * (2 * _LS["APLANE"] + _LS["BPLANE"]) + 16 * s
+                + _FT["ALIGN"])
+
+    fits = [s for s in range(_LS["MAX_SLOTS"], _LS["MIN_SLOTS"] - 1, -1)
+            if smem(s) <= _FT["SMEM_MAX"]]
+    if not fits:
+        return None
+    prods = _ls_products(dims, pre, wp, vwp)
+    if forward:
+        prods = prods[:dims.depth + 2]
+    stages = sum(ntn * nk for _, _, _, ntn, nk, *_ in prods)
+    return {"parts": parts, "wp": wp, "vwp": vwp, "slots": fits[0],
+            "smem": smem(fits[0]), "stages": stages,
+            "ring_bytes": stages * parts * _LS["BPLANE"], "products": prods}
+
+
+def _ls_swizzle():
+    """The 128-byte swizzle of a [128][64] bf16 stage: element (r, k) at
+    r 64 + ((k / 8) ^ (r % 8)) 8 + k % 8 (`_ft_swizzle` over 128 rows; its
+    own inverse)."""
+    r, k = np.divmod(np.arange(128 * 64), 64)
+    return r * 64 + (((k >> 3) ^ (r & 7)) << 3) + (k & 7)
+
+
+def _ls_stage_matrix(w, dims: MLPDims, prod, wp):
+    """Product `prod`'s weights as the kernel reads them, B^T [N][K] padded
+    with zeros to its column tiles and chunks, from the matrices `w` (on
+    their device). The recompute's products read their matrix transposed,
+    B^T[n][k] = w[k][n], the back-propagation's as it is; [x, h] and
+    [feat, d] with each segment padded to its chunks."""
+    kind, i, _, ntn, nk = prod[:5]
+    width, e = dims.width, dims.in_dim
+    cat = dims.skip + 1 < dims.depth and i == dims.skip + 1
+    npad, kpad = ntn * _LS["BN"], nk * _LS["T"]
+
+    def pad(m, rows, cols):
+        return nn.functional.pad(m, (0, cols - m.shape[1],
+                                     0, rows - m.shape[0]))
+
+    if kind == "trunk":          # K over the matrix's rows, N its columns
+        tw = w[f"tw{i}"]
+        k = (tw if i == 0 else torch.cat([tw[:e], pad(tw[e:], wp, width)])
+             if cat else pad(tw, wp, width))
+        return pad(k, kpad, npad).t()
+    if kind == "feat":
+        return pad(pad(w["feat_w"], wp, width), kpad, npad).t()
+    vw = w["view_w"]
+    if kind == "view":
+        return pad(torch.cat([pad(vw[:width], wp, vw.shape[1]),
+                              vw[width:]]), kpad, npad).t()
+    if kind == "gfeat":          # N over the matrix's rows, K its columns
+        return pad(vw[:width], npad, kpad)
+    if kind == "dd":
+        return pad(vw[width:], npad, kpad)
+    if kind == "gtop":
+        return pad(w["feat_w"], npad, kpad)
+    tw = w[f"tw{i}"]
+    if kind == "gtrunk":
+        return pad(tw[e:] if cat else tw, npad, kpad)
+    return pad(tw[:e], npad, kpad)   # dx: the encoding's rows of the layer
+
+
+def gen_ls_ring(weights, dims: MLPDims, pre: bool, forward: bool = False):
+    """What the layer-streamed kernels read of the trunk, feature and view
+    matrices (with `forward`, what the forward reads: the backward's first
+    stages), in the order their producers stream them: for each of
+    `gen_layer_plan`'s products (`_ls_stage_matrix`), each column tile of
+    128, each 64-deep chunk, a [128 N][64 K] stage in the 128-byte swizzle
+    (`_ls_swizzle`) as its parts (`split_bf16x3` at f32; the bf16 rounding
+    alone at bf16), part after part: bf16 [stages, parts, 8192], flat.
+    Packed once a call, on the weights' device."""
+    plan = gen_layer_plan(dims, pre, forward)
+    if plan is None:
+        what = "forward" if forward else "backward"
+        raise ValueError(f"the layer-streamed {what} does not take {dims}")
+    w = {n: v.float() for n, v in weights.items()
+         if n.startswith("tw") or n in ("feat_w", "view_w")}
+    sw = torch.from_numpy(_ls_swizzle()).to(weights["tw0"].device)
+    t, bn, stages = _LS["T"], _LS["BN"], []
+    for prod in plan["products"]:
+        ntn, nk = prod[3], prod[4]
+        bt = _ls_stage_matrix(w, dims, prod, plan["wp"])
+        stages.append(bt.reshape(ntn, bn, nk, t).permute(0, 2, 1, 3)
+                      .reshape(ntn * nk, bn * t)[:, sw])
+    vals = torch.cat(stages)
+    assert vals.shape[0] == plan["stages"]
+    parts = ((vals.to(torch.bfloat16),) if plan["parts"] == 1
+             else split_bf16x3(vals))
+    return torch.stack(parts, dim=1).reshape(-1)
+
+
+def _check_ls_plan(lib, prm, dims: MLPDims, pre: bool, ring, *,
+                   forward: bool):
+    """Raise RuntimeError unless the CUDA source's plan (`fg_ls_plan`)
+    equals `gen_layer_plan`'s and `ring` holds its stages (a forward also
+    reads the first stages of the backward's ring)."""
+    plan = gen_layer_plan(dims, pre, forward)
+    got = (ctypes.c_longlong * 9)()
+    _raise_on(lib, "fg_ls_plan", lib.fg_ls_plan(ctypes.byref(prm), int(pre),
+                                                int(forward), got))
+    want = (1, plan["smem"], plan["slots"], plan["stages"],
+            plan["ring_bytes"], plan["wp"], plan["vwp"], plan["parts"],
+            len(plan["products"]))
+    rings = {plan["ring_bytes"]}
+    bwd = gen_layer_plan(dims, pre)
+    if forward and bwd is not None:
+        rings.add(bwd["ring_bytes"])
+    if tuple(got) != want or ring.numel() * 2 not in rings:
+        raise RuntimeError(f"gen_layer_plan {want} disagrees with the CUDA "
+                           f"source's {tuple(got)} or the ring's "
+                           f"{ring.numel() * 2} bytes")
+
+
+def _gen_ls_args(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                 pack: GenPack | None = None) -> _GenBwdCall:
+    """`_gen_tc_args` for the layer-streamed backward (`fg_bwd_ls`): its
+    ring (`gen_ls_ring`, packed here unless `pack` holds it), the plan
+    checked against the CUDA source's (`fg_ls_plan`), its sizes and work
+    buffer (`fg_ls_sizes`)."""
+    _check_kernel_args(weights, inputs, dims, pre)
+    plan = gen_layer_plan(dims, pre)
+    if plan is None:
+        raise ValueError(f"the layer-streamed backward does not take {dims}")
+    g = _check_cotangent(inputs, g, dims)
+    lib = _gen_lib()
+    heads = pack.heads if pack is not None else gen_heads(weights, dims)
+    ring = pack.ls_ring if pack is not None else None
+    if ring is None or 2 * ring.numel() != plan["ring_bytes"]:
+        ring = gen_ls_ring(weights, dims, pre)
+    prm = gen_params(weights, dims, heads)
+    _check_ls_plan(lib, prm, dims, pre, ring, forward=False)
+    sizes, scratch, part, acc, flat, dx, dd = _bwd_buffers(
+        lib, prm, "fg_ls_sizes", inputs, g, dims, pre=pre, args=(0,))
+    work = torch.empty(max(int(sizes[3]), 1), dtype=torch.uint8,
+                       device=inputs[0].device)
+    ptrs = (inputs[0].data_ptr(), inputs[1].data_ptr() if pre else None,
+            g.data_ptr(), flat.data_ptr(),
+            dx.data_ptr() if pre else None, dd.data_ptr() if pre else None,
+            scratch.data_ptr(), part.data_ptr(), acc.data_ptr(),
+            work.data_ptr(), work.numel(), ring.data_ptr(),
+            plan["ring_bytes"])
+    return _GenBwdCall(lib, prm, ptrs, inputs[0].shape[0], flat, dx, dd,
+                       4 * int(sizes[0]),
+                       (heads, g, scratch, part, acc, ring, work))
+
+
+def _gen_bwd_ls(weights, inputs, g, dims: MLPDims, *, pre: bool,
+                pack: GenPack | None = None):
+    """One layer-streamed backward (`fg_bwd_ls`, both passes), uncounted:
+    (f32 weight gradients in `_weight_order`, dx, dd)."""
+    c = _gen_ls_args(weights, inputs, g, dims, pre=pre, pack=pack)
+    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+    _raise_on(c.lib, "fg_bwd_ls", c.lib.fg_bwd_ls(
+        ctypes.byref(c.prm), *c.ptrs, c.n_points, int(pre), 3, stream))
+    return _gen_grads(c, dims)
+
+
+def fwd_fn(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
     """Check the inputs and pack, once, what a forward launch on (xd,) (v2,
     #9) or, with `pre`, on the encodings (x_enc, d_enc) (v1, #7) needs on
     the route of `dims` (`route`): a function that launches the kernel on
     those buffers and returns raw [P, 4+e] f32 (the same tensor each call),
     its route as `run.route` and its launch counter's key as `run.key`
-    ("fwd_tc" for the generic forward on the tensor cores, else "fwd").
-    On the generic route `tc` picks the tensor cores' forward (True) or the
-    CUDA cores' (False; None: `gen_fwd_plan`'s choice, checked against the
-    CUDA source's). `pack`: `pack_for`'s (wgmma: `gather_ring`'s whole ring
-    or its forward stages; gen: a `GenPack`, or `gen_pack`'s buffer),
-    packed here when None (the forward's ring stages alone). Counts no
-    launch, so it also times the kernel alone."""
+    (generic route: "fwd_tc" where `gen_fwd_plan` takes `dims`, its plan
+    checked against the CUDA source's, else "fwd_ls", `gen_layer_plan`'s,
+    likewise checked; else "fwd"). `pack`: `pack_for`'s (wgmma:
+    `gather_ring`'s whole ring or its forward stages; gen: a `GenPack`),
+    packed here when None (the forward's stages alone). Counts no launch,
+    so it also times the kernel alone."""
     rt = _check_kernel_args(weights, inputs, dims, pre)
+    p, dev = inputs[0].shape[0], inputs[0].device
+    out = torch.empty((p, 4 + dims.out_extra), dtype=torch.float32,
+                      device=dev)
     ins = [a.data_ptr() for a in inputs]
-    out = torch.empty((inputs[0].shape[0], 4 + dims.out_extra),
-                      dtype=torch.float32, device=inputs[0].device)
-    key, ring_args = "fwd", []
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if rt == "gen":
         lib = _gen_lib()
-        if tc is None:
-            tc = gen_fwd_plan(dims, pre) is not None
-        flat, ring = pack if isinstance(pack, GenPack) else (pack, None)
-        if flat is None:
-            flat = gen_pack(weights, dims, backward=False)
-        prm, bufs = gen_params(weights, dims, flat), (flat,)
-        name = "fg_fwd_pre" if pre else "fg_fwd"
-        if tc:
-            if gen_fwd_plan(dims, pre) is None:
-                raise ValueError(f"the tensor-core forward does not take "
-                                 f"{dims}")
+        heads, ring, ls_ring = (pack if isinstance(pack, GenPack)
+                                else (None, None, None))
+        if heads is None:
+            heads = gen_heads(weights, dims)
+        prm = gen_params(weights, dims, heads)
+        if gen_fwd_plan(dims, pre) is not None:
             if ring is None:
                 ring = gen_ring(weights, dims, pre, forward=True)
             _check_tc_plan(lib, prm, dims, pre, ring, forward=True)
-            key, bufs = "fwd_tc", (flat, ring)
+            key, bufs = "fwd_tc", (heads, ring)
             name = "fg_fwd_tc_pre" if pre else "fg_fwd_tc"
-            ring_args = [ring.data_ptr(), 2 * ring.numel()]
+            argv = (ctypes.byref(prm), *ins, out.data_ptr(), ring.data_ptr(),
+                    2 * ring.numel(), p, stream)
+        else:
+            if ls_ring is None:
+                ls_ring = gen_ls_ring(weights, dims, pre, forward=True)
+            _check_ls_plan(lib, prm, dims, pre, ls_ring, forward=True)
+            sizes = (ctypes.c_longlong * 4)()
+            _raise_on(lib, "fg_ls_sizes", lib.fg_ls_sizes(
+                ctypes.byref(prm), p, int(pre), 1, sizes))
+            work = torch.empty(max(int(sizes[3]), 1), dtype=torch.uint8,
+                               device=dev)
+            key, bufs, name = "fwd_ls", (heads, ls_ring, work), "fg_fwd_ls"
+            argv = (ctypes.byref(prm), ins[0], ins[1] if pre else None,
+                    out.data_ptr(), ls_ring.data_ptr(), 2 * ls_ring.numel(),
+                    work.data_ptr(), work.numel(), p, int(pre), stream)
     else:
         lib = _lib()
         if pack is None:
             pack = gather_ring(weights, dims, pre, forward=True)
         prm, bufs = _params(weights, dims, pack)
         name = "fm_fwd_pre" if pre else "fm_fwd"
-    stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
+        key = "fwd"
+        argv = (ctypes.byref(prm), *ins, out.data_ptr(), p, stream)
     launch = getattr(lib, name)
 
     def run():
-        _raise_on(lib, name, launch(ctypes.byref(prm), *ins, out.data_ptr(),
-                                    *ring_args, out.shape[0], stream))
+        _raise_on(lib, name, launch(*argv))
         return out
 
-    run.keep = bufs     # what prm points into, alive as long as run
+    run.keep = (prm, bufs)     # what argv points into, alive as long as run
     run.route, run.key = rt, key
     return run
 
@@ -1356,15 +1521,20 @@ def _fwd_launch(weights, inputs, dims: MLPDims, *, pre: bool, pack=None):
 def pack_for(weights, dims: MLPDims, pre: bool):
     """What the route's kernels read of the weights, packed once for a
     forward and its backward: the wgmma ring (`gather_ring`) or, on the
-    generic route, a `GenPack`: `gen_pack`'s buffer and, where the backward
-    runs on the tensor cores (`gen_bwd_plan`), `gen_ring`'s stages, whose
-    first are the tensor-core forward's (`gen_fwd_plan` takes no geometry
-    that `gen_bwd_plan` refuses)."""
+    generic route, a `GenPack`: `gen_heads`' buffer; where the backward
+    runs on the fused tensor-core kernels (`gen_bwd_plan`), `gen_ring`'s
+    stages, whose first are that forward's (`gen_fwd_plan` takes no
+    geometry that `gen_bwd_plan` refuses); and `gen_ls_ring`'s where a
+    direction is layer-streamed: the backward's whole ring (whose first
+    stages are the forward's) or, beside a fused backward, the forward's
+    alone."""
     if route(dims, pre) == "gen":
-        if gen_bwd_plan(dims, pre) is None:
-            return GenPack(gen_pack(weights, dims, backward=True), None)
-        return GenPack(gen_pack(weights, dims, backward=False),
-                       gen_ring(weights, dims, pre))
+        tc_bwd = gen_bwd_plan(dims, pre) is not None
+        tc_fwd = gen_fwd_plan(dims, pre) is not None
+        return GenPack(gen_heads(weights, dims),
+                       gen_ring(weights, dims, pre) if tc_bwd else None,
+                       None if tc_fwd else gen_ls_ring(weights, dims, pre,
+                                                       forward=tc_bwd))
     return gather_ring(weights, dims, pre)
 
 
@@ -1468,8 +1638,9 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     encodings (x_enc, d_enc) (v1, #8), on the route of `dims` (wgmma:
     `fm_bwd` / `fm_bwd_pre`, the recompute-and-backprop kernel, then the
     split-K weight-gradient kernel; gen: `fg_bwd_tc` / `fg_bwd_tc_pre` on
-    the tensor cores where `gen_bwd_plan` takes `dims`, else `fg_bwd` /
-    `fg_bwd_pre`, each counted on its own key), counted:
+    the fused tensor-core kernels where `gen_bwd_plan` takes `dims`, else
+    `fg_bwd_ls`, the layer-streamed ones, each counted on its own key),
+    counted:
     (f32 weight gradients for the cotangent g [P, 4+e] in `_weight_order`,
     dx, dd), the input gradients [P, in_dim] / [P, dir_dim] f32 with `pre`
     and None without. `pack`: `pack_for`'s, packed here when None. The sums
@@ -1481,9 +1652,8 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
             out = _gen_bwd_tc(weights, inputs, g, dims, pre=pre, pack=pack)
             _counts("gen", pre)["bwd_tc"] += 1
         else:
-            out = _gen_bwd(weights, inputs, g, dims, pre=pre,
-                           pack=pack.flat if pack is not None else None)
-            _counts("gen", pre)["bwd"] += 1
+            out = _gen_bwd_ls(weights, inputs, g, dims, pre=pre, pack=pack)
+            _counts("gen", pre)["bwd_ls"] += 1
         return out
     c = _bwd_args(weights, inputs, g, dims, pre=pre, ring=pack)
     stream = torch.cuda.current_stream(inputs[0].device).cuda_stream
@@ -1501,24 +1671,21 @@ def _bwd_launch(weights, inputs, g, dims: MLPDims, *, pre: bool,
     return c.grads, c.dx, c.dd
 
 
-def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool,
-                 tc: bool | None = None):
+def bwd_pass_fns(weights, inputs, g, dims: MLPDims, *, pre: bool):
     """For timing the backward's two passes apart (`fm_bwd_pass`,
-    `fg_bwd_tc_pass`, `fg_bwd_pass`, on the route of `dims`): two functions
-    that launch, on one set of buffers, the recompute-and-backprop kernel
-    and the weight-gradient reduction (which reduces what the first one
-    wrote; call that one first; the generic route runs each pass over its
-    chunks of points), and the bytes of that scratch. On the generic route
-    `tc` picks the tensor cores' backward (True) or the CUDA cores' (False;
-    None: `gen_bwd_plan`'s choice). Counts no launch; no result is read.
-    Each pass includes its fixed-order sums."""
+    `fg_bwd_tc_pass`, `fg_bwd_ls`, on the route and kernels of `dims`):
+    two functions that launch, on one set of buffers, the
+    recompute-and-backprop kernels and the weight-gradient reduction
+    (which reduces what the first one wrote; call that one first; the
+    generic route runs each pass over its chunks of points), and the bytes
+    of that scratch. Counts no launch; no result is read. Each pass
+    includes its fixed-order sums."""
     if route(dims, pre) == "gen":
-        if tc is None:
-            tc = gen_bwd_plan(dims, pre) is not None
-        c = (_gen_tc_args if tc else _gen_bwd_args)(weights, inputs, g, dims,
-                                                    pre=pre)
+        tc = gen_bwd_plan(dims, pre) is not None
+        c = (_gen_tc_args if tc else _gen_ls_args)(weights, inputs, g, dims,
+                                                   pre=pre)
         scratch_bytes = c.scratch_bytes
-        name = "fg_bwd_tc_pass" if tc else "fg_bwd_pass"
+        name = "fg_bwd_tc_pass" if tc else "fg_bwd_ls"
 
         def run(k):
             _raise_on(c.lib, name, getattr(c.lib, name)(

@@ -250,7 +250,7 @@ def _launcher(lib, w, xd, dims):
                                                       ctypes.c_int,
                                                       ctypes.c_void_p]
     lib.fg_fwd_tc.restype = ctypes.c_int
-    flat = fm.gen_pack(w, dims, backward=False)
+    flat = fm.gen_heads(w, dims)
     prm = fm.gen_params(w, dims, flat)
     ring = fm.gen_ring(w, dims, False, forward=True)
     out = torch.empty((xd.shape[0], 4 + dims.out_extra), device=xd.device)

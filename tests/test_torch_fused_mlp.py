@@ -183,8 +183,8 @@ def test_kernel_wrappers_take_no_cpu_tensors():
         tfm.fused_mlp_pe_bwd_kernel(w, xd, torch.zeros(64, 4),
                                     f.dims._replace(width=4096))
     assert tfm.launches == {"fwd": 0, "bwd": 0}
-    assert tfm.launches_gen == {"fwd": 0, "fwd_tc": 0, "bwd": 0,
-                                "bwd_tc": 0}
+    assert tfm.launches_gen == {"fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0,
+                                "bwd_ls": 0}
 
 
 def test_pack_weights_layout():

@@ -300,10 +300,10 @@ def test_cpu_path_launches_nothing():
     out.sum().backward()
     assert tfm.fused_mlp(dims, 64, leaves, x, d).requires_grad
     for call in (lambda: tfm.fwd_fn(w, (xd_t,), dims, pre=False),
-                 lambda: tfm.fwd_fn(w, (x, d), dims, pre=True, tc=True),
+                 lambda: tfm.fwd_fn(w, (x, d), dims, pre=True),
                  lambda: tfm.fused_mlp_pe_fwd_kernel(w, xd_t, dims)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    zero = {"fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
+    zero = {"fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0, "bwd_ls": 0}
     assert tfm.launches_gen == tfm.launches_gen_v1 == zero
     assert tfm.launches == tfm.launches_v1 == {"fwd": 0, "bwd": 0}

@@ -3,8 +3,8 @@ kernels' bf16 8 x 256: the port's plain v2 (`fused_mlp_pe`) and v1
 (`fused_mlp`) versions, which the generic kernels (`csrc/fused_mlp_gen.cu`)
 compute, against the JAX functions, whose Pallas kernels run in interpret
 mode on the CPU; the route each configuration takes on the card and the
-limits past which it raises; what the generic kernels read (`gen_pack`,
-`gen_params`); and the Trainer at `tools/full_run.py --smoke`'s MLP
+limits past which it raises; the struct the generic kernels read
+(`gen_params`); and the Trainer at `tools/full_run.py --smoke`'s MLP
 configuration against the JAX Trainer. Same numpy-made weights, inputs and
 cotangents on both sides; every tensor compared relative to its largest
 |value| (tolerances stated per case)."""
@@ -237,43 +237,36 @@ def test_kernel_entries_refuse_cpu_tensors(case):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert tfm.launches_gen == tfm.launches_gen_v1 == {
-        "fwd": 0, "fwd_tc": 0, "bwd": 0, "bwd_tc": 0}
+        "fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0, "bwd_ls": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gen_pack_layout(dtype):
-    """`gen_pack`: every matrix in the JAX layout rounded as the plain
-    version rounds it, then the backward's transposes; the forward's pack
-    is its prefix, and `gen_params` points at both and at the biases, with
-    the gradients' offsets in the weights' order."""
+def test_gen_heads_layout(dtype):
+    """`gen_heads`: the heads' matrices one after another, rounded as the
+    plain version rounds them; `gen_params` points at them and at the
+    biases, with the gradients' offsets in the weights' order, and refuses
+    any other buffer."""
     dims = tfm.MLPDims(**_dims(dtype, 6, 32, (4, 2), True)._asdict())
     w = {n: torch.from_numpy(v) for n, v in
          _weights(dims, np.random.RandomState(3)).items()}
-    pack = tfm.gen_pack(w, dims, backward=True)
-    offs, total = tfm.gen_pack_offsets(dims, backward=True)
-    assert pack.dtype == torch.float32 and pack.numel() == total
+    heads = tfm.gen_heads(w, dims)
+    offs, total = tfm._gen_heads_offsets(dims)
+    assert list(offs) == ["rgb_w", "sigma_w", "sem_w"]
+    assert heads.dtype == torch.float32 and heads.numel() == total
     r = tfm._rounding(dims, torch.float32)
     shapes = tfm.weight_shapes(dims)
-    mats = [n for n in shapes if n.startswith("tw") or n.endswith("_w")]
-    for n in mats:
-        got = pack[offs[n]:offs[n] + w[n].numel()].view(shapes[n])
+    for n, off in offs.items():
+        got = heads[off:off + w[n].numel()].view(shapes[n])
         assert torch.equal(got, r(w[n])), n
-        if n + "^T" in offs:
-            got_t = pack[offs[n + "^T"]:offs[n + "^T"] + w[n].numel()]
-            assert torch.equal(got_t.view(shapes[n][::-1]), r(w[n]).t()), n
-    assert set(offs) == set(mats) | {f"{n}^T" for n in (
-        [f"tw{i}" for i in range(6)] + ["feat_w", "view_w", "rgb_w"])}
-    fwd = tfm.gen_pack(w, dims, backward=False)
-    assert torch.equal(fwd, pack[:fwd.numel()])
 
-    prm = tfm.gen_params(w, dims, pack)
-    base = pack.data_ptr()
-    assert prm.tw[5] == base + 4 * offs["tw5"]
-    assert prm.twt[0] == base + 4 * offs["tw0^T"]
-    assert prm.viewt == base + 4 * offs["view_w^T"]
+    prm = tfm.gen_params(w, dims, heads)
+    base = heads.data_ptr()
+    for n, off in offs.items():
+        assert getattr(prm, n) == base + 4 * off, n
     assert prm.tb[2] == w["tb2"].data_ptr()
-    assert prm.sem_b == w["sem_b"].data_ptr()
-    assert not prm.tw[6] and not tfm.gen_params(w, dims, fwd).twt[0]
+    for n in ("feat_b", "view_b", "rgb_b", "sigma_b", "sem_b"):
+        assert getattr(prm, n) == w[n].data_ptr(), n
+    assert not prm.tb[6]
     flat, n_flat = tfm._flat_offsets(dims)
     assert prm.n_params == n_flat == sum(v.numel() for v in w.values())
     jobs = [f"tw{i}" for i in range(6)] + ["feat_w", "view_w", "rgb_w",
@@ -281,10 +274,13 @@ def test_gen_pack_layout(dtype):
     for j, n in enumerate(jobs):
         assert prm.gw[j] == flat[n]
         assert prm.gb[j] == flat[n.replace("tw", "tb").replace("_w", "_b")]
-    assert (prm.depth, prm.width, prm.view_width, prm.in_dim, prm.out_extra,
-            prm.bf16) == (6, 32, 16, 128, 1, int(dtype == "bfloat16"))
-    with pytest.raises(ValueError, match="gen_pack"):
-        tfm.gen_params(w, dims, pack[:-1])
+    assert (prm.depth, prm.skip, prm.width, prm.view_width, prm.in_dim,
+            prm.dir_dim, prm.out_extra, prm.multires, prm.multires_views,
+            prm.bf16) == (6, dims.skip, 32, 16, 128, dims.dir_dim, 1, 4, 2,
+                          int(dtype == "bfloat16"))
+    for bad in (heads[:-1], heads.double()):
+        with pytest.raises(ValueError, match="gen_heads"):
+            tfm.gen_params(w, dims, bad)
 
 
 def test_gen_params_mirrors_the_cuda_struct():

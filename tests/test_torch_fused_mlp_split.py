@@ -257,7 +257,7 @@ def test_gen_bwd_plan_mirrors_the_cuda_source():
     256 (max(in, dir) + 8) + 2,048 + 16 slots + 1,024) with the most slots
     (2-8) under 232,448; widths padded to 64; every width 8-512 taken with
     128-lane encodings in both types, f32 to 384 and bf16 to 512 with
-    256-lane ones; wider ones left to the CUDA cores."""
+    256-lane ones; wider ones left to the layer-streamed kernels."""
     c = _consts()
     for k in ("BM", "T", "PLANE", "PAD", "MIN_SLOTS", "MAX_SLOTS", "ALIGN"):
         assert tfm._FT[k] == c[f"FT_{k}"], k
@@ -317,8 +317,8 @@ def _unswizzle(stage):
                                        ("bfloat16", True)])
 def test_gen_ring_stages(dtype, pre):
     """(e) `gen_ring`: its parts sum to each weight exactly (f32) or are
-    the weight's bf16 rounding (bf16, as `gen_pack` rounds); taken in the
-    producer's order (output-tile pairs, chunks, the pair's tiles) and
+    the weight's bf16 rounding (bf16, as the plain version rounds); taken
+    in the producer's order (output-tile pairs, chunks, the pair's tiles) and
     unswizzled, the stages rebuild each product's matrix: the recompute's
     layers transposed, the back-propagation's as they are, zero in the
     padding, [x, h] and [feat, d] in the kernel's chunk order."""

@@ -205,6 +205,6 @@ def test_kernel_wrappers_take_no_cpu_tensors():
     with pytest.raises(ValueError, match="multiple"):
         tfm.fused_mlp(f.dims, 64, w, torch.zeros(65, 128),
                       torch.zeros(65, 128))
-    assert tfm.launches_gen_v1 == {"fwd": 0, "fwd_tc": 0, "bwd": 0,
-                                   "bwd_tc": 0}
+    assert tfm.launches_gen_v1 == {"fwd_tc": 0, "fwd_ls": 0, "bwd_tc": 0,
+                                   "bwd_ls": 0}
     assert tfm.launches_v1 == {"fwd": 0, "bwd": 0}
