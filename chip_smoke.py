@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the whole smoke run, one card
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown of
                                        # a few train steps of each arm
+    python3 chip_smoke.py --phase 3    # phases 1, 2, 3 and 9 alone
     python3 chip_smoke.py --phase 20   # phases 1, 2 and 20 alone
     python3 chip_smoke.py --phase 21   # phases 1, 2 and 21 alone
 
@@ -29,10 +30,15 @@ Phases, each fatal on failure (no phase's error is caught):
      kernel takes) on the same points, under uniform bounds and under
      bounds and dense boxes calibrated at 2^25, with the same gates. Every
      hold of #2 (here and in phases 13 and 14) also holds its fixed-order
-     variant (B1e): within the same 1e-5 of float64, bit-equal over 5 more
-     launches on the same inputs, and taken, once and bit-equal, by
-     `hash_encode_win_fused`'s backward under
-     `torch.use_deterministic_algorithms(True)`; both timed;
+     variant (B1e): within the same 1e-5 of float64 and twice the f32 plain
+     version's error, bit-equal over 20 more launches on the same inputs,
+     half of them beside a second stream's matrix products, and taken, once
+     and bit-equal, by `hash_encode_win_fused`'s backward under
+     `torch.use_deterministic_algorithms(True)`; it is timed in turns
+     against the atomic kernel (20 launches a side, 4 rounds), and held
+     entry by entry on a cotangent over six orders of magnitude (the hash
+     arm's points); the points go to build/chip_smoke/points/ for
+     `tools/det_speed.py`;
   4. the hash arm of the main path: `Trainer` at the default prepare
      configuration (`Config(prepare=True)`: hash grid 16 x 2^19 x 2, bf16
      MLPs, 1024 rays x 64+64 samples) on an in-memory synthetic scene of 12
@@ -75,8 +81,11 @@ Phases, each fatal on failure (no phase's error is caught):
      for the forward, its autograd backward and `index_add_` of the
      precomputed w * g for the backward (idx mode; points mode has none);
      each backward's fixed-order variant (both modes, every shape) within
-     1e-5 of float64, bit-equal over 5 more launches, taken once and
-     bit-equal by its autograd entry in deterministic mode, and timed;
+     1e-5 of float64, bit-equal over 20 more launches (half beside a busy
+     second stream), taken once and bit-equal by its autograd entry in
+     deterministic mode, and timed in turns against the atomic kernel
+     (20 launches a side, 4 rounds); `index_add_` also in deterministic
+     mode (PyTorch's deterministic scatter);
  10. the XOR-prime hash arm of the main path: `Trainer` at
      `Config(prepare=True, hash_impl="mxu", llffhold=8, i_feat=200,
      i_testset=200)` (16 x 2^19 x 2, bf16 MLPs, 1024 rays x 64+64 samples)
@@ -107,8 +116,10 @@ Phases, each fatal on failure (no phase's error is caught):
      hash grid 16 x 2^19 x 2 at lr 0.03 / decay 10) loads the directory,
      phase 3's census, forward and backward checks and phase 9's
      instant-NGP census run on its points, #6's fixed-order variant on
-     them and #10 and #8 on its rays (each within its phase's bound and
-     bit-equal over 5 more launches), and it
+     them (bit-equal over 20 more launches, half beside a busy stream, and
+     timed in turns against the atomic kernel) and #10 and #8 on its rays
+     (each within its phase's bound, bit-equal over 5 more launches), and
+     it
      trains 200 steps (hash kernel counts set to 0 just before, read after):
      the depth loss falls, the PSNR rises; then the prepare dump, its PNGs
      decoded with the port's reader;
@@ -232,9 +243,11 @@ Phases, each fatal on failure (no phase's error is caught):
      leave a tensor bit for bit), beside two runs of 20 steps without a
      group in the same mode: the two runs and the group bit-equal (every
      parameter after step 1 and after 20 steps, and step 1's metrics), the
-     variants launched (counts set to 0 before and read after: the kernels
-     line's launches of #2's, #6's and #10's variants); as a control, two
-     runs with the mode off report how many tensors differ (not gated);
+     fixed-order kernels launched (counts set to 0 before and read after:
+     the kernels line's launches of #2's and #6's variants and #10); then
+     two runs with the mode off: bit-equal on the MLP arm (a gate: its
+     backwards sum in a fixed order), a control on the hash and XOR arms
+     (#2's and #6's atomic kernels; how many tensors differ);
      with --profile, each arm's device time and launches a step in both
      modes;
      (c) `train
@@ -324,10 +337,17 @@ N_VIEWS, H, W = 12, 252, 336
 STEPS = 200
 N_POINTS = 2048 * 128          # the fine pass of one step: 2 groups x 1024 rays
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-DET_REPEATS = 5                # launches of a fixed-order variant held equal
+DET_REPEATS = 5                # launches of a fixed-order kernel held equal
+HASH_REPEATS = 20              # those of the hash encodes' backward kernels,
+                               # half of them beside a busy second stream
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 N_POINTS_SEM = 1024 * 128      # the semantic-head check
+EXP_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# phase 19 (b): arms whose two seeded runs must be bit-equal with
+# torch.use_deterministic_algorithms off (every kernel of theirs sums its
+# backward in a fixed order)
+MODE_OFF_GATED = ("mlp",)
 
 
 def log(msg):
@@ -413,17 +433,52 @@ def tensors_of(out):
     return [t for o in out if o is not None for t in tensors_of(o)]
 
 
-def repeats_equal(fn, first, n=DET_REPEATS):
+def repeats_equal(fn, first, n=DET_REPEATS, busy=False):
     """fn() n more times on the same inputs: is every result bit-equal to
-    `first`, fn()'s earlier result?"""
+    `first`, fn()'s earlier result? With busy, every second call is
+    launched while a second stream runs matrix products (1.5 ms or so), so
+    that its blocks meet the card in another order."""
     import torch
     ref = tensors_of(first)
-    for _ in range(n):
+    side = torch.cuda.Stream() if busy else None
+    a = torch.randn((2048, 2048), device="cuda") if busy else None
+    for i in range(n):
+        if busy and i % 2:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(4):
+                    a @ a
         out = tensors_of(fn())
-        if len(out) != len(ref) or not all(torch.equal(a, b)
-                                           for a, b in zip(ref, out)):
+        if len(out) != len(ref) or not all(torch.equal(a_, b)
+                                           for a_, b in zip(ref, out)):
             return False
+    if busy:
+        torch.cuda.current_stream().wait_stream(side)
     return True
+
+
+def in_turns(fns, iters=20, rounds=4):
+    """Mean ms of each of fns (name -> fn, the same inputs) over `rounds`
+    rounds of `iters` back-to-back calls between two CUDA events, the
+    order reversed every other round (a, b, b, a, ...), after one call of
+    each."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(fns, 0.0)
+    names = list(fns)
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(iters):
+                fns[name]()
+            b.record()
+            torch.cuda.synchronize()
+            ms[name] += a.elapsed_time(b) / iters / rounds
+    return ms
 
 
 # Fixed-order variants held in this run: tag -> {max_abs_err, ms, ...}
@@ -556,10 +611,15 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     within 1e-5 of max |dtable|, the f32 plain version's own error printed
     beside; then kernel and plain version timed with CUDA events; the
     autograd wrapper's table gradient held at the same bound. Its
-    fixed-order variant likewise, and bit-equal over DET_REPEATS more
-    launches and through the autograd wrapper in deterministic mode (its
-    error and time in DET_HELD[tag]). Returns (max abs error, ms, plain
-    ms)."""
+    fixed-order variant within the same 1e-5 and within twice the f32
+    plain version's error (plus 2^-24 of max |dtable|, should that error be
+    0), bit-equal over HASH_REPEATS more launches (half beside a busy
+    second stream) and taken once, bit-equal, by the autograd wrapper in
+    deterministic mode; then timed in turns against the atomic kernel on
+    the same inputs (its error and times in DET_HELD[tag]). The points, the
+    index and the cotangent go to build/chip_smoke/points/ (at tables of at
+    most 2^19), where tools/det_speed.py times both against another
+    checkout's kernels. Returns (max abs error, ms, plain ms)."""
     import torch
 
     from spinnerf_tpu_torch.ops import hash_encode_win as hw
@@ -579,8 +639,20 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
     def bwd_rel(d):
         return abs_err(d) / scale
 
-    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
-                                           deterministic=False)
+    # the atomic kernel reads its own copy of the forward's sort: the
+    # variant sorts the split segments' ids in place, and that order slows
+    # the atomic kernel (1.28 against 0.88 ms on the fit's patch points)
+    work_a = work.clone()
+
+    def kernel():
+        return hw.hash_encode_win_bwd_kernel(g, x, work_a, rows, table.shape,
+                                             deterministic=False)
+
+    def variant():
+        return hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
+                                             deterministic=True)
+
+    dtab_k = kernel()
     tab = table.clone().requires_grad_()
     out_g = hw.hash_encode_plain(tab, x, res, bounds, boxes)
     (dtab_p,) = torch.autograd.grad(out_g, tab, g, retain_graph=True)
@@ -600,15 +672,13 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
         raise AssertionError(f"autograd wrapper backward differs from plain "
                              f"({tag})")
 
-    # the fixed-order variant: the same bound, bit-equal launches, and the
-    # autograd wrapper takes it in deterministic mode
-    def variant():
-        return hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
-                                             deterministic=True)
-
+    # the fixed-order variant: the same bound and twice the plain f32
+    # version's error, bit-equal launches, and the autograd wrapper takes
+    # it in deterministic mode
     dtab_d = variant()
     err_d = abs_err(dtab_d)
-    same = repeats_equal(variant, dtab_d)
+    rel_d = err_d / scale
+    same = repeats_equal(variant, dtab_d, HASH_REPEATS, busy=True)
     before = hw.launches_det["bwd"]
     tab_d = table.clone().requires_grad_()
     with deterministic_mode():
@@ -617,26 +687,81 @@ def hold_bwd(tag, x, res, bounds, boxes, table, g):
                and torch.equal(tab_d.grad, dtab_d))
     del tab_d, dtab_d, dtab_64
     log(f"[kernels {tag}] bwd fixed-order variant: max|variant - plain f64| "
-        f"= {err_d:.3e} (relative {err_d / scale:.3e}, bound 1e-5); "
-        f"{DET_REPEATS} more launches bit-equal: {same}; the autograd "
-        f"wrapper in deterministic mode launched it once, bit-equal: "
-        f"{wrapped}")
-    if not (math.isfinite(err_d) and err_d / scale <= 1e-5):
+        f"= {err_d:.3e} (relative {rel_d:.3e}, bound 1e-5 and 2 x plain "
+        f"f32's + 2^-24); {HASH_REPEATS} more launches bit-equal (half "
+        f"beside a busy stream): {same}; the autograd wrapper in "
+        f"deterministic mode launched it once, bit-equal: {wrapped}")
+    if not (math.isfinite(err_d) and rel_d <= 1e-5
+            and rel_d <= 2 * rel_p + 2.0 ** -24):
         raise AssertionError(f"fixed-order backward disagrees with the plain "
                              f"version ({tag})")
     if not (same and wrapped):
         raise AssertionError(f"fixed-order backward not reproducible or not "
                              f"taken by the wrapper ({tag})")
-    ms = cuda_ms(lambda: hw.hash_encode_win_bwd_kernel(
-        g, x, work, rows, table.shape, deterministic=False), queue_ahead=True)
-    ms_d = cuda_ms(variant, queue_ahead=True)
+    if t <= 1 << 19:
+        keep = EXP_ROOT / "points"
+        keep.mkdir(parents=True, exist_ok=True)
+        torch.save({"x": x.cpu(), "res": tuple(res),
+                    "bounds": torch.as_tensor(bounds).cpu(),
+                    "boxes": boxes, "t": t, "g": g.cpu()},
+                   keep / f"{tag.replace(' ', '_')}.pt")
+    ms = cuda_ms(kernel, queue_ahead=True)
+    turns = in_turns({"atomic": kernel, "variant": variant})
     plain_ms = cuda_ms(lambda: torch.autograd.grad(out_g, tab, g,
                                                    retain_graph=True))
-    log(f"[kernels {tag}] bwd {ms:.4f} ms (fixed-order variant {ms_d:.4f}, "
-        f"{ms_d / ms:.3f}x; plain {plain_ms:.4f})")
-    DET_HELD[tag] = {"max_abs_err": err_d, "ms": ms_d, "atomic_ms": ms,
-                     "plain_ms": plain_ms}
+    log(f"[kernels {tag}] bwd {ms:.4f} ms (plain {plain_ms:.4f}); in turns "
+        f"(20 launches a side, 4 rounds): fixed-order variant "
+        f"{turns['variant']:.4f} ms, atomic kernel {turns['atomic']:.4f} ms, "
+        f"{turns['variant'] / turns['atomic']:.3f}x")
+    DET_HELD[tag] = {"max_abs_err": err_d, "ms": turns["variant"],
+                     "atomic_ms": turns["atomic"], "plain_ms": plain_ms}
     return err, ms, plain_ms
+
+
+def hold_bwd_entries(tag, x, res, bounds, boxes, table):
+    """#2's fixed-order variant entry by entry, on a cotangent whose
+    magnitudes span six orders (a normal draw times 10^U(-4, 2), seed 3):
+    each entry's error against
+    the plain version in float64, over its sum of |contributions| (the
+    plain version in float64 on |g|: the weights are >= 0) plus 2^-45 of
+    the largest such sum, must be within 2^-21 and within twice the f32
+    plain version's largest on the same scale. Returns (kernel, plain f32)
+    largest relative errors."""
+    import torch
+
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    l, t, _ = table.shape
+    gen = torch.Generator(device=x.device).manual_seed(3)
+    shape = (x.shape[0], 2 * l)
+    g = (torch.randn(shape, generator=gen, device=x.device)
+         * 10.0 ** (6 * torch.rand(shape, generator=gen, device=x.device)
+                    - 4)).contiguous()
+    rows = hw.level_scalars(res, t, boxes)
+    _, _, work = hw.hash_encode_win_fwd_kernel(table, x, bounds, rows)
+    dtab_k = hw.hash_encode_win_bwd_kernel(g, x, work, rows, table.shape,
+                                           deterministic=True)
+
+    def grad(tab, cot):
+        tab = tab.requires_grad_()
+        return torch.autograd.grad(
+            hw.hash_encode_plain(tab, x, res, bounds, boxes), tab, cot)[0]
+    ref = grad(table.double(), g.double())
+    mag = grad(table.double(), g.abs().double())
+    scale = mag + 2.0 ** -45 * float(mag.max())
+    worst = float(((dtab_k.double() - ref).abs() / scale).max())
+    worst_p = float(((grad(table.clone(), g).double() - ref).abs()
+                     / scale).max())
+    del ref, mag, scale, dtab_k
+    log(f"[kernels {tag}] bwd fixed-order variant entry by entry on a "
+        f"cotangent over six orders "
+        f"of magnitude: max |kernel - plain f64| / (sum |w g| + 2^-45 max) "
+        f"= {worst:.3e} (bound 2^-21 = {2.0 ** -21:.3e} and 2 x plain f32's "
+        f"{worst_p:.3e})")
+    if not (math.isfinite(worst) and worst <= 2.0 ** -21
+            and worst <= 2 * worst_p):
+        raise AssertionError(f"backward kernel loses an entry's precision "
+                             f"({tag})")
+    return worst, worst_p
 
 
 FWD_BLOCK_POINTS = 256   # HF_PTS: sorted points of a chunk a block takes
@@ -772,6 +897,7 @@ def compare_kernels(trainer, x):
     # backward
     bwd_err, bwd_ms, bwd_plain_ms = hold_bwd("hash", x, res, bounds, boxes,
                                              table, g)
+    hold_bwd_entries("hash", x, res, bounds, boxes, table)
 
     # a dense level of span 32,768, whatever the scene calibrated
     boxes32, l32 = box_32768(x, res, t, boxes)
@@ -1451,14 +1577,16 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
         for k in keys:
             entry_launches[k] += 1
 
-    def hold_variant(key, variant, fn, *args):
+    def hold_variant(key, variant, atomic, fn, *args):
         """The backward's fixed-order variant under `key` ("bwd": idx mode,
         "bwd_pts": points mode): within 1e-5 of float64, bit-equal over
-        DET_REPEATS more launches, and taken once, bit-equal, by the
-        autograd entry `fn` in deterministic mode; then timed."""
+        HASH_REPEATS more launches (half beside a busy second stream), and
+        taken once, bit-equal, by the autograd entry `fn` in deterministic
+        mode; then timed in turns against the atomic kernel `atomic` on the
+        same inputs."""
         d = variant()
         err[f"{key}_det"] = float((d.double() - dtab_64).abs().max())
-        same = repeats_equal(variant, d)
+        same = repeats_equal(variant, d, HASH_REPEATS, busy=True)
         before = he.launches_det[key]
         tab2 = table.clone().requires_grad_()
         with deterministic_mode():
@@ -1468,15 +1596,21 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
                    and torch.equal(tab2.grad, d))
         log(f"[idx kernels {tag}] {key} fixed-order variant: max|variant - "
             f"plain f64| = {err[f'{key}_det']:.3e} (relative "
-            f"{bwd_rel(d):.3e}, bound 1e-5); {DET_REPEATS} more launches "
-            f"bit-equal: {same}; {fn.__name__} in deterministic mode took "
-            f"it once, bit-equal: {wrapped}")
+            f"{bwd_rel(d):.3e}, bound 1e-5); {HASH_REPEATS} more launches "
+            f"bit-equal (half beside a busy stream): {same}; {fn.__name__} "
+            f"in deterministic mode took it once, bit-equal: {wrapped}")
         if not (math.isfinite(err[f"{key}_det"]) and bwd_rel(d) <= 1e-5
                 and same and wrapped):
             raise AssertionError(f"{tag}: the fixed-order {key} is out of "
                                  f"bound, not reproducible or not taken")
         entry_launches[f"{key}_det"] += 1
-        ms[f"{key}_det"] = cuda_ms(variant)
+        turns = in_turns({"atomic": atomic, "variant": variant})
+        ms[f"{key}_det"], ms[f"{key}_atomic_turns"] = (turns["variant"],
+                                                       turns["atomic"])
+        log(f"[idx kernels {tag}] {key} in turns (20 launches a side, 4 "
+            f"rounds): variant {turns['variant']:.4f} ms, atomic kernel "
+            f"{turns['atomic']:.4f} ms, "
+            f"{turns['variant'] / turns['atomic']:.3f}x")
 
     hold_entry(entry, ("fwd", "bwd"), idx, w)
     ms = {"fwd": cuda_ms(lambda: he.hash_encode_idx_fwd_kernel(table, idx32,
@@ -1488,7 +1622,10 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
               out_g, tab, g_p, retain_graph=True))}
     del out_g, tab
     hold_variant("bwd", lambda: he.hash_encode_idx_bwd_kernel(
-        g3, idx32, w, table.shape, deterministic=True), entry, idx, w)
+        g3, idx32, w, table.shape, deterministic=True),
+        lambda: he.hash_encode_idx_bwd_kernel(g3, idx32, w, table.shape,
+                                              deterministic=False),
+        entry, idx, w)
 
     # the yardsticks, one PyTorch call each, on flat indices into the
     # [L*T, 2] table laid out before the timed region: the forward as
@@ -1520,14 +1657,19 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
     vals = (w[..., None] * g3.permute(1, 0, 2)[:, None]).reshape(-1, 2)
     flat = torch.zeros((l * t, 2), device=table.device)
     ms["lib_bwd"] = cuda_ms(lambda: flat.index_add_(0, flat_idx, vals))
+    # PyTorch's deterministic scatter: the same call in deterministic mode
+    with deterministic_mode():
+        ms["lib_bwd_det"] = cuda_ms(lambda: flat.index_add_(0, flat_idx,
+                                                            vals))
     touched = int(torch.unique(flat_idx).numel())
     del flat_idx, vals, flat
     log(f"[idx kernels {tag}] touched table entries {touched}; fwd "
         f"{ms['fwd']:.4f} ms (plain {ms['plain_fwd']:.4f}, embedding_bag "
         f"{ms['lib_fwd']:.4f}, its relative error {lib_rel:.3e}), bwd "
         f"{ms['bwd']:.4f} ms (plain {ms['plain_bwd']:.4f}, index_add_ "
-        f"{ms['lib_bwd']:.4f}, embedding_bag backward {ms['lib_bag_bwd']:.4f}"
-        f", its relative error {lib_bwd_rel:.3e})")
+        f"{ms['lib_bwd']:.4f}, in deterministic mode {ms['lib_bwd_det']:.4f}"
+        f", embedding_bag backward {ms['lib_bag_bwd']:.4f}, its relative "
+        f"error {lib_bwd_rel:.3e})")
     # a check that the yardstick computes this function, not a gate on its
     # rounding: its scatter order is its own
     if lib_rel > 1e-5 or lib_bwd_rel > 1e-4:
@@ -1561,6 +1703,8 @@ def compare_idx_shape(tag, table, idx, w, plain, entry, g, entry_launches,
     hold_entry(he.hash_encode_ngp_fused, ("fwd_pts", "bwd_pts"), x, res)
     hold_variant("bwd_pts", lambda: he.hash_encode_ngp_bwd_kernel(
         g3, x, res, table.shape, deterministic=True),
+        lambda: he.hash_encode_ngp_bwd_kernel(g3, x, res, table.shape,
+                                              deterministic=False),
         he.hash_encode_ngp_fused, x, res)
     del dtab_x, dtab_64
     ms["fwd_pts"] = cuda_ms(lambda: he.hash_encode_ngp_fwd_kernel(table, x,
@@ -1682,9 +1826,12 @@ def compare_idx_kernels(x, geom):
     for key, rec in (("bwd_pts", records[1]), ("bwd", records[3])):
         DET_HELD[f"idx {key}"] = {
             "max_abs_err": err[f"{key}_det"], "ms": ms[f"{key}_det"],
-            "atomic_ms": ms[key], "plain_ms": rec["plain_ms"],
+            "atomic_ms": ms[f"{key}_atomic_turns"],
+            "plain_ms": rec["plain_ms"],
             "ms_2_12": results["b: XOR 2^12"][1][f"{key}_det"],
             "launches_phase9": entry_launches[f"{key}_det"]}
+    DET_HELD["idx bwd"]["library_det_ms"] = ms["lib_bwd_det"]
+    records[3]["library_deterministic_ms"] = ms["lib_bwd_det"]
     b = results["b: XOR 2^12"][1]
     records[0]["ms_2_12"], records[1]["ms_2_12"] = b["fwd_pts"], b["bwd_pts"]
     records[1]["regime_ms"] = {k[8:]: v for k, v in ms.items()
@@ -2062,13 +2209,14 @@ DISK_H, DISK_W, DISK_FACTOR = 504, 672, 2   # written; loaded at 252 x 336
 
 
 def det_holds_on(tag, tr, x):
-    """Reproducibility on an arm's own points (#2's variant is held by
-    hold_bwd): #6's fixed-order variant (the instant-NGP points-mode
-    backward) on the fine-pass points x at the arm's table size, within
-    1e-5 of float64; #10 and #8, whose sums always run in a fixed order,
-    with phase 6's MLP weights on the fine pass of the arm's bank rays,
-    their weight gradients within phase 6's bound; each bit-equal over
-    DET_REPEATS more launches."""
+    """Reproducibility on an arm's own points (#2 is held by hold_bwd):
+    #6's fixed-order variant (the instant-NGP points-mode backward) on the
+    fine-pass points x at the arm's table size, within 1e-5 of float64,
+    bit-equal over HASH_REPEATS more launches (half beside a busy second
+    stream), timed in turns against the atomic kernel; #10 and #8, whose
+    sums always run in a fixed order, with phase 6's MLP weights on the fine
+    pass of the arm's bank rays, their weight gradients within phase 6's
+    bound, bit-equal over DET_REPEATS more launches."""
     import torch
 
     from spinnerf_tpu_torch.ops import fused_mlp as fm
@@ -2090,8 +2238,14 @@ def det_holds_on(tag, tr, x):
 
     d = v6()
     rel6 = float((d.double() - d64).abs().max() / d64.abs().max())
-    same6 = repeats_equal(v6, d)
-    del d, d64, table, g, g3
+    same6 = repeats_equal(v6, d, HASH_REPEATS, busy=True)
+    del d, d64
+    turns = in_turns({"atomic": lambda: he.hash_encode_ngp_bwd_kernel(
+        g3, x, res, shape, deterministic=False), "variant": v6})
+    log(f"[det {tag}] #6 in turns on this arm's points (20 launches a "
+        f"side, 4 rounds): variant {turns['variant']:.4f} ms, atomic kernel "
+        f"{turns['atomic']:.4f} ms, {turns['variant'] / turns['atomic']:.3f}x")
+    del table, g, g3
 
     field = fm.FusedMLPField(device=dev)
     field.reset_parameters(torch.Generator().manual_seed(4))
@@ -2112,7 +2266,7 @@ def det_holds_on(tag, tr, x):
     def rel(a, ref):
         return float((a.double() - ref).abs().max() / ref.abs().max())
 
-    out = {"ngp_bwd": (rel6, same6)}
+    out = {"ngp_bwd": (rel6, same6), "ngp_bwd_ms": turns}
     for name, variant, plain in (
             ("fused_mlp_pe_bwd",
              lambda: fm.fused_mlp_pe_bwd_kernel(w, xd, gm, dims),
@@ -4326,6 +4480,7 @@ def data_parallel_phase(exp_root, scene, argv=()):
     def max_diff(a, b):
         return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
+    # the fixed-order kernels' counters: #2's and #6's variants, #10's
     counters = ((hw, "launches_det"), (he, "launches_det"),
                 (fm, "launches"))
     out["group_of_one"] = {}
@@ -4382,18 +4537,29 @@ def data_parallel_phase(exp_root, scene, argv=()):
         if det_launches[key][want] < 2 * 3 * DP_GROUP_STEPS:
             raise AssertionError(f"the deterministic runs launched "
                                  f"{det_launches}")
-    # the control: the same two runs with the mode off (not gated)
+    # the same two runs with the mode off: a gate for the arm whose
+    # backwards sum in a fixed order only (#10 on the MLP arm), a control
+    # for the hash and XOR arms (#2's and #6's atomic kernels)
     out["control_mode_off"] = {}
     for arm in arms:
         runs = [train(arm, f"solo{i}") for i in range(2)]
-        out["control_mode_off"][arm] = dict(
+        res_off = dict(
             solo_runs_differ_in=n_differ(runs[0][1], runs[1][1]),
             step1_differ_in=n_differ(runs[0][2], runs[1][2]),
+            step1_metrics_equal=runs[0][0] == runs[1][0],
             max_abs=max_diff(runs[0][1], runs[1][1]),
-            step_ms=[r[3] for r in runs])
-    log(f"[dp] (b) control, deterministic mode off: two runs differ in "
+            step_ms=[r[3] for r in runs],
+            gated=arm in MODE_OFF_GATED)
+        out["control_mode_off"][arm] = res_off
+        if arm in MODE_OFF_GATED and (
+                res_off["solo_runs_differ_in"] or res_off["step1_differ_in"]
+                or not res_off["step1_metrics_equal"]):
+            raise AssertionError(f"{arm} arm: two seeded runs with "
+                                 f"deterministic mode off are not "
+                                 f"bit-equal: {res_off}")
+    log(f"[dp] (b) deterministic mode off: two runs differ in "
         f"{ {a: r['solo_runs_differ_in'] for a, r in out['control_mode_off'].items()} } "
-        f"tensors: {out['control_mode_off']}")
+        f"tensors (gated: {MODE_OFF_GATED}): {out['control_mode_off']}")
     secs["b"] = time.perf_counter() - t0
 
     # (c) the command line, two ranks on this card over gloo
@@ -5071,24 +5237,24 @@ def gen_mlp_phase(exp_root, scene, common, points):
     return records
 
 
-def fixed_order_records(records, mlp_records, idx_records, v1_records,
-                        det_launches):
+def fixed_order_records(records, idx_records, det_launches):
     """The kernels line's entries of the fixed-order variants of #2, #6
     and #4 (B1e; #10 and #8 always sum in a fixed order), each beside its
     atomic kernel's record: the same function, so the same plain version,
-    bound and library call; its own launches (phase 19 (b)'s deterministic
+    bound and library call (and, in idx mode, PyTorch's deterministic
+    index_add_ beside it); its own launches (phase 19 (b)'s deterministic
     runs, or for #4, which no arm runs, phase 9's entry calls), error and
-    time, and the atomic kernel's time on the same inputs
+    time, and the atomic kernel's time in turns on the same inputs
     (`atomic_ms`)."""
-    by_name = {r["name"]: r for r in records + mlp_records + idx_records
-               + v1_records}
+    by_name = {r["name"]: r for r in records + idx_records}
     out = []
     for name, held, launches, extra in (
             ("hash_encode_win_bwd", "hash",
              det_launches["hash_encode_win"]["bwd"],
-             {k: DET_HELD[k]["ms"] for k in DET_HELD
+             {k: (DET_HELD[k]["ms"], DET_HELD[k]["atomic_ms"])
+              for k in DET_HELD
               if k.startswith(("disk", "fit", "dense", "2^25"))
-              and "ms" in DET_HELD[k]}),
+              and "atomic_ms" in DET_HELD[k]}),
             ("hash_encode_ngp_bwd", "idx bwd_pts",
              det_launches["hash_encode"]["bwd_pts"], {}),
             ("hash_encode_idx_bwd", "idx bwd",
@@ -5101,8 +5267,12 @@ def fixed_order_records(records, mlp_records, idx_records, v1_records,
                    max_abs_err=h["max_abs_err"], ms=h["ms"],
                    atomic_ms=h["atomic_ms"],
                    ms_over_atomic=h["ms"] / h["atomic_ms"])
+        if "ms_2_12" in h:
+            rec["ms_2_12"] = h["ms_2_12"]
+        if "library_det_ms" in h:
+            rec["library_deterministic_ms"] = h["library_det_ms"]
         if extra:
-            rec["ms_other_points"] = extra
+            rec["ms_atomic_ms_other_points"] = extra
         out.append(rec)
     return out
 
@@ -5594,7 +5764,7 @@ def main(argv):
         f"{kernel_resources(build_logs['fused_mlp_gen'])}")
 
     scene, masks, held_pose, held_rgb = synthetic_scene()
-    exp_root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    exp_root = EXP_ROOT
     shutil.rmtree(exp_root, ignore_errors=True)
     common = dict(prepare=True, basedir=str(exp_root), no_ndc=True,
                   no_reload=True, N_iters=STEPS, i_print=50, i_weights=0,
@@ -5644,6 +5814,16 @@ def main(argv):
                 base_res=trainer.model.base_res,
                 finest_res=trainer.model.finest_res_per_unit
                 * trainer.model.bound)
+    if "--phase" in argv and argv[argv.index("--phase") + 1:][:1] == ["3"]:
+        # phases 3 and 9 alone: the hash encodes' kernels
+        idx_records = compare_idx_kernels(x, geom)
+        log(json.dumps({"kernels": records + idx_records,
+                        "fixed_order_held": DET_HELD}, default=str))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 4.-5. the hash arm of the main path, and a held-out view
     step_ms, hash_counts = train_arm(trainer, hw.launches, "hash")
@@ -5754,8 +5934,8 @@ def main(argv):
     for r in idx_records[:2]:    # points mode; idx mode counts in phase 9
         r["launches"] = idx_counts[r["name"].rsplit("_", 1)[1] + "_pts"]
     log(f"[launches] the disk arm's hash kernels: {disk_counts}")
-    det_records = fixed_order_records(records, mlp_records, idx_records,
-                                      v1_records, dp["det_launches"])
+    det_records = fixed_order_records(records, idx_records,
+                                      dp["det_launches"])
     log(json.dumps({"kernels": records + mlp_records + idx_records
                     + v1_records + [cal_record] + det_records
                     + gen_records}))

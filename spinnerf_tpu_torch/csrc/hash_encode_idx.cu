@@ -75,17 +75,30 @@
 // order follows the scheduling (the warps' shared updates, the map's slot
 // order, which comes from compare-and-swap races, and the global
 // reductions), so two launches on the same inputs differ in the last bits.
-// The variant rounds each contribution w * g once to an integer multiple of
-// 1 / scale and adds the integers as int64 in the same regimes, into int64
-// pairs in shared memory and then into an int64 copy of the gradient in
-// scratch, which one more kernel converts to f32 (hi_fix_out_kernel):
-// integer sums are exact, so no order of adds, inserts or blocks moves a
-// bit. scale = 2^(61 - e) with 2^e > 16 N max|g| max|w| (max|w| = 1 in
-// points mode; a first kernel finds the maxima), above any sum an entry can
-// reach (8 corners a point), so no sum overflows, and a contribution moves
-// by at most 32 N max|g| max|w| 2^-62, far below the f32 sums' own
-// rounding. A non-finite input makes every entry NaN. As csrc/
-// hash_encode_win.cu does for the windowed backward.
+// The variant's sums are exact integer sums, so no order of adds, inserts or
+// blocks moves a bit: launches on the same inputs are bit-equal, and the
+// result does not depend on the order of the points either (each
+// contribution is rounded at one scale, the launch's). Every
+// contribution goes, as an int64 multiple of 1 / scale, into the level's
+// row of an int64 copy of the gradient in scratch, which one more kernel
+// converts to f32 (hi_fix_out_kernel). scale = 2^(61 - e) with 2^e > 16 N
+// max|g| max|w| (max|w| = 1 in points mode; a first kernel finds the
+// maxima), above any sum an entry can reach (8 corners a point), so no sum
+// overflows, and a contribution moves by at most 32 N max|g| max|w| 2^-62,
+// far below the f32 sums' own rounding. In each regime:
+//   - HI_DIRECT: two 64-bit reductions a corner into the row (the atomic
+//     kernel's one 16-byte reduction a pair of corners has no integer
+//     form). The L2's atomic units bound it, at about the same rate of
+//     operations as the atomic kernel's: so it takes about three times as
+//     long (PERF.md section 6);
+//   - HI_MAP and HI_STAGED: the block's map (20 bytes a slot with the key)
+//     or staged level holds int64 pairs, each int64 as two 32-bit words
+//     added with native 32-bit shared atomics, the low word's returning the
+//     carry into the high word (add64; a 64-bit integer add in shared
+//     memory is a compare-and-swap loop), and goes to the row once.
+// A non-finite input makes every entry NaN. The windowed backward's variant
+// (csrc/hash_encode_win.cu) sums exactly too, but rounds at each block's
+// own scale.
 //
 // Bit-exactness: points mode's indices and weights must equal the host's
 // bit for bit, so the geometry rounds with __fmul_rn / __fsub_rn and the
@@ -393,20 +406,46 @@ struct DirectFixAdd {
   }
 };
 
+// v added to the int64 held as the words *lo (unsigned) and *hi: native
+// 32-bit atomics, the low word's carry taken from the value it held (as in
+// csrc/hash_encode_win.cu). Every add of the low word is counted in the high
+// word once, so the pair is exact in any order.
+__device__ __forceinline__ void add64(unsigned* lo, int* hi, long long v) {
+  const unsigned r = (unsigned)v;
+  int c = (int)(v >> 32);
+  if (r) c += atomicAdd(lo, r) + r < r ? 1 : 0;
+  if (c) atomicAdd(hi, c);
+}
+
+// Shared int64 pairs, slot s: low words lo[s], high words hi[s].
+struct SharedFix {
+  uint2* lo;
+  int2* hi;
+  __device__ __forceinline__ void add(uint32_t s, const Fix2& v) const {
+    if (v.v[0]) add64(&lo[s].x, &hi[s].x, v.v[0]);
+    if (v.v[1]) add64(&lo[s].y, &hi[s].y, v.v[1]);
+  }
+  __device__ __forceinline__ longlong2 get(uint32_t s) const {
+    return make_longlong2(
+        (long long)(((unsigned long long)(unsigned)hi[s].x << 32) | lo[s].x),
+        (long long)(((unsigned long long)(unsigned)hi[s].y << 32) | lo[s].y));
+  }
+};
+
 struct StagedFixAdd {
-  longlong2* acc;
+  SharedFix acc;
   longlong2* gl;
   uint32_t size, t;
   __device__ __forceinline__ void operator()(uint32_t k, const Fix2& v) const {
     if (k < size)
-      fix_add2(acc + k, v.v[0], v.v[1]);
+      acc.add(k, v);
     else if (k < t)
       fix_add2(gl + k, v.v[0], v.v[1]);
   }
 };
 
 struct MapFixAdd {
-  longlong2* acc;
+  SharedFix acc;
   uint32_t* keys;
   longlong2* gl;
   uint32_t mask, shift, t;
@@ -419,7 +458,7 @@ struct MapFixAdd {
       uint32_t cur = vkeys[s];
       if (cur == HI_EMPTY) cur = atomicCAS(keys + s, HI_EMPTY, k);
       if (cur == HI_EMPTY || cur == k) {
-        fix_add2(acc + s, v.v[0], v.v[1]);
+        acc.add(s, v);
         return;
       }
       s = (s + 1) & mask;
@@ -540,13 +579,11 @@ __device__ __forceinline__ void scatter_pairs(const float2* __restrict__ g,
 }
 
 // Block b takes level l (plan.first[l] <= b < plan.first[l + 1]) and its
-// points [(b - first[l]) * pts[l], + pts[l]). FIX: the fixed-order variant,
-// every sum into the int64 gradient acc64 [L, T] (amax: max|g|, max|w|).
-template <class Corners, bool FIX>
+// points [(b - first[l]) * pts[l], + pts[l]).
+template <class Corners>
 __global__ void __launch_bounds__(HI_THREADS)
 hi_bwd_kernel(const float2* __restrict__ g, Corners corners, BwdPlan plan,
-              float2* __restrict__ dtable, int n, int levels, uint32_t t,
-              longlong2* __restrict__ acc64, const unsigned* __restrict__ amax) {
+              float2* __restrict__ dtable, int n, int levels, uint32_t t) {
   extern __shared__ __align__(16) unsigned char smem[];
   int l = 0;
   while (l + 1 < levels && (int)blockIdx.x >= plan.first[l + 1]) ++l;
@@ -556,65 +593,76 @@ hi_bwd_kernel(const float2* __restrict__ g, Corners corners, BwdPlan plan,
   float2* dl = dtable + (int64_t)l * t;
   const uint32_t size = (uint32_t)plan.size[l];
   const bool map = regime == HI_MAP;
-  if constexpr (FIX) {
-    const AsFix fix{fix_scale(amax, n, Corners::unit_w).scale};
-    longlong2* gl = acc64 + (int64_t)l * t;
-    if (regime == HI_DIRECT) {
-      scatter(g, corners, p0, p1, l, levels, t, fix, DirectFixAdd{gl, t});
-      return;
-    }
-    longlong2* acc = reinterpret_cast<longlong2*>(smem);     // [size]
-    uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
-    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
-      acc[i] = make_longlong2(0, 0);
-      if (map) keys[i] = HI_EMPTY;
-    }
-    __syncthreads();
-    if (map)
-      scatter(g, corners, p0, p1, l, levels, t, fix,
-              MapFixAdd{acc, keys, gl, size - 1, (uint32_t)__clz(size) + 1u,
-                        t});
-    else
-      scatter(g, corners, p0, p1, l, levels, t, fix,
-              StagedFixAdd{acc, gl, size, t});
-    __syncthreads();
-    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
-      const uint32_t k = map ? keys[i] : i;
-      if (k != HI_EMPTY) fix_add2(gl + k, acc[i].x, acc[i].y);
+  if (regime == HI_DIRECT) {
+    scatter_pairs(g, corners, p0, p1, l, levels, t, dl);
+    return;
+  }
+  float2* acc = reinterpret_cast<float2*>(smem);       // [size]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
+  for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+    acc[i] = make_float2(0.0f, 0.0f);
+    if (map) keys[i] = HI_EMPTY;
+  }
+  __syncthreads();
+  if (map)
+    scatter(g, corners, p0, p1, l, levels, t, AsF32{},
+            MapAdd{acc, keys, dl, size - 1, (uint32_t)__clz(size) + 1u, t});
+  else
+    scatter(g, corners, p0, p1, l, levels, t, AsF32{},
+            StagedAdd{acc, dl, size, t});
+  __syncthreads();
+  if (map) {
+    for (uint32_t s = threadIdx.x; s < size; s += HI_THREADS) {
+      const uint32_t k = keys[s];
+      if (k != HI_EMPTY) red_add2(dl + k, acc[s].x, acc[s].y);
     }
   } else {
-    if (regime == HI_DIRECT) {
-      scatter_pairs(g, corners, p0, p1, l, levels, t, dl);
-      return;
+    // two entries a reduction (size is even; an added 0 changes nothing)
+    const float4* a4 = reinterpret_cast<const float4*>(acc);
+    float4* d4 = reinterpret_cast<float4*>(dl);
+    for (uint32_t i = threadIdx.x; i < size / 2; i += HI_THREADS) {
+      const float4 v = a4[i];
+      if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
+        atomicAdd(d4 + i, v);
     }
-    float2* acc = reinterpret_cast<float2*>(smem);       // [size]
-    uint32_t* keys = reinterpret_cast<uint32_t*>(acc + size);  // [size] (map)
-    for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
-      acc[i] = make_float2(0.0f, 0.0f);
-      if (map) keys[i] = HI_EMPTY;
-    }
-    __syncthreads();
-    if (map)
-      scatter(g, corners, p0, p1, l, levels, t, AsF32{},
-              MapAdd{acc, keys, dl, size - 1, (uint32_t)__clz(size) + 1u, t});
-    else
-      scatter(g, corners, p0, p1, l, levels, t, AsF32{},
-              StagedAdd{acc, dl, size, t});
-    __syncthreads();
-    if (map) {
-      for (uint32_t s = threadIdx.x; s < size; s += HI_THREADS) {
-        const uint32_t k = keys[s];
-        if (k != HI_EMPTY) red_add2(dl + k, acc[s].x, acc[s].y);
-      }
-    } else {
-      // two entries a reduction (size is even; an added 0 changes nothing)
-      const float4* a4 = reinterpret_cast<const float4*>(acc);
-      float4* d4 = reinterpret_cast<float4*>(dl);
-      for (uint32_t i = threadIdx.x; i < size / 2; i += HI_THREADS) {
-        const float4 v = a4[i];
-        if (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f)
-          atomicAdd(d4 + i, v);
-      }
+  }
+}
+
+// FIX: level l's points [p0, p1) summed, as int64 at the launch's scale, into
+// the level's int64 row gl: straight to the row (HI_DIRECT), or through the
+// block's staged level or map in shared memory (int64 pairs as 32-bit
+// words, SharedFix), added to the row once.
+template <class Corners>
+__device__ __forceinline__ void fix_scatter(
+    const float2* __restrict__ g, const Corners& corners, int regime,
+    uint32_t size, int64_t p0, int64_t p1, int l, int levels, uint32_t t,
+    longlong2* gl, const AsFix& fix, unsigned char* smem) {
+  if (regime == HI_DIRECT) {
+    scatter(g, corners, p0, p1, l, levels, t, fix, DirectFixAdd{gl, t});
+    return;
+  }
+  const bool map = regime == HI_MAP;
+  const SharedFix acc{reinterpret_cast<uint2*>(smem),                // [size]
+                      reinterpret_cast<int2*>(smem) + size};         // [size]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(acc.hi + size);  // [size] (map)
+  for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+    acc.lo[i] = make_uint2(0u, 0u);
+    acc.hi[i] = make_int2(0, 0);
+    if (map) keys[i] = HI_EMPTY;
+  }
+  __syncthreads();
+  if (map)
+    scatter(g, corners, p0, p1, l, levels, t, fix,
+            MapFixAdd{acc, keys, gl, size - 1, (uint32_t)__clz(size) + 1u, t});
+  else
+    scatter(g, corners, p0, p1, l, levels, t, fix,
+            StagedFixAdd{acc, gl, size, t});
+  __syncthreads();
+  for (uint32_t i = threadIdx.x; i < size; i += HI_THREADS) {
+    const uint32_t k = map ? keys[i] : i;
+    if (k != HI_EMPTY) {
+      const longlong2 v = acc.get(i);
+      fix_add2(gl + k, v.x, v.y);
     }
   }
 }
@@ -639,6 +687,24 @@ hi_absmax_kernel(const float* __restrict__ g, long long ng,
     const unsigned v = __reduce_max_sync(0xFFFFFFFFu, m[k]);
     if ((threadIdx.x & 31u) == 0 && v) atomicMax(amax + k, v);
   }
+}
+
+// FIX: the scatter, blocks level-major as hi_bwd_kernel's, every sum into
+// the level's row of the int64 gradient acc64 [L, T] at the launch's scale.
+template <class Corners>
+__global__ void __launch_bounds__(HI_THREADS)
+hi_bwd_fix_kernel(const float2* __restrict__ g, Corners corners, BwdPlan plan,
+                  int n, int levels, uint32_t t,
+                  const unsigned* __restrict__ amax,
+                  longlong2* __restrict__ acc64) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int l = 0;
+  while (l + 1 < levels && (int)blockIdx.x >= plan.first[l + 1]) ++l;
+  const int64_t p0 = (int64_t)(blockIdx.x - plan.first[l]) * plan.pts[l];
+  const int64_t p1 = min((int64_t)n, p0 + plan.pts[l]);
+  fix_scatter(g, corners, plan.regime[l], (uint32_t)plan.size[l], p0, p1, l,
+              levels, t, acc64 + (int64_t)l * t,
+              AsFix{fix_scale(amax, n, Corners::unit_w).scale}, smem);
 }
 
 // FIX: dtable = acc64 / scale, entry for entry (count entries).
@@ -686,7 +752,7 @@ static int make_levels(const int* res, const int* dense, int levels,
 static int make_plan(const int* regime, const int* pts, const int* size,
                      int n, int levels, long long t, const void* dtable,
                      bool fix, BwdPlan* plan, int* smem) {
-  const int entry = fix ? 16 : 8;   // a float2 or, FIX, a longlong2
+  const int entry = fix ? 16 : 8;   // a float2 or, FIX, two uint2 words
   const bool pairs = t % 2 == 0 && (uintptr_t)dtable % 16 == 0;
   memset(plan, 0, sizeof(*plan));
   long long blocks = 0;
@@ -728,48 +794,63 @@ static int launch_fwd(const void* table, const Corners& corners, void* out,
   return (int)cudaGetLastError();
 }
 
-// FIX: `fix` holds max|g| and max|w| (16 bytes), then the int64 gradient
-// [L, T] longlong2, fix_bytes long; w: idx mode's weights (null in points
-// mode).
-template <class Corners, bool FIX>
+template <class Corners>
 static int launch_bwd(const void* g, const Corners& corners, void* dtable,
                       int n, int levels, long long t, const int* regime,
-                      const int* pts, const int* size, const float* w,
-                      void* fix, long long fix_bytes, void* stream) {
+                      const int* pts, const int* size, void* stream) {
   BwdPlan plan;
   int smem = 0;
-  int err = make_plan(regime, pts, size, n, levels, t, dtable, FIX, &plan,
+  int err = make_plan(regime, pts, size, n, levels, t, dtable, false, &plan,
                       &smem);
   if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long entries = (long long)levels * t;
-  unsigned* amax = nullptr;
-  longlong2* acc64 = nullptr;
-  if (FIX) {
-    if (!fix || fix_bytes < 16 + entries * 16)
-      return (int)cudaErrorInvalidValue;
-    amax = (unsigned*)fix;
-    acc64 = (longlong2*)((char*)fix + 16);
-    err = (int)cudaMemsetAsync(fix, 0, 16 + entries * 16, s);
-    if (err) return err;
-    const long long ng = (long long)n * levels * 2;
-    const long long want = (ng + HI_THREADS - 1) / HI_THREADS;
-    hi_absmax_kernel<<<(unsigned)(want < 8 * 132 ? want : 8 * 132),
-                       HI_THREADS, 0, s>>>((const float*)g, ng, w,
-                                           (long long)levels * 8 * n, amax);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  err = (int)cudaFuncSetAttribute(hi_bwd_kernel<Corners, FIX>,
+  err = (int)cudaFuncSetAttribute(hi_bwd_kernel<Corners>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err) return err;
-  hi_bwd_kernel<Corners, FIX><<<(unsigned)plan.first[levels], HI_THREADS,
-                                smem, s>>>(
+  hi_bwd_kernel<Corners><<<(unsigned)plan.first[levels], HI_THREADS, smem,
+                           (cudaStream_t)stream>>>(
       (const float2*)g, corners, plan, (float2*)dtable, n, levels,
-      (uint32_t)t, acc64, amax);
+      (uint32_t)t);
+  return (int)cudaGetLastError();
+}
+
+// FIX: `fix` holds max|g| and max|w| (16 bytes), then the int64 gradient
+// [L, T] longlong2 (16 + L x T x 16 bytes); w: idx mode's weights (null in
+// points mode). A memset, the maxima, the scatter, the conversion.
+template <class Corners>
+static int launch_bwd_fix(const void* g, const Corners& corners,
+                          void* dtable, int n, int levels, long long t,
+                          const int* regime, const int* pts, const int* size,
+                          const float* w, void* fix, long long fix_bytes,
+                          void* stream) {
+  BwdPlan plan;
+  int smem = 0;
+  int err = make_plan(regime, pts, size, n, levels, t, dtable, true, &plan,
+                      &smem);
+  if (err) return err;
+  const long long entries = (long long)levels * t;
+  if (!fix || fix_bytes < 16 + entries * 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned* amax = (unsigned*)fix;
+  longlong2* acc64 = (longlong2*)((char*)fix + 16);
+  err = (int)cudaMemsetAsync(fix, 0, 16 + entries * 16, s);
+  if (err) return err;
+  const long long ng = (long long)n * levels * 2;
+  const long long want_g = (ng + HI_THREADS - 1) / HI_THREADS;
+  hi_absmax_kernel<<<(unsigned)(want_g < 8 * 132 ? want_g : 8 * 132),
+                     HI_THREADS, 0, s>>>((const float*)g, ng, w,
+                                         (long long)levels * 8 * n, amax);
   err = (int)cudaGetLastError();
-  if (err || !FIX) return err;
+  if (err) return err;
+  err = (int)cudaFuncSetAttribute(hi_bwd_fix_kernel<Corners>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  if (err) return err;
+  hi_bwd_fix_kernel<Corners><<<(unsigned)plan.first[levels], HI_THREADS,
+                               smem, s>>>((const float2*)g, corners, plan, n,
+                                          levels, (uint32_t)t, amax, acc64);
+  err = (int)cudaGetLastError();
+  if (err) return err;
   const long long want = (entries + HI_THREADS - 1) / HI_THREADS;
   hi_fix_out_kernel<Corners::unit_w><<<(unsigned)(want < 32 * 132 ? want
                                                                  : 32 * 132),
@@ -811,9 +892,8 @@ extern "C" int hi_bwd(const void* g, const void* idx, const void* w,
                       void* stream) {
   const int err = check_args(n, levels, t);
   if (err || n == 0) return err;
-  return launch_bwd<IdxCorners, false>(
-      g, IdxCorners{(const int*)idx, (const float*)w, n}, dtable, n, levels,
-      t, regime, pts, size, nullptr, nullptr, 0, stream);
+  return launch_bwd(g, IdxCorners{(const int*)idx, (const float*)w, n},
+                    dtable, n, levels, t, regime, pts, size, stream);
 }
 
 // The fixed-order variants (see the note at the top): the same arguments
@@ -827,9 +907,9 @@ extern "C" int hi_bwd_fix(const void* g, const void* idx, const void* w,
   if (n == 0)
     return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8,
                                 (cudaStream_t)stream);
-  return launch_bwd<IdxCorners, true>(
-      g, IdxCorners{(const int*)idx, (const float*)w, n}, dtable, n, levels,
-      t, regime, pts, size, (const float*)w, fix, fix_bytes, stream);
+  return launch_bwd_fix(g, IdxCorners{(const int*)idx, (const float*)w, n},
+                        dtable, n, levels, t, regime, pts, size,
+                        (const float*)w, fix, fix_bytes, stream);
 }
 
 extern "C" int hi_bwd_pts(const void* g, const void* x, const int* res,
@@ -840,9 +920,7 @@ extern "C" int hi_bwd_pts(const void* g, const void* x, const int* res,
   int err = check_args(n, levels, t);
   if (!err) err = make_levels(res, dense, levels, t, &pc.lv);
   if (err || n == 0) return err;
-  return launch_bwd<PointCorners, false>(g, pc, dtable, n, levels, t, regime,
-                                        pts, size, nullptr, nullptr, 0,
-                                        stream);
+  return launch_bwd(g, pc, dtable, n, levels, t, regime, pts, size, stream);
 }
 
 extern "C" int hi_bwd_pts_fix(const void* g, const void* x, const int* res,
@@ -857,9 +935,8 @@ extern "C" int hi_bwd_pts_fix(const void* g, const void* x, const int* res,
   if (n == 0)
     return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8,
                                 (cudaStream_t)stream);
-  return launch_bwd<PointCorners, true>(g, pc, dtable, n, levels, t, regime,
-                                        pts, size, nullptr, fix, fix_bytes,
-                                        stream);
+  return launch_bwd_fix(g, pc, dtable, n, levels, t, regime, pts, size,
+                        nullptr, fix, fix_bytes, stream);
 }
 
 extern "C" const char* hi_error_string(int err) {

@@ -55,47 +55,70 @@
 // Backward: the least it can do is read each cotangent once and write each
 // gradient entry once; one global atomic per (point, level, corner) would
 // instead scatter 8 reductions a (point, level) over the 64 MiB gradient.
-// The index makes the writes local, as above. So the backward, from the
-// forward's sort,
-//   1. paged levels (hb_page_kernel): one block per (chunk, level) sums its
-//      points into the page held whole in shared memory (8 KB), then
-//      writes the page with plain coalesced stores, zeros included; the
-//      chunks of a segment longer than HB_CHUNK add their nonzero entries
-//      to a page zeroed before (hb_zero_split_kernel);
-//   2. dense levels of span <= HB_DENSE_SPAN (hb_dense_kernel): blocks sum
-//      slices of the sorted points over the whole span in shared memory and
-//      write per-block partial sums; span HB_WIDE_SPAN (hb_wide_kernel,
-//      256 KB): a cluster of HB_CLUSTER blocks holds the span in its
-//      distributed shared memory, each corner added in the block that owns
-//      its quarter; hb_reduce_kernel sums the partials and writes each dense
-//      row once, zeros beyond the span included.
-// Within a warp, lanes whose corners share an entry are summed first
-// (warp_add: __match_any_sync, then a prefix sum over each group by pointer
-// jumping), so a hot coarse entry takes one shared-memory atomic a warp.
-// The grids are sized from upper bounds (at most ceil(N / HB_CHUNK) +
-// n_segments chunks); surplus blocks exit at once, and no count is read
-// back to the host. What bounds it now is not bytes (one pass over g and
-// one write of the table take ~0.03 ms at 262,144 points) but the eight
-// shared-memory updates a (point, level) and the dependent loads of short
-// blocks (PERF.md section 6).
+// The index makes the writes local, as above. The default backward
+// (he_win_bwd, ha_* kernels) sums in f32 with atomics: a (chunk, paged
+// level) a block into its page in shared memory (one 64-bit
+// compare-and-swap a corner, both features at once), stored whole, or
+// added to the table for a segment split into several chunks; dense levels
+// as slices of the sorted points over the whole span, a span of 32,768
+// across a 4-block cluster, the slices' partial sums added in order. Its
+// last bits follow the order in which the adds land, which changes from
+// launch to launch.
 //
-// The fixed-order variant (he_win_bwd_fix, taken under
-// torch.use_deterministic_algorithms): the sums above are f32 adds whose
-// order follows the sort's order within a segment (hb_scatter_kernel's
-// atomics place a warp's points), the compare-and-swap races in shared
-// memory and the cluster's atomics, so two launches on the same inputs
-// differ in the last bits. The variant rounds each contribution w * g once
-// to an integer multiple of 1 / scale and adds the integers as int64, in
-// the same kernels: integer sums are exact, so no order of points, adds or
-// blocks moves a bit. scale = 2^(61 - e) with 2^e > 16 N max|g| (a launch's
-// first kernel finds max|g|), above any sum an entry can reach (8 corners a
-// point, |w| <= 1 for points in [0, 1], with twice that for headroom), so
-// no sum overflows; a contribution moves by at most 32 N max|g| 2^-62
-// (2^-37 max|g| at N = 2^20), far below the f32 sums' own rounding. The
-// shared sums take 16 bytes an entry (a page 16 KB, a dense span of 4096
-// 64 KB, a cluster's quarter 128 KB); the split segments' chunks add their
-// pages to int64 pages in scratch, converted once (hb_split_out_kernel); a
-// non-finite cotangent makes every entry NaN.
+// The fixed-order variant (he_win_bwd_fix; the wrapper takes it under
+// torch.use_deterministic_algorithms): launches on the same inputs give
+// the same bits, whatever the scheduling, so that a seeded trainer repeats
+// itself bit for bit. Each block sums its points exactly: every
+// contribution w * g is rounded once to an int64 multiple of 2^-k, k the
+// block's own (per feature), chosen from a bound B >= sum |g| over the
+// block's points so that 2^(62 - k) > B: no sum of an entry's
+// contributions (a point's weights sum to 1) reaches 2^63, and integer sums
+// are exact, so the order of the adds, of the warps and of the blocks does
+// not matter. The quantum 2^-k is at most 2^-61 B: an entry's sum of n
+// contributions is within n / 2 quanta of their exact sum, then rounded
+// once to f32, as close as the last rounding of an f32 sum for every entry
+// above n 2^-37 B. An int64 sum is held as two 32-bit words (the low one
+// unsigned), added with native 32-bit shared atomics: the low word's add
+// returns its old value, which gives the carry into the high word (a
+// 64-bit integer add in shared memory compiles to a compare-and-swap loop).
+// That is four atomics a corner where the default takes one
+// compare-and-swap loop, which bounds the variant (PERF.md section 6). The
+// block's sums go back to f32 once, and blocks whose points share entries
+// are added in f32 in a fixed order. So the variant, from the forward's
+// sort,
+//   0. sorts the point ids of each segment longer than HB_CHUNK
+//      (hb_split_sort_kernel: a bitmap of the ids in shared memory, a
+//      scan), so that its chunks hold the same points in every launch (the
+//      forward's scatter places a warp's points with an atomic, in an order
+//      that changes); a sole chunk's order does not matter (exact sums);
+//   1. paged levels (hb_page_kernel): one block per (chunk, level) finds B
+//      (max |g|, then each |g| rounded up to a multiple of 2^(e - 32) and
+//      summed as integers: no rounding that depends on the points' order),
+//      sums its points into the page held whole in shared memory (16 KB) and
+//      writes it once, in f32, zeros included: a sole chunk's page straight
+//      to the table, a split segment's chunk pages to scratch;
+//   2. dense levels of span <= HB_DENSE_SPAN (hb_dense_kernel): blocks sum
+//      slices of the points in their own order (the same points each
+//      launch; B in double, in a fixed order) over the whole span and write
+//      f32 partial sums; span HB_WIDE_SPAN (hb_wide_kernel): a
+//      cluster of HB_CLUSTER blocks holds the span in its distributed
+//      shared memory (128 KB a block), each corner added in the block that
+//      owns its quarter, at one scale (B summed over the cluster in rank
+//      order);
+//   3. hb_final_kernel adds each dense row's partials and each split
+//      segment's chunk pages in order and writes them once, zeros beyond a
+//      dense span included.
+// In the variant a non-finite cotangent makes every entry NaN (a flag the
+// blocks set and the last kernel reads). In both backwards, lanes of a warp
+// whose corners share an entry are summed first (warp_add:
+// __match_any_sync, then a prefix sum over each group by pointer jumping),
+// so a hot coarse entry
+// takes one shared-memory update a warp. The grids are sized from upper
+// bounds (at most ceil(N / HB_CHUNK) + n_segments chunks); surplus blocks
+// exit at once, and no count is read back to the host. What bounds either
+// is not bytes (one pass over g and one write of the table take ~0.03 ms at
+// 262,144 points) but the eight shared-memory updates a (point, level) and
+// the short blocks' dependent loads and barriers (PERF.md section 6).
 //
 // Bit-exactness: the corner indices must equal the host index function's bit
 // for bit, so the geometry rounds as the f32 host path does: explicit
@@ -167,17 +190,13 @@ __device__ __forceinline__ void corner_geom(const float xp[3], uint32_t base,
   }
 }
 
-__device__ __forceinline__ void red_add2(float2* addr, float a, float b) {
-  atomicAdd(addr, make_float2(a, b));  // one vector reduction on sm_90
-}
-
 // The encode's schedule. Compile-time constants, mirrored in
 // ops/hash_encode_win.py, which sizes the scratch.
 #define HB_THREADS 256
 #define HB_CHUNK 1024          // points of one segment a chunk holds
-#define HB_DENSE_SPAN 4096     // largest span one block sums (32 KB)
+#define HB_DENSE_SPAN 4096     // largest span one block sums (32 KB; 64 variant)
 #define HB_WIDE_SPAN 32768     // DENSE_BOX_CAP: summed across a cluster
-#define HB_CLUSTER 4           // blocks of a cluster, each a quarter (64 KB)
+#define HB_CLUSTER 4           // blocks of a cluster, a quarter each (64 KB; 128)
 #define HB_PART (HB_WIDE_SPAN / HB_CLUSTER)
 #define HB_PART_BITS 13        // log2(HB_PART)
 #define HB_PLAN_THREADS 1024
@@ -241,9 +260,76 @@ __device__ __forceinline__ void warp_add(unsigned active, uint32_t key, T vx,
   if ((peers >> lane) == 1u) add(key, vx, vy);
 }
 
-// Adds (a, b) to a float2 in the block's own shared memory with one 64-bit
-// compare-and-swap loop: both features in one update. (Two f32 reductions,
-// red.shared.add.f32, measured slower on the H100.)
+// A contribution as the sums take it: an int64 multiple of 2^-k, k chosen
+// per block (block_scale, int_scale).
+struct AsInt {
+  float s[2];      // 2^k of each feature, a normal f32 (|k| <= 126)
+  float inv[2];    // 2^-k
+  // feature f's contribution v: v * 2^k is exact (a power of two), rounded
+  // once to the nearest integer
+  __device__ __forceinline__ long long operator()(float v, int f) const {
+    return __float2ll_rn(__fmul_rn(v, s[f]));
+  }
+  // a sum (low words lo, high words hi) back in f32: the integer rounded
+  // once to f32, then scaled by a power of two (exact unless the result is
+  // subnormal)
+  __device__ __forceinline__ float value(unsigned lo, int hi, int f) const {
+    const long long v = (long long)(((unsigned long long)(unsigned)hi << 32) |
+                                    lo);
+    return __fmul_rn(__ll2float_rn(v), inv[f]);
+  }
+  // two entries (uint4 / int4: x0, y0, x1, y1) into a float4
+  __device__ __forceinline__ float4 value2(uint4 lo, int4 hi) const {
+    return make_float4(value(lo.x, hi.x, 0), value(lo.y, hi.y, 1),
+                       value(lo.z, hi.z, 0), value(lo.w, hi.w, 1));
+  }
+};
+
+// v added to the int64 held as the words *lo (unsigned) and *hi: native
+// 32-bit atomics, the low word's carry taken from the value it held. Every
+// add of the low word is counted in the high word once, so the pair is
+// exact in any order (the high word's adds wrap as int32; only their total,
+// whose sum is below 2^63, has to fit).
+__device__ __forceinline__ void add64(unsigned* lo, int* hi, long long v) {
+  const unsigned r = (unsigned)v;
+  int c = (int)(v >> 32);
+  if (r) c += atomicAdd(lo, r) + r < r ? 1 : 0;
+  if (c) atomicAdd(hi, c);
+}
+
+// The sums: int64 pairs as two 32-bit words each (lo, hi: [entries] uint2 /
+// int2, x and y the features), in the block's shared memory or
+// (ClusterIntAdd, entry k in block k >> HB_PART_BITS) in the cluster's.
+struct SmemIntAdd {
+  uint2* lo;
+  int2* hi;
+  __device__ __forceinline__ void operator()(uint32_t k, long long a,
+                                             long long b) const {
+    add64(&lo[k].x, &hi[k].x, a);
+    add64(&lo[k].y, &hi[k].y, b);
+  }
+};
+
+struct ClusterIntAdd {
+  uint2* lo;
+  int2* hi;
+  __device__ __forceinline__ void operator()(uint32_t k, long long a,
+                                             long long b) const {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int r = (int)(k >> HB_PART_BITS);
+    const uint32_t i = k & (HB_PART - 1);
+    uint2* l = cluster.map_shared_rank(lo, r) + i;
+    int2* h = cluster.map_shared_rank(hi, r) + i;
+    add64(&l->x, &h->x, a);
+    add64(&l->y, &h->y, b);
+  }
+};
+
+// The atomic kernel's sums (ha_*): f32 pairs. In the block's own shared
+// memory, one 64-bit compare-and-swap loop adds both features (two f32
+// reductions, red.shared.add.f32, measured slower on the H100); in the
+// cluster's (entry k in block k >> HB_PART_BITS), two f32 atomics; in
+// device memory, one vector reduction.
 __device__ __forceinline__ void smem_add2(float2* p, float a, float b) {
   unsigned long long* q = reinterpret_cast<unsigned long long*>(p);
   unsigned long long cur = *reinterpret_cast<volatile unsigned long long*>(q);
@@ -268,8 +354,6 @@ struct SmemAdd {
   }
 };
 
-// The span lives in the shared memory of the cluster's blocks, a quarter
-// each: entry k in block k >> HB_PART_BITS.
 struct ClusterAdd {
   float2* acc;
   __device__ __forceinline__ void operator()(uint32_t k, float a,
@@ -281,94 +365,148 @@ struct ClusterAdd {
   }
 };
 
-// The fixed-order variant's sums: int64 pairs, added with 64-bit integer
-// atomics (exact, so their order does not matter).
-__device__ __forceinline__ void fix_add2(longlong2* p, long long a,
-                                         long long b) {
-  if (a) atomicAdd(reinterpret_cast<unsigned long long*>(&p->x),
-                   (unsigned long long)a);
-  if (b) atomicAdd(reinterpret_cast<unsigned long long*>(&p->y),
-                   (unsigned long long)b);
+__device__ __forceinline__ void red_add2(float2* addr, float a, float b) {
+  atomicAdd(addr, make_float2(a, b));  // one vector reduction on sm_90
 }
 
-struct SmemFixAdd {
-  longlong2* acc;
-  __device__ __forceinline__ void operator()(uint32_t k, long long a,
-                                             long long b) const {
-    fix_add2(acc + k, a, b);
-  }
-};
-
-struct ClusterFixAdd {
-  longlong2* acc;
-  __device__ __forceinline__ void operator()(uint32_t k, long long a,
-                                             long long b) const {
-    fix_add2(cg::this_cluster().map_shared_rank(acc, k >> HB_PART_BITS) +
-                 (k & (HB_PART - 1)),
-             a, b);
-  }
-};
-
-// A contribution as the sums take it: f32 (AsF32), or rounded once to a
-// multiple of 1 / scale (AsFix).
+// A contribution as the atomic kernel sums it: the f32 product itself.
 struct AsF32 {
-  __device__ __forceinline__ float operator()(float v) const { return v; }
-};
-
-struct FixScale {
-  double scale, inv;
-};
-
-struct AsFix {
-  double scale;
-  __device__ __forceinline__ long long operator()(float v) const {
-    return __double2ll_rn((double)v * scale);
+  __device__ __forceinline__ float operator()(float v, int) const {
+    return v;
   }
 };
 
-// The launch's scale from amax (max |g| as f32 bits) and the point count:
-// 2^(61 - e) with 16 n max|g| < 2^e. A non-finite max|g| gives inv = NaN:
-// every entry comes out NaN.
-__device__ __forceinline__ FixScale fix_scale(const unsigned* amax,
-                                              long long n) {
-  const double b = 16.0 * (double)n * (double)__uint_as_float(*amax);
-  if (!(b <= 1.0e308)) return {0.0, __longlong_as_double(0x7FF8000000000000LL)};
+// The block's sums back in f32: entries [0, n) (n even) of lo / hi to dst,
+// two a thread at a time.
+__device__ __forceinline__ void write_sums(float2* dst, const uint2* lo,
+                                           const int2* hi, int n,
+                                           const AsInt& val) {
+  const uint4* l4 = reinterpret_cast<const uint4*>(lo);
+  const int4* h4 = reinterpret_cast<const int4*>(hi);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < n / 2; i += blockDim.x)
+    d4[i] = val.value2(l4[i], h4[i]);
+}
+
+// The block-wide max of m[2] (f32 bits of |g|: non-negative floats order as
+// their bits do, a NaN's above inf's), and the block-wide sum of q[2]; `red`
+// holds 16 values of shared memory, a call's own. Every thread of the block
+// calls; every thread gets the result. Both are exact, so the order of the
+// reduction is moot.
+__device__ __forceinline__ void block_max2(unsigned m[2],
+                                           unsigned long long* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    m[f] = __reduce_max_sync(0xFFFFFFFFu, m[f]);
+    if (lane == 0) red[f * 8 + wid] = m[f];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    m[f] = 0;
+    for (int w = 0; w < nw; ++w) m[f] = max(m[f], (unsigned)red[f * 8 + w]);
+  }
+}
+
+__device__ __forceinline__ void block_sum2(unsigned long long q[2],
+                                           unsigned long long* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      q[f] += __shfl_xor_sync(0xFFFFFFFFu, q[f], d);
+    if (lane == 0) red[f * 8 + wid] = q[f];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    q[f] = 0;
+    for (int w = 0; w < nw; ++w) q[f] += red[f * 8 + w];
+  }
+}
+
+// Bounds on the sum of |g| over a block's points, with no rounding that
+// depends on their order: given the max m (f32 bits) of a feature, each |g|
+// is rounded up to a multiple of 2^(e - 32), where m < 2^e, and the
+// multiples are summed as integers (< 2^32 each).
+__device__ __forceinline__ int max_exponent(unsigned m) {
   int e = 0;
-  if (b > 0.0) frexp(b, &e);
-  e = max(e, -960);   // keeps the scale finite for denormal cotangents
-  return {ldexp(1.0, 61 - e), ldexp(1.0, e - 61)};
+  if (m && m < 0x7F800000u) frexpf(__uint_as_float(m), &e);
+  return e;
 }
 
-__device__ __forceinline__ float2 from_fix(longlong2 v, const FixScale& f) {
-  return make_float2((float)((double)v.x * f.inv), (float)((double)v.y * f.inv));
+__device__ __forceinline__ unsigned long long bound_units(float v, int e) {
+  return (unsigned long long)ceil(fabs((double)v) * ldexp(1.0, 32 - e));
 }
 
-// Sums the points order[i_begin, i_end) of level l (geometry `row`) into
-// add: one point a thread, HB_THREADS at a time, warps kept converged for
-// warp_add. `seg_base` is the points' common page base on a paged level
-// (keys are then offsets in the page), 0 on a dense level. `val` turns each
-// f32 contribution into what `add` sums.
+// The scale from bounds b[f] >= sum |g| over the block's points: 2^k with
+// 2^(62 - k) above the bound, so that no sum of an entry's contributions
+// (|w| <= 1, weights of a point summing to 1) reaches 2^63 (the rounding of
+// each to an integer adds at most 1/2 a contribution; 2^62 leaves room for
+// 2^61 of them a block). k is clamped to [-126, 126]: a bound under 2^-64
+// takes the quantum 2^-126.
+__device__ __forceinline__ AsInt int_scale(const double b[2]) {
+  AsInt a;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    int eb = 0;
+    if (b[f] > 0.0 && b[f] <= 1.0e308) frexp(b[f], &eb);
+    const int k = min(max(62 - eb, -126), 126);   // 2^(-k) normal too
+    a.s[f] = __int_as_float((k + 127) << 23);
+    a.inv[f] = __int_as_float((127 - k) << 23);
+  }
+  return a;
+}
+
+// The block-wide sum of d[2] in a fixed order (each warp's lane 0, then the
+// warps in turn) into every thread: the same bits in every launch where
+// each thread's d is.
+__device__ __forceinline__ void block_sumd2(double d[2], double* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      d[f] += __shfl_down_sync(0xFFFFFFFFu, d[f], o);
+    if (lane == 0) red[f * 8 + wid] = d[f];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    d[f] = 0.0;
+    for (int w = 0; w < nw; ++w) d[f] += red[f * 8 + w];
+  }
+}
+
+// Sums the points i_begin .. i_end - 1 (the ids order[i], or i where order
+// is null) of dense level l (geometry `row`) into add: one point a thread,
+// HB_THREADS at a time, warps kept converged for warp_add. `val` turns each
+// f32 contribution (and its feature) into what `add` sums.
 template <class Val, class Add>
 __device__ __forceinline__ void scatter_points(
     const float2* __restrict__ g, const float* __restrict__ x,
     const int* __restrict__ order, int i_begin, int i_end, int l, int levels,
-    const int row[HE_ROW], uint32_t seg_base, const Val& val,
-    const Add& add) {
+    const int row[HE_ROW], const Val& val, const Add& add) {
   for (int i0 = i_begin; i0 < i_end; i0 += HB_THREADS) {
     const int i = i0 + (int)threadIdx.x;
     const bool on = i < i_end;
     const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
     if (!on) continue;
-    const int64_t p = order[i];
+    const int64_t p = order ? order[i] : i;
     const float xp[3] = {x[3 * p], x[3 * p + 1], x[3 * p + 2]};
     uint32_t idx[8];
     float w[8];
-    corner_geom(xp, seg_base, row, idx, w);
+    corner_geom(xp, 0u, row, idx, w);
     const float2 gv = g[p * levels + l];
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      warp_add(active, idx[c] - seg_base, val(__fmul_rn(w[c], gv.x)),
-               val(__fmul_rn(w[c], gv.y)), add);
+      warp_add(active, idx[c], val(__fmul_rn(w[c], gv.x), 0),
+               val(__fmul_rn(w[c], gv.y), 1), add);
   }
 }
 
@@ -657,17 +795,6 @@ hf_fwd_kernel(const float2* __restrict__ table, const float* __restrict__ x,
   }
 }
 
-// The backward's sums: f32 pairs (the default) or, in the fixed-order
-// variant, int64 pairs (FIX).
-template <bool FIX>
-struct Sums {
-  typedef float2 T;
-};
-template <>
-struct Sums<true> {
-  typedef longlong2 T;
-};
-
 // bytes of shared or device memory zeroed with 16-byte stores by the block
 __device__ __forceinline__ void zero_bytes(void* p, int bytes) {
   float4* a4 = reinterpret_cast<float4*>(p);
@@ -683,55 +810,431 @@ __device__ __forceinline__ void copy_bytes(void* dst, const void* src,
   for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d4[i] = s4[i];
 }
 
-// Backward 0 (FIX). amax[0] = max |v| over v[0, count) as f32 bits
-// (non-negative floats order as their bits do; a NaN's bits order above
-// inf's); amax zeroed before.
-__global__ void __launch_bounds__(HB_THREADS)
-hb_absmax_kernel(const float* __restrict__ v, long long count,
-                 unsigned* __restrict__ amax) {
-  unsigned m = 0;
-  for (long long i = (long long)blockIdx.x * HB_THREADS + threadIdx.x;
-       i < count; i += (long long)gridDim.x * HB_THREADS)
-    m = max(m, __float_as_uint(fabsf(v[i])));
-  m = __reduce_max_sync(0xFFFFFFFFu, m);
-  if ((threadIdx.x & 31u) == 0 && m) atomicMax(amax, m);
+// Dense rows: entry e < span = the sum of the level's partials in partial
+// order, zero beyond (NaN where `bad`); block b = tile of HB_REDUCE_TILE
+// entries x dense level.
+__device__ __forceinline__ void reduce_rows(const float2* __restrict__ partials,
+                                            const LevelSet& dense,
+                                            float2* __restrict__ dtable,
+                                            int64_t t, int b, bool bad) {
+  const int di = b % dense.n;
+  const int64_t e = (int64_t)(b / dense.n) * HB_REDUCE_TILE + threadIdx.x;
+  if (e >= t) return;
+  const int span = dense.span[di];
+  float2 sum = make_float2(0.0f, 0.0f);
+  if (e < span) {
+    const float2* src = partials + dense.offset[di] + e;
+    for (int p = 0; p < dense.parts[di]; ++p) {
+      const float2 v = src[(int64_t)p * span];
+      sum.x = __fadd_rn(sum.x, v.x);
+      sum.y = __fadd_rn(sum.y, v.y);
+    }
+  }
+  if (bad) sum = make_float2(__int_as_float(0x7FC00000), __int_as_float(0x7FC00000));
+  dtable[(int64_t)dense.level[di] * t + e] = sum;
 }
 
-// Backward 1. Zero the pages of the split segments on every paged level
-// (FIX: their int64 pages in scratch, split segment k's at (k * paged.n +
-// li) pages); block = split segment x paged level.
-template <bool FIX>
+// ---------------------------------------------------------------------------
+// The backward (he_win_bwd; see the note at the top)
+// ---------------------------------------------------------------------------
+
+#define HB_PPT (HB_CHUNK / HB_THREADS)   // a chunk's points a thread takes
+#define HB_SORT_THREADS 1024             // = HB_PLAN_THREADS (block_excl_scan)
+#define HB_SORT_WINDOW (1 << 20)         // point ids a bitmap pass covers
+#define HB_FILL_BLOCKS 264               // blocks that write NaN if told to
+
+// The block's scale from its threads' points where the order of a block's
+// points may change between launches (a chunk of a segment): m[2] the
+// threads' max |g| bits, then each thread's q from `units(e)` (its sum of
+// bound_units over its points), summed exactly. Sets *flag if a cotangent
+// is not finite.
+template <class Units>
+__device__ __forceinline__ AsInt block_scale(unsigned m[2],
+                                             unsigned long long* red,
+                                             int* flag, const Units& units) {
+  block_max2(m, red);    // red[0, 16) for the max, red[16, 32) for the sum
+  if (threadIdx.x == 0 && (m[0] >= 0x7F800000u || m[1] >= 0x7F800000u))
+    atomicOr(flag, 1);
+  const int e[2] = {max_exponent(m[0]), max_exponent(m[1])};
+  unsigned long long q[2];
+  units(e, q);
+  block_sum2(q, red + 16);
+  const double b[2] = {(double)q[0] * ldexp(1.0, e[0] - 32),
+                       (double)q[1] * ldexp(1.0, e[1] - 32)};
+  return int_scale(b);
+}
+
+__device__ __forceinline__ unsigned abs_bits(float v) {
+  return __float_as_uint(fabsf(v));
+}
+
+// Backward 1. Each split segment's point ids sorted, in place in `order`, into
+// increasing order (block = split segment): a bitmap of the ids in shared
+// memory (HB_SORT_WINDOW ids a pass), a block-wide scan of its population
+// counts, and the ids written out in order (straight into `order` where
+// one pass covers every id; else into `sorted`, then copied back). Its
+// chunks then hold the same points in every launch. Also claims the
+// segment's slots among the chunk pages (split_slot[k]: where they start;
+// which slots it gets does not change a result).
+#define HB_SORT_UNROLL 4
+__global__ void __launch_bounds__(HB_SORT_THREADS)
+hb_split_sort_kernel(int* __restrict__ order, const int* __restrict__ cursor,
+                     const int* __restrict__ counts,
+                     const int* __restrict__ split,
+                     const int* __restrict__ meta, int* __restrict__ sorted,
+                     int* __restrict__ split_slot, int* __restrict__ slots,
+                     int n) {
+  extern __shared__ unsigned bm[];
+  __shared__ int tot[33];
+  const int k = blockIdx.x;
+  if (k >= meta[1]) return;
+  const int s = split[k], cnt = counts[s];
+  const int start = cursor[s] - cnt;   // the scatter left cursor at the end
+  const int tid = threadIdx.x;
+  if (tid == 0)
+    split_slot[k] = atomicAdd(slots, (cnt + HB_CHUNK - 1) / HB_CHUNK);
+  const bool one_pass = n <= HB_SORT_WINDOW;
+  int* out_ids = one_pass ? order : sorted;
+  int out = start;
+  for (int base = 0; base < n; base += HB_SORT_WINDOW) {
+    const int span = min(HB_SORT_WINDOW, n - base);
+    const int words = (span + 31) / 32;
+    for (int i = tid; i < words; i += HB_SORT_THREADS) bm[i] = 0u;
+    __syncthreads();
+    // every lane of a warp takes each round (the match below)
+    for (int i0 = 0; i0 < cnt; i0 += HB_SORT_UNROLL * HB_SORT_THREADS) {
+      int p[HB_SORT_UNROLL];
+#pragma unroll
+      for (int u = 0; u < HB_SORT_UNROLL; ++u) {
+        const int i = i0 + tid + u * HB_SORT_THREADS;
+        p[u] = i < cnt ? order[start + i] - base : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < HB_SORT_UNROLL; ++u) {
+        // a warp's ids are often neighbours: one atomic a word a warp
+        const bool in = p[u] >= 0 && p[u] < span;
+        const int word = in ? p[u] >> 5 : -1;
+        const unsigned peers = __match_any_sync(0xFFFFFFFFu, word);
+        const unsigned bits =
+            __reduce_or_sync(peers, in ? 1u << (p[u] & 31) : 0u);
+        if (in && (threadIdx.x & 31) == (unsigned)(__ffs(peers) - 1))
+          atomicOr(bm + word, bits);
+      }
+    }
+    __syncthreads();   // every id read before any is written (one pass)
+    const int per = (words + HB_SORT_THREADS - 1) / HB_SORT_THREADS;
+    const int w0 = min(tid * per, words), w1 = min(w0 + per, words);
+    int c = 0;
+    for (int w = w0; w < w1; ++w) c += __popc(bm[w]);
+    int total;
+    int pos = out + block_excl_scan(c, tot, &total);
+    for (int w = w0; w < w1; ++w)
+      for (unsigned bits = bm[w]; bits; bits &= bits - 1u)
+        out_ids[pos++] = base + w * 32 + __ffs(bits) - 1;
+    out += total;
+    __syncthreads();   // every bit read before the next pass clears them
+  }
+  if (!one_pass)
+    for (int i = tid; i < cnt; i += HB_SORT_THREADS)
+      order[start + i] = sorted[start + i];
+}
+
+// Backward 2. Paged levels: block = chunk x paged level (the levels of one
+// chunk are neighbours in launch order, so a point's cotangent row is read
+// from device memory once and from L2 after), each thread HB_PPT of the
+// chunk's points, summed in the block's own fixed point into int64 pairs in
+// shared memory (16 KB); the page written once, in f32: a sole chunk's
+// straight to the table, a split segment's chunk to its slot of the chunk
+// pages (hb_final_kernel adds them in chunk order). Held to 40 registers,
+// six blocks an SM, some spilled bytes included: 13 % faster than at 64
+// registers and four blocks (PERF.md section 6).
+__global__ void __launch_bounds__(HB_THREADS, 6)
+hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+                   LevelRows rows, LevelSet paged,
+                   const int* __restrict__ order,
+                   const int4* __restrict__ chunks,
+                   const int* __restrict__ meta,
+                   const int* __restrict__ cursor,
+                   const int* __restrict__ counts,
+                   const int* __restrict__ split_slot,
+                   float2* __restrict__ dtable, float2* __restrict__ pages,
+                   int* __restrict__ flag, int levels, int64_t t) {
+  __shared__ __align__(16) uint2 lo[HE_PAGE_ENTRIES];
+  __shared__ __align__(16) int2 hi[HE_PAGE_ENTRIES];
+  __shared__ int srow[HE_ROW];
+  __shared__ unsigned long long red[32];
+  const int li = blockIdx.x % paged.n;
+  const int k = blockIdx.x / paged.n;
+  if (k >= meta[0]) return;
+  const int4 ch = chunks[k];
+  const int l = paged.level[li];
+  const uint32_t seg_base = (uint32_t)ch.x * HE_PAGE_ENTRIES;
+  if (ch.z == 0) {   // an empty segment: its page is 0 (a sole chunk)
+    zero_bytes(dtable + (int64_t)l * t + seg_base, HE_PAGE_ENTRIES * 8);
+    return;
+  }
+  zero_bytes(lo, sizeof(lo));
+  zero_bytes(hi, sizeof(hi));
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);
+  const int tid = threadIdx.x;
+  int p[HB_PPT];
+  float2 gv[HB_PPT];
+  unsigned m[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < HB_PPT; ++j) {
+    const int i = tid + j * HB_THREADS;
+    p[j] = i < ch.z ? order[ch.y + i] : -1;
+    gv[j] = p[j] >= 0 ? g[(int64_t)p[j] * levels + l]
+                      : make_float2(0.0f, 0.0f);
+    m[0] = max(m[0], abs_bits(gv[j].x));
+    m[1] = max(m[1], abs_bits(gv[j].y));
+  }
+  const AsInt val = block_scale(m, red, flag,
+                                [&](const int e[2], unsigned long long q[2]) {
+    q[0] = q[1] = 0;
+#pragma unroll
+    for (int j = 0; j < HB_PPT; ++j) {
+      q[0] += bound_units(gv[j].x, e[0]);
+      q[1] += bound_units(gv[j].y, e[1]);
+    }
+  });
+  const SmemIntAdd add{lo, hi};
+#pragma unroll
+  for (int j = 0; j < HB_PPT; ++j) {
+    const bool on = p[j] >= 0;   // the chunk's first points: a warp prefix
+    const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
+    if (!on) continue;
+    const int64_t q = p[j];
+    const float xp[3] = {x[3 * q], x[3 * q + 1], x[3 * q + 2]};
+    uint32_t idx[8];
+    float w[8];
+    corner_geom(xp, seg_base, row, idx, w);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      warp_add(active, idx[c] - seg_base, val(__fmul_rn(w[c], gv[j].x), 0),
+               val(__fmul_rn(w[c], gv[j].y), 1), add);
+  }
+  __syncthreads();
+  float2* dst;
+  if (ch.w > 0) {
+    dst = dtable + (int64_t)l * t + seg_base;
+  } else {
+    const int start = cursor[ch.x] - counts[ch.x];
+    const int slot = split_slot[-ch.w - 1] + (ch.y - start) / HB_CHUNK;
+    dst = pages + ((int64_t)slot * paged.n + li) * HE_PAGE_ENTRIES;
+  }
+  write_sums(dst, lo, hi, HE_PAGE_ENTRIES, val);
+}
+
+// The thread's max |g| bits and sum of |g| (double, in its points' order)
+// over the points [i0, i1) of level l it takes (every HB_THREADS-th from i0
+// + its index): a slice's points and their order are the same in every
+// launch, so the sums are too.
+__device__ __forceinline__ void slice_bound(const float2* __restrict__ g,
+                                            int i0, int i1, int l, int levels,
+                                            unsigned m[2], double d[2]) {
+  m[0] = m[1] = 0u;
+  d[0] = d[1] = 0.0;
+  for (int i = i0 + (int)threadIdx.x; i < i1; i += HB_THREADS) {
+    const float2 v = g[(int64_t)i * levels + l];
+    m[0] = max(m[0], abs_bits(v.x));
+    m[1] = max(m[1], abs_bits(v.y));
+    d[0] += fabs((double)v.x);
+    d[1] += fabs((double)v.y);
+  }
+}
+
+__device__ __forceinline__ void flag_nonfinite(const unsigned m[2],
+                                               int* flag) {
+  if (threadIdx.x == 0 && (m[0] >= 0x7F800000u || m[1] >= 0x7F800000u))
+    atomicOr(flag, 1);
+}
+
+// Backward 3. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the
+// points in their own order (so the same points each launch) x level, summed
+// in the block's fixed point over the whole span (int64 pairs, 16 bytes an
+// entry); its row of the level's partials in f32.
 __global__ void __launch_bounds__(HB_THREADS)
-hb_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
+hb_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+                    LevelRows rows, LevelSet dense,
+                    float2* __restrict__ partials, int* __restrict__ flag,
+                    int n, int levels) {
+  extern __shared__ __align__(16) uint2 dsums[];   // lo [span], hi [span]
+  __shared__ int srow[HE_ROW];
+  __shared__ unsigned long long red[32];
+  const int di = blockIdx.x % dense.n;
+  const int b = blockIdx.x / dense.n;
+  const int l = dense.level[di], span = dense.span[di];
+  const int parts = dense.parts[di];
+  uint2* lo = dsums;
+  int2* hi = reinterpret_cast<int2*>(dsums + span);
+  zero_bytes(dsums, span * 16);
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);
+  const int i0 = (int)((int64_t)n * b / parts);
+  const int i1 = (int)((int64_t)n * (b + 1) / parts);
+  unsigned m[2];
+  double d[2];
+  slice_bound(g, i0, i1, l, levels, m, d);
+  block_max2(m, red);
+  flag_nonfinite(m, flag);
+  block_sumd2(d, reinterpret_cast<double*>(red + 16));
+  const AsInt val = int_scale(d);
+  scatter_points(g, x, nullptr, i0, i1, l, levels, row, val,
+                 SmemIntAdd{lo, hi});
+  __syncthreads();
+  write_sums(partials + dense.offset[di] + (int64_t)b * span, lo, hi, span,
+             val);
+}
+
+// Backward 4. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums
+// slice c of the points in their own order (its blocks a quarter each) into
+// the span, held a quarter a block as int64 pairs (128 KB), in the fixed
+// point of the whole slice: the blocks' sums of |g| are exchanged through
+// the cluster's shared memory, so that all four take one scale. Each block
+// then writes its quarter, in f32, to the cluster's row of the partials.
+__global__ void __cluster_dims__(HB_CLUSTER, 1, 1) __launch_bounds__(HB_THREADS)
+hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+                   LevelRows rows, LevelSet wide,
+                   float2* __restrict__ partials, int* __restrict__ flag,
+                   int n, int levels) {
+  extern __shared__ __align__(16) uint2 wsums[];   // lo, hi [HB_PART]
+  __shared__ int srow[HE_ROW];
+  __shared__ unsigned long long red[32];
+  __shared__ double mine[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / HB_CLUSTER;
+  const int di = cid % wide.n;
+  const int c = cid / wide.n;
+  const int l = wide.level[di];
+  const int slices = wide.parts[di] * HB_CLUSTER;
+  const int s = c * HB_CLUSTER + rank;
+  uint2* lo = wsums;
+  int2* hi = reinterpret_cast<int2*>(wsums + HB_PART);
+  zero_bytes(wsums, HB_PART * 16);
+  int row[HE_ROW];
+  level_row(rows, l, srow, row);
+  const int i0 = (int)((int64_t)n * s / slices);
+  const int i1 = (int)((int64_t)n * (s + 1) / slices);
+  // the cluster's bound: the blocks' sums of |g| added in rank order,
+  // through `mine`
+  unsigned m[2];
+  double d[2];
+  slice_bound(g, i0, i1, l, levels, m, d);
+  block_max2(m, red);
+  flag_nonfinite(m, flag);
+  block_sumd2(d, reinterpret_cast<double*>(red + 16));
+  if (threadIdx.x < 2) mine[threadIdx.x] = d[threadIdx.x];
+  cluster.sync();
+  d[0] = d[1] = 0.0;
+  for (int r = 0; r < HB_CLUSTER; ++r) {
+    const double* o = cluster.map_shared_rank(mine, r);
+    d[0] += o[0];
+    d[1] += o[1];
+  }
+  const AsInt val = int_scale(d);
+  cluster.sync();  // every quarter zeroed and every `mine` read
+  scatter_points(g, x, nullptr, i0, i1, l, levels, row, val,
+                 ClusterIntAdd{lo, hi});
+  cluster.sync();  // every add landed; no block exits while others add
+  write_sums(partials + wide.offset[di] + (int64_t)c * HB_WIDE_SPAN +
+                 (int64_t)rank * HB_PART,
+             lo, hi, HB_PART, val);
+}
+
+// Backward 5. The last kernel. Blocks [0, reduce_blocks): the dense rows
+// (reduce_rows); then [0, split_blocks): split segment k x paged level,
+// the page = its chunk pages added in chunk order; then HB_FILL_BLOCKS
+// blocks that return unless a block's cotangents were not finite (*flag),
+// and then write NaN to every entry (as every other block then does).
+__global__ void __launch_bounds__(HB_THREADS)
+hb_final_kernel(const float2* __restrict__ partials, LevelSet rowsets,
+                    LevelSet paged, const int* __restrict__ split,
+                    const int* __restrict__ meta,
+                    const int* __restrict__ counts,
+                    const int* __restrict__ split_slot,
+                    const float2* __restrict__ pages,
+                    const int* __restrict__ flag, float2* __restrict__ dtable,
+                    int64_t t, int levels, int reduce_blocks,
+                    int split_blocks) {
+  const bool bad = *flag != 0;
+  const float2 nan2 = make_float2(__int_as_float(0x7FC00000),
+                                  __int_as_float(0x7FC00000));
+  int b = blockIdx.x;
+  if (b < reduce_blocks) {
+    reduce_rows(partials, rowsets, dtable, t, b, bad);
+    return;
+  }
+  b -= reduce_blocks;
+  if (b < split_blocks) {
+    const int li = b % paged.n;
+    const int k = b / paged.n;
+    if (k >= meta[1]) return;
+    const int s = split[k];
+    const int nch = (counts[s] + HB_CHUNK - 1) / HB_CHUNK;
+    const int64_t stride = (int64_t)paged.n * HE_PAGE_ENTRIES;
+    const float2* src =
+        pages + ((int64_t)split_slot[k] * paged.n + li) * HE_PAGE_ENTRIES;
+    float2* dst = dtable + (int64_t)paged.level[li] * t +
+                  (int64_t)s * HE_PAGE_ENTRIES;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES / 2; i += HB_THREADS) {
+      float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < nch; ++j) {
+        const float4 v = s4[j * (stride / 2) + i];
+        sum.x = __fadd_rn(sum.x, v.x);
+        sum.y = __fadd_rn(sum.y, v.y);
+        sum.z = __fadd_rn(sum.z, v.z);
+        sum.w = __fadd_rn(sum.w, v.w);
+      }
+      d4[i] = bad ? make_float4(nan2.x, nan2.y, nan2.x, nan2.y) : sum;
+    }
+    return;
+  }
+  b -= split_blocks;
+  if (!bad) return;
+  const int64_t total = (int64_t)levels * t;
+  for (int64_t e = (int64_t)b * HB_THREADS + threadIdx.x; e < total;
+       e += (int64_t)HB_FILL_BLOCKS * HB_THREADS)
+    dtable[e] = nan2;
+}
+
+// ---------------------------------------------------------------------------
+// The atomic backward (he_win_bwd, the default): the same schedule summed
+// in f32 with atomics, so the last bits of an entry follow the order in
+// which the adds land.
+// ---------------------------------------------------------------------------
+
+// Zero the pages of the split segments on every paged level (their chunks
+// add into them); block = split segment x paged level.
+__global__ void __launch_bounds__(HB_THREADS)
+ha_zero_split_kernel(LevelSet paged, const int* __restrict__ split,
                      const int* __restrict__ meta, float2* __restrict__ dtable,
-                     int64_t t, longlong2* __restrict__ split_acc) {
+                     int64_t t) {
   const int li = blockIdx.x % paged.n;
   const int k = blockIdx.x / paged.n;
   if (k >= meta[1]) return;
-  if constexpr (FIX)
-    zero_bytes(split_acc + ((int64_t)k * paged.n + li) * HE_PAGE_ENTRIES,
-               HE_PAGE_ENTRIES * 16);
-  else
-    zero_bytes(dtable + (int64_t)paged.level[li] * t +
-                   (int64_t)split[k] * HE_PAGE_ENTRIES,
-               HE_PAGE_ENTRIES * 8);
+  zero_bytes(dtable + (int64_t)paged.level[li] * t +
+                 (int64_t)split[k] * HE_PAGE_ENTRIES,
+             HE_PAGE_ENTRIES * 8);
 }
 
-// Backward 2. Paged levels: block = chunk x paged level (the levels of one chunk are
+// Paged levels: block = chunk x paged level (the levels of one chunk are
 // neighbours in launch order, so a point's cotangent row is read from
-// device memory once and from L2 after). One block a (chunk, level) keeps
-// ~46 short blocks an SM in flight; one block a chunk looping over the
-// levels measured slower (fewer blocks, each a chain of dependent levels).
-template <bool FIX>
+// device memory once and from L2 after), the chunk's sorted points summed
+// into the page in shared memory (8 KB); the page stored whole (a sole
+// chunk) or its nonzero entries added to the table (a split segment's).
+// One block a (chunk, level) keeps ~46 short blocks an SM in flight; one
+// block a chunk looping over the levels measured slower.
 __global__ void __launch_bounds__(HB_THREADS)
-hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+ha_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                LevelRows rows, LevelSet paged, const int* __restrict__ order,
                const int4* __restrict__ chunks, const int* __restrict__ meta,
-               float2* __restrict__ dtable, int levels, int64_t t,
-               const unsigned* __restrict__ amax,
-               longlong2* __restrict__ split_acc, int n) {
-  typedef typename Sums<FIX>::T S;
-  __shared__ __align__(16) S acc[HE_PAGE_ENTRIES];
+               float2* __restrict__ dtable, int levels, int64_t t) {
+  __shared__ __align__(16) float2 acc[HE_PAGE_ENTRIES];
   __shared__ int srow[HE_ROW];
   const int li = blockIdx.x % paged.n;
   const int k = blockIdx.x / paged.n;
@@ -743,101 +1246,67 @@ hb_page_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   level_row(rows, l, srow, row);  // its barrier also orders the zeroing
   const uint32_t seg_base = (uint32_t)ch.x * HE_PAGE_ENTRIES;
   float2* dst = dtable + (int64_t)l * t + seg_base;
-  if constexpr (FIX) {
-    const FixScale f = fix_scale(amax, n);
-    scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
-                   AsFix{f.scale}, SmemFixAdd{acc});
-    __syncthreads();
-    if (ch.w > 0) {
-      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
-        dst[i] = from_fix(acc[i], f);
-    } else {
-      longlong2* sa = split_acc +
-                      ((int64_t)(-ch.w - 1) * paged.n + li) * HE_PAGE_ENTRIES;
-      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
-        fix_add2(sa + i, acc[i].x, acc[i].y);
-    }
+  const SmemAdd add{acc};
+  for (int i0 = ch.y; i0 < ch.y + ch.z; i0 += HB_THREADS) {
+    const int i = i0 + (int)threadIdx.x;
+    const bool on = i < ch.y + ch.z;
+    const unsigned active = __ballot_sync(0xFFFFFFFFu, on);
+    if (!on) continue;
+    const int64_t p = order[i];
+    const float xp[3] = {x[3 * p], x[3 * p + 1], x[3 * p + 2]};
+    uint32_t idx[8];
+    float w[8];
+    corner_geom(xp, seg_base, row, idx, w);
+    const float2 gv = g[p * levels + l];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      warp_add(active, idx[c] - seg_base, __fmul_rn(w[c], gv.x),
+               __fmul_rn(w[c], gv.y), add);
+  }
+  __syncthreads();
+  if (ch.w > 0) {
+    copy_bytes(dst, acc, sizeof(acc));
   } else {
-    scatter_points(g, x, order, ch.y, ch.y + ch.z, l, levels, row, seg_base,
-                   AsF32{}, SmemAdd{acc});
-    __syncthreads();
-    if (ch.w > 0) {
-      copy_bytes(dst, acc, sizeof(acc));
-    } else {
-      for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS) {
-        const float2 v = acc[i];
-        if (v.x != 0.0f || v.y != 0.0f) red_add2(dst + i, v.x, v.y);
-      }
+    for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS) {
+      const float2 v = acc[i];
+      if (v.x != 0.0f || v.y != 0.0f) red_add2(dst + i, v.x, v.y);
     }
   }
 }
 
-// Backward 2b (FIX). The split segments' int64 pages into the table;
-// block = split segment x paged level.
+// Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
+// points x level; the block's f32 sums over the whole span go to its row of
+// the level's partials.
 __global__ void __launch_bounds__(HB_THREADS)
-hb_split_out_kernel(LevelSet paged, const int* __restrict__ split,
-                    const int* __restrict__ meta,
-                    const longlong2* __restrict__ split_acc,
-                    float2* __restrict__ dtable, int64_t t,
-                    const unsigned* __restrict__ amax, int n) {
-  const int li = blockIdx.x % paged.n;
-  const int k = blockIdx.x / paged.n;
-  if (k >= meta[1]) return;
-  const FixScale f = fix_scale(amax, n);
-  const longlong2* src =
-      split_acc + ((int64_t)k * paged.n + li) * HE_PAGE_ENTRIES;
-  float2* dst = dtable + (int64_t)paged.level[li] * t +
-                (int64_t)split[k] * HE_PAGE_ENTRIES;
-  for (int i = threadIdx.x; i < HE_PAGE_ENTRIES; i += HB_THREADS)
-    dst[i] = from_fix(src[i], f);
-}
-
-// Backward 3. Dense levels of span <= HB_DENSE_SPAN: block = slice b of the sorted
-// points x level (the levels of a slice neighbours in launch order); the
-// block's sums over the whole span go to its row of the level's partials.
-template <bool FIX>
-__global__ void __launch_bounds__(HB_THREADS)
-hb_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+ha_dense_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                 LevelRows rows, LevelSet dense, const int* __restrict__ order,
-                typename Sums<FIX>::T* __restrict__ partials, int n,
-                int levels, const unsigned* __restrict__ amax) {
-  typedef typename Sums<FIX>::T S;
-  extern __shared__ __align__(16) unsigned char dsmem[];
-  S* dacc = reinterpret_cast<S*>(dsmem);
+                float2* __restrict__ partials, int n, int levels) {
+  extern __shared__ __align__(16) float2 dacc[];
   __shared__ int srow[HE_ROW];
   const int di = blockIdx.x % dense.n;
   const int b = blockIdx.x / dense.n;
   const int l = dense.level[di], span = dense.span[di];
   const int parts = dense.parts[di];
-  zero_bytes(dacc, span * (int)sizeof(S));
+  zero_bytes(dacc, span * 8);
   int row[HE_ROW];
   level_row(rows, l, srow, row);
   const int i0 = (int)((int64_t)n * b / parts);
   const int i1 = (int)((int64_t)n * (b + 1) / parts);
-  if constexpr (FIX)
-    scatter_points(g, x, order, i0, i1, l, levels, row, 0u,
-                   AsFix{fix_scale(amax, n).scale}, SmemFixAdd{dacc});
-  else
-    scatter_points(g, x, order, i0, i1, l, levels, row, 0u, AsF32{},
-                   SmemAdd{dacc});
+  scatter_points(g, x, order, i0, i1, l, levels, row, AsF32{},
+                 SmemAdd{dacc});
   __syncthreads();
-  copy_bytes(partials + dense.offset[di] + (int64_t)b * span, dacc,
-             span * (int)sizeof(S));
+  copy_bytes(partials + dense.offset[di] + (int64_t)b * span, dacc, span * 8);
 }
 
-// Backward 4. Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c
-// of the sorted points (its blocks a quarter of it each) into the span,
-// which its HB_CLUSTER blocks hold a quarter each; each block then writes
-// its quarter to the cluster's row of the partials.
-template <bool FIX>
+// Dense levels of span HB_WIDE_SPAN: cluster c of the level sums slice c of
+// the sorted points (its blocks a quarter of it each) into the span, which its
+// HB_CLUSTER blocks hold a quarter each (64 KB); each block then writes its
+// quarter to the cluster's row of the partials.
 __global__ void __cluster_dims__(HB_CLUSTER, 1, 1) __launch_bounds__(HB_THREADS)
-hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
+ha_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
                LevelRows rows, LevelSet wide, const int* __restrict__ order,
-               typename Sums<FIX>::T* __restrict__ partials, int n,
-               int levels, const unsigned* __restrict__ amax) {
-  typedef typename Sums<FIX>::T S;
-  extern __shared__ __align__(16) unsigned char wsmem[];
-  S* wacc = reinterpret_cast<S*>(wsmem);
+               float2* __restrict__ partials, int n, int levels) {
+  extern __shared__ __align__(16) float2 wacc[];
   __shared__ int srow[HE_ROW];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -847,57 +1316,25 @@ hb_wide_kernel(const float2* __restrict__ g, const float* __restrict__ x,
   const int l = wide.level[di];
   const int slices = wide.parts[di] * HB_CLUSTER;
   const int s = c * HB_CLUSTER + rank;
-  zero_bytes(wacc, HB_PART * (int)sizeof(S));
+  zero_bytes(wacc, HB_PART * 8);
   int row[HE_ROW];
   level_row(rows, l, srow, row);
   cluster.sync();  // every quarter zeroed before any block adds to it
   const int i0 = (int)((int64_t)n * s / slices);
   const int i1 = (int)((int64_t)n * (s + 1) / slices);
-  if constexpr (FIX)
-    scatter_points(g, x, order, i0, i1, l, levels, row, 0u,
-                   AsFix{fix_scale(amax, n).scale}, ClusterFixAdd{wacc});
-  else
-    scatter_points(g, x, order, i0, i1, l, levels, row, 0u, AsF32{},
-                   ClusterAdd{wacc});
+  scatter_points(g, x, order, i0, i1, l, levels, row, AsF32{},
+                 ClusterAdd{wacc});
   cluster.sync();  // every add landed; no block exits while others add
   copy_bytes(partials + wide.offset[di] + (int64_t)c * HB_WIDE_SPAN +
                  (int64_t)rank * HB_PART,
-             wacc, HB_PART * (int)sizeof(S));
+             wacc, HB_PART * 8);
 }
 
-// Backward 5. Dense rows: entry e < span = the sum of the level's partials
-// in partial order (FIX: int64, then converted), zero beyond; block = tile
-// of HB_REDUCE_TILE entries x dense level.
-template <bool FIX>
+// Dense rows: the level's partials added in order (reduce_rows).
 __global__ void __launch_bounds__(HB_THREADS)
-hb_reduce_kernel(const typename Sums<FIX>::T* __restrict__ partials,
-                 LevelSet dense, float2* __restrict__ dtable, int64_t t,
-                 const unsigned* __restrict__ amax, int n) {
-  const int di = blockIdx.x % dense.n;
-  const int64_t e = (int64_t)(blockIdx.x / dense.n) * HB_REDUCE_TILE +
-                    threadIdx.x;
-  if (e >= t) return;
-  const int span = dense.span[di];
-  float2 sum = make_float2(0.0f, 0.0f);
-  if (e < span) {
-    const auto* src = partials + dense.offset[di] + e;
-    if constexpr (FIX) {
-      longlong2 s = make_longlong2(0, 0);
-      for (int b = 0; b < dense.parts[di]; ++b) {
-        const longlong2 v = src[(int64_t)b * span];
-        s.x += v.x;
-        s.y += v.y;
-      }
-      sum = from_fix(s, fix_scale(amax, n));
-    } else {
-      for (int b = 0; b < dense.parts[di]; ++b) {
-        const float2 v = src[(int64_t)b * span];
-        sum.x = __fadd_rn(sum.x, v.x);
-        sum.y = __fadd_rn(sum.y, v.y);
-      }
-    }
-  }
-  dtable[(int64_t)dense.level[di] * t + e] = sum;
+ha_reduce_kernel(const float2* __restrict__ partials, LevelSet rowsets,
+                 float2* __restrict__ dtable, int64_t t) {
+  reduce_rows(partials, rowsets, dtable, t, blockIdx.x, false);
 }
 
 static int launch_args(const int* rows_host, int n, int levels,
@@ -1004,22 +1441,85 @@ extern "C" int he_win_fwd(const void* table, const void* x,
   return 0;
 }
 
-// The backward, from the forward's sort in `work`. spans_host: per level 0
-// (paged) or the dense box's morton span, a power of 8 <= HB_DENSE_SPAN or
-// exactly HB_WIDE_SPAN. dense_parts: partial sums (blocks) per dense level
-// of span <= HB_DENSE_SPAN; wide_parts: clusters per level of span
-// HB_WIDE_SPAN; partials: per dense level, parts x span entries of 8 bytes
-// (float2) or, FIX, 16 (longlong2). FIX: `fix` holds max|g| (16 bytes) and
-// then the split segments' int64 pages (max_split x paged levels x 1024
-// longlong2), fix_bytes long.
-template <bool FIX>
-static int win_bwd(const void* g, const void* x, const int* rows_host,
-                   void* dtable, int n, int levels, long long t,
-                   const int* spans_host, void* work, long long work_ints,
-                   void* partials, long long partial_entries, int dense_parts,
-                   int wide_parts, void* fix, long long fix_bytes,
-                   void* stream) {
-  typedef typename Sums<FIX>::T S;
+// The backward's level sets from spans_host (per level 0 (paged) or the
+// dense box's morton span, a power of 8 <= HB_DENSE_SPAN or exactly
+// HB_WIDE_SPAN), the partials' offsets (dense_parts per level of span <=
+// HB_DENSE_SPAN, wide_parts clusters per level of span HB_WIDE_SPAN;
+// partial_entries float2 needed) and the largest dense span.
+static int level_sets(const LevelRows& rows, const int* spans_host,
+                      int levels, long long t, int dense_parts,
+                      int wide_parts, LevelSet* paged, LevelSet* dense,
+                      LevelSet* wide, LevelSet* rowsets, int64_t* part_off,
+                      int* dense_max) {
+  memset(paged, 0, sizeof(*paged));
+  memset(dense, 0, sizeof(*dense));
+  memset(wide, 0, sizeof(*wide));
+  *part_off = 0;
+  *dense_max = 8;
+  for (int l = 0; l < levels; ++l) {
+    const int span = spans_host[l];
+    const bool flag = rows.v[l * HE_ROW + 1] != 0;
+    if (span == 0 && !flag) {
+      paged->level[paged->n++] = l;
+      continue;
+    }
+    const bool pow8 = span >= 8 && !(span & (span - 1)) &&
+                      (__builtin_ctz((unsigned)span) % 3) == 0;
+    if (!flag || !pow8 || span > t) return (int)cudaErrorInvalidValue;
+    LevelSet* set;
+    int parts;
+    if (span <= HB_DENSE_SPAN) {
+      set = dense;
+      parts = dense_parts;
+      if (span > *dense_max) *dense_max = span;
+    } else if (span == HB_WIDE_SPAN) {
+      set = wide;
+      parts = wide_parts;
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+    set->level[set->n] = l;
+    set->span[set->n] = span;
+    set->parts[set->n] = parts;
+    set->offset[set->n] = *part_off;
+    set->n++;
+    *part_off += (int64_t)parts * span;
+  }
+  memcpy(rowsets, dense, sizeof(*rowsets));
+  for (int i = 0; i < wide->n; ++i) {
+    rowsets->level[rowsets->n] = wide->level[i];
+    rowsets->span[rowsets->n] = wide->span[i];
+    rowsets->parts[rowsets->n] = wide->parts[i];
+    rowsets->offset[rowsets->n] = wide->offset[i];
+    rowsets->n++;
+  }
+  return 0;
+}
+
+static int64_t pad16(int64_t bytes) { return (bytes + 15) / 16 * 16; }
+
+// The backward's scratch `fix` (ops/hash_encode_win.py::bwd_plan sizes it
+// the same): the flag and the slot count (16 bytes), split_slot
+// (max_split ints), the sorted ids (n ints), each padded to 16 bytes, and
+// the chunk pages of the split segments (at most n / HB_CHUNK + max_split
+// chunks x paged levels x 1024 float2).
+static int64_t fix_need(int n, int n_seg, int paged_levels) {
+  const int64_t ns = max_split(n, n_seg);
+  if (!ns) return 16;
+  return 16 + pad16(4 * ns) + pad16(4 * (int64_t)n) +
+         (((int64_t)n + HB_CHUNK - 1) / HB_CHUNK + ns) * paged_levels *
+             HE_PAGE_ENTRIES * 8;
+}
+
+// The atomic backward, from the forward's sort in `work`. spans_host,
+// dense_parts, wide_parts: as level_sets takes them; partials:
+// partial_entries float2.
+extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
+                          void* dtable, int n, int levels, long long t,
+                          const int* spans_host, void* work,
+                          long long work_ints, void* partials,
+                          long long partial_entries, int dense_parts,
+                          int wide_parts, void* stream) {
   LevelRows rows;
   int err = launch_args(rows_host, n, levels, &rows);
   if (err) return err;
@@ -1029,139 +1529,66 @@ static int win_bwd(const void* g, const void* x, const int* rows_host,
   if (n == 0)
     return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8, s);
   LevelSet paged, dense, wide, rowsets;
-  memset(&paged, 0, sizeof(paged));
-  memset(&dense, 0, sizeof(dense));
-  memset(&wide, 0, sizeof(wide));
-  int64_t part_off = 0;
-  int dense_max = 8;
-  for (int l = 0; l < levels; ++l) {
-    const int span = spans_host[l];
-    const bool flag = rows.v[l * HE_ROW + 1] != 0;
-    if (span == 0 && !flag) {
-      paged.level[paged.n++] = l;
-      continue;
-    }
-    const bool pow8 = span >= 8 && !(span & (span - 1)) &&
-                      (__builtin_ctz((unsigned)span) % 3) == 0;
-    if (!flag || !pow8 || span > t) return (int)cudaErrorInvalidValue;
-    LevelSet* set;
-    int parts;
-    if (span <= HB_DENSE_SPAN) {
-      set = &dense;
-      parts = dense_parts;
-      if (span > dense_max) dense_max = span;
-    } else if (span == HB_WIDE_SPAN) {
-      set = &wide;
-      parts = wide_parts;
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-    set->level[set->n] = l;
-    set->span[set->n] = span;
-    set->parts[set->n] = parts;
-    set->offset[set->n] = part_off;
-    set->n++;
-    part_off += (int64_t)parts * span;
-  }
+  int64_t part_off;
+  int dense_max;
+  err = level_sets(rows, spans_host, levels, t, dense_parts, wide_parts,
+                   &paged, &dense, &wide, &rowsets, &part_off, &dense_max);
+  if (err) return err;
   const int n_seg = (int)(t / HE_PAGE_ENTRIES);
   Work w;
   err = work_layout(work, work_ints, n, n_seg, &w);
   if (err) return err;
   if (partial_entries < part_off) return (int)cudaErrorInvalidValue;
   const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
-  S* part = (S*)partials;
-  unsigned* amax = nullptr;
-  longlong2* split_acc = nullptr;
-  if (FIX) {
-    if (!fix || fix_bytes < 16 + n_split * paged.n * HE_PAGE_ENTRIES * 16)
-      return (int)cudaErrorInvalidValue;
-    amax = (unsigned*)fix;
-    split_acc = (longlong2*)((char*)fix + 16);
-    err = (int)cudaMemsetAsync(amax, 0, 16, s);
-    if (err) return err;
-    const long long count = (long long)n * levels * 2;
-    const long long want = (count + HB_THREADS - 1) / HB_THREADS;
-    hb_absmax_kernel<<<(unsigned)(want < 8 * 132 ? want : 8 * 132),
-                       HB_THREADS, 0, s>>>((const float*)g, count, amax);
-    HB_CHECK();
-  }
-
-  // 1.-2. paged levels
+  float2* part = (float2*)partials;
   if (paged.n) {
     if (n_split) {
-      hb_zero_split_kernel<FIX><<<(unsigned)(n_split * paged.n), HB_THREADS,
-                                  0, s>>>(paged, w.split, w.meta,
-                                          (float2*)dtable, (int64_t)t,
-                                          split_acc);
+      ha_zero_split_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0,
+                             s>>>(paged, w.split, w.meta, (float2*)dtable,
+                                  (int64_t)t);
       HB_CHECK();
     }
-    hb_page_kernel<FIX><<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
+    ha_page_kernel<<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
         (const float2*)g, (const float*)x, rows, paged, w.order, w.chunks,
-        w.meta, (float2*)dtable, levels, (int64_t)t, amax, split_acc, n);
+        w.meta, (float2*)dtable, levels, (int64_t)t);
     HB_CHECK();
-    if (FIX && n_split) {
-      hb_split_out_kernel<<<(unsigned)(n_split * paged.n), HB_THREADS, 0,
-                            s>>>(paged, w.split, w.meta, split_acc,
-                                 (float2*)dtable, (int64_t)t, amax, n);
-      HB_CHECK();
-    }
   }
-  // 3.-5. dense levels
   if (dense.n) {
-    const size_t smem = (size_t)dense_max * sizeof(S);
+    const size_t smem = (size_t)dense_max * 8;
     if (smem > 48 * 1024) {
       err = (int)cudaFuncSetAttribute(
-          hb_dense_kernel<FIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ha_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (err) return err;
     }
-    hb_dense_kernel<FIX><<<(unsigned)(dense_parts * dense.n), HB_THREADS,
-                           smem, s>>>((const float2*)g, (const float*)x, rows,
-                                      dense, w.order, part, n, levels, amax);
+    ha_dense_kernel<<<(unsigned)(dense_parts * dense.n), HB_THREADS, smem,
+                      s>>>((const float2*)g, (const float*)x, rows, dense,
+                           w.order, part, n, levels);
     HB_CHECK();
   }
   if (wide.n) {
-    const size_t smem = (size_t)HB_PART * sizeof(S);
+    const size_t smem = (size_t)HB_PART * 8;
     err = (int)cudaFuncSetAttribute(
-        hb_wide_kernel<FIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ha_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err) return err;
-    hb_wide_kernel<FIX><<<(unsigned)(wide_parts * HB_CLUSTER * wide.n),
-                          HB_THREADS, smem, s>>>(
-        (const float2*)g, (const float*)x, rows, wide, w.order, part, n,
-        levels, amax);
+    ha_wide_kernel<<<(unsigned)(wide_parts * HB_CLUSTER * wide.n),
+                     HB_THREADS, smem, s>>>((const float2*)g, (const float*)x,
+                                            rows, wide, w.order, part, n,
+                                            levels);
     HB_CHECK();
-  }
-  memcpy(&rowsets, &dense, sizeof(rowsets));
-  for (int i = 0; i < wide.n; ++i) {
-    rowsets.level[rowsets.n] = wide.level[i];
-    rowsets.span[rowsets.n] = wide.span[i];
-    rowsets.parts[rowsets.n] = wide.parts[i];
-    rowsets.offset[rowsets.n] = wide.offset[i];
-    rowsets.n++;
   }
   if (rowsets.n) {
     const int64_t tiles = (t + HB_REDUCE_TILE - 1) / HB_REDUCE_TILE;
-    hb_reduce_kernel<FIX><<<(unsigned)(tiles * rowsets.n), HB_THREADS, 0, s>>>(
-        part, rowsets, (float2*)dtable, (int64_t)t, amax, n);
+    ha_reduce_kernel<<<(unsigned)(tiles * rowsets.n), HB_THREADS, 0, s>>>(
+        part, rowsets, (float2*)dtable, (int64_t)t);
     HB_CHECK();
   }
   return 0;
 }
 
-extern "C" int he_win_bwd(const void* g, const void* x, const int* rows_host,
-                          void* dtable, int n, int levels, long long t,
-                          const int* spans_host, void* work,
-                          long long work_ints, void* partials,
-                          long long partial_entries, int dense_parts,
-                          int wide_parts, void* stream) {
-  return win_bwd<false>(g, x, rows_host, dtable, n, levels, t, spans_host,
-                        work, work_ints, partials, partial_entries,
-                        dense_parts, wide_parts, nullptr, 0, stream);
-}
-
-// The fixed-order variant (see the note at the top): the same arguments,
-// partials of 16 bytes an entry, and the scratch `fix`.
+// The fixed-order variant (see the note at the top): the same arguments and
+// its scratch `fix`, fix_bytes long.
 extern "C" int he_win_bwd_fix(const void* g, const void* x,
                               const int* rows_host, void* dtable, int n,
                               int levels, long long t, const int* spans_host,
@@ -1169,9 +1596,91 @@ extern "C" int he_win_bwd_fix(const void* g, const void* x,
                               long long partial_entries, int dense_parts,
                               int wide_parts, void* fix, long long fix_bytes,
                               void* stream) {
-  return win_bwd<true>(g, x, rows_host, dtable, n, levels, t, spans_host,
-                       work, work_ints, partials, partial_entries,
-                       dense_parts, wide_parts, fix, fix_bytes, stream);
+  LevelRows rows;
+  int err = launch_args(rows_host, n, levels, &rows);
+  if (err) return err;
+  if (!table_ok(t) || dense_parts < 1 || wide_parts < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n == 0)
+    return (int)cudaMemsetAsync(dtable, 0, (size_t)levels * t * 8, s);
+  LevelSet paged, dense, wide, rowsets;
+  int64_t part_off;
+  int dense_max;
+  err = level_sets(rows, spans_host, levels, t, dense_parts, wide_parts,
+                   &paged, &dense, &wide, &rowsets, &part_off, &dense_max);
+  if (err) return err;
+  const int n_seg = (int)(t / HE_PAGE_ENTRIES);
+  Work w;
+  err = work_layout(work, work_ints, n, n_seg, &w);
+  if (err) return err;
+  if (partial_entries < part_off || !fix ||
+      fix_bytes < fix_need(n, n_seg, paged.n))
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_chunks = max_chunks(n, n_seg), n_split = max_split(n, n_seg);
+  int* flag = (int*)fix;
+  int* slots = flag + 1;
+  int* split_slot = (int*)((char*)fix + 16);
+  int* sorted = (int*)((char*)split_slot + pad16(4 * n_split));
+  float2* pages = (float2*)((char*)sorted + pad16(4 * (int64_t)n));
+  float2* part = (float2*)partials;
+  err = (int)cudaMemsetAsync(fix, 0, 16, s);
+  if (err) return err;
+  if (paged.n) {
+    if (n_split) {
+      const size_t smem =
+          (size_t)(((n < HB_SORT_WINDOW ? n : HB_SORT_WINDOW) + 31) / 32) * 4;
+      err = (int)cudaFuncSetAttribute(
+          hb_split_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err) return err;
+      hb_split_sort_kernel<<<(unsigned)n_split, HB_SORT_THREADS, smem, s>>>(
+          w.order, w.cursor, w.counts, w.split, w.meta, sorted, split_slot,
+          slots, n);
+      HB_CHECK();
+    }
+    hb_page_kernel<<<(unsigned)(n_chunks * paged.n), HB_THREADS, 0, s>>>(
+        (const float2*)g, (const float*)x, rows, paged, w.order, w.chunks,
+        w.meta, w.cursor, w.counts, split_slot, (float2*)dtable, pages, flag,
+        levels, (int64_t)t);
+    HB_CHECK();
+  }
+  if (dense.n) {
+    const size_t smem = (size_t)dense_max * 16;
+    if (smem > 48 * 1024) {
+      err = (int)cudaFuncSetAttribute(
+          hb_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err) return err;
+    }
+    hb_dense_kernel<<<(unsigned)(dense_parts * dense.n), HB_THREADS,
+                          smem, s>>>((const float2*)g, (const float*)x, rows,
+                                     dense, part, flag, n, levels);
+    HB_CHECK();
+  }
+  if (wide.n) {
+    const size_t smem = (size_t)HB_PART * 16;
+    err = (int)cudaFuncSetAttribute(
+        hb_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err) return err;
+    hb_wide_kernel<<<(unsigned)(wide_parts * HB_CLUSTER * wide.n),
+                         HB_THREADS, smem, s>>>((const float2*)g,
+                                                (const float*)x, rows, wide,
+                                                part, flag, n, levels);
+    HB_CHECK();
+  }
+  const int64_t tiles = (t + HB_REDUCE_TILE - 1) / HB_REDUCE_TILE;
+  const int64_t reduce_blocks = rowsets.n ? tiles * rowsets.n : 0;
+  const int64_t split_blocks = paged.n ? n_split * paged.n : 0;
+  const int64_t blocks = reduce_blocks + split_blocks + HB_FILL_BLOCKS;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  hb_final_kernel<<<(unsigned)blocks, HB_THREADS, 0, s>>>(
+      part, rowsets, paged, w.split, w.meta, w.counts, split_slot, pages,
+      flag, (float2*)dtable, (int64_t)t, levels, (int)reduce_blocks,
+      (int)split_blocks);
+  HB_CHECK();
+  return 0;
 }
 
 extern "C" const char* he_error_string(int err) {

@@ -19,7 +19,8 @@ gather directly, so they compute
 `hash_encode_exact(table, *corner_indices_weights_win(...))` at any point
 count, for tables of 2^10 to 2^25 entries (JAX's windowed range). Under
 `torch.use_deterministic_algorithms(True)` the backward takes its
-fixed-order variant, whose result does not depend on the order of its sums.
+fixed-order variant, whose exact integer sums give the same bits in every
+launch on the same inputs (the note in the CUDA source).
 
 Layout: points are rows, `x` is [N, 3] in [0, 1] (the JAX functions take
 the coords-major [3, N] transpose).
@@ -277,10 +278,11 @@ class BwdPlan:
     DENSE_SMEM_SPAN, `wide_parts` clusters per level of span WIDE_SPAN),
     and the scratch sizes: `work_ints` for the forward's sort, which the
     backward reads, `partial_entries` for the dense levels' partial sums
-    (8 bytes an entry, 16 in the fixed-order variant), and that variant's
-    `fix_bytes`: max |g| (16 bytes), then an int64 page (1024 x 16 bytes)
-    a paged level of each segment that can be split (`split_entries` in
-    all)."""
+    (float2), and the fixed-order variant's `fix_bytes`: a flag and a count
+    (16 bytes), then, where a segment can be split (`max_split` of them), a
+    slot index a split segment and a sorted id a point (each padded to 16
+    bytes) and an f32 page (1024 float2) a paged level of each chunk of a
+    split segment (`split_chunks` at most)."""
     spans: tuple
     paged: tuple
     dense: tuple
@@ -289,7 +291,8 @@ class BwdPlan:
     wide_parts: int
     work_ints: int
     partial_entries: int
-    split_entries: int
+    max_split: int
+    split_chunks: int
     fix_bytes: int
 
 
@@ -299,6 +302,10 @@ def bwd_plan(rows, n: int, t: int) -> BwdPlan:
     trainer asks for the same plan twice a step)."""
     return _bwd_plan(tuple(tuple(int(v) for v in r) for r in rows), int(n),
                      int(t))
+
+
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
 
 @functools.lru_cache(maxsize=64)
@@ -319,14 +326,19 @@ def _bwd_plan(rows, n, t):
     n_seg = n_segments(t)
     max_chunks = -(-n // CHUNK_POINTS) + n_seg
     max_split = min(n_seg, n // (CHUNK_POINTS + 1))
-    split_entries = max_split * len(paged) * PAGE_ENTRIES
+    # a split segment of c > 1024 points has ceil(c / 1024) <= c / 1024 + 1
+    # chunks
+    split_chunks = -(-n // CHUNK_POINTS) + max_split if max_split else 0
+    fix_bytes = 16 + (_pad16(4 * max_split) + _pad16(4 * n)
+                      + split_chunks * len(paged) * PAGE_ENTRIES * 8
+                      if max_split else 0)
     return BwdPlan(
         spans=spans, paged=paged, dense=dense, wide=wide,
         dense_parts=dense_parts, wide_parts=wide_parts,
         work_ints=4 * max_chunks + 2 * n_seg + 4 + max_split + n,
         partial_entries=(dense_parts * sum(spans[l] for l in dense)
                          + wide_parts * WIDE_SPAN * len(wide)),
-        split_entries=split_entries, fix_bytes=16 + 16 * split_entries)
+        max_split=max_split, split_chunks=split_chunks, fix_bytes=fix_bytes)
 
 
 def _lib():
@@ -433,10 +445,12 @@ def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape,
     a kernel, so nothing is zero-filled here.
 
     `deterministic` (default: `torch.are_deterministic_algorithms_enabled()`)
-    takes the fixed-order variant `he_win_bwd_fix`, whose sums are exact
-    int64 sums of the contributions rounded once to a fixed point (the note
-    in the CUDA source), so that launches on the same inputs are bit-equal
-    whatever the order of the sort and of the adds."""
+    takes the fixed-order variant `he_win_bwd_fix` (the split segments'
+    sort, then its page, dense and cluster kernels and its last kernel),
+    whose sums are exact int64 sums at a fixed point of each block's own (the
+    note in the CUDA source), so that launches on the same inputs are
+    bit-equal whatever the order of the sort and of the adds. It sorts the
+    ids of the split segments in `work` in place, the same each call."""
     if deterministic is None:
         deterministic = torch.are_deterministic_algorithms_enabled()
     l, t, _ = table_shape
@@ -450,17 +464,15 @@ def hash_encode_win_bwd_kernel(g, x, work, rows, table_shape,
         raise ValueError("work must be the forward's int32 scratch")
     g = g.to(torch.float32).contiguous()
     dtable = torch.empty(table_shape, dtype=torch.float32, device=g.device)
-    # a float2 (8 bytes) or, fixed-order, a longlong2 (16) an entry
-    partials = torch.empty((max(plan.partial_entries, 1),
-                            2 if deterministic else 1),
-                           dtype=torch.int64, device=g.device)
+    partials = torch.empty((max(plan.partial_entries, 1), 2),
+                           dtype=torch.float32, device=g.device)
     spans_c = (ctypes.c_int * l)(*plan.spans)
     args = (g.data_ptr(), x.data_ptr(), _rows_c(rows), dtable.data_ptr(), n,
             l, t, ctypes.cast(spans_c, ctypes.c_void_p), work.data_ptr(),
             work.numel(), partials.data_ptr(), plan.partial_entries,
             plan.dense_parts, plan.wide_parts)
     if deterministic:
-        fix = torch.empty(plan.fix_bytes // 8, dtype=torch.int64,
+        fix = torch.empty(-(-plan.fix_bytes // 8), dtype=torch.int64,
                           device=g.device)
         _call("he_win_bwd_fix", g.device, *args, fix.data_ptr(),
               plan.fix_bytes)

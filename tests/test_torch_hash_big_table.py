@@ -174,10 +174,11 @@ def test_sort_scratch_plan_at_32768_segments(n):
     of csrc/hash_encode_win.cu::work_layout (4 ints a chunk for at most
     ceil(N / 1024) + n_seg chunks, counts and cursor n_seg each, meta 4, the
     split segments min(n_seg, N // 1025), the order N), and the
-    fixed-order variant's scratch max|g| (16 bytes) and one int64 page
-    (1024 x 16 bytes) a paged level of each segment that can be split.
-    The chunk counts of skewed point distributions stay within those
-    bounds."""
+    backward's scratch: a flag and a count (16 bytes), a slot index a split
+    segment and a sorted id a point (each padded to 16 bytes), and one f32
+    page (1024 x 8 bytes) a paged level of each chunk of a split segment,
+    at most ceil(N / 1024) + min(n_seg, N // 1025) of them. The chunk
+    counts of skewed point distributions stay within those bounds."""
     n_seg = T // thw.PAGE_ENTRIES
     rows = thw.level_scalars(RES, T, None)
     plan = thw.bwd_plan(rows, n, T)
@@ -186,8 +187,11 @@ def test_sort_scratch_plan_at_32768_segments(n):
     assert plan.work_ints == (4 * max_chunks + 2 * n_seg + 4 + max_split
                               + n)
     assert plan.paged == (1, 2, 3, 4, 5)   # res 7 is dense by default
-    assert plan.split_entries == max_split * 5 * 1024
-    assert plan.fix_bytes == 16 + 16 * plan.split_entries
+    split_chunks = -(-n // 1024) + max_split
+    assert plan.split_chunks == split_chunks
+    assert plan.fix_bytes == (16 + -(-4 * max_split // 16) * 16
+                              + -(-4 * n // 16) * 16
+                              + split_chunks * 5 * 1024 * 8)
     rng = np.random.RandomState(0)
     for counts in (np.bincount(rng.zipf(1.3, n) % n_seg, minlength=n_seg),
                    np.eye(1, n_seg, 7, dtype=np.int64)[0] * n,
@@ -199,6 +203,7 @@ def test_sort_scratch_plan_at_32768_segments(n):
         assert sorted(-c[3] - 1 for c in chunks if c[3] < 0) == sorted(
             k for k, s in enumerate(split)
             for _ in range(-(-int(counts[s]) // thw.CHUNK_POINTS)))
+        assert sum(c[3] < 0 for c in chunks) <= split_chunks
 
 
 def test_tables_over_2_25_raise_naming_jax_limit():
