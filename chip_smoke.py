@@ -311,7 +311,16 @@ Phases, each fatal on failure (no phase's error is caught):
      the PSNR rising, and the decoder's ms per megapixel on each damaged
      class and on the valid views; (e) a tar shard of damaged and
      4-component members through `iter_shard_images`: JAX's count and
-     SHA-256s, in JAX's order.
+     SHA-256s, in JAX's order; (f) image files read by their content
+     (`formats_phase`, C7-C9, F2): with cv2 still unimportable, every
+     fixture of tests/data/images in each read and source to the shape,
+     dtype and SHA-256 of cv2's (`expected.json`; refused ones raise, the
+     formats left to cv2 raise naming it), (b)'s PNG twin rewritten with its
+     views as a PNG named .jpg, a lossless WebP, an LZW TIFF, a Deflate
+     TIFF with predictor 2 and a 24-bit BMP named .png in turn, whose
+     `load_scene` at factor 2 equals the twin's bit for bit, then
+     `Config(prepare=True)` for 50 steps on it (#1 / #2 launched, the PSNR
+     rising), and each decoder's ms per megapixel.
 """
 from __future__ import annotations
 
@@ -5583,8 +5592,166 @@ def jpeg_phase(exp_root, x=None):
     if any(launched.values()):
         raise AssertionError(f"a hash kernel launched: {launched}")
     out["damaged"] = damaged_jpeg_phase(exp_root, all_expected)
+    out["formats"] = formats_phase(exp_root, png_dir)
     out["seconds"] = time.perf_counter() - t_start
     log(f"[jpeg] phase 21 in {out['seconds']:.1f} s")
+    return out
+
+
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
+FORMATS_STEPS = 50
+# phase 21 (f)'s scene: view k written as MIXED_FORMATS[k % 5] (writer,
+# suffix); WebP and TIFF views take a suffix JAX lists (IMG_EXTS)
+MIXED_FORMATS = (("png", ".jpg"), ("webp", ".png"), ("tiff_lzw", ".png"),
+                 ("tiff_deflate_pred2", ".jpg"), ("bmp24", ".png"))
+
+
+def _image_writers():
+    """tests/data/image_writers.py (numpy and zlib only), imported by
+    path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "image_writers", IMAGE_FIXTURES.parent / "image_writers.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def formats_phase(exp_root, png_dir):
+    """Phase 21 (f): image files read by their content, with cv2 still
+    unimportable (each gate fatal).
+
+    Every fixture of tests/data/images (`make_image_fixtures.py`) read by
+    `data/imageio.py` in cv2's unchanged, colour and gray reads under both
+    sources gives the shape, dtype and SHA-256 that cv2 gave where the
+    fixtures were made (or raises ValueError where cv2 gave None or the
+    port refuses the file; the formats left to cv2 raise RuntimeError
+    naming it). `png_dir` ((b)'s PNG twin, 12 views at 504 x 672) is
+    rewritten view by view in MIXED_FORMATS by `image_writers` (no cv2 or
+    PIL): `load_scene(factor=2)` of it must equal the twin's image stack
+    bit for bit, and `Config(prepare=True)` trains FORMATS_STEPS steps on it
+    with #1 and #2 launched and the PSNR rising. Each decoder's ms per
+    megapixel (colour read from memory, best of JPEG_TIMING_REPS) on the
+    scene's views and the 504 x 672 WebP fixtures. Returns a summary."""
+    import hashlib
+
+    import numpy as np
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.data import imageio, llff
+    from spinnerf_tpu_torch.eval.render import read_png
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    out = {}
+    iw = _image_writers()
+    files = json.loads((IMAGE_FIXTURES / "expected.json").read_text())[
+        "files"]
+    counts = {"equal": 0, "none": 0, "refused": 0, "cv2": 0}
+    for name, entry in files.items():
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        for source in ("file", "buffer"):
+            for read in ("unchanged", "color", "gray"):
+                want = entry[source][read]
+                try:
+                    img = imageio.read(data, mode=read, source=source,
+                                       name=name)
+                except ValueError:
+                    if not (entry["port"] == "refused" or want is None):
+                        raise
+                    counts["refused" if want else "none"] += 1
+                    continue
+                except RuntimeError as e:
+                    if entry["port"] != "cv2" or "cv2" not in str(e):
+                        raise
+                    counts["cv2"] += 1
+                    continue
+                got = {"shape": list(img.shape), "dtype": str(img.dtype),
+                       "sha256": hashlib.sha256(np.ascontiguousarray(
+                           img).tobytes()).hexdigest()}
+                if entry["port"] != "equal" or got != want:
+                    raise AssertionError(f"{name} {source} {read}: {got}, "
+                                         f"cv2 gave {want}")
+                counts["equal"] += 1
+    out["fixture_reads"] = counts
+    out["fixtures_s"] = time.perf_counter() - t0
+
+    # the mixed-format scene and its PNG twin
+    t1 = time.perf_counter()
+    mixed = exp_root / "formats_scene"
+    shutil.rmtree(mixed, ignore_errors=True)
+    (mixed / "images").mkdir(parents=True)
+    shutil.copy(png_dir / "poses_bounds.npy", mixed / "poses_bounds.npy")
+    writers = {
+        "png": lambda v, p: p.read_bytes(),
+        "webp": lambda v, p: iw.webp_lossless(v, transforms=(
+            "subtract_green",)),
+        "tiff_lzw": lambda v, p: iw.tiff(v, compression=5,
+                                         rows_per_strip=64),
+        "tiff_deflate_pred2": lambda v, p: iw.tiff(v, compression=8,
+                                                   predictor=2),
+        "bmp24": lambda v, p: iw.bmp(v[..., ::-1], 24)}
+    blobs = {k: [] for k in writers}
+    views = sorted((png_dir / "images").glob("*.png"))
+    for k, p in enumerate(views):
+        kind, suffix = MIXED_FORMATS[k % len(MIXED_FORMATS)]
+        data = writers[kind](read_png(p), p)
+        (mixed / "images" / (p.stem + suffix)).write_bytes(data)
+        blobs[kind].append(data)
+    out["write_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    got = llff.load_scene(mixed, factor=2, prepare=True)
+    out["load_scene_s"] = time.perf_counter() - t1
+    want = llff.load_scene(png_dir, factor=2, prepare=True)
+    if not (got.images.shape == want.images.shape
+            and np.array_equal(got.images, want.images)):
+        raise AssertionError("the mixed-format scene does not load bit-equal "
+                             "to its PNG twin")
+    del got, want
+    cfg = Config(expname="formats_scene", basedir=str(exp_root),
+                 datadir=str(mixed), dataset_type="llff", factor=2,
+                 prepare=True, no_ndc=True, no_reload=True,
+                 train_scene=[i for i in range(len(views)) if i != JPEG_HELD],
+                 test_scene=[JPEG_HELD], N_iters=FORMATS_STEPS, i_print=50,
+                 i_weights=0, i_video=0, i_testset=0, i_feat=0)
+    tr = Trainer(cfg, log=log, device=CARD)
+    hw.launches.update({k: 0 for k in hw.launches})
+    psnr_1 = float(tr.fit(1)["psnr"])
+    psnr_end = float(tr.fit(FORMATS_STEPS)["psnr"])
+    out.update(psnr_1=psnr_1, psnr_end=psnr_end, launches=dict(hw.launches))
+    del tr
+    if not (hw.launches["fwd"] > 0 and hw.launches["bwd"] > 0):
+        raise AssertionError(f"#1 / #2 did not launch: {hw.launches}")
+    if not psnr_end > psnr_1:
+        raise AssertionError("PSNR did not rise on the mixed-format scene")
+
+    # each decoder's ms per megapixel, from memory
+    view = read_png(views[0])
+    blobs["tiff_none"] = [iw.tiff(view)]
+    blobs["webp_lossy"] = [(IMAGE_FIXTURES / "webp_lossy_504x672.webp")
+                           .read_bytes()]
+    blobs["webp_lossless_libwebp"] = [
+        (IMAGE_FIXTURES / "webp_lossless_504x672.webp").read_bytes()]
+    ms = {}
+    for kind, datas in blobs.items():
+        best, mp = math.inf, 0.0
+        for _ in range(JPEG_TIMING_REPS):
+            t1, mp = time.perf_counter(), 0.0
+            for d in datas:
+                img = imageio.read(d, mode="color", name=kind)
+                mp += img.shape[0] * img.shape[1] / 1e6
+            best = min(best, time.perf_counter() - t1)
+        ms[kind] = best * 1e3 / mp
+    out["decode_color_ms_per_mp"] = ms
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"image_formats": out}))
+    log(f"[formats] (f) {counts['equal']} fixture reads equal to cv2's, "
+        f"{counts['none'] + counts['refused']} refused, {counts['cv2']} left "
+        f"to cv2; the mixed-format scene equals its PNG twin; "
+        f"{FORMATS_STEPS} steps PSNR {psnr_1:.3f} -> {psnr_end:.3f} dB, "
+        f"#1 / #2 launched {out['launches']}; ms/MP " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; (f) in {out['seconds']:.1f} s")
     return out
 
 

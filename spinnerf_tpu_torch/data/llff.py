@@ -11,20 +11,18 @@ Disk layout (the reference's `README.md:32-51`):
   scene/images_<f>/lama_images/ LaMa-inpainted RGB
   scene/sparse/0/*.bin          COLMAP model
 
-The machine with the card has neither cv2 nor PIL: PNG files are decoded by
-`eval.render.read_png` and JPEG files (`.jpg` / `.jpeg` in any letter case)
-by the native decoder of `data/jpeg.py`, both to cv2's pixels, and the
-three cv2 operations the JAX loader uses are computed here with the same
-results: `minify` (INTER_AREA: cv2's block means and fractional weights
-with its integer rounding), `dilate_mask` (5 x 5, 5 iterations) and
-`resize_nearest` (INTER_NEAREST, from `utils/resize.py`). `imread` is cv2's
-unchanged read (no EXIF orientation); `imread_rgb8` and `imread_gray8` are
-its colour and grayscale reads, which turn the image by its EXIF
-orientation. JPEG files are read with `cv2.imread`'s semantics (the
-decoder's `source="file"`): a truncated file decodes as libjpeg's fake EOI
-leaves it, a damaged one as libjpeg recovers it. Other formats (TIFF, BMP,
-WebP) go through cv2, imported when such a file is read, and name the file
-where it is absent.
+The machine with the card has neither cv2 nor PIL: every image is read
+by `data/imageio.py`, which picks the decoder by the file's content as cv2
+does (a PNG named `.jpg` reads as a PNG) and gives cv2's pixels (PNG, JPEG,
+BMP, PxM, WebP and TIFF without cv2); the three cv2 operations the JAX
+loader uses are computed here with the same results: `minify`
+(INTER_AREA: cv2's block means and fractional weights with its integer
+rounding), `dilate_mask` (5 x 5, 5 iterations) and `resize_nearest`
+(INTER_NEAREST, from `utils/resize.py`). `imread` is cv2's unchanged read,
+`imread_rgb8` and `imread_gray8` its colour and grayscale reads, each with
+`cv2.imread`'s semantics (a truncated JPEG decodes as libjpeg's fake EOI
+leaves it) and the orientation where cv2 applies it. Files are listed by
+suffix (`IMG_EXTS`), as JAX lists them.
 """
 from __future__ import annotations
 
@@ -34,8 +32,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from spinnerf_tpu_torch.data import jpeg
-from spinnerf_tpu_torch.eval.render import read_png, write_png
+from spinnerf_tpu_torch.data import imageio
+from spinnerf_tpu_torch.eval.render import write_png
 from spinnerf_tpu_torch.utils.resize import (area_resize_int,
                                               nearest_resize as resize_nearest)
 
@@ -75,46 +73,22 @@ def _list_images(d: Path):
                   and "cutout" not in p.name and "pseudo" not in p.name)
 
 
-def _kind(path: Path) -> str:
-    suffix = path.suffix.lower()
-    return {".png": "png", ".jpg": "jpeg", ".jpeg": "jpeg"}.get(suffix, "")
-
-
-def _cv2_read(path: Path, flag: str) -> np.ndarray:
-    """cv2.imread(path, IMREAD_<flag>) in RGB(A) order, for the formats the
-    port does not decode itself; raises naming the file where cv2 is
-    absent."""
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError(f"{path}: reading {path.suffix} files needs cv2, "
-                           f"which is not installed (PNG and JPEG files are "
-                           f"read without it)") from None
-    img = cv2.imread(str(path), getattr(cv2, f"IMREAD_{flag}"))
-    if img is None:
-        raise FileNotFoundError(path)
-    if img.ndim == 3:
-        img = cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA if img.shape[2] == 4
-                           else cv2.COLOR_BGR2RGB)
-    return img
+def _read(path, mode: str) -> np.ndarray:
+    path = Path(path)
+    return imageio.read(path.read_bytes(), mode=mode, source="file",
+                        name=path)
 
 
 def imread(path) -> np.ndarray:
     """An image file's pixels as `cv2.imread(path, IMREAD_UNCHANGED)` gives
-    them, in RGB(A) order and without EXIF orientation: PNG through
-    `read_png`, JPEG through `data/jpeg.py`, other formats through cv2."""
-    path = Path(path)
-    kind = _kind(path)
-    if kind == "png":
-        return read_png(path)
-    if kind == "jpeg":
-        return jpeg.decode(path.read_bytes(), name=path, source="file")
-    return _cv2_read(path, "UNCHANGED")
+    them, in RGB(A) order (without EXIF orientation; a TIFF turned by its
+    Orientation tag, as cv2 turns it)."""
+    return _read(path, "unchanged")
 
 
 def imread_float(path) -> np.ndarray:
     """Read an image as float32 RGB in [0, 1] (grayscale repeated, alpha
-    dropped; 16-bit images over 65535)."""
+    dropped; 16-bit images over 65535, others over 255)."""
     img = imread(path)
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=-1)
@@ -123,54 +97,17 @@ def imread_float(path) -> np.ndarray:
 
 
 def imread_rgb8(path) -> np.ndarray:
-    """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order):
-    gray repeated, alpha dropped, 16-bit to its high byte, turned by the
-    file's EXIF orientation."""
-    path = Path(path)
-    kind = _kind(path)
-    if kind == "png":
-        img, orientation = read_png(path, with_orientation=True)
-        return jpeg.orient(to_rgb8(img), orientation)
-    if kind == "jpeg":
-        data = path.read_bytes()
-        return jpeg.orient(jpeg.decode(data, name=path, mode="color",
-                                       source="file"),
-                           jpeg.exif_orientation(data))
-    return _cv2_read(path, "COLOR")
-
-
-def to_rgb8(img: np.ndarray) -> np.ndarray:
-    """`imread_rgb8`'s conversion of pixels as `imread` gives them."""
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=-1)
-    return img[..., :3]
+    """uint8 [H, W, 3] as cv2.imread's colour read gives it (in RGB order),
+    turned by the file's orientation."""
+    return _read(path, "color")
 
 
 def imread_gray8(path) -> np.ndarray:
     """uint8 [H, W] as cv2's grayscale read gives it, turned by the file's
-    EXIF orientation. PNG: gray as stored, colour by cvtColor's fixed-point
-    luma (R 4899, G 9617, B 1868, >> 14, rounded; exact on masks whose
-    channels are equal); cv2's PNG reader rounds some colour pixels 1
-    apart, which moves a mask's 0.5 threshold only at gray 127 / 128.
-    JPEG: libjpeg's grayscale output (the Y component of a YCbCr file,
-    OpenCV's luma of a CMYK one), which is not the luma of the colour
-    read."""
-    path = Path(path)
-    kind = _kind(path)
-    if kind == "png":
-        img, orientation = read_png(path, with_orientation=True)
-        rgb = to_rgb8(img)
-        r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-        gray = (r * 4899 + g * 9617 + b * 1868 + 8192) >> 14
-        return jpeg.orient(gray.astype(np.uint8), orientation)
-    if kind == "jpeg":
-        data = path.read_bytes()
-        return jpeg.orient(jpeg.decode(data, name=path, mode="gray",
-                                       source="file"),
-                           jpeg.exif_orientation(data))
-    return _cv2_read(path, "GRAYSCALE")
+    orientation: each format's own gray read (`data/imageio.py`), e.g.
+    libpng's truncated (9797 R + 19234 G + 3737 B) >> 15 for a colour PNG
+    and libjpeg's Y for a JPEG, which is not the luma of the colour read."""
+    return _read(path, "gray")
 
 
 def area_downsample(img: np.ndarray, factor: int) -> np.ndarray:

@@ -6,10 +6,10 @@ The reference's LaMa trainer can stream tar shards of images
 `InpaintingTrainWebDataset`). Here: plain `tarfile` shards, a
 shuffled-shard + shuffle-buffer iterator, and a writer that shards an image
 tree. Members are decoded without cv2, as JAX's `cv2.imdecode(...,
-IMREAD_COLOR)` decodes them: PNG by `eval/render.py::read_png`, JPEG by the
-native decoder of `data/jpeg.py` with `cv2.imdecode`'s semantics
-(`source="buffer"`: a member cut short is dropped, as cv2 gives None for
-it), each turned by its EXIF orientation.
+IMREAD_COLOR)` decodes them: by their content, not their name
+(`data/imageio.py`, `source="buffer"`), each turned by its orientation; a
+member cv2 gives None for (cut, damaged, not an image) is dropped and the
+stream goes on.
 """
 from __future__ import annotations
 
@@ -18,9 +18,7 @@ from pathlib import Path
 
 import numpy as np
 
-from spinnerf_tpu_torch.data import jpeg
-from spinnerf_tpu_torch.data.llff import to_rgb8
-from spinnerf_tpu_torch.eval.render import read_png
+from spinnerf_tpu_torch.data import imageio
 
 IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg")
 
@@ -55,17 +53,11 @@ def write_tar_shards(indir, out_dir, *, shard_size: int = 1000,
 
 def _decode(name: str, data: bytes):
     """[H, W, 3] float32 RGB in [0, 1] of one member's bytes, or None
-    exactly where `cv2.imdecode` gives None for a JPEG member."""
-    if name.lower().endswith(".png"):
-        img, orientation = read_png(data, with_orientation=True)
-        img = jpeg.orient(to_rgb8(img), orientation)
-    else:
-        try:
-            img = jpeg.orient(jpeg.decode(data, name=name, mode="color",
-                                          source="buffer"),
-                              jpeg.exif_orientation(data))
-        except ValueError:
-            return None
+    exactly where `cv2.imdecode(..., IMREAD_COLOR)` gives None."""
+    try:
+        img = imageio.read(data, mode="color", source="buffer", name=name)
+    except (FileNotFoundError, ValueError):
+        return None
     return img.astype(np.float32) / 255.0
 
 

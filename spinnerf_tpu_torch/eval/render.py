@@ -260,65 +260,204 @@ def _png_unfilter(data: np.ndarray, filters: np.ndarray, bpp: int):
     return out[1:, 1:].reshape(h, n).astype(np.uint8)
 
 
-def read_png(path, *, with_orientation: bool = False):
-    """Decode a PNG as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` does, with
-    the channels in RGB(A) order instead of BGR(A): [H, W] for grayscale,
-    [H, W, 3] for RGB and palette images, [H, W, 4] for RGBA and grayscale +
-    alpha (the gray value repeated); uint16 for 16-bit images, else uint8
-    (grayscale below 8 bits scaled to 0..255). Transparency chunks (tRNS)
-    are ignored, where cv2 adds an alpha channel. All five row filters;
-    interlaced files raise. `path` may also be the file's bytes.
+# Adam7's passes: first column, first row, column step, row step
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+
+
+def _png_chunks(data: bytes, name):
+    """IHDR's fields, PLTE, tRNS, the IDAT payload and the first eXIf body
+    of a PNG, refusing (ValueError) every stream cv2 gives None for: a cut
+    chunk or a missing IEND, a chunk type that is not four letters or has
+    its reserved bit set, an unknown critical chunk, a CRC mismatch in a
+    critical chunk (libpng only warns for IEND's and drops an ancillary
+    chunk whose CRC is wrong), IDAT chunks that are not consecutive."""
+    def bad(why):
+        return ValueError(f"{name}: damaged PNG ({why}; cv2 gives None)")
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, idat, plte, trns, hdr, exif = 8, [], None, None, None, None
+    idat_done = False
+    while True:
+        if pos + 12 > len(data):
+            raise bad(f"the data ends at byte {len(data)} before IEND")
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        if pos + 12 + length > len(data):
+            raise bad(f"chunk {tag!r} at byte {pos} is cut")
+        body = data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        pos += 12 + length
+        if not (tag.isalpha() and tag.isascii()) or tag[2:3].islower():
+            raise bad(f"invalid chunk type {tag!r}")
+        crc_ok = zlib.crc32(tag + body) & 0xFFFFFFFF == crc
+        critical = tag[:1].isupper()
+        if tag == b"IEND":
+            break
+        if not crc_ok:
+            if critical:
+                raise bad(f"{tag.decode()} CRC error")
+            continue
+        if tag == b"IDAT":
+            if idat_done:
+                raise bad("IDAT chunks are not consecutive")
+            idat.append(body)
+            continue
+        if idat:
+            idat_done = True
+        if tag == b"IHDR":
+            if length != 13:
+                raise bad("IHDR of the wrong size")
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body[:len(body) // 3 * 3],
+                                 np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = body
+        elif tag == b"eXIf":
+            if exif is None:
+                exif = body
+        elif critical:
+            raise bad(f"unknown critical chunk {tag.decode()}")
+    if hdr is None or not idat:
+        raise bad("no IHDR or no IDAT")
+    w, h, depth, color, comp, filt, interlace = hdr
+    if (color not in _PNG_DEPTHS or depth not in _PNG_DEPTHS[color]
+            or comp or filt or interlace > 1 or w == 0 or h == 0):
+        raise bad(f"invalid IHDR (color type {color}, bit depth {depth}, "
+                  f"interlace {interlace})")
+    if color == 3 and plte is None:
+        raise bad("a palette image without PLTE")
+    return hdr, plte, trns, b"".join(idat), exif
+
+
+def _png_samples(raw, w, h, depth, channels, name):
+    """[H, W, channels] samples (uint8, uint16 for 16 bits; depths below 8
+    unscaled) of one non-interlaced image or Adam7 pass, from the front of
+    `raw`; returns them and the bytes used."""
+    row_bytes = (w * channels * depth + 7) // 8
+    n = h * (row_bytes + 1)
+    if len(raw) < n:
+        raise ValueError(f"{name}: damaged PNG (the image data ends early; "
+                         f"cv2 gives None)")
+    rows = np.frombuffer(raw[:n], np.uint8).reshape(h, row_bytes + 1)
+    if rows[:, 0].max(initial=0) > 4:
+        raise ValueError(f"{name}: damaged PNG (invalid row filter; cv2 "
+                         f"gives None)")
+    rows = _png_unfilter(rows[:, 1:], rows[:, 0],
+                         max(1, channels * depth // 8))
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, channels), n
+    if depth == 8:
+        return rows.reshape(h, w, channels), n
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1)
+    return vals[:, :w].astype(np.uint8)[..., None], n
+
+
+def _png_gray(rgb: np.ndarray) -> np.ndarray:
+    """libpng's png_do_rgb_to_gray with cv2's weights (0.299, 0.587: red
+    9797, green 19234, blue 3737 in 15 bits): 8 bits truncated; 16 bits
+    rounded, then their high byte (png_set_strip_16)."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    y = r * 9797 + g * 19234 + b * 3737
+    if rgb.dtype == np.uint16:
+        return (((y + 16384) >> 15) >> 8).astype(np.uint8)
+    return (y >> 15).astype(np.uint8)
+
+
+def read_png(path, *, with_orientation: bool = False,
+             mode: str = "unchanged", name=None):
+    """Decode a PNG as cv2 5.0 does, with the channels in RGB(A) order
+    instead of BGR(A). `mode` "unchanged" is `cv2.IMREAD_UNCHANGED`: [H, W]
+    for grayscale (a tRNS chunk adds no alpha there), [H, W, 3] for RGB and
+    palette images, [H, W, 4] for RGBA, grayscale + alpha (the gray value
+    repeated), and RGB or palette images with a tRNS chunk (alpha 0 where
+    the colour is the tRNS one, the palette's alphas); uint16 for 16-bit
+    images, else uint8 (grayscale below 8 bits scaled to 0..255). "color"
+    is `IMREAD_COLOR` (uint8 RGB: 16 bits to their high byte, alpha
+    dropped) and "gray" `IMREAD_GRAYSCALE` (uint8: libpng's rgb_to_gray of
+    colour and palette images, `_png_gray`). Both interlace methods (Adam7:
+    seven passes, each with its own row filters) at every bit depth. A
+    stream cv2 gives None for raises ValueError (`_png_chunks`; and image
+    data that is short, or whose zlib stream is cut, damaged or fails its
+    Adler-32). `path` may also be the file's bytes, `name` what the errors
+    call it then.
 
     with_orientation: also return the EXIF orientation (1-8) of the first
     `eXIf` chunk (`data.jpeg.exif_orientation`; 1 without one), which cv2's
     colour and grayscale reads apply and its unchanged read does not."""
     data = path if isinstance(path, bytes) else Path(path).read_bytes()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, plte, hdr, exif = 8, [], None, None, None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"eXIf" and exif is None:
-            exif = body
-        elif tag == b"IEND":
-            break
+    if name is None:
+        name = "PNG data" if isinstance(path, bytes) else path
+    hdr, plte, trns, idat, exif = _png_chunks(data, name)
     w, h, depth, color, _, _, interlace = hdr
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
-    if color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
-        raise ValueError(f"{path}: unsupported PNG color type {color} / "
-                         f"bit depth {depth}")
+    try:
+        z = zlib.decompressobj()
+        raw = z.decompress(idat)
+    except zlib.error as e:
+        raise ValueError(f"{name}: damaged PNG (zlib: {e}; cv2 gives "
+                         f"None)") from None
+    if not z.eof:
+        raise ValueError(f"{name}: damaged PNG (the zlib stream is cut; "
+                         f"cv2 gives None)")
     channels = _PNG_CHANNELS[color]
-    row_bytes = (w * channels * depth + 7) // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    raw = raw[:h * (row_bytes + 1)].reshape(h, row_bytes + 1)
-    rows = _png_unfilter(raw[:, 1:], raw[:, 0],
-                         max(1, channels * depth // 8))
-    if depth == 16:
-        img = rows.view(">u2").astype(np.uint16).reshape(h, w, channels)
-    elif depth == 8:
-        img = rows.reshape(h, w, channels)
+    if not interlace:
+        img, _ = _png_samples(raw, w, h, depth, channels, name)
     else:
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
-        vals = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1)
-        img = vals[:, :w].astype(np.uint8)[..., None]
-        if color == 0:
-            img = img * np.uint8(255 // ((1 << depth) - 1))
+        img = np.zeros((h, w, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            sub, n = _png_samples(raw[pos:], pw, ph, depth, channels, name)
+            img[y0::dy, x0::dx] = sub
+            pos += n
+    alpha = None
     if color == 3:
-        img = plte[img[..., 0]]
+        idx = img[..., 0]
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte
+        if trns is not None:
+            table = np.full(256, 255, np.uint8)
+            table[:len(trns)] = np.frombuffer(trns[:256], np.uint8)
+            alpha = table[idx]
+        img = pal[idx]
+    elif color == 0:
+        img = img[..., 0]
+        if depth < 8:
+            img = img * np.uint8(255 // ((1 << depth) - 1))
     elif color == 4:
         img = np.concatenate([np.repeat(img[..., :1], 3, -1), img[..., 1:]],
                              axis=-1)
-    elif channels == 1:
-        img = img[..., 0]
+    elif color == 2 and trns is not None and len(trns) >= 6:
+        key = np.array(struct.unpack(">HHH", trns[:6]), np.int64)
+        if depth == 8:
+            key = key & 0xFF
+        top = 255 if depth == 8 else 65535
+        alpha = np.where((img.astype(np.int64) == key).all(-1), 0,
+                         top).astype(img.dtype)
+    if alpha is not None:
+        img = np.concatenate([img, alpha[..., None]], axis=-1)
+    if mode == "color":
+        if img.dtype == np.uint16:
+            img = (img >> 8).astype(np.uint8)
+        img = (np.repeat(img[..., None], 3, -1) if img.ndim == 2
+               else img[..., :3])
+    elif mode == "gray":
+        if img.ndim == 3 and color in (2, 3, 6):
+            img = _png_gray(img)
+        else:
+            img = img if img.ndim == 2 else img[..., 0]
+            if img.dtype == np.uint16:
+                img = (img >> 8).astype(np.uint8)
+    elif mode != "unchanged":
+        raise ValueError(f"mode must be unchanged, color or gray, got "
+                         f"{mode!r}")
     if with_orientation:
         return img, 1 if exif is None else exif_orientation(exif)
     return img

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from spinnerf_tpu_torch.config import Config
-from spinnerf_tpu_torch.data import llff
+from spinnerf_tpu_torch.data import imageio, llff
 from spinnerf_tpu_torch.eval import metrics
 from spinnerf_tpu_torch.eval.render import write_png
 from spinnerf_tpu_torch.models.lpips import load_lpips_labeled
@@ -115,14 +115,21 @@ def _inpaint_guidance(cfg, lama_in, *, checkpoint_path, refine, log,
     rgb_in = exp / "lama_rgb_in"
     (rgb_in / "label").mkdir(parents=True, exist_ok=True)
     for i, name in enumerate(names):
-        src = img_dir / name
-        if src.suffix.lower() == ".png":
-            shutil.copy(src, rgb_in / f"img{i:03d}.png")
-        else:
-            write_png(rgb_in / f"img{i:03d}.png", llff.imread(src))
+        stage_rgb(img_dir / name, rgb_in / f"img{i:03d}.png")
         write_png(rgb_in / "label" / f"img{i:03d}.png", llff.imread_gray8(
             img_dir / "label" / (Path(name).stem + ".png")))
     return depth_dir, inpaint(rgb_in, "rgb", "lama_images")
+
+
+def stage_rgb(src, dst):
+    """Stage a view for LaMa as `dst` (a .png path). JAX copies the file
+    and LaMa's cv2 reads it by its content, so a PNG is copied and any
+    other content written as the PNG of cv2's colour read of it (its
+    orientation applied), which LaMa then reads to the same pixels."""
+    if imageio.sniff(Path(src).read_bytes()) == "png":
+        shutil.copy(src, dst)
+    else:
+        write_png(dst, llff.imread_rgb8(src))
 
 
 def stage_fit(cfg: Config, *, n_iters=None, log=print, device=None):

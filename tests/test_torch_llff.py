@@ -143,10 +143,24 @@ def test_read_png_all_filters_and_color_types(tmp_path, case):
 
 
 def test_read_png_rejects_interlaced(tmp_path):
-    rows = np.zeros((4, 4), np.uint8)
-    _write_png_raw(tmp_path / "i.png", rows, 4, 4, 8, 0, 1, interlace=1)
-    with pytest.raises(ValueError, match="interlaced"):
-        read_png(tmp_path / "i.png")
+    """An interlaced PNG (Adam7) is no longer refused: it decodes to cv2's
+    pixels (its seven passes written by hand, filters 0-4 in turn)."""
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (9, 11, 3)).astype(np.uint8)
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+    body = b"".join(bytes([0]) + row.tobytes()
+                    for x0, y0, dx, dy in passes
+                    for row in img[y0::dy, x0::dx].reshape(
+                        img[y0::dy, x0::dx].shape[0], -1)
+                    if img[y0::dy, x0::dx].size)
+    data = (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 11, 9, 8, 2, 0, 0, 1)) + _chunk(b"IDAT", zlib.compress(
+            body)) + _chunk(b"IEND", b""))
+    (tmp_path / "i.png").write_bytes(data)
+    want = _cv2_rgb(cv2.imread(str(tmp_path / "i.png"), cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(want, img)
+    np.testing.assert_array_equal(read_png(tmp_path / "i.png"), want)
 
 
 def test_write_png_round_trips_16_bit_and_alpha(tmp_path):
@@ -163,14 +177,16 @@ def test_write_png_round_trips_16_bit_and_alpha(tmp_path):
 
 
 def test_imread_without_cv2_raises_for_jpeg(tmp_path, monkeypatch):
-    """PNG and JPEG never go through cv2: without it, a JPEG decodes to
+    """PNG, JPEG and BMP never go through cv2: without it, a JPEG decodes to
     cv2's pixels (`data/jpeg.py`) in the unchanged, colour and gray reads,
-    whatever the suffix's letter case; other formats still need cv2 and
-    name the file when it is absent."""
+    whatever the suffix's letter case, and so does a BMP
+    (`data/imageio.py`); the formats left to cv2 (here a GIF) still need it
+    and name the file when it is absent."""
     img = _image((6, 8, 3), np.uint8, 2)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
     cv2.imwrite(str(tmp_path / "a.png"), img)
     cv2.imwrite(str(tmp_path / "a.bmp"), img)
+    cv2.imwrite(str(tmp_path / "a.gif"), img)
     shutil.copy(tmp_path / "a.jpg", tmp_path / "b.JPEG")
     want = {"unchanged": _cv2_rgb(cv2.imread(str(tmp_path / "a.jpg"),
                                              cv2.IMREAD_UNCHANGED)),
@@ -184,8 +200,10 @@ def test_imread_without_cv2_raises_for_jpeg(tmp_path, monkeypatch):
                          ("color", tllff.imread_rgb8),
                          ("gray", tllff.imread_gray8)):
             np.testing.assert_array_equal(fn(tmp_path / name), want[read])
-    with pytest.raises(RuntimeError, match="a.bmp"):
-        tllff.imread(tmp_path / "a.bmp")
+    np.testing.assert_array_equal(tllff.imread(tmp_path / "a.bmp"),
+                                  _cv2_rgb(img))
+    with pytest.raises(RuntimeError, match="a.gif"):
+        tllff.imread(tmp_path / "a.gif")
 
 
 @pytest.mark.parametrize("factor", [2, 3, 4, 8])
