@@ -11,7 +11,8 @@
 Phases, each fatal on failure (no phase's error is caught):
   1. a card must be present; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc, one process per source,
-     started together (timed); ptxas's registers and spills of both
+     started together, and beside them the native host libraries of
+     native/ with g++ (timed); ptxas's registers and spills of both
      fm_fwd_kernel instantiations, of hf_fwd_kernel (#1) and of
      kc_wgmma_kernel (#11) and of the four ft_fwd_kernel instantiations
      (the generic forward on the tensor cores) (none may spill), and of
@@ -312,15 +313,22 @@ Phases, each fatal on failure (no phase's error is caught):
      class and on the valid views; (e) a tar shard of damaged and
      4-component members through `iter_shard_images`: JAX's count and
      SHA-256s, in JAX's order; (f) image files read by their content
-     (`formats_phase`, C7-C9, F2): with cv2 still unimportable, every
+     (`formats_phase`, C7-C9, F1, F2): with cv2 still unimportable, every
      fixture of tests/data/images in each read and source to the shape,
-     dtype and SHA-256 of cv2's (`expected.json`; refused ones raise, the
-     formats left to cv2 raise naming it), (b)'s PNG twin rewritten with its
-     views as a PNG named .jpg, a lossless WebP, an LZW TIFF, a Deflate
-     TIFF with predictor 2 and a 24-bit BMP named .png in turn, whose
-     `load_scene` at factor 2 equals the twin's bit for bit, then
+     dtype and SHA-256 of cv2's (`expected.json`; refused ones raise, AVIF,
+     the one format left to cv2, raises naming it), (b)'s PNG twin
+     rewritten with its views as a PNG named .jpg, a lossless WebP, an LZW
+     TIFF, a Deflate TIFF with predictor 2, a 24-bit BMP named .png, a PAM
+     named .png, a 24-bit Sun raster named .jpg, a lossless (SOF3) JPEG
+     and an arithmetic-coded progressive JPEG named .png in turn (the last
+     beside its Huffman twin from the same coefficients, which must decode
+     to the same pixels; the twin scene holds those pixels as a PNG),
+     whose `load_scene` at factor 2 equals the twin's bit for bit, then
      `Config(prepare=True)` for 50 steps on it (#1 / #2 launched, the PSNR
-     rising), and each decoder's ms per megapixel.
+     rising); a tar of one member of each new format (PAM, HDR, GIF, Sun
+     raster, PFM, arithmetic and lossless JPEG) through
+     `iter_shard_images` to the SHA-256s recorded from JAX's stream; and
+     each decoder's ms per megapixel.
 """
 from __future__ import annotations
 
@@ -5600,10 +5608,12 @@ def jpeg_phase(exp_root, x=None):
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 FORMATS_STEPS = 50
-# phase 21 (f)'s scene: view k written as MIXED_FORMATS[k % 5] (writer,
-# suffix); WebP and TIFF views take a suffix JAX lists (IMG_EXTS)
+# phase 21 (f)'s scene: view k written as MIXED_FORMATS[k % 9] (writer,
+# suffix); every view takes a suffix JAX lists (IMG_EXTS)
 MIXED_FORMATS = (("png", ".jpg"), ("webp", ".png"), ("tiff_lzw", ".png"),
-                 ("tiff_deflate_pred2", ".jpg"), ("bmp24", ".png"))
+                 ("tiff_deflate_pred2", ".jpg"), ("bmp24", ".png"),
+                 ("pam", ".png"), ("sunras24", ".jpg"),
+                 ("jpeg_lossless", ".jpg"), ("jpeg_arith", ".png"))
 
 
 def _image_writers():
@@ -5629,10 +5639,15 @@ def formats_phase(exp_root, png_dir):
     naming it). `png_dir` ((b)'s PNG twin, 12 views at 504 x 672) is
     rewritten view by view in MIXED_FORMATS by `image_writers` (no cv2 or
     PIL): `load_scene(factor=2)` of it must equal the twin's image stack
-    bit for bit, and `Config(prepare=True)` trains FORMATS_STEPS steps on it
-    with #1 and #2 launched and the PSNR rising. Each decoder's ms per
-    megapixel (colour read from memory, best of JPEG_TIMING_REPS) on the
-    scene's views and the 504 x 672 WebP fixtures. Returns a summary."""
+    bit for bit (the arithmetic-coded view's twin is the PNG of what its
+    Huffman twin decodes to, which it must equal), and
+    `Config(prepare=True)` trains FORMATS_STEPS steps on it with #1 and #2
+    launched and the PSNR rising. A tar of expected.json's "shard_more"
+    members streams through `iter_shard_images` to the SHA-256s recorded
+    from JAX's stream. Each decoder's ms per megapixel (colour read from
+    memory, best of JPEG_TIMING_REPS) on the scene's views, the 504 x 672
+    WebP fixtures and HDR, PFM and GIF files of view 0. Returns a
+    summary."""
     import hashlib
 
     import numpy as np
@@ -5645,8 +5660,8 @@ def formats_phase(exp_root, png_dir):
     t0 = time.perf_counter()
     out = {}
     iw = _image_writers()
-    files = json.loads((IMAGE_FIXTURES / "expected.json").read_text())[
-        "files"]
+    expected = json.loads((IMAGE_FIXTURES / "expected.json").read_text())
+    files = expected["files"]
     counts = {"equal": 0, "none": 0, "refused": 0, "cv2": 0}
     for name, entry in files.items():
         data = (IMAGE_FIXTURES / name).read_bytes()
@@ -5682,6 +5697,25 @@ def formats_phase(exp_root, png_dir):
     shutil.rmtree(mixed, ignore_errors=True)
     (mixed / "images").mkdir(parents=True)
     shutil.copy(png_dir / "poses_bounds.npy", mixed / "poses_bounds.npy")
+    twin = exp_root / "formats_twin"
+    shutil.rmtree(twin, ignore_errors=True)
+    shutil.copytree(png_dir, twin, ignore=shutil.ignore_patterns(
+        "images_*"))
+    arith = {}
+
+    def jpeg_arith(v, p):
+        c = iw.jpeg_coefficients(v, quality=90, sampling=[(2, 2), (1, 1),
+                                                          (1, 1)])
+        data = iw.jpeg(c, coding="arith", progressive=True)
+        huff = imageio.read(iw.jpeg(c), mode="color", name="huffman twin")
+        if not np.array_equal(imageio.read(data, mode="color", name=p.name),
+                              huff):
+            raise AssertionError("the arithmetic-coded view does not decode "
+                                 "to its Huffman twin's pixels")
+        (twin / "images" / p.name).write_bytes(iw.png(huff, 2, 8))
+        arith["huffman_twin"] = iw.jpeg(c)
+        return data
+
     writers = {
         "png": lambda v, p: p.read_bytes(),
         "webp": lambda v, p: iw.webp_lossless(v, transforms=(
@@ -5690,7 +5724,11 @@ def formats_phase(exp_root, png_dir):
                                          rows_per_strip=64),
         "tiff_deflate_pred2": lambda v, p: iw.tiff(v, compression=8,
                                                    predictor=2),
-        "bmp24": lambda v, p: iw.bmp(v[..., ::-1], 24)}
+        "bmp24": lambda v, p: iw.bmp(v[..., ::-1], 24),
+        "pam": lambda v, p: iw.pam(v[..., ::-1]),   # samples read as BGR
+        "sunras24": lambda v, p: iw.sunras(v[..., ::-1], 24),
+        "jpeg_lossless": lambda v, p: iw.jpeg_lossless(v, predictor=4),
+        "jpeg_arith": jpeg_arith}
     blobs = {k: [] for k in writers}
     views = sorted((png_dir / "images").glob("*.png"))
     for k, p in enumerate(views):
@@ -5702,12 +5740,31 @@ def formats_phase(exp_root, png_dir):
     t1 = time.perf_counter()
     got = llff.load_scene(mixed, factor=2, prepare=True)
     out["load_scene_s"] = time.perf_counter() - t1
-    want = llff.load_scene(png_dir, factor=2, prepare=True)
+    want = llff.load_scene(twin, factor=2, prepare=True)
     if not (got.images.shape == want.images.shape
             and np.array_equal(got.images, want.images)):
         raise AssertionError("the mixed-format scene does not load bit-equal "
                              "to its PNG twin")
     del got, want
+    shutil.rmtree(twin, ignore_errors=True)
+
+    # a shard of the new formats against JAX's stream
+    import tarfile
+
+    from spinnerf_tpu_torch.data import shards
+    rec = expected["shard_more"]
+    tar = exp_root / "formats_more.tar"
+    with tarfile.open(tar, "w") as tf:
+        for name, member in rec["members"]:
+            tf.add(IMAGE_FIXTURES / name, arcname=member)
+    streamed = [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+                for x in shards.iter_shard_images(
+                    [tar], rng=np.random.RandomState(5), shuffle_buffer=4,
+                    loop=False)]
+    if streamed != rec["sha256"]:
+        raise AssertionError(f"the new-format shard streams {streamed}, JAX "
+                             f"streamed {rec['sha256']}")
+    out["shard_images"] = len(streamed)
     cfg = Config(expname="formats_scene", basedir=str(exp_root),
                  datadir=str(mixed), dataset_type="llff", factor=2,
                  prepare=True, no_ndc=True, no_reload=True,
@@ -5732,6 +5789,16 @@ def formats_phase(exp_root, png_dir):
                            .read_bytes()]
     blobs["webp_lossless_libwebp"] = [
         (IMAGE_FIXTURES / "webp_lossless_504x672.webp").read_bytes()]
+    blobs["jpeg_huffman_twin"] = [arith["huffman_twin"]]
+    blobs["hdr_rle"] = [iw.hdr(view.astype(np.float32) / 255)]
+    blobs["pfm"] = [iw.pfm(view.astype(np.float32), scale=-1.0)]
+    q = ((view[..., 0] >> 5) << 5) | ((view[..., 1] >> 5) << 2) | (
+        view[..., 2] >> 6)
+    v8 = np.arange(256)
+    blobs["gif"] = [iw.gif([dict(indices=q)], view.shape[1], view.shape[0],
+                           palette=np.stack([(v8 >> 5) << 5,
+                                             ((v8 >> 2) & 7) << 5,
+                                             (v8 & 3) << 6], -1))]
     ms = {}
     for kind, datas in blobs.items():
         best, mp = math.inf, 0.0
@@ -5747,7 +5814,8 @@ def formats_phase(exp_root, png_dir):
     log(json.dumps({"image_formats": out}))
     log(f"[formats] (f) {counts['equal']} fixture reads equal to cv2's, "
         f"{counts['none'] + counts['refused']} refused, {counts['cv2']} left "
-        f"to cv2; the mixed-format scene equals its PNG twin; "
+        f"to cv2; the mixed-format scene equals its PNG twin; the new-format "
+        f"shard streams JAX's {out['shard_images']} images; "
         f"{FORMATS_STEPS} steps PSNR {psnr_1:.3f} -> {psnr_end:.3f} dB, "
         f"#1 / #2 launched {out['launches']}; ms/MP " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms.items())
@@ -5903,11 +5971,32 @@ def main(argv):
     smi = smi.splitlines()[0]
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: the kernels (one nvcc a source), and beside them the native
+    # host libraries (one g++ each: the image decoders, the JPEG decoder,
+    # the COLMAP reader), which phases 17 and 21 load
+    import threading
+
+    from spinnerf_tpu_torch.native import build as native_build
     t0 = time.perf_counter()
+    native_errors = {}
+
+    def build_native(name):
+        try:
+            native_build.build(name)
+        except RuntimeError as e:
+            native_errors[name] = e
+
+    gxx = [threading.Thread(target=build_native, args=(name,))
+           for name in ("image_native", "jpeg_native", "colmap_native")]
+    for t in gxx:
+        t.start()
     build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe",
                                    "hash_encode_idx", "kbench_cal",
                                    "fused_mlp_gen"])
+    for t in gxx:
+        t.join()
+    if native_errors:
+        raise AssertionError(f"g++ failed: {native_errors}")
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in build_logs.items():
         log(f"[build] csrc/{name}.cu:\n{text.strip()}")

@@ -5,10 +5,13 @@ ask each decoder in turn whether the first bytes are its signature
 (imgcodecs/src/loadsave.cpp, findDecoder). `sniff` does the same, and
 `read` runs the port's decoder of that format:
 
-  JPEG                    `data/jpeg.py` (native/jpeg_native.cpp)
+  JPEG                    `data/jpeg.py` (native/jpeg_native.cpp: Huffman
+                          and arithmetic coding, lossless)
   PNG                     `eval/render.py::read_png`
   BMP, PBM / PGM / PPM,   native/image_native.cpp (g++ at first use, like
-  WebP                    the JPEG decoder)
+  PAM, PFM, Sun raster,   the JPEG decoder)
+  Radiance HDR, GIF,
+  WebP
   TIFF                    `_read_tiff` here; LZW and PackBits in
                           native/image_native.cpp, Deflate through zlib
 
@@ -17,16 +20,19 @@ or grayscale read (`IMREAD_UNCHANGED`, `IMREAD_COLOR`, `IMREAD_GRAYSCALE`)
 with the channels in RGB(A) order. The orientation is applied where cv2
 applies it: the EXIF orientation of a JPEG (APP1), PNG (eXIf) or WebP
 (EXIF chunk) in the colour and gray reads; a TIFF's Orientation tag in all
-three; none for BMP and PxM. Each format's gray read is cv2's own: libjpeg's
-Y, libpng's rgb_to_gray (`read_png`), cvtColor's 15-bit luma of a WebP's
-colour read, and OpenCV's 14-bit `icvCvt_BGR2Gray` for BMP, PxM and TIFF.
+three; none for the other formats. Each format's gray read is cv2's own:
+libjpeg's Y, libpng's rgb_to_gray (`read_png`), cvtColor's 15-bit luma of
+the colour read of a WebP, HDR or GIF, OpenCV's 14-bit `icvCvt_BGR2Gray`
+for BMP, PxM, PAM, Sun raster and TIFF, and PFM's saturated samples. HDR
+and PFM read float32 unchanged, as cv2 does.
 
 Content that no cv2 decoder recognises raises FileNotFoundError (JAX's
 `imread_float` raises it where cv2 gives None); a damaged stream or a part
 of a format the port refuses raises ValueError naming the file and the
-reason. GIF, Radiance HDR, AVIF, JPEG 2000, Sun raster, PFM and PAM are
-recognised but not decoded here (ROADMAP F2): they go through cv2, and
-raise RuntimeError naming cv2 where it is absent.
+reason; where cv2 gives pixels it never wrote (PAM conversions that fill a
+part of each row) the port refuses too. AVIF and JPEG 2000 are recognised
+but not decoded here (ROADMAP F2): they go through cv2, and raise
+RuntimeError naming cv2 where it is absent; no other read reaches cv2.
 """
 from __future__ import annotations
 
@@ -106,27 +112,35 @@ def read(data: bytes, *, mode: str = "unchanged", source: str = "buffer",
         img, orientation = read_png(data, with_orientation=True, mode=mode,
                                     name=name)
         return img if mode == "unchanged" else jpeg.orient(img, orientation)
-    if kind == "bmp":
-        return _read_bmp(data, mode, name)
-    if kind == "pxm":
-        return _read_pxm(data, mode, name)
+    if kind in ("bmp", "sunras"):
+        return _read_bgr(data, mode, name, kind)
+    if kind in ("pxm", "pam"):
+        return _read_pxm(data, mode, name, kind)
     if kind == "webp":
         return _read_webp(data, mode, name)
     if kind == "tiff":
         return _read_tiff(data, mode, name, source)
+    if kind == "pfm":
+        return _read_pfm(data, mode, name, source)
+    if kind == "hdr":
+        return _read_hdr(data, mode, name)
+    if kind == "gif":
+        return _read_gif(data, mode, name)
     return _cv2_read(data, mode, name, kind)
 
 
 def _cv2_read(data: bytes, mode: str, name, kind: str) -> np.ndarray:
-    """cv2.imdecode's read of a format the port does not decode (ROADMAP
-    F2), in RGB(A) order; RuntimeError naming cv2 where it is absent."""
+    """cv2.imdecode's read of AVIF or JPEG 2000, which the port does not
+    decode yet (ROADMAP F2), in RGB(A) order; RuntimeError naming cv2
+    where it is absent."""
     try:
         import cv2
     except ImportError:
         raise RuntimeError(
             f"{name}: {kind} images are read through cv2, which is not "
             f"installed (ROADMAP F2: the port decodes JPEG, PNG, BMP, PxM, "
-            f"WebP and TIFF without it)") from None
+            f"PAM, PFM, Sun raster, Radiance HDR, GIF, WebP and TIFF "
+            f"without it; AVIF and JPEG 2000 not yet)") from None
     flag = {"unchanged": cv2.IMREAD_UNCHANGED, "color": cv2.IMREAD_COLOR,
             "gray": cv2.IMREAD_GRAYSCALE}[mode]
     img = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
@@ -156,6 +170,17 @@ def _lib() -> ctypes.CDLL:
                      ("im_webp_info", [buf, i64, vp, vp, i64]),
                      ("im_webp_decode", [buf, i64, i32, vp, i64, vp, i64]),
                      ("im_lzw_decode", [buf, i64, vp, i64, vp, vp, i64]),
+                     ("im_pam_info", [buf, i64, vp, vp, i64]),
+                     ("im_pam_decode", [buf, i64, i32, i32, vp, i64, vp,
+                                        i64]),
+                     ("im_pfm_info", [buf, i64, vp, vp, i64]),
+                     ("im_pfm_decode", [buf, i64, vp, i64, vp, i64]),
+                     ("im_sunras_info", [buf, i64, vp, vp, i64]),
+                     ("im_sunras_decode", [buf, i64, i32, vp, i64, vp, i64]),
+                     ("im_hdr_info", [buf, i64, vp, vp, i64]),
+                     ("im_hdr_decode", [buf, i64, vp, i64, vp, i64]),
+                     ("im_gif_info", [buf, i64, vp, vp, i64]),
+                     ("im_gif_decode", [buf, i64, i32, vp, i64, vp, i64]),
                      ("im_packbits_decode", [buf, i64, vp, i64, vp, vp,
                                              i64])):
         getattr(lib, fn).restype = ctypes.c_int
@@ -172,6 +197,12 @@ def _call(name, fn, *args):
 def _info(name, fn, data, n):
     info = np.zeros(n, np.int32)
     _call(name, fn, data, len(data), info.ctypes.data)
+    h, w = int(info[0]), int(info[1])
+    # cv2's validateInputImageSize (CV_IO_MAX_IMAGE_WIDTH / HEIGHT /
+    # PIXELS), which it raises on
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20 and w * h <= 1 << 30):
+        raise ValueError(f"{name}: image size {w} x {h} is past what cv2 "
+                         f"reads")
     return [int(v) for v in info]
 
 
@@ -183,25 +214,32 @@ def _empty(h, w, channels, dtype=np.uint8):
     return np.empty((h, w, channels) if channels > 1 else (h, w), dtype)
 
 
-def _read_bmp(data, mode, name):
+def _read_bgr(data, mode, name, kind):
+    """BMP, or a Sun raster (RT_OLD / RT_STANDARD, as grfmt_sunras.cpp
+    reads them): 8-bit BGR(A) or gray as cv2 gives it."""
     lib = _lib()
-    h, w, native = _info(name, lib.im_bmp_info, data, 3)
+    h, w, native = _info(name, getattr(lib, f"im_{kind}_info"), data, 3)
     channels = _channels(mode, native)
     out = _empty(h, w, channels)
-    _call(name, lib.im_bmp_decode, data, len(data), channels,
+    _call(name, getattr(lib, f"im_{kind}_decode"), data, len(data), channels,
           out.ctypes.data, out.size)
     return _bgr_to_rgb(out)
 
 
-def _read_pxm(data, mode, name):
+def _read_pxm(data, mode, name, kind):
+    """PBM / PGM / PPM, or PAM (P7) as grfmt_pam.cpp reads it: samples as
+    stored (not scaled by MAXVAL; 16 bits above 255), the file's channels
+    taken as BGR(A); its gray read of RGB is the 14-bit luma of the file
+    read as RGB."""
     lib = _lib()
-    h, w, native, depth = _info(name, lib.im_pxm_info, data, 4)
+    h, w, native, depth = _info(name, getattr(lib, f"im_{kind}_info"), data,
+                                4)
     channels = _channels(mode, native)
     if mode != "unchanged":
         depth = 1
     out = _empty(h, w, channels, np.uint16 if depth == 2 else np.uint8)
-    _call(name, lib.im_pxm_decode, data, len(data), channels, depth,
-          out.ctypes.data, out.nbytes)
+    _call(name, getattr(lib, f"im_{kind}_decode"), data, len(data), channels,
+          depth, out.ctypes.data, out.nbytes)
     return _bgr_to_rgb(out)
 
 
@@ -233,13 +271,73 @@ def _read_webp(data, mode, name):
           out.ctypes.data, out.size)
     if mode == "unchanged":
         return _bgr_to_rgb(out)
-    if mode == "color":
-        img = _bgr_to_rgb(out[..., :3])
-    else:
-        b, g, r = (out[..., i].astype(np.int64) for i in range(3))
-        img = ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(
-            np.uint8)
-    return jpeg.orient(img, _webp_orientation(data))
+    img = _bgr_to_rgb(out[..., :3])
+    return jpeg.orient(img if mode == "color" else _l15(img),
+                       _webp_orientation(data))
+
+
+def _l15(rgb: np.ndarray) -> np.ndarray:
+    """cvtColor's COLOR_BGR2GRAY on 8 bits: 15-bit weights, rounded."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + 16384) >> 15).astype(np.uint8)
+
+
+def _saturate_u8(v: np.ndarray) -> np.ndarray:
+    """saturate_cast<uchar> of float32 as OpenCV's convertTo computes it:
+    rounded half to even, where the 32-bit conversion overflows (NaN,
+    +-inf, |v| >= 2^31) 0, then clipped to [0, 255]."""
+    inside = np.abs(v) < 2.0 ** 31
+    r = np.clip(np.rint(np.where(inside, v, 0)), 0, 255)
+    return np.where(inside, r, 0).astype(np.uint8)
+
+
+def _read_pfm(data, mode, name, source):
+    """PFM as grfmt_pfm.cpp reads it: float32 divided by |scale|, RGB; the
+    colour and gray reads are convertTo's saturate of the floats (no
+    x255), with the file's channel count: `cv2.imread` gives None where it
+    differs from the read's, `cv2.imdecode` keeps it."""
+    lib = _lib()
+    h, w, c = _info(name, lib.im_pfm_info, data, 3)
+    img = np.empty((h, w, 3) if c == 3 else (h, w), np.float32)
+    _call(name, lib.im_pfm_decode, data, len(data), img.ctypes.data,
+          img.size)
+    if mode == "unchanged":
+        return img
+    if (3 if mode == "color" else 1) != c and source == "file":
+        raise ValueError(f"{name}: cv2.imread gives None for the {mode} read "
+                         f"of a {c}-channel PFM (cv2.imdecode reads it with "
+                         f"{c} channels)")
+    return _saturate_u8(img)
+
+
+def _read_hdr(data, mode, name):
+    """Radiance HDR as grfmt_hdr.cpp reads it: float32 RGB; the colour read
+    is the floats x255 saturated, the gray read cvtColor's luma of it."""
+    lib = _lib()
+    h, w = _info(name, lib.im_hdr_info, data, 2)
+    img = np.empty((h, w, 3), np.float32)
+    _call(name, lib.im_hdr_decode, data, len(data), img.ctypes.data,
+          img.size)
+    if mode == "unchanged":
+        return img
+    with np.errstate(over="ignore"):
+        rgb = _saturate_u8(img * np.float32(255))
+    return rgb if mode == "color" else _l15(rgb)
+
+
+def _read_gif(data, mode, name):
+    """GIF as OpenCV 5's grfmt_gif.cpp reads it: the first frame on the
+    logical screen, RGBA where any frame has a transparent index; the
+    colour read drops alpha, the gray read is cvtColor's luma."""
+    lib = _lib()
+    h, w, native = _info(name, lib.im_gif_info, data, 3)
+    out = _empty(h, w, native)
+    _call(name, lib.im_gif_decode, data, len(data), native, out.ctypes.data,
+          out.size)
+    if mode == "unchanged":
+        return _bgr_to_rgb(out)
+    rgb = _bgr_to_rgb(out[..., :3])
+    return rgb if mode == "color" else _l15(rgb)
 
 
 # ----------------------------------------------------------------- TIFF --

@@ -20,10 +20,12 @@ APP1 `Exif` segment or from a PNG's `eXIf` chunk, and `orient` applies it as
 cv2's `ExifTransform` does; cv2's colour and grayscale reads do both, its
 unchanged read neither.
 
-The decoder refuses, with a ValueError naming the file and the marker where
-there is one: arithmetic coding, lossless and hierarchical frames,
-precision other than 8 bits, 2 components, frames without a scan, and
-every stream that libjpeg refuses.
+Huffman and arithmetic coding (SOF0-SOF2, SOF9, SOF10) and lossless frames
+(SOF3, 2-8 bits; gray, RGB and CMYK, no colour converted) are decoded. The
+decoder refuses, with a ValueError naming the file and the marker where
+there is one, what cv2 5.0 gives None for: lossless arithmetic (SOF11),
+hierarchical frames, 12-bit and 9-16-bit lossless precision, 2 components,
+frames without a scan, and every stream that libjpeg refuses.
 """
 from __future__ import annotations
 

@@ -21,6 +21,11 @@
 //    transforms) and the ALPH chunk (raw or VP8L-coded, its three filters);
 //    of an animation, the first frame on a cleared canvas, as cv2 5.0
 //    reads it.
+//  - PAM (P7), PFM, Sun raster, Radiance HDR and GIF as OpenCV 5.0's
+//    grfmt_pam.cpp, grfmt_pfm.cpp, grfmt_sunras.cpp, grfmt_hdr.cpp /
+//    rgbe.cpp and grfmt_gif.cpp read them (each section below says how);
+//    PFM and HDR give float32, which `data/imageio.py` saturates for the
+//    colour and gray reads as convertTo does.
 //
 // Interface (Python binds it with ctypes, spinnerf_tpu_torch/data/imageio.py).
 // Every function returns 0, or -1 with a message in `err`:
@@ -39,12 +44,25 @@
 //   im_lzw_decode(buf, len, out, outlen, written[1], err, errlen)
 //   im_packbits_decode(buf, len, out, outlen, written[1], err, errlen)
 //                                                  at most outlen bytes
+//   im_pam_info(buf, len, info[4], ...)            height, width, channels,
+//                                                  bytes a sample
+//   im_pam_decode(buf, len, channels, depth, out, outlen, err, errlen)
+//   im_pfm_info / im_hdr_info(buf, len, info, ...) height, width (PFM:
+//                                                  and channels)
+//   im_pfm_decode / im_hdr_decode(buf, len, out, outlen, err, errlen)
+//                                                  float32 RGB / gray
+//   im_sunras_info / im_gif_info(buf, len, info[3], ...)
+//                                                  height, width, channels
+//   im_sunras_decode / im_gif_decode(buf, len, channels, out, outlen, err,
+//                                    errlen)       BGR(A) / gray as cv2
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <stdexcept>
 #include <string>
 #include <vector>
 
@@ -2598,6 +2616,659 @@ void webp_decode(const uint8_t* d, int64_t n, int channels, uint8_t* out, int64_
     }
 }
 
+// RMByteStream of bitstrm.cpp: big-endian words
+inline int be32(Stream& s) {
+  uint32_t v = 0;
+  for (int i = 0; i < 4; i++) v = (v << 8) | static_cast<uint32_t>(s.byte());
+  return static_cast<int>(v);
+}
+
+inline bool c_space(int c) {
+  return c == ' ' || c == '\t' || c == '\n' || c == '\v' || c == '\f' || c == '\r';
+}
+
+// ------------------------------------------------------------------ PAM --
+// grfmt_pam.cpp: P7 with WIDTH / HEIGHT / DEPTH / MAXVAL / TUPLTYPE lines;
+// samples are not scaled by MAXVAL (above 255: 16 bits, big-endian);
+// MAXVAL 1 is its "bit mode", which reads each row's bytes as packed bits.
+
+enum { PAM_NULL, PAM_BW, PAM_GRAY, PAM_GA, PAM_RGB, PAM_RGBA };
+
+struct Pam {
+  int width = 0, height = 0, channels = 0, maxval = 0, fmt = PAM_NULL;
+  int64_t offset = 0;
+  int bytes() const { return maxval > 255 ? 2 : 1; }
+};
+
+Pam pam_header(Stream& s) {
+  Pam h;
+  if (s.byte() != 'P' || s.byte() != '7') fail("not a PAM file");
+  int c = s.byte();
+  if (c != '\n' && c != '\r') fail("PAM: no line break after P7");
+  bool got[4] = {false, false, false, false};
+  for (;;) {
+    do c = s.byte(); while (c_space(c));
+    if (c == '#') {
+      do c = s.byte(); while (c != '\n' && c != '\r');
+      continue;
+    }
+    std::string id;
+    while (!c_space(c) && id.size() < 8) {
+      id += static_cast<char>(c);
+      c = s.byte();
+    }
+    if (!c_space(c)) fail("PAM: header field " + id + "... too long");
+    if (id == "ENDHDR") {
+      if (c != '\n' && c != '\r') fail("PAM: no line break after ENDHDR");
+      break;
+    }
+    static const char* kFields[5] = {"HEIGHT", "WIDTH", "DEPTH", "MAXVAL", "TUPLTYPE"};
+    int f = -1;
+    for (int i = 0; i < 5; i++)
+      if (id == kFields[i]) f = i;
+    if (f < 0) fail("PAM: unknown header field " + id);
+    do c = s.byte(); while (c == ' ' || c == '\t');
+    std::string value;
+    while (c != '\n' && c != '\r' && value.size() < 255) {
+      value += static_cast<char>(c);
+      c = s.byte();
+    }
+    while (!value.empty() && c_space(value.back())) value.pop_back();
+    if (f == 4) {
+      static const char* kTypes[6] = {"", "BLACKANDWHITE", "GRAYSCALE", "GRAYSCALE_ALPHA", "RGB",
+                                      "RGB_ALPHA"};
+      int t = -1;
+      for (int i = 1; i < 6; i++)
+        if (value == kTypes[i]) t = i;
+      if (t < 0) fail("PAM: unknown TUPLTYPE " + value);
+      h.fmt = t;
+      continue;
+    }
+    if (got[f]) fail("PAM: header field " + id + " given twice");
+    got[f] = true;
+    char* end = nullptr;
+    long v = strtol(value.c_str(), &end, 10);
+    if (end == value.c_str() || *end) fail("PAM: " + id + " is not a number");
+    if (f == 0) h.height = static_cast<int>(v);
+    if (f == 1) h.width = static_cast<int>(v);
+    if (f == 2) h.channels = static_cast<int>(v);
+    if (f == 3) {
+      if (v > 65535) fail("PAM: MAXVAL above 65535");
+      h.maxval = static_cast<int>(v);
+    }
+  }
+  if (!(got[0] && got[1] && got[2] && got[3])) fail("PAM: header field missing");
+  static const int kNeed[6] = {0, 1, 1, 2, 3, 4};
+  if (h.fmt != PAM_NULL && h.channels != kNeed[h.fmt])
+    fail("PAM: TUPLTYPE does not match DEPTH " + std::to_string(h.channels));
+  if (h.fmt == PAM_NULL) {
+    if (h.channels == 1 && h.maxval == 1)
+      h.fmt = PAM_BW;
+    else if (h.channels == 1 && h.maxval < 256)
+      h.fmt = PAM_GRAY;
+    else if (h.channels == 3 && h.maxval < 256)
+      h.fmt = PAM_RGB;
+    else
+      fail("PAM: no TUPLTYPE, and DEPTH / MAXVAL name no format cv2 guesses");
+  }
+  if (h.channels < 1 || h.channels > 4) fail("PAM: DEPTH out of range");
+  if (h.width <= 0 || h.height <= 0) fail("PAM: bad size");
+  h.offset = s.pos;
+  return h;
+}
+
+// PAMDecoder::readData for `channels` (the file's own for the unchanged read,
+// 3 or 1) and `depth` bytes a sample (the file's for the unchanged read, else
+// 1); cv2's reads that it leaves partly unwritten are refused
+void pam_decode(const uint8_t* buf, int64_t len, int t, int depth, uint8_t* out,
+                int64_t outlen) {
+  Stream s(buf, len);
+  Pam h = pam_header(s);
+  const int W = h.width, H = h.height, C = h.channels, sd = h.bytes();
+  if (outlen != static_cast<int64_t>(W) * H * t * depth) fail("output buffer of the wrong size");
+  const int64_t row = static_cast<int64_t>(W) * C * sd;
+  std::vector<uint8_t> src(static_cast<size_t>(row) * 2 + 8);
+  const bool bit = h.maxval == 1;
+  if (bit && t != 1 && t != 3) fail("PAM: cv2 gives None for this read of a MAXVAL 1 file");
+  if (!bit && t != C && t == 3 && (W + C - 1) / C < W)
+    fail("PAM: cv2 leaves part of the colour read of a " + std::to_string(C) +
+         "-channel file unwritten (its conversion fills one pixel in " + std::to_string(C) + ")");
+  if (!bit && t == 1 && C != 1 && C != 3 && 3 * ((W + C - 1) / C) < W)
+    fail("PAM: cv2 leaves part of the gray read of a " + std::to_string(C) +
+         "-channel file unwritten");
+  static const int kLayout[6][4] = {{0, 1, 2, 0}, {0, 0, 0, 0}, {0, 0, 0, 0},
+                                    {0, 0, 0, 0}, {0, 1, 2, 0}, {2, 1, 0, 0}};
+  const int* lay = kLayout[h.fmt];  // b, g, r, gray channel of basic_conversion
+  for (int y = 0; y < H; y++) {
+    s.bytes(src.data(), row);
+    uint8_t* o = out + static_cast<int64_t>(y) * W * t * depth;
+    if (bit) {
+      for (int x = 0; x < W; x++) {
+        uint8_t v = (src[x >> 3] >> (7 - (x & 7))) & 1 ? 255 : 0;
+        for (int k = 0; k < t; k++) o[x * t + k] = v;
+      }
+      continue;
+    }
+    if (sd == 2) {  // big-endian samples
+      for (int64_t i = 0; i < row; i += 2) std::swap(src[i], src[i + 1]);
+      if (depth == 1)
+        for (int64_t i = 0; i < row / 2; i++) src[i] = src[2 * i + 1];
+    }
+    if (t == C) {
+      memcpy(o, src.data(), static_cast<size_t>(W) * t * depth);
+    } else if (t == 1 && C == 3) {  // rgb_convert: the file read as RGB
+      for (int x = 0; x < W; x++)
+        o[x] = luma14(src[3 * x + 2], src[3 * x + 1], src[3 * x]);
+    } else if (t == 1) {  // basic_conversion: three bytes a step
+      for (int x = 0; x < W; x++) o[x] = src[(x / 3) * C + lay[3]];
+    } else {
+      const int n = (W + C - 1) / C;
+      for (int x = 0; x < n; x++)
+        for (int k = 0; k < 3; k++) o[x * 3 + k] = src[x * C + lay[k]];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ PFM --
+// grfmt_pfm.cpp: "PF" (3 channels) or "Pf", a line break, then width,
+// height and scale each ended by one whitespace byte (atoi / atof); rows
+// bottom-up; little-endian where the scale is negative; samples divided
+// by |scale| (as a float product). Out: float32 in the file's channel order.
+
+struct Pfm {
+  int width = 0, height = 0, channels = 0;
+  double scale = 0;
+  int64_t offset = 0;
+};
+
+std::string pfm_token(Stream& s) {
+  std::string t;
+  for (int i = 0; i < 2048; i++) {
+    int c = s.byte();
+    if (c_space(c)) break;
+    t += static_cast<char>(c);
+  }
+  return t;
+}
+
+Pfm pfm_header(Stream& s) {
+  Pfm h;
+  if (s.byte() != 'P') fail("not a PFM file");
+  int c = s.byte();
+  if (c != 'f' && c != 'F') fail("not a PFM file");
+  h.channels = c == 'F' ? 3 : 1;
+  if (s.byte() != '\n') fail("PFM: no line break after P" + std::string(1, static_cast<char>(c)));
+  h.width = atoi(pfm_token(s).c_str());
+  h.height = atoi(pfm_token(s).c_str());
+  h.scale = atof(pfm_token(s).c_str());
+  if (h.width <= 0 || h.height <= 0) fail("PFM: bad size");
+  if (!(std::abs(h.scale) > 0.0)) fail("PFM: scale 0");
+  h.offset = s.pos;
+  return h;
+}
+
+void pfm_decode(const uint8_t* buf, int64_t len, float* out, int64_t outlen) {
+  Stream s(buf, len);
+  Pfm h = pfm_header(s);
+  const int64_t n = static_cast<int64_t>(h.width) * h.channels;
+  if (outlen != n * h.height) fail("output buffer of the wrong size");
+  const float k = static_cast<float>(1.0 / std::abs(h.scale));
+  const bool big = h.scale > 0;
+  std::vector<uint8_t> row(static_cast<size_t>(n) * 4);
+  for (int y = h.height - 1; y >= 0; y--) {
+    s.bytes(row.data(), n * 4);
+    for (int64_t i = 0; i < n; i++) {
+      const uint8_t* b = &row[i * 4];
+      uint32_t u = big ? (uint32_t{b[0]} << 24 | uint32_t{b[1]} << 16 | uint32_t{b[2]} << 8 | b[3])
+                       : (uint32_t{b[3]} << 24 | uint32_t{b[2]} << 16 | uint32_t{b[1]} << 8 | b[0]);
+      float f;
+      memcpy(&f, &u, 4);
+      out[static_cast<int64_t>(y) * n + i] = f * k;
+    }
+  }
+}
+
+// ----------------------------------------------------------- Sun raster --
+// grfmt_sunras.cpp as cv2 5.0 runs it: its header test compares the Mat
+// type, not the raster type, with RT_BYTE_ENCODED and RT_FORMAT_RGB, so
+// only RT_OLD and RT_STANDARD rasters read (depth 1, 8 with or without an
+// RGB colour map, 24 as BGR, 32 as XBGR); rows padded to 16 bits. Without
+// a map the gray and unchanged reads of depths 1 and 8 are zeros (its
+// gray palette is left empty) and the colour read a gray ramp.
+
+struct Ras {
+  int width = 0, height = 0, bpp = 0, type = 0, maptype = 0, maplength = 0;
+  int channels = 1;
+  Pal palette[256];
+  int64_t offset = 0;
+};
+
+Ras ras_header(Stream& s) {
+  Ras h;
+  memset(h.palette, 0, sizeof(h.palette));
+  s.skip(4);
+  h.width = be32(s);
+  h.height = be32(s);
+  h.bpp = be32(s);
+  const int pal_size = h.bpp > 0 && h.bpp <= 8 ? (1 << h.bpp) * 3 : 0;
+  s.skip(4);
+  h.type = be32(s);
+  h.maptype = be32(s);
+  h.maplength = be32(s);
+  if (!(h.width > 0 && h.height > 0)) fail("Sun raster: bad size");
+  if (h.bpp != 1 && h.bpp != 8 && h.bpp != 24 && h.bpp != 32)
+    fail("Sun raster: depth " + std::to_string(h.bpp) + " is not read by cv2");
+  if (h.type != 0 && h.type != 1)
+    fail("Sun raster: type " + std::to_string(h.type) +
+         (h.type == 2 ? " (RT_BYTE_ENCODED)" : h.type == 3 ? " (RT_FORMAT_RGB)" : "") +
+         ": cv2 5.0's header test refuses it (it gives None)");
+  if (!((h.maptype == 0 && h.maplength == 0) ||
+        (h.maptype == 1 && h.maplength > 0 && h.maplength <= pal_size && h.bpp <= 8)))
+    fail("Sun raster: colour map type " + std::to_string(h.maptype) + " / length " +
+         std::to_string(h.maplength) + " is not read by cv2");
+  if (h.maplength) {
+    std::vector<uint8_t> map(static_cast<size_t>(h.maplength));
+    s.bytes(map.data(), h.maplength);
+    const int n = h.maplength / 3;
+    for (int i = 0; i < n; i++) {
+      h.palette[i].b = map[i + 2 * n];
+      h.palette[i].g = map[i + n];
+      h.palette[i].r = map[i];
+    }
+    h.channels = color_palette(h.palette, h.bpp) ? 3 : 1;
+  } else {
+    h.channels = h.bpp > 8 ? 3 : 1;
+    for (int i = 0; i < (1 << std::min(h.bpp, 8)); i++) {  // FillGrayPalette
+      uint8_t v = static_cast<uint8_t>(i * 255 / ((1 << std::min(h.bpp, 8)) - 1));
+      h.palette[i] = {v, v, v, 0};
+    }
+  }
+  h.offset = s.pos;
+  return h;
+}
+
+void ras_decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out, int64_t outlen) {
+  Stream s(buf, len);
+  Ras h = ras_header(s);
+  const int W = h.width, H = h.height;
+  if (outlen != static_cast<int64_t>(W) * H * channels) fail("output buffer of the wrong size");
+  const bool color = channels > 1;
+  const int64_t pitch = ((int64_t{W} * h.bpp + 7) / 8 + 1) & -2;
+  uint8_t gray[256] = {0};
+  if (!color && h.maptype == 1)
+    for (int i = 0; i < (1 << std::min(h.bpp, 8)); i++)
+      gray[i] = luma14(h.palette[i].b, h.palette[i].g, h.palette[i].r);
+  std::vector<uint8_t> src(static_cast<size_t>(pitch) + 8);
+  for (int y = 0; y < H; y++) {
+    s.bytes(src.data(), pitch);
+    uint8_t* o = out + static_cast<int64_t>(y) * W * channels;
+    for (int x = 0; x < W; x++) {
+      if (h.bpp <= 8) {
+        int i = h.bpp == 1 ? (src[x >> 3] >> (7 - (x & 7))) & 1 : src[x];
+        if (color) {
+          o[3 * x] = h.palette[i].b;
+          o[3 * x + 1] = h.palette[i].g;
+          o[3 * x + 2] = h.palette[i].r;
+        } else {
+          o[x] = gray[i];
+        }
+      } else {
+        const uint8_t* p = h.bpp == 24 ? &src[3 * x] : &src[4 * x + 1];
+        if (color) {
+          o[3 * x] = p[0];
+          o[3 * x + 1] = p[1];
+          o[3 * x + 2] = p[2];
+        } else {
+          o[x] = luma14(p[0], p[1], p[2]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ HDR --
+// grfmt_hdr.cpp and rgbe.cpp (Greg Ward's reader): header lines up to a
+// blank one, "FORMAT=32-bit_rle_rgbe" among them, then "-Y h +X w" (the
+// only orientation); scanlines in new-style RLE (2 2 w, runs per component) or
+// flat, where a scanline without the RLE mark turns the rest of the image
+// flat; widths below 8 or above 32767 are flat throughout. Old-style RLE
+// is not known to it: such pixels read as they are. Out: float32 RGB.
+
+struct Hdr {
+  int width = 0, height = 0;
+  int64_t offset = 0;
+};
+
+bool hdr_line(Stream& s, std::string& line) {  // fgets(buf, 128)
+  line.clear();
+  while (line.size() < 127 && s.pos < s.n) {
+    char c = static_cast<char>(s.d[s.pos++]);
+    line += c;
+    if (c == '\n') break;
+  }
+  return !line.empty();
+}
+
+// sscanf(line, "-Y %d +X %d", &h, &w) == 2
+bool hdr_size(const std::string& line, int& h, int& w) {
+  const char* p = line.c_str();
+  auto lit = [&](char c) {
+    if (*p != c) return false;
+    p++;
+    return true;
+  };
+  auto num = [&](int& v) {
+    while (c_space(*p)) p++;
+    char* end = nullptr;
+    long x = strtol(p, &end, 10);
+    if (end == p) return false;
+    v = static_cast<int>(x);
+    p = end;
+    return true;
+  };
+  auto ws = [&] {
+    while (c_space(*p)) p++;
+  };
+  if (!lit('-') || !lit('Y')) return false;
+  ws();
+  if (!num(h)) return false;
+  ws();
+  return lit('+') && lit('X') && (ws(), num(w));
+}
+
+Hdr hdr_header(Stream& s) {
+  Hdr h;
+  std::string line;
+  if (!hdr_line(s, line)) fail("HDR: empty file");
+  bool format = false;
+  while (!(line.empty() || line[0] == '\n')) {  // lines up to a blank one
+    format = format || line == "FORMAT=32-bit_rle_rgbe\n";
+    if (!hdr_line(s, line)) fail("HDR: header cut short");
+  }
+  if (!format) fail("HDR: no FORMAT=32-bit_rle_rgbe line (cv2 reads no other)");
+  if (!hdr_line(s, line) || !hdr_size(line, h.height, h.width))
+    fail("HDR: no \"-Y height +X width\" line (cv2 reads no other orientation)");
+  if (h.width <= 0 || h.height <= 0) fail("HDR: bad size");
+  h.offset = s.pos;
+  return h;
+}
+
+inline void rgbe_float(const uint8_t* e, float* o) {
+  if (e[3]) {
+    const float f = static_cast<float>(ldexp(1.0, e[3] - 136));
+    o[0] = e[0] * f;
+    o[1] = e[1] * f;
+    o[2] = e[2] * f;
+  } else {
+    o[0] = o[1] = o[2] = 0.f;
+  }
+}
+
+void hdr_decode(const uint8_t* buf, int64_t len, float* out, int64_t outlen) {
+  Stream s(buf, len);
+  Hdr h = hdr_header(s);
+  const int W = h.width;
+  if (outlen != static_cast<int64_t>(W) * h.height * 3) fail("output buffer of the wrong size");
+  auto flat = [&](float* o, int64_t n) {
+    uint8_t e[4];
+    for (int64_t i = 0; i < n; i++) {
+      if (s.pos + 4 > s.n) fail("HDR: pixel data cut short");
+      s.bytes(e, 4);
+      rgbe_float(e, o + 3 * i);
+    }
+  };
+  if (W < 8 || W > 0x7fff) {
+    flat(out, static_cast<int64_t>(W) * h.height);
+    return;
+  }
+  std::vector<uint8_t> line(static_cast<size_t>(W) * 4);
+  float* o = out;
+  for (int y = 0; y < h.height; y++) {
+    uint8_t e[4];
+    if (s.pos + 4 > s.n) fail("HDR: pixel data cut short");
+    s.bytes(e, 4);
+    if (e[0] != 2 || e[1] != 2 || (e[2] & 0x80)) {
+      rgbe_float(e, o);
+      flat(o + 3, static_cast<int64_t>(W) * (h.height - y) - 1);
+      return;
+    }
+    if (((e[2] << 8) | e[3]) != W) fail("HDR: wrong scanline width");
+    for (int c = 0; c < 4; c++) {
+      uint8_t* p = &line[static_cast<size_t>(c) * W];
+      uint8_t* end = p + W;
+      while (p < end) {
+        if (s.pos + 2 > s.n) fail("HDR: scanline cut short");
+        int a = s.byte(), b = s.byte();
+        if (a > 128) {
+          int count = a - 128;
+          if (count > end - p) fail("HDR: bad scanline data");
+          while (count--) *p++ = static_cast<uint8_t>(b);
+        } else {
+          int count = a;
+          if (count == 0 || count > end - p) fail("HDR: bad scanline data");
+          *p++ = static_cast<uint8_t>(b);
+          if (--count > 0) {
+            if (s.pos + count > s.n) fail("HDR: scanline cut short");
+            s.bytes(p, count);
+            p += count;
+          }
+        }
+      }
+    }
+    for (int x = 0; x < W; x++) {
+      const uint8_t q[4] = {line[x], line[x + W], line[x + 2 * W], line[x + 3 * W]};
+      rgbe_float(q, o + 3 * x);
+    }
+    o += 3 * W;
+  }
+}
+
+// ------------------------------------------------------------------ GIF --
+// grfmt_gif.cpp (OpenCV 5): the whole block structure is read up to the
+// trailer; the first image is decoded (LZW code sizes 2-11, clear codes, a
+// full table kept until the next clear, an end code read as a clear;
+// decoding stops where the frame is full, and a string that runs past it,
+// data that end before it, or bytes past those that the next code would
+// take give None, as do codes left in hand after an end code in the last
+// byte) onto a canvas of the logical
+// screen filled with the background colour (the global table's entry, or
+// black); a transparent index in any graphic control extension makes the
+// read BGRA, the canvas then transparent and the first frame's transparent
+// pixels left as the canvas.
+
+struct Gif {
+  int width = 0, height = 0, channels = 3;
+  int fx = 0, fy = 0, fw = 0, fh = 0;
+  bool interlace = false, transparent = false;
+  int transp_index = -1, min_code = 0;
+  std::vector<Pal> global, local;
+  int bg = 0;
+  std::vector<uint8_t> lzw;  // the first image's sub-blocks, joined
+};
+
+std::vector<Pal> gif_table(Stream& s, int bits) {
+  std::vector<Pal> t(static_cast<size_t>(1) << (bits + 1));
+  for (Pal& p : t) {
+    p.r = static_cast<uint8_t>(s.byte());
+    p.g = static_cast<uint8_t>(s.byte());
+    p.b = static_cast<uint8_t>(s.byte());
+    p.a = 255;
+  }
+  return t;
+}
+
+Gif gif_parse(const uint8_t* buf, int64_t len) {
+  Stream s(buf, len);
+  Gif g;
+  s.skip(6);
+  g.width = s.word();
+  g.height = s.word();
+  int flags = s.byte();
+  g.bg = s.byte();
+  s.byte();
+  if (flags & 0x80) {
+    g.global = gif_table(s, flags & 7);
+    if (g.bg >= static_cast<int>(g.global.size())) fail("GIF: background index past the colour table");
+  }
+  if (g.width <= 0 || g.height <= 0) fail("GIF: bad size");
+  bool have = false;
+  int pending = -1;  // the transparent index of the last GCE
+  for (;;) {
+    int c = s.byte();
+    if (c == 0x3B) break;
+    if (c == 0x21) {
+      int label = s.byte();
+      if (label == 0xF9) {
+        int n = s.byte();
+        if (n != 4) fail("GIF: bad graphic control extension");
+        int f = s.byte();
+        s.word();
+        int t = s.byte();
+        if (f & 1) {
+          g.transparent = true;
+          pending = t;
+        } else {
+          pending = -1;
+        }
+      }
+      for (int n = s.byte(); n; n = s.byte()) {
+        if (s.pos + n > s.n) fail("GIF: data cut short");
+        s.skip(n);
+      }
+      continue;
+    }
+    if (c != 0x2C) fail("GIF: unknown block");
+    int x = s.word(), y = s.word(), w = s.word(), h = s.word(), f = s.byte();
+    std::vector<Pal> local;
+    if (f & 0x80) local = gif_table(s, f & 7);
+    int mcs = s.byte();
+    std::vector<uint8_t> data;
+    for (int n = s.byte(); n; n = s.byte()) {
+      if (s.pos + n > s.n) fail("GIF: data cut short");
+      if (!have) data.insert(data.end(), s.d + s.pos, s.d + s.pos + n);
+      s.skip(n);
+    }
+    if (!have) {
+      have = true;
+      g.fx = x, g.fy = y, g.fw = w, g.fh = h;
+      g.interlace = f & 0x40;
+      g.local = std::move(local);
+      g.min_code = mcs;
+      g.transp_index = pending;
+      g.lzw = std::move(data);
+    }
+    pending = -1;
+  }
+  if (!have) fail("GIF: no image");
+  g.channels = g.transparent ? 4 : 3;
+  return g;
+}
+
+// LZW, least significant bit first, into w*h indices
+void gif_lzw(const Gif& g, std::vector<uint8_t>& idx) {
+  const int mcs = g.min_code;
+  if (mcs < 2 || mcs > 11) fail("GIF: LZW minimum code size " + std::to_string(mcs));
+  const int clear = 1 << mcs, eoi = clear + 1;
+  const int64_t total = static_cast<int64_t>(g.fw) * g.fh;
+  idx.assign(static_cast<size_t>(total), 0);
+  std::vector<int> prefix(4096), first(4096), length(4096);
+  std::vector<uint8_t> suffix(4096);
+  for (int i = 0; i < clear; i++) {
+    prefix[i] = -1;
+    suffix[i] = static_cast<uint8_t>(i);
+    first[i] = i;
+    length[i] = 1;
+  }
+  // lzwDecode's loop: a byte is read where a code's bits are short, then
+  // every whole code in hand is taken; an end code resets as a clear does
+  // but ends that pass, so codes left in hand after the last byte are lost
+  int size = mcs + 1, next = eoi + 1, prev = -1, left = 0;
+  uint64_t src = 0;
+  int64_t out = 0;
+  size_t pos = 0;
+  const size_t n_bytes = g.lzw.size();
+  for (bool more = n_bytes > 0; more; more = pos < n_bytes) {
+    if (left < size) {
+      src |= static_cast<uint64_t>(g.lzw[pos++]) << left;
+      left += 8;
+    }
+    while (left >= size) {
+      if (out == total) {  // done: the data must end with the codes in hand
+        if (pos < n_bytes) fail("GIF: LZW data go on past the frame's last pixel");
+        return;
+      }
+      const int code = static_cast<int>(src & ((1u << size) - 1));
+      src >>= size;
+      left -= size;
+      if (code == clear || code == eoi) {
+        size = mcs + 1;
+        next = eoi + 1;
+        prev = -1;
+        if (code == eoi) break;
+        continue;
+      }
+      if (prev < 0) {
+        if (code >= clear) fail("GIF: bad LZW code");
+      } else {
+        if (code > next || (code == next && next >= 4096)) fail("GIF: bad LZW code");
+        if (next < 4096) {
+          prefix[next] = prev;
+          suffix[next] = static_cast<uint8_t>(code == next ? first[prev] : first[code]);
+          first[next] = first[prev];
+          length[next] = length[prev] + 1;
+          next++;
+          if (next == (1 << size) && size < 12) size++;
+        }
+      }
+      const int n = length[code];
+      if (out + n > total) fail("GIF: an LZW string runs past the frame");
+      for (int k = code, i = n - 1; i >= 0; i--, k = prefix[k]) idx[out + i] = suffix[k];
+      out += n;
+      prev = code;
+    }
+  }
+  if (out < total) fail("GIF: LZW data end before the frame's last pixel");
+}
+
+void gif_decode(const uint8_t* buf, int64_t len, int channels, uint8_t* out, int64_t outlen) {
+  Gif g = gif_parse(buf, len);
+  const int W = g.width, H = g.height;
+  if (channels != g.channels || outlen != static_cast<int64_t>(W) * H * channels)
+    fail("output buffer of the wrong size");
+  if (g.fw <= 0 || g.fh <= 0 || g.fx + g.fw > W || g.fy + g.fh > H)
+    fail("GIF: the frame is empty or lies outside the screen");
+  std::vector<uint8_t> idx;
+  gif_lzw(g, idx);
+  const std::vector<Pal>& table = g.local.empty() ? g.global : g.local;
+  Pal bg{0, 0, 0, 0};
+  if (!g.global.empty()) bg = g.global[g.bg];
+  bg.a = g.transparent ? 0 : 255;
+  for (int64_t i = 0; i < static_cast<int64_t>(W) * H; i++) {
+    uint8_t* o = out + i * channels;
+    o[0] = bg.b, o[1] = bg.g, o[2] = bg.r;
+    if (channels == 4) o[3] = bg.a;
+  }
+  std::vector<int> rows(g.fh);
+  int r = 0;
+  if (g.interlace) {
+    static const int kStart[4] = {0, 4, 2, 1}, kStep[4] = {8, 8, 4, 2};
+    for (int p = 0; p < 4; p++)
+      for (int y = kStart[p]; y < g.fh; y += kStep[p]) rows[r++] = y;
+  } else {
+    for (int y = 0; y < g.fh; y++) rows[y] = y;
+  }
+  for (int k = 0; k < g.fh; k++) {
+    for (int x = 0; x < g.fw; x++) {
+      int i = idx[static_cast<size_t>(k) * g.fw + x];
+      if (i == g.transp_index) continue;
+      if (i >= static_cast<int>(table.size())) fail("GIF: colour index past the colour table");
+      uint8_t* o = out + (static_cast<int64_t>(rows[k] + g.fy) * W + x + g.fx) * channels;
+      o[0] = table[i].b, o[1] = table[i].g, o[2] = table[i].r;
+      if (channels == 4) o[3] = 255;
+    }
+  }
+}
+
 template <class F>
 int guarded(char* err, int64_t errlen, F&& f) {
   try {
@@ -2607,6 +3278,8 @@ int guarded(char* err, int64_t errlen, F&& f) {
     set_error(err, errlen, e.msg);
   } catch (const std::bad_alloc&) {
     set_error(err, errlen, "out of memory");
+  } catch (const std::exception& e) {
+    set_error(err, errlen, std::string("decoder error: ") + e.what());
   }
   return -1;
 }
@@ -2669,6 +3342,80 @@ int im_lzw_decode(const uint8_t* buf, int64_t len, uint8_t* out, int64_t outlen,
 int im_packbits_decode(const uint8_t* buf, int64_t len, uint8_t* out, int64_t outlen,
                        int64_t* written, char* err, int64_t errlen) {
   return guarded(err, errlen, [&] { *written = packbits_decode(buf, len, out, outlen); });
+}
+
+int im_pam_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    Stream s(buf, len);
+    Pam h = pam_header(s);
+    info[0] = h.height;
+    info[1] = h.width;
+    info[2] = h.channels;
+    info[3] = h.bytes();
+  });
+}
+
+int im_pam_decode(const uint8_t* buf, int64_t len, int32_t channels, int32_t depth,
+                  uint8_t* out, int64_t outlen, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] { pam_decode(buf, len, channels, depth, out, outlen); });
+}
+
+int im_pfm_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    Stream s(buf, len);
+    Pfm h = pfm_header(s);
+    info[0] = h.height;
+    info[1] = h.width;
+    info[2] = h.channels;
+  });
+}
+
+int im_pfm_decode(const uint8_t* buf, int64_t len, float* out, int64_t outlen, char* err,
+                  int64_t errlen) {
+  return guarded(err, errlen, [&] { pfm_decode(buf, len, out, outlen); });
+}
+
+int im_sunras_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    Stream s(buf, len);
+    Ras h = ras_header(s);
+    info[0] = h.height;
+    info[1] = h.width;
+    info[2] = h.channels;
+  });
+}
+
+int im_sunras_decode(const uint8_t* buf, int64_t len, int32_t channels, uint8_t* out,
+                  int64_t outlen, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] { ras_decode(buf, len, channels, out, outlen); });
+}
+
+int im_hdr_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    Stream s(buf, len);
+    Hdr h = hdr_header(s);
+    info[0] = h.height;
+    info[1] = h.width;
+  });
+}
+
+int im_hdr_decode(const uint8_t* buf, int64_t len, float* out, int64_t outlen, char* err,
+                  int64_t errlen) {
+  return guarded(err, errlen, [&] { hdr_decode(buf, len, out, outlen); });
+}
+
+int im_gif_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    Gif g = gif_parse(buf, len);
+    info[0] = g.height;
+    info[1] = g.width;
+    info[2] = g.channels;
+  });
+}
+
+int im_gif_decode(const uint8_t* buf, int64_t len, int32_t channels, uint8_t* out,
+                  int64_t outlen, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] { gif_decode(buf, len, channels, out, outlen); });
 }
 
 }  // extern "C"

@@ -2,14 +2,24 @@
 // gets from the libjpeg-turbo 3.1 it bundles (a SIMD build), on valid and on
 // damaged streams alike.
 //
-// Takes Huffman-coded 8-bit frames: SOF0 / SOF1 (sequential, interleaved or
-// not) and SOF2 (progressive: spectral selection, successive approximation,
-// EOB runs); 1, 3 or 4 components (gray; YCbCr or RGB; CMYK or YCCK, chosen
-// by jdapimin.c's rules on JFIF and Adobe APP14 markers and component ids),
-// sampling factors 1-4; restart intervals; DHT / DQT between scans (each
-// component keeps the quantisation table it had at its first scan, as
-// libjpeg latches it); the standard Huffman tables where a scan names a
-// table 0 or 1 never defined.
+// Takes 8-bit DCT frames, Huffman-coded or arithmetic-coded: SOF0 / SOF1 /
+// SOF9 (sequential, interleaved or not) and SOF2 / SOF10 (progressive:
+// spectral selection, successive approximation, EOB runs); 1, 3 or 4
+// components (gray; YCbCr or RGB; CMYK or YCCK, chosen by jdapimin.c's
+// rules on JFIF and Adobe APP14 markers and component ids), sampling
+// factors 1-4; restart intervals; DHT / DQT between scans (each component
+// keeps the quantisation table it had at its first scan, as libjpeg
+// latches it); the standard Huffman tables where a scan names a table 0
+// or 1 never defined. Arithmetic decoding is jdarith.c's: T.81 Annex D's
+// QM decoder, its statistics areas per table (0-15) reset at each scan
+// and restart, DAC conditioning (L, U, Kx), and on a bad code
+// (JWRN_ARITH_BAD_CODE) the rest of the scan skipped.
+// And lossless frames (SOF3, Huffman): predictors 1-7, a point transform,
+// precisions 2-8, restarts in whole MCU rows, samples undifferenced as
+// jdlossls.c / jddiffct.c do (the first-row predictor after each restart
+// taking effect at its iMCU row); libjpeg-turbo converts no colour there,
+// so gray, RGB (ids 1 2 3 or unknown mean RGB) and CMYK frames read only
+// where no conversion is asked, subsampled components replicated.
 //
 // Damage is read as libjpeg reads it where cv2 only warns:
 //  - a scan's data ends at a marker (or where the input ends); the bits
@@ -39,10 +49,12 @@
 // -> BGR and CMYK -> gray conversions (icvCvt_CMYK2BGR_8u_C4C3R,
 // icvCvt_CMYK2Gray_8u_C4C1R).
 //
-// Refused, with an error naming the marker: arithmetic coding (SOF9-SOF11,
-// SOF13-SOF15, DAC), lossless (SOF3) and hierarchical (SOF5-SOF7, DHP, EXP)
-// frames, precision other than 8 bits, 2 components, and every stream
-// libjpeg refuses.
+// Refused, with an error naming the marker, where cv2 5.0 gives None:
+// lossless arithmetic coding (SOF11), hierarchical and differential frames
+// (SOF5-SOF7, SOF13-SOF15, DHP, EXP), 12-bit DCT and 9-16-bit lossless
+// frames (OpenCV reads through the 8-bit API), 2 components, lossless
+// YCbCr / YCCK or a colour read of a gray frame, and every stream libjpeg
+// refuses.
 //
 // Interface (Python binds it with ctypes, spinnerf_tpu_torch/data/jpeg.py):
 //   jd_header(buf, len, flags, hwc[3], err, errlen) -> 0, or -1 with a
@@ -59,6 +71,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <stdexcept>
 #include <string>
 #include <vector>
 
@@ -166,7 +179,7 @@ struct Huff {
   uint16_t look[256];  // (length << 8) | symbol; length 9: a longer code
 
   // jpeg_make_d_derived_tbl, with its validation
-  void build(const HuffSpec& s, bool dc) {
+  void build(const HuffSpec& s, bool dc, int max_dc = 15) {
     int huffsize[257];
     uint32_t huffcode[257];
     int p = 0;
@@ -210,10 +223,56 @@ struct Huff {
     }
     if (dc) {
       for (int i = 0; i < nsym; i++)
-        if (s.vals[i] > 15) fail("bad Huffman table (DHT): DC symbol > 15");
+        if (s.vals[i] > max_dc)
+          fail("bad Huffman table (DHT): DC symbol > " +
+               std::to_string(max_dc));
     }
   }
 };
+
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define V(qe, nl, nm, sw) ((int64_t{qe} << 16) | ((nm) << 8) | ((sw) << 7) | (nl))
+const int64_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
 
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v + static_cast<int>((~0u << s) + 1) : v;
@@ -234,6 +293,8 @@ struct Comp {
   int coef_bits[64];       // jdphuff.c's progression state
   int prev_coef_bits[64];  // ... as it stood before the component's last scan
   int dc_tbl = 0, ac_tbl = 0;
+  std::vector<int32_t> diff, smp;  // lossless: differences, samples
+  int al = 0;                      // lossless: its scan's point transform
 };
 
 enum class Space { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
@@ -248,7 +309,8 @@ struct Decoder {
 
   // frame
   bool saw_soi = false, saw_sof = false, progressive = false;
-  int sof_marker = 0;
+  bool arith = false, lossless = false;
+  int sof_marker = 0, precision = 8;
   int width = 0, height = 0, ncomp = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   bool jfif = false, adobe = false;
@@ -280,7 +342,22 @@ struct Decoder {
   int left = 0;
   bool insufficient = false;
 
-  Decoder(const uint8_t* b, size_t n, bool f) : buf(b), len(n), file(f) {}
+  // arithmetic decoding (jdarith.c): the C and A registers, the bit
+  // counter (-1 after JWRN_ARITH_BAD_CODE: the rest of the scan is
+  // skipped), statistics areas, conditioning (DAC)
+  int64_t ar_c = 0, ar_a = 0;
+  int ar_ct = 0;
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin = 113;
+  int dc_context[4] = {0, 0, 0, 0};
+  uint8_t dc_L[16], dc_U[16], ac_K[16];
+
+  Decoder(const uint8_t* b, size_t n, bool f) : buf(b), len(n), file(f) {
+    for (int t = 0; t < 16; t++) {
+      dc_L[t] = 0;
+      dc_U[t] = 1;
+      ac_K[t] = 5;
+    }
+  }
 
   // --- input: jdatasrc.c's stdio source (file) or OpenCV's (buffer) ---
 
@@ -329,15 +406,19 @@ struct Decoder {
           if (saw_soi) fail("a second SOI");
           saw_soi = true;
           break;
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           get_sof(m);
           break;
-        case 0xC3: fail("SOF3 (lossless JPEG) is not supported");
+        case 0xCB:
+          fail("SOF11 (lossless arithmetic coding) is not supported: "
+               "libjpeg-turbo refuses it and cv2 gives None");
         case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF:
-          fail(marker_name(m) + " (hierarchical JPEG) is not supported");
-        case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-          fail(marker_name(m) + " (arithmetic coding) is not supported");
-        case 0xCC: fail("DAC (arithmetic coding) is not supported");
+          fail(marker_name(m) + " (hierarchical JPEG) is not supported: "
+               "libjpeg-turbo refuses it and cv2 gives None");
+        case 0xCD: case 0xCE: case 0xCF:
+          fail(marker_name(m) + " (differential arithmetic coding) is not "
+               "supported: libjpeg-turbo refuses it and cv2 gives None");
+        case 0xCC: get_dac(); break;
         case 0xDA:
           get_sos();
           unread_marker = 0;
@@ -386,7 +467,7 @@ struct Decoder {
 
   void get_sof(int m) {
     int length = word();
-    int precision = byte();
+    precision = byte();
     int h = word(), w = word(), n = byte();
     length -= 8;
     if (saw_sof) fail("a second SOF (" + marker_name(m) + ")");
@@ -394,12 +475,16 @@ struct Decoder {
       fail("height 0 (" + marker_name(m) + "; a DNL height) is not supported");
     if (w == 0 || n == 0) fail("an empty image in " + marker_name(m));
     if (length != 3 * n) fail("bad length in " + marker_name(m));
-    if (precision != 8)
+    const bool ll = m == 0xC3;
+    if (ll ? precision < 2 || precision > 16 : precision != 8 && precision != 12)
+      fail("bad precision " + std::to_string(precision) + " in " +
+           marker_name(m));
+    if (precision > 8)  // OpenCV reads through the 8-bit API
       fail(std::to_string(precision) + "-bit precision (" + marker_name(m) +
-           ") is not supported");
+           ") is not supported: cv2 gives None");
     if (n != 1 && n != 3 && n != 4)
       fail(std::to_string(n) + " components (" + marker_name(m) +
-           ") are not supported");
+           ") are not supported: cv2 gives None");
     height = h;
     width = w;
     ncomp = n;
@@ -415,7 +500,28 @@ struct Decoder {
     }
     saw_sof = true;
     sof_marker = m;
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    arith = m == 0xC9 || m == 0xCA;
+    lossless = m == 0xC3;
+  }
+
+  // get_dac: arithmetic conditioning, L and U of a DC table, Kx of an AC
+  void get_dac() {
+    int64_t length = word() - 2;
+    while (length > 0) {
+      int index = byte(), val = byte();
+      length -= 2;
+      if (index >= 32) fail("bad DAC table index " + std::to_string(index));
+      if (index >= 16) {
+        ac_K[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_L[index] = static_cast<uint8_t>(val & 15);
+        dc_U[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_L[index] > dc_U[index])
+          fail("bad DAC value " + std::to_string(val));
+      }
+    }
+    if (length != 0) fail("bad length in DAC");
   }
 
   void get_dht() {
@@ -502,15 +608,16 @@ struct Decoder {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcux = (width + hmax * 8 - 1) / (hmax * 8);
-    mcuy = (height + vmax * 8 - 1) / (vmax * 8);
+    const int du = lossless ? 1 : 8;  // a sample, or an 8 x 8 block
+    mcux = (width + hmax * du - 1) / (hmax * du);
+    mcuy = (height + vmax * du - 1) / (vmax * du);
     for (Comp& c : comps) {
       c.dw = static_cast<int>((static_cast<int64_t>(width) * c.h + hmax - 1) /
                               hmax);
       c.dh = static_cast<int>((static_cast<int64_t>(height) * c.v + vmax - 1) /
                               vmax);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + du - 1) / du;
+      c.bh = (c.dh + du - 1) / du;
       c.bwp = mcux * c.h;
       c.bhp = mcuy * c.v;
     }
@@ -526,7 +633,7 @@ struct Decoder {
       else if (comps[0].id == 82 && comps[1].id == 71 && comps[2].id == 66)
         space = Space::kRGB;  // 'R', 'G', 'B'
       else
-        space = Space::kYCbCr;
+        space = lossless ? Space::kRGB : Space::kYCbCr;
     } else {
       space = adobe && adobe_transform == 0 ? Space::kCMYK
               : adobe                       ? Space::kYCCK
@@ -537,6 +644,10 @@ struct Decoder {
   // --- jpeg_start_decompress and the scans ---
 
   void decode_image() {
+    if (lossless) {
+      decode_lossless();
+      return;
+    }
     for (Comp& c : comps) c.coef.assign(size_t(c.bwp) * c.bhp * 64, 0);
     standard_tables();
     start_scan();
@@ -548,19 +659,21 @@ struct Decoder {
     }
   }
 
-  Huff table(bool dc, int i) {
+  Huff table(bool dc, int i, int max_dc = 15) {
     const HuffSpec& s = (dc ? dc_spec : ac_spec)[i];
     if (i > 3 || !s.defined) fail("a scan uses an undefined DHT table");
     Huff h;
-    h.build(s, dc);
+    h.build(s, dc, max_dc);
     return h;
   }
 
   // The standard tables (Annex K.3) where the file defines none: OpenCV
   // loads all four when no table 0 or 1 came before the first SOS
   // (Motion-JPEG frames), libjpeg's sequential decoder each one undefined
-  // when decoding starts (std_huff_tables); its progressive one none.
+  // when decoding starts (std_huff_tables); its progressive one none. A
+  // lossless frame gets none at all (cv2 gives None without its DHT).
   void standard_tables() {
+    if (lossless) return;
     bool none = true;
     for (int i = 0; i < 2; i++)
       none = none && !dc_spec[i].defined && !ac_spec[i].defined;
@@ -602,11 +715,12 @@ struct Decoder {
       start_progressive_scan();
     } else {
       mode = Mode::kSeq;  // progressive parameters only warn
-      for (int i = 0; i < nsc; i++) {
+      for (int i = 0; i < nsc && !arith; i++) {
         dct[i] = table(true, comps[sc[i]].dc_tbl);
         act[i] = table(false, comps[sc[i]].ac_tbl);
       }
     }
+    if (arith) arith_reset(true);
     for (int& p : pred) p = 0;
     acc = 0;
     left = 0;
@@ -627,7 +741,11 @@ struct Decoder {
     }
     if (ah != 0 && al != ah - 1) bad = true;
     if (al > 13) bad = true;
-    if (bad) fail("corrupt data: bad progressive scan parameters");
+    if (bad)
+      fail("corrupt data: bad progressive scan parameters in " +
+           marker_name(sof_marker) + " (Ss " + std::to_string(ss) + ", Se " +
+           std::to_string(se) + ", Ah " + std::to_string(ah) + ", Al " +
+           std::to_string(al) + ")");
     for (int ci : sc) {  // scans out of order only warn
       Comp& c = comps[ci];
       for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
@@ -636,7 +754,7 @@ struct Decoder {
     }
     mode = dc_band ? (ah ? Mode::kDcRefine : Mode::kDcFirst)
                    : (ah ? Mode::kAcRefine : Mode::kAcFirst);
-    for (int i = 0; i < nsc; i++) {
+    for (int i = 0; i < nsc && !arith; i++) {
       const Comp& c = comps[sc[i]];
       if (mode == Mode::kDcFirst) dct[i] = table(true, c.dc_tbl);
       if (!dc_band) act[i] = table(false, c.ac_tbl);
@@ -807,6 +925,10 @@ struct Decoder {
   // --- MCU decoders: jdhuff.c decode_mcu, jdphuff.c decode_mcu_* ---
 
   void decode_mcu() {
+    if (arith) {
+      arith_decode_mcu();
+      return;
+    }
     bool usefast = mode == Mode::kSeq;
     if (restart_interval) {
       if (restarts_to_go == 0) process_restart();
@@ -996,6 +1118,351 @@ struct Decoder {
         if (*t != 0) correct(t);
       }
       eobrun--;
+    }
+  }
+
+  // --- arithmetic decoding: jdarith.c ---
+
+  // start_pass (`scan`) and process_restart: the statistics areas of the
+  // scan's tables zeroed, DC predictions and contexts reset, C and A
+  // emptied so that the next decision reads two bytes
+  void arith_reset(bool scan) {
+    if (!scan) {
+      if (unread_marker == 0) next_marker();
+      if (unread_marker == 0xD0 + next_restart_num)
+        unread_marker = 0;
+      else
+        resync_to_restart(next_restart_num);
+      next_restart_num = (next_restart_num + 1) & 7;
+    }
+    for (size_t i = 0; i < sc.size(); i++) {
+      const Comp& c = comps[sc[i]];
+      if (!progressive || (ss == 0 && ah == 0)) {
+        std::memset(dc_stats[c.dc_tbl], 0, 64);
+        pred[i] = 0;
+        dc_context[i] = 0;
+      }
+      if (!progressive || ss) std::memset(ac_stats[c.ac_tbl], 0, 256);
+    }
+    ar_c = 0;
+    ar_a = 0;
+    ar_ct = -16;
+    restarts_to_go = restart_interval;
+  }
+
+  // arith_decode: one binary decision (D.2.4 - D.2.6); at a marker the
+  // data are zeros from there on; past the input a file read finds
+  // libjpeg's fake EOI and a buffer read fails (no suspension here)
+  int arith_decode(uint8_t* st) {
+    while (ar_a < 0x8000) {
+      if (--ar_ct < 0) {
+        int data = 0;
+        if (unread_marker == 0) {
+          data = byte();
+          if (data == 0xFF) {
+            do data = byte(); while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              unread_marker = data;
+              data = 0;
+            }
+          }
+        }
+        ar_c = (ar_c << 8) | data;
+        if ((ar_ct += 8) < 0)
+          if (++ar_ct == 0) ar_a = 0x8000;  // two bytes in: A = 0x10000
+      }
+      ar_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = ar_a - qe;
+    ar_a = temp;
+    temp <<= ar_ct;
+    if (ar_c >= temp) {
+      ar_c -= temp;
+      if (ar_a < qe) {
+        ar_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        ar_a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ar_a < 0x8000) {
+      if (ar_a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // F.1.4.4.1 / F.2.4.1: a DC difference into pred[i]; false on a bad
+  // code (JWRN_ARITH_BAD_CODE: the scan's remaining MCUs are skipped)
+  bool arith_dc(int i, int tbl) {
+    uint8_t* st = dc_stats[tbl] + dc_context[i];
+    if (arith_decode(st) == 0) {
+      dc_context[i] = 0;
+      return true;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+    if (m < ((1 << dc_L[tbl]) >> 1))
+      dc_context[i] = 0;
+    else if (m > ((1 << dc_U[tbl]) >> 1))
+      dc_context[i] = 12 + sign * 4;
+    else
+      dc_context[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    pred[i] = (pred[i] + v) & 0xFFFF;
+    return true;
+  }
+
+  // F.2.4.2 / G.1.3.2: the AC coefficients ss..se of a block (scaled by
+  // << al); false on a bad code
+  bool arith_ac(int16_t* block, int tbl, int from, int to, int shift) {
+    for (int k = from; k <= to; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > to) return false;  // spectral overflow
+      }
+      const int sign = arith_decode(&fixed_bin);
+      st += 2;
+      int m = arith_decode(st);
+      if (m != 0 && arith_decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= ac_K[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) return false;
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      block[kNatural[k]] = lo16(static_cast<int64_t>(
+          static_cast<uint64_t>(static_cast<uint32_t>(v)) << shift));
+    }
+    return true;
+  }
+
+  // G.1.3.3: a refinement scan's bits and newly nonzero coefficients
+  bool arith_ac_refine(int16_t* block, int tbl) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (block[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* t = block + kNatural[k];
+        if (*t) {
+          if (arith_decode(st + 2)) *t = lo16(*t < 0 ? *t + m1 : *t + p1);
+          break;
+        }
+        if (arith_decode(st + 1)) {
+          *t = static_cast<int16_t>(arith_decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) return false;
+      }
+    }
+    return true;
+  }
+
+  void arith_decode_mcu() {
+    if (restart_interval) {
+      if (restarts_to_go == 0) arith_reset(false);
+      restarts_to_go--;
+    }
+    if (mode == Mode::kDcRefine) {  // no bad-code test: every bit is good
+      for (int b = 0; b < nblk; b++)
+        if (arith_decode(&fixed_bin)) blk[b][0] |= static_cast<int16_t>(1 << al);
+      return;
+    }
+    if (ar_ct == -1) return;
+    bool ok = true;
+    switch (mode) {
+      case Mode::kSeq:
+        for (int b = 0; b < nblk && ok; b++) {
+          const int i = blk_comp[b];
+          const Comp& c = comps[sc[i]];
+          ok = arith_dc(i, c.dc_tbl);
+          if (!ok) break;
+          blk[b][0] = lo16(pred[i]);
+          ok = arith_ac(blk[b], c.ac_tbl, 1, 63, 0);
+        }
+        break;
+      case Mode::kDcFirst:
+        for (int b = 0; b < nblk && ok; b++) {
+          const int i = blk_comp[b];
+          ok = arith_dc(i, comps[sc[i]].dc_tbl);
+          if (ok)
+            blk[b][0] = lo16(static_cast<int64_t>(
+                static_cast<uint64_t>(static_cast<uint32_t>(pred[i])) << al));
+        }
+        break;
+      case Mode::kAcFirst:
+        ok = arith_ac(blk[0], comps[sc[0]].ac_tbl, ss, se, al);
+        break;
+      default:
+        ok = arith_ac_refine(blk[0], comps[sc[0]].ac_tbl);
+    }
+    if (!ok) ar_ct = -1;  // JWRN_ARITH_BAD_CODE
+  }
+
+  // --- lossless: jdlossls.c, jddiffct.c, jdlhuff.c ---
+
+  // Every scan's differences decoded and undifferenced into each
+  // component's samples (before the point transform)
+  void decode_lossless() {
+    standard_tables();
+    for (Comp& c : comps) {
+      c.diff.assign(static_cast<size_t>(c.bwp) * c.bhp, 0);
+      c.smp.assign(static_cast<size_t>(c.bwp) * c.bhp, 0);
+    }
+    for (;;) {
+      lossless_scan();
+      if (!multi_scan || !read_markers()) break;
+    }
+  }
+
+  void lossless_scan() {
+    const int nsc = static_cast<int>(sc.size());
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision)
+      fail("corrupt data: bad lossless scan parameters in SOF3 (Ss " +
+           std::to_string(ss) + ", Se " + std::to_string(se) + ", Ah " +
+           std::to_string(ah) + ", Al " + std::to_string(al) + ")");
+    nblk = 0;
+    for (int i = 0; i < nsc; i++) {
+      const Comp& c = comps[sc[i]];
+      int n = nsc == 1 ? 1 : c.h * c.v;
+      if (nblk + n > 10) fail("an MCU of more than 10 samples");
+      while (n--) blk_comp[nblk++] = i;
+      dct[i] = table(true, c.dc_tbl, 16);
+    }
+    for (int ci : sc) comps[ci].al = al;
+    const Comp& c0 = comps[sc[0]];
+    const int per_row = nsc == 1 ? c0.bw : mcux;
+    const int mcu_rows = nsc == 1 ? c0.bh : mcuy;
+    if (restart_interval % per_row)
+      fail("bad restart interval " + std::to_string(restart_interval) +
+           ": not a multiple of the " + std::to_string(per_row) +
+           " MCUs in an MCU row");
+    acc = 0;
+    left = 0;
+    insufficient = false;
+    int rows_to_go = restart_interval / per_row;
+    bool first[4] = {true, true, true, true};  // the first-row predictor
+    // an iMCU row: v MCU rows of a non-interleaved scan, one otherwise
+    const int per_imcu = nsc == 1 ? c0.v : 1;
+    for (int r0 = 0; r0 < mcu_rows; r0 += per_imcu) {
+      for (int r = r0; r < std::min(r0 + per_imcu, mcu_rows); r++) {
+        if (restart_interval) {
+          if (rows_to_go == 0) {
+            process_restart();
+            for (bool& f : first) f = true;
+            rows_to_go = restart_interval / per_row;
+          }
+          rows_to_go--;
+        }
+        if (insufficient) {  // out of data: zeros, the predictor reset
+          for (bool& f : first) f = true;
+          for (int mx = 0; mx < per_row; mx++) lossless_mcu(r, mx, true);
+        } else {
+          for (int mx = 0; mx < per_row; mx++) lossless_mcu(r, mx, false);
+        }
+      }
+      for (int i = 0; i < nsc; i++) {
+        Comp& c = comps[sc[i]];
+        const int y0 = (nsc == 1 ? r0 : r0 * c.v);
+        const int y1 = std::min(y0 + c.v, c.bh);
+        for (int y = y0; y < y1; y++) {
+          undifference(c, y, first[i]);
+          first[i] = false;
+        }
+      }
+    }
+  }
+
+  void lossless_mcu(int r, int mx, bool zero) {
+    int b = 0;
+    for (int ci : sc) {
+      Comp& c = comps[ci];
+      const int hh = sc.size() == 1 ? 1 : c.h, vv = sc.size() == 1 ? 1 : c.v;
+      for (int y = 0; y < vv; y++)
+        for (int x = 0; x < hh; x++, b++) {
+          int s = 0;
+          if (!zero) {
+            s = decode(dct[blk_comp[b]]);
+            if (s == 16) {
+              s = 32768;
+            } else if (s) {
+              check(s);
+              s = extend(get(s), s);
+            }
+          }
+          c.diff[static_cast<size_t>(r * vv + y) * c.bwp + mx * hh + x] = s;
+        }
+    }
+  }
+
+  // jpeg_undifference_first_row and jpeg_undifference1-7 on row y
+  void undifference(Comp& c, int y, bool first) {
+    const int32_t* d = &c.diff[static_cast<size_t>(y) * c.bwp];
+    int32_t* o = &c.smp[static_cast<size_t>(y) * c.bwp];
+    const int w = c.bw;
+    if (first) {
+      int ra = (d[0] + (1 << (precision - c.al - 1))) & 0xFFFF;
+      o[0] = ra;
+      for (int x = 1; x < w; x++) o[x] = ra = (d[x] + ra) & 0xFFFF;
+      return;
+    }
+    const int32_t* p = o - c.bwp;
+    int rb = p[0], ra = (d[0] + rb) & 0xFFFF, rc;
+    o[0] = ra;
+    for (int x = 1; x < w; x++) {
+      rc = rb;
+      rb = p[x];
+      int pr;
+      switch (ss) {
+        case 1: pr = ra; break;
+        case 2: pr = rb; break;
+        case 3: pr = rc; break;
+        case 4: pr = ra + rb - rc; break;
+        case 5: pr = ra + ((rb - rc) >> 1); break;
+        case 6: pr = rb + ((ra - rc) >> 1); break;
+        default: pr = (ra + rb) >> 1;
+      }
+      o[x] = ra = (d[x] + pr) & 0xFFFF;
     }
   }
 };
@@ -1323,7 +1790,62 @@ std::vector<uint8_t> upsample(const Comp& c, const std::vector<uint8_t>& pl,
   return out;
 }
 
+// A lossless frame: each sample shifted left by its scan's point transform
+// and kept to 8 bits, components replicated to full size (libjpeg-turbo
+// upsamples lossless frames by replication and converts no colour: gray,
+// RGB and CMYK only, each in the reads that need no conversion)
+void render_lossless(const Decoder& d, int channels, uint8_t* out) {
+  const int W = d.width, H = d.height;
+  const size_t np = static_cast<size_t>(W) * H;
+  if (d.space == Space::kYCbCr || d.space == Space::kYCCK)
+    fail("a lossless YCbCr or YCCK frame: libjpeg-turbo converts no colour "
+         "in lossless mode and cv2 gives None");
+  if ((d.space == Space::kGray && channels != 1) ||
+      (d.space == Space::kRGB && channels != 3))
+    fail(std::string("a ") + (channels == 1 ? "gray" : "colour") +
+         " read of a lossless " + (channels == 1 ? "RGB" : "gray") +
+         " frame: libjpeg-turbo converts no colour in lossless mode and cv2 "
+         "gives None");
+  std::vector<std::vector<uint8_t>> up(d.ncomp);
+  for (int ci = 0; ci < d.ncomp; ci++) {
+    const Comp& c = d.comps[ci];
+    if (d.hmax % c.h || d.vmax % c.v)
+      fail("fractional sampling factors are not supported");
+    const int hf = d.hmax / c.h, vf = d.vmax / c.v;
+    up[ci].resize(np);
+    for (int y = 0; y < H; y++)
+      for (int x = 0; x < W; x++)
+        up[ci][static_cast<size_t>(y) * W + x] = static_cast<uint8_t>(
+            c.smp[static_cast<size_t>(y / vf) * c.bwp + x / hf] << c.al);
+  }
+  if (d.space == Space::kGray) {
+    std::memcpy(out, up[0].data(), np);
+    return;
+  }
+  for (size_t i = 0; i < np; i++) {
+    int cc = up[0][i], mm = up[1][i], yy = up[2][i];
+    if (d.space == Space::kCMYK) {  // OpenCV's CMYK -> BGR (here RGB), gray
+      const int kk = up[3][i];
+      cc = kk - ((255 - cc) * kk >> 8);
+      mm = kk - ((255 - mm) * kk >> 8);
+      yy = kk - ((255 - yy) * kk >> 8);
+      if (channels == 1) {
+        out[i] = static_cast<uint8_t>((yy * 1868 + mm * 9617 + cc * 4899 +
+                                       (1 << 13)) >> 14);
+        continue;
+      }
+    }
+    out[3 * i] = static_cast<uint8_t>(cc);
+    out[3 * i + 1] = static_cast<uint8_t>(mm);
+    out[3 * i + 2] = static_cast<uint8_t>(yy);
+  }
+}
+
 void render(const Decoder& d, int channels, uint8_t* out) {
+  if (d.lossless) {
+    render_lossless(d, channels, out);
+    return;
+  }
   const int W = d.width, H = d.height;
   const size_t np = static_cast<size_t>(W) * H;
   Smoothing sm;
@@ -1419,6 +1941,9 @@ int jd_header(const uint8_t* buf, int64_t len, int32_t flags, int32_t* hwc,
   } catch (const JpegError& e) {
     set_error(err, errlen, e.msg);
     return -1;
+  } catch (const std::exception& e) {  // std::bad_alloc and the like
+    set_error(err, errlen, std::string("decoder error: ") + e.what());
+    return -1;
   }
 }
 
@@ -1436,6 +1961,9 @@ int jd_decode(const uint8_t* buf, int64_t len, int32_t flags,
     return 0;
   } catch (const JpegError& e) {
     set_error(err, errlen, e.msg);
+    return -1;
+  } catch (const std::exception& e) {  // std::bad_alloc and the like
+    set_error(err, errlen, std::string("decoder error: ") + e.what());
     return -1;
   }
 }

@@ -5,7 +5,13 @@ RLE8, bit fields, OS/2 headers and either row order; PBM / PGM / PPM;
 TIFF with strips or tiles, either byte order, LZW / Deflate / PackBits,
 predictor 2, planar samples, palettes and Orientation tags; WebP lossless
 (VP8L) with each of its transforms, and the WebP container with an ALPH
-chunk in each of its filters.
+chunk in each of its filters; PAM, PFM, Sun raster (RLE included), Radiance
+HDR (new-style RLE or flat), GIF (LZW with clear codes or a deferred
+clear, interlace, local tables, graphic control extensions, several
+frames); JPEG from one set of quantised DCT coefficients coded with
+Huffman tables or with T.81's QM coder (as libjpeg's jcarith.c), either
+sequential or progressive, with DAC and restarts; and lossless JPEG (SOF3)
+at each predictor, precision and point transform.
 
 `make_image_fixtures.py` writes the committed fixtures with them (beside
 cv2's and PIL's encoders), and `chip_smoke.py`'s phase 21 (f) writes its
@@ -726,3 +732,1025 @@ def vp8x(chunks, w, h, *, alpha=False, exif=False) -> bytes:
     head = struct.pack("<I", flags) + struct.pack("<I", w - 1)[:3] \
         + struct.pack("<I", h - 1)[:3]
     return riff([(b"VP8X", head)] + list(chunks))
+
+
+# --------------------------------------------------------------------- PAM
+
+def pam(samples, *, maxval=255, tupltype=None, depth=None, comments=False,
+        order=("WIDTH", "HEIGHT", "DEPTH", "MAXVAL")) -> bytes:
+    """P7 of `samples` ([H, W] or [H, W, C] as stored); `depth` overrides
+    the DEPTH line, `tupltype` adds a TUPLTYPE line, `order` is the order
+    of the other header lines."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, c = samples.shape
+    vals = {"WIDTH": w, "HEIGHT": h, "DEPTH": c if depth is None else depth,
+            "MAXVAL": maxval}
+    head = ["P7"] + (["# written by hand"] if comments else [])
+    head += [f"{k} {vals[k]}" for k in order]
+    if tupltype:
+        head.append(f"TUPLTYPE {tupltype}")
+    head.append("ENDHDR")
+    dt = ">u2" if maxval > 255 else np.uint8
+    return ("\n".join(head) + "\n").encode() + samples.astype(dt).tobytes()
+
+
+# --------------------------------------------------------------------- PFM
+
+def pfm(img, *, scale=-1.0) -> bytes:
+    """PF (float32 [H, W, 3], RGB) or Pf ([H, W]); rows stored bottom-up,
+    little-endian where `scale` is negative."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    head = (b"PF\n" if img.ndim == 3 else b"Pf\n") + f"{w} {h}\n".encode()
+    head += f"{scale}\n".encode()
+    return head + img[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+
+
+# -------------------------------------------------------------- Sun raster
+
+def _sun_rle(data: bytes) -> bytes:
+    """Sun's byte encoding: 0x80 n v is n + 1 copies of v, 0x80 0x00 a
+    single 0x80."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 255:
+            j += 1
+        run = j - i + 1
+        if run >= 3 or (data[i] == 0x80 and run >= 2):
+            out += bytes([0x80, run - 1, data[i]])
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            run = 1
+        else:
+            out += bytes(data[i:i + run])
+        i += run
+    return bytes(out)
+
+
+def sunras(pixels, depth, *, rtype=1, palette=None, maplength=None,
+           length=None) -> bytes:
+    """A Sun raster of `pixels`: indices (or bits) [H, W] at depth 1 / 8,
+    colour [H, W, 3] (24) or [H, W, 4] (32) in file order (BGR / XBGR, or
+    RGB / XRGB for RT_FORMAT_RGB, `rtype` 3); rows padded to 16 bits;
+    `rtype` 2 (RT_BYTE_ENCODED) RLE-codes the padded rows; `palette`
+    [n, 3] RGB (maptype RMT_EQUAL_RGB)."""
+    pixels = np.asarray(pixels)
+    h, w = pixels.shape[:2]
+    if depth == 1:
+        rows = np.packbits(pixels.astype(np.uint8), axis=1)
+    else:
+        rows = pixels.astype(np.uint8).reshape(h, -1)
+    if rows.shape[1] % 2:
+        rows = np.concatenate([rows, np.zeros((h, 1), np.uint8)], 1)
+    data = rows.tobytes()
+    if rtype == 2:
+        data = _sun_rle(data)
+    cmap = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        cmap = pal[:, 0].tobytes() + pal[:, 1].tobytes() + pal[:, 2].tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth,
+                       len(data) if length is None else length, rtype,
+                       1 if palette is not None else 0,
+                       len(cmap) if maplength is None else maplength)
+    return head + cmap + data
+
+
+# ------------------------------------------------------------ Radiance HDR
+
+def rgbe(rgb) -> np.ndarray:
+    """float [..., 3] -> RGBE bytes [..., 4] (Greg Ward's float2rgbe)."""
+    rgb = np.asarray(rgb, np.float64)
+    v = rgb.max(-1)
+    m, e = np.frexp(v)
+    scale = np.where(v < 1e-32, 0.0, m * 256.0 / np.where(v < 1e-32, 1, v))
+    out = np.zeros(rgb.shape[:-1] + (4,), np.uint8)
+    out[..., :3] = (rgb * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(v < 1e-32, 0, e + 128).astype(np.uint8)
+    return out
+
+
+def _hdr_rle_line(line: np.ndarray) -> bytes:
+    """One scanline of RGBE bytes [W, 4], new-style RLE: 2 2 W, then each
+    component in runs (128 + n, v) and literals (n, n bytes)."""
+    w = len(line)
+    out = bytearray([2, 2, w >> 8, w & 255])
+    for c in range(4):
+        d = line[:, c].tobytes()
+        i = 0
+        while i < w:
+            j = i
+            while j + 1 < w and d[j + 1] == d[i] and j - i < 126:
+                j += 1
+            if j - i + 1 >= 4:
+                out += bytes([128 + j - i + 1, d[i]])
+                i = j + 1
+                continue
+            k = i
+            while k < w and k - i < 128:
+                if k + 3 < w and d[k] == d[k + 1] == d[k + 2] == d[k + 3]:
+                    break
+                k += 1
+            k = max(k, i + 1)
+            out += bytes([k - i]) + d[i:k]
+            i = k
+    return bytes(out)
+
+
+def hdr(rgb, *, rle=True, magic=b"#?RADIANCE", fmt=b"32-bit_rle_rgbe",
+        lines=(), size=None, raw=None) -> bytes:
+    """Radiance RGBE of float `rgb` [H, W, 3] (or `raw` RGBE bytes [H, W,
+    4]): the header lines `lines` before FORMAT, then the size line (`size`,
+    default "-Y H +X W"), then scanlines in new-style RLE or flat."""
+    px = rgbe(rgb) if raw is None else np.asarray(raw, np.uint8)
+    h, w = px.shape[:2]
+    head = magic + b"\n" + b"".join(x + b"\n" for x in lines)
+    if fmt is not None:
+        head += b"FORMAT=" + fmt + b"\n"
+    head += b"\n" + (size or f"-Y {h} +X {w}".encode()) + b"\n"
+    body = (b"".join(_hdr_rle_line(px[y]) for y in range(h)) if rle
+            else px.tobytes())
+    return head + body
+
+
+# --------------------------------------------------------------------- GIF
+
+def gif_lzw(indices, min_code_size, *, clear_every=None,
+            deferred=False) -> bytes:
+    """GIF's LZW of palette indices (least significant bit first): a clear
+    code first, codes widened as the decoder widens them, a clear code
+    when the table fills (or after `clear_every` codes); `deferred` keeps
+    the full 4,096-entry table and goes on at 12 bits instead."""
+    idx = [int(v) for v in np.asarray(indices).reshape(-1)]
+    clear, eoi = 1 << min_code_size, (1 << min_code_size) + 1
+    acc = nacc = 0
+    out = bytearray()
+
+    def put(code, size):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    def reset():
+        return {}, eoi + 1, min_code_size + 1, eoi + 1, True
+
+    table, nxt, size, dec_next, first = reset()
+    put(clear, size)
+    emitted = 0
+
+    def emit(code):
+        # the code at the width the decoder reads it; the decoder adds an
+        # entry for every code after the first one that follows a clear
+        nonlocal size, dec_next, first, emitted
+        put(code, size)
+        emitted += 1
+        if first:
+            first = False
+            return
+        if dec_next < 4096:
+            dec_next += 1
+            if dec_next == 1 << size and size < 12:
+                size += 1
+
+    prefix = idx[0]
+    for k in idx[1:]:
+        key = (prefix, k)
+        if key in table:
+            prefix = table[key]
+            continue
+        emit(prefix)
+        if clear_every and emitted >= clear_every:
+            put(clear, size)
+            table, nxt, size, dec_next, first = reset()
+            emitted = 0
+        elif nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+        elif not deferred:
+            put(clear, size)
+            table, nxt, size, dec_next, first = reset()
+        prefix = k
+    emit(prefix)
+    put(eoi, size)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _gif_table(pal, size_bits):
+    pal = np.asarray(pal, np.uint8).reshape(-1, 3)
+    full = np.zeros((1 << (size_bits + 1), 3), np.uint8)
+    full[:len(pal)] = pal[:len(full)]
+    return full.tobytes()
+
+
+def gif(frames, width, height, *, palette=None, background=0,
+        version=b"GIF89a", loop=None, trailer=True) -> bytes:
+    """A GIF of `frames`, each a dict: "indices" [h, w], optional "x", "y"
+    (offset in the logical screen), "palette" (a local colour table, RGB
+    [n, 3]), "interlace", "transparent" (an index: a graphic control
+    extension with that index), "disposal" (0-3), "delay", "min_code_size"
+    (default the palette's bits, at least 2) and LZW options "clear_every",
+    "deferred". `palette` is the global colour table."""
+    out = bytearray(version)
+    gbits = 0
+    if palette is not None:
+        n = len(np.asarray(palette).reshape(-1, 3))
+        gbits = max(0, int(np.ceil(np.log2(max(n, 2)))) - 1)
+    packed = (0x80 | 0x70 | gbits) if palette is not None else 0x70
+    out += struct.pack("<HHBBB", width, height, packed, background, 0)
+    if palette is not None:
+        out += _gif_table(palette, gbits)
+    if loop is not None:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack(
+            "<H", loop) + b"\0"
+    for f in frames:
+        idx = np.asarray(f["indices"])
+        fh, fw = idx.shape
+        if "transparent" in f or "disposal" in f or "delay" in f:
+            flags = (f.get("disposal", 0) << 2) | ("transparent" in f)
+            out += b"\x21\xf9\x04" + struct.pack(
+                "<BHB", flags, f.get("delay", 0),
+                f.get("transparent", 0)) + b"\0"
+        lpal = f.get("palette")
+        lbits = 0
+        if lpal is not None:
+            n = len(np.asarray(lpal).reshape(-1, 3))
+            lbits = max(0, int(np.ceil(np.log2(max(n, 2)))) - 1)
+        packed = ((0x80 | lbits) if lpal is not None else 0) | (
+            0x40 if f.get("interlace") else 0)
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("x", 0), f.get("y", 0),
+                                     fw, fh, packed)
+        if lpal is not None:
+            out += _gif_table(lpal, lbits)
+        if f.get("interlace"):
+            order = (list(range(0, fh, 8)) + list(range(4, fh, 8))
+                     + list(range(2, fh, 4)) + list(range(1, fh, 2)))
+            idx = idx[order]
+        mcs = f.get("min_code_size")
+        if mcs is None:
+            mcs = max(2, int(idx.max(initial=0)).bit_length())
+        out.append(mcs)
+        out += _gif_blocks(gif_lzw(idx, mcs,
+                                   clear_every=f.get("clear_every"),
+                                   deferred=f.get("deferred", False)))
+    if trailer:
+        out += b"\x3b"
+    return bytes(out)
+
+
+# -------------------------------------------------------------------- JPEG
+
+JPEG_NATURAL = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_Q_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_Q_CHROMA = np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66]
+                     + [99] * 4 + [24, 26, 56] + [99] * 5 + [47, 66]
+                     + [99] * 38)
+
+
+def _dct8():
+    k, n = np.mgrid[0:8, 0:8]
+    c = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    c[0] /= np.sqrt(2)
+    return c
+
+
+def jpeg_coefficients(img, *, quality=75, sampling=None, precision=8,
+                      rgb=False):
+    """Quantised DCT coefficients of `img` (gray [H, W], or [H, W, C]:
+    3 channels RGB, converted to YCbCr unless `rgb`; other counts coded as
+    they are) at libjpeg's `quality` scaling of the Annex K tables.
+    `sampling` is each component's (h, v) (default all (1, 1)). Returns a
+    dict: "width", "height", "precision", "qtables" {index: natural-order
+    [64]}, "comps": [{"id", "h", "v", "tq", "coef": [bhp, bwp, 64]
+    natural order}], which `jpeg` codes."""
+    img = np.asarray(img, np.float64)
+    if img.ndim == 2:
+        img = img[..., None]
+    hgt, wid, nc = img.shape
+    top = (1 << precision) - 1
+    if nc == 3 and not rgb:
+        r, g, b = img[..., 0], img[..., 1], img[..., 2]
+        mid = 1 << (precision - 1)
+        img = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                        -0.168736 * r - 0.331264 * g + 0.5 * b + mid,
+                        0.5 * r - 0.418688 * g - 0.081312 * b + mid], -1)
+    sampling = sampling or [(1, 1)] * nc
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux = -(-wid // (8 * hmax))
+    mcuy = -(-hgt // (8 * vmax))
+    pad = np.pad(np.clip(img, 0, top),
+                 ((0, mcuy * 8 * vmax - hgt), (0, mcux * 8 * hmax - wid),
+                  (0, 0)), mode="edge")
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qtables = {}
+    for t, base in enumerate((_Q_LUMA, _Q_CHROMA)):
+        qtables[t] = np.clip((base * scale + 50) // 100, 1, 255)
+    d = _dct8()
+    comps = []
+    for ci, (h, v) in enumerate(sampling):
+        fy, fx = vmax // v, hmax // h
+        plane = pad[..., ci].reshape(pad.shape[0] // fy, fy,
+                                     pad.shape[1] // fx, fx).mean((1, 3))
+        plane = plane - (1 << (precision - 1))
+        bh, bw = plane.shape[0] // 8, plane.shape[1] // 8
+        blocks = plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+        coef = d @ blocks @ d.T
+        tq = 0 if ci == 0 or nc != 3 or rgb else 1
+        q = qtables[tq].reshape(8, 8)
+        comps.append({"id": ci + 1, "h": h, "v": v, "tq": tq,
+                      "coef": np.round(coef / q).astype(np.int64).reshape(
+                          bh, bw, 64)})
+    return {"width": wid, "height": hgt, "precision": precision,
+            "qtables": qtables, "comps": comps}
+
+
+def _marker(m, body=b""):
+    return bytes([0xFF, m]) + (struct.pack(">H", len(body) + 2) + body
+                               if body is not None else b"")
+
+
+def _jfif():
+    return _marker(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+
+
+def _dqt(qtables):
+    body = b""
+    for t, q in qtables.items():
+        q = np.asarray(q)[JPEG_NATURAL]
+        if q.max() > 255:
+            body += bytes([0x10 | t]) + q.astype(">u2").tobytes()
+        else:
+            body += bytes([t]) + q.astype(np.uint8).tobytes()
+    return _marker(0xDB, body)
+
+
+def _sof(marker, c, comps):
+    body = struct.pack(">BHHB", c["precision"], c["height"], c["width"],
+                       len(comps))
+    for k in comps:
+        body += bytes([k["id"], (k["h"] << 4) | k["v"], k.get("tq", 0)])
+    return _marker(marker, body)
+
+
+def _scan_blocks(c, sc):
+    """The blocks of a scan in coding order: (component position in the
+    scan, component, by, bx) per block, grouped in MCUs."""
+    comps = c["comps"]
+    hmax = max(k["h"] for k in comps)
+    vmax = max(k["v"] for k in comps)
+    if len(sc) == 1:
+        k = comps[sc[0]]
+        dw = -(-c["width"] * k["h"] // hmax)
+        dh = -(-c["height"] * k["v"] // vmax)
+        return [[(0, sc[0], by, bx)] for by in range(-(-dh // 8))
+                for bx in range(-(-dw // 8))]
+    mcux = -(-c["width"] // (8 * hmax))
+    mcuy = -(-c["height"] // (8 * vmax))
+    return [[(i, ci, my * comps[ci]["v"] + y, mx * comps[ci]["h"] + x)
+             for i, ci in enumerate(sc) for y in range(comps[ci]["v"])
+             for x in range(comps[ci]["h"])]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+class _Bits:
+    """JPEG's entropy-coded bytes: most significant bit first, 0xFF
+    stuffed with 0x00, padded with 1 bits."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, value, nbits):
+        if nbits <= 0:
+            return
+        self.acc = (self.acc << nbits) | (value & ((1 << nbits) - 1))
+        self.n += nbits
+        while self.n >= 8:
+            self.n -= 8
+            b = (self.acc >> self.n) & 255
+            self.out.append(b)
+            if b == 255:
+                self.out.append(0)
+        self.acc &= (1 << self.n) - 1
+
+    def flush(self):
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+        data, self.out = bytes(self.out), bytearray()
+        return data
+
+
+def _pack_msb(values, nbits) -> bytes:
+    """Entropy-coded bytes of (value, nbits) pairs, most significant bit
+    first, 0xFF stuffed with 0x00, padded with 1 bits (numpy)."""
+    v = np.asarray(values, np.uint64)
+    n = np.asarray(nbits, np.int64)
+    keep = n > 0
+    v, n = v[keep], n[keep]
+    idx = np.repeat(np.arange(len(n)), n)
+    pos = np.arange(int(n.sum())) - (np.cumsum(n) - n)[idx]
+    bits = ((v[idx] >> (n[idx] - 1 - pos).astype(np.uint64))
+            & np.uint64(1)).astype(np.uint8)
+    pad = (-len(bits)) % 8
+    bits = np.concatenate([bits, np.ones(pad, np.uint8)])
+    out = np.packbits(bits)
+    ff = np.flatnonzero(out == 0xFF)
+    return np.insert(out, ff + 1, 0).tobytes()
+
+
+def _category(v):
+    return int(abs(int(v))).bit_length()
+
+
+def _extra(v, s):
+    return v if v >= 0 else v - 1 + (1 << s)
+
+
+def _huff_table(counts):
+    """A JPEG Huffman table (BITS, HUFFVAL, symbol -> (code, length)) for
+    symbol counts, no code longer than 16 and none all ones."""
+    counts = np.asarray(counts, np.int64)
+    c = np.concatenate([counts, [1]])          # the reserved all-ones code
+    lengths = _code_lengths(c, 16)
+    res = len(counts)
+    deepest = int(np.argmax(lengths))           # the reserved code among
+    lengths[[res, deepest]] = lengths[[deepest, res]]   # the longest
+    syms = sorted(np.flatnonzero(lengths),
+                  key=lambda s: (lengths[s], s == res, s))
+    bits = [0] * 17
+    codes, code, prev = {}, 0, 0
+    for s in syms:
+        code <<= int(lengths[s]) - prev
+        prev = int(lengths[s])
+        bits[prev] += 1
+        codes[int(s)] = (code, prev)
+        code += 1
+    bits[prev] -= 1
+    return bytes(bits[1:]), bytes(int(s) for s in syms[:-1]), codes
+
+
+def _huff_events(c, scan, coefs):
+    """A scan's Huffman events, per MCU: (kind, table, symbol, extra,
+    nbits), kind "dc" / "ac" / "raw" (raw bits only)."""
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    mcus = _scan_blocks(c, scan["comps"])
+    pred = [0] * 4
+    out = []
+    interval = scan.get("restart", 0)
+    for m, mcu in enumerate(mcus):
+        if interval and m and m % interval == 0:
+            pred = [0] * 4
+            out.append([("rst", None, None, 0, 0)])
+        ev = []
+        for i, ci, by, bx in mcu:
+            blk = coefs[ci][by, bx]
+            zz = blk[JPEG_NATURAL]
+            if ss == 0 and ah == 0:
+                dc = int(zz[0]) >> al
+                d = dc - pred[i]
+                pred[i] = dc
+                s = _category(d)
+                ev.append(("dc", ci, s, _extra(d, s), s))
+            elif ss == 0:
+                ev.append(("raw", None, None, (int(zz[0]) >> al) & 1, 1))
+            if se == 0:
+                continue
+            lo = max(ss, 1)
+            if ah == 0:
+                r = 0
+                for k in range(lo, se + 1):
+                    v = int(zz[k])
+                    t = abs(v) >> al
+                    if t == 0:
+                        r += 1
+                        continue
+                    while r > 15:
+                        ev.append(("ac", ci, 0xF0, 0, 0))
+                        r -= 16
+                    s = _category(t)
+                    ev.append(("ac", ci, (r << 4) | s,
+                               _extra(t if v > 0 else -t, s), s))
+                    r = 0
+                if r:
+                    ev.append(("ac", ci, 0x00, 0, 0))
+            else:
+                absz = [abs(int(zz[k])) >> al for k in range(64)]
+                eob = max([k for k in range(lo, se + 1) if absz[k] == 1],
+                          default=0)
+                r, br = 0, []
+                for k in range(lo, se + 1):
+                    t = absz[k]
+                    if t == 0:
+                        r += 1
+                        continue
+                    while r > 15 and k <= eob:
+                        ev.append(("ac", ci, 0xF0, 0, 0))
+                        ev += [("raw", None, None, b, 1) for b in br]
+                        br = []
+                        r -= 16
+                    if t > 1:
+                        br.append(t & 1)
+                        continue
+                    ev.append(("ac", ci, (r << 4) | 1,
+                               1 if zz[k] > 0 else 0, 1))
+                    ev += [("raw", None, None, b, 1) for b in br]
+                    br, r = [], 0
+                if r or br:
+                    ev.append(("ac", ci, 0x00, 0, 0))
+                    ev += [("raw", None, None, b, 1) for b in br]
+        out.append(ev)
+    return out
+
+
+# T.81 Table D.2 as libjpeg packs it: Qe << 16 | Next_MPS << 8 |
+# Switch_MPS << 7 | Next_LPS
+_QE = [(0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+       (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0),
+       (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0),
+       (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+       (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+       (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0),
+       (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0cef, 43, 21, 0),
+       (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+       (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+       (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+       (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0),
+       (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+       (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0),
+       (0x2ef1, 67, 40, 0), (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0),
+       (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+       (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+       (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0),
+       (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0),
+       (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0),
+       (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+       (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0),
+       (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0),
+       (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0),
+       (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+       (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+       (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0),
+       (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0), (0x5832, 80, 81, 1),
+       (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+       (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0),
+       (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+       (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0),
+       (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+       (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0),
+       (0x3c3d, 104, 100, 0), (0x375e, 99, 93, 0), (0x5231, 105, 102, 0),
+       (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+       (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+       (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1),
+       (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class QMEncoder:
+    """T.81 Annex D's arithmetic (QM) coder as libjpeg's jcarith.c
+    implements it: statistics bins hold the state index and the MPS in bit
+    7; `bytes()` terminates the segment (D.1.8) and returns it stuffed."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = (
+            0, 0x10000, 0, 0, 11, -1)
+
+    def _emit(self, b):
+        self.out.append(b)
+
+    def _zeros(self):
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st, i, val):
+        sv = st[i]
+        qe, nlps, nmps, switch = _QE[sv & 0x7F]
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ (nlps | (switch << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nmps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self._emit((self.buffer + 1) & 0xFF)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    if self.buffer == 0:
+                        self.zc += 1
+                    elif self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer)
+                    if self.sc:
+                        self._zeros()
+                        for _ in range(self.sc):
+                            self._emit(0xFF)
+                            self._emit(0)
+                        self.sc = 0
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def bytes(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit((self.buffer + 1) & 0xFF)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._zeros()
+                for _ in range(self.sc):
+                    self._emit(0xFF)
+                    self._emit(0)
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if (self.c >> 19) & 0xFF == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if (self.c >> 11) & 0xFF == 0xFF:
+                    self._emit(0)
+        data, self.out = bytes(self.out), bytearray()
+        self.reset()
+        return data
+
+
+def _arith_value(enc, stats, base, v, k, kx, fixed, dc_ctx=None):
+    """Figures F.6-F.9 for a nonzero `v` (DC when `dc_ctx` is given: the
+    bins from S0 = base; AC: the bins after SE = base)."""
+    if dc_ctx is not None:
+        st = base
+        if v > 0:
+            enc.encode(stats, st + 1, 0)
+            st += 2
+        else:
+            v = -v
+            enc.encode(stats, st + 1, 1)
+            st += 3
+    else:
+        enc.encode(fixed, 0, 0 if v > 0 else 1)
+        v = abs(v)
+        st = base + 2
+    m = 0
+    v -= 1
+    if v:
+        enc.encode(stats, st, 1)
+        m = 1
+        v2 = v
+        if dc_ctx is not None:
+            st = 20
+            v2 >>= 1
+            while v2:
+                enc.encode(stats, st, 1)
+                m <<= 1
+                st += 1
+                v2 >>= 1
+        else:
+            v2 >>= 1
+            if v2:
+                enc.encode(stats, st, 1)
+                m <<= 1
+                st = 189 if k <= kx else 217
+                v2 >>= 1
+                while v2:
+                    enc.encode(stats, st, 1)
+                    m <<= 1
+                    st += 1
+                    v2 >>= 1
+    enc.encode(stats, st, 0)
+    st += 14
+    mm = m
+    while mm > 1:
+        mm >>= 1
+        enc.encode(stats, st, 1 if mm & v else 0)
+    return m
+
+
+def _arith_scan(c, scan, coefs, dac):
+    """A scan's arithmetic-coded segments (one per restart interval)."""
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    comps = [c["comps"][ci] for ci in scan["comps"]]
+    progressive = scan.get("progressive", False)
+    mcus = _scan_blocks(c, scan["comps"])
+    interval = scan.get("restart", 0)
+    enc = QMEncoder()
+    fixed = [113]
+    segments = []
+
+    def fresh():
+        return ({k.get("dc_tbl", 0): [0] * 64 for k in comps},
+                {k.get("ac_tbl", 0): [0] * 256 for k in comps},
+                [0] * 4, [0] * 4)
+
+    dc_stats, ac_stats, last, ctx = fresh()
+    for m, mcu in enumerate(mcus):
+        if interval and m and m % interval == 0:
+            segments.append(enc.bytes())
+            dc_stats, ac_stats, last, ctx = fresh()
+        for i, ci, by, bx in mcu:
+            k_ = comps[i]
+            zz = coefs[ci][by, bx][JPEG_NATURAL]
+            dt, at = k_.get("dc_tbl", 0), k_.get("ac_tbl", 0)
+            lo_, hi_ = dac.get(("dc", dt), (0, 1))
+            kx = dac.get(("ac", at), 5)
+            if ss == 0 and ah == 0:
+                dc = int(zz[0]) >> al
+                st = dc_stats[dt]
+                v = dc - last[i]
+                if v == 0:
+                    enc.encode(st, ctx[i], 0)
+                    ctx[i] = 0
+                else:
+                    last[i] = dc
+                    enc.encode(st, ctx[i], 1)
+                    base = ctx[i]
+                    m_ = _arith_value(enc, st, base, v, 0, 0, fixed,
+                                      dc_ctx=True)
+                    if m_ < (1 << lo_) >> 1:
+                        ctx[i] = 0
+                    elif m_ > (1 << hi_) >> 1:
+                        ctx[i] = 12 if v > 0 else 16
+                    else:
+                        ctx[i] = 4 if v > 0 else 8
+            elif ss == 0:
+                enc.encode(fixed, 0, (int(zz[0]) >> al) & 1)
+            if se == 0:
+                continue
+            st = ac_stats[at]
+            lo = max(ss, 1)
+            t = [abs(int(x)) >> al for x in zz]
+            ke = max([k for k in range(lo, se + 1) if t[k]], default=0)
+            if not progressive or ah == 0:
+                k = lo
+                while k <= ke:
+                    enc.encode(st, 3 * (k - 1), 0)
+                    while t[k] == 0:
+                        enc.encode(st, 3 * (k - 1) + 1, 0)
+                        k += 1
+                    enc.encode(st, 3 * (k - 1) + 1, 1)
+                    v = t[k] if zz[k] > 0 else -t[k]
+                    _arith_value(enc, st, 3 * (k - 1), v, k, kx, fixed)
+                    k += 1
+                if k <= se:
+                    enc.encode(st, 3 * (k - 1), 1)
+            else:
+                tx = [abs(int(x)) >> ah for x in zz]
+                kex = max([k for k in range(lo, ke + 1) if tx[k]], default=0)
+                k = lo
+                while k <= ke:
+                    if k > kex:
+                        enc.encode(st, 3 * (k - 1), 0)
+                    while True:
+                        if t[k]:
+                            if t[k] >> 1:
+                                enc.encode(st, 3 * (k - 1) + 2, t[k] & 1)
+                            else:
+                                enc.encode(st, 3 * (k - 1) + 1, 1)
+                                enc.encode(fixed, 0, 0 if zz[k] > 0 else 1)
+                            break
+                        enc.encode(st, 3 * (k - 1) + 1, 0)
+                        k += 1
+                    k += 1
+                if k <= se:
+                    enc.encode(st, 3 * (k - 1), 1)
+    segments.append(enc.bytes())
+    return segments
+
+
+def progressive_script(ncomp):
+    """A progressive script with spectral selection and successive
+    approximation (DC at Al 1, AC bands at Al 2 / 1, then refinements)."""
+    all_ = list(range(ncomp))
+    s = [dict(comps=all_, ss=0, se=0, ah=0, al=1)]
+    s += [dict(comps=[i], ss=1, se=5, ah=0, al=2) for i in all_]
+    s += [dict(comps=[i], ss=6, se=63, ah=0, al=1) for i in all_]
+    s += [dict(comps=all_, ss=0, se=0, ah=1, al=0)]
+    s += [dict(comps=[i], ss=1, se=5, ah=2, al=1) for i in all_]
+    s += [dict(comps=[i], ss=1, se=63, ah=1, al=0) for i in all_]
+    return s
+
+
+def jpeg(c, *, coding="huffman", progressive=False, restart=0, dac=None,
+         scans=None, sof=None, jfif=True, tables=None) -> bytes:
+    """A JPEG of `jpeg_coefficients` `c`: Huffman (optimal tables, a DHT
+    before each scan) or arithmetic (`coding="arith"`, the QM coder; `dac`
+    {("dc", t): (L, U), ("ac", t): Kx} written as a DAC segment)
+    sequential or progressive (`scans` a list of dicts with "comps", "ss",
+    "se", "ah", "al"; default one interleaved sequential scan, or
+    `progressive_script`); `restart` MCUs per interval; `sof` overrides
+    the frame marker; `tables` {component index: (dc table, ac table)}."""
+    arith = coding == "arith"
+    dac = dac or {}
+    if sof is None:
+        sof = (0xCA if progressive else 0xC9) if arith else (
+            0xC2 if progressive else 0xC0 if c["precision"] == 8 else 0xC1)
+    n = len(c["comps"])
+    if scans is None:
+        scans = (progressive_script(n) if progressive
+                 else [dict(comps=list(range(n)), ss=0, se=63, ah=0, al=0)])
+    tables = tables or {}
+    for i, k in enumerate(c["comps"]):
+        k["dc_tbl"], k["ac_tbl"] = tables.get(i, (0, 0) if i == 0 or arith
+                                              else (1, 1))
+    coefs = [k["coef"] for k in c["comps"]]
+    out = b"\xff\xd8" + (_jfif() if jfif and n in (1, 3) else b"")
+    out += _dqt(c["qtables"]) + _sof(sof, c, c["comps"])
+    if dac:
+        body = b""
+        for (kind, t), v in sorted(dac.items()):
+            body += (bytes([t, (v[1] << 4) | v[0]]) if kind == "dc"
+                     else bytes([0x10 | t, v]))
+        out += _marker(0xCC, body)
+    if restart:
+        out += _marker(0xDD, struct.pack(">H", restart))
+    for scan in scans:
+        scan = dict(scan, restart=restart, progressive=progressive)
+        sc = scan["comps"]
+        head = bytes([len(sc)])
+        for ci in sc:
+            k = c["comps"][ci]
+            head += bytes([k["id"], (k["dc_tbl"] << 4) | k["ac_tbl"]])
+        head += bytes([scan["ss"], scan["se"], (scan["ah"] << 4)
+                       | scan["al"]])
+        if arith:
+            segs = _arith_scan(c, scan, coefs, dac)
+        else:
+            mcus = _huff_events(c, scan, coefs)
+            counts = {}
+            for ev in mcus:
+                for kind, ci, sym, _, _ in ev:
+                    if kind in ("dc", "ac"):
+                        t = c["comps"][ci][kind + "_tbl"]
+                        counts.setdefault((kind, t), np.zeros(256, np.int64))
+                        counts[(kind, t)][sym] += 1
+            codes, dht = {}, b""
+            for (kind, t), cnt in sorted(counts.items()):
+                bits, vals, codes[(kind, t)] = _huff_table(cnt)
+                dht += bytes([(0x10 if kind == "ac" else 0) | t]) + bits + vals
+            if dht:
+                out += _marker(0xC4, dht)
+            bw, segs = _Bits(), []
+            for ev in mcus:
+                for kind, ci, sym, extra, nbits in ev:
+                    if kind == "rst":
+                        segs.append(bw.flush())
+                        continue
+                    if kind != "raw":
+                        code, length = codes[(kind, c["comps"][ci][
+                            kind + "_tbl"])][sym]
+                        bw.put(code, length)
+                    bw.put(extra, nbits)
+            segs.append(bw.flush())
+        out += _marker(0xDA, head)
+        for j, seg in enumerate(segs):
+            if j:
+                out += bytes([0xFF, 0xD0 + (j - 1) % 8])
+            out += seg
+    return out + b"\xff\xd9"
+
+
+def jpeg_lossless(samples, *, precision=8, predictor=1, pt=0, restart=0,
+                  sof=0xC3, ids=None, sampling=None, markers=b"") -> bytes:
+    """A lossless (SOF3, Huffman) JPEG of integer `samples` ([H, W] or
+    [H, W, C], each below 2^precision, interleaved): predictor `predictor`
+    1-7 on the samples shifted right by the point transform `pt`; each
+    component (h, v) of `sampling` (default all 1x1) takes every
+    (hmax / h, vmax / v)-th sample of the image padded to whole MCUs;
+    `restart` MCUs per interval, whole MCU rows; `markers` go after SOI;
+    `sof` 0xCB writes the same data under SOF11."""
+    x = np.asarray(samples, np.int64)
+    if x.ndim == 2:
+        x = x[..., None]
+    hgt, wid, n = x.shape
+    sampling = sampling or [(1, 1)] * n
+    frame = sampling
+    if n == 1:              # a non-interleaved scan: an MCU is one sample
+        sampling = [(1, 1)]
+    hmax = max(s[0] for s in sampling)
+    vmax = max(s[1] for s in sampling)
+    mcux, mcuy = -(-wid // hmax), -(-hgt // vmax)
+    if restart and restart % mcux:
+        raise ValueError("restart must be a whole number of MCU rows")
+    full = np.pad(x >> pt, ((0, mcuy * vmax - hgt), (0, mcux * hmax - wid),
+                            (0, 0)), mode="edge")
+    diffs, cats = [], []
+    for ci, (h, v) in enumerate(sampling):
+        p = full[::vmax // v, ::hmax // h, ci]
+        ph, pw = p.shape
+        pad = np.zeros((ph, pw + 1), np.int64)
+        pad[:, 1:] = p
+        ra = pad[:, :-1]
+        rb = np.concatenate([np.zeros((1, pw), np.int64), p[:-1]])
+        rc = np.concatenate([np.zeros((1, pw), np.int64), pad[:-1, :-1]])
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                7: (ra + rb) >> 1}[predictor].copy()
+        pred[:, 0] = rb[:, 0]
+        rows_per = (restart // mcux) * v if restart else ph
+        first = np.arange(ph) % rows_per == 0
+        pred[first, 1:] = p[first, :-1]
+        pred[first, 0] = 1 << (precision - pt - 1)
+        d = (p - pred) & 0xFFFF
+        d = np.where(d >= 32768, d - 65536, d)
+        diffs.append(d)
+        cats.append(sum((np.abs(d) >= (1 << b)).astype(np.int64)
+                        for b in range(17)))
+    counts = sum(np.bincount(cc.reshape(-1), minlength=256) for cc in cats)
+    bits, vals, codes = _huff_table(counts)
+    code = np.zeros(17, np.int64)
+    clen = np.zeros(17, np.int64)
+    for sym in range(17):
+        if sym in codes:
+            code[sym], clen[sym] = codes[sym]
+    # the samples in coding order: MCU by MCU, each component's h x v block
+    def mcu_order(planes):
+        return np.concatenate([
+            p.reshape(mcuy, v, mcux, h).transpose(0, 2, 1, 3).reshape(
+                mcuy * mcux, v * h) for p, (h, v) in zip(planes, sampling)],
+            1)
+
+    d, cc = mcu_order(diffs), mcu_order(cats)
+    ext = np.where(d >= 0, d, d - 1 + (1 << cc)) & ((1 << cc) - 1)
+    xl = np.where(cc == 16, 0, cc)
+    segs = []
+    for m0 in range(0, mcux * mcuy, restart or mcux * mcuy):
+        sl = slice(m0, m0 + (restart or mcux * mcuy))
+        segs.append(_pack_msb(
+            np.stack([code[cc[sl]], ext[sl]], -1).reshape(-1),
+            np.stack([clen[cc[sl]], xl[sl]], -1).reshape(-1)))
+    ids = ids or list(range(1, n + 1))
+    c = {"precision": precision, "height": hgt, "width": wid}
+    out = b"\xff\xd8" + markers + _sof(sof, c, [
+        {"id": i, "h": h, "v": v, "tq": 0}
+        for i, (h, v) in zip(ids, frame)])
+    if sof != 0xCB:
+        out += _marker(0xC4, b"\x00" + bits + vals)
+    if restart:
+        out += _marker(0xDD, struct.pack(">H", restart))
+    out += _marker(0xDA, bytes([n]) + b"".join(bytes([i, 0]) for i in ids)
+                   + bytes([predictor, 0, pt]))
+    for j, seg in enumerate(segs):
+        if j:
+            out += bytes([0xFF, 0xD0 + (j - 1) % 8])
+        out += seg
+    return out + b"\xff\xd9"

@@ -22,10 +22,16 @@ tests/data/images/
                    samples, MinIsBlack / MinIsWhite / RGB / palette,
                    Orientation; the four mis-suffixed files of ROADMAP C7
                    (`misnamed_*`); damaged PNGs (C8); animated WebPs (cv2
-                   reads the first frame); files the port refuses (JPEG /
-                   YCbCr / CMYK and 16-bit planar TIFFs) and the
-                   formats it leaves to cv2 (GIF, HDR, Sun raster, PFM,
-                   PAM, AVIF)
+                   reads the first frame); PAM at each TUPLTYPE, PFM,
+                   Sun raster at each depth and type, Radiance HDR
+                   (RLE, flat, the headers and orientations cv2
+                   refuses), GIF (LZW code sizes, a deferred clear,
+                   interlace, local tables, transparency, animation,
+                   offsets); ROADMAP F1's JPEGs (arithmetic coding with
+                   its Huffman twin, lossless SOF3, and the 12-bit, 2-
+                   component, SOF11 and SOF5 files cv2 gives None for);
+                   files the port refuses (JPEG / YCbCr / CMYK and
+                   16-bit planar TIFFs) and AVIF, which it leaves to cv2
   expected.json    "files": for every file, `port` ("equal": the port must
                    give cv2's pixels; "refused": it raises ValueError;
                    "cv2": it reads through cv2, RuntimeError without) and
@@ -35,7 +41,12 @@ tests/data/images/
                    RGB(A) order, or null where cv2 gives None;
                    "scene": a 3-view LLFF scene (a PNG named .jpg, a
                    lossless WebP, a TIFF) and the SHA-256 of JAX's
-                   `load_scene(factor=1)` image stack on it
+                   `load_scene(factor=1)` image stack on it;
+                   "scene_more": the same for `scene_more/`, 7 views of
+                   MORE_SCENE's formats under other suffixes;
+                   "shard_more": the members (fixture, name in the tar)
+                   of a shard of the new formats and the SHA-256 of each
+                   image JAX's `iter_shard_images` streams from it
 
 Hand-written variants come from `image_writers.py` (neither cv2 nor PIL
 writes them); every image is made from a fixed seed.
@@ -436,8 +447,189 @@ def tiff_files(rs):
     return f
 
 
+def pam_files(rs):
+    """PAM at each TUPLTYPE (GRAYSCALE_ALPHA and RGB_ALPHA one pixel wide,
+    where cv2 writes each read whole), 16-bit, MAXVAL below 255, without a
+    TUPLTYPE, and DEPTH against TUPLTYPE (cv2 gives None)."""
+    rgb, rgba = picture(), picture(channels=4)
+    gray = rgb[..., 1]
+    return {
+        "pam_bw.pam": iw.pam((gray > 127).astype(np.uint8), maxval=1,
+                             tupltype="BLACKANDWHITE"),
+        "pam_bw_notype.pam": iw.pam(gray & 1, maxval=1),
+        "pam_gray.pam": iw.pam(gray, tupltype="GRAYSCALE", comments=True),
+        "pam_gray16.pam": iw.pam(wide(gray, rs), maxval=65535,
+                                 tupltype="GRAYSCALE"),
+        "pam_ga_w1.pam": iw.pam(rgba[:, :1, [1, 3]],
+                                tupltype="GRAYSCALE_ALPHA"),
+        "pam_ga16_w1.pam": iw.pam(wide(rgba[:, :1, [1, 3]], rs),
+                                  maxval=65535, tupltype="GRAYSCALE_ALPHA"),
+        "pam_rgb.pam": iw.pam(rgb, tupltype="RGB"),
+        "pam_rgb16.pam": iw.pam(wide(rgb, rs), maxval=65535, tupltype="RGB"),
+        "pam_rgb_notype.pam": iw.pam(rgb, order=("DEPTH", "MAXVAL", "HEIGHT",
+                                                 "WIDTH")),
+        "pam_rgb_maxval100.pam": iw.pam(rgb // 3, maxval=100,
+                                        tupltype="RGB"),
+        "pam_rgba_w1.pam": iw.pam(rgba[:, :1], tupltype="RGB_ALPHA"),
+        "pam_depth_mismatch.pam": iw.pam(rgb, tupltype="GRAYSCALE"),
+    }
+
+
+def pfm_files(rs):
+    """PF / Pf, both byte orders, scales other than 1, values past [0, 2]
+    and NaN / inf (the colour read's unscaled saturate)."""
+    rgb = picture().astype(np.float32)
+    wild = rgb * np.float32(2.3) - np.float32(100)
+    wild[0, :4, 0] = [np.nan, np.inf, -np.inf, 300.5]
+    return {
+        "pfm_rgb_le.pfm": iw.pfm(rgb / 255, scale=-1.0),
+        "pfm_rgb_be.pfm": iw.pfm(rgb / 100, scale=1.0),
+        "pfm_rgb_scaled.pfm": iw.pfm(wild, scale=-0.37),
+        "pfm_gray_le.pfm": iw.pfm(rgb[..., 1] / 50, scale=-1.0),
+        "pfm_gray_be_scaled.pfm": iw.pfm(rgb[..., 2], scale=2.5),
+    }
+
+
+def sunras_files(rs):
+    """Sun rasters at depths 1, 8, 24 and 32, RT_OLD and RT_STANDARD, with
+    an RGB colour map (colour, gray, short) or none, odd widths; and the
+    RT_BYTE_ENCODED and RT_FORMAT_RGB rasters cv2 5.0 refuses."""
+    rgb = picture()
+    bgr = rgb[..., ::-1]
+    idx = rs.randint(0, 256, (H, W))
+    idx[H // 3:, :W // 2] = idx[H // 3, 0]
+    pal = rs.randint(0, 256, (256, 3))
+    bits = (rgb[..., 1] > 127).astype(np.uint8)
+    xbgr = np.concatenate([rs.randint(0, 256, (H, W, 1)), bgr], -1)
+    return {
+        "ras1.ras": iw.sunras(bits, 1),
+        "ras1_pal.ras": iw.sunras(bits, 1, palette=pal[:2]),
+        "ras8_pal.ras": iw.sunras(idx, 8, palette=pal),
+        "ras8_pal_short.ras": iw.sunras(idx % 7, 8, palette=pal[:7]),
+        "ras8_graypal.ras": iw.sunras(idx, 8, palette=np.repeat(
+            np.arange(256)[:, None], 3, 1)),
+        "ras8_nomap.ras": iw.sunras(idx, 8),
+        "ras8_old.ras": iw.sunras(idx, 8, palette=pal, rtype=0),
+        "ras24.ras": iw.sunras(bgr, 24),
+        "ras24_odd.ras": iw.sunras(picture(9, 13, seed=3)[..., ::-1], 24),
+        "ras32.ras": iw.sunras(xbgr, 32),
+        "ras8_rle.ras": iw.sunras(idx, 8, palette=pal, rtype=2),
+        "ras24_rle.ras": iw.sunras(bgr, 24, rtype=2),
+        "ras24_format_rgb.ras": iw.sunras(rgb, 24, rtype=3),
+    }
+
+
+def hdr_files(rs):
+    """Radiance HDR: new-style RLE and flat scanlines, #?RADIANCE and
+    #?RGBE, header lines before FORMAT, a width below 8 (flat throughout),
+    old-style RLE pixels (read as they are); and what cv2 refuses: xyze,
+    +Y / +X orientations, a cut file."""
+    rgb = picture().astype(np.float32) / 255
+    hdr = rgb ** 2 * np.float32(7)
+    old = iw.rgbe(hdr)
+    old[:, 5:9] = [1, 1, 1, 3]   # old-style run marks
+    return {
+        "hdr_rle.hdr": iw.hdr(hdr),
+        "hdr_flat.hdr": iw.hdr(hdr, rle=False, magic=b"#?RGBE"),
+        "hdr_lines.hdr": iw.hdr(rgb, lines=(b"# made by hand",
+                                            b"EXPOSURE=2.0", b"GAMMA=1.0")),
+        "hdr_narrow.hdr": iw.hdr(hdr[:, :6]),
+        "hdr_oldrle.hdr": iw.hdr(None, raw=old, rle=False),
+        "hdr_xyze.hdr": iw.hdr(hdr, fmt=b"32-bit_rle_xyze"),
+        "hdr_plus_y.hdr": iw.hdr(hdr, size=b"+Y 23 +X 37"),
+        "hdr_cut.hdr": iw.hdr(hdr)[:-40],
+    }
+
+
+def gif_files(rs):
+    """GIF at LZW code sizes 2-8, with clear codes, a full table kept with
+    a deferred clear, interlace, global and local tables, a transparent
+    index, an animation, a frame smaller than the screen at an offset,
+    PIL's GIF; and cut data (cv2 gives None)."""
+    rgb = picture()
+    f = {}
+    for mcs in (2, 3, 5, 8):
+        pal = rs.randint(0, 256, (1 << mcs, 3))
+        idx = rs.randint(0, 1 << mcs, (H, W))
+        idx[H // 2:] = idx[H // 2, 0]
+        f[f"gif_mcs{mcs}.gif"] = iw.gif([dict(indices=idx, min_code_size=mcs,
+                                              clear_every=50)], W, H,
+                                        palette=pal)
+    pal = rs.randint(0, 256, (256, 3))
+    big = rs.randint(0, 256, (72, 80))
+    f["gif_deferred_clear.gif"] = iw.gif([dict(indices=big, deferred=True)],
+                                         80, 72, palette=pal)
+    idx = rs.randint(0, 16, (H, W))
+    idx[:H // 2, :W // 2] = 3
+    f["gif_interlace.gif"] = iw.gif([dict(indices=idx, interlace=True)], W, H,
+                                    palette=pal[:16])
+    f["gif_local.gif"] = iw.gif([dict(indices=idx, palette=pal[16:32])], W,
+                                H, palette=pal[:16])
+    f["gif_transparent.gif"] = iw.gif([dict(indices=idx, transparent=3)], W,
+                                      H, palette=pal[:16])
+    f["gif_animated.gif"] = iw.gif(
+        [dict(indices=idx, delay=10), dict(indices=idx[::-1], disposal=2,
+                                           transparent=0)], W, H,
+        palette=pal[:16], loop=0)
+    f["gif_offset.gif"] = iw.gif([dict(indices=idx[:9, :14], x=11, y=7)], W,
+                                 H, palette=pal[:16], background=5)
+    f["gif_offset_transparent.gif"] = iw.gif(
+        [dict(indices=idx[:9, :14], x=11, y=7, transparent=1)], W, H,
+        palette=pal[:16], background=9)
+    f["gif_pil.gif"] = pil_bytes(rgb, "GIF")
+    f["gif_cut.gif"] = f["gif_interlace.gif"][:-9]
+    return f
+
+
+def jpeg_f1_files(rs):
+    """ROADMAP F1: arithmetic-coded JPEGs (SOF9 / SOF10, DAC conditioning,
+    restarts, gray) with their Huffman twins; lossless SOF3 at each
+    predictor, precisions 2-8, point transform, restarts, RGB, CMYK and
+    subsampled; and what cv2 gives None for: 12-bit SOF1 / SOF2, 2
+    components, lossless above 8 bits or in YCbCr, SOF11, SOF5."""
+    rgb = picture()
+    c = iw.jpeg_coefficients(rgb, quality=80, sampling=[(2, 2), (1, 1),
+                                                        (1, 1)])
+    g = iw.jpeg_coefficients(rgb[..., 1], quality=60)
+    f = {"jpeg_arith_seq.jpg": iw.jpeg(c, coding="arith"),
+         "jpeg_arith_huffman_twin.jpg": iw.jpeg(c),
+         "jpeg_arith_prog.jpg": iw.jpeg(c, coding="arith", progressive=True),
+         "jpeg_arith_rst_dac.jpg": iw.jpeg(
+             c, coding="arith", restart=3,
+             dac={("dc", 0): (1, 4), ("ac", 0): 9}),
+         "jpeg_arith_prog_rst.jpg": iw.jpeg(c, coding="arith",
+                                            progressive=True, restart=5),
+         "jpeg_arith_gray.jpg": iw.jpeg(g, coding="arith"),
+         "jpeg_arith_gray_prog.jpg": iw.jpeg(g, coding="arith",
+                                             progressive=True)}
+    gray = rgb[..., 1].astype(np.int64)
+    for p in range(1, 8):
+        f[f"jpeg_lossless_p{p}.jpg"] = iw.jpeg_lossless(gray, predictor=p)
+    f["jpeg_lossless_4bit_pt1.jpg"] = iw.jpeg_lossless(gray >> 4, precision=4,
+                                                       predictor=4, pt=1)
+    f["jpeg_lossless_2bit.jpg"] = iw.jpeg_lossless(gray >> 6, precision=2,
+                                                   predictor=7)
+    f["jpeg_lossless_rgb_rst.jpg"] = iw.jpeg_lossless(rgb, predictor=6,
+                                                      restart=2 * W)
+    f["jpeg_lossless_rgb_sub.jpg"] = iw.jpeg_lossless(
+        rgb, predictor=5, sampling=[(2, 2), (1, 1), (1, 1)])
+    f["jpeg_lossless_cmyk.jpg"] = iw.jpeg_lossless(
+        picture(channels=4), predictor=2, markers=iw._marker(
+            0xEE, b"Adobe\x00\x64\x00\x00\x00\x00\x00"))
+    f["jpeg_lossless_12bit.jpg"] = iw.jpeg_lossless(gray * 16, precision=12)
+    f["jpeg_lossless_ycbcr.jpg"] = iw.jpeg_lossless(rgb, markers=iw._jfif())
+    f["jpeg_lossless_sof11.jpg"] = iw.jpeg_lossless(gray, sof=0xCB)
+    c12 = iw.jpeg_coefficients(rgb.astype(np.int64) * 16, precision=12)
+    f["jpeg_12bit.jpg"] = iw.jpeg(c12)
+    f["jpeg_12bit_prog.jpg"] = iw.jpeg(c12, progressive=True)
+    f["jpeg_2comp.jpg"] = iw.jpeg(iw.jpeg_coefficients(rgb[..., :2],
+                                                       rgb=True))
+    f["jpeg_sof5.jpg"] = iw.jpeg(c, sof=0xC5)
+    return f
+
+
 def other_files():
-    """Formats the port leaves to cv2 (ROADMAP F2)."""
+    """Formats the port leaves to cv2 (AVIF, ROADMAP F2) or decodes."""
     rgb = picture()
     bgr = rgb[..., ::-1].copy()
     return {"left_gif.gif": cv2_bytes(".gif", bgr),
@@ -472,6 +664,46 @@ def scene_view():
 
 REFUSED = ("tiff_jpeg.tif", "tiff_ycbcr.tif", "tiff_cmyk.tif",
            "tiff_rgb16_planar_be.tif")
+LEFT_TO_CV2 = ("left_avif.avif",)
+# the 7-view scene of the formats decoded natively since ROADMAP F1 / F2
+# (view k written as MORE_SCENE[k]: kind, suffix) and the shard members
+MORE_SCENE = (("pam", ".png"), ("hdr", ".jpg"), ("gif", ".png"),
+              ("sunras", ".jpg"), ("pfm", ".png"), ("jpeg_arith", ".png"),
+              ("jpeg_lossless", ".jpg"))
+MORE_SHARD = ("pam_rgb.pam", "hdr_rle.hdr", "gif_interlace.gif",
+              "ras24.ras", "pfm_rgb_le.pfm", "jpeg_arith_prog.jpg",
+              "jpeg_lossless_rgb_rst.jpg", "gif_transparent.gif",
+              "ras8_rle.ras", "pam_gray16.pam", "left_hdr.hdr")
+
+
+def shard_members():
+    """(fixture, member name) of the shard: each under a suffix that the
+    shard readers take (.png / .jpg), whatever its format."""
+    return [(n, Path(n).stem + (".png", ".jpg")[k % 2])
+            for k, n in enumerate(MORE_SHARD)]
+
+
+def more_scene_view(kind, rgb):
+    """A view's file in one of the MORE_SCENE formats (numpy writers)."""
+    if kind == "pam":
+        return iw.pam(rgb[..., ::-1])
+    if kind == "hdr":
+        return iw.hdr(rgb.astype(np.float32) / 255)
+    if kind == "gif":
+        q = ((rgb[..., 0] >> 5) << 5) | ((rgb[..., 1] >> 5) << 2) | (
+            rgb[..., 2] >> 6)
+        v = np.arange(256)
+        pal = np.stack([(v >> 5) << 5, ((v >> 2) & 7) << 5, (v & 3) << 6], -1)
+        return iw.gif([dict(indices=q)], rgb.shape[1], rgb.shape[0],
+                      palette=pal)
+    if kind == "sunras":
+        return iw.sunras(rgb[..., ::-1], 24)
+    if kind == "pfm":
+        return iw.pfm(rgb.astype(np.float32), scale=-1.0)
+    if kind == "jpeg_arith":
+        return iw.jpeg(iw.jpeg_coefficients(rgb, quality=85), coding="arith",
+                       progressive=True)
+    return iw.jpeg_lossless(rgb, predictor=4)
 
 
 def scene_fixture(expected):
@@ -505,6 +737,40 @@ def scene_fixture(expected):
     images = np.asarray(scene.images)
     expected["scene"] = {"images_shape": list(images.shape),
                          "images_sha256": sha256(images)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synthetic.make_scene(tmp / "s", n_views=len(MORE_SCENE), h=24, w=32,
+                             factor=1, n_points=200, seed=1)
+        d = OUT / "scene_more"
+        shutil.rmtree(d, ignore_errors=True)
+        (d / "images").mkdir(parents=True)
+        shutil.copy(tmp / "s" / "poses_bounds.npy", d / "poses_bounds.npy")
+        views = sorted((tmp / "s" / "images").glob("*.png"))
+        for (kind, suffix), v in zip(MORE_SCENE, views):
+            rgb = cv2.imread(str(v), cv2.IMREAD_COLOR)[..., ::-1].copy()
+            (d / "images" / f"{v.stem}{suffix}").write_bytes(
+                more_scene_view(kind, rgb))
+        scene = jllff.load_scene(d, factor=1, prepare=True)
+    images = np.asarray(scene.images)
+    expected["scene_more"] = {"images_shape": list(images.shape),
+                              "images_sha256": sha256(images)}
+
+
+def shard_fixture(expected):
+    """The SHA-256 of each image JAX's `iter_shard_images` streams from a
+    tar of MORE_SHARD's fixtures (shuffle buffer 4, RandomState(5))."""
+    import tarfile
+    import tempfile
+    from spinnerf_tpu.data import shards as jshards
+    with tempfile.TemporaryDirectory() as tmp:
+        tar = Path(tmp) / "more.tar"
+        with tarfile.open(tar, "w") as tf:
+            for name, member in shard_members():
+                tf.add(OUT / name, arcname=member)
+        got = [sha256(x) for x in jshards.iter_shard_images(
+            [tar], rng=np.random.RandomState(5), shuffle_buffer=4,
+            loop=False)]
+    expected["shard_more"] = {"members": shard_members(), "sha256": got}
 
 
 def main():
@@ -514,15 +780,18 @@ def main():
     files = {}
     for group in (png_files(rs), bmp_files(rs), pxm_files(rs),
                   webp_files(rs), tiff_files(rs), other_files(),
-                  misnamed_files()):
+                  misnamed_files(), pam_files(rs), pfm_files(rs),
+                  sunras_files(rs), hdr_files(rs), gif_files(rs),
+                  jpeg_f1_files(rs)):
         files.update(group)
     expected = {"files": {}}
     for name, data in sorted(files.items()):
         (OUT / name).write_bytes(data)
         port = ("refused" if name in REFUSED else
-                "cv2" if name.startswith("left_") else "equal")
+                "cv2" if name in LEFT_TO_CV2 else "equal")
         expected["files"][name] = {"port": port, **cv2_reads(OUT / name)}
     scene_fixture(expected)
+    shard_fixture(expected)
     (OUT / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     size = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"{len(files)} files, {size} bytes in {OUT}")

@@ -12,9 +12,13 @@ native/jpeg_native.cpp` through `data/jpeg.py`; `data/llff.py`'s reads,
 - EXIF orientations 1-8 on JPEG and PNG: `llff.imread` stays unrotated as
   cv2's unchanged read does, `imread_rgb8` / `imread_gray8` equal cv2's
   colour and grayscale reads.
-- Refused streams (arithmetic, lossless and hierarchical frames, 12-bit
-  precision, 2 components, frames without a scan) raise naming the file;
-  damaged and 4-component streams are `tests/test_torch_jpeg_damaged.py`'s.
+- Refused streams (hierarchical and lossless arithmetic frames, a lossless
+  or progressive arithmetic frame whose scan holds sequential parameters,
+  12-bit precision, 2 components, frames without a scan) raise naming the
+  file and the marker; a baseline file relabelled SOF9 or given a DAC
+  segment reads to cv2's pixels (arithmetic coding is decoded:
+  `tests/test_torch_jpeg_arith.py`); damaged and 4-component streams are
+  `tests/test_torch_jpeg_damaged.py`'s.
 - The committed fixtures still decode to `tests/data/jpeg/expected.json`,
   read from disk as cv2.imread reads them and from memory as cv2.imdecode
   does.
@@ -241,14 +245,32 @@ def _refusals():
 
 
 REFUSALS = _refusals()
+# arithmetic decoding reads these as cv2 does (SOF9: Huffman data through
+# the QM decoder; DAC: conditioning that a Huffman scan ignores)
+DECODED = ("SOF9", "DAC")
 
 
 @pytest.mark.parametrize("what", sorted(REFUSALS))
 def test_refused_streams_raise_naming_the_file(tmp_path, what):
     """Each refused format raises ValueError naming the file, and the marker
-    where there is one; every read of `llff` raises the same."""
+    where there is one; every read of `llff` raises the same. The streams
+    the decoder has read since arithmetic coding came (DECODED) read to
+    cv2's pixels in every read, from disk and from memory."""
     path = tmp_path / "refused.jpeg"
     path.write_bytes(REFUSALS[what])
+    if what in DECODED:
+        for read, flag in (("unchanged", cv2.IMREAD_UNCHANGED),
+                           ("color", cv2.IMREAD_COLOR),
+                           ("gray", cv2.IMREAD_GRAYSCALE)):
+            for source in ("file", "buffer"):
+                want = (cv2.imread(str(path), flag) if source == "file" else
+                        cv2.imdecode(np.frombuffer(REFUSALS[what],
+                                                   np.uint8), flag))
+                got = jpeg.decode(REFUSALS[what], name=path, mode=read,
+                                  source=source)
+                np.testing.assert_array_equal(
+                    got, want[..., ::-1] if want.ndim == 3 else want)
+        return
     marker = what.split()[0] if what.startswith(("SOF", "DAC", "DHP")) \
         else ""
     for fn in (tllff.imread, tllff.imread_rgb8, tllff.imread_gray8):

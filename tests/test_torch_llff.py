@@ -177,16 +177,18 @@ def test_write_png_round_trips_16_bit_and_alpha(tmp_path):
 
 
 def test_imread_without_cv2_raises_for_jpeg(tmp_path, monkeypatch):
-    """PNG, JPEG and BMP never go through cv2: without it, a JPEG decodes to
-    cv2's pixels (`data/jpeg.py`) in the unchanged, colour and gray reads,
-    whatever the suffix's letter case, and so does a BMP
-    (`data/imageio.py`); the formats left to cv2 (here a GIF) still need it
-    and name the file when it is absent."""
+    """PNG, JPEG, BMP and GIF never go through cv2: without it, a JPEG
+    decodes to cv2's pixels (`data/jpeg.py`) in the unchanged, colour and
+    gray reads, whatever the suffix's letter case, and so do a BMP and a
+    GIF (`data/imageio.py`); the formats left to cv2 (here an AVIF) still
+    need it and name the file when it is absent."""
     img = _image((6, 8, 3), np.uint8, 2)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
     cv2.imwrite(str(tmp_path / "a.png"), img)
     cv2.imwrite(str(tmp_path / "a.bmp"), img)
     cv2.imwrite(str(tmp_path / "a.gif"), img)
+    cv2.imwrite(str(tmp_path / "a.avif"), img)
+    gif = _cv2_rgb(cv2.imread(str(tmp_path / "a.gif"), cv2.IMREAD_UNCHANGED))
     shutil.copy(tmp_path / "a.jpg", tmp_path / "b.JPEG")
     want = {"unchanged": _cv2_rgb(cv2.imread(str(tmp_path / "a.jpg"),
                                              cv2.IMREAD_UNCHANGED)),
@@ -202,8 +204,9 @@ def test_imread_without_cv2_raises_for_jpeg(tmp_path, monkeypatch):
             np.testing.assert_array_equal(fn(tmp_path / name), want[read])
     np.testing.assert_array_equal(tllff.imread(tmp_path / "a.bmp"),
                                   _cv2_rgb(img))
-    with pytest.raises(RuntimeError, match="a.gif"):
-        tllff.imread(tmp_path / "a.gif")
+    np.testing.assert_array_equal(tllff.imread(tmp_path / "a.gif"), gif)
+    with pytest.raises(RuntimeError, match="a.avif"):
+        tllff.imread(tmp_path / "a.avif")
 
 
 @pytest.mark.parametrize("factor", [2, 3, 4, 8])
