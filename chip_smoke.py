@@ -5608,12 +5608,14 @@ def jpeg_phase(exp_root, x=None):
 
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 FORMATS_STEPS = 50
-# phase 21 (f)'s scene: view k written as MIXED_FORMATS[k % 9] (writer,
+# phase 21 (f)'s scene: view k written as MIXED_FORMATS[k % 12] (writer,
 # suffix); every view takes a suffix JAX lists (IMG_EXTS)
 MIXED_FORMATS = (("png", ".jpg"), ("webp", ".png"), ("tiff_lzw", ".png"),
                  ("tiff_deflate_pred2", ".jpg"), ("bmp24", ".png"),
                  ("pam", ".png"), ("sunras24", ".jpg"),
-                 ("jpeg_lossless", ".jpg"), ("jpeg_arith", ".png"))
+                 ("jpeg_lossless", ".jpg"), ("jpeg_arith", ".png"),
+                 ("tiff_jpeg", ".jpg"), ("tiff_cmyk", ".png"),
+                 ("bigtiff_lzw_pred2", ".jpg"))
 
 
 def _image_writers():
@@ -5634,20 +5636,23 @@ def formats_phase(exp_root, png_dir):
     Every fixture of tests/data/images (`make_image_fixtures.py`) read by
     `data/imageio.py` in cv2's unchanged, colour and gray reads under both
     sources gives the shape, dtype and SHA-256 that cv2 gave where the
-    fixtures were made (or raises ValueError where cv2 gave None or the
-    port refuses the file; the formats left to cv2 raise RuntimeError
-    naming it). `png_dir` ((b)'s PNG twin, 12 views at 504 x 672) is
-    rewritten view by view in MIXED_FORMATS by `image_writers` (no cv2 or
-    PIL): `load_scene(factor=2)` of it must equal the twin's image stack
-    bit for bit (the arithmetic-coded view's twin is the PNG of what its
-    Huffman twin decodes to, which it must equal), and
-    `Config(prepare=True)` trains FORMATS_STEPS steps on it with #1 and #2
-    launched and the PSNR rising. A tar of expected.json's "shard_more"
-    members streams through `iter_shard_images` to the SHA-256s recorded
-    from JAX's stream. Each decoder's ms per megapixel (colour read from
+    fixtures were made (or raises ValueError where cv2 gave None, the
+    port refuses the file or cv2's read is recorded "unwritten"; the
+    formats left to cv2 raise RuntimeError naming it). `png_dir` ((b)'s
+    PNG twin, 12 views at 504 x 672) is rewritten view by view in
+    MIXED_FORMATS by `image_writers` (no cv2 or PIL), one format a view:
+    `load_scene(factor=2)` of it must equal the twin's image stack bit for
+    bit (the arithmetic-coded view's twin is the PNG of what its Huffman
+    twin decodes to, the JPEG-in-TIFF view's the PNG of what the same
+    stream decodes to as a plain JPEG; the CMYK TIFF has K = 0 and the
+    BigTIFF LZW with predictor 2, both exact), and `Config(prepare=True)`
+    trains FORMATS_STEPS steps on it with #1 and #2 launched and the PSNR
+    rising. Tars of expected.json's "shard_more" and "shard_tiff" members
+    stream through `iter_shard_images` to the SHA-256s recorded from
+    JAX's streams. Each decoder's ms per megapixel (colour read from
     memory, best of JPEG_TIMING_REPS) on the scene's views, the 504 x 672
-    WebP fixtures and HDR, PFM and GIF files of view 0. Returns a
-    summary."""
+    WebP fixtures and HDR, PFM, GIF and YCbCr TIFF (4:2:0, uncompressed)
+    files of view 0. Returns a summary."""
     import hashlib
 
     import numpy as np
@@ -5662,7 +5667,7 @@ def formats_phase(exp_root, png_dir):
     iw = _image_writers()
     expected = json.loads((IMAGE_FIXTURES / "expected.json").read_text())
     files = expected["files"]
-    counts = {"equal": 0, "none": 0, "refused": 0, "cv2": 0}
+    counts = {"equal": 0, "none": 0, "refused": 0, "unwritten": 0, "cv2": 0}
     for name, entry in files.items():
         data = (IMAGE_FIXTURES / name).read_bytes()
         for source in ("file", "buffer"):
@@ -5671,10 +5676,14 @@ def formats_phase(exp_root, png_dir):
                 try:
                     img = imageio.read(data, mode=read, source=source,
                                        name=name)
-                except ValueError:
-                    if not (entry["port"] == "refused" or want is None):
+                except ValueError as e:
+                    # a read where cv2 returns memory it never wrote
+                    unwritten = bool(want and want.get("unwritten"))
+                    if not (entry["port"] == "refused" or want is None or (
+                            unwritten and "unwritten" in str(e))):
                         raise
-                    counts["refused" if want else "none"] += 1
+                    counts["unwritten" if unwritten else "refused" if want
+                           else "none"] += 1
                     continue
                 except RuntimeError as e:
                     if entry["port"] != "cv2" or "cv2" not in str(e):
@@ -5716,6 +5725,15 @@ def formats_phase(exp_root, png_dir):
         arith["huffman_twin"] = iw.jpeg(c)
         return data
 
+    def tiff_jpeg(v, p):
+        # one 4:4:4 strip, its quantisation tables in JPEGTables: libtiff
+        # converts its YCbCr as a plain JPEG of the same stream decodes
+        plain = iw.jpeg(iw.jpeg_coefficients(v, quality=90), jfif=False)
+        (twin / "images" / p.name).write_bytes(
+            iw.png(imageio.read(plain, mode="color", name="plain twin"),
+                   2, 8))
+        return iw.jpeg_tiff(plain, v.shape[1], v.shape[0])
+
     writers = {
         "png": lambda v, p: p.read_bytes(),
         "webp": lambda v, p: iw.webp_lossless(v, transforms=(
@@ -5728,7 +5746,14 @@ def formats_phase(exp_root, png_dir):
         "pam": lambda v, p: iw.pam(v[..., ::-1]),   # samples read as BGR
         "sunras24": lambda v, p: iw.sunras(v[..., ::-1], 24),
         "jpeg_lossless": lambda v, p: iw.jpeg_lossless(v, predictor=4),
-        "jpeg_arith": jpeg_arith}
+        "jpeg_arith": jpeg_arith,
+        "tiff_jpeg": tiff_jpeg,
+        # K = 0: libtiff's (255 - k)(255 - c) / 255 gives R back exactly
+        "tiff_cmyk": lambda v, p: iw.tiff(iw.rgb_to_cmyk(v), photometric=5,
+                                          compression=8),
+        "bigtiff_lzw_pred2": lambda v, p: iw.tiff(v, bigtiff=True,
+                                                  compression=5,
+                                                  predictor=2)}
     blobs = {k: [] for k in writers}
     views = sorted((png_dir / "images").glob("*.png"))
     for k, p in enumerate(views):
@@ -5752,19 +5777,22 @@ def formats_phase(exp_root, png_dir):
     import tarfile
 
     from spinnerf_tpu_torch.data import shards
-    rec = expected["shard_more"]
-    tar = exp_root / "formats_more.tar"
-    with tarfile.open(tar, "w") as tf:
-        for name, member in rec["members"]:
-            tf.add(IMAGE_FIXTURES / name, arcname=member)
-    streamed = [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
-                for x in shards.iter_shard_images(
-                    [tar], rng=np.random.RandomState(5), shuffle_buffer=4,
-                    loop=False)]
-    if streamed != rec["sha256"]:
-        raise AssertionError(f"the new-format shard streams {streamed}, JAX "
-                             f"streamed {rec['sha256']}")
-    out["shard_images"] = len(streamed)
+    out["shard_images"] = 0
+    for key, seed in (("shard_more", 5), ("shard_tiff", 6)):
+        rec = expected[key]
+        tar = exp_root / f"formats_{key}.tar"
+        with tarfile.open(tar, "w") as tf:
+            for name, member in rec["members"]:
+                tf.add(IMAGE_FIXTURES / name, arcname=member)
+        streamed = [hashlib.sha256(np.ascontiguousarray(x).tobytes()
+                                   ).hexdigest()
+                    for x in shards.iter_shard_images(
+                        [tar], rng=np.random.RandomState(seed),
+                        shuffle_buffer=4, loop=False)]
+        if streamed != rec["sha256"]:
+            raise AssertionError(f"the {key} shard streams {streamed}, JAX "
+                                 f"streamed {rec['sha256']}")
+        out["shard_images"] += len(streamed)
     cfg = Config(expname="formats_scene", basedir=str(exp_root),
                  datadir=str(mixed), dataset_type="llff", factor=2,
                  prepare=True, no_ndc=True, no_reload=True,
@@ -5785,6 +5813,8 @@ def formats_phase(exp_root, png_dir):
     # each decoder's ms per megapixel, from memory
     view = read_png(views[0])
     blobs["tiff_none"] = [iw.tiff(view)]
+    blobs["tiff_ycbcr22"] = [iw.tiff(iw.rgb_to_ycbcr(view), photometric=6,
+                                     subsampling=(2, 2))]
     blobs["webp_lossy"] = [(IMAGE_FIXTURES / "webp_lossy_504x672.webp")
                            .read_bytes()]
     blobs["webp_lossless_libwebp"] = [
@@ -5813,9 +5843,10 @@ def formats_phase(exp_root, png_dir):
     out["seconds"] = time.perf_counter() - t0
     log(json.dumps({"image_formats": out}))
     log(f"[formats] (f) {counts['equal']} fixture reads equal to cv2's, "
-        f"{counts['none'] + counts['refused']} refused, {counts['cv2']} left "
+        f"{counts['none'] + counts['refused']} refused, "
+        f"{counts['unwritten']} unwritten by cv2, {counts['cv2']} left "
         f"to cv2; the mixed-format scene equals its PNG twin; the new-format "
-        f"shard streams JAX's {out['shard_images']} images; "
+        f"shards stream JAX's {out['shard_images']} images; "
         f"{FORMATS_STEPS} steps PSNR {psnr_1:.3f} -> {psnr_end:.3f} dB, "
         f"#1 / #2 launched {out['launches']}; ms/MP " + ", ".join(
             f"{k} {v:.2f}" for k, v in ms.items())

@@ -12,8 +12,10 @@ ask each decoder in turn whether the first bytes are its signature
   PAM, PFM, Sun raster,   the JPEG decoder)
   Radiance HDR, GIF,
   WebP
-  TIFF                    `_read_tiff` here; LZW and PackBits in
-                          native/image_native.cpp, Deflate through zlib
+  TIFF                    `data/tiff.py` (libtiff's RGBA reader; LZW and
+                          PackBits in native/image_native.cpp, JPEG
+                          strips in native/jpeg_native.cpp, Deflate
+                          through zlib)
 
 `read(data, mode=..., source=..., name=...)` gives cv2's unchanged, colour
 or grayscale read (`IMREAD_UNCHANGED`, `IMREAD_COLOR`, `IMREAD_GRAYSCALE`)
@@ -39,11 +41,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-import zlib
 
 import numpy as np
 
-from spinnerf_tpu_torch.data import jpeg
+from spinnerf_tpu_torch.data import jpeg, tiff
 from spinnerf_tpu_torch.native import build as _native
 
 MODES = ("unchanged", "color", "gray")
@@ -119,7 +120,7 @@ def read(data: bytes, *, mode: str = "unchanged", source: str = "buffer",
     if kind == "webp":
         return _read_webp(data, mode, name)
     if kind == "tiff":
-        return _read_tiff(data, mode, name, source)
+        return tiff.read(data, mode, name, source)
     if kind == "pfm":
         return _read_pfm(data, mode, name, source)
     if kind == "hdr":
@@ -169,7 +170,6 @@ def _lib() -> ctypes.CDLL:
                                         i64]),
                      ("im_webp_info", [buf, i64, vp, vp, i64]),
                      ("im_webp_decode", [buf, i64, i32, vp, i64, vp, i64]),
-                     ("im_lzw_decode", [buf, i64, vp, i64, vp, vp, i64]),
                      ("im_pam_info", [buf, i64, vp, vp, i64]),
                      ("im_pam_decode", [buf, i64, i32, i32, vp, i64, vp,
                                         i64]),
@@ -180,9 +180,7 @@ def _lib() -> ctypes.CDLL:
                      ("im_hdr_info", [buf, i64, vp, vp, i64]),
                      ("im_hdr_decode", [buf, i64, vp, i64, vp, i64]),
                      ("im_gif_info", [buf, i64, vp, vp, i64]),
-                     ("im_gif_decode", [buf, i64, i32, vp, i64, vp, i64]),
-                     ("im_packbits_decode", [buf, i64, vp, i64, vp, vp,
-                                             i64])):
+                     ("im_gif_decode", [buf, i64, i32, vp, i64, vp, i64])):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = args
     return lib
@@ -338,243 +336,3 @@ def _read_gif(data, mode, name):
         return _bgr_to_rgb(out)
     rgb = _bgr_to_rgb(out[..., :3])
     return rgb if mode == "color" else _l15(rgb)
-
-
-# ----------------------------------------------------------------- TIFF --
-
-_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B",
-               8: "h", 9: "i", 10: "ii", 11: "f", 12: "d", 13: "I"}
-_COMPRESSION = {1: "none", 5: "LZW", 8: "Deflate", 32946: "Deflate",
-                32773: "PackBits"}
-_TIFF_NAMES = {2: "CCITT RLE", 3: "CCITT fax 3", 4: "CCITT fax 4",
-               6: "old-style JPEG", 7: "JPEG", 34712: "JPEG 2000",
-               34887: "LERC", 34925: "LZMA", 50000: "Zstd", 50001: "WebP",
-               32845: "SGI LogLuv", 34676: "SGI Log"}
-_PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "palette",
-                4: "mask", 5: "separated (CMYK)", 6: "YCbCr", 8: "CIELab",
-                9: "ICCLab", 10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
-
-
-def _l14(rgb: np.ndarray) -> np.ndarray:
-    """OpenCV's icvCvt_BGR2Gray_8u (imgcodecs/src/utils.cpp): 14-bit
-    weights, rounded."""
-    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    return ((r * 4899 + g * 9617 + b * 1868 + 8192) >> 14).astype(np.uint8)
-
-
-def _tiff_ifd(data: bytes, name):
-    """The byte order and the first IFD's tags (tag -> tuple of values)."""
-    order = {b"II": "<", b"MM": ">"}[data[:2]]
-    if len(data) < 8:
-        raise ValueError(f"{name}: TIFF header cut short")
-    magic, offset = struct.unpack(order + "HI", data[2:8])
-    if magic == 43:
-        raise ValueError(f"{name}: BigTIFF is not read by the port yet "
-                         f"(ROADMAP F2)")
-    if offset + 2 > len(data):
-        raise ValueError(f"{name}: TIFF directory out of range")
-    (n,) = struct.unpack(order + "H", data[offset:offset + 2])
-    tags = {}
-    for k in range(n):
-        e = offset + 2 + 12 * k
-        if e + 12 > len(data):
-            raise ValueError(f"{name}: TIFF directory cut short")
-        tag, typ, count = struct.unpack(order + "HHI", data[e:e + 8])
-        fmt = _TIFF_TYPES.get(typ)
-        if fmt is None:
-            continue
-        size = struct.calcsize(order + fmt) * count
-        if size <= 4:
-            raw = data[e + 8:e + 8 + size]
-        else:
-            (at,) = struct.unpack(order + "I", data[e + 8:e + 12])
-            raw = data[at:at + size]
-            if len(raw) < size:
-                raise ValueError(f"{name}: TIFF tag {tag} out of range")
-        tags[tag] = struct.unpack(order + fmt * count, raw)
-    return order, tags
-
-
-def _tiff_block(data, offset, count, expected, compression, name):
-    raw = data[offset:offset + count]
-    if len(raw) < count:
-        raise ValueError(f"{name}: TIFF strip or tile out of range")
-    if compression == 1:
-        out = raw
-    elif compression in (8, 32946):
-        try:
-            out = zlib.decompressobj().decompress(raw, expected)
-        except zlib.error as e:
-            raise ValueError(f"{name}: TIFF Deflate data damaged ({e})") \
-                from None
-    else:
-        lib = _lib()
-        buf = np.zeros(expected, np.uint8)
-        written = np.zeros(1, np.int64)
-        fn = lib.im_lzw_decode if compression == 5 else lib.im_packbits_decode
-        _call(name, fn, raw, len(raw), buf.ctypes.data, expected,
-              written.ctypes.data)
-        out = buf[:int(written[0])].tobytes()
-    if len(out) < expected:
-        raise ValueError(f"{name}: TIFF strip or tile data ends early "
-                         f"({len(out)} of {expected} bytes)")
-    return out[:expected]
-
-
-def _read_tiff(data, mode, name, source):
-    """The first image of a TIFF as cv2 5.0 (libtiff 4.7.1) reads it.
-    Taken: strips and (compressed) tiles, either byte order, compression
-    none, LZW, Deflate or PackBits, predictor 1 or 2 (applied with LZW and
-    Deflate only, as libtiff does), 8- and 16-bit unsigned and
-    32-bit float samples, 1, 3 or 4 of them (2, gray and alpha, in 8-bit
-    strips), chunky or planar, MinIsBlack, MinIsWhite, RGB and palette. cv2
-    reads 8-bit output through libtiff's RGBA reader: MinIsWhite inverted,
-    unassociated alpha premultiplied, a 16-bit colour map to its high byte,
-    16-bit RGB rounded to 8 bits ((v + 128) // 257), 16-bit gray to its high
-    byte; its unchanged read keeps 16-bit and float samples as they are
-    (MinIsWhite not inverted), and it gives None for the colour and gray
-    reads of float images. The Orientation tag applies in every read;
-    `cv2.imread` gives None where it transposes (5-8), `cv2.imdecode` not.
-    Other compressions and photometrics raise ValueError naming the tag."""
-    order, tags = _tiff_ifd(data, name)
-
-    def tag(t, default=None):
-        v = tags.get(t)
-        return default if v is None else v[0]
-
-    def refuse(why):
-        return ValueError(f"{name}: TIFF {why} is not read by the port")
-
-    w, h = tag(256), tag(257)
-    if not w or not h:
-        raise ValueError(f"{name}: TIFF without ImageWidth / ImageLength")
-    spp = tag(277, 1)
-    bps = tags.get(258, (1,) * spp)
-    compression = tag(259, 1)
-    photometric = tag(262)
-    planar, predictor = tag(284, 1), tag(317, 1)
-    sample_format = tag(339, 1)
-    extras = tags.get(338, ())
-    orientation = tag(274, 1)
-    tiled = 322 in tags
-    if compression not in _COMPRESSION:
-        raise refuse(f"Compression tag (259) value {compression} "
-                     f"({_TIFF_NAMES.get(compression, 'unknown')})")
-    if photometric not in (0, 1, 2, 3):
-        raise refuse(f"PhotometricInterpretation tag (262) value "
-                     f"{photometric} ({_PHOTOMETRIC.get(photometric, '?')})")
-    if len(set(bps)) != 1:
-        raise refuse(f"BitsPerSample tag (258) {bps}")
-    bits = bps[0]
-    kinds = {(8, 1): "u1", (16, 1): "u2", (32, 3): "f4"}
-    if (bits, sample_format) not in kinds:
-        raise refuse(f"BitsPerSample (258) {bits} with SampleFormat (339) "
-                     f"{sample_format}")
-    # libtiff's LZW and Deflate codecs apply the predictor; it ignores the
-    # tag for uncompressed and PackBits data
-    if compression not in (5, 8, 32946):
-        predictor = 1
-    if predictor not in (1, 2):
-        raise refuse(f"Predictor tag (317) value {predictor}")
-    if tag(266, 1) != 1:
-        raise refuse("FillOrder tag (266) value 2")
-    if planar == 2 and (bits != 8 or spp == 2):
-        # cv2 reads the first plane's strips as if they held every sample
-        raise refuse(f"PlanarConfiguration (284) 2 with {spp} {bits}-bit "
-                     f"samples")
-    if tiled and compression == 1:
-        # libtiff under cv2 refuses most of them ("Invalid tile byte count")
-        raise refuse("uncompressed tiles")
-    if tiled and orientation in (2, 3, 6, 7) and tag(322) < w:
-        # cv2's pixels there were not matched (its tiles' mirroring)
-        raise refuse(f"Orientation (274) {orientation} over several tile "
-                     f"columns")
-    if source == "file" and orientation in (5, 6, 7, 8):
-        raise ValueError(f"{name}: cv2.imread gives None for a TIFF whose "
-                         f"Orientation ({orientation}) transposes it "
-                         f"(cv2.imdecode reads it)")
-    gray = photometric in (0, 1)
-    if not ((gray and spp == 1) or (photometric == 1 and spp == 2
-                                    and bits == 8 and not tiled)
-            or (photometric == 2 and spp in (3, 4))
-            or (photometric == 3 and spp == 1 and bits == 8)):
-        raise refuse(f"SamplesPerPixel (277) {spp} with "
-                     f"PhotometricInterpretation (262) {photometric} and "
-                     f"{bits} bits")
-    dtype = np.dtype(order + kinds[(bits, sample_format)])
-    if tiled:
-        bw, bh = tag(322), tag(323)
-        offsets, counts = tags.get(324), tags.get(325)
-    else:
-        bw, bh = w, min(tag(278, 2 ** 32 - 1), h)
-        offsets, counts = tags.get(273), tags.get(279)
-    if not bw or not bh or offsets is None or counts is None:
-        raise ValueError(f"{name}: TIFF without strip or tile offsets")
-    planes = spp if planar == 2 else 1
-    per = 1 if planar == 2 else spp
-    img = np.zeros((planes, h, w, per), dtype.newbyteorder("="))
-    k = 0
-    for p in range(planes):
-        for y0 in range(0, h, bh):
-            for x0 in range(0, w, bw) if tiled else (0,):
-                rows = bh if tiled else min(bh, h - y0)
-                if k >= len(offsets) or k >= len(counts):
-                    raise ValueError(f"{name}: TIFF strip or tile missing")
-                raw = _tiff_block(data, offsets[k], counts[k],
-                                  rows * bw * per * dtype.itemsize,
-                                  compression, name)
-                k += 1
-                blk = np.frombuffer(raw, dtype).reshape(rows, bw, per)
-                if predictor == 2:
-                    ints = blk.view(np.dtype(order + f"u{dtype.itemsize}"))
-                    blk = np.cumsum(ints.astype(np.uint64), axis=1).astype(
-                        ints.dtype.newbyteorder("=")).view(
-                        dtype.newbyteorder("="))
-                part = blk[:min(rows, h - y0), :min(bw, w - x0)]
-                img[p, y0:y0 + part.shape[0], x0:x0 + part.shape[1]] = part
-    samples = (img[0] if planes == 1
-               else img[..., 0].transpose(1, 2, 0))
-    if bits == 32:
-        if mode != "unchanged":
-            raise ValueError(f"{name}: cv2 gives None for the {mode} read "
-                             f"of a floating-point TIFF")
-        out = samples[..., 0] if spp == 1 else samples
-    elif photometric == 3:
-        cmap = np.asarray(tags[320], np.int64).reshape(3, -1).T
-        if cmap.max(initial=0) > 255:      # libtiff's checkcmap
-            cmap = cmap >> 8
-        table = np.zeros((256, 3), np.uint8)
-        table[:min(256, len(cmap))] = cmap[:256]
-        rgb = table[samples[..., 0]]
-        out = _l14(rgb) if mode == "gray" else rgb
-    elif gray:
-        g = samples[..., 0]
-        if bits == 16:
-            if mode == "unchanged":
-                out = g
-            elif tiled:
-                raise refuse("colour or gray read of 16-bit gray tiles")
-            else:
-                g = (g >> 8).astype(np.uint8)
-                out = 255 - g if photometric == 0 else g
-        else:
-            out = 255 - g if photometric == 0 else g
-        if mode == "color":
-            out = np.repeat(out[..., None], 3, axis=-1)
-    else:
-        rgb = samples
-        unassociated = spp == 4 and tuple(extras[:1]) == (2,)
-        if bits == 8 and unassociated:
-            a = rgb[..., 3:].astype(np.int64)
-            rgb = np.concatenate(
-                [(rgb[..., :3].astype(np.int64) * a + 127) // 255, a],
-                axis=-1).astype(np.uint8)
-        if bits == 16 and mode != "unchanged":
-            if unassociated:
-                raise refuse("colour or gray read of 16-bit RGBA with "
-                             "unassociated alpha")
-            rgb = ((rgb.astype(np.int64) + 128) // 257).astype(np.uint8)
-        out = (rgb if mode == "unchanged" else rgb[..., :3]
-               if mode == "color" else _l14(rgb))
-    out = np.ascontiguousarray(out)
-    return jpeg.orient(out, orientation if 1 <= orientation <= 8 else 1)

@@ -11,8 +11,9 @@
 //    read as one channel, as cv2 leaves them.
 //  - PBM / PGM / PPM (P1-P6) as grfmt_pxm reads them: ASCII values scaled
 //    by 255 / maxval, binary ones not; maxval above 255 gives 16 bits.
-//  - TIFF's LZW (libtiff's, with its early code-width change) and
-//    PackBits; `data/imageio.py` parses the TIFF itself.
+//  - TIFF's LZW (libtiff's LZWDecode, and LZWDecodeCompat for old-style
+//    codes) and PackBits, failing where libtiff fails and keeping what it
+//    keeps; `data/tiff.py` parses the TIFF itself.
 //  - WebP as the libwebp OpenCV bundles decodes it (WebPDecodeBGR(A)Into):
 //    lossy VP8 (RFC 6386: boolean decoder, segments, intra prediction,
 //    inverse DCT / WHT, simple and normal loop filters, then libwebp's fancy
@@ -41,9 +42,19 @@
 //                                                  has alpha, animated
 //   im_webp_decode(buf, len, channels, out, outlen, err, errlen)
 //                                                  channels 3: BGR, 4: BGRA
-//   im_lzw_decode(buf, len, out, outlen, written[1], err, errlen)
-//   im_packbits_decode(buf, len, out, outlen, written[1], err, errlen)
-//                                                  at most outlen bytes
+//   im_lzw_decode(buf, len, compat, out, outlen, written[2], err, errlen)
+//   im_packbits_decode(buf, len, out, outlen, written[2], err, errlen)
+//                                                  at most outlen bytes:
+//                                                  written[0] bytes came,
+//                                                  written[1] 1 where
+//                                                  libtiff's decode fails
+//   im_fax_decode(buf, len, compression, two_d, lsb_first, width, rows,
+//                 out, outlen, failed[2], err, errlen)
+//                                                  a CCITT strip's rows
+//                                                  (1 bit, black 1);
+//                                                  failed[0] where libtiff
+//                                                  fails, [1] where a row
+//                                                  was damaged
 //   im_pam_info(buf, len, info[4], ...)            height, width, channels,
 //                                                  bytes a sample
 //   im_pam_decode(buf, len, channels, depth, out, outlen, err, errlen)
@@ -621,94 +632,556 @@ void pxm_decode(const uint8_t* buf, int64_t len, int channels, int depth,
 
 // ----------------------------------------------------- TIFF LZW, PackBits --
 
-int64_t lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t cap) {
-  if (n >= 2 && in[0] == 0 && (in[1] & 1))
-    fail("old-style (LSB-first) TIFF LZW is not read");
+// tif_lzw.c's LZWDecode (codes most significant bit first, the width
+// growing one code early) or, with `compat`, LZWDecodeCompat (least
+// significant bit first, no early change), as libtiff picks them by the
+// first bytes. Up to `cap` bytes are written; `*failed` is set where libtiff
+// reports an error (a corrupted code, or data that end before `cap` bytes),
+// the bytes written so far kept, as TIFFReadEncodedStrip leaves them.
+int64_t lzw_decode(const uint8_t* in, int64_t n, uint8_t* out, int64_t cap,
+                   bool compat, bool* failed) {
   struct Entry {
-    int prev;
-    uint8_t first, value;
-    int len;
+    int next = -1;
+    uint8_t value = 0, firstchar = 0;
+    int length = 0;
   };
   std::vector<Entry> tab(4096);
-  for (int i = 0; i < 256; ++i) tab[i] = Entry{-1, uint8_t(i), uint8_t(i), 1};
-  int64_t bitpos = 0, op = 0;
-  const int64_t nbits_total = n * 8;
-  int nbits = 9, free_ent = 258, old = -1;
-  std::vector<uint8_t> tmp(4096);
+  for (int i = 0; i < 256; ++i) {
+    tab[i].value = tab[i].firstchar = static_cast<uint8_t>(i);
+    tab[i].length = 1;
+  }
+  int64_t bitsleft = n * 8, ip = 0, op = 0;
+  uint64_t nextdata = 0;
+  int nextbits = 0, nbits = 9, mask = 511, free_ent = 258, old = 0;
+  int maxcode = 510;   // LZWPreDecode: dec_nbitsmask - 1, for either style
+  bool cleared = false;   // no entry can be added before the first clear
+  *failed = false;
   auto next = [&]() -> int {
-    if (bitpos + nbits > nbits_total) return 257;   // ran out: an EOI
-    int v = 0;
-    for (int k = 0; k < nbits; ++k, ++bitpos)
-      v = (v << 1) | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
-    return v;
-  };
-  auto emit = [&](int code) {
-    int l = tab[code].len;
-    int c = code;
-    for (int k = l - 1; k >= 0; --k) {
-      tmp[k] = tab[c].value;
-      c = tab[c].prev;
+    if (bitsleft < nbits) return 257;   // "not terminated with EOI code"
+    bitsleft -= nbits;
+    if (compat) {
+      nextdata |= static_cast<uint64_t>(in[ip++]) << nextbits;
+      nextbits += 8;
+      if (nextbits < nbits) {
+        nextdata |= static_cast<uint64_t>(in[ip++]) << nextbits;
+        nextbits += 8;
+      }
+      int code = static_cast<int>(nextdata & static_cast<uint64_t>(mask));
+      nextdata >>= nbits;
+      nextbits -= nbits;
+      return code;
     }
-    int64_t m = std::min<int64_t>(l, cap - op);
-    if (m > 0) memcpy(out + op, tmp.data(), static_cast<size_t>(m));
-    op += std::max<int64_t>(m, 0);
+    nextdata = (nextdata << 8) | in[ip++];
+    nextbits += 8;
+    if (nextbits < nbits) {
+      nextdata = (nextdata << 8) | in[ip++];
+      nextbits += 8;
+    }
+    nextbits -= nbits;
+    return static_cast<int>((nextdata >> nextbits) & static_cast<uint64_t>(mask));
   };
-  for (;;) {
+  auto corrupted = [&] {
+    *failed = true;
+    return op;
+  };
+  while (op < cap) {
     int code = next();
     if (code == 257) break;
     if (code == 256) {
       do {
         free_ent = 258;
+        for (int i = 258; i < 4096; ++i) tab[i] = Entry{};
         nbits = 9;
+        mask = 511;
+        maxcode = compat ? 511 : 510;
         code = next();
       } while (code == 256);
       if (code == 257) break;
-      if (code > 256) fail("corrupted LZW table");
-      emit(code);
+      if (code > 256) return corrupted();
+      out[op++] = static_cast<uint8_t>(code);
       old = code;
+      cleared = true;
       continue;
     }
-    if (old < 0) fail("LZW data does not start with a clear code");
-    if (free_ent >= 4096) fail("corrupted LZW table");
-    Entry e;
-    e.prev = old;
-    e.first = tab[old].first;
-    e.len = tab[old].len + 1;
-    if (code < free_ent) {
-      e.value = tab[code].first;
-    } else if (code == free_ent) {
-      e.value = tab[old].first;
-    } else {
-      fail("corrupted LZW code");
+    if (!cleared || free_ent >= 4096) return corrupted();
+    Entry& e = tab[free_ent];
+    e.next = old;
+    e.firstchar = tab[old].firstchar;
+    e.length = tab[old].length + 1;
+    e.value = code < free_ent ? tab[code].firstchar : e.firstchar;
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, 12);
+      mask = (1 << nbits) - 1;
+      maxcode = compat ? mask : mask - 1;
     }
-    tab[free_ent] = e;
-    emit(code);
     old = code;
-    if (++free_ent > (1 << nbits) - 2) nbits = std::min(nbits + 1, 12);
-    if (op >= cap) break;
+    if (code < 256) {
+      out[op++] = static_cast<uint8_t>(code);
+      continue;
+    }
+    int len = tab[code].length;
+    if (len == 0) return corrupted();   // "Wrong length of decoded string"
+    // a string longer than the room left gives its first bytes
+    int c = code;
+    while (tab[c].length > cap - op) c = tab[c].next;
+    const int keep = tab[c].length;
+    for (int k = keep - 1; k >= 0; --k) {
+      out[op + k] = tab[c].value;
+      c = tab[c].next;
+    }
+    op += keep;
   }
+  if (op < cap) *failed = true;   // "Not enough data"
   return op;
 }
 
+// tif_packbits.c's PackBitsDecode: a run or a literal cut short by the end
+// of the data ends the decode; `*failed` where fewer than `cap` bytes came.
 int64_t packbits_decode(const uint8_t* in, int64_t n, uint8_t* out,
-                        int64_t cap) {
+                        int64_t cap, bool* failed) {
   int64_t ip = 0, op = 0;
   while (ip < n && op < cap) {
-    int c = static_cast<int8_t>(in[ip++]);
-    if (c >= 0) {
-      int64_t k = std::min<int64_t>({c + 1, n - ip, cap - op});
-      memcpy(out + op, in + ip, static_cast<size_t>(k));
-      ip += c + 1;
-      op += k;
-    } else if (c != -128) {
-      if (ip >= n) break;
+    int64_t c = static_cast<int8_t>(in[ip++]);
+    if (c < 0) {
+      if (c == -128) continue;
       int64_t k = std::min<int64_t>(1 - c, cap - op);
+      if (ip >= n) break;
       memset(out + op, in[ip++], static_cast<size_t>(k));
+      op += k;
+    } else {
+      int64_t k = std::min<int64_t>(c + 1, cap - op);
+      if (n - ip < k) break;
+      memcpy(out + op, in + ip, static_cast<size_t>(k));
+      ip += k;
       op += k;
     }
   }
+  *failed = op < cap;
   return op;
 }
+
+
+// ---------------------------------------------------------- CCITT fax ----
+
+// tif_fax3.c's decoders of CCITT RLE (Compression 2), Group 3 (3; 1D or,
+// with T4Options bit 0, 2D rows tagged after each EOL) and Group 4 (4), as
+// libtiff runs them: the T.4 code tables looked up 7 / 12 / 13 bits at a
+// time least significant bit first (each byte's bits reversed unless
+// FillOrder is 2), zero bits padded past the data, runs cleaned up where a
+// row's runs miss its width, and a bad code ending its row rather than the
+// strip. Each row is filled as _TIFFFax3fillruns fills it (1 for black).
+namespace fax {
+
+enum State : uint8_t {
+  kNull, kPass, kHoriz, kV0, kVR, kVL, kExt, kTermW, kTermB, kMakeUpW,
+  kMakeUpB, kMakeUp, kEOL
+};
+struct Ent {
+  uint8_t state = kNull, width = 0;
+  uint32_t param = 0;
+};
+
+const char* const kWhiteTerm[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+    "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+    "110101", "101010", "101011", "0100111", "0001100", "0001000",
+    "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011",
+    "00010010", "00010011", "00010100", "00010101", "00010110", "00010111",
+    "00101000", "00101001", "00101010", "00101011", "00101100", "00101101",
+    "00000100", "00000101", "00001010", "00001011", "01010010", "01010011",
+    "01010100", "01010101", "00100100", "00100101", "01011000", "01011001",
+    "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100"};
+const char* const kWhiteMakeUp[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100",
+    "011001101", "011010010", "011010011", "011010100", "011010101",
+    "011010110", "011010111", "011011000", "011011001", "011011010",
+    "011011011", "010011000", "010011001", "010011010", "011000",
+    "010011011"};
+const char* const kBlackTerm[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011",
+    "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+    "00000111", "000011000", "0000010111", "0000011000", "0000001000",
+    "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010",
+    "000011001011", "000011001100", "000011001101", "000001101000",
+    "000001101001", "000001101010", "000001101011", "000011010010",
+    "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110",
+    "000001010111", "000001100100", "000001100101", "000001010010",
+    "000001010011", "000000100100", "000000110111", "000000111000",
+    "000000100111", "000000101000", "000001011000", "000001011001",
+    "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+const char* const kBlackMakeUp[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011",
+    "000000110011", "000000110100", "000000110101", "0000001101100",
+    "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+const char* const kExtMakeUp[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010",
+    "000000010011", "000000010100", "000000010101", "000000010110",
+    "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+
+// every index of a `bits`-wide table whose low bits are `code` (first bit
+// lowest) gets the entry
+void put(std::vector<Ent>& tab, int bits, const char* code, uint8_t state,
+         uint32_t param) {
+  const int n = static_cast<int>(strlen(code));
+  int low = 0;
+  for (int i = 0; i < n; ++i) low |= (code[i] - '0') << i;
+  for (int hi = 0; hi < (1 << (bits - n)); ++hi) {
+    Ent& e = tab[(hi << n) | low];
+    e.state = state;
+    e.width = static_cast<uint8_t>(n);
+    e.param = param;
+  }
+}
+
+struct Tables {
+  std::vector<Ent> main = std::vector<Ent>(128),
+                   white = std::vector<Ent>(4096),
+                   black = std::vector<Ent>(8192);
+  Tables() {
+    put(main, 7, "0001", kPass, 0);
+    put(main, 7, "001", kHoriz, 0);
+    put(main, 7, "1", kV0, 0);
+    put(main, 7, "011", kVR, 1);
+    put(main, 7, "000011", kVR, 2);
+    put(main, 7, "0000011", kVR, 3);
+    put(main, 7, "010", kVL, 1);
+    put(main, 7, "000010", kVL, 2);
+    put(main, 7, "0000010", kVL, 3);
+    put(main, 7, "0000001", kExt, 0);
+    put(main, 7, "0000000", kEOL, 0);
+    for (int i = 0; i < 64; ++i) {
+      put(white, 12, kWhiteTerm[i], kTermW, i);
+      put(black, 13, kBlackTerm[i], kTermB, i);
+    }
+    for (int i = 0; i < 27; ++i) {
+      put(white, 12, kWhiteMakeUp[i], kMakeUpW, 64 * (i + 1));
+      put(black, 13, kBlackMakeUp[i], kMakeUpB, 64 * (i + 1));
+    }
+    for (int i = 0; i < 13; ++i) {
+      put(white, 12, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+      put(black, 13, kExtMakeUp[i], kMakeUp, 1792 + 64 * i);
+    }
+    put(white, 12, "00000000000", kEOL, 0);
+    put(black, 13, "00000000000", kEOL, 0);
+  }
+};
+
+// _TIFFFax3fillruns: runs alternate white, black from the row's start
+void fill_runs(uint8_t* row, uint32_t* runs, uint32_t* erun, uint32_t lastx) {
+  if ((erun - runs) & 1) *erun++ = 0;
+  uint32_t x = 0;
+  for (; runs < erun; runs += 2) {
+    uint32_t run = runs[0];
+    if (x + run > lastx || run > lastx) run = runs[0] = lastx - x;
+    x += run;
+    run = runs[1];
+    if (x + run > lastx || run > lastx) run = runs[1] = lastx - x;
+    for (uint32_t k = 0; k < run; ++k, ++x)
+      row[x >> 3] |= static_cast<uint8_t>(0x80 >> (x & 7));
+  }
+}
+
+// One strip or tile: `rows` rows of `width` pixels into `out` (zeroed,
+// ceil(width / 8) bytes a row). Returns false where libtiff's decode
+// returns an error (the data end before the last row); `*damaged` is set
+// where a row met a bad code, the data's end or a length not its width.
+bool decode(const uint8_t* in, int64_t n, int compression, bool two_d,
+            bool lsb_first, uint32_t width, int rows, uint8_t* out,
+            bool* damaged) {
+  static const Tables tabs;
+  const int64_t rowbytes = (width + 7) / 8;
+  const bool ref_line = compression == 4 || (compression == 3 && two_d);
+  // Fax3SetupState: roundup(width + 1, 32) runs, twice that with a
+  // reference line
+  const uint32_t nruns = (width + 32) / 32 * 32 * (ref_line ? 2 : 1);
+  std::vector<uint32_t> runs(2 * static_cast<size_t>(std::max<uint32_t>(nruns, 1)), 0);
+  uint32_t* thisrun = runs.data();
+  uint32_t* refruns = ref_line ? runs.data() + nruns : nullptr;
+  if (refruns) {
+    refruns[0] = width;
+    refruns[1] = 0;
+  }
+  const int64_t lastx = width;
+  int64_t ip = 0;
+  uint32_t acc = 0;
+  int avail = 0;
+  auto byte = [&]() -> uint32_t {
+    uint8_t b = in[ip++];
+    if (!lsb_first) {   // FillOrder 1: the bitmap reverses each byte
+      b = static_cast<uint8_t>(((b * 0x0802LU & 0x22110LU) |
+                                (b * 0x8020LU & 0x88440LU)) * 0x10101LU >> 16);
+    }
+    return b;
+  };
+  // NeedBits8 / NeedBits16: false where the data are gone with no bits left
+  auto need8 = [&](int k) -> bool {
+    if (avail < k) {
+      if (ip >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte() << avail;
+        avail += 8;
+      }
+    }
+    return true;
+  };
+  auto need16 = [&](int k) -> bool {
+    if (avail < k) {
+      if (ip >= n) {
+        if (avail == 0) return false;
+        avail = k;
+      } else {
+        acc |= byte() << avail;
+        if ((avail += 8) < k) {
+          if (ip >= n) {
+            avail = k;
+          } else {
+            acc |= byte() << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+    return true;
+  };
+  auto bits = [&](int k) -> uint32_t { return acc & ((1u << k) - 1); };
+  auto clr = [&](int k) {
+    avail -= k;
+    acc >>= k;
+  };
+  int eol = 0;
+  uint32_t* pa = nullptr;
+  int64_t a0 = 0, run_length = 0;
+  bool overflow = false;
+  auto setvalue = [&](int64_t x) {
+    if (pa >= thisrun + nruns) {
+      overflow = true;
+      return;
+    }
+    *pa++ = static_cast<uint32_t>(run_length + x);
+    a0 += x;
+    run_length = 0;
+  };
+  auto cleanup = [&]() {
+    if (run_length) setvalue(0);
+    if (a0 != lastx) {
+      *damaged = true;
+      while (a0 > lastx && pa > thisrun) a0 -= *--pa;
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if ((pa - thisrun) & 1) setvalue(0);
+        setvalue(lastx - a0);
+      } else if (a0 > lastx) {
+        setvalue(lastx);
+        setvalue(0);
+      }
+    }
+  };
+  // a run of `color` (0 white) with its make-up codes: 1 done, 0 bad code
+  // or EOL (the row ends), -1 out of data
+  auto run = [&](int color, bool stop_at_eol) -> int {
+    for (;;) {
+      const bool w = color == 0;
+      if (!need16(w ? 12 : 13)) return -1;
+      const Ent& e = (w ? tabs.white : tabs.black)[bits(w ? 12 : 13)];
+      clr(e.width);
+      if (e.state == kEOL && stop_at_eol) {
+        eol = 1;
+        return 0;
+      }
+      if (e.state == (w ? kTermW : kTermB)) {
+        setvalue(e.param);
+        return 1;
+      }
+      if (e.state == (w ? kMakeUpW : kMakeUpB) || e.state == kMakeUp) {
+        a0 += e.param;
+        run_length += e.param;
+        continue;
+      }
+      *damaged = true;   // unexpected(): the row ends here
+      return 0;
+    }
+  };
+  // EXPAND1D: 1 the row is whole (or ended by a bad code), -1 out of data
+  auto expand1d = [&]() -> int {
+    for (;;) {
+      int r = run(0, true);
+      if (r < 0) break;
+      if (r == 0 || a0 >= lastx) { cleanup(); return 1; }
+      r = run(1, true);
+      if (r < 0) break;
+      if (r == 0 || a0 >= lastx) { cleanup(); return 1; }
+      if (pa - thisrun >= 2 && *(pa - 1) == 0 && *(pa - 2) == 0) pa -= 2;
+    }
+    cleanup();
+    return -1;
+  };
+  // EXPAND2D against the reference runs
+  auto expand2d = [&]() -> int {
+    uint32_t* pb = refruns;
+    int64_t b1 = *pb++;
+    auto check_b1 = [&] {
+      if (pa != thisrun)
+        while (b1 <= a0 && b1 < lastx) {
+          b1 += pb[0] + pb[1];
+          pb += 2;
+        }
+    };
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) { overflow = true; return -1; }
+      if (!need8(7)) { cleanup(); return -1; }
+      const Ent& e = tabs.main[bits(7)];
+      clr(e.width);
+      switch (e.state) {
+        case kPass:
+          check_b1();
+          b1 += *pb++;
+          run_length += b1 - a0;
+          a0 = b1;
+          b1 += *pb++;
+          break;
+        case kHoriz: {
+          const int first = (pa - thisrun) & 1;
+          int r = run(first, false);
+          if (r > 0) r = run(1 - first, false);
+          if (r < 0) { cleanup(); return -1; }
+          if (r == 0) {
+            cleanup();
+            return 1;
+          }
+          check_b1();
+          break;
+        }
+        case kV0:
+        case kVR:
+          check_b1();
+          setvalue(b1 - a0 + (e.state == kVR ? e.param : 0));
+          b1 += *pb++;
+          break;
+        case kVL:
+          check_b1();
+          if (b1 < a0 + static_cast<int64_t>(e.param)) {
+            *damaged = true;
+            cleanup();
+            return 1;
+          }
+          setvalue(b1 - a0 - e.param);
+          b1 -= *--pb;
+          break;
+        case kExt:
+          *pa++ = static_cast<uint32_t>(lastx - a0);
+          *damaged = true;
+          cleanup();
+          return 1;
+        case kEOL:
+          *pa++ = static_cast<uint32_t>(lastx - a0);
+          if (!need8(4)) { cleanup(); return -1; }
+          clr(4);
+          eol = 1;
+          cleanup();
+          return 1;
+        default:
+          *damaged = true;
+          cleanup();
+          return 1;
+      }
+      if (overflow) return -1;
+    }
+    if (run_length) {
+      if (run_length + a0 < lastx) {   // expect a final V0
+        if (!need8(1)) { cleanup(); return -1; }
+        if (!bits(1)) {
+          *damaged = true;
+          cleanup();
+          return 1;
+        }
+        clr(1);
+      }
+      setvalue(0);
+    }
+    cleanup();
+    return 1;
+  };
+  // SYNC_EOL: false where the data end first
+  auto sync_eol = [&]() -> bool {
+    if (eol == 0) {
+      for (;;) {
+        if (!need16(11)) return false;
+        if (bits(11) == 0) break;
+        clr(1);
+      }
+    }
+    for (;;) {
+      if (!need8(8)) return false;
+      if (bits(8)) break;
+      clr(8);
+    }
+    while (bits(1) == 0) clr(1);
+    clr(1);
+    eol = 0;
+    return true;
+  };
+  for (int line = 0; line < rows; ++line) {
+    uint8_t* row = out + line * rowbytes;
+    a0 = 0;
+    run_length = 0;
+    pa = thisrun;
+    int r;
+    if (compression == 2) {
+      r = expand1d();
+      if (r > 0) clr(avail & 7);   // each row starts on a byte
+    } else if (compression == 3) {
+      if (!sync_eol()) {
+        cleanup();
+        fill_runs(row, thisrun, pa, width);
+        return false;
+      }
+      if (two_d) {
+        if (!need8(1)) {
+          cleanup();
+          fill_runs(row, thisrun, pa, width);
+          return false;
+        }
+        const bool is1d = bits(1);
+        clr(1);
+        r = is1d ? expand1d() : expand2d();
+      } else {
+        r = expand1d();
+      }
+    } else {
+      r = expand2d();
+      if (r > 0 && eol) r = -1;
+    }
+    if (overflow) return false;
+    fill_runs(row, thisrun, pa, width);
+    if (r < 0 || eol) *damaged = true;
+    if (r < 0) {
+      // Fax4Decode does not fail a strip that ends early after a row
+      if (compression == 4) return line != 0;
+      return false;
+    }
+    if (ref_line) {
+      if (pa < thisrun + nruns) setvalue(0);
+      std::swap(thisrun, refruns);
+    }
+  }
+  return true;
+}
+
+}  // namespace fax
 
 
 // ------------------------------------------------------------ WebP VP8L --
@@ -3334,14 +3807,36 @@ int im_webp_decode(const uint8_t* buf, int64_t len, int32_t channels, uint8_t* o
   return guarded(err, errlen, [&] { webp_decode(buf, len, channels, out, outlen); });
 }
 
-int im_lzw_decode(const uint8_t* buf, int64_t len, uint8_t* out, int64_t outlen,
-                  int64_t* written, char* err, int64_t errlen) {
-  return guarded(err, errlen, [&] { *written = lzw_decode(buf, len, out, outlen); });
+int im_lzw_decode(const uint8_t* buf, int64_t len, int32_t compat, uint8_t* out,
+                  int64_t outlen, int64_t* written, char* err, int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    bool failed = false;
+    written[0] = lzw_decode(buf, len, out, outlen, compat != 0, &failed);
+    written[1] = failed;
+  });
+}
+
+int im_fax_decode(const uint8_t* buf, int64_t len, int32_t compression,
+                  int32_t two_d, int32_t lsb_first, int32_t width, int32_t rows,
+                  uint8_t* out, int64_t outlen, int64_t* failed, char* err,
+                  int64_t errlen) {
+  return guarded(err, errlen, [&] {
+    if (width <= 0 || rows < 0 || outlen < int64_t{(width + 7) / 8} * rows)
+      fail("fax: output buffer of the wrong size");
+    bool damaged = false;
+    failed[0] = !fax::decode(buf, len, compression, two_d != 0, lsb_first != 0,
+                             static_cast<uint32_t>(width), rows, out, &damaged);
+    failed[1] = damaged;
+  });
 }
 
 int im_packbits_decode(const uint8_t* buf, int64_t len, uint8_t* out, int64_t outlen,
                        int64_t* written, char* err, int64_t errlen) {
-  return guarded(err, errlen, [&] { *written = packbits_decode(buf, len, out, outlen); });
+  return guarded(err, errlen, [&] {
+    bool failed = false;
+    written[0] = packbits_decode(buf, len, out, outlen, &failed);
+    written[1] = failed;
+  });
 }
 
 int im_pam_info(const uint8_t* buf, int64_t len, int32_t* info, char* err, int64_t errlen) {

@@ -1917,6 +1917,34 @@ void render(const Decoder& d, int channels, uint8_t* out) {
   }
 }
 
+// A strip or tile of a JPEG-compressed TIFF as libtiff's tif_jpeg.c has
+// libjpeg decode it for the RGBA reader: every component upsampled to full
+// size and left as it is (JCS_UNKNOWN in and out), or, where `ycc` is set
+// (photometric YCbCr, JPEGCOLORMODE_RGB), three converted to RGB whatever
+// the stream's markers say. `out` [H, W, ncomp].
+void render_tiff(const Decoder& d, bool ycc, uint8_t* out) {
+  if (d.lossless) fail("a lossless frame in a TIFF strip is not read");
+  const int W = d.width, H = d.height, n = d.ncomp;
+  const size_t np = static_cast<size_t>(W) * H;
+  Smoothing sm;
+  const Smoothing* smp = smoothing_ok(d, sm) ? &sm : nullptr;
+  std::vector<std::vector<uint8_t>> up(n);
+  for (int ci = 0; ci < n; ci++)
+    up[ci] = upsample(d.comps[ci], samples(d, ci, smp), d.hmax, d.vmax, W, H);
+  if (ycc && n == 3) {
+    for (size_t i = 0; i < np; i++) {  // ycc_rgb_convert
+      int y = up[0][i], cb = up[1][i], cr = up[2][i];
+      out[3 * i] = g_limit[256 + y + g_cr_r[cr]];
+      out[3 * i + 1] = g_limit[256 + y + static_cast<int>(
+                                            (g_cb_g[cb] + g_cr_g[cr]) >> kScale)];
+      out[3 * i + 2] = g_limit[256 + y + g_cb_b[cb]];
+    }
+    return;
+  }
+  for (size_t i = 0; i < np; i++)
+    for (int ci = 0; ci < n; ci++) out[n * i + ci] = up[ci][i];
+}
+
 void set_error(char* err, int64_t errlen, const std::string& msg) {
   if (err && errlen > 0) {
     size_t n = std::min(msg.size(), static_cast<size_t>(errlen - 1));
@@ -1963,6 +1991,53 @@ int jd_decode(const uint8_t* buf, int64_t len, int32_t flags,
     set_error(err, errlen, e.msg);
     return -1;
   } catch (const std::exception& e) {  // std::bad_alloc and the like
+    set_error(err, errlen, std::string("decoder error: ") + e.what());
+    return -1;
+  }
+}
+
+// jd_header's hwc[3] also gives each component's sampling in `samp`
+// (h0, v0, h1, v1, ...; at most 4 components) and the precision in samp[8]
+int jd_tiff_header(const uint8_t* buf, int64_t len, int32_t* hwc,
+                   int32_t* samp, char* err, int64_t errlen) {
+  try {
+    Decoder d(buf, static_cast<size_t>(len), true);
+    d.read_header();
+    hwc[0] = d.height;
+    hwc[1] = d.width;
+    hwc[2] = d.ncomp;
+    for (int ci = 0; ci < std::min(d.ncomp, 4); ci++) {
+      samp[2 * ci] = d.comps[ci].h;
+      samp[2 * ci + 1] = d.comps[ci].v;
+    }
+    samp[8] = d.precision;
+    return 0;
+  } catch (const JpegError& e) {
+    set_error(err, errlen, e.msg);
+    return -1;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, std::string("decoder error: ") + e.what());
+    return -1;
+  }
+}
+
+// A TIFF strip's stream (its tables spliced in), read as libtiff's source
+// manager feeds it (a fake EOI where the data run out): `out` [H, W, ncomp]
+// as render_tiff gives it.
+int jd_tiff_decode(const uint8_t* buf, int64_t len, int32_t ycc, uint8_t* out,
+                   int64_t outlen, char* err, int64_t errlen) {
+  try {
+    Decoder d(buf, static_cast<size_t>(len), true);
+    d.read_header();
+    if (outlen != static_cast<int64_t>(d.width) * d.height * d.ncomp)
+      fail("output buffer of the wrong size");
+    d.decode_image();
+    render_tiff(d, ycc != 0, out);
+    return 0;
+  } catch (const JpegError& e) {
+    set_error(err, errlen, e.msg);
+    return -1;
+  } catch (const std::exception& e) {
     set_error(err, errlen, std::string("decoder error: ") + e.what());
     return -1;
   }

@@ -2,8 +2,12 @@
 variants that neither cv2 nor PIL writes: PNG at every colour type and bit
 depth with tRNS, Adam7 and chosen row filters; BMP at 1-32 bits with RLE4 /
 RLE8, bit fields, OS/2 headers and either row order; PBM / PGM / PPM;
-TIFF with strips or tiles, either byte order, LZW / Deflate / PackBits,
-predictor 2, planar samples, palettes and Orientation tags; WebP lossless
+TIFF with strips or tiles, either byte order, classic or BigTIFF, LZW
+(old-style codes too) / Deflate / PackBits / JPEG (with JPEGTables) /
+CCITT RLE, Group 3 and Group 4, predictors 2 and 3, planar samples, 1- and
+4-bit samples, FillOrder 2, palettes, YCbCr at each subsampling, CMYK,
+CIELab and Orientation tags, and LogLuv, old-style JPEG and WebP strips;
+WebP lossless
 (VP8L) with each of its transforms, and the WebP container with an ALPH
 chunk in each of its filters; PAM, PFM, Sun raster (RLE included), Radiance
 HDR (new-style RLE or flat), GIF (LZW with clear codes or a deferred
@@ -235,13 +239,23 @@ def pxm(pixels, kind, *, maxval=255, comments=False) -> bytes:
 
 # -------------------------------------------------------------------- TIFF
 
-def lzw_encode(data: bytes) -> bytes:
+def lzw_encode(data: bytes, *, old_style=False) -> bytes:
     """TIFF LZW (MSB first, 9-12 bit codes, the early width change a
-    decoder expects, a clear code when the table fills)."""
+    decoder expects, a clear code when the table fills); `old_style`: the
+    pre-5.0 codes, least significant bit first and no early change, which
+    libtiff reads through LZWDecodeCompat."""
     out, acc, nacc = bytearray(), 0, 0
 
     def put(code, nbits):
         nonlocal acc, nacc
+        if old_style:
+            acc |= code << nacc
+            nacc += nbits
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+            return
         acc = (acc << nbits) | code
         nacc += nbits
         while nacc >= 8:
@@ -249,11 +263,13 @@ def lzw_encode(data: bytes) -> bytes:
             out.append((acc >> nacc) & 0xFF)
         acc &= (1 << nacc) - 1
 
+    late = int(old_style)
+
     def bump(free, nbits):
         if free == 4094:
             put(256, nbits)
             return 258, 9, True
-        return free, nbits + (free > (1 << nbits) - 1), False
+        return free, nbits + (free > (1 << nbits) - 1 + late), False
 
     nbits, table, free, w = 9, {bytes([i]): i for i in range(256)}, 258, b""
     put(256, nbits)
@@ -273,7 +289,7 @@ def lzw_encode(data: bytes) -> bytes:
         _, nbits, _ = bump(free + 1, nbits)
     put(257, nbits)
     if nacc:
-        out.append((acc << (8 - nacc)) & 0xFF)
+        out.append(acc & 0xFF if old_style else (acc << (8 - nacc)) & 0xFF)
     return bytes(out)
 
 
@@ -298,32 +314,342 @@ def packbits_encode(data: bytes) -> bytes:
     return bytes(out)
 
 
+# T.4's code tables: white and black terminating codes (runs 0-63),
+# make-up codes (64-1728) and the shared extended make-up codes (1792-2560)
+_FAX_WHITE = ("00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 "
+              "00111 01000 001000 000011 110100 110101 101010 101011 "
+              "0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+              "0101011 0010011 0100100 0011000 00000010 00000011 00011010 "
+              "00011011 00010010 00010011 00010100 00010101 00010110 "
+              "00010111 00101000 00101001 00101010 00101011 00101100 "
+              "00101101 00000100 00000101 00001010 00001011 01010010 "
+              "01010011 01010100 01010101 00100100 00100101 01011000 "
+              "01011001 01011010 01011011 01001010 01001011 00110010 "
+              "00110011 00110100").split()
+_FAX_WHITE_UP = ("11011 10010 010111 0110111 00110110 00110111 01100100 "
+                 "01100101 01101000 01100111 011001100 011001101 011010010 "
+                 "011010011 011010100 011010101 011010110 011010111 "
+                 "011011000 011011001 011011010 011011011 010011000 "
+                 "010011001 010011010 011000 010011011").split()
+_FAX_BLACK = ("0000110111 010 11 10 011 0011 0010 00011 000101 000100 "
+              "0000100 0000101 0000111 00000100 00000111 000011000 "
+              "0000010111 0000011000 0000001000 00001100111 00001101000 "
+              "00001101100 00000110111 00000101000 00000010111 00000011000 "
+              "000011001010 000011001011 000011001100 000011001101 "
+              "000001101000 000001101001 000001101010 000001101011 "
+              "000011010010 000011010011 000011010100 000011010101 "
+              "000011010110 000011010111 000001101100 000001101101 "
+              "000011011010 000011011011 000001010100 000001010101 "
+              "000001010110 000001010111 000001100100 000001100101 "
+              "000001010010 000001010011 000000100100 000000110111 "
+              "000000111000 000000100111 000000101000 000001011000 "
+              "000001011001 000000101011 000000101100 000001011010 "
+              "000001100110 000001100111").split()
+_FAX_BLACK_UP = ("0000001111 000011001000 000011001001 000001011011 "
+                 "000000110011 000000110100 000000110101 0000001101100 "
+                 "0000001101101 0000001001010 0000001001011 0000001001100 "
+                 "0000001001101 0000001110010 0000001110011 0000001110100 "
+                 "0000001110101 0000001110110 0000001110111 0000001010010 "
+                 "0000001010011 0000001010100 0000001010101 0000001011010 "
+                 "0000001011011 0000001100100 0000001100101").split()
+_FAX_EXT_UP = ("00000001000 00000001100 00000001101 000000010010 "
+               "000000010011 000000010100 000000010101 000000010110 "
+               "000000010111 000000011100 000000011101 000000011110 "
+               "000000011111").split()
+_FAX_EOL = "000000000001"
+_FAX_V = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010",
+          -2: "000010", -3: "0000010"}
+
+
+def _fax_run(n, black):
+    """A run's codes: extended make-up codes of 2560, a make-up code, then
+    the terminating code."""
+    out = ""
+    while n > 2560:
+        out += _FAX_EXT_UP[-1]
+        n -= 2560
+    if n >= 64:
+        m = n // 64 * 64
+        out += (_FAX_EXT_UP[(m - 1792) // 64] if m >= 1792 else
+                (_FAX_BLACK_UP if black else _FAX_WHITE_UP)[m // 64 - 1])
+        n -= m
+    return out + (_FAX_BLACK if black else _FAX_WHITE)[n]
+
+
+def _fax_changes(row):
+    """A row's changing elements (a pixel of another colour than the one
+    before it; the pixel before the row is white), then the width twice."""
+    w = len(row)
+    ch = np.flatnonzero(np.diff(np.concatenate([[0], row])) != 0)
+    return [int(v) for v in ch] + [w, w]
+
+
+def _fax_1d(row):
+    ch = [0] + _fax_changes(row)[:-2] + [len(row)]
+    return "".join(_fax_run(b - a, k & 1) for k, (a, b) in
+                   enumerate(zip(ch[:-1], ch[1:])))
+
+
+def _fax_2d(row, ref):
+    """T.4's two-dimensional coding of `row` against `ref`: pass,
+    vertical within 3, horizontal otherwise."""
+    w = len(row)
+    cur, rc = _fax_changes(row), _fax_changes(ref)
+    out, a0, color = "", -1, 0
+    while a0 < w:
+        a1 = next(c for c in cur if c > a0)
+        a2 = next(c for c in cur if c > a1) if a1 < w else w
+        # b1: the first change past a0 to the other colour
+        i = next(j for j, c in enumerate(rc)
+                 if c > a0 and (j % 2 == color or c == w))
+        b1 = rc[i]
+        b2 = rc[i + 1] if i + 1 < len(rc) else w
+        if b2 < a1:
+            out += "0001"
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out += _FAX_V[a1 - b1]
+            a0, color = a1, 1 - color
+        else:
+            out += "001" + _fax_run(a1 - max(a0, 0), color) + _fax_run(
+                a2 - a1, 1 - color)
+            a0 = a2
+    return out
+
+
+def fax(bw, compression, *, two_d=False, k=2, fill_bits=False) -> bytes:
+    """1-bit rows `bw` [rows, width] (1 black) as CCITT RLE (compression
+    2: each row byte aligned), Group 3 (3: an EOL before each row; `two_d`
+    with every `k`th row one-dimensional and the rest coded against the
+    row above; `fill_bits` pads each EOL to end a byte) or Group 4 (4: two-
+    dimensional against a white first reference, EOFB at the end)."""
+    bw = np.asarray(bw, np.uint8)
+    bits, ref = "", np.zeros(bw.shape[1], np.uint8)
+    for y, row in enumerate(bw):
+        if compression == 2:
+            bits += _fax_1d(row)
+            bits += "0" * (-len(bits) % 8)
+        elif compression == 3:
+            if fill_bits:
+                bits += "0" * ((-len(bits) - 12) % 8)
+            bits += _FAX_EOL
+            if two_d:
+                one = y % k == 0
+                bits += ("1" + _fax_1d(row)) if one else (
+                    "0" + _fax_2d(row, ref))
+            else:
+                bits += _fax_1d(row)
+        else:
+            bits += _fax_2d(row, ref)
+        ref = row
+    if compression == 4:
+        bits += _FAX_EOL * 2
+    bits += "0" * (-len(bits) % 8)
+    return np.packbits(np.frombuffer(bits.encode(), np.uint8) - 48).tobytes()
+
+
+_REVERSED = np.array([int(f"{v:08b}"[::-1], 2) for v in range(256)],
+                     np.uint8)
+_TIFF_FMT = {3: "H", 4: "I", 7: "B", 16: "Q"}
+
+
+def _tiff_payload(order, typ, vals):
+    if typ == 5:   # RATIONAL: each value as n / 1000000
+        return struct.pack(order + "II" * len(vals), *[
+            x for v in vals for x in (round(v * 1000000), 1000000)])
+    return struct.pack(order + _TIFF_FMT[typ] * len(vals),
+                       *[int(v) for v in vals])
+
+
+def tiff_file(blocks, entries, *, order="<", bigtiff=False, ifd_first=False,
+              tiled=False) -> bytes:
+    """A one-image TIFF of encoded strips or tiles `blocks` and the tags
+    `entries` [(tag, type, values)] (StripOffsets / TileOffsets added):
+    classic, or BigTIFF (8-byte offsets, 20-byte entries); the IFD after
+    the data, or right after the header (`ifd_first`)."""
+    off_tag = 324 if tiled else 273
+    word = "Q" if bigtiff else "I"
+    entry_size, inline = (20, 8) if bigtiff else (12, 4)
+    head = (b"II" if order == "<" else b"MM") + (
+        struct.pack(order + "HHHQ", 43, 8, 0, 0) if bigtiff
+        else struct.pack(order + "HI", 42, 0))
+    n = len(entries) + 1
+    ifd_size = (8 if bigtiff else 2) + entry_size * n + (8 if bigtiff else 4)
+
+    def layout(extra_size):
+        data_off = len(head) + (ifd_size + extra_size if ifd_first else 0)
+        offsets, at = [], data_off
+        for b in blocks:
+            offsets.append(at)
+            at += len(b) + (len(b) & 1)
+        ifd_off = len(head) if ifd_first else at
+        return offsets, ifd_off
+
+    def build(offsets, ifd_off):
+        ents = sorted(list(entries) + [(off_tag, 16 if bigtiff else 4,
+                                        offsets)], key=lambda e: e[0])
+        extra_off = ifd_off + ifd_size
+        ifd = bytearray(struct.pack(order + ("Q" if bigtiff else "H"), n))
+        extra = bytearray()
+        for t, typ, vals in ents:
+            payload = _tiff_payload(order, typ, vals)
+            count = len(vals)
+            if len(payload) <= inline:
+                ifd += struct.pack(order + "HH" + word, t, typ, count)
+                ifd += payload.ljust(inline, b"\0")
+            else:
+                ifd += struct.pack(order + "HH" + word + word, t, typ, count,
+                                   extra_off + len(extra))
+                extra += payload + b"\0" * (len(payload) & 1)
+        return bytes(ifd + b"\0" * (8 if bigtiff else 4) + extra)
+
+    offsets, ifd_off = layout(0)
+    ifd = build(offsets, ifd_off)
+    if ifd_first:   # the data move past the IFD's values
+        offsets, ifd_off = layout(len(ifd) - ifd_size)
+        ifd = build(offsets, ifd_off)
+    data = bytearray(head)
+    struct.pack_into(order + word, data, 8 if bigtiff else 4, ifd_off)
+    if ifd_first:
+        data += ifd
+    for b in blocks:
+        data += b + b"\0" * (len(b) & 1)
+    if not ifd_first:
+        data += ifd
+    return bytes(data)
+
+
+def _pack_bits(block, bits):
+    """Samples below 2^bits packed MSB first, each row padded to a byte."""
+    rows, cols = block.shape[0], block.shape[1] * block.shape[2]
+    v = block.reshape(rows, cols).astype(np.uint8)
+    unpacked = np.unpackbits(v[..., None], axis=-1)[..., 8 - bits:]
+    return np.packbits(unpacked.reshape(rows, cols * bits), axis=1).tobytes()
+
+
+def _ycbcr_blocks(block, hs, vs):
+    """[rows, cols, 3] YCbCr samples in TIFF's subsampled order: per block
+    of vs x hs pixels its Y samples row by row, then the Cb and Cr of its
+    top-left pixel (partial blocks padded by repeating the last sample)."""
+    rows, cols = block.shape[:2]
+    br, bc = -(-rows // vs), -(-cols // hs)
+    pad = np.pad(block, ((0, br * vs - rows), (0, bc * hs - cols), (0, 0)),
+                 mode="edge")
+    y = pad[..., 0].reshape(br, vs, bc, hs).transpose(0, 2, 1, 3).reshape(
+        br, bc, vs * hs)
+    c = pad[::vs, ::hs, 1:]
+    return np.concatenate([y, c], -1).astype(np.uint8).tobytes()
+
+
+def _jpeg_strip(block, *, photometric, sampling, quality):
+    """A strip's or tile's JPEG stream (YCbCr: `block` RGB, converted;
+    other photometrics coded as they are) and its quantisation tables."""
+    nc = block.shape[2]
+    samp = None
+    if photometric == 6 and sampling != (1, 1):
+        samp = [tuple(sampling), (1, 1), (1, 1)]
+    c = jpeg_coefficients(block[..., 0] if nc == 1 else block,
+                          quality=quality, sampling=samp,
+                          rgb=photometric != 6)
+    return jpeg(c, jfif=False), c["qtables"]
+
+
+def _without_dqt(stream: bytes) -> bytes:
+    """A JPEG stream with its DQT segment taken out (to JPEGTables)."""
+    at = stream.index(b"\xff\xdb")
+    size = struct.unpack(">H", stream[at + 2:at + 4])[0]
+    return stream[:at] + stream[at + 2 + size:]
+
+
+def jpeg_tiff(stream: bytes, w: int, h: int) -> bytes:
+    """A one-strip JPEG-compressed YCbCr TIFF (4:4:4) of a baseline JPEG
+    `stream` of w x h (as `jpeg` writes it): its DQT segment in
+    JPEGTables, the rest the strip, so that libjpeg reads the strip as it
+    reads `stream`."""
+    at = stream.index(b"\xff\xdb")
+    size = struct.unpack(">H", stream[at + 2:at + 4])[0]
+    tables = b"\xff\xd8" + stream[at:at + 2 + size] + b"\xff\xd9"
+    strip = _without_dqt(stream)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 3),
+               (259, 3, [7]), (262, 3, [6]), (277, 3, [3]), (278, 4, [h]),
+               (279, 4, [len(strip)]), (284, 3, [1]), (347, 7, list(tables)),
+               (530, 3, [1, 1])]
+    return tiff_file([strip], entries)
+
+
 def tiff(arr, *, order="<", compression=1, predictor=1, planar=1,
          rows_per_strip=None, tile=None, photometric=None, colormap=None,
          extrasamples=None, orientation=None, sampleformat=None,
-         extra_tags=()) -> bytes:
+         extra_tags=(), bits=None, fillorder=1, bigtiff=False,
+         ifd_first=False, old_lzw=False, subsampling=None,
+         subsampling_tag=True, jpeg_quality=85, jpeg_tables=True,
+         jpeg_rows=None, fax_2d=False) -> bytes:
     """A one-image TIFF of `arr` ([H, W] or [H, W, C], samples in file
     order). `colormap` [2^bits, 3] 16-bit values; `extra_tags` (tag, type,
-    values) entries added as they are."""
+    values) entries added as they are; `bits` 1, 2 or 4: samples packed,
+    each row padded to a byte; `fillorder` 2: every stored byte's bits
+    reversed; `predictor` 3: libtiff's floating-point predictor (byte
+    planes, most significant first, differenced); `old_lzw`: LZW in the
+    old LSB-first codes; `subsampling` (h, v) with photometric 6: `arr`
+    holds YCbCr samples, stored subsampled (the YCbCrSubSampling tag left
+    out where not `subsampling_tag`). Compression 7 codes each strip or
+    tile as a JPEG stream at `jpeg_quality` (photometric 6: `arr` is RGB,
+    converted, sampled as `subsampling`; others coded as they are), its
+    quantisation tables in a JPEGTables tag where `jpeg_tables`, and each
+    strip `jpeg_rows` rows high where given (a last strip that runs past
+    the image). Compressions 2, 3 and 4 code 1-bit rows (`arr` 0 / 1, 1
+    black) with `fax` (Group 3 two-dimensional where `fax_2d`). `bigtiff`
+    writes BigTIFF; `ifd_first` the IFD before the data."""
     arr = np.asarray(arr)
     if arr.ndim == 2:
         arr = arr[..., None]
     h, w, spp = arr.shape
-    bits = arr.dtype.itemsize * 8
+    nbits = bits or arr.dtype.itemsize * 8
     if photometric is None:
         photometric = 1 if spp in (1, 2) else 2
     dt = arr.dtype.newbyteorder(order)
+    qtables = {}
 
     def encode(block):
-        if predictor == 2:
-            ints = block.view(np.dtype(f"u{block.dtype.itemsize}"))
-            v = ints.astype(np.int64)
-            v[:, 1:] = v[:, 1:] - v[:, :-1]
-            block = (v % (1 << (8 * block.dtype.itemsize))).astype(
-                ints.dtype).view(block.dtype)
-        raw = block.astype(dt).tobytes()
-        return {1: lambda r: r, 5: lzw_encode, 8: zlib.compress,
-                32946: zlib.compress, 32773: packbits_encode}[compression](raw)
+        if compression == 7:
+            if jpeg_rows and block.shape[0] < jpeg_rows:
+                block = np.pad(block, ((0, jpeg_rows - block.shape[0]),
+                                       (0, 0), (0, 0)), mode="edge")
+            stream, q = _jpeg_strip(block, photometric=photometric,
+                                    sampling=tuple(subsampling or (1, 1)),
+                                    quality=jpeg_quality)
+            qtables.update(q)
+            raw = _without_dqt(stream) if jpeg_tables else stream
+        else:
+            if predictor == 2:
+                ints = block.view(np.dtype(f"u{block.dtype.itemsize}"))
+                v = ints.astype(np.int64)
+                v[:, 1:] = v[:, 1:] - v[:, :-1]
+                block = (v % (1 << (8 * block.dtype.itemsize))).astype(
+                    ints.dtype).view(block.dtype)
+            if compression in (2, 3, 4):
+                raw = fax(block[..., 0], compression, two_d=fax_2d)
+            elif subsampling is not None:
+                raw = _ycbcr_blocks(block, *subsampling)
+            elif bits:
+                raw = _pack_bits(block, bits)
+            elif predictor == 3:   # fpDiff: byte planes, then differences
+                rows = block.shape[0]
+                b = block.astype(">" + block.dtype.str[1:]).view(
+                    np.uint8).reshape(rows, -1, block.dtype.itemsize)
+                planes = b.transpose(0, 2, 1).reshape(rows, -1).astype(
+                    np.int64)
+                planes[:, spp:] -= planes[:, :-spp].copy()
+                raw = (planes % 256).astype(np.uint8).tobytes()
+            else:
+                raw = block.astype(dt).tobytes()
+            raw = {1: lambda r: r, 2: bytes, 3: bytes, 4: bytes,
+                   5: lambda r: lzw_encode(r, old_style=old_lzw),
+                   8: zlib.compress, 32946: zlib.compress,
+                   32773: packbits_encode}[compression](raw)
+        if fillorder == 2:
+            raw = _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+        return raw
 
     planes = [arr] if planar == 1 else [arr[..., k:k + 1] for k in range(spp)]
     blocks = []
@@ -340,7 +666,7 @@ def tiff(arr, *, order="<", compression=1, predictor=1, planar=1,
         rps = rows_per_strip or h
         for p in planes:
             blocks += [encode(p[y:y + rps]) for y in range(0, h, rps)]
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [nbits] * spp),
                (259, 3, [compression]), (262, 3, [photometric]),
                (277, 3, [spp]), (284, 3, [planar])]
     if orientation:
@@ -353,35 +679,85 @@ def tiff(arr, *, order="<", compression=1, predictor=1, planar=1,
         entries.append((338, 3, list(extrasamples)))
     if sampleformat is not None:
         entries.append((339, 3, [sampleformat] * spp))
-    off_tag, cnt_tag = (324, 325) if tile else (273, 279)
+    if fillorder != 1:
+        entries.append((266, 3, [fillorder]))
+    if compression == 3:
+        entries.append((292, 4, [int(fax_2d)]))
+    if subsampling is not None and subsampling_tag:
+        entries.append((530, 3, list(subsampling)))
+    if compression == 7 and jpeg_tables:
+        entries.append((347, 7, list(b"\xff\xd8" + _dqt(qtables)
+                                     + b"\xff\xd9")))
+    cnt_tag = 325 if tile else 279
     if tile:
         entries += [(322, 4, [tile[0]]), (323, 4, [tile[1]])]
     else:
         entries.append((278, 4, [rows_per_strip or h]))
-    entries.append((cnt_tag, 4, [len(b) for b in blocks]))
+    entries.append((cnt_tag, 16 if bigtiff else 4, [len(b) for b in blocks]))
     entries += list(extra_tags)
-    data = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + b"\0" * 4
-    offsets = []
-    for b in blocks:
-        offsets.append(len(data))
-        data += b + b"\0" * (len(b) & 1)
-    entries.append((off_tag, 4, offsets))
-    entries.sort(key=lambda e: e[0])
-    ifd_off = len(data)
-    struct.pack_into(order + "I", data, 4, ifd_off)
-    extra_off = ifd_off + 2 + 12 * len(entries) + 4
-    ifd, extra = bytearray(struct.pack(order + "H", len(entries))), bytearray()
-    for t, typ, vals in entries:
-        payload = struct.pack(order + {3: "H", 4: "I"}[typ] * len(vals),
-                              *[int(v) for v in vals])
-        if len(payload) <= 4:
-            ifd += struct.pack(order + "HHI", t, typ, len(vals))
-            ifd += payload.ljust(4, b"\0")
-        else:
-            ifd += struct.pack(order + "HHII", t, typ, len(vals),
-                               extra_off + len(extra))
-            extra += payload + b"\0" * (len(payload) & 1)
-    return bytes(data + ifd + b"\0\0\0\0" + extra)
+    return tiff_file(blocks, entries, order=order, bigtiff=bigtiff,
+                     ifd_first=ifd_first, tiled=bool(tile))
+
+
+def rgb_to_ycbcr(rgb) -> np.ndarray:
+    """uint8 RGB to full-range YCbCr (T.871), rounded: the samples of a
+    photometric-6 TIFF whose ReferenceBlackWhite is libtiff's default."""
+    r, g, b = (np.asarray(rgb, np.float64)[..., i] for i in range(3))
+    ycc = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                    -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                    0.5 * r - 0.418688 * g - 0.081312 * b + 128], -1)
+    return np.clip(np.rint(ycc), 0, 255).astype(np.uint8)
+
+
+def rgb_to_cmyk(rgb) -> np.ndarray:
+    """uint8 RGB to separated CMYK with K = 0 (C = 255 - R, ...), which
+    libtiff's RGBA reader turns back exactly."""
+    rgb = np.asarray(rgb, np.uint8)
+    return np.concatenate([255 - rgb, np.zeros(rgb.shape[:2] + (1,),
+                                               np.uint8)], -1)
+
+
+def tiff_logluv(luv) -> bytes:
+    """An SGI LogLuv TIFF (Compression 34676, PhotometricInterpretation
+    32845) of 32-bit LogLuv pixels `luv` [H, W] uint32 (L 16 bits, u and v 8
+    each): each row's four byte planes, most significant first, in literal
+    runs of up to 127 bytes, as tif_luv.c's LogLuvDecode32 reads them."""
+    luv = np.asarray(luv, np.uint32)
+    h, w = luv.shape
+    out = bytearray()
+    for row in luv:
+        for shift in (24, 16, 8, 0):
+            plane = ((row >> shift) & 255).astype(np.uint8).tobytes()
+            for i in range(0, len(plane), 127):
+                out += bytes([len(plane[i:i + 127])]) + plane[i:i + 127]
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [16] * 3),
+               (259, 3, [34676]), (262, 3, [32845]), (277, 3, [3]),
+               (278, 4, [h]), (279, 4, [len(out)]), (284, 3, [1]),
+               (339, 3, [2] * 3)]
+    return tiff_file([bytes(out)], entries)
+
+
+def tiff_ojpeg(stream: bytes, w: int, h: int) -> bytes:
+    """An old-style JPEG TIFF (Compression 6): one strip holding a whole
+    baseline JPEG `stream` of YCbCr 2 x 2, JPEGInterchangeFormat (513)
+    pointing at it."""
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 3),
+               (259, 3, [6]), (262, 3, [6]), (277, 3, [3]), (278, 4, [h]),
+               (279, 4, [len(stream)]), (284, 3, [1]), (513, 4, [8]),
+               (514, 4, [len(stream)]), (530, 3, [2, 2])]
+    return tiff_file([stream], entries)
+
+
+def tiff_webp(rgba) -> bytes:
+    """A TIFF whose one strip is a lossless WebP (Compression 50001)."""
+    rgba = np.asarray(rgba, np.uint8)
+    h, w = rgba.shape[:2]
+    strip = webp_lossless(rgba)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * 4),
+               (259, 3, [50001]), (262, 3, [2]), (277, 3, [4]),
+               (278, 4, [h]), (279, 4, [len(strip)]), (284, 3, [1]),
+               (338, 3, [2])]
+    return tiff_file([strip], entries)
 
 
 # -------------------------------------------------------------- WebP VP8L

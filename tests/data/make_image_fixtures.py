@@ -30,15 +30,21 @@ tests/data/images/
                    offsets); ROADMAP F1's JPEGs (arithmetic coding with
                    its Huffman twin, lossless SOF3, and the 12-bit, 2-
                    component, SOF11 and SOF5 files cv2 gives None for);
-                   files the port refuses (JPEG / YCbCr / CMYK and
-                   16-bit planar TIFFs) and AVIF, which it leaves to cv2
+                   ROADMAP F2's TIFFs (`tiff_more_files`: JPEG strips,
+                   YCbCr, CMYK, 1- to 4-bit, FillOrder 2, predictor 3,
+                   old-style LZW, BigTIFF, CCITT, CIELab; LZMA, Zstd,
+                   WebP and old-style JPEG strips cv2 gives None for; a
+                   LogLuv file the port refuses) and AVIF, which it
+                   leaves to cv2
   expected.json    "files": for every file, `port` ("equal": the port must
                    give cv2's pixels; "refused": it raises ValueError;
                    "cv2": it reads through cv2, RuntimeError without) and
                    for each source ("file": cv2.imread, "buffer":
                    cv2.imdecode) and read ("unchanged", "color", "gray")
                    cv2's shape, dtype and the SHA-256 of its pixels in
-                   RGB(A) order, or null where cv2 gives None;
+                   RGB(A) order, or null where cv2 gives None (an
+                   UNWRITTEN read: shape, dtype, "unwritten": true and
+                   no hash, as cv2 returns memory it never wrote there);
                    "scene": a 3-view LLFF scene (a PNG named .jpg, a
                    lossless WebP, a TIFF) and the SHA-256 of JAX's
                    `load_scene(factor=1)` image stack on it;
@@ -46,7 +52,9 @@ tests/data/images/
                    MORE_SCENE's formats under other suffixes;
                    "shard_more": the members (fixture, name in the tar)
                    of a shard of the new formats and the SHA-256 of each
-                   image JAX's `iter_shard_images` streams from it
+                   image JAX's `iter_shard_images` streams from it;
+                   "scene_tiff" / "shard_tiff": the same for 9 views of
+                   TIFF_SCENE's kinds and a shard of TIFF_SHARD's files
 
 Hand-written variants come from `image_writers.py` (neither cv2 nor PIL
 writes them); every image is made from a fixed seed.
@@ -84,7 +92,8 @@ def rgb_order(img):
 
 
 def cv2_reads(path: Path) -> dict:
-    """cv2's three reads of a file under both sources, as recorded."""
+    """cv2's three reads of a file under both sources, as recorded (an
+    UNWRITTEN read by its shape and dtype only)."""
     data = np.frombuffer(path.read_bytes(), np.uint8)
     out = {}
     for source in ("file", "buffer"):
@@ -97,6 +106,8 @@ def cv2_reads(path: Path) -> dict:
             out[source][read] = None if img is None else {
                 "shape": list(img.shape), "dtype": str(img.dtype),
                 "sha256": sha256(rgb_order(img))}
+            if img is not None and (path.name, read) in UNWRITTEN:
+                out[source][read].update(sha256=None, unwritten=True)
     return out
 
 
@@ -182,6 +193,14 @@ def libvpx_keyframe(rgb, *, profile=0, partitions=0, q=None):
 def pil_bytes(img, fmt, mode=None, **kw):
     bio = io.BytesIO()
     Image.fromarray(img, mode).save(bio, fmt, **kw)
+    return bio.getvalue()
+
+
+def pil_bilevel(bits, compression):
+    """A PIL TIFF of 0 / 1 samples in mode "1" (CCITT needs it)."""
+    bio = io.BytesIO()
+    Image.fromarray(bits.astype(np.uint8) * 255).convert("1").save(
+        bio, "TIFF", compression=compression)
     return bio.getvalue()
 
 
@@ -447,6 +466,144 @@ def tiff_files(rs):
     return f
 
 
+def tiff_more_files():
+    """The TIFFs of ROADMAP F2's first item (their own RandomState, so the
+    fixtures made before them keep their bytes): JPEG strips and tiles
+    (YCbCr 4:2:0 with a last strip that runs past the image, 4:4:4 in
+    several strips, 4:2:2 tiles, RGB, gray and CMYK coded as they are,
+    tables inline), YCbCr uncompressed at 2 x 1, 4 x 2 and 4 x 4 (whose
+    rows cv2 reads short) and with ReferenceBlackWhite, CMYK (LZW with
+    predictor 2, planar, tiled), 1-, 2- and 4-bit samples, FillOrder 2,
+    the floating-point predictor in either byte order, old-style LZW,
+    BigTIFF, 16-bit planar, gray and unassociated-alpha RGBA, mirrored
+    tiles, CCITT RLE / Group 3 (1D and 2D) / Group 4, CIELab at 8 and 16
+    bits; and those cv2 gives None for (LZMA, Zstd, WebP strips, an
+    old-style JPEG) or reads and the port does not yet (LogLuv)."""
+    rs = np.random.RandomState(26)
+    rgb = picture(seed=26)
+    gray = rgb[..., 1]
+    bw = (gray > 127).astype(np.uint8)
+    ycc = iw.rgb_to_ycbcr(rgb)
+    f = {
+        "tiff_jpeg_ycbcr22.tif": iw.tiff(rgb, compression=7, photometric=6,
+                                         subsampling=(2, 2),
+                                         rows_per_strip=16, jpeg_rows=16),
+        "tiff_jpeg_ycbcr444_strips.tif": iw.tiff(
+            rgb, compression=7, photometric=6, rows_per_strip=8,
+            extra_tags=[(530, 3, [1, 1])], jpeg_quality=95),
+        "tiff_jpeg_ycbcr21_tiles.tif": iw.tiff(
+            picture(40, 70, seed=27), compression=7, photometric=6,
+            subsampling=(2, 1), tile=(32, 16)),
+        "tiff_jpeg_rgb.tif": iw.tiff(rgb, compression=7, photometric=2,
+                                     jpeg_tables=False),
+        "tiff_jpeg_gray.tif": iw.tiff(gray, compression=7, rows_per_strip=16),
+        "tiff_jpeg_cmyk.tif": iw.tiff(picture(seed=28, channels=4),
+                                      compression=7, photometric=5),
+        "tiff_jpeg_pil_cmyk.tif": pil_bytes(picture(seed=28, channels=4),
+                                            "TIFF", "CMYK",
+                                            compression="jpeg"),
+        "tiff_ycbcr21.tif": iw.tiff(ycc, photometric=6, subsampling=(2, 1)),
+        "tiff_ycbcr42_lzw.tif": iw.tiff(ycc, photometric=6,
+                                        subsampling=(4, 2), compression=5,
+                                        rows_per_strip=6),
+        "tiff_ycbcr44_short_rows.tif": iw.tiff(ycc[:, :18], photometric=6,
+                                               subsampling=(4, 4)),
+        "tiff_ycbcr11_refbw.tif": iw.tiff(
+            ycc, photometric=6, subsampling=(1, 1), compression=8,
+            extra_tags=[(529, 5, [0.2126, 0.7152, 0.0722]),
+                        (532, 5, [16.0, 235.0, 128.0, 240.0, 128.0,
+                                  240.0])]),
+        "tiff_ycbcr_planar.tif": iw.tiff(ycc, photometric=6, planar=2,
+                                         extra_tags=[(530, 3, [1, 1])]),
+        "tiff_cmyk_lzw_pred2.tif": iw.tiff(picture(seed=29, channels=4),
+                                           photometric=5, compression=5,
+                                           predictor=2, rows_per_strip=7),
+        "tiff_cmyk_planar.tif": iw.tiff(picture(seed=29, channels=4),
+                                        photometric=5, planar=2),
+        "tiff_cmyk_tiles.tif": iw.tiff(picture(40, 70, seed=30, channels=4),
+                                       photometric=5, compression=8,
+                                       tile=(32, 32)),
+        "tiff_bw1.tif": iw.tiff(bw, bits=1, compression=32773),
+        "tiff_bw1_miniswhite_fill2.tif": iw.tiff(bw, bits=1, photometric=0,
+                                                 compression=5, fillorder=2,
+                                                 rows_per_strip=5),
+        "tiff_palette1.tif": iw.tiff(bw, bits=1, photometric=3,
+                                     colormap=rs.randint(0, 65536, (2, 3))),
+        "tiff_palette4.tif": iw.tiff(gray >> 4, bits=4, photometric=3,
+                                     colormap=rs.randint(0, 65536, (16, 3)),
+                                     compression=8),
+        "tiff_gray2.tif": iw.tiff(gray >> 6, bits=2),
+        "tiff_gray4.tif": iw.tiff(gray >> 4, bits=4),
+        "tiff_fill2_lzw_pred2.tif": iw.tiff(rgb, compression=5, predictor=2,
+                                            fillorder=2, rows_per_strip=9),
+        "tiff_float_pred3_le.tif": iw.tiff(rgb.astype(np.float32) / 255,
+                                           sampleformat=3, predictor=3,
+                                           compression=8),
+        "tiff_float_pred3_be.tif": iw.tiff(gray.astype(np.float32) * 3 - 7,
+                                           sampleformat=3, predictor=3,
+                                           compression=5, order=">",
+                                           rows_per_strip=10),
+        "tiff_float_pred3_tiles.tif": iw.tiff(
+            picture(40, 70, seed=31).astype(np.float32), sampleformat=3,
+            predictor=3, compression=8, tile=(32, 16)),
+        "tiff_lzw_old.tif": iw.tiff(rgb, compression=5, old_lzw=True),
+        "tiff_lzw_old_pred2_gray16.tif": iw.tiff(
+            wide(gray, rs), compression=5, old_lzw=True, predictor=2,
+            rows_per_strip=8),
+        "tiff_bigtiff.tif": iw.tiff(rgb, bigtiff=True, compression=5,
+                                    predictor=2, rows_per_strip=8),
+        "tiff_bigtiff_tiles16_be.tif": iw.tiff(
+            wide(picture(40, 70, seed=32), rs), bigtiff=True, order=">",
+            compression=8, tile=(32, 32)),
+        "tiff_gray16_planar_alpha.tif": iw.tiff(
+            wide(picture(seed=33, channels=4)[..., [1, 3]], rs), planar=2,
+            extrasamples=[2], compression=8),
+        "tiff_gray16_tiles.tif": iw.tiff(wide(picture(40, 70, seed=34)[
+            ..., 0], rs), tile=(32, 16), compression=5, photometric=0),
+        "tiff_gray_alpha_tiles.tif": iw.tiff(
+            picture(40, 70, seed=35, channels=4)[..., [1, 3]],
+            extrasamples=[1], tile=(32, 32), compression=8),
+        "tiff_rgba16_unassoc.tif": iw.tiff(wide(picture(seed=36, channels=4),
+                                                rs), extrasamples=[2],
+                                           compression=5, rows_per_strip=8),
+        "tiff_orient2_tiles.tif": iw.tiff(picture(40, 70, seed=37),
+                                          orientation=2, tile=(32, 16),
+                                          compression=5),
+        "tiff_orient7_tiles16.tif": iw.tiff(wide(picture(40, 70, seed=38),
+                                                 rs), orientation=7,
+                                            tile=(32, 32), compression=8),
+        "tiff_uncompressed_tiles.tif": iw.tiff(picture(40, 70, seed=39),
+                                               tile=(32, 16)),
+        "tiff_ccitt_rle.tif": pil_bilevel(bw, "tiff_ccitt"),
+        "tiff_g3.tif": pil_bilevel(bw, "group3"),
+        "tiff_g4.tif": pil_bilevel(bw, "group4"),
+        "tiff_g3_2d_fill2.tif": iw.tiff(bw, bits=1, compression=3,
+                                        fax_2d=True, photometric=0,
+                                        fillorder=2, rows_per_strip=8),
+        "tiff_g4_tiles.tif": iw.tiff((picture(40, 70, seed=40)[..., 2] > 100
+                                      ).astype(np.uint8), bits=1,
+                                     compression=4, photometric=0,
+                                     tile=(32, 16)),
+        "tiff_cielab.tif": iw.tiff(rs.randint(0, 256, (H, W, 3)).astype(
+            np.uint8), photometric=8, compression=5),
+        "tiff_cielab16_whitepoint.tif": iw.tiff(
+            rs.randint(0, 65536, (H, W, 3)).astype(np.uint16), photometric=8,
+            extra_tags=[(318, 5, [0.3127, 0.329])]),
+        "tiff_cielab_pil.tif": pil_bytes(rgb, "TIFF", "LAB"),
+        "tiff_lzma.tif": pil_bytes(rgb, "TIFF", compression="lzma"),
+        "tiff_zstd.tif": pil_bytes(rgb, "TIFF", compression="zstd"),
+        "tiff_webp.tif": iw.tiff_webp(picture(seed=41, channels=4)),
+        "tiff_ojpeg.tif": iw.tiff_ojpeg(iw.jpeg(iw.jpeg_coefficients(
+            picture(16, 16, seed=42), sampling=[(2, 2), (1, 1), (1, 1)])),
+            16, 16),
+        "tiff_logluv.tif": iw.tiff_logluv(
+            (rs.randint(0x3000, 0x5000, (H, W)).astype(np.uint32) << 16)
+            | (rs.randint(60, 120, (H, W)).astype(np.uint32) << 8)
+            | rs.randint(100, 160, (H, W)).astype(np.uint32)),
+    }
+    return f
+
+
 def pam_files(rs):
     """PAM at each TUPLTYPE (GRAYSCALE_ALPHA and RGB_ALPHA one pixel wide,
     where cv2 writes each read whole), 16-bit, MAXVAL below 255, without a
@@ -662,8 +819,13 @@ def scene_view():
         return cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
 
 
-REFUSED = ("tiff_jpeg.tif", "tiff_ycbcr.tif", "tiff_cmyk.tif",
-           "tiff_rgb16_planar_be.tif")
+# cv2 reads them, the port does not yet (ROADMAP F2)
+REFUSED = ("tiff_logluv.tif",)
+# reads where cv2 returns memory it never wrote (a planar 16-bit TIFF's
+# unchanged read fills a buffer of every sample from the first plane's
+# strips): recorded by shape and dtype, "unwritten", no hash; the port
+# refuses them
+UNWRITTEN = {("tiff_rgb16_planar_be.tif", "unchanged")}
 LEFT_TO_CV2 = ("left_avif.avif",)
 # the 7-view scene of the formats decoded natively since ROADMAP F1 / F2
 # (view k written as MORE_SCENE[k]: kind, suffix) and the shard members
@@ -674,6 +836,89 @@ MORE_SHARD = ("pam_rgb.pam", "hdr_rle.hdr", "gif_interlace.gif",
               "ras24.ras", "pfm_rgb_le.pfm", "jpeg_arith_prog.jpg",
               "jpeg_lossless_rgb_rst.jpg", "gif_transparent.gif",
               "ras8_rle.ras", "pam_gray16.pam", "left_hdr.hdr")
+
+
+# the 9-view scene of ROADMAP F2's TIFFs (view k written as TIFF_SCENE[k]:
+# kind, suffix) and the shard of them
+TIFF_SCENE = (("jpeg_ycbcr", ".jpg"), ("ycbcr", ".png"), ("cmyk", ".jpg"),
+              ("bw1", ".png"), ("float_pred3", ".jpg"), ("bigtiff16", ".png"),
+              ("cielab", ".jpg"), ("g4", ".png"), ("old_lzw", ".jpg"))
+TIFF_SHARD = ("tiff_jpeg_ycbcr22.tif", "tiff_cmyk_lzw_pred2.tif",
+              "tiff_ycbcr42_lzw.tif", "tiff_bw1.tif", "tiff_g3_2d_fill2.tif",
+              "tiff_cielab.tif", "tiff_bigtiff.tif", "tiff_lzw_old.tif",
+              "tiff_float_pred3_le.tif", "tiff_lzma.tif",
+              "tiff_jpeg_pil_cmyk.tif", "tiff_uncompressed_tiles.tif",
+              "tiff_palette4.tif", "tiff_g4_tiles.tif")
+
+
+def tiff_scene_view(kind, rgb):
+    """A view's TIFF in one of the TIFF_SCENE kinds (numpy writers)."""
+    gray = rgb[..., 1]
+    if kind == "jpeg_ycbcr":
+        return iw.tiff(rgb, compression=7, photometric=6,
+                       subsampling=(2, 2), rows_per_strip=16)
+    if kind == "ycbcr":
+        return iw.tiff(iw.rgb_to_ycbcr(rgb), photometric=6,
+                       subsampling=(2, 2), compression=5)
+    if kind == "cmyk":
+        return iw.tiff(iw.rgb_to_cmyk(rgb), photometric=5, compression=8)
+    if kind == "bw1":
+        return iw.tiff((gray > 100).astype(np.uint8), bits=1, photometric=0,
+                       fillorder=2, compression=32773)
+    if kind == "float_pred3":
+        return iw.tiff(rgb.astype(np.float32), sampleformat=3, predictor=3,
+                       compression=8)
+    if kind == "bigtiff16":
+        return iw.tiff(rgb.astype(np.uint16) * 257, bigtiff=True,
+                       compression=5, predictor=2, order=">")
+    if kind == "cielab":
+        return iw.tiff(rgb, photometric=8, compression=5)
+    if kind == "g4":
+        return iw.tiff((gray > 100).astype(np.uint8), bits=1, compression=4,
+                       photometric=0)
+    return iw.tiff(rgb, compression=5, old_lzw=True, rows_per_strip=7)
+
+
+def tiff_scene_fixture(expected):
+    """`scene_tiff/`: 9 views of TIFF_SCENE's kinds under .jpg / .png, and
+    the SHA-256 of JAX's load_scene image stack on it; "shard_tiff": the
+    SHA-256 of each image JAX's `iter_shard_images` streams from a tar of
+    TIFF_SHARD's fixtures (shuffle buffer 4, RandomState(6))."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import tarfile
+    import tempfile
+    from spinnerf_tpu.data import llff as jllff
+    from spinnerf_tpu.data import shards as jshards
+    from spinnerf_tpu_torch.data import synthetic
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synthetic.make_scene(tmp / "s", n_views=len(TIFF_SCENE), h=24, w=32,
+                             factor=1, n_points=200, seed=2)
+        d = OUT / "scene_tiff"
+        shutil.rmtree(d, ignore_errors=True)
+        (d / "images").mkdir(parents=True)
+        shutil.copy(tmp / "s" / "poses_bounds.npy", d / "poses_bounds.npy")
+        views = sorted((tmp / "s" / "images").glob("*.png"))
+        for (kind, suffix), v in zip(TIFF_SCENE, views):
+            rgb = cv2.imread(str(v), cv2.IMREAD_COLOR)[..., ::-1].copy()
+            (d / "images" / f"{v.stem}{suffix}").write_bytes(
+                tiff_scene_view(kind, rgb))
+        scene = jllff.load_scene(d, factor=1, prepare=True)
+    images = np.asarray(scene.images)
+    expected["scene_tiff"] = {"images_shape": list(images.shape),
+                              "images_sha256": sha256(images)}
+    members = [(n, Path(n).stem + (".png", ".jpg")[k % 2])
+               for k, n in enumerate(TIFF_SHARD)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tar = Path(tmp) / "tiff.tar"
+        with tarfile.open(tar, "w") as tf:
+            for name, member in members:
+                tf.add(OUT / name, arcname=member)
+        got = [sha256(x) for x in jshards.iter_shard_images(
+            [tar], rng=np.random.RandomState(6), shuffle_buffer=4,
+            loop=False)]
+    expected["shard_tiff"] = {"members": members, "sha256": got}
 
 
 def shard_members():
@@ -782,7 +1027,7 @@ def main():
                   webp_files(rs), tiff_files(rs), other_files(),
                   misnamed_files(), pam_files(rs), pfm_files(rs),
                   sunras_files(rs), hdr_files(rs), gif_files(rs),
-                  jpeg_f1_files(rs)):
+                  jpeg_f1_files(rs), tiff_more_files()):
         files.update(group)
     expected = {"files": {}}
     for name, data in sorted(files.items()):
@@ -792,6 +1037,7 @@ def main():
         expected["files"][name] = {"port": port, **cv2_reads(OUT / name)}
     scene_fixture(expected)
     shard_fixture(expected)
+    tiff_scene_fixture(expected)
     (OUT / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     size = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"{len(files)} files, {size} bytes in {OUT}")
