@@ -328,7 +328,13 @@ Phases, each fatal on failure (no phase's error is caught):
      rising); a tar of one member of each new format (PAM, HDR, GIF, Sun
      raster, PFM, arithmetic and lossless JPEG) through
      `iter_shard_images` to the SHA-256s recorded from JAX's stream; and
-     each decoder's ms per megapixel.
+     each decoder's ms per megapixel; (g) JPEG 2000 without cv2
+     (`jpeg2000_phase`, F2.1): the 12-view `scene_j2k` (each view coded
+     another way, named .jpg / .png) through `load_scene` at factor 2 to
+     the JAX package's stack hash, `Config(prepare=True)` for 50 steps on
+     it (#1 / #2 launched, the PSNR rising), a tar of JPEG 2000 fixtures
+     through `iter_shard_images` to JAX's SHA-256s, and the decoder's ms
+     per megapixel on a 5/3 and a 9/7 view.
 """
 from __future__ import annotations
 
@@ -5601,6 +5607,7 @@ def jpeg_phase(exp_root, x=None):
         raise AssertionError(f"a hash kernel launched: {launched}")
     out["damaged"] = damaged_jpeg_phase(exp_root, all_expected)
     out["formats"] = formats_phase(exp_root, png_dir)
+    out["jpeg2000"] = jpeg2000_phase(exp_root)
     out["seconds"] = time.perf_counter() - t_start
     log(f"[jpeg] phase 21 in {out['seconds']:.1f} s")
     return out
@@ -5854,6 +5861,108 @@ def formats_phase(exp_root, png_dir):
     return out
 
 
+def jpeg2000_phase(exp_root):
+    """Phase 21 (g): JPEG 2000 read by `data/jpeg2000.py`
+    (native/j2k_native.cpp) with cv2 still unimportable, each gate fatal.
+
+    The committed `scene_j2k` (the 12 views of the JPEG scene coded as
+    JPEG 2000 by PIL and cv2: 9/7 and 5/3, tiles, precincts, each
+    progression order, layers, MCT off, a 16-bit view and a raw
+    codestream, named .jpg / .png) copied to `build/chip_smoke/j2k_scene`:
+    `load_scene(factor=2)` must give the image stack whose SHA-256 the JAX
+    package gave where the fixtures were made (expected.json's
+    "scene_j2k"), and `Config(prepare=True)` trains FORMATS_STEPS steps on
+    it with #1 and #2 launched and the PSNR rising. A tar of
+    "shard_j2k"'s members streams through `iter_shard_images` to the
+    SHA-256s recorded from JAX's stream. The decoder's ms per megapixel
+    (colour read from memory, best of JPEG_TIMING_REPS) on view 1 (5/3)
+    and view 0 (9/7). Returns a summary."""
+    import hashlib
+    import tarfile
+
+    import numpy as np
+
+    from spinnerf_tpu_torch.config import Config
+    from spinnerf_tpu_torch.data import imageio, llff, shards
+    from spinnerf_tpu_torch.ops import hash_encode_win as hw
+    from spinnerf_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("cv2 is importable in phase 21 (g)")
+    expected = json.loads((IMAGE_FIXTURES / "expected.json").read_text())
+    out = {}
+    scene = exp_root / "j2k_scene"
+    shutil.rmtree(scene, ignore_errors=True)
+    shutil.copytree(IMAGE_FIXTURES / "scene_j2k", scene)
+    views = sorted((scene / "images").iterdir())
+    if {imageio.sniff(p.read_bytes()) for p in views} != {"jpeg2000"}:
+        raise AssertionError("scene_j2k holds a view that is not JPEG 2000")
+    t1 = time.perf_counter()
+    got = llff.load_scene(scene, factor=2, prepare=True)
+    out["load_scene_s"] = time.perf_counter() - t1
+    rec = expected["scene_j2k"]
+    digest = hashlib.sha256(np.ascontiguousarray(got.images).tobytes()
+                            ).hexdigest()
+    if [list(got.images.shape), digest] != [rec["images_shape"],
+                                            rec["images_sha256"]]:
+        raise AssertionError(f"scene_j2k loads to {list(got.images.shape)} "
+                             f"{digest}, JAX gave {rec}")
+    del got
+    rec = expected["shard_j2k"]
+    tar = exp_root / "j2k_shard.tar"
+    with tarfile.open(tar, "w") as tf:
+        for name, member in rec["members"]:
+            tf.add(IMAGE_FIXTURES / name, arcname=member)
+    streamed = [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+                for x in shards.iter_shard_images(
+                    [tar], rng=np.random.RandomState(7), shuffle_buffer=4,
+                    loop=False)]
+    if streamed != rec["sha256"]:
+        raise AssertionError(f"the JPEG 2000 shard streams {streamed}, JAX "
+                             f"streamed {rec['sha256']}")
+    out["shard_images"] = len(streamed)
+    ms = {}
+    for kind, view in (("5/3", views[1]), ("9/7", views[0])):
+        data = view.read_bytes()
+        best = math.inf
+        for _ in range(JPEG_TIMING_REPS):
+            t1 = time.perf_counter()
+            img = imageio.read(data, mode="color", name=view.name)
+            best = min(best, time.perf_counter() - t1)
+        ms[kind] = best * 1e3 / (img.shape[0] * img.shape[1] / 1e6)
+    out["decode_color_ms_per_mp"] = ms
+    log("[jpeg2000] decode ms/MP " + json.dumps(ms))
+    cfg = Config(expname="j2k_scene", basedir=str(exp_root),
+                 datadir=str(scene), dataset_type="llff", factor=2,
+                 prepare=True, no_ndc=True, no_reload=True,
+                 train_scene=[i for i in range(len(views)) if i != JPEG_HELD],
+                 test_scene=[JPEG_HELD], N_iters=FORMATS_STEPS, i_print=50,
+                 i_weights=0, i_video=0, i_testset=0, i_feat=0)
+    tr = Trainer(cfg, log=log, device=CARD)
+    hw.launches.update({k: 0 for k in hw.launches})
+    psnr_1 = float(tr.fit(1)["psnr"])
+    psnr_end = float(tr.fit(FORMATS_STEPS)["psnr"])
+    out.update(psnr_1=psnr_1, psnr_end=psnr_end, launches=dict(hw.launches))
+    del tr
+    if not (hw.launches["fwd"] > 0 and hw.launches["bwd"] > 0):
+        raise AssertionError(f"#1 / #2 did not launch: {hw.launches}")
+    if not psnr_end > psnr_1:
+        raise AssertionError("PSNR did not rise on the JPEG 2000 scene")
+    out["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"jpeg2000": out}))
+    log(f"[jpeg2000] (g) scene_j2k loads equal to JAX's stack; the shard "
+        f"streams JAX's {out['shard_images']} images; {FORMATS_STEPS} steps "
+        f"PSNR {psnr_1:.3f} -> {psnr_end:.3f} dB, #1 / #2 launched "
+        f"{out['launches']}; ms/MP " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; (g) in {out['seconds']:.1f} s")
+    return out
+
+
 def build_mixed_scene(recipe, dst):
     """Phase 21 (d)'s scene: the committed JPEG scene with the views that
     `recipe` (expected.json's "mixed_scene") names replaced by its YCCK and
@@ -6003,8 +6112,8 @@ def main(argv):
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build: the kernels (one nvcc a source), and beside them the native
-    # host libraries (one g++ each: the image decoders, the JPEG decoder,
-    # the COLMAP reader), which phases 17 and 21 load
+    # host libraries (one g++ each: the image decoders, the JPEG and JPEG
+    # 2000 decoders, the COLMAP reader), which phases 17 and 21 load
     import threading
 
     from spinnerf_tpu_torch.native import build as native_build
@@ -6018,7 +6127,8 @@ def main(argv):
             native_errors[name] = e
 
     gxx = [threading.Thread(target=build_native, args=(name,))
-           for name in ("image_native", "jpeg_native", "colmap_native")]
+           for name in ("image_native", "jpeg_native", "j2k_native",
+                        "colmap_native")]
     for t in gxx:
         t.start()
     build_logs = cuda_build.build(["hash_encode_win", "fused_mlp_pe",

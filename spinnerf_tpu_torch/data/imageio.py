@@ -16,6 +16,8 @@ ask each decoder in turn whether the first bytes are its signature
                           PackBits in native/image_native.cpp, JPEG
                           strips in native/jpeg_native.cpp, Deflate
                           through zlib)
+  JPEG 2000 (J2K, JP2)    `data/jpeg2000.py` (OpenJPEG's decoder in
+                          native/j2k_native.cpp)
 
 `read(data, mode=..., source=..., name=...)` gives cv2's unchanged, colour
 or grayscale read (`IMREAD_UNCHANGED`, `IMREAD_COLOR`, `IMREAD_GRAYSCALE`)
@@ -32,9 +34,9 @@ Content that no cv2 decoder recognises raises FileNotFoundError (JAX's
 `imread_float` raises it where cv2 gives None); a damaged stream or a part
 of a format the port refuses raises ValueError naming the file and the
 reason; where cv2 gives pixels it never wrote (PAM conversions that fill a
-part of each row) the port refuses too. AVIF and JPEG 2000 are recognised
-but not decoded here (ROADMAP F2): they go through cv2, and raise
-RuntimeError naming cv2 where it is absent; no other read reaches cv2.
+part of each row) the port refuses too. AVIF is recognised but not decoded
+here (ROADMAP F2): it goes through cv2, and raises RuntimeError naming cv2
+where it is absent; no other read reaches cv2.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ import struct
 
 import numpy as np
 
-from spinnerf_tpu_torch.data import jpeg, tiff
+from spinnerf_tpu_torch.data import jpeg, jpeg2000, tiff
 from spinnerf_tpu_torch.native import build as _native
 
 MODES = ("unchanged", "color", "gray")
@@ -127,21 +129,24 @@ def read(data: bytes, *, mode: str = "unchanged", source: str = "buffer",
         return _read_hdr(data, mode, name)
     if kind == "gif":
         return _read_gif(data, mode, name)
-    return _cv2_read(data, mode, name, kind)
+    if kind == "jpeg2000":
+        return jpeg2000.read(data, mode, name)
+    return _cv2_read(data, mode, name)
 
 
-def _cv2_read(data: bytes, mode: str, name, kind: str) -> np.ndarray:
-    """cv2.imdecode's read of AVIF or JPEG 2000, which the port does not
-    decode yet (ROADMAP F2), in RGB(A) order; RuntimeError naming cv2
-    where it is absent."""
+def _cv2_read(data: bytes, mode: str, name) -> np.ndarray:
+    """cv2.imdecode's read of AVIF, which the port does not decode yet
+    (ROADMAP F2), in RGB(A) order; RuntimeError naming cv2 where it is
+    absent."""
+    kind = "avif"
     try:
         import cv2
     except ImportError:
         raise RuntimeError(
             f"{name}: {kind} images are read through cv2, which is not "
             f"installed (ROADMAP F2: the port decodes JPEG, PNG, BMP, PxM, "
-            f"PAM, PFM, Sun raster, Radiance HDR, GIF, WebP and TIFF "
-            f"without it; AVIF and JPEG 2000 not yet)") from None
+            f"PAM, PFM, Sun raster, Radiance HDR, GIF, WebP, TIFF and JPEG "
+            f"2000 without it; AVIF not yet)") from None
     flag = {"unchanged": cv2.IMREAD_UNCHANGED, "color": cv2.IMREAD_COLOR,
             "gray": cv2.IMREAD_GRAYSCALE}[mode]
     img = cv2.imdecode(np.frombuffer(data, np.uint8), flag)

@@ -2130,3 +2130,847 @@ def jpeg_lossless(samples, *, precision=8, predictor=1, pt=0, restart=0,
             out += bytes([0xFF, 0xD0 + (j - 1) % 8])
         out += seg
     return out + b"\xff\xd9"
+
+
+# ------------------------------------------------------------ JPEG 2000
+
+_J2K_QE = (
+    (0x5601, 1, 1, 1), (0x3401, 2, 6, 0), (0x1801, 3, 9, 0),
+    (0x0AC1, 4, 12, 0), (0x0521, 5, 29, 0), (0x0221, 38, 33, 0),
+    (0x5601, 7, 6, 1), (0x5401, 8, 14, 0), (0x4801, 9, 14, 0),
+    (0x3801, 10, 14, 0), (0x3001, 11, 17, 0), (0x2401, 12, 18, 0),
+    (0x1C01, 13, 20, 0), (0x1601, 29, 21, 0), (0x5601, 15, 14, 1),
+    (0x5401, 16, 14, 0), (0x5101, 17, 15, 0), (0x4801, 18, 16, 0),
+    (0x3801, 19, 17, 0), (0x3401, 20, 18, 0), (0x3001, 21, 19, 0),
+    (0x2801, 22, 19, 0), (0x2401, 23, 20, 0), (0x2201, 24, 21, 0),
+    (0x1C01, 25, 22, 0), (0x1801, 26, 23, 0), (0x1601, 27, 24, 0),
+    (0x1401, 28, 25, 0), (0x1201, 29, 26, 0), (0x1101, 30, 27, 0),
+    (0x0AC1, 31, 28, 0), (0x09C1, 32, 29, 0), (0x08A1, 33, 30, 0),
+    (0x0521, 34, 31, 0), (0x0441, 35, 32, 0), (0x02A1, 36, 33, 0),
+    (0x0221, 37, 34, 0), (0x0141, 38, 35, 0), (0x0111, 39, 36, 0),
+    (0x0085, 40, 37, 0), (0x0049, 41, 38, 0), (0x0025, 42, 39, 0),
+    (0x0015, 43, 40, 0), (0x0009, 44, 41, 0), (0x0005, 45, 42, 0),
+    (0x0001, 45, 43, 0), (0x5601, 46, 46, 0))
+_J2K_UNI, _J2K_AGG = 18, 17
+
+
+class _MqEncoder:
+    """ISO 15444-1 Annex C's MQ encoder (and the raw bit packer of the
+    BYPASS passes) over the 19 contexts of tier 1."""
+
+    def __init__(self):
+        self.reset()
+        self.start()
+
+    def reset(self):
+        self.ix = [0] * 19
+        self.mps = [0] * 19
+        self.ix[_J2K_UNI], self.ix[_J2K_AGG], self.ix[0] = 46, 3, 4
+
+    def start(self):
+        self.a, self.c, self.ct = 0x8000, 0, 12
+        self.buf = bytearray([0])   # the byte before the segment
+
+    def _byteout(self):
+        b = self.buf
+        if b[-1] == 0xFF:
+            b.append(self.c >> 20 & 0xFF)
+            self.c &= 0xFFFFF
+            self.ct = 7
+        elif self.c < 0x8000000:
+            b.append(self.c >> 19 & 0xFF)
+            self.c &= 0x7FFFF
+            self.ct = 8
+        else:
+            b[-1] += 1
+            if b[-1] == 0xFF:
+                self.c &= 0x7FFFFFF
+                b.append(self.c >> 20 & 0xFF)
+                self.c &= 0xFFFFF
+                self.ct = 7
+            else:
+                b.append(self.c >> 19 & 0xFF)
+                self.c &= 0x7FFFF
+                self.ct = 8
+
+    def encode(self, cx, d):
+        qe, nmps, nlps, sw = _J2K_QE[self.ix[cx]]
+        self.a -= qe
+        if d == self.mps[cx]:
+            if self.a & 0x8000:
+                self.c += qe
+                return
+            if self.a < qe:
+                self.a = qe
+            else:
+                self.c += qe
+            self.ix[cx] = nmps
+        else:
+            if self.a < qe:
+                self.c += qe
+            else:
+                self.a = qe
+            if sw:
+                self.mps[cx] ^= 1
+            self.ix[cx] = nlps
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byteout()
+            if self.a & 0x8000:
+                break
+
+    def flush(self) -> bytes:
+        tempc = self.c + self.a
+        self.c |= 0xFFFF
+        if self.c >= tempc:
+            self.c -= 0x8000
+        self.c <<= self.ct
+        self._byteout()
+        self.c <<= self.ct
+        self._byteout()
+        out = bytes(self.buf[1:])
+        return out[:-1] if out.endswith(b"\xff") else out
+
+    def size(self) -> int:
+        return len(self.buf) - 1
+
+    # raw (BYPASS) bits: after a 0xFF byte the next one holds 7 bits
+    def raw_start(self):
+        self.raw, self.rbyte, self.rct = bytearray(), 0, 8
+
+    def raw_bit(self, bit):
+        self.rct -= 1
+        self.rbyte |= bit << self.rct
+        if self.rct == 0:
+            self.raw.append(self.rbyte)
+            self.rct = 7 if self.rbyte == 0xFF else 8
+            self.rbyte = 0
+
+    def raw_flush(self) -> bytes:
+        cap = 7 if self.raw and self.raw[-1] == 0xFF else 8
+        if self.rct != cap:   # pad the partial byte with 0101...
+            k = 0
+            while self.rct:
+                self.rct -= 1
+                self.rbyte |= (k & 1) << self.rct
+                k += 1
+            self.raw.append(self.rbyte)
+        return bytes(self.raw)
+
+
+def _j2k_zc(orient, f):
+    h = (f >> 3 & 1) + (f >> 4 & 1)
+    v = (f >> 1 & 1) + (f >> 6 & 1)
+    d = (f & 1) + (f >> 2 & 1) + (f >> 5 & 1) + (f >> 7 & 1)
+    if orient == 1:
+        h, v = v, h
+    if orient == 3:
+        hv = h + v
+        if d >= 3:
+            return 8
+        if d == 2:
+            return 7 if hv >= 1 else 6
+        if d == 1:
+            return 5 if hv >= 2 else 4 if hv == 1 else 3
+        return 2 if hv >= 2 else 1 if hv == 1 else 0
+    if h == 2:
+        return 8
+    if h == 1:
+        return 7 if v else 6 if d else 5
+    if v:
+        return 4 if v == 2 else 3
+    return 2 if d >= 2 else d
+
+
+def _j2k_sc(f):
+    """(context, xor bit) of a sign from the N, S, W, E neighbours."""
+    def c(sig, neg):
+        return 0 if not f >> sig & 1 else -1 if f >> neg & 1 else 1
+    hc = max(-1, min(1, c(3, 10) + c(4, 11)))
+    vc = max(-1, min(1, c(1, 8) + c(6, 9)))
+    if hc == 0:
+        return (9 if vc == 0 else 10), int(vc < 0)
+    return (13 if vc == hc else 12 if vc == 0 else 11), int(hc < 0)
+
+
+def _j2k_t1(coef, orient, cblksty, nbits):
+    """Tier 1 of one code-block (Annex D), bit plane nbits - 1 down to 0:
+    its terminated segments (bytes) and, per coding pass, (segment, bytes
+    of that segment written by the end of the pass)."""
+    h, w = coef.shape
+    mag = np.abs(coef).astype(np.int64).tolist()
+    neg = (coef < 0).astype(int).tolist()
+    stride = w + 2
+    fl = [0] * (stride * (h + 2))
+    vsc = bool(cblksty & 8)
+    lazy, termall = cblksty & 1, cblksty & 4
+    total = 3 * nbits - 2
+    ends = set(range(1, total + 1)) if termall else {total}
+    if lazy and not termall:   # 10 passes, then 2 raw and 1 MQ in turn
+        p, m = 10, 2
+        while p < total:
+            ends.add(p)
+            p += m
+            m = 3 - m
+    mq = _MqEncoder()
+    segs, passes = [], []
+    SIG, VIS, REF = 1 << 12, 1 << 13, 1 << 14
+
+    def sig_on(i, y, s):
+        fl[i] |= SIG
+        if not (vsc and y & 3 == 0):
+            fl[i - stride - 1] |= 1 << 7
+            fl[i - stride] |= 1 << 6 | s << 9
+            fl[i - stride + 1] |= 1 << 5
+        fl[i - 1] |= 1 << 4 | s << 11
+        fl[i + 1] |= 1 << 3 | s << 10
+        fl[i + stride - 1] |= 1 << 2
+        fl[i + stride] |= 1 << 1 | s << 8
+        fl[i + stride + 1] |= 1
+
+    def sign(i, x, y, raw):
+        s = neg[y][x]
+        if raw:
+            mq.raw_bit(s)
+        else:
+            ctx, xr = _j2k_sc(fl[i])
+            mq.encode(ctx, s ^ xr)
+        sig_on(i, y, s)
+
+    pidx, open_seg, raw = 0, False, False
+    for plane in range(nbits - 1, -1, -1):
+        for ptype in ((2,) if plane == nbits - 1 else (0, 1, 2)):
+            if not open_seg:
+                raw = bool(lazy and ptype < 2 and pidx >= 10)
+                mq.raw_start() if raw else mq.start()
+                open_seg = True
+            for k in range(0, h, 4):
+                ymax = min(k + 4, h)
+                for x in range(w):
+                    y = k
+                    if ptype == 2 and ymax - k == 4 and not any(
+                            fl[(yy + 1) * stride + x + 1] & (SIG | VIS | 0xFF)
+                            for yy in range(k, ymax)):
+                        bits = [mag[yy][x] >> plane & 1
+                                for yy in range(k, ymax)]
+                        mq.encode(_J2K_AGG, int(any(bits)))
+                        if not any(bits):
+                            continue
+                        r = bits.index(1)
+                        mq.encode(_J2K_UNI, r >> 1)
+                        mq.encode(_J2K_UNI, r & 1)
+                        y = k + r
+                        sign((y + 1) * stride + x + 1, x, y, False)
+                        y += 1
+                    for y in range(y, ymax):
+                        i = (y + 1) * stride + x + 1
+                        f = fl[i]
+                        b = mag[y][x] >> plane & 1
+                        if ptype == 0:
+                            if f & (SIG | VIS) or not f & 0xFF:
+                                continue
+                            if raw:
+                                mq.raw_bit(b)
+                            else:
+                                mq.encode(_j2k_zc(orient, f & 0xFF), b)
+                            if b:
+                                sign(i, x, y, raw)
+                            fl[i] |= VIS
+                        elif ptype == 1:
+                            if f & (SIG | VIS) != SIG:
+                                continue
+                            if raw:
+                                mq.raw_bit(b)
+                            else:
+                                mq.encode(16 if f & REF else
+                                          15 if f & 0xFF else 14, b)
+                            fl[i] |= REF
+                        else:
+                            if not f & (SIG | VIS):
+                                mq.encode(_j2k_zc(orient, f & 0xFF), b)
+                                if b:
+                                    sign(i, x, y, False)
+                    if ptype == 2:
+                        for yy in range(k, ymax):
+                            fl[(yy + 1) * stride + x + 1] &= ~VIS
+            if ptype == 2 and cblksty & 32:
+                for b in (1, 0, 1, 0):
+                    mq.encode(_J2K_UNI, b)
+            if cblksty & 2 and not raw:
+                mq.reset()
+            pidx += 1
+            if pidx in ends:
+                segs.append(mq.raw_flush() if raw else mq.flush())
+                passes.append((len(segs) - 1, len(segs[-1])))
+                open_seg = False
+            else:
+                passes.append((len(segs),
+                               len(mq.raw) if raw else mq.size()))
+    return segs, passes
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _cdiv2(a, b):
+    return -(-a >> b)
+
+
+def _j2k_fdwt53_1d(x, i0):
+    """Forward reversible 5/3 lifting of one signal starting at coordinate
+    i0 (symmetric extension): (low, high)."""
+    n = len(x)
+    if n == 1:
+        return (x, x[:0]) if i0 % 2 == 0 else (x[:0], x * 2)
+    y = x.astype(np.int64).copy()
+    idx = np.arange(n) + i0
+
+    def at(k):   # whole-sample symmetric extension inside [0, n)
+        k = np.abs(k)
+        k = np.where(k >= n, 2 * (n - 1) - k, k)
+        return k
+
+    odd = np.nonzero(idx % 2 == 1)[0]
+    even = np.nonzero(idx % 2 == 0)[0]
+    y[odd] = x[odd] - ((x[at(odd - 1)] + x[at(odd + 1)]) >> 1)
+    y[even] = x[even] + ((y[at(even - 1)] + y[at(even + 1)] + 2) >> 2)
+    return y[even], y[odd]
+
+
+def _j2k_resolutions(x0, y0, x1, y1, numres):
+    return [(_cdiv2(x0, numres - 1 - r), _cdiv2(y0, numres - 1 - r),
+             _cdiv2(x1, numres - 1 - r), _cdiv2(y1, numres - 1 - r))
+            for r in range(numres)]
+
+
+def _j2k_fdwt53(a, res):
+    """The tile component `a` (int64 [h, w]) in Mallat layout after
+    len(res) - 1 levels, as the decoder's inverse (rows, then columns)
+    undoes them."""
+    a = a.astype(np.int64).copy()
+    for r in range(len(res) - 1, 0, -1):
+        rx0, ry0, rx1, ry1 = res[r]
+        rw, rh = rx1 - rx0, ry1 - ry0
+        for i in range(rw):
+            lo, hi = _j2k_fdwt53_1d(a[:rh, i], ry0)
+            a[:rh, i] = np.concatenate([lo, hi])
+        for j in range(rh):
+            lo, hi = _j2k_fdwt53_1d(a[j, :rw], rx0)
+            a[j, :rw] = np.concatenate([lo, hi])
+    return a
+
+
+def _j2k_tag_tree_encode(tree, leaf, threshold, bits):
+    """opj_tgt_encode: `tree` is (parents, values, lows, known)."""
+    parents, values, lows, known = tree
+    path = [leaf]
+    while parents[path[-1]] >= 0:
+        path.append(parents[path[-1]])
+    low = 0
+    for node in reversed(path):
+        if low > lows[node]:
+            lows[node] = low
+        else:
+            low = lows[node]
+        while low < threshold:
+            if low >= values[node]:
+                if not known[node]:
+                    bits.append(1)
+                    known[node] = True
+                break
+            bits.append(0)
+            low += 1
+        lows[node] = low
+
+
+def _j2k_tag_tree(w, h, leaf_values):
+    parents, values, base, lw, lh = [], list(leaf_values), [0], [w], [h]
+    total = w * h
+    while lw[-1] * lh[-1] > 1:
+        nw, nh = (lw[-1] + 1) // 2, (lh[-1] + 1) // 2
+        base.append(total)
+        total += nw * nh
+        lw.append(nw)
+        lh.append(nh)
+    parents = [-1] * total
+    values += [1 << 30] * (total - w * h)
+    for lv in range(len(lw) - 1):
+        for y in range(lh[lv]):
+            for x in range(lw[lv]):
+                node = base[lv] + y * lw[lv] + x
+                par = base[lv + 1] + (y // 2) * lw[lv + 1] + x // 2
+                parents[node] = par
+                values[par] = min(values[par], values[node])
+    return parents, values, [0] * total, [False] * total
+
+
+def _j2k_pack_header(bits) -> bytes:
+    """Packet-header bits, stuffed (7 bits after a 0xFF byte), padded, and
+    followed by 0x00 where the last byte is 0xFF."""
+    out, byte, ct = bytearray(), 0, 8
+    for b in bits:
+        ct -= 1
+        byte |= b << ct
+        if ct == 0:
+            out.append(byte)
+            ct, byte = (7 if byte == 0xFF else 8), 0
+    if ct != (7 if out and out[-1] == 0xFF else 8):
+        out.append(byte)
+    if out and out[-1] == 0xFF:
+        out.append(0)
+    return bytes(out)
+
+
+def _j2k_packet_order(comps, numlayers, prg, pocs):
+    """(layer, resolution, component, precinct) in opj_pi_next_*'s order
+    for one tile; `comps` per component: (dx, dy, tile bounds, resolutions
+    as (x0, y0, x1, y1, pdx, pdy, pw, ph))."""
+    maxres = max(len(c[3]) for c in comps)
+    vols = pocs or [(0, 0, numlayers, maxres, len(comps), prg)]
+    seen, out = set(), []
+
+    def add(lrcp):
+        if lrcp not in seen:
+            seen.add(lrcp)
+            out.append(lrcp)
+
+    for r0, c0, l1, r1, c1, p in vols:
+        l1, c1 = min(l1, numlayers), min(c1, len(comps))
+        if p in (0, 1):
+            for a in range(*((0, l1) if p == 0 else (r0, r1))):
+                for b in range(*((r0, r1) if p == 0 else (0, l1))):
+                    lay, r = (a, b) if p == 0 else (b, a)
+                    for c in range(c0, c1):
+                        res = comps[c][3]
+                        if r < len(res):
+                            for q in range(res[r][6] * res[r][7]):
+                                add((lay, r, c, q))
+            continue
+
+        def steps(cs):
+            dx = dy = 0
+            for c in cs:
+                cdx, cdy, _, res = comps[c]
+                n = len(res)
+                for r, rr in enumerate(res):
+                    vx, vy = cdx << (rr[4] + n - 1 - r), cdy << (rr[5] + n - 1 - r)
+                    dx = min(dx, vx) if dx else vx
+                    dy = min(dy, vy) if dy else vy
+            return dx, dy
+
+        def prec_at(c, r, x, y):
+            cdx, cdy, (tx0, ty0, tx1, ty1), res = comps[c]
+            lev = len(res) - 1 - r
+            _, _, _, _, pdx, pdy, pw, ph = res[r]
+            sx, sy = cdx << lev, cdy << lev
+            trx0, try0 = _cdiv(tx0, sx), _cdiv(ty0, sy)
+            trx1, try1 = _cdiv(tx1, sx), _cdiv(ty1, sy)
+            rpx, rpy = pdx + lev, pdy + lev
+            if not (y % (cdy << rpy) == 0 or
+                    (y == ty0 and (try0 << lev) % (1 << rpy))):
+                return None
+            if not (x % (cdx << rpx) == 0 or
+                    (x == tx0 and (trx0 << lev) % (1 << rpx))):
+                return None
+            if not pw or not ph or trx0 == trx1 or try0 == try1:
+                return None
+            return ((_cdiv(x, sx) >> pdx) - (trx0 >> pdx)
+                    + ((_cdiv(y, sy) >> pdy) - (try0 >> pdy)) * pw)
+
+        tx0, ty0, tx1, ty1 = comps[0][2]
+
+        def grid(dx, dy):
+            y = ty0
+            while y < ty1:
+                x = tx0
+                while x < tx1:
+                    yield x, y
+                    x += dx - x % dx
+                y += dy - y % dy
+
+        if p == 2:
+            dx, dy = steps(range(len(comps)))
+            for r in range(r0, r1):
+                for x, y in grid(dx, dy):
+                    for c in range(c0, c1):
+                        if r < len(comps[c][3]):
+                            q = prec_at(c, r, x, y)
+                            if q is not None:
+                                for lay in range(l1):
+                                    add((lay, r, c, q))
+        elif p == 3:
+            dx, dy = steps(range(len(comps)))
+            for x, y in grid(dx, dy):
+                for c in range(c0, c1):
+                    for r in range(r0, min(r1, len(comps[c][3]))):
+                        q = prec_at(c, r, x, y)
+                        if q is not None:
+                            for lay in range(l1):
+                                add((lay, r, c, q))
+        else:
+            for c in range(c0, c1):
+                dx, dy = steps([c])
+                for x, y in grid(dx, dy):
+                    for r in range(r0, min(r1, len(comps[c][3]))):
+                        q = prec_at(c, r, x, y)
+                        if q is not None:
+                            for lay in range(l1):
+                                add((lay, r, c, q))
+    return out
+
+
+def _marker16(code, body=b""):
+    return struct.pack(">HH", code, len(body) + 2) + body
+
+
+def _j2k_box(tag: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + tag + body
+
+
+def j2k(comps, *, precision=8, signed=False, subsampling=None, offset=(0, 0),
+        tile=None, tile_offset=(0, 0), levels=2, cblk=(6, 6), cblksty=0,
+        precincts=None, progression=0, layers=1, pocs=None, mct=False,
+        sop=False, eph=False, ppm=0, ppt=0, roi=None, tile_parts=1,
+        psot_zero=False, tnsot=True, jp2=False, colr=None, pclr=None,
+        cmap=None, cdef=None, icc=None) -> bytes:
+    """A JPEG 2000 Part 1 file with the reversible 5/3 path: `comps` is a
+    list of 2-D integer arrays (component c's size follows `subsampling`
+    [(dx, dy)] and `offset`), coded losslessly with `levels`
+    decompositions, code-blocks of 2^cblk[0] x 2^cblk[1], the code-block
+    style bits `cblksty` (1 BYPASS, 2 RESET, 4 TERMALL, 8 VSC, 16 PTERM,
+    32 SEGSYM), `precincts` (one (PPx, PPy) per resolution), the
+    progression order (0 LRCP .. 4 CPRL) and `pocs` [(RSpoc, CSpoc, LYEpoc,
+    REpoc, CEpoc, Ppoc)] in the main header, passes spread over `layers`,
+    SOP / EPH markers, packet headers moved to PPM (`ppm` markers) or PPT,
+    an RGN max-shift `roi` = (component, shift, (x0, y0, x1, y1) of the
+    image) and `tile_parts` per tile (the last with Psot 0 when
+    `psot_zero`). `jp2` wraps it in JP2 boxes with colr EnumCS `colr`
+    (or an ICC profile `icc`), and `pclr` = (entries [n, k], bit depths),
+    `cmap` [(cmp, mtyp, pcol)] and `cdef` [(cn, typ, asoc)]."""
+    nc = len(comps)
+    sub = subsampling or [(1, 1)] * nc
+    prec, sgn = [precision] * nc, [signed] * nc
+    dx0, dy0 = sub[0]
+    x0, y0 = offset
+    x1 = x0 + comps[0].shape[1] * dx0
+    y1 = y0 + comps[0].shape[0] * dy0
+    for c in range(1, nc):   # the image must hold every component
+        x1 = max(x1, (x0 // sub[c][0] + comps[c].shape[1]) * sub[c][0])
+        y1 = max(y1, (y0 // sub[c][1] + comps[c].shape[0]) * sub[c][1])
+    tdx, tdy = tile or (x1 - tile_offset[0], y1 - tile_offset[1])
+    tx0, ty0 = tile_offset
+    tw, th = _cdiv(x1 - tx0, tdx), _cdiv(y1 - ty0, tdy)
+    numres = levels + 1
+    prc = precincts or [(15, 15)] * numres
+    # the image of each component, DC-shifted, then the RCT
+    full = []
+    for c in range(nc):
+        dx, dy = sub[c]
+        cx0, cy0, cx1, cy1 = (_cdiv(x0, dx), _cdiv(y0, dy), _cdiv(x1, dx),
+                              _cdiv(y1, dy))
+        a = np.zeros((cy1 - cy0, cx1 - cx0), np.int64)
+        src = np.asarray(comps[c], np.int64)
+        a[:src.shape[0], :src.shape[1]] = src[:cy1 - cy0, :cx1 - cx0]
+        if not sgn[c]:
+            a -= 1 << (prec[c] - 1)
+        full.append((cx0, cy0, a))
+    gains = [0] + [1, 1, 2] * levels
+    bands_per_comp = 1 + 3 * levels
+    # code every tile
+    tiles_out, ppm_heads = [], []
+    expn_need = [[0] * bands_per_comp for _ in range(nc)]
+    tile_data = []
+    for t in range(tw * th):
+        p, q = t % tw, t // tw
+        tbx0, tby0 = max(tx0 + p * tdx, x0), max(ty0 + q * tdy, y0)
+        tbx1, tby1 = min(tx0 + (p + 1) * tdx, x1), min(ty0 + (q + 1) * tdy, y1)
+        tcomps = []
+        for c in range(nc):
+            dx, dy = sub[c]
+            kx0, ky0, kx1, ky1 = (_cdiv(tbx0, dx), _cdiv(tby0, dy),
+                                  _cdiv(tbx1, dx), _cdiv(tby1, dy))
+            cx0, cy0, a = full[c]
+            tcomps.append([kx0, ky0, kx1, ky1,
+                           a[ky0 - cy0:ky1 - cy0, kx0 - cx0:kx1 - cx0].copy()])
+        if mct and nc >= 3:
+            r, g, b = (tcomps[i][4] for i in range(3))
+            tcomps[0][4], tcomps[1][4], tcomps[2][4] = (
+                (r + 2 * g + b) >> 2, b - g, r - g)
+        tile_data.append((tbx0, tby0, tbx1, tby1, tcomps))
+    # coefficients, code-blocks and tier 1
+    coded = []
+    for tbx0, tby0, tbx1, tby1, tcomps in tile_data:
+        tc_out = []
+        for c, (kx0, ky0, kx1, ky1, a) in enumerate(tcomps):
+            res = _j2k_resolutions(kx0, ky0, kx1, ky1, numres)
+            coef = _j2k_fdwt53(a, res) if a.size else a
+            if roi and roi[0] == c:
+                rx0, ry0, rx1, ry1 = roi[2]
+                mask = np.zeros(coef.shape, bool)
+                mask[max(ry0 - ky0, 0):max(ry1 - ky0, 0),
+                     max(rx0 - kx0, 0):max(rx1 - kx0, 0)] = True
+                coef = np.where(mask, np.sign(coef) * (np.abs(coef) << roi[1]),
+                                coef)
+            rlist, step = [], 0
+            for r in range(numres):
+                rx0_, ry0_, rx1_, ry1_ = res[r]
+                pdx, pdy = prc[r]
+                lev = numres - 1 - r
+                tlpx, tlpy = (rx0_ >> pdx) << pdx, (ry0_ >> pdy) << pdy
+                pw = 0 if rx0_ == rx1_ else (_cdiv2(rx1_, pdx) << pdx) - tlpx >> pdx
+                ph = 0 if ry0_ == ry1_ else (_cdiv2(ry1_, pdy) << pdy) - tlpy >> pdy
+                if r == 0:
+                    tlcx, tlcy, cbw, cbh = tlpx, tlpy, pdx, pdy
+                else:
+                    tlcx, tlcy, cbw, cbh = (_cdiv2(tlpx, 1), _cdiv2(tlpy, 1),
+                                            pdx - 1, pdy - 1)
+                xcb, ycb = min(cblk[0], cbw), min(cblk[1], cbh)
+                bands = []
+                for b in ([0] if r == 0 else [1, 2, 3]):
+                    if r == 0:
+                        bx0, by0, bx1, by1 = (_cdiv2(kx0, lev), _cdiv2(ky0, lev),
+                                              _cdiv2(kx1, lev), _cdiv2(ky1, lev))
+                        ox = oy = 0
+                    else:
+                        xb, yb = b & 1, b >> 1
+                        bx0 = _cdiv2(kx0 - (xb << lev), lev + 1)
+                        by0 = _cdiv2(ky0 - (yb << lev), lev + 1)
+                        bx1 = _cdiv2(kx1 - (xb << lev), lev + 1)
+                        by1 = _cdiv2(ky1 - (yb << lev), lev + 1)
+                        pr = res[r - 1]
+                        ox = (pr[2] - pr[0]) if b & 1 else 0
+                        oy = (pr[3] - pr[1]) if b & 2 else 0
+                    band = {"b": b, "step": step, "precincts": []}
+                    step += 1
+                    if bx1 - bx0 and by1 - by0:
+                        for pn in range(pw * ph):
+                            cx = tlcx + (pn % pw) * (1 << cbw)
+                            cy = tlcy + (pn // pw) * (1 << cbh)
+                            px0, py0 = max(cx, bx0), max(cy, by0)
+                            px1 = min(cx + (1 << cbw), bx1)
+                            py1 = min(cy + (1 << cbh), by1)
+                            tlbx, tlby = (px0 >> xcb) << xcb, (py0 >> ycb) << ycb
+                            cw = max(0, (_cdiv2(px1, xcb) << xcb) - tlbx >> xcb)
+                            ch = max(0, (_cdiv2(py1, ycb) << ycb) - tlby >> ycb)
+                            blocks = []
+                            for cn in range(cw * ch):
+                                ex = tlbx + (cn % cw) * (1 << xcb)
+                                ey = tlby + (cn // cw) * (1 << ycb)
+                                ex0, ey0 = max(ex, px0), max(ey, py0)
+                                ex1 = min(ex + (1 << xcb), px1)
+                                ey1 = min(ey + (1 << ycb), py1)
+                                blocks.append(coef[ey0 - by0 + oy:ey1 - by0 + oy,
+                                                   ex0 - bx0 + ox:ex1 - bx0 + ox])
+                            band["precincts"].append((cw, ch, blocks))
+                            for blk in blocks:
+                                if blk.size:
+                                    nb = int(np.abs(blk).max()).bit_length()
+                                    if roi and roi[0] == c:
+                                        nb -= roi[1]
+                                    expn_need[c][band["step"]] = max(
+                                        expn_need[c][band["step"]], nb)
+                    bands.append(band)
+                rlist.append((rx0_, ry0_, rx1_, ry1_, pdx, pdy, pw, ph, bands))
+            tc_out.append(rlist)
+        coded.append(tc_out)
+    # quantisation: no quantisation, guard bits covering every band
+    expn = [[prec[c] + gains[b] for b in range(bands_per_comp)]
+            for c in range(nc)]
+    gb = max(1, max(expn_need[c][b] - expn[c][b] + 1
+                                  for c in range(nc)
+                                  for b in range(bands_per_comp)))
+    if gb > 7:
+        raise ValueError("the coefficients need more than 7 guard bits")
+    shift = roi[1] if roi else 0
+    # tier 1 and tier 2, tile by tile
+    for t, ((tbx0, tby0, tbx1, tby1, tcomps), tc_out) in enumerate(
+            zip(tile_data, coded)):
+        state = {}   # (c, r, b, precinct) -> code-block coding
+        geo = []
+        for c, rlist in enumerate(tc_out):
+            dx, dy = sub[c]
+            geo.append((dx, dy, (tbx0, tby0, tbx1, tby1),
+                        [rr[:8] for rr in rlist]))
+            for r, rr in enumerate(rlist):
+                for band in rr[8]:
+                    mb = gb + expn[c][band["step"]] - 1 + (
+                        shift if roi and roi[0] == c else 0)
+                    for pn, (cw, ch, blocks) in enumerate(band["precincts"]):
+                        info = []
+                        for blk in blocks:
+                            nb = int(np.abs(blk).max()).bit_length() if blk.size else 0
+                            if nb == 0:
+                                info.append(None)
+                                continue
+                            segs, passes = _j2k_t1(blk, band["b"], cblksty, nb)
+                            info.append((mb - nb, segs, passes))
+                        # passes per layer: an even share, cumulative
+                        firsts, cums = [], []
+                        for it in info:
+                            if it is None:
+                                firsts.append(1 << 20)
+                                cums.append([0] * (layers + 1))
+                                continue
+                            n = len(it[2])
+                            cum = [0] + [n * (l + 1) // layers
+                                         for l in range(layers)]
+                            cums.append(cum)
+                            firsts.append(next(l for l in range(layers)
+                                               if cum[l + 1] > 0))
+                        state[(c, r, band["b"], pn)] = {
+                            "cw": cw, "ch": ch, "info": info, "cums": cums,
+                            "incl": _j2k_tag_tree(cw, ch, firsts),
+                            "imsb": _j2k_tag_tree(cw, ch, [
+                                0 if it is None else it[0] for it in info]),
+                            "lblock": [3] * len(info), "in": [False] * len(info)}
+        order = _j2k_packet_order(geo, layers, progression, pocs)
+        packets = []
+        for k, (lay, r, c, pn) in enumerate(order):
+            bits, body = [], b""
+            rr = tc_out[c][r]
+            entries = [state[(c, r, band["b"], pn)] for band in rr[8]
+                       if (c, r, band["b"], pn) in state]
+            present = any(st["cums"][i][lay + 1] > st["cums"][i][lay]
+                          for st in entries for i in range(len(st["info"])))
+            bits.append(int(present))
+            if present:
+                for st in entries:
+                    for i, it in enumerate(st["info"]):
+                        cum = st["cums"][i]
+                        npass = cum[lay + 1] - cum[lay]
+                        if not st["in"][i]:
+                            _j2k_tag_tree_encode(st["incl"], i, lay + 1, bits)
+                        else:
+                            bits.append(int(npass > 0))
+                        if npass == 0:
+                            continue
+                        if not st["in"][i]:
+                            _j2k_tag_tree_encode(st["imsb"], i, 1 << 20, bits)
+                            st["in"][i] = True
+                        if npass == 1:
+                            bits += [0]
+                        elif npass == 2:
+                            bits += [1, 0]
+                        elif npass <= 5:
+                            bits += [1, 1] + [(npass - 3) >> 1 & 1, (npass - 3) & 1]
+                        elif npass <= 36:
+                            bits += [1, 1, 1, 1] + [(npass - 6) >> s & 1 for s in range(4, -1, -1)]
+                        else:
+                            bits += [1] * 9 + [(npass - 37) >> s & 1 for s in range(6, -1, -1)]
+                        _, segs, passes = it
+                        pieces = []   # (passes, bytes) per segment
+                        p0 = cum[lay]
+                        for pi in range(cum[lay], cum[lay + 1]):
+                            seg, ln = passes[pi]
+                            if pi == cum[lay + 1] - 1 or passes[pi + 1][0] != seg:
+                                start = passes[p0 - 1][1] if p0 and passes[p0 - 1][0] == seg else 0
+                                data = (segs[seg] if seg < len(segs) else b"")[start:ln]
+                                pieces.append((pi + 1 - p0, data))
+                                p0 = pi + 1
+                        need = max(len(d).bit_length() - (np_.bit_length() - 1)
+                                   for np_, d in pieces)
+                        inc = max(0, need - st["lblock"][i])
+                        bits += [1] * inc + [0]
+                        st["lblock"][i] += inc
+                        for np_, d in pieces:
+                            nbits = st["lblock"][i] + np_.bit_length() - 1
+                            bits += [len(d) >> s & 1 for s in range(nbits - 1, -1, -1)]
+                            body += d
+            head = _j2k_pack_header(bits)
+            if eph:
+                head += b"\xff\x92"
+            sopm = (b"\xff\x91\x00\x04" + struct.pack(">H", k % 65536)
+                    if sop else b"")
+            packets.append((head, sopm, body))
+        # tile-parts
+        want = tile_parts[t] if isinstance(tile_parts, (list, tuple)) \
+            else tile_parts
+        nparts = max(1, min(want, len(packets))) if packets else 1
+        splits = [len(packets) * i // nparts for i in range(nparts + 1)]
+        parts, zppt = [], 0   # Zppt counts on across a tile's parts
+        for i in range(nparts):
+            pk = packets[splits[i]:splits[i + 1]]
+            heads = b"".join(h for h, _, _ in pk)
+            data = b"".join(s_ + d for _, s_, d in pk) if (ppm or ppt) \
+                else b"".join(s_ + h + d for h, s_, d in pk)
+            extra = b""
+            if ppt and not ppm:
+                chunks = [heads[j:j + 65000] for j in range(0, len(heads), 65000)] or [b""]
+                if ppt > 1 and len(heads) > 1:
+                    cut = len(heads) // 2
+                    chunks = [heads[:cut], heads[cut:]]
+                extra = b"".join(_marker16(0xFF61, bytes([zppt + z]) + ch)
+                                 for z, ch in enumerate(chunks))
+                zppt += len(chunks)
+            ppm_heads.append(heads)
+            parts.append((extra, data))
+        tiles_out.append(parts)
+    # the codestream
+    siz = struct.pack(">HIIIIIIIIH", 0, x1, y1, x0, y0, tdx, tdy, tx0, ty0, nc)
+    for c in range(nc):
+        siz += bytes([(prec[c] - 1) | (0x80 if sgn[c] else 0),
+                      sub[c][0], sub[c][1]])
+    scod = (1 if precincts else 0) | (2 if sop else 0) | (4 if eph else 0)
+    cod = bytes([scod, progression]) + struct.pack(">H", layers) + bytes([
+        int(mct), levels, cblk[0] - 2, cblk[1] - 2, cblksty, 1])
+    if precincts:
+        cod += bytes(x | y << 4 for x, y in prc)
+    qcd = bytes([gb << 5]) + bytes(e << 3 for e in expn[0])
+    out = b"\xff\x4f" + _marker16(0xFF51, siz) + _marker16(0xFF52, cod)
+    out += _marker16(0xFF5C, qcd)
+    room = 1 if nc <= 256 else 2
+    for c in range(1, nc):
+        if expn[c] != expn[0]:
+            out += _marker16(0xFF5D, c.to_bytes(room, "big") + bytes(
+                [gb << 5]) + bytes(e << 3 for e in expn[c]))
+    if roi:
+        out += _marker16(0xFF5E, roi[0].to_bytes(room, "big") + bytes([0, roi[1]]))
+    if pocs:
+        out += _marker16(0xFF5F, b"".join(
+            bytes([r0]) + c0.to_bytes(room, "big") + struct.pack(">H", l1)
+            + bytes([r1]) + c1.to_bytes(room, "big") + bytes([pp])
+            for r0, c0, l1, r1, c1, pp in pocs))
+    if ppm:
+        blob = b"".join(struct.pack(">I", len(h)) + h for h in ppm_heads)
+        size = max(1, min(65000, _cdiv(len(blob), ppm)))
+        for z, j in enumerate(range(0, len(blob), size)):
+            out += _marker16(0xFF60, bytes([z]) + blob[j:j + size])
+    for t, parts in enumerate(tiles_out):
+        for i, (extra, data) in enumerate(parts):
+            last = t == len(tiles_out) - 1 and i == len(parts) - 1
+            psot = 0 if (psot_zero and last) else 12 + len(extra) + 2 + len(data)
+            out += _marker16(0xFF90, struct.pack(
+                ">HIBB", t, psot, i, len(parts) if tnsot else 0))
+            out += extra + b"\xff\x93" + data
+    out += b"\xff\xd9"
+    if not jp2:
+        return out
+    hdr = _j2k_box(b"ihdr", struct.pack(">IIHBBBB", y1 - y0, x1 - x0, nc,
+                                        (prec[0] - 1) | (0x80 if sgn[0] else 0)
+                                        if len(set(prec)) == 1 else 255,
+                                        7, 0, 0))
+    if icc is not None:
+        hdr += _j2k_box(b"colr", bytes([2, 0, 0]) + icc)
+    elif colr is not None:
+        hdr += _j2k_box(b"colr", bytes([1, 0, 0]) + struct.pack(">I", colr))
+    if pclr is not None:
+        entries, depths = pclr
+        entries = np.asarray(entries, np.int64)
+        body = struct.pack(">HB", len(entries), len(depths)) + bytes(
+            d - 1 for d in depths)
+        for row in entries:
+            for v, d in zip(row, depths):
+                body += int(v).to_bytes((d + 7) // 8, "big")
+        hdr += _j2k_box(b"pclr", body)
+    if cmap is not None:
+        hdr += _j2k_box(b"cmap", b"".join(struct.pack(">HBB", *m) for m in cmap))
+    if cdef is not None:
+        hdr += _j2k_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *d) for d in cdef))
+    return (_j2k_box(b"jP  ", b"\r\n\x87\n")
+            + _j2k_box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + _j2k_box(b"jp2h", hdr) + _j2k_box(b"jp2c", out))

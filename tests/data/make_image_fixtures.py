@@ -3,6 +3,7 @@ and `chip_smoke.py`'s phase 21 (f) with cv2 5.0 and PIL, and record cv2's
 reads of them (needs cv2, PIL and the JAX package; never run on the card):
 
     python tests/data/make_image_fixtures.py
+    python tests/data/make_image_fixtures.py --jpeg2000   # only JPEG 2000
 
 tests/data/images/
   <name>.<ext>     small files (23 x 37 unless named otherwise), one per
@@ -808,6 +809,119 @@ def misnamed_files():
             "misnamed_bmp.jpg": cv2_bytes(".bmp", bgr)}
 
 
+def jpeg2000_files():
+    """JPEG 2000 (their own RandomState): PIL's and cv2's files (OpenJPEG
+    2.5.4 / 2.5.3) lossless and lossy, J2K and JP2, gray, RGB, RGBA and
+    gray + alpha at 8 and 16 bits, 1 and 7 resolutions, code-block and
+    precinct sizes, tiles, tile and image offsets (cv2 gives None), each
+    progression order, several layers, MCT off, PLT; and
+    `image_writers.j2k`'s, which neither writes: each code-block style
+    (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), SOP / EPH, POC, packet
+    headers in PPM and PPT, RGN, sub-sampled components, 2 and 5
+    components, signed samples, 4-, 12- and 20-bit samples, a palette
+    (pclr / cmap) of 8- and 16-bit entries, cdef reordering and alpha, an
+    sYCC and a CMYK colr, Psot 0 and TNsot 0 tile-parts."""
+    rs = np.random.RandomState(27)
+    rgb = picture(seed=27)
+    rgba = picture(seed=28, channels=4)
+    gray = rgb[..., 1].copy()
+    g16 = wide(gray, rs)
+    big = picture(64, 64, seed=29)
+    f = {}
+
+    def pil(name, img, mode=None, **kw):
+        f[name] = pil_bytes(img, "JPEG2000", mode, **kw)
+
+    pil("jp2_rgb.jp2", rgb)
+    pil("j2k_rgb.j2k", rgb, no_jp2=True)
+    pil("jp2_rgb_97.jp2", rgb, irreversible=True, quality_layers=[12])
+    pil("jp2_rgb_97_layers.jp2", rgb, irreversible=True,
+        quality_layers=[40, 12, 4], progression="RLCP")
+    pil("jp2_rgb_53_layers.jp2", rgb, quality_layers=[30, 8])
+    pil("jp2_gray.jp2", gray)
+    pil("j2k_gray_97.j2k", gray, irreversible=True, no_jp2=True)
+    pil("jp2_rgba.jp2", rgba)
+    pil("j2k_rgba_97.j2k", rgba, irreversible=True, no_jp2=True,
+        quality_layers=[10])
+    pil("jp2_gray16.jp2", g16, "I;16")
+    pil("j2k_gray16_97.j2k", g16, "I;16", irreversible=True, no_jp2=True)
+    pil("jp2_la.jp2", np.dstack([gray, rgba[..., 3]]), "LA")
+    pil("j2k_la.j2k", np.dstack([gray, rgba[..., 3]]), "LA", no_jp2=True)
+    pil("jp2_res1.jp2", rgb, num_resolutions=1)
+    pil("jp2_res7_64x64.jp2", big, num_resolutions=7, irreversible=True)
+    pil("jp2_cblk4x64.jp2", big, codeblock_size=(4, 64))
+    pil("jp2_precincts.jp2", big, precinct_size=(32, 32),
+        codeblock_size=(8, 8), quality_layers=[20, 5], num_resolutions=3)
+    pil("jp2_tiles.jp2", rgb, tile_size=(16, 16))
+    pil("jp2_tiles_97.jp2", rgb, tile_size=(13, 11), irreversible=True)
+    pil("jp2_offset.jp2", rgb, offset=(5, 3), tile_size=(64, 64))
+    pil("jp2_tile_offset.jp2", rgb, offset=(4, 6), tile_offset=(2, 3),
+        tile_size=(16, 16))
+    for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        pil(f"jp2_{prog.lower()}.jp2", big, progression=prog,
+            precinct_size=(32, 32), codeblock_size=(8, 8),
+            quality_layers=[30, 10, 3], tile_size=(48, 40))
+    pil("jp2_mct0.jp2", rgb, mct=0)
+    pil("jp2_plt.jp2", rgb, plt=True)
+    pil("jp2_signed.jp2", g16, "I;16", signed=True)
+    # cv2 codes 6 resolutions: 32 x 32 samples at least
+    bgr40 = picture(40, 48, seed=30)[..., ::-1].copy()
+    f["cv2_rgb.jp2"] = cv2_bytes(".jp2", bgr40)
+    f["cv2_rgb_x100.jp2"] = cv2_bytes(
+        ".jp2", bgr40, [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 100])
+    f["cv2_gray.jp2"] = cv2_bytes(".jp2", bgr40[..., 1].copy())
+    f["cv2_rgb16.jp2"] = cv2_bytes(".jp2", wide(bgr40, rs))
+
+    planes = [rgb[..., i] for i in range(3)]
+    for name, sty in (("bypass", 1), ("reset_termall", 6),
+                      ("vsc_pterm_segsym", 56), ("all_styles", 63)):
+        f[f"j2k_{name}.j2k"] = iw.j2k(planes, cblksty=sty, layers=2,
+                                      cblk=(3, 3), levels=3)
+    f["j2k_sop_eph.j2k"] = iw.j2k(planes, sop=True, eph=True, layers=3,
+                                  progression=1)
+    f["j2k_poc.j2k"] = iw.j2k(planes, layers=2, pocs=[
+        (0, 0, 1, 2, 3, 0), (0, 0, 2, 3, 3, 4)])
+    f["j2k_ppm.j2k"] = iw.j2k(planes, ppm=2, tile=(16, 16), layers=2)
+    f["j2k_ppt.j2k"] = iw.j2k(planes, ppt=2, tile=(20, 12), tile_parts=2,
+                              sop=True)
+    f["j2k_rgn.j2k"] = iw.j2k(planes, roi=(1, 9, (4, 3, 20, 15)))
+    f["j2k_psot0_tnsot0.j2k"] = iw.j2k(planes, tile=(16, 16), tile_parts=2,
+                                       psot_zero=True, tnsot=False)
+    f["j2k_mct_tiles.j2k"] = iw.j2k(planes, mct=True, tile=(24, 8),
+                                    precincts=[(2, 2), (3, 2), (2, 3)])
+    f["j2k_subsampled.j2k"] = iw.j2k(
+        [gray, gray[::2, ::2], gray[::2, ::2]],
+        subsampling=[(1, 1), (2, 2), (2, 2)])
+    f["j2k_2comp.j2k"] = iw.j2k([gray, rgba[..., 3]])
+    f["j2k_5comp.j2k"] = iw.j2k(planes + [gray, gray])
+    f["j2k_signed.j2k"] = iw.j2k([gray.astype(np.int64) - 128], signed=True)
+    f["j2k_4bit.j2k"] = iw.j2k([gray >> 4], precision=4)
+    f["j2k_12bit.j2k"] = iw.j2k([p.astype(np.int64) << 4 | 9
+                                 for p in planes], precision=12)
+    f["j2k_20bit.j2k"] = iw.j2k([gray.astype(np.int64) << 12 | 77],
+                                precision=20)
+    idx = (gray // 16).astype(np.int64)
+    pal = rs.randint(0, 256, (16, 3))
+    f["jp2_palette.jp2"] = iw.j2k([idx], jp2=True, colr=16,
+                                  pclr=(pal, [8, 8, 8]),
+                                  cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    f["jp2_palette16.jp2"] = iw.j2k(
+        [idx], jp2=True, colr=16, pclr=(rs.randint(0, 65536, (16, 3)),
+                                        [16, 16, 16]),
+        cmap=[(0, 1, 0), (0, 1, 1), (0, 1, 2)])
+    f["jp2_cdef_bgr.jp2"] = iw.j2k(planes[::-1], jp2=True, colr=16,
+                                   cdef=[(0, 0, 3), (1, 0, 2), (2, 0, 1)])
+    f["jp2_cdef_alpha.jp2"] = iw.j2k(
+        [rgba[..., 3]] + [rgba[..., i] for i in range(3)], jp2=True,
+        colr=16, cdef=[(0, 1, 0), (1, 0, 1), (2, 0, 2), (3, 0, 3)])
+    ycc = iw.rgb_to_ycbcr(rgb)
+    f["jp2_sycc.jp2"] = iw.j2k([ycc[..., i] for i in range(3)], jp2=True,
+                               colr=18)
+    f["jp2_cmyk.jp2"] = iw.j2k(planes + [gray], jp2=True, colr=12)
+    f["jp2_icc.jp2"] = iw.j2k(planes, jp2=True, icc=bytes(132))
+    return f
+
+
 def scene_view():
     """View 1 of `synthetic.make_scene`'s 504 x 672 world (seed 0), RGB."""
     import tempfile
@@ -817,6 +931,103 @@ def scene_view():
                              seed=0)
         path = sorted((Path(tmp) / "images").glob("*.png"))[1]
         return cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+
+
+# scene_j2k/: the 12 views of tests/data/jpeg/scene as JPEG 2000, each
+# coded another way (PIL's and cv2's encoders), named after JAX's
+# IMG_EXTS; and the shard of JPEG 2000 fixtures
+J2K_SCENE = (
+    ("jp2", ".jpg", dict(irreversible=True, quality_layers=[40])),
+    ("jp2", ".png", dict(quality_layers=[40, 120])),
+    ("jp2", ".jpg", dict(irreversible=True, quality_layers=[40],
+                         tile_size=(128, 160))),
+    ("jp2", ".png", dict(irreversible=True, quality_layers=[40],
+                         progression="RPCL", precinct_size=(64, 64))),
+    ("jp2", ".jpg", dict(quality_layers=[40], progression="PCRL",
+                         precinct_size=(128, 128))),
+    ("jp2", ".png", dict(irreversible=True, quality_layers=[40],
+                         progression="CPRL")),
+    ("jp2", ".jpg", dict(irreversible=True, quality_layers=[160, 80, 40],
+                         progression="RLCP")),
+    ("cv2_16", ".png", dict()),
+    ("j2k", ".jpg", dict(irreversible=True, quality_layers=[40])),
+    ("jp2", ".png", dict(irreversible=True, quality_layers=[40], mct=0)),
+    ("jp2", ".jpg", dict(irreversible=True, quality_layers=[40],
+                         codeblock_size=(16, 16), num_resolutions=4)),
+    ("cv2", ".png", dict()),
+)
+J2K_SHARD = ("jp2_rgb_97.jp2", "j2k_rgb.j2k", "jp2_rgba.jp2",
+             "jp2_gray16.jp2", "jp2_offset.jp2", "j2k_all_styles.j2k",
+             "jp2_palette.jp2", "jp2_sycc.jp2", "cv2_rgb_x100.jp2",
+             "j2k_2comp.j2k", "jp2_rpcl.jp2", "j2k_ppt.j2k")
+
+
+def j2k_scene_view(kind, rgb, kw):
+    if kind == "cv2":
+        return cv2_bytes(".jp2", rgb[..., ::-1].copy(),
+                         [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 30])
+    if kind == "cv2_16":
+        return cv2_bytes(".jp2", rgb[..., ::-1].astype(np.uint16) * 257,
+                         [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 15])
+    return pil_bytes(rgb, "JPEG2000", no_jp2=kind == "j2k", **kw)
+
+
+def j2k_scene_fixture(expected):
+    """`scene_j2k/` and the SHA-256 of JAX's load_scene(factor=2) image
+    stack on it (read from a copy: minify writes images_2/ beside the
+    views); "shard_j2k": the SHA-256 of each image JAX's
+    `iter_shard_images` streams from a tar of J2K_SHARD's fixtures
+    (shuffle buffer 4, RandomState(7))."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import tarfile
+    import tempfile
+    from spinnerf_tpu.data import llff as jllff
+    from spinnerf_tpu.data import shards as jshards
+    src = HERE / "jpeg" / "scene"
+    d = OUT / "scene_j2k"
+    shutil.rmtree(d, ignore_errors=True)
+    (d / "images").mkdir(parents=True)
+    shutil.copy(src / "poses_bounds.npy", d / "poses_bounds.npy")
+    views = sorted((src / "images").glob("*.jpg"))
+    assert len(views) == len(J2K_SCENE)
+    for (kind, suffix, kw), v in zip(J2K_SCENE, views):
+        rgb = cv2.imread(str(v), cv2.IMREAD_COLOR)[..., ::-1].copy()
+        (d / "images" / f"{v.stem}{suffix}").write_bytes(
+            j2k_scene_view(kind, rgb, kw))
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(d, Path(tmp) / "s")
+        scene = jllff.load_scene(Path(tmp) / "s", factor=2, prepare=True)
+    images = np.asarray(scene.images)
+    expected["scene_j2k"] = {"images_shape": list(images.shape),
+                             "images_sha256": sha256(images)}
+    members = [(n, Path(n).stem + (".png", ".jpg")[k % 2])
+               for k, n in enumerate(J2K_SHARD)]
+    with tempfile.TemporaryDirectory() as tmp:
+        tar = Path(tmp) / "j2k.tar"
+        with tarfile.open(tar, "w") as tf:
+            for name, member in members:
+                tf.add(OUT / name, arcname=member)
+        got = [sha256(x) for x in jshards.iter_shard_images(
+            [tar], rng=np.random.RandomState(7), shuffle_buffer=4,
+            loop=False)]
+    expected["shard_j2k"] = {"members": members, "sha256": got}
+
+
+def jpeg2000_only():
+    """Rewrite only the JPEG 2000 fixtures and their entries in
+    expected.json (every other fixture keeps its bytes)."""
+    expected = json.loads((OUT / "expected.json").read_text())
+    for name in [n for n in expected["files"]
+                 if n.endswith((".jp2", ".j2k"))]:
+        del expected["files"][name]
+        (OUT / name).unlink(missing_ok=True)
+    for name, data in sorted(jpeg2000_files().items()):
+        (OUT / name).write_bytes(data)
+        expected["files"][name] = {"port": "equal", **cv2_reads(OUT / name)}
+    expected["files"] = dict(sorted(expected["files"].items()))
+    j2k_scene_fixture(expected)
+    (OUT / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
 
 
 # cv2 reads them, the port does not yet (ROADMAP F2)
@@ -1027,7 +1238,7 @@ def main():
                   webp_files(rs), tiff_files(rs), other_files(),
                   misnamed_files(), pam_files(rs), pfm_files(rs),
                   sunras_files(rs), hdr_files(rs), gif_files(rs),
-                  jpeg_f1_files(rs), tiff_more_files()):
+                  jpeg_f1_files(rs), tiff_more_files(), jpeg2000_files()):
         files.update(group)
     expected = {"files": {}}
     for name, data in sorted(files.items()):
@@ -1038,10 +1249,14 @@ def main():
     scene_fixture(expected)
     shard_fixture(expected)
     tiff_scene_fixture(expected)
+    j2k_scene_fixture(expected)
     (OUT / "expected.json").write_text(json.dumps(expected, indent=1) + "\n")
     size = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"{len(files)} files, {size} bytes in {OUT}")
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--jpeg2000"]:
+        jpeg2000_only()
+    else:
+        main()

@@ -95,6 +95,7 @@ def test_fixture_set_is_whole():
     assert sum((FIXTURES / f).stat().st_size for f in files) < 1 << 20
     kinds = {imageio.sniff((FIXTURES / f).read_bytes()) for f in files}
     assert kinds == {"bmp", "jpeg", "webp", "pxm", "tiff", "png",   # ported
+                     "jpeg2000",
                      "gif", "hdr", "avif", "sunras", "pfm", "pam"}  # F2
 
 
